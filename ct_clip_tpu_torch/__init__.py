@@ -1,0 +1,13 @@
+"""ct_clip_tpu_torch: the PyTorch/CUDA port of ct_clip_tpu for NVIDIA Hopper.
+
+The JAX package `ct_clip_tpu` is the reference; this package imports torch
+and never jax.  What runs so far is the zero-shot path: NIfTI loading,
+device preprocessing, the CTViT image tower, the BERT text tower and
+18-pathology scoring, with the TPU kernels on that path ported as
+hand-written CUDA kernels (csrc/, ops/kernels).
+"""
+from .config import (PATHOLOGIES, BertConfig, CTCLIPConfig, CTViTConfig,
+                     PreprocessConfig)
+
+__all__ = ["PATHOLOGIES", "BertConfig", "CTCLIPConfig", "CTViTConfig",
+           "PreprocessConfig"]

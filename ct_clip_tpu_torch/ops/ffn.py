@@ -1,0 +1,93 @@
+"""LN -> GEGLU feed-forward -> + x, the MaskGIT transformer's FF sublayer.
+
+Port of ct_clip_tpu/ops/mlp.py::MaskgitFeedForward and the TPU kernel
+ct_clip_tpu/ops/pallas/ffn.py::fused_geglu_ff (K3), held against its plain
+twin `_xla_ff` (exact-erf GELU).  Weights are in nn.Linear layout:
+wi (2*inner, dim) with the value half first and the gate half second (torch
+chunk order), wo (dim, inner).
+
+The residual is always added (the transformer's `ff(x) + x`).  On a CUDA
+tensor: LN (csrc/layernorm.cu), then one product that computes the
+value and gate tiles side by side and writes value * gelu(gate) (GEGLU
+epilogue, csrc/gemm.cu), then act * wo^T + x (residual epilogue).  The
+inner width is padded from 1365 to a multiple of 8 with zero weight rows so
+every product takes 16-byte loads; the padded columns of the intermediate
+are exactly zero and meet zero columns of wo.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import kernels as K
+from .norms import layer_norm
+
+
+def geglu_ff_plain(x, scale, bias, wi, wo, eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch version on (rows, dim) x."""
+    dtype = x.dtype
+    inner = wo.shape[1]
+    xn = layer_norm(x, scale, bias, eps)
+    hcat = xn @ wi.to(dtype).t()
+    act = (hcat[:, :inner].float() * F.gelu(hcat[:, inner:].float())).to(dtype)
+    return ((act @ wo.to(dtype).t()).float() + x.float()).to(dtype)
+
+
+def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
+    out = torch.zeros((rows,) + tuple(w.shape[1:]), dtype=w.dtype,
+                      device=w.device)
+    out[: w.shape[0]] = w
+    return out
+
+
+def _geglu_ff_cuda(x, scale, bias, wi, wo, eps):
+    rows, dim = x.shape
+    inner = wo.shape[1]
+    padded = -(-inner // 8) * 8
+    bf = torch.bfloat16
+    if wi.shape != (2 * inner, dim) or wo.shape[0] != dim:
+        raise ValueError(f"FF weights {tuple(wi.shape)}, {tuple(wo.shape)} "
+                         f"do not fit dim {dim}")
+    wib = wi.to(bf)
+    wa = _pad_rows(wib[:inner], padded)
+    wg = _pad_rows(wib[inner:], padded)
+    wo_p = torch.zeros((dim, padded), dtype=bf, device=x.device)
+    wo_p[:, :inner] = wo
+    xn = torch.empty_like(x)
+    K.layernorm(x, scale, bias, eps, xn)
+    act = torch.empty((rows, padded), dtype=bf, device=x.device)
+    K.gemm(K.EPI_GEGLU, xn, wa, act, w2=wg)
+    out = torch.empty_like(x)
+    K.gemm(K.EPI_RESIDUAL, act, wo_p, out, residual=x)
+    K.count_launch("geglu_ff")
+    return out
+
+
+def fused_geglu_ff(x: torch.Tensor, scale, bias, wi, wo,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """x + geglu(LN(x) wi^T) wo^T for 2-D x (rows, dim)."""
+    if x.device.type == "cpu":
+        return geglu_ff_plain(x, scale, bias, wi, wo, eps)
+    return _geglu_ff_cuda(x.contiguous(), scale, bias, wi, wo, eps)
+
+
+class MaskgitFeedForward(nn.Sequential):
+    """transformer_maskgit/attention.py:44-52; the Sequential's indices
+    reproduce the reference (0 LayerNorm, 1 Linear wi, 2 GEGLU, 3 Dropout,
+    4 Linear wo), so state-dict keys line up.  Slots 2 and 3 hold no
+    parameters; forward runs the fused op and adds the residual."""
+
+    def __init__(self, dim: int, device=None):
+        inner = int(4 * (2.0 / 3.0) * dim)  # reference mult=4
+        super().__init__(
+            nn.LayerNorm(dim, device=device),
+            nn.Linear(dim, inner * 2, bias=False, device=device),
+            nn.Identity(), nn.Identity(),
+            nn.Linear(inner, dim, bias=False, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ln, wi, wo = self[0], self[1], self[4]
+        out = fused_geglu_ff(x.reshape(-1, x.shape[-1]), ln.weight, ln.bias,
+                             wi.weight, wo.weight, ln.eps)
+        return out.view(x.shape)
