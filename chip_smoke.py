@@ -4,18 +4,27 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure (exit code != 0, no result line):
-  1. build the hand-written kernels from ct_clip_tpu_torch/csrc (nvcc);
+  1. build the hand-written kernels from ct_clip_tpu_torch/csrc (one nvcc
+     per source, all at once);
   2. kernel phase: each ported TPU kernel's wrapper against its plain
-     PyTorch version at the full-width CT-CLIP shapes, batch 2, in bf16:
-     max abs / rel error against a stated tolerance and median times
-     (CUDA events);
+     PyTorch version at the full-width CT-CLIP shapes, batch 2, in bf16
+     (K6 as the ingest calls it: one volume into a slot of the batch
+     buffer): max abs / rel error against a stated tolerance (K6, a pure
+     move, must be bit-exact), median times (CUDA events) of the kernel, the plain
+     version and, where one PyTorch call computes the same function, that
+     call, and the bound: the least time the card could take, from the
+     call's bytes and products and the H100's published peaks;
   3. end-to-end phase: a 3-volume synthetic CT-RATE corpus (NIfTI + CSVs +
      a toy vocab) through `run_zero_shot` at full CT-CLIP width (seeded
-     random weights), batch 2 with a tail batch; checks the (3, 18)
-     probabilities and that every kernel's launch counter rose;
+     random weights), batch 2 with a tail batch, twice: on the patch-row
+     route (the default on CUDA: K6 ingest, K4 embed) and on the volume
+     route (K8 embed).  Checks the (3, 18) probabilities, that the two
+     routes agree, the artifacts, and that each route's kernels' launch
+     counters rose; times `score_batch` on both routes.  Then
+     `export_latents` on one volume (the volume route) with its counters;
   4. reference check on a small input: a tiny CT-CLIP scores the same
      volumes on the card (kernels) and on the CPU (plain versions), both
-     bf16, and must agree.
+     bf16, from volumes and from patch rows, and must agree.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit (nvidia-smi), then {"ok": true, "device": {...}} as the last line.
@@ -41,31 +50,43 @@ B = 2  # volumes per batch
 # at the same points but sum in other orders, so an intermediate may land
 # one bf16 ulp (2^-8 relative) apart and carry that through later stages
 REL_TOL = 2e-2
+# the two zero-shot routes see the same bf16 values and differ only in the
+# order LN(4000) sums them: P(present) agree far inside this
+ROUTE_TOL = 0.05
+# NVIDIA H100 SXM published peaks (dense): bf16 tensor cores, HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 
-# counter name -> (TPU kernel, its public function file:line, main CUDA source)
+PALLAS = "ct_clip_tpu/ops/pallas/"
+CSRC = "ct_clip_tpu_torch/csrc/"
+# counter name -> (TPU kernel, its Pallas function file:line, main CUDA
+# source, every CUDA file the wrapper launches from)
 KERNELS = {
-    "patch_embed": ("fused_patch_embed", "ct_clip_tpu/ops/pallas/patchify.py:433",
-                    "ct_clip_tpu_torch/csrc/layernorm.cu"),
+    "patch_embed": ("fused_patch_embed", PALLAS + "patchify.py:341",
+                    "layernorm.cu", ["layernorm.cu", "gemm.cu"]),
     "spatial_attention": ("fused_spatial_qknorm_attention",
-                          "ct_clip_tpu/ops/pallas/spatial_attention.py:339",
-                          "ct_clip_tpu_torch/csrc/attention.cu"),
+                          PALLAS + "spatial_attention.py:276", "attention.cu",
+                          ["layernorm.cu", "gemm.cu", "attention.cu"]),
     "grid_attention": ("fused_small_qknorm_attention_grid",
-                       "ct_clip_tpu/ops/pallas/small_attention.py:606",
-                       "ct_clip_tpu_torch/csrc/attention.cu"),
-    "geglu_ff": ("fused_geglu_ff", "ct_clip_tpu/ops/pallas/ffn.py:125",
-                 "ct_clip_tpu_torch/csrc/gemm.cu"),
-    "vq_assign": ("pallas_assign", "ct_clip_tpu/ops/pallas/vq.py:104",
-                  "ct_clip_tpu_torch/csrc/gemm.cu"),
-    "fused_attention": ("fused_attention", "ct_clip_tpu/ops/pallas/attention.py:334",
-                        "ct_clip_tpu_torch/csrc/attention.cu"),
+                       PALLAS + "small_attention.py:196", "attention.cu",
+                       ["layernorm.cu", "gemm.cu", "attention.cu"]),
+    "geglu_ff": ("fused_geglu_ff", PALLAS + "ffn.py:105", "gemm.cu",
+                 ["layernorm.cu", "gemm.cu"]),
+    "vq_assign": ("pallas_assign", PALLAS + "vq.py:104", "gemm.cu", ["gemm.cu"]),
+    "fused_attention": ("fused_attention", PALLAS + "attention.py:129",
+                        "attention.cu", ["attention.cu"]),
+    "rearrange_patches": ("rearrange_patches", PALLAS + "patchify.py:105",
+                          "rearrange.cu", ["rearrange.cu"]),
+    "row_embed": ("fused_row_embed", PALLAS + "patchify.py:609", "layernorm.cu",
+                  ["layernorm.cu", "gemm.cu"]),
 }
-SOURCES = {  # every CUDA file a kernel's wrapper launches from
-    "patch_embed": ["layernorm.cu", "gemm.cu"],
-    "spatial_attention": ["layernorm.cu", "gemm.cu", "attention.cu"],
-    "grid_attention": ["layernorm.cu", "gemm.cu", "attention.cu"],
-    "geglu_ff": ["layernorm.cu", "gemm.cu"],
-    "vq_assign": ["gemm.cu"],
-    "fused_attention": ["attention.cu"],
+# kernels each driven path must launch
+COMMON = ["spatial_attention", "grid_attention", "geglu_ff", "vq_assign",
+          "fused_attention"]
+PATHS = {
+    "zero_shot_rows": COMMON + ["rearrange_patches", "row_embed"],
+    "zero_shot_volume": COMMON + ["patch_embed"],
+    "export_latents": COMMON + ["patch_embed"],
 }
 
 
@@ -92,15 +113,30 @@ def cuda_ms(fn, reps: int = 10) -> float:
 
 
 # ---------------------------------------------------------------- phase 2
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(read_bytes: int, flops: float):
+    """(ms, "bytes" | "operations"): the least time the card could take for
+    a call that reads its inputs once, writes its output once and runs
+    `flops` bf16 tensor-core operations, at the published peaks."""
+    t_bytes, t_ops = read_bytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def kernel_cases(dev):
-    """name -> (kernel call, plain call) at the full-width shapes of the
-    zero-shot path with B volumes per batch."""
+    """name -> dict(kern, plain, library (one PyTorch call computing the same
+    function, or None), inputs (tensors the call reads), flops) at the
+    full-width shapes of the zero-shot path with B volumes per batch."""
     import torch
+    import torch.nn.functional as F
 
     from ct_clip_tpu_torch.ops.attention import attention_plain, fused_attention
     from ct_clip_tpu_torch.ops.ffn import fused_geglu_ff, geglu_ff_plain
-    from ct_clip_tpu_torch.ops.patch_embed import (fused_patch_embed,
-                                                   patch_embed_plain)
+    from ct_clip_tpu_torch.ops.patch_embed import (
+        fused_patch_embed, fused_row_embed, patch_embed_plain, rearrange_patches,
+        rearrange_plain, row_embed_plain)
     from ct_clip_tpu_torch.ops.qknorm_attention import (
         fused_grid_qknorm_attention, fused_spatial_qknorm_attention,
         grid_qknorm_attention_plain, qknorm_attention_plain)
@@ -111,33 +147,55 @@ def kernel_cases(dev):
     def rn(*shape, scale=1.0, dtype=f32):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
-    dim, heads, dh, hd, n_tok = 512, 8, 32, 256, 13824
+    dim, heads, dh, hd, n_tok, pd = 512, 8, 32, 256, 13824, 4000
+    tokens = B * n_tok
     cases = {}
 
     video = (torch.rand((B, 240, 480, 480), generator=g, device=dev) * 2 - 1).to(bf)
-    pe = (1 + rn(4000, scale=0.1), rn(4000, scale=0.1), rn(512, 4000, scale=4000 ** -0.5),
-          rn(512, scale=0.1), 1 + rn(512, scale=0.1), rn(512, scale=0.1))
-    cases["patch_embed"] = (lambda: fused_patch_embed(video, *pe, 10, 20),
-                            lambda: patch_embed_plain(video, *pe, 10, 20))
+    pe = (1 + rn(pd, scale=0.1), rn(pd, scale=0.1), rn(dim, pd, scale=pd ** -0.5),
+          rn(dim, scale=0.1), 1 + rn(dim, scale=0.1), rn(dim, scale=0.1))
+    cases["patch_embed"] = dict(
+        kern=lambda: fused_patch_embed(video, *pe, 10, 20),
+        plain=lambda: patch_embed_plain(video, *pe, 10, 20), library=None,
+        inputs=(video, *pe), flops=2 * tokens * pd * dim)
+    rows = rearrange_plain(video, 10, 20)
+    # as the ingest calls it: one volume into the last slot of the batch buffer
+    one, slot = video[-1:], torch.empty_like(rows)[-1:]
+    cases["rearrange_patches"] = dict(
+        kern=lambda: rearrange_patches(one, 10, 20, out=slot),
+        plain=lambda: rearrange_plain(one, 10, 20),
+        library=lambda: one.reshape(1, 24, 10, 24, 20, 24, 20)
+        .permute(0, 1, 3, 5, 2, 4, 6).contiguous(),
+        inputs=(one,), flops=0)
+    cases["row_embed"] = dict(
+        kern=lambda: fused_row_embed(rows, *pe),
+        plain=lambda: row_embed_plain(rows, *pe), library=None,
+        inputs=(rows, *pe), flops=2 * tokens * pd * dim)
 
     w_attn = (1 + rn(dim, scale=0.1), rn(hd, dim, scale=dim ** -0.5),
               rn(2 * hd, dim, scale=dim ** -0.5), 1 + rn(dh, scale=0.2),
               1 + rn(dh, scale=0.2), rn(dim, hd, scale=hd ** -0.5))
+    proj_flops = 2 * tokens * dim * (hd + 2 * hd + hd)
     xs = rn(B * 24, 576, dim, dtype=bf)
     cpb = rn(heads, 576, 576)
-    cases["spatial_attention"] = (
-        lambda: fused_spatial_qknorm_attention(xs, *w_attn, cpb, heads, dh),
-        lambda: qknorm_attention_plain(xs, *w_attn, cpb, heads, dh))
+    cases["spatial_attention"] = dict(
+        kern=lambda: fused_spatial_qknorm_attention(xs, *w_attn, cpb, heads, dh),
+        plain=lambda: qknorm_attention_plain(xs, *w_attn, cpb, heads, dh),
+        library=None, inputs=(xs, *w_attn, cpb),
+        flops=proj_flops + 4 * (B * 24) * heads * 576 * 576 * dh)
     xg = rn(B, 24, 576, dim, dtype=bf)
-    cases["grid_attention"] = (
-        lambda: fused_grid_qknorm_attention(xg, *w_attn, heads, dh),
-        lambda: grid_qknorm_attention_plain(xg, *w_attn, heads, dh))
+    cases["grid_attention"] = dict(
+        kern=lambda: fused_grid_qknorm_attention(xg, *w_attn, heads, dh),
+        plain=lambda: grid_qknorm_attention_plain(xg, *w_attn, heads, dh),
+        library=None, inputs=(xg, *w_attn),
+        flops=proj_flops + 4 * (B * 576) * heads * 24 * 24 * dh)
 
-    xf = rn(B * n_tok, dim, dtype=bf)
+    xf = rn(tokens, dim, dtype=bf)
     w_ff = (1 + rn(dim, scale=0.1), rn(dim, scale=0.1),
             rn(2730, dim, scale=dim ** -0.5), rn(dim, 1365, scale=1365 ** -0.5))
-    cases["geglu_ff"] = (lambda: fused_geglu_ff(xf, *w_ff),
-                         lambda: geglu_ff_plain(xf, *w_ff))
+    cases["geglu_ff"] = dict(
+        kern=lambda: fused_geglu_ff(xf, *w_ff), plain=lambda: geglu_ff_plain(xf, *w_ff),
+        library=None, inputs=(xf, *w_ff), flops=2 * tokens * dim * (2730 + 1365))
 
     # BERT: 36 prompts x 12 heads x 512 positions x 64, head-major views of
     # the (b, n, h, d) projections, prompt-length pad masks
@@ -146,9 +204,13 @@ def kernel_cases(dev):
     lengths = torch.randint(5, 16, (36,), generator=g, device=dev)
     mask = (torch.arange(512, device=dev)[None] < lengths[:, None]).float()
     key_bias = (1 - mask) * torch.finfo(torch.float32).min
-    cases["fused_attention"] = (
-        lambda: fused_attention(q, k, v, key_bias=key_bias),
-        lambda: attention_plain(q, k, v, key_bias=key_bias))
+    sdpa_mask = key_bias.to(bf)[:, None, None, :]  # additive, in q's dtype
+    cases["fused_attention"] = dict(
+        kern=lambda: fused_attention(q, k, v, key_bias=key_bias),
+        plain=lambda: attention_plain(q, k, v, key_bias=key_bias),
+        library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
+                                                       scale=1.0),
+        inputs=(q, k, v, key_bias), flops=4 * 36 * 12 * 512 * 512 * 64)
     return cases
 
 
@@ -164,24 +226,40 @@ def vq_case(dev):
     return x, embed_n, (lambda: vq_assign(x, embed_n)), (lambda: vq_assign_plain(x, embed_n))
 
 
+def timing(case, out) -> dict:
+    """Median kernel, plain and library times, and the bound, of one case."""
+    ms, plain_ms = cuda_ms(case["kern"]), cuda_ms(case["plain"])
+    library_ms = cuda_ms(case["library"]) if case["library"] else None
+    bound_ms, bound_by = bound(nbytes(*case["inputs"], out), case["flops"])
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, bound_share=bound_ms / ms)
+
+
 def kernel_phase(dev):
     import torch
 
     results = {}
-    for name, (kern, plain) in kernel_cases(dev).items():
-        got, ref = kern(), plain()
+    for name, case in kernel_cases(dev).items():
+        got, ref = case["kern"](), case["plain"]()
         torch.cuda.synchronize()
         if got.shape != ref.shape or not torch.isfinite(got.float()).all():
             raise AssertionError(f"{name}: bad kernel output {tuple(got.shape)}")
         err = (got.float() - ref.float()).abs().max().item()
         rel = err / ref.float().abs().max().item()
-        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        # K6 moves values: it must equal its plain version bit for bit
+        exact = name == "rearrange_patches"
+        res = dict(max_abs_err=err, max_rel_err=rel,
+                   tolerance="bit-exact" if exact else f"rel {REL_TOL}",
+                   **timing(case, got))
+        lib = "none" if res["library_ms"] is None else f"{res['library_ms']:.3f} ms"
         log(f"kernel {name}: max_abs_err {err:.4e} max_rel_err {rel:.4e} "
-            f"(tol {REL_TOL:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
-        if rel > REL_TOL:
-            raise AssertionError(f"{name}: rel err {rel:.3e} > {REL_TOL}")
-        results[name] = dict(max_abs_err=err, max_rel_err=rel, ms=ms,
-                             plain_ms=plain_ms, tolerance=f"rel {REL_TOL}")
+            f"({res['tolerance']}) kernel {res['ms']:.3f} ms plain "
+            f"{res['plain_ms']:.3f} ms library {lib} bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}, {100 * res['bound_share']:.1f}% of it reached)")
+        if (exact and not torch.equal(got, ref)) or rel > REL_TOL:
+            raise AssertionError(f"{name}: error {err:.3e} (rel {rel:.3e}) "
+                                 f"outside {res['tolerance']}")
+        results[name] = res
         del got, ref
 
     x, embed_n, kern, plain = vq_case(dev)
@@ -191,14 +269,16 @@ def kernel_phase(dev):
     agree = (got == ref).float().mean().item()
     # a disagreement must be a near-tie within the bf16 margin (vq.py:17-22)
     margin_ok = bool((gap <= 4e-3 * sim.abs().max(dim=1).values).all())
-    ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+    res = timing(dict(kern=kern, plain=plain, library=None,
+                      inputs=(x, embed_n), flops=2 * x.shape[0] * 512 * 8192), got.int())
     log(f"kernel vq_assign: id agreement {agree:.6f} max sim gap "
-        f"{gap.max().item():.4e} kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+        f"{gap.max().item():.4e} kernel {res['ms']:.3f} ms plain {res['plain_ms']:.3f} ms "
+        f"library none bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+        f"{100 * res['bound_share']:.1f}% of it reached)")
     if agree < 0.99 or not margin_ok:
         raise AssertionError(f"vq_assign: agreement {agree}, near-ties {margin_ok}")
     results["vq_assign"] = dict(max_abs_err=gap.max().item(), id_agreement=agree,
-                                ms=ms, plain_ms=plain_ms,
-                                tolerance=">= 0.99 ids equal, rest near-ties")
+                                tolerance=">= 0.99 ids equal, rest near-ties", **res)
     del sim, x, embed_n
     torch.cuda.empty_cache()
     return results
@@ -245,14 +325,45 @@ def write_corpus(root: Path, shapes, spacing_xy: float, spacing_z: float):
     return [str(root / x) for x in ("data", "reports.csv", "meta.csv", "labels.csv")]
 
 
+def drive(name: str, fn):
+    """Run one path with every launch counter set to 0 just before it, read
+    the counters just after, and require that the path's kernels ran."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = K.launch_counts()
+    log(f"e2e {name}: {secs:.2f} s (host clock); launch counts {counts}")
+    missing = [k for k in PATHS[name] if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"{name}: kernels not launched: {missing}")
+    return out, counts, secs
+
+
+def check_predictions(name: str, out, results: Path):
+    pred = out["predicted"]
+    if pred.shape != (3, 18) or not np.isfinite(pred).all() \
+            or pred.min() < 0 or pred.max() > 1:
+        raise AssertionError(f"{name}: bad predictions {pred.shape} {pred}")
+    for fname in ("predicted_weights.npz", "labels_weights.npz", "accessions.txt",
+                  "aurocs.csv"):
+        if not (results / fname).exists():
+            raise AssertionError(f"{name}: missing artifact {fname}")
+
+
 def end_to_end_phase(dev, work: Path, card: str):
     import torch
 
     from ct_clip_tpu_torch.config import CTCLIPConfig
     from ct_clip_tpu_torch.data import CTReportDatasetInfer, WordPieceTokenizer
-    from ct_clip_tpu_torch.inference import run_zero_shot
+    from ct_clip_tpu_torch.inference import (ZeroShotClassifier, export_latents,
+                                             run_zero_shot)
     from ct_clip_tpu_torch.models import CTCLIP
-    from ct_clip_tpu_torch.ops import kernels as K
 
     # 256 x 256 x 60 at 1.5 x 1.5 x 6 mm resamples to 240 x 512 x 512 and
     # crops to the 240 x 480 x 480 model grid
@@ -266,52 +377,75 @@ def end_to_end_phase(dev, work: Path, card: str):
     log(f"e2e: full-width CT-CLIP built ({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
         f"params) in {time.perf_counter() - t0:.1f} s")
 
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = run_zero_shot(model, tok, ds, str(work / "results"), batch_size=B,
-                        num_workers=2)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = K.launch_counts()
-    pred = out["predicted"]
-    log(f"e2e: run_zero_shot scored {len(out['accessions'])} volumes in {secs:.2f} s "
-        f"= {len(out['accessions']) / secs:.3f} volumes/s (first run, prompt "
-        f"encoding and NIfTI decode included) on {card}")
-    log(f"e2e: launch counts {counts}")
-    if pred.shape != (3, 18) or not np.isfinite(pred).all() \
-            or pred.min() < 0 or pred.max() > 1:
-        raise AssertionError(f"bad predictions {pred.shape} {pred}")
-    for name in ("predicted_weights.npz", "labels_weights.npz", "accessions.txt"):
-        if not (work / "results" / name).exists():
-            raise AssertionError(f"missing artifact {name}")
-    missing = [k for k in KERNELS if counts.get(k, 0) < 1]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    counts, outs = {}, {}
+    for name, rows in (("zero_shot_rows", None), ("zero_shot_volume", False)):
+        results = work / name
+        outs[name], counts[name], secs = drive(name, lambda: run_zero_shot(
+            model, tok, ds, str(results), batch_size=B, num_workers=2,
+            patch_rows=rows))
+        check_predictions(name, outs[name], results)
+        log(f"e2e {name}: run_zero_shot scored 3 volumes = {3 / secs:.3f} volumes/s "
+            f"(prompt encoding and NIfTI decode included) on {card}")
+    # the rows route is the default on CUDA, and each route skips the other's embed
+    if counts["zero_shot_rows"]["patch_embed"] or counts["zero_shot_volume"]["row_embed"] \
+            or counts["zero_shot_volume"]["rearrange_patches"]:
+        raise AssertionError("a zero-shot route ran the other route's embed")
+    route_diff = float(np.abs(outs["zero_shot_rows"]["predicted"]
+                              - outs["zero_shot_volume"]["predicted"]).max())
+    log(f"e2e: P(present) rows route vs volume route max abs diff {route_diff:.4e} "
+        f"(tol {ROUTE_TOL})")
+    if route_diff > ROUTE_TOL:
+        raise AssertionError(f"the zero-shot routes disagree: {route_diff}")
 
-    # steady-state device time of one scored batch (encode + scoring)
-    from ct_clip_tpu_torch.inference import ZeroShotClassifier
+    # export-latents, the second serving entry point, on one volume
+    one = write_corpus(work / "one", [(256, 256, 60)], 1.5, 6.0)
+    lat, counts["export_latents"], _ = drive("export_latents", lambda: export_latents(
+        model, tok, CTReportDatasetInfer(*one), str(work / "latents"), num_workers=1))
+    vcfg = model.config.ctvit
+    grid = (vcfg.patch_t, vcfg.patch_hw, vcfg.patch_hw, vcfg.dim)
+    for kind, shape in (("image", grid), ("text", (model.config.dim_latent,))):
+        files = sorted((work / "latents" / f"{kind}_latents").glob("*.npz"))
+        arrs = [np.load(f)["arr"] for f in files]
+        if len(arrs) != 1 or arrs[0].shape != shape or not np.isfinite(arrs[0]).all():
+            raise AssertionError(f"export_latents: bad {kind} latents "
+                                 f"{[a.shape for a in arrs]}")
+    log(f"e2e export_latents: image {grid} and text ({model.config.dim_latent},) "
+        "latents finite")
 
+    # steady-state device time of one scored batch (embed + encode + scoring)
     clf = ZeroShotClassifier(model, tok)
-    videos = (torch.rand((B, 240, 480, 480, 1), device=dev) * 2 - 1).to(torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(3)
+    shapes = {"zero_shot_rows": (B, vcfg.patch_t * vcfg.patch_hw ** 2, vcfg.patch_dim),
+              "zero_shot_volume": (B, vcfg.num_frames, vcfg.image_size,
+                                   vcfg.image_size, 1)}
+    inputs = {name: torch.rand(shape, generator=g, device=dev) * 2 - 1
+              for name, shape in shapes.items()}
+    batch_ms = {}
     with torch.inference_mode():
-        batch_ms = cuda_ms(lambda: clf.score_batch(videos), reps=5)
-    log(f"e2e: score_batch({B}) {batch_ms:.1f} ms = {B / batch_ms * 1e3:.2f} "
-        f"volumes/s device-side on {card}")
-    return counts, pred
+        clf.prompt_latents()
+        for name, x in inputs.items():
+            x = x.to(torch.bfloat16)
+            batch_ms[name] = cuda_ms(lambda: clf.score_batch(x), reps=5)
+            log(f"e2e {name}: score_batch({B}) {batch_ms[name]:.2f} ms = "
+                f"{B / batch_ms[name] * 1e3:.2f} volumes/s device-side on {card}")
+            del x
+    return counts, route_diff, batch_ms
 
 
 # ---------------------------------------------------------------- phase 4
 def small_reference_phase(dev, work: Path):
     """Tiny CT-CLIP: card (kernels) vs CPU (plain versions), same weights,
-    both bf16.  Both round to bf16 at the same points; they differ in
-    summation order, so the P(present) agree to 0.05 (a pair softmax at
-    temperature e of latents ~1% apart)."""
+    both bf16, from volumes (K8) and from patch rows (K6 on the card, K4).
+    Both round to bf16 at the same points; they differ in summation order,
+    so the P(present) agree to 0.05 (a pair softmax at temperature e of
+    latents ~1% apart)."""
     import torch
 
     from ct_clip_tpu_torch.config import BertConfig, CTCLIPConfig, CTViTConfig
     from ct_clip_tpu_torch.inference import ZeroShotClassifier
     from ct_clip_tpu_torch.models import CTCLIP
     from ct_clip_tpu_torch.data import WordPieceTokenizer
+    from ct_clip_tpu_torch.ops.patch_embed import rearrange_patches
 
     cfg = CTCLIPConfig(
         dim_text=64, dim_image=9 * 64, dim_latent=32,
@@ -327,13 +461,22 @@ def small_reference_phase(dev, work: Path):
     gpu.load_state_dict(cpu.state_dict())
     video = torch.rand((3, 12, 48, 48, 1), generator=torch.Generator().manual_seed(2))
     video = (video * 2 - 1).to(torch.bfloat16)
-    ref = ZeroShotClassifier(cpu, tok, max_text_len=64).score_batch(video)
-    got = ZeroShotClassifier(gpu, tok, max_text_len=64).score_batch(video.to(dev)).cpu()
-    err = (got - ref).abs().max().item()
-    log(f"reference: tiny CT-CLIP P(present) card vs CPU max abs diff {err:.4e} (tol 0.05)")
-    if got.shape != (3, 18) or not torch.isfinite(got).all() or err > 0.05:
-        raise AssertionError(f"small-input reference disagrees: {err}")
-    return err
+    ref_clf = ZeroShotClassifier(cpu, tok, max_text_len=64)
+    gpu_clf = ZeroShotClassifier(gpu, tok, max_text_len=64)
+    errs = {}
+    for route in ("volume", "rows"):
+        if route == "volume":
+            ref = ref_clf.score_batch(video)
+            got = gpu_clf.score_batch(video.to(dev)).cpu()
+        else:
+            ref = ref_clf.score_batch(rearrange_patches(video[..., 0], 4, 16))
+            got = gpu_clf.score_batch(rearrange_patches(video[..., 0].to(dev), 4, 16)).cpu()
+        err = errs[route] = (got - ref).abs().max().item()
+        log(f"reference: tiny CT-CLIP P(present) from {route}, card vs CPU max abs "
+            f"diff {err:.4e} (tol 0.05)")
+        if got.shape != (3, 18) or not torch.isfinite(got).all() or err > 0.05:
+            raise AssertionError(f"small-input reference ({route}) disagrees: {err}")
+    return errs
 
 
 def main() -> int:
@@ -364,17 +507,24 @@ def main() -> int:
     work_root.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=work_root))
     try:
-        counts, _ = end_to_end_phase(dev, work, card)
-        small_reference_phase(dev, work)
+        counts, route_diff, batch_ms = end_to_end_phase(dev, work, card)
+        ref_errs = small_reference_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     table = []
-    for name, (fn, replaces, source) in KERNELS.items():
-        table.append({"name": f"{fn}", "route": "cuda", "source": source,
-                      "sources": [f"ct_clip_tpu_torch/csrc/{s}" for s in SOURCES[name]],
-                      "replaces": replaces, "launches": counts[name],
+    for name, (fn, replaces, source, sources) in KERNELS.items():
+        # launches on the main path (the default rows route); K8 is off it
+        # and reports the volume route's
+        by_path = {path: c[name] for path, c in counts.items()}
+        main = "zero_shot_rows" if name in PATHS["zero_shot_rows"] else "zero_shot_volume"
+        table.append({"name": fn, "route": "cuda", "source": CSRC + source,
+                      "sources": [CSRC + f for f in sources], "replaces": replaces,
+                      "launches": by_path[main], "launches_by_path": by_path,
                       **results[name]})
+    print(json.dumps({"e2e": {"score_batch_ms": batch_ms, "batch": B,
+                              "route_max_abs_diff": route_diff,
+                              "tiny_card_vs_cpu_max_abs_diff": ref_errs}}), flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

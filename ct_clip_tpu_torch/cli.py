@@ -1,12 +1,17 @@
 """Command line of the PyTorch port.
 
-  python -m ct_clip_tpu_torch.cli zero-shot --data DIR --reports CSV \\
-      --meta CSV --labels CSV --vocab vocab.txt [--ckpt CT-CLIP.pt] \\
-      [--batch-size 4] [--results DIR]
+  python -m ct_clip_tpu_torch.cli --vocab vocab.txt [--device cuda|cpu] \\
+      zero-shot --data DIR --reports CSV --meta CSV --labels CSV \\
+      [--ckpt CT-CLIP.pt] [--batch-size 4] [--results DIR]
+  python -m ct_clip_tpu_torch.cli --vocab vocab.txt [--device cuda|cpu] \\
+      export-latents --data DIR --reports CSV --meta CSV --labels CSV \\
+      [--ckpt CT-CLIP.pt] [--results DIR]
 
-Mirrors `ct_clip_tpu.cli zero-shot`.  Runs on the first CUDA device when one
-is present (bf16, hand-written kernels), else on the CPU (plain versions).
-Without --ckpt the weights are a seeded random initialisation.
+Mirrors `ct_clip_tpu.cli zero-shot` and `export-latents`.  Runs on the first
+CUDA device (bf16, hand-written kernels) unless `--device cpu` asks for the
+CPU (plain versions); without a CUDA device and without `--device cpu` it
+exits with an error.  Without --ckpt the weights are a seeded random
+initialisation.
 """
 from __future__ import annotations
 
@@ -53,35 +58,58 @@ def build_model(bf16: bool, device: torch.device, ckpt=None,
     return model
 
 
-def cmd_zero_shot(args) -> None:
+def _setup(args):
     from .data import CTReportDatasetInfer, WordPieceTokenizer
+
+    model = build_model(args.bf16, torch.device(args.device), args.ckpt, args.seed)
+    ds = CTReportDatasetInfer(args.data, args.reports, args.meta, args.labels)
+    return model, WordPieceTokenizer(args.vocab), ds
+
+
+def cmd_zero_shot(args) -> None:
     from .inference import run_zero_shot
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    model = build_model(args.bf16, device, args.ckpt, args.seed)
-    ds = CTReportDatasetInfer(args.data, args.reports, args.meta, args.labels)
-    out = run_zero_shot(model, WordPieceTokenizer(args.vocab), ds, args.results,
-                        batch_size=args.batch_size, num_workers=args.workers)
-    print(f"scored {len(out['accessions'])} volumes on {device} -> {args.results}")
+    model, tok, ds = _setup(args)
+    out = run_zero_shot(model, tok, ds, args.results, batch_size=args.batch_size,
+                        num_workers=args.workers)
+    print(f"scored {len(out['accessions'])} volumes on {args.device} -> {args.results}")
+
+
+def cmd_export_latents(args) -> None:
+    from .inference import export_latents
+
+    model, tok, ds = _setup(args)
+    out = export_latents(model, tok, ds, args.results, num_workers=args.workers)
+    print(f"exported latents of {len(out['image'])} volumes on {args.device} "
+          f"-> {args.results}")
+
+
+def _data_args(parser, results: str) -> None:
+    for name in ("--data", "--reports", "--meta", "--labels"):
+        parser.add_argument(name, required=True)
+    parser.add_argument("--ckpt")
+    parser.add_argument("--results", default=results)
+    parser.add_argument("--workers", type=int, default=8)
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="ct_clip_tpu_torch")
     p.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="run on the first CUDA device (default) or the CPU")
     p.add_argument("--vocab", required=True, help="CXR-BERT vocab.txt path")
     p.add_argument("--seed", type=int, default=0, help="random-init seed")
     sub = p.add_subparsers(dest="cmd", required=True)
     z = sub.add_parser("zero-shot")
-    z.add_argument("--data", required=True)
-    z.add_argument("--reports", required=True)
-    z.add_argument("--meta", required=True)
-    z.add_argument("--labels", required=True)
-    z.add_argument("--ckpt")
-    z.add_argument("--results", default="inference_zeroshot")
+    _data_args(z, "inference_zeroshot")
     z.add_argument("--batch-size", type=int, default=4)
-    z.add_argument("--workers", type=int, default=8)
     z.set_defaults(fn=cmd_zero_shot)
+    e = sub.add_parser("export-latents")
+    _data_args(e, "latents")
+    e.set_defaults(fn=cmd_export_latents)
     args = p.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        p.error("no CUDA device is available; pass --device cpu to run on the CPU")
     args.fn(args)
 
 

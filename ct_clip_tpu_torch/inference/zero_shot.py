@@ -1,15 +1,23 @@
 """Zero-shot 18-pathology classification.
 
-Port of ct_clip_tpu/inference/zero_shot.py (volume-input path).  Protocol of
-the reference scripts/zero_shot.py:106-171: each pathology's prompt pair
-("{p} is present.", "{p} is not present.") is scored against the volume and
-softmaxed over the pair; P(present) = probs[0].  As in the JAX package the
-36 prompt latents and the CPB bias table are computed once per weight load,
-and volumes are encoded in batches, the last batch padded to the batch size.
+Port of ct_clip_tpu/inference/zero_shot.py.  Protocol of the reference
+scripts/zero_shot.py:106-171: each pathology's prompt pair ("{p} is
+present.", "{p} is not present.") is scored against the volume and softmaxed
+over the pair; P(present) = probs[0].  As in the JAX package the 36 prompt
+latents and the CPB bias table are computed once per weight load, and
+volumes are encoded in batches of a fixed size.
 
-Artifacts: labels_weights.npz, predicted_weights.npz and accessions.txt.
-The AUROC table of the JAX package (evals/metrics.py) needs pandas and
-scikit-learn and is not ported yet.
+Two ingest routes, as in the JAX package:
+  * patch rows (the default on CUDA): each volume is preprocessed and moved
+    into patch rows by K6 straight into its slot of one (B, t*h*w,
+    patch_dim) batch buffer, and the tower embeds the rows with K4;
+  * volumes (the default on the CPU): each preprocessed volume is stacked
+    into a (B, f, H, W, 1) batch and embedded with K8.
+The tail batch is scored at the full batch size and only its real rows are
+kept.
+
+Artifacts: labels_weights.npz, predicted_weights.npz, accessions.txt and the
+per-pathology AUROC table aurocs.csv (evals/metrics.py).
 """
 from __future__ import annotations
 
@@ -21,8 +29,9 @@ import torch
 
 from ..config import PATHOLOGIES, PreprocessConfig
 from ..data.loader import VolumeLoader
+from ..evals.metrics import evaluate_internal, write_table
 from ..models.ctclip import CTCLIP
-from ..ops.resample import preprocess_volume
+from ..ops.resample import preprocess_rows_into, preprocess_volume
 
 
 def pathology_prompts() -> List[str]:
@@ -77,18 +86,23 @@ class ZeroShotClassifier:
 
     @torch.inference_mode()
     def score_batch(self, videos: torch.Tensor) -> torch.Tensor:
-        """(B, f, H, W, 1) preprocessed volumes -> (B, num_pathologies)."""
+        """(B, f, H, W, 1) preprocessed volumes or (B, t*h*w, patch_dim)
+        patch rows -> (B, num_pathologies)."""
         latents, _ = self.model.encode_image(videos, self.spatial_bias())
         return self.scores_from_latents(latents)
 
 
 @torch.inference_mode()
 def run_zero_shot(model: CTCLIP, tokenizer, dataset, results_folder: str,
-                  batch_size: int = 4, num_workers: int = 8) -> Dict[str, object]:
+                  batch_size: int = 4, num_workers: int = 8,
+                  patch_rows: Optional[bool] = None) -> Dict[str, object]:
     """Score every volume of `dataset` on the model's device, write the
     artifacts to `results_folder` and return {"predicted": (N, 18),
-    "labels": (N, 18), "accessions": [N]}."""
+    "labels": (N, 18), "accessions": [N]}.  `patch_rows` picks the ingest
+    route; None means patch rows when the model is on CUDA."""
     clf = ZeroShotClassifier(model, tokenizer)
+    if patch_rows is None:
+        patch_rows = clf.device.type == "cuda"
     vcfg = model.config.ctvit
     pre = PreprocessConfig(
         target_shape=(vcfg.num_frames, vcfg.image_size, vcfg.image_size),
@@ -98,26 +112,44 @@ def run_zero_shot(model: CTCLIP, tokenizer, dataset, results_folder: str,
     preds: List[np.ndarray] = []
     labels: List[np.ndarray] = []
     names: List[str] = []
-    batch: List[torch.Tensor] = []
+    pending = 0  # volumes in the batch not yet scored
+    if patch_rows:
+        # one buffer: the stream orders each slot write after the previous
+        # batch's score, and a tail batch's unwritten slots keep the previous
+        # batch's rows, which are scored and dropped
+        n_tok = vcfg.patch_t * vcfg.patch_hw ** 2
+        buf = torch.zeros((batch_size, n_tok, vcfg.patch_dim),
+                          dtype=model.dtype, device=clf.device)
+    else:
+        vols: List[torch.Tensor] = []
 
     def flush():
-        n = len(batch)
-        vols = batch + [torch.zeros_like(batch[0])] * (batch_size - n)
-        probs = clf.score_batch(torch.stack(vols)[..., None])
-        preds.append(probs[:n].cpu().numpy())
-        batch.clear()
+        nonlocal pending
+        if patch_rows:
+            videos = buf
+        else:
+            pad = [torch.zeros_like(vols[0])] * (batch_size - pending)
+            videos = torch.stack(vols + pad)[..., None]
+            vols.clear()
+        preds.append(clf.score_batch(videos)[:pending].cpu().numpy())
+        pending = 0
 
     for sample in loader:
         vol = torch.from_numpy(sample.vol).to(clf.device)
-        batch.append(preprocess_volume(
-            vol, sample.spacing, float(sample.slope), float(sample.intercept),
-            true_sizes=sample.true_sizes_zxy, input_layout="zyx",
-            out_dtype=model.dtype, config=pre))
+        args = (vol, sample.spacing, float(sample.slope), float(sample.intercept))
+        kw = dict(true_sizes=sample.true_sizes_zxy, input_layout="zyx", config=pre)
+        if patch_rows:
+            preprocess_rows_into(buf, pending, *args, **kw,
+                                 temporal_patch_size=vcfg.temporal_patch_size,
+                                 patch_size=vcfg.patch_size)
+        else:
+            vols.append(preprocess_volume(*args, **kw, out_dtype=model.dtype))
         labels.append(sample.meta.labels)
         names.append(sample.meta.accession)
-        if len(batch) == batch_size:
+        pending += 1
+        if pending == batch_size:
             flush()
-    if batch:
+    if pending:
         flush()
 
     n_p = len(PATHOLOGIES)
@@ -128,4 +160,6 @@ def run_zero_shot(model: CTCLIP, tokenizer, dataset, results_folder: str,
     np.savez(out_dir / "labels_weights.npz", data=real)
     np.savez(out_dir / "predicted_weights.npz", data=predicted)
     (out_dir / "accessions.txt").write_text("\n".join(names) + "\n")
+    write_table(evaluate_internal(predicted, real, PATHOLOGIES),
+                out_dir / "aurocs.csv")
     return {"predicted": predicted, "labels": real, "accessions": names}

@@ -76,7 +76,8 @@ class CTCLIP(nn.Module):
     def encode_image(self, video: torch.Tensor,
                      spatial_bias: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(b, f, H, W, 1) -> (latents (b, dim_latent), tokens (b, t, h, w, d))."""
+        """(b, f, H, W, 1) volume or (b, t*h*w, patch_dim) patch rows ->
+        (latents (b, dim_latent), tokens (b, t, h, w, d))."""
         enc = self.visual_transformer(video, spatial_bias=spatial_bias)
         flat = enc.mean(dim=1).reshape(enc.shape[0], -1)
         lat = F.linear(flat, self.to_visual_latent.weight.to(flat.dtype))

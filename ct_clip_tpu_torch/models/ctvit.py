@@ -2,10 +2,12 @@
 each 24x24 plane with a continuous position bias -> temporal transformer over
 each 24-frame column -> cosine VQ.
 
-Port of ct_clip_tpu/models/ctvit.py (`embed_patches` on the volume path,
-`encode` with the native grid temporal path, `compute_spatial_bias`, the VQ
-and `return_encoded_tokens`).  Input is channels-last (b, frames, H, W, c)
-as in the JAX package.  The temporal stage always runs in the native
+Port of ct_clip_tpu/models/ctvit.py (`embed_patches` on the volume and the
+patch-row paths, `encode` with the native grid temporal path,
+`compute_spatial_bias`, the VQ and `return_encoded_tokens`).  Input is a
+channels-last (b, frames, H, W, c) volume, or (b, t*h*w, patch_dim) patch
+rows from the ingest (ops/resample.py::preprocess_rows_into), as in the JAX
+package.  The temporal stage always runs in the native
 (b, t, h*w, d) layout, which needs a cubic token grid (t == h == w, as at
 full width); its PEG reproduces the reference's memory reinterpretation
 (ctvit.py:299-303) with the rotated kernel.
@@ -19,7 +21,7 @@ from torch import nn
 
 from ..config import CTViTConfig
 from ..ops.attention import ContinuousPositionBias, MaskgitTransformer
-from ..ops.patch_embed import fused_patch_embed
+from ..ops.patch_embed import fused_patch_embed, fused_row_embed
 from ..ops.vq import CosineVQ
 
 
@@ -48,14 +50,24 @@ class CTViT(nn.Module):
         self.vq = CosineVQ(cfg.dim, cfg.codebook_size, device=device)
 
     def embed_patches(self, video: torch.Tensor) -> torch.Tensor:
-        """(b, f, H, W, 1) -> (b, t, h, w, dim) in the compute dtype."""
+        """(b, f, H, W, 1) volume (K8) or (b, t*h*w, patch_dim) patch rows
+        (K4) -> (b, t, h, w, dim) in the compute dtype."""
         cfg = self.config
-        b, f, H, W, _ = video.shape
         pt, p = cfg.temporal_patch_size, cfg.patch_size
+        t, h = cfg.patch_t, cfg.patch_hw
         _, ln1, proj, ln2 = self.to_patch_emb
-        tokens = fused_patch_embed(video[..., 0].to(self.dtype), ln1.weight,
-                                   ln1.bias, proj.weight, proj.bias,
-                                   ln2.weight, ln2.bias, pt, p, ln1.eps)
+        weights = (ln1.weight, ln1.bias, proj.weight, proj.bias, ln2.weight,
+                   ln2.bias)
+        if video.dim() == 3:
+            b, n, pd = video.shape
+            if (n, pd) != (t * h * h, cfg.patch_dim):
+                raise ValueError(f"patch rows {tuple(video.shape)} are not "
+                                 f"(b, {t * h * h}, {cfg.patch_dim})")
+            tokens = fused_row_embed(video.to(self.dtype), *weights, ln1.eps)
+            return tokens.reshape(b, t, h, h, cfg.dim)
+        b, f, H, W, _ = video.shape
+        tokens = fused_patch_embed(video[..., 0].to(self.dtype), *weights,
+                                   pt, p, ln1.eps)
         return tokens.reshape(b, f // pt, H // p, W // p, cfg.dim)
 
     def compute_spatial_bias(self) -> torch.Tensor:
@@ -82,9 +94,11 @@ class CTViT(nn.Module):
     def forward(self, video: torch.Tensor,
                 spatial_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Encoded + quantized tokens (b, t, h, w, d), the production CLIP
-        path (return_encoded_tokens=True)."""
+        path (return_encoded_tokens=True).  `video` is a volume or patch
+        rows (`embed_patches`)."""
         cfg = self.config
-        if video.shape[2:4] != (cfg.image_size, cfg.image_size):
+        if video.dim() != 3 and video.shape[2:4] != (cfg.image_size,
+                                                     cfg.image_size):
             raise ValueError(f"video {tuple(video.shape)} does not match "
                              f"image_size {cfg.image_size}")
         tokens = self.encode(self.embed_patches(video), spatial_bias)

@@ -1,9 +1,10 @@
 """Build, load, launch and count the hand-written Hopper kernels.
 
-The CUDA sources live in `ct_clip_tpu_torch/csrc/`.  On first use they are
-compiled with `nvcc` for `sm_90a` into one shared library with a plain C
-interface, placed in `build/ct_clip_tpu_torch/` at the root of the checkout
-and named by a hash of the sources and flags, then loaded with `ctypes`.
+The CUDA sources live in `ct_clip_tpu_torch/csrc/`.  On first use each is
+compiled with its own `nvcc` for `sm_90a`, all at once, and the objects are
+linked into one shared library with a plain C interface, placed in
+`build/ct_clip_tpu_torch/` at the root of the checkout and named by a hash of
+the sources and flags, then loaded with `ctypes`.
 Nothing is compiled or loaded at import time: the CPU tests import every
 module on a machine with no `nvcc`.
 
@@ -31,8 +32,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "ct_clip_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 # One counter per ported TPU kernel (ct_clip_tpu/ops/pallas/...):
 KERNELS = (
@@ -42,6 +44,8 @@ KERNELS = (
     "geglu_ff",            # K3 ffn.py::fused_geglu_ff
     "vq_assign",           # K5 vq.py::pallas_assign
     "fused_attention",     # K7 attention.py::fused_attention
+    "rearrange_patches",   # K6 patchify.py::rearrange_patches
+    "row_embed",           # K4 patchify.py::fused_row_embed
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -94,21 +98,41 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/*.cu into the shared library unless the current sources
-    are already built.  Writes the compiler's output (register and shared
-    memory use from -Xptxas -v) beside the library."""
+    are already built: one `nvcc -c` per source, all started together, then
+    one link.  Writes the compiler's output (register and shared memory use
+    from -Xptxas -v) beside the library."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _cu_sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = out.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
-                           f"{res.stderr[-6000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc, logs = _nvcc(), []
+
+    def run(procs):
+        failed = None
+        for cmd, proc in procs:
+            stdout, stderr = proc.communicate()
+            logs.append(" ".join(cmd) + "\n" + stdout + stderr)
+            if proc.returncode != 0 and failed is None:
+                failed = f"nvcc failed with code {proc.returncode}:\n{stderr[-6000:]}"
+        out.with_suffix(".log").write_text("\n".join(logs))
+        if failed:
+            raise RuntimeError(failed)
+
+    def start(cmd):
+        return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _cu_sources()]
+    try:
+        run([start([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)])
+             for src, obj in zip(_cu_sources(), objs)])
+        tmp = out.with_name(f"{tag}.so.tmp")
+        run([start([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])])
+        os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -120,10 +144,11 @@ def _declare(lib) -> None:
     lib.ct_patch_layernorm.argtypes = [p, i, i, i, i, i, i, p, p, f, p, p]
     lib.ct_attention.argtypes = [p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll,
                                  i, i, i, i, i, p, p, p, i, i, p]
+    lib.ct_rearrange_patches.argtypes = [p, i, i, i, i, i, i, p, ll, ll, i, p]
     lib.ct_error_string.argtypes = [i]
     lib.ct_error_string.restype = ctypes.c_char_p
     for name in ("ct_gemm", "ct_gemm_argmax", "ct_layernorm",
-                 "ct_patch_layernorm", "ct_attention"):
+                 "ct_patch_layernorm", "ct_attention", "ct_rearrange_patches"):
         getattr(lib, name).restype = ctypes.c_int
 
 
@@ -267,6 +292,31 @@ def patch_layernorm(video: torch.Tensor, pt: int, p: int,
                                        _ptr(scale), _ptr(bias), float(eps),
                                        _ptr(out), _stream())
     _check(err, "ct_patch_layernorm")
+    return out
+
+
+def rearrange_patches(video: torch.Tensor, pt: int, p: int,
+                      out: torch.Tensor) -> torch.Tensor:
+    """(B, F, H, W) video -> out (B, t*h*w, pt*p*p) patch rows (rearrange.cu).
+
+    `out` may be a view, such as one slot of a batch buffer: its rows must
+    be contiguous and must not overlap."""
+    bf = torch.bfloat16
+    require(video, "video", bf, 4)
+    require(out, "out", bf, 3, contiguous=False)
+    B, F, H, W = video.shape
+    if F % pt or H % p or W % p:
+        raise ValueError(f"rearrange_patches: {tuple(video.shape)} vs {pt}x{p}x{p}")
+    n, pd = (F // pt) * (H // p) * (W // p), pt * p * p
+    sb, sr, se = out.stride()
+    if out.shape != (B, n, pd) or se != 1 or sr < pd or (B > 1 and sb < n * sr):
+        raise ValueError(f"rearrange_patches: out {tuple(out.shape)} with strides "
+                         f"{out.stride()} is not ({B}, {n}, {pd}) rows")
+    vec = (W % 8 == 0 and (p * p) % 8 == 0 and sb % 8 == 0 and sr % 8 == 0
+           and video.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    err = library().ct_rearrange_patches(_ptr(video), B, F, H, W, pt, p,
+                                         _ptr(out), sb, sr, int(vec), _stream())
+    _check(err, "ct_rearrange_patches")
     return out
 
 

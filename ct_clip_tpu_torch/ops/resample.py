@@ -9,6 +9,10 @@ JAX package reproduces it with per-axis index maps; here it is that op
 itself.  Clip before the resample is the inference ordering
 (data_inference_nii.py:115-117), clip after it the training ordering
 (data.py:122-123).  Numerics follow the exact f32 chain of the JAX package.
+
+The patch-row ingest (`preprocess_to_patch_rows`, `preprocess_rows_into`)
+ends with K6 (ops/patch_embed.py::rearrange_patches), so the scored step
+starts from the model's (t*h*w, pt*p*p) patch rows.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import PreprocessConfig
+from .patch_embed import rearrange_patches
 
 
 def _crop_pad(res: int, out: int) -> Tuple[int, int, int]:
@@ -63,3 +68,41 @@ def preprocess_volume(vol: torch.Tensor, spacing_zxy: Sequence[float],
         _crop_pad(r, o) for r, o in zip(res, config.target_shape))
     out[p0:p0 + n0, p1:p1 + n1, p2:p2 + n2] = v[c0:c0 + n0, c1:c1 + n1, c2:c2 + n2]
     return out if out_dtype is None else out.to(out_dtype)
+
+
+def preprocess_to_patch_rows(vol: torch.Tensor, spacing_zxy: Sequence[float],
+                             slope: float, intercept: float,
+                             true_sizes: Optional[Sequence[int]] = None,
+                             input_layout: str = "zxy",
+                             out_dtype: Optional[torch.dtype] = None,
+                             config: PreprocessConfig = PreprocessConfig(),
+                             temporal_patch_size: int = 10,
+                             patch_size: int = 20) -> torch.Tensor:
+    """`preprocess_volume` followed by K6: the (t*h*w, pt*p*p) patch rows of
+    the model input, in the '(c pt p1 p2)' order of the reference's
+    to_patch_emb.  Port of ct_clip_tpu/ops/resample.py::preprocess_to_patch_rows;
+    the values are those of the volume, moved."""
+    v = preprocess_volume(vol, spacing_zxy, slope, intercept, true_sizes,
+                          input_layout, out_dtype, config)
+    return rearrange_patches(v[None], temporal_patch_size, patch_size)[0]
+
+
+def preprocess_rows_into(buf: torch.Tensor, slot: int, vol: torch.Tensor,
+                         spacing_zxy: Sequence[float], slope: float,
+                         intercept: float,
+                         true_sizes: Optional[Sequence[int]] = None,
+                         input_layout: str = "zxy",
+                         config: PreprocessConfig = PreprocessConfig(),
+                         temporal_patch_size: int = 10,
+                         patch_size: int = 20) -> torch.Tensor:
+    """`preprocess_to_patch_rows` fused with the batch assembly: K6 writes
+    the volume's rows straight into `buf[slot]` of the (B, n, patch_dim)
+    batch buffer, in the buffer's dtype, so no stacked copy of the batch is
+    made.  Updates `buf` in place and returns it.  Port of
+    ct_clip_tpu/ops/resample.py::preprocess_rows_into, which donates the
+    buffer to the same effect."""
+    v = preprocess_volume(vol, spacing_zxy, slope, intercept, true_sizes,
+                          input_layout, buf.dtype, config)
+    rearrange_patches(v[None], temporal_patch_size, patch_size,
+                      out=buf[slot:slot + 1])
+    return buf

@@ -202,3 +202,57 @@ def test_launch_counters_count_only_kernel_paths(dev):
     assert K.launch_counts()["geglu_ff"] == 1
     with pytest.raises(ValueError):
         fused_geglu_ff(x.float(), *w)  # a CUDA tensor must be bf16
+
+
+@pytest.mark.parametrize("shape,pt,p", [((2, 20, 60, 40), 10, 20),  # 16-byte path
+                                        ((1, 6, 15, 25), 2, 5)])   # 2-byte path
+def test_rearrange_patches_bit_exact(dev, shape, pt, p):
+    from ct_clip_tpu_torch.ops.patch_embed import rearrange_patches, rearrange_plain
+
+    video = _randn(shape, _gen(dev, 9), dev)
+    got = rearrange_patches(video, pt, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rearrange_plain(video, pt, p))
+    # into one slot of a batch buffer, leaving the other slots alone
+    buf = torch.full((3,) + tuple(got.shape[1:]), 7.0, dtype=BF, device=dev)
+    rearrange_patches(video[:1], pt, p, out=buf[1:2])
+    torch.cuda.synchronize()
+    assert torch.equal(buf[1], got[0])
+    assert (buf[0] == 7).all() and (buf[2] == 7).all()
+
+
+def test_row_embed(dev):
+    from ct_clip_tpu_torch.ops.patch_embed import fused_row_embed, row_embed_plain
+
+    g = _gen(dev, 10)
+    rows = _randn((2, 300, 4000), g, dev)
+    f32 = torch.float32
+    w = (1 + _randn((4000,), g, dev, 0.1, f32), _randn((4000,), g, dev, 0.1, f32),
+         _randn((512, 4000), g, dev, 4000 ** -0.5, f32), _randn((512,), g, dev, 0.1, f32),
+         1 + _randn((512,), g, dev, 0.1, f32), _randn((512,), g, dev, 0.1, f32))
+    got = fused_row_embed(rows, *w)
+    ref = row_embed_plain(rows, *w)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 300, 512)
+    _close(got, ref)
+
+
+def test_row_route_counters_count_only_kernel_paths(dev):
+    from ct_clip_tpu_torch.ops.patch_embed import fused_row_embed, rearrange_patches
+
+    g = _gen(dev, 11)
+    video = _randn((1, 4, 16, 16), g, dev)
+    w = (torch.ones(128, device=dev), torch.zeros(128, device=dev),
+         _randn((64, 128), g, dev, 0.1, torch.float32), torch.zeros(64, device=dev),
+         torch.ones(64, device=dev), torch.zeros(64, device=dev))
+    K.reset_launch_counts()
+    rows = rearrange_patches(video, 2, 8)
+    fused_row_embed(rows, *w)
+    rows_cpu = rearrange_patches(video.cpu().float(), 2, 8)
+    fused_row_embed(rows_cpu, *(t.cpu() for t in w))
+    counts = K.launch_counts()
+    assert counts["rearrange_patches"] == 1 and counts["row_embed"] == 1
+    with pytest.raises(ValueError):
+        rearrange_patches(video.float(), 2, 8)  # a CUDA tensor must be bf16
+    with pytest.raises(ValueError):
+        fused_row_embed(rows.float(), *w)

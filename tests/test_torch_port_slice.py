@@ -87,6 +87,9 @@ def slice_models(tmp_path_factory):
         lambda a: a + np.asarray(0.2 * rng.randn(*a.shape), a.dtype)
         if a.ndim <= 1 else a, variables["params"])
 
+    # state_dict_from_jax carries every weight the slice reads, the patch
+    # embedding that both the volume (K8) and the patch-row (K4) routes use
+    # included: the strict load would fail on a missing key
     port = CTCLIP(pcfg).eval()
     port.load_state_dict(state_dict_from_jax(variables, pcfg), strict=True)
     return dict(jmodel=jmodel, variables=variables, port=port,
@@ -116,6 +119,25 @@ def test_encode_image_matches_jax(slice_models):
     _close(pre, jpre)   # continuous encoder output, before the VQ lookup
     _close(enc, jenc)   # quantized tokens: same code ids
     _close(lat, jlat)
+
+
+def test_encode_image_from_patch_rows_matches_jax(slice_models):
+    from ct_clip_tpu.models import CTCLIP as JCTCLIP
+    from ct_clip_tpu_torch.ops.patch_embed import rearrange_patches
+
+    m = slice_models
+    video = _video(4)
+    rows = rearrange_patches(torch.from_numpy(video[..., 0]), TPATCH, PATCH)
+    assert rows.shape == (2, (FRAMES // TPATCH) * (IMAGE // PATCH) ** 2,
+                          TPATCH * PATCH * PATCH)
+    jlat, jenc = m["jmodel"].apply(m["variables"], jnp.asarray(rows.numpy()),
+                                   method=JCTCLIP.encode_image)
+    with torch.no_grad():
+        lat, enc = m["port"].encode_image(rows)
+        vlat, _ = m["port"].encode_image(torch.from_numpy(video))
+    _close(enc, jenc)
+    _close(lat, jlat)
+    _close(lat, vlat, rtol=1e-5)  # the same model input by the volume route
 
 
 def test_encode_text_matches_jax(slice_models):
@@ -201,6 +223,58 @@ def test_run_zero_shot_matches_jax(slice_models, tmp_path):
     saved = np.load(out_dir / "predicted_weights.npz")["data"]
     np.testing.assert_array_equal(saved, got["predicted"])
     assert (out_dir / "accessions.txt").read_text().split() == got["accessions"]
+    header, row = (out_dir / "aurocs.csv").read_text().splitlines()
+    assert header.split(",")[-1] == "mean_auc" and len(row.split(",")) == 19
+
+
+def test_run_zero_shot_patch_rows_matches_jax(slice_models, tmp_path):
+    """The patch-row route (K6 into the batch buffer, K4 embed) against JAX's
+    own patch-row route, and against the port's volume route on the same
+    corpus.  Three volumes at batch 2: the tail batch scores a buffer whose
+    second slot still holds the first batch's rows."""
+    from ct_clip_tpu.data import CTReportDatasetInfer as JDataset
+    from ct_clip_tpu.inference import run_zero_shot as jax_run
+    from ct_clip_tpu_torch.data import CTReportDatasetInfer
+    from ct_clip_tpu_torch.inference import run_zero_shot
+
+    m = slice_models
+    paths = _write_corpus(tmp_path)
+    ref = jax_run(m["jmodel"], m["variables"], m["jtok"], JDataset(*paths),
+                  str(tmp_path / "jax"), batch_size=2, num_workers=2,
+                  save_artifacts=False, patch_rows=True)
+    runs = {rows: run_zero_shot(m["port"], m["tok"], CTReportDatasetInfer(*paths),
+                                str(tmp_path / f"port_{rows}"), batch_size=2,
+                                num_workers=2, patch_rows=rows)
+            for rows in (True, False)}
+    got = runs[True]
+    assert got["accessions"] == ref["accessions"]
+    assert got["predicted"].shape == (3, 18)
+    _close(got["predicted"], ref["predicted"])
+    _close(got["predicted"], runs[False]["predicted"], rtol=1e-5)
+    assert (tmp_path / "port_True" / "aurocs.csv").exists()
+
+
+def test_export_latents_matches_jax(slice_models, tmp_path):
+    from ct_clip_tpu.data import CTReportDatasetInfer as JDataset
+    from ct_clip_tpu.inference.latents import export_latents as jax_export
+    from ct_clip_tpu_torch.data import CTReportDatasetInfer
+    from ct_clip_tpu_torch.inference import export_latents
+
+    m = slice_models
+    paths = _write_corpus(tmp_path)
+    ref = jax_export(m["jmodel"], m["variables"], m["jtok"], JDataset(*paths),
+                     str(tmp_path / "jax"), num_workers=2,
+                     target_shape=(FRAMES, IMAGE, IMAGE))
+    got = export_latents(m["port"], m["tok"], CTReportDatasetInfer(*paths),
+                         str(tmp_path / "port"), num_workers=2)
+    assert sorted(got["image"]) == sorted(ref["image"]) and len(got["image"]) == 3
+    grid = (FRAMES // TPATCH, IMAGE // PATCH, IMAGE // PATCH, DIM)
+    for acc in ref["image"]:
+        for kind, shape in (("image", grid), ("text", (24,))):
+            saved = np.load(tmp_path / "port" / f"{kind}_latents" / f"{acc}.npz")["arr"]
+            assert saved.shape == shape and saved.dtype == np.float32
+            np.testing.assert_array_equal(saved, got[kind][acc])
+            _close(saved, ref[kind][acc])
 
 
 def test_cli_zero_shot_writes_artifacts(tmp_path, monkeypatch):
@@ -212,11 +286,48 @@ def test_cli_zero_shot_writes_artifacts(tmp_path, monkeypatch):
     monkeypatch.setattr(cli, "CTCLIPConfig", lambda: pcfg)  # tiny, CPU-sized
     data, reports, meta, labels = _write_corpus(tmp_path)
     out_dir = tmp_path / "out"
-    cli.main(["--no-bf16", "--vocab", str(tmp_path / "vocab.txt"), "--seed", "3",
-              "zero-shot", "--data", data, "--reports", reports, "--meta", meta,
-              "--labels", labels, "--results", str(out_dir), "--batch-size", "2",
-              "--workers", "2"])
+    cli.main(["--no-bf16", "--device", "cpu", "--vocab", str(tmp_path / "vocab.txt"),
+              "--seed", "3", "zero-shot", "--data", data, "--reports", reports,
+              "--meta", meta, "--labels", labels, "--results", str(out_dir),
+              "--batch-size", "2", "--workers", "2"])
     pred = np.load(out_dir / "predicted_weights.npz")["data"]
     assert pred.shape == (3, 18) and np.isfinite(pred).all()
     assert ((pred >= 0) & (pred <= 1)).all()
     assert len((out_dir / "accessions.txt").read_text().split()) == 3
+    assert (out_dir / "aurocs.csv").exists()
+
+
+def _cli_args(tmp_path, monkeypatch, *extra):
+    from ct_clip_tpu_torch import cli
+
+    vocab = _vocab()
+    (tmp_path / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    _, pcfg = _configs(len(vocab))
+    monkeypatch.setattr(cli, "CTCLIPConfig", lambda: pcfg)  # tiny, CPU-sized
+    data, reports, meta, labels = _write_corpus(tmp_path)
+    return ["--no-bf16", *extra, "--vocab", str(tmp_path / "vocab.txt"),
+            "export-latents", "--data", data, "--reports", reports, "--meta", meta,
+            "--labels", labels, "--results", str(tmp_path / "out"), "--workers", "2"]
+
+
+def test_cli_export_latents_writes_artifacts(tmp_path, monkeypatch):
+    from ct_clip_tpu_torch import cli
+
+    cli.main(_cli_args(tmp_path, monkeypatch, "--device", "cpu"))
+    for kind, shape in (("image", (3, 3, 3, DIM)), ("text", (24,))):
+        files = sorted((tmp_path / "out" / f"{kind}_latents").glob("*.npz"))
+        assert len(files) == 3
+        for f in files:
+            arr = np.load(f)["arr"]
+            assert arr.shape == shape and np.isfinite(arr).all()
+
+
+def test_cli_default_device_needs_cuda(tmp_path, monkeypatch, capsys):
+    from ct_clip_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(_cli_args(tmp_path, monkeypatch))
+    assert exc.value.code != 0
+    assert "--device cpu" in capsys.readouterr().err
+    assert not (tmp_path / "out").exists()
