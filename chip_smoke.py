@@ -7,14 +7,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
   1. build the hand-written kernels from ct_clip_tpu_torch/csrc (one nvcc
      per source, all at once);
   2. kernel phase: each ported TPU kernel's wrapper against its plain
-     PyTorch version at the full-width CT-CLIP shapes, batch 2, in bf16
-     (K6 as the ingest calls it: one volume into a slot of the batch
-     buffer): max abs / rel error against a stated tolerance (K6, a pure
-     move, must be bit-exact), median times (CUDA events) of the kernel, the plain
-     version and, where one PyTorch call computes the same function, that
-     call, and the bound: the least time the card could take, from the
-     call's bytes and products and the H100's published peaks;
-  3. end-to-end phase: a 3-volume synthetic CT-RATE corpus (NIfTI + CSVs +
+     PyTorch version on the same inputs, at the shapes its main path gives
+     it: the CT-CLIP inference kernels at full width, batch 2, in bf16 (K6
+     as the ingest calls it: one volume into a slot of the batch buffer);
+     the RadBERT training attention (K7 f32, K12 and K13, forward and
+     backward) at (32, 12, 512, 64) in f32, checked at batch 8 (the plain
+     K13 holds a (b, 12, 512, 512) mask) and timed at batch 32, plus K13's
+     determinism, kept share and forward/backward mask identity.  For each:
+     max abs / rel error against a stated tolerance (K6, a pure move, must be
+     bit-exact), median times (CUDA events) of the kernel, the plain version
+     and, where one PyTorch call computes the same function, that call, and
+     the bound: the least time the card could take, from the call's bytes
+     and products and the H100's published peaks (bf16 tensor cores for the
+     bf16 kernels, f32 CUDA cores for the f32 ones);
+  3. zero-shot phase: a 3-volume synthetic CT-RATE corpus (NIfTI + CSVs +
      a toy vocab) through `run_zero_shot` at full CT-CLIP width (seeded
      random weights), batch 2 with a tail batch, twice: on the patch-row
      route (the default on CUDA: K6 ingest, K4 embed) and on the volume
@@ -22,13 +28,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
      routes agree, the artifacts, and that each route's kernels' launch
      counters rose; times `score_batch` on both routes.  Then
      `export_latents` on one volume (the volume route) with its counters;
-  4. reference check on a small input: a tiny CT-CLIP scores the same
+  4. RadBERT phase: 64 synthetic reports with the 18 label columns and a
+     generated vocab of CXR-BERT's size (30,522 entries) through the CLI's
+     `radbert-train` (full RadBERT width, f32, batch 32, max length 512, 2
+     epochs, validation on a second CSV, --out .pt), then `radbert-infer`
+     and `radbert-eval` on that .pt, each with its launch counters (K13
+     forward and backward in training, K7 f32 in validation and inference);
+     checks the loss and the (64, 18) probabilities and times the training
+     step.  Then one step of a 2-layer full-width RadBERT with
+     attention_dropout 0, which must run K12;
+  5. reference checks on small inputs: a tiny CT-CLIP scores the same
      volumes on the card (kernels) and on the CPU (plain versions), both
-     bf16, from volumes and from patch rows, and must agree.
+     bf16, from volumes and from patch rows, and must agree; a tiny RadBERT
+     with both dropouts 0 takes one training step from the same weights on
+     the card and on the CPU, and the logits, loss, gradients and updated
+     weights must agree.
 
-Prints the kernel table as one JSON line, then the card's name and power
-limit (nvidia-smi), then {"ok": true, "device": {...}} as the last line.
-Working files go to build/chip_smoke/ and are removed at the end.
+Prints the end-to-end numbers and the kernel table as one JSON line each,
+then the card's name and power limit (nvidia-smi), then
+{"ok": true, "device": {...}} as the last line.  Working files go to
+build/chip_smoke/ and are removed at the end.
 """
 from __future__ import annotations
 
@@ -50,44 +69,81 @@ B = 2  # volumes per batch
 # at the same points but sum in other orders, so an intermediate may land
 # one bf16 ulp (2^-8 relative) apart and carry that through later stages
 REL_TOL = 2e-2
+# the f32 kernels run the same products as their plain versions in f32, in
+# another summation order
+F32_REL_TOL = 1e-4
 # the two zero-shot routes see the same bf16 values and differ only in the
 # order LN(4000) sums them: P(present) agree far inside this
 ROUTE_TOL = 0.05
-# NVIDIA H100 SXM published peaks (dense): bf16 tensor cores, HBM3
+# NVIDIA H100 SXM published peaks (dense): bf16 tensor cores, f32 CUDA
+# cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 PALLAS = "ct_clip_tpu/ops/pallas/"
 CSRC = "ct_clip_tpu_torch/csrc/"
-# counter name -> (TPU kernel, its Pallas function file:line, main CUDA
-# source, every CUDA file the wrapper launches from)
+
+
+def _kernel(name, replaces, source, sources, counter, path):
+    return dict(name=name, replaces=PALLAS + replaces, source=source,
+                sources=sources, counter=counter, path=path)
+
+
+# table entry -> its TPU kernel (Pallas function file:line), main CUDA
+# source, every CUDA file its wrapper launches from, its launch counter and
+# the driven path whose count the table reports
+ATTN_TRAIN = ["attention_train.cu"]
 KERNELS = {
-    "patch_embed": ("fused_patch_embed", PALLAS + "patchify.py:341",
-                    "layernorm.cu", ["layernorm.cu", "gemm.cu"]),
-    "spatial_attention": ("fused_spatial_qknorm_attention",
-                          PALLAS + "spatial_attention.py:276", "attention.cu",
-                          ["layernorm.cu", "gemm.cu", "attention.cu"]),
-    "grid_attention": ("fused_small_qknorm_attention_grid",
-                       PALLAS + "small_attention.py:196", "attention.cu",
-                       ["layernorm.cu", "gemm.cu", "attention.cu"]),
-    "geglu_ff": ("fused_geglu_ff", PALLAS + "ffn.py:105", "gemm.cu",
-                 ["layernorm.cu", "gemm.cu"]),
-    "vq_assign": ("pallas_assign", PALLAS + "vq.py:104", "gemm.cu", ["gemm.cu"]),
-    "fused_attention": ("fused_attention", PALLAS + "attention.py:129",
-                        "attention.cu", ["attention.cu"]),
-    "rearrange_patches": ("rearrange_patches", PALLAS + "patchify.py:105",
-                          "rearrange.cu", ["rearrange.cu"]),
-    "row_embed": ("fused_row_embed", PALLAS + "patchify.py:609", "layernorm.cu",
-                  ["layernorm.cu", "gemm.cu"]),
+    "patch_embed": _kernel("fused_patch_embed", "patchify.py:341", "layernorm.cu",
+                           ["layernorm.cu", "gemm.cu"], "patch_embed", "zero_shot_volume"),
+    "spatial_attention": _kernel("fused_spatial_qknorm_attention",
+                                 "spatial_attention.py:276", "attention.cu",
+                                 ["layernorm.cu", "gemm.cu", "attention.cu"],
+                                 "spatial_attention", "zero_shot_rows"),
+    "grid_attention": _kernel("fused_small_qknorm_attention_grid",
+                              "small_attention.py:196", "attention.cu",
+                              ["layernorm.cu", "gemm.cu", "attention.cu"],
+                              "grid_attention", "zero_shot_rows"),
+    "geglu_ff": _kernel("fused_geglu_ff", "ffn.py:105", "gemm.cu",
+                        ["layernorm.cu", "gemm.cu"], "geglu_ff", "zero_shot_rows"),
+    "vq_assign": _kernel("pallas_assign", "vq.py:104", "gemm.cu", ["gemm.cu"],
+                         "vq_assign", "zero_shot_rows"),
+    "fused_attention": _kernel("fused_attention", "attention.py:129", "attention.cu",
+                               ["attention.cu"], "fused_attention", "zero_shot_rows"),
+    "rearrange_patches": _kernel("rearrange_patches", "patchify.py:105", "rearrange.cu",
+                                 ["rearrange.cu"], "rearrange_patches", "zero_shot_rows"),
+    "row_embed": _kernel("fused_row_embed", "patchify.py:609", "layernorm.cu",
+                         ["layernorm.cu", "gemm.cu"], "row_embed", "zero_shot_rows"),
+    "fused_attention_f32": _kernel("fused_attention (f32)", "attention.py:129",
+                                   "attention_train.cu", ATTN_TRAIN, "fused_attention",
+                                   "radbert_train"),
+    "attention_bwd": _kernel("_pallas_attention_bwd_kbias", "attention.py:271",
+                             "attention_train.cu", ATTN_TRAIN, "attention_bwd",
+                             "radbert_dropout_off"),
+    "attention_dropout": _kernel("_pallas_attention_kbias_drop_impl", "attention.py:474",
+                                 "attention_train.cu", ATTN_TRAIN, "attention_dropout",
+                                 "radbert_train"),
+    "attention_dropout_bwd": _kernel("_pallas_attention_kbias_drop_bwd",
+                                     "attention.py:499", "attention_train.cu", ATTN_TRAIN,
+                                     "attention_dropout_bwd", "radbert_train"),
 }
-# kernels each driven path must launch
+# launch counters each driven path must raise
 COMMON = ["spatial_attention", "grid_attention", "geglu_ff", "vq_assign",
           "fused_attention"]
 PATHS = {
     "zero_shot_rows": COMMON + ["rearrange_patches", "row_embed"],
     "zero_shot_volume": COMMON + ["patch_embed"],
     "export_latents": COMMON + ["patch_embed"],
+    "radbert_train": ["attention_dropout", "attention_dropout_bwd", "fused_attention"],
+    "radbert_infer": ["fused_attention"],
+    "radbert_eval": ["fused_attention"],
+    "radbert_dropout_off": ["fused_attention", "attention_bwd"],
 }
+# RadBERT training attention: (batch, heads, tokens, head dim), f32
+BERT_SHAPE = (32, 12, 512, 64)
+CHECK_BATCH = 8
+DROP_RATE = 0.1
 
 
 def log(msg: str) -> None:
@@ -117,11 +173,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(read_bytes: int, flops: float):
+def bound(read_bytes: int, flops: float, peak: float = PEAK_BF16_FLOPS):
     """(ms, "bytes" | "operations"): the least time the card could take for
     a call that reads its inputs once, writes its output once and runs
-    `flops` bf16 tensor-core operations, at the published peaks."""
-    t_bytes, t_ops = read_bytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    `flops` operations at the published `peak` (bf16 tensor cores unless
+    stated) and the published memory rate."""
+    t_bytes, t_ops = read_bytes / PEAK_BYTES, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -227,12 +284,16 @@ def vq_case(dev):
 
 
 def timing(case, out) -> dict:
-    """Median kernel, plain and library times, and the bound, of one case."""
+    """Median kernel, plain and library times, and the bound, of one case
+    (`out`: the tensor or tensors the call writes)."""
     ms, plain_ms = cuda_ms(case["kern"]), cuda_ms(case["plain"])
     library_ms = cuda_ms(case["library"]) if case["library"] else None
-    bound_ms, bound_by = bound(nbytes(*case["inputs"], out), case["flops"])
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    peak = case.get("peak", PEAK_BF16_FLOPS)
+    bound_ms, bound_by = bound(nbytes(*case["inputs"], *outs), case["flops"], peak)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, bound_share=bound_ms / ms)
+                peak_tflops=peak / 1e12, library_ms=library_ms,
+                bound_share=bound_ms / ms)
 
 
 def kernel_phase(dev):
@@ -280,6 +341,186 @@ def kernel_phase(dev):
     results["vq_assign"] = dict(max_abs_err=gap.max().item(), id_agreement=agree,
                                 tolerance=">= 0.99 ids equal, rest near-ties", **res)
     del sim, x, embed_n
+    torch.cuda.empty_cache()
+    return results
+
+
+# ------------------------------------------ phase 2, RadBERT training attention
+def train_attention_inputs(dev, b: int, seed: int):
+    """BERT's (b, n, h, d) f32 projections viewed head-major, q scaled, a
+    per-key pad bias from report lengths in [64, 512], an output gradient."""
+    import torch
+
+    _, h, n, d = BERT_SHAPE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((b, n, h, d), generator=g, device=dev).transpose(1, 2)
+               for _ in range(3))
+    lengths = torch.randint(64, n + 1, (b,), generator=g, device=dev)
+    mask = (torch.arange(n, device=dev)[None] < lengths[:, None]).float()
+    key_bias = (1 - mask) * torch.finfo(torch.float32).min
+    do = torch.randn((b, h, n, d), generator=g, device=dev)
+    return q * d ** -0.5, k, v, key_bias, do
+
+
+def sdpa_backend(q, k, v, mask, dropout_p: float) -> str:
+    """The backend F.scaled_dot_product_attention dispatches these inputs to."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, attn_mask=mask, dropout_p=dropout_p,
+                                              is_causal=False, scale=1.0)).name
+
+
+def train_attention_cases(dev, b: int):
+    """K7 f32, K13 forward, K12 and K13 backward at (b, 12, 512, 64): each
+    case's kernel call (through the wrapper the model calls; a backward is
+    torch.autograd.grad of a kept forward), plain version, library call
+    (F.scaled_dot_product_attention in f32 with the additive key mask, or
+    autograd.grad of a kept SDPA output), the tensors it reads and its
+    products, at the f32 CUDA-core peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from ct_clip_tpu_torch.ops.attention import (
+        attention_bwd_plain, attention_dropout_plain, attention_plain, dropout_mask,
+        fused_attention, fused_attention_kbias_dropout)
+
+    _, h, n, d = BERT_SHAPE
+    q, k, v, kb, do = train_attention_inputs(dev, b, seed=20)
+    seed = torch.tensor([20231016], dtype=torch.int64, device=dev)
+    sdpa_mask = kb[:, None, None, :]
+    product = 2 * b * h * n * n * d
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, kb)]
+    out_k12 = fused_attention(*leaves[:3], key_bias=leaves[3])
+    out_k13 = fused_attention_kbias_dropout(*leaves, seed, DROP_RATE)
+    lib_in = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=sdpa_mask, scale=1.0)
+    lib_drop = F.scaled_dot_product_attention(*lib_in, attn_mask=sdpa_mask,
+                                              dropout_p=DROP_RATE, scale=1.0)
+    lse = torch.empty((b, h, n), device=dev)  # the residual a backward reads
+
+    def grad(out, ins):
+        return torch.autograd.grad(out, ins, do, retain_graph=True)
+
+    def plain_bwd(mask=None):
+        return tuple(t for t in attention_bwd_plain(q, k, v, do, key_bias=kb, mask=mask)
+                     if t is not None)
+
+    f32 = dict(peak=PEAK_F32_FLOPS)
+    return {
+        "fused_attention_f32": dict(
+            kern=lambda: fused_attention(q, k, v, key_bias=kb),
+            plain=lambda: attention_plain(q, k, v, key_bias=kb),
+            library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
+                                                           scale=1.0),
+            backend=sdpa_backend(q, k, v, sdpa_mask, 0.0),
+            inputs=(q, k, v, kb), flops=2 * product, **f32),
+        "attention_dropout": dict(
+            kern=lambda: fused_attention_kbias_dropout(q, k, v, kb, seed, DROP_RATE),
+            plain=lambda: attention_dropout_plain(q, k, v, kb, seed, DROP_RATE),
+            library=lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=sdpa_mask, dropout_p=DROP_RATE, scale=1.0),
+            backend=sdpa_backend(q, k, v, sdpa_mask, DROP_RATE),
+            inputs=(q, k, v, kb, seed), flops=2 * product, **f32),
+        "attention_bwd": dict(
+            kern=lambda: grad(out_k12, leaves), plain=plain_bwd,
+            library=lambda: grad(lib_out, lib_in),
+            backend=sdpa_backend(q, k, v, sdpa_mask, 0.0),
+            inputs=(q, k, v, kb, do, out_k12, lse), flops=5 * product, **f32),
+        "attention_dropout_bwd": dict(
+            kern=lambda: grad(out_k13, leaves),
+            plain=lambda: plain_bwd(dropout_mask(seed, b, h, n, DROP_RATE, dev)),
+            library=lambda: grad(lib_drop, lib_in),
+            backend=sdpa_backend(q, k, v, sdpa_mask, DROP_RATE),
+            inputs=(q, k, v, kb, seed, do, out_k13, lse), flops=5 * product, **f32),
+    }
+
+
+def _as_tuple(x):
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def dropout_checks(dev) -> dict:
+    """K13 at (CHECK_BATCH, 12, 512, 64): the same seed gives the same bits;
+    the kept share of the forward's and of the backward's mask lies within
+    4 sigma of 1 - rate (uniform probabilities, v = 1 and dO = 1 turn the
+    output and dv into kept counts); and the backward's mask is the
+    forward's: the output is linear in v, so the difference of two forwards
+    along a direction must equal the VJP's dv along it."""
+    import torch
+
+    from ct_clip_tpu_torch.ops.attention import (dropout_keep_scale,
+                                                 fused_attention_kbias_dropout)
+
+    b, (_, h, n, d) = CHECK_BATCH, BERT_SHAPE
+    q, k, v, kb, _ = train_attention_inputs(dev, b, seed=21)
+    seed = torch.tensor([77], dtype=torch.int64, device=dev)
+
+    def f(v_):
+        return fused_attention_kbias_dropout(q, k, v_, kb, seed, DROP_RATE)
+
+    same = torch.equal(f(v), f(v))
+    zeros, ones = torch.zeros_like(q), torch.ones_like(q)
+    free = torch.zeros_like(kb)
+    scale = dropout_keep_scale(DROP_RATE)
+    v1 = ones.clone().requires_grad_()
+    out = fused_attention_kbias_dropout(zeros, zeros, v1, free, seed, DROP_RATE)
+    dv, = torch.autograd.grad(out, v1, ones)
+    share_fwd = out[..., 0].double().mean().item() / scale
+    share_bwd = dv[..., 0].double().sum().item() / (scale * b * h * n)
+    sigma = (DROP_RATE * (1 - DROP_RATE) / (b * h * n * n)) ** 0.5
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    direction = torch.randn(v.shape, generator=g, device=dev) * 0.1
+    vg = v.detach().clone().requires_grad_()
+    dv, = torch.autograd.grad(f(vg), vg, ones)
+    jvp_fwd = (f(v + direction).double() - f(v).double()).sum().item()
+    jvp_vjp = (dv.double() * direction.double()).sum().item()
+    identity_rel = abs(jvp_fwd - jvp_vjp) / max(abs(jvp_vjp), 1.0)
+    res = dict(deterministic=same, kept_share_fwd=share_fwd, kept_share_bwd=share_bwd,
+               kept_share_4sigma=4 * sigma, mask_identity_rel_err=identity_rel)
+    log(f"kernel attention_dropout: same seed same output {same}; kept share "
+        f"forward {share_fwd:.6f} backward {share_bwd:.6f} (1 - rate {1 - DROP_RATE}, "
+        f"4 sigma {4 * sigma:.2e}); forward/backward mask identity rel err "
+        f"{identity_rel:.2e} (tol {F32_REL_TOL})")
+    if not same or identity_rel > F32_REL_TOL or any(
+            abs(x - (1 - DROP_RATE)) > 4 * sigma for x in (share_fwd, share_bwd)):
+        raise AssertionError(f"attention_dropout checks failed: {res}")
+    return res
+
+
+def train_attention_phase(dev) -> dict:
+    """Check at batch CHECK_BATCH against the plain versions (relative to the
+    largest plain value of each output), then time at the full batch."""
+    import torch
+
+    results = {}
+    for name, case in train_attention_cases(dev, CHECK_BATCH).items():
+        got, ref = _as_tuple(case["kern"]()), _as_tuple(case["plain"]())
+        torch.cuda.synchronize()
+        if len(got) != len(ref) or any(g.shape != r.shape or not torch.isfinite(g).all()
+                                       for g, r in zip(got, ref)):
+            raise AssertionError(f"{name}: bad kernel outputs")
+        errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
+        rels = [e / r.abs().max().item() for e, r in zip(errs, ref)]
+        results[name] = dict(max_abs_err=max(errs), max_rel_err=max(rels),
+                             tolerance=f"rel {F32_REL_TOL} per output", check_batch=CHECK_BATCH)
+        if max(rels) > F32_REL_TOL:
+            raise AssertionError(f"{name}: rel errors {rels} outside {F32_REL_TOL}")
+        del got, ref
+    results["attention_dropout"].update(dropout_checks(dev))
+    torch.cuda.empty_cache()
+
+    for name, case in train_attention_cases(dev, BERT_SHAPE[0]).items():
+        res = results[name]
+        res.update(timing(case, _as_tuple(case["kern"]())), library_backend=case["backend"],
+                   shape=list(BERT_SHAPE))
+        log(f"kernel {name}: max_abs_err {res['max_abs_err']:.4e} max_rel_err "
+            f"{res['max_rel_err']:.4e} (rel {F32_REL_TOL}, batch {CHECK_BATCH}) at "
+            f"{tuple(BERT_SHAPE)} f32: kernel {res['ms']:.3f} ms plain "
+            f"{res['plain_ms']:.3f} ms library {res['library_ms']:.3f} ms (SDPA "
+            f"{case['backend']}) bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+            f"f32 peak, {100 * res['bound_share']:.1f}% of it reached)")
     torch.cuda.empty_cache()
     return results
 
@@ -433,6 +674,173 @@ def end_to_end_phase(dev, work: Path, card: str):
 
 
 # ---------------------------------------------------------------- phase 4
+def report_words():
+    """The words of the synthetic reports: the pathology names' words, a few
+    report words and 1,000 generated terms."""
+    from ct_clip_tpu_torch.config import PATHOLOGIES
+
+    words = {w.lower() for p in PATHOLOGIES for w in p.split()}
+    words |= {"no", "the", "is", "seen", "present", "not", "of", "with", "and", "mild",
+              "lung", "right", "left", "lobe", "chest", "ct"}
+    return sorted(words) + [f"term{i:04d}" for i in range(1000)]
+
+
+def write_reports(path: Path, n: int, seed: int) -> str:
+    """n synthetic reports of 20-600 words (some beyond the 512-token
+    truncation) with random 0/1 labels in the 18 pathology columns."""
+    from ct_clip_tpu_torch.config import PATHOLOGIES
+
+    rng = np.random.RandomState(seed)
+    words = report_words()
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, ["report"] + list(PATHOLOGIES))
+        w.writeheader()
+        for _ in range(n):
+            text = " ".join(rng.choice(words, rng.randint(20, 600)))
+            text = ". ".join(text[i:i + 80] for i in range(0, len(text), 80)) + "."
+            w.writerow({"report": text, **{p: int(rng.rand() < 0.3) for p in PATHOLOGIES}})
+    return str(path)
+
+
+def write_vocab(path: Path, size: int = 30522) -> str:
+    """A generated WordPiece vocab of CXR-BERT's size: the special tokens,
+    the report words, '.', and filler entries."""
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "."] + report_words()
+    words += [f"[unused{i}]" for i in range(size - len(words))]
+    path.write_text("\n".join(words) + "\n")
+    return str(path)
+
+
+# kernel-name fragments of the groups a training step's device time is read in
+STEP_GROUPS = (
+    ("K13/K12 backward (attention_train.cu)", ("bwd_dq_kernel<", "bwd_dkv_kernel<",
+                                               "rowdot_kernel<", "dkb_sum_kernel")),
+    ("K13/K7 forward (attention_train.cu)", ("::fwd_kernel<",)),
+    ("f32 matrix products (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas")),
+    ("AdamW (multi-tensor)", ("multi_tensor", "foreach")),
+)
+STEP_OTHER = "other (LayerNorm, GELU, dropout, elementwise, embedding)"
+
+
+def profile_step(step) -> dict:
+    """Device time of one step by kernel (torch.profiler over a synchronised
+    step, after a warm-up), grouped by STEP_GROUPS, with the busy share of
+    the step's host-clock time (kernels on one stream do not overlap)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                     key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    groups = {name: 0.0 for name, _ in STEP_GROUPS}
+    groups[STEP_OTHER] = 0.0
+    for key, ms, _ in kernels:
+        low = key.lower()
+        group = next((g for g, frags in STEP_GROUPS if any(f in low for f in frags)),
+                     STEP_OTHER)
+        groups[group] += ms
+    log(f"radbert step profile: device busy {busy:.2f} ms of {wall_ms:.2f} ms host clock "
+        f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}, profiler on); by group "
+        + "; ".join(f"{g} {ms:.2f} ms" for g, ms in groups.items()))
+    for key, ms, count in kernels[:12]:
+        log(f"  {ms:8.3f} ms  x{count:<4d} {key[:110]}")
+    return dict(busy_ms=busy, wall_ms=wall_ms, groups=groups,
+                top=[dict(kernel=k[:160], ms=ms, count=c) for k, ms, c in kernels[:12]])
+
+
+def radbert_phase(dev, work: Path, card: str) -> dict:
+    """radbert-train / -infer / -eval through the CLI at full RadBERT width,
+    the training step time, and the dropout-off step (K12)."""
+    import torch
+
+    from ct_clip_tpu_torch import cli
+    from ct_clip_tpu_torch.config import PATHOLOGIES, RadBertConfig
+    from ct_clip_tpu_torch.data import WordPieceTokenizer
+    from ct_clip_tpu_torch.models import RadBertClassifier
+    from ct_clip_tpu_torch.train import ReportClassificationDataset, TextClassifierTrainer
+
+    vocab = write_vocab(work / "radbert_vocab.txt")
+    train_csv = write_reports(work / "reports_train.csv", 64, seed=0)
+    valid_csv = write_reports(work / "reports_valid.csv", 64, seed=1)
+    pt, inferred, report = (str(work / x) for x in ("radbert.pt", "inferred.csv",
+                                                    "radbert_report.json"))
+    base = ["--vocab", vocab, "--device", "cuda", "--seed", "0"]
+    counts = {}
+    result, counts["radbert_train"], train_s = drive("radbert_train", lambda: cli.main(
+        base + ["radbert-train", "--reports", train_csv, "--reports-valid", valid_csv,
+                "--batch-size", "32", "--epochs", "2", "--out", pt]))
+    hist = result["history"]
+    losses = [h[k] for h in hist for k in ("train_loss", "valid_loss")]
+    log(f"radbert-train: 2 epochs x 2 steps of 32 reports at full width in {train_s:.2f} s "
+        f"(host clock, model build, validation and the .pt included); history {hist}")
+    if len(hist) != 2 or not np.isfinite(losses + [result["best_loss"]]).all():
+        raise AssertionError(f"radbert-train: bad history {hist}")
+
+    _, counts["radbert_infer"], _ = drive("radbert_infer", lambda: cli.main(
+        base + ["radbert-infer", "--reports", valid_csv, "--head", pt, "--out", inferred]))
+    rows = list(csv.DictReader(open(inferred)))
+    if len(rows) != 64 or any(r[p] not in ("0", "1") for r in rows for p in PATHOLOGIES):
+        raise AssertionError("radbert-infer: bad inferred CSV")
+    probs, counts["radbert_eval"], _ = drive("radbert_eval", lambda: cli.main(
+        base + ["radbert-eval", "--reports", valid_csv, "--head", pt, "--out", report]))
+    rep = json.loads(Path(report).read_text())
+    if probs.shape != (64, 18) or not np.isfinite(probs).all() or probs.min() < 0 \
+            or probs.max() > 1 or PATHOLOGIES[0] not in rep:
+        raise AssertionError(f"radbert-eval: bad probabilities {probs.shape} or report")
+    log(f"radbert-infer / -eval: 64 reports, P in [{probs.min():.4f}, {probs.max():.4f}], "
+        f"macro avg f1 {rep['macro avg']['f1-score']:.4f}")
+
+    # steady-state training step (CUDA events), from the trained weights
+    tok = WordPieceTokenizer(vocab)
+    model = RadBertClassifier(RadBertConfig(vocab_size=tok.vocab_size), device=dev)
+    cli.load_radbert_checkpoint(model, pt)
+    trainer = TextClassifierTrainer(model, tok, batch_size=32)
+    batch = next(ReportClassificationDataset(train_csv).batches(tok, 32, shuffle=False))
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = trainer.train_step(batch, 2e-5, i)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step = statistics.median(step_ms[1:])
+    log(f"radbert step: batch 32 x 512 tokens, full width, f32: median {step:.2f} ms of "
+        f"steps 2-5 {[round(t, 2) for t in step_ms]} = {32 / step * 1e3:.1f} reports/s; "
+        f"peak memory {peak_gb:.2f} GB; loss {loss.item():.4f} on {card}")
+    breakdown = profile_step(lambda: trainer.train_step(batch, 2e-5, 9))
+    del model, trainer
+    torch.cuda.empty_cache()
+
+    # the same step with attention dropout off runs K7 and K12, not K13
+    cfg = RadBertConfig(vocab_size=tok.vocab_size, num_hidden_layers=2,
+                        attention_dropout=0.0)
+    model = RadBertClassifier(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(1))
+    trainer = TextClassifierTrainer(model, tok, batch_size=32)
+    loss, counts["radbert_dropout_off"], _ = drive(
+        "radbert_dropout_off", lambda: trainer.train_step(batch, 2e-5, 0))
+    if not np.isfinite(loss.item()) or counts["radbert_dropout_off"]["attention_dropout"]:
+        raise AssertionError("radbert dropout-off step: bad loss or K13 launched")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return dict(counts=counts, step_ms=step, step_ms_all=step_ms, peak_gb=peak_gb,
+                history=hist, train_cli_s=train_s, step_breakdown=breakdown)
+
+
+# ---------------------------------------------------------------- phase 5
 def small_reference_phase(dev, work: Path):
     """Tiny CT-CLIP: card (kernels) vs CPU (plain versions), same weights,
     both bf16, from volumes (K8) and from patch rows (K6 on the card, K4).
@@ -479,6 +887,67 @@ def small_reference_phase(dev, work: Path):
     return errs
 
 
+def radbert_reference_phase(dev, work: Path) -> dict:
+    """One training step of a tiny RadBERT (2 layers, width 128, 2 heads of
+    64, both dropouts 0, batch 8 x 512 tokens) from the same weights on the
+    card (K7 f32, K12) and on the CPU (plain versions), both f32.  They sum
+    in other orders: logits and loss within 1e-5 relative, each parameter's
+    gradient within 1e-4 of its largest entry, the updated weights within
+    1e-5.  The key biases' gradient is zero in exact arithmetic (softmax is
+    shift invariant), so both sides hold rounding noise there, which Adam
+    turns into steps of up to lr: they are held to that bound."""
+    import torch
+
+    from ct_clip_tpu_torch.config import RadBertConfig
+    from ct_clip_tpu_torch.data import WordPieceTokenizer
+    from ct_clip_tpu_torch.models import RadBertClassifier
+    from ct_clip_tpu_torch.train import ReportClassificationDataset, TextClassifierTrainer
+
+    tok = WordPieceTokenizer(str(work / "radbert_vocab.txt"))
+    cfg = RadBertConfig(vocab_size=tok.vocab_size, hidden_size=128, num_hidden_layers=2,
+                        num_attention_heads=2, intermediate_size=256,
+                        hidden_dropout=0.0, attention_dropout=0.0)
+    cpu = RadBertClassifier(cfg).init_weights(torch.Generator().manual_seed(5))
+    start = {k: v.clone() for k, v in cpu.state_dict().items()}
+    gpu = RadBertClassifier(cfg, device=dev)
+    gpu.load_state_dict(start)
+    batch = next(ReportClassificationDataset(str(work / "reports_valid.csv")).batches(
+        tok, 8, shuffle=False))
+    lr, out = 1e-3, {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        tr = TextClassifierTrainer(model, tok, lr=lr, batch_size=8)
+        with torch.no_grad():
+            ids, mask = (torch.from_numpy(batch[k]).to(tr.device)
+                         for k in ("input_ids", "attention_mask"))
+            logits = model.eval()(ids, mask).cpu()
+        loss = tr.train_step(batch, lr).item()
+        out[name] = dict(logits=logits, loss=loss,
+                         grads={n: p.grad.cpu() for n, p in model.named_parameters()},
+                         weights={k: v.cpu() for k, v in model.state_dict().items()})
+    c, g = out["cpu"], out["gpu"]
+    logit_rel = (g["logits"] - c["logits"]).abs().max().item() / c["logits"].abs().max().item()
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    grad_rel = weight_err = 0.0
+    for n in c["grads"]:
+        if n.endswith("attention.self.key.bias"):
+            step = (g["weights"][n] - start[n]).abs().max().item()
+            if step > 2 * lr:
+                raise AssertionError(f"radbert reference: {n} moved {step}")
+            continue
+        ref = c["grads"][n].abs().max().item()
+        if ref > 0:
+            grad_rel = max(grad_rel, (g["grads"][n] - c["grads"][n]).abs().max().item() / ref)
+        weight_err = max(weight_err, (g["weights"][n] - c["weights"][n]).abs().max().item())
+    res = dict(logits_rel=logit_rel, loss_rel=loss_rel, grad_rel=grad_rel,
+               weight_abs=weight_err)
+    log(f"reference: tiny RadBERT step card vs CPU: logits rel {logit_rel:.2e}, loss rel "
+        f"{loss_rel:.2e} (tol 1e-5), grads rel {grad_rel:.2e} (tol 1e-4), updated weights "
+        f"abs {weight_err:.2e} (tol 1e-5)")
+    if logit_rel > 1e-5 or loss_rel > 1e-5 or grad_rel > 1e-4 or weight_err > 1e-5:
+        raise AssertionError(f"tiny RadBERT card vs CPU disagree: {res}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -503,28 +972,33 @@ def main() -> int:
         f"({K.library_path().name})")
 
     results = kernel_phase(dev)
+    results.update(train_attention_phase(dev))
     work_root = ROOT / "build" / "chip_smoke"
     work_root.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=work_root))
     try:
         counts, route_diff, batch_ms = end_to_end_phase(dev, work, card)
+        radbert = radbert_phase(dev, work, card)
+        counts.update(radbert.pop("counts"))
         ref_errs = small_reference_phase(dev, work)
+        radbert_ref = radbert_reference_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     table = []
-    for name, (fn, replaces, source, sources) in KERNELS.items():
-        # launches on the main path (the default rows route); K8 is off it
-        # and reports the volume route's
-        by_path = {path: c[name] for path, c in counts.items()}
-        main = "zero_shot_rows" if name in PATHS["zero_shot_rows"] else "zero_shot_volume"
-        table.append({"name": fn, "route": "cuda", "source": CSRC + source,
-                      "sources": [CSRC + f for f in sources], "replaces": replaces,
-                      "launches": by_path[main], "launches_by_path": by_path,
-                      **results[name]})
+    for key, k in KERNELS.items():
+        by_path = {path: c[k["counter"]] for path, c in counts.items()
+                   if k["counter"] in PATHS[path]}
+        table.append({"name": k["name"], "route": "cuda", "source": CSRC + k["source"],
+                      "sources": [CSRC + f for f in k["sources"]], "replaces": k["replaces"],
+                      "counter": k["counter"], "main_path": k["path"],
+                      "launches": counts[k["path"]][k["counter"]],
+                      "launches_by_path": by_path, **results[key]})
     print(json.dumps({"e2e": {"score_batch_ms": batch_ms, "batch": B,
                               "route_max_abs_diff": route_diff,
-                              "tiny_card_vs_cpu_max_abs_diff": ref_errs}}), flush=True)
+                              "tiny_card_vs_cpu_max_abs_diff": ref_errs,
+                              "radbert": radbert, "radbert_tiny_card_vs_cpu": radbert_ref}}),
+          flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

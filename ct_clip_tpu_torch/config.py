@@ -1,10 +1,10 @@
 """Typed configuration for the PyTorch port, without JAX.
 
-The fields the zero-shot slice uses, with the names and reference defaults of
+The fields the ported slices use, with the names and reference defaults of
 ct_clip_tpu/config.py.  The defaults are full CT-CLIP width: CTViT dim 512
 over a 24x24x24 token grid (480x480x240 volume, 20x20x10 patches), CXR-BERT
-12 x 768, 512-dim latents.  Training, mesh and generative settings are not
-ported yet.
+12 x 768, 512-dim latents; and the RadBERT-RoBERTa report classifier.  The
+CT-CLIP training, mesh and generative settings are not ported yet.
 """
 from __future__ import annotations
 
@@ -82,7 +82,28 @@ class BertConfig(_Base):
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     pad_token_id: int = 0
+
+
+@dataclass(frozen=True)
+class RadBertConfig(_Base):
+    """RadBERT-RoBERTa-4m multilabel text classifier
+    (reference: text_classifier/classifier.py:5-18)."""
+
+    vocab_size: int = 50265
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 514
+    type_vocab_size: int = 1
+    layer_norm_eps: float = 1e-5
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    pad_token_id: int = 1
+    num_labels: int = 18
 
 
 @dataclass(frozen=True)

@@ -1,3 +1,3 @@
-from .from_jax import state_dict_from_jax
+from .from_jax import radbert_state_dict_from_jax, state_dict_from_jax
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["radbert_state_dict_from_jax", "state_dict_from_jax"]

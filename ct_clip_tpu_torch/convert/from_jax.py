@@ -10,6 +10,10 @@ JAX tree does not hold are filled as the reference holds them: the zero
 `beta` buffers of the gamma-only LayerNorms, the empty `null_kv`, the VQ
 `initted` flag, and zero CLOOB `*_extra` projections when the JAX model was
 built without them.
+
+`radbert_state_dict_from_jax` does the same for the JAX RadBertClassifier's
+params: the inverse of ct_clip_tpu/convert/torch_to_jax.py::
+radbert_params_from_torch (the reference `model.*` RoBERTa and `fc1` head).
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from ..config import CTCLIPConfig
+from ..config import CTCLIPConfig, RadBertConfig
 
 
 def _t(a) -> torch.Tensor:
@@ -116,4 +120,14 @@ def state_dict_from_jax(variables: Mapping, cfg: CTCLIPConfig) -> Dict[str, torc
         else:
             sd[f"{name}.weight"] = torch.zeros(cfg.dim_latent, width)
     sd["temperature"] = _t(p["temperature"]).reshape(())
+    return sd
+
+
+def radbert_state_dict_from_jax(params: Mapping,
+                                cfg: RadBertConfig) -> Dict[str, torch.Tensor]:
+    """JAX RadBertClassifier params {'encoder': ..., 'classifier': ...} ->
+    the port's RadBertClassifier state dict (f32 tensors)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _bert(sd, params["encoder"], cfg, "model.")
+    _linear(sd, "fc1", params["classifier"])
     return sd

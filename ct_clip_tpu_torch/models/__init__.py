@@ -1,5 +1,5 @@
-from .bert import BertModel
+from .bert import BertModel, RadBertClassifier
 from .ctclip import CTCLIP
 from .ctvit import CTViT
 
-__all__ = ["BertModel", "CTCLIP", "CTViT"]
+__all__ = ["BertModel", "CTCLIP", "CTViT", "RadBertClassifier"]

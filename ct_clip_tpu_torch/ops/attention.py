@@ -11,7 +11,10 @@ Ports of ct_clip_tpu/ops/attention.py:
     PEG -> attention -> feed-forward per layer, residuals folded into the
     sublayer kernels, final gamma LayerNorm;
   * `fused_attention`, the port of ops/pallas/attention.py::fused_attention
-    (K7): softmax(q k^T + bias + key_bias) v on (b, h, n, d).
+    (K7): softmax(q k^T + bias + key_bias) v on (b, h, n, d), with its
+    backward (K12, key-bias form) as an autograd.Function;
+  * `fused_attention_kbias_dropout` (K13, forward and backward): the same
+    with dropout on the probabilities from a Philox mask.
 
 Module and parameter names reproduce the reference torch state-dict layout
 (transformer_maskgit: `layers.{i}.0` PEG, `.1` attention, `.3` FF).
@@ -32,28 +35,156 @@ from .qknorm_attention import (fused_grid_qknorm_attention,
                                fused_spatial_qknorm_attention)
 
 
-# ------------------------------------------------------------------ K7 port
+# ------------------------------------------------- K7, K12 and K13 ports
 def attention_plain(q, k, v, bias: Optional[torch.Tensor] = None,
-                    key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    key_bias: Optional[torch.Tensor] = None,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of `_xla_attention`: (b, h, n, d) q, k, v; bias
-    broadcastable to (b, h, n, n); key_bias (b, n); f32 scores."""
+    broadcastable to (b, h, n, n); key_bias (b, n); f32 scores.  `mask`
+    (b, h, n, n), the scaled dropout mask, multiplies the probabilities
+    (`_kernel_kbias_drop`)."""
     sim = torch.einsum("bhid,bhjd->bhij", q.float(), k.float())
     if bias is not None:
         sim = sim + bias.float()
     if key_bias is not None:
         sim = sim + key_bias.float()[:, None, None, :]
     attn = sim.softmax(dim=-1)
+    if mask is not None:
+        attn = attn * mask
     return torch.einsum("bhij,bhjd->bhid", attn.to(v.dtype), v)
 
 
-def _attention_cuda(q, k, v, bias, key_bias):
+def attention_bwd_plain(q, k, v, dout, bias=None, key_bias=None, mask=None):
+    """Plain PyTorch version of the K12/K13 backwards (`_bwd_kernel_kbias`,
+    `_bwd_kernel_kbias_drop`): recompute the probabilities, then
+    dS = P (M dO v^T - rowsum(P M dO v^T)).  Returns dq, dk, dv, dbias (summed
+    to bias's shape) and dkey_bias (b, n) (summed over heads and query rows),
+    the last two None without their bias."""
+    f32 = [t.float() for t in (q, k, v, dout)]
+    qf, kf, vf, gf = f32
+    sim = torch.einsum("bhid,bhjd->bhij", qf, kf)
+    if bias is not None:
+        sim = sim + bias.float()
+    if key_bias is not None:
+        sim = sim + key_bias.float()[:, None, None, :]
+    attn = sim.softmax(dim=-1)
+    dattn = torch.einsum("bhid,bhjd->bhij", gf, vf)
+    kept = attn
+    if mask is not None:
+        kept, dattn = attn * mask, dattn * mask
+    row = (dattn * attn).sum(dim=-1, keepdim=True)
+    ds = attn * (dattn - row)
+    dq = torch.einsum("bhij,bhjd->bhid", ds, kf).to(q.dtype)
+    dk = torch.einsum("bhij,bhid->bhjd", ds, qf).to(k.dtype)
+    dv = torch.einsum("bhij,bhid->bhjd", kept, gf).to(v.dtype)
+    dbias = dkb = None
+    if bias is not None:
+        dbias = ds.sum_to_size(bias.shape).to(bias.dtype)
+    if key_bias is not None:
+        dkb = ds.sum(dim=(1, 2)).to(key_bias.dtype)
+    return dq, dk, dv, dbias, dkb
+
+
+# The TPU draws dropout bits from its hardware generator; the port draws
+# Philox4x32-10 (Salmon et al., SC'11) keyed on the seed, with the counter
+# (batch row, head, query i, key j // 4), word j % 4 being element (i, j)'s,
+# in csrc/attention_train.cu.  The functions below compute the same bits.
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """(hi, lo) 32-bit words of a * m for int64 `a` holding uint32 values,
+    from 16-bit halves of m so that no int64 product overflows."""
+    p_lo = a * (m & 0xFFFF)                       # < 2^48
+    p_hi = a * (m >> 16)                          # < 2^48
+    t = p_lo + ((p_hi & 0xFFFF) << 16)            # < 2^49
+    return (p_hi >> 16) + (t >> 32), t & _U32
+
+
+def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 of the counters (int64 tensors of uint32 values, any
+    broadcastable shapes) under the key (k0, k1): four uint32 words as int64
+    tensors."""
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _seed_value(seed) -> int:
+    return int(seed.reshape(-1)[0].item() if isinstance(seed, torch.Tensor) else seed)
+
+
+def dropout_threshold(rate: float) -> int:
+    """Keep iff bits >= this (`_drop_mask`, ops/pallas/attention.py:406)."""
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def dropout_keep_scale(rate: float) -> float:
+    """1 / (1 - rate) rounded to f32, as the TPU kernel multiplies it."""
+    return float(np.float32(1.0 / (1.0 - rate)))
+
+
+def dropout_mask(seed, b: int, h: int, n: int, rate: float,
+                 device=None) -> torch.Tensor:
+    """The (b, h, n, n) f32 dropout mask of K13: 1 / (1 - rate) where the
+    Philox bits of (seed; batch row, head, i, j // 4) are >= the threshold,
+    else 0.  Identical to the mask the CUDA kernels regenerate."""
+    s = _seed_value(seed)
+    i64 = dict(dtype=torch.int64, device=device)
+    n4 = (n + 3) // 4
+    words = philox4x32(torch.arange(b, **i64)[:, None, None, None],
+                       torch.arange(h, **i64)[None, :, None, None],
+                       torch.arange(n, **i64)[None, None, :, None],
+                       torch.arange(n4, **i64)[None, None, None, :],
+                       s & _U32, (s >> 32) & _U32)
+    words = [w.expand(b, h, n, n4) for w in words]
+    bits = torch.stack(words, dim=-1).reshape(b, h, n, 4 * n4)[..., :n]
+    keep = bits >= dropout_threshold(rate)
+    return keep.to(torch.float32) * dropout_keep_scale(rate)
+
+
+def attention_dropout_plain(q, k, v, key_bias, seed, rate: float) -> torch.Tensor:
+    """Plain PyTorch version of K13's forward (`_kernel_kbias_drop`)."""
+    b, h, n, _ = q.shape
+    return attention_plain(q, k, v, key_bias=key_bias,
+                           mask=dropout_mask(seed, b, h, n, rate, q.device))
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """t with a contiguous last dim, as the kernels address rows."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _launch_train_fwd(q, k, v, key_bias, seed=None, rate=0.0):
+    """f32 forward kernel (attention_train.cu): (out, lse)."""
+    b, h, n, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("attention: q, k, v shapes differ")
+    q, k, v = map(_rows, (q, k, v))
+    out = torch.empty_like(q)
+    if out.stride(-1) != 1:
+        out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    thresh = dropout_threshold(rate) if rate > 0 else 0
+    K.attention_train_fwd(
+        q, k, v, out, lse,
+        key_bias=None if key_bias is None else key_bias.float().contiguous(),
+        seed=seed, thresh=thresh, keep_scale=dropout_keep_scale(rate) if thresh else 1.0)
+    return out, lse
+
+
+def _attention_bf16_cuda(q, k, v, bias, key_bias):
     b, h, n, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("fused_attention: q, k, v shapes differ")
     if k.stride() != v.stride():
         k, v = k.contiguous(), v.contiguous()
-    if bias is not None and key_bias is not None:
-        raise ValueError("fused_attention: bias and key_bias are exclusive")
     out = torch.empty_like(q)
     if out.stride() != q.stride():  # q not dense: give both the same layout
         q = q.contiguous()
@@ -69,8 +200,49 @@ def _attention_cuda(q, k, v, bias, key_bias):
                 q_strides=(q.stride(0), 0, q.stride(1), q.stride(2)),
                 kv_strides=(k.stride(0), 0, k.stride(1), k.stride(2)),
                 bias=table, bias_mode=mode, warps=8 if n >= 128 else 2)
-    K.count_launch("fused_attention")
     return out
+
+
+class _FusedAttention(torch.autograd.Function):
+    """K7 forward, K12 backward.  On the CPU both are the plain versions; on
+    CUDA bf16 runs attention.cu (inference only) and f32 the key-tiled kernel
+    of attention_train.cu, whose backward takes its row log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, key_bias):
+        if bias is not None and key_bias is not None:
+            raise ValueError("fused_attention: bias and key_bias are exclusive")
+        lse = None
+        if q.device.type == "cpu":
+            out = attention_plain(q, k, v, bias, key_bias)
+        elif q.dtype == torch.bfloat16:
+            out = _attention_bf16_cuda(q, k, v, bias, key_bias)
+            K.count_launch("fused_attention")
+        elif bias is not None:
+            raise NotImplementedError("fused_attention: f32 on CUDA takes a per-key "
+                                      "bias only (the dense-bias form has no caller)")
+        else:
+            out, lse = _launch_train_fwd(q, k, v, key_bias)
+            K.count_launch("fused_attention")
+        ctx.save_for_backward(q, k, v, bias, key_bias, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, key_bias, out, lse = ctx.saved_tensors
+        need_db, need_dkb = ctx.needs_input_grad[3:5]
+        if q.device.type == "cpu":
+            dq, dk, dv, db, dkb = attention_bwd_plain(q, k, v, dout, bias, key_bias)
+            return dq, dk, dv, db if need_db else None, dkb if need_dkb else None
+        if lse is None:
+            raise NotImplementedError("fused_attention: the bf16 backward (K12 in "
+                                      "bf16) is not ported; train in f32")
+        dq, dk, dv, dkb = K.attention_train_bwd(
+            *map(_rows, (q, k, v, out, dout.to(q.dtype))), lse,
+            key_bias=None if key_bias is None else key_bias.float().contiguous(),
+            want_dkey_bias=need_dkb)
+        K.count_launch("attention_bwd")
+        return dq, dk, dv, None, None if dkb is None else dkb.to(key_bias.dtype)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -78,10 +250,68 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q k^T + bias + key_bias[:, None, None]) v on (b, h, n, d),
     any scaling already applied to q.  bias (1, 1|h, n, n) and key_bias
-    (b, n) are mutually exclusive on the kernel path."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, bias, key_bias)
-    return _attention_cuda(q, k, v, bias, key_bias)
+    (b, n) are mutually exclusive on the kernel path.  Differentiable: the
+    backward is the port of K12 (key-bias or no bias, f32, on CUDA)."""
+    return _FusedAttention.apply(q, k, v, bias, key_bias)
+
+
+def _seed_tensor(seed, device) -> torch.Tensor:
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(1).to(device=device, dtype=torch.int64)
+    return torch.tensor([int(seed)], dtype=torch.int64, device=device)
+
+
+class _FusedAttentionDropout(torch.autograd.Function):
+    """K13 forward and backward: key-bias attention with dropout on the
+    probabilities, the mask regenerated from the seed in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, seed, rate):
+        if q.device.type == "cpu":
+            out, lse = attention_dropout_plain(q, k, v, key_bias, seed, rate), None
+        else:
+            seed = _seed_tensor(seed, q.device)
+            out, lse = _launch_train_fwd(q, k, v, key_bias, seed, rate)
+            K.count_launch("attention_dropout")
+        ctx.rate, ctx.seed = rate, seed
+        ctx.save_for_backward(q, k, v, key_bias, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_bias, out, lse = ctx.saved_tensors
+        rate, seed = ctx.rate, ctx.seed
+        if q.device.type == "cpu":
+            b, h, n, _ = q.shape
+            dq, dk, dv, _, dkb = attention_bwd_plain(
+                q, k, v, dout, key_bias=key_bias,
+                mask=dropout_mask(seed, b, h, n, rate, q.device))
+        else:
+            thresh = dropout_threshold(rate)
+            dq, dk, dv, dkb = K.attention_train_bwd(
+                *map(_rows, (q, k, v, out, dout.to(q.dtype))), lse,
+                key_bias=key_bias.float().contiguous(),
+                want_dkey_bias=ctx.needs_input_grad[3], seed=seed,
+                thresh=thresh, keep_scale=dropout_keep_scale(rate))
+            K.count_launch("attention_dropout_bwd")
+            if dkb is not None:
+                dkb = dkb.to(key_bias.dtype)
+        return dq, dk, dv, dkb if ctx.needs_input_grad[3] else None, None, None
+
+
+def fused_attention_kbias_dropout(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, key_bias: torch.Tensor,
+                                  seed, rate: float) -> torch.Tensor:
+    """softmax(q k^T + key_bias) with dropout on the probabilities at `rate`
+    in [0, 1), then @ v (ops/pallas/attention.py::
+    fused_attention_kbias_dropout).  q, k, v: (b, h, n, d) f32, scaling
+    applied to q; key_bias: (b, n); seed: an int or a (1,) integer tensor
+    (on q's device it is read by the kernel without a host sync).  The mask
+    is Philox bits of (seed; batch row, head, i, j // 4), the same on the
+    CPU and the card and in forward and backward."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate {rate} outside [0, 1)")
+    return _FusedAttentionDropout.apply(q, k, v, key_bias, seed, rate)
 
 
 # ----------------------------------------------------------------- encoder

@@ -43,9 +43,12 @@ KERNELS = (
     "grid_attention",      # K2 small_attention.py::fused_small_qknorm_attention_grid
     "geglu_ff",            # K3 ffn.py::fused_geglu_ff
     "vq_assign",           # K5 vq.py::pallas_assign
-    "fused_attention",     # K7 attention.py::fused_attention
+    "fused_attention",     # K7 attention.py::fused_attention (bf16 and f32)
     "rearrange_patches",   # K6 patchify.py::rearrange_patches
     "row_embed",           # K4 patchify.py::fused_row_embed
+    "attention_bwd",       # K12 attention.py::_pallas_attention_bwd_kbias
+    "attention_dropout",   # K13 attention.py::_pallas_attention_kbias_drop_impl
+    "attention_dropout_bwd",  # K13 attention.py::_pallas_attention_kbias_drop_bwd
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -145,10 +148,16 @@ def _declare(lib) -> None:
     lib.ct_attention.argtypes = [p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll,
                                  i, i, i, i, i, p, p, p, i, i, p]
     lib.ct_rearrange_patches.argtypes = [p, i, i, i, i, i, i, p, ll, ll, i, p]
+    lp, u = ctypes.POINTER(ll), ctypes.c_uint
+    lib.ct_attn_train_fwd.argtypes = [i, p, p, p, p, lp, p, p, p, u, f,
+                                      i, i, i, i, p]
+    lib.ct_attn_train_bwd.argtypes = [i, p, p, p, p, p, p, p, p, lp, p, p, p,
+                                      p, p, p, u, f, i, i, i, i, p]
     lib.ct_error_string.argtypes = [i]
     lib.ct_error_string.restype = ctypes.c_char_p
     for name in ("ct_gemm", "ct_gemm_argmax", "ct_layernorm",
-                 "ct_patch_layernorm", "ct_attention", "ct_rearrange_patches"):
+                 "ct_patch_layernorm", "ct_attention", "ct_rearrange_patches",
+                 "ct_attn_train_fwd", "ct_attn_train_bwd"):
         getattr(lib, name).restype = ctypes.c_int
 
 
@@ -355,3 +364,97 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _ptr(ks), _ptr(bias), bias_mode, warps, _stream())
     _check(err, "ct_attention")
     return out
+
+
+# ------------------------------------------- training attention (f32 only)
+_TRAIN_DTYPES = {torch.float32: 0}
+
+
+def _bhnd_strides(*tensors):
+    """(batch, head, token) element strides of (b, h, n, d) tensors whose
+    last dim is contiguous, as the C array the kernels take."""
+    vals = []
+    for t in tensors:
+        if t.stride(-1) != 1:
+            raise ValueError("attention: the head dim must be contiguous")
+        vals.extend(t.stride()[:3])
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _check_bhnd(shape, dtype, **tensors):
+    for name, t in tensors.items():
+        require(t, name, dtype, 4, contiguous=False)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"attention: {name} {tuple(t.shape)} != {tuple(shape)}")
+    b, h, n, d = shape
+    if dtype not in _TRAIN_DTYPES:
+        raise ValueError(f"attention: the training kernels take {list(_TRAIN_DTYPES)}, "
+                         f"got {dtype}")
+    if d > 64:
+        raise ValueError(f"attention: head dim {d} > 64")
+    if b * h > 65535:  # one grid row per (sequence, head)
+        raise ValueError(f"attention: {b} x {h} (sequence, head) pairs > 65535")
+
+
+def _dropout_args(seed: Optional[torch.Tensor], thresh: int, device):
+    if not thresh:
+        return None
+    if seed is None or seed.dtype != torch.int64 or seed.numel() != 1 \
+            or seed.device != device:
+        raise ValueError("attention: dropout needs a (1,) int64 seed on the device")
+    return seed
+
+
+def _check_key_bias(key_bias, b: int, n: int) -> None:
+    if key_bias is not None:
+        require(key_bias, "key_bias", torch.float32, 2)
+        if tuple(key_bias.shape) != (b, n):
+            raise ValueError(f"attention: key_bias {tuple(key_bias.shape)} != {(b, n)}")
+
+
+def attention_train_fwd(q, k, v, out, lse, *, key_bias=None, seed=None,
+                        thresh=0, keep_scale=1.0) -> torch.Tensor:
+    """out = (softmax(q k^T + key_bias) * dropout mask) v and the row
+    log-sum-exp lse (b, h, n) f32 (attention_train.cu).  key_bias (b, n) or
+    None; thresh 0: no dropout."""
+    b, h, n, d = q.shape
+    _check_bhnd(q.shape, q.dtype, q=q, k=k, v=v, out=out)
+    require(lse, "lse", torch.float32, 3)
+    if tuple(lse.shape) != (b, h, n):
+        raise ValueError(f"attention: lse {tuple(lse.shape)} != {(b, h, n)}")
+    _check_key_bias(key_bias, b, n)
+    seed = _dropout_args(seed, thresh, q.device)
+    err = library().ct_attn_train_fwd(
+        _TRAIN_DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out),
+        _bhnd_strides(q, k, v, out), _ptr(key_bias), _ptr(lse), _ptr(seed),
+        thresh, float(keep_scale), b, h, n, d, _stream())
+    _check(err, "ct_attn_train_fwd")
+    return out
+
+
+def attention_train_bwd(q, k, v, out, dout, lse, *, key_bias=None,
+                        want_dkey_bias=False, seed=None, thresh=0,
+                        keep_scale=1.0):
+    """dq, dk, dv (and dkey_bias (b, n) summed over heads and query rows, or
+    None) of attention_train_fwd with a per-key or no bias
+    (attention_train.cu)."""
+    b, h, n, d = q.shape
+    _check_bhnd(q.shape, q.dtype, q=q, k=k, v=v, out=out, dout=dout)
+    require(lse, "lse", torch.float32, 3)
+    _check_key_bias(key_bias, b, n)
+    if key_bias is None and want_dkey_bias:
+        raise ValueError("attention: dkey_bias needs a key_bias")
+    seed = _dropout_args(seed, thresh, q.device)
+    dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    rowdot = torch.empty((b, h, n), **f32)
+    dkb_head = torch.empty((b, h, n), **f32) if want_dkey_bias else None
+    dkb = torch.empty((b, n), **f32) if want_dkey_bias else None
+    err = library().ct_attn_train_bwd(
+        _TRAIN_DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout),
+        _ptr(dq), _ptr(dk), _ptr(dv), _bhnd_strides(q, k, v, out, dout, dq, dk, dv),
+        _ptr(key_bias), _ptr(lse), _ptr(rowdot), _ptr(dkb_head), _ptr(dkb),
+        _ptr(seed), thresh, float(keep_scale), b, h, n, d, _stream())
+    _check(err, "ct_attn_train_bwd")
+    return dq, dk, dv, dkb

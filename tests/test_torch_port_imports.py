@@ -1,6 +1,7 @@
 """Import guard of the PyTorch port: no module of ct_clip_tpu_torch, and not
-chip_smoke.py, imports jax, flax or the JAX package, anywhere in the file
-(top level or inside a function).  Parsed with `ast`, nothing is imported."""
+chip_smoke.py, imports jax, flax, optax, scikit-learn or the JAX package,
+anywhere in the file (top level or inside a function); the machine with the
+card has none of them.  Parsed with `ast`, nothing is imported."""
 import ast
 from pathlib import Path
 
@@ -8,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "ct_clip_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "flax", "ct_clip_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "sklearn", "ct_clip_tpu")
 
 
 def _imports(path):
@@ -22,6 +23,7 @@ def _imports(path):
 def test_port_files_are_found():
     assert len(FILES) >= 25
     assert ROOT / "ct_clip_tpu_torch" / "cli.py" in FILES
+    assert ROOT / "ct_clip_tpu_torch" / "train" / "text_classifier.py" in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of ct_clip_tpu_torch against their plain PyTorch
-versions, on the card, in bf16.
+versions, on the card: the inference kernels in bf16, the training attention
+kernels (K7 f32, K12, K13) in f32.
 
 Needs an NVIDIA GPU and nvcc (the kernels compile on first use); skipped
 elsewhere.  Run on the card with:
@@ -9,7 +10,9 @@ elsewhere.  Run on the card with:
 Tolerances: kernel and plain version both round to bf16 at the same points
 but sum in different orders, so an intermediate may land one bf16 ulp
 (2^-8 relative) apart and carry that through the following stages.  Each
-check allows a max abs error of 2e-2 x max|plain| unless stated.
+check allows a max abs error of 2e-2 x max|plain| unless stated.  The f32
+kernels run the same products as their plain versions in another summation
+order: 1e-4 x max|plain|.
 """
 import pytest
 import torch
@@ -256,3 +259,77 @@ def test_row_route_counters_count_only_kernel_paths(dev):
         rearrange_patches(video.float(), 2, 8)  # a CUDA tensor must be bf16
     with pytest.raises(ValueError):
         fused_row_embed(rows.float(), *w)
+
+
+F32 = torch.float32
+
+
+def _train_attn_inputs(dev, b, h, n, d, seed, masked=0.2):
+    """(b, n, h, d) projections viewed head-major, as BERT passes them, a
+    key bias masking ~20% of the keys with f32 min, and an output gradient."""
+    g = _gen(dev, seed)
+    q, k, v = (_randn((b, n, h, d), g, dev, dtype=F32).transpose(1, 2) for _ in range(3))
+    q = q * d ** -0.5
+    keep = torch.rand((b, n), generator=g, device=dev) >= masked
+    keep[:, 0] = True
+    key_bias = (~keep).float() * torch.finfo(F32).min
+    do = _randn((b, h, n, d), g, dev, dtype=F32)
+    return q, k, v, key_bias, do
+
+
+def _grads(fn, q, k, v, key_bias, do):
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v, key_bias)]
+    out = fn(*ins)
+    return (out, *torch.autograd.grad(out, ins, do))
+
+
+@pytest.mark.parametrize("b,h,n,d", [(2, 12, 512, 64), (3, 2, 200, 40)])
+def test_k7_f32_and_k12_backward(dev, b, h, n, d):
+    from ct_clip_tpu_torch.ops.attention import attention_plain, fused_attention
+
+    args = _train_attn_inputs(dev, b, h, n, d, seed=12)
+    got = _grads(lambda q, k, v, kb: fused_attention(q, k, v, key_bias=kb), *args)
+    ref = _grads(lambda q, k, v, kb: attention_plain(q, k, v, key_bias=kb), *args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):  # out, dq, dk, dv, dkey_bias
+        _close(g, r, rel=1e-4)
+
+
+@pytest.mark.parametrize("b,h,n,d", [(2, 12, 512, 64), (3, 2, 200, 40)])
+def test_k13_forward_and_backward_match_the_same_mask(dev, b, h, n, d):
+    from ct_clip_tpu_torch.ops.attention import (attention_plain, dropout_mask,
+                                                 fused_attention_kbias_dropout)
+
+    args = _train_attn_inputs(dev, b, h, n, d, seed=13)
+    seed = torch.tensor([987654321012], dtype=torch.int64, device=dev)
+    mask = dropout_mask(seed, b, h, n, 0.1, dev)
+    got = _grads(lambda q, k, v, kb: fused_attention_kbias_dropout(q, k, v, kb, seed, 0.1),
+                 *args)
+    ref = _grads(lambda q, k, v, kb: attention_plain(q, k, v, key_bias=kb, mask=mask),
+                 *args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        _close(g, r, rel=1e-4)
+    again = fused_attention_kbias_dropout(*args[:4], seed, 0.1)
+    assert torch.equal(again, got[0])  # the same seed gives the same bits
+
+
+def test_training_attention_counters_count_only_kernel_paths(dev):
+    from ct_clip_tpu_torch.ops.attention import (fused_attention,
+                                                 fused_attention_kbias_dropout)
+
+    q, k, v, kb, do = _train_attn_inputs(dev, 1, 2, 64, 64, seed=14)
+    K.reset_launch_counts()
+    for device in (dev, torch.device("cpu")):
+        ins = [t.to(device).requires_grad_() for t in (q, k, v)]
+        out = fused_attention(*ins, key_bias=kb.to(device))
+        torch.autograd.grad(out, ins, do.to(device))
+        out = fused_attention_kbias_dropout(*ins, kb.to(device), 5, 0.1)
+        torch.autograd.grad(out, ins, do.to(device))
+    with torch.no_grad():
+        fused_attention(q, k, v, key_bias=kb)
+    counts = K.launch_counts()
+    assert (counts["fused_attention"], counts["attention_bwd"],
+            counts["attention_dropout"], counts["attention_dropout_bwd"]) == (2, 1, 1, 1)
+    with pytest.raises(ValueError):  # the f32 kernels hold d <= 64
+        fused_attention(*(torch.zeros(1, 1, 8, 96, device=dev) for _ in range(3)))

@@ -183,3 +183,132 @@ def test_preprocess_volume_matches_exact_f32_chain():
         got = preprocess_volume(torch.from_numpy(vol), spacing, 1.0, -24.0,
                                 true_sizes=true, input_layout="zyx", config=cfg)
         _close(got, ref)
+
+
+# ------------------------------------------ training attention (K7, K12, K13)
+def _kbias_args(b=2, h=2, n=128, d=16, seed=5):
+    """f32 q, k, v, do and a key bias masking ~20% of the keys with -1e9, as
+    tests/test_pallas_interpret.py sets up the key-bias kernels."""
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.randn(b, h, n, d).astype(np.float32) for _ in range(3))
+    kb = np.where(rng.rand(b, n) < 0.2, -1e9, 0.0).astype(np.float32)
+    do = rng.randn(b, h, n, d).astype(np.float32)
+    return q, k, v, kb, do
+
+
+@pytest.fixture
+def pallas_interpret():
+    from ct_clip_tpu.ops.pallas import _call
+    import jax
+
+    _call.set_interpret(True)
+    jax.clear_caches()  # plans are resolved at trace time
+    yield
+    _call.set_interpret(False)
+    jax.clear_caches()
+
+
+def test_k12_plain_backward_matches_pallas_kbias_bwd(pallas_interpret):
+    """K12's plain backward against `_pallas_attention_bwd_kbias` run in
+    interpret mode: dq, dk, dv and dkey_bias within 1e-4 relative (f32 sums
+    in different orders, through a softmax)."""
+    from ct_clip_tpu.ops.pallas.attention import _pallas_attention_bwd_kbias
+    from ct_clip_tpu_torch.ops.attention import fused_attention
+
+    q, k, v, kb, do = _kbias_args()
+    ref = _pallas_attention_bwd_kbias(*(jnp.asarray(a) for a in (q, k, v, kb, do)))
+    qt, kt, vt, kbt = (_t(a).requires_grad_() for a in (q, k, v, kb))
+    got = torch.autograd.grad(fused_attention(qt, kt, vt, key_bias=kbt),
+                              (qt, kt, vt, kbt), _t(do))
+    for g, r in zip(got, ref):
+        _close(g, r, rtol=1e-4)
+
+
+def test_k7_f32_matches_xla_attention():
+    """K7's f32 form (masked keys, n not a multiple of the kernel's tiles)
+    against `_xla_attention` within 1e-5 relative."""
+    from ct_clip_tpu.ops.pallas.attention import _xla_attention
+    from ct_clip_tpu_torch.ops.attention import fused_attention
+
+    q, k, v, kb, _ = _kbias_args(n=100, seed=6)
+    ref = _xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None,
+                         jnp.asarray(kb))
+    _close(fused_attention(_t(q), _t(k), _t(v), key_bias=_t(kb)), ref)
+
+
+def test_k13_plain_is_attention_with_the_philox_mask():
+    from ct_clip_tpu_torch.ops.attention import (attention_plain, dropout_mask,
+                                                 fused_attention_kbias_dropout)
+
+    q, k, v, kb, _ = _kbias_args(n=40, d=8, seed=7)
+    mask = dropout_mask(11, 2, 2, 40, 0.1)
+    got = fused_attention_kbias_dropout(_t(q), _t(k), _t(v), _t(kb), 11, 0.1)
+    ref = attention_plain(_t(q), _t(k), _t(v), key_bias=_t(kb), mask=mask)
+    assert torch.equal(got, ref)
+    # the seed may be a (1,) integer tensor, as the model draws it
+    same = fused_attention_kbias_dropout(_t(q), _t(k), _t(v), _t(kb),
+                                         torch.tensor([11]), 0.1)
+    assert torch.equal(same, got)
+    assert set(mask.unique().tolist()) == {0.0, float(np.float32(1 / 0.9))}
+
+
+def test_k13_backward_matches_autograd_of_the_explicit_mask():
+    from ct_clip_tpu_torch.ops.attention import (attention_plain, dropout_mask,
+                                                 fused_attention_kbias_dropout)
+
+    q, k, v, kb, do = _kbias_args(n=48, d=8, seed=8)
+    ins = [_t(a).requires_grad_() for a in (q, k, v, kb)]
+    got = torch.autograd.grad(fused_attention_kbias_dropout(*ins, 3, 0.25), ins, _t(do))
+    ref = torch.autograd.grad(attention_plain(*ins[:3], key_bias=ins[3],
+                                              mask=dropout_mask(3, 2, 2, 48, 0.25)),
+                              ins, _t(do))
+    for g, r in zip(got, ref):
+        _close(g, r.numpy())
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_k13_kept_share_within_4_sigma(rate):
+    from ct_clip_tpu_torch.ops.attention import dropout_mask
+
+    b, h, n = 2, 3, 64
+    kept = (dropout_mask(1234, b, h, n, rate) > 0).double()
+    count = kept.numel()
+    sigma = np.sqrt(rate * (1 - rate) / count)
+    assert abs(kept.mean().item() - (1 - rate)) < 4 * sigma
+    # rows, heads and batch rows draw different bits
+    assert not torch.equal(kept[0, 0], kept[0, 1])
+    assert not torch.equal(kept[0, 0], kept[1, 0])
+
+
+def test_k13_mean_over_seeds_approaches_jax_no_dropout():
+    """tests/test_pallas.py::test_attention_dropout_xla_fallback_statistics
+    with the port's mask: inverted dropout is unbiased, so the mean over 64
+    seeds lies within the JAX test's bound of JAX's no-dropout output."""
+    from ct_clip_tpu.ops.pallas.attention import _xla_attention
+    from ct_clip_tpu_torch.ops.attention import fused_attention_kbias_dropout
+
+    b, h, n, d = 2, 2, 32, 16
+    rng = np.random.RandomState(31)
+    q, k, v = (rng.randn(b, h, n, d).astype(np.float32) for _ in range(3))
+    kb = np.zeros((b, n), np.float32)
+    outs = [fused_attention_kbias_dropout(_t(q), _t(k), _t(v), _t(kb), s, 0.5)
+            for s in range(64)]
+    mean = torch.stack(outs).mean(0).numpy()
+    ref = np.asarray(_xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    None, jnp.asarray(kb)))
+    assert np.mean(np.abs(mean - ref)) < 0.12
+
+
+@pytest.mark.parametrize("ctr,key,want", [
+    ((0, 0, 0, 0), (0, 0), (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((0xffffffff,) * 4, (0xffffffff, 0xffffffff),
+     (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344), (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+])
+def test_philox_known_answers(ctr, key, want):
+    """Philox4x32-10 against the Random123 known-answer vectors."""
+    from ct_clip_tpu_torch.ops.attention import philox4x32
+
+    got = philox4x32(*(torch.tensor([c], dtype=torch.int64) for c in ctr), *key)
+    assert tuple(int(w) for w in got) == want
