@@ -42,7 +42,18 @@ Phases, each fatal on failure (exit code != 0, no result line):
      bf16, from volumes and from patch rows, and must agree; a tiny RadBERT
      with both dropouts 0 takes one training step from the same weights on
      the card and on the CPU, and the logits, loss, gradients and updated
-     weights must agree.
+     weights must agree;
+  6. CT-CLIP pretraining: the training kernels against their plain versions
+     at full width, batch 8 (K11, K9, K10, K14, K15, K5 exact, K13 in bf16
+     at CXR-BERT's batch 8 x 512), then `cli train` on a synthetic corpus of
+     20 volumes (16 kept by the 80% split) at full width, batch 8, 4 steps,
+     with one mini evaluation on 2 validation volumes and one checkpoint;
+     every training counter must rise.  The step time (CUDA events), peak
+     memory and a profiled step's breakdown and idle share follow, then a
+     tiny CT-CLIP training step on the card against the CPU (both bf16, each
+     gradient held against the CPU's own bf16-vs-f32 distance), the same
+     card step with planted kernel faults that must fail that comparison,
+     and a save -> resume round trip on the card.
 
 Prints the end-to-end numbers and the kernel table as one JSON line each,
 then the card's name and power limit (nvidia-smi), then
@@ -109,8 +120,8 @@ KERNELS = {
                         ["layernorm.cu", "gemm.cu"], "geglu_ff", "zero_shot_rows"),
     "vq_assign": _kernel("pallas_assign", "vq.py:104", "gemm.cu", ["gemm.cu"],
                          "vq_assign", "zero_shot_rows"),
-    "fused_attention": _kernel("fused_attention", "attention.py:129", "attention.cu",
-                               ["attention.cu"], "fused_attention", "zero_shot_rows"),
+    "fused_attention": _kernel("fused_attention", "attention.py:129", "attention_train.cu",
+                               ATTN_TRAIN, "fused_attention", "zero_shot_rows"),
     "rearrange_patches": _kernel("rearrange_patches", "patchify.py:105", "rearrange.cu",
                                  ["rearrange.cu"], "rearrange_patches", "zero_shot_rows"),
     "row_embed": _kernel("fused_row_embed", "patchify.py:609", "layernorm.cu",
@@ -127,6 +138,28 @@ KERNELS = {
     "attention_dropout_bwd": _kernel("_pallas_attention_kbias_drop_bwd",
                                      "attention.py:499", "attention_train.cu", ATTN_TRAIN,
                                      "attention_dropout_bwd", "radbert_train"),
+    "geglu_ff_bwd": _kernel("_pallas_ff_bwd", "ffn.py:238", "gemm.cu",
+                            ["layernorm.cu", "gemm.cu"], "geglu_ff_bwd", "ctclip_train"),
+    "spatial_attention_bwd": _kernel("_pallas_spatial_bwd", "spatial_attention.py:297",
+                                     "qknorm_attention_bwd.cu",
+                                     ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
+                                     "spatial_attention_bwd", "ctclip_train"),
+    "grid_attention_bwd": _kernel("_pallas_small_qknorm_bwd (grid_layout)",
+                                  "small_attention.py:437", "qknorm_attention_bwd.cu",
+                                  ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
+                                  "grid_attention_bwd", "ctclip_train"),
+    "peg_bwd": _kernel("_pallas_peg_bwd", "peg.py:181", "peg_bwd.cu",
+                       ["peg_bwd.cu", "gemm.cu"], "peg_bwd", "ctclip_train"),
+    "vq_cluster_stats": _kernel("pallas_cluster_stats", "vq.py:168", "vq_stats.cu",
+                                ["vq_stats.cu"], "vq_cluster_stats", "ctclip_train"),
+    "vq_assign_exact": _kernel("pallas_assign (exact)", "vq.py:104", "gemm.cu", ["gemm.cu"],
+                               "vq_assign_exact", "ctclip_train"),
+    "attention_dropout_bf16": _kernel("_pallas_attention_kbias_drop_impl (bf16)",
+                                      "attention.py:474", "attention_train.cu", ATTN_TRAIN,
+                                      "attention_dropout", "ctclip_train"),
+    "attention_dropout_bwd_bf16": _kernel("_pallas_attention_kbias_drop_bwd (bf16)",
+                                          "attention.py:499", "attention_train.cu",
+                                          ATTN_TRAIN, "attention_dropout_bwd", "ctclip_train"),
 }
 # launch counters each driven path must raise
 COMMON = ["spatial_attention", "grid_attention", "geglu_ff", "vq_assign",
@@ -139,7 +172,20 @@ PATHS = {
     "radbert_infer": ["fused_attention"],
     "radbert_eval": ["fused_attention"],
     "radbert_dropout_off": ["fused_attention", "attention_bwd"],
+    # the training step and the mini evaluation (K6 ingest, K4 embed, K5)
+    "ctclip_train": ["geglu_ff_bwd", "spatial_attention_bwd", "grid_attention_bwd",
+                     "peg_bwd", "vq_cluster_stats", "vq_assign_exact", "geglu_ff",
+                     "spatial_attention", "grid_attention", "attention_dropout",
+                     "attention_dropout_bwd", "rearrange_patches", "row_embed",
+                     "vq_assign", "fused_attention"],
 }
+# training backwards: autograd of the plain forward in bf16 rounds each
+# gradient tensor to bf16 where the kernels keep f32 (weight gradients, dxn)
+# or round at the JAX kernels' points, a few bf16 ulps apart
+BWD_REL_TOL = 3e-2
+# exact bf16 products summed in f32, in another order
+SUM_REL_TOL = 1e-5
+TRAIN_B = 8  # volumes per training batch
 # RadBERT training attention: (batch, heads, tokens, head dim), f32
 BERT_SHAPE = (32, 12, 512, 64)
 CHECK_BATCH = 8
@@ -525,6 +571,208 @@ def train_attention_phase(dev) -> dict:
     return results
 
 
+# ------------------------------------------- phase 2, CT-CLIP training kernels
+def _rel_errors(got, ref):
+    """(max abs err, max over outputs of abs err / max|plain|)."""
+    errs, rels = [], []
+    for g, r in zip(got, ref):
+        if g is None and r is None:
+            continue
+        if g.shape != r.shape or not torch_finite(g):
+            raise AssertionError(f"bad kernel output {tuple(g.shape)} vs {tuple(r.shape)}")
+        e = (g.float() - r.float()).abs().max().item()
+        errs.append(e)
+        rels.append(e / max(r.float().abs().max().item(), 1e-30))
+    return max(errs), max(rels)
+
+
+def torch_finite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t.float()).all())
+
+
+def train_kernel_cases(dev):
+    """The CT-CLIP training kernels at full width, batch 8 (K13 at CXR-BERT's
+    batch 8 x 512): each case's kernel call through the wrapper the model
+    calls (a backward is torch.autograd.grad of a kept forward), its plain
+    version, a library call where one computes the same function, the
+    tensors it reads and writes, its products and its tolerance."""
+    import torch
+    import torch.nn.functional as F
+
+    from ct_clip_tpu_torch.ops.attention import (
+        attention_bwd_plain, attention_dropout_plain, dropout_mask,
+        fused_attention_kbias_dropout, peg_dw, peg_dw_plain)
+    from ct_clip_tpu_torch.ops.ffn import fused_geglu_ff, geglu_ff_bwd_plain
+    from ct_clip_tpu_torch.ops.norms import l2norm
+    from ct_clip_tpu_torch.ops.qknorm_attention import (
+        fused_grid_qknorm_attention, fused_spatial_qknorm_attention,
+        grid_qknorm_attention_bwd_plain, qknorm_attention_bwd_plain)
+    from ct_clip_tpu_torch.ops.vq import (cluster_stats, cluster_stats_plain, vq_assign,
+                                          vq_assign_plain)
+
+    g = torch.Generator(device=dev).manual_seed(30)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*shape, scale=1.0, dtype=f32):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    dim, heads, dh, hd, n_tok, inner = 512, 8, 32, 256, 13824, 1365
+    R = TRAIN_B * n_tok
+
+    def grad_case(fn, leaves, do):
+        out = fn(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    # K11
+    x, do = rn(R, dim, dtype=bf), rn(R, dim, dtype=bf)
+    w = (1 + rn(dim, scale=0.1), rn(dim, scale=0.1), rn(2 * inner, dim, scale=dim ** -0.5),
+         rn(dim, inner, scale=inner ** -0.5))
+    leaves = [t.requires_grad_() for t in (x.clone(), *w)]
+    yield "geglu_ff_bwd", dict(
+        kern=grad_case(fused_geglu_ff, leaves, do),
+        plain=lambda: geglu_ff_bwd_plain(x, *w, do), library=None,
+        inputs=(x, do, *w), outputs=(x, *w), flops=2 * R * dim * 8 * inner,
+        tol=BWD_REL_TOL)
+    del x, do, w, leaves
+
+    # K9, K10: the same weights; spatial planes with the CPB bias, the grid
+    w_attn = (1 + rn(dim, scale=0.1), rn(hd, dim, scale=dim ** -0.5),
+              rn(2 * hd, dim, scale=dim ** -0.5), 1 + rn(dh, scale=0.2),
+              1 + rn(dh, scale=0.2), rn(dim, hd, scale=hd ** -0.5))
+    proj = 2 * R * dim * hd * 11
+    xs, dos, cpb = rn(TRAIN_B * 24, 576, dim, dtype=bf), rn(TRAIN_B * 24, 576, dim, dtype=bf), \
+        rn(heads, 576, 576)
+    leaves = [t.clone().requires_grad_() for t in (xs, *w_attn, cpb)]
+    yield "spatial_attention_bwd", dict(
+        kern=grad_case(lambda *a: fused_spatial_qknorm_attention(*a, heads, dh), leaves, dos),
+        plain=lambda: qknorm_attention_bwd_plain(xs, *w_attn, cpb, dos, heads, dh),
+        library=None, inputs=(xs, dos, *w_attn, cpb), outputs=(xs, *w_attn, cpb),
+        flops=proj + 12 * TRAIN_B * 24 * heads * 576 * 576 * dh, tol=BWD_REL_TOL)
+    del xs, dos, cpb, leaves
+    xg, dog = rn(TRAIN_B, 24, 576, dim, dtype=bf), rn(TRAIN_B, 24, 576, dim, dtype=bf)
+    leaves = [t.clone().requires_grad_() for t in (xg, *w_attn)]
+    yield "grid_attention_bwd", dict(
+        kern=grad_case(lambda *a: fused_grid_qknorm_attention(*a, heads, dh), leaves, dog),
+        plain=lambda: grid_qknorm_attention_bwd_plain(xg, *w_attn, dog, heads, dh),
+        library=None, inputs=(xg, dog, *w_attn), outputs=(xg, *w_attn),
+        flops=proj + 12 * TRAIN_B * 576 * heads * 24 * 24 * dh, tol=BWD_REL_TOL)
+    del xg, dog, leaves, w_attn
+
+    # K14 on the frame-causal PEG (leading pads t 2, h 1, w 1); the library
+    # call is cuDNN's weight and bias gradient of the same padded conv
+    xp, dop = rn(TRAIN_B, 24, 24, 24, dim, dtype=bf), rn(TRAIN_B, 24, 24, 24, dim, dtype=bf)
+    weight = rn(dim, 1, 3, 3, 3, scale=0.2, dtype=bf)
+
+    def cudnn_dw():
+        xc = F.pad(xp.permute(0, 4, 1, 2, 3), [1, 1, 1, 1, 2, 0])
+        return torch.ops.aten.convolution_backward(
+            dop.permute(0, 4, 1, 2, 3), xc, weight, [dim], [1, 1, 1], [0, 0, 0],
+            [1, 1, 1], False, [0, 0, 0], dim, [False, True, True])[1:]
+    yield "peg_bwd", dict(
+        kern=lambda: peg_dw(xp, dop, (2, 1, 1)), plain=lambda: peg_dw_plain(xp, dop, (2, 1, 1)),
+        library=cudnn_dw, inputs=(xp, dop), outputs=(torch.empty(28, dim, device=dev),),
+        flops=2 * 27 * xp.numel(), tol=SUM_REL_TOL)
+    del xp, dop, weight
+
+    # K15 on uniform random ids (13.5 rows per code); library: index_add_ of
+    # the normalised rows and bincount
+    xv = rn(R, dim, dtype=bf)
+    ids = torch.randint(0, 8192, (R,), generator=g, device=dev, dtype=torch.int32)
+
+    def lib_stats():
+        esum = torch.zeros(8192, dim, device=dev).index_add_(0, ids.long(), l2norm(xv.float()))
+        return torch.bincount(ids, minlength=8192), esum
+    yield "vq_cluster_stats", dict(
+        kern=lambda: cluster_stats(xv, ids, 8192), plain=lambda: cluster_stats_plain(xv, ids, 8192),
+        library=lib_stats, inputs=(xv, ids),
+        outputs=(torch.empty(8192, device=dev), torch.empty(8192, dim, device=dev)),
+        flops=3 * R * dim, tol=SUM_REL_TOL)
+    del ids
+
+    # K5 exact: ids, checked as the inference K5 (agreement, near-ties)
+    embed_n = l2norm(rn(8192, dim))
+    yield "vq_assign_exact", dict(
+        kern=lambda: vq_assign(xv, embed_n, exact=True),
+        plain=lambda: vq_assign_plain(xv, embed_n, exact=True), library=None,
+        inputs=(xv, embed_n), outputs=(torch.empty(R, dtype=torch.int32, device=dev),),
+        flops=2 * 2 * R * dim * 8192, ids=True)
+    del xv, embed_n
+
+    # K13 in bf16 at CXR-BERT's training batch (8, 12, 512, 64)
+    b, h, n, d = TRAIN_B, 12, 512, 64
+    q, k, v = (rn(b, n, h, d, dtype=bf).transpose(1, 2) for _ in range(3))
+    q = q * d ** -0.5
+    lengths = torch.randint(64, n + 1, (b,), generator=g, device=dev)
+    kb = (1 - (torch.arange(n, device=dev)[None] < lengths[:, None]).float()) \
+        * torch.finfo(f32).min
+    dob = rn(b, h, n, d, dtype=bf)
+    seed = torch.tensor([20261016], dtype=torch.int64, device=dev)
+    mask = dropout_mask(seed, b, h, n, DROP_RATE, dev)
+    sdpa_mask = kb.to(bf)[:, None, None, :]
+    product = 2 * b * h * n * n * d
+    yield "attention_dropout_bf16", dict(
+        kern=lambda: fused_attention_kbias_dropout(q, k, v, kb, seed, DROP_RATE),
+        plain=lambda: attention_dropout_plain(q, k, v, kb, seed, DROP_RATE),
+        library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
+                                                       dropout_p=DROP_RATE, scale=1.0),
+        inputs=(q, k, v, kb, seed), outputs=(q,), flops=2 * product, tol=BWD_REL_TOL)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, kb)]
+    out = fused_attention_kbias_dropout(*leaves, seed, DROP_RATE)
+    lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=sdpa_mask,
+                                             dropout_p=DROP_RATE, scale=1.0)
+    yield "attention_dropout_bwd_bf16", dict(
+        kern=lambda: torch.autograd.grad(out, leaves, dob, retain_graph=True),
+        plain=lambda: tuple(t for t in attention_bwd_plain(q, k, v, dob, key_bias=kb,
+                                                           mask=mask) if t is not None),
+        library=lambda: torch.autograd.grad(lib_out, lib_in, dob, retain_graph=True),
+        inputs=(q, k, v, kb, seed, dob), outputs=(q, k, v, kb), flops=5 * product,
+        tol=BWD_REL_TOL)
+
+
+def train_kernel_phase(dev) -> dict:
+    import torch
+
+    results = {}
+    for name, case in train_kernel_cases(dev):
+        got, ref = _as_tuple(case["kern"]()), _as_tuple(case["plain"]())
+        torch.cuda.synchronize()
+        if case.get("ids"):
+            x, embed_n = case["inputs"]
+            from ct_clip_tpu_torch.ops.vq import split_hi_lo
+
+            hi, lo = split_hi_lo(embed_n)
+            sims = [x.float() @ hi.float().t() + x.float() @ lo.float().t()]
+            gi, ri = got[0].long(), ref[0].long()
+            gap = (sims[0].gather(1, ri[:, None]) - sims[0].gather(1, gi[:, None])).abs()[:, 0]
+            agree = (gi == ri).float().mean().item()
+            margin = sims[0].abs().max(dim=1).values
+            ok = agree >= 0.999 and bool((gap <= 1e-5 * margin).all())
+            res = dict(max_abs_err=gap.max().item(), max_rel_err=None, id_agreement=agree,
+                       tolerance=">= 0.999 ids equal, the rest ties within 1e-5")
+            del sims
+        else:
+            err, rel = _rel_errors(got, ref)
+            ok = rel <= case["tol"]
+            res = dict(max_abs_err=err, max_rel_err=rel, tolerance=f"rel {case['tol']}")
+        if not ok:
+            raise AssertionError(f"{name}: outside tolerance: {res}")
+        del got, ref
+        torch.cuda.empty_cache()
+        res.update(timing(case, case["outputs"]), batch=TRAIN_B)
+        lib = "none" if res["library_ms"] is None else f"{res['library_ms']:.3f} ms"
+        log(f"kernel {name}: max_abs_err {res['max_abs_err']:.4e} max_rel_err "
+            f"{res['max_rel_err'] if res['max_rel_err'] is None else round(res['max_rel_err'], 6)} "
+            f"({res['tolerance']}) batch {TRAIN_B}: kernel {res['ms']:.3f} ms plain "
+            f"{res['plain_ms']:.3f} ms library {lib} bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}, {100 * res['bound_share']:.1f}% of it reached)")
+        results[name] = res
+        torch.cuda.empty_cache()
+    return results
+
+
 # ---------------------------------------------------------------- phase 3
 def write_corpus(root: Path, shapes, spacing_xy: float, spacing_z: float):
     from ct_clip_tpu_torch.config import PATHOLOGIES
@@ -669,8 +917,11 @@ def end_to_end_phase(dev, work: Path, card: str):
             batch_ms[name] = cuda_ms(lambda: clf.score_batch(x), reps=5)
             log(f"e2e {name}: score_batch({B}) {batch_ms[name]:.2f} ms = "
                 f"{B / batch_ms[name] * 1e3:.2f} volumes/s device-side on {card}")
+            if name == "zero_shot_rows":
+                profile = profile_step(lambda: clf.score_batch(x), CTCLIP_GROUPS,
+                                       "zero-shot score_batch (rows)")
             del x
-    return counts, route_diff, batch_ms
+    return counts, route_diff, batch_ms, profile
 
 
 # ---------------------------------------------------------------- phase 4
@@ -722,10 +973,31 @@ STEP_GROUPS = (
 STEP_OTHER = "other (LayerNorm, GELU, dropout, elementwise, embedding)"
 
 
-def profile_step(step) -> dict:
+def device_busy_ms(prof):
+    """(busy, span) ms of a profile: the union of its device events' [start,
+    end) intervals (kernels that overlap, as cuDNN's per-group convolutions
+    do, count once), and first start to last end."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("profile: no device events recorded")
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy, lo = busy + hi - lo, s
+        hi = max(hi, e)
+    busy += hi - lo
+    return busy / 1e3, (max(e for _, e in spans) - spans[0][0]) / 1e3
+
+
+def profile_step(step, groups_spec=STEP_GROUPS, label: str = "radbert") -> dict:
     """Device time of one step by kernel (torch.profiler over a synchronised
-    step, after a warm-up), grouped by STEP_GROUPS, with the busy share of
-    the step's host-clock time (kernels on one stream do not overlap)."""
+    step, after a warm-up), grouped by `groups_spec` (kernel-name fragments,
+    first match wins: summed kernel times, which count overlapping kernels
+    each), and the idle share of the step's host-clock time: 1 - the union
+    of the device intervals over it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -741,20 +1013,24 @@ def profile_step(step) -> dict:
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                      key=lambda r: -r[1])
-    busy = sum(ms for _, ms, _ in kernels)
-    groups = {name: 0.0 for name, _ in STEP_GROUPS}
+    summed = sum(ms for _, ms, _ in kernels)
+    busy, span = device_busy_ms(prof)
+    groups = {name: 0.0 for name, _ in groups_spec}
     groups[STEP_OTHER] = 0.0
     for key, ms, _ in kernels:
         low = key.lower()
-        group = next((g for g, frags in STEP_GROUPS if any(f in low for f in frags)),
+        group = next((g for g, frags in groups_spec if any(f in low for f in frags)),
                      STEP_OTHER)
         groups[group] += ms
-    log(f"radbert step profile: device busy {busy:.2f} ms of {wall_ms:.2f} ms host clock "
-        f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}, profiler on); by group "
+    idle = 1 - busy / wall_ms
+    log(f"{label} step profile: device busy (union of intervals) {busy:.2f} ms of "
+        f"{wall_ms:.2f} ms host clock, idle share {idle:.4f} (profiler on); first to last "
+        f"device event {span:.2f} ms; kernel times summed {summed:.2f} ms; by group (summed) "
         + "; ".join(f"{g} {ms:.2f} ms" for g, ms in groups.items()))
     for key, ms, count in kernels[:12]:
         log(f"  {ms:8.3f} ms  x{count:<4d} {key[:110]}")
-    return dict(busy_ms=busy, wall_ms=wall_ms, groups=groups,
+    return dict(busy_ms=busy, wall_ms=wall_ms, idle_share=idle, device_span_ms=span,
+                summed_kernel_ms=summed, groups=groups,
                 top=[dict(kernel=k[:160], ms=ms, count=c) for k, ms, c in kernels[:12]])
 
 
@@ -948,6 +1224,352 @@ def radbert_reference_phase(dev, work: Path) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 6
+# kernel-name fragments of a CT-CLIP training step's groups (first match)
+CTCLIP_GROUPS = (
+    ("K11 GEGLU FF backward tile (ff_bwd_kernel)", ("ff_bwd_kernel",)),
+    ("backward products NN/TN + split sums (gemm_layout_kernel, sum_splits)",
+     ("gemm_layout_kernel", "sum_splits_kernel")),
+    ("K9/K10 attention core backward (qk_attention_bwd_kernel)", ("qk_attention_bwd_kernel",)),
+    ("LayerNorm backward (ln_bwd_kernel)", ("ln_bwd_kernel",)),
+    ("K14 PEG dW/db (peg_dw_kernel)", ("peg_dw_kernel",)),
+    ("K15 VQ statistics (vq_stats.cu)", ("rank_kernel", "scan_kernel", "place_kernel",
+                                         "sum_kernel")),
+    ("K5 exact assignment (gemm_argmax2_kernel)", ("gemm_argmax2",)),
+    ("forward products K1-K3 (gemm_kernel) and LN (ln_kernel)", ("gemm_kernel<",
+                                                                 "ln_kernel")),
+    ("K1/K2 attention core forward (attention_kernel)", ("attention_kernel",)),
+    ("K13 bf16 CXR-BERT attention (attention_train.cu)", ("fwd_kernel<", "bwd_dq_kernel",
+                                                          "bwd_dkv_kernel", "rowdot_kernel",
+                                                          "dkb_sum")),
+    ("cuDNN depthwise conv (PEG forward and dx)", ("conv", "cudnn", "depthwise")),
+    ("cuBLAS products (BERT, embed, latent projections)", ("gemm", "xmma", "cutlass",
+                                                           "cublas", "sm90")),
+    ("Adam (multi-tensor)", ("multi_tensor", "foreach")),
+)
+
+
+def write_train_corpus(work: Path):
+    """20 training volumes (16 kept by the 80% split) with generated reports
+    and 2 labelled validation volumes, 256 x 256 x 60 at 1.5 x 1.5 x 6 mm,
+    which the ingest resamples and crops to 240 x 480 x 480."""
+    train = write_corpus(work / "train", [(256, 256, 60)] * 20, 1.5, 6.0)
+    rng = np.random.RandomState(4)
+    words = report_words()
+    rows = list(csv.DictReader(open(train[1])))
+    for r in rows:
+        r["Findings_EN"] = " ".join(rng.choice(words, rng.randint(20, 200))) + "."
+    with open(train[1], "w", newline="") as f:
+        w = csv.DictWriter(f, list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    valid = write_corpus(work / "valid", [(256, 256, 60)] * 2, 1.5, 6.0)
+    return train, valid, write_vocab(work / "ctclip_vocab.txt")
+
+
+def ctclip_train_phase(dev, work: Path, card: str) -> dict:
+    """`cli train` at full width, batch 8, 4 steps (mini evaluation and
+    checkpoint at step 4), then the steady-state step time (CUDA events),
+    peak memory and a profiled step."""
+    import torch
+
+    from ct_clip_tpu_torch import cli
+
+    train, valid, vocab = write_train_corpus(work)
+    results = work / "train_results"
+    argv = ["--vocab", vocab, "--device", "cuda", "--seed", "0", "train",
+            "--data-train", train[0], "--reports-train", train[1], "--meta-train", train[2],
+            "--data-valid", valid[0], "--reports-valid", valid[1], "--meta-valid", valid[2],
+            "--labels", valid[3], "--results", str(results), "--batch-size", str(TRAIN_B),
+            "--steps", "4", "--workers", "4", "--save-results-every", "4",
+            "--save-model-every", "4"]
+    trainer, counts, secs = drive("ctclip_train", lambda: cli.main(argv))
+    recs = [json.loads(x) for x in (results / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    evals = [r["mini_eval_mean_auc"] for r in recs if "mini_eval_mean_auc" in r]
+    ckpts = sorted(p.name for p in (results / "checkpoints").iterdir())
+    log(f"ctclip train: {len(trainer.train_ds)} volumes, 4 steps of {TRAIN_B} at full width "
+        f"in {secs:.1f} s (host clock: build, ingest, mini evaluation and the checkpoint "
+        f"included); losses {losses}; grad norms "
+        f"{[round(r['grad_norm'], 4) for r in recs if 'loss' in r]}; mini-eval mean AUC "
+        f"{evals}; checkpoints {ckpts}")
+    if len(losses) != 4 or not np.isfinite(losses).all() or len(evals) != 1 \
+            or ckpts != ["step_4.pt"] or not (results / "mini_eval_step4.csv").exists():
+        raise AssertionError(f"ctclip train: losses {losses}, evals {evals}, ckpts {ckpts}")
+    shutil.rmtree(results / "checkpoints")
+
+    batch = next(trainer._batches())
+    state, step = trainer.state, trainer.step_fn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, gen = [], torch.Generator(device=dev).manual_seed(5)
+    for _ in range(4):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(state, batch, gen)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(step_ms[1:])
+    log(f"ctclip step: batch {TRAIN_B} x (13,824 tokens, 512 text tokens), full width, bf16: "
+        f"median {med:.2f} ms of steps 2-4 {[round(t, 2) for t in step_ms]} = "
+        f"{TRAIN_B / med * 1e3:.3f} volumes/s; peak memory {peak_gb:.2f} GB; loss "
+        f"{m['loss'].item():.4f} on {card}")
+    breakdown = profile_step(lambda: step(state, batch, gen), CTCLIP_GROUPS, "ctclip")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    return dict(counts=counts, losses=losses, mini_eval_mean_auc=evals[0], cli_s=secs,
+                step_ms=med, step_ms_all=step_ms, volumes_per_s=TRAIN_B / med * 1e3,
+                peak_gb=peak_gb, step_breakdown=breakdown)
+
+
+def tiny_ctclip_config():
+    from ct_clip_tpu_torch.config import BertConfig, CTCLIPConfig, CTViTConfig
+
+    return CTCLIPConfig(
+        dim_text=64, dim_image=9 * 64, dim_latent=32,
+        ctvit=CTViTConfig(dim=64, codebook_size=128, image_size=48, patch_size=16,
+                          temporal_patch_size=4, num_frames=12, spatial_depth=2,
+                          temporal_depth=2, dim_head=16, heads=4),
+        bert=BertConfig(vocab_size=64, hidden_size=64, num_hidden_layers=2,
+                        num_attention_heads=4, intermediate_size=128, hidden_dropout=0.0,
+                        attention_dropout=0.0))
+
+
+# the tiny CT-CLIP step, card against CPU (both bf16): limits.  Each
+# gradient is held against the CPU's own bf16 rounding noise, its distance
+# from the same step in f32; the readings of the kernels as built and of the
+# planted faults (PERF.md) put TINY_GRAD_RATIO between them
+TINY_LOSS_TOL = 2e-3
+TINY_GRAD_RATIO = 1.15
+TINY_ZERO_TOL = 1e-3  # x the largest gradient, parameters whose true gradient is zero
+TINY_UPDATE_TOL = 1e-2  # x lr, entries whose gradient is >= 0.2 of its tensor's max
+# parameters whose true gradient is zero (softmax shift invariance)
+ZERO_GRAD = ("attention.self.key.bias", "spatial_rel_pos_bias.net.2.bias")
+
+
+def tiny_ctclip_inputs():
+    import torch
+
+    g = torch.Generator().manual_seed(7)
+    ids = torch.randint(5, 64, (4, 32), generator=g)
+    mask = (torch.arange(32)[None] < torch.tensor([[32], [20], [9], [27]])).long()
+    video = torch.rand((4, 12, 48, 48, 1), generator=g) * 2 - 1
+    return ids * mask, mask, video
+
+
+def tiny_ctclip_side(cfg, tcfg, start, inputs, device, dtype) -> dict:
+    """From the state dict `start` on `device`, computing in `dtype`: the VQ
+    ids, one forward/backward (the loss and every parameter's gradient),
+    then one `make_train_step` from `start`."""
+    import torch
+
+    from ct_clip_tpu_torch.models import CTCLIP
+    from ct_clip_tpu_torch.train import create_train_state, make_train_step
+
+    ids, mask, video = (t.to(device) for t in inputs)
+    batch = dict(input_ids=ids, attention_mask=mask, video=video)
+    model = CTCLIP(cfg, dtype=dtype, device=device)
+    model.load_state_dict(start)
+    state = create_train_state(model, tcfg)
+    with torch.no_grad():
+        vt = model.visual_transformer
+        codes = vt.vq(vt.encode(vt.embed_patches(video, train=True)), train=True)[1].cpu()
+    model.load_state_dict(start)  # the VQ call moved the codebook
+    model.train()
+    model.zero_grad()
+    loss = model(**batch, return_loss=True, train=True)
+    loss.backward()
+    grads = {n: p.grad.float().cpu().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.load_state_dict(start)
+    m = make_train_step(tcfg)(state, batch)
+    return dict(loss=loss.item(), grads=grads, codes=codes, state=state, batch=batch,
+                metrics={k: v.item() for k, v in m.items()},
+                sd={k: v.float().cpu() for k, v in model.state_dict().items()})
+
+
+def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float):
+    """(readings, failures) of a card side `g` against the CPU side `c`,
+    with the CPU's f32 side `c32` giving each gradient's bf16 noise."""
+    def l2_rel(a, b):
+        return (a - b).norm().item() / max(b.norm().item(), 1e-30)
+
+    ratio, zero = {}, 0.0
+    top = max(t.abs().max().item() for t in c["grads"].values())
+    for n, ref in c["grads"].items():
+        if n.endswith(ZERO_GRAD):
+            zero = max(zero, g["grads"][n].abs().max().item() / top)
+            continue
+        noise = max(l2_rel(ref, c32["grads"][n]), 1e-3)
+        ratio[n] = (l2_rel(g["grads"][n], ref) / noise, l2_rel(g["grads"][n], ref), noise)
+    worst = sorted(ratio.items(), key=lambda kv: -kv[1][0])
+    agree = (g["codes"] == c["codes"]).float().mean().item()
+    key = "visual_transformer.vq._codebook."
+    cs_err = (g["sd"][key + "cluster_size"] - c["sd"][key + "cluster_size"]).abs().max().item()
+    cb_err = (g["sd"][key + "embed"] - c["sd"][key + "embed"]).abs().max().item()
+    upd_err, upd_worst, upd_max = 0.0, "", 0.0
+    for n, ref in c["grads"].items():
+        if not ref.numel() or n.endswith(ZERO_GRAD):
+            continue
+        diff = ((g["sd"][n] - start[n].float()) - (c["sd"][n] - start[n].float())).abs()
+        big = ref.abs() >= 2e-1 * ref.abs().max()
+        if big.any() and diff[big].max().item() > upd_err:
+            upd_err, upd_worst = diff[big].max().item(), n
+        upd_max = max(upd_max, diff.max().item())
+    res = dict(loss_rel=abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+               loss_rel_cpu_bf16_vs_f32=abs(c["loss"] - c32["loss"]) / abs(c32["loss"]),
+               grad_ratio=worst[0][1][0], grad_worst=worst[0][0],
+               grad_top=[[n, *r] for n, r in worst[:5]],
+               grad_ratio_median=statistics.median(r[0] for r in ratio.values()),
+               grad_l2_rel_max=max(r[1] for r in ratio.values()),
+               zero_grads_over_top=zero, id_agreement=agree,
+               cluster_size_abs=cs_err, codebook_abs=cb_err, update_err_over_lr=upd_err / lr,
+               update_worst=upd_worst, update_max_over_lr=upd_max / lr)
+    failures = [name for name, bad in (
+        ("loss", res["loss_rel"] > TINY_LOSS_TOL),
+        ("gradients", res["grad_ratio"] > TINY_GRAD_RATIO),
+        ("zero gradients", zero > TINY_ZERO_TOL), ("VQ ids", agree < 1.0),
+        ("cluster sizes", cs_err > 1e-6), ("codebook", cb_err > 1e-2),
+        ("updates", upd_err > TINY_UPDATE_TOL * lr),
+        ("update bound", upd_max > 2 * lr * (1 + 1e-6))) if bad]
+    return res, failures
+
+
+def _log_tiny(label: str, res: dict, failures) -> None:
+    top = [(n, f"{r:.3f}", f"{d:.2e}", f"{e:.2e}") for n, r, d, e in res["grad_top"]]
+    log(f"reference: tiny CT-CLIP step card vs CPU, {label}: loss rel {res['loss_rel']:.2e} "
+        f"(tol {TINY_LOSS_TOL}; CPU bf16 vs f32 {res['loss_rel_cpu_bf16_vs_f32']:.2e}); "
+        f"gradients, card-CPU L2 distance over the CPU's bf16-f32 L2 distance, largest "
+        f"first (tensor, ratio, card-CPU, CPU bf16-f32): {top}, median "
+        f"{res['grad_ratio_median']:.3f} (tol {TINY_GRAD_RATIO}); zero-gradient params "
+        f"{res['zero_grads_over_top']:.2e} of the largest gradient (tol {TINY_ZERO_TOL}); "
+        f"VQ ids equal {res['id_agreement']:.4f} (all); cluster sizes abs "
+        f"{res['cluster_size_abs']:.2e} (tol 1e-6); codebook abs {res['codebook_abs']:.2e} "
+        f"(tol 1e-2); update err {res['update_err_over_lr']:.2e} lr ({res['update_worst']}; "
+        f"tol {TINY_UPDATE_TOL} lr), every update within {res['update_max_over_lr']:.2e} lr "
+        f"(tol 2 lr); outside: {failures or 'none'}")
+
+
+def planted_faults():
+    """name -> (module, attribute, replacement): a kernel wrapper broken on
+    purpose, which the tiny step's comparison must catch."""
+    import importlib
+
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    qa = importlib.import_module("ct_clip_tpu_torch.ops.qknorm_attention")
+    ffn = importlib.import_module("ct_clip_tpu_torch.ops.ffn")
+    k9, k11, k15 = qa._qknorm_attention_bwd_cuda, ffn._geglu_ff_bwd_cuda, K.vq_cluster_stats
+
+    def k9_no_dbias(*a, **kw):
+        g = k9(*a, **kw)
+        return g[:-1] + (None if g[-1] is None else torch.zeros_like(g[-1]),)
+
+    def k11_dwo_high(*a, **kw):
+        g = k11(*a, **kw)
+        return g[:-1] + (g[-1] * 1.05,)
+
+    def k15_drop_fullest(x, ids, codes):
+        bins, esum = k15(x, ids, codes)
+        c = int(bins.argmax())
+        bins[c], esum[c] = 0.0, 0.0
+        return bins, esum
+    return {"K9 without the bias gradient": (qa, "_qknorm_attention_bwd_cuda", k9_no_dbias),
+            "K11 with dW_out 5% high": (ffn, "_geglu_ff_bwd_cuda", k11_dwo_high),
+            "K15 dropping its fullest code": (K, "vq_cluster_stats", k15_drop_fullest)}
+
+
+def ctclip_train_reference_phase(dev, work: Path) -> dict:
+    """One training step of a tiny CT-CLIP (both dropouts 0, batch 4) from
+    the same weights on the card (kernels) and on the CPU (plain versions),
+    both bf16 compute with f32 parameters, lr 1e-3, and on the CPU in f32.
+    The two bf16 sides round at nearly the same points and sum in other
+    orders (the kernels keep P, dxn and the weight gradients in f32 where
+    the plain chain rounds them to bf16); at this random init every
+    gradient of a bf16 step lies a few % from the f32 step's (LayerNorm,
+    l2norm and the temperature's gradients are sums whose terms cancel).
+    Held: the loss within TINY_LOSS_TOL relative; each gradient's L2
+    distance card-CPU within TINY_GRAD_RATIO times the CPU's own bf16-f32
+    distance; the two parameters whose true gradient is zero within
+    TINY_ZERO_TOL of the largest gradient; every VQ id (the codebook starts
+    at the CPU's own tokens, so each id is a clear top-1), the cluster sizes
+    within 1e-6 and the codebook after the EMA within 1e-2; the update of
+    each entry whose gradient is above 2e-1 of its tensor's largest within
+    TINY_UPDATE_TOL lr (Adam's first step is lr g / (|g| + eps), so a
+    gradient's relative difference reaches the step only through eps),
+    every entry within 2 lr.  Then the same card step with each planted
+    fault (`planted_faults`) must fall outside these limits.  Last, a save
+    -> restore round trip on the card: the restored state and one more step
+    from it equal the original's."""
+    import contextlib
+
+    import torch
+
+    from ct_clip_tpu_torch.config import TrainConfig
+    from ct_clip_tpu_torch.models import CTCLIP
+    from ct_clip_tpu_torch.train import CheckpointManager, create_train_state, make_train_step
+
+    cfg, lr = tiny_ctclip_config(), 1e-3
+    tcfg = TrainConfig(lr=lr)
+    inputs = tiny_ctclip_inputs()
+    bf, cpu_dev = torch.bfloat16, torch.device("cpu")
+    cpu = CTCLIP(cfg, dtype=bf).init_weights(torch.Generator().manual_seed(8))
+    with torch.no_grad():  # codes at the tokens: every id a clear top-1 on both sides
+        vt = cpu.visual_transformer
+        tokens = vt.encode(vt.embed_patches(inputs[2], train=True)).float().reshape(-1, 64)
+        vt.vq._codebook.embed[: tokens.shape[0]] = tokens / tokens.norm(dim=-1, keepdim=True)
+    start = {k: v.clone() for k, v in cpu.state_dict().items()}
+    c = tiny_ctclip_side(cfg, tcfg, start, inputs, cpu_dev, bf)
+    c32 = tiny_ctclip_side(cfg, tcfg, start, inputs, cpu_dev, torch.float32)
+    gp = tiny_ctclip_side(cfg, tcfg, start, inputs, dev, bf)
+    res, failures = compare_tiny_steps(c, c32, gp, start, lr)
+    _log_tiny("kernels as built", res, failures)
+    if failures:
+        raise AssertionError(f"tiny CT-CLIP training step: card and CPU disagree on "
+                             f"{failures}: {res}")
+    res.update(metrics_gpu=gp["metrics"], metrics_cpu=c["metrics"], faults={})
+    for name, (module, attr, broken) in planted_faults().items():
+        original = getattr(module, attr)
+        with contextlib.ExitStack() as undo:
+            setattr(module, attr, broken)
+            undo.callback(setattr, module, attr, original)
+            fres, ffail = compare_tiny_steps(
+                c, c32, tiny_ctclip_side(cfg, tcfg, start, inputs, dev, bf), start, lr)
+        _log_tiny(f"planted fault: {name}", fres, ffail)
+        if not ffail:
+            raise AssertionError(f"tiny CT-CLIP training step: planted fault '{name}' passes "
+                                 f"the limits: {fres}")
+        res["faults"][name] = dict(outside=ffail, **{k: fres[k] for k in (
+            "grad_ratio", "grad_worst", "grad_top", "cluster_size_abs", "codebook_abs",
+            "update_err_over_lr")})
+
+    # save -> restore on the card, then one more step on both
+    st = gp["state"]
+    mgr = CheckpointManager(str(work / "tiny_ckpt"))
+    mgr.save(1, st)
+    other = CTCLIP(cfg, dtype=torch.bfloat16, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(9))
+    restored = mgr.restore(create_train_state(other, tcfg))
+    restored_step = restored.step
+    same_state = all(torch.equal(v, restored.model.state_dict()[k])
+                     for k, v in st.model.state_dict().items())
+    step = make_train_step(tcfg)
+    m1, m2 = step(st, gp["batch"]), step(restored, gp["batch"])
+    resume_diff = max((v.float() - restored.model.state_dict()[k].float()).abs().max().item()
+                      for k, v in st.model.state_dict().items() if v.numel())
+    log(f"reference: save -> restore on the card: state equal {same_state}, step "
+        f"{restored_step}; the next step's loss {m1['loss'].item():.6f} vs "
+        f"{m2['loss'].item():.6f}, weights max diff after it {resume_diff:.2e} (tol 1e-6)")
+    if not same_state or restored_step != 1 or resume_diff > 1e-6:
+        raise AssertionError("tiny CT-CLIP save -> restore round trip differs")
+    res.update(resume_state_equal=same_state, resume_next_step_max_diff=resume_diff)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -973,15 +1595,19 @@ def main() -> int:
 
     results = kernel_phase(dev)
     results.update(train_attention_phase(dev))
+    results.update(train_kernel_phase(dev))
     work_root = ROOT / "build" / "chip_smoke"
     work_root.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=work_root))
     try:
-        counts, route_diff, batch_ms = end_to_end_phase(dev, work, card)
+        counts, route_diff, batch_ms, batch_profile = end_to_end_phase(dev, work, card)
         radbert = radbert_phase(dev, work, card)
         counts.update(radbert.pop("counts"))
         ref_errs = small_reference_phase(dev, work)
         radbert_ref = radbert_reference_phase(dev, work)
+        ctclip = ctclip_train_phase(dev, work, card)
+        counts["ctclip_train"] = ctclip.pop("counts")
+        ctclip_ref = ctclip_train_reference_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -995,9 +1621,12 @@ def main() -> int:
                       "launches": counts[k["path"]][k["counter"]],
                       "launches_by_path": by_path, **results[key]})
     print(json.dumps({"e2e": {"score_batch_ms": batch_ms, "batch": B,
+                              "score_batch_profile_rows": batch_profile,
                               "route_max_abs_diff": route_diff,
                               "tiny_card_vs_cpu_max_abs_diff": ref_errs,
-                              "radbert": radbert, "radbert_tiny_card_vs_cpu": radbert_ref}}),
+                              "radbert": radbert, "radbert_tiny_card_vs_cpu": radbert_ref,
+                              "ctclip_train": ctclip,
+                              "ctclip_train_tiny_card_vs_cpu": ctclip_ref}}),
           flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

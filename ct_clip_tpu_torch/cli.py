@@ -18,9 +18,12 @@
 Mirrors the `ct_clip_tpu.cli` commands of the same names.  Runs on the first
 CUDA device (hand-written kernels) unless `--device cpu` asks for the CPU
 (plain versions); without a CUDA device and without `--device cpu` it exits
-with an error.  CT-CLIP runs in bf16 unless --no-bf16; RadBERT always in f32,
-as the JAX package runs it.  Without --ckpt the CT-CLIP weights are a seeded
-random initialisation; `radbert-train` starts from seeded random weights and
+with an error.  CT-CLIP runs in bf16 unless --no-bf16 (training too: f32
+parameters, bf16 compute); RadBERT always in f32, as the JAX package runs it.
+Without --ckpt the CT-CLIP weights are a seeded random initialisation;
+`train` writes `metrics.jsonl`, `mini_eval_step{n}.csv` and
+`checkpoints/step_{n}.pt` under --results and resumes from the latest
+checkpoint there; `radbert-train` starts from seeded random weights and
 writes a reference-layout (`model.*`, `fc1.*`) state dict, which
 `radbert-infer` and `radbert-eval` read with a strict load.
 """
@@ -65,6 +68,9 @@ def build_model(bf16: bool, device: torch.device, ckpt=None,
                 seed: int = 0) -> CTCLIP:
     """Full-width CT-CLIP on `device`, reference weights or seeded random."""
     dtype = torch.bfloat16 if bf16 else torch.float32
+    # f32 products stay true f32 (no TF32), as the JAX package's HIGHEST
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     model = CTCLIP(CTCLIPConfig(), dtype=dtype, device=device).eval()
     if ckpt:
         load_reference_checkpoint(model, ckpt)
@@ -98,6 +104,31 @@ def cmd_export_latents(args) -> None:
     out = export_latents(model, tok, ds, args.results, num_workers=args.workers)
     print(f"exported latents of {len(out['image'])} volumes on {args.device} "
           f"-> {args.results}")
+
+
+def cmd_train(args):
+    """CT-CLIP contrastive pretraining (ct_clip_tpu/cli.py::cmd_train)."""
+    from .data import CTReportDataset, CTReportDatasetInfer, WordPieceTokenizer
+    from .train import CTClipTrainer
+
+    model = build_model(args.bf16, torch.device(args.device), seed=args.seed)
+    train_ds = CTReportDataset(args.data_train, args.reports_train, args.meta_train)
+    valid_ds = None
+    if args.data_valid:
+        valid_ds = CTReportDatasetInfer(args.data_valid, args.reports_valid,
+                                        args.meta_valid, args.labels)
+    tcfg = config.TrainConfig(batch_size=args.batch_size, lr=args.lr,
+                              num_train_steps=args.steps,
+                              save_results_every=args.save_results_every,
+                              save_model_every=args.save_model_every)
+    trainer = CTClipTrainer(model, WordPieceTokenizer(args.vocab), train_dataset=train_ds,
+                            valid_dataset=valid_ds, config=tcfg,
+                            results_folder=args.results, num_workers=args.workers)
+    if args.resume:
+        trainer.load()
+    state = trainer.train()
+    print(f"trained to step {state.step} on {args.device} -> {args.results}")
+    return trainer
 
 
 def _radbert(args, device: torch.device):
@@ -189,6 +220,23 @@ def main(argv=None):
     e = sub.add_parser("export-latents")
     _data_args(e, "latents")
     e.set_defaults(fn=cmd_export_latents)
+
+    t = sub.add_parser("train")
+    t.add_argument("--data-train", required=True)
+    t.add_argument("--reports-train", required=True)
+    t.add_argument("--meta-train", required=True)
+    for name in ("--data-valid", "--reports-valid", "--meta-valid", "--labels"):
+        t.add_argument(name)
+    t.add_argument("--results", default="results")
+    t.add_argument("--batch-size", type=int, default=8)
+    t.add_argument("--lr", type=float, default=1.25e-6)
+    t.add_argument("--steps", type=int, default=100001)
+    t.add_argument("--workers", type=int, default=8)
+    t.add_argument("--save-results-every", type=int, default=100)
+    t.add_argument("--save-model-every", type=int, default=2000)
+    t.add_argument("--resume", action="store_true",
+                   help="restore the latest checkpoint under --results first")
+    t.set_defaults(fn=cmd_train)
 
     r = sub.add_parser("radbert-train")
     r.add_argument("--reports", required=True)

@@ -3,8 +3,9 @@
 The fields the ported slices use, with the names and reference defaults of
 ct_clip_tpu/config.py.  The defaults are full CT-CLIP width: CTViT dim 512
 over a 24x24x24 token grid (480x480x240 volume, 20x20x10 patches), CXR-BERT
-12 x 768, 512-dim latents; and the RadBERT-RoBERTa report classifier.  The
-CT-CLIP training, mesh and generative settings are not ported yet.
+12 x 768, 512-dim latents; the RadBERT-RoBERTa report classifier; and the
+CT-CLIP pretraining loop (`TrainConfig`).  The mesh and generative settings
+are not ported.
 """
 from __future__ import annotations
 
@@ -56,6 +57,7 @@ class CTViTConfig(_Base):
     heads: int = 8
     channels: int = 1
     num_frames: int = 240
+    vq_decay: float = 0.8  # codebook EMA decay in training
 
     @property
     def patch_hw(self) -> int:
@@ -113,9 +115,42 @@ class CTCLIPConfig(_Base):
     dim_text: int = 768
     dim_image: int = 294912  # 24*24*512 flattened post-temporal-pool grid
     dim_latent: int = 512
+    use_all_token_embeds: bool = False  # FILIP fine-grained loss (not ported)
+    decoupled_contrastive_learning: bool = False  # DCL
+    extra_latent_projection: bool = False  # CLOOB
+    use_mlm: bool = False  # text SSL (not ported)
+    text_ssl_loss_weight: float = 0.05
+    use_visual_ssl: bool = False  # image SSL (not ported)
+    image_ssl_loss_weight: float = 0.05
+    multiview_loss_weight: float = 0.1
     temperature_init: float = 1.0
     ctvit: CTViTConfig = field(default_factory=CTViTConfig)
     bert: BertConfig = field(default_factory=BertConfig)
+
+
+@dataclass(frozen=True)
+class TrainConfig(_Base):
+    """Pretraining loop (reference defaults: scripts/CTCLIPTrainer.py:128-131,
+    scripts/run_train.py:52-55); ct_clip_tpu/config.py:210-236 without the
+    mesh."""
+
+    num_train_steps: int = 100001
+    batch_size: int = 8
+    lr: float = 1.25e-6
+    wd: float = 0.0
+    max_grad_norm: float = 0.5
+    warmup_steps: int = 0  # reference runs constant LR
+    save_results_every: int = 100
+    save_model_every: int = 2000
+    seed: int = 42
+    compute_dtype: str = "bfloat16"  # autocast equivalent
+    remat: bool = False
+
+    @property
+    def dtype(self):
+        import torch
+
+        return getattr(torch, self.compute_dtype)
 
 
 @dataclass(frozen=True)

@@ -11,6 +11,12 @@ JAX tree does not hold are filled as the reference holds them: the zero
 `initted` flag, and zero CLOOB `*_extra` projections when the JAX model was
 built without them.
 
+`state_dict_from_train_state` does it for the JAX pretraining TrainState
+(ct_clip_tpu/train/train_step.py): its `params` and `vq` collections, the
+codebook's EMA state included; gradients and Adam moments, which share the
+params' tree, convert the same way (`state_dict_from_jax({"params": tree,
+"vq": ...})`).
+
 `radbert_state_dict_from_jax` does the same for the JAX RadBertClassifier's
 params: the inverse of ct_clip_tpu/convert/torch_to_jax.py::
 radbert_params_from_torch (the reference `model.*` RoBERTa and `fc1` head).
@@ -121,6 +127,12 @@ def state_dict_from_jax(variables: Mapping, cfg: CTCLIPConfig) -> Dict[str, torc
             sd[f"{name}.weight"] = torch.zeros(cfg.dim_latent, width)
     sd["temperature"] = _t(p["temperature"]).reshape(())
     return sd
+
+
+def state_dict_from_train_state(state, cfg: CTCLIPConfig) -> Dict[str, torch.Tensor]:
+    """A JAX TrainState (anything with `.params` and `.vq`) -> the port's
+    CTCLIP state dict."""
+    return state_dict_from_jax({"params": state.params, "vq": state.vq}, cfg)
 
 
 def radbert_state_dict_from_jax(params: Mapping,

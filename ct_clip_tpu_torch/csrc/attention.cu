@@ -3,12 +3,11 @@
 //
 // Replaces the attention cores of these TPU kernels:
 //   * ct_clip_tpu/ops/pallas/spatial_attention.py::_pallas_spatial (K1):
-//     576-token planes, QK-norm, per-head (h, n, n) CPB bias (bias_mode 1);
+//     576-token planes, QK-norm, per-head (h, n, n) CPB bias;
 //   * ops/pallas/small_attention.py::_pallas_small_qknorm (K2): 24-token
 //     temporal columns read in place from the (b, t, h*w, d) grid through
-//     the strides below (no sequence-major copy), QK-norm, no bias;
-//   * ops/pallas/attention.py::_pallas_attention (K7, _kernel_kbias): BERT
-//     (b, 12, 512, 64) with a per-key (b, n) pad bias (bias_mode 2).
+//     the strides below (no sequence-major copy), QK-norm, no bias.
+// (K7, BERT's key-bias attention, runs in attention_train.cu.)
 //
 // Addressing: head h of sequence s of a tensor starts at
 //   (s / inner) * outer + (s % inner) * inner_stride + h * head_stride
@@ -17,14 +16,14 @@
 //
 // What bounds it on the H100: arithmetic.  At batch 2 the spatial stage's
 // scores and PV are 16.3 GFLOP per layer against ~57 MB of q, k, v and
-// output (~17 us of memory time); BERT's are 14.5 GFLOP against ~57 MB.
+// output (~17 us of memory time).
 // This first version runs them on the CUDA cores (67 TFLOP/s fp32 peak, so
 // >= 0.24 ms per spatial layer) from shared memory: K and V of the (sequence, head)
 // are staged once (K rows padded to d + 2 so 32 lanes reading 32 keys hit
 // 32 banks), each warp owns query rows, keeps its f32 scores in shared
-// memory, and never writes them to device memory.  The BERT case stages
-// 512 x 64 K and V (~130 KB), above the 48 KB default, so the launch raises
-// the dynamic shared-memory limit.  Tensor-core (mma) scores are later work.
+// memory, and never writes them to device memory.  A 576-token plane stages
+// ~76 KB, above the 48 KB default, so the launch raises the dynamic
+// shared-memory limit.  Tensor-core (mma) scores are later work.
 #include "common.cuh"
 
 namespace {
@@ -41,8 +40,7 @@ struct AttnArgs {
   int inner, n, d;
   const float* qs;  // (d,) q scale incl. the fixed logit scale; null: no QK-norm
   const float* ks;  // (d,) k scale
-  const float* bias;
-  int bias_mode;    // 0 none, 1 per head (heads, n, n), 2 per key (sequences, n)
+  const float* bias;  // (heads, n, n) or null
 };
 
 __global__ void attention_kernel(AttnArgs a) {
@@ -118,8 +116,7 @@ __global__ void attention_kernel(AttnArgs a) {
         s = fmaf(qbuf[2 * c2], kf.x, s);
         s = fmaf(qbuf[2 * c2 + 1], kf.y, s);
       }
-      if (a.bias_mode == 1) s += a.bias[((size_t)head * n + i) * n + j];
-      else if (a.bias_mode == 2) s += a.bias[(size_t)seq * n + j];
+      if (a.bias) s += a.bias[((size_t)head * n + i) * n + j];
       sbuf[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -157,7 +154,7 @@ CT_EXPORT int ct_attention(const void* q, const void* k, const void* v, void* o,
                            long long kv_head, long long kv_tok,
                            int inner, int sequences, int heads, int n, int d,
                            const void* q_scale, const void* k_scale, const void* bias,
-                           int bias_mode, int warps, void* stream) {
+                           int warps, void* stream) {
   if (d > MAX_D || d % 2 || warps < 1 || warps > 32) return (int)cudaErrorInvalidValue;
   AttnArgs a;
   a.q = static_cast<const bf16*>(q);
@@ -170,7 +167,6 @@ CT_EXPORT int ct_attention(const void* q, const void* k, const void* v, void* o,
   a.qs = static_cast<const float*>(q_scale);
   a.ks = static_cast<const float*>(k_scale);
   a.bias = static_cast<const float*>(bias);
-  a.bias_mode = bias_mode;
   size_t smem = ((size_t)n * (d + 2) + (size_t)n * d) * sizeof(bf16);
   smem = (smem + 15) & ~(size_t)15;
   smem += ((size_t)warps * d + (size_t)warps * n) * sizeof(float);

@@ -1,7 +1,10 @@
 // attention_train.cu — key-tiled attention for training: forward with an
 // optional in-kernel dropout on the probabilities, its backward, and the
 // row log-sum-exp that links the two.  Templated on the element type T of
-// q, k, v, out and the gradients; this file instantiates T = float.
+// q, k, v, out and the gradients; this file instantiates T = float (RadBERT)
+// and T = bf16 (CXR-BERT inside CT-CLIP training).  In bf16 the operands are
+// widened to f32 as they are staged, so every product and the softmax run in
+// f32 and only the stored outputs round to bf16.
 //
 // Replaces these TPU kernels of ct_clip_tpu/ops/pallas/attention.py:
 //   * _pallas_attention (K7), f32 form: softmax(q k^T + key_bias) v, the
@@ -474,7 +477,7 @@ bool shape_ok(int B, int H, int n, int d) {
 
 }  // namespace
 
-// dtype: 0 = float32 (the only instantiation so far).
+// dtype: 0 = float32, 1 = bfloat16.
 // strides: (batch, head, token) element strides of q, k, v, out; key_bias
 // (b, n) or null.
 CT_EXPORT int ct_attn_train_fwd(int dtype, const void* q, const void* k, const void* v,
@@ -492,6 +495,7 @@ CT_EXPORT int ct_attn_train_fwd(int dtype, const void* q, const void* k, const v
   a.H = H; a.n = n; a.d = d;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_fwd<float>(a, B, st);
+  if (dtype == 1) return launch_fwd<bf16>(a, B, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -521,5 +525,6 @@ CT_EXPORT int ct_attn_train_bwd(int dtype, const void* q, const void* k, const v
   a.H = H; a.n = n; a.d = d;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_bwd<float>(a, B, st);
+  if (dtype == 1) return launch_bwd<bf16>(a, B, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -97,7 +97,103 @@ ln_kernel(const bf16* __restrict__ x, int D, const float* __restrict__ scale,
   }
 }
 
+// LayerNorm backward of `rows_per_block` consecutive rows per block, as
+// ffn.py::_bwd_kernel (:182-188) and spatial_attention.py::_bwd_kernel
+// (:220-226) compute it in f32: recompute xhat from x, then
+//   dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) + add + add2,
+// dxhat = dxn * scale, and this block's column sums of dxn * xhat (dscale)
+// and of dxn (dbias) into row `blockIdx.x` of the partial buffers, which
+// ct_sum_splits adds in block order.
+__global__ void __launch_bounds__(LN_THREADS)
+ln_bwd_kernel(const bf16* __restrict__ x, int rows, int D, const float* __restrict__ scale,
+              const float* __restrict__ dxn, const float* __restrict__ add,
+              const bf16* __restrict__ add2, float eps, bf16* __restrict__ dx,
+              float* __restrict__ part_ds, float* __restrict__ part_db, int rows_per_block) {
+  __shared__ float red[LN_THREADS / 32];
+  float ds[LN_PER], db[LN_PER], sc[LN_PER];
+#pragma unroll
+  for (int i = 0; i < LN_PER; ++i) {
+    const int e = threadIdx.x + i * LN_THREADS;
+    ds[i] = db[i] = 0.0f;
+    sc[i] = (e < D && scale) ? scale[e] : 1.0f;
+  }
+  const int r0 = blockIdx.x * rows_per_block, r1 = min(rows, r0 + rows_per_block);
+  for (int row = r0; row < r1; ++row) {
+    const size_t base = (size_t)row * D;
+    float xv[LN_PER], g[LN_PER];
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < LN_PER; ++i) {
+      const int e = threadIdx.x + i * LN_THREADS;
+      xv[i] = e < D ? bf2f(x[base + e]) : 0.0f;
+      g[i] = e < D ? dxn[base + e] : 0.0f;
+      s += xv[i];
+    }
+    const float mean = block_sum(s, red) / D;
+    float q = 0.0f;
+#pragma unroll
+    for (int i = 0; i < LN_PER; ++i) {
+      const int e = threadIdx.x + i * LN_THREADS;
+      if (e < D) {
+        const float c = xv[i] - mean;
+        q += c * c;
+      }
+    }
+    const float rstd = rsqrtf(block_sum(q, red) / D + eps);
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < LN_PER; ++i) {
+      const int e = threadIdx.x + i * LN_THREADS;
+      if (e < D) {
+        xv[i] = (xv[i] - mean) * rstd;  // xhat
+        const float dh = g[i] * sc[i];
+        s1 += dh;
+        s2 += dh * xv[i];
+        ds[i] += g[i] * xv[i];
+        db[i] += g[i];
+      }
+    }
+    const float m1 = block_sum(s1, red) / D, m2 = block_sum(s2, red) / D;
+#pragma unroll
+    for (int i = 0; i < LN_PER; ++i) {
+      const int e = threadIdx.x + i * LN_THREADS;
+      if (e < D) {
+        float v = rstd * (g[i] * sc[i] - m1 - xv[i] * m2);
+        if (add) v += add[base + e];
+        if (add2) v += bf2f(add2[base + e]);
+        dx[base + e] = f2bf(v);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < LN_PER; ++i) {
+    const int e = threadIdx.x + i * LN_THREADS;
+    if (e < D) {
+      part_ds[(size_t)blockIdx.x * D + e] = ds[i];
+      if (part_db) part_db[(size_t)blockIdx.x * D + e] = db[i];
+    }
+  }
+}
+
 }  // namespace
+
+// x (rows, D) bf16, dxn (rows, D) f32 -> dx (rows, D) bf16 and the partial
+// column sums (ceil(rows / rows_per_block), D) f32 of dxn * xhat and of dxn
+// (part_db may be null).  scale (D,) f32 or null; add (rows, D) f32 and add2
+// (rows, D) bf16 are added to dx when not null.
+CT_EXPORT int ct_layernorm_bwd(const void* x, int rows, int D, const void* scale,
+                               const void* dxn, const void* add, const void* add2, float eps,
+                               void* dx, void* part_ds, void* part_db, int rows_per_block,
+                               void* stream) {
+  if (D > LN_THREADS * LN_PER || rows_per_block < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
+  ln_bwd_kernel<<<blocks, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), rows, D, static_cast<const float*>(scale),
+      static_cast<const float*>(dxn), static_cast<const float*>(add),
+      static_cast<const bf16*>(add2), eps, static_cast<bf16*>(dx),
+      static_cast<float*>(part_ds), static_cast<float*>(part_db), rows_per_block);
+  return (int)cudaGetLastError();
+}
 
 // x (rows, D) bf16 -> out (rows, D) bf16; scale/bias f32 (D,) or null.
 CT_EXPORT int ct_layernorm(const void* x, int rows, int D, const void* scale, const void* bias,

@@ -1,10 +1,12 @@
 """Host-side parallel volume loader.
 
 Copy of ct_clip_tpu/data/loader.py trimmed to `VolumeLoader` and `RawSample`
-as zero-shot uses them (int16 voxels in the file's (Z, Y, X) order): reader
-threads decode NIfTI files, pad each raw volume to a shape bucket (so
-downstream shapes repeat) and yield them in dataset order through a bounded
-prefetch window.  Shuffling and multi-host sharding are not ported.
+as zero-shot and training use them (int16 voxels in the file's (Z, Y, X)
+order): reader threads decode NIfTI files, pad each raw volume to a shape
+bucket (so downstream shapes repeat) and yield them through a bounded
+prefetch window, in dataset order or, for training, shuffled per epoch by
+`np.random.RandomState(seed)` (the JAX loader's order) and cycled without
+end.  Multi-host sharding is not ported.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Iterator, Sequence, Tuple
 
 import numpy as np
 
-from .datasets import CTReportDatasetInfer, VolumeMeta
+from .datasets import CTReportDataset, VolumeMeta
 
 # Raw CT volumes are typically (Z, 512, 512) with Z in [100, 600]: round Z
 # up to 64s and XY up to 128s.
@@ -49,11 +51,25 @@ class VolumeLoader:
     """Iterates RawSamples with `num_workers` reader threads and a window of
     `prefetch` volumes in flight."""
 
-    def __init__(self, dataset: CTReportDatasetInfer, num_workers: int = 8,
-                 prefetch: int = 8):
+    def __init__(self, dataset: CTReportDataset, num_workers: int = 8,
+                 prefetch: int = 8, shuffle: bool = False, infinite: bool = False,
+                 seed: int = 0):
         self.ds = dataset
         self.num_workers = num_workers
         self.prefetch = prefetch
+        self.shuffle = shuffle
+        self.infinite = infinite
+        self.seed = seed
+
+    def _indices(self) -> Iterator[int]:
+        rng = np.random.RandomState(self.seed)
+        while len(self.ds):
+            order = np.arange(len(self.ds))
+            if self.shuffle:
+                rng.shuffle(order)
+            yield from order.tolist()
+            if not self.infinite:
+                return
 
     def _load(self, index: int) -> RawSample:
         vol, meta = self.ds.read_raw(index)
@@ -69,7 +85,7 @@ class VolumeLoader:
                          intercept=np.float32(meta.intercept), meta=meta)
 
     def __iter__(self) -> Iterator[RawSample]:
-        indices = iter(range(len(self.ds)))
+        indices = self._indices()
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             pending = [pool.submit(self._load, i)
                        for _, i in zip(range(self.prefetch), indices)]

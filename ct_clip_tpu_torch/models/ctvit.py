@@ -11,6 +11,13 @@ package.  The temporal stage always runs in the native
 (b, t, h*w, d) layout, which needs a cubic token grid (t == h == w, as at
 full width); its PEG reproduces the reference's memory reinterpretation
 (ctvit.py:299-303) with the rotated kernel.
+
+With `train=True` (the pretraining step) the embedding is the plain autograd
+composition LN -> projection -> LN (`row_embed_plain`, the JAX package's
+`row_embed_train` and `_xla_patch_embed`: K4 and K8 have no backward on this
+path), the CPB bias is computed with its gradient, the sublayers take their
+kernels' backwards (K14, K9, K10, K11) and the VQ its training mode (exact
+assignment, K15 EMA statistics).
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ from torch import nn
 
 from ..config import CTViTConfig
 from ..ops.attention import ContinuousPositionBias, MaskgitTransformer
-from ..ops.patch_embed import fused_patch_embed, fused_row_embed
+from ..ops.patch_embed import (fused_patch_embed, fused_row_embed, patchify,
+                               row_embed_plain)
 from ..ops.vq import CosineVQ
 
 
@@ -47,11 +55,13 @@ class CTViT(nn.Module):
             depth=cfg.spatial_depth, **kw)
         self.enc_temporal_transformer = MaskgitTransformer(
             depth=cfg.temporal_depth, **kw)
-        self.vq = CosineVQ(cfg.dim, cfg.codebook_size, device=device)
+        self.vq = CosineVQ(cfg.dim, cfg.codebook_size, decay=cfg.vq_decay,
+                           device=device)
 
-    def embed_patches(self, video: torch.Tensor) -> torch.Tensor:
+    def embed_patches(self, video: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(b, f, H, W, 1) volume (K8) or (b, t*h*w, patch_dim) patch rows
-        (K4) -> (b, t, h, w, dim) in the compute dtype."""
+        (K4) -> (b, t, h, w, dim) in the compute dtype; train=True takes the
+        differentiable plain composition instead."""
         cfg = self.config
         pt, p = cfg.temporal_patch_size, cfg.patch_size
         t, h = cfg.patch_t, cfg.patch_hw
@@ -63,11 +73,15 @@ class CTViT(nn.Module):
             if (n, pd) != (t * h * h, cfg.patch_dim):
                 raise ValueError(f"patch rows {tuple(video.shape)} are not "
                                  f"(b, {t * h * h}, {cfg.patch_dim})")
-            tokens = fused_row_embed(video.to(self.dtype), *weights, ln1.eps)
+            embed = row_embed_plain if train else fused_row_embed
+            tokens = embed(video.to(self.dtype), *weights, ln1.eps)
             return tokens.reshape(b, t, h, h, cfg.dim)
         b, f, H, W, _ = video.shape
-        tokens = fused_patch_embed(video[..., 0].to(self.dtype), *weights,
-                                   pt, p, ln1.eps)
+        vol = video[..., 0].to(self.dtype)
+        if train:
+            tokens = row_embed_plain(patchify(vol, pt, p), *weights, ln1.eps)
+        else:
+            tokens = fused_patch_embed(vol, *weights, pt, p, ln1.eps)
         return tokens.reshape(b, f // pt, H // p, W // p, cfg.dim)
 
     def compute_spatial_bias(self) -> torch.Tensor:
@@ -92,15 +106,17 @@ class CTViT(nn.Module):
         return x.reshape(b, t, h, w, d)
 
     def forward(self, video: torch.Tensor,
-                spatial_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                spatial_bias: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
         """Encoded + quantized tokens (b, t, h, w, d), the production CLIP
         path (return_encoded_tokens=True).  `video` is a volume or patch
-        rows (`embed_patches`)."""
+        rows (`embed_patches`).  train=True: the training embed and VQ mode
+        (module docstring)."""
         cfg = self.config
         if video.dim() != 3 and video.shape[2:4] != (cfg.image_size,
                                                      cfg.image_size):
             raise ValueError(f"video {tuple(video.shape)} does not match "
                              f"image_size {cfg.image_size}")
-        tokens = self.encode(self.embed_patches(video), spatial_bias)
-        quantized, _ = self.vq(tokens)
+        tokens = self.encode(self.embed_patches(video, train), spatial_bias)
+        quantized, _ = self.vq(tokens, train=train)
         return quantized

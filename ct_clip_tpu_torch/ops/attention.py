@@ -6,7 +6,11 @@ Ports of ct_clip_tpu/ops/attention.py:
     torch (the JAX package runs it in XLA), computed once per weight load;
   * `PEG` (:439-498), including `rotated=True`: the depthwise 3x3x3 conv with
     causal frame padding.  The JAX package runs it as an XLA grouped conv
-    (ops/pallas/peg.py::lax_peg_conv), so here it is `F.conv3d(groups=c)`;
+    (ops/pallas/peg.py::lax_peg_conv), so here it is `F.conv3d(groups=c)`.
+    Its backward (`peg_conv`, an autograd.Function) ports peg.py::_peg_bwd:
+    dx is the depthwise conv of dout with the flipped kernel and complemented
+    pads (lax_peg_dx, a conv in JAX too), dW and db are the port of K14
+    (_pallas_peg_bwd, csrc/peg_bwd.cu; plain version `peg_dw_plain`);
   * `QKNormAttention` and `MaskgitTransformer` (:501-583) for the encoder:
     PEG -> attention -> feed-forward per layer, residuals folded into the
     sublayer kernels, final gamma LayerNorm;
@@ -162,7 +166,7 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_train_fwd(q, k, v, key_bias, seed=None, rate=0.0):
-    """f32 forward kernel (attention_train.cu): (out, lse)."""
+    """Forward kernel (attention_train.cu, f32 or bf16): (out, lse)."""
     b, h, n, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("attention: q, k, v shapes differ")
@@ -179,34 +183,10 @@ def _launch_train_fwd(q, k, v, key_bias, seed=None, rate=0.0):
     return out, lse
 
 
-def _attention_bf16_cuda(q, k, v, bias, key_bias):
-    b, h, n, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("fused_attention: q, k, v shapes differ")
-    if k.stride() != v.stride():
-        k, v = k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
-    if out.stride() != q.stride():  # q not dense: give both the same layout
-        q = q.contiguous()
-        out = torch.empty_like(q)
-    mode, table = 0, None
-    if key_bias is not None:
-        mode, table = 2, key_bias.float().contiguous()
-    elif bias is not None:
-        if bias.dim() != 4 or bias.shape[0] != 1:
-            raise ValueError("fused_attention: bias must be (1, 1|h, n, n)")
-        mode, table = 1, bias[0].float().expand(h, n, n).contiguous()
-    K.attention(q, k, v, out, sequences=b, inner=1, heads=h, n=n, d=d,
-                q_strides=(q.stride(0), 0, q.stride(1), q.stride(2)),
-                kv_strides=(k.stride(0), 0, k.stride(1), k.stride(2)),
-                bias=table, bias_mode=mode, warps=8 if n >= 128 else 2)
-    return out
-
-
 class _FusedAttention(torch.autograd.Function):
     """K7 forward, K12 backward.  On the CPU both are the plain versions; on
-    CUDA bf16 runs attention.cu (inference only) and f32 the key-tiled kernel
-    of attention_train.cu, whose backward takes its row log-sum-exp."""
+    CUDA (f32 or bf16) the key-tiled kernels of attention_train.cu, the
+    backward reading the forward's row log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, key_bias):
@@ -215,12 +195,10 @@ class _FusedAttention(torch.autograd.Function):
         lse = None
         if q.device.type == "cpu":
             out = attention_plain(q, k, v, bias, key_bias)
-        elif q.dtype == torch.bfloat16:
-            out = _attention_bf16_cuda(q, k, v, bias, key_bias)
-            K.count_launch("fused_attention")
         elif bias is not None:
-            raise NotImplementedError("fused_attention: f32 on CUDA takes a per-key "
-                                      "bias only (the dense-bias form has no caller)")
+            raise NotImplementedError("fused_attention: the kernels take a per-key bias "
+                                      "only (the dense-bias backward, K12b, is not "
+                                      "ported)")
         else:
             out, lse = _launch_train_fwd(q, k, v, key_bias)
             K.count_launch("fused_attention")
@@ -234,9 +212,6 @@ class _FusedAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             dq, dk, dv, db, dkb = attention_bwd_plain(q, k, v, dout, bias, key_bias)
             return dq, dk, dv, db if need_db else None, dkb if need_dkb else None
-        if lse is None:
-            raise NotImplementedError("fused_attention: the bf16 backward (K12 in "
-                                      "bf16) is not ported; train in f32")
         dq, dk, dv, dkb = K.attention_train_bwd(
             *map(_rows, (q, k, v, out, dout.to(q.dtype))), lse,
             key_bias=None if key_bias is None else key_bias.float().contiguous(),
@@ -250,8 +225,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q k^T + bias + key_bias[:, None, None]) v on (b, h, n, d),
     any scaling already applied to q.  bias (1, 1|h, n, n) and key_bias
-    (b, n) are mutually exclusive on the kernel path.  Differentiable: the
-    backward is the port of K12 (key-bias or no bias, f32, on CUDA)."""
+    (b, n) are mutually exclusive; on CUDA only key_bias (or none) is taken.
+    Differentiable: the backward is the port of K12 (key-bias or no bias,
+    f32 or bf16, on CUDA)."""
     return _FusedAttention.apply(q, k, v, bias, key_bias)
 
 
@@ -362,6 +338,88 @@ class ContinuousPositionBias(nn.Module):
         return bias.permute(2, 0, 1).contiguous()     # (heads, N, N)
 
 
+def _peg_geometry(weight: torch.Tensor, rotated: bool):
+    """The conv weight as applied, (c, 1, kt, kh, kw), and the F.pad list
+    (w0, w1, h0, h1, t0, t1): causal frames, or with rotated=True the
+    kernel's tap axes rotated (t, h, w) -> (h, w, t) and the causal pad on
+    h (ct_clip_tpu/ops/pallas/peg.py::_pads, causal_axis 1)."""
+    if rotated:  # K_r[a, b, c] = K[b, c, a]
+        return weight.permute(0, 1, 4, 2, 3), [1, 1, 2, 0, 1, 1]
+    return weight, [1, 1, 1, 1, 2, 0]
+
+
+def _depthwise(x: torch.Tensor, w: torch.Tensor, pad) -> torch.Tensor:
+    """Depthwise conv of the channels-last (b, t, h, w, c) x, padded by the
+    F.pad list `pad`; channels-last out."""
+    xc = x.permute(0, 4, 1, 2, 3)
+    return F.conv3d(F.pad(xc, pad), w, groups=x.shape[-1]).permute(0, 2, 3, 4, 1)
+
+
+def peg_dw_plain(x: torch.Tensor, dout: torch.Tensor, pads) -> torch.Tensor:
+    """Plain version of K14 (`_dw_kernel`): (28, c) f32, rows 0-26 the
+    weight gradient of tap (kz * 3 + ky) * 3 + kx, row 27 the bias gradient,
+    of a depthwise conv over x (b, t, h, w, c) with leading pads `pads`
+    (t, h, w): 27 shifted multiply-reduce taps in f32."""
+    b, t, h, w, c = x.shape
+    (p0, p1, p2) = pads
+    xp = F.pad(x.float(), (0, 0, p2, 2 - p2, p1, 2 - p1, p0, 2 - p0))
+    g = dout.float()
+    rows = []
+    for kz in range(3):
+        for ky in range(3):
+            for kx in range(3):
+                rows.append((xp[:, kz:kz + t, ky:ky + h, kx:kx + w] * g).sum(dim=(0, 1, 2, 3)))
+    rows.append(g.sum(dim=(0, 1, 2, 3)))
+    return torch.stack(rows)
+
+
+def peg_dw(x: torch.Tensor, dout: torch.Tensor, pads) -> torch.Tensor:
+    """K14: the (28, c) weight and bias gradients of `peg_dw_plain`; a CPU
+    tensor takes the plain version, a CUDA tensor must be bf16 and takes the
+    kernel (csrc/peg_bwd.cu)."""
+    if x.device.type == "cpu":
+        return peg_dw_plain(x, dout, pads)
+    out = K.peg_dw(x.contiguous(), dout.contiguous(), pads)
+    K.count_launch("peg_bwd")
+    return out
+
+
+class _PEGConv(torch.autograd.Function):
+    """x + depthwise conv(x) + bias; the weight and bias stay f32 here, so
+    their gradients are not rounded to the compute dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, rotated):
+        ctx.rotated = rotated
+        ctx.save_for_backward(x, weight)
+        w, pad = _peg_geometry(weight.to(x.dtype), rotated)
+        return _depthwise(x, w, pad) + x + bias.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, weight = ctx.saved_tensors
+        c = x.shape[-1]
+        w, pad = _peg_geometry(weight.to(x.dtype), ctx.rotated)
+        dout = dout.to(x.dtype).contiguous()
+        # dx: correlation with the flipped kernel, pads complemented, plus
+        # the residual's identity term (peg.py::lax_peg_dx)
+        dx = _depthwise(dout, w.flip(2, 3, 4), [2 - p for p in pad]) + dout
+        dwb = peg_dw(x, dout, (pad[4], pad[2], pad[0]))
+        dw = dwb[:27].t().reshape(c, 1, 3, 3, 3)
+        if ctx.rotated:  # back from the rotated taps: dK[b, c, a] = dK_r[a, b, c]
+            dw = dw.permute(0, 1, 3, 4, 2)
+        return dx, dw.to(weight.dtype), dwb[27].to(weight.dtype), None
+
+
+def peg_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+             rotated: bool = False) -> torch.Tensor:
+    """x + conv(x) + bias for the channels-last (b, t, h, w, c) x and the
+    Conv3d weight (c, 1, 3, 3, 3) and bias (c,), causal frame pad (or the
+    rotated form, `_peg_geometry`).  Differentiable: dW and db are the port
+    of K14 on CUDA, its plain version on the CPU."""
+    return _PEGConv.apply(x, weight, bias, rotated)
+
+
 class PEG(nn.Module):
     """Depthwise 3x3x3 conv positional encoding with causal frame padding
     (transformer_maskgit/attention.py:56-84, peg_causal=True in CTViT), + x.
@@ -378,18 +436,9 @@ class PEG(nn.Module):
 
     def forward(self, x: torch.Tensor, rotated: bool = False) -> torch.Tensor:
         """x: (b, t, h, w, c) in the compute dtype."""
-        w = self.dsconv.weight.to(x.dtype)          # (c, 1, kt, kh, kw)
-        if rotated:
-            if not x.shape[1] == x.shape[2] == x.shape[3]:
-                raise ValueError("rotated PEG needs a cubic grid")
-            w = w.permute(0, 1, 4, 2, 3)            # K_r[a, b, c] = K[b, c, a]
-            pad = [1, 1, 2, 0, 1, 1]                # (w, h, t) pairs: causal h
-        else:
-            pad = [1, 1, 1, 1, 2, 0]                # causal frames
-        xc = x.permute(0, 4, 1, 2, 3)               # (b, c, t, h, w)
-        conv = F.conv3d(F.pad(xc, pad), w, groups=x.shape[-1])
-        out = conv.permute(0, 2, 3, 4, 1) + x
-        return out + self.dsconv.bias.to(x.dtype)
+        if rotated and not x.shape[1] == x.shape[2] == x.shape[3]:
+            raise ValueError("rotated PEG needs a cubic grid")
+        return peg_conv(x, self.dsconv.weight, self.dsconv.bias, rotated)
 
 
 class QKNormAttention(nn.Module):

@@ -13,6 +13,16 @@ epilogue, csrc/gemm.cu), then act * wo^T + x (residual epilogue).  The
 inner width is padded from 1365 to a multiple of 8 with zero weight rows so
 every product takes 16-byte loads; the padded columns of the intermediate
 are exactly zero and meet zero columns of wo.
+
+The backward is the port of ffn.py::_pallas_ff_bwd (K11): it saves only the
+sublayer's input and recomputes flash-style.  On a CUDA tensor: LN again,
+one tile kernel that recomputes a and g and takes dact = do wo with the
+GEGLU derivative (act, da, dg in bf16, csrc/gemm.cu ff_bwd_kernel),
+dxn = [da | dg] [wa; wg] (NN product), the LN backward with the identity
+term (csrc/layernorm.cu), and the weight gradients [dwa; dwg] = [da | dg]^T
+LN(x) and dwo = do^T act over all rows in f32 (TN products).  The padding's
+gradient rows are dropped.  Its plain version is autograd of the plain
+forward (`geglu_ff_bwd_plain`), the XLA twin's VJP in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import kernels as K
+from .autograd import vjp
 from .norms import layer_norm
 
 
@@ -32,6 +43,12 @@ def geglu_ff_plain(x, scale, bias, wi, wo, eps: float = 1e-5) -> torch.Tensor:
     hcat = xn @ wi.to(dtype).t()
     act = (hcat[:, :inner].float() * F.gelu(hcat[:, inner:].float())).to(dtype)
     return ((act @ wo.to(dtype).t()).float() + x.float()).to(dtype)
+
+
+def geglu_ff_bwd_plain(x, scale, bias, wi, wo, dout, eps: float = 1e-5):
+    """Plain version of the backward: (dx, dscale, dbias, dwi, dwo), the VJP
+    of `geglu_ff_plain` at dout."""
+    return vjp(lambda *a: geglu_ff_plain(*a, eps), (x, scale, bias, wi, wo), dout)
 
 
 def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
@@ -64,12 +81,53 @@ def _geglu_ff_cuda(x, scale, bias, wi, wo, eps):
     return out
 
 
+def _geglu_ff_bwd_cuda(x, scale, bias, wi, wo, dout, eps):
+    rows, dim = x.shape
+    inner = wo.shape[1]
+    padded = -(-inner // 8) * 8
+    bf = torch.bfloat16
+    wib = wi.to(bf)
+    wcat = torch.cat([_pad_rows(wib[:inner], padded), _pad_rows(wib[inner:], padded)])
+    woT = _pad_rows(wo.to(bf).t(), padded)
+    dout = dout.to(bf).contiguous()
+    xn = torch.empty_like(x)
+    K.layernorm(x, scale, bias, eps, xn)
+    act, dcat = K.ff_bwd_core(xn, dout, wcat[:padded], wcat[padded:], woT)
+    dxn = torch.empty((rows, dim), dtype=torch.float32, device=x.device)
+    K.gemm_nn(dcat, wcat, dxn)
+    dx, dscale, dbias = K.layernorm_bwd(x, scale, dxn, eps, add2=dout, want_dbias=True)
+    dwcat = K.gemm_tn(dcat, xn)
+    dwi = torch.cat([dwcat[:inner], dwcat[padded:padded + inner]])
+    dwo = K.gemm_tn(dout, act)[:, :inner]
+    K.count_launch("geglu_ff_bwd")
+    return dx, dscale, dbias, dwi, dwo
+
+
+class _GegluFF(torch.autograd.Function):
+    """K3 forward, K11 backward, on CUDA tensors; only x is saved."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, wi, wo, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, scale, bias, wi, wo)
+        return _geglu_ff_cuda(x, scale, bias, wi, wo, eps)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, scale, bias, wi, wo = ctx.saved_tensors
+        dx, dscale, dbias, dwi, dwo = _geglu_ff_bwd_cuda(x, scale, bias, wi, wo, dout,
+                                                         ctx.eps)
+        return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype), dwi.to(wi.dtype),
+                dwo.to(wo.dtype), None)
+
+
 def fused_geglu_ff(x: torch.Tensor, scale, bias, wi, wo,
                    eps: float = 1e-5) -> torch.Tensor:
-    """x + geglu(LN(x) wi^T) wo^T for 2-D x (rows, dim)."""
+    """x + geglu(LN(x) wi^T) wo^T for 2-D x (rows, dim).  Differentiable:
+    on CUDA the backward is the port of K11."""
     if x.device.type == "cpu":
         return geglu_ff_plain(x, scale, bias, wi, wo, eps)
-    return _geglu_ff_cuda(x.contiguous(), scale, bias, wi, wo, eps)
+    return _GegluFF.apply(x.contiguous(), scale, bias, wi, wo, eps)
 
 
 class MaskgitFeedForward(nn.Sequential):

@@ -49,6 +49,12 @@ KERNELS = (
     "attention_bwd",       # K12 attention.py::_pallas_attention_bwd_kbias
     "attention_dropout",   # K13 attention.py::_pallas_attention_kbias_drop_impl
     "attention_dropout_bwd",  # K13 attention.py::_pallas_attention_kbias_drop_bwd
+    "geglu_ff_bwd",        # K11 ffn.py::_pallas_ff_bwd
+    "spatial_attention_bwd",  # K9 spatial_attention.py::_pallas_spatial_bwd
+    "grid_attention_bwd",  # K10 small_attention.py::_pallas_small_qknorm_bwd (grid)
+    "peg_bwd",             # K14 peg.py::_pallas_peg_bwd
+    "vq_cluster_stats",    # K15 vq.py::pallas_cluster_stats
+    "vq_assign_exact",     # K5 vq.py::pallas_assign(exact=True)
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -146,18 +152,31 @@ def _declare(lib) -> None:
     lib.ct_layernorm.argtypes = [p, i, i, p, p, f, p, p]
     lib.ct_patch_layernorm.argtypes = [p, i, i, i, i, i, i, p, p, f, p, p]
     lib.ct_attention.argtypes = [p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll,
-                                 i, i, i, i, i, p, p, p, i, i, p]
+                                 i, i, i, i, i, p, p, p, i, p]
     lib.ct_rearrange_patches.argtypes = [p, i, i, i, i, i, i, p, ll, ll, i, p]
     lp, u = ctypes.POINTER(ll), ctypes.c_uint
     lib.ct_attn_train_fwd.argtypes = [i, p, p, p, p, lp, p, p, p, u, f,
                                       i, i, i, i, p]
     lib.ct_attn_train_bwd.argtypes = [i, p, p, p, p, p, p, p, p, lp, p, p, p,
                                       p, p, p, u, f, i, i, i, i, p]
+    lib.ct_gemm_argmax2.argtypes = [p, i, p, p, i, i, i, i, p, i, p]
+    lib.ct_gemm_layout.argtypes = [i, i, p, i, p, i, i, i, i, i, p, i, ll, i, p]
+    lib.ct_sum_splits.argtypes = [p, i, ll, p, p]
+    lib.ct_ff_bwd.argtypes = [p, p, i, p, p, p, i, i, i, i, p, i, p, i, i, p]
+    lib.ct_layernorm_bwd.argtypes = [p, i, i, p, p, p, p, f, p, p, p, i, p]
+    lib.ct_qk_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, ll, ll, ll, ll,
+                                        ll, ll, ll, ll, i, i, i, i, i, i, p, p,
+                                        p, p, p, p, p, i, p]
+    lib.ct_peg_dw.argtypes = [p, p, i, i, i, i, i, i, i, i, p, p]
+    lib.ct_vq_cluster_stats.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p]
     lib.ct_error_string.argtypes = [i]
     lib.ct_error_string.restype = ctypes.c_char_p
     for name in ("ct_gemm", "ct_gemm_argmax", "ct_layernorm",
                  "ct_patch_layernorm", "ct_attention", "ct_rearrange_patches",
-                 "ct_attn_train_fwd", "ct_attn_train_bwd"):
+                 "ct_attn_train_fwd", "ct_attn_train_bwd", "ct_gemm_argmax2",
+                 "ct_gemm_layout", "ct_sum_splits", "ct_ff_bwd",
+                 "ct_layernorm_bwd", "ct_qk_attention_bwd", "ct_peg_dw",
+                 "ct_vq_cluster_stats"):
         getattr(lib, name).restype = ctypes.c_int
 
 
@@ -242,8 +261,11 @@ def gemm(epi: int, a: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
     return out
 
 
-def gemm_argmax(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """argmax_n sum_k a[m, k] * w[n, k] as int32 (gemm.cu)."""
+def gemm_argmax(a: torch.Tensor, w: torch.Tensor,
+                w_lo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """argmax_n sum_k a[m, k] * w[n, k] as int32 (gemm.cu); with `w_lo`, the
+    similarities are a w^T + a w_lo^T (w and w_lo the bf16 hi and lo parts of
+    one codebook)."""
     bf = torch.bfloat16
     require(a, "a", bf, 2)
     require(w, "w", bf, 2)
@@ -252,11 +274,106 @@ def gemm_argmax(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("gemm_argmax: a and w disagree on K")
     ids = torch.empty((M,), dtype=torch.int32, device=a.device)
     vec = K % 8 == 0 and _rows_ok(a) and _rows_ok(w)
-    err = library().ct_gemm_argmax(_ptr(a), a.stride(0), _ptr(w), w.stride(0),
-                                   M, w.shape[0], K, _ptr(ids), int(vec),
-                                   _stream())
+    if w_lo is None:
+        err = library().ct_gemm_argmax(_ptr(a), a.stride(0), _ptr(w), w.stride(0),
+                                       M, w.shape[0], K, _ptr(ids), int(vec),
+                                       _stream())
+    else:
+        require(w_lo, "w_lo", bf, 2)
+        if w_lo.shape != w.shape:
+            raise ValueError("gemm_argmax: w_lo must match w")
+        err = library().ct_gemm_argmax2(_ptr(a), a.stride(0), _ptr(w), _ptr(w_lo),
+                                        w.stride(0), M, w.shape[0], K, _ptr(ids),
+                                        int(vec and _rows_ok(w_lo)), _stream())
     _check(err, "ct_gemm_argmax")
     return ids
+
+
+def _vec_ok(*tensors) -> bool:
+    """16-byte loads: every row stride and row length a multiple of 8 bf16
+    and every base on a 16-byte boundary."""
+    return all(t.stride(0) % 8 == 0 and t.shape[1] % 8 == 0 and t.data_ptr() % 16 == 0
+               for t in tensors)
+
+
+def _rows_contig(t: torch.Tensor, name: str) -> None:
+    require(t, name, torch.bfloat16, 2, contiguous=False)
+    if t.stride(1) != 1:
+        raise ValueError(f"{name}: rows must be contiguous")
+
+
+def gemm_nn(dy: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """out = dy @ w for dy (M, K) and w (K, N), an nn.Linear weight whose
+    input width is N (dX = dY W); out (M, N) bf16 or f32 (gemm.cu)."""
+    _rows_contig(dy, "dy")
+    _rows_contig(w, "w")
+    M, K = dy.shape
+    N = w.shape[1]
+    if w.shape[0] != K or tuple(out.shape) != (M, N) or out.stride(1) != 1 \
+            or out.device != dy.device or out.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"gemm_nn: dy {tuple(dy.shape)}, w {tuple(w.shape)}, "
+                         f"out {tuple(out.shape)} {out.dtype}")
+    err = library().ct_gemm_layout(0, int(out.dtype == torch.float32), _ptr(dy),
+                                   dy.stride(0), _ptr(w), w.stride(0), M, N, K,
+                                   -(-K // 32) * 32, _ptr(out), out.stride(0), 0,
+                                   int(_vec_ok(dy, w)), _stream())
+    _check(err, "ct_gemm_layout")
+    return out
+
+
+TN_ROWS = 4096  # rows of a weight-gradient product per split
+
+
+def gemm_tn(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """dy^T @ x over all rows as f32 (M, N), for dy (R, M) and x (R, N): the
+    weight gradient dW of y = x W^T (gemm.cu).  The rows are split in blocks
+    of TN_ROWS whose partial sums are added in order (sum_splits)."""
+    _rows_contig(dy, "dy")
+    _rows_contig(x, "x")
+    R, M = dy.shape
+    N = x.shape[1]
+    if x.shape[0] != R:
+        raise ValueError(f"gemm_tn: dy {tuple(dy.shape)} and x {tuple(x.shape)}")
+    splits = max(1, -(-R // TN_ROWS))
+    chunk = -(-R // (splits * 32)) * 32
+    splits = -(-R // chunk)
+    part = torch.empty((splits, M, N), dtype=torch.float32, device=dy.device)
+    err = library().ct_gemm_layout(1, 1, _ptr(dy), dy.stride(0), _ptr(x), x.stride(0),
+                                   M, N, R, chunk, _ptr(part), N, M * N,
+                                   int(_vec_ok(dy, x)), _stream())
+    _check(err, "ct_gemm_layout")
+    return part[0] if splits == 1 else sum_splits(part)
+
+
+def sum_splits(part: torch.Tensor) -> torch.Tensor:
+    """part (S, ...) f32 -> its sum over the first axis, the splits added in
+    order (gemm.cu)."""
+    require(part, "part", torch.float32, part.dim())
+    out = torch.empty(part.shape[1:], dtype=torch.float32, device=part.device)
+    err = library().ct_sum_splits(_ptr(part), part.shape[0], out.numel(), _ptr(out),
+                                  _stream())
+    _check(err, "ct_sum_splits")
+    return out
+
+
+def ff_bwd_core(xn: torch.Tensor, dout: torch.Tensor, wa: torch.Tensor,
+                wg: torch.Tensor, woT: torch.Tensor):
+    """K11's tile (gemm.cu, ff_bwd_kernel): a = xn wa^T, g = xn wg^T and
+    dact = dout woT^T -> act (M, N) and dcat (M, 2N) = [da | dg], bf16."""
+    for name, t in (("xn", xn), ("dout", dout), ("wa", wa), ("wg", wg), ("woT", woT)):
+        require(t, name, torch.bfloat16, 2)
+    M, K = xn.shape
+    N = wa.shape[0]
+    if dout.shape != xn.shape or any(w.shape != (N, K) for w in (wa, wg, woT)):
+        raise ValueError("ff_bwd_core: shapes do not fit")
+    act = torch.empty((M, N), dtype=torch.bfloat16, device=xn.device)
+    dcat = torch.empty((M, 2 * N), dtype=torch.bfloat16, device=xn.device)
+    vec = K % 8 == 0 and all(_rows_ok(t) for t in (xn, dout, wa, wg, woT))
+    err = library().ct_ff_bwd(_ptr(xn), _ptr(dout), K, _ptr(wa), _ptr(wg), _ptr(woT), K,
+                              M, N, K, _ptr(act), N, _ptr(dcat), 2 * N, int(vec),
+                              _stream())
+    _check(err, "ct_ff_bwd")
+    return act, dcat
 
 
 def _f32_vector(t: Optional[torch.Tensor], n: int, name: str):
@@ -282,6 +399,38 @@ def layernorm(x: torch.Tensor, scale: Optional[torch.Tensor],
                                  float(eps), _ptr(out), _stream())
     _check(err, "ct_layernorm")
     return out
+
+
+LN_BWD_ROWS = 64  # rows per block of the LayerNorm backward
+
+
+def layernorm_bwd(x: torch.Tensor, scale: Optional[torch.Tensor], dxn: torch.Tensor,
+                  eps: float, add: Optional[torch.Tensor] = None,
+                  add2: Optional[torch.Tensor] = None, want_dbias: bool = False):
+    """Backward of the row LN of x (rows, D) bf16 given dxn = dL/dLN(x) f32:
+    dx (bf16, plus `add` f32 and `add2` bf16 when given), dscale = sum of
+    dxn * xhat and, with want_dbias, dbias = sum of dxn, both f32
+    (layernorm.cu; column sums added over row blocks in order)."""
+    require(x, "x", torch.bfloat16, 2)
+    require(dxn, "dxn", torch.float32, 2)
+    rows, D = x.shape
+    if dxn.shape != x.shape or D > 4096:
+        raise ValueError(f"layernorm_bwd: x {tuple(x.shape)}, dxn {tuple(dxn.shape)}")
+    for name, t, dt in (("add", add, torch.float32), ("add2", add2, torch.bfloat16)):
+        if t is not None:
+            require(t, name, dt, 2)
+            if t.shape != x.shape:
+                raise ValueError(f"layernorm_bwd: {name} must match x")
+    scale = _f32_vector(scale, D, "scale")
+    blocks = -(-rows // LN_BWD_ROWS)
+    dx = torch.empty_like(x)
+    part_ds = torch.empty((blocks, D), dtype=torch.float32, device=x.device)
+    part_db = torch.empty_like(part_ds) if want_dbias else None
+    err = library().ct_layernorm_bwd(_ptr(x), rows, D, _ptr(scale), _ptr(dxn), _ptr(add),
+                                     _ptr(add2), float(eps), _ptr(dx), _ptr(part_ds),
+                                     _ptr(part_db), LN_BWD_ROWS, _stream())
+    _check(err, "ct_layernorm_bwd")
+    return dx, sum_splits(part_ds), None if part_db is None else sum_splits(part_db)
 
 
 def patch_layernorm(video: torch.Tensor, pt: int, p: int,
@@ -334,9 +483,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               n: int, d: int, q_strides, kv_strides,
               q_scale: Optional[torch.Tensor] = None,
               k_scale: Optional[torch.Tensor] = None,
-              bias: Optional[torch.Tensor] = None, bias_mode: int = 0,
+              bias: Optional[torch.Tensor] = None,
               warps: int = 8) -> torch.Tensor:
-    """softmax(q k^T + bias) v per (sequence, head) (attention.cu).
+    """softmax(q k^T + bias) v per (sequence, head) (attention.cu); bias
+    (heads, n, n) f32 or None.
 
     q/out and k/v are addressed through (outer, inner, head, token) element
     strides; their last dim must be contiguous.  The caller checks that the
@@ -352,22 +502,101 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (qs is None) != (ks is None):
         raise ValueError("attention: pass both q_scale and k_scale or neither")
     if bias is not None:
-        require(bias, "bias", torch.float32, bias.dim())
-        want = (heads, n, n) if bias_mode == 1 else (sequences, n)
-        if tuple(bias.shape) != want:
-            raise ValueError(f"attention: bias {tuple(bias.shape)} != {want}")
-    elif bias_mode:
-        raise ValueError("attention: bias_mode needs a bias")
+        require(bias, "bias", torch.float32, 3)
+        if tuple(bias.shape) != (heads, n, n):
+            raise ValueError(f"attention: bias {tuple(bias.shape)} != {(heads, n, n)}")
     err = library().ct_attention(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), *map(int, q_strides),
         *map(int, kv_strides), inner, sequences, heads, n, d, _ptr(qs),
-        _ptr(ks), _ptr(bias), bias_mode, warps, _stream())
+        _ptr(ks), _ptr(bias), warps, _stream())
     _check(err, "ct_attention")
     return out
 
 
-# ------------------------------------------- training attention (f32 only)
-_TRAIN_DTYPES = {torch.float32: 0}
+def qk_attention_bwd(q, kv, dout, *, sequences: int, inner: int, heads: int,
+                     n: int, d: int, q_strides, kv_strides, q_scale, k_scale,
+                     bias: Optional[torch.Tensor] = None, group: int = 1,
+                     warps: int = 8):
+    """The QK-norm attention core's backward (qknorm_attention_bwd.cu) on the
+    projections q (rows, h*d) and kv (rows, 2*h*d) [k | v], and dout, the
+    gradient of the merged heads, laid out as q.  Heads are addressed through
+    (outer, inner, head, token) element strides: `q_strides` for q, dout and
+    the outputs like q, `kv_strides` for k and v (the caller checks they stay
+    inside the tensors).  Returns merged and dq (like q), dkv (like kv),
+    dq_scale and dk_scale (d,) f32 (dq_scale before the logit scale) and
+    dbias (heads, n, n) f32 or None; sums over sequences are added in a fixed
+    order."""
+    hd = heads * d
+    for name, t, width in (("q", q, hd), ("kv", kv, 2 * hd), ("dout", dout, hd)):
+        require(t, name, torch.bfloat16, 2)
+        if t.shape[1] != width or t.shape[0] != q.shape[0]:
+            raise ValueError(f"qk_attention_bwd: {name} {tuple(t.shape)}")
+    if d % 2 or d > 64:
+        raise ValueError(f"qk_attention_bwd: head dim {d} must be even and <= 64")
+    qs, ks = _f32_vector(q_scale, d, "q_scale"), _f32_vector(k_scale, d, "k_scale")
+    merged, dq, dkv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(kv)
+    groups = -(-sequences // group)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    bias_t = dbias_part = None
+    if bias is not None:
+        require(bias, "bias", torch.float32, 3)
+        if tuple(bias.shape) != (heads, n, n):
+            raise ValueError(f"qk_attention_bwd: bias {tuple(bias.shape)}")
+        bias_t = bias.transpose(1, 2).contiguous()
+        dbias_part = torch.empty((groups, heads, n, n), **f32)
+    dqs_part = torch.empty((groups * heads * warps, d), **f32)
+    dks_part = torch.empty_like(dqs_part)
+    err = library().ct_qk_attention_bwd(
+        _ptr(q), _ptr(kv), _ptr(kv[:, hd:]), _ptr(dout), _ptr(merged), _ptr(dq),
+        _ptr(dkv), _ptr(dkv[:, hd:]), *map(int, q_strides), *map(int, kv_strides),
+        inner, sequences, heads, n, d, group, _ptr(qs), _ptr(ks), _ptr(bias),
+        _ptr(bias_t), _ptr(dbias_part), _ptr(dqs_part), _ptr(dks_part), warps,
+        _stream())
+    _check(err, "ct_qk_attention_bwd")
+    dbias = None if dbias_part is None else sum_splits(dbias_part)
+    return merged, dq, dkv, sum_splits(dqs_part), sum_splits(dks_part), dbias
+
+
+def peg_dw(x: torch.Tensor, dout: torch.Tensor, pads) -> torch.Tensor:
+    """(28, C) f32: rows 0-26 the depthwise 3x3x3 weight gradient, tap
+    (kz * 3 + ky) * 3 + kx, row 27 the bias gradient, of a conv over the
+    (B, T, H, W, C) bf16 x with leading pads `pads` = (t, h, w); the frames
+    added in order (peg_bwd.cu)."""
+    require(x, "x", torch.bfloat16, 5)
+    require(dout, "dout", torch.bfloat16, 5)
+    if dout.shape != x.shape or x.shape[-1] % 2 or x.data_ptr() % 4 or dout.data_ptr() % 4:
+        raise ValueError(f"peg_dw: x {tuple(x.shape)}, dout {tuple(dout.shape)}")
+    B, T, H, W, C = x.shape
+    part = torch.empty((B * T, 28, C), dtype=torch.float32, device=x.device)
+    err = library().ct_peg_dw(_ptr(x), _ptr(dout), B, T, H, W, C, *map(int, pads),
+                              _ptr(part), _stream())
+    _check(err, "ct_peg_dw")
+    return sum_splits(part)
+
+
+def vq_cluster_stats(x: torch.Tensor, ids: torch.Tensor, codes: int):
+    """bins (codes,) and embed_sum (codes, D) f32 of the l2-normalised rows
+    of x (rows, D) bf16 grouped by ids (rows,) int32 (vq_stats.cu)."""
+    require(x, "x", torch.bfloat16, 2)
+    require(ids, "ids", torch.int32, 1)
+    rows, D = x.shape
+    if ids.shape[0] != rows or D % 8 or D > 1024 or x.data_ptr() % 16:
+        raise ValueError(f"vq_cluster_stats: x {tuple(x.shape)}, ids {tuple(ids.shape)}")
+    i32 = dict(dtype=torch.int32, device=x.device)
+    rank, perm = torch.empty((rows,), **i32), torch.empty((rows,), **i32)
+    counts = torch.empty((-(-rows // 1024), codes), **i32)
+    start = torch.empty((codes,), **i32)
+    bins = torch.empty((codes,), dtype=torch.float32, device=x.device)
+    embed_sum = torch.empty((codes, D), dtype=torch.float32, device=x.device)
+    err = library().ct_vq_cluster_stats(_ptr(x), _ptr(ids), rows, D, codes, _ptr(rank),
+                                        _ptr(counts), _ptr(start), _ptr(perm), _ptr(bins),
+                                        _ptr(embed_sum), _stream())
+    _check(err, "ct_vq_cluster_stats")
+    return bins, embed_sum
+
+
+# ------------------------------------------- training attention (f32, bf16)
+_TRAIN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _bhnd_strides(*tensors):

@@ -312,3 +312,151 @@ def test_philox_known_answers(ctr, key, want):
 
     got = philox4x32(*(torch.tensor([c], dtype=torch.int64) for c in ctr), *key)
     assert tuple(int(w) for w in got) == want
+
+
+# ----------------------------- tower backwards (K11, K9, K10, K14) and VQ (K5, K15)
+def _grad_close(got, ref, rtol=1e-4):
+    """Gradients: max|port - jax| <= rtol * max|jax| per tensor (f32 sums over
+    all rows in different orders)."""
+    _close(got, ref, rtol)
+
+
+def test_k11_plain_backward_matches_pallas_ff_bwd(pallas_interpret):
+    """K11's plain backward (autograd of the plain FF) against `_pallas_ff_bwd`
+    in interpret mode, f32, residual=True: dx, dscale, dbias and the three
+    weight gradients within 1e-4 relative (the kernel's erf is the
+    Abramowitz-Stegun form, |err| 2e-6)."""
+    from ct_clip_tpu.ops.pallas.ffn import _pallas_ff_bwd, _pick_m_bwd
+    from ct_clip_tpu_torch.ops.ffn import geglu_ff_bwd_plain
+
+    rng = np.random.RandomState(31)
+    n, dim, inner = 256, 128, 85
+    x, do = rng.randn(n, dim), rng.randn(n, dim)
+    scale, bias = 1 + 0.2 * rng.randn(dim), 0.1 * rng.randn(dim)
+    wia, wig = rng.randn(dim, inner) / np.sqrt(dim), rng.randn(dim, inner) / np.sqrt(dim)
+    wo = rng.randn(inner, dim) / np.sqrt(inner)
+    f = lambda a: jnp.asarray(a, jnp.float32)  # noqa: E731
+    m = _pick_m_bwd(n, dim, inner, 4)
+    dx, ds, db, dwa, dwg, dwo = _pallas_ff_bwd(f(x), f(scale), f(bias), f(wia), f(wig),
+                                               f(wo), f(do), 1e-5, m, residual=True)
+    got = geglu_ff_bwd_plain(_t(x), _t(scale), _t(bias),
+                             _t(np.concatenate([wia, wig], axis=1).T), _t(wo.T), _t(do))
+    for g, r in zip(got, (dx, ds, db, np.concatenate([dwa, dwg], axis=1).T, dwo.T)):
+        _grad_close(g, r)
+
+
+def _spatial_inputs(seed, b, n, dim, heads, dh, grid=False, S=None):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*((b, n, S, dim) if grid else (b, n, dim)))
+    w = _weights(rng, dim, heads, dh)
+    return rng, x, w, rng.randn(*x.shape) * 0.1
+
+
+def _attn_grads_close(got, ref):
+    """(dx, dgamma, dwq, dwkv, dq_scale, dk_scale, dwout[, dbias]): the JAX
+    (in, out) weight gradients are transposed to nn.Linear layout."""
+    for i, (g, r) in enumerate(zip(got, ref)):
+        r = np.asarray(r)
+        _grad_close(g, r.T if i in (2, 3, 6) else r)
+
+
+def test_k9_plain_backward_matches_pallas_spatial_bwd(pallas_interpret):
+    """K9's plain backward against `_pallas_spatial_bwd` in interpret mode, f32,
+    residual=True, with the (heads, n, n) bias gradient summed over the
+    planes: every output within 1e-4 relative."""
+    from ct_clip_tpu.ops.pallas.spatial_attention import _pallas_spatial_bwd
+    from ct_clip_tpu_torch.ops.qknorm_attention import qknorm_attention_bwd_plain
+
+    b, n, dim, heads, dh = 2, 128, 128, 4, 32
+    rng, x, w, do = _spatial_inputs(41, b, n, dim, heads, dh)
+    bias = rng.randn(heads, n, n)
+    f = lambda a: jnp.asarray(a, jnp.float32)  # noqa: E731
+    ref = _pallas_spatial_bwd(f(x), *_jax_args(w), f(bias), f(do), heads=heads,
+                              dim_head=dh, scale=8.0, dtype=jnp.float32, residual=True)
+    got = qknorm_attention_bwd_plain(_t(x), *_port_args(w), _t(bias), _t(do), heads, dh)
+    assert len(got) == len(ref) == 8
+    _attn_grads_close(got, ref)
+
+
+def test_k10_plain_backward_matches_pallas_grid_bwd(pallas_interpret):
+    """K10's grid form: the plain backward on the native (b, t, S, dim) grid
+    against `_pallas_small_qknorm_bwd(grid_layout=True)` in interpret mode,
+    f32, residual=True: within 1e-4 relative."""
+    from ct_clip_tpu.ops.pallas.small_attention import (_pallas_small_qknorm_bwd,
+                                                        _plan_grid_bwd)
+    from ct_clip_tpu_torch.ops.qknorm_attention import grid_qknorm_attention_bwd_plain
+
+    b, n, S, dim, heads, dh = 2, 8, 16, 128, 8, 16
+    _, x, w, do = _spatial_inputs(43, b, n, dim, heads, dh, grid=True, S=S)
+    g = _plan_grid_bwd(b, n, S, dim, heads, dh)
+    assert g is not None
+    f = lambda a: jnp.asarray(a, jnp.float32)  # noqa: E731
+    ref = _pallas_small_qknorm_bwd(f(x), *_jax_args(w), f(do), g, heads=heads,
+                                   dim_head=dh, scale=8.0, dtype=jnp.float32,
+                                   residual=True, grid_layout=True)
+    got = grid_qknorm_attention_bwd_plain(_t(x), *_port_args(w), _t(do), heads, dh)
+    assert len(got) == len(ref) == 7
+    _attn_grads_close(got, ref)
+
+
+@pytest.mark.parametrize("rotated", [False, True])
+def test_k14_peg_backward_matches_pallas_peg_bwd(pallas_interpret, rotated):
+    """The PEG backward on the CPU (dx by the flipped-kernel conv, dW and db
+    by K14's plain version) against `_pallas_peg_bwd` in interpret mode on
+    bf16 activations, residual=True, both the frame-causal and the rotated
+    (h-causal, causal_axis 1) forms.  dW and db sum exact bf16 products in
+    f32: 1e-5 relative; dx is a bf16 conv output: 1e-2."""
+    from ct_clip_tpu.ops.pallas.peg import _pallas_peg_bwd, _plan
+    from ct_clip_tpu_torch.ops.attention import peg_conv
+
+    rng = np.random.RandomState(23)
+    shape, c = (1, 4, 8, 8, 128), 128
+    x = jnp.asarray(rng.randn(*shape).astype(np.float32), jnp.bfloat16)
+    weight = (rng.randn(c, 1, 3, 3, 3) * 0.2).astype(np.float32)  # Conv3d layout
+    used = weight.transpose(0, 1, 4, 2, 3) if rotated else weight
+    kernel = jnp.asarray(used.transpose(2, 3, 4, 1, 0))  # flax DHWIO
+    do = jnp.asarray(rng.randn(*shape).astype(np.float32) * 0.1, jnp.bfloat16)
+    dx, dw, db = _pallas_peg_bwd(x, kernel, do, True, _plan(x.shape, x.dtype),
+                                 residual=True, causal_axis=1 if rotated else 0)
+
+    xt = torch.tensor(np.asarray(x.astype(jnp.float32))).to(torch.bfloat16)
+    wt, bt = _t(weight).requires_grad_(), torch.zeros(c, requires_grad=True)
+    xt.requires_grad_()
+    out = peg_conv(xt, wt, bt, rotated)
+    dot = torch.tensor(np.asarray(do.astype(jnp.float32))).to(torch.bfloat16)
+    gx, gw, gb = torch.autograd.grad(out, (xt, wt, bt), dot)
+    if rotated:  # the weight as applied
+        gw = gw.permute(0, 1, 4, 2, 3)
+    _close(gx.float(), np.asarray(dx.astype(jnp.float32)), 1e-2)
+    _close(gw, np.asarray(dw).transpose(4, 3, 0, 1, 2))
+    _close(gb, db)
+
+
+def test_k5_exact_and_k15_plain_match_pallas_vq(pallas_interpret):
+    """On bf16 rows: the exact assignment (x.c_hi + x.c_lo) against
+    `pallas_assign(exact=True)`, ids equal; the cluster statistics against
+    `pallas_cluster_stats`: bins equal, embed sums within 1e-4 relative (the
+    TPU kernel sums the normalised rows as bf16 hi + lo parts, 2^-16)."""
+    from ct_clip_tpu.ops.norms import l2norm as jl2norm
+    from ct_clip_tpu.ops.pallas.vq import _plan, pallas_assign, pallas_cluster_stats
+    from ct_clip_tpu_torch.ops.vq import cluster_stats, vq_assign
+
+    rng = np.random.RandomState(13)
+    n, dim, k = 512, 128, 128
+    embed = rng.randn(k, dim).astype(np.float32)
+    truth = rng.randint(0, k // 2, n)  # half the codes stay empty
+    x = (embed[truth] + 0.1 * rng.randn(n, dim)).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    embed_n = jl2norm(jnp.asarray(embed))
+    m = _plan(n, dim, k)
+    ids = pallas_assign(xb, embed_n, m, exact=True)
+    bins, esum = pallas_cluster_stats(xb, ids, k, m)
+
+    xt = torch.tensor(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16)
+    got_ids = vq_assign(xt, _t(np.asarray(embed_n)), exact=True)
+    np.testing.assert_array_equal(got_ids.numpy(), np.asarray(ids))
+    np.testing.assert_array_equal(got_ids.numpy(), truth)
+    got_bins, got_esum = cluster_stats(xt, got_ids, k)
+    np.testing.assert_array_equal(got_bins.numpy(), np.asarray(bins))
+    assert (got_bins.numpy() == 0).sum() >= k // 2
+    _close(got_esum, esum, 1e-4)
