@@ -53,7 +53,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
      tiny CT-CLIP training step on the card against the CPU (both bf16, each
      gradient held against the CPU's own bf16-vs-f32 distance), the same
      card step with planted kernel faults that must fail that comparison,
-     and a save -> resume round trip on the card.
+     and a save -> resume round trip on the card;
+  7. CT-CLIP pretraining with the auxiliary objectives: the embed backwards
+     against their plain versions at full width, batch AUX_B (K16a and K16b
+     within BWD_REL_TOL of max|plain|, K17 bit-exact); the embeds under grad
+     at full width, which must pass gradients to all six weights and to the
+     input (K8 / K16a / K17 on a volume, K4 / K16b on rows); then
+     `CTClipTrainer` at full width on phase 6's corpus, (a) with visual SSL
+     (SimSiam, temporal tap) and MLM for 3 steps with the mini evaluation
+     (volumes, K8) and a checkpoint, and (b) with FILIP (dim_image 512) and
+     SimCLR on the pooled tap for 2 steps, each with its launch counters (the
+     volume training embed runs K6, each SSL view K8 and K16a, and MLM runs
+     the text tower twice, so K13 launches twice as often per step as in
+     phase 6), step time (CUDA events), peak memory and a profiled step;
+     last, a tiny CT-CLIP step with all three objectives on, card against
+     CPU as in phase 6, and again with K16a's LN scale gradient dropped,
+     which must fail.
 
 Prints the end-to-end numbers and the kernel table as one JSON line each,
 then the card's name and power limit (nvidia-smi), then
@@ -160,6 +175,13 @@ KERNELS = {
     "attention_dropout_bwd_bf16": _kernel("_pallas_attention_kbias_drop_bwd (bf16)",
                                           "attention.py:499", "attention_train.cu",
                                           ATTN_TRAIN, "attention_dropout_bwd", "ctclip_train"),
+    "patch_embed_bwd": _kernel("_pallas_patch_embed_bwd", "patchify.py:375", "layernorm.cu",
+                               ["layernorm.cu", "gemm.cu"], "patch_embed_bwd",
+                               "ctclip_aux_ssl_mlm"),
+    "row_embed_bwd": _kernel("_pallas_row_embed_bwd", "patchify.py:637", "layernorm.cu",
+                             ["layernorm.cu", "gemm.cu"], "row_embed_bwd", "embed_grad"),
+    "unrearrange_patches": _kernel("_pallas_unrearrange", "patchify.py:138", "rearrange.cu",
+                                   ["rearrange.cu"], "unrearrange_patches", "embed_grad"),
 }
 # launch counters each driven path must raise
 COMMON = ["spatial_attention", "grid_attention", "geglu_ff", "vq_assign",
@@ -178,7 +200,18 @@ PATHS = {
                      "spatial_attention", "grid_attention", "attention_dropout",
                      "attention_dropout_bwd", "rearrange_patches", "row_embed",
                      "vq_assign", "fused_attention"],
+    # the inference embeds under grad, on a volume and on rows
+    "embed_grad": ["patch_embed", "patch_embed_bwd", "unrearrange_patches", "row_embed",
+                   "row_embed_bwd"],
 }
+# a training step on volumes with visual SSL: K6 in the CLIP embed, K8 and
+# K16a in each view's embed, the tower's kernels and backwards, K13
+AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "rearrange_patches", "geglu_ff_bwd",
+             "spatial_attention_bwd", "grid_attention_bwd", "peg_bwd", "vq_cluster_stats",
+             "vq_assign_exact", "geglu_ff", "spatial_attention", "grid_attention",
+             "attention_dropout", "attention_dropout_bwd"]
+PATHS["ctclip_aux_ssl_mlm"] = AUX_TRAIN + ["vq_assign", "fused_attention"]  # + mini-eval
+PATHS["ctclip_aux_filip_simclr"] = AUX_TRAIN
 # training backwards: autograd of the plain forward in bf16 rounds each
 # gradient tensor to bf16 where the kernels keep f32 (weight gradients, dxn)
 # or round at the JAX kernels' points, a few bf16 ulps apart
@@ -186,6 +219,8 @@ BWD_REL_TOL = 3e-2
 # exact bf16 products summed in f32, in another order
 SUM_REL_TOL = 1e-5
 TRAIN_B = 8  # volumes per training batch
+AUX_B = 8  # volumes per training batch with the auxiliary objectives
+BERT_LAYERS = 12  # K13 launches per text-tower pass in training
 # RadBERT training attention: (batch, heads, tokens, head dim), f32
 BERT_SHAPE = (32, 12, 512, 64)
 CHECK_BATCH = 8
@@ -732,11 +767,11 @@ def train_kernel_cases(dev):
         tol=BWD_REL_TOL)
 
 
-def train_kernel_phase(dev) -> dict:
+def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
     import torch
 
     results = {}
-    for name, case in train_kernel_cases(dev):
+    for name, case in cases if cases is not None else train_kernel_cases(dev):
         got, ref = _as_tuple(case["kern"]()), _as_tuple(case["plain"]())
         torch.cuda.synchronize()
         if case.get("ids"):
@@ -753,6 +788,10 @@ def train_kernel_phase(dev) -> dict:
             res = dict(max_abs_err=gap.max().item(), max_rel_err=None, id_agreement=agree,
                        tolerance=">= 0.999 ids equal, the rest ties within 1e-5")
             del sims
+        elif case.get("exact"):  # a move: bit for bit
+            err, rel = _rel_errors(got, ref)
+            ok = all(torch.equal(g, r) for g, r in zip(got, ref))
+            res = dict(max_abs_err=err, max_rel_err=rel, tolerance="bit-exact")
         else:
             err, rel = _rel_errors(got, ref)
             ok = rel <= case["tol"]
@@ -761,16 +800,74 @@ def train_kernel_phase(dev) -> dict:
             raise AssertionError(f"{name}: outside tolerance: {res}")
         del got, ref
         torch.cuda.empty_cache()
-        res.update(timing(case, case["outputs"]), batch=TRAIN_B)
+        res.update(timing(case, case["outputs"]), batch=batch)
         lib = "none" if res["library_ms"] is None else f"{res['library_ms']:.3f} ms"
         log(f"kernel {name}: max_abs_err {res['max_abs_err']:.4e} max_rel_err "
             f"{res['max_rel_err'] if res['max_rel_err'] is None else round(res['max_rel_err'], 6)} "
-            f"({res['tolerance']}) batch {TRAIN_B}: kernel {res['ms']:.3f} ms plain "
+            f"({res['tolerance']}) batch {batch}: kernel {res['ms']:.3f} ms plain "
             f"{res['plain_ms']:.3f} ms library {lib} bound {res['bound_ms']:.4f} ms "
             f"({res['bound_by']}, {100 * res['bound_share']:.1f}% of it reached)")
         results[name] = res
         torch.cuda.empty_cache()
     return results
+
+
+# --------------------------------------------- phase 7, the embed backwards
+def embed_bwd_cases(dev):
+    """K16a, K16b and K17 at full width, batch AUX_B, as the training step's
+    SSL views and a gradient into the input reach them: each kernel through
+    the wrapper the model calls (a backward is torch.autograd.grad of a kept
+    forward: K16a into the six weights, K16b also into the rows), its plain
+    version (autograd of the plain forward, into the same tensors), the
+    library call where one computes the same function (K17: the inverse
+    permutation's .contiguous()), the tensors it reads and writes and its
+    products (K16: the recomputed forward product, dW and dX, 2 x 4000 x 512
+    multiply-adds per row each)."""
+    import torch
+
+    from ct_clip_tpu_torch.ops.patch_embed import (
+        fused_patch_embed, fused_row_embed, patch_embed_plain, rearrange_plain,
+        row_embed_plain, unrearrange_patches, unrearrange_plain)
+
+    g = torch.Generator(device=dev).manual_seed(40)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*shape, scale=1.0, dtype=f32):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    dim, pd, n_tok = 512, 4000, 13824
+    flops = 3 * 2 * AUX_B * n_tok * pd * dim
+    video = (torch.rand((AUX_B, 240, 480, 480), generator=g, device=dev) * 2 - 1).to(bf)
+    pe = [1 + rn(pd, scale=0.1), rn(pd, scale=0.1), rn(dim, pd, scale=pd ** -0.5),
+          rn(dim, scale=0.1), 1 + rn(dim, scale=0.1), rn(dim, scale=0.1)]
+    do = rn(AUX_B, n_tok, dim, dtype=bf)
+
+    def plain_grads(fn, tensors):
+        leaves = [t.detach().requires_grad_() for t in tensors]
+        return torch.autograd.grad(fn(*leaves), leaves, do)
+
+    leaves = [t.clone().requires_grad_() for t in pe]
+    out = fused_patch_embed(video, *leaves, 10, 20)
+    yield "patch_embed_bwd", dict(
+        kern=lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+        plain=lambda: plain_grads(lambda *w: patch_embed_plain(video, *w, 10, 20), pe),
+        library=None, inputs=(video, do, *pe), outputs=tuple(pe), flops=flops,
+        tol=BWD_REL_TOL)
+    del out, leaves
+    rows = rearrange_plain(video, 10, 20)
+    leaves = [t.clone().requires_grad_() for t in (rows, *pe)]
+    out = fused_row_embed(*leaves)
+    yield "row_embed_bwd", dict(
+        kern=lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+        plain=lambda: plain_grads(row_embed_plain, (rows, *pe)), library=None,
+        inputs=(rows, do, *pe), outputs=(rows, *pe), flops=flops, tol=BWD_REL_TOL)
+    del out, leaves
+    yield "unrearrange_patches", dict(
+        kern=lambda: unrearrange_patches(rows, 10, 20, 240, 480, 480),
+        plain=lambda: unrearrange_plain(rows, 10, 20, 240, 480, 480),
+        library=lambda: rows.reshape(AUX_B, 24, 24, 24, 10, 20, 20)
+        .permute(0, 1, 4, 2, 5, 3, 6).contiguous(),
+        inputs=(rows,), outputs=(video,), flops=0, exact=True)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1267,7 +1364,38 @@ def write_train_corpus(work: Path):
     return train, valid, write_vocab(work / "ctclip_vocab.txt")
 
 
-def ctclip_train_phase(dev, work: Path, card: str) -> dict:
+def timed_steps(step, state, batch, card: str, label: str, batch_size: int,
+                groups=None) -> dict:
+    """Steady-state step time (CUDA events, 4 steps, median of steps 2-4),
+    peak memory and a profiled step of a CT-CLIP training step."""
+    import torch
+
+    from ct_clip_tpu_torch.train import step_generators
+
+    dev = state.model.temperature.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(4):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(state, batch, step_generators(5 + i, dev))
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(step_ms[1:])
+    log(f"{label} step: batch {batch_size} x (13,824 tokens, 512 text tokens), full width, bf16: "
+        f"median {med:.2f} ms of steps 2-4 {[round(t, 2) for t in step_ms]} = "
+        f"{batch_size / med * 1e3:.3f} volumes/s; peak memory {peak_gb:.2f} GB; loss "
+        f"{m['loss'].item():.4f} on {card}")
+    breakdown = profile_step(lambda: step(state, batch, step_generators(9, dev)),
+                             groups or CTCLIP_GROUPS, label)
+    return dict(step_ms=med, step_ms_all=step_ms, volumes_per_s=batch_size / med * 1e3,
+                peak_gb=peak_gb, step_breakdown=breakdown)
+
+
+def ctclip_train_phase(dev, work: Path, card: str, corpus) -> dict:
     """`cli train` at full width, batch 8, 4 steps (mini evaluation and
     checkpoint at step 4), then the steady-state step time (CUDA events),
     peak memory and a profiled step."""
@@ -1275,7 +1403,7 @@ def ctclip_train_phase(dev, work: Path, card: str) -> dict:
 
     from ct_clip_tpu_torch import cli
 
-    train, valid, vocab = write_train_corpus(work)
+    train, valid, vocab = corpus
     results = work / "train_results"
     argv = ["--vocab", vocab, "--device", "cuda", "--seed", "0", "train",
             "--data-train", train[0], "--reports-train", train[1], "--meta-train", train[2],
@@ -1299,29 +1427,11 @@ def ctclip_train_phase(dev, work: Path, card: str) -> dict:
     shutil.rmtree(results / "checkpoints")
 
     batch = next(trainer._batches())
-    state, step = trainer.state, trainer.step_fn
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms, gen = [], torch.Generator(device=dev).manual_seed(5)
-    for _ in range(4):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        m = step(state, batch, gen)
-        end.record()
-        end.synchronize()
-        step_ms.append(start.elapsed_time(end))
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    med = statistics.median(step_ms[1:])
-    log(f"ctclip step: batch {TRAIN_B} x (13,824 tokens, 512 text tokens), full width, bf16: "
-        f"median {med:.2f} ms of steps 2-4 {[round(t, 2) for t in step_ms]} = "
-        f"{TRAIN_B / med * 1e3:.3f} volumes/s; peak memory {peak_gb:.2f} GB; loss "
-        f"{m['loss'].item():.4f} on {card}")
-    breakdown = profile_step(lambda: step(state, batch, gen), CTCLIP_GROUPS, "ctclip")
-    del trainer, state, batch
+    timed = timed_steps(trainer.step_fn, trainer.state, batch, card, "ctclip", TRAIN_B)
+    del trainer, batch
     torch.cuda.empty_cache()
     return dict(counts=counts, losses=losses, mini_eval_mean_auc=evals[0], cli_s=secs,
-                step_ms=med, step_ms_all=step_ms, volumes_per_s=TRAIN_B / med * 1e3,
-                peak_gb=peak_gb, step_breakdown=breakdown)
+                **timed)
 
 
 def tiny_ctclip_config():
@@ -1345,8 +1455,10 @@ TINY_LOSS_TOL = 2e-3
 TINY_GRAD_RATIO = 1.15
 TINY_ZERO_TOL = 1e-3  # x the largest gradient, parameters whose true gradient is zero
 TINY_UPDATE_TOL = 1e-2  # x lr, entries whose gradient is >= 0.2 of its tensor's max
-# parameters whose true gradient is zero (softmax shift invariance)
-ZERO_GRAD = ("attention.self.key.bias", "spatial_rel_pos_bias.net.2.bias")
+# parameters whose true gradient is zero: softmax shift invariance, and the
+# SimSiam predictor's first bias, which a BatchNorm cancels
+ZERO_GRAD = ("attention.self.key.bias", "spatial_rel_pos_bias.net.2.bias",
+             "visual_ssl.online_predictor.0.bias")
 
 
 def tiny_ctclip_inputs():
@@ -1362,11 +1474,13 @@ def tiny_ctclip_inputs():
 def tiny_ctclip_side(cfg, tcfg, start, inputs, device, dtype) -> dict:
     """From the state dict `start` on `device`, computing in `dtype`: the VQ
     ids, one forward/backward (the loss and every parameter's gradient),
-    then one `make_train_step` from `start`."""
+    then one `make_train_step` from `start`.  The MLM and augmentation draws
+    come from `step_generators`' host generators, so every side masks and
+    augments alike."""
     import torch
 
     from ct_clip_tpu_torch.models import CTCLIP
-    from ct_clip_tpu_torch.train import create_train_state, make_train_step
+    from ct_clip_tpu_torch.train import create_train_state, make_train_step, step_generators
 
     ids, mask, video = (t.to(device) for t in inputs)
     batch = dict(input_ids=ids, attention_mask=mask, video=video)
@@ -1379,20 +1493,27 @@ def tiny_ctclip_side(cfg, tcfg, start, inputs, device, dtype) -> dict:
     model.load_state_dict(start)  # the VQ call moved the codebook
     model.train()
     model.zero_grad()
-    loss = model(**batch, return_loss=True, train=True)
+    gens = step_generators(7, device)
+    loss = model(**batch, return_loss=True, train=True, mlm_generator=gens["mlm"],
+                 ssl_generator=gens["ssl"])
     loss.backward()
     grads = {n: p.grad.float().cpu().clone() for n, p in model.named_parameters()
              if p.grad is not None}
     model.load_state_dict(start)
-    m = make_train_step(tcfg)(state, batch)
+    m = make_train_step(tcfg)(state, batch, step_generators(7, device))
     return dict(loss=loss.item(), grads=grads, codes=codes, state=state, batch=batch,
                 metrics={k: v.item() for k, v in m.items()},
                 sd={k: v.float().cpu() for k, v in model.state_dict().items()})
 
 
-def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float):
+def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float,
+                       noise_aware_updates: bool = False):
     """(readings, failures) of a card side `g` against the CPU side `c`,
-    with the CPU's f32 side `c32` giving each gradient's bf16 noise."""
+    with the CPU's f32 side `c32` giving each gradient's bf16 noise.  With
+    `noise_aware_updates`, a tensor's update error on its large-gradient
+    entries is also held against the CPU's own bf16-vs-f32 update error on
+    those entries (TINY_GRAD_RATIO times it), for configurations whose bf16
+    gradients flip the sign of Adam's first step on the CPU already."""
     def l2_rel(a, b):
         return (a - b).norm().item() / max(b.norm().item(), 1e-30)
 
@@ -1409,15 +1530,23 @@ def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float):
     key = "visual_transformer.vq._codebook."
     cs_err = (g["sd"][key + "cluster_size"] - c["sd"][key + "cluster_size"]).abs().max().item()
     cb_err = (g["sd"][key + "embed"] - c["sd"][key + "embed"]).abs().max().item()
-    upd_err, upd_worst, upd_max = 0.0, "", 0.0
+    upd_err, upd_worst, upd_max, within_cpu_noise = 0.0, "", 0.0, []
     for n, ref in c["grads"].items():
         if not ref.numel() or n.endswith(ZERO_GRAD):
             continue
         diff = ((g["sd"][n] - start[n].float()) - (c["sd"][n] - start[n].float())).abs()
         big = ref.abs() >= 2e-1 * ref.abs().max()
-        if big.any() and diff[big].max().item() > upd_err:
-            upd_err, upd_worst = diff[big].max().item(), n
         upd_max = max(upd_max, diff.max().item())
+        if not big.any():
+            continue
+        err = diff[big].max().item()
+        if noise_aware_updates and err > TINY_UPDATE_TOL * lr:
+            own = (c["sd"][n] - c32["sd"][n]).abs()[big].max().item()
+            if err <= TINY_GRAD_RATIO * own:
+                within_cpu_noise.append([n, err / lr, own / lr])
+                continue
+        if err > upd_err:
+            upd_err, upd_worst = err, n
     res = dict(loss_rel=abs(g["loss"] - c["loss"]) / abs(c["loss"]),
                loss_rel_cpu_bf16_vs_f32=abs(c["loss"] - c32["loss"]) / abs(c32["loss"]),
                grad_ratio=worst[0][1][0], grad_worst=worst[0][0],
@@ -1426,7 +1555,8 @@ def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float):
                grad_l2_rel_max=max(r[1] for r in ratio.values()),
                zero_grads_over_top=zero, id_agreement=agree,
                cluster_size_abs=cs_err, codebook_abs=cb_err, update_err_over_lr=upd_err / lr,
-               update_worst=upd_worst, update_max_over_lr=upd_max / lr)
+               update_worst=upd_worst, update_max_over_lr=upd_max / lr,
+               updates_within_cpu_bf16_noise=within_cpu_noise)
     failures = [name for name, bad in (
         ("loss", res["loss_rel"] > TINY_LOSS_TOL),
         ("gradients", res["grad_ratio"] > TINY_GRAD_RATIO),
@@ -1448,8 +1578,11 @@ def _log_tiny(label: str, res: dict, failures) -> None:
         f"VQ ids equal {res['id_agreement']:.4f} (all); cluster sizes abs "
         f"{res['cluster_size_abs']:.2e} (tol 1e-6); codebook abs {res['codebook_abs']:.2e} "
         f"(tol 1e-2); update err {res['update_err_over_lr']:.2e} lr ({res['update_worst']}; "
-        f"tol {TINY_UPDATE_TOL} lr), every update within {res['update_max_over_lr']:.2e} lr "
-        f"(tol 2 lr); outside: {failures or 'none'}")
+        f"tol {TINY_UPDATE_TOL} lr; tensors whose update error is within "
+        f"{TINY_GRAD_RATIO}x the CPU's own bf16-f32 one, (tensor, err / lr, CPU's / lr): "
+        f"{[(n, round(e, 3), round(o, 3)) for n, e, o in res['updates_within_cpu_bf16_noise']]}"
+        f"), every update within {res['update_max_over_lr']:.2e} lr (tol 2 lr); outside: "
+        f"{failures or 'none'}")
 
 
 def planted_faults():
@@ -1483,70 +1616,84 @@ def planted_faults():
             "K15 dropping its fullest code": (K, "vq_cluster_stats", k15_drop_fullest)}
 
 
-def ctclip_train_reference_phase(dev, work: Path) -> dict:
-    """One training step of a tiny CT-CLIP (both dropouts 0, batch 4) from
-    the same weights on the card (kernels) and on the CPU (plain versions),
-    both bf16 compute with f32 parameters, lr 1e-3, and on the CPU in f32.
-    The two bf16 sides round at nearly the same points and sum in other
-    orders (the kernels keep P, dxn and the weight gradients in f32 where
-    the plain chain rounds them to bf16); at this random init every
+def tiny_step_check(dev, cfg, faults, label: str, noise_aware_updates: bool = False):
+    """One training step of the tiny CT-CLIP `cfg` (both dropouts 0, batch 4)
+    from the same weights on the card (kernels) and on the CPU (plain
+    versions), both bf16 compute with f32 parameters, lr 1e-3, and on the
+    CPU in f32.  The two bf16 sides round at nearly the same points and sum
+    in other orders (the kernels keep P, dxn and the weight gradients in f32
+    where the plain chain rounds them to bf16); at this random init every
     gradient of a bf16 step lies a few % from the f32 step's (LayerNorm,
     l2norm and the temperature's gradients are sums whose terms cancel).
     Held: the loss within TINY_LOSS_TOL relative; each gradient's L2
     distance card-CPU within TINY_GRAD_RATIO times the CPU's own bf16-f32
-    distance; the two parameters whose true gradient is zero within
+    distance; the parameters whose true gradient is zero within
     TINY_ZERO_TOL of the largest gradient; every VQ id (the codebook starts
     at the CPU's own tokens, so each id is a clear top-1), the cluster sizes
     within 1e-6 and the codebook after the EMA within 1e-2; the update of
     each entry whose gradient is above 2e-1 of its tensor's largest within
     TINY_UPDATE_TOL lr (Adam's first step is lr g / (|g| + eps), so a
     gradient's relative difference reaches the step only through eps),
-    every entry within 2 lr.  Then the same card step with each planted
-    fault (`planted_faults`) must fall outside these limits.  Last, a save
-    -> restore round trip on the card: the restored state and one more step
-    from it equal the original's."""
+    every entry within 2 lr (`noise_aware_updates`: see compare_tiny_steps).
+    Then the same card step with each planted fault (`faults`: name ->
+    (module, attribute, replacement)) must fall outside these limits.
+    Returns (readings, the card side, the start state, the train config)."""
     import contextlib
 
     import torch
 
     from ct_clip_tpu_torch.config import TrainConfig
     from ct_clip_tpu_torch.models import CTCLIP
-    from ct_clip_tpu_torch.train import CheckpointManager, create_train_state, make_train_step
 
-    cfg, lr = tiny_ctclip_config(), 1e-3
+    lr = 1e-3
     tcfg = TrainConfig(lr=lr)
     inputs = tiny_ctclip_inputs()
     bf, cpu_dev = torch.bfloat16, torch.device("cpu")
     cpu = CTCLIP(cfg, dtype=bf).init_weights(torch.Generator().manual_seed(8))
+    dim = cfg.ctvit.dim
     with torch.no_grad():  # codes at the tokens: every id a clear top-1 on both sides
         vt = cpu.visual_transformer
-        tokens = vt.encode(vt.embed_patches(inputs[2], train=True)).float().reshape(-1, 64)
+        tokens = vt.encode(vt.embed_patches(inputs[2], train=True)).float().reshape(-1, dim)
         vt.vq._codebook.embed[: tokens.shape[0]] = tokens / tokens.norm(dim=-1, keepdim=True)
     start = {k: v.clone() for k, v in cpu.state_dict().items()}
     c = tiny_ctclip_side(cfg, tcfg, start, inputs, cpu_dev, bf)
     c32 = tiny_ctclip_side(cfg, tcfg, start, inputs, cpu_dev, torch.float32)
     gp = tiny_ctclip_side(cfg, tcfg, start, inputs, dev, bf)
-    res, failures = compare_tiny_steps(c, c32, gp, start, lr)
-    _log_tiny("kernels as built", res, failures)
+    res, failures = compare_tiny_steps(c, c32, gp, start, lr, noise_aware_updates)
+    _log_tiny(f"{label}, kernels as built", res, failures)
     if failures:
-        raise AssertionError(f"tiny CT-CLIP training step: card and CPU disagree on "
+        raise AssertionError(f"tiny {label} training step: card and CPU disagree on "
                              f"{failures}: {res}")
     res.update(metrics_gpu=gp["metrics"], metrics_cpu=c["metrics"], faults={})
-    for name, (module, attr, broken) in planted_faults().items():
+    for name, (module, attr, broken) in faults.items():
         original = getattr(module, attr)
         with contextlib.ExitStack() as undo:
             setattr(module, attr, broken)
             undo.callback(setattr, module, attr, original)
             fres, ffail = compare_tiny_steps(
-                c, c32, tiny_ctclip_side(cfg, tcfg, start, inputs, dev, bf), start, lr)
-        _log_tiny(f"planted fault: {name}", fres, ffail)
+                c, c32, tiny_ctclip_side(cfg, tcfg, start, inputs, dev, bf), start, lr,
+                noise_aware_updates)
+        _log_tiny(f"{label}, planted fault: {name}", fres, ffail)
         if not ffail:
-            raise AssertionError(f"tiny CT-CLIP training step: planted fault '{name}' passes "
-                                 f"the limits: {fres}")
+            raise AssertionError(f"tiny {label} training step: planted fault '{name}' "
+                                 f"passes the limits: {fres}")
         res["faults"][name] = dict(outside=ffail, **{k: fres[k] for k in (
             "grad_ratio", "grad_worst", "grad_top", "cluster_size_abs", "codebook_abs",
             "update_err_over_lr")})
+    return res, gp, start, tcfg
 
+
+def ctclip_train_reference_phase(dev, work: Path) -> dict:
+    """`tiny_step_check` of the tiny CT-CLIP with the three planted faults of
+    `planted_faults`.  Last, a save -> restore round trip on the card: the
+    restored state and one more step from it equal the original's."""
+    import torch
+
+    from ct_clip_tpu_torch.models import CTCLIP
+    from ct_clip_tpu_torch.train import CheckpointManager, create_train_state, make_train_step
+
+    cfg = tiny_ctclip_config()
+    res, gp, start, tcfg = tiny_step_check(dev, cfg, planted_faults(), "CT-CLIP")
     # save -> restore on the card, then one more step on both
     st = gp["state"]
     mgr = CheckpointManager(str(work / "tiny_ckpt"))
@@ -1568,6 +1715,167 @@ def ctclip_train_reference_phase(dev, work: Path) -> dict:
         raise AssertionError("tiny CT-CLIP save -> restore round trip differs")
     res.update(resume_state_equal=same_state, resume_next_step_max_diff=resume_diff)
     return res
+
+
+# ---------------------------------------------------------------- phase 7
+# kernel-name fragments of an aux-objective step's groups (first match),
+# ahead of the CT-CLIP step's
+AUX_GROUPS = (
+    ("K16a LN(4000) backward through the patch gather (ln_bwd_kernel<true>)",
+     ("ln_bwd_kernel<true>",)),
+    ("K6/K17 rearrange (rearrange_kernel)", ("rearrange_kernel",)),
+    ("BatchNorm of the SSL heads", ("batch_norm",)),
+    # cuBLAS's f32 kernels; cuDNN's PEG kernels are also named "..._sgemm"
+    ("f32 products: SSL heads, MLM head (cuBLAS)", ("_f32f32_", "simt_sgemm")),
+) + CTCLIP_GROUPS
+
+
+def embed_grad_phase(dev) -> dict:
+    """The inference embeds under grad at full width, batch 1: on a volume
+    (K8, backward K16a and, the volume requiring grad, K17) and on its patch
+    rows (K4, backward K16b with d(rows)).  Each of the six to_patch_emb
+    weights must get a gradient within BWD_REL_TOL of the training
+    composition's (autograd of the plain LN-proj-LN, after K6 on the
+    volume), and the input a finite, nonzero one."""
+    import torch
+
+    from ct_clip_tpu_torch.config import CTViTConfig
+    from ct_clip_tpu_torch.models import CTViT
+    from ct_clip_tpu_torch.ops.patch_embed import rearrange_plain
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    vt = CTViT(CTViTConfig(), dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        for prm in vt.to_patch_emb.parameters():
+            prm.add_(0.1 * torch.randn(prm.shape, generator=g, device=dev))
+    video = (torch.rand((1, 240, 480, 480, 1), generator=g, device=dev) * 2 - 1).to(
+        torch.bfloat16)
+    inputs = {"volume": video, "rows": rearrange_plain(video[..., 0], 10, 20)}
+    dout = torch.randn((1, 24, 24, 24, 512), generator=g, device=dev).to(torch.bfloat16)
+
+    def grads(train: bool):
+        out = {}
+        for route, x in inputs.items():
+            x = x.detach().requires_grad_()
+            vt.zero_grad()
+            vt.embed_patches(x, train=train).backward(dout)
+            out[route] = (x.grad, [p.grad.clone() for p in vt.to_patch_emb.parameters()])
+        return out
+    got, counts, _ = drive("embed_grad", lambda: grads(False))
+    ref = grads(True)
+    res = {}
+    for route in inputs:
+        dx, dw = got[route]
+        errs = [(a - r).abs().max().item() / r.abs().max().item()
+                for a, r in zip(dw + [dx], ref[route][1] + [ref[route][0]])]
+        finite = torch_finite(dx) and dx.abs().max().item() > 0
+        res[route] = dict(weight_rel_err=max(errs[:-1]), input_rel_err=errs[-1],
+                          input_grad_finite_nonzero=finite)
+        log(f"embed under grad ({route}): six weight gradients within "
+            f"{max(errs[:-1]):.3e} of the training composition's, input gradient "
+            f"{errs[-1]:.3e} (tol {BWD_REL_TOL}), finite and nonzero {finite}")
+        if not finite or max(errs) > BWD_REL_TOL:
+            raise AssertionError(f"embed under grad ({route}): {res[route]}")
+    del vt, inputs, got, ref
+    torch.cuda.empty_cache()
+    return dict(counts=counts, **res)
+
+
+def aux_train_phase(dev, work: Path, card: str, corpus, base_counts) -> dict:
+    """`CTClipTrainer` at full width, batch AUX_B, on phase 6's corpus: (a)
+    visual SSL (SimSiam, temporal tap) with MLM, 3 steps, a mini evaluation
+    and a checkpoint at step 3; (b) FILIP (dim_image 512) with SimCLR on the
+    pooled tap, 2 steps.  Each run's counters must rise, the volumes must go
+    in as volumes, K13 must launch twice per layer and step with MLM (once
+    in phase 6's `base_counts`), K16a once per view and step and K6 once per
+    step; then the step time, peak memory and a profiled step."""
+    import torch
+
+    from ct_clip_tpu_torch.config import CTCLIPConfig, TrainConfig
+    from ct_clip_tpu_torch.data import CTReportDataset, CTReportDatasetInfer, WordPieceTokenizer
+    from ct_clip_tpu_torch.models import CTCLIP
+    from ct_clip_tpu_torch.train import CTClipTrainer
+
+    train, valid, vocab = corpus
+    tok = WordPieceTokenizer(vocab)
+    base_rate = base_counts["attention_dropout"] / 4  # phase 6: 4 steps
+    runs = {}
+    for name, kw, steps, evaluate in (
+            ("ctclip_aux_ssl_mlm", dict(use_visual_ssl=True, use_mlm=True), 3, True),
+            ("ctclip_aux_filip_simclr", dict(use_all_token_embeds=True, dim_image=512,
+                                             use_visual_ssl=True, visual_ssl_type="simclr",
+                                             visual_ssl_tap="pooled"), 2, False)):
+        cfg = CTCLIPConfig(**kw)
+        model = CTCLIP(cfg, dtype=torch.bfloat16, device=dev).init_weights(
+            torch.Generator(device=dev).manual_seed(0))
+        results = work / name
+        every = steps if evaluate else 10 ** 9
+        trainer = CTClipTrainer(
+            model, tok, train_dataset=CTReportDataset(*train[:3]),
+            valid_dataset=CTReportDatasetInfer(*valid) if evaluate else None,
+            config=TrainConfig(batch_size=AUX_B, save_results_every=every,
+                               save_model_every=every),
+            results_folder=str(results), num_workers=4)
+        if trainer.patch_rows:
+            raise AssertionError(f"{name}: visual SSL must ingest volumes, not patch rows")
+        _, counts, secs = drive(name, lambda: trainer.train(steps))
+        recs = [json.loads(x) for x in (results / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        evals = [r["mini_eval_mean_auc"] for r in recs if "mini_eval_mean_auc" in r]
+        ckpts = sorted(p.name for p in (results / "checkpoints").glob("*.pt"))
+        k13_rate = counts["attention_dropout"] / steps
+        want = dict(patch_embed_bwd=2 * steps, rearrange_patches=steps,
+                    attention_dropout=(2 if cfg.use_mlm else 1) * BERT_LAYERS * steps)
+        log(f"{name}: {steps} steps of {AUX_B} at full width in {secs:.1f} s (host clock: "
+            f"build, ingest, evaluation and checkpoint included); losses {losses}; grad norms "
+            f"{[round(r['grad_norm'], 4) for r in recs if 'loss' in r]}; mini-eval mean AUC "
+            f"{evals}; checkpoints {ckpts}; K13 launches per step {k13_rate} (phase 6: "
+            f"{base_rate})")
+        bad = [k for k, v in want.items() if counts[k] != v]
+        if len(losses) != steps or not np.isfinite(losses).all() or bad \
+                or (evaluate and (evals == [] or ckpts != [f"step_{steps}.pt"]
+                                  or not (results / f"mini_eval_step{steps}.csv").exists())) \
+                or k13_rate != (2 if cfg.use_mlm else 1) * base_rate:
+            raise AssertionError(f"{name}: losses {losses}, evals {evals}, ckpts {ckpts}, "
+                                 f"counters off {[(k, counts[k], want[k]) for k in bad]}")
+        shutil.rmtree(results / "checkpoints", ignore_errors=True)
+        batch = next(trainer._batches())
+        timed = timed_steps(trainer.step_fn, trainer.state, batch, card, name, AUX_B,
+                            AUX_GROUPS)
+        runs[name] = dict(counts=counts, losses=losses, mini_eval_mean_auc=evals,
+                          k13_launches_per_step=k13_rate, cli_s=secs, **timed)
+        del trainer, model, batch
+        torch.cuda.empty_cache()
+    return runs
+
+
+def tiny_aux_config():
+    """The tiny CT-CLIP with FILIP (dim_image = the CTViT width), MLM and
+    visual SSL (SimSiam, temporal tap) on, the auxiliary weights raised so
+    that their gradients carry weight in every tensor they reach.  With the
+    SSL heads' gradient in them, ten tensors' bf16 gradients lie ~20% (L2)
+    from the f32 ones on the CPU itself and flip the sign of some of Adam's
+    first steps there (a CPU reading), so this check holds the updates
+    against the CPU's own bf16-f32 updates (`noise_aware_updates`)."""
+    return tiny_ctclip_config().replace(
+        dim_image=64, use_all_token_embeds=True, use_mlm=True, use_visual_ssl=True,
+        text_ssl_loss_weight=0.3, image_ssl_loss_weight=0.5)
+
+
+def aux_planted_faults():
+    """K16a with its LN scale gradient dropped (zeros)."""
+    import importlib
+
+    import torch
+
+    pe = importlib.import_module("ct_clip_tpu_torch.ops.patch_embed")
+    k16a = pe._patch_embed_bwd_cuda
+
+    def k16a_no_ds1(*a, **kw):
+        g = list(k16a(*a, **kw))
+        g[1] = torch.zeros_like(g[1])
+        return tuple(g)
+    return {"K16a without ds1": (pe, "_patch_embed_bwd_cuda", k16a_no_ds1)}
 
 
 def main() -> int:
@@ -1605,9 +1913,19 @@ def main() -> int:
         counts.update(radbert.pop("counts"))
         ref_errs = small_reference_phase(dev, work)
         radbert_ref = radbert_reference_phase(dev, work)
-        ctclip = ctclip_train_phase(dev, work, card)
+        corpus = write_train_corpus(work)
+        ctclip = ctclip_train_phase(dev, work, card, corpus)
         counts["ctclip_train"] = ctclip.pop("counts")
         ctclip_ref = ctclip_train_reference_phase(dev, work)
+        results.update(train_kernel_phase(dev, embed_bwd_cases(dev), AUX_B))
+        embed_grad = embed_grad_phase(dev)
+        counts["embed_grad"] = embed_grad.pop("counts")
+        aux = aux_train_phase(dev, work, card, corpus, counts["ctclip_train"])
+        for name, run in aux.items():
+            counts[name] = run.pop("counts")
+        aux_ref, _, _, _ = tiny_step_check(dev, tiny_aux_config(), aux_planted_faults(),
+                                           "CT-CLIP with MLM, visual SSL and FILIP",
+                                           noise_aware_updates=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1626,7 +1944,9 @@ def main() -> int:
                               "tiny_card_vs_cpu_max_abs_diff": ref_errs,
                               "radbert": radbert, "radbert_tiny_card_vs_cpu": radbert_ref,
                               "ctclip_train": ctclip,
-                              "ctclip_train_tiny_card_vs_cpu": ctclip_ref}}),
+                              "ctclip_train_tiny_card_vs_cpu": ctclip_ref,
+                              "embed_grad": embed_grad, "ctclip_aux": aux,
+                              "ctclip_aux_tiny_card_vs_cpu": aux_ref}}),
           flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

@@ -4,9 +4,9 @@ The JAX package `ct_clip_tpu` is the reference; this package imports torch
 and never jax.  What runs so far is the zero-shot path (NIfTI loading,
 device preprocessing, the CTViT image tower, the BERT text tower and
 18-pathology scoring), export of latents, the RadBERT report classifier
-(training, inference, evaluation) and CT-CLIP contrastive pretraining, with
-the TPU kernels on those paths ported as hand-written CUDA kernels (csrc/,
-ops/kernels).
+(training, inference, evaluation) and CT-CLIP pretraining, contrastive and
+with the auxiliary objectives (visual SSL, MLM, FILIP), with the TPU kernels
+on those paths ported as hand-written CUDA kernels (csrc/, ops/kernels).
 """
 from .config import (PATHOLOGIES, BertConfig, CTCLIPConfig, CTViTConfig,
                      PreprocessConfig, RadBertConfig, TrainConfig)

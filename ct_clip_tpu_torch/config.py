@@ -115,12 +115,21 @@ class CTCLIPConfig(_Base):
     dim_text: int = 768
     dim_image: int = 294912  # 24*24*512 flattened post-temporal-pool grid
     dim_latent: int = 512
-    use_all_token_embeds: bool = False  # FILIP fine-grained loss (not ported)
+    use_all_token_embeds: bool = False  # FILIP fine-grained loss
+    text_has_cls_token: bool = False  # drop token 0 in FILIP mode (ct_clip.py:421,754)
+    visual_has_cls_token: bool = False  # (ct_clip.py:433,755)
     decoupled_contrastive_learning: bool = False  # DCL
     extra_latent_projection: bool = False  # CLOOB
-    use_mlm: bool = False  # text SSL (not ported)
+    use_mlm: bool = False  # text SSL
     text_ssl_loss_weight: float = 0.05
-    use_visual_ssl: bool = False  # image SSL (not ported)
+    use_visual_ssl: bool = False  # image SSL
+    visual_ssl_type: str = "simsiam"  # or "simclr" (ct_clip.py:516-528)
+    # NetWrapper hidden-layer tap equivalent (ct_clip.py:444 + visual_ssl.py
+    # :141-203): "temporal" = temporal-transformer token output (default),
+    # "spatial" = spatial-transformer token output, "pooled" = the temporal-
+    # mean pooled embedding.  Token taps flatten to (b*n, d) rows like the
+    # reference's NetWrapper flatten.
+    visual_ssl_tap: str = "temporal"
     image_ssl_loss_weight: float = 0.05
     multiview_loss_weight: float = 0.1
     temperature_init: float = 1.0

@@ -9,7 +9,11 @@ Dense kernels (in, out) become Linear weights (out, in), flax Conv kernels
 JAX tree does not hold are filled as the reference holds them: the zero
 `beta` buffers of the gamma-only LayerNorms, the empty `null_kv`, the VQ
 `initted` flag, and zero CLOOB `*_extra` projections when the JAX model was
-built without them.
+built without them.  The auxiliary heads are carried when the JAX model
+has them: `mlm.to_logits`, and the visual-SSL projector (fc0, bn0, fc1, bn1,
+out; the closing bn_out has no parameters) and SimSiam predictor (fc0, bn0,
+out) under the reference's nn.Sequential indices
+(`visual_ssl.net.projector.{0,1,3,4,6}`, `visual_ssl.online_predictor.{0,1,3}`).
 
 `state_dict_from_train_state` does it for the JAX pretraining TrainState
 (ct_clip_tpu/train/train_step.py): its `params` and `vq` collections, the
@@ -92,6 +96,22 @@ def _transformer(sd: Dict, p: Mapping, prefix: str, depth: int,
     _gamma(sd, f"{prefix}.norm_out", p["norm_out"]["gamma"])
 
 
+def _ssl_heads(sd: Dict, p: Mapping) -> None:
+    for key, tree, layers in (
+            ("visual_ssl.net.projector", p.get("projector"),
+             (("fc0", 0), ("bn0", 1), ("fc1", 3), ("bn1", 4), ("out", 6))),
+            ("visual_ssl.online_predictor", p.get("predictor"),
+             (("fc0", 0), ("bn0", 1), ("out", 3)))):
+        if tree is None:
+            continue
+        for name, idx in layers:
+            layer = tree[name]
+            if name.startswith("bn"):
+                _ln(sd, f"{key}.{idx}", layer["scale"], layer["bias"])
+            else:
+                _linear(sd, f"{key}.{idx}", layer, bias="bias" in layer)
+
+
 def state_dict_from_jax(variables: Mapping, cfg: CTCLIPConfig) -> Dict[str, torch.Tensor]:
     """JAX CTCLIP variables -> the port's CTCLIP state dict (f32 tensors)."""
     p, vc = variables["params"], cfg.ctvit
@@ -126,6 +146,10 @@ def state_dict_from_jax(variables: Mapping, cfg: CTCLIPConfig) -> Dict[str, torc
         else:
             sd[f"{name}.weight"] = torch.zeros(cfg.dim_latent, width)
     sd["temperature"] = _t(p["temperature"]).reshape(())
+    if "mlm" in p:
+        _linear(sd, "mlm.to_logits", p["mlm"]["to_logits"])
+    if "visual_ssl" in p:
+        _ssl_heads(sd, p["visual_ssl"])
     return sd
 
 

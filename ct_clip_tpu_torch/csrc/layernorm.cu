@@ -9,14 +9,21 @@
 //     bias;
 //   * ops/pallas/spatial_attention.py::_pallas_spatial (K1) and
 //     ops/pallas/small_attention.py::_pallas_small_qknorm (K2): the
-//     gamma-only LN that feeds the q projection.
+//     gamma-only LN that feeds the q projection;
+//   * and the LN backwards inside the training kernels: K11, K9, K10 and
+//     the embed backwards patchify.py::_pallas_patch_embed_bwd (K16a, the
+//     LN(4000) backward read through the patch gather, ct_patch_layernorm_bwd)
+//     and ::_pallas_row_embed_bwd (K16b), both with the LN(512) backward
+//     whose column sum of the f32 dx is the projection bias gradient.
 //
 // What bounds it on the H100: memory.  Each row is read once and written
 // once (the patch gather reads 20-element runs of 40 bytes); at batch 2 the
 // patch LN moves 27648 x 4000 x 2 B in and out (~0.44 GB, ~0.13 ms at
 // 3.35 TB/s).  One block of 256 threads per row keeps the row in registers
 // (up to 16 values a thread, so D <= 4096) and computes mean and variance in
-// two passes, as ct_clip_tpu/ops/norms.py::layer_norm does.
+// two passes, as ct_clip_tpu/ops/norms.py::layer_norm does.  The backward
+// walks 64 rows per block and writes each block's column sums as one row of
+// a partial buffer, which ct_sum_splits adds in order: no atomics.
 #include "common.cuh"
 
 namespace {
@@ -39,8 +46,25 @@ struct PatchGeom {
   int F, H, W, pt, p, t, h, w;
 };
 
-// GATHER: row = ((b*t + ti)*h + hi)*w + wi, element e = (z*p + p1)*p + p2
-// of video[b, ti*pt + z, hi*p + p1, wi*p + p2]; else x[row*D + e].
+// The patch gather: row = ((b*t + ti)*h + hi)*w + wi, element
+// e = (z*p + p1)*p + p2 of video[b, ti*pt + z, hi*p + p1, wi*p + p2] lies at
+// patch_row_base(row) + patch_elem_offset(e).
+__device__ __forceinline__ size_t patch_row_base(const PatchGeom& g, size_t row) {
+  const int wi = (int)(row % g.w);
+  row /= g.w;
+  const int hi = (int)(row % g.h);
+  row /= g.h;
+  const int ti = (int)(row % g.t);
+  const size_t bb = row / g.t;
+  return ((bb * g.F + (size_t)ti * g.pt) * g.H + (size_t)hi * g.p) * g.W + (size_t)wi * g.p;
+}
+
+__device__ __forceinline__ int patch_elem_offset(const PatchGeom& g, int e) {
+  const int p2 = e % g.p, p1 = (e / g.p) % g.p, z = e / (g.p * g.p);
+  return (z * g.H + p1) * g.W + p2;
+}
+
+// GATHER: row `row` of the patch rows of the video x; else x[row*D + e].
 template <bool GATHER>
 __global__ void __launch_bounds__(LN_THREADS)
 ln_kernel(const bf16* __restrict__ x, int D, const float* __restrict__ scale,
@@ -48,29 +72,14 @@ ln_kernel(const bf16* __restrict__ x, int D, const float* __restrict__ scale,
   __shared__ float red[LN_THREADS / 32];
   const size_t row = blockIdx.x;
   float vals[LN_PER];
-  size_t base = row * (size_t)D;
-  int bb = 0, ti = 0, hi = 0, wi = 0;
-  if (GATHER) {
-    size_t rr = row;
-    wi = rr % g.w; rr /= g.w;
-    hi = rr % g.h; rr /= g.h;
-    ti = rr % g.t; bb = (int)(rr / g.t);
-  }
+  const size_t base = row * (size_t)D;
+  const size_t src = GATHER ? patch_row_base(g, row) : base;
   float s = 0.0f;
 #pragma unroll
   for (int i = 0; i < LN_PER; ++i) {
     const int e = threadIdx.x + i * LN_THREADS;
     float v = 0.0f;
-    if (e < D) {
-      if (GATHER) {
-        const int p2 = e % g.p, p1 = (e / g.p) % g.p, z = e / (g.p * g.p);
-        const size_t idx = (((size_t)bb * g.F + ti * g.pt + z) * g.H + hi * g.p + p1) * g.W
-                           + wi * g.p + p2;
-        v = bf2f(x[idx]);
-      } else {
-        v = bf2f(x[base + e]);
-      }
-    }
+    if (e < D) v = bf2f(x[src + (GATHER ? patch_elem_offset(g, e) : e)]);
     vals[i] = v;
     s += v;
   }
@@ -101,31 +110,42 @@ ln_kernel(const bf16* __restrict__ x, int D, const float* __restrict__ scale,
 // ffn.py::_bwd_kernel (:182-188) and spatial_attention.py::_bwd_kernel
 // (:220-226) compute it in f32: recompute xhat from x, then
 //   dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) + add + add2,
-// dxhat = dxn * scale, and this block's column sums of dxn * xhat (dscale)
-// and of dxn (dbias) into row `blockIdx.x` of the partial buffers, which
-// ct_sum_splits adds in block order.
+// dxhat = dxn * scale, and this block's column sums of dxn * xhat (dscale),
+// of dxn (dbias) and of the f32 dx (part_dxs) into row `blockIdx.x` of the
+// partial buffers, which ct_sum_splits adds in block order.  dx, part_db and
+// part_dxs may be null.
+//
+// GATHER reads x through the patch gather of the video (K16a's LN(4000)
+// backward, patchify.py::_embed_bwd_kernel :278-308): xhat is recomputed
+// from the volume, so no patch tensor is stored, and dx, when asked for,
+// is written as contiguous patch rows for K17.
+template <bool GATHER>
 __global__ void __launch_bounds__(LN_THREADS)
 ln_bwd_kernel(const bf16* __restrict__ x, int rows, int D, const float* __restrict__ scale,
               const float* __restrict__ dxn, const float* __restrict__ add,
               const bf16* __restrict__ add2, float eps, bf16* __restrict__ dx,
-              float* __restrict__ part_ds, float* __restrict__ part_db, int rows_per_block) {
+              float* __restrict__ part_ds, float* __restrict__ part_db,
+              float* __restrict__ part_dxs, int rows_per_block, PatchGeom pg) {
   __shared__ float red[LN_THREADS / 32];
-  float ds[LN_PER], db[LN_PER], sc[LN_PER];
+  float ds[LN_PER], db[LN_PER], dxs[LN_PER], sc[LN_PER];
+  int off[LN_PER];
 #pragma unroll
   for (int i = 0; i < LN_PER; ++i) {
     const int e = threadIdx.x + i * LN_THREADS;
-    ds[i] = db[i] = 0.0f;
+    ds[i] = db[i] = dxs[i] = 0.0f;
     sc[i] = (e < D && scale) ? scale[e] : 1.0f;
+    off[i] = (GATHER && e < D) ? patch_elem_offset(pg, e) : e;
   }
   const int r0 = blockIdx.x * rows_per_block, r1 = min(rows, r0 + rows_per_block);
   for (int row = r0; row < r1; ++row) {
     const size_t base = (size_t)row * D;
+    const size_t src = GATHER ? patch_row_base(pg, row) : base;
     float xv[LN_PER], g[LN_PER];
     float s = 0.0f;
 #pragma unroll
     for (int i = 0; i < LN_PER; ++i) {
       const int e = threadIdx.x + i * LN_THREADS;
-      xv[i] = e < D ? bf2f(x[base + e]) : 0.0f;
+      xv[i] = e < D ? bf2f(x[src + off[i]]) : 0.0f;
       g[i] = e < D ? dxn[base + e] : 0.0f;
       s += xv[i];
     }
@@ -161,7 +181,8 @@ ln_bwd_kernel(const bf16* __restrict__ x, int rows, int D, const float* __restri
         float v = rstd * (g[i] * sc[i] - m1 - xv[i] * m2);
         if (add) v += add[base + e];
         if (add2) v += bf2f(add2[base + e]);
-        dx[base + e] = f2bf(v);
+        dxs[i] += v;
+        if (dx) dx[base + e] = f2bf(v);
       }
     }
   }
@@ -171,28 +192,54 @@ ln_bwd_kernel(const bf16* __restrict__ x, int rows, int D, const float* __restri
     if (e < D) {
       part_ds[(size_t)blockIdx.x * D + e] = ds[i];
       if (part_db) part_db[(size_t)blockIdx.x * D + e] = db[i];
+      if (part_dxs) part_dxs[(size_t)blockIdx.x * D + e] = dxs[i];
     }
   }
+}
+
+int launch_ln_bwd(bool gather, const void* x, int rows, int D, const void* scale,
+                  const void* dxn, const void* add, const void* add2, float eps, void* dx,
+                  void* part_ds, void* part_db, void* part_dxs, int rows_per_block,
+                  const PatchGeom& g, void* stream) {
+  if (D > LN_THREADS * LN_PER || rows_per_block < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
+  auto kernel = gather ? ln_bwd_kernel<true> : ln_bwd_kernel<false>;
+  kernel<<<blocks, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), rows, D, static_cast<const float*>(scale),
+      static_cast<const float*>(dxn), static_cast<const float*>(add),
+      static_cast<const bf16*>(add2), eps, static_cast<bf16*>(dx),
+      static_cast<float*>(part_ds), static_cast<float*>(part_db),
+      static_cast<float*>(part_dxs), rows_per_block, g);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x (rows, D) bf16, dxn (rows, D) f32 -> dx (rows, D) bf16 and the partial
-// column sums (ceil(rows / rows_per_block), D) f32 of dxn * xhat and of dxn
-// (part_db may be null).  scale (D,) f32 or null; add (rows, D) f32 and add2
-// (rows, D) bf16 are added to dx when not null.
+// column sums (ceil(rows / rows_per_block), D) f32 of dxn * xhat, of dxn and
+// of the f32 dx (dx, part_db and part_dxs may be null).  scale (D,) f32 or
+// null; add (rows, D) f32 and add2 (rows, D) bf16 are added to dx when not
+// null.
 CT_EXPORT int ct_layernorm_bwd(const void* x, int rows, int D, const void* scale,
                                const void* dxn, const void* add, const void* add2, float eps,
-                               void* dx, void* part_ds, void* part_db, int rows_per_block,
-                               void* stream) {
-  if (D > LN_THREADS * LN_PER || rows_per_block < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  ln_bwd_kernel<<<blocks, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), rows, D, static_cast<const float*>(scale),
-      static_cast<const float*>(dxn), static_cast<const float*>(add),
-      static_cast<const bf16*>(add2), eps, static_cast<bf16*>(dx),
-      static_cast<float*>(part_ds), static_cast<float*>(part_db), rows_per_block);
-  return (int)cudaGetLastError();
+                               void* dx, void* part_ds, void* part_db, void* part_dxs,
+                               int rows_per_block, void* stream) {
+  const PatchGeom g = {0, 0, 0, 0, 0, 0, 0, 0};
+  return launch_ln_bwd(false, x, rows, D, scale, dxn, add, add2, eps, dx, part_ds, part_db,
+                       part_dxs, rows_per_block, g, stream);
+}
+
+// The LN(pt*p*p) backward over the patch rows of the video (B, F, H, W) bf16,
+// read through the patch gather: dxn (B*t*h*w, pt*p*p) f32 -> dx as patch
+// rows bf16 (or null) and the partial column sums of dxn * xhat and of dxn.
+CT_EXPORT int ct_patch_layernorm_bwd(const void* video, int B, int F, int H, int W, int pt,
+                                     int p, const void* scale, const void* dxn, float eps,
+                                     void* dx, void* part_ds, void* part_db,
+                                     int rows_per_block, void* stream) {
+  if (pt <= 0 || p <= 0 || F % pt || H % p || W % p) return (int)cudaErrorInvalidValue;
+  const PatchGeom g = {F, H, W, pt, p, F / pt, H / p, W / p};
+  return launch_ln_bwd(true, video, B * g.t * g.h * g.w, pt * p * p, scale, dxn, nullptr,
+                       nullptr, eps, dx, part_ds, part_db, nullptr, rows_per_block, g, stream);
 }
 
 // x (rows, D) bf16 -> out (rows, D) bf16; scale/bias f32 (D,) or null.

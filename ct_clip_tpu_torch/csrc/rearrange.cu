@@ -1,23 +1,29 @@
-// rearrange.cu — (B, F, H, W) volume -> (B, t*h*w, pt*p*p) patch rows in
+// rearrange.cu — (B, F, H, W) volume <-> (B, t*h*w, pt*p*p) patch rows in
 // (pt, p1, p2) order: the '(c pt p1 p2)' patchify of CTViT's to_patch_emb as
-// a pure move, written into a caller's view (one slot of a batch buffer).
+// a pure move (K6), written into a caller's view (one slot of a batch
+// buffer), and its inverse (K17), the move back.
 //
 // Replaces ct_clip_tpu/ops/pallas/patchify.py::_pallas_rearrange (K6), the
 // forward of rearrange_patches, which the patch-row ingest runs as its last
-// stage (ops/resample.py::preprocess_rows_into).
+// stage (ops/resample.py::preprocess_rows_into) and the volume training
+// embed runs on the batch, and ::_pallas_unrearrange (K17), its VJP, which
+// moves a patch-row gradient back onto the volume.  The TPU runs K17 in f32
+// (a Mosaic shape cast needs 32-bit types); here it moves bf16 untouched.
 //
-// What bounds it on the H100: memory.  Each voxel is read once and written
+// What bounds them on the H100: memory.  Each voxel is read once and written
 // once: 2 x 110.6 MB for a full-width bf16 volume (240 x 480 x 480), about
-// 0.066 ms at 3.35 TB/s.  In patch order an output row (4000 values, 8000 B)
+// 0.066 ms at 3.35 TB/s.  In patch order a row (4000 values, 8000 B)
 // gathers pt*p = 200 runs of p = 20 voxels (40 B, only 8-byte aligned) from
 // ten frames, so a thread per element loses coalescing on one side.  Here a
 // block owns one (b, ti, hi, z) slab instead: rows hi*p .. hi*p+p-1 of frame
-// ti*pt+z, which are p*W contiguous voxels (19.2 KB at full width).  It reads
-// the slab into shared memory with 16-byte loads, then writes the slab's part
-// of the w patch rows of (b, ti, hi): one contiguous run of p*p values (800 B)
-// at column z*p*p of each row, with 16-byte stores whose 8 values it gathers
-// from shared memory.  Geometries that break 16-byte alignment take the same
-// kernel with 2-byte accesses.
+// ti*pt+z, which are p*W contiguous voxels (19.2 KB at full width).  K6
+// reads the slab into shared memory with 16-byte loads, then writes the
+// slab's part of the w patch rows of (b, ti, hi): one contiguous run of p*p
+// values (800 B) at column z*p*p of each row, with 16-byte stores whose 8
+// values it gathers from shared memory.  K17 runs the same two stages the
+// other way: 16-byte loads of the rows' runs scattered into the slab, then
+// 16-byte stores of the slab.  Geometries that break 16-byte alignment take
+// the same kernels with 2-byte accesses.
 #include "common.cuh"
 
 namespace {
@@ -26,7 +32,7 @@ constexpr int RA_THREADS = 256;
 
 struct RowsGeom {
   int F, H, W, pt, p, t, h, w;
-  long long out_batch_stride, out_row_stride;  // in elements
+  long long batch_stride, row_stride;  // of the patch rows, in elements
 };
 
 template <int VEC>
@@ -40,9 +46,11 @@ struct VecOf<8> {
   typedef uint4 type;
 };
 
-template <int VEC>
+// One block per (b, ti, hi, z) slab.  INVERSE false: volume -> rows (K6);
+// true: rows -> volume (K17).
+template <int VEC, bool INVERSE>
 __global__ void __launch_bounds__(RA_THREADS)
-rearrange_kernel(const bf16* __restrict__ video, bf16* __restrict__ out, RowsGeom g) {
+rearrange_kernel(const bf16* __restrict__ in, bf16* __restrict__ out, RowsGeom g) {
   typedef typename VecOf<VEC>::type V;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* slab = reinterpret_cast<bf16*>(smem_raw);
@@ -54,43 +62,66 @@ rearrange_kernel(const bf16* __restrict__ video, bf16* __restrict__ out, RowsGeo
   const long long b = idx / g.t;
 
   const int n_slab = g.p * g.W;
-  const bf16* src = video + ((b * g.F + (long long)ti * g.pt + z) * g.H + (long long)hi * g.p) * g.W;
-  const V* src_v = reinterpret_cast<const V*>(src);
+  const long long vol_off = ((b * g.F + (long long)ti * g.pt + z) * g.H + (long long)hi * g.p) * g.W;
   V* slab_v = reinterpret_cast<V*>(slab);
-  for (int i = threadIdx.x; i < n_slab / VEC; i += RA_THREADS) slab_v[i] = src_v[i];
-  __syncthreads();
-
   const int pp = g.p * g.p;
-  const int segs = pp / VEC;  // stores per output row
-  bf16* dst = out + b * g.out_batch_stride + (long long)z * pp;
+  const int segs = pp / VEC;  // vector accesses per patch row
+  const long long rows_off = b * g.batch_stride + (long long)z * pp;
   const long long row0 = ((long long)ti * g.h + hi) * g.w;
+
+  if (!INVERSE) {
+    const V* src_v = reinterpret_cast<const V*>(in + vol_off);
+    for (int i = threadIdx.x; i < n_slab / VEC; i += RA_THREADS) slab_v[i] = src_v[i];
+    __syncthreads();
+  }
   for (int j = threadIdx.x; j < g.w * segs; j += RA_THREADS) {
     const int wi = j / segs;
     const int e0 = (j - wi * segs) * VEC;
+    const long long at = rows_off + (row0 + wi) * g.row_stride + e0;
     V v;
     bf16* ve = reinterpret_cast<bf16*>(&v);
+    if (INVERSE) v = *reinterpret_cast<const V*>(in + at);
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
       const int e = e0 + k;
       const int p1 = e / g.p, p2 = e - p1 * g.p;
-      ve[k] = slab[p1 * g.W + wi * g.p + p2];
+      bf16& s = slab[p1 * g.W + wi * g.p + p2];
+      if (INVERSE) s = ve[k];
+      else ve[k] = s;
     }
-    *reinterpret_cast<V*>(dst + (row0 + wi) * g.out_row_stride + e0) = v;
+    if (!INVERSE) *reinterpret_cast<V*>(out + at) = v;
+  }
+  if (INVERSE) {
+    __syncthreads();
+    V* dst_v = reinterpret_cast<V*>(out + vol_off);
+    for (int i = threadIdx.x; i < n_slab / VEC; i += RA_THREADS) dst_v[i] = slab_v[i];
   }
 }
 
-template <int VEC>
-int launch_rearrange(const bf16* video, bf16* out, const RowsGeom& g, int B, cudaStream_t stream) {
+template <int VEC, bool INVERSE>
+int launch_rearrange(const bf16* in, bf16* out, const RowsGeom& g, int B, cudaStream_t stream) {
   const size_t smem = (size_t)g.p * g.W * sizeof(bf16);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        rearrange_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        rearrange_kernel<VEC, INVERSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const long long blocks = (long long)B * g.t * g.h * g.pt;
   if (blocks <= 0 || blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  rearrange_kernel<VEC><<<(unsigned)blocks, RA_THREADS, smem, stream>>>(video, out, g);
+  rearrange_kernel<VEC, INVERSE><<<(unsigned)blocks, RA_THREADS, smem, stream>>>(in, out, g);
   return (int)cudaGetLastError();
+}
+
+template <bool INVERSE>
+int rearrange(const void* in, void* out, int B, int F, int H, int W, int pt, int p,
+              long long batch_stride, long long row_stride, int vec, void* stream) {
+  if (pt <= 0 || p <= 0 || F % pt || H % p || W % p) return (int)cudaErrorInvalidValue;
+  const RowsGeom g = {F, H, W, pt, p, F / pt, H / p, W / p, batch_stride, row_stride};
+  const bf16* i = static_cast<const bf16*>(in);
+  bf16* o = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec ? launch_rearrange<8, INVERSE>(i, o, g, B, s)
+             : launch_rearrange<1, INVERSE>(i, o, g, B, s);
 }
 
 }  // namespace
@@ -102,10 +133,16 @@ int launch_rearrange(const bf16* video, bf16* out, const RowsGeom& g, int B, cud
 CT_EXPORT int ct_rearrange_patches(const void* video, int B, int F, int H, int W, int pt, int p,
                                    void* out, long long out_batch_stride,
                                    long long out_row_stride, int vec, void* stream) {
-  if (pt <= 0 || p <= 0 || F % pt || H % p || W % p) return (int)cudaErrorInvalidValue;
-  const RowsGeom g = {F, H, W, pt, p, F / pt, H / p, W / p, out_batch_stride, out_row_stride};
-  const bf16* v = static_cast<const bf16*>(video);
-  bf16* o = static_cast<bf16*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? launch_rearrange<8>(v, o, g, B, s) : launch_rearrange<1>(v, o, g, B, s);
+  return rearrange<false>(video, out, B, F, H, W, pt, p, out_batch_stride, out_row_stride, vec,
+                          stream);
+}
+
+// The inverse: rows[b, row, e] at b*rows_batch_stride + row*rows_row_stride + e
+// -> video (B, F, H, W) bf16, contiguous, every voxel written once; the same
+// conditions for vec.
+CT_EXPORT int ct_unrearrange_patches(const void* rows, long long rows_batch_stride,
+                                     long long rows_row_stride, int B, int F, int H, int W,
+                                     int pt, int p, void* video, int vec, void* stream) {
+  return rearrange<true>(rows, video, B, F, H, W, pt, p, rows_batch_stride, rows_row_stride,
+                         vec, stream);
 }

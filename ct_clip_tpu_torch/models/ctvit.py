@@ -12,12 +12,15 @@ package.  The temporal stage always runs in the native
 full width); its PEG reproduces the reference's memory reinterpretation
 (ctvit.py:299-303) with the rotated kernel.
 
-With `train=True` (the pretraining step) the embedding is the plain autograd
-composition LN -> projection -> LN (`row_embed_plain`, the JAX package's
-`row_embed_train` and `_xla_patch_embed`: K4 and K8 have no backward on this
-path), the CPB bias is computed with its gradient, the sublayers take their
+With `train=True` (the pretraining step) the embedding is the JAX package's
+training composition: on patch rows `row_embed_train`, on a volume
+`_xla_patch_embed`, i.e. K6 (`rearrange_patches`, whose backward is K17)
+followed by the plain autograd LN -> projection -> LN (`row_embed_plain`);
+the CPB bias is computed with its gradient, the sublayers take their
 kernels' backwards (K14, K9, K10, K11) and the VQ its training mode (exact
-assignment, K15 EMA statistics).
+assignment, K15 EMA statistics).  With `train=False` the embeds are K8 and
+K4, differentiable through K16a and K16b: the visual-SSL tap embeds its
+augmented views that way under grad, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ from torch import nn
 
 from ..config import CTViTConfig
 from ..ops.attention import ContinuousPositionBias, MaskgitTransformer
-from ..ops.patch_embed import (fused_patch_embed, fused_row_embed, patchify,
-                               row_embed_plain)
+from ..ops.patch_embed import (fused_patch_embed, fused_row_embed,
+                               rearrange_patches, row_embed_plain)
 from ..ops.vq import CosineVQ
 
 
@@ -61,7 +64,7 @@ class CTViT(nn.Module):
     def embed_patches(self, video: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(b, f, H, W, 1) volume (K8) or (b, t*h*w, patch_dim) patch rows
         (K4) -> (b, t, h, w, dim) in the compute dtype; train=True takes the
-        differentiable plain composition instead."""
+        training composition instead (module docstring)."""
         cfg = self.config
         pt, p = cfg.temporal_patch_size, cfg.patch_size
         t, h = cfg.patch_t, cfg.patch_hw
@@ -79,7 +82,7 @@ class CTViT(nn.Module):
         b, f, H, W, _ = video.shape
         vol = video[..., 0].to(self.dtype)
         if train:
-            tokens = row_embed_plain(patchify(vol, pt, p), *weights, ln1.eps)
+            tokens = row_embed_plain(rearrange_patches(vol, pt, p), *weights, ln1.eps)
         else:
             tokens = fused_patch_embed(vol, *weights, pt, p, ln1.eps)
         return tokens.reshape(b, f // pt, H // p, W // p, cfg.dim)

@@ -55,6 +55,9 @@ KERNELS = (
     "peg_bwd",             # K14 peg.py::_pallas_peg_bwd
     "vq_cluster_stats",    # K15 vq.py::pallas_cluster_stats
     "vq_assign_exact",     # K5 vq.py::pallas_assign(exact=True)
+    "patch_embed_bwd",     # K16a patchify.py::_pallas_patch_embed_bwd
+    "row_embed_bwd",       # K16b patchify.py::_pallas_row_embed_bwd
+    "unrearrange_patches",  # K17 patchify.py::_pallas_unrearrange
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -154,6 +157,7 @@ def _declare(lib) -> None:
     lib.ct_attention.argtypes = [p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll,
                                  i, i, i, i, i, p, p, p, i, p]
     lib.ct_rearrange_patches.argtypes = [p, i, i, i, i, i, i, p, ll, ll, i, p]
+    lib.ct_unrearrange_patches.argtypes = [p, ll, ll, i, i, i, i, i, i, p, i, p]
     lp, u = ctypes.POINTER(ll), ctypes.c_uint
     lib.ct_attn_train_fwd.argtypes = [i, p, p, p, p, lp, p, p, p, u, f,
                                       i, i, i, i, p]
@@ -163,7 +167,8 @@ def _declare(lib) -> None:
     lib.ct_gemm_layout.argtypes = [i, i, p, i, p, i, i, i, i, i, p, i, ll, i, p]
     lib.ct_sum_splits.argtypes = [p, i, ll, p, p]
     lib.ct_ff_bwd.argtypes = [p, p, i, p, p, p, i, i, i, i, p, i, p, i, i, p]
-    lib.ct_layernorm_bwd.argtypes = [p, i, i, p, p, p, p, f, p, p, p, i, p]
+    lib.ct_layernorm_bwd.argtypes = [p, i, i, p, p, p, p, f, p, p, p, p, i, p]
+    lib.ct_patch_layernorm_bwd.argtypes = [p, i, i, i, i, i, i, p, p, f, p, p, p, i, p]
     lib.ct_qk_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, ll, ll, ll, ll,
                                         ll, ll, ll, ll, i, i, i, i, i, i, p, p,
                                         p, p, p, p, p, i, p]
@@ -176,7 +181,8 @@ def _declare(lib) -> None:
                  "ct_attn_train_fwd", "ct_attn_train_bwd", "ct_gemm_argmax2",
                  "ct_gemm_layout", "ct_sum_splits", "ct_ff_bwd",
                  "ct_layernorm_bwd", "ct_qk_attention_bwd", "ct_peg_dw",
-                 "ct_vq_cluster_stats"):
+                 "ct_vq_cluster_stats", "ct_unrearrange_patches",
+                 "ct_patch_layernorm_bwd"):
         getattr(lib, name).restype = ctypes.c_int
 
 
@@ -406,11 +412,14 @@ LN_BWD_ROWS = 64  # rows per block of the LayerNorm backward
 
 def layernorm_bwd(x: torch.Tensor, scale: Optional[torch.Tensor], dxn: torch.Tensor,
                   eps: float, add: Optional[torch.Tensor] = None,
-                  add2: Optional[torch.Tensor] = None, want_dbias: bool = False):
+                  add2: Optional[torch.Tensor] = None, want_dbias: bool = False,
+                  want_dx: bool = True, want_dxsum: bool = False):
     """Backward of the row LN of x (rows, D) bf16 given dxn = dL/dLN(x) f32:
-    dx (bf16, plus `add` f32 and `add2` bf16 when given), dscale = sum of
-    dxn * xhat and, with want_dbias, dbias = sum of dxn, both f32
-    (layernorm.cu; column sums added over row blocks in order)."""
+    dx (bf16, plus `add` f32 and `add2` bf16 when given; None without
+    want_dx), dscale = sum of dxn * xhat and, with want_dbias, dbias = sum
+    of dxn, both f32 (layernorm.cu; column sums added over row blocks in
+    order).  With want_dxsum a fourth result: the column sum of the f32 dx
+    before its rounding to bf16."""
     require(x, "x", torch.bfloat16, 2)
     require(dxn, "dxn", torch.float32, 2)
     rows, D = x.shape
@@ -423,14 +432,42 @@ def layernorm_bwd(x: torch.Tensor, scale: Optional[torch.Tensor], dxn: torch.Ten
                 raise ValueError(f"layernorm_bwd: {name} must match x")
     scale = _f32_vector(scale, D, "scale")
     blocks = -(-rows // LN_BWD_ROWS)
-    dx = torch.empty_like(x)
+    dx = torch.empty_like(x) if want_dx else None
     part_ds = torch.empty((blocks, D), dtype=torch.float32, device=x.device)
     part_db = torch.empty_like(part_ds) if want_dbias else None
+    part_dxs = torch.empty_like(part_ds) if want_dxsum else None
     err = library().ct_layernorm_bwd(_ptr(x), rows, D, _ptr(scale), _ptr(dxn), _ptr(add),
                                      _ptr(add2), float(eps), _ptr(dx), _ptr(part_ds),
-                                     _ptr(part_db), LN_BWD_ROWS, _stream())
+                                     _ptr(part_db), _ptr(part_dxs), LN_BWD_ROWS, _stream())
     _check(err, "ct_layernorm_bwd")
-    return dx, sum_splits(part_ds), None if part_db is None else sum_splits(part_db)
+    out = (dx, sum_splits(part_ds), None if part_db is None else sum_splits(part_db))
+    return out + (sum_splits(part_dxs),) if want_dxsum else out
+
+
+def patch_layernorm_bwd(video: torch.Tensor, pt: int, p: int, scale: torch.Tensor,
+                        dxn: torch.Tensor, eps: float, want_dx: bool = False):
+    """Backward of `patch_layernorm` given dxn (B*t*h*w, pt*p*p) f32: dx as
+    patch rows bf16 (None without want_dx), dscale and dbias f32
+    (layernorm.cu; xhat recomputed through the patch gather, column sums
+    added over row blocks in order)."""
+    require(video, "video", torch.bfloat16, 4)
+    require(dxn, "dxn", torch.float32, 2)
+    B, F, H, W = video.shape
+    D = pt * p * p
+    rows = B * (F // pt) * (H // p) * (W // p)
+    if F % pt or H % p or W % p or D > 4096 or tuple(dxn.shape) != (rows, D):
+        raise ValueError(f"patch_layernorm_bwd: video {tuple(video.shape)} vs {pt}x{p}x{p}, "
+                         f"dxn {tuple(dxn.shape)}")
+    scale = _f32_vector(scale, D, "scale")
+    blocks = -(-rows // LN_BWD_ROWS)
+    dx = torch.empty((rows, D), dtype=torch.bfloat16, device=video.device) if want_dx else None
+    part_ds = torch.empty((blocks, D), dtype=torch.float32, device=video.device)
+    part_db = torch.empty_like(part_ds)
+    err = library().ct_patch_layernorm_bwd(_ptr(video), B, F, H, W, pt, p, _ptr(scale),
+                                           _ptr(dxn), float(eps), _ptr(dx), _ptr(part_ds),
+                                           _ptr(part_db), LN_BWD_ROWS, _stream())
+    _check(err, "ct_patch_layernorm_bwd")
+    return dx, sum_splits(part_ds), sum_splits(part_db)
 
 
 def patch_layernorm(video: torch.Tensor, pt: int, p: int,
@@ -475,6 +512,27 @@ def rearrange_patches(video: torch.Tensor, pt: int, p: int,
     err = library().ct_rearrange_patches(_ptr(video), B, F, H, W, pt, p,
                                          _ptr(out), sb, sr, int(vec), _stream())
     _check(err, "ct_rearrange_patches")
+    return out
+
+
+def unrearrange_patches(rows: torch.Tensor, pt: int, p: int,
+                        out: torch.Tensor) -> torch.Tensor:
+    """(B, t*h*w, pt*p*p) patch rows -> out (B, F, H, W), the inverse of
+    `rearrange_patches` (rearrange.cu)."""
+    bf = torch.bfloat16
+    require(rows, "rows", bf, 3)
+    require(out, "out", bf, 4)
+    B, F, H, W = out.shape
+    if F % pt or H % p or W % p:
+        raise ValueError(f"unrearrange_patches: {tuple(out.shape)} vs {pt}x{p}x{p}")
+    n, pd = (F // pt) * (H // p) * (W // p), pt * p * p
+    if tuple(rows.shape) != (B, n, pd):
+        raise ValueError(f"unrearrange_patches: rows {tuple(rows.shape)} != {(B, n, pd)}")
+    vec = (W % 8 == 0 and (p * p) % 8 == 0 and pd % 8 == 0
+           and rows.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    err = library().ct_unrearrange_patches(_ptr(rows), n * pd, pd, B, F, H, W, pt, p,
+                                           _ptr(out), int(vec), _stream())
+    _check(err, "ct_unrearrange_patches")
     return out
 
 

@@ -1,6 +1,6 @@
 """Patch embedding: patchify -> LN(patch_dim) -> projection + bias -> LN(dim).
 
-Port of three TPU kernels of ct_clip_tpu/ops/pallas/patchify.py and their
+Port of five TPU kernels of ct_clip_tpu/ops/pallas/patchify.py and their
 plain twins.  The reference chain is CTViT's to_patch_emb
 (transformer_maskgit/ctvit.py:170-175): Rearrange to '(c pt p1 p2)' patch
 rows, LayerNorm(4000), Linear(4000, 512), LayerNorm(512).
@@ -8,15 +8,23 @@ rows, LayerNorm(4000), Linear(4000, 512), LayerNorm(512).
   * `fused_patch_embed` (K8) embeds a (b, F, H, W) volume.  On a CUDA tensor
     it runs as three hand-written launches: the patch gather fused with
     LN(4000) (csrc/layernorm.cu), the 4000x512 product with the bias epilogue
-    (csrc/gemm.cu) and LN(512).
-  * `rearrange_patches` (K6) moves a volume into patch rows, the last stage
-    of the patch-row ingest (csrc/rearrange.cu).  It writes into a view the
-    caller passes, such as one slot of the batch buffer.
+    (csrc/gemm.cu) and LN(512).  Its backward is K16a
+    (`_pallas_patch_embed_bwd`), which saves only the volume and recomputes
+    the normalised rows: the six weight gradients and, when the volume
+    requires grad, d(volume) through K17.
+  * `rearrange_patches` (K6) moves a volume into patch rows
+    (csrc/rearrange.cu): the last stage of the patch-row ingest, where it
+    writes into a view the caller passes (one slot of the batch buffer), and
+    the first stage of the volume training embed.  Its backward is K17
+    (`_pallas_unrearrange`, `unrearrange_patches`), the move back.
   * `fused_row_embed` (K4) embeds patch rows: LN(4000) of the contiguous
-    rows (csrc/layernorm.cu), then the same product and LN(512) as K8.
+    rows (csrc/layernorm.cu), then the same product and LN(512) as K8.  Its
+    backward is K16b (`_pallas_row_embed_bwd`), with d(rows) when the rows
+    require grad.
 
 In both embeds the (tokens, 4000) normalised rows pass through device memory
-between the LN and the product.
+between the LN and the product.  Each backward's plain version is autograd of
+the plain forward, the JAX package's XLA VJP; a CPU tensor takes it.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Optional
 import torch
 
 from . import kernels as K
+from .autograd import vjp
 from .norms import layer_norm
 
 
@@ -37,34 +46,83 @@ def patchify(video: torch.Tensor, pt: int, p: int) -> torch.Tensor:
     return x.reshape(b, t * h * w, pt * p * p)
 
 
+def _check_tiling(shape, pt: int, p: int) -> None:
+    _, F, H, W = shape
+    if F % pt or H % p or W % p:
+        raise ValueError(f"video {tuple(shape)} does not tile into {pt}x{p}x{p} patches")
+
+
 def rearrange_plain(video: torch.Tensor, pt: int, p: int) -> torch.Tensor:
     """Plain PyTorch version of K6: the patchify view made contiguous."""
     return patchify(video, pt, p).contiguous()
 
 
-def rearrange_patches(video: torch.Tensor, pt: int, p: int,
-                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(b, F, H, W) -> (b, t*h*w, pt*p*p) patch rows in (pt, p1, p2) order,
-    written into `out` when one is given (its rows contiguous, as in
-    `buf[slot:slot + 1]` of a (B, n, patch_dim) batch buffer) and returned.
-    The values move untouched.  A CPU tensor takes the plain version; a CUDA
-    tensor must be bf16 and takes the kernel."""
+def unrearrange_plain(rows: torch.Tensor, pt: int, p: int, F: int, H: int,
+                      W: int) -> torch.Tensor:
+    """Plain PyTorch version of K17: the inverse of the patchify view, made
+    contiguous."""
+    b = rows.shape[0]
+    x = rows.reshape(b, F // pt, H // p, W // p, pt, p, p).permute(0, 1, 4, 2, 5, 3, 6)
+    return x.reshape(b, F, H, W).contiguous()
+
+
+def unrearrange_patches(rows: torch.Tensor, pt: int, p: int, F: int, H: int,
+                        W: int) -> torch.Tensor:
+    """(b, t*h*w, pt*p*p) patch rows -> the (b, F, H, W) volume they came
+    from (K17, K6's VJP); the values move untouched.  A CPU tensor takes the
+    plain version; a CUDA tensor must be bf16 and takes the kernel."""
+    _check_tiling((rows.shape[0], F, H, W), pt, p)
+    if rows.device.type == "cpu":
+        return unrearrange_plain(rows, pt, p, F, H, W)
+    out = torch.empty((rows.shape[0], F, H, W), dtype=rows.dtype, device=rows.device)
+    K.unrearrange_patches(rows.contiguous(), pt, p, out)
+    K.count_launch("unrearrange_patches")
+    return out
+
+
+def _rearrange_into(video, pt: int, p: int, out: Optional[torch.Tensor]) -> torch.Tensor:
     b, F, H, W = video.shape
-    if F % pt or H % p or W % p:
-        raise ValueError(f"video {tuple(video.shape)} does not tile into "
-                         f"{pt}x{p}x{p} patches")
+    n = (F // pt) * (H // p) * (W // p)
     if video.device.type == "cpu":
         if out is None:
             return rearrange_plain(video, pt, p)
-        if out.shape != (b, (F // pt) * (H // p) * (W // p), pt * p * p):
+        if out.shape != (b, n, pt * p * p):
             raise ValueError(f"out {tuple(out.shape)} does not fit the rows")
         return out.copy_(patchify(video, pt, p))
     if out is None:
-        out = torch.empty((b, (F // pt) * (H // p) * (W // p), pt * p * p),
-                          dtype=video.dtype, device=video.device)
+        out = torch.empty((b, n, pt * p * p), dtype=video.dtype, device=video.device)
     K.rearrange_patches(video.contiguous(), pt, p, out)
     K.count_launch("rearrange_patches")
     return out
+
+
+class _Rearrange(torch.autograd.Function):
+    """K6 forward, K17 backward; nothing is saved but the geometry."""
+
+    @staticmethod
+    def forward(ctx, video, pt, p):
+        ctx.geom = (pt, p) + tuple(video.shape[1:])
+        return _rearrange_into(video, pt, p, None)
+
+    @staticmethod
+    def backward(ctx, drows):
+        return unrearrange_patches(drows, *ctx.geom), None, None
+
+
+def rearrange_patches(video: torch.Tensor, pt: int, p: int,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(b, F, H, W) -> (b, t*h*w, pt*p*p) patch rows in (pt, p1, p2) order.
+    The values move untouched.  A CPU tensor takes the plain version; a CUDA
+    tensor must be bf16 and takes the kernel.  Differentiable (the backward
+    is K17), except when written into `out` (its rows contiguous, as in
+    `buf[slot:slot + 1]` of a (B, n, patch_dim) batch buffer), which the
+    ingest does with data that needs no gradient."""
+    _check_tiling(video.shape, pt, p)
+    if out is None:
+        return _Rearrange.apply(video, pt, p)
+    if torch.is_grad_enabled() and video.requires_grad:
+        raise ValueError("rearrange_patches: writing into `out` takes no gradient")
+    return _rearrange_into(video, pt, p, out)
 
 
 def row_embed_plain(rows: torch.Tensor, s1, b1, w, pbias, s2, b2,
@@ -86,6 +144,20 @@ def patch_embed_plain(video, s1, b1, w, pbias, s2, b2, pt: int, p: int,
     return row_embed_plain(patchify(video, pt, p), s1, b1, w, pbias, s2, b2, eps)
 
 
+def patch_embed_bwd_plain(video, s1, b1, w, pbias, s2, b2, dout, pt: int, p: int,
+                          eps: float = 1e-5):
+    """Plain version of K16a with d(video): (dvideo, ds1, db1, dw, dpbias,
+    ds2, db2), the VJP of `patch_embed_plain` at dout."""
+    return vjp(lambda *a: patch_embed_plain(*a, pt, p, eps),
+               (video, s1, b1, w, pbias, s2, b2), dout)
+
+
+def row_embed_bwd_plain(rows, s1, b1, w, pbias, s2, b2, dout, eps: float = 1e-5):
+    """Plain version of K16b: (drows, ds1, db1, dw, dpbias, ds2, db2), the
+    VJP of `row_embed_plain` at dout."""
+    return vjp(lambda *a: row_embed_plain(*a, eps), (rows, s1, b1, w, pbias, s2, b2), dout)
+
+
 def _embed_tail(xn, w, pbias, s2, b2, eps, b, n):
     """(b*n, patch_dim) normalised rows -> product + rounded bias -> LN(dim)."""
     dim, bf = w.shape[0], torch.bfloat16
@@ -99,14 +171,28 @@ def _embed_tail(xn, w, pbias, s2, b2, eps, b, n):
     return out.view(b, n, dim)
 
 
-def fused_patch_embed(video: torch.Tensor, s1, b1, w, pbias, s2, b2,
-                      pt: int, p: int, eps: float = 1e-5) -> torch.Tensor:
-    """(b, F, H, W) single-channel video -> (b, t*h*w, dim) tokens in the
-    video's dtype.  A CPU tensor takes the plain version; a CUDA tensor
-    must be bf16 and takes the kernels."""
-    if video.device.type == "cpu":
-        return patch_embed_plain(video, s1, b1, w, pbias, s2, b2, pt, p, eps)
-    video = video.contiguous()
+def _embed_tail_bwd(xn, w, pbias, s2, dout, eps):
+    """The backward of `_embed_tail` from the normalised rows xn (R, pd),
+    as _embed_bwd_kernel (patchify.py:285-306) computes it: the product and
+    its rounded bias add again, the LN(dim) backward (dyb, ds2, db2 and dpb,
+    the column sum of the f32 dyb), dW = dyb^T xn (split TN product) and
+    dxn = dyb W (NN product), f32."""
+    bf = torch.bfloat16
+    R, pd = xn.shape
+    dim = w.shape[0]
+    wb = w.to(bf).contiguous()
+    yb = torch.empty((R, dim), dtype=bf, device=xn.device)
+    K.gemm(K.EPI_BIAS_ROUNDED, xn, wb, yb, bias=pbias.to(bf).contiguous())
+    dyn = dout.reshape(R, dim).float().contiguous()
+    dyb, ds2, db2, dpb = K.layernorm_bwd(yb, s2, dyn, eps, want_dbias=True, want_dxsum=True)
+    del yb
+    dw = K.gemm_tn(dyb, xn)
+    dxn = torch.empty((R, pd), dtype=torch.float32, device=xn.device)
+    K.gemm_nn(dyb, wb, dxn)
+    return dxn, dw, dpb, ds2, db2
+
+
+def _patch_embed_cuda(video, s1, b1, w, pbias, s2, b2, pt, p, eps):
     b, F, H, W = video.shape
     n = (F // pt) * (H // p) * (W // p)
     xn = torch.empty((b * n, pt * p * p), dtype=torch.bfloat16, device=video.device)
@@ -116,16 +202,114 @@ def fused_patch_embed(video: torch.Tensor, s1, b1, w, pbias, s2, b2,
     return out
 
 
+def _patch_embed_bwd_cuda(video, s1, b1, w, pbias, s2, b2, dout, pt, p, eps,
+                          want_dvideo: bool):
+    """K16a: (dvideo or None, ds1, db1, dw, dpbias, ds2, db2)."""
+    b, F, H, W = video.shape
+    n, pd = (F // pt) * (H // p) * (W // p), pt * p * p
+    xn = torch.empty((b * n, pd), dtype=torch.bfloat16, device=video.device)
+    K.patch_layernorm(video, pt, p, s1, b1, eps, xn)
+    dxn, dw, dpb, ds2, db2 = _embed_tail_bwd(xn, w, pbias, s2, dout, eps)
+    del xn
+    dpatch, ds1, db1 = K.patch_layernorm_bwd(video, pt, p, s1, dxn, eps,
+                                             want_dx=want_dvideo)
+    del dxn
+    dvideo = None
+    if want_dvideo:
+        dvideo = unrearrange_patches(dpatch.view(b, n, pd), pt, p, F, H, W)
+    K.count_launch("patch_embed_bwd")
+    return dvideo, ds1, db1, dw, dpb, ds2, db2
+
+
+def _row_embed_cuda(rows, s1, b1, w, pbias, s2, b2, eps):
+    b, n, pd = rows.shape
+    xn = torch.empty((b * n, pd), dtype=torch.bfloat16, device=rows.device)
+    K.layernorm(rows.view(b * n, pd), s1, b1, eps, xn)
+    out = _embed_tail(xn, w, pbias, s2, b2, eps, b, n)
+    K.count_launch("row_embed")
+    return out
+
+
+def _row_embed_bwd_cuda(rows, s1, b1, w, pbias, s2, b2, dout, eps, want_drows: bool):
+    """K16b: (drows or None, ds1, db1, dw, dpbias, ds2, db2)."""
+    b, n, pd = rows.shape
+    x = rows.view(b * n, pd)
+    xn = torch.empty_like(x)
+    K.layernorm(x, s1, b1, eps, xn)
+    dxn, dw, dpb, ds2, db2 = _embed_tail_bwd(xn, w, pbias, s2, dout, eps)
+    del xn
+    drows, ds1, db1 = K.layernorm_bwd(x, s1, dxn, eps, want_dbias=True, want_dx=want_drows)
+    K.count_launch("row_embed_bwd")
+    return (None if drows is None else drows.view(b, n, pd)), ds1, db1, dw, dpb, ds2, db2
+
+
+def _param_grads(grads, params):
+    """Gradients in their parameters' dtypes."""
+    return tuple(g.to(t.dtype) for g, t in zip(grads, params))
+
+
+class _PatchEmbed(torch.autograd.Function):
+    """K8 forward, K16a backward; only the volume is saved (the normalised
+    rows are recomputed, as the TPU kernel recomputes them per block)."""
+
+    @staticmethod
+    def forward(ctx, video, s1, b1, w, pbias, s2, b2, pt, p, eps):
+        ctx.args = (pt, p, eps)
+        ctx.save_for_backward(video, s1, b1, w, pbias, s2, b2)
+        if video.device.type == "cpu":
+            return patch_embed_plain(video, s1, b1, w, pbias, s2, b2, pt, p, eps)
+        return _patch_embed_cuda(video, s1, b1, w, pbias, s2, b2, pt, p, eps)
+
+    @staticmethod
+    def backward(ctx, dout):
+        video, *params = ctx.saved_tensors
+        want_dvideo = ctx.needs_input_grad[0]
+        if video.device.type == "cpu":
+            dvideo, *grads = patch_embed_bwd_plain(video, *params, dout, *ctx.args)
+            dvideo = dvideo if want_dvideo else None
+        else:
+            dvideo, *grads = _patch_embed_bwd_cuda(video, *params, dout, *ctx.args,
+                                                   want_dvideo)
+        return (dvideo, *_param_grads(grads, params), None, None, None)
+
+
+class _RowEmbed(torch.autograd.Function):
+    """K4 forward, K16b backward; only the rows are saved."""
+
+    @staticmethod
+    def forward(ctx, rows, s1, b1, w, pbias, s2, b2, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(rows, s1, b1, w, pbias, s2, b2)
+        if rows.device.type == "cpu":
+            return row_embed_plain(rows, s1, b1, w, pbias, s2, b2, eps)
+        return _row_embed_cuda(rows, s1, b1, w, pbias, s2, b2, eps)
+
+    @staticmethod
+    def backward(ctx, dout):
+        rows, *params = ctx.saved_tensors
+        want_drows = ctx.needs_input_grad[0]
+        if rows.device.type == "cpu":
+            drows, *grads = row_embed_bwd_plain(rows, *params, dout, ctx.eps)
+            drows = drows if want_drows else None
+        else:
+            drows, *grads = _row_embed_bwd_cuda(rows, *params, dout, ctx.eps, want_drows)
+        return (drows, *_param_grads(grads, params), None)
+
+
+def fused_patch_embed(video: torch.Tensor, s1, b1, w, pbias, s2, b2,
+                      pt: int, p: int, eps: float = 1e-5) -> torch.Tensor:
+    """(b, F, H, W) single-channel video -> (b, t*h*w, dim) tokens in the
+    video's dtype.  A CPU tensor takes the plain versions; a CUDA tensor
+    must be bf16 and takes the kernels.  Differentiable in every argument
+    (K16a)."""
+    _check_tiling(video.shape, pt, p)
+    return _PatchEmbed.apply(video.contiguous(), s1, b1, w, pbias, s2, b2, pt, p, eps)
+
+
 def fused_row_embed(rows: torch.Tensor, s1, b1, w, pbias, s2, b2,
                     eps: float = 1e-5) -> torch.Tensor:
     """(b, n, patch_dim) patch rows -> (b, n, dim) tokens in the rows'
     dtype: to_patch_emb minus the Rearrange.  A CPU tensor takes the plain
-    version; a CUDA tensor must be bf16 and takes the kernels."""
-    if rows.device.type == "cpu":
-        return row_embed_plain(rows, s1, b1, w, pbias, s2, b2, eps)
-    b, n, pd = rows.shape
-    xn = torch.empty((b * n, pd), dtype=torch.bfloat16, device=rows.device)
-    K.layernorm(rows.contiguous().view(b * n, pd), s1, b1, eps, xn)
-    out = _embed_tail(xn, w, pbias, s2, b2, eps, b, n)
-    K.count_launch("row_embed")
-    return out
+    versions; a CUDA tensor must be bf16 and takes the kernels.
+    Differentiable in every argument (K16b)."""
+    return _RowEmbed.apply(rows.contiguous(), s1, b1, w, pbias, s2, b2, eps)

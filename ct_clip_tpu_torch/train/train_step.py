@@ -7,6 +7,14 @@ and the towers compute in the model's dtype (bf16 in training, as the JAX
 package replaces torch autocast).  The state is the model itself (its
 parameters and the VQ codebook buffers, which the forward updates by EMA),
 the optimizer and the step count.
+
+The JAX step draws three random streams from its key: dropout, mlm =
+fold_in(rng, 1) and ssl = fold_in(rng, 2) (train_step.py:53-60).  The port
+draws them from three generators seeded from the step's seed
+(`step_generators`): the dropout stream on the model's device, the MLM mask
+and the augmentation draws, which are a few host values per step, on the
+CPU, so a card step and a CPU step from the same seed mask and augment
+alike.
 """
 from __future__ import annotations
 
@@ -34,19 +42,34 @@ def create_train_state(model: CTCLIP, cfg: TrainConfig) -> TrainState:
     return TrainState(model=model, optimizer=opt)
 
 
+def step_generators(seed: int, device) -> Dict[str, torch.Generator]:
+    """The step's three random streams: "dropout" on `device`, "mlm" and
+    "ssl" on the CPU, from the seeds 3 seed, 3 seed + 1 and 3 seed + 2 (the
+    CPU generator reads a seed's low 32 bits, so the streams of nearby steps
+    must differ there)."""
+    seeds = [(3 * seed + i) % 2 ** 63 for i in range(3)]
+    return {"dropout": torch.Generator(device=device).manual_seed(seeds[0]),
+            "mlm": torch.Generator().manual_seed(seeds[1]),
+            "ssl": torch.Generator().manual_seed(seeds[2])}
+
+
 def make_train_step(cfg: TrainConfig) -> Callable:
-    """step(state, batch, generator) -> metrics {loss, grad_norm,
+    """step(state, batch, generators) -> metrics {loss, grad_norm,
     temperature} as 0-dim tensors on the model's device (no host sync).
     `batch` holds input_ids, attention_mask and video (volumes or patch
-    rows); `generator` feeds the text tower's dropout."""
+    rows); `generators` are the step's random streams (`step_generators`),
+    needed when the text tower's dropout, MLM or visual SSL is on."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+             generators: Optional[Dict[str, torch.Generator]] = None
+             ) -> Dict[str, torch.Tensor]:
         model, opt = state.model, state.optimizer
+        gens = generators or {}
         model.train()
         opt.zero_grad()
         loss = model(batch["input_ids"], batch["attention_mask"], batch["video"],
-                     return_loss=True, train=True, generator=generator)
+                     return_loss=True, train=True, generator=gens.get("dropout"),
+                     mlm_generator=gens.get("mlm"), ssl_generator=gens.get("ssl"))
         loss.backward()
         grad_norm = opt.step()
         state.step += 1

@@ -11,9 +11,14 @@ steps and automatic resume from the latest one.
 Ingest: on CUDA the volumes go in as patch rows, as the JAX trainer's on its
 accelerator (trainer.py:96-100): each volume is preprocessed on the card
 and K6 writes its rows straight into its slot of the one batch buffer (the
-stream orders each slot write after the previous step's reads).  On the CPU
-the preprocessed volumes are stacked.  Orbax checkpoints, the mesh and
-multi-host loading are not ported.
+stream orders each slot write after the previous step's reads).  Visual SSL
+augments the raw volume, so with `use_visual_ssl` the trainer ingests
+volumes, as the JAX trainer does: the preprocessed (240, 480, 480) volumes
+are stacked into a (B, 240, 480, 480, 1) batch in the model's dtype, the
+training embed runs K6 on it, and the mini evaluation scores volumes (K8).
+On the CPU the volumes are stacked too.  Each step's dropout, MLM and
+augmentation draws come from `step_generators` of the seed and the step.
+Orbax checkpoints, the mesh and multi-host loading are not ported.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from ..inference.zero_shot import ZeroShotClassifier
 from ..models.ctclip import CTCLIP
 from ..ops.resample import preprocess_rows_into, preprocess_volume
 from .checkpoint import CheckpointManager
-from .train_step import TrainState, create_train_state, make_train_step
+from .train_step import TrainState, create_train_state, make_train_step, step_generators
 
 
 class MetricLogger:
@@ -68,7 +73,7 @@ class CTClipTrainer:
         self.train_ds = train_dataset
         self.valid_ds = valid_dataset
         self.device = model.temperature.device
-        self.patch_rows = self.device.type == "cuda"
+        self.patch_rows = self.device.type == "cuda" and not model.config.use_visual_ssl
         self.results_folder = Path(results_folder)
         self.results_folder.mkdir(parents=True, exist_ok=True)
         self.num_workers = num_workers
@@ -145,9 +150,8 @@ class CTClipTrainer:
         t_last = time.time()
         for batch in self._batches():
             step = self.state.step
-            gen = torch.Generator(device=self.device).manual_seed(
-                self.cfg.seed * 1_000_003 + step)
-            metrics = self.step_fn(self.state, batch, gen)
+            gens = step_generators(self.cfg.seed * 1_000_003 + step, self.device)
+            metrics = self.step_fn(self.state, batch, gens)
             now = time.time()
             self.logger.log(step, loss=float(metrics["loss"]),
                             grad_norm=float(metrics["grad_norm"]),

@@ -24,6 +24,8 @@ def test_port_files_are_found():
     assert len(FILES) >= 25
     assert ROOT / "ct_clip_tpu_torch" / "cli.py" in FILES
     assert ROOT / "ct_clip_tpu_torch" / "train" / "text_classifier.py" in FILES
+    for name in ("visual_ssl.py", "mlm.py"):
+        assert ROOT / "ct_clip_tpu_torch" / "models" / name in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

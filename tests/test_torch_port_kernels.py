@@ -526,3 +526,110 @@ def test_bert_attention_bf16_training_k12_k13(dev, dropout):
     ref = _grads(lambda q, k, v, b: attention_plain(q, k, v, key_bias=b, mask=mask),
                  q, k, v, kb, do)
     _grads_close(got, ref)
+
+
+def test_layernorm_backward_column_sum_of_dx(dev):
+    from ct_clip_tpu_torch.ops.norms import layer_norm
+
+    g = _gen(dev, 16)
+    x = _randn((300, 512), g, dev)
+    scale = 1 + 0.1 * torch.randn(512, generator=g, device=dev)
+    dxn = torch.randn((300, 512), generator=g, device=dev)
+    xf = x.detach().float().requires_grad_()
+    want, = torch.autograd.grad(layer_norm(xf, scale), xf, dxn)
+    dx, _, _, dxsum = K.layernorm_bwd(x, scale, dxn, 1e-5, want_dxsum=True)
+    _close(dxsum, want.sum(0), rel=1e-4)
+    none, _, _ = K.layernorm_bwd(x, scale, dxn, 1e-5, want_dx=False)
+    assert none is None
+
+
+@pytest.mark.parametrize("shape,pt,p", [((2, 20, 60, 40), 10, 20),  # 16-byte path
+                                        ((1, 6, 15, 25), 2, 5)])   # 2-byte path
+def test_unrearrange_patches_k17_bit_exact(dev, shape, pt, p):
+    from ct_clip_tpu_torch.ops.patch_embed import (rearrange_patches, unrearrange_patches,
+                                                   unrearrange_plain)
+
+    g = _gen(dev, 17)
+    video = _randn(shape, g, dev)
+    rows = _randn(tuple(rearrange_patches(video, pt, p).shape), g, dev)
+    K.reset_launch_counts()
+    got = unrearrange_patches(rows, pt, p, *shape[1:])
+    torch.cuda.synchronize()
+    assert K.launch_counts()["unrearrange_patches"] == 1
+    assert torch.equal(got, unrearrange_plain(rows, pt, p, *shape[1:]))
+    assert torch.equal(unrearrange_patches(rearrange_patches(video, pt, p), pt, p, *shape[1:]),
+                       video)
+    v = video.detach().requires_grad_()
+    dv, = torch.autograd.grad(rearrange_patches(v, pt, p), v, rows)  # K6's VJP is K17
+    assert torch.equal(dv, got)
+
+
+def _embed_weights(g, dev, pd=4000, dim=512):
+    f32 = torch.float32
+    return [1 + _randn((pd,), g, dev, 0.1, f32), _randn((pd,), g, dev, 0.1, f32),
+            _randn((dim, pd), g, dev, pd ** -0.5, f32), _randn((dim,), g, dev, 0.1, f32),
+            1 + _randn((dim,), g, dev, 0.1, f32), _randn((dim,), g, dev, 0.1, f32)]
+
+
+@pytest.mark.parametrize("input_grad", [False, True])
+def test_patch_embed_backward_k16a(dev, input_grad):
+    """K16a's six weight gradients (f32) and, when the volume requires grad,
+    d(volume) through K17, against autograd of the plain forward."""
+    from ct_clip_tpu_torch.ops.patch_embed import fused_patch_embed, patch_embed_bwd_plain
+
+    g = _gen(dev, 18)
+    video = _randn((2, 20, 60, 40), g, dev)
+    w = _embed_weights(g, dev)
+    do = _randn((2, 12, 512), g, dev)
+    leaves = [video.detach().requires_grad_(input_grad)] + [t.detach().requires_grad_()
+                                                            for t in w]
+    K.reset_launch_counts()
+    out = fused_patch_embed(*leaves, 10, 20)
+    got = torch.autograd.grad(out, leaves if input_grad else leaves[1:], do)
+    counts = K.launch_counts()
+    assert counts["patch_embed_bwd"] == 1 and counts["unrearrange_patches"] == int(input_grad)
+    assert all(gr.dtype == torch.float32 for gr in got[-6:])
+    ref = patch_embed_bwd_plain(video, *w, do, 10, 20)
+    _grads_close(got, ref if input_grad else ref[1:])
+    again = torch.autograd.grad(fused_patch_embed(*leaves, 10, 20), leaves[1:], do)
+    assert all(torch.equal(a, c) for a, c in zip(got[-6:], again))  # fixed-order sums
+
+
+def test_row_embed_backward_k16b(dev):
+    from ct_clip_tpu_torch.ops.patch_embed import fused_row_embed, row_embed_bwd_plain
+
+    g = _gen(dev, 19)
+    rows = _randn((2, 300, 4000), g, dev)
+    w = _embed_weights(g, dev)
+    do = _randn((2, 300, 512), g, dev)
+    leaves = [t.detach().requires_grad_() for t in (rows, *w)]
+    K.reset_launch_counts()
+    got = torch.autograd.grad(fused_row_embed(*leaves), leaves, do)
+    assert K.launch_counts()["row_embed_bwd"] == 1
+    _grads_close(got, row_embed_bwd_plain(rows, *w, do))
+
+
+@pytest.mark.parametrize("route", ["volume", "rows"])
+def test_inference_embed_under_grad_reaches_every_weight(dev, route):
+    """The embeds' gradient reaches all six to_patch_emb weights and the
+    input on the card (K16a with K17, K16b), close to the training
+    composition's (autograd of the plain chain)."""
+    from ct_clip_tpu_torch.config import CTViTConfig
+    from ct_clip_tpu_torch.models import CTViT
+    from ct_clip_tpu_torch.ops.patch_embed import rearrange_plain
+
+    cfg = CTViTConfig(image_size=60, num_frames=20, spatial_depth=1, temporal_depth=1)
+    vt = CTViT(cfg, dtype=BF, device=dev)
+    g = _gen(dev, 20)
+    video = _randn((2, 20, 60, 60, 1), g, dev)
+    x = video if route == "volume" else rearrange_plain(video[..., 0], 10, 20)
+    do = _randn((2, 2, 3, 3, 512), g, dev)
+    grads = []
+    for train in (False, True):
+        xi = x.detach().requires_grad_()
+        vt.zero_grad()
+        vt.embed_patches(xi, train=train).backward(do)
+        grads.append([xi.grad] + [p.grad for p in vt.to_patch_emb.parameters()])
+    assert all(t is not None and torch.isfinite(t.float()).all() and t.abs().max() > 0
+               for t in grads[0])
+    _grads_close(grads[0], grads[1])

@@ -332,12 +332,6 @@ def test_multiview_cloob_loss_of_the_model_matches_jax(ref):
     assert abs(got.item() - float(jl)) <= 1e-5 * abs(float(jl))
 
 
-def test_not_ported_objectives_raise(ref):
-    model = _port(ref, ref["pcfg"].replace(use_mlm=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(**_torch(_batch(1)), return_loss=True)
-
-
 def test_cosine_vq_train_ema_matches_jax_module():
     """CosineVQ(train=True) on f32 rows against the JAX module applied with
     mutable=["vq"]: ids, the straight-through output, the EMA codebook (codes
