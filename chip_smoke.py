@@ -68,7 +68,21 @@ Phases, each fatal on failure (exit code != 0, no result line):
      phase 6), step time (CUDA events), peak memory and a profiled step;
      last, a tiny CT-CLIP step with all three objectives on, card against
      CPU as in phase 6, and again with K16a's LN scale gradient dropped,
-     which must fail.
+     which must fail;
+  8. non-cubic token grids and the CTViT autoencoder: K2 and K10 in
+     sequence-major form at (4608, 16, 512) (CT-CLIP at 160 frames, batch
+     8) and (512, 20, 512) (the autoencoder's batch 8), K1 and K9 on its
+     (160, 64, 512) planes with the (8, 64, 64) bias, each against its
+     plain version; `CTViTTrainer` at full width on 8 synthetic 201 x 128 x
+     128 NIfTIs through VideoDataset(num_frames=200), (t, h, w) = (20, 8,
+     8): 3 generator steps with falling losses, one round with the
+     discriminator, step times, peak memory, a profiled step, a checkpoint
+     round trip and a reconstruction dump, with the sequence-major counters
+     rising and the grid ones not; `cli reconstruct` on two volumes at its
+     default 240 x 480 x 480 (the grid path); CT-CLIP at 160 frames, one
+     contrastive step at batch 8 and one zero-shot batch of 2; a tiny
+     autoencoder step card against CPU, and again with K10 seq's dk_scale
+     sum dropped, which must fail.
 
 Prints the end-to-end numbers and the kernel table as one JSON line each,
 then the card's name and power limit (nvidia-smi), then
@@ -182,6 +196,13 @@ KERNELS = {
                              ["layernorm.cu", "gemm.cu"], "row_embed_bwd", "embed_grad"),
     "unrearrange_patches": _kernel("_pallas_unrearrange", "patchify.py:138", "rearrange.cu",
                                    ["rearrange.cu"], "unrearrange_patches", "embed_grad"),
+    "seq_attention": _kernel("fused_small_qknorm_attention", "small_attention.py:196",
+                             "attention.cu", ["layernorm.cu", "gemm.cu", "attention.cu"],
+                             "seq_attention", "ctvit_ae_train"),
+    "seq_attention_bwd": _kernel("_pallas_small_qknorm_bwd (sequence-major)",
+                                 "small_attention.py:437", "qknorm_attention_bwd.cu",
+                                 ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
+                                 "seq_attention_bwd", "ctvit_ae_train"),
 }
 # launch counters each driven path must raise
 COMMON = ["spatial_attention", "grid_attention", "geglu_ff", "vq_assign",
@@ -212,6 +233,25 @@ AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "rearrange_patches", "geglu_ff_bw
              "attention_dropout", "attention_dropout_bwd"]
 PATHS["ctclip_aux_ssl_mlm"] = AUX_TRAIN + ["vq_assign", "fused_attention"]  # + mini-eval
 PATHS["ctclip_aux_filip_simclr"] = AUX_TRAIN
+# phase 8: the CTViT autoencoder on GenerateCT's non-cubic (20, 8, 8) grid
+# (training embed K6, decoder un-patchify K17 forward and K6 backward),
+# `cli reconstruct` on the cubic 24^3 grid, CT-CLIP at 160 frames (16, 24, 24)
+AE_TRAIN = ["seq_attention", "seq_attention_bwd", "spatial_attention", "spatial_attention_bwd",
+            "geglu_ff", "geglu_ff_bwd", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
+            "rearrange_patches", "unrearrange_patches"]
+PATHS["ctvit_ae_train"] = AE_TRAIN
+PATHS["ctvit_ae_discr"] = AE_TRAIN + ["vq_assign", "patch_embed"]  # + the inference recon
+PATHS["reconstruct"] = ["patch_embed", "spatial_attention", "grid_attention", "geglu_ff",
+                        "vq_assign", "unrearrange_patches"]
+PATHS["ctclip_160_train"] = ["seq_attention", "seq_attention_bwd", "spatial_attention",
+                             "spatial_attention_bwd", "geglu_ff", "geglu_ff_bwd", "peg_bwd",
+                             "vq_cluster_stats", "vq_assign_exact", "rearrange_patches",
+                             "attention_dropout", "attention_dropout_bwd"]
+PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "seq_attention", "geglu_ff",
+                          "vq_assign", "fused_attention"]
+# the paths on a non-cubic grid must not take the grid form, and back
+GRID_COUNTERS = ("grid_attention", "grid_attention_bwd")
+SEQ_COUNTERS = ("seq_attention", "seq_attention_bwd")
 # training backwards: autograd of the plain forward in bf16 rounds each
 # gradient tensor to bf16 where the kernels keep f32 (weight gradients, dxn)
 # or round at the JAX kernels' points, a few bf16 ulps apart
@@ -1385,7 +1425,9 @@ def timed_steps(step, state, batch, card: str, label: str, batch_size: int,
         step_ms.append(start.elapsed_time(end))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med = statistics.median(step_ms[1:])
-    log(f"{label} step: batch {batch_size} x (13,824 tokens, 512 text tokens), full width, bf16: "
+    vcfg = state.model.config.ctvit
+    log(f"{label} step: batch {batch_size} x ({vcfg.patch_t * vcfg.patch_hw ** 2:,} tokens, 512 "
+        f"text tokens), full width, bf16: "
         f"median {med:.2f} ms of steps 2-4 {[round(t, 2) for t in step_ms]} = "
         f"{batch_size / med * 1e3:.3f} volumes/s; peak memory {peak_gb:.2f} GB; loss "
         f"{m['loss'].item():.4f} on {card}")
@@ -1507,13 +1549,17 @@ def tiny_ctclip_side(cfg, tcfg, start, inputs, device, dtype) -> dict:
 
 
 def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float,
-                       noise_aware_updates: bool = False):
+                       noise_aware_updates: bool = False,
+                       vq_prefix: str = "visual_transformer.vq._codebook.",
+                       grad_ratio: float = TINY_GRAD_RATIO):
     """(readings, failures) of a card side `g` against the CPU side `c`,
     with the CPU's f32 side `c32` giving each gradient's bf16 noise.  With
     `noise_aware_updates`, a tensor's update error on its large-gradient
     entries is also held against the CPU's own bf16-vs-f32 update error on
     those entries (TINY_GRAD_RATIO times it), for configurations whose bf16
-    gradients flip the sign of Adam's first step on the CPU already."""
+    gradients flip the sign of Adam's first step on the CPU already.
+    `grad_ratio` is the gradients' limit (TINY_GRAD_RATIO unless a
+    configuration states its own)."""
     def l2_rel(a, b):
         return (a - b).norm().item() / max(b.norm().item(), 1e-30)
 
@@ -1524,10 +1570,11 @@ def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float,
             zero = max(zero, g["grads"][n].abs().max().item() / top)
             continue
         noise = max(l2_rel(ref, c32["grads"][n]), 1e-3)
-        ratio[n] = (l2_rel(g["grads"][n], ref) / noise, l2_rel(g["grads"][n], ref), noise)
+        dist = l2_rel(g["grads"][n], ref)
+        ratio[n] = (dist / noise, dist, noise)
     worst = sorted(ratio.items(), key=lambda kv: -kv[1][0])
     agree = (g["codes"] == c["codes"]).float().mean().item()
-    key = "visual_transformer.vq._codebook."
+    key = vq_prefix
     cs_err = (g["sd"][key + "cluster_size"] - c["sd"][key + "cluster_size"]).abs().max().item()
     cb_err = (g["sd"][key + "embed"] - c["sd"][key + "embed"]).abs().max().item()
     upd_err, upd_worst, upd_max, within_cpu_noise = 0.0, "", 0.0, []
@@ -1547,7 +1594,8 @@ def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float,
                 continue
         if err > upd_err:
             upd_err, upd_worst = err, n
-    res = dict(loss_rel=abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+    res = dict(grad_ratio_limit=grad_ratio,
+               loss_rel=abs(g["loss"] - c["loss"]) / abs(c["loss"]),
                loss_rel_cpu_bf16_vs_f32=abs(c["loss"] - c32["loss"]) / abs(c32["loss"]),
                grad_ratio=worst[0][1][0], grad_worst=worst[0][0],
                grad_top=[[n, *r] for n, r in worst[:5]],
@@ -1559,7 +1607,7 @@ def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float,
                updates_within_cpu_bf16_noise=within_cpu_noise)
     failures = [name for name, bad in (
         ("loss", res["loss_rel"] > TINY_LOSS_TOL),
-        ("gradients", res["grad_ratio"] > TINY_GRAD_RATIO),
+        ("gradients", res["grad_ratio"] > grad_ratio),
         ("zero gradients", zero > TINY_ZERO_TOL), ("VQ ids", agree < 1.0),
         ("cluster sizes", cs_err > 1e-6), ("codebook", cb_err > 1e-2),
         ("updates", upd_err > TINY_UPDATE_TOL * lr),
@@ -1569,11 +1617,11 @@ def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float,
 
 def _log_tiny(label: str, res: dict, failures) -> None:
     top = [(n, f"{r:.3f}", f"{d:.2e}", f"{e:.2e}") for n, r, d, e in res["grad_top"]]
-    log(f"reference: tiny CT-CLIP step card vs CPU, {label}: loss rel {res['loss_rel']:.2e} "
+    log(f"reference: tiny step card vs CPU, {label}: loss rel {res['loss_rel']:.2e} "
         f"(tol {TINY_LOSS_TOL}; CPU bf16 vs f32 {res['loss_rel_cpu_bf16_vs_f32']:.2e}); "
         f"gradients, card-CPU L2 distance over the CPU's bf16-f32 L2 distance, largest "
         f"first (tensor, ratio, card-CPU, CPU bf16-f32): {top}, median "
-        f"{res['grad_ratio_median']:.3f} (tol {TINY_GRAD_RATIO}); zero-gradient params "
+        f"{res['grad_ratio_median']:.3f} (tol {res['grad_ratio_limit']}); zero-gradient params "
         f"{res['zero_grads_over_top']:.2e} of the largest gradient (tol {TINY_ZERO_TOL}); "
         f"VQ ids equal {res['id_agreement']:.4f} (all); cluster sizes abs "
         f"{res['cluster_size_abs']:.2e} (tol 1e-6); codebook abs {res['codebook_abs']:.2e} "
@@ -1638,8 +1686,6 @@ def tiny_step_check(dev, cfg, faults, label: str, noise_aware_updates: bool = Fa
     Then the same card step with each planted fault (`faults`: name ->
     (module, attribute, replacement)) must fall outside these limits.
     Returns (readings, the card side, the start state, the train config)."""
-    import contextlib
-
     import torch
 
     from ct_clip_tpu_torch.config import TrainConfig
@@ -1648,18 +1694,42 @@ def tiny_step_check(dev, cfg, faults, label: str, noise_aware_updates: bool = Fa
     lr = 1e-3
     tcfg = TrainConfig(lr=lr)
     inputs = tiny_ctclip_inputs()
-    bf, cpu_dev = torch.bfloat16, torch.device("cpu")
-    cpu = CTCLIP(cfg, dtype=bf).init_weights(torch.Generator().manual_seed(8))
-    dim = cfg.ctvit.dim
-    with torch.no_grad():  # codes at the tokens: every id a clear top-1 on both sides
-        vt = cpu.visual_transformer
-        tokens = vt.encode(vt.embed_patches(inputs[2], train=True)).float().reshape(-1, dim)
-        vt.vq._codebook.embed[: tokens.shape[0]] = tokens / tokens.norm(dim=-1, keepdim=True)
+    cpu = CTCLIP(cfg, dtype=torch.bfloat16).init_weights(torch.Generator().manual_seed(8))
+    seed_codebook_at_tokens(cpu.visual_transformer, inputs[2])
     start = {k: v.clone() for k, v in cpu.state_dict().items()}
-    c = tiny_ctclip_side(cfg, tcfg, start, inputs, cpu_dev, bf)
-    c32 = tiny_ctclip_side(cfg, tcfg, start, inputs, cpu_dev, torch.float32)
-    gp = tiny_ctclip_side(cfg, tcfg, start, inputs, dev, bf)
-    res, failures = compare_tiny_steps(c, c32, gp, start, lr, noise_aware_updates)
+    res, gp = card_vs_cpu(dev, lambda device, dtype: tiny_ctclip_side(
+        cfg, tcfg, start, inputs, device, dtype), start, lr, faults, label,
+        noise_aware_updates)
+    return res, gp, start, tcfg
+
+
+def seed_codebook_at_tokens(vt, video) -> None:
+    """Codes at the tokens of `video` (the CTViT's training embed and
+    encode, on the CPU): every id a clear top-1 on both sides."""
+    import torch
+
+    with torch.no_grad():
+        tokens = vt.encode(vt.embed_patches(video, train=True)).float()
+        tokens = tokens.reshape(-1, vt.config.dim)
+        vt.vq._codebook.embed[: tokens.shape[0]] = tokens / tokens.norm(dim=-1, keepdim=True)
+
+
+def card_vs_cpu(dev, side, start: dict, lr: float, faults, label: str,
+                noise_aware_updates: bool = False,
+                vq_prefix: str = "visual_transformer.vq._codebook.",
+                grad_ratio: float = TINY_GRAD_RATIO):
+    """`side(device, dtype)` on the CPU in bf16 and f32 and on the card in
+    bf16, held by `compare_tiny_steps`; then the card side again with each
+    planted fault, which must fail.  Returns (readings, the card side)."""
+    import contextlib
+
+    import torch
+
+    bf, cpu_dev = torch.bfloat16, torch.device("cpu")
+    c, c32, gp = side(cpu_dev, bf), side(cpu_dev, torch.float32), side(dev, bf)
+    held = dict(noise_aware_updates=noise_aware_updates, vq_prefix=vq_prefix,
+                grad_ratio=grad_ratio)
+    res, failures = compare_tiny_steps(c, c32, gp, start, lr, **held)
     _log_tiny(f"{label}, kernels as built", res, failures)
     if failures:
         raise AssertionError(f"tiny {label} training step: card and CPU disagree on "
@@ -1670,9 +1740,7 @@ def tiny_step_check(dev, cfg, faults, label: str, noise_aware_updates: bool = Fa
         with contextlib.ExitStack() as undo:
             setattr(module, attr, broken)
             undo.callback(setattr, module, attr, original)
-            fres, ffail = compare_tiny_steps(
-                c, c32, tiny_ctclip_side(cfg, tcfg, start, inputs, dev, bf), start, lr,
-                noise_aware_updates)
+            fres, ffail = compare_tiny_steps(c, c32, side(dev, bf), start, lr, **held)
         _log_tiny(f"{label}, planted fault: {name}", fres, ffail)
         if not ffail:
             raise AssertionError(f"tiny {label} training step: planted fault '{name}' "
@@ -1680,7 +1748,7 @@ def tiny_step_check(dev, cfg, faults, label: str, noise_aware_updates: bool = Fa
         res["faults"][name] = dict(outside=ffail, **{k: fres[k] for k in (
             "grad_ratio", "grad_worst", "grad_top", "cluster_size_abs", "codebook_abs",
             "update_err_over_lr")})
-    return res, gp, start, tcfg
+    return res, gp
 
 
 def ctclip_train_reference_phase(dev, work: Path) -> dict:
@@ -1878,6 +1946,347 @@ def aux_planted_faults():
     return {"K16a without ds1": (pe, "_patch_embed_bwd_cuda", k16a_no_ds1)}
 
 
+# ---------------------------------------------------------------- phase 8
+AE_B = 8  # volumes per CTViT autoencoder batch (GenerateCT stage 1)
+AE_FRAMES = 200  # the data layer's 201 frames cut to whole temporal patches (t = 20)
+CLIP160_B = 8  # CT-CLIP contrastive batch at 160 frames
+# the tiny autoencoder's gradient limit: K9/K10 round P and dS to bf16 before
+# their products, as the TPU kernels do (_bwd_kernel :176, :189), where the
+# plain autograd keeps dS in f32; the decoder's spatial QK-scale gradients,
+# sums over 90 tokens that cancel, carry that rounding: on an H100 80GB HBM3
+# they read 1.35x the CPU's bf16-f32 distance (every other tensor <= 1.22),
+# the planted K10 fault > 10
+TINY_AE_GRAD_RATIO = 1.5
+# kernel-name fragments of an autoencoder step's groups (first match)
+AE_GROUPS = (("K6/K17 rearrange (rearrange_kernel)", ("rearrange_kernel",)),) + CTCLIP_GROUPS
+
+
+def ae_config():
+    """The CTViT autoencoder at full width on GenerateCT's 200 x 128 x 128
+    volumes: patch 16, temporal patch 10, (t, h, w) = (20, 8, 8), patch_dim
+    2,560; dim 512, 8192 codes, 4 + 4 layers each way, 8 heads x 32."""
+    from ct_clip_tpu_torch.config import CTViTConfig
+
+    return CTViTConfig(image_size=128, patch_size=16, temporal_patch_size=10,
+                       num_frames=AE_FRAMES, with_decoder=True)
+
+
+def seq_kernel_cases(dev):
+    """K2 and K10 in sequence-major form at CT-CLIP's 160-frame batch of 8,
+    (4608, 16, 512), and at the autoencoder's batch of 8, (512, 20, 512);
+    K1 and K9 on the autoencoder's (160, 64, 512) planes with the (8, 64,
+    64) bias.  Each as train_kernel_cases gives them."""
+    import torch
+
+    from ct_clip_tpu_torch.ops.qknorm_attention import (
+        fused_small_qknorm_attention, fused_spatial_qknorm_attention,
+        qknorm_attention_bwd_plain, qknorm_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(50)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*shape, scale=1.0, dtype=f32):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    dim, heads, dh, hd = 512, 8, 32, 256
+    w = (1 + rn(dim, scale=0.1), rn(hd, dim, scale=dim ** -0.5),
+         rn(2 * hd, dim, scale=dim ** -0.5), 1 + rn(dh, scale=0.2), 1 + rn(dh, scale=0.2),
+         rn(dim, hd, scale=hd ** -0.5))
+
+    def pair(name, S, n, bias):
+        x, do = rn(S, n, dim, dtype=bf), rn(S, n, dim, dtype=bf)
+        rows = S * n
+        core = 4 * S * heads * n * n * dh
+        extra = () if bias is None else (bias,)
+        if bias is None:
+            fwd = lambda *a: fused_small_qknorm_attention(*a, heads, dh)  # noqa: E731
+        else:
+            fwd = lambda *a: fused_spatial_qknorm_attention(*a, heads, dh)  # noqa: E731
+        yield name, dict(kern=lambda: fwd(x, *w, *extra),
+                         plain=lambda: qknorm_attention_plain(x, *w, bias, heads, dh),
+                         library=None, inputs=(x, *w, *extra), outputs=(x,),
+                         flops=2 * rows * dim * 4 * hd + core, tol=REL_TOL)
+        leaves = [t.clone().requires_grad_() for t in (x, *w, *extra)]
+        out = fwd(*leaves)
+        yield name + "_bwd", dict(
+            kern=lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+            plain=lambda: tuple(t for t in qknorm_attention_bwd_plain(
+                x, *w, bias, do, heads, dh) if t is not None),
+            library=None, inputs=(x, do, *w, *extra), outputs=(x, *w, *extra),
+            flops=2 * rows * dim * hd * 11 + 3 * core, tol=BWD_REL_TOL)
+
+    yield from pair("seq_attention", CLIP160_B * 576, 16, None)
+    yield from pair("seq_attention_generatect", AE_B * 64, 20, None)
+    yield from pair("spatial_attention_n64", AE_B * AE_FRAMES // 10, 64, rn(heads, 64, 64))
+
+
+def write_volumes(root: Path, n: int, shape, seed: int):
+    """n NIfTI volumes (x, y, z) of int16 HU: smooth structure plus noise."""
+    from ct_clip_tpu_torch.data import write_volume
+
+    rng = np.random.RandomState(seed)
+    root.mkdir(parents=True)
+    for i in range(n):
+        x, y, z = np.ogrid[:shape[0], :shape[1], :shape[2]]
+        f = rng.uniform(1, 4, 3) * 2 * np.pi
+        vol = (600 * np.sin(f[0] * x / shape[0] + i) * np.cos(f[1] * y / shape[1])
+               + 300 * np.sin(f[2] * z / shape[2]) + rng.normal(0, 50, shape))
+        write_volume(root / f"vol_{i}.nii.gz", vol.astype(np.int16), (1.0, 1.0, 1.0))
+    return root
+
+
+def cuda_step_ms(fn, steps: int):
+    """CUDA-event times (ms) of `steps` calls of fn."""
+    import torch
+
+    out = []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def _no_grid_path(name: str, counts) -> None:
+    if any(counts[k] for k in GRID_COUNTERS):
+        raise AssertionError(f"{name}: a non-cubic grid took the grid form: {counts}")
+
+
+def ctvit_ae_phase(dev, work: Path, card: str) -> dict:
+    """The CTViT autoencoder at full width, batch AE_B, on a synthetic
+    GenerateCT corpus of 201 x 128 x 128 NIfTIs through VideoDataset(
+    num_frames=200): `CTViTTrainer` 3 generator-only steps, whose losses
+    must be finite and below step 1's, then one round with the
+    discriminator (3 generator steps and a discriminator step); the
+    sequence-major counters must rise and the grid ones not.  Then the step
+    times (CUDA events, median), peak memory, a profiled generator step, a
+    .pt save -> restore round trip and one `dump_reconstruction` NIfTI."""
+    import torch
+
+    from ct_clip_tpu_torch.data import read_volume
+    from ct_clip_tpu_torch.data.generatect import VideoDataset
+    from ct_clip_tpu_torch.models import CTViT
+    from ct_clip_tpu_torch.train import CTViTTrainer
+
+    cfg = ae_config()
+    ds = VideoDataset(str(write_volumes(work / "generatect", AE_B, (128, 128, 201), 6)),
+                      num_frames=AE_FRAMES, image_size=cfg.image_size)
+    t0 = time.perf_counter()
+    video = torch.from_numpy(np.stack([ds[i] for i in range(len(ds))]))[..., None].to(dev)
+    ingest_s = time.perf_counter() - t0
+    if video.shape != (AE_B, AE_FRAMES, 128, 128, 1):
+        raise AssertionError(f"ctvit ae: bad batch {tuple(video.shape)}")
+    model = CTViT(cfg, dtype=torch.bfloat16, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(0))
+    results = work / "ctvit_ae"
+    trainer = CTViTTrainer(model, results_folder=str(results), save_model_every=10 ** 9,
+                           save_results_every=10 ** 9)
+    counts = {}
+    logs, counts["ctvit_ae_train"], secs = drive(
+        "ctvit_ae_train", lambda: [trainer.train_step(video) for _ in range(3)])
+    losses = [x["loss"] for x in logs]
+    log(f"ctvit ae: {AE_B} volumes of {AE_FRAMES}x128x128 ingested in {ingest_s:.2f} s "
+        f"(host: NIfTI decode + resize); 3 generator steps in {secs:.2f} s; losses "
+        f"{losses}; recon {[x['recon_loss'] for x in logs]}; commit "
+        f"{[x['commit_loss'] for x in logs]}")
+    if not np.isfinite(losses).all() or not all(x < losses[0] for x in losses[1:]):
+        raise AssertionError(f"ctvit ae: losses not finite and falling: {losses}")
+    _no_grid_path("ctvit_ae_train", counts["ctvit_ae_train"])
+    dtrainer = CTViTTrainer(model, use_discr=True, results_folder=str(results / "discr"),
+                            save_model_every=10 ** 9, save_results_every=10 ** 9)
+    dlogs, counts["ctvit_ae_discr"], _ = drive("ctvit_ae_discr",
+                                                lambda: dtrainer.train_step(video))
+    log(f"ctvit ae with the discriminator: {dlogs}")
+    if not np.isfinite(list(dlogs.values())).all():
+        raise AssertionError(f"ctvit ae discriminator round: {dlogs}")
+    _no_grid_path("ctvit_ae_discr", counts["ctvit_ae_discr"])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen_ms = cuda_step_ms(lambda: trainer.train_step(video), 4)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    round_ms = cuda_step_ms(lambda: dtrainer.train_step(video), 2)
+    gen = statistics.median(gen_ms[1:])
+    log(f"ctvit ae step: batch {AE_B} x {AE_FRAMES}x128x128 (1,280 tokens each), full width, "
+        f"bf16: median {gen:.2f} ms of generator steps 2-4 {[round(t, 2) for t in gen_ms]} = "
+        f"{AE_B / gen * 1e3:.2f} volumes/s, peak memory {peak_gb:.2f} GB; a round with the "
+        f"discriminator (3 generator steps + 1) {[round(t, 2) for t in round_ms]} ms on {card}")
+    breakdown = profile_step(lambda: trainer.train_step(video), AE_GROUPS, "ctvit_ae")
+
+    path = trainer.ckpt.save(trainer.state.step, trainer.state)
+    other = CTViTTrainer(CTViT(cfg, dtype=torch.bfloat16, device=dev),
+                         results_folder=str(results / "restored"))
+    trainer.ckpt.restore(other.state)
+    same = all(torch.equal(t, other.state.model.state_dict()[k])
+               for k, t in trainer.state.model.state_dict().items()) and all(
+        torch.equal(t, other.state.ema_model.state_dict()[k])
+        for k, t in trainer.state.ema_model.state_dict().items())
+    dump = trainer.dump_reconstruction(video)
+    arr = read_volume(dump)[0]
+    log(f"ctvit ae: checkpoint {path.name} ({path.stat().st_size / 1e6:.1f} MB) restored equal "
+        f"{same} at step {other.state.step}; reconstruction dump {dump.name} {arr.shape}, "
+        f"finite {bool(np.isfinite(arr).all())}")
+    if not same or other.state.step != trainer.state.step or arr.shape != (128, 128, AE_FRAMES) \
+            or not np.isfinite(arr).all():
+        raise AssertionError("ctvit ae: checkpoint round trip or reconstruction dump failed")
+    del trainer, dtrainer, other, model, video
+    torch.cuda.empty_cache()
+    return dict(counts=counts, losses=losses, discr_round=dlogs, ingest_s=ingest_s,
+                step_ms=gen, step_ms_all=gen_ms, round_with_discr_ms=round_ms,
+                volumes_per_s=AE_B / gen * 1e3, peak_gb=peak_gb, step_breakdown=breakdown,
+                checkpoint_mb=path.stat().st_size / 1e6)
+
+
+def reconstruct_phase(dev, work: Path, card: str) -> dict:
+    """`cli reconstruct` at its default geometry (CTViTConfig(with_decoder=
+    True): 240 x 480 x 480, the cubic 24^3 grid, so the grid path) on two
+    synthetic volumes with seeded weights: two finite (480, 480, 240)
+    NIfTIs."""
+    import torch
+
+    from ct_clip_tpu_torch import cli
+    from ct_clip_tpu_torch.data import read_volume
+
+    data = write_volumes(work / "reconstruct", 2, (256, 256, 120), 7)
+    out = work / "reconstructions"
+    files, counts, secs = drive("reconstruct", lambda: cli.main(
+        ["--device", "cuda", "--seed", "0", "reconstruct", "--data", str(data),
+         "--results", str(out)]))
+    arrs = [read_volume(f)[0] for f in files]
+    log(f"reconstruct: {len(files)} volumes at 240x480x480 in {secs:.2f} s (host clock: model "
+        f"build, NIfTI decode and resize, NIfTI write included) on {card}; "
+        f"{[a.shape for a in arrs]}")
+    if len(arrs) != 2 or any(a.shape != (480, 480, 240) or not np.isfinite(a).all()
+                             for a in arrs) or any(counts[k] for k in SEQ_COUNTERS):
+        raise AssertionError("reconstruct: bad reconstructions or a sequence-major launch")
+    torch.cuda.empty_cache()
+    return dict(counts=counts, cli_s=secs)
+
+
+def ctclip_160_phase(dev, work: Path, card: str, corpus) -> dict:
+    """CT-CLIP with CTViTConfig(num_frames=160), (t, h, w) = (16, 24, 24):
+    `CTClipTrainer` one contrastive step at batch 8 on phase 6's corpus
+    (ingested to 160 x 480 x 480), the step time, peak memory and profile,
+    then one scored zero-shot batch of 2 on its patch rows; the
+    sequence-major counters must rise and the grid ones not."""
+    import torch
+
+    from ct_clip_tpu_torch.config import CTCLIPConfig, CTViTConfig, TrainConfig
+    from ct_clip_tpu_torch.data import CTReportDataset, WordPieceTokenizer
+    from ct_clip_tpu_torch.inference import ZeroShotClassifier
+    from ct_clip_tpu_torch.models import CTCLIP
+    from ct_clip_tpu_torch.train import CTClipTrainer
+
+    train, _, vocab = corpus
+    tok = WordPieceTokenizer(vocab)
+    model = CTCLIP(CTCLIPConfig(ctvit=CTViTConfig(num_frames=160)), dtype=torch.bfloat16,
+                   device=dev).init_weights(torch.Generator(device=dev).manual_seed(0))
+    trainer = CTClipTrainer(model, tok, train_dataset=CTReportDataset(*train[:3]),
+                            config=TrainConfig(batch_size=CLIP160_B,
+                                               save_results_every=10 ** 9,
+                                               save_model_every=10 ** 9),
+                            results_folder=str(work / "ctclip_160"), num_workers=4)
+    counts = {}
+    _, counts["ctclip_160_train"], secs = drive("ctclip_160_train", lambda: trainer.train(1))
+    _no_grid_path("ctclip_160_train", counts["ctclip_160_train"])
+    batch = next(trainer._batches())
+    want = (CLIP160_B, 16 * 576, 4000) if trainer.patch_rows else (CLIP160_B, 160, 480, 480, 1)
+    if batch["video"].shape != want:
+        raise AssertionError(f"ctclip 160: bad batch {tuple(batch['video'].shape)}")
+    timed = timed_steps(trainer.step_fn, trainer.state, batch, card, "ctclip_160", CLIP160_B)
+    model.eval()
+    rows = batch["video"][:2]
+    with torch.inference_mode():
+        probs, counts["zero_shot_160"], _ = drive(
+            "zero_shot_160", lambda: ZeroShotClassifier(model, tok).score_batch(rows))
+        batch_ms = cuda_ms(lambda: ZeroShotClassifier(model, tok).score_batch(rows), reps=3)
+    _no_grid_path("zero_shot_160", counts["zero_shot_160"])
+    probs = probs.float().cpu().numpy()
+    log(f"ctclip 160 frames: 1 step of {CLIP160_B} in {secs:.1f} s (host clock, ingest "
+        f"included); zero-shot P(present) {probs.shape} in [{probs.min():.4f}, "
+        f"{probs.max():.4f}], score_batch(2) {batch_ms:.2f} ms (prompts encoded in it) on {card}")
+    if probs.shape != (2, 18) or not np.isfinite(probs).all():
+        raise AssertionError(f"ctclip 160: bad zero-shot probabilities {probs.shape}")
+    del trainer, model, batch, rows
+    torch.cuda.empty_cache()
+    return dict(counts=counts, train_cli_s=secs, score_batch_ms_with_prompts=batch_ms, **timed)
+
+
+def tiny_ae_config():
+    """A tiny autoencoder on a non-cubic grid: (t, h, w) = (5, 3, 3)."""
+    from ct_clip_tpu_torch.config import CTViTConfig
+
+    return CTViTConfig(dim=64, codebook_size=128, image_size=48, patch_size=16,
+                       temporal_patch_size=4, num_frames=20, spatial_depth=2,
+                       temporal_depth=2, dim_head=16, heads=4, with_decoder=True)
+
+
+def tiny_ae_side(cfg, start, video, device, dtype, lr: float, folder: Path) -> dict:
+    """From `start` on `device` in `dtype`: the VQ ids, the generator loss
+    and every gradient, then one `CTViTTrainer` step from `start`."""
+    import torch
+
+    from ct_clip_tpu_torch.models import CTViT
+    from ct_clip_tpu_torch.train import CTViTTrainer
+
+    v = video.to(device)
+    model = CTViT(cfg, dtype=dtype, device=device)
+    model.load_state_dict(start)
+    trainer = CTViTTrainer(model, lr=lr, results_folder=str(folder))
+    with torch.no_grad():
+        codes = model(v, train=True, return_recons=True)[1].cpu()
+    model.load_state_dict(start)  # the VQ call moved the codebook
+    loss, _, _ = trainer.generator_loss(v)
+    loss.backward()
+    grads = {n: p.grad.float().cpu().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.load_state_dict(start)
+    metrics = trainer.train_step(v)
+    return dict(loss=loss.item(), grads=grads, codes=codes, metrics=metrics,
+                sd={k: t.float().cpu() for k, t in model.state_dict().items()})
+
+
+def ae_planted_faults():
+    """K10's sequence-major form without its dk_scale sum."""
+    import importlib
+
+    import torch
+
+    qa = importlib.import_module("ct_clip_tpu_torch.ops.qknorm_attention")
+    bwd = qa._qknorm_attention_bwd_cuda
+
+    def k10_seq_no_dks(*a):
+        g = bwd(*a)
+        bias, grid = a[7], a[-1]
+        return g if bias is not None or grid else g[:5] + (torch.zeros_like(g[5]),) + g[6:]
+    return {"K10 seq without its dk_scale sum": (qa, "_qknorm_attention_bwd_cuda",
+                                                 k10_seq_no_dks)}
+
+
+def tiny_ae_phase(dev, work: Path) -> dict:
+    """One tiny autoencoder generator step, card against CPU (both bf16),
+    held as the tiny CT-CLIP step is (`card_vs_cpu`), with the codebook at
+    the CPU's own tokens, and the gradients to TINY_AE_GRAD_RATIO; then
+    with K10 seq's dk_scale sum dropped, which must fail."""
+    import torch
+
+    from ct_clip_tpu_torch.models import CTViT
+
+    cfg, lr = tiny_ae_config(), 1e-3
+    video = torch.rand((2, 20, 48, 48, 1), generator=torch.Generator().manual_seed(11)) * 2 - 1
+    cpu = CTViT(cfg, dtype=torch.bfloat16).init_weights(torch.Generator().manual_seed(12))
+    seed_codebook_at_tokens(cpu, video)
+    start = {k: t.clone() for k, t in cpu.state_dict().items()}
+    res, _ = card_vs_cpu(dev, lambda device, dtype: tiny_ae_side(
+        cfg, start, video, device, dtype, lr, work / f"tiny_ae_{device.type}"), start, lr,
+        ae_planted_faults(), "CTViT autoencoder", vq_prefix="vq._codebook.",
+        grad_ratio=TINY_AE_GRAD_RATIO)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1926,6 +2335,20 @@ def main() -> int:
         aux_ref, _, _, _ = tiny_step_check(dev, tiny_aux_config(), aux_planted_faults(),
                                            "CT-CLIP with MLM, visual SSL and FILIP",
                                            noise_aware_updates=True)
+        seq = train_kernel_phase(dev, seq_kernel_cases(dev), CLIP160_B)
+        for key in ("seq_attention", "seq_attention_bwd"):
+            results[key] = dict(seq[key], at_generatect=seq[key.replace(
+                "seq_attention", "seq_attention_generatect")])
+        for key in ("spatial_attention", "spatial_attention_bwd"):
+            results[key]["at_n64"] = seq[key.replace("spatial_attention",
+                                                     "spatial_attention_n64")]
+        ae = ctvit_ae_phase(dev, work, card)
+        counts.update(ae.pop("counts"))
+        recon = reconstruct_phase(dev, work, card)
+        counts["reconstruct"] = recon.pop("counts")
+        clip160 = ctclip_160_phase(dev, work, card, corpus)
+        counts.update(clip160.pop("counts"))
+        ae_ref = tiny_ae_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1946,7 +2369,9 @@ def main() -> int:
                               "ctclip_train": ctclip,
                               "ctclip_train_tiny_card_vs_cpu": ctclip_ref,
                               "embed_grad": embed_grad, "ctclip_aux": aux,
-                              "ctclip_aux_tiny_card_vs_cpu": aux_ref}}),
+                              "ctclip_aux_tiny_card_vs_cpu": aux_ref, "ctvit_ae": ae,
+                              "reconstruct": recon, "ctclip_160": clip160,
+                              "ctvit_ae_tiny_card_vs_cpu": ae_ref}}),
           flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

@@ -14,6 +14,8 @@
       radbert-infer --reports CSV --head radbert.pt [--out inferred.csv]
   python -m ct_clip_tpu_torch.cli --vocab vocab.txt [--device cuda|cpu] \\
       radbert-eval --reports CSV --head radbert.pt [--out radbert_report.json]
+  python -m ct_clip_tpu_torch.cli [--device cuda|cpu] \\
+      reconstruct --data DIR [--ckpt CTViT.pt] [--results DIR] [--max-items N]
 
 Mirrors the `ct_clip_tpu.cli` commands of the same names.  Runs on the first
 CUDA device (hand-written kernels) unless `--device cpu` asks for the CPU
@@ -25,7 +27,12 @@ Without --ckpt the CT-CLIP weights are a seeded random initialisation;
 `checkpoints/step_{n}.pt` under --results and resumes from the latest
 checkpoint there; `radbert-train` starts from seeded random weights and
 writes a reference-layout (`model.*`, `fc1.*`) state dict, which
-`radbert-infer` and `radbert-eval` read with a strict load.
+`radbert-infer` and `radbert-eval` read with a strict load.  `reconstruct`
+runs the CTViT autoencoder (`CTViTConfig(with_decoder=True)`, 240 x 480 x 480)
+over every NIfTI of --data (`VideoDataset`) and writes `recon_{i:05d}.nii.gz`;
+its --ckpt is a CTViT state dict `.pt`, or a `CTViTTrainer` checkpoint, whose
+`model` it takes (the JAX package reads Orbax variables there).  Every
+command but `reconstruct` needs --vocab.
 """
 from __future__ import annotations
 
@@ -196,6 +203,36 @@ def cmd_radbert_eval(args):
     return probs
 
 
+def load_ctvit_checkpoint(model, path: str) -> None:
+    """Strict load of a CTViT state dict `.pt` or of a `CTViTTrainer`
+    checkpoint's `model`."""
+    sd: Dict = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(sd.get("model", sd), strict=True)
+
+
+def cmd_reconstruct(args):
+    """The CTViT autoencoder over a NIfTI folder (ct_clip_tpu/cli.py::
+    cmd_reconstruct)."""
+    from .data.generatect import VideoDataset
+    from .models import CTViT
+    from .train import reconstruct_dataset
+
+    cfg = config.CTViTConfig(with_decoder=True)
+    device = torch.device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = CTViT(cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32,
+                  device=device).eval()
+    if args.ckpt:
+        load_ctvit_checkpoint(model, args.ckpt)
+    else:
+        print("[warn] no --ckpt given; seeded random init", file=sys.stderr)
+        model.init_weights(torch.Generator(device=device).manual_seed(args.seed))
+    ds = VideoDataset(args.data, num_frames=cfg.num_frames, image_size=cfg.image_size)
+    written = reconstruct_dataset(model, ds, args.results, max_items=args.max_items)
+    print(f"wrote {len(written)} reconstructions on {args.device} -> {args.results}")
+    return written
+
+
 def _data_args(parser, results: str) -> None:
     for name in ("--data", "--reports", "--meta", "--labels"):
         parser.add_argument(name, required=True)
@@ -209,7 +246,8 @@ def main(argv=None):
     p.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="run on the first CUDA device (default) or the CPU")
-    p.add_argument("--vocab", required=True, help="CXR-BERT vocab.txt path")
+    p.add_argument("--vocab", help="CXR-BERT vocab.txt path (every command but "
+                   "reconstruct)")
     p.add_argument("--seed", type=int, default=0,
                    help="random-init (and RadBERT dropout) seed")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -259,7 +297,15 @@ def main(argv=None):
     re_.add_argument("--head", required=True, help="radbert-train --out .pt")
     re_.add_argument("--out", default="radbert_report.json")
     re_.set_defaults(fn=cmd_radbert_eval)
+    rc = sub.add_parser("reconstruct")
+    rc.add_argument("--data", required=True, help="folder of NIfTI volumes")
+    rc.add_argument("--ckpt", help="CTViT state dict or CTViTTrainer checkpoint .pt")
+    rc.add_argument("--results", default="reconstructions")
+    rc.add_argument("--max-items", type=int)
+    rc.set_defaults(fn=cmd_reconstruct)
     args = p.parse_args(argv)
+    if args.vocab is None and args.cmd != "reconstruct":
+        p.error(f"{args.cmd} needs --vocab")
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("no CUDA device is available; pass --device cpu to run on the CPU")
     return args.fn(args)

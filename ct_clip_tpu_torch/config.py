@@ -4,8 +4,9 @@ The fields the ported slices use, with the names and reference defaults of
 ct_clip_tpu/config.py.  The defaults are full CT-CLIP width: CTViT dim 512
 over a 24x24x24 token grid (480x480x240 volume, 20x20x10 patches), CXR-BERT
 12 x 768, 512-dim latents; the RadBERT-RoBERTa report classifier; and the
-CT-CLIP pretraining loop (`TrainConfig`).  The mesh and generative settings
-are not ported.
+CT-CLIP pretraining loop (`TrainConfig`); the CTViT autoencoder's decoder
+and commitment weight.  The mesh settings and the rest of the generative
+stack (MaskGIT, T5) are not ported.
 """
 from __future__ import annotations
 
@@ -58,6 +59,10 @@ class CTViTConfig(_Base):
     channels: int = 1
     num_frames: int = 240
     vq_decay: float = 0.8  # codebook EMA decay in training
+    vq_commitment_weight: float = 1.0  # weight of the autoencoder's commitment loss
+    # the decoder mirror of the autoencoder (the reference's decoder is dead
+    # code, ctvit.py:325-335; the JAX package builds a working mirror)
+    with_decoder: bool = False
 
     @property
     def patch_hw(self) -> int:

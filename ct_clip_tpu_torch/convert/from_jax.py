@@ -15,6 +15,12 @@ out; the closing bn_out has no parameters) and SimSiam predictor (fc0, bn0,
 out) under the reference's nn.Sequential indices
 (`visual_ssl.net.projector.{0,1,3,4,6}`, `visual_ssl.online_predictor.{0,1,3}`).
 
+`ctvit_state_dict_from_jax` does it for a standalone CTViT, the
+autoencoder's decoder included (its parameters carry the JAX package's
+names, which mirror the encoder's: the reference's decoder is dead code), and
+`discriminator_state_dict_from_jax` for the autoencoder trainer's
+Discriminator3D (flax Conv kernels DHWIO become Conv3d weights OIDHW).
+
 `state_dict_from_train_state` does it for the JAX pretraining TrainState
 (ct_clip_tpu/train/train_step.py): its `params` and `vq` collections, the
 codebook's EMA state included; gradients and Adam moments, which share the
@@ -32,7 +38,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from ..config import CTCLIPConfig, RadBertConfig
+from ..config import CTCLIPConfig, CTViTConfig, RadBertConfig
 
 
 def _t(a) -> torch.Tensor:
@@ -112,30 +118,62 @@ def _ssl_heads(sd: Dict, p: Mapping) -> None:
                 _linear(sd, f"{key}.{idx}", layer, bias="bias" in layer)
 
 
+def _cpb(sd: Dict, key: str, cpb: Mapping) -> None:
+    _linear(sd, f"{key}.net.0.0", cpb["net_0"])
+    _linear(sd, f"{key}.net.1.0", cpb["net_1"])
+    _linear(sd, f"{key}.net.2", cpb["net_out"])
+
+
+def _ctvit(sd: Dict, v: Mapping, vq: Mapping, vc: CTViTConfig, prefix: str) -> None:
+    """A CTViT's params `v` and VQ state `vq` under `prefix`; the decoder
+    when the params hold one."""
+    _ln(sd, f"{prefix}to_patch_emb.1", v["patch_norm_in_scale"], v["patch_norm_in_bias"])
+    _linear(sd, f"{prefix}to_patch_emb.2", {"kernel": v["patch_proj_kernel"],
+                                            "bias": v["patch_proj_bias"]})
+    _ln(sd, f"{prefix}to_patch_emb.3", v["patch_norm_out"]["scale"],
+        v["patch_norm_out"]["bias"])
+    stages = [("enc_spatial_transformer", vc.spatial_depth),
+              ("enc_temporal_transformer", vc.temporal_depth)]
+    cpbs = ["spatial_rel_pos_bias"]
+    if "to_pixels" in v:
+        stages += [("dec_temporal_transformer", vc.temporal_depth),
+                   ("dec_spatial_transformer", vc.spatial_depth)]
+        cpbs.append("dec_spatial_rel_pos_bias")
+        _linear(sd, f"{prefix}to_pixels", v["to_pixels"])
+    for name in cpbs:
+        _cpb(sd, f"{prefix}{name}", v[name])
+    for stage, depth in stages:
+        _transformer(sd, v[stage], f"{prefix}{stage}", depth, vc.heads, vc.dim_head)
+    sd[f"{prefix}vq._codebook.embed"] = _t(vq["embed"]).reshape(vc.codebook_size, vc.dim)
+    sd[f"{prefix}vq._codebook.cluster_size"] = _t(vq["cluster_size"]).reshape(
+        vc.codebook_size)
+    sd[f"{prefix}vq._codebook.initted"] = torch.ones(1)
+
+
+def ctvit_state_dict_from_jax(variables: Mapping,
+                              cfg: CTViTConfig) -> Dict[str, torch.Tensor]:
+    """JAX CTViT variables {'params': ..., 'vq': {'vq': ...}} (the
+    autoencoder's, decoder included) -> the port's CTViT state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _ctvit(sd, variables["params"], variables["vq"]["vq"], cfg, "")
+    return sd
+
+
+def discriminator_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX Discriminator3D params -> the port's: flax Conv kernels (kd, kh,
+    kw, in, out) become Conv3d weights (out, in, kd, kh, kw)."""
+    return {f"{name}.{leaf}": (_t(p["kernel"]).permute(4, 3, 0, 1, 2).contiguous()
+                               if leaf == "weight" else _t(p["bias"]))
+            for name, p in params.items() for leaf in ("weight", "bias")}
+
+
 def state_dict_from_jax(variables: Mapping, cfg: CTCLIPConfig) -> Dict[str, torch.Tensor]:
     """JAX CTCLIP variables -> the port's CTCLIP state dict (f32 tensors)."""
-    p, vc = variables["params"], cfg.ctvit
+    p = variables["params"]
     sd: Dict[str, torch.Tensor] = {}
     _bert(sd, p["text_transformer"], cfg.bert, "text_transformer.")
-
-    v, vk = p["visual_transformer"], "visual_transformer"
-    _ln(sd, f"{vk}.to_patch_emb.1", v["patch_norm_in_scale"], v["patch_norm_in_bias"])
-    _linear(sd, f"{vk}.to_patch_emb.2", {"kernel": v["patch_proj_kernel"],
-                                         "bias": v["patch_proj_bias"]})
-    _ln(sd, f"{vk}.to_patch_emb.3", v["patch_norm_out"]["scale"],
-        v["patch_norm_out"]["bias"])
-    cpb = v["spatial_rel_pos_bias"]
-    _linear(sd, f"{vk}.spatial_rel_pos_bias.net.0.0", cpb["net_0"])
-    _linear(sd, f"{vk}.spatial_rel_pos_bias.net.1.0", cpb["net_1"])
-    _linear(sd, f"{vk}.spatial_rel_pos_bias.net.2", cpb["net_out"])
-    for stage, depth in (("enc_spatial_transformer", vc.spatial_depth),
-                         ("enc_temporal_transformer", vc.temporal_depth)):
-        _transformer(sd, v[stage], f"{vk}.{stage}", depth, vc.heads,
-                     vc.dim_head)
-    vq = variables["vq"]["visual_transformer"]["vq"]
-    sd[f"{vk}.vq._codebook.embed"] = _t(vq["embed"]).reshape(vc.codebook_size, vc.dim)
-    sd[f"{vk}.vq._codebook.cluster_size"] = _t(vq["cluster_size"]).reshape(vc.codebook_size)
-    sd[f"{vk}.vq._codebook.initted"] = torch.ones(1)
+    _ctvit(sd, p["visual_transformer"], variables["vq"]["visual_transformer"]["vq"],
+           cfg.ctvit, "visual_transformer.")
 
     _linear(sd, "to_text_latent", p["to_text_latent"], bias=False)
     _linear(sd, "to_visual_latent", p["to_visual_latent"], bias=False)

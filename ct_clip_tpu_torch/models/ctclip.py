@@ -40,7 +40,7 @@ from torch import nn
 from ..config import CTCLIPConfig
 from ..ops.norms import l2norm
 from .bert import BertModel
-from .ctvit import CTViT
+from .ctvit import CTViT, init_param_
 from .mlm import MLM
 from .visual_ssl import SimCLR, SimSiam
 
@@ -150,20 +150,12 @@ class CTCLIP(nn.Module):
         projections, lecun-normal for the rest, unit LN scales and QK
         scales, zero biases, an l2-normalised normal codebook."""
         for name, t in self.named_parameters():
-            if t.numel() == 0:
-                continue
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("gamma", "q_scale", "k_scale") or (
-                    leaf == "weight" and t.dim() == 1):
-                t.fill_(1.0)
-            elif leaf == "bias":
-                t.zero_()
-            elif name == "temperature":
+            if name == "temperature":
                 t.fill_(self.config.temperature_init)
-            elif name.startswith("text_transformer."):
+            elif name.startswith("text_transformer.") and t.dim() > 1:
                 t.normal_(0.0, 0.02, generator=generator)
-            else:  # fan_in = all dims but the first (Linear and Conv3d)
-                t.normal_(0.0, (t[0].numel()) ** -0.5, generator=generator)
+            else:
+                init_param_(name, t, generator)
         cb = self.visual_transformer.vq._codebook
         cb.embed.copy_(l2norm(torch.randn(cb.embed.shape, generator=generator,
                                           device=cb.embed.device)))

@@ -11,12 +11,19 @@ Ports of ct_clip_tpu/ops/attention.py:
     dx is the depthwise conv of dout with the flipped kernel and complemented
     pads (lax_peg_dx, a conv in JAX too), dW and db are the port of K14
     (_pallas_peg_bwd, csrc/peg_bwd.cu; plain version `peg_dw_plain`);
-  * `QKNormAttention` and `MaskgitTransformer` (:501-583) for the encoder:
-    PEG -> attention -> feed-forward per layer, residuals folded into the
-    sublayer kernels, final gamma LayerNorm;
+  * `QKNormAttention` and `MaskgitTransformer` (:501-583) for the CTViT
+    encoder and decoder: PEG -> attention -> feed-forward per layer,
+    residuals folded into the sublayer kernels, final gamma LayerNorm.  The
+    attention takes the spatial sublayer (K1, with the CPB bias), the
+    temporal one on the native grid (K2 grid) or, for a non-cubic token
+    grid, on (b*h*w, t, d) sequences (K2 seq, the small-sequence dispatch of
+    ops/attention.py:276-293);
   * `fused_attention`, the port of ops/pallas/attention.py::fused_attention
     (K7): softmax(q k^T + bias + key_bias) v on (b, h, n, d), with its
-    backward (K12, key-bias form) as an autograd.Function;
+    backward (K12, key-bias form) as an autograd.Function.  A dense bias
+    together with a key bias is XLA in the JAX package (`_xla_attention`),
+    so here it is `attention_plain` on every device, differentiated by
+    autograd;
   * `fused_attention_kbias_dropout` (K13, forward and backward): the same
     with dropout on the probabilities from a Philox mask.
 
@@ -36,6 +43,7 @@ from . import kernels as K
 from .ffn import MaskgitFeedForward
 from .norms import layer_norm
 from .qknorm_attention import (fused_grid_qknorm_attention,
+                               fused_small_qknorm_attention,
                                fused_spatial_qknorm_attention)
 
 
@@ -190,8 +198,6 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, key_bias):
-        if bias is not None and key_bias is not None:
-            raise ValueError("fused_attention: bias and key_bias are exclusive")
         lse = None
         if q.device.type == "cpu":
             out = attention_plain(q, k, v, bias, key_bias)
@@ -224,10 +230,15 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
                     key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q k^T + bias + key_bias[:, None, None]) v on (b, h, n, d),
-    any scaling already applied to q.  bias (1, 1|h, n, n) and key_bias
-    (b, n) are mutually exclusive; on CUDA only key_bias (or none) is taken.
-    Differentiable: the backward is the port of K12 (key-bias or no bias,
-    f32 or bf16, on CUDA)."""
+    any scaling already applied to q; bias broadcastable to (b, h, n, n),
+    key_bias (b, n).  Differentiable: the backward is the port of K12
+    (key-bias or no bias, f32 or bf16, on CUDA).  Both biases together take
+    `attention_plain` and autograd on every device, as the JAX package takes
+    XLA there (ops/pallas/attention.py:347-350); a dense bias alone raises
+    NotImplementedError on CUDA (K7's dense-bias form and K12b are not
+    ported)."""
+    if bias is not None and key_bias is not None:
+        return attention_plain(q, k, v, bias, key_bias)
     return _FusedAttention.apply(q, k, v, bias, key_bias)
 
 
@@ -468,6 +479,9 @@ class QKNormAttention(nn.Module):
                 raise ValueError("the grid layout takes no attention bias")
             return fused_grid_qknorm_attention(x, *args, self.heads,
                                                self.dim_head, self.scale)
+        if attn_bias is None:  # (b*h*w, t, d) temporal sequences
+            return fused_small_qknorm_attention(x, *args, self.heads,
+                                                self.dim_head, self.scale)
         return fused_spatial_qknorm_attention(x, *args, attn_bias, self.heads,
                                               self.dim_head, self.scale)
 
@@ -484,8 +498,9 @@ class TransformerLayer(nn.ModuleDict):
 
 
 class MaskgitTransformer(nn.Module):
-    """transformer_maskgit/attention.py:280-333 for the CTViT encoder:
-    [PEG, self-attention, FF] x depth, all residual, then norm_out."""
+    """transformer_maskgit/attention.py:280-333 for the CTViT encoder and
+    decoder: [PEG, self-attention, FF] x depth, all residual, then
+    norm_out."""
 
     def __init__(self, dim: int, depth: int, dim_head: int, heads: int,
                  device=None):
@@ -498,8 +513,9 @@ class MaskgitTransformer(nn.Module):
     def forward(self, x: torch.Tensor, video_shape: Tuple[int, int, int, int],
                 attn_bias: Optional[torch.Tensor] = None,
                 grid_layout: bool = False) -> torch.Tensor:
-        """x: (b*t, h*w, d) spatial sequences, or with grid_layout=True the
-        native (b, t, h*w, d) grid of a cubic token grid."""
+        """x: (b*t, h*w, d) spatial sequences (with the CPB `attn_bias`),
+        (b*h*w, t, d) temporal sequences (no bias), or with grid_layout=True
+        the native (b, t, h*w, d) grid of a cubic token grid."""
         if grid_layout:
             b, t, h, w = video_shape
             if not (t == h == w and x.shape[:3] == (b, t, h * w)):
@@ -507,8 +523,10 @@ class MaskgitTransformer(nn.Module):
                                  f"grid, got {tuple(x.shape)}")
         d = x.shape[-1]
         for layer in self.layers:
-            # PEG sees x.reshape(*video_shape, d): the true grid spatially,
-            # the reference's reinterpreted grid temporally (rotated)
+            # PEG sees x.reshape(*video_shape, d): the true grid spatially;
+            # temporally the reference's reinterpretation of (b, h, w, t, d)
+            # memory as (b, t, h, w, d), which is that memory as it lies for
+            # sequences and the rotated conv on the cubic grid
             grid = x.reshape(*video_shape, d)
             x = layer["0"](grid, rotated=grid_layout).reshape(x.shape)
             x = layer["1"](x, attn_bias)

@@ -58,6 +58,8 @@ KERNELS = (
     "patch_embed_bwd",     # K16a patchify.py::_pallas_patch_embed_bwd
     "row_embed_bwd",       # K16b patchify.py::_pallas_row_embed_bwd
     "unrearrange_patches",  # K17 patchify.py::_pallas_unrearrange
+    "seq_attention",       # K2 small_attention.py::fused_small_qknorm_attention
+    "seq_attention_bwd",   # K10 small_attention.py::_pallas_small_qknorm_bwd (sequence-major)
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 

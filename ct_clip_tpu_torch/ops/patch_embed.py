@@ -16,7 +16,9 @@ rows, LayerNorm(4000), Linear(4000, 512), LayerNorm(512).
     (csrc/rearrange.cu): the last stage of the patch-row ingest, where it
     writes into a view the caller passes (one slot of the batch buffer), and
     the first stage of the volume training embed.  Its backward is K17
-    (`_pallas_unrearrange`, `unrearrange_patches`), the move back.
+    (`_pallas_unrearrange`, `unrearrange_patches`), the move back, which
+    the CTViT decoder also runs forward on its pixel rows (`unpatchify`,
+    whose backward is K6).
   * `fused_row_embed` (K4) embeds patch rows: LN(4000) of the contiguous
     rows (csrc/layernorm.cu), then the same product and LN(512) as K8.  Its
     backward is K16b (`_pallas_row_embed_bwd`), with d(rows) when the rows
@@ -123,6 +125,28 @@ def rearrange_patches(video: torch.Tensor, pt: int, p: int,
     if torch.is_grad_enabled() and video.requires_grad:
         raise ValueError("rearrange_patches: writing into `out` takes no gradient")
     return _rearrange_into(video, pt, p, out)
+
+
+class _Unrearrange(torch.autograd.Function):
+    """K17 forward, K6 backward; nothing is saved but the geometry."""
+
+    @staticmethod
+    def forward(ctx, rows, pt, p, F, H, W):
+        ctx.geom = (pt, p)
+        return unrearrange_patches(rows, pt, p, F, H, W)
+
+    @staticmethod
+    def backward(ctx, dvideo):
+        return (_rearrange_into(dvideo.contiguous(), *ctx.geom, None),
+                None, None, None, None, None)
+
+
+def unpatchify(rows: torch.Tensor, pt: int, p: int, F: int, H: int,
+               W: int) -> torch.Tensor:
+    """`unrearrange_patches` as a differentiable function (the backward is
+    K6): the CTViT decoder's pixel rows, (b, t*h*w, pt*p*p) in (pt, p1, p2)
+    order, back onto the (b, F, H, W) volume (ctvit.py:322-328)."""
+    return _Unrearrange.apply(rows, pt, p, F, H, W)
 
 
 def row_embed_plain(rows: torch.Tensor, s1, b1, w, pbias, s2, b2,

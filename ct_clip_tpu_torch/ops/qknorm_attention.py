@@ -1,9 +1,13 @@
-"""The CTViT QK-norm attention sublayer, spatial (K1) and temporal-grid (K2).
+"""The CTViT QK-norm attention sublayer: spatial (K1), temporal-grid (K2
+grid) and temporal sequence-major (K2 seq).
 
 Ports of ct_clip_tpu/ops/pallas/spatial_attention.py::
-fused_spatial_qknorm_attention (K1, plain twin `_xla_spatial_qknorm`) and
-ops/pallas/small_attention.py::fused_small_qknorm_attention_grid (K2, plain
-twin `_xla_grid_qknorm`).  One sublayer (reference
+fused_spatial_qknorm_attention (K1, plain twin `_xla_spatial_qknorm`),
+ops/pallas/small_attention.py::fused_small_qknorm_attention_grid (K2 grid,
+plain twin `_xla_grid_qknorm`) and ::fused_small_qknorm_attention (K2 seq,
+plain twin `_xla_small_qknorm`: the temporal stage of a non-cubic token
+grid, whose t-columns the caller has transposed into (b*h*w, t, dim)
+sequences).  One sublayer (reference
 transformer_maskgit/attention.py:88-181, self-attention, no null kv):
 
   * gamma LayerNorm; q from LN(x), k and v from the PRE-norm x
@@ -13,8 +17,9 @@ transformer_maskgit/attention.py:88-181, self-attention, no null kv):
   * softmax, times v, heads merged, output projection, + x.
 
 Weights are in nn.Linear layout: wq (h*dh, dim), wkv (2*h*dh, dim) with k
-first, wout (dim, h*dh).  The spatial form takes (b, n, dim) sequences; the
-grid form takes the native (b, t, h*w, dim) token grid and attends along t.
+first, wout (dim, h*dh).  The spatial and sequence-major forms take (b, n,
+dim) sequences (the same core, the spatial one with the CPB bias); the grid
+form takes the native (b, t, h*w, dim) token grid and attends along t.
 
 On a CUDA tensor: LN (csrc/layernorm.cu), the q and kv products
 (csrc/gemm.cu), the attention core (csrc/attention.cu, which reads the
@@ -23,8 +28,8 @@ the residual epilogue.
 
 The backwards are the ports of spatial_attention.py::_pallas_spatial_bwd
 (K9) and small_attention.py::_pallas_small_qknorm_bwd with grid_layout=True
-(K10).  Each saves only the sublayer's input and recomputes: LN, the q and
-kv products, dO W_out (an NN product), the attention core's backward
+(K10 grid) and False (K10 seq).  Each saves only the sublayer's input and
+recomputes: LN, the q and kv products, dO W_out (an NN product), the attention core's backward
 (csrc/qknorm_attention_bwd.cu: the merged heads, dq and dk through the
 l2norm, dv, and the sums of dq_scale, dk_scale and, spatially, of the
 (heads, n, n) bias over all planes, in a fixed order), dxn = dq W_q and
@@ -45,8 +50,8 @@ from .norms import l2norm, layer_norm
 # (sequence-group, head) blocks of the spatial backward: two per SM of the
 # H100's 132, so each group's bias-gradient partial stays one block's own
 TARGET_BLOCKS = 264
-# sequence groups of the grid backward (no bias): bounds the scale
-# gradients' partial rows that sum_splits adds
+# sequence groups of the backwards without a bias (grid and sequence-major):
+# bounds the scale gradients' partial rows that sum_splits adds
 GRID_GROUPS = 1024
 
 
@@ -179,25 +184,26 @@ def _qknorm_attention_bwd_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
 
 
 class _QKNormAttention(torch.autograd.Function):
-    """K1/K2-grid forward, K9/K10-grid backward, on CUDA tensors; only x is
-    saved."""
+    """K1 / K2 forward, K9 / K10 backward, on CUDA tensors; only x is saved.
+    `form` is "spatial", "grid" or "seq", which names the launch counters."""
 
     @staticmethod
     def forward(ctx, x, gamma, wq, wkv, q_scale, k_scale, wout, bias, heads,
-                dim_head, scale, grid):
-        ctx.cfg = (heads, dim_head, scale, grid)
+                dim_head, scale, form):
+        grid = form == "grid"
+        ctx.cfg = (heads, dim_head, scale, grid, form)
         ctx.save_for_backward(x, gamma, wq, wkv, q_scale, k_scale, wout, bias)
         out = _qknorm_attention_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
                                      heads, dim_head, scale, grid)
-        K.count_launch("grid_attention" if grid else "spatial_attention")
+        K.count_launch(f"{form}_attention")
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        heads, dim_head, scale, grid = ctx.cfg
+        heads, dim_head, scale, grid, form = ctx.cfg
         saved = ctx.saved_tensors
         grads = _qknorm_attention_bwd_cuda(*saved, dout, heads, dim_head, scale, grid)
-        K.count_launch("grid_attention_bwd" if grid else "spatial_attention_bwd")
+        K.count_launch(f"{form}_attention_bwd")
         out = [grads[0]] + [None if g is None else g.to(t.dtype)
                             for g, t in zip(grads[1:], saved[1:])]
         return (*out, None, None, None, None)
@@ -213,7 +219,22 @@ def fused_spatial_qknorm_attention(x, gamma, wq, wkv, q_scale, k_scale, wout,
         return qknorm_attention_plain(x, gamma, wq, wkv, q_scale, k_scale,
                                       wout, bias, heads, dim_head, scale)
     return _QKNormAttention.apply(x.contiguous(), gamma, wq, wkv, q_scale, k_scale,
-                                  wout, bias, heads, dim_head, scale, False)
+                                  wout, bias, heads, dim_head, scale, "spatial")
+
+
+def fused_small_qknorm_attention(x, gamma, wq, wkv, q_scale, k_scale, wout,
+                                 heads: int, dim_head: int,
+                                 scale: float = 8.0) -> torch.Tensor:
+    """(b, n, dim) short sequences without a bias (the temporal stage of a
+    non-cubic token grid, b = batch * h * w, n = t).  Returns x +
+    attention(x).  Differentiable: on CUDA the backward is the port of
+    K10's sequence-major form.  Plain versions: `qknorm_attention_plain`
+    and `qknorm_attention_bwd_plain` with bias None."""
+    if x.device.type == "cpu":
+        return qknorm_attention_plain(x, gamma, wq, wkv, q_scale, k_scale, wout,
+                                      None, heads, dim_head, scale)
+    return _QKNormAttention.apply(x.contiguous(), gamma, wq, wkv, q_scale, k_scale,
+                                  wout, None, heads, dim_head, scale, "seq")
 
 
 def fused_grid_qknorm_attention(x, gamma, wq, wkv, q_scale, k_scale, wout,
@@ -226,4 +247,4 @@ def fused_grid_qknorm_attention(x, gamma, wq, wkv, q_scale, k_scale, wout,
         return grid_qknorm_attention_plain(x, gamma, wq, wkv, q_scale,
                                            k_scale, wout, heads, dim_head, scale)
     return _QKNormAttention.apply(x.contiguous(), gamma, wq, wkv, q_scale, k_scale,
-                                  wout, None, heads, dim_head, scale, True)
+                                  wout, None, heads, dim_head, scale, "grid")

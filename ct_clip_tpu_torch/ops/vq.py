@@ -6,8 +6,9 @@ ct_clip_tpu/ops/pallas/vq.py::pallas_assign (K5) and pallas_cluster_stats
 quantized = codebook[ids] with the straight-through form.  In training
 (`train=True`) the assignment takes the exact mode and the codebook moves by
 EMA (decay 0.8) towards the mean of the l2-normalised rows assigned to each
-code, a code with no rows keeping its entry (vq.py:134-152).  The inference
-assignment has two numeric modes, as in the JAX package:
+code, a code with no rows keeping its entry (vq.py:134-152).  The
+autoencoder also takes the commitment loss (`commitment_loss`).  The
+inference assignment has two numeric modes, as in the JAX package:
 
   * bf16 input (the inference fast path, `raw_bf16` in vq.py:67-82): raw
     bf16 rows times the bf16-rounded normalised codebook, f32 sums, no row
@@ -108,24 +109,39 @@ class Codebook(nn.Module):
         self.register_buffer("initted", torch.ones(1, device=device))
 
 
+def commitment_loss(quant: torch.Tensor, x: torch.Tensor, weight: float) -> torch.Tensor:
+    """mean((sg(q) - x)^2) * weight in f32 (vq.py:155-158): pulls the
+    encoder's tokens x towards their codes q."""
+    return ((quant.detach().float() - x.float()) ** 2).mean() * weight
+
+
 class CosineVQ(nn.Module):
     def __init__(self, dim: int, codebook_size: int, decay: float = 0.8,
-                 device=None):
+                 commitment_weight: float = 1.0, device=None):
         super().__init__()
         self.decay = decay
+        self.commitment_weight = commitment_weight
         self._codebook = Codebook(dim, codebook_size, device=device)
 
-    def forward(self, x: torch.Tensor, train: bool = False):
-        """x (..., dim) -> (quantized like x, ids (...) int32).  train=True:
-        exact assignment, the codebook's EMA update (in place, no gradient)
-        and the straight-through output x + (q - x).detach()."""
+    def lookup(self, ids: torch.Tensor) -> torch.Tensor:
+        """The codes of `ids` (decode_from_codebook_indices, vq.py:161-166)."""
+        return self._codebook.embed[ids.long()]
+
+    def forward(self, x: torch.Tensor, train: bool = False, return_loss: bool = False):
+        """x (..., dim) -> (quantized like x, ids (...) int32), and with
+        return_loss the commitment loss third (the autoencoder's; CT-CLIP
+        discards it).  train=True: exact assignment, the codebook's EMA
+        update (in place, no gradient) and the straight-through output
+        x + (q - x).detach(); the loss reads the codes from before the
+        update, as the JAX module does."""
         cb = self._codebook
         embed = cb.embed
         flat = x.reshape(-1, x.shape[-1]).detach()
         ids = vq_assign(flat, l2norm(embed.float()), exact=train)
         quant = embed[ids.long()].to(x.dtype).view(x.shape)
+        loss = (commitment_loss(quant, x, self.commitment_weight),) if return_loss else ()
         if not train:
-            return x + (quant - x), ids.view(x.shape[:-1])
+            return (x + (quant - x), ids.view(x.shape[:-1])) + loss
         with torch.no_grad():
             bins, embed_sum = cluster_stats(flat, ids, embed.shape[0])
             empty = bins == 0
@@ -133,4 +149,4 @@ class CosineVQ(nn.Module):
             normed = torch.where(empty[:, None], embed, normed)
             embed.copy_(embed * self.decay + normed * (1.0 - self.decay))
             cb.cluster_size.copy_(cb.cluster_size * self.decay + bins * (1.0 - self.decay))
-        return x + (quant - x).detach(), ids.view(x.shape[:-1])
+        return (x + (quant - x).detach(), ids.view(x.shape[:-1])) + loss

@@ -1,4 +1,7 @@
 from .checkpoint import CheckpointManager
+from .ctvit_trainer import (CTViTTrainer, CTViTTrainState, Discriminator3D, ema_update,
+                            group_by_frame_count, hinge_discr_loss, hinge_gen_loss,
+                            reconstruct_dataset)
 from .finetune import bce_with_logits
 from .optimizer import (clip_by_global_norm_, cosine_annealing_warmup_restarts,
                         cosine_lr_schedule, get_optimizer)
@@ -8,8 +11,10 @@ from .train_step import (TrainState, create_train_state, make_train_step,
                          step_generators)
 from .trainer import CTClipTrainer, MetricLogger
 
-__all__ = ["CTClipTrainer", "CheckpointManager", "MetricLogger",
-           "ReportClassificationDataset", "TextClassifierTrainer", "TrainState",
-           "bce_with_logits", "clip_by_global_norm_", "cosine_annealing_warmup_restarts",
-           "cosine_lr_schedule", "create_train_state", "get_optimizer", "make_train_step",
-           "multilabel_report", "sentence_shuffle", "step_generators"]
+__all__ = ["CTClipTrainer", "CTViTTrainState", "CTViTTrainer", "CheckpointManager",
+           "Discriminator3D", "MetricLogger", "ReportClassificationDataset",
+           "TextClassifierTrainer", "TrainState", "bce_with_logits", "clip_by_global_norm_",
+           "cosine_annealing_warmup_restarts", "cosine_lr_schedule", "create_train_state",
+           "ema_update", "get_optimizer", "group_by_frame_count", "hinge_discr_loss",
+           "hinge_gen_loss", "make_train_step", "multilabel_report", "reconstruct_dataset",
+           "sentence_shuffle", "step_generators"]

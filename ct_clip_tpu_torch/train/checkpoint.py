@@ -1,10 +1,13 @@
 """Checkpoints of the whole train state with torch.save.
 
 Port of ct_clip_tpu/train/checkpoint.py::CheckpointManager (:18-54): one
-file per saved step, `step_{n}.pt`, holding the model in the reference
-state-dict layout (the VQ buffers included), the optimizer state and the
-step; at most `max_to_keep` are kept, and `restore` loads the latest (or a
-given) step.  Orbax's sharded and asynchronous writes are not ported.
+file per saved step, `step_{n}.pt`, holding the train state's
+`state_dict()` (for CT-CLIP the model in the reference state-dict layout,
+the VQ buffers included, and the optimizer state; for the CTViT autoencoder
+also its EMA weights and the discriminator) and the step; at most
+`max_to_keep` are kept, and `restore` loads the latest (or a given) step
+into a state through its `load_state_dict`.  Orbax's sharded and
+asynchronous writes are not ported.
 """
 from __future__ import annotations
 
@@ -35,8 +38,7 @@ class CheckpointManager:
     def save(self, step: int, state) -> Path:
         path = self.directory / f"step_{step}.pt"
         tmp = path.with_suffix(".tmp")
-        torch.save({"model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict(), "step": step}, tmp)
+        torch.save({**state.state_dict(), "step": step}, tmp)
         tmp.replace(path)
         for old in self.steps()[:-self.max_to_keep]:
             (self.directory / f"step_{old}.pt").unlink()
@@ -46,10 +48,8 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
-        device = state.model.temperature.device
-        sd = torch.load(self.directory / f"step_{step}.pt", map_location=device,
+        sd = torch.load(self.directory / f"step_{step}.pt", map_location=state.device,
                         weights_only=True)
-        state.model.load_state_dict(sd["model"], strict=True)
-        state.optimizer.load_state_dict(sd["optimizer"])
+        state.load_state_dict(sd)
         state.step = int(sd["step"])
         return state

@@ -34,6 +34,18 @@ class TrainState:
     optimizer: Optimizer
     step: int = 0
 
+    @property
+    def device(self) -> torch.device:
+        return self.model.temperature.device
+
+    def state_dict(self) -> Dict:
+        """What a checkpoint holds besides the step (train/checkpoint.py)."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        self.model.load_state_dict(sd["model"], strict=True)
+        self.optimizer.load_state_dict(sd["optimizer"])
+
 
 def create_train_state(model: CTCLIP, cfg: TrainConfig) -> TrainState:
     """The model as it is (initialised or loaded) with a fresh optimizer."""

@@ -26,6 +26,8 @@ def test_port_files_are_found():
     assert ROOT / "ct_clip_tpu_torch" / "train" / "text_classifier.py" in FILES
     for name in ("visual_ssl.py", "mlm.py"):
         assert ROOT / "ct_clip_tpu_torch" / "models" / name in FILES
+    for rel in ("train/ctvit_trainer.py", "data/generatect.py"):
+        assert ROOT / "ct_clip_tpu_torch" / rel in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -151,7 +151,26 @@ def test_grid_qknorm_attention(dev):
     _close(got, ref)
 
 
-@pytest.mark.parametrize("mode", ["key_bias", "head_bias", "none"])
+@pytest.mark.parametrize("b,n", [(64, 20), (72, 16)])
+def test_seq_qknorm_attention_k2(dev, b, n):
+    """K2's sequence-major form: short (b*h*w, t, dim) sequences without a
+    bias, at GenerateCT's t = 20 and CT-CLIP's 160-frame t = 16."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import (
+        fused_small_qknorm_attention, qknorm_attention_plain)
+
+    g = _gen(dev, 5)
+    x = _randn((b, n, 512), g, dev)
+    w = _attn_weights(g, dev)
+    K.reset_launch_counts()
+    got = fused_small_qknorm_attention(x, *w, 8, 32)
+    ref = qknorm_attention_plain(x, *w, None, 8, 32)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["seq_attention"] == 1
+    assert K.launch_counts()["spatial_attention"] == 0
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("mode", ["key_bias", "head_bias", "none", "both"])
 def test_fused_attention(dev, mode):
     from ct_clip_tpu_torch.ops.attention import attention_plain, fused_attention
 
@@ -174,6 +193,10 @@ def test_fused_attention(dev, mode):
         _close(fused_attention(q.cpu(), k.cpu(), v.cpu(), bias.cpu()),
                attention_plain(q, k, v, bias).cpu())
         return
+    elif mode == "both":  # XLA in the JAX package: the plain version on the card
+        bias = _randn((1, h, n, n), g, dev, 1.0, torch.float32)
+        key_bias = torch.zeros(b, n, device=dev)
+        key_bias[:, 300:] = torch.finfo(torch.float32).min
     got = fused_attention(q, k, v, bias, key_bias)
     ref = attention_plain(q, k, v, bias, key_bias)
     torch.cuda.synchronize()
@@ -457,6 +480,26 @@ def test_grid_attention_backward_k10(dev):
     _grads_close(got, grid_qknorm_attention_bwd_plain(x, *w, do, 2, 32))
 
 
+@pytest.mark.parametrize("n", [16, 20])
+def test_seq_attention_backward_k10(dev, n):
+    """K10's sequence-major form against autograd of the plain forward, and
+    its fixed-order sums (two runs bit-identical)."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import (fused_small_qknorm_attention,
+                                                        qknorm_attention_bwd_plain)
+
+    g = _gen(dev, 8)
+    x, do = _randn((96, n, 64), g, dev), _randn((96, n, 64), g, dev)
+    w = _qk_args(g, dev)
+    leaves = [t.detach().requires_grad_() for t in (x, *w)]
+    K.reset_launch_counts()
+    got = torch.autograd.grad(fused_small_qknorm_attention(*leaves, 2, 32), leaves, do)
+    assert K.launch_counts()["seq_attention_bwd"] == 1
+    assert K.launch_counts()["spatial_attention_bwd"] == 0
+    _grads_close(got, qknorm_attention_bwd_plain(x, *w, None, do, 2, 32)[:7])
+    again = torch.autograd.grad(fused_small_qknorm_attention(*leaves, 2, 32), leaves, do)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
 @pytest.mark.parametrize("rotated", [False, True])
 def test_peg_backward_k14(dev, rotated):
     from ct_clip_tpu_torch.ops.attention import _peg_geometry, peg_conv, peg_dw_plain
@@ -544,10 +587,11 @@ def test_layernorm_backward_column_sum_of_dx(dev):
 
 
 @pytest.mark.parametrize("shape,pt,p", [((2, 20, 60, 40), 10, 20),  # 16-byte path
+                                        ((2, 20, 32, 48), 10, 16),  # GenerateCT's patch
                                         ((1, 6, 15, 25), 2, 5)])   # 2-byte path
 def test_unrearrange_patches_k17_bit_exact(dev, shape, pt, p):
-    from ct_clip_tpu_torch.ops.patch_embed import (rearrange_patches, unrearrange_patches,
-                                                   unrearrange_plain)
+    from ct_clip_tpu_torch.ops.patch_embed import (rearrange_patches, unpatchify,
+                                                   unrearrange_patches, unrearrange_plain)
 
     g = _gen(dev, 17)
     video = _randn(shape, g, dev)
@@ -562,6 +606,9 @@ def test_unrearrange_patches_k17_bit_exact(dev, shape, pt, p):
     v = video.detach().requires_grad_()
     dv, = torch.autograd.grad(rearrange_patches(v, pt, p), v, rows)  # K6's VJP is K17
     assert torch.equal(dv, got)
+    r = rows.detach().requires_grad_()  # the decoder's unpatchify: K17, VJP K6
+    dr, = torch.autograd.grad(unpatchify(r, pt, p, *shape[1:]), r, video)
+    assert torch.equal(dr, rearrange_patches(video, pt, p))
 
 
 def _embed_weights(g, dev, pd=4000, dim=512):

@@ -139,6 +139,53 @@ def test_fused_attention_matches_xla_twin(mode):
     _close(got, ref)
 
 
+def test_fused_attention_with_bias_and_key_bias_matches_jax():
+    """A dense bias together with a key bias: the JAX package computes
+    softmax(q k^T + bias + key_bias) v in XLA (`_xla_attention`), the port
+    with `attention_plain` and autograd on every device.  Forward and the
+    VJP into q, k, v and both biases within 1e-5 relative."""
+    import jax
+    from ct_clip_tpu.ops.pallas.attention import fused_attention as jfused
+    from ct_clip_tpu_torch.ops.attention import fused_attention
+
+    rng = np.random.RandomState(14)
+    b, h, n, d = 3, 2, 20, 8
+    q, k, v, do = (rng.randn(b, h, n, d).astype(np.float32) for _ in range(4))
+    bias = rng.randn(1, h, n, n).astype(np.float32)
+    key_bias = np.where(rng.rand(b, n) < 0.25, -1e9, 0.0).astype(np.float32)
+    ins = (q, k, v, bias, key_bias)
+    ref, jvjp = jax.vjp(jfused, *map(jnp.asarray, ins))
+    leaves = [_t(a).requires_grad_() for a in ins]
+    got = fused_attention(*leaves)
+    _close(got, ref)
+    grads = torch.autograd.grad(got, leaves, _t(do))
+    for g, r in zip(grads, jvjp(jnp.asarray(do))):
+        _close(g, r)
+
+
+@pytest.mark.parametrize("n", [16, 20])
+def test_small_qknorm_attention_and_vjp_match_jax(n):
+    """K2's sequence-major form and K10's (its VJP): the plain versions
+    against the JAX package's `fused_small_qknorm_attention` (on the CPU its
+    XLA twin and that twin's VJP), f32, residual=True, at t = 16 (where the
+    TPU takes its kernel) and t = 20 (GenerateCT's, where it does not):
+    within 1e-5 relative, the gradients 1e-4."""
+    import jax
+    from ct_clip_tpu.ops.pallas.small_attention import \
+        fused_small_qknorm_attention as jsmall
+    from ct_clip_tpu_torch.ops.qknorm_attention import (fused_small_qknorm_attention,
+                                                        qknorm_attention_bwd_plain)
+
+    _, x, w, do = _spatial_inputs(45, 6, n, 32, 2, 16)
+    f = lambda a: jnp.asarray(a, jnp.float32)  # noqa: E731
+    ref, jvjp = jax.vjp(lambda *a: jsmall(*a, 2, 16, 8.0, jnp.float32, True),
+                        f(x), *_jax_args(w))
+    _close(fused_small_qknorm_attention(_t(x), *_port_args(w), 2, 16, 8.0), ref)
+    got = qknorm_attention_bwd_plain(_t(x), *_port_args(w), None, _t(do), 2, 16)
+    assert got[7] is None
+    _attn_grads_close(got[:7], jvjp(f(do)))
+
+
 def test_vq_ids_match_exact_cosine_vq():
     from ct_clip_tpu.ops.vq import CosineVQ as JaxVQ
     from ct_clip_tpu_torch.ops.vq import CosineVQ
@@ -397,6 +444,32 @@ def test_k10_plain_backward_matches_pallas_grid_bwd(pallas_interpret):
     got = grid_qknorm_attention_bwd_plain(_t(x), *_port_args(w), _t(do), heads, dh)
     assert len(got) == len(ref) == 7
     _attn_grads_close(got, ref)
+
+
+def test_k2_k10_seq_plain_match_pallas_small_qknorm(pallas_interpret):
+    """K2 and K10 in sequence-major form: the plain forward and backward on
+    (b, t, dim) sequences against `_pallas_small_qknorm` and
+    `_pallas_small_qknorm_bwd` (grid_layout=False) in interpret mode, f32,
+    residual=True, at the shape tests/test_pallas_interpret.py runs them:
+    within 1e-4 relative."""
+    from ct_clip_tpu.ops.pallas.small_attention import (_pallas_small_qknorm,
+                                                        _pallas_small_qknorm_bwd, _plan,
+                                                        _plan_bwd)
+    from ct_clip_tpu_torch.ops.qknorm_attention import (qknorm_attention_bwd_plain,
+                                                        qknorm_attention_plain)
+
+    b, n, dim, heads, dh = 16, 24, 128, 4, 32
+    _, x, w, do = _spatial_inputs(47, b, n, dim, heads, dh)
+    g, gb = _plan(b, n, dim, heads, dh), _plan_bwd(b, n, dim, heads, dh)
+    assert g is not None and gb is not None
+    f = lambda a: jnp.asarray(a, jnp.float32)  # noqa: E731
+    kw = dict(heads=heads, dim_head=dh, scale=8.0, dtype=jnp.float32, residual=True)
+    ref = _pallas_small_qknorm(f(x), *_jax_args(w), g, **kw)
+    _close(qknorm_attention_plain(_t(x), *_port_args(w), None, heads, dh), ref, 1e-4)
+    ref = _pallas_small_qknorm_bwd(f(x), *_jax_args(w), f(do), gb, **kw)
+    got = qknorm_attention_bwd_plain(_t(x), *_port_args(w), None, _t(do), heads, dh)
+    assert len(ref) == 7
+    _attn_grads_close(got[:7], ref)
 
 
 @pytest.mark.parametrize("rotated", [False, True])
