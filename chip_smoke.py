@@ -82,7 +82,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
      default 240 x 480 x 480 (the grid path); CT-CLIP at 160 frames, one
      contrastive step at batch 8 and one zero-shot batch of 2; a tiny
      autoencoder step card against CPU, and again with K10 seq's dk_scale
-     sum dropped, which must fail.
+     sum dropped, which must fail;
+  9. MaskGIT, the generative stack's second stage: K7's dense-bias form and
+     K12b against their plain versions at MaskGIT's (8, 8, 1280, 64) with
+     the (1, 8, n, n) CPB bias in bf16 and f32, T5's (8, 12, 256, 64) in
+     f32 and a ragged n = 1,000 with a one-head bias, dbias bit-identical
+     run to run; `MaskGitTrainer` at full width (MaskGitConfig(), 8,192
+     codes, bf16 compute) with the TokenCritic at batch 8 on the codes of 8
+     synthetic 200 x 128 x 128 volumes from phase 8's frozen autoencoder
+     (`encode_ids`) and a CXR-BERT context of 8 reports (8, 512, 768): 4
+     steps with the launches per step (K7 dense 6, K12b 6, the critic's K7
+     and K12a 6 each), step time, peak memory, a profiled step, a .pt round
+     trip, one step with a seeded T5-base context; `MaskGITPipeline.sample`
+     of 2 volumes (18 steps, cond scale 3, the critic: 216 K7 dense
+     launches) and a primed sample; T5-base on 8 x 256 ids without a mask
+     (12 K7 dense launches) and with a pad mask (none); a tiny MaskGit step
+     card against CPU, and again with K12b's dbias from batch row 0 only,
+     which must fail.
 
 Prints the end-to-end numbers and the kernel table as one JSON line each,
 then the card's name and power limit (nvidia-smi), then
@@ -203,6 +219,12 @@ KERNELS = {
                                  "small_attention.py:437", "qknorm_attention_bwd.cu",
                                  ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
                                  "seq_attention_bwd", "ctvit_ae_train"),
+    "attention_dense": _kernel("_pallas_attention (dense bias)", "attention.py:157",
+                               "attention_train.cu", ATTN_TRAIN, "attention_dense",
+                               "maskgit_train"),
+    "attention_dense_bwd": _kernel("_pallas_attention_bwd", "attention.py:301",
+                                   "attention_train.cu", ATTN_TRAIN, "attention_dense_bwd",
+                                   "maskgit_train"),
 }
 # launch counters each driven path must raise
 COMMON = ["spatial_attention", "grid_attention", "geglu_ff", "vq_assign",
@@ -249,6 +271,20 @@ PATHS["ctclip_160_train"] = ["seq_attention", "seq_attention_bwd", "spatial_atte
                              "attention_dropout", "attention_dropout_bwd"]
 PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "seq_attention", "geglu_ff",
                           "vq_assign", "fused_attention"]
+# phase 9: MaskGIT on the frozen autoencoder's (20, 8, 8) codes.  A training
+# step: the MaskGit's self-attention with the 3-D CPB bias (K7 dense, K12b),
+# the critic's without a bias (K7, K12a), the FF (K3, K11), the non-causal
+# PEG (K14); the CTViT's inference encode (K8, K1, K2 seq, K3, K5); the
+# sampler (K7 dense, the critic's K7, the decoder's K2 seq, K1, K3, K17);
+# T5 without a mask (K7 dense, 12 per-head biases)
+PATHS["maskgit_train"] = ["attention_dense", "attention_dense_bwd", "fused_attention",
+                          "attention_bwd", "geglu_ff", "geglu_ff_bwd", "peg_bwd"]
+PATHS["maskgit_encode_ids"] = ["patch_embed", "spatial_attention", "seq_attention", "geglu_ff",
+                               "vq_assign"]
+PATHS["maskgit_sample"] = ["attention_dense", "fused_attention", "geglu_ff", "seq_attention",
+                           "spatial_attention", "unrearrange_patches"]
+PATHS["maskgit_sample_primed"] = PATHS["maskgit_sample"] + ["patch_embed", "vq_assign"]
+PATHS["t5_no_mask"] = ["attention_dense"]
 # the paths on a non-cubic grid must not take the grid form, and back
 GRID_COUNTERS = ("grid_attention", "grid_attention_bwd")
 SEQ_COUNTERS = ("seq_attention", "seq_attention_bwd")
@@ -1500,7 +1536,7 @@ TINY_UPDATE_TOL = 1e-2  # x lr, entries whose gradient is >= 0.2 of its tensor's
 # parameters whose true gradient is zero: softmax shift invariance, and the
 # SimSiam predictor's first bias, which a BatchNorm cancels
 ZERO_GRAD = ("attention.self.key.bias", "spatial_rel_pos_bias.net.2.bias",
-             "visual_ssl.online_predictor.0.bias")
+             "visual_ssl.online_predictor.0.bias", "continuous_pos_bias.net.2.bias")
 
 
 def tiny_ctclip_inputs():
@@ -1573,10 +1609,12 @@ def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float,
         dist = l2_rel(g["grads"][n], ref)
         ratio[n] = (dist / noise, dist, noise)
     worst = sorted(ratio.items(), key=lambda kv: -kv[1][0])
-    agree = (g["codes"] == c["codes"]).float().mean().item()
-    key = vq_prefix
-    cs_err = (g["sd"][key + "cluster_size"] - c["sd"][key + "cluster_size"]).abs().max().item()
-    cb_err = (g["sd"][key + "embed"] - c["sd"][key + "embed"]).abs().max().item()
+    agree, cs_err, cb_err = 1.0, 0.0, 0.0
+    if vq_prefix is not None:  # a model with a VQ (None: MaskGIT)
+        key = vq_prefix
+        agree = (g["codes"] == c["codes"]).float().mean().item()
+        cs_err = (g["sd"][key + "cluster_size"] - c["sd"][key + "cluster_size"]).abs().max().item()
+        cb_err = (g["sd"][key + "embed"] - c["sd"][key + "embed"]).abs().max().item()
     upd_err, upd_worst, upd_max, within_cpu_noise = 0.0, "", 0.0, []
     for n, ref in c["grads"].items():
         if not ref.numel() or n.endswith(ZERO_GRAD):
@@ -2287,6 +2325,369 @@ def tiny_ae_phase(dev, work: Path) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 9
+MG_B = 8  # MaskGIT training batch: 8 volumes' (20, 8, 8) codes
+MG_STEPS = 4
+MG_TEXT = 512  # CXR-BERT context tokens
+# kernel-name fragments of a MaskGIT step's groups (first match)
+MG_GROUPS = (
+    ("K12a/K12b backward (attention_train.cu)", ("bwd_dq_kernel<", "bwd_dkv_kernel<",
+                                                 "rowdot_kernel<", "dbias_sum_kernel")),
+    ("K7 / K7 dense forward (attention_train.cu)", ("::fwd_kernel<",)),
+) + CTCLIP_GROUPS
+
+
+def dense_attention_cases(dev):
+    """K7 dense and K12b against their plain versions at MaskGIT's (8, 8,
+    1280, 64) with the (1, 8, n, n) CPB bias in bf16 and f32, T5's (8, 12,
+    256, 64) with its per-head bias in f32, and a ragged n = 1,000 with a
+    one-head bias in bf16: each case's kernel call (fused_attention, its
+    backward autograd.grad of a kept forward), plain version, library call
+    (F.scaled_dot_product_attention with the bias as attn_mask, scale 1; the
+    backward its autograd with the bias requiring grad), the tensors it
+    reads and writes and its products, at the bf16 tensor-core or the f32
+    CUDA-core peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from ct_clip_tpu_torch.ops.attention import (attention_bwd_plain, attention_plain,
+                                                 fused_attention)
+
+    g = torch.Generator(device=dev).manual_seed(90)
+    for label, (b, h, n, d), bh, dtype in (
+            ("maskgit_bf16", (MG_B, 8, 1280, 64), 8, torch.bfloat16),
+            ("maskgit_f32", (MG_B, 8, 1280, 64), 8, torch.float32),
+            ("t5_f32", (8, 12, 256, 64), 12, torch.float32),
+            ("ragged_one_head_bf16", (MG_B, 8, 1000, 64), 1, torch.bfloat16)):
+        q, k, v, do = ((torch.randn((b, n, h, d), generator=g, device=dev)).to(dtype)
+                       .transpose(1, 2) for _ in range(4))
+        q = q * d ** -0.5
+        bias = torch.randn((1, bh, n, n), generator=g, device=dev)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+        out = fused_attention(*leaves[:3], bias=leaves[3])
+        lib_in = [t.detach().requires_grad_() for t in (q, k, v, bias.to(dtype))]
+        lib_out = F.scaled_dot_product_attention(*lib_in[:3], attn_mask=lib_in[3], scale=1.0)
+        lse = torch.empty((b, h, n), device=dev)  # the residual a backward reads
+        product = 2 * b * h * n * n * d
+        f32 = dtype == torch.float32
+        peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+        yield f"attention_dense@{label}", dict(
+            kern=lambda: fused_attention(q, k, v, bias),
+            plain=lambda: attention_plain(q, k, v, bias),
+            library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias.to(dtype),
+                                                           scale=1.0),
+            inputs=(q, k, v, bias), outputs=(q,), flops=2 * product, peak=peak,
+            tol=F32_REL_TOL if f32 else REL_TOL)
+        yield f"attention_dense_bwd@{label}", dict(
+            kern=lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+            plain=lambda: attention_bwd_plain(q, k, v, do, bias)[:4],
+            library=lambda: torch.autograd.grad(lib_out, lib_in, do, retain_graph=True),
+            inputs=(q, k, v, bias, do, out, lse), outputs=(q, k, v, bias), flops=5 * product,
+            peak=peak, tol=F32_REL_TOL if f32 else BWD_REL_TOL)
+
+
+def dense_attention_phase(dev) -> dict:
+    """`train_kernel_phase` over `dense_attention_cases`, and K12b's dbias
+    bit-identical across two runs of each case, its rows summing to zero
+    within 16x the plain version's rounding.  Returns the MaskGIT bf16
+    rows as the table's, the other shapes under `at_<label>`."""
+    import torch
+
+    results = {}
+    # one case at a time: each case's closures read the generator's current
+    # tensors, so it runs before the generator moves on
+    for name, case in dense_attention_cases(dev):
+        results[name] = train_kernel_phase(dev, [(name, case)], MG_B)[name]
+        if name.startswith("attention_dense_bwd"):
+            first = case["kern"]()[3].clone()
+            same = torch.equal(case["kern"]()[3], first)
+            results[name]["dbias_bit_identical"] = same
+            log(f"kernel {name}: dbias bit-identical across two runs: {same}")
+            if not same:
+                raise AssertionError(f"{name}: dbias differs between two runs")
+            # dS rows sum to zero exactly; the kernel's stay at f32 rounding
+            # (D_i from the forward's f32 output), like the plain version's
+            rows = first.sum(-1).abs().max().item()
+            plain_rows = case["plain"]()[3].sum(-1).abs().max().item()
+            results[name].update(dbias_row_sum_max=rows, plain_dbias_row_sum_max=plain_rows)
+            log(f"kernel {name}: largest |row sum| of dbias {rows:.3e}, plain {plain_rows:.3e}")
+            if rows > 16 * plain_rows:
+                raise AssertionError(f"{name}: dbias rows sum to {rows:.3e}, over 16x the "
+                                     f"plain version's {plain_rows:.3e}")
+        del case
+        torch.cuda.empty_cache()
+    table = {}
+    for key in ("attention_dense", "attention_dense_bwd"):
+        table[key] = dict(results[f"{key}@maskgit_bf16"], shape=[MG_B, 8, 1280, 64],
+                          **{f"at_{label}": results[f"{key}@{label}"] for label in
+                             ("maskgit_f32", "t5_f32", "ragged_one_head_bf16")})
+    return table
+
+
+def maskgit_models(dev, dtype, seed: int = 0):
+    """MaskGitConfig() at full width over the autoencoder's 8,192 codes:
+    the MaskGit (with cross attention to 768-wide text) and the TokenCritic,
+    seeded, f32 parameters computing in `dtype`."""
+    import torch
+
+    from ct_clip_tpu_torch.config import MaskGitConfig
+    from ct_clip_tpu_torch.models import MaskGit, TokenCritic
+
+    cfg = MaskGitConfig()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    maskgit = MaskGit(cfg, 8192, dtype=dtype, device=dev).init_weights(g)
+    critic = TokenCritic(cfg, 8192, dtype=dtype, device=dev).init_weights(g)
+    return maskgit, critic
+
+
+def bert_embedder(dev, vocab: str):
+    """The full-width CXR-BERT tower, seeded, bf16, eval, as a text embedder
+    (max length 512, pad rows zeroed)."""
+    import torch
+
+    from ct_clip_tpu_torch.config import BertConfig
+    from ct_clip_tpu_torch.data import WordPieceTokenizer
+    from ct_clip_tpu_torch.models import BertModel
+    from ct_clip_tpu_torch.models.ctvit import init_param_
+    from ct_clip_tpu_torch.models.t5 import bert_text_embedder
+
+    bert = BertModel(BertConfig(), dtype=torch.bfloat16, device=dev).eval()
+    g = torch.Generator(device=dev).manual_seed(3)
+    for name, t in bert.named_parameters():
+        init_param_(name, t, g)
+    return bert_text_embedder(bert, WordPieceTokenizer(vocab), max_length=MG_TEXT)
+
+
+def report_texts(path: str):
+    with open(path, newline="") as f:
+        return [row["report"] for row in csv.DictReader(f)]
+
+
+def maskgit_phase(dev, work: Path, card: str) -> dict:
+    """MaskGIT at full width on the frozen autoencoder (phase 8's
+    `ae_config()`, seeded): (b) `MaskGitTrainer` with the TokenCritic at
+    batch 8 on the codes of 8 synthetic 200 x 128 x 128 volumes, CXR-BERT
+    context of 8 reports (8, 512, 768): 4 steps, finite losses, the launches
+    per step (K7 dense 6, K12b 6, the critic's K7 6 and K12a 6), the median
+    step time of steps 2-4 (CUDA events), peak memory, a profiled step, a
+    .pt round trip; one step with a seeded T5-base context; (c)
+    `MaskGITPipeline.sample` of 2 volumes from 2 reports (18 steps, cond
+    scale 3, the critic), then a sample of 100 frames primed with the last
+    100 of the first; (d) T5-base alone on 8 x 256 ids without a mask (K7
+    dense, 12 launches) and with a pad mask (plain attention, none)."""
+    import torch
+
+    from ct_clip_tpu_torch.data import WordPieceTokenizer
+    from ct_clip_tpu_torch.data.generatect import VideoDataset
+    from ct_clip_tpu_torch.models import CTViT, MaskGITPipeline, T5Encoder, t5_base_v1_1
+    from ct_clip_tpu_torch.models.t5 import t5_embedder
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.train import MaskGitTrainer
+
+    bf = torch.bfloat16
+    cfg = ae_config()
+    grid = (AE_FRAMES // cfg.temporal_patch_size, cfg.patch_hw, cfg.patch_hw)
+    ds = VideoDataset(str(write_volumes(work / "maskgit", MG_B, (128, 128, 201), 9)),
+                      num_frames=AE_FRAMES, image_size=cfg.image_size)
+    video = torch.from_numpy(np.stack([ds[i] for i in range(len(ds))]))[..., None].to(dev)
+    ctvit = CTViT(cfg, dtype=bf, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(0))
+    vocab = write_vocab(work / "maskgit_vocab.txt")
+    texts = report_texts(write_reports(work / "maskgit_reports.csv", MG_B, 10))
+    embed = bert_embedder(dev, vocab)
+    context = embed(texts)
+    maskgit, critic = maskgit_models(dev, bf)
+    trainer = MaskGitTrainer(maskgit, ctvit, critic, results_folder=str(work / "maskgit_run"),
+                             save_model_every=10 ** 9)
+    counts = {}
+    ids, counts["maskgit_encode_ids"], enc_s = drive("maskgit_encode_ids",
+                                                      lambda: trainer.encode_ids(video))
+    if ids.shape != (MG_B, *grid) or context.shape != (MG_B, MG_TEXT, 768):
+        raise AssertionError(f"maskgit: ids {tuple(ids.shape)}, context "
+                             f"{tuple(context.shape)}")
+    # step 1 with the counters, steps 2-4 timed (CUDA events)
+    first, counts["maskgit_train"], _ = drive(
+        "maskgit_train", lambda: trainer.train_step(ids, grid, context=context))
+    torch.cuda.reset_peak_memory_stats()
+    logs = [first]
+    step_ms = cuda_step_ms(lambda: logs.append(trainer.train_step(ids, grid, context=context)),
+                           MG_STEPS - 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(step_ms)
+    c = counts["maskgit_train"]
+    per_step = {k: c[k] for k in ("attention_dense", "attention_dense_bwd", "fused_attention",
+                                  "attention_bwd", "geglu_ff", "geglu_ff_bwd", "peg_bwd")}
+    log(f"maskgit step: batch {MG_B} x {int(np.prod(grid)):,} tokens, full width, bf16, CXR-BERT "
+        f"context {tuple(context.shape)}, critic on: median {med:.2f} ms of steps 2-4 "
+        f"{[round(t, 2) for t in step_ms]} = {MG_B / med * 1e3:.2f} volumes/s; peak memory "
+        f"{peak_gb:.2f} GB; losses {[round(x['loss'], 4) for x in logs]}, critic "
+        f"{[round(x['critic_loss'], 4) for x in logs]}; launches in one step {per_step} on {card}")
+    if not all(np.isfinite([x["loss"], x["critic_loss"]]).all() for x in logs):
+        raise AssertionError(f"maskgit: losses not finite: {logs}")
+    want = dict(attention_dense=6, attention_dense_bwd=6, fused_attention=6, attention_bwd=6)
+    if any(per_step[k] != n for k, n in want.items()):
+        raise AssertionError(f"maskgit: launches per step {per_step}, want {want}")
+    breakdown = profile_step(lambda: trainer.train_step(ids, grid, context=context),
+                             MG_GROUPS, "maskgit")
+
+    path = trainer.ckpt.save(trainer.state.step, trainer.state)
+    m2, c2 = maskgit_models(dev, bf, seed=1)
+    other = MaskGitTrainer(m2, ctvit, c2, results_folder=str(work / "maskgit_restored"))
+    trainer.ckpt.restore(other.state)
+    same = all(torch.equal(t, other.state.maskgit.state_dict()[k])
+               for k, t in maskgit.state_dict().items()) and all(
+        torch.equal(t, other.state.critic.state_dict()[k]) for k, t in critic.state_dict().items())
+    log(f"maskgit: checkpoint {path.name} ({path.stat().st_size / 1e6:.1f} MB) restored equal "
+        f"{same} at step {other.state.step}")
+    if not same or other.state.step != trainer.state.step:
+        raise AssertionError("maskgit: checkpoint round trip failed")
+    del other, m2, c2, path
+    torch.cuda.empty_cache()
+
+    t5 = T5Encoder(t5_base_v1_1(), device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(4)).eval()
+    tok = WordPieceTokenizer(vocab)
+    t5_context = t5_embedder(t5, tok)(texts)
+    t5_step = trainer.train_step(ids, grid, context=t5_context)
+    log(f"maskgit: one step with seeded T5-base context {tuple(t5_context.shape)}: {t5_step}")
+    if not np.isfinite([t5_step["loss"], t5_step["critic_loss"]]).all():
+        raise AssertionError(f"maskgit with T5 context: {t5_step}")
+
+    t5_ids = torch.randint(1, t5.config.vocab_size, (8, 256),
+                           generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    t5_mask = (torch.arange(256, device=dev)[None] < torch.tensor(
+        [256, 200, 180, 150, 120, 100, 80, 40], device=dev)[:, None]).long()
+    with torch.no_grad():
+        hidden, counts["t5_no_mask"], _ = drive("t5_no_mask", lambda: t5(t5_ids))
+        K.reset_launch_counts()
+        masked = t5(t5_ids, t5_mask)
+        torch.cuda.synchronize()
+        masked_counts = K.launch_counts()
+        t5_ms = cuda_ms(lambda: t5(t5_ids), reps=5)
+        t5_mask_ms = cuda_ms(lambda: t5(t5_ids, t5_mask), reps=5)
+    log(f"t5-base (f32, seeded) on 8 x 256 ids: no mask {t5_ms:.2f} ms (K7 dense launches "
+        f"{counts['t5_no_mask']['attention_dense']}), pad mask {t5_mask_ms:.2f} ms (K7 dense "
+        f"launches {masked_counts['attention_dense']}, plain attention) on {card}")
+    if counts["t5_no_mask"]["attention_dense"] != 12 or masked_counts["attention_dense"] \
+            or not (torch.isfinite(hidden).all() and torch.isfinite(masked).all()):
+        raise AssertionError("t5: launches or outputs wrong")
+    del t5, t5_context, hidden, masked
+    torch.cuda.empty_cache()
+
+    pipe = MaskGITPipeline(ctvit, maskgit, critic=critic, text_embed_fn=embed)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    vols, counts["maskgit_sample"], sample_s = drive(
+        "maskgit_sample", lambda: pipe.sample(num_frames=AE_FRAMES, texts=texts[:2],
+                                              generator=gen))
+    dense = counts["maskgit_sample"]["attention_dense"]
+    log(f"maskgit sample: 2 volumes {tuple(vols.shape)} in {sample_s:.2f} s host clock (18 steps, "
+        f"cond scale 3, critic, text embedding and decoder included) = {sample_s / 2:.2f} s per "
+        f"volume, K7 dense launches {dense} on {card}")
+    hw = cfg.image_size
+    if vols.shape != (2, AE_FRAMES, hw, hw, 1) or not torch_finite(vols) \
+            or dense != 18 * 2 * 6:
+        raise AssertionError(f"maskgit sample: {tuple(vols.shape)}, dense launches {dense}")
+    primed, counts["maskgit_sample_primed"], primed_s = drive(
+        "maskgit_sample_primed", lambda: pipe.sample(
+            num_frames=AE_FRAMES // 2, texts=texts[:1], prime_frames=vols[:1, AE_FRAMES // 2:],
+            generator=gen))
+    log(f"maskgit primed sample: {tuple(primed.shape)} after 100 primed frames in "
+        f"{primed_s:.2f} s host clock")
+    if primed.shape != (1, AE_FRAMES // 2, hw, hw, 1) or not torch_finite(primed):
+        raise AssertionError(f"maskgit primed sample: {tuple(primed.shape)}")
+    del trainer, maskgit, critic, ctvit, pipe, vols, primed, video, context
+    torch.cuda.empty_cache()
+    return dict(counts=counts, encode_ids_s=enc_s, step_ms=med, step_ms_all=step_ms,
+                volumes_per_s=MG_B / med * 1e3, peak_gb=peak_gb, step_breakdown=breakdown,
+                losses=[x["loss"] for x in logs], critic_losses=[x["critic_loss"] for x in logs],
+                launches_per_step=per_step, t5_context_step=t5_step, t5_ms=t5_ms,
+                t5_mask_ms=t5_mask_ms, sample_s=sample_s, sample_s_per_volume=sample_s / 2,
+                sample_dense_launches=dense, primed_sample_s=primed_s)
+
+
+def tiny_maskgit_side(cfg, start, inputs, device, dtype, lr: float, folder: Path) -> dict:
+    """From `start` on `device` in `dtype`: the MaskGit's loss with the
+    handed-in draws and every gradient, then one `MaskGitTrainer` step from
+    `start` with the same draws."""
+    import torch
+
+    from ct_clip_tpu_torch.models import CTViT, MaskGit
+    from ct_clip_tpu_torch.models.maskgit import maskgit_train_loss
+    from ct_clip_tpu_torch.train import MaskGitTrainer
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    ids, ctx, draws, grid = inputs
+    ids, ctx = ids.to(device), ctx.to(device)
+    model = MaskGit(cfg, 64, dtype=dtype, device=device)
+    model.load_state_dict(start)
+    before = K.launch_counts()["attention_dense_bwd"]
+    loss, _ = maskgit_train_loss(model, ids, grid, context=ctx, draws=draws)
+    loss.backward()
+    if device.type == "cuda" and K.launch_counts()["attention_dense_bwd"] == before:
+        raise AssertionError("tiny MaskGit: the self-attention did not run K12b")
+    grads = {n: p.grad.float().cpu().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.load_state_dict(start)
+    model.zero_grad()
+    trainer = MaskGitTrainer(model, CTViT(tiny_ae_config(), device=device), lr=lr,
+                             warmup_steps=0, results_folder=str(folder))
+    metrics = trainer.train_step(ids, grid, context=ctx, draws={"maskgit": draws})
+    return dict(loss=loss.item(), grads=grads, metrics=metrics,
+                sd={k: t.float().cpu() for k, t in model.state_dict().items()})
+
+
+def maskgit_planted_faults():
+    """K12b's dbias taken from the batch's first row only."""
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    bwd = K.attention_train_bwd
+
+    def k12b_first_row(q, k, v, out, dout, lse, **kw):
+        g = bwd(q, k, v, out, dout, lse, **kw)
+        if g[4] is None:
+            return g
+        if kw.get("out32") is not None:
+            kw = dict(kw, out32=kw["out32"][:1])
+        return g[:4] + (bwd(q[:1], k[:1], v[:1], out[:1], dout[:1], lse[:1], **kw)[4],)
+    return {"K12b with dbias from batch row 0 only": (K, "attention_train_bwd",
+                                                     k12b_first_row)}
+
+
+def tiny_maskgit_phase(dev, work: Path) -> dict:
+    """(e) One tiny MaskGit training step (dim 128, 2 layers, 2 heads x 64,
+    a (2, 16, 16) grid, batch 4, text width 32 with pad rows), card bf16
+    against the CPU, held as the tiny CT-CLIP step is (`card_vs_cpu`, no
+    VQ): the card's K7 dense / K12b, K3 / K11, K14 against the plain
+    versions; then with K12b's dbias from batch row 0 only, which must
+    fail.  512 tokens of width 64 do not fit the fused sublayer K1
+    (`sublayer_fits`), so the self-attention takes K7 dense and K12b, as at
+    full width."""
+    import torch
+
+    from ct_clip_tpu_torch.config import MaskGitConfig
+    from ct_clip_tpu_torch.models import MaskGit
+
+    cfg = MaskGitConfig(dim=128, depth=2, dim_head=64, heads=2, max_seq_len=512, t5_dim=32)
+    lr, grid = 1e-3, (2, 16, 16)
+    n = int(np.prod(grid))
+    g = torch.Generator().manual_seed(13)
+    ids = torch.randint(0, 64, (4, n), generator=g)
+    ctx = torch.randn((4, 6, 32), generator=g)
+    ctx[1, 4:] = 0.0
+    ctx[3, 2:] = 0.0
+    draws = {"step": torch.randint(0, 18, (4,), generator=g),
+             "scores": torch.rand((4, n), generator=g),
+             "keep": torch.tensor([True, True, False, True])}
+    cpu = MaskGit(cfg, 64, dtype=torch.bfloat16).init_weights(g)
+    start = {k: t.clone() for k, t in cpu.state_dict().items()}
+    res, _ = card_vs_cpu(dev, lambda device, dtype: tiny_maskgit_side(
+        cfg, start, (ids, ctx, draws, grid), device, dtype, lr,
+        work / f"tiny_maskgit_{device.type}"), start, lr, maskgit_planted_faults(),
+        "MaskGit", vq_prefix=None)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2349,6 +2750,10 @@ def main() -> int:
         clip160 = ctclip_160_phase(dev, work, card, corpus)
         counts.update(clip160.pop("counts"))
         ae_ref = tiny_ae_phase(dev, work)
+        results.update(dense_attention_phase(dev))
+        mg = maskgit_phase(dev, work, card)
+        counts.update(mg.pop("counts"))
+        mg_ref = tiny_maskgit_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2371,7 +2776,8 @@ def main() -> int:
                               "embed_grad": embed_grad, "ctclip_aux": aux,
                               "ctclip_aux_tiny_card_vs_cpu": aux_ref, "ctvit_ae": ae,
                               "reconstruct": recon, "ctclip_160": clip160,
-                              "ctvit_ae_tiny_card_vs_cpu": ae_ref}}),
+                              "ctvit_ae_tiny_card_vs_cpu": ae_ref, "maskgit": mg,
+                              "maskgit_tiny_card_vs_cpu": mg_ref}}),
           flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

@@ -5,8 +5,8 @@ ct_clip_tpu/config.py.  The defaults are full CT-CLIP width: CTViT dim 512
 over a 24x24x24 token grid (480x480x240 volume, 20x20x10 patches), CXR-BERT
 12 x 768, 512-dim latents; the RadBERT-RoBERTa report classifier; and the
 CT-CLIP pretraining loop (`TrainConfig`); the CTViT autoencoder's decoder
-and commitment weight.  The mesh settings and the rest of the generative
-stack (MaskGIT, T5) are not ported.
+and commitment weight; MaskGIT's token transformer (`MaskGitConfig`).
+The mesh settings are not ported.
 """
 from __future__ import annotations
 
@@ -165,6 +165,23 @@ class TrainConfig(_Base):
         import torch
 
         return getattr(torch, self.compute_dtype)
+
+
+@dataclass(frozen=True)
+class MaskGitConfig(_Base):
+    """Bidirectional token transformer over VQ ids, the generative stack's
+    second stage (reference: transformer_maskgit/MaskGITTransformer.py:
+    103-211; ct_clip_tpu/config.py:259-271)."""
+
+    dim: int = 512
+    depth: int = 6
+    dim_head: int = 64
+    heads: int = 8
+    max_seq_len: int = 13824 + 1
+    t5_dim: int = 768
+    unconditional: bool = False
+    steps: int = 18
+    cond_scale: float = 5.0
 
 
 @dataclass(frozen=True)

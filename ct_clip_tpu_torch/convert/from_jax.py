@@ -30,6 +30,15 @@ params' tree, convert the same way (`state_dict_from_jax({"params": tree,
 `radbert_state_dict_from_jax` does the same for the JAX RadBertClassifier's
 params: the inverse of ct_clip_tpu/convert/torch_to_jax.py::
 radbert_params_from_torch (the reference `model.*` RoBERTa and `fc1` head).
+
+`maskgit_state_dict_from_jax` and `critic_state_dict_from_jax` do it for the
+JAX MaskGit and TokenCritic params (the layout torch_to_jax.py's
+`maskgit_transformer_from_torch` reads, :76-123: embeddings, the 3-D CPB,
+`transformer.layers.{i}.{0,1,2,3}` with the cross attention's context_norm
+and interleaved null key/values at "2", `to_logits`), and
+`t5_state_dict_from_jax` for the JAX T5Encoder's params into HF
+`T5EncoderModel` names: the inverse of
+ct_clip_tpu/models/t5_encoder.py::convert_hf_t5_encoder.
 """
 from __future__ import annotations
 
@@ -38,7 +47,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from ..config import CTCLIPConfig, CTViTConfig, RadBertConfig
+from ..config import CTCLIPConfig, CTViTConfig, MaskGitConfig, RadBertConfig
 
 
 def _t(a) -> torch.Tensor:
@@ -81,6 +90,20 @@ def _gamma(sd: Dict, key: str, gamma) -> None:
     sd[f"{key}.beta"] = torch.zeros(sd[f"{key}.gamma"].shape)
 
 
+def _attention(sd: Dict, a: Mapping, key: str, heads: int, dim_head: int) -> None:
+    """A QKNormAttention; its null key/values (empty for self-attention) and
+    its context_norm (cross attention) when the JAX params hold them."""
+    _gamma(sd, f"{key}.norm", a["norm"]["gamma"])
+    if "context_norm" in a:
+        _gamma(sd, f"{key}.context_norm", a["context_norm"]["gamma"])
+    for name in ("to_q", "to_kv", "to_out"):
+        _linear(sd, f"{key}.{name}", a[name], bias=False)
+    sd[f"{key}.q_scale"] = _t(a["q_scale"])
+    sd[f"{key}.k_scale"] = _t(a["k_scale"])
+    sd[f"{key}.null_kv"] = (_t(a["null_kv"]) if "null_kv" in a
+                            else torch.zeros(heads, 0, dim_head))
+
+
 def _transformer(sd: Dict, p: Mapping, prefix: str, depth: int,
                  heads: int, dim_head: int) -> None:
     for i in range(depth):
@@ -88,13 +111,9 @@ def _transformer(sd: Dict, p: Mapping, prefix: str, depth: int,
         peg = p[f"layers_{i}_peg"]["dsconv"]
         sd[f"{lk}.0.dsconv.weight"] = _t(peg["kernel"]).permute(4, 3, 0, 1, 2).contiguous()
         sd[f"{lk}.0.dsconv.bias"] = _t(peg["bias"])
-        a = p[f"layers_{i}_attn"]
-        _gamma(sd, f"{lk}.1.norm", a["norm"]["gamma"])
-        for name in ("to_q", "to_kv", "to_out"):
-            _linear(sd, f"{lk}.1.{name}", a[name], bias=False)
-        sd[f"{lk}.1.q_scale"] = _t(a["q_scale"])
-        sd[f"{lk}.1.k_scale"] = _t(a["k_scale"])
-        sd[f"{lk}.1.null_kv"] = torch.zeros(heads, 0, dim_head)
+        _attention(sd, p[f"layers_{i}_attn"], f"{lk}.1", heads, dim_head)
+        if f"layers_{i}_cross_attn" in p:
+            _attention(sd, p[f"layers_{i}_cross_attn"], f"{lk}.2", heads, dim_head)
         f = p[f"layers_{i}_ff"]
         _ln(sd, f"{lk}.3.0", f["norm"]["scale"], f["norm"]["bias"])
         _linear(sd, f"{lk}.3.1", f["wi"], bias=False)
@@ -204,4 +223,54 @@ def radbert_state_dict_from_jax(params: Mapping,
     sd: Dict[str, torch.Tensor] = {}
     _bert(sd, params["encoder"], cfg, "model.")
     _linear(sd, "fc1", params["classifier"])
+    return sd
+
+
+def _token_transformer(sd: Dict, p: Mapping, cfg: MaskGitConfig) -> None:
+    sd["token_emb.weight"] = _t(p["token_emb"]["embedding"])
+    sd["pos_emb.weight"] = _t(p["pos_emb"]["embedding"])
+    _transformer(sd, p["transformer"], "transformer", cfg.depth, cfg.heads, cfg.dim_head)
+    _linear(sd, "to_logits", p["to_logits"])
+
+
+def maskgit_state_dict_from_jax(params: Mapping,
+                                cfg: MaskGitConfig) -> Dict[str, torch.Tensor]:
+    """JAX MaskGit params -> the port's MaskGit state dict (f32 tensors)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _token_transformer(sd, params, cfg)
+    _cpb(sd, "continuous_pos_bias", params["continuous_pos_bias"])
+    return sd
+
+
+def critic_state_dict_from_jax(params: Mapping,
+                               cfg: MaskGitConfig) -> Dict[str, torch.Tensor]:
+    """JAX TokenCritic params -> the port's TokenCritic state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _token_transformer(sd, params, cfg)
+    return sd
+
+
+def t5_state_dict_from_jax(variables: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """JAX T5Encoder variables {'params': ...} (`cfg` a T5EncoderConfig of
+    either package) -> the port's T5Encoder state dict in HF
+    `T5EncoderModel` names, the embedding under both of its tied keys."""
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {
+        "shared.weight": _t(p["shared"]["embedding"]),
+        "encoder.embed_tokens.weight": _t(p["shared"]["embedding"]),
+        "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+            _t(p["relative_attention_bias"]["embedding"]),
+        "encoder.final_layer_norm.weight": _t(p["final_norm"]["weight"]),
+    }
+    ff_names = ("wi_0", "wi_1", "wo") if cfg.gated_gelu else ("wi", "wo")
+    for i in range(cfg.num_layers):
+        base = f"encoder.block.{i}.layer"
+        for name in ("q", "k", "v", "o"):
+            _linear(sd, f"{base}.0.SelfAttention.{name}", p[f"block_{i}_attn"][name],
+                    bias=False)
+        for name in ff_names:
+            _linear(sd, f"{base}.1.DenseReluDense.{name}", p[f"block_{i}_ff"][name],
+                    bias=False)
+        sd[f"{base}.0.layer_norm.weight"] = _t(p[f"block_{i}_attn_norm"]["weight"])
+        sd[f"{base}.1.layer_norm.weight"] = _t(p[f"block_{i}_ff_norm"]["weight"])
     return sd

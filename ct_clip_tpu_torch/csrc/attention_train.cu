@@ -14,7 +14,11 @@
 //   * _pallas_attention_bwd_kbias (K12, key-bias backward): dq, dk, dv and
 //     dkey_bias summed over heads and query rows -> ct_attn_train_bwd, rate 0;
 //   * _pallas_attention_kbias_drop_bwd (K13 backward), the same with the
-//     dropout mask regenerated                   -> ct_attn_train_bwd, rate > 0.
+//     dropout mask regenerated                   -> ct_attn_train_bwd, rate > 0;
+//   * _pallas_attention (K7), dense-bias form: softmax(q k^T + bias) v with an
+//     f32 (1, 1|h, n, n) bias                    -> ct_attn_train_fwd, bias set;
+//   * _pallas_attention_bwd (K12b): dq, dk, dv and dbias summed over the batch
+//     (and over the heads for a one-head bias)   -> ct_attn_train_bwd, bias set.
 //
 // Dropout mask.  The TPU draws the bits from its hardware generator seeded
 // by (seed, head, row).  Here the bits are Philox4x32-10 keyed on the 64-bit
@@ -40,10 +44,30 @@
 // operands sit in shared memory transposed ([dim][row], rows padded to 68
 // floats) so each step of a product is two 16-byte loads and 16 FMAs.
 // The backward first takes D_i = sum_c dO_ic O_ic (= sum_j P_ij M_ij dP_ij
-// with the dropout mask M), then a row pass (one block per query tile) for
+// with the dropout mask M).  In bf16 O is read from an f32 copy that the
+// forward writes beside the bf16 output when a backward will follow: the
+// TPU kernels sum P dP in f32, and a D_i from the rounded O is off by a bf16
+// ulp of |dO||O|, a shift of every dS row (sum_j dS_ij != 0) that the bias
+// gradients, sums of dS, collect.  Then a row pass (one block per query tile) for
 // dq and a column pass (one block per key tile) for dk, dv and each head's
 // share of dkey_bias, then sums the shares over heads in a fixed order: no
 // atomics, so the result does not change from run to run.
+//
+// Dense bias (K7 dense, K12b; MaskGIT's CPB table at (8, 8, 1280, 64), T5's
+// per-head relative-position bias).  The bias (bias_heads, n, n) is f32 in
+// both instantiations; each score reads bias[head or 0, i, j] for i, j < n
+// (rows and keys past n of a ragged tail tile read nothing).  The column
+// pass stages each (query tile, key tile) of the bias in shared memory,
+// transposed, so its threads (rows = keys) read it without strided global
+// loads.  dbias[hb, i, j] = sum over the batch (and over the heads for a
+// one-head bias) of dS_bhij: the row pass writes each (b, h)'s dS, f32, to
+// a (b, h, n, n) scratch, and dbias_sum_kernel adds the scratch over the
+// batch (heads outer, batch inner, as the TPU kernel accumulates its grid)
+// in a fixed order: no atomics, bit-identical runs.  The scratch is 4 b h n^2
+// bytes (420 MB at (8, 8, 1280)); a third pass looping over the batch per
+// (head, query tile, key tile) would need no scratch but recompute two of
+// the backward's products per (b, h) tile, where the scratch costs one
+// write and one read of it (~0.25 ms of memory time at that shape).
 #include "common.cuh"
 
 namespace {
@@ -88,14 +112,19 @@ struct Args {
   void* out; void* dq; void* dk; void* dv;
   View vq, vk, vv, vo, vdo, vdq, vdk, vdv;
   const float* key_bias;    // (b, n) additive per-key bias, or null
+  const float* bias;        // (bias_heads, n, n) additive dense bias, or null
+  float* ds;                // (b, h, n, n) scratch: each (b, h)'s dS, or null
+  float* dbias;             // (bias_heads, n, n) dbias, or null
   float* lse;               // (b, h, n) row log-sum-exp
   float* rowdot;            // (b, h, n) D_i = sum_c dO_ic O_ic
+  float* o32;               // (b, h, n, d) f32 copy of out (forward writes,
+                            // rowdot reads), contiguous, or null
   float* dkb_head;          // (b, h, n) each head's share of dkey_bias, or null
   float* dkb;               // (b, n) dkey_bias, or null
   const long long* seed;    // (1,) Philox key, device memory
   uint32_t thresh;          // keep iff bits >= thresh; 0: no dropout
   float keep_scale;         // 1 / (1 - rate)
-  int H, n, d;
+  int H, n, d, bias_heads;
 };
 
 __device__ __forceinline__ size_t at(const View& v, int b, int h, int t) {
@@ -147,6 +176,13 @@ __device__ __forceinline__ float key_bias_at(const Args& a, int b, int j) {
   return a.key_bias ? a.key_bias[(size_t)b * a.n + j] : 0.0f;
 }
 
+// the dense bias at (head h, query i, key j), i and j < n; 0 without one
+__device__ __forceinline__ float bias_at(const Args& a, int h, int i, int j) {
+  if (!a.bias) return 0.0f;
+  const int hb = a.bias_heads > 1 ? h : 0;
+  return a.bias[((size_t)hb * a.n + i) * a.n + j];
+}
+
 __device__ __forceinline__ void seed_key(const Args& a, uint32_t& k0, uint32_t& k1) {
   const unsigned long long s = a.thresh ? (unsigned long long)a.seed[0] : 0ull;
   k0 = (uint32_t)s;
@@ -191,10 +227,12 @@ __global__ void __launch_bounds__(NT) fwd_kernel(Args a) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       float mx = -INFINITY;
+      const int i = i0 + 4 * ty + r;  // rows past n are computed, not written
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int j = j0 + 4 * tx + c;
-        s[r][c] = j < n ? s[r][c] + key_bias_at(a, b, j) : -INFINITY;
+        s[r][c] = j < n ? s[r][c] + key_bias_at(a, b, j) + (i < n ? bias_at(a, h, i, j) : 0.0f)
+                        : -INFINITY;
         mx = fmaxf(mx, s[r][c]);
       }
       // key j0 < n lies in this tile, so the new max is finite
@@ -232,7 +270,9 @@ __global__ void __launch_bounds__(NT) fwd_kernel(Args a) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int col = 4 * tx + c;
-      if (col < a.d) out[at(a.vo, b, h, i) + col] = from_f32<T>(acc[r][c] * inv);
+      if (col >= a.d) continue;
+      out[at(a.vo, b, h, i) + col] = from_f32<T>(acc[r][c] * inv);
+      if (a.o32) a.o32[(((size_t)b * a.H + h) * n + i) * a.d + col] = acc[r][c] * inv;
     }
     if (tx == 0) a.lse[((size_t)b * a.H + h) * n + i] = m[r] + logf(l[r]);
   }
@@ -247,8 +287,9 @@ __global__ void rowdot_kernel(Args a, int rows) {
   const int i = row % a.n, bh = row / a.n, b = bh / a.H, h = bh % a.H;
   const T* o = static_cast<const T*>(a.o) + at(a.vo, b, h, i);
   const T* g = static_cast<const T*>(a.dout) + at(a.vdo, b, h, i);
+  const float* o32 = a.o32 ? a.o32 + (size_t)row * a.d : nullptr;
   float s = 0.0f;
-  for (int c = lane; c < a.d; c += 32) s = fmaf(to_f32(o[c]), to_f32(g[c]), s);
+  for (int c = lane; c < a.d; c += 32) s = fmaf(o32 ? o32[c] : to_f32(o[c]), to_f32(g[c]), s);
   s = warp_sum(s);
   if (lane == 0) a.rowdot[row] = s;
 }
@@ -295,11 +336,14 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Args a) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) mk[c] = keep(a, bits.w[c]);
       }
+      const int i = i0 + 4 * ty + r;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int j = j0 + 4 * tx + c;
-        const float p = j < n ? expf(s[r][c] + key_bias_at(a, b, j) - lse[r]) : 0.0f;
+        const float p = (i < n && j < n)
+            ? expf(s[r][c] + key_bias_at(a, b, j) + bias_at(a, h, i, j) - lse[r]) : 0.0f;
         s[r][c] = p * (mk[c] * dp[r][c] - rd[r]);
+        if (a.ds && i < n && j < n) a.ds[(((size_t)b * a.H + h) * n + i) * n + j] = s[r][c];
       }
     }
 #pragma unroll
@@ -339,6 +383,7 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(Args a) {
   float* dOs = Qs + TILE * DMAX;   // [TILE queries][DMAX]
   float* lse_s = dOs + TILE * DMAX;  // [TILE]
   float* rd_s = lse_s + TILE;        // [TILE]
+  float* Bt = rd_s + TILE;           // [TILE keys][LDT queries]: the dense bias
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int j0 = blockIdx.x * TILE, b = blockIdx.y / a.H, h = blockIdx.y % a.H;
   const int n = a.n;
@@ -359,6 +404,12 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(Args a) {
       lse_s[e] = ok ? a.lse[row0 + i0 + e] : 0.0f;
       rd_s[e] = ok ? a.rowdot[row0 + i0 + e] : 0.0f;
     }
+    if (a.bias) {  // rows of the bias are queries: read along keys, store transposed
+      for (int e = threadIdx.x; e < TILE * TILE; e += NT) {
+        const int il = e / TILE, jl = e % TILE, i = i0 + il, j = j0 + jl;
+        Bt[jl * LDT + il] = (i < n && j < n) ? bias_at(a, h, i, j) : 0.0f;
+      }
+    }
     __syncthreads();
     float s[4][4] = {}, dp[4][4] = {};   // [key r][query c]
     mma_tile(s, Kt, LDT, ty, Qt, LDT, tx, DMAX);
@@ -376,8 +427,9 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(Args a) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int j = j0 + 4 * ty + r;
+        const float bij = a.bias ? Bt[(4 * ty + r) * LDT + il] : 0.0f;
         const float p = (i < n && j < n)
-            ? expf(s[r][c] + key_bias_at(a, b, j) - lse_s[il]) : 0.0f;
+            ? expf(s[r][c] + key_bias_at(a, b, j) + bij - lse_s[il]) : 0.0f;
         pd[r][c] = p * mk[r];
         s[r][c] = p * (mk[r] * dp[r][c] - rd_s[il]);
         dkb[r] += s[r][c];
@@ -424,9 +476,24 @@ __global__ void dkb_sum_kernel(Args a, int rows) {
   a.dkb[e] = s;
 }
 
+// dbias[hb, i, j] = sum of the (b, h) scratch tiles of dS: over the batch for
+// a per-head bias, over the heads (outer) and the batch (inner) for a
+// one-head bias, in that fixed order
+__global__ void dbias_sum_kernel(Args a, int B) {
+  const size_t nn = (size_t)a.n * a.n;
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (size_t)a.bias_heads * nn) return;
+  const int hb = (int)(e / nn);
+  const size_t ij = e % nn;
+  float s = 0.0f;
+  for (int h = a.bias_heads > 1 ? hb : 0; h < (a.bias_heads > 1 ? hb + 1 : a.H); ++h)
+    for (int b = 0; b < B; ++b) s += a.ds[((size_t)b * a.H + h) * nn + ij];
+  a.dbias[e] = s;
+}
+
 constexpr size_t FWD_SMEM = (3 * TRANS + TILE * DMAX) * sizeof(float);
 constexpr size_t DQ_SMEM = (5 * TRANS + TILE * DMAX) * sizeof(float);
-constexpr size_t DKV_SMEM = (6 * TRANS + 2 * TILE * DMAX + 2 * TILE) * sizeof(float);
+constexpr size_t DKV_SMEM = (7 * TRANS + 2 * TILE * DMAX + 2 * TILE) * sizeof(float);
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -467,6 +534,11 @@ int launch_bwd(Args a, int B, cudaStream_t st) {
   if (a.dkb) {
     const int kb_rows = B * a.n;
     dkb_sum_kernel<<<(kb_rows + 255) / 256, 256, 0, st>>>(a, kb_rows);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (a.dbias) {
+    const size_t elems = (size_t)a.bias_heads * a.n * a.n;
+    dbias_sum_kernel<<<(unsigned)((elems + 255) / 256), 256, 0, st>>>(a, B);
   }
   return (int)cudaGetLastError();
 }
@@ -475,19 +547,30 @@ bool shape_ok(int B, int H, int n, int d) {
   return B > 0 && H > 0 && n > 0 && d > 0 && d <= DMAX;
 }
 
+bool bias_ok(const void* bias, int bias_heads, int H) {
+  return !bias || bias_heads == 1 || bias_heads == H;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.
-// strides: (batch, head, token) element strides of q, k, v, out; key_bias
-// (b, n) or null.
+// strides: (batch, head, token) element strides of q, k, v, out; out32 a
+// contiguous (b, h, n, d) f32 copy of out to write, or null; key_bias (b, n)
+// or null; bias (bias_heads, n, n) f32, bias_heads 1 or H, or null.
 CT_EXPORT int ct_attn_train_fwd(int dtype, const void* q, const void* k, const void* v,
-                                void* out, const long long* strides, const void* key_bias,
-                                void* lse, const void* seed, unsigned int thresh,
-                                float keep_scale, int B, int H, int n, int d, void* stream) {
-  if (!shape_ok(B, H, n, d) || !lse || (thresh && !seed)) return (int)cudaErrorInvalidValue;
+                                void* out, void* out32, const long long* strides,
+                                const void* key_bias,
+                                const void* bias, int bias_heads, void* lse, const void* seed,
+                                unsigned int thresh, float keep_scale, int B, int H, int n,
+                                int d, void* stream) {
+  if (!shape_ok(B, H, n, d) || !lse || (thresh && !seed) || !bias_ok(bias, bias_heads, H))
+    return (int)cudaErrorInvalidValue;
   Args a = make_args(strides, 4);
   a.q = q; a.k = k; a.v = v; a.out = out;
+  a.o32 = static_cast<float*>(out32);
   a.key_bias = static_cast<const float*>(key_bias);
+  a.bias = static_cast<const float*>(bias);
+  a.bias_heads = bias_heads;
   a.lse = static_cast<float*>(lse);
   a.seed = static_cast<const long long*>(seed);
   a.thresh = thresh;
@@ -500,25 +583,36 @@ CT_EXPORT int ct_attn_train_fwd(int dtype, const void* q, const void* k, const v
 }
 
 // strides: (batch, head, token) element strides of q, k, v, out, dout, dq,
-// dk, dv.  key_bias (b, n) or null; dkb_head (b, h, n) scratch and dkb (b, n)
-// output, both null when dkey_bias is not wanted; rowdot (b, h, n) scratch.
+// dk, dv; out32 the forward's f32 copy of out, or null (D_i from out).
+// key_bias (b, n) or null; dkb_head (b, h, n) scratch and dkb (b, n)
+// output, both null when dkey_bias is not wanted; rowdot (b, h, n) scratch;
+// bias (bias_heads, n, n) f32 or null, with ds (b, h, n, n) scratch and
+// dbias (bias_heads, n, n) output, both null when dbias is not wanted.
 CT_EXPORT int ct_attn_train_bwd(int dtype, const void* q, const void* k, const void* v,
-                                const void* out, const void* dout, void* dq, void* dk,
-                                void* dv, const long long* strides, const void* key_bias,
-                                const void* lse, void* rowdot, void* dkb_head, void* dkb,
-                                const void* seed, unsigned int thresh, float keep_scale,
-                                int B, int H, int n, int d, void* stream) {
+                                const void* out, const void* out32, const void* dout,
+                                void* dq, void* dk, void* dv, const long long* strides,
+                                const void* key_bias, const void* bias, int bias_heads,
+                                const void* lse,
+                                void* rowdot, void* dkb_head, void* dkb, void* ds,
+                                void* dbias, const void* seed, unsigned int thresh,
+                                float keep_scale, int B, int H, int n, int d, void* stream) {
   if (!shape_ok(B, H, n, d) || !lse || !rowdot || (thresh && !seed)
-      || ((dkb == nullptr) != (dkb_head == nullptr)))
+      || ((dkb == nullptr) != (dkb_head == nullptr)) || ((dbias == nullptr) != (ds == nullptr))
+      || (dbias && !bias) || !bias_ok(bias, bias_heads, H))
     return (int)cudaErrorInvalidValue;
   Args a = make_args(strides, 8);
   a.q = q; a.k = k; a.v = v; a.o = out; a.dout = dout;
+  a.o32 = static_cast<float*>(const_cast<void*>(out32));
   a.dq = dq; a.dk = dk; a.dv = dv;
   a.key_bias = static_cast<const float*>(key_bias);
   a.lse = static_cast<float*>(const_cast<void*>(lse));
   a.rowdot = static_cast<float*>(rowdot);
   a.dkb_head = static_cast<float*>(dkb_head);
   a.dkb = static_cast<float*>(dkb);
+  a.bias = static_cast<const float*>(bias);
+  a.bias_heads = bias_heads;
+  a.ds = static_cast<float*>(ds);
+  a.dbias = static_cast<float*>(dbias);
   a.seed = static_cast<const long long*>(seed);
   a.thresh = thresh;
   a.keep_scale = keep_scale;

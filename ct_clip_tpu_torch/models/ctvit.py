@@ -194,19 +194,24 @@ class CTViT(nn.Module):
 
     def forward(self, video: torch.Tensor,
                 spatial_bias: Optional[torch.Tensor] = None,
-                train: bool = False, return_recons: bool = False):
+                train: bool = False, return_recons: bool = False,
+                return_only_codebook_ids: bool = False):
         """Encoded + quantized tokens (b, t, h, w, d), the production CLIP
-        path (return_encoded_tokens=True); with return_recons (the
-        autoencoder, `with_decoder` only) the tuple (reconstruction
-        (b, f, H, W, 1), code ids (b, t, h, w), commitment loss).  `video` is
-        a volume or patch rows (`embed_patches`).  train=True: the training
-        embed and VQ mode (module docstring)."""
+        path (return_encoded_tokens=True); with return_only_codebook_ids the
+        code ids (b, t, h, w) int32 (the frozen tokenizer of MaskGIT's
+        training and priming); with return_recons (the autoencoder,
+        `with_decoder` only) the tuple (reconstruction (b, f, H, W, 1), code
+        ids (b, t, h, w), commitment loss).  `video` is a volume or patch
+        rows (`embed_patches`).  train=True: the training embed and VQ mode
+        (module docstring)."""
         cfg = self.config
         if video.dim() != 3 and video.shape[2:4] != (cfg.image_size,
                                                      cfg.image_size):
             raise ValueError(f"video {tuple(video.shape)} does not match "
                              f"image_size {cfg.image_size}")
         tokens = self.encode(self.embed_patches(video, train), spatial_bias)
+        if return_only_codebook_ids:
+            return self.vq(tokens, train=train)[1]
         if not return_recons:
             return self.vq(tokens, train=train)[0]
         if not cfg.with_decoder:

@@ -1,29 +1,34 @@
 """Attention blocks of the CTViT encoder and the BERT attention core.
 
 Ports of ct_clip_tpu/ops/attention.py:
-  * `ContinuousPositionBias` (:147-186): MLP over the (2h-1)(2w-1) distinct
-    log-distance offsets, then a gather to the (heads, N, N) bias.  Plain
-    torch (the JAX package runs it in XLA), computed once per weight load;
+  * `ContinuousPositionBias` (:147-186): MLP over the prod(2d-1) distinct
+    log-distance offsets of a 2-D (CTViT) or 3-D (MaskGIT) grid, then a
+    gather to the (heads, N, N) bias.  Plain torch (the JAX package runs it
+    in XLA), computed once per weight load in inference;
   * `PEG` (:439-498), including `rotated=True`: the depthwise 3x3x3 conv with
-    causal frame padding.  The JAX package runs it as an XLA grouped conv
+    causal frame padding (or, for MaskGIT, a pad of 1 on every side).  The JAX package runs it as an XLA grouped conv
     (ops/pallas/peg.py::lax_peg_conv), so here it is `F.conv3d(groups=c)`.
     Its backward (`peg_conv`, an autograd.Function) ports peg.py::_peg_bwd:
     dx is the depthwise conv of dout with the flipped kernel and complemented
     pads (lax_peg_dx, a conv in JAX too), dW and db are the port of K14
     (_pallas_peg_bwd, csrc/peg_bwd.cu; plain version `peg_dw_plain`);
-  * `QKNormAttention` and `MaskgitTransformer` (:501-583) for the CTViT
-    encoder and decoder: PEG -> attention -> feed-forward per layer,
-    residuals folded into the sublayer kernels, final gamma LayerNorm.  The
-    attention takes the spatial sublayer (K1, with the CPB bias), the
-    temporal one on the native grid (K2 grid) or, for a non-cubic token
-    grid, on (b*h*w, t, d) sequences (K2 seq, the small-sequence dispatch of
-    ops/attention.py:276-293);
+  * `QKNormAttention` and `MaskgitTransformer` (:224-384, :501-583) for the
+    CTViT encoder and decoder and for MaskGIT: PEG -> attention -> (cross
+    attention) -> feed-forward per layer, residuals folded into the
+    sublayers, final gamma LayerNorm.  The CTViT's attention takes the
+    spatial sublayer (K1, with the CPB bias), the temporal one on the native
+    grid (K2 grid) or, for a non-cubic token grid, on (b*h*w, t, d)
+    sequences (K2 seq, the small-sequence dispatch of ops/attention.py:
+    276-293), where the sublayers fit; a mask, a context, null key/values or
+    a sequence too long for them (MaskGIT's) take the generic path through
+    `sdpa` (:189-221);
   * `fused_attention`, the port of ops/pallas/attention.py::fused_attention
     (K7): softmax(q k^T + bias + key_bias) v on (b, h, n, d), with its
-    backward (K12, key-bias form) as an autograd.Function.  A dense bias
-    together with a key bias is XLA in the JAX package (`_xla_attention`),
-    so here it is `attention_plain` on every device, differentiated by
-    autograd;
+    backward as an autograd.Function: K12a with a key bias or none, K12b
+    with a dense (1, 1|h, n, n) bias (its gradient summed over the batch).
+    A dense bias together with a key bias is XLA in the JAX package
+    (`_xla_attention`), so here it is `attention_plain` on every device,
+    differentiated by autograd;
   * `fused_attention_kbias_dropout` (K13, forward and backward): the same
     with dropout on the probabilities from a Philox mask.
 
@@ -41,10 +46,10 @@ from torch import nn
 
 from . import kernels as K
 from .ffn import MaskgitFeedForward
-from .norms import layer_norm
+from .norms import l2norm, layer_norm
 from .qknorm_attention import (fused_grid_qknorm_attention,
                                fused_small_qknorm_attention,
-                               fused_spatial_qknorm_attention)
+                               fused_spatial_qknorm_attention, sublayer_fits)
 
 
 # ------------------------------------------------- K7, K12 and K13 ports
@@ -173,8 +178,13 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
-def _launch_train_fwd(q, k, v, key_bias, seed=None, rate=0.0):
-    """Forward kernel (attention_train.cu, f32 or bf16): (out, lse)."""
+def _launch_train_fwd(q, k, v, key_bias, seed=None, rate=0.0, bias=None,
+                      for_backward: bool = False):
+    """Forward kernel (attention_train.cu, f32 or bf16): (out, lse, out32);
+    `bias` a contiguous (1|h, n, n) f32 dense bias or None.  With
+    `for_backward` a bf16 forward also writes out32, out in f32, from which
+    the backward's D_i = dO_i . O_i is summed in f32 as the TPU kernels sum
+    P dP (ops/pallas/attention.py:191); else out32 is None."""
     b, h, n, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("attention: q, k, v shapes differ")
@@ -183,63 +193,106 @@ def _launch_train_fwd(q, k, v, key_bias, seed=None, rate=0.0):
     if out.stride(-1) != 1:
         out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    out32 = (torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)
+             if for_backward and q.dtype == torch.bfloat16 else None)
     thresh = dropout_threshold(rate) if rate > 0 else 0
     K.attention_train_fwd(
-        q, k, v, out, lse,
+        q, k, v, out, lse, out32=out32,
         key_bias=None if key_bias is None else key_bias.float().contiguous(),
-        seed=seed, thresh=thresh, keep_scale=dropout_keep_scale(rate) if thresh else 1.0)
-    return out, lse
+        bias=bias, seed=seed, thresh=thresh,
+        keep_scale=dropout_keep_scale(rate) if thresh else 1.0)
+    return out, lse, out32
+
+
+def _dense_bias(bias: torch.Tensor) -> torch.Tensor:
+    """The kernels' (1|h, n, n) f32 contiguous form of a (1, 1|h, n, n)
+    dense bias, the one bias shape K7 dense and K12b take (batch 1:
+    ops/pallas/attention.py::_plan); the binding checks the rest."""
+    if bias.dim() != 4 or bias.shape[0] != 1:
+        raise ValueError(f"fused_attention: the kernels take a (1, 1|h, n, n) bias, "
+                         f"got {tuple(bias.shape)}")
+    return bias[0].float().contiguous()
 
 
 class _FusedAttention(torch.autograd.Function):
-    """K7 forward, K12 backward.  On the CPU both are the plain versions; on
-    CUDA (f32 or bf16) the key-tiled kernels of attention_train.cu, the
-    backward reading the forward's row log-sum-exp."""
+    """K7 forward, K12 backward (K12a without a dense bias, K12b with one).
+    On the CPU both are the plain versions; on CUDA (f32 or bf16) the
+    key-tiled kernels of attention_train.cu, the backward reading the
+    forward's row log-sum-exp (and, in bf16, its f32 output); a dense bias
+    stays f32 in both dtypes."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, key_bias):
-        lse = None
+        lse = kbias = out32 = None
         if q.device.type == "cpu":
             out = attention_plain(q, k, v, bias, key_bias)
-        elif bias is not None:
-            raise NotImplementedError("fused_attention: the kernels take a per-key bias "
-                                      "only (the dense-bias backward, K12b, is not "
-                                      "ported)")
         else:
-            out, lse = _launch_train_fwd(q, k, v, key_bias)
-            K.count_launch("fused_attention")
-        ctx.save_for_backward(q, k, v, bias, key_bias, out, lse)
+            if bias is not None:
+                kbias = _dense_bias(bias)
+            out, lse, out32 = _launch_train_fwd(q, k, v, key_bias, bias=kbias,
+                                                for_backward=any(ctx.needs_input_grad))
+            K.count_launch("fused_attention" if bias is None else "attention_dense")
+        ctx.save_for_backward(q, k, v, bias, key_bias, out, lse, kbias, out32)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, bias, key_bias, out, lse = ctx.saved_tensors
+        q, k, v, bias, key_bias, out, lse, kbias, out32 = ctx.saved_tensors
         need_db, need_dkb = ctx.needs_input_grad[3:5]
         if q.device.type == "cpu":
             dq, dk, dv, db, dkb = attention_bwd_plain(q, k, v, dout, bias, key_bias)
             return dq, dk, dv, db if need_db else None, dkb if need_dkb else None
-        dq, dk, dv, dkb = K.attention_train_bwd(
-            *map(_rows, (q, k, v, out, dout.to(q.dtype))), lse,
+        dq, dk, dv, dkb, db = K.attention_train_bwd(
+            *map(_rows, (q, k, v, out, dout.to(q.dtype))), lse, out32=out32,
             key_bias=None if key_bias is None else key_bias.float().contiguous(),
-            want_dkey_bias=need_dkb)
-        K.count_launch("attention_bwd")
-        return dq, dk, dv, None, None if dkb is None else dkb.to(key_bias.dtype)
+            want_dkey_bias=need_dkb, bias=kbias, want_dbias=need_db)
+        K.count_launch("attention_bwd" if bias is None else "attention_dense_bwd")
+        return (dq, dk, dv, None if db is None else db.reshape(bias.shape).to(bias.dtype),
+                None if dkb is None else dkb.to(key_bias.dtype))
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
                     key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q k^T + bias + key_bias[:, None, None]) v on (b, h, n, d),
-    any scaling already applied to q; bias broadcastable to (b, h, n, n),
-    key_bias (b, n).  Differentiable: the backward is the port of K12
-    (key-bias or no bias, f32 or bf16, on CUDA).  Both biases together take
-    `attention_plain` and autograd on every device, as the JAX package takes
-    XLA there (ops/pallas/attention.py:347-350); a dense bias alone raises
-    NotImplementedError on CUDA (K7's dense-bias form and K12b are not
-    ported)."""
+    any scaling already applied to q; bias (1, 1|h, n, n) (any shape
+    broadcastable to (b, h, n, n) on the CPU),
+    key_bias (b, n).  Differentiable: the backward is the port of K12a
+    (key-bias or no bias) or, with a dense bias, of K12b, whose dbias is
+    summed over the batch (and the heads for a one-head bias); f32 or bf16
+    on CUDA.  Both biases together take `attention_plain` and autograd on
+    every device, as the JAX package takes XLA there
+    (ops/pallas/attention.py:347-350)."""
     if bias is not None and key_bias is not None:
         return attention_plain(q, k, v, bias, key_bias)
     return _FusedAttention.apply(q, k, v, bias, key_bias)
+
+
+# -f32 max, the masked-score fill of the JAX package (ops/attention.py:33)
+NEG_INF = -3.4028234663852886e38
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         bias: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+         causal: bool = False) -> torch.Tensor:
+    """The shared softmax(q k^T + bias) v core of ct_clip_tpu/ops/attention.py
+    ::_sdpa on (b, h, n, d), scaling applied to q.  Without a mask and with
+    equal query and key lengths: `fused_attention` (K7 / K7 dense, K12a /
+    K12b).  With a (b, j) key mask (True attends) or unequal lengths (cross
+    attention): plain PyTorch on every device, f32 scores, masked scores set
+    to -f32 max, f32 softmax, as the JAX package's XLA branch.  Causal
+    attention (with ALiBi) belongs to the fallback towers, not ported."""
+    if causal:
+        raise NotImplementedError("sdpa: causal attention (the fallback towers) is not ported")
+    if mask is None and q.shape[-2] == k.shape[-2]:
+        return fused_attention(q, k, v, bias)
+    sim = torch.einsum("bhid,bhjd->bhij", q.float(), k.float())
+    if bias is not None:
+        sim = sim + bias.float()
+    if mask is not None:
+        sim = torch.where(mask[:, None, None, :], sim, NEG_INF)
+    attn = sim.softmax(dim=-1).to(v.dtype)
+    return torch.einsum("bhij,bhjd->bhid", attn, v)
 
 
 def _seed_tensor(seed, device) -> torch.Tensor:
@@ -255,18 +308,19 @@ class _FusedAttentionDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, key_bias, seed, rate):
         if q.device.type == "cpu":
-            out, lse = attention_dropout_plain(q, k, v, key_bias, seed, rate), None
+            out, lse, out32 = attention_dropout_plain(q, k, v, key_bias, seed, rate), None, None
         else:
             seed = _seed_tensor(seed, q.device)
-            out, lse = _launch_train_fwd(q, k, v, key_bias, seed, rate)
+            out, lse, out32 = _launch_train_fwd(q, k, v, key_bias, seed, rate,
+                                                for_backward=any(ctx.needs_input_grad))
             K.count_launch("attention_dropout")
         ctx.rate, ctx.seed = rate, seed
-        ctx.save_for_backward(q, k, v, key_bias, out, lse)
+        ctx.save_for_backward(q, k, v, key_bias, out, lse, out32)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, key_bias, out, lse = ctx.saved_tensors
+        q, k, v, key_bias, out, lse, out32 = ctx.saved_tensors
         rate, seed = ctx.rate, ctx.seed
         if q.device.type == "cpu":
             b, h, n, _ = q.shape
@@ -275,8 +329,8 @@ class _FusedAttentionDropout(torch.autograd.Function):
                 mask=dropout_mask(seed, b, h, n, rate, q.device))
         else:
             thresh = dropout_threshold(rate)
-            dq, dk, dv, dkb = K.attention_train_bwd(
-                *map(_rows, (q, k, v, out, dout.to(q.dtype))), lse,
+            dq, dk, dv, dkb, _ = K.attention_train_bwd(
+                *map(_rows, (q, k, v, out, dout.to(q.dtype))), lse, out32=out32,
                 key_bias=key_bias.float().contiguous(),
                 want_dkey_bias=ctx.needs_input_grad[3], seed=seed,
                 thresh=thresh, keep_scale=dropout_keep_scale(rate))
@@ -315,32 +369,55 @@ class GammaLayerNorm(nn.Module):
         return layer_norm(x, self.gamma, None, 1e-5)
 
 
-class ContinuousPositionBias(nn.Module):
-    """SwinV2 continuous position bias, num_dims=2, layers=2, log distance
-    (transformer_maskgit/attention.py:229-276).  The MLP runs over the
-    distinct offsets only, in f32."""
+class LeakyReLU(nn.Module):
+    """leaky ReLU as jax.nn.leaky_relu: where(x >= 0, x, slope x), so its
+    derivative at 0 is 1 (torch's is the slope).  The CPB MLP meets exact
+    zeros: the zero offset's input row at zero first-layer biases."""
 
-    def __init__(self, dim: int, heads: int, device=None):
+    def __init__(self, slope: float = 0.1):
         super().__init__()
+        self.slope = slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, x * self.slope)
+
+
+class ContinuousPositionBias(nn.Module):
+    """SwinV2 continuous position bias over a `num_dims`-D grid (2: the
+    CTViT's planes; 3: MaskGIT's (t, h, w) token grid), layers=2, log
+    distance, MLP width `dim` (transformer_maskgit/attention.py:229-276).
+    The MLP runs over the distinct offsets only, in f32, then gathers to
+    the (heads, N, N) bias; its gradient is autograd of the gather (the JAX
+    package's `_cpb_expand` VJP sums the same terms in another order)."""
+
+    def __init__(self, dim: int, heads: int, num_dims: int = 2, device=None):
+        super().__init__()
+        self.num_dims = num_dims
         self.net = nn.ModuleList([
-            nn.Sequential(nn.Linear(2, dim, device=device), nn.LeakyReLU(0.1)),
-            nn.Sequential(nn.Linear(dim, dim, device=device), nn.LeakyReLU(0.1)),
+            nn.Sequential(nn.Linear(num_dims, dim, device=device), LeakyReLU(0.1)),
+            nn.Sequential(nn.Linear(dim, dim, device=device), LeakyReLU(0.1)),
             nn.Linear(dim, heads, device=device)])
 
     @staticmethod
-    def _tables(h: int, w: int) -> Tuple[np.ndarray, np.ndarray]:
-        offsets = [np.arange(-(d - 1), d) for d in (h, w)]
+    def _tables(*dims: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The signed-log distinct offsets (prod(2d - 1), nd) and the (N, N)
+        index of each pair's offset (ops/attention.py::_cpb_index_map)."""
+        offsets = [np.arange(-(d - 1), d) for d in dims]
         uniq = np.stack(np.meshgrid(*offsets, indexing="ij"),
-                        axis=-1).reshape(-1, 2).astype(np.float32)
+                        axis=-1).reshape(-1, len(dims)).astype(np.float32)
         uniq = np.sign(uniq) * np.log(np.abs(uniq) + 1.0)
-        pos = np.stack(np.meshgrid(np.arange(h), np.arange(w), indexing="ij"),
-                       axis=-1).reshape(-1, 2)
+        pos = np.stack(np.meshgrid(*[np.arange(d) for d in dims], indexing="ij"),
+                       axis=-1).reshape(-1, len(dims))
         rel = pos[:, None, :] - pos[None, :, :]
-        idx = (rel[..., 0] + h - 1) * (2 * w - 1) + (rel[..., 1] + w - 1)
+        idx = np.zeros(rel.shape[:2], np.int64)
+        for a, d in enumerate(dims):
+            idx = idx * (2 * d - 1) + (rel[..., a] + d - 1)
         return uniq, idx
 
-    def forward(self, h: int, w: int) -> torch.Tensor:
-        uniq, idx = self._tables(h, w)
+    def forward(self, *dims: int) -> torch.Tensor:
+        if len(dims) != self.num_dims:
+            raise ValueError(f"CPB over {self.num_dims} dims called with {dims}")
+        uniq, idx = self._tables(*dims)
         dev = self.net[0][0].weight.device
         x = torch.from_numpy(uniq).to(dev)
         for layer in self.net:
@@ -349,14 +426,16 @@ class ContinuousPositionBias(nn.Module):
         return bias.permute(2, 0, 1).contiguous()     # (heads, N, N)
 
 
-def _peg_geometry(weight: torch.Tensor, rotated: bool):
+def _peg_geometry(weight: torch.Tensor, rotated: bool, causal: bool = True):
     """The conv weight as applied, (c, 1, kt, kh, kw), and the F.pad list
     (w0, w1, h0, h1, t0, t1): causal frames, or with rotated=True the
     kernel's tap axes rotated (t, h, w) -> (h, w, t) and the causal pad on
-    h (ct_clip_tpu/ops/pallas/peg.py::_pads, causal_axis 1)."""
-    if rotated:  # K_r[a, b, c] = K[b, c, a]
-        return weight.permute(0, 1, 4, 2, 3), [1, 1, 2, 0, 1, 1]
-    return weight, [1, 1, 1, 1, 2, 0]
+    h (ct_clip_tpu/ops/pallas/peg.py::_pads, causal_axis 1); causal=False
+    (MaskGIT) pads every axis by 1 on both sides."""
+    w = weight.permute(0, 1, 4, 2, 3) if rotated else weight  # K_r[a, b, c] = K[b, c, a]
+    if not causal:
+        return w, [1, 1, 1, 1, 1, 1]
+    return w, [1, 1, 2, 0, 1, 1] if rotated else [1, 1, 1, 1, 2, 0]
 
 
 def _depthwise(x: torch.Tensor, w: torch.Tensor, pad) -> torch.Tensor:
@@ -400,17 +479,17 @@ class _PEGConv(torch.autograd.Function):
     their gradients are not rounded to the compute dtype."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, rotated):
-        ctx.rotated = rotated
+    def forward(ctx, x, weight, bias, rotated, causal):
+        ctx.rotated, ctx.causal = rotated, causal
         ctx.save_for_backward(x, weight)
-        w, pad = _peg_geometry(weight.to(x.dtype), rotated)
+        w, pad = _peg_geometry(weight.to(x.dtype), rotated, causal)
         return _depthwise(x, w, pad) + x + bias.to(x.dtype)
 
     @staticmethod
     def backward(ctx, dout):
         x, weight = ctx.saved_tensors
         c = x.shape[-1]
-        w, pad = _peg_geometry(weight.to(x.dtype), ctx.rotated)
+        w, pad = _peg_geometry(weight.to(x.dtype), ctx.rotated, ctx.causal)
         dout = dout.to(x.dtype).contiguous()
         # dx: correlation with the flipped kernel, pads complemented, plus
         # the residual's identity term (peg.py::lax_peg_dx)
@@ -419,21 +498,24 @@ class _PEGConv(torch.autograd.Function):
         dw = dwb[:27].t().reshape(c, 1, 3, 3, 3)
         if ctx.rotated:  # back from the rotated taps: dK[b, c, a] = dK_r[a, b, c]
             dw = dw.permute(0, 1, 3, 4, 2)
-        return dx, dw.to(weight.dtype), dwb[27].to(weight.dtype), None
+        return dx, dw.to(weight.dtype), dwb[27].to(weight.dtype), None, None
 
 
 def peg_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-             rotated: bool = False) -> torch.Tensor:
+             rotated: bool = False, causal: bool = True) -> torch.Tensor:
     """x + conv(x) + bias for the channels-last (b, t, h, w, c) x and the
     Conv3d weight (c, 1, 3, 3, 3) and bias (c,), causal frame pad (or the
-    rotated form, `_peg_geometry`).  Differentiable: dW and db are the port
-    of K14 on CUDA, its plain version on the CPU."""
-    return _PEGConv.apply(x, weight, bias, rotated)
+    rotated form, or with causal=False a pad of 1 on every side,
+    `_peg_geometry`).  Differentiable: dW and db are the port of K14 on
+    CUDA (leading pads (1, 1, 1) when not causal), its plain version on the
+    CPU."""
+    return _PEGConv.apply(x, weight, bias, rotated, causal)
 
 
 class PEG(nn.Module):
-    """Depthwise 3x3x3 conv positional encoding with causal frame padding
-    (transformer_maskgit/attention.py:56-84, peg_causal=True in CTViT), + x.
+    """Depthwise 3x3x3 conv positional encoding (transformer_maskgit/
+    attention.py:56-84), + x: causal frame padding in the CTViT
+    (peg_causal=True), a pad of 1 on every side in MaskGIT (causal=False).
 
     rotated=True computes the reference's temporal-stage semantics on the
     native (b, t, h, w, c) grid: the reference reinterprets (b, h, w, t, c)
@@ -441,81 +523,157 @@ class PEG(nn.Module):
     the same conv with the kernel's tap axes rotated (t, h, w) -> (h, w, t)
     and the causal pad moved to the h axis (ops/attention.py:457-496)."""
 
-    def __init__(self, dim: int, device=None):
+    def __init__(self, dim: int, causal: bool = True, device=None):
         super().__init__()
+        self.causal = causal
         self.dsconv = nn.Conv3d(dim, dim, 3, groups=dim, device=device)
 
     def forward(self, x: torch.Tensor, rotated: bool = False) -> torch.Tensor:
         """x: (b, t, h, w, c) in the compute dtype."""
         if rotated and not x.shape[1] == x.shape[2] == x.shape[3]:
             raise ValueError("rotated PEG needs a cubic grid")
-        return peg_conv(x, self.dsconv.weight, self.dsconv.bias, rotated)
+        return peg_conv(x, self.dsconv.weight, self.dsconv.bias, rotated, self.causal)
 
 
 class QKNormAttention(nn.Module):
-    """Self-attention with QK l2-norm and learned per-dim scales, fixed
-    logit scale 8, no null key/values (transformer_maskgit/attention.py:
-    88-181).  forward adds the residual."""
+    """Attention with QK l2-norm and learned per-dim scales, fixed logit
+    scale 8 (transformer_maskgit/attention.py:88-181); forward adds the
+    residual.
 
-    def __init__(self, dim: int, dim_head: int, heads: int, device=None):
+    A self-attention without a mask or null key/values runs as one of the
+    fused sublayers where they take it (`sublayer_fits`): K2 grid on the
+    native (b, t, h*w, d) grid of a cubic token grid, K1 with a (h, n, n)
+    bias, K2 seq without one on sequences shorter than 128 (the JAX
+    package's small-sequence gate).  Everything else (cross attention,
+    masks, null key/values, MaskGIT's 1,280 tokens, whose whole k and v of
+    one head do not fit one block's shared memory) takes the JAX package's
+    generic path (ops/attention.py:344-384): q from LN(x), k and v from the
+    PRE-norm x or, for cross attention, from the context (after
+    `context_norm`, a gamma LayerNorm of width `dim_context`); `num_null_kv`
+    learned null key/values (h, 2 n_null, dh), even rows keys and odd rows
+    values, before the keys; the bias and the (b, j) key mask padded over
+    them; then `sdpa` (K7 / K7 dense without a mask, plain PyTorch with
+    one).  Both routes compute the same function."""
+
+    def __init__(self, dim: int, dim_head: int, heads: int, dim_context: Optional[int] = None,
+                 num_null_kv: int = 0, device=None):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head, self.scale = heads, dim_head, 8.0
+        self.num_null_kv = num_null_kv
         self.norm = GammaLayerNorm(dim, device=device)
+        # cross attention (a `dim_context`) normalises its context (the
+        # reference's norm_context=True); self-attention has no context_norm
+        self.context_norm = (None if dim_context is None
+                             else GammaLayerNorm(dim_context, device=device))
         self.to_q = nn.Linear(dim, inner, bias=False, device=device)
-        self.to_kv = nn.Linear(dim, inner * 2, bias=False, device=device)
+        self.to_kv = nn.Linear(dim if dim_context is None else dim_context, inner * 2,
+                               bias=False, device=device)
         self.q_scale = nn.Parameter(torch.ones(dim_head, device=device))
         self.k_scale = nn.Parameter(torch.ones(dim_head, device=device))
-        self.null_kv = nn.Parameter(torch.zeros(heads, 0, dim_head,
+        self.null_kv = nn.Parameter(torch.zeros(heads, 2 * num_null_kv, dim_head,
                                                 device=device))
         self.to_out = nn.Linear(inner, dim, bias=False, device=device)
 
-    def forward(self, x: torch.Tensor,
-                attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
         args = (self.norm.gamma, self.to_q.weight, self.to_kv.weight,
                 self.q_scale, self.k_scale, self.to_out.weight)
         if x.dim() == 4:  # native (b, t, h*w, d) grid: attend along t
-            if attn_bias is not None:
-                raise ValueError("the grid layout takes no attention bias")
+            if attn_bias is not None or mask is not None or context is not None:
+                raise ValueError("the grid layout takes no bias, mask or context")
             return fused_grid_qknorm_attention(x, *args, self.heads,
                                                self.dim_head, self.scale)
-        if attn_bias is None:  # (b*h*w, t, d) temporal sequences
+        n = x.shape[1]
+        if (context is not None or mask is not None or self.num_null_kv
+                or not sublayer_fits(n, self.dim_head)):
+            return self._generic(x, attn_bias, mask, context)
+        if attn_bias is not None:
+            return fused_spatial_qknorm_attention(x, *args, attn_bias, self.heads,
+                                                  self.dim_head, self.scale)
+        if n < 128:  # (b*h*w, t, d) temporal sequences
             return fused_small_qknorm_attention(x, *args, self.heads,
                                                 self.dim_head, self.scale)
-        return fused_spatial_qknorm_attention(x, *args, attn_bias, self.heads,
-                                              self.dim_head, self.scale)
+        return self._generic(x, attn_bias, mask, context)
+
+    def _generic(self, x, attn_bias, mask, context) -> torch.Tensor:
+        b, n, _ = x.shape
+        h, dh, nn_ = self.heads, self.dim_head, self.num_null_kv
+        dtype = x.dtype
+        if context is not None and self.context_norm is not None:
+            context = self.context_norm(context)
+        kv_input = (context if context is not None else x).to(dtype)
+        q = layer_norm(x, self.norm.gamma) @ self.to_q.weight.to(dtype).t()
+        kv = kv_input @ self.to_kv.weight.to(dtype).t()
+        k, v = kv.chunk(2, dim=-1)
+        q, k, v = (t.unflatten(-1, (h, dh)).transpose(1, 2) for t in (q, k, v))
+        if nn_:
+            null = self.null_kv.to(dtype)
+            k = torch.cat([null[None, :, 0::2].expand(b, h, nn_, dh), k], dim=-2)
+            v = torch.cat([null[None, :, 1::2].expand(b, h, nn_, dh), v], dim=-2)
+        q = (l2norm(q.float()) * self.q_scale.float()).to(dtype)
+        k = (l2norm(k.float()) * self.k_scale.float()).to(dtype)
+        if attn_bias is not None:  # padded over the null keys
+            attn_bias = F.pad(attn_bias, (nn_, 0)) if nn_ else attn_bias
+            if attn_bias.dim() == 3:
+                attn_bias = attn_bias[None]
+        if mask is not None:
+            mask = F.pad(mask.bool(), (nn_, 0), value=True)
+        out = sdpa(q * self.scale, k, v, bias=attn_bias, mask=mask)
+        out = out.transpose(1, 2).reshape(b, n, h * dh)
+        return ((out @ self.to_out.weight.to(dtype).t()).float() + x.float()).to(dtype)
+
+
+# null key/values of MaskGIT's cross attention (MaskGITTransformer.py, attn_num_null_kv)
+CROSS_NULL_KV = 2
 
 
 class TransformerLayer(nn.ModuleDict):
-    """One reference layer: "0" PEG, "1" self-attention, "3" feed-forward
-    (index 2, cross-attention, is absent in the CTViT encoder)."""
+    """One reference layer: "0" PEG, "1" self-attention, "2" cross attention
+    (MaskGIT with a text context only; absent in the CTViT), "3"
+    feed-forward."""
 
-    def __init__(self, dim: int, dim_head: int, heads: int, device=None):
-        super().__init__({"0": PEG(dim, device=device),
-                          "1": QKNormAttention(dim, dim_head, heads,
-                                               device=device),
-                          "3": MaskgitFeedForward(dim, device=device)})
+    def __init__(self, dim: int, dim_head: int, heads: int, dim_context: Optional[int] = None,
+                 has_cross_attn: bool = False, peg_causal: bool = True, device=None):
+        layers = {"0": PEG(dim, causal=peg_causal, device=device),
+                  "1": QKNormAttention(dim, dim_head, heads, device=device)}
+        if has_cross_attn:
+            layers["2"] = QKNormAttention(dim, dim_head, heads, dim_context=dim_context,
+                                          num_null_kv=CROSS_NULL_KV, device=device)
+        layers["3"] = MaskgitFeedForward(dim, device=device)
+        super().__init__(layers)
 
 
 class MaskgitTransformer(nn.Module):
-    """transformer_maskgit/attention.py:280-333 for the CTViT encoder and
-    decoder: [PEG, self-attention, FF] x depth, all residual, then
-    norm_out."""
+    """transformer_maskgit/attention.py:280-333: [PEG, self-attention,
+    cross attention?, FF] x depth, all residual, then norm_out.  The CTViT
+    encoder and decoder use the default causal PEG; MaskGIT and the critic
+    `peg_causal=False` and, conditioned on text, `has_cross_attn` with
+    `dim_context` (2 null key/values)."""
 
     def __init__(self, dim: int, depth: int, dim_head: int, heads: int,
-                 device=None):
+                 dim_context: Optional[int] = None, has_cross_attn: bool = False,
+                 peg_causal: bool = True, device=None):
         super().__init__()
-        self.layers = nn.ModuleList(TransformerLayer(dim, dim_head, heads,
-                                                     device=device)
-                                    for _ in range(depth))
+        self.has_cross_attn = has_cross_attn
+        self.layers = nn.ModuleList(
+            TransformerLayer(dim, dim_head, heads, dim_context, has_cross_attn,
+                             peg_causal, device=device)
+            for _ in range(depth))
         self.norm_out = GammaLayerNorm(dim, device=device)
 
     def forward(self, x: torch.Tensor, video_shape: Tuple[int, int, int, int],
                 attn_bias: Optional[torch.Tensor] = None,
-                grid_layout: bool = False) -> torch.Tensor:
+                grid_layout: bool = False, context: Optional[torch.Tensor] = None,
+                self_attn_mask: Optional[torch.Tensor] = None,
+                cross_attn_context_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (b*t, h*w, d) spatial sequences (with the CPB `attn_bias`),
-        (b*h*w, t, d) temporal sequences (no bias), or with grid_layout=True
-        the native (b, t, h*w, d) grid of a cubic token grid."""
+        (b*h*w, t, d) temporal sequences (no bias), with grid_layout=True
+        the native (b, t, h*w, d) grid of a cubic token grid, or MaskGIT's
+        (b, t*h*w, d) tokens with its 3-D CPB bias, an optional (b, N) self
+        mask and the text `context` (b, m, dim_context) with its (b, m) mask
+        (cross attention runs only when a context is given)."""
         if grid_layout:
             b, t, h, w = video_shape
             if not (t == h == w and x.shape[:3] == (b, t, h * w)):
@@ -529,6 +687,8 @@ class MaskgitTransformer(nn.Module):
             # sequences and the rotated conv on the cubic grid
             grid = x.reshape(*video_shape, d)
             x = layer["0"](grid, rotated=grid_layout).reshape(x.shape)
-            x = layer["1"](x, attn_bias)
+            x = layer["1"](x, attn_bias, mask=self_attn_mask)
+            if self.has_cross_attn and context is not None:
+                x = layer["2"](x, mask=cross_attn_context_mask, context=context)
             x = layer["3"](x)
         return self.norm_out(x)

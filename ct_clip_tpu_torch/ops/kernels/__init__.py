@@ -60,6 +60,8 @@ KERNELS = (
     "unrearrange_patches",  # K17 patchify.py::_pallas_unrearrange
     "seq_attention",       # K2 small_attention.py::fused_small_qknorm_attention
     "seq_attention_bwd",   # K10 small_attention.py::_pallas_small_qknorm_bwd (sequence-major)
+    "attention_dense",     # K7 attention.py::_pallas_attention, dense (1, 1|h, n, n) bias
+    "attention_dense_bwd",  # K12b attention.py::_pallas_attention_bwd
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -161,10 +163,10 @@ def _declare(lib) -> None:
     lib.ct_rearrange_patches.argtypes = [p, i, i, i, i, i, i, p, ll, ll, i, p]
     lib.ct_unrearrange_patches.argtypes = [p, ll, ll, i, i, i, i, i, i, p, i, p]
     lp, u = ctypes.POINTER(ll), ctypes.c_uint
-    lib.ct_attn_train_fwd.argtypes = [i, p, p, p, p, lp, p, p, p, u, f,
+    lib.ct_attn_train_fwd.argtypes = [i, p, p, p, p, p, lp, p, p, i, p, p, u, f,
                                       i, i, i, i, p]
-    lib.ct_attn_train_bwd.argtypes = [i, p, p, p, p, p, p, p, p, lp, p, p, p,
-                                      p, p, p, u, f, i, i, i, i, p]
+    lib.ct_attn_train_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, lp, p, p, i, p,
+                                      p, p, p, p, p, p, u, f, i, i, i, i, p]
     lib.ct_gemm_argmax2.argtypes = [p, i, p, p, i, i, i, i, p, i, p]
     lib.ct_gemm_layout.argtypes = [i, i, p, i, p, i, i, i, i, i, p, i, ll, i, p]
     lib.ct_sum_splits.argtypes = [p, i, ll, p, p]
@@ -701,38 +703,66 @@ def _check_key_bias(key_bias, b: int, n: int) -> None:
             raise ValueError(f"attention: key_bias {tuple(key_bias.shape)} != {(b, n)}")
 
 
-def attention_train_fwd(q, k, v, out, lse, *, key_bias=None, seed=None,
-                        thresh=0, keep_scale=1.0) -> torch.Tensor:
-    """out = (softmax(q k^T + key_bias) * dropout mask) v and the row
-    log-sum-exp lse (b, h, n) f32 (attention_train.cu).  key_bias (b, n) or
+def _check_out32(out32, shape) -> None:
+    if out32 is not None:
+        require(out32, "out32", torch.float32, 4)
+        if tuple(out32.shape) != tuple(shape):
+            raise ValueError(f"attention: out32 {tuple(out32.shape)} != {tuple(shape)}")
+
+
+def _bias_heads(bias, h: int, n: int) -> int:
+    """The head count (1 or h) of a dense (1|h, n, n) f32 bias, 0 for None."""
+    if bias is None:
+        return 0
+    require(bias, "bias", torch.float32, 3)
+    if bias.shape[0] not in (1, h) or tuple(bias.shape[1:]) != (n, n):
+        raise ValueError(f"attention: bias {tuple(bias.shape)} is not (1|{h}, {n}, {n})")
+    return bias.shape[0]
+
+
+def attention_train_fwd(q, k, v, out, lse, *, out32=None, key_bias=None, bias=None,
+                        seed=None, thresh=0, keep_scale=1.0) -> torch.Tensor:
+    """out = (softmax(q k^T + bias + key_bias) * dropout mask) v and the row
+    log-sum-exp lse (b, h, n) f32 (attention_train.cu).  out32 a contiguous
+    (b, h, n, d) f32 tensor to receive out before rounding, or None;
+    key_bias (b, n) or None; bias a contiguous (1|h, n, n) f32 dense bias or
     None; thresh 0: no dropout."""
     b, h, n, d = q.shape
     _check_bhnd(q.shape, q.dtype, q=q, k=k, v=v, out=out)
+    _check_out32(out32, q.shape)
     require(lse, "lse", torch.float32, 3)
     if tuple(lse.shape) != (b, h, n):
         raise ValueError(f"attention: lse {tuple(lse.shape)} != {(b, h, n)}")
     _check_key_bias(key_bias, b, n)
+    bias_heads = _bias_heads(bias, h, n)
     seed = _dropout_args(seed, thresh, q.device)
     err = library().ct_attn_train_fwd(
-        _TRAIN_DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out),
-        _bhnd_strides(q, k, v, out), _ptr(key_bias), _ptr(lse), _ptr(seed),
-        thresh, float(keep_scale), b, h, n, d, _stream())
+        _TRAIN_DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(out32),
+        _bhnd_strides(q, k, v, out), _ptr(key_bias), _ptr(bias), bias_heads, _ptr(lse),
+        _ptr(seed), thresh, float(keep_scale), b, h, n, d, _stream())
     _check(err, "ct_attn_train_fwd")
     return out
 
 
-def attention_train_bwd(q, k, v, out, dout, lse, *, key_bias=None,
-                        want_dkey_bias=False, seed=None, thresh=0,
-                        keep_scale=1.0):
-    """dq, dk, dv (and dkey_bias (b, n) summed over heads and query rows, or
-    None) of attention_train_fwd with a per-key or no bias
-    (attention_train.cu)."""
+def attention_train_bwd(q, k, v, out, dout, lse, *, out32=None, key_bias=None,
+                        want_dkey_bias=False, bias=None, want_dbias=False, seed=None,
+                        thresh=0, keep_scale=1.0):
+    """dq, dk, dv, dkey_bias ((b, n) summed over heads and query rows, or
+    None) and dbias ((1|h, n, n) f32 summed over the batch, and over the
+    heads for a one-head bias, or None) of attention_train_fwd
+    (attention_train.cu).  out32: the forward's f32 out, which D_i =
+    dO_i . O_i then reads in place of `out`, or None.  dbias takes a (b, h,
+    n, n) f32 scratch of each (b, h)'s dS."""
     b, h, n, d = q.shape
     _check_bhnd(q.shape, q.dtype, q=q, k=k, v=v, out=out, dout=dout)
+    _check_out32(out32, q.shape)
     require(lse, "lse", torch.float32, 3)
     _check_key_bias(key_bias, b, n)
+    bias_heads = _bias_heads(bias, h, n)
     if key_bias is None and want_dkey_bias:
         raise ValueError("attention: dkey_bias needs a key_bias")
+    if bias is None and want_dbias:
+        raise ValueError("attention: dbias needs a bias")
     seed = _dropout_args(seed, thresh, q.device)
     dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
                   for _ in range(3))
@@ -740,10 +770,13 @@ def attention_train_bwd(q, k, v, out, dout, lse, *, key_bias=None,
     rowdot = torch.empty((b, h, n), **f32)
     dkb_head = torch.empty((b, h, n), **f32) if want_dkey_bias else None
     dkb = torch.empty((b, n), **f32) if want_dkey_bias else None
+    ds = torch.empty((b, h, n, n), **f32) if want_dbias else None
+    dbias = torch.empty((bias_heads, n, n), **f32) if want_dbias else None
     err = library().ct_attn_train_bwd(
-        _TRAIN_DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout),
-        _ptr(dq), _ptr(dk), _ptr(dv), _bhnd_strides(q, k, v, out, dout, dq, dk, dv),
-        _ptr(key_bias), _ptr(lse), _ptr(rowdot), _ptr(dkb_head), _ptr(dkb),
-        _ptr(seed), thresh, float(keep_scale), b, h, n, d, _stream())
+        _TRAIN_DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(out32),
+        _ptr(dout), _ptr(dq), _ptr(dk), _ptr(dv), _bhnd_strides(q, k, v, out, dout, dq, dk, dv),
+        _ptr(key_bias), _ptr(bias), bias_heads, _ptr(lse), _ptr(rowdot), _ptr(dkb_head),
+        _ptr(dkb), _ptr(ds), _ptr(dbias), _ptr(seed), thresh, float(keep_scale),
+        b, h, n, d, _stream())
     _check(err, "ct_attn_train_bwd")
-    return dq, dk, dv, dkb
+    return dq, dk, dv, dkb, dbias

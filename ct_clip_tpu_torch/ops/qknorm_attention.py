@@ -53,6 +53,27 @@ TARGET_BLOCKS = 264
 # sequence groups of the backwards without a bias (grid and sequence-major):
 # bounds the scale gradients' partial rows that sum_splits adds
 GRID_GROUPS = 1024
+# the dynamic shared memory one H100 block may opt into (bytes)
+SMEM_LIMIT = 227 * 1024
+
+
+def _align16(nbytes: int) -> int:
+    return (nbytes + 15) & ~15
+
+
+def sublayer_fits(n: int, dim_head: int) -> bool:
+    """Whether the fused sublayers (K1 / K2 seq forward, K9 / K10 backward)
+    take (sequence, head) pairs of n tokens of width dim_head.  A block
+    stages its pair's whole k and v (backward: q, k, v and dout) in shared
+    memory, sized as the launches in csrc/attention.cu and
+    csrc/qknorm_attention_bwd.cu size it; the JAX package gates its Pallas
+    sublayers on their VMEM plans the same way."""
+    d, warps = dim_head, (8 if n >= 128 else 2)
+    if d % 2 or d > 64:
+        return False
+    fwd = _align16(2 * n * (2 * d + 2)) + 4 * warps * (d + n)
+    bwd = _align16(8 * n * (d + 2)) + 4 * (2 * n + warps * (2 * n + 2 * d))
+    return max(fwd, bwd) <= SMEM_LIMIT
 
 
 def qknorm_attention_plain(x, gamma, wq, wkv, q_scale, k_scale, wout,

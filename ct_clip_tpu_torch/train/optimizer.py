@@ -8,7 +8,8 @@ global-norm clip).
     (`clip_by_global_norm_`);
   * `cosine_lr_schedule` (scripts/src/models/utils.py:19-32);
   * `cosine_annealing_warmup_restarts` (text_classifier/
-    cosine_annealing_warmup.py:5-87).
+    cosine_annealing_warmup.py:5-87), and `cawr_schedule`, its fixed-cycle
+    form that the MaskGIT trainer uses.
 """
 from __future__ import annotations
 
@@ -126,3 +127,12 @@ def cosine_annealing_warmup_restarts(
         return min_lr + (cur_max - min_lr) * (1 + math.cos(math.pi * t)) / 2
 
     return schedule
+
+
+def cawr_schedule(first_cycle_steps: int, max_lr: float, min_lr: float = 0.0,
+                  warmup_steps: int = 0, gamma: float = 1.0):
+    """The MaskGIT trainer's schedule (ct_clip_tpu/train/optimizer.py::
+    cawr_schedule): `cosine_annealing_warmup_restarts` with fixed-length
+    cycles (cycle_mult 1) and min_lr 0 by default."""
+    return cosine_annealing_warmup_restarts(first_cycle_steps, 1.0, max_lr, min_lr,
+                                            warmup_steps, gamma)

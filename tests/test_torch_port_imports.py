@@ -26,7 +26,9 @@ def test_port_files_are_found():
     assert ROOT / "ct_clip_tpu_torch" / "train" / "text_classifier.py" in FILES
     for name in ("visual_ssl.py", "mlm.py"):
         assert ROOT / "ct_clip_tpu_torch" / "models" / name in FILES
-    for rel in ("train/ctvit_trainer.py", "data/generatect.py"):
+    for rel in ("train/ctvit_trainer.py", "data/generatect.py", "models/maskgit.py",
+                "models/t5_encoder.py", "models/t5.py", "models/pipeline.py",
+                "train/maskgit_trainer.py"):
         assert ROOT / "ct_clip_tpu_torch" / rel in FILES
 
 

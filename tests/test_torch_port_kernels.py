@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of ct_clip_tpu_torch against their plain PyTorch
 versions, on the card: the inference kernels in bf16, the training attention
-kernels (K7 f32, K12, K13) in f32.
+kernels (K7 f32, K12, K13) in f32, K7's dense-bias form and K12b in f32 and
+bf16.
 
 Needs an NVIDIA GPU and nvcc (the kernels compile on first use); skipped
 elsewhere.  Run on the card with:
@@ -184,15 +185,8 @@ def test_fused_attention(dev, mode):
         mask = torch.ones(b, n, device=dev)
         mask[:, 100:] = 0
         key_bias = (1 - mask) * torch.finfo(torch.float32).min
-    elif mode == "head_bias":
-        # the dense-bias form runs on the CPU only: its backward (K12b) is
-        # not ported, and no caller passes one
+    elif mode == "head_bias":  # K7's dense-bias form (attention_train.cu), bf16
         bias = _randn((1, h, n, n), g, dev, 1.0, torch.float32)
-        with pytest.raises(NotImplementedError):
-            fused_attention(q, k, v, bias)
-        _close(fused_attention(q.cpu(), k.cpu(), v.cpu(), bias.cpu()),
-               attention_plain(q, k, v, bias).cpu())
-        return
     elif mode == "both":  # XLA in the JAX package: the plain version on the card
         bias = _randn((1, h, n, n), g, dev, 1.0, torch.float32)
         key_bias = torch.zeros(b, n, device=dev)
@@ -363,6 +357,83 @@ def test_training_attention_counters_count_only_kernel_paths(dev):
             counts["attention_dropout"], counts["attention_dropout_bwd"]) == (2, 1, 1, 1)
     with pytest.raises(ValueError):  # the f32 kernels hold d <= 64
         fused_attention(*(torch.zeros(1, 1, 8, 96, device=dev) for _ in range(3)))
+
+
+# ------------------------------------------------- K7 dense and K12b
+@pytest.mark.parametrize("dtype", [F32, BF])
+@pytest.mark.parametrize("bias_heads", [8, 1])
+@pytest.mark.parametrize("n", [200, 1280])
+def test_k7_dense_and_k12b(dev, dtype, bias_heads, n):
+    """K7's dense-bias form and K12b (attention_train.cu) against their
+    plain versions at d 64, 8 heads, a ragged n (200) and MaskGIT's 1,280,
+    with a per-head and a one-head f32 bias: the output, dq, dk, dv and
+    dbias (summed over the batch, and over the heads for the one-head
+    bias).  f32: 1e-4 of max|plain|; bf16: 2e-2 forward, 3e-2 backward
+    (dbias stays f32).  The rows of dS sum to zero in exact arithmetic; in
+    bf16 the kernel takes D_i = dO_i . O_i from the forward's f32 output, as
+    the TPU kernel sums P dP in f32, so dbias's row sums stay at f32
+    rounding: within 16x those of the plain version in f32 on the same
+    inputs (from the bf16-rounded output they read thousands of times
+    more).  dbias is bit-identical across runs (partials summed in a fixed
+    order), and only kernel launches count."""
+    from ct_clip_tpu_torch.ops.attention import (attention_bwd_plain, attention_plain,
+                                                 fused_attention)
+
+    b, h, d = (2, 8, 64) if n > 512 else (3, 8, 64)
+    g = _gen(dev, 30)
+    q, k, v, do = (_randn((b, n, h, d), g, dev, dtype=dtype).transpose(1, 2)
+                   for _ in range(4))
+    q = q * 0.125
+    bias = _randn((1, bias_heads, n, n), g, dev, 1.0, F32)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+    K.reset_launch_counts()
+    out = fused_attention(*leaves[:3], bias=leaves[3])
+    got = torch.autograd.grad(out, leaves, do)
+    counts = K.launch_counts()
+    assert (counts["attention_dense"], counts["attention_dense_bwd"],
+            counts["fused_attention"], counts["attention_bwd"]) == (1, 1, 0, 0)
+    ref_out = attention_plain(q, k, v, bias)
+    ref = attention_bwd_plain(q, k, v, do, bias)[:4]
+    torch.cuda.synchronize()
+    f32 = dtype == F32
+    _close(out, ref_out, rel=1e-4 if f32 else REL)
+    for gr, r in zip(got, ref):
+        _close(gr, r, rel=1e-4 if f32 else 3e-2)
+    assert got[3].dtype == F32 and got[3].shape == bias.shape
+    ref32 = attention_bwd_plain(*(t.float() for t in (q, k, v, do)), bias)[3]
+    assert got[3].sum(-1).abs().max() <= 16 * ref32.sum(-1).abs().max()
+    again = torch.autograd.grad(fused_attention(*leaves[:3], bias=leaves[3]), leaves, do)
+    assert torch.equal(again[3], got[3])
+
+
+def test_dense_bias_shapes_and_f32_maskgit_on_cuda(dev):
+    """fused_attention takes (1, 1|h, n, n) dense biases on CUDA and raises
+    on a per-batch one (XLA in the JAX package; no caller) and on one
+    without its batch axis; an f32 MaskGit forward on CUDA raises in its
+    feed-forward (K3 is instantiated in bf16 only) instead of falling back.
+    The MaskGit's 512 tokens of width 64 do not fit the fused sublayers, so
+    its self-attention is K7 dense, as at full width."""
+    from ct_clip_tpu_torch.config import MaskGitConfig
+    from ct_clip_tpu_torch.models import MaskGit
+    from ct_clip_tpu_torch.ops.attention import attention_plain, fused_attention
+
+    g = _gen(dev, 31)
+    q, k, v = (_randn((2, 4, 130, 32), g, dev, dtype=F32) for _ in range(3))
+    for shape in ((1, 1, 130, 130), (1, 4, 130, 130)):
+        bias = _randn(shape, g, dev, 1.0, F32)
+        _close(fused_attention(q, k, v, bias), attention_plain(q, k, v, bias), rel=1e-4)
+    for shape in ((2, 4, 130, 130), (4, 130, 130)):
+        with pytest.raises(ValueError):
+            fused_attention(q, k, v, _randn(shape, g, dev, 1.0, F32))
+    cfg = MaskGitConfig(dim=128, depth=1, dim_head=64, heads=2, max_seq_len=512, t5_dim=32)
+    model = MaskGit(cfg, num_tokens=32, device=dev).init_weights(_gen(dev, 32))
+    ids = torch.randint(0, 33, (2, 512), generator=_gen(dev, 33), device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        model(ids, (2, 16, 16))
+    model.dtype = BF
+    K.reset_launch_counts()
+    assert torch.isfinite(model(ids, (2, 16, 16)).float()).all()
+    assert K.launch_counts()["attention_dense"] == 1
 
 
 # --------------------------------------- CT-CLIP training: K11, K9, K10, K14, K15, K5

@@ -276,6 +276,18 @@ def test_cosine_lr_schedule_matches_jax():
                                [float(theirs(s)) for s in range(45)], rtol=0, atol=1.2e-10)
 
 
+def test_cawr_schedule_matches_jax():
+    """The MaskGIT trainer's warm restarts over three cycles, gamma 0.5,
+    against the JAX package's jit form (f32)."""
+    from ct_clip_tpu.train.optimizer import cawr_schedule as jsched
+    from ct_clip_tpu_torch.train import cawr_schedule
+
+    kw = dict(max_lr=1e-3, min_lr=1e-5, warmup_steps=3, gamma=0.5)
+    ours, theirs = cawr_schedule(10, **kw), jsched(10, **kw)
+    np.testing.assert_allclose([ours(s) for s in range(32)],
+                               [float(theirs(s)) for s in range(32)], rtol=2e-6)
+
+
 @pytest.mark.parametrize("kind", ["plain", "dcl", "cloob", "multiview"])
 def test_contrastive_loss_matches_jax(kind):
     from ct_clip_tpu.models.ctclip import contrastive_loss as jloss
