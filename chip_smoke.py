@@ -19,7 +19,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      and, where one PyTorch call computes the same function, that call, and
      the bound: the least time the card could take, from the call's bytes
      and products and the H100's published peaks (bf16 tensor cores for the
-     bf16 kernels, f32 CUDA cores for the f32 ones);
+     bf16 kernels, f32 CUDA cores for the f32 ones).  The bf16 K7 / K12b
+     kernels of attention_tc.cu (wgmma) also time the CUDA-core kernels of
+     attention_train.cu they replaced, on the same inputs ("replaced");
   3. zero-shot phase: a 3-volume synthetic CT-RATE corpus (NIfTI + CSVs +
      a toy vocab) through `run_zero_shot` at full CT-CLIP width (seeded
      random weights), batch 2 with a tail batch, twice: on the patch-row
@@ -36,7 +38,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      forward and backward in training, K7 f32 in validation and inference);
      checks the loss and the (64, 18) probabilities and times the training
      step.  Then one step of a 2-layer full-width RadBERT with
-     attention_dropout 0, which must run K12;
+     attention_dropout 0, which must run K12, and one forward and backward
+     of a 2-layer CXR-BERT in bf16 with attention dropout off, whose
+     key-bias attention under grad runs K7 and K12a on attention_train.cu
+     (not the tensor cores), with K12a bf16 at (8, 12, 512, 64) against its
+     plain version;
   5. reference checks on small inputs: a tiny CT-CLIP scores the same
      volumes on the card (kernels) and on the CPU (plain versions), both
      bf16, from volumes and from patch rows, and must agree; a tiny RadBERT
@@ -85,20 +91,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
      sum dropped, which must fail;
   9. MaskGIT, the generative stack's second stage: K7's dense-bias form and
      K12b against their plain versions at MaskGIT's (8, 8, 1280, 64) with
-     the (1, 8, n, n) CPB bias in bf16 and f32, T5's (8, 12, 256, 64) in
-     f32 and a ragged n = 1,000 with a one-head bias, dbias bit-identical
-     run to run; `MaskGitTrainer` at full width (MaskGitConfig(), 8,192
-     codes, bf16 compute) with the TokenCritic at batch 8 on the codes of 8
-     synthetic 200 x 128 x 128 volumes from phase 8's frozen autoencoder
-     (`encode_ids`) and a CXR-BERT context of 8 reports (8, 512, 768): 4
-     steps with the launches per step (K7 dense 6, K12b 6, the critic's K7
-     and K12a 6 each), step time, peak memory, a profiled step, a .pt round
-     trip, one step with a seeded T5-base context; `MaskGITPipeline.sample`
-     of 2 volumes (18 steps, cond scale 3, the critic: 216 K7 dense
-     launches) and a primed sample; T5-base on 8 x 256 ids without a mask
-     (12 K7 dense launches) and with a pad mask (none); a tiny MaskGit step
-     card against CPU, and again with K12b's dbias from batch row 0 only,
-     which must fail.
+     the (1, 8, n, n) CPB bias in bf16 (attention_tc.cu) and f32
+     (attention_train.cu), the critic's no-bias form in bf16 at that shape,
+     T5's (8, 12, 256, 64) in f32 and a ragged n = 1,000 with a one-head
+     bias, dbias bit-identical run to run; `MaskGitTrainer` at full width
+     (MaskGitConfig(), 8,192 codes, bf16 compute) with the TokenCritic at
+     batch 8 on the codes of 8 synthetic 200 x 128 x 128 volumes from phase
+     8's frozen autoencoder (`encode_ids`) and a CXR-BERT context of 8
+     reports (8, 512, 768): 4 steps with the launches per step (on the
+     tensor cores 12 forwards, the MaskGit's K7 dense and the critic's K7,
+     and 12 K12b backwards; K12a none), step time, peak memory, a profiled
+     step, a .pt round trip, one step with a seeded T5-base context;
+     `MaskGITPipeline.sample` of 2 volumes (18 steps, cond scale 3, the
+     critic: 216 K7 dense launches, every K7 on the tensor cores) and a
+     primed sample; T5-base on 8 x 256 ids without a mask (12 K7 dense
+     launches) and with a pad mask (none); a tiny MaskGit step card against
+     CPU, and again with K12b's dbias (attention_tc.cu) from batch row 0
+     only, which must fail.
 
 Prints the end-to-end numbers and the kernel table as one JSON line each,
 then the card's name and power limit (nvidia-smi), then
@@ -150,6 +159,7 @@ def _kernel(name, replaces, source, sources, counter, path):
 # source, every CUDA file its wrapper launches from, its launch counter and
 # the driven path whose count the table reports
 ATTN_TRAIN = ["attention_train.cu"]
+ATTN_TC = ["attention_tc.cu"]
 KERNELS = {
     "patch_embed": _kernel("fused_patch_embed", "patchify.py:341", "layernorm.cu",
                            ["layernorm.cu", "gemm.cu"], "patch_embed", "zero_shot_volume"),
@@ -165,8 +175,8 @@ KERNELS = {
                         ["layernorm.cu", "gemm.cu"], "geglu_ff", "zero_shot_rows"),
     "vq_assign": _kernel("pallas_assign", "vq.py:104", "gemm.cu", ["gemm.cu"],
                          "vq_assign", "zero_shot_rows"),
-    "fused_attention": _kernel("fused_attention", "attention.py:129", "attention_train.cu",
-                               ATTN_TRAIN, "fused_attention", "zero_shot_rows"),
+    "fused_attention": _kernel("fused_attention", "attention.py:129", "attention_tc.cu",
+                               ATTN_TC, "fused_attention", "zero_shot_rows"),
     "rearrange_patches": _kernel("rearrange_patches", "patchify.py:105", "rearrange.cu",
                                  ["rearrange.cu"], "rearrange_patches", "zero_shot_rows"),
     "row_embed": _kernel("fused_row_embed", "patchify.py:609", "layernorm.cu",
@@ -220,15 +230,26 @@ KERNELS = {
                                  ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
                                  "seq_attention_bwd", "ctvit_ae_train"),
     "attention_dense": _kernel("_pallas_attention (dense bias)", "attention.py:157",
-                               "attention_train.cu", ATTN_TRAIN, "attention_dense",
+                               "attention_tc.cu", ATTN_TC, "attention_dense",
                                "maskgit_train"),
     "attention_dense_bwd": _kernel("_pallas_attention_bwd", "attention.py:301",
-                                   "attention_train.cu", ATTN_TRAIN, "attention_dense_bwd",
+                                   "attention_tc.cu", ATTN_TC, "attention_dense_bwd",
                                    "maskgit_train"),
+    # the TokenCritic's self-attention: no bias, bf16; its backward is K12b
+    # with a zero bias and no dbias (the JAX package takes XLA there)
+    "attention_nobias": _kernel("_pallas_attention (no bias)", "attention.py:149",
+                                "attention_tc.cu", ATTN_TC, "fused_attention", "maskgit_train"),
+    "attention_nobias_bwd": _kernel("_pallas_attention_bwd (no bias)", "attention.py:301",
+                                    "attention_tc.cu", ATTN_TC, "attention_tc_bwd",
+                                    "maskgit_train"),
+    # K12a in bf16: CXR-BERT with attention dropout off, under grad
+    "attention_bwd_bf16": _kernel("_pallas_attention_bwd_kbias (bf16)", "attention.py:271",
+                                  "attention_train.cu", ATTN_TRAIN, "attention_bwd",
+                                  "bert_bf16_dropout_off"),
 }
 # launch counters each driven path must raise
 COMMON = ["spatial_attention", "grid_attention", "geglu_ff", "vq_assign",
-          "fused_attention"]
+          "fused_attention", "attention_tc"]
 PATHS = {
     "zero_shot_rows": COMMON + ["rearrange_patches", "row_embed"],
     "zero_shot_volume": COMMON + ["patch_embed"],
@@ -237,12 +258,13 @@ PATHS = {
     "radbert_infer": ["fused_attention"],
     "radbert_eval": ["fused_attention"],
     "radbert_dropout_off": ["fused_attention", "attention_bwd"],
+    "bert_bf16_dropout_off": ["fused_attention", "attention_bwd"],
     # the training step and the mini evaluation (K6 ingest, K4 embed, K5)
     "ctclip_train": ["geglu_ff_bwd", "spatial_attention_bwd", "grid_attention_bwd",
                      "peg_bwd", "vq_cluster_stats", "vq_assign_exact", "geglu_ff",
                      "spatial_attention", "grid_attention", "attention_dropout",
                      "attention_dropout_bwd", "rearrange_patches", "row_embed",
-                     "vq_assign", "fused_attention"],
+                     "vq_assign", "fused_attention", "attention_tc"],
     # the inference embeds under grad, on a volume and on rows
     "embed_grad": ["patch_embed", "patch_embed_bwd", "unrearrange_patches", "row_embed",
                    "row_embed_bwd"],
@@ -253,7 +275,8 @@ AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "rearrange_patches", "geglu_ff_bw
              "spatial_attention_bwd", "grid_attention_bwd", "peg_bwd", "vq_cluster_stats",
              "vq_assign_exact", "geglu_ff", "spatial_attention", "grid_attention",
              "attention_dropout", "attention_dropout_bwd"]
-PATHS["ctclip_aux_ssl_mlm"] = AUX_TRAIN + ["vq_assign", "fused_attention"]  # + mini-eval
+PATHS["ctclip_aux_ssl_mlm"] = AUX_TRAIN + ["vq_assign", "fused_attention",
+                                          "attention_tc"]  # + mini-eval
 PATHS["ctclip_aux_filip_simclr"] = AUX_TRAIN
 # phase 8: the CTViT autoencoder on GenerateCT's non-cubic (20, 8, 8) grid
 # (training embed K6, decoder un-patchify K17 forward and K6 backward),
@@ -270,19 +293,21 @@ PATHS["ctclip_160_train"] = ["seq_attention", "seq_attention_bwd", "spatial_atte
                              "vq_cluster_stats", "vq_assign_exact", "rearrange_patches",
                              "attention_dropout", "attention_dropout_bwd"]
 PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "seq_attention", "geglu_ff",
-                          "vq_assign", "fused_attention"]
+                          "vq_assign", "fused_attention", "attention_tc"]
 # phase 9: MaskGIT on the frozen autoencoder's (20, 8, 8) codes.  A training
-# step: the MaskGit's self-attention with the 3-D CPB bias (K7 dense, K12b),
-# the critic's without a bias (K7, K12a), the FF (K3, K11), the non-causal
-# PEG (K14); the CTViT's inference encode (K8, K1, K2 seq, K3, K5); the
-# sampler (K7 dense, the critic's K7, the decoder's K2 seq, K1, K3, K17);
-# T5 without a mask (K7 dense, 12 per-head biases)
+# step: the MaskGit's self-attention with the 3-D CPB bias (K7 dense, K12b)
+# and the critic's without a bias (K7, K12b with no bias), all bf16 on the
+# tensor cores (attention_tc), the FF (K3, K11), the non-causal PEG (K14);
+# the CTViT's inference encode (K8, K1, K2 seq, K3, K5); the sampler (K7
+# dense, the critic's K7, the decoder's K2 seq, K1, K3, K17); T5 without a
+# mask (K7 dense in f32, 12 per-head biases)
 PATHS["maskgit_train"] = ["attention_dense", "attention_dense_bwd", "fused_attention",
-                          "attention_bwd", "geglu_ff", "geglu_ff_bwd", "peg_bwd"]
+                          "attention_tc", "attention_tc_bwd", "geglu_ff", "geglu_ff_bwd",
+                          "peg_bwd"]
 PATHS["maskgit_encode_ids"] = ["patch_embed", "spatial_attention", "seq_attention", "geglu_ff",
                                "vq_assign"]
-PATHS["maskgit_sample"] = ["attention_dense", "fused_attention", "geglu_ff", "seq_attention",
-                           "spatial_attention", "unrearrange_patches"]
+PATHS["maskgit_sample"] = ["attention_dense", "fused_attention", "attention_tc", "geglu_ff",
+                           "seq_attention", "spatial_attention", "unrearrange_patches"]
 PATHS["maskgit_sample_primed"] = PATHS["maskgit_sample"] + ["patch_embed", "vq_assign"]
 PATHS["t5_no_mask"] = ["attention_dense"]
 # the paths on a non-cubic grid must not take the grid form, and back
@@ -424,6 +449,7 @@ def kernel_cases(dev):
         plain=lambda: attention_plain(q, k, v, key_bias=key_bias),
         library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
                                                        scale=1.0),
+        twin=cuda_core_twin(q, k, v, key_bias=key_bias)[0],
         inputs=(q, k, v, key_bias), flops=4 * 36 * 12 * 512 * 512 * 64)
     return cases
 
@@ -453,6 +479,54 @@ def timing(case, out) -> dict:
                 bound_share=bound_ms / ms)
 
 
+def cuda_core_twin(q, k, v, do=None, key_bias=None, bias=None):
+    """The CUDA-core bf16 kernels of attention_train.cu that attention_tc.cu
+    replaced, on the same inputs through their binding: a forward closure
+    returning out and, given `do`, a backward closure returning dq, dk, dv
+    (and dbias with a (1, 1|h, n, n) `bias`), reading the f32 output as
+    that backward did."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    b, h, n, d = q.shape
+    rows = [t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v)]
+    kbias = None if bias is None else bias[0].float().contiguous()
+
+    def fwd(out32=None):
+        out = torch.empty_like(rows[0])
+        lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+        K.attention_train_fwd(*rows, out, lse, out32=out32, key_bias=key_bias, bias=kbias)
+        return out, lse
+
+    if do is None:
+        return lambda: fwd()[0], None
+    out32 = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)
+    out, lse = fwd(out32)
+
+    def bwd():
+        dq, dk, dv, _, db = K.attention_train_bwd(
+            *rows, out, do.contiguous(), lse, out32=out32, bias=kbias,
+            want_dbias=kbias is not None)
+        return (dq, dk, dv) if db is None else (dq, dk, dv, db.reshape(bias.shape))
+    return lambda: fwd()[0], bwd
+
+
+def twin_result(name: str, fn, ref) -> dict:
+    """Error against the plain outputs `ref` and median time of the replaced
+    CUDA-core kernel `fn` (cuda_core_twin)."""
+    import torch
+
+    got = _as_tuple(fn())
+    torch.cuda.synchronize()
+    err, rel = _rel_errors(got, _as_tuple(ref))
+    del got
+    ms = cuda_ms(fn)
+    log(f"kernel {name}: the replaced CUDA-core form (attention_train.cu, bf16) "
+        f"{ms:.3f} ms, max_abs_err {err:.4e} max_rel_err {rel:.4e}")
+    return dict(source=CSRC + "attention_train.cu", ms=ms, max_abs_err=err, max_rel_err=rel)
+
+
 def kernel_phase(dev):
     import torch
 
@@ -477,6 +551,8 @@ def kernel_phase(dev):
         if (exact and not torch.equal(got, ref)) or rel > REL_TOL:
             raise AssertionError(f"{name}: error {err:.3e} (rel {rel:.3e}) "
                                  f"outside {res['tolerance']}")
+        if case.get("twin"):
+            res["replaced"] = twin_result(name, case["twin"], ref)
         results[name] = res
         del got, ref
 
@@ -874,6 +950,8 @@ def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
             res = dict(max_abs_err=err, max_rel_err=rel, tolerance=f"rel {case['tol']}")
         if not ok:
             raise AssertionError(f"{name}: outside tolerance: {res}")
+        if case.get("twin"):
+            res["replaced"] = twin_result(name, case["twin"], ref)
         del got, ref
         torch.cuda.empty_cache()
         res.update(timing(case, case["outputs"]), batch=batch)
@@ -1046,6 +1124,11 @@ def end_to_end_phase(dev, work: Path, card: str):
             model, tok, ds, str(results), batch_size=B, num_workers=2,
             patch_rows=rows))
         check_predictions(name, outs[name], results)
+        # the prompt latents: 36 prompts through the 12 BERT layers, once
+        if counts[name]["attention_tc"] != 12 or counts[name]["fused_attention"] != 12:
+            raise AssertionError(f"{name}: prompt attention launches "
+                                 f"{counts[name]['attention_tc']} on the tensor cores of "
+                                 f"{counts[name]['fused_attention']}, want 12 of 12")
         log(f"e2e {name}: run_zero_shot scored 3 volumes = {3 / secs:.3f} volumes/s "
             f"(prompt encoding and NIfTI decode included) on {card}")
     # the rows route is the default on CUDA, and each route skips the other's embed
@@ -1083,8 +1166,14 @@ def end_to_end_phase(dev, work: Path, card: str):
     inputs = {name: torch.rand(shape, generator=g, device=dev) * 2 - 1
               for name, shape in shapes.items()}
     batch_ms = {}
+
+    def prompt_latents():  # the set-up once per weight load: 36 prompts, 12 layers
+        clf._prompt_latents = None
+        return clf.prompt_latents()
     with torch.inference_mode():
-        clf.prompt_latents()
+        batch_ms["prompt_latents"] = cuda_ms(prompt_latents, reps=5)
+        log(f"e2e zero-shot set-up: prompt latents (36 prompts x 512 tokens, CXR-BERT, tokenizer "
+            f"included) {batch_ms['prompt_latents']:.2f} ms on {card}")
         for name, x in inputs.items():
             x = x.to(torch.bfloat16)
             batch_ms[name] = cuda_ms(lambda: clf.score_batch(x), reps=5)
@@ -1399,7 +1488,9 @@ def radbert_reference_phase(dev, work: Path) -> dict:
 
 # ---------------------------------------------------------------- phase 6
 # kernel-name fragments of a CT-CLIP training step's groups (first match)
+TC_GROUP = ("K7 / K12b bf16 tensor-core attention (attention_tc.cu)", ("attn_tc_",))
 CTCLIP_GROUPS = (
+    TC_GROUP,
     ("K11 GEGLU FF backward tile (ff_bwd_kernel)", ("ff_bwd_kernel",)),
     ("backward products NN/TN + split sums (gemm_layout_kernel, sum_splits)",
      ("gemm_layout_kernel", "sum_splits_kernel")),
@@ -2339,14 +2430,16 @@ MG_GROUPS = (
 
 def dense_attention_cases(dev):
     """K7 dense and K12b against their plain versions at MaskGIT's (8, 8,
-    1280, 64) with the (1, 8, n, n) CPB bias in bf16 and f32, T5's (8, 12,
-    256, 64) with its per-head bias in f32, and a ragged n = 1,000 with a
-    one-head bias in bf16: each case's kernel call (fused_attention, its
-    backward autograd.grad of a kept forward), plain version, library call
-    (F.scaled_dot_product_attention with the bias as attn_mask, scale 1; the
-    backward its autograd with the bias requiring grad), the tensors it
-    reads and writes and its products, at the bf16 tensor-core or the f32
-    CUDA-core peak."""
+    1280, 64) with the (1, 8, n, n) CPB bias in bf16 (attention_tc.cu) and
+    f32 (attention_train.cu), the TokenCritic's no-bias form at that shape in
+    bf16, T5's (8, 12, 256, 64) with its per-head bias in f32 and a ragged
+    n = 1,000 with a one-head bias in bf16: each case's kernel call
+    (fused_attention, its backward autograd.grad of a kept forward), plain
+    version, library call (F.scaled_dot_product_attention with the bias as
+    attn_mask, scale 1; the backward its autograd with the bias requiring
+    grad), the tensors it reads and writes and its products, at the bf16
+    tensor-core or the f32 CUDA-core peak; the bf16 cases also the replaced
+    CUDA-core kernels on the same inputs (`twin`)."""
     import torch
     import torch.nn.functional as F
 
@@ -2356,41 +2449,48 @@ def dense_attention_cases(dev):
     g = torch.Generator(device=dev).manual_seed(90)
     for label, (b, h, n, d), bh, dtype in (
             ("maskgit_bf16", (MG_B, 8, 1280, 64), 8, torch.bfloat16),
+            ("critic_bf16", (MG_B, 8, 1280, 64), 0, torch.bfloat16),
             ("maskgit_f32", (MG_B, 8, 1280, 64), 8, torch.float32),
             ("t5_f32", (8, 12, 256, 64), 12, torch.float32),
             ("ragged_one_head_bf16", (MG_B, 8, 1000, 64), 1, torch.bfloat16)):
         q, k, v, do = ((torch.randn((b, n, h, d), generator=g, device=dev)).to(dtype)
                        .transpose(1, 2) for _ in range(4))
         q = q * d ** -0.5
-        bias = torch.randn((1, bh, n, n), generator=g, device=dev)
-        leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
-        out = fused_attention(*leaves[:3], bias=leaves[3])
-        lib_in = [t.detach().requires_grad_() for t in (q, k, v, bias.to(dtype))]
-        lib_out = F.scaled_dot_product_attention(*lib_in[:3], attn_mask=lib_in[3], scale=1.0)
+        bias = torch.randn((1, bh, n, n), generator=g, device=dev) if bh else None
+        with_bias = () if bias is None else (bias,)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, *with_bias)]
+        out = fused_attention(*leaves[:3], bias=leaves[3] if bh else None)
+        lib_in = [t.detach().requires_grad_()
+                  for t in (q, k, v, *(x.to(dtype) for x in with_bias))]
+        lib_out = F.scaled_dot_product_attention(*lib_in[:3], attn_mask=lib_in[3] if bh else None,
+                                                 scale=1.0)
         lse = torch.empty((b, h, n), device=dev)  # the residual a backward reads
         product = 2 * b * h * n * n * d
         f32 = dtype == torch.float32
         peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+        twin_fwd, twin_bwd = (None, None) if f32 else cuda_core_twin(q, k, v, do, bias=bias)
         yield f"attention_dense@{label}", dict(
             kern=lambda: fused_attention(q, k, v, bias),
             plain=lambda: attention_plain(q, k, v, bias),
-            library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias.to(dtype),
-                                                           scale=1.0),
-            inputs=(q, k, v, bias), outputs=(q,), flops=2 * product, peak=peak,
-            tol=F32_REL_TOL if f32 else REL_TOL)
+            library=lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias.to(dtype) if bh else None, scale=1.0),
+            twin=twin_fwd, inputs=(q, k, v, *with_bias), outputs=(q,), flops=2 * product,
+            peak=peak, tol=F32_REL_TOL if f32 else REL_TOL)
         yield f"attention_dense_bwd@{label}", dict(
             kern=lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
-            plain=lambda: attention_bwd_plain(q, k, v, do, bias)[:4],
+            plain=lambda: attention_bwd_plain(q, k, v, do, bias)[:4 if bh else 3],
             library=lambda: torch.autograd.grad(lib_out, lib_in, do, retain_graph=True),
-            inputs=(q, k, v, bias, do, out, lse), outputs=(q, k, v, bias), flops=5 * product,
-            peak=peak, tol=F32_REL_TOL if f32 else BWD_REL_TOL)
+            twin=twin_bwd, inputs=(q, k, v, *with_bias, do, lse),
+            outputs=(q, k, v, *with_bias), flops=5 * product, peak=peak,
+            tol=F32_REL_TOL if f32 else BWD_REL_TOL)
 
 
 def dense_attention_phase(dev) -> dict:
     """`train_kernel_phase` over `dense_attention_cases`, and K12b's dbias
     bit-identical across two runs of each case, its rows summing to zero
     within 16x the plain version's rounding.  Returns the MaskGIT bf16
-    rows as the table's, the other shapes under `at_<label>`."""
+    rows as the table's, the other shapes under `at_<label>`, and the
+    critic's no-bias rows."""
     import torch
 
     results = {}
@@ -2398,7 +2498,9 @@ def dense_attention_phase(dev) -> dict:
     # tensors, so it runs before the generator moves on
     for name, case in dense_attention_cases(dev):
         results[name] = train_kernel_phase(dev, [(name, case)], MG_B)[name]
-        if name.startswith("attention_dense_bwd"):
+        results[name]["source"] = CSRC + ("attention_train.cu" if case["peak"] == PEAK_F32_FLOPS
+                                          else "attention_tc.cu")
+        if name.startswith("attention_dense_bwd") and len(case["outputs"]) == 4:
             first = case["kern"]()[3].clone()
             same = torch.equal(case["kern"]()[3], first)
             results[name]["dbias_bit_identical"] = same
@@ -2406,7 +2508,7 @@ def dense_attention_phase(dev) -> dict:
             if not same:
                 raise AssertionError(f"{name}: dbias differs between two runs")
             # dS rows sum to zero exactly; the kernel's stay at f32 rounding
-            # (D_i from the forward's f32 output), like the plain version's
+            # (D_i summed from the f32 P and dP), like the plain version's
             rows = first.sum(-1).abs().max().item()
             plain_rows = case["plain"]()[3].sum(-1).abs().max().item()
             results[name].update(dbias_row_sum_max=rows, plain_dbias_row_sum_max=plain_rows)
@@ -2421,7 +2523,75 @@ def dense_attention_phase(dev) -> dict:
         table[key] = dict(results[f"{key}@maskgit_bf16"], shape=[MG_B, 8, 1280, 64],
                           **{f"at_{label}": results[f"{key}@{label}"] for label in
                              ("maskgit_f32", "t5_f32", "ragged_one_head_bf16")})
+    for key, row in (("attention_dense", "attention_nobias"),
+                     ("attention_dense_bwd", "attention_nobias_bwd")):
+        table[row] = dict(results[f"{key}@critic_bf16"], shape=[MG_B, 8, 1280, 64])
     return table
+
+
+def bert_bf16_bwd_cases(dev):
+    """K12a in bf16 at CXR-BERT's (8, 12, 512, 64) with a pad key bias under
+    grad (attention_train.cu: the key-bias backward reads the CUDA-core
+    forward's f32 output): torch.autograd.grad of a kept fused_attention,
+    its plain version, SDPA's backward, the tensors read and written."""
+    import torch
+    import torch.nn.functional as F
+
+    from ct_clip_tpu_torch.ops.attention import attention_bwd_plain, fused_attention
+
+    g = torch.Generator(device=dev).manual_seed(91)
+    bf, (b, h, n, d) = torch.bfloat16, (TRAIN_B, 12, 512, 64)
+    q, k, v = (torch.randn((b, n, h, d), generator=g, device=dev).to(bf).transpose(1, 2)
+               for _ in range(3))
+    q = q * d ** -0.5
+    lengths = torch.randint(64, n + 1, (b,), generator=g, device=dev)
+    kb = (1 - (torch.arange(n, device=dev)[None] < lengths[:, None]).float()) \
+        * torch.finfo(torch.float32).min
+    do = torch.randn((b, h, n, d), generator=g, device=dev).to(bf)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, kb)]
+    out = fused_attention(*leaves[:3], key_bias=leaves[3])
+    lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=kb.to(bf)[:, None, None, :],
+                                             scale=1.0)
+    lse = torch.empty((b, h, n), device=dev)
+    yield "attention_bwd_bf16", dict(
+        kern=lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+        plain=lambda: tuple(t for t in attention_bwd_plain(q, k, v, do, key_bias=kb)
+                            if t is not None),
+        library=lambda: torch.autograd.grad(lib_out, lib_in, do, retain_graph=True),
+        inputs=(q, k, v, kb, do, out, lse), outputs=(q, k, v, kb),
+        flops=5 * 2 * b * h * n * n * d, tol=BWD_REL_TOL)
+
+
+def bert_bf16_dropout_off(dev) -> dict:
+    """One forward and backward of a 2-layer full-width CXR-BERT in bf16 with
+    attention dropout off (8 reports of 512 tokens with pads): its key-bias
+    attention under grad takes attention_train.cu, K7 then K12a."""
+    import torch
+
+    from ct_clip_tpu_torch.config import BertConfig
+    from ct_clip_tpu_torch.models import BertModel
+    from ct_clip_tpu_torch.models.ctvit import init_param_
+
+    cfg = BertConfig(num_hidden_layers=2, attention_dropout=0.0)
+    bert = BertModel(cfg, dtype=torch.bfloat16, device=dev).train()
+    g = torch.Generator(device=dev).manual_seed(92)
+    for name, t in bert.named_parameters():
+        init_param_(name, t, g)
+    ids = torch.randint(5, cfg.vocab_size, (TRAIN_B, 512), generator=g, device=dev)
+    mask = (torch.arange(512, device=dev)[None]
+            < torch.randint(64, 513, (TRAIN_B, 1), generator=g, device=dev)).long()
+
+    def step():
+        hidden = bert(ids, mask, generator=g)
+        hidden.float().square().mean().backward()
+        return hidden
+    hidden, counts, _ = drive("bert_bf16_dropout_off", step)
+    if counts["attention_bwd"] != 2 or counts["attention_tc"] or not torch_finite(hidden):
+        raise AssertionError(f"bert bf16 dropout off: launches {counts}")
+    del bert
+    torch.cuda.empty_cache()
+    return counts
 
 
 def maskgit_models(dev, dtype, seed: int = 0):
@@ -2516,7 +2686,8 @@ def maskgit_phase(dev, work: Path, card: str) -> dict:
     med = statistics.median(step_ms)
     c = counts["maskgit_train"]
     per_step = {k: c[k] for k in ("attention_dense", "attention_dense_bwd", "fused_attention",
-                                  "attention_bwd", "geglu_ff", "geglu_ff_bwd", "peg_bwd")}
+                                  "attention_bwd", "attention_tc", "attention_tc_bwd",
+                                  "geglu_ff", "geglu_ff_bwd", "peg_bwd")}
     log(f"maskgit step: batch {MG_B} x {int(np.prod(grid)):,} tokens, full width, bf16, CXR-BERT "
         f"context {tuple(context.shape)}, critic on: median {med:.2f} ms of steps 2-4 "
         f"{[round(t, 2) for t in step_ms]} = {MG_B / med * 1e3:.2f} volumes/s; peak memory "
@@ -2524,7 +2695,10 @@ def maskgit_phase(dev, work: Path, card: str) -> dict:
         f"{[round(x['critic_loss'], 4) for x in logs]}; launches in one step {per_step} on {card}")
     if not all(np.isfinite([x["loss"], x["critic_loss"]]).all() for x in logs):
         raise AssertionError(f"maskgit: losses not finite: {logs}")
-    want = dict(attention_dense=6, attention_dense_bwd=6, fused_attention=6, attention_bwd=6)
+    # the MaskGit's K7 dense / K12b and the critic's no-bias K7 / K12b, all on
+    # the tensor cores; K12a (attention_bwd) no more
+    want = dict(attention_dense=6, fused_attention=6, attention_dense_bwd=12, attention_bwd=0,
+                attention_tc=12, attention_tc_bwd=12)
     if any(per_step[k] != n for k, n in want.items()):
         raise AssertionError(f"maskgit: launches per step {per_step}, want {want}")
     breakdown = profile_step(lambda: trainer.train_step(ids, grid, context=context),
@@ -2579,14 +2753,18 @@ def maskgit_phase(dev, work: Path, card: str) -> dict:
     vols, counts["maskgit_sample"], sample_s = drive(
         "maskgit_sample", lambda: pipe.sample(num_frames=AE_FRAMES, texts=texts[:2],
                                               generator=gen))
-    dense = counts["maskgit_sample"]["attention_dense"]
+    sc = counts["maskgit_sample"]
+    dense = sc["attention_dense"]
     log(f"maskgit sample: 2 volumes {tuple(vols.shape)} in {sample_s:.2f} s host clock (18 steps, "
         f"cond scale 3, critic, text embedding and decoder included) = {sample_s / 2:.2f} s per "
-        f"volume, K7 dense launches {dense} on {card}")
+        f"volume, K7 dense launches {dense}, on the tensor cores {sc['attention_tc']} of "
+        f"{dense + sc['fused_attention']} K7 launches on {card}")
     hw = cfg.image_size
+    # every K7 of sampling (the MaskGit's, the critic's, the text tower's) is
+    # bf16 without grad: all on the tensor cores
     if vols.shape != (2, AE_FRAMES, hw, hw, 1) or not torch_finite(vols) \
-            or dense != 18 * 2 * 6:
-        raise AssertionError(f"maskgit sample: {tuple(vols.shape)}, dense launches {dense}")
+            or dense != 18 * 2 * 6 or sc["attention_tc"] != dense + sc["fused_attention"]:
+        raise AssertionError(f"maskgit sample: {tuple(vols.shape)}, launches {sc}")
     primed, counts["maskgit_sample_primed"], primed_s = drive(
         "maskgit_sample_primed", lambda: pipe.sample(
             num_frames=AE_FRAMES // 2, texts=texts[:1], prime_frames=vols[:1, AE_FRAMES // 2:],
@@ -2621,11 +2799,12 @@ def tiny_maskgit_side(cfg, start, inputs, device, dtype, lr: float, folder: Path
     ids, ctx = ids.to(device), ctx.to(device)
     model = MaskGit(cfg, 64, dtype=dtype, device=device)
     model.load_state_dict(start)
-    before = K.launch_counts()["attention_dense_bwd"]
+    before = K.launch_counts()["attention_tc_bwd"]
     loss, _ = maskgit_train_loss(model, ids, grid, context=ctx, draws=draws)
     loss.backward()
-    if device.type == "cuda" and K.launch_counts()["attention_dense_bwd"] == before:
-        raise AssertionError("tiny MaskGit: the self-attention did not run K12b")
+    if device.type == "cuda" and K.launch_counts()["attention_tc_bwd"] == before:
+        raise AssertionError("tiny MaskGit: the self-attention did not run K12b on the "
+                             "tensor cores")
     grads = {n: p.grad.float().cpu().clone() for n, p in model.named_parameters()
              if p.grad is not None}
     model.load_state_dict(start)
@@ -2638,20 +2817,17 @@ def tiny_maskgit_side(cfg, start, inputs, device, dtype, lr: float, folder: Path
 
 
 def maskgit_planted_faults():
-    """K12b's dbias taken from the batch's first row only."""
+    """K12b's dbias (attention_tc.cu) taken from the batch's first row only."""
     from ct_clip_tpu_torch.ops import kernels as K
 
-    bwd = K.attention_train_bwd
+    bwd = K.attention_tc_bwd
 
-    def k12b_first_row(q, k, v, out, dout, lse, **kw):
-        g = bwd(q, k, v, out, dout, lse, **kw)
-        if g[4] is None:
+    def k12b_first_row(q, k, v, dout, lse, **kw):
+        g = bwd(q, k, v, dout, lse, **kw)
+        if g[3] is None:
             return g
-        if kw.get("out32") is not None:
-            kw = dict(kw, out32=kw["out32"][:1])
-        return g[:4] + (bwd(q[:1], k[:1], v[:1], out[:1], dout[:1], lse[:1], **kw)[4],)
-    return {"K12b with dbias from batch row 0 only": (K, "attention_train_bwd",
-                                                     k12b_first_row)}
+        return g[:3] + (bwd(q[:1], k[:1], v[:1], dout[:1], lse[:1], **kw)[3],)
+    return {"K12b with dbias from batch row 0 only": (K, "attention_tc_bwd", k12b_first_row)}
 
 
 def tiny_maskgit_phase(dev, work: Path) -> dict:
@@ -2721,6 +2897,8 @@ def main() -> int:
         counts, route_diff, batch_ms, batch_profile = end_to_end_phase(dev, work, card)
         radbert = radbert_phase(dev, work, card)
         counts.update(radbert.pop("counts"))
+        counts["bert_bf16_dropout_off"] = bert_bf16_dropout_off(dev)
+        results.update(train_kernel_phase(dev, bert_bf16_bwd_cases(dev), TRAIN_B))
         ref_errs = small_reference_phase(dev, work)
         radbert_ref = radbert_reference_phase(dev, work)
         corpus = write_train_corpus(work)

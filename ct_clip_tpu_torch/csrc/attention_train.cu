@@ -1,24 +1,25 @@
-// attention_train.cu — key-tiled attention for training: forward with an
-// optional in-kernel dropout on the probabilities, its backward, and the
+// attention_train.cu — key-tiled attention on the CUDA cores: forward with
+// an optional in-kernel dropout on the probabilities, its backward, and the
 // row log-sum-exp that links the two.  Templated on the element type T of
-// q, k, v, out and the gradients; this file instantiates T = float (RadBERT)
-// and T = bf16 (CXR-BERT inside CT-CLIP training).  In bf16 the operands are
+// q, k, v, out and the gradients (float and bf16).  In bf16 the operands are
 // widened to f32 as they are staged, so every product and the softmax run in
 // f32 and only the stored outputs round to bf16.
 //
-// Replaces these TPU kernels of ct_clip_tpu/ops/pallas/attention.py:
-//   * _pallas_attention (K7), f32 form: softmax(q k^T + key_bias) v, the
-//     per-key (b, n) bias optional                -> ct_attn_train_fwd, rate 0;
+// It serves the forms that attention_tc.cu (bf16, d 64, wgmma) does not take
+// (ops/attention.py::attention_route): f32 (RadBERT, T5, the f32 rows),
+// dropout (K13, CXR-BERT in CT-CLIP training), head dims other than 64, and
+// a bf16 key bias under grad.  Of ct_clip_tpu/ops/pallas/attention.py:
+//   * _pallas_attention (K7): softmax(q k^T + key_bias) v, the per-key (b, n)
+//     bias optional, or with an f32 (1, 1|h, n, n) dense bias
+//                                                -> ct_attn_train_fwd, rate 0;
 //   * _pallas_attention_kbias_drop_impl (K13 forward): key-bias attention with
 //     dropout on the probabilities               -> ct_attn_train_fwd, rate > 0;
-//   * _pallas_attention_bwd_kbias (K12, key-bias backward): dq, dk, dv and
-//     dkey_bias summed over heads and query rows -> ct_attn_train_bwd, rate 0;
+//   * _pallas_attention_bwd_kbias (K12a): dq, dk, dv and dkey_bias summed over
+//     heads and query rows                       -> ct_attn_train_bwd, rate 0;
 //   * _pallas_attention_kbias_drop_bwd (K13 backward), the same with the
 //     dropout mask regenerated                   -> ct_attn_train_bwd, rate > 0;
-//   * _pallas_attention (K7), dense-bias form: softmax(q k^T + bias) v with an
-//     f32 (1, 1|h, n, n) bias                    -> ct_attn_train_fwd, bias set;
-//   * _pallas_attention_bwd (K12b): dq, dk, dv and dbias summed over the batch
-//     (and over the heads for a one-head bias)   -> ct_attn_train_bwd, bias set.
+//   * _pallas_attention_bwd (K12b) in f32: dq, dk, dv and dbias summed over
+//     the batch (and the heads for a one-head bias) -> ct_attn_train_bwd, bias set.
 //
 // Dropout mask.  The TPU draws the bits from its hardware generator seeded
 // by (seed, head, row).  Here the bits are Philox4x32-10 keyed on the 64-bit
@@ -36,38 +37,19 @@
 // of memory time, so arithmetic bounds it.  Products run in true f32 on the
 // CUDA cores, as Precision.HIGHEST does on the TPU (no TF32).
 //
-// Design.  f32 K and V of a whole (sequence, head) at n 512 take 266 KB,
-// above a block's 227 KB, so the forward tiles the keys: one block per
-// (64-query tile, sequence, head) walks 64-key tiles with an online softmax
-// and writes the row log-sum-exp (b, h, n), the backward's only residual.
-// 256 threads as 16 x 16, each owning a 4 x 4 piece of every 64 x 64 tile;
-// operands sit in shared memory transposed ([dim][row], rows padded to 68
-// floats) so each step of a product is two 16-byte loads and 16 FMAs.
-// The backward first takes D_i = sum_c dO_ic O_ic (= sum_j P_ij M_ij dP_ij
-// with the dropout mask M).  In bf16 O is read from an f32 copy that the
-// forward writes beside the bf16 output when a backward will follow: the
-// TPU kernels sum P dP in f32, and a D_i from the rounded O is off by a bf16
-// ulp of |dO||O|, a shift of every dS row (sum_j dS_ij != 0) that the bias
-// gradients, sums of dS, collect.  Then a row pass (one block per query tile) for
-// dq and a column pass (one block per key tile) for dk, dv and each head's
-// share of dkey_bias, then sums the shares over heads in a fixed order: no
-// atomics, so the result does not change from run to run.
-//
-// Dense bias (K7 dense, K12b; MaskGIT's CPB table at (8, 8, 1280, 64), T5's
-// per-head relative-position bias).  The bias (bias_heads, n, n) is f32 in
-// both instantiations; each score reads bias[head or 0, i, j] for i, j < n
-// (rows and keys past n of a ragged tail tile read nothing).  The column
-// pass stages each (query tile, key tile) of the bias in shared memory,
-// transposed, so its threads (rows = keys) read it without strided global
-// loads.  dbias[hb, i, j] = sum over the batch (and over the heads for a
-// one-head bias) of dS_bhij: the row pass writes each (b, h)'s dS, f32, to
-// a (b, h, n, n) scratch, and dbias_sum_kernel adds the scratch over the
-// batch (heads outer, batch inner, as the TPU kernel accumulates its grid)
-// in a fixed order: no atomics, bit-identical runs.  The scratch is 4 b h n^2
-// bytes (420 MB at (8, 8, 1280)); a third pass looping over the batch per
-// (head, query tile, key tile) would need no scratch but recompute two of
-// the backward's products per (b, h) tile, where the scratch costs one
-// write and one read of it (~0.25 ms of memory time at that shape).
+// Design.  One block per (64-query tile, sequence, head) walks 64-key tiles
+// with an online softmax and writes the row log-sum-exp (b, h, n), the
+// backward's residual.  256 threads as 16 x 16, each owning a 4 x 4 piece of
+// every 64 x 64 tile; operands sit in shared memory transposed ([dim][row],
+// rows padded to 68 floats).  The backward first takes D_i = sum_c dO_ic O_ic
+// (= sum_j P_ij M_ij dP_ij with the dropout mask M); in bf16 O is read from
+// an f32 copy the forward writes when a backward will follow (from the
+// rounded O, every dS row shifts off its zero sum).  Then a row pass for dq
+// and a column pass for dk, dv and each head's share of dkey_bias, summed
+// over heads in a fixed order: no atomics, bit-identical runs.  A dense bias
+// (f32, bias[head or 0, i, j]) is staged transposed in the column pass; its
+// gradient goes through a (b, h, n, n) f32 scratch of dS that
+// dbias_sum_kernel adds over the batch in a fixed order.
 #include "common.cuh"
 
 namespace {

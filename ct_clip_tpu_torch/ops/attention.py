@@ -24,11 +24,14 @@ Ports of ct_clip_tpu/ops/attention.py:
     `sdpa` (:189-221);
   * `fused_attention`, the port of ops/pallas/attention.py::fused_attention
     (K7): softmax(q k^T + bias + key_bias) v on (b, h, n, d), with its
-    backward as an autograd.Function: K12a with a key bias or none, K12b
-    with a dense (1, 1|h, n, n) bias (its gradient summed over the batch).
-    A dense bias together with a key bias is XLA in the JAX package
-    (`_xla_attention`), so here it is `attention_plain` on every device,
-    differentiated by autograd;
+    backward as an autograd.Function: K12a with a key bias, K12b with a
+    dense (1, 1|h, n, n) bias (its gradient summed over the batch) or none.
+    On CUDA `attention_route` picks the source: bf16 at d 64 runs on the
+    tensor cores (csrc/attention_tc.cu) except a key bias under grad, whose
+    K12a reads the CUDA-core forward's f32 output; the rest runs on
+    csrc/attention_train.cu.  A dense bias together with a key bias is XLA
+    in the JAX package (`_xla_attention`), so here it is `attention_plain`
+    on every device, differentiated by autograd;
   * `fused_attention_kbias_dropout` (K13, forward and backward): the same
     with dropout on the probabilities from a Philox mask.
 
@@ -175,7 +178,7 @@ def attention_dropout_plain(q, k, v, key_bias, seed, rate: float) -> torch.Tenso
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
     """t with a contiguous last dim, as the kernels address rows."""
-    return t if t.stride(-1) == 1 else t.contiguous()
+    return t if t.stride()[-1] == 1 else t.contiguous()
 
 
 def _launch_train_fwd(q, k, v, key_bias, seed=None, rate=0.0, bias=None,
@@ -204,6 +207,55 @@ def _launch_train_fwd(q, k, v, key_bias, seed=None, rate=0.0, bias=None,
     return out, lse, out32
 
 
+TC, TRAIN = "attention_tc", "attention_train"
+BIAS_FORMS = ("none", "key", "dense")
+
+
+def attention_route(dtype: torch.dtype, head_dim: int, bias_form: str, dropout: bool,
+                    backward: bool) -> str:
+    """The CUDA source of a fused attention call, its forward and its
+    backward alike: TC (attention_tc.cu, bf16 on the tensor cores) or TRAIN
+    (attention_train.cu, the CUDA cores).  `bias_form` is "none", "key" (a
+    (b, n) per-key bias) or "dense" (a (1, 1|h, n, n) bias); `backward`
+    whether a backward follows (an input requires grad).
+
+    | call                                          | forward | backward |
+    | bf16, d 64, no dropout, no bias or dense      | TC      | TC       |
+    | bf16, d 64, key bias, no grad                 | TC      | -        |
+    | bf16, d 64, key bias with grad                | TRAIN   | TRAIN    |
+    | dropout, f32 or d != 64                       | TRAIN   | TRAIN    |
+
+    A key bias under grad stays on TRAIN: its backward (K12a) sums D_i from
+    the forward's f32 output, which only the CUDA-core forward computes from
+    an f32 P."""
+    if bias_form not in BIAS_FORMS:
+        raise ValueError(f"attention_route: bias form {bias_form!r} not in {BIAS_FORMS}")
+    if (dtype == torch.bfloat16 and head_dim == K.TC_HEAD_DIM and not dropout
+            and not (bias_form == "key" and backward)):
+        return TC
+    return TRAIN
+
+
+def _tc_operand(t: torch.Tensor) -> torch.Tensor:
+    """t as attention_tc.cu addresses it, or a contiguous copy of it where a
+    stride is not a multiple of 8 elements or the base is off 16 bytes."""
+    return t if K.tc_addressable(t) else t.contiguous()
+
+
+def _launch_tc_fwd(q, k, v, key_bias, bias=None):
+    """Forward kernel on the tensor cores (attention_tc.cu, bf16, d 64):
+    (out, lse); `bias` a contiguous (1|h, n, n) f32 dense bias or None.
+    `out` takes q's strides (empty_like of an addressable view), so merging
+    the heads back is free."""
+    q, k, v = map(_tc_operand, (q, k, v))
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    K.attention_tc_fwd(q, k, v, out, lse,
+                       key_bias=None if key_bias is None else key_bias.float().contiguous(),
+                       bias=bias)
+    return out, lse
+
+
 def _dense_bias(bias: torch.Tensor) -> torch.Tensor:
     """The kernels' (1|h, n, n) f32 contiguous form of a (1, 1|h, n, n)
     dense bias, the one bias shape K7 dense and K12b take (batch 1:
@@ -215,22 +267,34 @@ def _dense_bias(bias: torch.Tensor) -> torch.Tensor:
 
 
 class _FusedAttention(torch.autograd.Function):
-    """K7 forward, K12 backward (K12a without a dense bias, K12b with one).
-    On the CPU both are the plain versions; on CUDA (f32 or bf16) the
-    key-tiled kernels of attention_train.cu, the backward reading the
-    forward's row log-sum-exp (and, in bf16, its f32 output); a dense bias
-    stays f32 in both dtypes."""
+    """K7 forward, K12 backward (K12a with a key bias, K12b with a dense bias
+    or none).  On the CPU both are the plain versions; on CUDA the source
+    `attention_route` picks: attention_tc.cu (bf16, d 64, wgmma) or the
+    key-tiled kernels of attention_train.cu (f32 or bf16), the backward
+    reading the forward's row log-sum-exp (and, on attention_train.cu in
+    bf16, its f32 output); a dense bias stays f32 in both dtypes.  The
+    counters name the function (`fused_attention`, `attention_dense`,
+    `attention_bwd` for K12a, `attention_dense_bwd` for K12b) and, on the
+    tensor cores, the source (`attention_tc`, `attention_tc_bwd`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, key_bias):
         lse = kbias = out32 = None
+        ctx.route = None
         if q.device.type == "cpu":
             out = attention_plain(q, k, v, bias, key_bias)
         else:
             if bias is not None:
                 kbias = _dense_bias(bias)
-            out, lse, out32 = _launch_train_fwd(q, k, v, key_bias, bias=kbias,
-                                                for_backward=any(ctx.needs_input_grad))
+            form = "dense" if bias is not None else "none" if key_bias is None else "key"
+            backward = any(ctx.needs_input_grad)
+            ctx.route = attention_route(q.dtype, q.shape[-1], form, False, backward)
+            if ctx.route == TC:
+                out, lse = _launch_tc_fwd(q, k, v, key_bias, bias=kbias)
+                K.count_launch("attention_tc")
+            else:
+                out, lse, out32 = _launch_train_fwd(q, k, v, key_bias, bias=kbias,
+                                                    for_backward=backward)
             K.count_launch("fused_attention" if bias is None else "attention_dense")
         ctx.save_for_backward(q, k, v, bias, key_bias, out, lse, kbias, out32)
         return out
@@ -242,11 +306,19 @@ class _FusedAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             dq, dk, dv, db, dkb = attention_bwd_plain(q, k, v, dout, bias, key_bias)
             return dq, dk, dv, db if need_db else None, dkb if need_dkb else None
-        dq, dk, dv, dkb, db = K.attention_train_bwd(
-            *map(_rows, (q, k, v, out, dout.to(q.dtype))), lse, out32=out32,
-            key_bias=None if key_bias is None else key_bias.float().contiguous(),
-            want_dkey_bias=need_dkb, bias=kbias, want_dbias=need_db)
-        K.count_launch("attention_bwd" if bias is None else "attention_dense_bwd")
+        if ctx.route == TC:  # a dense bias or none (a key bias under grad is TRAIN)
+            dq, dk, dv, db = K.attention_tc_bwd(
+                *map(_tc_operand, (q, k, v, dout.to(q.dtype))), lse, bias=kbias,
+                want_dbias=need_db)
+            dkb = None
+            K.count_launch("attention_tc_bwd")
+            K.count_launch("attention_dense_bwd")
+        else:
+            dq, dk, dv, dkb, db = K.attention_train_bwd(
+                *map(_rows, (q, k, v, out, dout.to(q.dtype))), lse, out32=out32,
+                key_bias=None if key_bias is None else key_bias.float().contiguous(),
+                want_dkey_bias=need_dkb, bias=kbias, want_dbias=need_db)
+            K.count_launch("attention_bwd" if bias is None else "attention_dense_bwd")
         return (dq, dk, dv, None if db is None else db.reshape(bias.shape).to(bias.dtype),
                 None if dkb is None else dkb.to(key_bias.dtype))
 
@@ -258,11 +330,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     any scaling already applied to q; bias (1, 1|h, n, n) (any shape
     broadcastable to (b, h, n, n) on the CPU),
     key_bias (b, n).  Differentiable: the backward is the port of K12a
-    (key-bias or no bias) or, with a dense bias, of K12b, whose dbias is
+    with a key bias or of K12b with a dense bias or none, whose dbias is
     summed over the batch (and the heads for a one-head bias); f32 or bf16
-    on CUDA.  Both biases together take `attention_plain` and autograd on
-    every device, as the JAX package takes XLA there
-    (ops/pallas/attention.py:347-350)."""
+    on CUDA, the source picked by `attention_route`.  Both biases together
+    take `attention_plain` and autograd on every device, as the JAX package
+    takes XLA there (ops/pallas/attention.py:347-350)."""
     if bias is not None and key_bias is not None:
         return attention_plain(q, k, v, bias, key_bias)
     return _FusedAttention.apply(q, k, v, bias, key_bias)

@@ -61,7 +61,10 @@ KERNELS = (
     "seq_attention",       # K2 small_attention.py::fused_small_qknorm_attention
     "seq_attention_bwd",   # K10 small_attention.py::_pallas_small_qknorm_bwd (sequence-major)
     "attention_dense",     # K7 attention.py::_pallas_attention, dense (1, 1|h, n, n) bias
-    "attention_dense_bwd",  # K12b attention.py::_pallas_attention_bwd
+    "attention_dense_bwd",  # K12b attention.py::_pallas_attention_bwd (bf16 no bias too)
+    # the source that ran: attention_tc.cu's bf16 tensor-core kernels
+    "attention_tc",        # K7 forward, any bias form (fused_attention, attention_dense)
+    "attention_tc_bwd",    # K12b backward, dense bias or none (attention_dense_bwd)
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -167,6 +170,8 @@ def _declare(lib) -> None:
                                       i, i, i, i, p]
     lib.ct_attn_train_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, lp, p, p, i, p,
                                       p, p, p, p, p, p, u, f, i, i, i, i, p]
+    lib.ct_attn_tc_fwd.argtypes = [p, p, p, p, lp, p, p, i, p, i, i, i, p]
+    lib.ct_attn_tc_bwd.argtypes = [p, p, p, p, p, p, p, lp, p, i, p, p, p, p, i, i, i, p]
     lib.ct_gemm_argmax2.argtypes = [p, i, p, p, i, i, i, i, p, i, p]
     lib.ct_gemm_layout.argtypes = [i, i, p, i, p, i, i, i, i, i, p, i, ll, i, p]
     lib.ct_sum_splits.argtypes = [p, i, ll, p, p]
@@ -182,7 +187,8 @@ def _declare(lib) -> None:
     lib.ct_error_string.restype = ctypes.c_char_p
     for name in ("ct_gemm", "ct_gemm_argmax", "ct_layernorm",
                  "ct_patch_layernorm", "ct_attention", "ct_rearrange_patches",
-                 "ct_attn_train_fwd", "ct_attn_train_bwd", "ct_gemm_argmax2",
+                 "ct_attn_train_fwd", "ct_attn_train_bwd", "ct_attn_tc_fwd",
+                 "ct_attn_tc_bwd", "ct_gemm_argmax2",
                  "ct_gemm_layout", "ct_sum_splits", "ct_ff_bwd",
                  "ct_layernorm_bwd", "ct_qk_attention_bwd", "ct_peg_dw",
                  "ct_vq_cluster_stats", "ct_unrearrange_patches",
@@ -666,9 +672,10 @@ def _bhnd_strides(*tensors):
     last dim is contiguous, as the C array the kernels take."""
     vals = []
     for t in tensors:
-        if t.stride(-1) != 1:
+        st = t.stride()  # one call: Tensor.stride(dim) costs ~10x more
+        if st[-1] != 1:
             raise ValueError("attention: the head dim must be contiguous")
-        vals.extend(t.stride()[:3])
+        vals.extend(st[:3])
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
@@ -780,3 +787,73 @@ def attention_train_bwd(q, k, v, out, dout, lse, *, out32=None, key_bias=None,
         b, h, n, d, _stream())
     _check(err, "ct_attn_train_bwd")
     return dq, dk, dv, dkb, dbias
+
+
+# --------------------------------- bf16 attention on the tensor cores (d 64)
+TC_HEAD_DIM = 64
+
+
+def tc_addressable(t: torch.Tensor) -> bool:
+    """Whether attention_tc.cu can copy t's (b, h, n, 64) rows as 16-byte
+    chunks: a contiguous last dim, every other stride a multiple of 8
+    elements and a base on a 16-byte boundary."""
+    st = t.stride()
+    return (len(st) == 4 and st[3] == 1 and st[0] % 8 == 0 and st[1] % 8 == 0
+            and st[2] % 8 == 0 and t.data_ptr() % 16 == 0)
+
+
+def _check_tc(shape, **tensors) -> None:
+    _check_bhnd(shape, torch.bfloat16, **tensors)
+    if shape[-1] != TC_HEAD_DIM:
+        raise ValueError(f"attention_tc: head dim {shape[-1]} != {TC_HEAD_DIM}")
+    for name, t in tensors.items():
+        if not tc_addressable(t):
+            raise ValueError(f"attention_tc: {name} with strides {t.stride()} is not "
+                             "addressable in 16-byte chunks (pass a contiguous copy)")
+
+
+def attention_tc_fwd(q, k, v, out, lse, *, key_bias=None, bias=None) -> torch.Tensor:
+    """out = softmax(q k^T + bias + key_bias) v in bf16 and the row
+    log-sum-exp lse (b, h, n) f32 (attention_tc.cu, wgmma): q, k, v, out
+    (b, h, n, 64) bf16 views as `tc_addressable` says; key_bias (b, n) f32 or
+    None; bias a contiguous (1|h, n, n) f32 dense bias or None, not both."""
+    b, h, n, d = q.shape
+    _check_tc(q.shape, q=q, k=k, v=v, out=out)
+    require(lse, "lse", torch.float32, 3)
+    if tuple(lse.shape) != (b, h, n):
+        raise ValueError(f"attention_tc: lse {tuple(lse.shape)} != {(b, h, n)}")
+    _check_key_bias(key_bias, b, n)
+    if key_bias is not None and bias is not None:
+        raise ValueError("attention_tc: a key bias and a dense bias together")
+    bias_heads = _bias_heads(bias, h, n)
+    err = library().ct_attn_tc_fwd(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _bhnd_strides(q, k, v, out), _ptr(key_bias),
+        _ptr(bias), bias_heads, _ptr(lse), b, h, n, _stream())
+    _check(err, "ct_attn_tc_fwd")
+    return out
+
+
+def attention_tc_bwd(q, k, v, dout, lse, *, bias=None, want_dbias=False):
+    """dq, dk, dv (b, h, n, 64) bf16 and dbias ((1|h, n, n) f32 summed over
+    the batch, and over the heads for a one-head bias, or None) of
+    attention_tc_fwd with a dense bias or none (attention_tc.cu, wgmma): a
+    row pass (D_i = sum_j P_ij dP_ij in f32, then dq; each (b, h)'s dS into a
+    (b, h, n, n) f32 scratch for dbias), a column pass (dk, dv) and the
+    scratch's sum in a fixed order."""
+    b, h, n, d = q.shape
+    _check_tc(q.shape, q=q, k=k, v=v, dout=dout)
+    require(lse, "lse", torch.float32, 3)
+    bias_heads = _bias_heads(bias, h, n)
+    if bias is None and want_dbias:
+        raise ValueError("attention_tc: dbias needs a bias")
+    dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    rowsum = torch.empty((b, h, n), **f32)
+    ds = torch.empty((b, h, n, n), **f32) if want_dbias else None
+    dbias = torch.empty((bias_heads, n, n), **f32) if want_dbias else None
+    err = library().ct_attn_tc_bwd(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(dq), _ptr(dk), _ptr(dv),
+        _bhnd_strides(q, k, v, dout, dq, dk, dv), _ptr(bias), bias_heads, _ptr(lse),
+        _ptr(rowsum), _ptr(ds), _ptr(dbias), b, h, n, _stream())
+    _check(err, "ct_attn_tc_bwd")
+    return dq, dk, dv, dbias

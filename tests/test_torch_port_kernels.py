@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of ct_clip_tpu_torch against their plain PyTorch
 versions, on the card: the inference kernels in bf16, the training attention
 kernels (K7 f32, K12, K13) in f32, K7's dense-bias form and K12b in f32 and
-bf16.
+bf16, and the bf16 K7 / K12b of attention_tc.cu (wgmma) with their routing
+(`-k "tc or dense"`).
 
 Needs an NVIDIA GPU and nvcc (the kernels compile on first use); skipped
 elsewhere.  Run on the card with:
@@ -364,18 +365,19 @@ def test_training_attention_counters_count_only_kernel_paths(dev):
 @pytest.mark.parametrize("bias_heads", [8, 1])
 @pytest.mark.parametrize("n", [200, 1280])
 def test_k7_dense_and_k12b(dev, dtype, bias_heads, n):
-    """K7's dense-bias form and K12b (attention_train.cu) against their
-    plain versions at d 64, 8 heads, a ragged n (200) and MaskGIT's 1,280,
-    with a per-head and a one-head f32 bias: the output, dq, dk, dv and
-    dbias (summed over the batch, and over the heads for the one-head
-    bias).  f32: 1e-4 of max|plain|; bf16: 2e-2 forward, 3e-2 backward
-    (dbias stays f32).  The rows of dS sum to zero in exact arithmetic; in
-    bf16 the kernel takes D_i = dO_i . O_i from the forward's f32 output, as
-    the TPU kernel sums P dP in f32, so dbias's row sums stay at f32
-    rounding: within 16x those of the plain version in f32 on the same
-    inputs (from the bf16-rounded output they read thousands of times
-    more).  dbias is bit-identical across runs (partials summed in a fixed
-    order), and only kernel launches count."""
+    """K7's dense-bias form and K12b (f32: attention_train.cu; bf16:
+    attention_tc.cu) against their plain versions at d 64, 8 heads, a
+    ragged n (200) and MaskGIT's 1,280, with a per-head and a one-head f32
+    bias: the output, dq, dk, dv and dbias (summed over the batch, and over
+    the heads for the one-head bias).  f32: 1e-4 of max|plain|; bf16: 2e-2
+    forward, 3e-2 backward (dbias stays f32).  The rows of dS sum to zero in
+    exact arithmetic; the kernels sum D_i = sum_j P_ij dP_ij in f32 (f32:
+    dO_i . O_i from the f32 output; bf16: from the backward's own f32 P and
+    dP), as the TPU kernel does, so dbias's row sums stay at f32 rounding:
+    within 16x those of the plain version in f32 on the same inputs (from
+    the bf16-rounded output they read thousands of times more).  dbias is
+    bit-identical across runs (partials summed in a fixed order), and only
+    kernel launches count."""
     from ct_clip_tpu_torch.ops.attention import (attention_bwd_plain, attention_plain,
                                                  fused_attention)
 
@@ -751,3 +753,115 @@ def test_inference_embed_under_grad_reaches_every_weight(dev, route):
     assert all(t is not None and torch.isfinite(t.float()).all() and t.abs().max() > 0
                for t in grads[0])
     _grads_close(grads[0], grads[1])
+
+
+# ------------------------------- bf16 K7 / K12b on the tensor cores (wgmma)
+def _tc_inputs(dev, b, h, n, seed):
+    """(b, n, h, 64) bf16 projections viewed head-major, as BERT and MaskGIT
+    pass them, q scaled, an output gradient, and the generator."""
+    g = _gen(dev, seed)
+    q, k, v, do = (_randn((b, n, h, 64), g, dev).transpose(1, 2) for _ in range(4))
+    return q * 0.125, k, v, do, g
+
+
+@pytest.mark.parametrize("n", [1280, 1000])
+@pytest.mark.parametrize("form", ["none", "key", "dense_one_head", "dense"])
+def test_tc_attention_forward(dev, form, n):
+    """attention_tc.cu's forward (bf16, d 64, no grad) against the plain
+    version, 2e-2 of max|plain|, at MaskGIT's n and a ragged n: no bias; a
+    key bias of f32-min pads (row 1 keeps 7 keys, so whole key tiles are
+    padded; row 2 keeps none, a uniform softmax); a dense (1, 1|h, n, n) f32
+    bias.  One launch of attention_tc, none of attention_train.cu."""
+    from ct_clip_tpu_torch.ops.attention import attention_plain, fused_attention
+
+    b, h = 3, 4
+    q, k, v, _, g = _tc_inputs(dev, b, h, n, 40)
+    bias = key_bias = None
+    if form == "key":
+        lengths = torch.tensor([n // 3, 7, 0], device=dev)
+        key_bias = (torch.arange(n, device=dev)[None] >= lengths[:, None]).float() \
+            * torch.finfo(F32).min
+    elif form.startswith("dense"):
+        bias = _randn((1, 1 if form == "dense_one_head" else h, n, n), g, dev, 1.0, F32)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        got = fused_attention(q, k, v, bias, key_bias)
+    counts = K.launch_counts()
+    assert counts["attention_tc"] == 1
+    assert counts["attention_dense" if bias is not None else "fused_attention"] == 1
+    ref = attention_plain(q, k, v, bias, key_bias)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("n", [1280, 1000])
+@pytest.mark.parametrize("form", ["none", "dense_one_head", "dense"])
+def test_tc_attention_backward(dev, form, n):
+    """attention_tc.cu's K12b (bf16, d 64) against the plain backward, 3e-2
+    of max|plain| per output, with no bias (the TokenCritic) and a dense
+    (1, 1|h, n, n) bias: dq, dk, dv, dbias.  dbias's rows sum to zero within
+    16x the plain f32 version's rounding (D_i from the backward's own f32 P
+    and dP); every gradient is bit-identical across two runs; the forward
+    and backward each launch attention_tc once and K12a never."""
+    from ct_clip_tpu_torch.ops.attention import (attention_bwd_plain, attention_plain,
+                                                 fused_attention)
+
+    b, h = 2, 4
+    q, k, v, do, g = _tc_inputs(dev, b, h, n, 41)
+    bias = None if form == "none" else \
+        _randn((1, 1 if form == "dense_one_head" else h, n, n), g, dev, 1.0, F32)
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (q, k, v) + (() if bias is None else (bias,))]
+
+    def run():
+        out = fused_attention(*leaves[:3], leaves[3] if bias is not None else None)
+        return (out, *torch.autograd.grad(out, leaves, do))
+    K.reset_launch_counts()
+    got = run()
+    counts = K.launch_counts()
+    assert (counts["attention_tc"], counts["attention_tc_bwd"], counts["attention_dense_bwd"],
+            counts["attention_bwd"]) == (1, 1, 1, 0)
+    ref = (attention_plain(q, k, v, bias),
+           *attention_bwd_plain(q, k, v, do, bias)[:3 if bias is None else 4])
+    torch.cuda.synchronize()
+    _close(got[0], ref[0])
+    for gr, r in zip(got[1:], ref[1:]):
+        assert gr.shape == r.shape
+        _close(gr, r, rel=3e-2)
+    again = run()
+    assert all(torch.equal(x, y) for x, y in zip(again[1:], got[1:]))
+    if bias is not None:
+        assert got[4].dtype == F32
+        ref32 = attention_bwd_plain(*(t.float() for t in (q, k, v, do)), bias)[3]
+        assert got[4].sum(-1).abs().max() <= 16 * ref32.sum(-1).abs().max()
+
+
+def test_tc_routing_counters(dev):
+    """A bf16 key-bias forward under grad (K12a reads the CUDA-core
+    forward's f32 output) and a dropout forward run attention_train.cu; the
+    same key-bias forward without grad runs attention_tc.cu; d 32 in bf16
+    is routed by its shape to attention_train.cu and runs there."""
+    from ct_clip_tpu_torch.ops.attention import (attention_plain, fused_attention,
+                                                 fused_attention_kbias_dropout)
+
+    q, k, v, kb, do = _train_attn_inputs(dev, 2, 4, 100, 64, seed=42)
+    q, k, v, do = (t.to(BF) for t in (q, k, v, do))
+    K.reset_launch_counts()
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    torch.autograd.grad(fused_attention(*ins, key_bias=kb), ins, do)
+    fused_attention_kbias_dropout(q, k, v, kb, 5, 0.1)
+    counts = K.launch_counts()
+    assert (counts["attention_tc"], counts["attention_tc_bwd"]) == (0, 0)
+    assert (counts["fused_attention"], counts["attention_bwd"],
+            counts["attention_dropout"]) == (1, 1, 1)
+    with torch.no_grad():
+        fused_attention(q, k, v, key_bias=kb)
+    assert K.launch_counts()["attention_tc"] == 1
+    q32, k32, v32 = (t[..., :32].contiguous() for t in (q, k, v))
+    K.reset_launch_counts()
+    with torch.no_grad():
+        got = fused_attention(q32, k32, v32, key_bias=kb)
+    counts = K.launch_counts()
+    assert (counts["fused_attention"], counts["attention_tc"]) == (1, 0)
+    _close(got, attention_plain(q32, k32, v32, key_bias=kb))
