@@ -19,9 +19,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      and, where one PyTorch call computes the same function, that call, and
      the bound: the least time the card could take, from the call's bytes
      and products and the H100's published peaks (bf16 tensor cores for the
-     bf16 kernels, f32 CUDA cores for the f32 ones).  The bf16 K7 / K12b
-     kernels of attention_tc.cu (wgmma) also time the CUDA-core kernels of
-     attention_train.cu they replaced, on the same inputs ("replaced");
+     bf16 kernels, f32 CUDA cores for the f32 ones).  The bf16 K7 / K12b /
+     K12a / K13b kernels of attention_tc.cu (wgmma) also time the CUDA-core
+     kernels of attention_train.cu they replaced, on the same inputs
+     ("replaced");
   3. zero-shot phase: a 3-volume synthetic CT-RATE corpus (NIfTI + CSVs +
      a toy vocab) through `run_zero_shot` at full CT-CLIP width (seeded
      random weights), batch 2 with a tail batch, twice: on the patch-row
@@ -38,11 +39,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      forward and backward in training, K7 f32 in validation and inference);
      checks the loss and the (64, 18) probabilities and times the training
      step.  Then one step of a 2-layer full-width RadBERT with
-     attention_dropout 0, which must run K12, and one forward and backward
-     of a 2-layer CXR-BERT in bf16 with attention dropout off, whose
-     key-bias attention under grad runs K7 and K12a on attention_train.cu
-     (not the tensor cores), with K12a bf16 at (8, 12, 512, 64) against its
-     plain version;
+     attention_dropout 0, which must run K12 (RadBERT is f32: nothing of it
+     runs on the tensor cores), and one forward and backward of a 2-layer
+     CXR-BERT in bf16 with attention dropout off, whose key-bias attention
+     under grad runs K7 and K12a on the tensor cores (attention_tc.cu), with
+     K12a bf16 at (8, 12, 512, 64) against its plain version, bit-identical
+     across two runs, the replaced CUDA-core K12a timed beside it;
   5. reference checks on small inputs: a tiny CT-CLIP scores the same
      volumes on the card (kernels) and on the CPU (plain versions), both
      bf16, from volumes and from patch rows, and must agree; a tiny RadBERT
@@ -50,16 +52,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the card and on the CPU, and the logits, loss, gradients and updated
      weights must agree;
   6. CT-CLIP pretraining: the training kernels against their plain versions
-     at full width, batch 8 (K11, K9, K10, K14, K15, K5 exact, K13 in bf16
-     at CXR-BERT's batch 8 x 512), then `cli train` on a synthetic corpus of
-     20 volumes (16 kept by the 80% split) at full width, batch 8, 4 steps,
-     with one mini evaluation on 2 validation volumes and one checkpoint;
-     every training counter must rise.  The step time (CUDA events), peak
-     memory and a profiled step's breakdown and idle share follow, then a
-     tiny CT-CLIP training step on the card against the CPU (both bf16, each
-     gradient held against the CPU's own bf16-vs-f32 distance), the same
-     card step with planted kernel faults that must fail that comparison,
-     and a save -> resume round trip on the card;
+     at full width, batch 8 (K11, K9, K10, K14, K15, K5 exact, and K13 in
+     bf16 at CXR-BERT's batch 8 x 512: K13a on attention_train.cu, K13b on
+     attention_tc.cu, bit-identical across two runs, against the plain
+     version with the forward's mask and, which must miss the tolerance,
+     with another seed's, the replaced CUDA-core K13b timed beside it), then
+     `cli train` on a synthetic corpus of 20 volumes (16 kept by the 80%
+     split) at full width, batch 8, 4 steps, with one mini evaluation on 2
+     validation volumes and one checkpoint; every training counter must
+     rise, and each step runs 12 K13a on attention_train.cu and 12 K13b on
+     the tensor cores.  The step time (CUDA events), peak memory and a
+     profiled step's breakdown and idle share follow, then a tiny CT-CLIP
+     training step on the card against the CPU (both bf16, each gradient
+     held against the CPU's own bf16-vs-f32 distance; its BERT has one head
+     of 64, so K7 and K12a run on the tensor cores), the same card step with
+     planted kernel faults that must fail that comparison (K12a with D_i
+     forced to 0 among them), and a save -> resume round trip on the card;
   7. CT-CLIP pretraining with the auxiliary objectives: the embed backwards
      against their plain versions at full width, batch AUX_B (K16a and K16b
      within BWD_REL_TOL of max|plain|, K17 bit-exact); the embeds under grad
@@ -71,9 +79,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      SimCLR on the pooled tap for 2 steps, each with its launch counters (the
      volume training embed runs K6, each SSL view K8 and K16a, and MLM runs
      the text tower twice, so K13 launches twice as often per step as in
-     phase 6), step time (CUDA events), peak memory and a profiled step;
-     last, a tiny CT-CLIP step with all three objectives on, card against
-     CPU as in phase 6, and again with K16a's LN scale gradient dropped,
+     phase 6: K13a 24 times on attention_train.cu, K13b 24 on the tensor
+     cores), step time (CUDA events), peak memory and a profiled step;
+     last, a tiny CT-CLIP step with all three objectives on (its BERT at
+     four heads of 16, K12a on attention_train.cu), card against CPU as in
+     phase 6, and again with K16a's LN scale gradient dropped,
      which must fail;
   8. non-cubic token grids and the CTViT autoencoder: K2 and K10 in
      sequence-major form at (4608, 16, 512) (CT-CLIP at 160 frames, batch
@@ -213,8 +223,8 @@ KERNELS = {
                                       "attention.py:474", "attention_train.cu", ATTN_TRAIN,
                                       "attention_dropout", "ctclip_train"),
     "attention_dropout_bwd_bf16": _kernel("_pallas_attention_kbias_drop_bwd (bf16)",
-                                          "attention.py:499", "attention_train.cu",
-                                          ATTN_TRAIN, "attention_dropout_bwd", "ctclip_train"),
+                                          "attention.py:499", "attention_tc.cu",
+                                          ATTN_TC, "attention_dropout_bwd", "ctclip_train"),
     "patch_embed_bwd": _kernel("_pallas_patch_embed_bwd", "patchify.py:375", "layernorm.cu",
                                ["layernorm.cu", "gemm.cu"], "patch_embed_bwd",
                                "ctclip_aux_ssl_mlm"),
@@ -244,7 +254,7 @@ KERNELS = {
                                     "maskgit_train"),
     # K12a in bf16: CXR-BERT with attention dropout off, under grad
     "attention_bwd_bf16": _kernel("_pallas_attention_bwd_kbias (bf16)", "attention.py:271",
-                                  "attention_train.cu", ATTN_TRAIN, "attention_bwd",
+                                  "attention_tc.cu", ATTN_TC, "attention_bwd",
                                   "bert_bf16_dropout_off"),
 }
 # launch counters each driven path must raise
@@ -258,13 +268,15 @@ PATHS = {
     "radbert_infer": ["fused_attention"],
     "radbert_eval": ["fused_attention"],
     "radbert_dropout_off": ["fused_attention", "attention_bwd"],
-    "bert_bf16_dropout_off": ["fused_attention", "attention_bwd"],
-    # the training step and the mini evaluation (K6 ingest, K4 embed, K5)
+    "bert_bf16_dropout_off": ["fused_attention", "attention_bwd", "attention_tc",
+                              "attention_tc_bwd"],
+    # the training step (K13a on attention_train.cu, K13b on the tensor
+    # cores) and the mini evaluation (K6 ingest, K4 embed, K5)
     "ctclip_train": ["geglu_ff_bwd", "spatial_attention_bwd", "grid_attention_bwd",
                      "peg_bwd", "vq_cluster_stats", "vq_assign_exact", "geglu_ff",
                      "spatial_attention", "grid_attention", "attention_dropout",
-                     "attention_dropout_bwd", "rearrange_patches", "row_embed",
-                     "vq_assign", "fused_attention", "attention_tc"],
+                     "attention_dropout_bwd", "attention_tc_bwd", "rearrange_patches",
+                     "row_embed", "vq_assign", "fused_attention", "attention_tc"],
     # the inference embeds under grad, on a volume and on rows
     "embed_grad": ["patch_embed", "patch_embed_bwd", "unrearrange_patches", "row_embed",
                    "row_embed_bwd"],
@@ -274,7 +286,7 @@ PATHS = {
 AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "rearrange_patches", "geglu_ff_bwd",
              "spatial_attention_bwd", "grid_attention_bwd", "peg_bwd", "vq_cluster_stats",
              "vq_assign_exact", "geglu_ff", "spatial_attention", "grid_attention",
-             "attention_dropout", "attention_dropout_bwd"]
+             "attention_dropout", "attention_dropout_bwd", "attention_tc_bwd"]
 PATHS["ctclip_aux_ssl_mlm"] = AUX_TRAIN + ["vq_assign", "fused_attention",
                                           "attention_tc"]  # + mini-eval
 PATHS["ctclip_aux_filip_simclr"] = AUX_TRAIN
@@ -291,7 +303,7 @@ PATHS["reconstruct"] = ["patch_embed", "spatial_attention", "grid_attention", "g
 PATHS["ctclip_160_train"] = ["seq_attention", "seq_attention_bwd", "spatial_attention",
                              "spatial_attention_bwd", "geglu_ff", "geglu_ff_bwd", "peg_bwd",
                              "vq_cluster_stats", "vq_assign_exact", "rearrange_patches",
-                             "attention_dropout", "attention_dropout_bwd"]
+                             "attention_dropout", "attention_dropout_bwd", "attention_tc_bwd"]
 PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "seq_attention", "geglu_ff",
                           "vq_assign", "fused_attention", "attention_tc"]
 # phase 9: MaskGIT on the frozen autoencoder's (20, 8, 8) codes.  A training
@@ -479,12 +491,13 @@ def timing(case, out) -> dict:
                 bound_share=bound_ms / ms)
 
 
-def cuda_core_twin(q, k, v, do=None, key_bias=None, bias=None):
+def cuda_core_twin(q, k, v, do=None, key_bias=None, bias=None, seed=None, rate=0.0):
     """The CUDA-core bf16 kernels of attention_train.cu that attention_tc.cu
     replaced, on the same inputs through their binding: a forward closure
     returning out and, given `do`, a backward closure returning dq, dk, dv
-    (and dbias with a (1, 1|h, n, n) `bias`), reading the f32 output as
-    that backward did."""
+    and dbias with a (1, 1|h, n, n) `bias` or dkey_bias with a (b, n) f32
+    `key_bias`, reading the f32 output as that backward did; with `seed` and
+    `rate` > 0 the dropout forward and backward (K13a, K13b)."""
     import torch
 
     from ct_clip_tpu_torch.ops import kernels as K
@@ -492,11 +505,15 @@ def cuda_core_twin(q, k, v, do=None, key_bias=None, bias=None):
     b, h, n, d = q.shape
     rows = [t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v)]
     kbias = None if bias is None else bias[0].float().contiguous()
+    thresh = K.dropout_threshold(rate) if rate > 0 else 0
+    drop = dict(seed=seed, thresh=thresh,
+                keep_scale=K.dropout_keep_scale(rate) if thresh else 1.0)
 
     def fwd(out32=None):
         out = torch.empty_like(rows[0])
         lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-        K.attention_train_fwd(*rows, out, lse, out32=out32, key_bias=key_bias, bias=kbias)
+        K.attention_train_fwd(*rows, out, lse, out32=out32, key_bias=key_bias, bias=kbias,
+                              **drop)
         return out, lse
 
     if do is None:
@@ -505,10 +522,12 @@ def cuda_core_twin(q, k, v, do=None, key_bias=None, bias=None):
     out, lse = fwd(out32)
 
     def bwd():
-        dq, dk, dv, _, db = K.attention_train_bwd(
-            *rows, out, do.contiguous(), lse, out32=out32, bias=kbias,
-            want_dbias=kbias is not None)
-        return (dq, dk, dv) if db is None else (dq, dk, dv, db.reshape(bias.shape))
+        dq, dk, dv, dkb, db = K.attention_train_bwd(
+            *rows, out, do.contiguous(), lse, out32=out32, key_bias=key_bias,
+            want_dkey_bias=key_bias is not None, bias=kbias, want_dbias=kbias is not None,
+            **drop)
+        extra = () if db is None else (db.reshape(bias.shape),)
+        return (dq, dk, dv) + extra + (() if dkb is None else (dkb,))
     return lambda: fwd()[0], bwd
 
 
@@ -887,7 +906,8 @@ def train_kernel_cases(dev):
         flops=2 * 2 * R * dim * 8192, ids=True)
     del xv, embed_n
 
-    # K13 in bf16 at CXR-BERT's training batch (8, 12, 512, 64)
+    # K13 in bf16 at CXR-BERT's training batch (8, 12, 512, 64): K13a on
+    # attention_train.cu, K13b on attention_tc.cu
     b, h, n, d = TRAIN_B, 12, 512, 64
     q, k, v = (rn(b, n, h, d, dtype=bf).transpose(1, 2) for _ in range(3))
     q = q * d ** -0.5
@@ -910,13 +930,18 @@ def train_kernel_cases(dev):
     lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=sdpa_mask,
                                              dropout_p=DROP_RATE, scale=1.0)
+    other = dropout_mask(seed + 1, b, h, n, DROP_RATE, dev)
     yield "attention_dropout_bwd_bf16", dict(
         kern=lambda: torch.autograd.grad(out, leaves, dob, retain_graph=True),
         plain=lambda: tuple(t for t in attention_bwd_plain(q, k, v, dob, key_bias=kb,
                                                            mask=mask) if t is not None),
+        # the same inputs under another seed's mask: the kernel must miss it
+        wrong_plain=lambda: tuple(t for t in attention_bwd_plain(q, k, v, dob, key_bias=kb,
+                                                                 mask=other) if t is not None),
         library=lambda: torch.autograd.grad(lib_out, lib_in, dob, retain_graph=True),
-        inputs=(q, k, v, kb, seed, dob), outputs=(q, k, v, kb), flops=5 * product,
-        tol=BWD_REL_TOL)
+        twin=cuda_core_twin(q, k, v, dob, key_bias=kb, seed=seed, rate=DROP_RATE)[1],
+        bit_identical=True, inputs=(q, k, v, kb, seed, dob), outputs=(q, k, v, kb),
+        flops=5 * product, tol=BWD_REL_TOL)
 
 
 def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
@@ -950,6 +975,18 @@ def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
             res = dict(max_abs_err=err, max_rel_err=rel, tolerance=f"rel {case['tol']}")
         if not ok:
             raise AssertionError(f"{name}: outside tolerance: {res}")
+        if case.get("bit_identical"):  # no atomics: a second run equals the first
+            res["bit_identical"] = all(torch.equal(a, g) for a, g in
+                                       zip(_as_tuple(case["kern"]()), got))
+            log(f"kernel {name}: outputs bit-identical across two runs: {res['bit_identical']}")
+            if not res["bit_identical"]:
+                raise AssertionError(f"{name}: a second run differs from the first")
+        if case.get("wrong_plain"):  # another seed's mask must miss the tolerance
+            res["wrong_seed_max_rel_err"] = _rel_errors(got, _as_tuple(case["wrong_plain"]()))[1]
+            log(f"kernel {name}: against the plain version with another seed's mask "
+                f"max_rel_err {res['wrong_seed_max_rel_err']:.4e} (must exceed {case['tol']})")
+            if res["wrong_seed_max_rel_err"] <= case["tol"]:
+                raise AssertionError(f"{name}: another seed's mask reads within tolerance")
         if case.get("twin"):
             res["replaced"] = twin_result(name, case["twin"], ref)
         del got, ref
@@ -1224,8 +1261,14 @@ def write_vocab(path: Path, size: int = 30522) -> str:
     return str(path)
 
 
-# kernel-name fragments of the groups a training step's device time is read in
+# kernel-name fragments of the groups a training step's device time is read
+# in; attention_tc.cu's bf16 forward and backward on the tensor cores first
+TC_BWD_GROUP = ("K12a / K12b / K13b bf16 backward on the tensor cores (attention_tc.cu)",
+                ("attn_tc_rows", "attn_tc_cols", "attn_tc_dkb", "attn_tc_dbias"))
+TC_FWD_GROUP = ("K7 bf16 forward on the tensor cores (attention_tc.cu)", ("attn_tc_forward",))
 STEP_GROUPS = (
+    TC_BWD_GROUP,
+    TC_FWD_GROUP,
     ("K13/K12 backward (attention_train.cu)", ("bwd_dq_kernel<", "bwd_dkv_kernel<",
                                                "rowdot_kernel<", "dkb_sum_kernel")),
     ("K13/K7 forward (attention_train.cu)", ("::fwd_kernel<",)),
@@ -1372,6 +1415,11 @@ def radbert_phase(dev, work: Path, card: str) -> dict:
         "radbert_dropout_off", lambda: trainer.train_step(batch, 2e-5, 0))
     if not np.isfinite(loss.item()) or counts["radbert_dropout_off"]["attention_dropout"]:
         raise AssertionError("radbert dropout-off step: bad loss or K13 launched")
+    # RadBERT is f32: nothing of it moves to the bf16 tensor-core kernels
+    on_tc = {path: (c["attention_tc"], c["attention_tc_bwd"]) for path, c in counts.items()
+             if c["attention_tc"] or c["attention_tc_bwd"]}
+    if on_tc:
+        raise AssertionError(f"radbert (f32) ran attention_tc.cu: {on_tc}")
     del model, trainer
     torch.cuda.empty_cache()
     return dict(counts=counts, step_ms=step, step_ms_all=step_ms, peak_gb=peak_gb,
@@ -1488,9 +1536,9 @@ def radbert_reference_phase(dev, work: Path) -> dict:
 
 # ---------------------------------------------------------------- phase 6
 # kernel-name fragments of a CT-CLIP training step's groups (first match)
-TC_GROUP = ("K7 / K12b bf16 tensor-core attention (attention_tc.cu)", ("attn_tc_",))
 CTCLIP_GROUPS = (
-    TC_GROUP,
+    TC_BWD_GROUP,
+    TC_FWD_GROUP,
     ("K11 GEGLU FF backward tile (ff_bwd_kernel)", ("ff_bwd_kernel",)),
     ("backward products NN/TN + split sums (gemm_layout_kernel, sum_splits)",
      ("gemm_layout_kernel", "sum_splits_kernel")),
@@ -1503,9 +1551,9 @@ CTCLIP_GROUPS = (
     ("forward products K1-K3 (gemm_kernel) and LN (ln_kernel)", ("gemm_kernel<",
                                                                  "ln_kernel")),
     ("K1/K2 attention core forward (attention_kernel)", ("attention_kernel",)),
-    ("K13 bf16 CXR-BERT attention (attention_train.cu)", ("fwd_kernel<", "bwd_dq_kernel",
-                                                          "bwd_dkv_kernel", "rowdot_kernel",
-                                                          "dkb_sum")),
+    ("K13a bf16 CXR-BERT forward (attention_train.cu)", ("fwd_kernel<",)),
+    ("CUDA-core attention backward (attention_train.cu)", ("bwd_dq_kernel", "bwd_dkv_kernel",
+                                                           "rowdot_kernel", "dkb_sum")),
     ("cuDNN depthwise conv (PEG forward and dx)", ("conv", "cudnn", "depthwise")),
     ("cuBLAS products (BERT, embed, latent projections)", ("gemm", "xmma", "cutlass",
                                                            "cublas", "sm90")),
@@ -1593,6 +1641,13 @@ def ctclip_train_phase(dev, work: Path, card: str, corpus) -> dict:
     if len(losses) != 4 or not np.isfinite(losses).all() or len(evals) != 1 \
             or ckpts != ["step_4.pt"] or not (results / "mini_eval_step4.csv").exists():
         raise AssertionError(f"ctclip train: losses {losses}, evals {evals}, ckpts {ckpts}")
+    # per step, the text tower's 12 layers: K13a on attention_train.cu, K13b
+    # on the tensor cores
+    k13 = {k: counts[k] / 4 for k in ("attention_dropout", "attention_dropout_bwd",
+                                      "attention_tc_bwd")}
+    log(f"ctclip train: K13 launches per step {k13}")
+    if any(v != BERT_LAYERS for v in k13.values()):
+        raise AssertionError(f"ctclip train: K13 launches per step {k13}, want {BERT_LAYERS}")
     shutil.rmtree(results / "checkpoints")
 
     batch = next(trainer._batches())
@@ -1604,6 +1659,10 @@ def ctclip_train_phase(dev, work: Path, card: str, corpus) -> dict:
 
 
 def tiny_ctclip_config():
+    """The tiny CT-CLIP of phase 6's card-vs-CPU step: its BERT has one head
+    of 64, CXR-BERT's head dim, so its key-bias attention under grad takes
+    the tensor cores (K7 and K12a, attention_tc.cu) as the full tower's does
+    (phase 7's `tiny_aux_config` keeps four heads of 16)."""
     from ct_clip_tpu_torch.config import BertConfig, CTCLIPConfig, CTViTConfig
 
     return CTCLIPConfig(
@@ -1612,7 +1671,7 @@ def tiny_ctclip_config():
                           temporal_patch_size=4, num_frames=12, spatial_depth=2,
                           temporal_depth=2, dim_head=16, heads=4),
         bert=BertConfig(vocab_size=64, hidden_size=64, num_hidden_layers=2,
-                        num_attention_heads=4, intermediate_size=128, hidden_dropout=0.0,
+                        num_attention_heads=1, intermediate_size=128, hidden_dropout=0.0,
                         attention_dropout=0.0))
 
 
@@ -1649,6 +1708,7 @@ def tiny_ctclip_side(cfg, tcfg, start, inputs, device, dtype) -> dict:
     import torch
 
     from ct_clip_tpu_torch.models import CTCLIP
+    from ct_clip_tpu_torch.ops import kernels as K
     from ct_clip_tpu_torch.train import create_train_state, make_train_step, step_generators
 
     ids, mask, video = (t.to(device) for t in inputs)
@@ -1665,7 +1725,16 @@ def tiny_ctclip_side(cfg, tcfg, start, inputs, device, dtype) -> dict:
     gens = step_generators(7, device)
     loss = model(**batch, return_loss=True, train=True, mlm_generator=gens["mlm"],
                  ssl_generator=gens["ssl"])
+    before = K.launch_counts()
     loss.backward()
+    # one K12a per BERT layer and text pass (two with MLM): on the tensor
+    # cores at CXR-BERT's head dim 64, else on attention_train.cu
+    k12a = cfg.bert.num_hidden_layers * (2 if cfg.use_mlm else 1)
+    on_tc = cfg.bert.hidden_size // cfg.bert.num_attention_heads == K.TC_HEAD_DIM
+    want = dict(attention_bwd=k12a, attention_tc_bwd=k12a if on_tc else 0)
+    ran = {k: K.launch_counts()[k] - before[k] for k in want}
+    if device.type == "cuda" and ran != want:
+        raise AssertionError(f"tiny CT-CLIP: key-bias backwards {ran}, want {want}")
     grads = {n: p.grad.float().cpu().clone() for n, p in model.named_parameters()
              if p.grad is not None}
     model.load_state_dict(start)
@@ -1770,10 +1839,30 @@ def planted_faults():
     import torch
 
     from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.attention import dropout_mask
 
     qa = importlib.import_module("ct_clip_tpu_torch.ops.qknorm_attention")
     ffn = importlib.import_module("ct_clip_tpu_torch.ops.ffn")
     k9, k11, k15 = qa._qknorm_attention_bwd_cuda, ffn._geglu_ff_bwd_cuda, K.vq_cluster_stats
+    tc_bwd = K.attention_tc_bwd
+
+    def k12a_no_rowsum(q, k, v, dout, lse, **kw):
+        # the key-bias backward with D_i forced to 0, so dS = P dA: the
+        # kernel's gradients plus the P D terms that D_i's omission adds
+        # (the class of fault whose dkey_bias rows leave their zero sum)
+        dq, dk, dv, db, dkb = tc_bwd(q, k, v, dout, lse, **kw)
+        kb = kw.get("key_bias")
+        if kb is None:
+            return dq, dk, dv, db, dkb
+        qf, kf, vf, gf = (t.float() for t in (q, k, v, dout))
+        p = torch.exp(qf @ kf.transpose(-1, -2) + kb[:, None, None, :] - lse[..., None])
+        da = gf @ vf.transpose(-1, -2)
+        if kw.get("rate"):
+            da = da * dropout_mask(kw["seed"], *q.shape[:3], kw["rate"], q.device)
+        extra = p * (p * da).sum(-1, keepdim=True)
+        dq = (dq.float() + extra @ kf).to(dq.dtype)
+        dk = (dk.float() + extra.transpose(-1, -2) @ qf).to(dk.dtype)
+        return dq, dk, dv, db, None if dkb is None else dkb + extra.sum(dim=(1, 2))
 
     def k9_no_dbias(*a, **kw):
         g = k9(*a, **kw)
@@ -1790,7 +1879,8 @@ def planted_faults():
         return bins, esum
     return {"K9 without the bias gradient": (qa, "_qknorm_attention_bwd_cuda", k9_no_dbias),
             "K11 with dW_out 5% high": (ffn, "_geglu_ff_bwd_cuda", k11_dwo_high),
-            "K15 dropping its fullest code": (K, "vq_cluster_stats", k15_drop_fullest)}
+            "K15 dropping its fullest code": (K, "vq_cluster_stats", k15_drop_fullest),
+            "K12a with D_i forced to 0": (K, "attention_tc_bwd", k12a_no_rowsum)}
 
 
 def tiny_step_check(dev, cfg, faults, label: str, noise_aware_updates: bool = False):
@@ -2021,8 +2111,9 @@ def aux_train_phase(dev, work: Path, card: str, corpus, base_counts) -> dict:
         evals = [r["mini_eval_mean_auc"] for r in recs if "mini_eval_mean_auc" in r]
         ckpts = sorted(p.name for p in (results / "checkpoints").glob("*.pt"))
         k13_rate = counts["attention_dropout"] / steps
-        want = dict(patch_embed_bwd=2 * steps, rearrange_patches=steps,
-                    attention_dropout=(2 if cfg.use_mlm else 1) * BERT_LAYERS * steps)
+        k13 = (2 if cfg.use_mlm else 1) * BERT_LAYERS * steps
+        want = dict(patch_embed_bwd=2 * steps, rearrange_patches=steps, attention_dropout=k13,
+                    attention_dropout_bwd=k13, attention_tc_bwd=k13)
         log(f"{name}: {steps} steps of {AUX_B} at full width in {secs:.1f} s (host clock: "
             f"build, ingest, evaluation and checkpoint included); losses {losses}; grad norms "
             f"{[round(r['grad_norm'], 4) for r in recs if 'loss' in r]}; mini-eval mean AUC "
@@ -2053,10 +2144,17 @@ def tiny_aux_config():
     SSL heads' gradient in them, ten tensors' bf16 gradients lie ~20% (L2)
     from the f32 ones on the CPU itself and flip the sign of some of Adam's
     first steps there (a CPU reading), so this check holds the updates
-    against the CPU's own bf16-f32 updates (`noise_aware_updates`)."""
-    return tiny_ctclip_config().replace(
+    against the CPU's own bf16-f32 updates (`noise_aware_updates`).  Its
+    BERT keeps four heads of 16 (K12a on attention_train.cu): with one head
+    of 64 the CPU's bf16 gradient of to_visual_latent.weight reads -0.23 of
+    its max at an entry where the f32 one reads -0.003, so the card's Adam
+    step there flips against the CPU's, with the CUDA-core K12a as with the
+    tensor-core one (PERF.md §6, tools/port_tiny_aux_probe.py)."""
+    base = tiny_ctclip_config()
+    return base.replace(
         dim_image=64, use_all_token_embeds=True, use_mlm=True, use_visual_ssl=True,
-        text_ssl_loss_weight=0.3, image_ssl_loss_weight=0.5)
+        text_ssl_loss_weight=0.3, image_ssl_loss_weight=0.5,
+        bert=base.bert.replace(num_attention_heads=4))
 
 
 def aux_planted_faults():
@@ -2531,9 +2629,10 @@ def dense_attention_phase(dev) -> dict:
 
 def bert_bf16_bwd_cases(dev):
     """K12a in bf16 at CXR-BERT's (8, 12, 512, 64) with a pad key bias under
-    grad (attention_train.cu: the key-bias backward reads the CUDA-core
-    forward's f32 output): torch.autograd.grad of a kept fused_attention,
-    its plain version, SDPA's backward, the tensors read and written."""
+    grad (attention_tc.cu, after the tensor-core K7): torch.autograd.grad of
+    a kept fused_attention, its plain version, SDPA's backward, the replaced
+    CUDA-core K12a (attention_train.cu) on the same inputs, the tensors read
+    and written; bit-identical across two runs."""
     import torch
     import torch.nn.functional as F
 
@@ -2559,14 +2658,16 @@ def bert_bf16_bwd_cases(dev):
         plain=lambda: tuple(t for t in attention_bwd_plain(q, k, v, do, key_bias=kb)
                             if t is not None),
         library=lambda: torch.autograd.grad(lib_out, lib_in, do, retain_graph=True),
-        inputs=(q, k, v, kb, do, out, lse), outputs=(q, k, v, kb),
+        twin=cuda_core_twin(q, k, v, do, key_bias=kb)[1], bit_identical=True,
+        inputs=(q, k, v, kb, do, lse), outputs=(q, k, v, kb),
         flops=5 * 2 * b * h * n * n * d, tol=BWD_REL_TOL)
 
 
 def bert_bf16_dropout_off(dev) -> dict:
     """One forward and backward of a 2-layer full-width CXR-BERT in bf16 with
     attention dropout off (8 reports of 512 tokens with pads): its key-bias
-    attention under grad takes attention_train.cu, K7 then K12a."""
+    attention under grad takes the tensor cores (attention_tc.cu), K7 then
+    K12a, once per layer each."""
     import torch
 
     from ct_clip_tpu_torch.config import BertConfig
@@ -2587,8 +2688,10 @@ def bert_bf16_dropout_off(dev) -> dict:
         hidden.float().square().mean().backward()
         return hidden
     hidden, counts, _ = drive("bert_bf16_dropout_off", step)
-    if counts["attention_bwd"] != 2 or counts["attention_tc"] or not torch_finite(hidden):
-        raise AssertionError(f"bert bf16 dropout off: launches {counts}")
+    want = dict(fused_attention=2, attention_tc=2, attention_bwd=2, attention_tc_bwd=2,
+                attention_dropout=0, attention_dropout_bwd=0)
+    if any(counts[k] != v for k, v in want.items()) or not torch_finite(hidden):
+        raise AssertionError(f"bert bf16 dropout off: launches {counts}, want {want}")
     del bert
     torch.cuda.empty_cache()
     return counts
@@ -2826,7 +2929,7 @@ def maskgit_planted_faults():
         g = bwd(q, k, v, dout, lse, **kw)
         if g[3] is None:
             return g
-        return g[:3] + (bwd(q[:1], k[:1], v[:1], dout[:1], lse[:1], **kw)[3],)
+        return g[:3] + (bwd(q[:1], k[:1], v[:1], dout[:1], lse[:1], **kw)[3],) + g[4:]
     return {"K12b with dbias from batch row 0 only": (K, "attention_tc_bwd", k12b_first_row)}
 
 

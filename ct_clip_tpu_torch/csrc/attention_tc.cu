@@ -1,8 +1,9 @@
 // attention_tc.cu — bf16 attention at head dim 64 on the Hopper tensor cores:
 // the forward with no bias, a per-key bias or a dense bias, and the backward
-// with a dense bias or none.  Every product is a `wgmma` (sm_90a) with bf16
-// operands and f32 accumulators; tiles reach shared memory through cp.async
-// issued by one producer warp into a two-stage ring of mbarriers.
+// with a dense bias, a per-key bias (with or without dropout) or none.  Every
+// product is a `wgmma` (sm_90a) with bf16 operands and f32 accumulators;
+// tiles reach shared memory through cp.async issued by one producer warp
+// into a two-stage ring of mbarriers.
 //
 // Replaces these TPU kernels of ct_clip_tpu/ops/pallas/attention.py, bf16:
 //   * _pallas_attention (K7, :129; pallas_call :143 key bias, :149 no bias,
@@ -12,12 +13,21 @@
 //     -> attn_tc_rows, attn_tc_cols, attn_tc_dbias.  The same kernels with no
 //     bias serve the no-bias backward (MaskGIT's TokenCritic), which the JAX
 //     package runs in XLA (`_fused_bwd`, :370): K12b with a zero bias and no
-//     dbias.
+//     dbias;
+//   * _pallas_attention_bwd_kbias (K12a, :271; pallas_call :286) and
+//     _pallas_attention_kbias_drop_bwd (K13b, :499; pallas_call :516): dq,
+//     dk, dv and dkey_bias (b, n), summed over the heads in order and over
+//     the query rows, for a per-key (b, n) f32 bias; K13b regenerates the
+//     dropout mask of K13a's forward (attention_train.cu) in the kernel
+//     -> attn_tc_rows, attn_tc_cols, attn_tc_dkb.
 // The TPU kernels feed bf16 operands to the MXU and accumulate in f32
 // (ops/pallas/_call.py:50-61).  They round at the same points as this file:
 // the forward casts P to bf16 before P V (:95, :108, :121); the backward
 // takes dP in f32, sums D_i = sum_j P_ij dP_ij from the f32 P (:191) and
-// casts dS (:193) and P (:203) to bf16 for its three products.
+// casts dS (:193) and P (:203) to bf16 for its three products.  K12a and
+// K13b likewise: dA = dP M (M the scaled mask, 1 without dropout), D_i =
+// sum_j P_ij dA_ij from the f32 P (:247, :450), dS = P (dA - D) and P M cast
+// to bf16 (:249 and :259, :452 and :462).
 //
 // What bounds it on the H100.  The forward at the zero-shot prompts' (36, 12,
 // 512, 64) moves 113 MB of q, k, v and out (0.034 ms at 3.35 TB/s) and runs
@@ -40,6 +50,19 @@
 // write makes the difference), the column pass ~0.28, the scratch's sum
 // ~0.15, so the scratch holds about a third of it and the passes' products
 // and softmax the rest, none of them near its bound.
+// The key-bias backward (K12a, K13b) at CXR-BERT's (8, 12, 512, 64) moves 44
+// MB of q, k, v, dO, dq, dk, dv (0.013 ms) and runs five products, 16.1
+// GFLOP (0.016 ms); the layout below runs nine (0.029 ms).  K13b also draws
+// its mask three times (the D sweep, the dS sweep, the column pass): 18.9 M
+// Philox calls of ~80 integer operations, on the order of 0.1 ms of the
+// integer units.  Measured (kernel-only, tools/port_attention_tc_probe.py,
+// NVIDIA H100 80GB HBM3 at 700 W): K12a takes 0.149 ms (row pass 0.088,
+// column pass 0.059, head sum 0.002), K13b 0.233 (0.142, 0.089, 0.002),
+// 9-14x the bound.  The mask costs K13b 0.084 ms, 0.063 of it the Philox
+// draw (a copy with no rounds); leaving out every product saves 0.054 ms in
+// either; a producer that loads nothing saves nothing.  So the draw and the
+// elementwise work between each warpgroup's products hold it, as in the
+// forward; per call the Python wrapper adds 0.10-0.13 ms of host time.
 //
 // Design.
 //   * A CTA is one consumer warpgroup (128 threads, 64 query rows, or 64 key
@@ -82,6 +105,22 @@
 //   * The dense bias tile (64 x 64 f32) is staged through the ring with the
 //     K and V tiles, its rows padded (72 floats when read along keys, 68 when
 //     read along queries in the column pass) so the reads hit distinct banks.
+//   * A key bias (K12a, K13b) needs no scratch: the row pass stages its 64
+//     values with each K/V stage; the column pass loads its CTA's 64 once
+//     with K and V, row-sums dS over the queries a thread holds (then over
+//     its quad) into each (b, h)'s dkey_bias share, a (b, h, n) scratch that
+//     attn_tc_dkb adds over the heads in order.  No atomics anywhere: dq, dk,
+//     dv, dbias and dkey_bias are bit-identical from run to run.
+//   * Dropout (K13b) regenerates the Philox bits of K13a's forward
+//     (common.cuh; the counter (b, h, i, j / 4), word j % 4): the mask never
+//     exists in device memory.  Row pass: lanes t and t ^ 1 hold the four
+//     keys of one j / 4 group in each of their two rows, so each lane draws
+//     the group for one row and trades the other row's half with a shuffle,
+//     one call per four elements, drawn while the tile's products run.
+//     Column pass: a thread's two keys lie in two groups, so the warpgroup
+//     first draws the tile's 64 x 64 keep bits into shared memory (a 32-key
+//     half of one query row per thread: 8 calls) and each thread reads one
+//     word per query it holds.
 #include "common.cuh"
 
 namespace {
@@ -101,13 +140,17 @@ __host__ __device__ constexpr int round1024(int x) { return (x + 1023) / 1024 * 
 __host__ __device__ constexpr int fwd_stage(bool dense) {
   return round1024(2 * TILE_BYTES + (dense ? TILE * LD_ROWS * 4 : 0) + TILE * 4);
 }
-// K, V, the bias tile (row pass)
-__host__ __device__ constexpr int rows_stage(bool dense) {
-  return round1024(2 * TILE_BYTES + (dense ? TILE * LD_ROWS * 4 : 0));
+// K, V, the bias tile, the key bias (row pass)
+__host__ __device__ constexpr int rows_stage(bool dense, bool kbias) {
+  return round1024(2 * TILE_BYTES + (dense ? TILE * LD_ROWS * 4 : 0) + (kbias ? TILE * 4 : 0));
 }
 // Q, dO, the bias tile, lse and D (column pass)
 __host__ __device__ constexpr int cols_stage(bool dense) {
   return round1024(2 * TILE_BYTES + (dense ? TILE * LD_COLS * 4 : 0) + 2 * TILE * 4);
+}
+// past the column pass's ring: the CTA's key bias, two tiles of keep bits
+__host__ __device__ constexpr int cols_tail(bool kbias, bool drop) {
+  return (kbias ? TILE * 4 : 0) + (drop ? 2 * TILE * 2 * 4 : 0);
 }
 
 // Element strides (batch, head, token) of one (b, h, n, 64) view.
@@ -313,6 +356,11 @@ struct Args {
   float* rowsum;            // (b, h, n) D_i: written by the row pass, read by the columns
   float* ds;                // (b, h, n, n) dS scratch for dbias, or null
   float* dbias;             // (bias_heads, n, n), or null
+  float* dkb_head;          // (b, h, n) each head's share of dkey_bias, or null
+  float* dkb;               // (b, n) dkey_bias, or null
+  const long long* seed;    // (1,) Philox key in device memory, or null
+  uint32_t thresh;          // keep iff bits >= thresh; 0: no dropout
+  float keep_scale;         // 1 / (1 - rate)
   int B, H, n;
 };
 
@@ -462,15 +510,52 @@ __device__ __forceinline__ float prob(float s, float bias, float lse, bool ok) {
   return ok ? fexp2((s + bias - lse) * LOG2E) : 0.0f;
 }
 
+// Keep bits of this thread's 32 accumulator elements of the (query i0 + rl,
+// + 8) x (keys j0..j0 + 63) tile: bit e set iff element e is kept.  Lanes t
+// and t ^ 1 hold keys 8c + {0..3} (q4 = 0, 1) or 8c + {4..7} (q4 = 2, 3),
+// one j / 4 group, in both rows: the even lane draws the group for the
+// first row, the odd lane for the second, and each trades the half the
+// other holds.  Every lane of the warp takes part (the shuffles).
+__device__ __forceinline__ uint32_t row_keep_bits(int b, int h, int i, int j0, int q4,
+                                                  uint32_t k0, uint32_t k1, uint32_t thresh) {
+  const int odd = q4 & 1;
+  uint32_t bits = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const U4 w = philox(b, h, i + 8 * odd, (j0 >> 2) + 2 * c + (q4 >> 1), k0, k1);
+    // this lane's keys are words 0, 1 (even) or 2, 3 (odd) of the group
+    const uint32_t own = (uint32_t)((odd ? w.w[2] : w.w[0]) >= thresh)
+                       | (uint32_t)((odd ? w.w[3] : w.w[1]) >= thresh) << 1;
+    const uint32_t sent0 = __shfl_xor_sync(0xffffffffu, odd ? w.w[0] : w.w[2], 1);
+    const uint32_t sent1 = __shfl_xor_sync(0xffffffffu, odd ? w.w[1] : w.w[3], 1);
+    const uint32_t other = (uint32_t)(sent0 >= thresh) | (uint32_t)(sent1 >= thresh) << 1;
+    // element 4 c + 2 hi + {0, 1}: hi 0 the first row, hi 1 the second
+    bits |= (odd ? (other | own << 2) : (own | other << 2)) << (4 * c);
+  }
+  return bits;
+}
+
+// dA = dP M of accumulator element e: M is keep_scale where bit e of `kept`
+// is set, else 0; without DROP, dP
+template <bool DROP>
+__device__ __forceinline__ float masked(float dp, uint32_t kept, int e, float keep_scale) {
+  if (!DROP) return dp;
+  return dp * ((kept >> e) & 1 ? keep_scale : 0.0f);
+}
+
 // Row pass: one CTA per (64-query tile, b * h).  Shared memory: Q, dO, then
-// STAGES x [K | V | bias tile (dense)], the key tiles streamed twice.
+// STAGES x [K | V | bias tile (dense) | key bias (64 floats)], the key tiles
+// streamed twice.  KBIAS: a key bias (K12a, K13b), DROP: K13's mask; each
+// form compiles alone, so the dense and no-bias forms carry none of it.
+template <bool KBIAS, bool DROP>
 __global__ void __launch_bounds__(NT, 2) attn_tc_rows(Args a) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], qbar;
   uint8_t* sq = align1024(smem_raw);
   uint8_t* sdo = sq + TILE_BYTES;
-  const bool dense = a.bias != nullptr;
-  const int stage = rows_stage(dense);
+  const bool dense = !KBIAS && a.bias != nullptr;
+  const int stage = rows_stage(dense, KBIAS);
+  const int bias_bytes = dense ? TILE * LD_ROWS * 4 : 0;
   const int i0 = blockIdx.x * TILE, bh = blockIdx.y, b = bh / a.H, h = bh % a.H, n = a.n;
   const int tiles = (n + TILE - 1) / TILE;
   init_barriers(full, empty, &qbar);
@@ -488,6 +573,8 @@ __global__ void __launch_bounds__(NT, 2) attn_tc_rows(Args a) {
       load_rows(st, a.k + at(a.vk, b, h, 0), a.vk.st, j0, n, lane);
       load_rows(st + TILE_BYTES, a.v + at(a.vv, b, h, 0), a.vv.st, j0, n, lane);
       if (dense) load_bias(st + 2 * TILE_BYTES, bias, n, i0, j0, LD_ROWS, lane);
+      if (KBIAS)
+        load_vec(st + 2 * TILE_BYTES + bias_bytes, a.key_bias + (size_t)b * n, j0, n, lane);
       bar_arrive_copies(&full[s]);
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -502,6 +589,8 @@ __global__ void __launch_bounds__(NT, 2) attn_tc_rows(Args a) {
   float lse[2], D[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) lse[hi] = a.lse[(size_t)bh * n + min(i0 + rl + 8 * hi, n - 1)];
+  uint32_t k0 = 0, k1 = 0;
+  if (DROP) seed_key(a.seed, a.thresh, k0, k1);
   uint32_t da[4][4];
   const uint32_t qa = saddr(sq), doa = saddr(sdo);
   bar_wait(&qbar, 0);
@@ -521,17 +610,22 @@ __global__ void __launch_bounds__(NT, 2) attn_tc_rows(Args a) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) mma_ss(dp, desc(doa + 32 * kk), desc(va + 32 * kk), kk);
     wg_commit();
+    // the tile's keep bits, drawn while the products run
+    uint32_t kept = 0;
+    if (DROP) kept = row_keep_bits(b, h, i0 + rl, j0, q4, k0, k1, a.thresh);
     wg_wait();
     hold(s_);
     hold(dp);
 
     const float* sb = reinterpret_cast<const float*>(st + 2 * TILE_BYTES);
-    if (!second) {  // D_i = sum_j P_ij dP_ij, f32
+    const float* skb = sb + bias_bytes / 4;
+    if (!second) {  // D_i = sum_j P_ij dA_ij, f32
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const int hi = acc_hi(e), col = acc_col(e, q4);
-        const float bias = dense ? sb[(rl + 8 * hi) * LD_ROWS + col] : 0.0f;
-        D[hi] = fmaf(prob(s_[e], bias, lse[hi], j0 + col < n), dp[e], D[hi]);
+        const float bias = KBIAS ? skb[col] : dense ? sb[(rl + 8 * hi) * LD_ROWS + col] : 0.0f;
+        D[hi] = fmaf(prob(s_[e], bias, lse[hi], j0 + col < n),
+                     masked<DROP>(dp[e], kept, e, a.keep_scale), D[hi]);
       }
       bar_arrive(&empty[s]);
       if (t == tiles - 1) {
@@ -544,14 +638,15 @@ __global__ void __launch_bounds__(NT, 2) attn_tc_rows(Args a) {
       }
       continue;
     }
-    // dS = P (dP - D); dq += dS(bf16) K
+    // dS = P (dA - D); dq += dS(bf16) K
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
       const int hi = acc_hi(e), col = acc_col(e, q4);
-      const float bias = dense ? sb[(rl + 8 * hi) * LD_ROWS + col] : 0.0f;
-      s_[e] = prob(s_[e], bias, lse[hi], j0 + col < n) * (dp[e] - D[hi]);
+      const float bias = KBIAS ? skb[col] : dense ? sb[(rl + 8 * hi) * LD_ROWS + col] : 0.0f;
+      s_[e] = prob(s_[e], bias, lse[hi], j0 + col < n)
+            * (masked<DROP>(dp[e], kept, e, a.keep_scale) - D[hi]);
     }
-    if (a.ds) {
+    if (!KBIAS && a.ds) {
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {
         const int i = i0 + rl + 8 * hi;
@@ -596,15 +691,20 @@ __global__ void __launch_bounds__(NT, 2) attn_tc_rows(Args a) {
 
 // Column pass: one CTA per (64-key tile, b * h); its rows are keys, its
 // columns queries.  Shared memory: K, V, then STAGES x [Q | dO | bias tile
-// (dense, rows queries) | lse | D].
+// (dense, rows queries) | lse | D], then the CTA's key bias (64 floats) and
+// two tiles of keep bits (a word per 32 keys of a query, double-buffered).
+// KBIAS and DROP as in the row pass.
+template <bool KBIAS, bool DROP>
 __global__ void __launch_bounds__(NT, 2) attn_tc_cols(Args a) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], kvbar;
   uint8_t* sk = align1024(smem_raw);
   uint8_t* sv = sk + TILE_BYTES;
-  const bool dense = a.bias != nullptr;
+  const bool dense = !KBIAS && a.bias != nullptr;
   const int stage = cols_stage(dense);
   const int bias_bytes = dense ? TILE * LD_COLS * 4 : 0;
+  float* skb = reinterpret_cast<float*>(sv + TILE_BYTES + STAGES * stage);
+  uint32_t* keep_tiles = reinterpret_cast<uint32_t*>(skb + (KBIAS ? TILE : 0));
   const int j0 = blockIdx.x * TILE, bh = blockIdx.y, b = bh / a.H, h = bh % a.H, n = a.n;
   const int tiles = (n + TILE - 1) / TILE;
   init_barriers(full, empty, &kvbar);
@@ -613,6 +713,7 @@ __global__ void __launch_bounds__(NT, 2) attn_tc_cols(Args a) {
     const int lane = threadIdx.x - WG;
     load_rows(saddr(sk), a.k + at(a.vk, b, h, 0), a.vk.st, j0, n, lane);
     load_rows(saddr(sv), a.v + at(a.vv, b, h, 0), a.vv.st, j0, n, lane);
+    if (KBIAS) load_vec(saddr(skb), a.key_bias + (size_t)b * n, j0, n, lane);
     bar_arrive_copies(&kvbar);
     const float* bias = bias_head(a, h);
     for (int t = 0; t < tiles; ++t) {
@@ -636,9 +737,16 @@ __global__ void __launch_bounds__(NT, 2) attn_tc_cols(Args a) {
   float s_[32], dp[32], dk[32], dv[32];
 #pragma unroll
   for (int e = 0; e < 32; ++e) s_[e] = dp[e] = dk[e] = dv[e] = 0.0f;
+  float dkb[2] = {0.0f, 0.0f}, kb[2] = {0.0f, 0.0f};
+  uint32_t k0 = 0, k1 = 0;
+  if (DROP) seed_key(a.seed, a.thresh, k0, k1);
   uint32_t pa[4][4], da[4][4];
   const uint32_t ka = saddr(sk), va = saddr(sv);
   bar_wait(&kvbar, 0);
+  if (KBIAS) {
+    kb[0] = skb[rl];
+    kb[1] = skb[rl + 8];
+  }
 
   for (int t = 0; t < tiles; ++t) {
     const int s = t % STAGES, i0 = t * TILE;
@@ -654,6 +762,21 @@ __global__ void __launch_bounds__(NT, 2) attn_tc_cols(Args a) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) mma_ss(dp, desc(va + 32 * kk), desc(doa + 32 * kk), kk);
     wg_commit();
+    const uint32_t* keep_t = keep_tiles + (t & 1) * 2 * TILE;
+    if (DROP) {  // while the products run: keys j0 + 32 half + [0, 32) of query i0 + il
+      const int il = threadIdx.x >> 1, half = threadIdx.x & 1;
+      uint32_t bits = 0;
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const U4 w = philox(b, h, i0 + il, (j0 >> 2) + 8 * half + g, k0, k1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) bits |= (uint32_t)(w.w[c] >= a.thresh) << (4 * g + c);
+      }
+      keep_tiles[(t & 1) * 2 * TILE + 2 * il + half] = bits;
+      // the whole tile's bits are written; tile t - 2 read this buffer
+      // before every thread reached tile t - 1's barrier
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    }
     wg_wait();
     hold(s_);
     hold(dp);
@@ -663,11 +786,18 @@ __global__ void __launch_bounds__(NT, 2) attn_tc_cols(Args a) {
     const float* sd = slse + TILE;
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
-      const int jl = rl + 8 * acc_hi(e), il = acc_col(e, q4);
-      const float bias = dense ? sb[il * LD_COLS + jl] : 0.0f;
+      const int hi = acc_hi(e), jl = rl + 8 * hi, il = acc_col(e, q4);
+      const float bias = KBIAS ? kb[hi] : dense ? sb[il * LD_COLS + jl] : 0.0f;
       const float p = prob(s_[e], bias, slse[il], i0 + il < n && j0 + jl < n);
-      dp[e] = p * (dp[e] - sd[il]);
-      s_[e] = p;
+      if (DROP) {  // dA = dP M, P M for dv
+        const float m = (keep_t[2 * il + (rl >> 5)] >> (jl & 31)) & 1 ? a.keep_scale : 0.0f;
+        dp[e] = p * (dp[e] * m - sd[il]);
+        s_[e] = p * m;
+      } else {
+        dp[e] = p * (dp[e] - sd[il]);
+        s_[e] = p;
+      }
+      if (KBIAS) dkb[hi] += dp[e];  // dS
     }
     to_a(s_, pa);
     to_a(dp, da);
@@ -690,6 +820,7 @@ __global__ void __launch_bounds__(NT, 2) attn_tc_cols(Args a) {
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
     const int j = j0 + rl + 8 * hi;
+    const float share = KBIAS ? sum4(dkb[hi]) : 0.0f;  // this (b, h)'s dkey_bias at key j
     if (j >= n) continue;
     bf16* gk = a.dk + at(a.vdk, b, h, j);
     bf16* gv = a.dv + at(a.vdv, b, h, j);
@@ -700,6 +831,7 @@ __global__ void __launch_bounds__(NT, 2) attn_tc_cols(Args a) {
       *reinterpret_cast<bf162*>(gv + 8 * c + 2 * q4) =
           __floats2bfloat162_rn(dv[4 * c + 2 * hi], dv[4 * c + 2 * hi + 1]);
     }
+    if (KBIAS && a.dkb_head && q4 == 0) a.dkb_head[(size_t)bh * n + j] = share;
   }
 }
 
@@ -717,6 +849,17 @@ __global__ void attn_tc_dbias(Args a) {
   for (int h = h0; h < h1; ++h)
     for (int b = 0; b < a.B; ++b) s += a.ds[((size_t)b * a.H + h) * nn + ij];
   a.dbias[e] = s;
+}
+
+// dkey_bias[b, j] = sum of the heads' shares (attn_tc_cols), heads in order,
+// as the TPU kernel accumulates its grid (ops/pallas/attention.py:465-471)
+__global__ void attn_tc_dkb(Args a) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= a.B * a.n) return;
+  const int b = e / a.n, j = e % a.n;
+  float s = 0.0f;
+  for (int h = 0; h < a.H; ++h) s += a.dkb_head[((size_t)b * a.H + h) * a.n + j];
+  a.dkb[e] = s;
 }
 
 template <typename K>
@@ -774,41 +917,60 @@ CT_EXPORT int ct_attn_tc_fwd(const void* q, const void* k, const void* v, void* 
 }
 
 // q, k, v, dout, dq, dk, dv: (b, h, n, 64) bf16 views as in ct_attn_tc_fwd
-// (7 views x 3 strides, in that order); bias (bias_heads, n, n) f32 or null;
-// lse (b, h, n) from ct_attn_tc_fwd; rowsum (b, h, n) f32 scratch; ds (b, h,
-// n, n) f32 scratch and dbias (bias_heads, n, n) f32 out, both null when
-// dbias is not wanted.
+// (7 views x 3 strides, in that order); key_bias (b, n) f32 or null; bias
+// (bias_heads, n, n) f32 or null (not both); lse (b, h, n) from the forward;
+// rowsum (b, h, n) f32 scratch; ds (b, h, n, n) f32 scratch and dbias
+// (bias_heads, n, n) f32 out, both null when dbias is not wanted; dkb_head
+// (b, h, n) f32 scratch and dkb (b, n) f32 out, both null when dkey_bias is
+// not wanted; seed (1,) int64 in device memory, thresh and keep_scale the
+// dropout mask of K13a's forward (thresh 0: none; a key bias only).
 CT_EXPORT int ct_attn_tc_bwd(const void* q, const void* k, const void* v, const void* dout,
                              void* dq, void* dk, void* dv, const long long* strides,
-                             const void* bias, int bias_heads, const void* lse, void* rowsum,
-                             void* ds, void* dbias, int B, int H, int n, void* stream) {
+                             const void* key_bias, const void* bias, int bias_heads,
+                             const void* lse, void* rowsum, void* ds, void* dbias,
+                             void* dkb_head, void* dkb, const void* seed, unsigned int thresh,
+                             float keep_scale, int B, int H, int n, void* stream) {
   Args a = {};
   View* const views[7] = {&a.vq, &a.vk, &a.vv, &a.vdo, &a.vdq, &a.vdk, &a.vdv};
-  if (!shape_ok(B, H, n, bias, bias_heads) || !lse || !rowsum || (!ds != !dbias)
-      || (dbias && !bias) || !make_views(strides, views, 7) || !aligned16(q) || !aligned16(k)
-      || !aligned16(v) || !aligned16(dout) || !aligned16(dq) || !aligned16(dk) || !aligned16(dv))
+  if (!shape_ok(B, H, n, bias, bias_heads) || (key_bias && bias) || !lse || !rowsum
+      || (!ds != !dbias) || (dbias && !bias) || (!dkb_head != !dkb) || (dkb && !key_bias)
+      || (thresh && (!seed || !key_bias)) || !make_views(strides, views, 7) || !aligned16(q)
+      || !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq)
+      || !aligned16(dk) || !aligned16(dv))
     return (int)cudaErrorInvalidValue;
   a.q = static_cast<const bf16*>(q); a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v); a.dout = static_cast<const bf16*>(dout);
   a.dq = static_cast<bf16*>(dq); a.dk = static_cast<bf16*>(dk); a.dv = static_cast<bf16*>(dv);
+  a.key_bias = static_cast<const float*>(key_bias);
   a.bias = static_cast<const float*>(bias);
   a.bias_heads = bias_heads;
   a.lse = static_cast<float*>(const_cast<void*>(lse));
   a.rowsum = static_cast<float*>(rowsum);
   a.ds = static_cast<float*>(ds);
   a.dbias = static_cast<float*>(dbias);
+  a.dkb_head = static_cast<float*>(dkb_head);
+  a.dkb = static_cast<float*>(dkb);
+  a.seed = static_cast<const long long*>(seed);
+  a.thresh = thresh;
+  a.keep_scale = keep_scale;
   a.B = B; a.H = H; a.n = n;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((n + TILE - 1) / TILE, B * H);
-  const bool dense = bias != nullptr;
-  cudaError_t err = launch(attn_tc_rows, grid, 1024 + 2 * TILE_BYTES + STAGES * rows_stage(dense),
+  const bool dense = bias != nullptr, kbias = key_bias != nullptr, drop = thresh != 0;
+  void (*rows)(Args) = drop ? attn_tc_rows<true, true>
+                            : kbias ? attn_tc_rows<true, false> : attn_tc_rows<false, false>;
+  void (*cols)(Args) = drop ? attn_tc_cols<true, true>
+                            : kbias ? attn_tc_cols<true, false> : attn_tc_cols<false, false>;
+  cudaError_t err = launch(rows, grid, 1024 + 2 * TILE_BYTES + STAGES * rows_stage(dense, kbias),
                            st, a);
   if (err != cudaSuccess) return (int)err;
-  err = launch(attn_tc_cols, grid, 1024 + 2 * TILE_BYTES + STAGES * cols_stage(dense), st, a);
+  err = launch(cols, grid,
+               1024 + 2 * TILE_BYTES + STAGES * cols_stage(dense) + cols_tail(kbias, drop), st, a);
   if (err != cudaSuccess) return (int)err;
   if (dbias) {
     const size_t elems = (size_t)bias_heads * n * n;
     attn_tc_dbias<<<(unsigned)((elems + 255) / 256), 256, 0, st>>>(a);
   }
+  if (dkb) attn_tc_dkb<<<(B * n + 255) / 256, 256, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

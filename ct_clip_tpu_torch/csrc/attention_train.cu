@@ -6,9 +6,10 @@
 // f32 and only the stored outputs round to bf16.
 //
 // It serves the forms that attention_tc.cu (bf16, d 64, wgmma) does not take
-// (ops/attention.py::attention_route): f32 (RadBERT, T5, the f32 rows),
-// dropout (K13, CXR-BERT in CT-CLIP training), head dims other than 64, and
-// a bf16 key bias under grad.  Of ct_clip_tpu/ops/pallas/attention.py:
+// (ops/attention.py::attention_route): f32 (RadBERT, T5, the f32 rows), head
+// dims other than 64, and in bf16 at d 64 the dropout forward (K13a,
+// CXR-BERT in CT-CLIP training), whose backward runs on attention_tc.cu.  Of
+// ct_clip_tpu/ops/pallas/attention.py:
 //   * _pallas_attention (K7): softmax(q k^T + key_bias) v, the per-key (b, n)
 //     bias optional, or with an f32 (1, 1|h, n, n) dense bias
 //                                                -> ct_attn_train_fwd, rate 0;
@@ -21,15 +22,10 @@
 //   * _pallas_attention_bwd (K12b) in f32: dq, dk, dv and dbias summed over
 //     the batch (and the heads for a one-head bias) -> ct_attn_train_bwd, bias set.
 //
-// Dropout mask.  The TPU draws the bits from its hardware generator seeded
-// by (seed, head, row).  Here the bits are Philox4x32-10 keyed on the 64-bit
-// seed (read from device memory, so drawing a seed needs no host sync), with
-// the counter (batch row, head, query i, key j / 4): word j % 4 of that call
-// is element (i, j)'s.  A probability is kept iff bits >= thresh and then
-// scaled by 1 / (1 - rate) (attention.py:403-408).  Forward and backward
-// regenerate the same bits; the mask never exists in device memory.  The
-// plain PyTorch version (ops/attention.py::philox4x32) computes the same
-// bits, so kernel and plain version agree element for element.
+// Dropout mask: Philox4x32-10 bits (common.cuh), the counter (batch row,
+// head, query i, key j / 4), kept iff bits >= thresh and scaled by 1 / (1 -
+// rate).  Forward and backward regenerate the same bits, as attention_tc.cu's
+// backward does; the mask never exists in device memory.
 //
 // What bounds it on the H100.  For BERT (b 32, 12 heads, n 512, d 64, f32)
 // the forward's two products are 25.8 GFLOP against 201 MB of q, k, v and
@@ -42,9 +38,9 @@
 // backward's residual.  256 threads as 16 x 16, each owning a 4 x 4 piece of
 // every 64 x 64 tile; operands sit in shared memory transposed ([dim][row],
 // rows padded to 68 floats).  The backward first takes D_i = sum_c dO_ic O_ic
-// (= sum_j P_ij M_ij dP_ij with the dropout mask M); in bf16 O is read from
-// an f32 copy the forward writes when a backward will follow (from the
-// rounded O, every dS row shifts off its zero sum).  Then a row pass for dq
+// (= sum_j P_ij M_ij dP_ij with the dropout mask M); in bf16 (d != 64) O is
+// read from an f32 copy the forward writes when this backward will follow
+// (from the rounded O, every dS row shifts off its zero sum).  Then a row pass for dq
 // and a column pass for dk, dv and each head's share of dkey_bias, summed
 // over heads in a fixed order: no atomics, bit-identical runs.  A dense bias
 // (f32, bias[head or 0, i, j]) is staged transposed in the column pass; its
@@ -66,24 +62,6 @@ template <> __device__ __forceinline__ float to_f32<bf16>(bf16 v) { return bf2f(
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return f2bf(v); }
-
-struct U4 { uint32_t w[4]; };
-
-// Philox4x32-10 (Salmon et al., SC'11), the Random123 round and key schedule.
-__device__ __forceinline__ U4 philox(uint32_t c0, uint32_t c1, uint32_t c2,
-                                     uint32_t c3, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) { k0 += 0x9E3779B9u; k1 += 0xBB67AE85u; }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-  }
-  return {{c0, c1, c2, c3}};
-}
 
 // Element strides (batch, head, token) of one (b, h, n, d) tensor whose last
 // dim is contiguous.
@@ -165,16 +143,6 @@ __device__ __forceinline__ float bias_at(const Args& a, int h, int i, int j) {
   return a.bias[((size_t)hb * a.n + i) * a.n + j];
 }
 
-__device__ __forceinline__ void seed_key(const Args& a, uint32_t& k0, uint32_t& k1) {
-  const unsigned long long s = a.thresh ? (unsigned long long)a.seed[0] : 0ull;
-  k0 = (uint32_t)s;
-  k1 = (uint32_t)(s >> 32);
-}
-
-__device__ __forceinline__ float keep(const Args& a, uint32_t bits) {
-  return bits >= a.thresh ? a.keep_scale : 0.0f;
-}
-
 // -------------------------------------------------------------- forward
 template <typename T>
 __global__ void __launch_bounds__(NT) fwd_kernel(Args a) {
@@ -187,7 +155,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(Args a) {
   const int i0 = blockIdx.x * TILE, b = blockIdx.y / a.H, h = blockIdx.y % a.H;
   const int n = a.n;
   uint32_t k0, k1;
-  seed_key(a, k0, k1);
+  seed_key(a.seed, a.thresh, k0, k1);
 
   load_tile(static_cast<const T*>(a.q), a.vq, b, h, i0, n, a.d, Qt, nullptr);
   float m[4], l[4], acc[4][4];
@@ -232,7 +200,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(Args a) {
       if (a.thresh) {
         const U4 bits = philox(b, h, i0 + 4 * ty + r, (j0 >> 2) + tx, k0, k1);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] *= keep(a, bits.w[c]);
+        for (int c = 0; c < 4; ++c) s[r][c] *= keep(bits.w[c], a.thresh, a.keep_scale);
       }
     }
 #pragma unroll
@@ -290,7 +258,7 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Args a) {
   const int i0 = blockIdx.x * TILE, b = blockIdx.y / a.H, h = blockIdx.y % a.H;
   const int n = a.n;
   uint32_t k0, k1;
-  seed_key(a, k0, k1);
+  seed_key(a.seed, a.thresh, k0, k1);
 
   load_tile(static_cast<const T*>(a.q), a.vq, b, h, i0, n, a.d, Qt, nullptr);
   load_tile(static_cast<const T*>(a.dout), a.vdo, b, h, i0, n, a.d, dOt, nullptr);
@@ -316,7 +284,7 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Args a) {
       if (a.thresh) {
         const U4 bits = philox(b, h, i0 + 4 * ty + r, (j0 >> 2) + tx, k0, k1);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) mk[c] = keep(a, bits.w[c]);
+        for (int c = 0; c < 4; ++c) mk[c] = keep(bits.w[c], a.thresh, a.keep_scale);
       }
       const int i = i0 + 4 * ty + r;
 #pragma unroll
@@ -371,7 +339,7 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(Args a) {
   const int n = a.n;
   const size_t row0 = ((size_t)b * a.H + h) * n;
   uint32_t k0, k1;
-  seed_key(a, k0, k1);
+  seed_key(a.seed, a.thresh, k0, k1);
 
   load_tile(static_cast<const T*>(a.k), a.vk, b, h, j0, n, a.d, Kt, nullptr);
   load_tile(static_cast<const T*>(a.v), a.vv, b, h, j0, n, a.d, Vt, nullptr);
@@ -404,7 +372,7 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(Args a) {
       if (a.thresh) {
         const U4 bits = philox(b, h, i, (j0 >> 2) + ty, k0, k1);
 #pragma unroll
-        for (int r = 0; r < 4; ++r) mk[r] = keep(a, bits.w[r]);
+        for (int r = 0; r < 4; ++r) mk[r] = keep(bits.w[r], a.thresh, a.keep_scale);
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r) {

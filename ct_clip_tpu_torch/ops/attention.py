@@ -26,14 +26,16 @@ Ports of ct_clip_tpu/ops/attention.py:
     (K7): softmax(q k^T + bias + key_bias) v on (b, h, n, d), with its
     backward as an autograd.Function: K12a with a key bias, K12b with a
     dense (1, 1|h, n, n) bias (its gradient summed over the batch) or none.
-    On CUDA `attention_route` picks the source: bf16 at d 64 runs on the
-    tensor cores (csrc/attention_tc.cu) except a key bias under grad, whose
-    K12a reads the CUDA-core forward's f32 output; the rest runs on
-    csrc/attention_train.cu.  A dense bias together with a key bias is XLA
-    in the JAX package (`_xla_attention`), so here it is `attention_plain`
-    on every device, differentiated by autograd;
+    On CUDA `attention_route` picks the forward's and the backward's source:
+    bf16 at d 64 runs both on the tensor cores (csrc/attention_tc.cu), f32
+    and other head dims on the CUDA cores (csrc/attention_train.cu).  A
+    dense bias together with a key bias is XLA in the JAX package
+    (`_xla_attention`), so here it is `attention_plain` on every device,
+    differentiated by autograd;
   * `fused_attention_kbias_dropout` (K13, forward and backward): the same
-    with dropout on the probabilities from a Philox mask.
+    with dropout on the probabilities from a Philox mask; on CUDA its
+    forward (K13a) runs on attention_train.cu and, in bf16 at d 64, its
+    backward (K13b) on attention_tc.cu, which regenerates the same mask.
 
 Module and parameter names reproduce the reference torch state-dict layout
 (transformer_maskgit: `layers.{i}.0` PEG, `.1` attention, `.3` FF).
@@ -108,7 +110,7 @@ def attention_bwd_plain(q, k, v, dout, bias=None, key_bias=None, mask=None):
 # The TPU draws dropout bits from its hardware generator; the port draws
 # Philox4x32-10 (Salmon et al., SC'11) keyed on the seed, with the counter
 # (batch row, head, query i, key j // 4), word j % 4 being element (i, j)'s,
-# in csrc/attention_train.cu.  The functions below compute the same bits.
+# in csrc/common.cuh.  The functions below compute the same bits.
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _U32 = 0xFFFFFFFF
@@ -140,14 +142,7 @@ def _seed_value(seed) -> int:
     return int(seed.reshape(-1)[0].item() if isinstance(seed, torch.Tensor) else seed)
 
 
-def dropout_threshold(rate: float) -> int:
-    """Keep iff bits >= this (`_drop_mask`, ops/pallas/attention.py:406)."""
-    return min(int(rate * 4294967296.0), 4294967295)
-
-
-def dropout_keep_scale(rate: float) -> float:
-    """1 / (1 - rate) rounded to f32, as the TPU kernel multiplies it."""
-    return float(np.float32(1.0 / (1.0 - rate)))
+dropout_threshold, dropout_keep_scale = K.dropout_threshold, K.dropout_keep_scale
 
 
 def dropout_mask(seed, b: int, h: int, n: int, rate: float,
@@ -185,9 +180,11 @@ def _launch_train_fwd(q, k, v, key_bias, seed=None, rate=0.0, bias=None,
                       for_backward: bool = False):
     """Forward kernel (attention_train.cu, f32 or bf16): (out, lse, out32);
     `bias` a contiguous (1|h, n, n) f32 dense bias or None.  With
-    `for_backward` a bf16 forward also writes out32, out in f32, from which
-    the backward's D_i = dO_i . O_i is summed in f32 as the TPU kernels sum
-    P dP (ops/pallas/attention.py:191); else out32 is None."""
+    `for_backward` (attention_train.cu's backward follows) a bf16 forward
+    also writes out32, out in f32, from which that backward's D_i = dO_i .
+    O_i is summed in f32 as the TPU kernels sum P dP (ops/pallas/
+    attention.py:191); else out32 is None.  attention_tc.cu's backward sums
+    D_i from its own f32 P and dP and needs no out32."""
     b, h, n, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("attention: q, k, v shapes differ")
@@ -211,29 +208,25 @@ TC, TRAIN = "attention_tc", "attention_train"
 BIAS_FORMS = ("none", "key", "dense")
 
 
-def attention_route(dtype: torch.dtype, head_dim: int, bias_form: str, dropout: bool,
-                    backward: bool) -> str:
-    """The CUDA source of a fused attention call, its forward and its
-    backward alike: TC (attention_tc.cu, bf16 on the tensor cores) or TRAIN
-    (attention_train.cu, the CUDA cores).  `bias_form` is "none", "key" (a
-    (b, n) per-key bias) or "dense" (a (1, 1|h, n, n) bias); `backward`
-    whether a backward follows (an input requires grad).
+def attention_route(dtype: torch.dtype, head_dim: int, bias_form: str,
+                    dropout: bool) -> Tuple[str, str]:
+    """The CUDA sources (forward, backward) of a fused attention call: TC
+    (attention_tc.cu, bf16 on the tensor cores) or TRAIN (attention_train.cu,
+    the CUDA cores).  `bias_form` is "none", "key" (a (b, n) per-key bias)
+    or "dense" (a (1, 1|h, n, n) bias); `dropout` K13's (with a key bias).
 
     | call                                          | forward | backward |
-    | bf16, d 64, no dropout, no bias or dense      | TC      | TC       |
-    | bf16, d 64, key bias, no grad                 | TC      | -        |
-    | bf16, d 64, key bias with grad                | TRAIN   | TRAIN    |
-    | dropout, f32 or d != 64                       | TRAIN   | TRAIN    |
+    | bf16, d 64, no dropout, any bias form         | TC      | TC       |
+    | bf16, d 64, key bias + dropout (K13)          | TRAIN   | TC       |
+    | f32 (RadBERT, T5, the f32 rows), or d != 64   | TRAIN   | TRAIN    |
 
-    A key bias under grad stays on TRAIN: its backward (K12a) sums D_i from
-    the forward's f32 output, which only the CUDA-core forward computes from
-    an f32 P."""
+    The tensor-core backward sums D_i = sum_j P dP M from its own f32 P, so
+    it follows either forward; K13a's forward stays on TRAIN."""
     if bias_form not in BIAS_FORMS:
         raise ValueError(f"attention_route: bias form {bias_form!r} not in {BIAS_FORMS}")
-    if (dtype == torch.bfloat16 and head_dim == K.TC_HEAD_DIM and not dropout
-            and not (bias_form == "key" and backward)):
-        return TC
-    return TRAIN
+    if dtype != torch.bfloat16 or head_dim != K.TC_HEAD_DIM:
+        return TRAIN, TRAIN
+    return (TRAIN if dropout else TC), TC
 
 
 def _tc_operand(t: torch.Tensor) -> torch.Tensor:
@@ -266,16 +259,27 @@ def _dense_bias(bias: torch.Tensor) -> torch.Tensor:
     return bias[0].float().contiguous()
 
 
+def _tc_bwd_operands(q, k, v, dout):
+    """q, k, v and dout (cast to q's dtype) as attention_tc.cu's backward
+    addresses them (`_tc_operand`)."""
+    return tuple(map(_tc_operand, (q, k, v, dout.to(q.dtype))))
+
+
+def _float_key_bias(key_bias):
+    return None if key_bias is None else key_bias.float().contiguous()
+
+
 class _FusedAttention(torch.autograd.Function):
     """K7 forward, K12 backward (K12a with a key bias, K12b with a dense bias
-    or none).  On the CPU both are the plain versions; on CUDA the source
-    `attention_route` picks: attention_tc.cu (bf16, d 64, wgmma) or the
-    key-tiled kernels of attention_train.cu (f32 or bf16), the backward
-    reading the forward's row log-sum-exp (and, on attention_train.cu in
-    bf16, its f32 output); a dense bias stays f32 in both dtypes.  The
-    counters name the function (`fused_attention`, `attention_dense`,
-    `attention_bwd` for K12a, `attention_dense_bwd` for K12b) and, on the
-    tensor cores, the source (`attention_tc`, `attention_tc_bwd`)."""
+    or none).  On the CPU both are the plain versions; on CUDA the sources
+    `attention_route` picks: attention_tc.cu (bf16, d 64, wgmma) for both,
+    or the key-tiled kernels of attention_train.cu (f32, or d != 64) for
+    both, the backward reading the forward's row log-sum-exp (and, on
+    attention_train.cu in bf16, its f32 output); a dense bias stays f32 in
+    both dtypes.  The counters name the function (`fused_attention`,
+    `attention_dense`, `attention_bwd` for K12a, `attention_dense_bwd` for
+    K12b) and, on the tensor cores, the source (`attention_tc`,
+    `attention_tc_bwd`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, key_bias):
@@ -287,14 +291,14 @@ class _FusedAttention(torch.autograd.Function):
             if bias is not None:
                 kbias = _dense_bias(bias)
             form = "dense" if bias is not None else "none" if key_bias is None else "key"
-            backward = any(ctx.needs_input_grad)
-            ctx.route = attention_route(q.dtype, q.shape[-1], form, False, backward)
-            if ctx.route == TC:
+            ctx.route = attention_route(q.dtype, q.shape[-1], form, False)
+            if ctx.route[0] == TC:
                 out, lse = _launch_tc_fwd(q, k, v, key_bias, bias=kbias)
                 K.count_launch("attention_tc")
             else:
-                out, lse, out32 = _launch_train_fwd(q, k, v, key_bias, bias=kbias,
-                                                    for_backward=backward)
+                out, lse, out32 = _launch_train_fwd(
+                    q, k, v, key_bias, bias=kbias,
+                    for_backward=any(ctx.needs_input_grad) and ctx.route[1] == TRAIN)
             K.count_launch("fused_attention" if bias is None else "attention_dense")
         ctx.save_for_backward(q, k, v, bias, key_bias, out, lse, kbias, out32)
         return out
@@ -306,18 +310,18 @@ class _FusedAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             dq, dk, dv, db, dkb = attention_bwd_plain(q, k, v, dout, bias, key_bias)
             return dq, dk, dv, db if need_db else None, dkb if need_dkb else None
-        if ctx.route == TC:  # a dense bias or none (a key bias under grad is TRAIN)
-            dq, dk, dv, db = K.attention_tc_bwd(
-                *map(_tc_operand, (q, k, v, dout.to(q.dtype))), lse, bias=kbias,
-                want_dbias=need_db)
-            dkb = None
+        if ctx.route[1] == TC:
+            dq, dk, dv, db, dkb = K.attention_tc_bwd(
+                *_tc_bwd_operands(q, k, v, dout), lse, bias=kbias, want_dbias=need_db,
+                key_bias=_float_key_bias(key_bias), want_dkey_bias=need_dkb)
             K.count_launch("attention_tc_bwd")
-            K.count_launch("attention_dense_bwd")
+            # K12a with a key bias; K12b with a dense bias or none
+            K.count_launch("attention_bwd" if key_bias is not None else "attention_dense_bwd")
         else:
             dq, dk, dv, dkb, db = K.attention_train_bwd(
                 *map(_rows, (q, k, v, out, dout.to(q.dtype))), lse, out32=out32,
-                key_bias=None if key_bias is None else key_bias.float().contiguous(),
-                want_dkey_bias=need_dkb, bias=kbias, want_dbias=need_db)
+                key_bias=_float_key_bias(key_bias), want_dkey_bias=need_dkb, bias=kbias,
+                want_dbias=need_db)
             K.count_launch("attention_bwd" if bias is None else "attention_dense_bwd")
         return (dq, dk, dv, None if db is None else db.reshape(bias.shape).to(bias.dtype),
                 None if dkb is None else dkb.to(key_bias.dtype))
@@ -375,16 +379,24 @@ def _seed_tensor(seed, device) -> torch.Tensor:
 
 class _FusedAttentionDropout(torch.autograd.Function):
     """K13 forward and backward: key-bias attention with dropout on the
-    probabilities, the mask regenerated from the seed in the backward."""
+    probabilities, the mask regenerated from the seed in the backward.  On
+    CUDA the forward (K13a) runs on attention_train.cu; the backward (K13b)
+    on attention_tc.cu in bf16 at d 64 (`attention_route`), with no f32
+    output kept, else on attention_train.cu, which reads the forward's f32
+    output in bf16.  Counters: `attention_dropout`, `attention_dropout_bwd`
+    and, on the tensor cores, `attention_tc_bwd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, seed, rate):
+        ctx.route = None
         if q.device.type == "cpu":
             out, lse, out32 = attention_dropout_plain(q, k, v, key_bias, seed, rate), None, None
         else:
             seed = _seed_tensor(seed, q.device)
-            out, lse, out32 = _launch_train_fwd(q, k, v, key_bias, seed, rate,
-                                                for_backward=any(ctx.needs_input_grad))
+            ctx.route = attention_route(q.dtype, q.shape[-1], "key", True)
+            out, lse, out32 = _launch_train_fwd(
+                q, k, v, key_bias, seed, rate,
+                for_backward=any(ctx.needs_input_grad) and ctx.route[1] == TRAIN)
             K.count_launch("attention_dropout")
         ctx.rate, ctx.seed = rate, seed
         ctx.save_for_backward(q, k, v, key_bias, out, lse, out32)
@@ -394,22 +406,27 @@ class _FusedAttentionDropout(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, key_bias, out, lse, out32 = ctx.saved_tensors
         rate, seed = ctx.rate, ctx.seed
+        need_dkb = ctx.needs_input_grad[3]
         if q.device.type == "cpu":
             b, h, n, _ = q.shape
             dq, dk, dv, _, dkb = attention_bwd_plain(
                 q, k, v, dout, key_bias=key_bias,
                 mask=dropout_mask(seed, b, h, n, rate, q.device))
+        elif ctx.route[1] == TC:
+            dq, dk, dv, _, dkb = K.attention_tc_bwd(
+                *_tc_bwd_operands(q, k, v, dout), lse, key_bias=_float_key_bias(key_bias),
+                want_dkey_bias=need_dkb, seed=seed, rate=rate)
+            K.count_launch("attention_tc_bwd")
+            K.count_launch("attention_dropout_bwd")
         else:
-            thresh = dropout_threshold(rate)
             dq, dk, dv, dkb, _ = K.attention_train_bwd(
                 *map(_rows, (q, k, v, out, dout.to(q.dtype))), lse, out32=out32,
-                key_bias=key_bias.float().contiguous(),
-                want_dkey_bias=ctx.needs_input_grad[3], seed=seed,
-                thresh=thresh, keep_scale=dropout_keep_scale(rate))
+                key_bias=_float_key_bias(key_bias), want_dkey_bias=need_dkb, seed=seed,
+                thresh=dropout_threshold(rate), keep_scale=dropout_keep_scale(rate))
             K.count_launch("attention_dropout_bwd")
-            if dkb is not None:
-                dkb = dkb.to(key_bias.dtype)
-        return dq, dk, dv, dkb if ctx.needs_input_grad[3] else None, None, None
+        if dkb is not None:
+            dkb = dkb.to(key_bias.dtype)
+        return dq, dk, dv, dkb if need_dkb else None, None, None
 
 
 def fused_attention_kbias_dropout(q: torch.Tensor, k: torch.Tensor,

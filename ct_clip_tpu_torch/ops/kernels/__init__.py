@@ -28,6 +28,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -62,9 +63,12 @@ KERNELS = (
     "seq_attention_bwd",   # K10 small_attention.py::_pallas_small_qknorm_bwd (sequence-major)
     "attention_dense",     # K7 attention.py::_pallas_attention, dense (1, 1|h, n, n) bias
     "attention_dense_bwd",  # K12b attention.py::_pallas_attention_bwd (bf16 no bias too)
-    # the source that ran: attention_tc.cu's bf16 tensor-core kernels
+    # the source that ran: attention_tc.cu's bf16 tensor-core kernels, counted
+    # beside the function's own counter
     "attention_tc",        # K7 forward, any bias form (fused_attention, attention_dense)
-    "attention_tc_bwd",    # K12b backward, dense bias or none (attention_dense_bwd)
+    "attention_tc_bwd",    # every backward there: K12b, dense bias or none
+                           # (attention_dense_bwd), K12a, key bias (attention_bwd),
+                           # K13b, key bias and dropout (attention_dropout_bwd)
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -171,7 +175,8 @@ def _declare(lib) -> None:
     lib.ct_attn_train_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, lp, p, p, i, p,
                                       p, p, p, p, p, p, u, f, i, i, i, i, p]
     lib.ct_attn_tc_fwd.argtypes = [p, p, p, p, lp, p, p, i, p, i, i, i, p]
-    lib.ct_attn_tc_bwd.argtypes = [p, p, p, p, p, p, p, lp, p, i, p, p, p, p, i, i, i, p]
+    lib.ct_attn_tc_bwd.argtypes = [p, p, p, p, p, p, p, lp, p, p, i, p, p, p, p, p, p, p, u,
+                                   f, i, i, i, p]
     lib.ct_gemm_argmax2.argtypes = [p, i, p, p, i, i, i, i, p, i, p]
     lib.ct_gemm_layout.argtypes = [i, i, p, i, p, i, i, i, i, i, p, i, ll, i, p]
     lib.ct_sum_splits.argtypes = [p, i, ll, p, p]
@@ -667,6 +672,17 @@ def vq_cluster_stats(x: torch.Tensor, ids: torch.Tensor, codes: int):
 _TRAIN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def dropout_threshold(rate: float) -> int:
+    """K13's mask keeps a probability iff its Philox bits are >= this
+    (`_drop_mask`, ct_clip_tpu/ops/pallas/attention.py:406)."""
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def dropout_keep_scale(rate: float) -> float:
+    """1 / (1 - rate) rounded to f32, as the TPU kernel multiplies it."""
+    return float(np.float32(1.0 / (1.0 - rate)))
+
+
 def _bhnd_strides(*tensors):
     """(batch, head, token) element strides of (b, h, n, d) tensors whose
     last dim is contiguous, as the C array the kernels take."""
@@ -833,27 +849,44 @@ def attention_tc_fwd(q, k, v, out, lse, *, key_bias=None, bias=None) -> torch.Te
     return out
 
 
-def attention_tc_bwd(q, k, v, dout, lse, *, bias=None, want_dbias=False):
-    """dq, dk, dv (b, h, n, 64) bf16 and dbias ((1|h, n, n) f32 summed over
-    the batch, and over the heads for a one-head bias, or None) of
-    attention_tc_fwd with a dense bias or none (attention_tc.cu, wgmma): a
-    row pass (D_i = sum_j P_ij dP_ij in f32, then dq; each (b, h)'s dS into a
-    (b, h, n, n) f32 scratch for dbias), a column pass (dk, dv) and the
-    scratch's sum in a fixed order."""
+def attention_tc_bwd(q, k, v, dout, lse, *, bias=None, want_dbias=False, key_bias=None,
+                     want_dkey_bias=False, seed=None, rate=0.0):
+    """dq, dk, dv (b, h, n, 64) bf16, dbias ((1|h, n, n) f32 summed over the
+    batch, and over the heads for a one-head bias, or None) and dkey_bias
+    ((b, n) f32 summed over the heads and query rows, or None) of
+    attention_tc_fwd or, with dropout, of attention_train_fwd's K13a
+    (attention_tc.cu, wgmma): a row pass (D_i = sum_j P_ij dP_ij M_ij in
+    f32, then dq; each (b, h)'s dS into a (b, h, n, n) f32 scratch for
+    dbias), a column pass (dk, dv, each head's dkey_bias share into a (b, h,
+    n) f32 scratch) and the scratches' sums in a fixed order.  A dense bias
+    or a key bias (b, n) f32, not both; `seed` (1,) int64 on the device and
+    `rate` > 0 regenerate K13a's mask M (key bias only)."""
     b, h, n, d = q.shape
     _check_tc(q.shape, q=q, k=k, v=v, dout=dout)
     require(lse, "lse", torch.float32, 3)
+    _check_key_bias(key_bias, b, n)
     bias_heads = _bias_heads(bias, h, n)
+    if key_bias is not None and bias is not None:
+        raise ValueError("attention_tc: a key bias and a dense bias together")
     if bias is None and want_dbias:
         raise ValueError("attention_tc: dbias needs a bias")
+    if key_bias is None and want_dkey_bias:
+        raise ValueError("attention_tc: dkey_bias needs a key_bias")
+    thresh = dropout_threshold(rate) if rate > 0 else 0
+    if thresh and key_bias is None:
+        raise ValueError("attention_tc: dropout (K13b) takes a key bias")
+    seed = _dropout_args(seed, thresh, q.device)
     dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(3))
     f32 = dict(dtype=torch.float32, device=q.device)
     rowsum = torch.empty((b, h, n), **f32)
     ds = torch.empty((b, h, n, n), **f32) if want_dbias else None
     dbias = torch.empty((bias_heads, n, n), **f32) if want_dbias else None
+    dkb_head = torch.empty((b, h, n), **f32) if want_dkey_bias else None
+    dkb = torch.empty((b, n), **f32) if want_dkey_bias else None
     err = library().ct_attn_tc_bwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(dq), _ptr(dk), _ptr(dv),
-        _bhnd_strides(q, k, v, dout, dq, dk, dv), _ptr(bias), bias_heads, _ptr(lse),
-        _ptr(rowsum), _ptr(ds), _ptr(dbias), b, h, n, _stream())
+        _bhnd_strides(q, k, v, dout, dq, dk, dv), _ptr(key_bias), _ptr(bias), bias_heads,
+        _ptr(lse), _ptr(rowsum), _ptr(ds), _ptr(dbias), _ptr(dkb_head), _ptr(dkb), _ptr(seed),
+        thresh, dropout_keep_scale(rate) if thresh else 1.0, b, h, n, _stream())
     _check(err, "ct_attn_tc_bwd")
-    return dq, dk, dv, dbias
+    return dq, dk, dv, dbias, dkb

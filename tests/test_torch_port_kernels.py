@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels of ct_clip_tpu_torch against their plain PyTorch
 versions, on the card: the inference kernels in bf16, the training attention
 kernels (K7 f32, K12, K13) in f32, K7's dense-bias form and K12b in f32 and
-bf16, and the bf16 K7 / K12b of attention_tc.cu (wgmma) with their routing
-(`-k "tc or dense"`).
+bf16, and the bf16 K7 / K12b / K12a / K13b of attention_tc.cu (wgmma) with
+their routing (`-k "tc or dense"`).
 
 Needs an NVIDIA GPU and nvcc (the kernels compile on first use); skipped
 elsewhere.  Run on the card with:
@@ -627,6 +627,10 @@ def test_vq_exact_assign_k5(dev):
 
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 def test_bert_attention_bf16_training_k12_k13(dev, dropout):
+    """CXR-BERT's bf16 attention under grad at d 64: K7 and K12a on the
+    tensor cores without dropout; K13a on attention_train.cu and K13b on the
+    tensor cores with it.  Out and every gradient against autograd of the
+    plain version with the same mask."""
     from ct_clip_tpu_torch.ops.attention import (attention_plain, dropout_mask,
                                                  fused_attention, fused_attention_kbias_dropout)
 
@@ -634,11 +638,19 @@ def test_bert_attention_bf16_training_k12_k13(dev, dropout):
                        for t in _train_attn_inputs(dev, 2, 4, 100, 64, seed=15))
     seed = torch.tensor([9], dtype=torch.int64, device=dev)
     mask = dropout_mask(seed, 2, 4, 100, dropout, dev) if dropout else None
+    K.reset_launch_counts()
     if dropout:
         got = _grads(lambda q, k, v, b: fused_attention_kbias_dropout(q, k, v, b, seed,
                                                                       dropout), q, k, v, kb, do)
     else:
         got = _grads(lambda q, k, v, b: fused_attention(q, k, v, key_bias=b), q, k, v, kb, do)
+    c = K.launch_counts()
+    if dropout:
+        assert (c["attention_dropout"], c["attention_dropout_bwd"], c["attention_tc"],
+                c["attention_tc_bwd"]) == (1, 1, 0, 1)
+    else:
+        assert (c["fused_attention"], c["attention_bwd"], c["attention_tc"],
+                c["attention_tc_bwd"]) == (1, 1, 1, 1)
     ref = _grads(lambda q, k, v, b: attention_plain(q, k, v, key_bias=b, mask=mask),
                  q, k, v, kb, do)
     _grads_close(got, ref)
@@ -838,10 +850,11 @@ def test_tc_attention_backward(dev, form, n):
 
 
 def test_tc_routing_counters(dev):
-    """A bf16 key-bias forward under grad (K12a reads the CUDA-core
-    forward's f32 output) and a dropout forward run attention_train.cu; the
-    same key-bias forward without grad runs attention_tc.cu; d 32 in bf16
-    is routed by its shape to attention_train.cu and runs there."""
+    """bf16 at d 64: a key-bias forward under grad and its backward (K7,
+    K12a) run attention_tc.cu, with or without grad; a dropout forward
+    (K13a) runs attention_train.cu and its backward (K13b) attention_tc.cu.
+    d 32 in bf16 is routed by its shape to attention_train.cu, forward and
+    backward, dropout or not."""
     from ct_clip_tpu_torch.ops.attention import (attention_plain, fused_attention,
                                                  fused_attention_kbias_dropout)
 
@@ -850,18 +863,88 @@ def test_tc_routing_counters(dev):
     K.reset_launch_counts()
     ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     torch.autograd.grad(fused_attention(*ins, key_bias=kb), ins, do)
-    fused_attention_kbias_dropout(q, k, v, kb, 5, 0.1)
     counts = K.launch_counts()
-    assert (counts["attention_tc"], counts["attention_tc_bwd"]) == (0, 0)
-    assert (counts["fused_attention"], counts["attention_bwd"],
-            counts["attention_dropout"]) == (1, 1, 1)
+    assert (counts["fused_attention"], counts["attention_tc"], counts["attention_bwd"],
+            counts["attention_tc_bwd"]) == (1, 1, 1, 1)
+    K.reset_launch_counts()
+    torch.autograd.grad(fused_attention_kbias_dropout(*ins, kb, 5, 0.1), ins, do)
+    counts = K.launch_counts()
+    assert (counts["attention_dropout"], counts["attention_tc"], counts["attention_dropout_bwd"],
+            counts["attention_tc_bwd"]) == (1, 0, 1, 1)
     with torch.no_grad():
         fused_attention(q, k, v, key_bias=kb)
     assert K.launch_counts()["attention_tc"] == 1
-    q32, k32, v32 = (t[..., :32].contiguous() for t in (q, k, v))
+    q32, k32, v32, do32 = (t[..., :32].contiguous() for t in (q, k, v, do))
     K.reset_launch_counts()
     with torch.no_grad():
         got = fused_attention(q32, k32, v32, key_bias=kb)
     counts = K.launch_counts()
     assert (counts["fused_attention"], counts["attention_tc"]) == (1, 0)
     _close(got, attention_plain(q32, k32, v32, key_bias=kb))
+    ins32 = [t.detach().clone().requires_grad_() for t in (q32, k32, v32)]
+    K.reset_launch_counts()
+    torch.autograd.grad(fused_attention(*ins32, key_bias=kb), ins32, do32)
+    torch.autograd.grad(fused_attention_kbias_dropout(*ins32, kb, 5, 0.1), ins32, do32)
+    counts = K.launch_counts()
+    assert (counts["attention_bwd"], counts["attention_dropout_bwd"], counts["attention_tc"],
+            counts["attention_tc_bwd"]) == (1, 1, 0, 0)
+
+
+@pytest.mark.parametrize("want_dkb", [True, False])
+@pytest.mark.parametrize("n", [512, 200])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_tc_key_bias_backward_k12a_k13b(dev, rate, n, want_dkb):
+    """attention_tc.cu's key-bias backward (bf16, d 64): K12a (rate 0, after
+    the tensor-core forward) and K13b (rate 0.1, after attention_train.cu's
+    K13a forward), against autograd of the plain version with the explicit
+    mask of the same seed, 3e-2 of max|plain| per output (dq, dk, dv and,
+    when wanted, dkey_bias); the forward's output 2e-2.  Ragged pad lengths:
+    row 1 keeps 7 keys, so whole key tiles are padded.  Every gradient is
+    bit-identical across two runs.  With dropout, the plain version under
+    another seed's mask must miss the tolerance: the backward draws the
+    forward's bits, not any bits."""
+    from ct_clip_tpu_torch.ops.attention import (attention_plain, dropout_mask,
+                                                 fused_attention, fused_attention_kbias_dropout)
+
+    b, h = 3, 4
+    q, k, v, do, g = _tc_inputs(dev, b, h, n, 43)
+    lengths = torch.tensor([n, 7, n // 3 + 5], device=dev)
+    kb = (torch.arange(n, device=dev)[None] >= lengths[:, None]).float() * torch.finfo(F32).min
+    seed = torch.tensor([20261017], dtype=torch.int64, device=dev)
+    leaves = [t.detach().clone().requires_grad_(i < 3 or want_dkb)
+              for i, t in enumerate((q, k, v, kb))]
+
+    def run():
+        if rate:
+            out = fused_attention_kbias_dropout(*leaves, seed, rate)
+        else:
+            out = fused_attention(*leaves[:3], key_bias=leaves[3])
+        return (out, *torch.autograd.grad(out, leaves[:4 if want_dkb else 3], do))
+    K.reset_launch_counts()
+    got = run()
+    c = K.launch_counts()
+    fn = "attention_dropout" if rate else "fused_attention"
+    bwd = "attention_dropout_bwd" if rate else "attention_bwd"
+    assert (c[fn], c[bwd], c["attention_tc"], c["attention_tc_bwd"]) == \
+        (1, 1, 0 if rate else 1, 1)
+
+    def plain(mask):
+        ins = [t.detach().clone().requires_grad_(i < 3 or want_dkb)
+               for i, t in enumerate((q, k, v, kb))]
+        out = attention_plain(*ins[:3], key_bias=ins[3], mask=mask)
+        return (out, *torch.autograd.grad(out, ins[:4 if want_dkb else 3], do))
+    mask = dropout_mask(seed, b, h, n, rate, dev) if rate else None
+    ref = plain(mask)
+    torch.cuda.synchronize()
+    _close(got[0], ref[0])
+    for gr, r in zip(got[1:], ref[1:]):
+        assert gr.shape == r.shape and gr.dtype == r.dtype
+        assert torch.isfinite(gr.float()).all()
+        _close(gr, r, rel=BWD_REL)
+    again = run()
+    assert all(torch.equal(x, y) for x, y in zip(again[1:], got[1:]))
+    if rate:
+        wrong = plain(dropout_mask(seed + 1, b, h, n, rate, dev))
+        errs = [(gr.float() - r.float()).abs().max().item() / r.float().abs().max().item()
+                for gr, r in zip(got[1:4], wrong[1:4])]
+        assert max(errs) > BWD_REL, f"another seed's mask reads within tolerance: {errs}"
