@@ -13,16 +13,21 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the RadBERT training attention (K7 f32, K12 and K13, forward and
      backward) at (32, 12, 512, 64) in f32, checked at batch 8 (the plain
      K13 holds a (b, 12, 512, 512) mask) and timed at batch 32, plus K13's
-     determinism, kept share and forward/backward mask identity.  For each:
+     determinism, kept share and forward/backward mask identity; K12a f32
+     runs 3xTF32 on the tensor cores (attention_tc32.cu) and is held to
+     TC32_REL_TOL at n 512 and a ragged n, its dkey_bias bit-identical
+     across runs, beside a plain-TF32 copy of the kernel that must miss
+     that tolerance.  For each:
      max abs / rel error against a stated tolerance (K6, a pure move, must be
      bit-exact), median times (CUDA events) of the kernel, the plain version
      and, where one PyTorch call computes the same function, that call, and
      the bound: the least time the card could take, from the call's bytes
      and products and the H100's published peaks (bf16 tensor cores for the
-     bf16 kernels, f32 CUDA cores for the f32 ones).  The bf16 K7 / K12b /
-     K12a / K13b kernels of attention_tc.cu (wgmma) also time the CUDA-core
-     kernels of attention_train.cu they replaced, on the same inputs
-     ("replaced");
+     bf16 kernels, f32 CUDA cores for the f32 ones, TF32 for the 3xTF32
+     K12a).  The bf16 K7 / K12b / K12a / K13a / K13b kernels of
+     attention_tc.cu (wgmma) and the f32 K12a of attention_tc32.cu also
+     time the CUDA-core kernels of attention_train.cu they replaced, on the
+     same inputs ("replaced");
   3. zero-shot phase: a 3-volume synthetic CT-RATE corpus (NIfTI + CSVs +
      a toy vocab) through `run_zero_shot` at full CT-CLIP width (seeded
      random weights), batch 2 with a tail batch, twice: on the patch-row
@@ -39,8 +44,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      forward and backward in training, K7 f32 in validation and inference);
      checks the loss and the (64, 18) probabilities and times the training
      step.  Then one step of a 2-layer full-width RadBERT with
-     attention_dropout 0, which must run K12 (RadBERT is f32: nothing of it
-     runs on the tensor cores), and one forward and backward of a 2-layer
+     attention_dropout 0, which must run its 2 K12a f32 on attention_tc32.cu
+     (RadBERT is f32: nothing of it runs on attention_tc.cu), and one
+     forward and backward of a 2-layer
      CXR-BERT in bf16 with attention dropout off, whose key-bias attention
      under grad runs K7 and K12a on the tensor cores (attention_tc.cu), with
      K12a bf16 at (8, 12, 512, 64) against its plain version, bit-identical
@@ -49,19 +55,21 @@ Phases, each fatal on failure (exit code != 0, no result line):
      volumes on the card (kernels) and on the CPU (plain versions), both
      bf16, from volumes and from patch rows, and must agree; a tiny RadBERT
      with both dropouts 0 takes one training step from the same weights on
-     the card and on the CPU, and the logits, loss, gradients and updated
-     weights must agree;
+     the card (K12a f32 on attention_tc32.cu) and on the CPU, and the
+     logits, loss, gradients and updated weights must agree, and must not
+     with TC32 planted faults (D_i forced to 0; plain TF32);
   6. CT-CLIP pretraining: the training kernels against their plain versions
      at full width, batch 8 (K11, K9, K10, K14, K15, K5 exact, and K13 in
-     bf16 at CXR-BERT's batch 8 x 512: K13a on attention_train.cu, K13b on
+     bf16 at CXR-BERT's batch 8 x 512 and a ragged n: K13a and K13b on
      attention_tc.cu, bit-identical across two runs, against the plain
      version with the forward's mask and, which must miss the tolerance,
-     with another seed's, the replaced CUDA-core K13b timed beside it), then
+     with another seed's, K13a's kept share, the replaced CUDA-core K13a
+     and K13b timed beside them), then
      `cli train` on a synthetic corpus of 20 volumes (16 kept by the 80%
      split) at full width, batch 8, 4 steps, with one mini evaluation on 2
      validation volumes and one checkpoint; every training counter must
-     rise, and each step runs 12 K13a on attention_train.cu and 12 K13b on
-     the tensor cores.  The step time (CUDA events), peak memory and a
+     rise, and each step runs 12 K13a and 12 K13b on the tensor cores (every
+     attention forward of the run on attention_tc.cu).  The step time (CUDA events), peak memory and a
      profiled step's breakdown and idle share follow, then a tiny CT-CLIP
      training step on the card against the CPU (both bf16, each gradient
      held against the CPU's own bf16-vs-f32 distance; its BERT has one head
@@ -79,8 +87,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      SimCLR on the pooled tap for 2 steps, each with its launch counters (the
      volume training embed runs K6, each SSL view K8 and K16a, and MLM runs
      the text tower twice, so K13 launches twice as often per step as in
-     phase 6: K13a 24 times on attention_train.cu, K13b 24 on the tensor
-     cores), step time (CUDA events), peak memory and a profiled step;
+     phase 6: K13a and K13b 24 times each on the tensor cores), step time
+     (CUDA events), peak memory and a profiled step;
      last, a tiny CT-CLIP step with all three objectives on (its BERT at
      four heads of 16, K12a on attention_train.cu), card against CPU as in
      phase 6, and again with K16a's LN scale gradient dropped,
@@ -126,6 +134,7 @@ build/chip_smoke/ and are removed at the end.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import shutil
@@ -147,12 +156,17 @@ REL_TOL = 2e-2
 # the f32 kernels run the same products as their plain versions in f32, in
 # another summation order
 F32_REL_TOL = 1e-4
+# K12a f32 in 3xTF32 (attention_tc32.cu) against the plain version in true
+# f32 (TF32 off): each product's operands split into TF32 hi + lo drop ~2^-22
+# of it, f32's own rounding order; plain TF32 (~2^-11) lands near 5e-4
+TC32_REL_TOL = 1e-5
 # the two zero-shot routes see the same bf16 values and differ only in the
 # order LN(4000) sums them: P(present) agree far inside this
 ROUTE_TOL = 0.05
-# NVIDIA H100 SXM published peaks (dense): bf16 tensor cores, f32 CUDA
-# cores, HBM3
+# NVIDIA H100 SXM published peaks (dense): bf16 and TF32 tensor cores, f32
+# CUDA cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -170,6 +184,7 @@ def _kernel(name, replaces, source, sources, counter, path):
 # the driven path whose count the table reports
 ATTN_TRAIN = ["attention_train.cu"]
 ATTN_TC = ["attention_tc.cu"]
+ATTN_TC32 = ["attention_tc32.cu"]
 KERNELS = {
     "patch_embed": _kernel("fused_patch_embed", "patchify.py:341", "layernorm.cu",
                            ["layernorm.cu", "gemm.cu"], "patch_embed", "zero_shot_volume"),
@@ -195,7 +210,7 @@ KERNELS = {
                                    "attention_train.cu", ATTN_TRAIN, "fused_attention",
                                    "radbert_train"),
     "attention_bwd": _kernel("_pallas_attention_bwd_kbias", "attention.py:271",
-                             "attention_train.cu", ATTN_TRAIN, "attention_bwd",
+                             "attention_tc32.cu", ATTN_TC32, "attention_tc32_bwd",
                              "radbert_dropout_off"),
     "attention_dropout": _kernel("_pallas_attention_kbias_drop_impl", "attention.py:474",
                                  "attention_train.cu", ATTN_TRAIN, "attention_dropout",
@@ -220,7 +235,7 @@ KERNELS = {
     "vq_assign_exact": _kernel("pallas_assign (exact)", "vq.py:104", "gemm.cu", ["gemm.cu"],
                                "vq_assign_exact", "ctclip_train"),
     "attention_dropout_bf16": _kernel("_pallas_attention_kbias_drop_impl (bf16)",
-                                      "attention.py:474", "attention_train.cu", ATTN_TRAIN,
+                                      "attention.py:474", "attention_tc.cu", ATTN_TC,
                                       "attention_dropout", "ctclip_train"),
     "attention_dropout_bwd_bf16": _kernel("_pallas_attention_kbias_drop_bwd (bf16)",
                                           "attention.py:499", "attention_tc.cu",
@@ -267,11 +282,11 @@ PATHS = {
     "radbert_train": ["attention_dropout", "attention_dropout_bwd", "fused_attention"],
     "radbert_infer": ["fused_attention"],
     "radbert_eval": ["fused_attention"],
-    "radbert_dropout_off": ["fused_attention", "attention_bwd"],
+    "radbert_dropout_off": ["fused_attention", "attention_bwd", "attention_tc32_bwd"],
     "bert_bf16_dropout_off": ["fused_attention", "attention_bwd", "attention_tc",
                               "attention_tc_bwd"],
-    # the training step (K13a on attention_train.cu, K13b on the tensor
-    # cores) and the mini evaluation (K6 ingest, K4 embed, K5)
+    # the training step (K13a and K13b on the tensor cores) and the mini
+    # evaluation (K6 ingest, K4 embed, K5)
     "ctclip_train": ["geglu_ff_bwd", "spatial_attention_bwd", "grid_attention_bwd",
                      "peg_bwd", "vq_cluster_stats", "vq_assign_exact", "geglu_ff",
                      "spatial_attention", "grid_attention", "attention_dropout",
@@ -286,9 +301,8 @@ PATHS = {
 AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "rearrange_patches", "geglu_ff_bwd",
              "spatial_attention_bwd", "grid_attention_bwd", "peg_bwd", "vq_cluster_stats",
              "vq_assign_exact", "geglu_ff", "spatial_attention", "grid_attention",
-             "attention_dropout", "attention_dropout_bwd", "attention_tc_bwd"]
-PATHS["ctclip_aux_ssl_mlm"] = AUX_TRAIN + ["vq_assign", "fused_attention",
-                                          "attention_tc"]  # + mini-eval
+             "attention_dropout", "attention_dropout_bwd", "attention_tc", "attention_tc_bwd"]
+PATHS["ctclip_aux_ssl_mlm"] = AUX_TRAIN + ["vq_assign", "fused_attention"]  # + mini-eval
 PATHS["ctclip_aux_filip_simclr"] = AUX_TRAIN
 # phase 8: the CTViT autoencoder on GenerateCT's non-cubic (20, 8, 8) grid
 # (training embed K6, decoder un-patchify K17 forward and K6 backward),
@@ -303,7 +317,8 @@ PATHS["reconstruct"] = ["patch_embed", "spatial_attention", "grid_attention", "g
 PATHS["ctclip_160_train"] = ["seq_attention", "seq_attention_bwd", "spatial_attention",
                              "spatial_attention_bwd", "geglu_ff", "geglu_ff_bwd", "peg_bwd",
                              "vq_cluster_stats", "vq_assign_exact", "rearrange_patches",
-                             "attention_dropout", "attention_dropout_bwd", "attention_tc_bwd"]
+                             "attention_dropout", "attention_dropout_bwd", "attention_tc",
+                             "attention_tc_bwd"]
 PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "seq_attention", "geglu_ff",
                           "vq_assign", "fused_attention", "attention_tc"]
 # phase 9: MaskGIT on the frozen autoencoder's (20, 8, 8) codes.  A training
@@ -492,8 +507,9 @@ def timing(case, out) -> dict:
 
 
 def cuda_core_twin(q, k, v, do=None, key_bias=None, bias=None, seed=None, rate=0.0):
-    """The CUDA-core bf16 kernels of attention_train.cu that attention_tc.cu
-    replaced, on the same inputs through their binding: a forward closure
+    """The CUDA-core kernels of attention_train.cu that attention_tc.cu (bf16)
+    and attention_tc32.cu (f32) replaced, on the same inputs through their
+    binding: a forward closure
     returning out and, given `do`, a backward closure returning dq, dk, dv
     and dbias with a (1, 1|h, n, n) `bias` or dkey_bias with a (b, n) f32
     `key_bias`, reading the f32 output as that backward did; with `seed` and
@@ -539,9 +555,10 @@ def twin_result(name: str, fn, ref) -> dict:
     got = _as_tuple(fn())
     torch.cuda.synchronize()
     err, rel = _rel_errors(got, _as_tuple(ref))
+    dtype = str(got[0].dtype).split(".")[-1]
     del got
     ms = cuda_ms(fn)
-    log(f"kernel {name}: the replaced CUDA-core form (attention_train.cu, bf16) "
+    log(f"kernel {name}: the replaced CUDA-core form (attention_train.cu, {dtype}) "
         f"{ms:.3f} ms, max_abs_err {err:.4e} max_rel_err {rel:.4e}")
     return dict(source=CSRC + "attention_train.cu", ms=ms, max_abs_err=err, max_rel_err=rel)
 
@@ -598,12 +615,12 @@ def kernel_phase(dev):
 
 
 # ------------------------------------------ phase 2, RadBERT training attention
-def train_attention_inputs(dev, b: int, seed: int):
+def train_attention_inputs(dev, b: int, seed: int, n: int = BERT_SHAPE[2]):
     """BERT's (b, n, h, d) f32 projections viewed head-major, q scaled, a
-    per-key pad bias from report lengths in [64, 512], an output gradient."""
+    per-key pad bias from report lengths in [64, n], an output gradient."""
     import torch
 
-    _, h, n, d = BERT_SHAPE
+    _, h, _, d = BERT_SHAPE
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn((b, n, h, d), generator=g, device=dev).transpose(1, 2)
                for _ in range(3))
@@ -629,7 +646,9 @@ def train_attention_cases(dev, b: int):
     torch.autograd.grad of a kept forward), plain version, library call
     (F.scaled_dot_product_attention in f32 with the additive key mask, or
     autograd.grad of a kept SDPA output), the tensors it reads and its
-    products, at the f32 CUDA-core peak."""
+    products, at the f32 CUDA-core peak; K12a (attention_tc32.cu) at the
+    TF32 peak, three TF32 products for each f32 one, with the CUDA-core
+    bound beside it and the replaced CUDA-core kernel (`twin`)."""
     import torch
     import torch.nn.functional as F
 
@@ -678,7 +697,9 @@ def train_attention_cases(dev, b: int):
             kern=lambda: grad(out_k12, leaves), plain=plain_bwd,
             library=lambda: grad(lib_out, lib_in),
             backend=sdpa_backend(q, k, v, sdpa_mask, 0.0),
-            inputs=(q, k, v, kb, do, out_k12, lse), flops=5 * product, **f32),
+            inputs=(q, k, v, kb, do, out_k12, lse), flops=3 * 5 * product,
+            peak=PEAK_TF32_FLOPS, f32_flops=5 * product, tol=TC32_REL_TOL,
+            twin=cuda_core_twin(q, k, v, do, key_bias=kb)[1]),
         "attention_dropout_bwd": dict(
             kern=lambda: grad(out_k13, leaves),
             plain=lambda: plain_bwd(dropout_mask(seed, b, h, n, DROP_RATE, dev)),
@@ -692,19 +713,41 @@ def _as_tuple(x):
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
 
-def dropout_checks(dev) -> dict:
-    """K13 at (CHECK_BATCH, 12, 512, 64): the same seed gives the same bits;
-    the kept share of the forward's and of the backward's mask lies within
-    4 sigma of 1 - rate (uniform probabilities, v = 1 and dO = 1 turn the
-    output and dv into kept counts); and the backward's mask is the
-    forward's: the output is linear in v, so the difference of two forwards
-    along a direction must equal the VJP's dv along it."""
+def kept_shares(dev, seed, dtype) -> tuple:
+    """The kept share of K13's mask in its forward and in its backward at
+    (CHECK_BATCH, 12, 512, 64) in `dtype`, and 4 sigma of a share: uniform
+    probabilities, v = 1 and dO = 1 turn the output and dv into kept counts
+    times the kept value, 1 / (1 - rate) as the kernels multiply it into P
+    (rounded to bf16 with P in bf16)."""
     import torch
 
     from ct_clip_tpu_torch.ops.attention import (dropout_keep_scale,
                                                  fused_attention_kbias_dropout)
 
     b, (_, h, n, d) = CHECK_BATCH, BERT_SHAPE
+    zeros = torch.zeros((b, h, n, d), dtype=dtype, device=dev)
+    ones = torch.ones_like(zeros)
+    free = torch.zeros((b, n), device=dev)
+    scale = torch.tensor(dropout_keep_scale(DROP_RATE)).to(dtype).item()
+    v1 = ones.clone().requires_grad_()
+    out = fused_attention_kbias_dropout(zeros, zeros, v1, free, seed, DROP_RATE)
+    dv, = torch.autograd.grad(out, v1, ones)
+    share_fwd = out[..., 0].double().mean().item() / scale
+    share_bwd = dv[..., 0].double().sum().item() / (scale * b * h * n)
+    return share_fwd, share_bwd, 4 * (DROP_RATE * (1 - DROP_RATE) / (b * h * n * n)) ** 0.5
+
+
+def dropout_checks(dev) -> dict:
+    """K13 at (CHECK_BATCH, 12, 512, 64): the same seed gives the same bits;
+    the kept share of the forward's and of the backward's mask lies within
+    4 sigma of 1 - rate (`kept_shares`); and the backward's mask is the
+    forward's: the output is linear in v, so the difference of two forwards
+    along a direction must equal the VJP's dv along it."""
+    import torch
+
+    from ct_clip_tpu_torch.ops.attention import fused_attention_kbias_dropout
+
+    b = CHECK_BATCH
     q, k, v, kb, _ = train_attention_inputs(dev, b, seed=21)
     seed = torch.tensor([77], dtype=torch.int64, device=dev)
 
@@ -712,15 +755,8 @@ def dropout_checks(dev) -> dict:
         return fused_attention_kbias_dropout(q, k, v_, kb, seed, DROP_RATE)
 
     same = torch.equal(f(v), f(v))
-    zeros, ones = torch.zeros_like(q), torch.ones_like(q)
-    free = torch.zeros_like(kb)
-    scale = dropout_keep_scale(DROP_RATE)
-    v1 = ones.clone().requires_grad_()
-    out = fused_attention_kbias_dropout(zeros, zeros, v1, free, seed, DROP_RATE)
-    dv, = torch.autograd.grad(out, v1, ones)
-    share_fwd = out[..., 0].double().mean().item() / scale
-    share_bwd = dv[..., 0].double().sum().item() / (scale * b * h * n)
-    sigma = (DROP_RATE * (1 - DROP_RATE) / (b * h * n * n)) ** 0.5
+    ones = torch.ones_like(q)
+    share_fwd, share_bwd, four_sigma = kept_shares(dev, seed, torch.float32)
 
     g = torch.Generator(device=dev).manual_seed(22)
     direction = torch.randn(v.shape, generator=g, device=dev) * 0.1
@@ -730,14 +766,55 @@ def dropout_checks(dev) -> dict:
     jvp_vjp = (dv.double() * direction.double()).sum().item()
     identity_rel = abs(jvp_fwd - jvp_vjp) / max(abs(jvp_vjp), 1.0)
     res = dict(deterministic=same, kept_share_fwd=share_fwd, kept_share_bwd=share_bwd,
-               kept_share_4sigma=4 * sigma, mask_identity_rel_err=identity_rel)
+               kept_share_4sigma=four_sigma, mask_identity_rel_err=identity_rel)
     log(f"kernel attention_dropout: same seed same output {same}; kept share "
         f"forward {share_fwd:.6f} backward {share_bwd:.6f} (1 - rate {1 - DROP_RATE}, "
-        f"4 sigma {4 * sigma:.2e}); forward/backward mask identity rel err "
+        f"4 sigma {four_sigma:.2e}); forward/backward mask identity rel err "
         f"{identity_rel:.2e} (tol {F32_REL_TOL})")
     if not same or identity_rel > F32_REL_TOL or any(
-            abs(x - (1 - DROP_RATE)) > 4 * sigma for x in (share_fwd, share_bwd)):
+            abs(x - (1 - DROP_RATE)) > four_sigma for x in (share_fwd, share_bwd)):
         raise AssertionError(f"attention_dropout checks failed: {res}")
+    return res
+
+
+def k13a_bf16_checks(dev) -> dict:
+    """K13a in bf16 on attention_tc.cu at a ragged n 500 (batch CHECK_BATCH,
+    12 heads, pad key bias): within REL_TOL of the plain version with the
+    same mask, outside it with another seed's, bit-identical across two
+    runs, one launch of attention_tc each; and the kept share of the bf16
+    forward's and backward's mask (`kept_shares`) within 4 sigma of
+    1 - rate."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.attention import (attention_dropout_plain,
+                                                 fused_attention_kbias_dropout)
+
+    n, bf = 500, torch.bfloat16
+    q, k, v, kb, _ = train_attention_inputs(dev, CHECK_BATCH, seed=25, n=n)
+    q, k, v = (t.to(bf) for t in (q, k, v))
+    seed = torch.tensor([20261017], dtype=torch.int64, device=dev)
+    before = K.launch_counts()["attention_tc"]
+    got = fused_attention_kbias_dropout(q, k, v, kb, seed, DROP_RATE)
+    again = fused_attention_kbias_dropout(q, k, v, kb, seed, DROP_RATE)
+    on_tc = K.launch_counts()["attention_tc"] - before
+    ref = attention_dropout_plain(q, k, v, kb, seed, DROP_RATE)
+    wrong = attention_dropout_plain(q, k, v, kb, seed + 1, DROP_RATE)
+    _, rel = _rel_errors((got,), (ref,))
+    _, rel_wrong = _rel_errors((got,), (wrong,))
+    share_fwd, share_bwd, four_sigma = kept_shares(dev, seed, bf)
+    res = dict(ragged_n500_max_rel_err=rel, ragged_n500_wrong_seed_max_rel_err=rel_wrong,
+               ragged_n500_bit_identical=torch.equal(got, again), kept_share_fwd=share_fwd,
+               kept_share_bwd=share_bwd, kept_share_4sigma=four_sigma)
+    log(f"kernel attention_dropout_bf16 (K13a, attention_tc.cu) at ({CHECK_BATCH}, 12, {n}, 64): "
+        f"max_rel_err {rel:.4e} (rel {REL_TOL}), another seed's mask {rel_wrong:.4e} (must "
+        f"exceed it), bit-identical {res['ragged_n500_bit_identical']}, launches on the "
+        f"tensor cores {on_tc} of 2; kept share forward {share_fwd:.6f} backward "
+        f"{share_bwd:.6f} (1 - rate {1 - DROP_RATE}, 4 sigma {four_sigma:.2e})")
+    if rel > REL_TOL or rel_wrong <= REL_TOL or not res["ragged_n500_bit_identical"] \
+            or on_tc != 2 or any(abs(x - (1 - DROP_RATE)) > four_sigma
+                                 for x in (share_fwd, share_bwd)):
+        raise AssertionError(f"attention_dropout_bf16 checks failed: {res}")
     return res
 
 
@@ -755,26 +832,102 @@ def train_attention_phase(dev) -> dict:
             raise AssertionError(f"{name}: bad kernel outputs")
         errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
         rels = [e / r.abs().max().item() for e, r in zip(errs, ref)]
+        tol = case.get("tol", F32_REL_TOL)
         results[name] = dict(max_abs_err=max(errs), max_rel_err=max(rels),
-                             tolerance=f"rel {F32_REL_TOL} per output", check_batch=CHECK_BATCH)
-        if max(rels) > F32_REL_TOL:
-            raise AssertionError(f"{name}: rel errors {rels} outside {F32_REL_TOL}")
+                             tolerance=f"rel {tol} per output", check_batch=CHECK_BATCH)
+        if max(rels) > tol:
+            raise AssertionError(f"{name}: rel errors {rels} outside {tol}")
         del got, ref
     results["attention_dropout"].update(dropout_checks(dev))
+    results["attention_bwd"].update(tc32_checks(dev))
     torch.cuda.empty_cache()
 
     for name, case in train_attention_cases(dev, BERT_SHAPE[0]).items():
         res = results[name]
-        res.update(timing(case, _as_tuple(case["kern"]())), library_backend=case["backend"],
-                   shape=list(BERT_SHAPE))
+        got = _as_tuple(case["kern"]())
+        res.update(timing(case, got), library_backend=case["backend"], shape=list(BERT_SHAPE))
+        peak = "f32 peak"
+        if case.get("f32_flops"):  # 3xTF32: the f32 CUDA-core bound beside the TF32 one
+            res["bound_f32_cuda_cores_ms"] = bound(nbytes(*case["inputs"], *got),
+                                                   case["f32_flops"], PEAK_F32_FLOPS)[0]
+            peak = (f"3 TF32 products per f32 one at the TF32 peak; on the f32 CUDA cores "
+                    f"{res['bound_f32_cuda_cores_ms']:.4f} ms")
+        if case.get("twin"):
+            res["replaced"] = twin_result(name, case["twin"], case["plain"]())
+        del got
         log(f"kernel {name}: max_abs_err {res['max_abs_err']:.4e} max_rel_err "
-            f"{res['max_rel_err']:.4e} (rel {F32_REL_TOL}, batch {CHECK_BATCH}) at "
+            f"{res['max_rel_err']:.4e} ({res['tolerance']}, batch {CHECK_BATCH}) at "
             f"{tuple(BERT_SHAPE)} f32: kernel {res['ms']:.3f} ms plain "
             f"{res['plain_ms']:.3f} ms library {res['library_ms']:.3f} ms (SDPA "
             f"{case['backend']}) bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
-            f"f32 peak, {100 * res['bound_share']:.1f}% of it reached)")
-    torch.cuda.empty_cache()
+            f"{peak}, {100 * res['bound_share']:.1f}% of it reached)")
+        torch.cuda.empty_cache()
     return results
+
+
+@contextlib.contextmanager
+def replaced(module, attr: str, value):
+    """module.attr set to `value` inside the block (a planted fault)."""
+    original = getattr(module, attr)
+    setattr(module, attr, value)
+    try:
+        yield
+    finally:
+        setattr(module, attr, original)
+
+
+def plain_tf32_bwd():
+    """The K12a f32 wrapper launching a copy of attention_tc32.cu built with
+    CT_TC32_PASSES=1: hi hi alone, plain TF32."""
+    import functools
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    return functools.partial(K.attention_tc32_bwd,
+                             lib=K.copy_library("attention_tc32.cu", CT_TC32_PASSES=1))
+
+
+def tc32_checks(dev) -> dict:
+    """K12a f32 on attention_tc32.cu (3xTF32) at (CHECK_BATCH, 12, n, 64)
+    against the plain version in f32 (TF32 off): within TC32_REL_TOL of
+    max|plain| per output at n 512 and a ragged n 500; dq, dk, dv and
+    dkey_bias bit-identical across two runs; and the same call through a
+    plain-TF32 copy of the kernel (`plain_tf32_bwd`), whose error must
+    exceed TC32_REL_TOL: the tolerance tells 3xTF32 from TF32."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.attention import attention_bwd_plain, fused_attention
+
+    res, hi_only = {}, plain_tf32_bwd()
+    for label, n, seed in (("n512", BERT_SHAPE[2], 23), ("ragged_n500", 500, 24)):
+        q, k, v, kb, do = train_attention_inputs(dev, CHECK_BATCH, seed, n)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, kb)]
+        out = fused_attention(*leaves[:3], key_bias=leaves[3])
+
+        def grad():
+            before = K.launch_counts()["attention_tc32_bwd"]
+            g = torch.autograd.grad(out, leaves, do, retain_graph=True)
+            if K.launch_counts()["attention_tc32_bwd"] != before + 1:
+                raise AssertionError("K12a f32 did not run on attention_tc32.cu")
+            return g
+        got = grad()
+        ref = tuple(t for t in attention_bwd_plain(q, k, v, do, key_bias=kb) if t is not None)
+        err, rel = _rel_errors(got, ref)
+        res[f"{label}_max_rel_err"] = rel
+        same = all(torch.equal(a, g) for a, g in zip(grad(), got))
+        res[f"{label}_bit_identical"] = same
+        with replaced(K, "attention_tc32_bwd", hi_only):
+            _, rel1 = _rel_errors(grad(), ref)
+        res[f"{label}_plain_tf32_max_rel_err"] = rel1
+        log(f"kernel attention_bwd (K12a f32, 3xTF32) at ({CHECK_BATCH}, 12, {n}, 64): "
+            f"max_abs_err {err:.4e} max_rel_err {rel:.4e} (rel {TC32_REL_TOL}); dq, dk, dv, "
+            f"dkey_bias bit-identical across two runs: {same}; the plain-TF32 copy "
+            f"max_rel_err {rel1:.4e} (must exceed {TC32_REL_TOL})")
+        if rel > TC32_REL_TOL or not same or rel1 <= TC32_REL_TOL:
+            raise AssertionError(f"attention_bwd (K12a f32) checks failed: {res}")
+        del got, ref, out, leaves
+    return res
 
 
 # ------------------------------------------- phase 2, CT-CLIP training kernels
@@ -906,8 +1059,8 @@ def train_kernel_cases(dev):
         flops=2 * 2 * R * dim * 8192, ids=True)
     del xv, embed_n
 
-    # K13 in bf16 at CXR-BERT's training batch (8, 12, 512, 64): K13a on
-    # attention_train.cu, K13b on attention_tc.cu
+    # K13 in bf16 at CXR-BERT's training batch (8, 12, 512, 64): K13a and
+    # K13b on attention_tc.cu
     b, h, n, d = TRAIN_B, 12, 512, 64
     q, k, v = (rn(b, n, h, d, dtype=bf).transpose(1, 2) for _ in range(3))
     q = q * d ** -0.5
@@ -922,9 +1075,14 @@ def train_kernel_cases(dev):
     yield "attention_dropout_bf16", dict(
         kern=lambda: fused_attention_kbias_dropout(q, k, v, kb, seed, DROP_RATE),
         plain=lambda: attention_dropout_plain(q, k, v, kb, seed, DROP_RATE),
+        # the same inputs under another seed's mask: the kernel must miss it
+        wrong_plain=lambda: attention_dropout_plain(q, k, v, kb, seed + 1, DROP_RATE),
         library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
                                                        dropout_p=DROP_RATE, scale=1.0),
-        inputs=(q, k, v, kb, seed), outputs=(q,), flops=2 * product, tol=BWD_REL_TOL)
+        backend=sdpa_backend(q, k, v, sdpa_mask, DROP_RATE),
+        twin=cuda_core_twin(q, k, v, key_bias=kb, seed=seed, rate=DROP_RATE)[0],
+        bit_identical=True, inputs=(q, k, v, kb, seed), outputs=(q,), flops=2 * product,
+        tol=REL_TOL)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, kb)]
     out = fused_attention_kbias_dropout(*leaves, seed, DROP_RATE)
     lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -939,6 +1097,7 @@ def train_kernel_cases(dev):
         wrong_plain=lambda: tuple(t for t in attention_bwd_plain(q, k, v, dob, key_bias=kb,
                                                                  mask=other) if t is not None),
         library=lambda: torch.autograd.grad(lib_out, lib_in, dob, retain_graph=True),
+        backend=sdpa_backend(q, k, v, sdpa_mask, DROP_RATE),
         twin=cuda_core_twin(q, k, v, dob, key_bias=kb, seed=seed, rate=DROP_RATE)[1],
         bit_identical=True, inputs=(q, k, v, kb, seed, dob), outputs=(q, k, v, kb),
         flops=5 * product, tol=BWD_REL_TOL)
@@ -993,6 +1152,9 @@ def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
         torch.cuda.empty_cache()
         res.update(timing(case, case["outputs"]), batch=batch)
         lib = "none" if res["library_ms"] is None else f"{res['library_ms']:.3f} ms"
+        if case.get("backend"):
+            res["library_backend"] = case["backend"]
+            lib += f" (SDPA {case['backend']})"
         log(f"kernel {name}: max_abs_err {res['max_abs_err']:.4e} max_rel_err "
             f"{res['max_rel_err'] if res['max_rel_err'] is None else round(res['max_rel_err'], 6)} "
             f"({res['tolerance']}) batch {batch}: kernel {res['ms']:.3f} ms plain "
@@ -1265,10 +1427,14 @@ def write_vocab(path: Path, size: int = 30522) -> str:
 # in; attention_tc.cu's bf16 forward and backward on the tensor cores first
 TC_BWD_GROUP = ("K12a / K12b / K13b bf16 backward on the tensor cores (attention_tc.cu)",
                 ("attn_tc_rows", "attn_tc_cols", "attn_tc_dkb", "attn_tc_dbias"))
-TC_FWD_GROUP = ("K7 bf16 forward on the tensor cores (attention_tc.cu)", ("attn_tc_forward",))
+TC_FWD_GROUP = ("K7 / K13a bf16 forward on the tensor cores (attention_tc.cu)",
+                ("attn_tc_forward",))
+TC32_GROUP = ("K12a f32 backward, 3xTF32 on the tensor cores (attention_tc32.cu)",
+              ("tc32_rows", "tc32_cols", "tc32_dkb"))
 STEP_GROUPS = (
     TC_BWD_GROUP,
     TC_FWD_GROUP,
+    TC32_GROUP,
     ("K13/K12 backward (attention_train.cu)", ("bwd_dq_kernel<", "bwd_dkv_kernel<",
                                                "rowdot_kernel<", "dkb_sum_kernel")),
     ("K13/K7 forward (attention_train.cu)", ("::fwd_kernel<",)),
@@ -1405,7 +1571,8 @@ def radbert_phase(dev, work: Path, card: str) -> dict:
     del model, trainer
     torch.cuda.empty_cache()
 
-    # the same step with attention dropout off runs K7 and K12, not K13
+    # the same step with attention dropout off runs K7 and K12a, not K13:
+    # one K12a f32 per layer, on attention_tc32.cu (3xTF32)
     cfg = RadBertConfig(vocab_size=tok.vocab_size, num_hidden_layers=2,
                         attention_dropout=0.0)
     model = RadBertClassifier(cfg, device=dev).init_weights(
@@ -1413,8 +1580,11 @@ def radbert_phase(dev, work: Path, card: str) -> dict:
     trainer = TextClassifierTrainer(model, tok, batch_size=32)
     loss, counts["radbert_dropout_off"], _ = drive(
         "radbert_dropout_off", lambda: trainer.train_step(batch, 2e-5, 0))
-    if not np.isfinite(loss.item()) or counts["radbert_dropout_off"]["attention_dropout"]:
-        raise AssertionError("radbert dropout-off step: bad loss or K13 launched")
+    off = counts["radbert_dropout_off"]
+    if not np.isfinite(loss.item()) or off["attention_dropout"] \
+            or (off["attention_bwd"], off["attention_tc32_bwd"]) != (2, 2):
+        raise AssertionError(f"radbert dropout-off step: loss {loss.item()}, launches {off}, "
+                             "want 2 K12a on attention_tc32.cu and no K13")
     # RadBERT is f32: nothing of it moves to the bf16 tensor-core kernels
     on_tc = {path: (c["attention_tc"], c["attention_tc_bwd"]) for path, c in counts.items()
              if c["attention_tc"] or c["attention_tc_bwd"]}
@@ -1473,64 +1643,114 @@ def small_reference_phase(dev, work: Path):
     return errs
 
 
+def tc32_planted_faults():
+    """name -> the K12a f32 wrapper (kernels.attention_tc32_bwd) broken on
+    purpose, which the tiny RadBERT step must catch: D_i forced to 0 (the
+    kernel's gradients plus the P D terms its omission adds), and the
+    plain-TF32 copy of the kernel."""
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    tc32 = K.attention_tc32_bwd
+
+    def no_rowsum(q, k, v, out, dout, lse, **kw):
+        dq, dk, dv, dkb = tc32(q, k, v, out, dout, lse, **kw)
+        kb = kw["key_bias"]
+        p = (q @ k.transpose(-1, -2) + kb[:, None, None, :] - lse[..., None]).exp()
+        extra = p * (dout * out).sum(-1, keepdim=True)  # dS with D_i = 0 is dS + P D
+        return (dq + extra @ k, dk + extra.transpose(-1, -2) @ q, dv,
+                None if dkb is None else dkb + extra.sum(dim=(1, 2)))
+    return {"K12a f32 with D_i forced to 0": no_rowsum,
+            "K12a f32 in plain TF32 (hi hi alone)": plain_tf32_bwd()}
+
+
 def radbert_reference_phase(dev, work: Path) -> dict:
     """One training step of a tiny RadBERT (2 layers, width 128, 2 heads of
     64, both dropouts 0, batch 8 x 512 tokens) from the same weights on the
-    card (K7 f32, K12) and on the CPU (plain versions), both f32.  They sum
-    in other orders: logits and loss within 1e-5 relative, each parameter's
-    gradient within 1e-4 of its largest entry, the updated weights within
-    1e-5.  The key biases' gradient is zero in exact arithmetic (softmax is
-    shift invariant), so both sides hold rounding noise there, which Adam
-    turns into steps of up to lr: they are held to that bound."""
+    card (K7 f32, K12a f32 on attention_tc32.cu, asserted) and on the CPU
+    (plain versions), both f32.  They sum in other orders: logits and loss
+    within 1e-5 relative, each parameter's gradient within 1e-4 of its
+    largest entry, the updated weights within 1e-5.  The key biases'
+    gradient is zero in exact arithmetic (softmax is shift invariant), so
+    both sides hold rounding noise there, which Adam turns into steps of up
+    to lr: they are held to that bound.  Then the card step again with each
+    of `tc32_planted_faults`, which must fall outside these limits."""
     import torch
 
     from ct_clip_tpu_torch.config import RadBertConfig
     from ct_clip_tpu_torch.data import WordPieceTokenizer
     from ct_clip_tpu_torch.models import RadBertClassifier
+    from ct_clip_tpu_torch.ops import kernels as K
     from ct_clip_tpu_torch.train import ReportClassificationDataset, TextClassifierTrainer
 
     tok = WordPieceTokenizer(str(work / "radbert_vocab.txt"))
     cfg = RadBertConfig(vocab_size=tok.vocab_size, hidden_size=128, num_hidden_layers=2,
                         num_attention_heads=2, intermediate_size=256,
                         hidden_dropout=0.0, attention_dropout=0.0)
-    cpu = RadBertClassifier(cfg).init_weights(torch.Generator().manual_seed(5))
-    start = {k: v.clone() for k, v in cpu.state_dict().items()}
-    gpu = RadBertClassifier(cfg, device=dev)
-    gpu.load_state_dict(start)
+    start = {k: v.clone() for k, v in
+             RadBertClassifier(cfg).init_weights(torch.Generator().manual_seed(5))
+             .state_dict().items()}
     batch = next(ReportClassificationDataset(str(work / "reports_valid.csv")).batches(
         tok, 8, shuffle=False))
-    lr, out = 1e-3, {}
-    for name, model in (("cpu", cpu), ("gpu", gpu)):
+    lr = 1e-3
+
+    def side(device):
+        model = RadBertClassifier(cfg, device=device)
+        model.load_state_dict(start)
         tr = TextClassifierTrainer(model, tok, lr=lr, batch_size=8)
         with torch.no_grad():
             ids, mask = (torch.from_numpy(batch[k]).to(tr.device)
                          for k in ("input_ids", "attention_mask"))
             logits = model.eval()(ids, mask).cpu()
+        before = K.launch_counts()["attention_tc32_bwd"]
         loss = tr.train_step(batch, lr).item()
-        out[name] = dict(logits=logits, loss=loss,
-                         grads={n: p.grad.cpu() for n, p in model.named_parameters()},
-                         weights={k: v.cpu() for k, v in model.state_dict().items()})
-    c, g = out["cpu"], out["gpu"]
-    logit_rel = (g["logits"] - c["logits"]).abs().max().item() / c["logits"].abs().max().item()
-    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
-    grad_rel = weight_err = 0.0
-    for n in c["grads"]:
-        if n.endswith("attention.self.key.bias"):
-            step = (g["weights"][n] - start[n]).abs().max().item()
-            if step > 2 * lr:
-                raise AssertionError(f"radbert reference: {n} moved {step}")
-            continue
-        ref = c["grads"][n].abs().max().item()
-        if ref > 0:
-            grad_rel = max(grad_rel, (g["grads"][n] - c["grads"][n]).abs().max().item() / ref)
-        weight_err = max(weight_err, (g["weights"][n] - c["weights"][n]).abs().max().item())
-    res = dict(logits_rel=logit_rel, loss_rel=loss_rel, grad_rel=grad_rel,
-               weight_abs=weight_err)
-    log(f"reference: tiny RadBERT step card vs CPU: logits rel {logit_rel:.2e}, loss rel "
-        f"{loss_rel:.2e} (tol 1e-5), grads rel {grad_rel:.2e} (tol 1e-4), updated weights "
-        f"abs {weight_err:.2e} (tol 1e-5)")
-    if logit_rel > 1e-5 or loss_rel > 1e-5 or grad_rel > 1e-4 or weight_err > 1e-5:
-        raise AssertionError(f"tiny RadBERT card vs CPU disagree: {res}")
+        ran = K.launch_counts()["attention_tc32_bwd"] - before
+        if device.type == "cuda" and ran != cfg.num_hidden_layers:
+            raise AssertionError(f"tiny RadBERT: {ran} K12a f32 launches on attention_tc32.cu, "
+                                 f"want {cfg.num_hidden_layers}")
+        return dict(logits=logits, loss=loss,
+                    grads={n: p.grad.cpu() for n, p in model.named_parameters()},
+                    weights={k: v.cpu() for k, v in model.state_dict().items()})
+
+    def compare(c, g):
+        logit_rel = (g["logits"] - c["logits"]).abs().max().item() \
+            / c["logits"].abs().max().item()
+        loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+        grad_rel = weight_err = key_bias_step = 0.0
+        for n in c["grads"]:
+            if n.endswith("attention.self.key.bias"):
+                key_bias_step = max(key_bias_step,
+                                    (g["weights"][n] - start[n]).abs().max().item())
+                continue
+            ref = c["grads"][n].abs().max().item()
+            if ref > 0:
+                grad_rel = max(grad_rel,
+                               (g["grads"][n] - c["grads"][n]).abs().max().item() / ref)
+            weight_err = max(weight_err, (g["weights"][n] - c["weights"][n]).abs().max().item())
+        res = dict(logits_rel=logit_rel, loss_rel=loss_rel, grad_rel=grad_rel,
+                   weight_abs=weight_err, key_bias_step_over_lr=key_bias_step / lr)
+        limits = dict(logits_rel=1e-5, loss_rel=1e-5, grad_rel=1e-4, weight_abs=1e-5,
+                      key_bias_step_over_lr=2.0)
+        return res, [k for k, lim in limits.items() if res[k] > lim]
+
+    c = side(torch.device("cpu"))
+    res, failures = compare(c, side(dev))
+    log(f"reference: tiny RadBERT step card vs CPU: logits rel {res['logits_rel']:.2e}, loss "
+        f"rel {res['loss_rel']:.2e} (tol 1e-5), grads rel {res['grad_rel']:.2e} (tol 1e-4), "
+        f"updated weights abs {res['weight_abs']:.2e} (tol 1e-5), key bias step "
+        f"{res['key_bias_step_over_lr']:.3f} lr (tol 2)")
+    if failures:
+        raise AssertionError(f"tiny RadBERT card vs CPU disagree on {failures}: {res}")
+    res["faults"] = {}
+    for name, broken in tc32_planted_faults().items():
+        with replaced(K, "attention_tc32_bwd", broken):
+            fres, ffail = compare(c, side(dev))
+        log(f"reference: tiny RadBERT step, planted fault '{name}': grads rel "
+            f"{fres['grad_rel']:.2e}, updated weights abs {fres['weight_abs']:.2e}, logits rel "
+            f"{fres['logits_rel']:.2e}, loss rel {fres['loss_rel']:.2e}; outside {ffail}")
+        if not ffail:
+            raise AssertionError(f"tiny RadBERT: planted fault '{name}' passes the limits: "
+                                 f"{fres}")
+        res["faults"][name] = dict(outside=ffail, **fres)
     return res
 
 
@@ -1551,7 +1771,7 @@ CTCLIP_GROUPS = (
     ("forward products K1-K3 (gemm_kernel) and LN (ln_kernel)", ("gemm_kernel<",
                                                                  "ln_kernel")),
     ("K1/K2 attention core forward (attention_kernel)", ("attention_kernel",)),
-    ("K13a bf16 CXR-BERT forward (attention_train.cu)", ("fwd_kernel<",)),
+    ("CUDA-core attention forward (attention_train.cu)", ("fwd_kernel<",)),
     ("CUDA-core attention backward (attention_train.cu)", ("bwd_dq_kernel", "bwd_dkv_kernel",
                                                            "rowdot_kernel", "dkb_sum")),
     ("cuDNN depthwise conv (PEG forward and dx)", ("conv", "cudnn", "depthwise")),
@@ -1641,13 +1861,17 @@ def ctclip_train_phase(dev, work: Path, card: str, corpus) -> dict:
     if len(losses) != 4 or not np.isfinite(losses).all() or len(evals) != 1 \
             or ckpts != ["step_4.pt"] or not (results / "mini_eval_step4.csv").exists():
         raise AssertionError(f"ctclip train: losses {losses}, evals {evals}, ckpts {ckpts}")
-    # per step, the text tower's 12 layers: K13a on attention_train.cu, K13b
-    # on the tensor cores
+    # per step, the text tower's 12 layers: K13a and K13b on the tensor
+    # cores; every attention forward of the run (K13a, the mini evaluation's
+    # K7) on attention_tc.cu, none on attention_train.cu
     k13 = {k: counts[k] / 4 for k in ("attention_dropout", "attention_dropout_bwd",
                                       "attention_tc_bwd")}
-    log(f"ctclip train: K13 launches per step {k13}")
-    if any(v != BERT_LAYERS for v in k13.values()):
-        raise AssertionError(f"ctclip train: K13 launches per step {k13}, want {BERT_LAYERS}")
+    off_tc = counts["attention_dropout"] + counts["fused_attention"] - counts["attention_tc"]
+    log(f"ctclip train: K13 launches per step {k13}; attention forwards not on the tensor "
+        f"cores {off_tc}")
+    if any(v != BERT_LAYERS for v in k13.values()) or off_tc:
+        raise AssertionError(f"ctclip train: K13 launches per step {k13}, want {BERT_LAYERS}; "
+                             f"{off_tc} forwards off the tensor cores")
     shutil.rmtree(results / "checkpoints")
 
     batch = next(trainer._batches())
@@ -1940,8 +2164,6 @@ def card_vs_cpu(dev, side, start: dict, lr: float, faults, label: str,
     """`side(device, dtype)` on the CPU in bf16 and f32 and on the card in
     bf16, held by `compare_tiny_steps`; then the card side again with each
     planted fault, which must fail.  Returns (readings, the card side)."""
-    import contextlib
-
     import torch
 
     bf, cpu_dev = torch.bfloat16, torch.device("cpu")
@@ -1955,10 +2177,7 @@ def card_vs_cpu(dev, side, start: dict, lr: float, faults, label: str,
                              f"{failures}: {res}")
     res.update(metrics_gpu=gp["metrics"], metrics_cpu=c["metrics"], faults={})
     for name, (module, attr, broken) in faults.items():
-        original = getattr(module, attr)
-        with contextlib.ExitStack() as undo:
-            setattr(module, attr, broken)
-            undo.callback(setattr, module, attr, original)
+        with replaced(module, attr, broken):
             fres, ffail = compare_tiny_steps(c, c32, side(dev, bf), start, lr, **held)
         _log_tiny(f"{label}, planted fault: {name}", fres, ffail)
         if not ffail:
@@ -2113,7 +2332,9 @@ def aux_train_phase(dev, work: Path, card: str, corpus, base_counts) -> dict:
         k13_rate = counts["attention_dropout"] / steps
         k13 = (2 if cfg.use_mlm else 1) * BERT_LAYERS * steps
         want = dict(patch_embed_bwd=2 * steps, rearrange_patches=steps, attention_dropout=k13,
-                    attention_dropout_bwd=k13, attention_tc_bwd=k13)
+                    attention_dropout_bwd=k13, attention_tc_bwd=k13,
+                    # every forward (K13a, the mini evaluation's K7) on the tensor cores
+                    attention_tc=k13 + counts["fused_attention"])
         log(f"{name}: {steps} steps of {AUX_B} at full width in {secs:.1f} s (host clock: "
             f"build, ingest, evaluation and checkpoint included); losses {losses}; grad norms "
             f"{[round(r['grad_norm'], 4) for r in recs if 'loss' in r]}; mini-eval mean AUC "
@@ -2993,6 +3214,7 @@ def main() -> int:
     results = kernel_phase(dev)
     results.update(train_attention_phase(dev))
     results.update(train_kernel_phase(dev))
+    results["attention_dropout_bf16"].update(k13a_bf16_checks(dev))
     work_root = ROOT / "build" / "chip_smoke"
     work_root.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=work_root))

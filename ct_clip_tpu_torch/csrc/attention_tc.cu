@@ -1,13 +1,18 @@
 // attention_tc.cu — bf16 attention at head dim 64 on the Hopper tensor cores:
-// the forward with no bias, a per-key bias or a dense bias, and the backward
-// with a dense bias, a per-key bias (with or without dropout) or none.  Every
+// the forward with no bias, a per-key bias (with or without dropout) or a
+// dense bias, and the backward with a dense bias, a per-key bias (with or
+// without dropout) or none.  Every
 // product is a `wgmma` (sm_90a) with bf16 operands and f32 accumulators;
 // tiles reach shared memory through cp.async issued by one producer warp
 // into a two-stage ring of mbarriers.
 //
 // Replaces these TPU kernels of ct_clip_tpu/ops/pallas/attention.py, bf16:
 //   * _pallas_attention (K7, :129; pallas_call :143 key bias, :149 no bias,
-//     :157 dense (1, 1|h, n, n) bias): softmax(q k^T + bias) v -> attn_tc_forward;
+//     :157 dense (1, 1|h, n, n) bias): softmax(q k^T + bias) v
+//     -> attn_tc_forward<false>;
+//   * _pallas_attention_kbias_drop_impl (K13a, :474; pallas_call :490, body
+//     _kernel_kbias_drop :411-427): the key-bias form with K13's dropout mask
+//     on the probabilities -> attn_tc_forward<true>;
 //   * _pallas_attention_bwd (K12b, :301; pallas_call :318): dq, dk, dv and dbias
 //     summed over the batch (and the heads for a one-head bias)
 //     -> attn_tc_rows, attn_tc_cols, attn_tc_dbias.  The same kernels with no
@@ -18,7 +23,7 @@
 //     _pallas_attention_kbias_drop_bwd (K13b, :499; pallas_call :516): dq,
 //     dk, dv and dkey_bias (b, n), summed over the heads in order and over
 //     the query rows, for a per-key (b, n) f32 bias; K13b regenerates the
-//     dropout mask of K13a's forward (attention_train.cu) in the kernel
+//     dropout mask of K13a's forward in the kernel
 //     -> attn_tc_rows, attn_tc_cols, attn_tc_dkb.
 // The TPU kernels feed bf16 operands to the MXU and accumulate in f32
 // (ops/pallas/_call.py:50-61).  They round at the same points as this file:
@@ -27,7 +32,13 @@
 // casts dS (:193) and P (:203) to bf16 for its three products.  K12a and
 // K13b likewise: dA = dP M (M the scaled mask, 1 without dropout), D_i =
 // sum_j P_ij dA_ij from the f32 P (:247, :450), dS = P (dA - D) and P M cast
-// to bf16 (:249 and :259, :452 and :462).
+// to bf16 (:249 and :259, :452 and :462).  One rounding point differs, in
+// every forward form: the TPU kernel normalises P before the mask and the
+// bf16 cast (:95; K13a :419-422); the online softmax here rounds the
+// un-normalised exp(s - m) M to bf16 and divides O by the row sum at the
+// end, so P's bf16 rounding lands on another scale (both ~2^-9 relative).
+// K13a's row sum l runs over every key, kept or not, and lse = m + log l
+// stays the residual K13b reads.
 //
 // What bounds it on the H100.  The forward at the zero-shot prompts' (36, 12,
 // 512, 64) moves 113 MB of q, k, v and out (0.034 ms at 3.35 TB/s) and runs
@@ -111,9 +122,11 @@
 //     its quad) into each (b, h)'s dkey_bias share, a (b, h, n) scratch that
 //     attn_tc_dkb adds over the heads in order.  No atomics anywhere: dq, dk,
 //     dv, dbias and dkey_bias are bit-identical from run to run.
-//   * Dropout (K13b) regenerates the Philox bits of K13a's forward
-//     (common.cuh; the counter (b, h, i, j / 4), word j % 4): the mask never
-//     exists in device memory.  Row pass: lanes t and t ^ 1 hold the four
+//   * Dropout draws K13's Philox bits (common.cuh; the counter (b, h, i,
+//     j / 4), word j % 4) in K13a's forward and regenerates them in K13b's
+//     backward: the mask never exists in device memory.  The forward's S
+//     accumulator has the row pass's layout, so both draw the same way.
+//     Forward and row pass: lanes t and t ^ 1 hold the four
 //     keys of one j / 4 group in each of their two rows, so each lane draws
 //     the group for one row and trades the other row's half with a shuffle,
 //     one call per four elements, drawn while the tile's products run.
@@ -384,17 +397,53 @@ __device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, u
   __syncthreads();
 }
 
+// ------------------------------------------------------------ K13's mask
+// Keep bits of this thread's 32 accumulator elements of the (query i0 + rl,
+// + 8) x (keys j0..j0 + 63) tile: bit e set iff element e is kept.  Lanes t
+// and t ^ 1 hold keys 8c + {0..3} (q4 = 0, 1) or 8c + {4..7} (q4 = 2, 3),
+// one j / 4 group, in both rows: the even lane draws the group for the
+// first row, the odd lane for the second, and each trades the half the
+// other holds.  Every lane of the warp takes part (the shuffles).
+__device__ __forceinline__ uint32_t row_keep_bits(int b, int h, int i, int j0, int q4,
+                                                  uint32_t k0, uint32_t k1, uint32_t thresh) {
+  const int odd = q4 & 1;
+  uint32_t bits = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const U4 w = philox(b, h, i + 8 * odd, (j0 >> 2) + 2 * c + (q4 >> 1), k0, k1);
+    // this lane's keys are words 0, 1 (even) or 2, 3 (odd) of the group
+    const uint32_t own = (uint32_t)((odd ? w.w[2] : w.w[0]) >= thresh)
+                       | (uint32_t)((odd ? w.w[3] : w.w[1]) >= thresh) << 1;
+    const uint32_t sent0 = __shfl_xor_sync(0xffffffffu, odd ? w.w[0] : w.w[2], 1);
+    const uint32_t sent1 = __shfl_xor_sync(0xffffffffu, odd ? w.w[1] : w.w[3], 1);
+    const uint32_t other = (uint32_t)(sent0 >= thresh) | (uint32_t)(sent1 >= thresh) << 1;
+    // element 4 c + 2 hi + {0, 1}: hi 0 the first row, hi 1 the second
+    bits |= (odd ? (other | own << 2) : (own | other << 2)) << (4 * c);
+  }
+  return bits;
+}
+
+// x M of accumulator element e (dA = dP M, or the forward's P M): M is
+// keep_scale where bit e of `kept` is set, else 0; without DROP, x
+template <bool DROP>
+__device__ __forceinline__ float masked(float dp, uint32_t kept, int e, float keep_scale) {
+  if (!DROP) return dp;
+  return dp * ((kept >> e) & 1 ? keep_scale : 0.0f);
+}
+
 // ---------------------------------------------------------------- forward
 // One CTA per (64-query tile, b * h), three to an SM where shared memory
 // allows (no bias or a key bias: 45 KB; a dense bias: 81 KB, two): the
 // consumer warpgroup's softmax runs between its own products, so the SM
 // overlaps them across CTAs.  Shared memory: Q, then STAGES x [K | V | bias
-// tile (dense) | key bias (64 floats)].
+// tile (dense) | key bias (64 floats)].  DROP: K13a, a key bias with K13's
+// mask on the probabilities (compiled alone, so K7's forms carry none of it).
+template <bool DROP>
 __global__ void __launch_bounds__(NT, 3) attn_tc_forward(Args a) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], qbar;
   uint8_t* sq = align1024(smem_raw);
-  const bool dense = a.bias != nullptr, kbias = a.key_bias != nullptr;
+  const bool dense = !DROP && a.bias != nullptr, kbias = DROP || a.key_bias != nullptr;
   const int stage = fwd_stage(dense);
   const int i0 = blockIdx.x * TILE, bh = blockIdx.y, b = bh / a.H, h = bh % a.H, n = a.n;
   const int tiles = (n + TILE - 1) / TILE;
@@ -427,6 +476,8 @@ __global__ void __launch_bounds__(NT, 3) attn_tc_forward(Args a) {
 #pragma unroll
   for (int e = 0; e < 32; ++e) o[e] = s_[e] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  uint32_t k0 = 0, k1 = 0;
+  if (DROP) seed_key(a.seed, a.thresh, k0, k1);
   uint32_t pa[4][4];
   const uint32_t qa = saddr(sq);
   bar_wait(&qbar, 0);
@@ -442,6 +493,9 @@ __global__ void __launch_bounds__(NT, 3) attn_tc_forward(Args a) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) mma_ss(s_, desc(qa + 32 * kk), desc(ka + 32 * kk), kk);
     wg_commit();
+    // the tile's keep bits, drawn while the product runs
+    uint32_t kept = 0;
+    if (DROP) kept = row_keep_bits(b, h, i0 + rl, j0, q4, k0, k1, a.thresh);
     wg_wait();
     hold(s_);
 
@@ -471,8 +525,8 @@ __global__ void __launch_bounds__(NT, 3) attn_tc_forward(Args a) {
     for (int e = 0; e < 32; ++e) {
       const int hi = acc_hi(e);
       const float p = fexp2((s_[e] - m[hi]) * LOG2E);
-      l[hi] += p;
-      s_[e] = p;
+      l[hi] += p;  // the softmax's sum runs over every key, kept or not
+      s_[e] = masked<DROP>(p, kept, e, a.keep_scale);
       o[e] *= corr[hi];
     }
     to_a(s_, pa);
@@ -508,39 +562,6 @@ __global__ void __launch_bounds__(NT, 3) attn_tc_forward(Args a) {
 // times log2(e) would overflow to -inf.
 __device__ __forceinline__ float prob(float s, float bias, float lse, bool ok) {
   return ok ? fexp2((s + bias - lse) * LOG2E) : 0.0f;
-}
-
-// Keep bits of this thread's 32 accumulator elements of the (query i0 + rl,
-// + 8) x (keys j0..j0 + 63) tile: bit e set iff element e is kept.  Lanes t
-// and t ^ 1 hold keys 8c + {0..3} (q4 = 0, 1) or 8c + {4..7} (q4 = 2, 3),
-// one j / 4 group, in both rows: the even lane draws the group for the
-// first row, the odd lane for the second, and each trades the half the
-// other holds.  Every lane of the warp takes part (the shuffles).
-__device__ __forceinline__ uint32_t row_keep_bits(int b, int h, int i, int j0, int q4,
-                                                  uint32_t k0, uint32_t k1, uint32_t thresh) {
-  const int odd = q4 & 1;
-  uint32_t bits = 0;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const U4 w = philox(b, h, i + 8 * odd, (j0 >> 2) + 2 * c + (q4 >> 1), k0, k1);
-    // this lane's keys are words 0, 1 (even) or 2, 3 (odd) of the group
-    const uint32_t own = (uint32_t)((odd ? w.w[2] : w.w[0]) >= thresh)
-                       | (uint32_t)((odd ? w.w[3] : w.w[1]) >= thresh) << 1;
-    const uint32_t sent0 = __shfl_xor_sync(0xffffffffu, odd ? w.w[0] : w.w[2], 1);
-    const uint32_t sent1 = __shfl_xor_sync(0xffffffffu, odd ? w.w[1] : w.w[3], 1);
-    const uint32_t other = (uint32_t)(sent0 >= thresh) | (uint32_t)(sent1 >= thresh) << 1;
-    // element 4 c + 2 hi + {0, 1}: hi 0 the first row, hi 1 the second
-    bits |= (odd ? (other | own << 2) : (own | other << 2)) << (4 * c);
-  }
-  return bits;
-}
-
-// dA = dP M of accumulator element e: M is keep_scale where bit e of `kept`
-// is set, else 0; without DROP, dP
-template <bool DROP>
-__device__ __forceinline__ float masked(float dp, uint32_t kept, int e, float keep_scale) {
-  if (!DROP) return dp;
-  return dp * ((kept >> e) & 1 ? keep_scale : 0.0f);
 }
 
 // Row pass: one CTA per (64-query tile, b * h).  Shared memory: Q, dO, then
@@ -894,15 +915,17 @@ bool shape_ok(int B, int H, int n, const void* bias, int bias_heads) {
 // q, k, v, out: (b, h, n, 64) bf16 views with (batch, head, token) element
 // strides in `strides` (4 views x 3), each a multiple of 8, bases 16-byte
 // aligned; key_bias (b, n) f32 or null; bias (bias_heads, n, n) f32 or null
-// (not both); lse (b, h, n) f32 out.
+// (not both); lse (b, h, n) f32 out; seed (1,) int64 in device memory,
+// thresh and keep_scale K13a's dropout mask (thresh 0: none; a key bias only).
 CT_EXPORT int ct_attn_tc_fwd(const void* q, const void* k, const void* v, void* out,
                              const long long* strides, const void* key_bias, const void* bias,
-                             int bias_heads, void* lse, int B, int H, int n, void* stream) {
+                             int bias_heads, void* lse, const void* seed, unsigned int thresh,
+                             float keep_scale, int B, int H, int n, void* stream) {
   Args a = {};
   View* const views[4] = {&a.vq, &a.vk, &a.vv, &a.vo};
   if (!shape_ok(B, H, n, bias, bias_heads) || (key_bias && bias) || !lse
-      || !make_views(strides, views, 4) || !aligned16(q) || !aligned16(k) || !aligned16(v)
-      || !aligned16(out))
+      || (thresh && (!seed || !key_bias)) || !make_views(strides, views, 4) || !aligned16(q)
+      || !aligned16(k) || !aligned16(v) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
   a.q = static_cast<const bf16*>(q); a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v); a.out = static_cast<bf16*>(out);
@@ -910,9 +933,13 @@ CT_EXPORT int ct_attn_tc_fwd(const void* q, const void* k, const void* v, void* 
   a.bias = static_cast<const float*>(bias);
   a.bias_heads = bias_heads;
   a.lse = static_cast<float*>(lse);
+  a.seed = static_cast<const long long*>(seed);
+  a.thresh = thresh;
+  a.keep_scale = keep_scale;
   a.B = B; a.H = H; a.n = n;
   const size_t smem = 1024 + TILE_BYTES + STAGES * fwd_stage(bias != nullptr);
-  return (int)launch(attn_tc_forward, dim3((n + TILE - 1) / TILE, B * H), smem,
+  return (int)launch(thresh ? attn_tc_forward<true> : attn_tc_forward<false>,
+                     dim3((n + TILE - 1) / TILE, B * H), smem,
                      static_cast<cudaStream_t>(stream), a);
 }
 

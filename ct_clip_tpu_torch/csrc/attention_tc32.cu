@@ -1,0 +1,544 @@
+// attention_tc32.cu — the f32 key-bias attention backward at head dim 64 on
+// the Hopper tensor cores, each product as three TF32 products (3xTF32).
+//
+// Replaces _pallas_attention_bwd_kbias (K12a) of
+// ct_clip_tpu/ops/pallas/attention.py (:271; pallas_call :286, body
+// _bwd_kernel_kbias :228-268) in f32: dq, dk, dv and dkey_bias (b, n), the
+// last summed over the heads in order and over the query rows, of
+// softmax(q k^T + key_bias) v.  RadBERT (f32, attention dropout 0) runs it at
+// (32, 12, 512, 64).  The TPU runs these f32 products at Precision.HIGHEST
+// (ops/pallas/_call.py:50-61), several bf16 passes on its matrix unit;
+// 3xTF32 is the H100's counterpart: each f32 operand x splits into hi =
+// tf32(x) (round to nearest, ties away, 10 mantissa bits) and lo = x - hi
+// (read as TF32, truncated), and A B ~ hi hi + hi lo + lo hi, accumulated in
+// f32 (lo lo, ~2^-22 of the product, is dropped).  Everything else stays f32: P, dP, dS, the
+// softmax (libm expf) and the sums.  Built with CT_TC32_PASSES=1 the file
+// runs hi hi alone, plain TF32: the copy the card checks hold it against to
+// show that the tolerance tells the two apart.
+//
+// What bounds it on the H100.  At (32, 12, 512, 64) the function moves 352
+// MB of q, k, v, dO, dq, dk, dv (0.105 ms at 3.35 TB/s) and runs five
+// products of 12.88 GFLOP, 193 GFLOP as TF32 (0.390 ms at 495 TFLOP/s), so
+// the tensor cores bound it; on the f32 CUDA cores the same five products
+// take 0.962 ms at 67 TFLOP/s.  The layout below runs seven (S and dP twice),
+// 270 GFLOP of TF32 (0.546 ms), plus the split: 3 ALU operations per operand
+// element read, and every warp splits the whole K/V (Q/dO) tile it reads.
+// Measured (tools/port_attention_tc_probe.py, kernel-only, NVIDIA H100 80GB
+// HBM3 at 700 W): see PERF.md; mma.sync at m16n8k8 reaches well under the
+// TF32 peak, and the split's ALU work competes with it for issue slots.
+//
+// Design, FA2's deterministic shape as in attention_tc.cu:
+//   * D_i = sum_c dO_ic O_ic from the forward's f32 output (K7 f32 stays
+//     true f32 on the CUDA cores), summed by the row pass before its sweep:
+//     one sweep over the key tiles, not two.
+//   * Row pass (one CTA per 64-query tile and (b, h)): S = Q K^T, dP =
+//     dO V^T, P = exp(S + key_bias - lse), dS = P (dP - D), dq += dS K.
+//     Column pass (one CTA per 64-key tile and (b, h)): S^T = K Q^T, dP^T =
+//     V dO^T, dv += P^T dO, dk += dS^T Q, and the row sums of dS^T, this
+//     head's share of dkey_bias, into a (b, h, n) scratch that tc32_dkb adds
+//     over the heads in order.  No atomics: every output is bit-identical
+//     from run to run.
+//   * A CTA is 4 warps, 16 rows each.  Products are mma.sync m16n8k8 TF32
+//     with f32 accumulators (`wgmma` takes TF32 operands only K-major from
+//     shared memory, and dq, dk, dv contract over tokens).  Tiles arrive raw
+//     in f32 through cp.async (all threads, two stages for the streamed
+//     tiles), rows padded to 68 floats, and each fragment is split in
+//     registers as it is read: every read pattern below hits 32 distinct
+//     banks, and a transposed operand is only another index.
+//   * dS (and P) go from the accumulators into the next product's A operand
+//     with no shuffle: an m16n8 accumulator holds columns 2t and 2t + 1 of
+//     its rows (t = lane % 4) where an A operand holds columns t and t + 4,
+//     so the contraction index is permuted, logical t <-> token 2t and t + 4
+//     <-> 2t + 1, in A and in B alike (the sum is the same in any order).
+// Forms are compile-time (KBIAS: the per-key bias of K12a), so dropout (K13b
+// f32) and a dense bias (K12b f32) are further instantiations of the passes.
+#include "common.cuh"
+
+#ifndef CT_TC32_PASSES
+#define CT_TC32_PASSES 3  // 3: hi hi + hi lo + lo hi; 1: hi hi alone (plain TF32)
+#endif
+
+namespace {
+
+constexpr int TILE = 64;                  // query or key rows per tile
+constexpr int LD = 68;                    // floats per staged row (64 + 4)
+constexpr int TILE_FLOATS = TILE * LD;
+constexpr int NT = 128;                   // 4 warps of 16 rows
+
+// Element strides (batch, head, token) of one (b, h, n, 64) view.
+struct View { long long sb, sh, st; };
+
+__device__ __forceinline__ size_t at(const View& v, int b, int h, int t) {
+  return (size_t)b * v.sb + (size_t)h * v.sh + (size_t)t * v.st;
+}
+
+struct Args {
+  const float *q, *k, *v, *out, *dout;
+  float *dq, *dk, *dv;
+  View vq, vk, vv, vo, vdo, vdq, vdk, vdv;
+  const float* key_bias;    // (b, n)
+  const float* lse;         // (b, h, n) from the forward
+  float* rowsum;            // (b, h, n) D_i: written by the row pass, read by the columns
+  float* dkb_head;          // (b, h, n) each head's share of dkey_bias, or null
+  float* dkb;               // (b, n) dkey_bias, or null
+  int B, H, n;
+};
+
+// ------------------------------------------------------------- PTX helpers
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; bytes past `src_bytes` are zero
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most `pending` of this thread's groups are in flight
+template <int pending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending) : "memory");
+}
+
+// x = hi + lo as TF32 operands: hi is x rounded to 10 mantissa bits, to
+// nearest with ties away from zero (cvt.rna.tf32.f32's result, in two
+// integer operations: cvt runs on the conversion unit at a fraction of their
+// rate, and two per element cost the kernel ~25% on the card); lo = x - hi
+// is exact in f32, and the tensor core reads a TF32 operand from the top 19
+// bits of its register, so lo enters truncated (|error| < 2^-22 |x|, the
+// order of the lo lo term 3xTF32 drops).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = CT_TC32_PASSES == 3 ? __float_as_uint(x - __uint_as_float(hi)) : 0u;
+}
+
+// d += A B: m16 n8 k8, TF32 operands, f32 accumulators
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += A B in 3xTF32, the small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  if (CT_TC32_PASSES == 3) {
+    mma(d, al, bh);
+    mma(d, ah, bl);
+  }
+  mma(d, ah, bh);
+}
+
+// ---------------------------------------------------------- fragments
+// Lane = 4 g + t.  A (m16 x k8) holds (g, t), (g + 8, t), (g, t + 4), (g + 8,
+// t + 4); B (k8 x n8) holds (t, g), (t + 4, g); an accumulator (m16 x n8)
+// holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+
+// A from rows r0.. of a staged tile, columns 8 kk..: Q of S = Q K^T
+__device__ __forceinline__ void frag_a(const float* s, int r0, int kk, int g, int t,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float* p = s + (r0 + g) * LD + 8 * kk + t;
+  const float x[4] = {p[0], p[8 * LD], p[4], p[8 * LD + 4]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(x[i], hi[i], lo[i]);
+}
+
+// A from the accumulator block c (columns 8 kk..) in the permuted order
+__device__ __forceinline__ void frag_acc(const float (&c)[4], uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  const float x[4] = {c[0], c[2], c[1], c[3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(x[i], hi[i], lo[i]);
+}
+
+// B[k][n] = T[8 nb + n][8 kk + k] of a staged tile T: K of S = Q K^T
+__device__ __forceinline__ void frag_bt(const float* s, int nb, int kk, int g, int t,
+                                        uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const float* p = s + (8 * nb + g) * LD + 8 * kk + t;
+  split(p[0], hi[0], lo[0]);
+  split(p[4], hi[1], lo[1]);
+}
+
+// B[k][n] = T[8 kk + k][8 nb + n] with k in the accumulator's permuted
+// order (logical t is row 2t, t + 4 row 2t + 1): K of dq = dS K
+__device__ __forceinline__ void frag_bn(const float* s, int nb, int kk, int g, int t,
+                                        uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const float* p = s + (8 * kk + 2 * t) * LD + 8 * nb + g;
+  split(p[0], hi[0], lo[0]);
+  split(p[LD], hi[1], lo[1]);
+}
+
+// A tensor-core accumulator loses precision at every mma (its f32 sum is
+// not rounded as an FMA chain's is), relative to the running sum: over a
+// 512-token contraction (64 chunks x 3 products) that drift reached 1.1e-5
+// of max|dk| on the card.
+// So each 64-token tile's share of dq, dk, dv sums in an accumulator of its
+// own (8 chunks x 3 products), added to the running sum in f32 here.
+__device__ __forceinline__ void flush(float (&sum)[8][4], const float (&part)[8][4]) {
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[nb][e] += part[nb][e];
+}
+
+// sum += A T over one 64-token tile: A the accumulator tile `a` (rows x
+// tokens) in the permuted order, T the staged (token, 64) tile
+__device__ __forceinline__ void tile_product(float (&sum)[8][4], const float (&a)[8][4],
+                                             const float* T, int g, int t) {
+  float part[8][4];
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[nb][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {  // over the tokens
+    uint32_t ah[4], al[4];
+    frag_acc(a[kk], ah, al);
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {  // over the head dim
+      uint32_t bh[2], bl[2];
+      frag_bn(T, nb, kk, g, t, bh, bl);
+      mma3(part[nb], ah, al, bh, bl);
+    }
+  }
+  flush(sum, part);
+}
+
+// --------------------------------------------------------------- loads
+// rows [r0, r0 + 64) x 64 f32 of a (token, 64) view at `base` (token stride
+// st) -> dst (LD floats per row); rows at n and beyond are zero
+__device__ __forceinline__ void load_tile(float* dst, const float* base, long long st, int r0,
+                                          int n) {
+  const uint32_t d = saddr(dst);
+#pragma unroll 4
+  for (int e = threadIdx.x; e < TILE * 16; e += NT) {
+    const int r = e >> 4, c = e & 15, tok = r0 + r;
+    const bool ok = tok < n;
+    cp16(d + (r * LD + 4 * c) * 4, base + (ok ? (long long)tok * st : 0) + 4 * c, ok ? 16 : 0);
+  }
+}
+
+// v[t0 + e], e < 64, -> dst; zero past n
+__device__ __forceinline__ void load_vec(float* dst, const float* v, int t0, int n) {
+  if (threadIdx.x < TILE) {
+    const int t = t0 + threadIdx.x;
+    cp4(saddr(dst + threadIdx.x), v + (t < n ? t : 0), t < n ? 4 : 0);
+  }
+}
+
+__device__ __forceinline__ float sum4(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// P of one score: exp(s + bias - lse), 0 outside the (n, n) square.  The
+// difference is taken first: an f32-min pad bias gives exp(-3.4e38) = 0.
+__device__ __forceinline__ float prob(float s, float bias, float lse, bool ok) {
+  return ok ? expf(s + bias - lse) : 0.0f;
+}
+
+// ---------------------------------------------------------------- row pass
+// Shared memory: Q, dO, then 2 x K, 2 x V, 2 x the key bias (64 floats), D.
+constexpr size_t ROWS_SMEM = (6 * TILE_FLOATS + 3 * TILE) * sizeof(float);
+
+template <bool KBIAS>
+__global__ void __launch_bounds__(NT, 2) tc32_rows(Args a) {
+  extern __shared__ __align__(16) float sm[];
+  float* sq = sm;
+  float* sdo = sq + TILE_FLOATS;
+  float* sk = sdo + TILE_FLOATS;         // stage s at sk + s * TILE_FLOATS
+  float* sv = sk + 2 * TILE_FLOATS;
+  float* skb = sv + 2 * TILE_FLOATS;     // stage s at skb + s * TILE
+  float* sD = skb + 2 * TILE;
+  const int i0 = blockIdx.x * TILE, bh = blockIdx.y, b = bh / a.H, h = bh % a.H, n = a.n;
+  const int tiles = (n + TILE - 1) / TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;  // this warp's rows; a thread's are r0 + g and + 8
+
+  auto stage = [&](int tile) {
+    const int s = tile & 1, j0 = tile * TILE;
+    load_tile(sk + s * TILE_FLOATS, a.k + at(a.vk, b, h, 0), a.vk.st, j0, n);
+    load_tile(sv + s * TILE_FLOATS, a.v + at(a.vv, b, h, 0), a.vv.st, j0, n);
+    if (KBIAS) load_vec(skb + s * TILE, a.key_bias + (size_t)b * n, j0, n);
+  };
+  load_tile(sq, a.q + at(a.vq, b, h, 0), a.vq.st, i0, n);
+  load_tile(sdo, a.dout + at(a.vdo, b, h, 0), a.vdo.st, i0, n);
+  stage(0);
+  cp_commit();
+
+  {  // D_i = sum_c dO_ic O_ic from the forward's f32 output, two threads a row
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1, i = i0 + r;
+    float d = 0.0f;
+    if (i < n) {
+      const float4* o = reinterpret_cast<const float4*>(a.out + at(a.vo, b, h, i) + 32 * half);
+      const float4* go = reinterpret_cast<const float4*>(a.dout + at(a.vdo, b, h, i) + 32 * half);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float4 x = o[c], y = go[c];
+        d = fmaf(x.x, y.x, d);
+        d = fmaf(x.y, y.y, d);
+        d = fmaf(x.z, y.z, d);
+        d = fmaf(x.w, y.w, d);
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (!half) {
+      sD[r] = d;
+      if (i < n) a.rowsum[(size_t)bh * n + i] = d;
+    }
+  }
+  float lse[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) lse[hi] = a.lse[(size_t)bh * n + min(i0 + r0 + g + 8 * hi, n - 1)];
+
+  float dq[8][4];
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[nb][e] = 0.0f;
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile + 1 < tiles) {
+      stage(tile + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int j0 = tile * TILE;
+    const float* K = sk + (tile & 1) * TILE_FLOATS;
+    const float* V = sv + (tile & 1) * TILE_FLOATS;
+    const float* kb = skb + (tile & 1) * TILE;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {  // over the head dim
+      uint32_t qh[4], ql[4], oh[4], ol[4];
+      frag_a(sq, r0, kk, g, t, qh, ql);
+      frag_a(sdo, r0, kk, g, t, oh, ol);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {  // over the keys
+        uint32_t bh_[2], bl[2];
+        frag_bt(K, nb, kk, g, t, bh_, bl);
+        mma3(s[nb], qh, ql, bh_, bl);
+        frag_bt(V, nb, kk, g, t, bh_, bl);
+        mma3(dp[nb], oh, ol, bh_, bl);
+      }
+    }
+    // dS = P (dP - D_i), f32
+    const float D[2] = {sD[r0 + g], sD[r0 + g + 8]};
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = e >> 1, col = 8 * nb + 2 * t + (e & 1);
+        const float p = prob(s[nb][e], KBIAS ? kb[col] : 0.0f, lse[hi], j0 + col < n);
+        s[nb][e] = p * (dp[nb][e] - D[hi]);
+      }
+    // dq += dS K, over the keys, the tile's share in its own accumulator
+    tile_product(dq, s, K, g, t);
+    __syncthreads();  // the next iteration's copies overwrite this stage
+  }
+
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int i = i0 + r0 + g + 8 * hi;
+    if (i >= n) continue;
+    float* o = a.dq + at(a.vdq, b, h, i);
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+      *reinterpret_cast<float2*>(o + 8 * nb + 2 * t) = make_float2(dq[nb][2 * hi], dq[nb][2 * hi + 1]);
+  }
+}
+
+// ------------------------------------------------------------- column pass
+// Shared memory: K, V, then 2 x Q, 2 x dO, 2 x [lse | D] (128 floats), the
+// CTA's key bias.  A thread's rows are keys, its columns queries.
+constexpr size_t COLS_SMEM = (6 * TILE_FLOATS + 5 * TILE) * sizeof(float);
+
+template <bool KBIAS>
+__global__ void __launch_bounds__(NT, 2) tc32_cols(Args a) {
+  extern __shared__ __align__(16) float sm[];
+  float* sk = sm;
+  float* sv = sk + TILE_FLOATS;
+  float* sq = sv + TILE_FLOATS;          // stage s at sq + s * TILE_FLOATS
+  float* sdo = sq + 2 * TILE_FLOATS;
+  float* svec = sdo + 2 * TILE_FLOATS;   // stage s: lse at svec + 2 s TILE, D after it
+  float* skb = svec + 4 * TILE;
+  const int j0 = blockIdx.x * TILE, bh = blockIdx.y, b = bh / a.H, h = bh % a.H, n = a.n;
+  const int tiles = (n + TILE - 1) / TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;  // this warp's keys: j0 + r0 + g and + 8
+
+  auto stage = [&](int tile) {
+    const int s = tile & 1, i0 = tile * TILE;
+    load_tile(sq + s * TILE_FLOATS, a.q + at(a.vq, b, h, 0), a.vq.st, i0, n);
+    load_tile(sdo + s * TILE_FLOATS, a.dout + at(a.vdo, b, h, 0), a.vdo.st, i0, n);
+    load_vec(svec + 2 * s * TILE, a.lse + (size_t)bh * n, i0, n);
+    load_vec(svec + (2 * s + 1) * TILE, a.rowsum + (size_t)bh * n, i0, n);
+  };
+  load_tile(sk, a.k + at(a.vk, b, h, 0), a.vk.st, j0, n);
+  load_tile(sv, a.v + at(a.vv, b, h, 0), a.vv.st, j0, n);
+  if (KBIAS) load_vec(skb, a.key_bias + (size_t)b * n, j0, n);
+  stage(0);
+  cp_commit();
+
+  float dk[8][4], dv[8][4], dkb[2] = {0.0f, 0.0f}, kb[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[nb][e] = dv[nb][e] = 0.0f;
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile + 1 < tiles) {
+      stage(tile + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    if (KBIAS && tile == 0) {
+      kb[0] = skb[r0 + g];
+      kb[1] = skb[r0 + g + 8];
+    }
+    const int i0 = tile * TILE;
+    const float* Q = sq + (tile & 1) * TILE_FLOATS;
+    const float* dO = sdo + (tile & 1) * TILE_FLOATS;
+    const float* slse = svec + 2 * (tile & 1) * TILE;
+    const float* sD = slse + TILE;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {  // over the head dim
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      frag_a(sk, r0, kk, g, t, kh, kl);
+      frag_a(sv, r0, kk, g, t, vh, vl);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {  // over the queries
+        uint32_t bh_[2], bl[2];
+        frag_bt(Q, nb, kk, g, t, bh_, bl);
+        mma3(s[nb], kh, kl, bh_, bl);
+        frag_bt(dO, nb, kk, g, t, bh_, bl);
+        mma3(dp[nb], vh, vl, bh_, bl);
+      }
+    }
+    // P^T and dS^T = P^T (dP^T - D), f32; this head's dkey_bias share
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = e >> 1, il = 8 * nb + 2 * t + (e & 1);
+        const float p = prob(s[nb][e], KBIAS ? kb[hi] : 0.0f, slse[il],
+                             i0 + il < n && j0 + r0 + g + 8 * hi < n);
+        const float ds = p * (dp[nb][e] - sD[il]);
+        s[nb][e] = p;
+        dp[nb][e] = ds;
+        if (KBIAS) dkb[hi] += ds;
+      }
+    // dv += P^T dO, then dk += dS^T Q, over the queries, each tile's share
+    // in its own accumulator (see flush)
+    tile_product(dv, s, dO, g, t);
+    tile_product(dk, dp, Q, g, t);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int j = j0 + r0 + g + 8 * hi;
+    const float share = KBIAS ? sum4(dkb[hi]) : 0.0f;  // this (b, h)'s dkey_bias at key j
+    if (j >= n) continue;
+    float* gk = a.dk + at(a.vdk, b, h, j);
+    float* gv = a.dv + at(a.vdv, b, h, j);
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      *reinterpret_cast<float2*>(gk + 8 * nb + 2 * t) = make_float2(dk[nb][2 * hi], dk[nb][2 * hi + 1]);
+      *reinterpret_cast<float2*>(gv + 8 * nb + 2 * t) = make_float2(dv[nb][2 * hi], dv[nb][2 * hi + 1]);
+    }
+    if (KBIAS && a.dkb_head && t == 0) a.dkb_head[(size_t)bh * n + j] = share;
+  }
+}
+
+// dkey_bias[b, j] = sum of the heads' shares, heads in order, as the TPU
+// kernel accumulates its grid (ops/pallas/attention.py:263-268)
+__global__ void tc32_dkb(Args a) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= a.B * a.n) return;
+  const int b = e / a.n, j = e % a.n;
+  float s = 0.0f;
+  for (int h = 0; h < a.H; ++h) s += a.dkb_head[((size_t)b * a.H + h) * a.n + j];
+  a.dkb[e] = s;
+}
+
+template <typename K>
+cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t st, const Args& a) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NT, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return p && (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+}  // namespace
+
+// q, k, v, out (the forward's f32 output), dout, dq, dk, dv: (b, h, n, 64)
+// f32 views with (batch, head, token) element strides in `strides` (8 views
+// x 3, in that order), each a multiple of 4 (16-byte rows), bases 16-byte
+// aligned; key_bias (b, n) f32; lse (b, h, n) f32 from the forward; rowsum
+// (b, h, n) f32 scratch; dkb_head (b, h, n) f32 scratch and dkb (b, n) f32
+// out, both null when dkey_bias is not wanted.
+CT_EXPORT int ct_attn_tc32_bwd(const void* q, const void* k, const void* v, const void* out,
+                               const void* dout, void* dq, void* dk, void* dv,
+                               const long long* strides, const void* key_bias,
+                               const void* lse, void* rowsum, void* dkb_head, void* dkb, int B,
+                               int H, int n, void* stream) {
+  Args a = {};
+  View* const views[8] = {&a.vq, &a.vk, &a.vv, &a.vo, &a.vdo, &a.vdq, &a.vdk, &a.vdv};
+  const void* bases[8] = {q, k, v, out, dout, dq, dk, dv};
+  if (B <= 0 || H <= 0 || n <= 0 || (long long)B * H > 65535 || !key_bias || !lse || !rowsum
+      || (!dkb_head != !dkb))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 8; ++i) {
+    for (int c = 0; c < 3; ++c)
+      if (strides[3 * i + c] % 4) return (int)cudaErrorInvalidValue;
+    if (!aligned16(bases[i])) return (int)cudaErrorInvalidValue;
+    *views[i] = View{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  }
+  a.q = static_cast<const float*>(q); a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v); a.out = static_cast<const float*>(out);
+  a.dout = static_cast<const float*>(dout);
+  a.dq = static_cast<float*>(dq); a.dk = static_cast<float*>(dk); a.dv = static_cast<float*>(dv);
+  a.key_bias = static_cast<const float*>(key_bias);
+  a.lse = static_cast<const float*>(lse);
+  a.rowsum = static_cast<float*>(rowsum);
+  a.dkb_head = static_cast<float*>(dkb_head);
+  a.dkb = static_cast<float*>(dkb);
+  a.B = B; a.H = H; a.n = n;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n + TILE - 1) / TILE, B * H);
+  cudaError_t err = launch(tc32_rows<true>, grid, ROWS_SMEM, st, a);
+  if (err != cudaSuccess) return (int)err;
+  err = launch(tc32_cols<true>, grid, COLS_SMEM, st, a);
+  if (err != cudaSuccess) return (int)err;
+  if (dkb) tc32_dkb<<<(B * n + 255) / 256, 256, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}

@@ -27,15 +27,16 @@ Ports of ct_clip_tpu/ops/attention.py:
     backward as an autograd.Function: K12a with a key bias, K12b with a
     dense (1, 1|h, n, n) bias (its gradient summed over the batch) or none.
     On CUDA `attention_route` picks the forward's and the backward's source:
-    bf16 at d 64 runs both on the tensor cores (csrc/attention_tc.cu), f32
-    and other head dims on the CUDA cores (csrc/attention_train.cu).  A
-    dense bias together with a key bias is XLA in the JAX package
-    (`_xla_attention`), so here it is `attention_plain` on every device,
-    differentiated by autograd;
+    bf16 at d 64 runs both on the tensor cores (csrc/attention_tc.cu); f32
+    at d 64 with a key bias runs its backward (K12a) on the tensor cores in
+    3xTF32 (csrc/attention_tc32.cu); the other f32 forms and other head dims
+    run on the CUDA cores (csrc/attention_train.cu).  A dense bias together
+    with a key bias is XLA in the JAX package (`_xla_attention`), so here it
+    is `attention_plain` on every device, differentiated by autograd;
   * `fused_attention_kbias_dropout` (K13, forward and backward): the same
-    with dropout on the probabilities from a Philox mask; on CUDA its
-    forward (K13a) runs on attention_train.cu and, in bf16 at d 64, its
-    backward (K13b) on attention_tc.cu, which regenerates the same mask.
+    with dropout on the probabilities from a Philox mask; on CUDA, in bf16
+    at d 64, its forward (K13a) and backward (K13b) run on attention_tc.cu,
+    which draws the same mask in both, else both on attention_train.cu.
 
 Module and parameter names reproduce the reference torch state-dict layout
 (transformer_maskgit: `layers.{i}.0` PEG, `.1` attention, `.3` FF).
@@ -204,48 +205,53 @@ def _launch_train_fwd(q, k, v, key_bias, seed=None, rate=0.0, bias=None,
     return out, lse, out32
 
 
-TC, TRAIN = "attention_tc", "attention_train"
+TC, TC32, TRAIN = "attention_tc", "attention_tc32", "attention_train"
 BIAS_FORMS = ("none", "key", "dense")
 
 
 def attention_route(dtype: torch.dtype, head_dim: int, bias_form: str,
                     dropout: bool) -> Tuple[str, str]:
     """The CUDA sources (forward, backward) of a fused attention call: TC
-    (attention_tc.cu, bf16 on the tensor cores) or TRAIN (attention_train.cu,
-    the CUDA cores).  `bias_form` is "none", "key" (a (b, n) per-key bias)
-    or "dense" (a (1, 1|h, n, n) bias); `dropout` K13's (with a key bias).
+    (attention_tc.cu, bf16 on the tensor cores), TC32 (attention_tc32.cu,
+    f32 on the tensor cores in 3xTF32) or TRAIN (attention_train.cu, the
+    CUDA cores).  `bias_form` is "none", "key" (a (b, n) per-key bias) or
+    "dense" (a (1, 1|h, n, n) bias); `dropout` K13's (with a key bias).
 
-    | call                                          | forward | backward |
-    | bf16, d 64, no dropout, any bias form         | TC      | TC       |
-    | bf16, d 64, key bias + dropout (K13)          | TRAIN   | TC       |
-    | f32 (RadBERT, T5, the f32 rows), or d != 64   | TRAIN   | TRAIN    |
+    | call                                                | forward | backward |
+    | bf16, d 64, any bias form, dropout or not           | TC      | TC       |
+    | f32, d 64, key bias, no dropout (K12a, RadBERT)     | TRAIN   | TC32     |
+    | f32, any other form (no bias, dense, key + dropout) | TRAIN   | TRAIN    |
+    | d != 64                                             | TRAIN   | TRAIN    |
 
-    The tensor-core backward sums D_i = sum_j P dP M from its own f32 P, so
-    it follows either forward; K13a's forward stays on TRAIN."""
+    TC32 reads D_i = dO . O from the f32 forward's output, which K7 f32
+    writes in true f32 on the CUDA cores."""
     if bias_form not in BIAS_FORMS:
         raise ValueError(f"attention_route: bias form {bias_form!r} not in {BIAS_FORMS}")
-    if dtype != torch.bfloat16 or head_dim != K.TC_HEAD_DIM:
+    if head_dim != K.TC_HEAD_DIM:
         return TRAIN, TRAIN
-    return (TRAIN if dropout else TC), TC
+    if dtype == torch.bfloat16:
+        return TC, TC
+    return TRAIN, (TC32 if bias_form == "key" and not dropout else TRAIN)
 
 
 def _tc_operand(t: torch.Tensor) -> torch.Tensor:
-    """t as attention_tc.cu addresses it, or a contiguous copy of it where a
-    stride is not a multiple of 8 elements or the base is off 16 bytes."""
+    """t as attention_tc.cu / attention_tc32.cu address it, or a contiguous
+    copy of it where a stride is not a multiple of 16 bytes or the base is
+    off 16 bytes."""
     return t if K.tc_addressable(t) else t.contiguous()
 
 
-def _launch_tc_fwd(q, k, v, key_bias, bias=None):
+def _launch_tc_fwd(q, k, v, key_bias, bias=None, seed=None, rate=0.0):
     """Forward kernel on the tensor cores (attention_tc.cu, bf16, d 64):
-    (out, lse); `bias` a contiguous (1|h, n, n) f32 dense bias or None.
-    `out` takes q's strides (empty_like of an addressable view), so merging
-    the heads back is free."""
+    (out, lse); `bias` a contiguous (1|h, n, n) f32 dense bias or None;
+    `seed` and `rate` > 0 K13a's dropout.  `out` takes q's strides
+    (empty_like of an addressable view), so merging the heads back is free."""
     q, k, v = map(_tc_operand, (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     K.attention_tc_fwd(q, k, v, out, lse,
                        key_bias=None if key_bias is None else key_bias.float().contiguous(),
-                       bias=bias)
+                       bias=bias, seed=seed, rate=rate)
     return out, lse
 
 
@@ -272,14 +278,16 @@ def _float_key_bias(key_bias):
 class _FusedAttention(torch.autograd.Function):
     """K7 forward, K12 backward (K12a with a key bias, K12b with a dense bias
     or none).  On the CPU both are the plain versions; on CUDA the sources
-    `attention_route` picks: attention_tc.cu (bf16, d 64, wgmma) for both,
-    or the key-tiled kernels of attention_train.cu (f32, or d != 64) for
-    both, the backward reading the forward's row log-sum-exp (and, on
+    `attention_route` picks: attention_tc.cu (bf16, d 64, wgmma) for both;
+    in f32 at d 64 with a key bias the key-tiled forward of
+    attention_train.cu and the 3xTF32 backward of attention_tc32.cu (K12a,
+    D_i from the forward's f32 output); else attention_train.cu for both.
+    Each backward reads the forward's row log-sum-exp (and, on
     attention_train.cu in bf16, its f32 output); a dense bias stays f32 in
     both dtypes.  The counters name the function (`fused_attention`,
     `attention_dense`, `attention_bwd` for K12a, `attention_dense_bwd` for
     K12b) and, on the tensor cores, the source (`attention_tc`,
-    `attention_tc_bwd`)."""
+    `attention_tc_bwd`, `attention_tc32_bwd`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, key_bias):
@@ -317,6 +325,13 @@ class _FusedAttention(torch.autograd.Function):
             K.count_launch("attention_tc_bwd")
             # K12a with a key bias; K12b with a dense bias or none
             K.count_launch("attention_bwd" if key_bias is not None else "attention_dense_bwd")
+        elif ctx.route[1] == TC32:
+            dq, dk, dv, dkb = K.attention_tc32_bwd(
+                *map(_tc_operand, (q, k, v, out, dout.to(q.dtype))), lse,
+                key_bias=_float_key_bias(key_bias), want_dkey_bias=need_dkb)
+            db = None
+            K.count_launch("attention_tc32_bwd")
+            K.count_launch("attention_bwd")
         else:
             dq, dk, dv, dkb, db = K.attention_train_bwd(
                 *map(_rows, (q, k, v, out, dout.to(q.dtype))), lse, out32=out32,
@@ -380,23 +395,28 @@ def _seed_tensor(seed, device) -> torch.Tensor:
 class _FusedAttentionDropout(torch.autograd.Function):
     """K13 forward and backward: key-bias attention with dropout on the
     probabilities, the mask regenerated from the seed in the backward.  On
-    CUDA the forward (K13a) runs on attention_train.cu; the backward (K13b)
-    on attention_tc.cu in bf16 at d 64 (`attention_route`), with no f32
-    output kept, else on attention_train.cu, which reads the forward's f32
-    output in bf16.  Counters: `attention_dropout`, `attention_dropout_bwd`
-    and, on the tensor cores, `attention_tc_bwd`."""
+    CUDA `attention_route` picks: in bf16 at d 64 attention_tc.cu for both
+    (K13a, K13b; no f32 output kept), else attention_train.cu for both,
+    whose backward reads the forward's f32 output in bf16.  Counters:
+    `attention_dropout`, `attention_dropout_bwd` and, on the tensor cores,
+    `attention_tc` and `attention_tc_bwd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, seed, rate):
         ctx.route = None
+        out32 = None
         if q.device.type == "cpu":
-            out, lse, out32 = attention_dropout_plain(q, k, v, key_bias, seed, rate), None, None
+            out, lse = attention_dropout_plain(q, k, v, key_bias, seed, rate), None
         else:
             seed = _seed_tensor(seed, q.device)
             ctx.route = attention_route(q.dtype, q.shape[-1], "key", True)
-            out, lse, out32 = _launch_train_fwd(
-                q, k, v, key_bias, seed, rate,
-                for_backward=any(ctx.needs_input_grad) and ctx.route[1] == TRAIN)
+            if ctx.route[0] == TC:
+                out, lse = _launch_tc_fwd(q, k, v, key_bias, seed=seed, rate=rate)
+                K.count_launch("attention_tc")
+            else:
+                out, lse, out32 = _launch_train_fwd(
+                    q, k, v, key_bias, seed, rate,
+                    for_backward=any(ctx.needs_input_grad) and ctx.route[1] == TRAIN)
             K.count_launch("attention_dropout")
         ctx.rate, ctx.seed = rate, seed
         ctx.save_for_backward(q, k, v, key_bias, out, lse, out32)

@@ -63,12 +63,16 @@ KERNELS = (
     "seq_attention_bwd",   # K10 small_attention.py::_pallas_small_qknorm_bwd (sequence-major)
     "attention_dense",     # K7 attention.py::_pallas_attention, dense (1, 1|h, n, n) bias
     "attention_dense_bwd",  # K12b attention.py::_pallas_attention_bwd (bf16 no bias too)
-    # the source that ran: attention_tc.cu's bf16 tensor-core kernels, counted
-    # beside the function's own counter
-    "attention_tc",        # K7 forward, any bias form (fused_attention, attention_dense)
+    # the source that ran, counted beside the function's own counter:
+    # attention_tc.cu's bf16 tensor-core kernels
+    "attention_tc",        # every forward there: K7, any bias form (fused_attention,
+                           # attention_dense), K13a, key bias and dropout
+                           # (attention_dropout)
     "attention_tc_bwd",    # every backward there: K12b, dense bias or none
                            # (attention_dense_bwd), K12a, key bias (attention_bwd),
                            # K13b, key bias and dropout (attention_dropout_bwd)
+    # attention_tc32.cu's f32 3xTF32 backward
+    "attention_tc32_bwd",  # K12a f32, key bias (attention_bwd)
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -159,46 +163,49 @@ def build() -> Path:
     return out
 
 
-def _declare(lib) -> None:
+def _signatures():
+    """argtypes of every C entry point, each of which returns an int."""
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.ct_gemm.argtypes = [i, p, i, p, p, i, i, i, i, p, i, p, i, p, i, p]
-    lib.ct_gemm_argmax.argtypes = [p, i, p, i, i, i, i, p, i, p]
-    lib.ct_layernorm.argtypes = [p, i, i, p, p, f, p, p]
-    lib.ct_patch_layernorm.argtypes = [p, i, i, i, i, i, i, p, p, f, p, p]
-    lib.ct_attention.argtypes = [p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll,
-                                 i, i, i, i, i, p, p, p, i, p]
-    lib.ct_rearrange_patches.argtypes = [p, i, i, i, i, i, i, p, ll, ll, i, p]
-    lib.ct_unrearrange_patches.argtypes = [p, ll, ll, i, i, i, i, i, i, p, i, p]
     lp, u = ctypes.POINTER(ll), ctypes.c_uint
-    lib.ct_attn_train_fwd.argtypes = [i, p, p, p, p, p, lp, p, p, i, p, p, u, f,
-                                      i, i, i, i, p]
-    lib.ct_attn_train_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, lp, p, p, i, p,
-                                      p, p, p, p, p, p, u, f, i, i, i, i, p]
-    lib.ct_attn_tc_fwd.argtypes = [p, p, p, p, lp, p, p, i, p, i, i, i, p]
-    lib.ct_attn_tc_bwd.argtypes = [p, p, p, p, p, p, p, lp, p, p, i, p, p, p, p, p, p, p, u,
-                                   f, i, i, i, p]
-    lib.ct_gemm_argmax2.argtypes = [p, i, p, p, i, i, i, i, p, i, p]
-    lib.ct_gemm_layout.argtypes = [i, i, p, i, p, i, i, i, i, i, p, i, ll, i, p]
-    lib.ct_sum_splits.argtypes = [p, i, ll, p, p]
-    lib.ct_ff_bwd.argtypes = [p, p, i, p, p, p, i, i, i, i, p, i, p, i, i, p]
-    lib.ct_layernorm_bwd.argtypes = [p, i, i, p, p, p, p, f, p, p, p, p, i, p]
-    lib.ct_patch_layernorm_bwd.argtypes = [p, i, i, i, i, i, i, p, p, f, p, p, p, i, p]
-    lib.ct_qk_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, ll, ll, ll, ll,
-                                        ll, ll, ll, ll, i, i, i, i, i, i, p, p,
-                                        p, p, p, p, p, i, p]
-    lib.ct_peg_dw.argtypes = [p, p, i, i, i, i, i, i, i, i, p, p]
-    lib.ct_vq_cluster_stats.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p]
-    lib.ct_error_string.argtypes = [i]
-    lib.ct_error_string.restype = ctypes.c_char_p
-    for name in ("ct_gemm", "ct_gemm_argmax", "ct_layernorm",
-                 "ct_patch_layernorm", "ct_attention", "ct_rearrange_patches",
-                 "ct_attn_train_fwd", "ct_attn_train_bwd", "ct_attn_tc_fwd",
-                 "ct_attn_tc_bwd", "ct_gemm_argmax2",
-                 "ct_gemm_layout", "ct_sum_splits", "ct_ff_bwd",
-                 "ct_layernorm_bwd", "ct_qk_attention_bwd", "ct_peg_dw",
-                 "ct_vq_cluster_stats", "ct_unrearrange_patches",
-                 "ct_patch_layernorm_bwd"):
-        getattr(lib, name).restype = ctypes.c_int
+    return {
+        "ct_gemm": [i, p, i, p, p, i, i, i, i, p, i, p, i, p, i, p],
+        "ct_gemm_argmax": [p, i, p, i, i, i, i, p, i, p],
+        "ct_layernorm": [p, i, i, p, p, f, p, p],
+        "ct_patch_layernorm": [p, i, i, i, i, i, i, p, p, f, p, p],
+        "ct_attention": [p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i, i, i, p, p, p, i,
+                         p],
+        "ct_rearrange_patches": [p, i, i, i, i, i, i, p, ll, ll, i, p],
+        "ct_unrearrange_patches": [p, ll, ll, i, i, i, i, i, i, p, i, p],
+        "ct_attn_train_fwd": [i, p, p, p, p, p, lp, p, p, i, p, p, u, f, i, i, i, i, p],
+        "ct_attn_train_bwd": [i, p, p, p, p, p, p, p, p, p, lp, p, p, i, p, p, p, p, p, p, p, u,
+                              f, i, i, i, i, p],
+        "ct_attn_tc_fwd": [p, p, p, p, lp, p, p, i, p, p, u, f, i, i, i, p],
+        "ct_attn_tc_bwd": [p, p, p, p, p, p, p, lp, p, p, i, p, p, p, p, p, p, p, u, f, i, i, i,
+                           p],
+        "ct_attn_tc32_bwd": [p, p, p, p, p, p, p, p, lp, p, p, p, p, p, i, i, i, p],
+        "ct_gemm_argmax2": [p, i, p, p, i, i, i, i, p, i, p],
+        "ct_gemm_layout": [i, i, p, i, p, i, i, i, i, i, p, i, ll, i, p],
+        "ct_sum_splits": [p, i, ll, p, p],
+        "ct_ff_bwd": [p, p, i, p, p, p, i, i, i, i, p, i, p, i, i, p],
+        "ct_layernorm_bwd": [p, i, i, p, p, p, p, f, p, p, p, p, i, p],
+        "ct_patch_layernorm_bwd": [p, i, i, i, i, i, i, p, p, f, p, p, p, i, p],
+        "ct_qk_attention_bwd": [p, p, p, p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i,
+                                i, i, i, p, p, p, p, p, p, p, i, p],
+        "ct_peg_dw": [p, p, i, i, i, i, i, i, i, i, p, p],
+        "ct_vq_cluster_stats": [p, p, i, i, i, p, p, p, p, p, p, p],
+    }
+
+
+def _declare(lib) -> None:
+    """Types of every entry point `lib` exports (a copy built from one source
+    exports that source's alone)."""
+    for name, args in _signatures().items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, ctypes.c_int
+    if hasattr(lib, "ct_error_string"):
+        lib.ct_error_string.argtypes = [ctypes.c_int]
+        lib.ct_error_string.restype = ctypes.c_char_p
 
 
 def library():
@@ -210,6 +217,30 @@ def library():
             _declare(lib)
             _lib = lib
     return _lib
+
+
+def copy_library(source: str, **defines: int):
+    """A one-change copy for the card checks: csrc/`source` built alone with
+    `-D name=value` for each of `defines` (e.g. attention_tc32.cu with
+    CT_TC32_PASSES=1, plain TF32) into its own library beside the package's,
+    loaded and typed.  The package never launches from it."""
+    flags = [f"-D{k}={v}" for k, v in sorted(defines.items())]
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *flags)).encode())
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
+        h.update(path.read_bytes())
+    out = BUILD_DIR / f"copy_{Path(source).stem}_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-shared", "-o", str(tmp),
+                               str(CSRC / source)], capture_output=True, text=True)
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{proc.stderr[-6000:]}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _declare(lib)
+    return lib
 
 
 # ------------------------------------------------------------ launch helpers
@@ -810,16 +841,17 @@ TC_HEAD_DIM = 64
 
 
 def tc_addressable(t: torch.Tensor) -> bool:
-    """Whether attention_tc.cu can copy t's (b, h, n, 64) rows as 16-byte
-    chunks: a contiguous last dim, every other stride a multiple of 8
-    elements and a base on a 16-byte boundary."""
-    st = t.stride()
-    return (len(st) == 4 and st[3] == 1 and st[0] % 8 == 0 and st[1] % 8 == 0
-            and st[2] % 8 == 0 and t.data_ptr() % 16 == 0)
+    """Whether attention_tc.cu (bf16) or attention_tc32.cu (f32) can copy t's
+    (b, h, n, 64) rows as 16-byte chunks: a contiguous last dim, every other
+    stride a multiple of 16 bytes (8 bf16, 4 f32) and a base on a 16-byte
+    boundary."""
+    st, chunk = t.stride(), 16 // t.element_size()
+    return (len(st) == 4 and st[3] == 1 and st[0] % chunk == 0 and st[1] % chunk == 0
+            and st[2] % chunk == 0 and t.data_ptr() % 16 == 0)
 
 
-def _check_tc(shape, **tensors) -> None:
-    _check_bhnd(shape, torch.bfloat16, **tensors)
+def _check_tc(shape, dtype=torch.bfloat16, **tensors) -> None:
+    _check_bhnd(shape, dtype, **tensors)
     if shape[-1] != TC_HEAD_DIM:
         raise ValueError(f"attention_tc: head dim {shape[-1]} != {TC_HEAD_DIM}")
     for name, t in tensors.items():
@@ -828,11 +860,14 @@ def _check_tc(shape, **tensors) -> None:
                              "addressable in 16-byte chunks (pass a contiguous copy)")
 
 
-def attention_tc_fwd(q, k, v, out, lse, *, key_bias=None, bias=None) -> torch.Tensor:
-    """out = softmax(q k^T + bias + key_bias) v in bf16 and the row
-    log-sum-exp lse (b, h, n) f32 (attention_tc.cu, wgmma): q, k, v, out
-    (b, h, n, 64) bf16 views as `tc_addressable` says; key_bias (b, n) f32 or
-    None; bias a contiguous (1|h, n, n) f32 dense bias or None, not both."""
+def attention_tc_fwd(q, k, v, out, lse, *, key_bias=None, bias=None, seed=None,
+                     rate=0.0) -> torch.Tensor:
+    """out = (softmax(q k^T + bias + key_bias) * dropout mask) v in bf16 and
+    the row log-sum-exp lse (b, h, n) f32 (attention_tc.cu, wgmma): q, k, v,
+    out (b, h, n, 64) bf16 views as `tc_addressable` says; key_bias (b, n)
+    f32 or None; bias a contiguous (1|h, n, n) f32 dense bias or None, not
+    both; `seed` (1,) int64 on the device and `rate` > 0 apply K13a's mask
+    (key bias only)."""
     b, h, n, d = q.shape
     _check_tc(q.shape, q=q, k=k, v=v, out=out)
     require(lse, "lse", torch.float32, 3)
@@ -842,9 +877,14 @@ def attention_tc_fwd(q, k, v, out, lse, *, key_bias=None, bias=None) -> torch.Te
     if key_bias is not None and bias is not None:
         raise ValueError("attention_tc: a key bias and a dense bias together")
     bias_heads = _bias_heads(bias, h, n)
+    thresh = dropout_threshold(rate) if rate > 0 else 0
+    if thresh and key_bias is None:
+        raise ValueError("attention_tc: dropout (K13a) takes a key bias")
+    seed = _dropout_args(seed, thresh, q.device)
     err = library().ct_attn_tc_fwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), _bhnd_strides(q, k, v, out), _ptr(key_bias),
-        _ptr(bias), bias_heads, _ptr(lse), b, h, n, _stream())
+        _ptr(bias), bias_heads, _ptr(lse), _ptr(seed), thresh,
+        dropout_keep_scale(rate) if thresh else 1.0, b, h, n, _stream())
     _check(err, "ct_attn_tc_fwd")
     return out
 
@@ -854,11 +894,11 @@ def attention_tc_bwd(q, k, v, dout, lse, *, bias=None, want_dbias=False, key_bia
     """dq, dk, dv (b, h, n, 64) bf16, dbias ((1|h, n, n) f32 summed over the
     batch, and over the heads for a one-head bias, or None) and dkey_bias
     ((b, n) f32 summed over the heads and query rows, or None) of
-    attention_tc_fwd or, with dropout, of attention_train_fwd's K13a
-    (attention_tc.cu, wgmma): a row pass (D_i = sum_j P_ij dP_ij M_ij in
-    f32, then dq; each (b, h)'s dS into a (b, h, n, n) f32 scratch for
-    dbias), a column pass (dk, dv, each head's dkey_bias share into a (b, h,
-    n) f32 scratch) and the scratches' sums in a fixed order.  A dense bias
+    attention_tc_fwd, with dropout of its K13a (attention_tc.cu, wgmma): a
+    row pass (D_i = sum_j P_ij dP_ij M_ij in f32, then dq; each (b, h)'s dS
+    into a (b, h, n, n) f32 scratch for dbias), a column pass (dk, dv, each
+    head's dkey_bias share into a (b, h, n) f32 scratch) and the
+    scratches' sums in a fixed order.  A dense bias
     or a key bias (b, n) f32, not both; `seed` (1,) int64 on the device and
     `rate` > 0 regenerate K13a's mask M (key bias only)."""
     b, h, n, d = q.shape
@@ -890,3 +930,34 @@ def attention_tc_bwd(q, k, v, dout, lse, *, bias=None, want_dbias=False, key_bia
         thresh, dropout_keep_scale(rate) if thresh else 1.0, b, h, n, _stream())
     _check(err, "ct_attn_tc_bwd")
     return dq, dk, dv, dbias, dkb
+
+
+def attention_tc32_bwd(q, k, v, out, dout, lse, *, key_bias, want_dkey_bias=False, lib=None):
+    """dq, dk, dv (b, h, n, 64) f32 and dkey_bias ((b, n) f32 summed over the
+    heads and query rows, or None) of f32 key-bias attention (K12a), each
+    product as 3xTF32 on the tensor cores (attention_tc32.cu): a row pass
+    (D_i = dO_i . O_i from the forward's f32 output `out`, then dq), a column
+    pass (dk, dv, each head's dkey_bias share into a (b, h, n) f32 scratch)
+    and the shares' sum over the heads in order.  q, k, v, out, dout (b, h,
+    n, 64) f32 views as `tc_addressable` says; key_bias (b, n) f32; lse (b,
+    h, n) f32 from the forward.  `lib`: a one-change copy (`copy_library`)
+    to launch instead, for the card checks."""
+    b, h, n, d = q.shape
+    _check_tc(q.shape, torch.float32, q=q, k=k, v=v, out=out, dout=dout)
+    require(lse, "lse", torch.float32, 3)
+    if tuple(lse.shape) != (b, h, n):
+        raise ValueError(f"attention_tc32: lse {tuple(lse.shape)} != {(b, h, n)}")
+    if key_bias is None:
+        raise ValueError("attention_tc32: the backward takes a key bias (K12a)")
+    _check_key_bias(key_bias, b, n)
+    dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    rowsum = torch.empty((b, h, n), **f32)
+    dkb_head = torch.empty((b, h, n), **f32) if want_dkey_bias else None
+    dkb = torch.empty((b, n), **f32) if want_dkey_bias else None
+    err = (lib or library()).ct_attn_tc32_bwd(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(dq), _ptr(dk), _ptr(dv),
+        _bhnd_strides(q, k, v, out, dout, dq, dk, dv), _ptr(key_bias), _ptr(lse), _ptr(rowsum),
+        _ptr(dkb_head), _ptr(dkb), b, h, n, _stream())
+    _check(err, "ct_attn_tc32_bwd")
+    return dq, dk, dv, dkb

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels of ct_clip_tpu_torch against their plain PyTorch
 versions, on the card: the inference kernels in bf16, the training attention
 kernels (K7 f32, K12, K13) in f32, K7's dense-bias form and K12b in f32 and
-bf16, and the bf16 K7 / K12b / K12a / K13b of attention_tc.cu (wgmma) with
-their routing (`-k "tc or dense"`).
+bf16, the bf16 K7 / K12b / K12a / K13a / K13b of attention_tc.cu (wgmma) with
+their routing (`-k "tc or dense"`), and the f32 K12a of attention_tc32.cu
+(3xTF32, `-k tc32`).
 
 Needs an NVIDIA GPU and nvcc (the kernels compile on first use); skipped
 elsewhere.  Run on the card with:
@@ -14,7 +15,8 @@ but sum in different orders, so an intermediate may land one bf16 ulp
 (2^-8 relative) apart and carry that through the following stages.  Each
 check allows a max abs error of 2e-2 x max|plain| unless stated.  The f32
 kernels run the same products as their plain versions in another summation
-order: 1e-4 x max|plain|.
+order: 1e-4 x max|plain|; the 3xTF32 K12a 1e-5 x max|plain| against the
+plain version with TF32 off, which a plain-TF32 copy of it must miss.
 """
 import pytest
 import torch
@@ -354,8 +356,8 @@ def test_training_attention_counters_count_only_kernel_paths(dev):
     with torch.no_grad():
         fused_attention(q, k, v, key_bias=kb)
     counts = K.launch_counts()
-    assert (counts["fused_attention"], counts["attention_bwd"],
-            counts["attention_dropout"], counts["attention_dropout_bwd"]) == (2, 1, 1, 1)
+    assert (counts["fused_attention"], counts["attention_bwd"], counts["attention_tc32_bwd"],
+            counts["attention_dropout"], counts["attention_dropout_bwd"]) == (2, 1, 1, 1, 1)
     with pytest.raises(ValueError):  # the f32 kernels hold d <= 64
         fused_attention(*(torch.zeros(1, 1, 8, 96, device=dev) for _ in range(3)))
 
@@ -628,9 +630,9 @@ def test_vq_exact_assign_k5(dev):
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 def test_bert_attention_bf16_training_k12_k13(dev, dropout):
     """CXR-BERT's bf16 attention under grad at d 64: K7 and K12a on the
-    tensor cores without dropout; K13a on attention_train.cu and K13b on the
-    tensor cores with it.  Out and every gradient against autograd of the
-    plain version with the same mask."""
+    tensor cores without dropout; K13a and K13b on the tensor cores with it.
+    Out and every gradient against autograd of the plain version with the
+    same mask."""
     from ct_clip_tpu_torch.ops.attention import (attention_plain, dropout_mask,
                                                  fused_attention, fused_attention_kbias_dropout)
 
@@ -647,7 +649,7 @@ def test_bert_attention_bf16_training_k12_k13(dev, dropout):
     c = K.launch_counts()
     if dropout:
         assert (c["attention_dropout"], c["attention_dropout_bwd"], c["attention_tc"],
-                c["attention_tc_bwd"]) == (1, 1, 0, 1)
+                c["attention_tc_bwd"]) == (1, 1, 1, 1)
     else:
         assert (c["fused_attention"], c["attention_bwd"], c["attention_tc"],
                 c["attention_tc_bwd"]) == (1, 1, 1, 1)
@@ -851,8 +853,8 @@ def test_tc_attention_backward(dev, form, n):
 
 def test_tc_routing_counters(dev):
     """bf16 at d 64: a key-bias forward under grad and its backward (K7,
-    K12a) run attention_tc.cu, with or without grad; a dropout forward
-    (K13a) runs attention_train.cu and its backward (K13b) attention_tc.cu.
+    K12a) run attention_tc.cu, with or without grad; so do a dropout forward
+    (K13a) and its backward (K13b).
     d 32 in bf16 is routed by its shape to attention_train.cu, forward and
     backward, dropout or not."""
     from ct_clip_tpu_torch.ops.attention import (attention_plain, fused_attention,
@@ -870,10 +872,10 @@ def test_tc_routing_counters(dev):
     torch.autograd.grad(fused_attention_kbias_dropout(*ins, kb, 5, 0.1), ins, do)
     counts = K.launch_counts()
     assert (counts["attention_dropout"], counts["attention_tc"], counts["attention_dropout_bwd"],
-            counts["attention_tc_bwd"]) == (1, 0, 1, 1)
+            counts["attention_tc_bwd"]) == (1, 1, 1, 1)
     with torch.no_grad():
         fused_attention(q, k, v, key_bias=kb)
-    assert K.launch_counts()["attention_tc"] == 1
+    assert K.launch_counts()["attention_tc"] == 2  # the dropout forward and this one
     q32, k32, v32, do32 = (t[..., :32].contiguous() for t in (q, k, v, do))
     K.reset_launch_counts()
     with torch.no_grad():
@@ -894,9 +896,9 @@ def test_tc_routing_counters(dev):
 @pytest.mark.parametrize("n", [512, 200])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_tc_key_bias_backward_k12a_k13b(dev, rate, n, want_dkb):
-    """attention_tc.cu's key-bias backward (bf16, d 64): K12a (rate 0, after
-    the tensor-core forward) and K13b (rate 0.1, after attention_train.cu's
-    K13a forward), against autograd of the plain version with the explicit
+    """attention_tc.cu's key-bias backward (bf16, d 64): K12a (rate 0) and
+    K13b (rate 0.1), each after the tensor-core forward (K7, K13a), against
+    autograd of the plain version with the explicit
     mask of the same seed, 3e-2 of max|plain| per output (dq, dk, dv and,
     when wanted, dkey_bias); the forward's output 2e-2.  Ragged pad lengths:
     row 1 keeps 7 keys, so whole key tiles are padded.  Every gradient is
@@ -925,8 +927,7 @@ def test_tc_key_bias_backward_k12a_k13b(dev, rate, n, want_dkb):
     c = K.launch_counts()
     fn = "attention_dropout" if rate else "fused_attention"
     bwd = "attention_dropout_bwd" if rate else "attention_bwd"
-    assert (c[fn], c[bwd], c["attention_tc"], c["attention_tc_bwd"]) == \
-        (1, 1, 0 if rate else 1, 1)
+    assert (c[fn], c[bwd], c["attention_tc"], c["attention_tc_bwd"]) == (1, 1, 1, 1)
 
     def plain(mask):
         ins = [t.detach().clone().requires_grad_(i < 3 or want_dkb)
@@ -948,3 +949,69 @@ def test_tc_key_bias_backward_k12a_k13b(dev, rate, n, want_dkb):
         errs = [(gr.float() - r.float()).abs().max().item() / r.float().abs().max().item()
                 for gr, r in zip(got[1:4], wrong[1:4])]
         assert max(errs) > BWD_REL, f"another seed's mask reads within tolerance: {errs}"
+
+
+@pytest.mark.parametrize("n", [512, 500])
+def test_tc_k13a_forward_draws_the_backward_mask(dev, n):
+    """K13a in bf16 on attention_tc.cu (no grad) at CXR-BERT's (8, 12, n, 64)
+    with pad key biases: within 2e-2 of max|plain| against the plain version
+    with the same seed's mask, outside it with another seed's; bit-identical
+    reruns; one launch of attention_tc and none of attention_train.cu."""
+    from ct_clip_tpu_torch.ops.attention import (attention_dropout_plain,
+                                                 fused_attention_kbias_dropout)
+
+    q, k, v, kb, _ = _train_attn_inputs(dev, 8, 12, n, 64, seed=44)
+    q, k, v = (t.to(BF) for t in (q, k, v))
+    seed = torch.tensor([31337], dtype=torch.int64, device=dev)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        got = fused_attention_kbias_dropout(q, k, v, kb, seed, 0.1)
+    c = K.launch_counts()
+    assert (c["attention_dropout"], c["attention_tc"]) == (1, 1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _close(got, attention_dropout_plain(q, k, v, kb, seed, 0.1))
+    wrong = attention_dropout_plain(q, k, v, kb, seed + 1, 0.1)
+    err = (got.float() - wrong.float()).abs().max().item()
+    assert err > REL * wrong.float().abs().max().item()
+    with torch.no_grad():
+        assert torch.equal(fused_attention_kbias_dropout(q, k, v, kb, seed, 0.1), got)
+
+
+TC32_REL = 1e-5
+
+
+@pytest.mark.parametrize("n", [512, 200])
+def test_tc32_k12a_f32_backward(dev, n):
+    """K12a f32 on attention_tc32.cu (3xTF32): dq, dk, dv and dkey_bias
+    within 1e-5 of max|plain| (TF32 off) at (4, 12, n, 64) with pad key
+    biases, the forward on attention_train.cu; bit-identical reruns; a copy
+    of the kernel built with CT_TC32_PASSES=1 (plain TF32) misses 1e-5."""
+    import functools
+
+    from ct_clip_tpu_torch.ops.attention import attention_plain, fused_attention
+
+    args = _train_attn_inputs(dev, 4, 12, n, 64, seed=45)
+    K.reset_launch_counts()
+    got = _grads(lambda q, k, v, kb: fused_attention(q, k, v, key_bias=kb), *args)
+    c = K.launch_counts()
+    assert (c["fused_attention"], c["attention_bwd"], c["attention_tc32_bwd"],
+            c["attention_tc"], c["attention_tc_bwd"]) == (1, 1, 1, 0, 0)
+    ref = _grads(lambda q, k, v, kb: attention_plain(q, k, v, key_bias=kb), *args)
+    torch.cuda.synchronize()
+    _close(got[0], ref[0], rel=1e-4)  # K7 f32 on the CUDA cores
+    for g, r in zip(got[1:], ref[1:]):
+        assert g.dtype == torch.float32
+        _close(g, r, rel=TC32_REL)
+    again = _grads(lambda q, k, v, kb: fused_attention(q, k, v, key_bias=kb), *args)
+    assert all(torch.equal(x, y) for x, y in zip(again[1:], got[1:]))
+    copy = K.copy_library("attention_tc32.cu", CT_TC32_PASSES=1)
+    tc32 = K.attention_tc32_bwd
+    K.attention_tc32_bwd = functools.partial(tc32, lib=copy)
+    try:
+        tf32 = _grads(lambda q, k, v, kb: fused_attention(q, k, v, key_bias=kb), *args)
+    finally:
+        K.attention_tc32_bwd = tc32
+    errs = [(g - r).abs().max().item() / r.abs().max().item()
+            for g, r in zip(tf32[1:4], ref[1:4])]
+    assert min(errs) > TC32_REL, f"plain TF32 reads within 1e-5: {errs}"

@@ -1,12 +1,12 @@
 """The CUDA sources (forward, backward) each fused attention call takes
 (ops/attention.py::attention_route), row by row of its table, and the stated
-contiguous copy of a view the tensor-core kernels cannot address.  Pure
-Python: no card."""
+contiguous copy of a view the tensor-core kernels cannot address (bf16 and
+f32).  Pure Python: no card."""
 import pytest
 import torch
 
 from ct_clip_tpu_torch.ops import kernels as K
-from ct_clip_tpu_torch.ops.attention import (TC, TRAIN, _tc_bwd_operands, _tc_operand,
+from ct_clip_tpu_torch.ops.attention import (TC, TC32, TRAIN, _tc_bwd_operands, _tc_operand,
                                              attention_route)
 
 BF, F32 = torch.bfloat16, torch.float32
@@ -18,11 +18,13 @@ BF, F32 = torch.bfloat16, torch.float32
     (BF, 64, "none", False, (TC, TC)),
     (BF, 64, "key", False, (TC, TC)),
     (BF, 64, "dense", False, (TC, TC)),
-    # bf16, d 64, key bias + dropout (K13): K13a on the CUDA cores, K13b TC
-    (BF, 64, "key", True, (TRAIN, TC)),
-    # f32 (RadBERT, T5, the f32 rows): both on the CUDA cores
+    # bf16, d 64, key bias + dropout (K13): K13a and K13b both TC
+    (BF, 64, "key", True, (TC, TC)),
+    # f32 at d 64: the key-bias backward (K12a, RadBERT with attention
+    # dropout 0) on the tensor cores in 3xTF32, every forward and every
+    # other backward on the CUDA cores
     (F32, 64, "none", False, (TRAIN, TRAIN)),
-    (F32, 64, "key", False, (TRAIN, TRAIN)),
+    (F32, 64, "key", False, (TRAIN, TC32)),
     (F32, 64, "dense", False, (TRAIN, TRAIN)),
     (F32, 64, "key", True, (TRAIN, TRAIN)),
     # head dims other than 64
@@ -32,6 +34,8 @@ BF, F32 = torch.bfloat16, torch.float32
     (BF, 16, "key", True, (TRAIN, TRAIN)),
     (BF, 128, "key", False, (TRAIN, TRAIN)),
     (BF, 128, "key", True, (TRAIN, TRAIN)),
+    (F32, 32, "key", False, (TRAIN, TRAIN)),
+    (F32, 128, "key", False, (TRAIN, TRAIN)),
 ])
 def test_attention_route_table(dtype, d, form, dropout, route):
     assert attention_route(dtype, d, form, dropout) == route
@@ -51,6 +55,11 @@ def test_tc_operand_copies_only_views_it_cannot_address():
     assert not K.tc_addressable(y)
     z = _tc_operand(y)
     assert z.is_contiguous() and K.tc_addressable(z) and torch.equal(z, y)
+    # f32 rows (attention_tc32.cu) need strides of 4 elements: 68 is one, 66 not
+    f = torch.zeros((2, 3, 10, 68))[..., :64]
+    assert K.tc_addressable(f) and _tc_operand(f) is f
+    w = torch.zeros((2, 3, 10, 66))[..., :64]
+    assert not K.tc_addressable(w) and K.tc_addressable(_tc_operand(w))
 
 
 def test_tc_backward_operands_copy_only_views_it_cannot_address():
