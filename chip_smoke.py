@@ -125,7 +125,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
      primed sample; T5-base on 8 x 256 ids without a mask (12 K7 dense
      launches) and with a pad mask (none); a tiny MaskGit step card against
      CPU, and again with K12b's dbias (attention_tc.cu) from batch row 0
-     only, which must fail.
+     only, which must fail;
+ 10. f32, the JAX package's default dtype: the f32 forms (compile-time
+     templates of the bf16 kernels) against their plain versions in true
+     f32 at full width (TC32_REL_TOL; K11's weight gradients over 10,240 rows
+     F32_REL_TOL): K3 at MaskGIT's and zero-shot's rows, K11 at MaskGIT's,
+     K1 on the zero-shot and autoencoder planes, K2 grid and seq, K5 on f32
+     rows (ids equal to the plain version of its own math: rows normalised
+     and rounded to bf16; the share equal to the full-f32 argmax reported),
+     K6 and K17 bit-exact; `run_zero_shot` with CTCLIP(dtype=float32) on
+     both routes (launches per kernel equal to the bf16 run's, on the f32
+     forms, the embeds on their plain route, as JAX takes XLA there) with
+     `score_batch` times and peak memory; a tiny f32 CT-CLIP card against CPU
+     from volumes and rows; `MaskGitTrainer` in f32 with the critic on a
+     frozen f32 autoencoder's codes and an f32 CXR-BERT context (4 steps,
+     launches per step, step time, peak memory, a profiled step), f32
+     sampling of one volume; a tiny f32 MaskGit step card against CPU
+     (gradients 1e-4 of max, weights 1e-5), and again with K11's act rounded
+     to bf16, which must fail.
 
 Prints the end-to-end numbers and the kernel table as one JSON line each,
 then the card's name and power limit (nvidia-smi), then
@@ -271,6 +288,32 @@ KERNELS = {
     "attention_bwd_bf16": _kernel("_pallas_attention_bwd_kbias (bf16)", "attention.py:271",
                                   "attention_tc.cu", ATTN_TC, "attention_bwd",
                                   "bert_bf16_dropout_off"),
+    # the f32 forms (phase 10), each with its own counter
+    "geglu_ff_f32": _kernel("fused_geglu_ff (f32)", "ffn.py:105", "gemm.cu",
+                            ["layernorm.cu", "gemm.cu"], "geglu_ff_f32", "maskgit_f32_train"),
+    "geglu_ff_bwd_f32": _kernel("_pallas_ff_bwd (f32)", "ffn.py:238", "gemm.cu",
+                                ["layernorm.cu", "gemm.cu"], "geglu_ff_bwd_f32",
+                                "maskgit_f32_train"),
+    "spatial_attention_f32": _kernel("fused_spatial_qknorm_attention (f32)",
+                                     "spatial_attention.py:276", "attention.cu",
+                                     ["layernorm.cu", "gemm.cu", "attention.cu"],
+                                     "spatial_attention_f32", "zero_shot_f32_rows"),
+    "grid_attention_f32": _kernel("fused_small_qknorm_attention_grid (f32)",
+                                  "small_attention.py:196", "attention.cu",
+                                  ["layernorm.cu", "gemm.cu", "attention.cu"],
+                                  "grid_attention_f32", "zero_shot_f32_rows"),
+    "seq_attention_f32": _kernel("fused_small_qknorm_attention (f32)",
+                                 "small_attention.py:196", "attention.cu",
+                                 ["layernorm.cu", "gemm.cu", "attention.cu"],
+                                 "seq_attention_f32", "maskgit_f32_encode_ids"),
+    "vq_assign_f32": _kernel("pallas_assign (f32 rows)", "vq.py:104", "gemm.cu", ["gemm.cu"],
+                             "vq_assign_f32", "zero_shot_f32_rows"),
+    "rearrange_patches_f32": _kernel("rearrange_patches (f32)", "patchify.py:105",
+                                     "rearrange.cu", ["rearrange.cu"], "rearrange_patches_f32",
+                                     "zero_shot_f32_rows"),
+    "unrearrange_patches_f32": _kernel("_pallas_unrearrange (f32)", "patchify.py:138",
+                                       "rearrange.cu", ["rearrange.cu"],
+                                       "unrearrange_patches_f32", "maskgit_f32_sample"),
 }
 # launch counters each driven path must raise
 COMMON = ["spatial_attention", "grid_attention", "geglu_ff", "vq_assign",
@@ -337,6 +380,21 @@ PATHS["maskgit_sample"] = ["attention_dense", "fused_attention", "attention_tc",
                            "seq_attention", "spatial_attention", "unrearrange_patches"]
 PATHS["maskgit_sample_primed"] = PATHS["maskgit_sample"] + ["patch_embed", "vq_assign"]
 PATHS["t5_no_mask"] = ["attention_dense"]
+# phase 10: f32 zero-shot (the f32 forms of K1, K2 grid, K3, K5 on f32 rows,
+# K6; the embeds on their plain route, K7 f32 for the prompts) and the f32
+# MaskGIT stage (the frozen f32 CTViT's encode, K3 / K11 f32, K7 dense / K12b
+# f32, the PEG's plain dW; sampling's decoder with K2 seq, K1, K3 and K17 f32)
+F32_ZS = ["spatial_attention_f32", "grid_attention_f32", "geglu_ff_f32", "vq_assign_f32",
+          "fused_attention"]
+PATHS["zero_shot_f32_rows"] = F32_ZS + ["rearrange_patches_f32", "row_embed_plain"]
+PATHS["zero_shot_f32_volume"] = F32_ZS + ["patch_embed_plain"]
+PATHS["maskgit_f32_encode_ids"] = ["patch_embed_plain", "spatial_attention_f32",
+                                   "seq_attention_f32", "geglu_ff_f32", "vq_assign_f32"]
+PATHS["maskgit_f32_train"] = ["geglu_ff_f32", "geglu_ff_bwd_f32", "attention_dense",
+                              "attention_dense_bwd", "fused_attention", "peg_dw_plain"]
+PATHS["maskgit_f32_sample"] = ["attention_dense", "fused_attention", "geglu_ff_f32",
+                               "seq_attention_f32", "spatial_attention_f32",
+                               "unrearrange_patches_f32"]
 # the paths on a non-cubic grid must not take the grid form, and back
 GRID_COUNTERS = ("grid_attention", "grid_attention_bwd")
 SEQ_COUNTERS = ("seq_attention", "seq_attention_bwd")
@@ -1114,8 +1172,11 @@ def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
             x, embed_n = case["inputs"]
             from ct_clip_tpu_torch.ops.vq import split_hi_lo
 
-            hi, lo = split_hi_lo(embed_n)
-            sims = [x.float() @ hi.float().t() + x.float() @ lo.float().t()]
+            if case.get("sim"):  # the similarities of the kernel's own math
+                sims = [case["sim"]()]
+            else:
+                hi, lo = split_hi_lo(embed_n)
+                sims = [x.float() @ hi.float().t() + x.float() @ lo.float().t()]
             gi, ri = got[0].long(), ref[0].long()
             gap = (sims[0].gather(1, ri[:, None]) - sims[0].gather(1, gi[:, None])).abs()[:, 0]
             agree = (gi == ri).float().mean().item()
@@ -1123,11 +1184,22 @@ def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
             ok = agree >= 0.999 and bool((gap <= 1e-5 * margin).all())
             res = dict(max_abs_err=gap.max().item(), max_rel_err=None, id_agreement=agree,
                        tolerance=">= 0.999 ids equal, the rest ties within 1e-5")
+            if case.get("f32_plain"):  # the share equal to the full-f32 plain version
+                res["id_agreement_full_f32"] = (gi == case["f32_plain"]().long()).float() \
+                    .mean().item()
+                log(f"kernel {name}: ids equal to the full-f32 plain version's "
+                    f"{res['id_agreement_full_f32']:.6f} (reported)")
             del sims
         elif case.get("exact"):  # a move: bit for bit
             err, rel = _rel_errors(got, ref)
             ok = all(torch.equal(g, r) for g, r in zip(got, ref))
             res = dict(max_abs_err=err, max_rel_err=rel, tolerance="bit-exact")
+        elif case.get("tols"):  # one tolerance per output
+            rels = [_rel_errors((g,), (r,))[1] for g, r in zip(got, ref)]
+            err = _rel_errors(got, ref)[0]
+            ok = all(r <= t for r, t in zip(rels, case["tols"]))
+            res = dict(max_abs_err=err, max_rel_err=max(rels), rel_err_by_output=rels,
+                       tolerance=f"rel {case['tols']} by output")
         else:
             err, rel = _rel_errors(got, ref)
             ok = rel <= case["tol"]
@@ -1597,6 +1669,20 @@ def radbert_phase(dev, work: Path, card: str) -> dict:
 
 
 # ---------------------------------------------------------------- phase 5
+def tiny_zero_shot_config():
+    """The tiny CT-CLIP of the small-input references (3 x 3 x 3 tokens of
+    width 64, a 2-layer BERT of width 64)."""
+    from ct_clip_tpu_torch.config import BertConfig, CTCLIPConfig, CTViTConfig
+
+    return CTCLIPConfig(
+        dim_text=64, dim_image=9 * 64, dim_latent=32,
+        ctvit=CTViTConfig(dim=64, codebook_size=128, image_size=48, patch_size=16,
+                          temporal_patch_size=4, num_frames=12, spatial_depth=2,
+                          temporal_depth=2, dim_head=16, heads=4),
+        bert=BertConfig(vocab_size=64, hidden_size=64, num_hidden_layers=2,
+                        num_attention_heads=4, intermediate_size=128))
+
+
 def small_reference_phase(dev, work: Path):
     """Tiny CT-CLIP: card (kernels) vs CPU (plain versions), same weights,
     both bf16, from volumes (K8) and from patch rows (K6 on the card, K4).
@@ -1605,19 +1691,12 @@ def small_reference_phase(dev, work: Path):
     latents ~1% apart)."""
     import torch
 
-    from ct_clip_tpu_torch.config import BertConfig, CTCLIPConfig, CTViTConfig
     from ct_clip_tpu_torch.inference import ZeroShotClassifier
     from ct_clip_tpu_torch.models import CTCLIP
     from ct_clip_tpu_torch.data import WordPieceTokenizer
     from ct_clip_tpu_torch.ops.patch_embed import rearrange_patches
 
-    cfg = CTCLIPConfig(
-        dim_text=64, dim_image=9 * 64, dim_latent=32,
-        ctvit=CTViTConfig(dim=64, codebook_size=128, image_size=48, patch_size=16,
-                          temporal_patch_size=4, num_frames=12, spatial_depth=2,
-                          temporal_depth=2, dim_head=16, heads=4),
-        bert=BertConfig(vocab_size=64, hidden_size=64, num_hidden_layers=2,
-                        num_attention_heads=4, intermediate_size=128))
+    cfg = tiny_zero_shot_config()
     tok = WordPieceTokenizer(str(work / "vocab.txt"))
     cpu = CTCLIP(cfg, dtype=torch.bfloat16).eval()
     cpu.init_weights(torch.Generator().manual_seed(1))
@@ -1761,7 +1840,7 @@ CTCLIP_GROUPS = (
     TC_FWD_GROUP,
     ("K11 GEGLU FF backward tile (ff_bwd_kernel)", ("ff_bwd_kernel",)),
     ("backward products NN/TN + split sums (gemm_layout_kernel, sum_splits)",
-     ("gemm_layout_kernel", "sum_splits_kernel")),
+     ("gemm_layout_kernel", "gemm_layout_f32_kernel", "sum_splits_kernel")),
     ("K9/K10 attention core backward (qk_attention_bwd_kernel)", ("qk_attention_bwd_kernel",)),
     ("LayerNorm backward (ln_bwd_kernel)", ("ln_bwd_kernel",)),
     ("K14 PEG dW/db (peg_dw_kernel)", ("peg_dw_kernel",)),
@@ -1770,7 +1849,8 @@ CTCLIP_GROUPS = (
     ("K5 exact assignment (gemm_argmax2_kernel)", ("gemm_argmax2",)),
     ("forward products K1-K3 (gemm_kernel) and LN (ln_kernel)", ("gemm_kernel<",
                                                                  "ln_kernel")),
-    ("K1/K2 attention core forward (attention_kernel)", ("attention_kernel",)),
+    ("K1/K2 attention core forward (attention_kernel)", ("attention_kernel",
+                                                        "attention_f32_kernel")),
     ("CUDA-core attention forward (attention_train.cu)", ("fwd_kernel<",)),
     ("CUDA-core attention backward (attention_train.cu)", ("bwd_dq_kernel", "bwd_dkv_kernel",
                                                            "rowdot_kernel", "dkb_sum")),
@@ -2934,9 +3014,9 @@ def maskgit_models(dev, dtype, seed: int = 0):
     return maskgit, critic
 
 
-def bert_embedder(dev, vocab: str):
-    """The full-width CXR-BERT tower, seeded, bf16, eval, as a text embedder
-    (max length 512, pad rows zeroed)."""
+def bert_embedder(dev, vocab: str, dtype=None):
+    """The full-width CXR-BERT tower, seeded, bf16 (or `dtype`), eval, as a
+    text embedder (max length 512, pad rows zeroed)."""
     import torch
 
     from ct_clip_tpu_torch.config import BertConfig
@@ -2945,7 +3025,7 @@ def bert_embedder(dev, vocab: str):
     from ct_clip_tpu_torch.models.ctvit import init_param_
     from ct_clip_tpu_torch.models.t5 import bert_text_embedder
 
-    bert = BertModel(BertConfig(), dtype=torch.bfloat16, device=dev).eval()
+    bert = BertModel(BertConfig(), dtype=dtype or torch.bfloat16, device=dev).eval()
     g = torch.Generator(device=dev).manual_seed(3)
     for name, t in bert.named_parameters():
         init_param_(name, t, g)
@@ -3123,12 +3203,13 @@ def tiny_maskgit_side(cfg, start, inputs, device, dtype, lr: float, folder: Path
     ids, ctx = ids.to(device), ctx.to(device)
     model = MaskGit(cfg, 64, dtype=dtype, device=device)
     model.load_state_dict(start)
-    before = K.launch_counts()["attention_tc_bwd"]
+    # K12b: bf16 on the tensor cores, f32 on the CUDA cores (attention_train.cu)
+    counter = "attention_tc_bwd" if dtype == torch.bfloat16 else "attention_dense_bwd"
+    before = K.launch_counts()[counter]
     loss, _ = maskgit_train_loss(model, ids, grid, context=ctx, draws=draws)
     loss.backward()
-    if device.type == "cuda" and K.launch_counts()["attention_tc_bwd"] == before:
-        raise AssertionError("tiny MaskGit: the self-attention did not run K12b on the "
-                             "tensor cores")
+    if device.type == "cuda" and K.launch_counts()[counter] == before:
+        raise AssertionError(f"tiny MaskGit: the self-attention did not run K12b ({counter})")
     grads = {n: p.grad.float().cpu().clone() for n, p in model.named_parameters()
              if p.grad is not None}
     model.load_state_dict(start)
@@ -3185,6 +3266,464 @@ def tiny_maskgit_phase(dev, work: Path) -> dict:
         cfg, start, (ids, ctx, draws, grid), device, dtype, lr,
         work / f"tiny_maskgit_{device.type}"), start, lr, maskgit_planted_faults(),
         "MaskGit", vq_prefix=None)
+    return res
+
+
+# ---------------------------------------------------------------- phase 10
+# f32 on the card: the f32 forms of K1, K2, K3, K11, K5 (f32 rows), K6 and
+# K17, CT-CLIP zero-shot and the MaskGIT stage at the JAX package's default
+# dtype.  Every product in true f32 (TF32 off, as main() sets it).
+def f32_kernel_cases(dev):
+    """The f32 forms at the shapes of their main paths, each against its
+    plain version in true f32: K3 at MaskGIT's 10,240 x 512 -> 2 x 1,365 ->
+    512 and zero-shot's 27,648 rows, K11 at MaskGIT's rows, K1 on the
+    zero-shot batch's (48, 576, 512) planes and the autoencoder's (160, 64,
+    512), K2 grid on the zero-shot grid and K2 seq at (512, 20, 512), K5 on
+    the zero-shot batch's f32 rows, K6 on one f32 volume into its slot and
+    K17 on the sampler's decoded rows.  Bounds at the f32 CUDA-core peak."""
+    import torch
+
+    from ct_clip_tpu_torch.ops.ffn import fused_geglu_ff, geglu_ff_bwd_plain, geglu_ff_plain
+    from ct_clip_tpu_torch.ops.norms import l2norm
+    from ct_clip_tpu_torch.ops.patch_embed import (rearrange_patches, rearrange_plain,
+                                                   unrearrange_patches, unrearrange_plain)
+    from ct_clip_tpu_torch.ops.qknorm_attention import (
+        fused_grid_qknorm_attention, fused_small_qknorm_attention,
+        fused_spatial_qknorm_attention, grid_qknorm_attention_plain, qknorm_attention_plain)
+    from ct_clip_tpu_torch.ops.vq import vq_assign, vq_assign_plain, vq_assign_rows_plain
+
+    g = torch.Generator(device=dev).manual_seed(40)
+    f32 = torch.float32
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    dim, heads, dh, hd, inner = 512, 8, 32, 256, 1365
+    mg_rows, zs_rows = MG_B * 1280, B * 13824
+    f32_case = dict(peak=PEAK_F32_FLOPS, library=None)
+
+    # K3, K11
+    w_ff = (1 + rn(dim, scale=0.1), rn(dim, scale=0.1), rn(2 * inner, dim, scale=dim ** -0.5),
+            rn(dim, inner, scale=inner ** -0.5))
+    for name, rows in (("geglu_ff_f32", mg_rows), ("geglu_ff_f32_zero_shot", zs_rows)):
+        x = rn(rows, dim)
+        yield name, dict(f32_case, kern=lambda x=x: fused_geglu_ff(x, *w_ff),
+                         plain=lambda x=x: geglu_ff_plain(x, *w_ff), inputs=(x, *w_ff),
+                         outputs=(x,), flops=2 * rows * dim * 3 * inner, tol=TC32_REL_TOL)
+        del x
+    x, do = rn(mg_rows, dim), rn(mg_rows, dim)
+    leaves = [t.clone().requires_grad_() for t in (x, *w_ff)]
+    out = fused_geglu_ff(*leaves)
+    # dx to TC32_REL_TOL; dscale, dbias, dwi, dwo sum over all 10,240 rows
+    yield "geglu_ff_bwd_f32", dict(
+        f32_case, kern=lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+        plain=lambda: geglu_ff_bwd_plain(x, *w_ff, do), inputs=(x, do, *w_ff),
+        outputs=(x, *w_ff), flops=2 * mg_rows * dim * 8 * inner,
+        tols=(TC32_REL_TOL,) + (F32_REL_TOL,) * 4)
+    del x, do, leaves, out
+
+    # K1, K2
+    w_attn = (1 + rn(dim, scale=0.1), rn(hd, dim, scale=dim ** -0.5),
+              rn(2 * hd, dim, scale=dim ** -0.5), 1 + rn(dh, scale=0.2),
+              1 + rn(dh, scale=0.2), rn(dim, hd, scale=hd ** -0.5))
+
+    def proj(rows):
+        return 2 * rows * dim * (hd + 2 * hd + hd)
+    for name, (b, n) in (("spatial_attention_f32", (B * 24, 576)),
+                         ("spatial_attention_f32_n64", (MG_B * 20, 64))):
+        xs, cpb = rn(b, n, dim), rn(heads, n, n)
+        yield name, dict(
+            f32_case, kern=lambda xs=xs, cpb=cpb: fused_spatial_qknorm_attention(
+                xs, *w_attn, cpb, heads, dh),
+            plain=lambda xs=xs, cpb=cpb: qknorm_attention_plain(xs, *w_attn, cpb, heads, dh),
+            inputs=(xs, *w_attn, cpb), outputs=(xs,),
+            flops=proj(b * n) + 4 * b * heads * n * n * dh, tol=TC32_REL_TOL)
+        del xs, cpb
+    xg = rn(B, 24, 576, dim)
+    yield "grid_attention_f32", dict(
+        f32_case, kern=lambda: fused_grid_qknorm_attention(xg, *w_attn, heads, dh),
+        plain=lambda: grid_qknorm_attention_plain(xg, *w_attn, heads, dh),
+        inputs=(xg, *w_attn), outputs=(xg,),
+        flops=proj(B * 24 * 576) + 4 * B * 576 * heads * 24 * 24 * dh, tol=TC32_REL_TOL)
+    del xg
+    xq = rn(MG_B * 64, 20, dim)
+    yield "seq_attention_f32", dict(
+        f32_case, kern=lambda: fused_small_qknorm_attention(xq, *w_attn, heads, dh),
+        plain=lambda: qknorm_attention_plain(xq, *w_attn, None, heads, dh),
+        inputs=(xq, *w_attn), outputs=(xq,),
+        flops=proj(MG_B * 64 * 20) + 4 * MG_B * 64 * heads * 20 * 20 * dh,
+        tol=TC32_REL_TOL)
+    del xq
+
+    # K5 on f32 rows: ids against the plain version of the kernel's own math
+    xv, embed_n = rn(zs_rows, dim), l2norm(rn(8192, dim))
+
+    def rows_sim():
+        xn = xv * torch.rsqrt(torch.clamp_min((xv * xv).sum(-1, keepdim=True), 1e-24))
+        return xn.to(torch.bfloat16).float() @ embed_n.to(torch.bfloat16).float().t()
+    yield "vq_assign_f32", dict(
+        f32_case, kern=lambda: vq_assign(xv, embed_n),
+        plain=lambda: vq_assign_rows_plain(xv, embed_n), sim=rows_sim,
+        f32_plain=lambda: vq_assign_plain(xv, embed_n), inputs=(xv, embed_n),
+        outputs=(torch.empty(zs_rows, dtype=torch.int32, device=dev),),
+        flops=2 * zs_rows * dim * 8192, peak=PEAK_BF16_FLOPS, ids=True)
+    del xv, embed_n
+
+    # K6 on one f32 volume into the last slot of the batch buffer; K17 on the
+    # sampler's decoded (1, 1,280, 2,560) pixel rows
+    video = rn(1, 240, 480, 480)
+    slot = torch.empty((B, 13824, 4000), dtype=f32, device=dev)[-1:]
+    yield "rearrange_patches_f32", dict(
+        f32_case, kern=lambda: rearrange_patches(video, 10, 20, out=slot),
+        plain=lambda: rearrange_plain(video, 10, 20),
+        library=lambda: video.reshape(1, 24, 10, 24, 20, 24, 20)
+        .permute(0, 1, 3, 5, 2, 4, 6).contiguous(),
+        inputs=(video,), outputs=(video,), flops=0, exact=True)
+    del video, slot
+    cfg = ae_config()
+    pt, p, hw = cfg.temporal_patch_size, cfg.patch_size, cfg.image_size
+    t, h = AE_FRAMES // pt, hw // p
+    pix = rn(1, t * h * h, cfg.patch_dim)
+    yield "unrearrange_patches_f32", dict(
+        f32_case, kern=lambda: unrearrange_patches(pix, pt, p, AE_FRAMES, hw, hw),
+        plain=lambda: unrearrange_plain(pix, pt, p, AE_FRAMES, hw, hw),
+        library=lambda: pix.reshape(1, t, h, h, pt, p, p).permute(0, 1, 4, 2, 5, 3, 6)
+        .contiguous(), inputs=(pix,), outputs=(pix,), flops=0, exact=True)
+
+
+def f32_kernel_phase(dev) -> dict:
+    """`f32_kernel_cases` through `train_kernel_phase`, the second shapes
+    nested under their kernel's entry."""
+    res = train_kernel_phase(dev, f32_kernel_cases(dev), MG_B)
+    res["geglu_ff_f32"]["at_zero_shot"] = res.pop("geglu_ff_f32_zero_shot")
+    res["spatial_attention_f32"]["at_n64"] = res.pop("spatial_attention_f32_n64")
+    return res
+
+
+# the launches an f32 zero-shot run must show: the same per kernel as the
+# bf16 run on the same corpus, on the f32 forms, and the plain embed route
+F32_ZS_SAME = ("spatial_attention", "grid_attention", "geglu_ff", "vq_assign",
+               "fused_attention")
+
+
+def zero_shot_f32_phase(dev, work: Path, card: str, bf16_counts: dict) -> dict:
+    """`run_zero_shot` with CTCLIP(CTCLIPConfig(), dtype=float32) on 3
+    synthetic 240 x 480 x 480 volumes, batch 2, on both routes: P(present)
+    finite, (3, 18), in [0, 1], the routes within ROUTE_TOL; the launches
+    per kernel equal the bf16 run's, on the f32 forms, with the plain embed
+    route counted; `score_batch` device ms (CUDA events) and peak memory."""
+    import torch
+
+    from ct_clip_tpu_torch.config import CTCLIPConfig
+    from ct_clip_tpu_torch.data import CTReportDatasetInfer, WordPieceTokenizer
+    from ct_clip_tpu_torch.inference import ZeroShotClassifier, run_zero_shot
+    from ct_clip_tpu_torch.models import CTCLIP
+
+    root = work / "f32"
+    root.mkdir()
+    paths = write_corpus(root, [(256, 256, 60)] * 3, 1.5, 6.0)
+    tok = WordPieceTokenizer(str(root / "vocab.txt"))
+    ds = CTReportDatasetInfer(*paths)
+    model = CTCLIP(CTCLIPConfig(), dtype=torch.float32, device=dev).eval()
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    counts, outs = {}, {}
+    for name, rows, bf16_name, embed in (
+            ("zero_shot_f32_rows", None, "zero_shot_rows", ("row_embed_plain", "row_embed")),
+            ("zero_shot_f32_volume", False, "zero_shot_volume",
+             ("patch_embed_plain", "patch_embed"))):
+        results = root / name
+        outs[name], counts[name], secs = drive(name, lambda: run_zero_shot(
+            model, tok, ds, str(results), batch_size=B, num_workers=2, patch_rows=rows))
+        check_predictions(name, outs[name], results)
+        c, cb = counts[name], bf16_counts[bf16_name]
+        want = {k: cb[k] for k in F32_ZS_SAME}
+        want.update({f"{k}_f32": cb[k] for k in F32_ZS_SAME if k != "fused_attention"})
+        want[embed[0]] = cb[embed[1]]
+        got = {k: c[k] for k in want}
+        log(f"e2e {name}: run_zero_shot in f32 scored 3 volumes in {secs:.2f} s host clock; "
+            f"launches {got}, the bf16 run's {want}")
+        if got != want or c[embed[1]] or c["attention_tc"]:
+            raise AssertionError(f"{name}: launches {got}, want {want}")
+    diff = float(np.abs(outs["zero_shot_f32_rows"]["predicted"]
+                        - outs["zero_shot_f32_volume"]["predicted"]).max())
+    log(f"e2e f32: P(present) rows route vs volume route max abs diff {diff:.4e} "
+        f"(tol {ROUTE_TOL})")
+    if diff > ROUTE_TOL:
+        raise AssertionError(f"the f32 zero-shot routes disagree: {diff}")
+
+    clf = ZeroShotClassifier(model, tok)
+    vcfg = model.config.ctvit
+    g = torch.Generator(device=dev).manual_seed(3)
+    shapes = {"zero_shot_f32_rows": (B, vcfg.patch_t * vcfg.patch_hw ** 2, vcfg.patch_dim),
+              "zero_shot_f32_volume": (B, vcfg.num_frames, vcfg.image_size,
+                                       vcfg.image_size, 1)}
+    batch_ms, peak_gb = {}, {}
+    with torch.inference_mode():
+        clf.prompt_latents()
+        for name, shape in shapes.items():
+            x = torch.rand(shape, generator=g, device=dev) * 2 - 1
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            clf.score_batch(x)
+            torch.cuda.synchronize()
+            peak_gb[name] = torch.cuda.max_memory_allocated() / 1e9
+            batch_ms[name] = cuda_ms(lambda: clf.score_batch(x), reps=5)
+            log(f"e2e {name}: score_batch({B}) in f32 {batch_ms[name]:.2f} ms = "
+                f"{B / batch_ms[name] * 1e3:.2f} volumes/s device-side, peak memory "
+                f"{peak_gb[name]:.2f} GB on {card}")
+            del x
+    del model, clf
+    torch.cuda.empty_cache()
+    return dict(counts=counts, route_max_abs_diff=diff, score_batch_ms=batch_ms,
+                score_batch_peak_gb=peak_gb)
+
+
+def small_reference_f32_phase(dev, work: Path) -> dict:
+    """`small_reference_phase` in f32: the tiny CT-CLIP scores the same
+    volumes on the card (K1, K2, K3 f32; K5 and the embeds by the JAX
+    package's gates, the plain versions at this width) and on the CPU (plain
+    versions), both f32, from volumes and from patch rows (K6 f32 on the
+    card): P(present) and the image latents within F32_REL_TOL of max."""
+    import torch
+
+    from ct_clip_tpu_torch.data import WordPieceTokenizer
+    from ct_clip_tpu_torch.inference import ZeroShotClassifier
+    from ct_clip_tpu_torch.models import CTCLIP
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.patch_embed import rearrange_patches
+
+    cfg = tiny_zero_shot_config()
+    tok = WordPieceTokenizer(str(work / "vocab.txt"))
+    cpu = CTCLIP(cfg).eval()
+    cpu.init_weights(torch.Generator().manual_seed(1))
+    gpu = CTCLIP(cfg, device=dev).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    video = torch.rand((3, 12, 48, 48, 1), generator=torch.Generator().manual_seed(2)) * 2 - 1
+    ref_clf = ZeroShotClassifier(cpu, tok, max_text_len=64)
+    gpu_clf = ZeroShotClassifier(gpu, tok, max_text_len=64)
+    errs = {}
+    for route in ("volume", "rows"):
+        x = video if route == "volume" else rearrange_patches(video[..., 0], 4, 16)
+        xg = video.to(dev) if route == "volume" else rearrange_patches(
+            video[..., 0].to(dev), 4, 16)
+        K.reset_launch_counts()
+        with torch.inference_mode():
+            ref_lat = cpu.encode_image(x, ref_clf.spatial_bias())[0]
+            got_lat = gpu.encode_image(xg, gpu_clf.spatial_bias())[0].cpu()
+            ref, got = ref_clf.score_batch(x), gpu_clf.score_batch(xg).cpu()
+        counts = K.launch_counts()
+        errs[route] = dict(
+            p_rel=(got - ref).abs().max().item() / ref.abs().max().item(),
+            latents_rel=(got_lat - ref_lat).abs().max().item() / ref_lat.abs().max().item())
+        log(f"reference: tiny CT-CLIP in f32 from {route}, card vs CPU: P(present) "
+            f"{errs[route]['p_rel']:.2e}, image latents {errs[route]['latents_rel']:.2e} of max "
+            f"(tol {F32_REL_TOL}); f32 launches "
+            f"{ {k: v for k, v in counts.items() if k.endswith('_f32') and v} }")
+        if got.shape != (3, 18) or not torch.isfinite(got).all() \
+                or max(errs[route].values()) > F32_REL_TOL \
+                or not (counts["spatial_attention_f32"] and counts["grid_attention_f32"]
+                        and counts["geglu_ff_f32"]):
+            raise AssertionError(f"small-input f32 reference ({route}) disagrees: {errs}")
+    return errs
+
+
+def maskgit_f32_phase(dev, work: Path, card: str) -> dict:
+    """MaskGIT at the JAX package's default f32: `MaskGitTrainer` with the
+    MaskGit and the TokenCritic as MaskGitConfig() in f32, over the codes of
+    8 synthetic 200 x 128 x 128 volumes from a frozen f32 CTViT(ae_config())
+    (K8 plain route, K1 and K2 seq f32, K3 f32, K5 on f32 rows), with an f32
+    CXR-BERT context of 8 reports: 4 steps with finite losses, the launches
+    per step (K3 f32, K11 f32, K7 dense f32 and K12b f32 on the CUDA cores,
+    the critic's no-bias backward, the PEG's dW on the plain route, K14
+    none), the median step of steps 2-4
+    (CUDA events), peak memory and a profiled step's idle share; then
+    `MaskGITPipeline.sample` of 1 volume in f32 (K17 f32 in the decoder)."""
+    import torch
+
+    from ct_clip_tpu_torch.data.generatect import VideoDataset
+    from ct_clip_tpu_torch.models import CTViT, MaskGITPipeline
+    from ct_clip_tpu_torch.train import MaskGitTrainer
+
+    f32 = torch.float32
+    cfg = ae_config()
+    grid = (AE_FRAMES // cfg.temporal_patch_size, cfg.patch_hw, cfg.patch_hw)
+    ds = VideoDataset(str(write_volumes(work / "maskgit_f32", MG_B, (128, 128, 201), 19)),
+                      num_frames=AE_FRAMES, image_size=cfg.image_size)
+    video = torch.from_numpy(np.stack([ds[i] for i in range(len(ds))]))[..., None].to(dev)
+    ctvit = CTViT(cfg, dtype=f32, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(0))
+    vocab = write_vocab(work / "maskgit_f32_vocab.txt")
+    texts = report_texts(write_reports(work / "maskgit_f32_reports.csv", MG_B, 20))
+    embed = bert_embedder(dev, vocab, f32)
+    context = embed(texts)
+    maskgit, critic = maskgit_models(dev, f32)
+    trainer = MaskGitTrainer(maskgit, ctvit, critic, results_folder=str(work / "maskgit_f32_run"),
+                             save_model_every=10 ** 9)
+    counts = {}
+    ids, counts["maskgit_f32_encode_ids"], enc_s = drive("maskgit_f32_encode_ids",
+                                                          lambda: trainer.encode_ids(video))
+    if ids.shape != (MG_B, *grid) or context.dtype != f32:
+        raise AssertionError(f"maskgit f32: ids {tuple(ids.shape)}, context {context.dtype}")
+    first, counts["maskgit_f32_train"], _ = drive(
+        "maskgit_f32_train", lambda: trainer.train_step(ids, grid, context=context))
+    torch.cuda.reset_peak_memory_stats()
+    logs = [first]
+    step_ms = cuda_step_ms(lambda: logs.append(trainer.train_step(ids, grid, context=context)),
+                           MG_STEPS - 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(step_ms)
+    c = counts["maskgit_f32_train"]
+    per_step = {k: c[k] for k in ("geglu_ff_f32", "geglu_ff_bwd_f32", "attention_dense",
+                                  "attention_dense_bwd", "fused_attention", "attention_bwd",
+                                  "attention_tc", "attention_tc_bwd", "peg_dw_plain", "peg_bwd")}
+    log(f"maskgit f32 step: batch {MG_B} x {int(np.prod(grid)):,} tokens, full width, f32, "
+        f"CXR-BERT f32 context {tuple(context.shape)}, critic on: median {med:.2f} ms of steps "
+        f"2-4 {[round(t, 2) for t in step_ms]} = {MG_B / med * 1e3:.2f} volumes/s; peak "
+        f"memory {peak_gb:.2f} GB; losses {[round(x['loss'], 4) for x in logs]}, critic "
+        f"{[round(x['critic_loss'], 4) for x in logs]}; launches in one step {per_step} on {card}")
+    if not all(np.isfinite([x["loss"], x["critic_loss"]]).all() for x in logs):
+        raise AssertionError(f"maskgit f32: losses not finite: {logs}")
+    # 6 + 6 layers: the MaskGit's K7 dense / K12b and the critic's no-bias
+    # K7 in f32 on the CUDA cores (attention_train.cu, none on the tensor
+    # cores), whose no-bias backward that source counts as K12a
+    # (attention_bwd); every FF forward on K3's f32 form, its backward on
+    # K11's; every PEG dW on the plain route (K14 none)
+    want = dict(attention_dense=6, fused_attention=6, attention_dense_bwd=6, attention_bwd=6,
+                attention_tc=0, attention_tc_bwd=0, peg_bwd=0, geglu_ff_f32=c["geglu_ff"],
+                geglu_ff_bwd_f32=c["geglu_ff_bwd"])
+    if any(per_step[k] != n for k, n in want.items()) or not (
+            per_step["geglu_ff_f32"] and per_step["geglu_ff_bwd_f32"] and per_step["peg_dw_plain"]):
+        raise AssertionError(f"maskgit f32: launches per step {per_step}, want {want}")
+    breakdown = profile_step(lambda: trainer.train_step(ids, grid, context=context),
+                             MG_GROUPS, "maskgit f32")
+
+    pipe = MaskGITPipeline(ctvit, maskgit, critic=critic, text_embed_fn=embed)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    vols, counts["maskgit_f32_sample"], sample_s = drive(
+        "maskgit_f32_sample", lambda: pipe.sample(num_frames=AE_FRAMES, texts=texts[:1],
+                                                  generator=gen))
+    hw = cfg.image_size
+    log(f"maskgit f32 sample: 1 volume {tuple(vols.shape)} {vols.dtype} in {sample_s:.2f} s host "
+        f"clock (18 steps, cond scale 3, critic, text embedding and decoder included) on {card}")
+    if vols.shape != (1, AE_FRAMES, hw, hw, 1) or vols.dtype != f32 or not torch_finite(vols):
+        raise AssertionError(f"maskgit f32 sample: {tuple(vols.shape)} {vols.dtype}")
+    del trainer, maskgit, critic, ctvit, pipe, vols, video, context
+    torch.cuda.empty_cache()
+    return dict(counts=counts, encode_ids_s=enc_s, step_ms=med, step_ms_all=step_ms,
+                volumes_per_s=MG_B / med * 1e3, peak_gb=peak_gb, step_breakdown=breakdown,
+                losses=[x["loss"] for x in logs], critic_losses=[x["critic_loss"] for x in logs],
+                launches_per_step=per_step, sample_s_per_volume=sample_s)
+
+
+# the tiny f32 MaskGit step, card against CPU, both f32: as the tiny RadBERT
+# f32 step (`radbert_reference_phase`)
+F32_GRAD_TOL = 1e-4  # x each gradient's largest entry
+F32_WEIGHT_TOL = 1e-5  # abs, the weights after the step
+F32_NEAR_ZERO = 100  # x the card-CPU gradient difference: Adam's sensitive entries
+
+
+def compare_f32_steps(c: dict, g: dict, start: dict, lr: float):
+    """(readings, failures) of a card f32 step `g` against the CPU's `c`:
+    the loss within 1e-5 relative, each gradient within F32_GRAD_TOL of its
+    largest entry, the weights after the step within F32_WEIGHT_TOL.  Two
+    kinds of entries are held to Adam's first-step bound (2 lr) instead:
+    those of ZERO_GRAD (a zero true gradient, rounding noise on both sides)
+    and those whose CPU gradient lies within F32_NEAR_ZERO times the
+    card-CPU difference of zero: Adam's first step lr g / (|g| + eps) is
+    flat in g but near 0, where it turns a gradient's rounding difference dg
+    into up to lr eps dg / g^2 (and flips with g's sign); they are counted."""
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    grad_rel, grad_worst, weight_abs, weight_worst, free, step_max = 0.0, "", 0.0, "", 0, 0.0
+    for n, ref in c["grads"].items():
+        if not ref.numel():
+            continue
+        diff = (g["grads"][n] - ref).abs()
+        new_c, new_g = c["sd"][n], g["sd"][n]
+        if n.endswith(ZERO_GRAD):
+            step_max = max(step_max, (new_g - start[n].float()).abs().max().item())
+            continue
+        rel = diff.max().item() / max(ref.abs().max().item(), 1e-30)
+        if rel > grad_rel:
+            grad_rel, grad_worst = rel, n
+        undecided = ref.abs() <= F32_NEAR_ZERO * diff
+        free += int(undecided.sum())
+        step_max = max(step_max, (new_g - start[n].float()).abs().max().item())
+        werr = (new_g - new_c).abs()[~undecided]
+        if werr.numel() and werr.max().item() > weight_abs:
+            weight_abs, weight_worst = werr.max().item(), n
+    res = dict(loss_rel=loss_rel, grad_rel=grad_rel, grad_worst=grad_worst,
+               weight_abs=weight_abs, weight_worst=weight_worst, sign_undecided_entries=free,
+               step_max_over_lr=step_max / lr)
+    limits = dict(loss_rel=1e-5, grad_rel=F32_GRAD_TOL, weight_abs=F32_WEIGHT_TOL,
+                  step_max_over_lr=2.0 * (1 + 1e-6))
+    return res, [k for k, lim in limits.items() if res[k] > lim]
+
+
+def f32_planted_faults():
+    """K11 f32 with act rounded to bf16 (the f32 form must keep it f32)."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    core = K.ff_bwd_core
+
+    def act_bf16(*args):
+        act, dcat = core(*args)
+        return act.to(torch.bfloat16).to(act.dtype), dcat
+    return {"K11 f32 with act rounded to bf16": (K, "ff_bwd_core", act_bf16)}
+
+
+def tiny_maskgit_f32_phase(dev, work: Path) -> dict:
+    """The tiny MaskGit step of `tiny_maskgit_phase` in f32 on both sides:
+    the card's K7 dense / K12b f32 (CUDA cores), K3 / K11 f32 and the PEG's
+    plain dW against the CPU's plain versions, held by `compare_f32_steps`;
+    then with K11's act rounded to bf16, which must fail."""
+    import torch
+
+    from ct_clip_tpu_torch.config import MaskGitConfig
+    from ct_clip_tpu_torch.models import MaskGit
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    cfg = MaskGitConfig(dim=128, depth=2, dim_head=64, heads=2, max_seq_len=512, t5_dim=32)
+    lr, grid = 1e-3, (2, 16, 16)
+    n = int(np.prod(grid))
+    g = torch.Generator().manual_seed(14)
+    ids = torch.randint(0, 64, (4, n), generator=g)
+    ctx = torch.randn((4, 6, 32), generator=g)
+    ctx[1, 4:] = 0.0
+    ctx[3, 2:] = 0.0
+    draws = {"step": torch.randint(0, 18, (4,), generator=g),
+             "scores": torch.rand((4, n), generator=g),
+             "keep": torch.tensor([True, True, False, True])}
+    start = {k: t.clone() for k, t in MaskGit(cfg, 64).init_weights(g).state_dict().items()}
+
+    def side(device):
+        return tiny_maskgit_side(cfg, start, (ids, ctx, draws, grid), device, torch.float32,
+                                 lr, work / f"tiny_maskgit_f32_{device.type}_{len(faults)}")
+    faults = {}
+    c = side(torch.device("cpu"))
+    K.reset_launch_counts()
+    res, failures = compare_f32_steps(c, side(dev), start, lr)
+    counts = K.launch_counts()
+    log(f"reference: tiny MaskGit f32 step card vs CPU: loss rel {res['loss_rel']:.2e} (tol "
+        f"1e-5), grads {res['grad_rel']:.2e} of max ({res['grad_worst']}; tol {F32_GRAD_TOL}), "
+        f"updated weights abs {res['weight_abs']:.2e} ({res['weight_worst']}; tol "
+        f"{F32_WEIGHT_TOL}; {res['sign_undecided_entries']} entries whose gradient is within "
+        f"{F32_NEAR_ZERO}x its card-CPU difference of 0 held to the step bound), every step within "
+        f"{res['step_max_over_lr']:.3f} lr (tol 2); K11 f32 launches {counts['geglu_ff_bwd_f32']}")
+    if failures or not counts["geglu_ff_bwd_f32"] or not counts["attention_dense_bwd"]:
+        raise AssertionError(f"tiny MaskGit f32 card vs CPU disagree on {failures}: {res}")
+    res["faults"] = {}
+    for name, (module, attr, broken) in f32_planted_faults().items():
+        faults[name] = broken
+        with replaced(module, attr, broken):
+            fres, ffail = compare_f32_steps(c, side(dev), start, lr)
+        log(f"reference: tiny MaskGit f32 step, planted fault '{name}': grads "
+            f"{fres['grad_rel']:.2e} of max ({fres['grad_worst']}), weights abs "
+            f"{fres['weight_abs']:.2e}; outside {ffail}")
+        if not ffail:
+            raise AssertionError(f"tiny MaskGit f32: planted fault '{name}' passes: {fres}")
+        res["faults"][name] = dict(outside=ffail, **fres)
     return res
 
 
@@ -3257,6 +3796,13 @@ def main() -> int:
         mg = maskgit_phase(dev, work, card)
         counts.update(mg.pop("counts"))
         mg_ref = tiny_maskgit_phase(dev, work)
+        results.update(f32_kernel_phase(dev))
+        zs32 = zero_shot_f32_phase(dev, work, card, counts)
+        counts.update(zs32.pop("counts"))
+        ref32 = small_reference_f32_phase(dev, work)
+        mg32 = maskgit_f32_phase(dev, work, card)
+        counts.update(mg32.pop("counts"))
+        mg32_ref = tiny_maskgit_f32_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3280,7 +3826,9 @@ def main() -> int:
                               "ctclip_aux_tiny_card_vs_cpu": aux_ref, "ctvit_ae": ae,
                               "reconstruct": recon, "ctclip_160": clip160,
                               "ctvit_ae_tiny_card_vs_cpu": ae_ref, "maskgit": mg,
-                              "maskgit_tiny_card_vs_cpu": mg_ref}}),
+                              "maskgit_tiny_card_vs_cpu": mg_ref, "zero_shot_f32": zs32,
+                              "tiny_f32_card_vs_cpu": ref32, "maskgit_f32": mg32,
+                              "maskgit_f32_tiny_card_vs_cpu": mg32_ref}}),
           flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

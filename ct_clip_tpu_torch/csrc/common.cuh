@@ -19,6 +19,19 @@ __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16(v); }
 // between two stages of the reference computation introduces.
 __device__ __forceinline__ float round_bf16(float v) { return bf2f(f2bf(v)); }
 
+// Element-type forms: a kernel templated on its element type T (bf16 or
+// float) reads with to_f and writes with from_f<T>; round_as<T> is the
+// rounding a T tensor between two stages introduces (none for float).  The
+// bf16 instantiations compile to the bf2f / f2bf / round_bf16 code above.
+__device__ __forceinline__ float to_f(bf16 v) { return bf2f(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return f2bf(v); }
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <typename T> __device__ __forceinline__ float round_as(float v) {
+  return to_f(from_f<T>(v));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

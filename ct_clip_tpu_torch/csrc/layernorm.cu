@@ -16,6 +16,12 @@
 //     and ::_pallas_row_embed_bwd (K16b), both with the LN(512) backward
 //     whose column sum of the f32 dx is the projection bias gradient.
 //
+// f32 forms (compile-time template forms on the element type T; the bf16
+// instantiations are the code as it was): f32 rows in and out for the f32
+// K3 / K1 / K2 (ln_kernel), and the backward on f32 x with an f32 dx for the
+// f32 K11 (ln_bwd_kernel).  The patch gather stays bf16: the JAX package
+// runs K8 / K16a in f32 as XLA, and the port takes their plain versions.
+//
 // What bounds it on the H100: memory.  Each row is read once and written
 // once (the patch gather reads 20-element runs of 40 bytes); at batch 2 the
 // patch LN moves 27648 x 4000 x 2 B in and out (~0.44 GB, ~0.13 ms at
@@ -65,10 +71,10 @@ __device__ __forceinline__ int patch_elem_offset(const PatchGeom& g, int e) {
 }
 
 // GATHER: row `row` of the patch rows of the video x; else x[row*D + e].
-template <bool GATHER>
+template <typename T, bool GATHER>
 __global__ void __launch_bounds__(LN_THREADS)
-ln_kernel(const bf16* __restrict__ x, int D, const float* __restrict__ scale,
-          const float* __restrict__ bias, float eps, bf16* __restrict__ out, PatchGeom g) {
+ln_kernel(const T* __restrict__ x, int D, const float* __restrict__ scale,
+          const float* __restrict__ bias, float eps, T* __restrict__ out, PatchGeom g) {
   __shared__ float red[LN_THREADS / 32];
   const size_t row = blockIdx.x;
   float vals[LN_PER];
@@ -79,7 +85,7 @@ ln_kernel(const bf16* __restrict__ x, int D, const float* __restrict__ scale,
   for (int i = 0; i < LN_PER; ++i) {
     const int e = threadIdx.x + i * LN_THREADS;
     float v = 0.0f;
-    if (e < D) v = bf2f(x[src + (GATHER ? patch_elem_offset(g, e) : e)]);
+    if (e < D) v = to_f(x[src + (GATHER ? patch_elem_offset(g, e) : e)]);
     vals[i] = v;
     s += v;
   }
@@ -101,7 +107,7 @@ ln_kernel(const bf16* __restrict__ x, int D, const float* __restrict__ scale,
       float y = (vals[i] - mean) * rstd;
       if (scale) y *= scale[e];
       if (bias) y += bias[e];
-      out[base + e] = f2bf(y);
+      out[base + e] = from_f<T>(y);
     }
   }
 }
@@ -119,11 +125,11 @@ ln_kernel(const bf16* __restrict__ x, int D, const float* __restrict__ scale,
 // backward, patchify.py::_embed_bwd_kernel :278-308): xhat is recomputed
 // from the volume, so no patch tensor is stored, and dx, when asked for,
 // is written as contiguous patch rows for K17.
-template <bool GATHER>
+template <typename T, bool GATHER>
 __global__ void __launch_bounds__(LN_THREADS)
-ln_bwd_kernel(const bf16* __restrict__ x, int rows, int D, const float* __restrict__ scale,
+ln_bwd_kernel(const T* __restrict__ x, int rows, int D, const float* __restrict__ scale,
               const float* __restrict__ dxn, const float* __restrict__ add,
-              const bf16* __restrict__ add2, float eps, bf16* __restrict__ dx,
+              const T* __restrict__ add2, float eps, T* __restrict__ dx,
               float* __restrict__ part_ds, float* __restrict__ part_db,
               float* __restrict__ part_dxs, int rows_per_block, PatchGeom pg) {
   __shared__ float red[LN_THREADS / 32];
@@ -145,7 +151,7 @@ ln_bwd_kernel(const bf16* __restrict__ x, int rows, int D, const float* __restri
 #pragma unroll
     for (int i = 0; i < LN_PER; ++i) {
       const int e = threadIdx.x + i * LN_THREADS;
-      xv[i] = e < D ? bf2f(x[src + off[i]]) : 0.0f;
+      xv[i] = e < D ? to_f(x[src + off[i]]) : 0.0f;
       g[i] = e < D ? dxn[base + e] : 0.0f;
       s += xv[i];
     }
@@ -180,9 +186,9 @@ ln_bwd_kernel(const bf16* __restrict__ x, int rows, int D, const float* __restri
       if (e < D) {
         float v = rstd * (g[i] * sc[i] - m1 - xv[i] * m2);
         if (add) v += add[base + e];
-        if (add2) v += bf2f(add2[base + e]);
+        if (add2) v += to_f(add2[base + e]);
         dxs[i] += v;
-        if (dx) dx[base + e] = f2bf(v);
+        if (dx) dx[base + e] = from_f<T>(v);
       }
     }
   }
@@ -197,17 +203,18 @@ ln_bwd_kernel(const bf16* __restrict__ x, int rows, int D, const float* __restri
   }
 }
 
+template <typename T>
 int launch_ln_bwd(bool gather, const void* x, int rows, int D, const void* scale,
                   const void* dxn, const void* add, const void* add2, float eps, void* dx,
                   void* part_ds, void* part_db, void* part_dxs, int rows_per_block,
                   const PatchGeom& g, void* stream) {
   if (D > LN_THREADS * LN_PER || rows_per_block < 1) return (int)cudaErrorInvalidValue;
   const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  auto kernel = gather ? ln_bwd_kernel<true> : ln_bwd_kernel<false>;
+  auto kernel = gather ? ln_bwd_kernel<T, true> : ln_bwd_kernel<T, false>;
   kernel<<<blocks, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), rows, D, static_cast<const float*>(scale),
+      static_cast<const T*>(x), rows, D, static_cast<const float*>(scale),
       static_cast<const float*>(dxn), static_cast<const float*>(add),
-      static_cast<const bf16*>(add2), eps, static_cast<bf16*>(dx),
+      static_cast<const T*>(add2), eps, static_cast<T*>(dx),
       static_cast<float*>(part_ds), static_cast<float*>(part_db),
       static_cast<float*>(part_dxs), rows_per_block, g);
   return (int)cudaGetLastError();
@@ -225,8 +232,18 @@ CT_EXPORT int ct_layernorm_bwd(const void* x, int rows, int D, const void* scale
                                void* dx, void* part_ds, void* part_db, void* part_dxs,
                                int rows_per_block, void* stream) {
   const PatchGeom g = {0, 0, 0, 0, 0, 0, 0, 0};
-  return launch_ln_bwd(false, x, rows, D, scale, dxn, add, add2, eps, dx, part_ds, part_db,
-                       part_dxs, rows_per_block, g, stream);
+  return launch_ln_bwd<bf16>(false, x, rows, D, scale, dxn, add, add2, eps, dx, part_ds,
+                             part_db, part_dxs, rows_per_block, g, stream);
+}
+
+// The f32 form of ct_layernorm_bwd: x, add2 and dx f32 (dx unrounded).
+CT_EXPORT int ct_layernorm_bwd_f32(const void* x, int rows, int D, const void* scale,
+                                   const void* dxn, const void* add, const void* add2,
+                                   float eps, void* dx, void* part_ds, void* part_db,
+                                   void* part_dxs, int rows_per_block, void* stream) {
+  const PatchGeom g = {0, 0, 0, 0, 0, 0, 0, 0};
+  return launch_ln_bwd<float>(false, x, rows, D, scale, dxn, add, add2, eps, dx, part_ds,
+                              part_db, part_dxs, rows_per_block, g, stream);
 }
 
 // The LN(pt*p*p) backward over the patch rows of the video (B, F, H, W) bf16,
@@ -238,19 +255,36 @@ CT_EXPORT int ct_patch_layernorm_bwd(const void* video, int B, int F, int H, int
                                      int rows_per_block, void* stream) {
   if (pt <= 0 || p <= 0 || F % pt || H % p || W % p) return (int)cudaErrorInvalidValue;
   const PatchGeom g = {F, H, W, pt, p, F / pt, H / p, W / p};
-  return launch_ln_bwd(true, video, B * g.t * g.h * g.w, pt * p * p, scale, dxn, nullptr,
-                       nullptr, eps, dx, part_ds, part_db, nullptr, rows_per_block, g, stream);
+  return launch_ln_bwd<bf16>(true, video, B * g.t * g.h * g.w, pt * p * p, scale, dxn,
+                             nullptr, nullptr, eps, dx, part_ds, part_db, nullptr,
+                             rows_per_block, g, stream);
 }
+
+namespace {
+
+template <typename T>
+int layernorm(const void* x, int rows, int D, const void* scale, const void* bias, float eps,
+              void* out, void* stream) {
+  if (D > LN_THREADS * LN_PER) return (int)cudaErrorInvalidValue;
+  PatchGeom g = {0, 0, 0, 0, 0, 0, 0, 0};
+  ln_kernel<T, false><<<rows, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), D, static_cast<const float*>(scale),
+      static_cast<const float*>(bias), eps, static_cast<T*>(out), g);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 // x (rows, D) bf16 -> out (rows, D) bf16; scale/bias f32 (D,) or null.
 CT_EXPORT int ct_layernorm(const void* x, int rows, int D, const void* scale, const void* bias,
                            float eps, void* out, void* stream) {
-  if (D > LN_THREADS * LN_PER) return (int)cudaErrorInvalidValue;
-  PatchGeom g = {0, 0, 0, 0, 0, 0, 0, 0};
-  ln_kernel<false><<<rows, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), D, static_cast<const float*>(scale),
-      static_cast<const float*>(bias), eps, static_cast<bf16*>(out), g);
-  return (int)cudaGetLastError();
+  return layernorm<bf16>(x, rows, D, scale, bias, eps, out, stream);
+}
+
+// The f32 form: x and out f32.
+CT_EXPORT int ct_layernorm_f32(const void* x, int rows, int D, const void* scale,
+                               const void* bias, float eps, void* out, void* stream) {
+  return layernorm<float>(x, rows, D, scale, bias, eps, out, stream);
 }
 
 // video (B, F, H, W) bf16 -> out (B*t*h*w, pt*p*p) bf16, LN over each patch.
@@ -261,7 +295,7 @@ CT_EXPORT int ct_patch_layernorm(const void* video, int B, int F, int H, int W, 
   if (D > LN_THREADS * LN_PER) return (int)cudaErrorInvalidValue;
   PatchGeom g = {F, H, W, pt, p, F / pt, H / p, W / p};
   const int rows = B * g.t * g.h * g.w;
-  ln_kernel<true><<<rows, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  ln_kernel<bf16, true><<<rows, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(video), D, static_cast<const float*>(scale),
       static_cast<const float*>(bias), eps, static_cast<bf16*>(out), g);
   return (int)cudaGetLastError();

@@ -23,7 +23,13 @@
 // values it gathers from shared memory.  K17 runs the same two stages the
 // other way: 16-byte loads of the rows' runs scattered into the slab, then
 // 16-byte stores of the slab.  Geometries that break 16-byte alignment take
-// the same kernels with 2-byte accesses.
+// the same kernels with one element per access.
+//
+// The f32 forms (a compile-time template form on the element type; the bf16
+// instantiations are the code as it was) move 4-byte elements, as the TPU
+// kernels' f32 blocks do (patchify.py:55-64, 200-215): the f32 zero-shot
+// rows ingest writes f32 rows (K6), and an f32 autoencoder's decoder
+// un-patchifies f32 pixel rows (K17).  An f32 slab is 38.4 KB at full width.
 #include "common.cuh"
 
 namespace {
@@ -35,25 +41,30 @@ struct RowsGeom {
   long long batch_stride, row_stride;  // of the patch rows, in elements
 };
 
-template <int VEC>
+// the access type of VEC elements of BYTES bytes each
+template <int VEC_BYTES>
 struct VecOf;
 template <>
-struct VecOf<1> {
+struct VecOf<2> {
   typedef unsigned short type;
 };
 template <>
-struct VecOf<8> {
+struct VecOf<4> {
+  typedef unsigned int type;
+};
+template <>
+struct VecOf<16> {
   typedef uint4 type;
 };
 
 // One block per (b, ti, hi, z) slab.  INVERSE false: volume -> rows (K6);
 // true: rows -> volume (K17).
-template <int VEC, bool INVERSE>
+template <typename T, int VEC, bool INVERSE>
 __global__ void __launch_bounds__(RA_THREADS)
-rearrange_kernel(const bf16* __restrict__ in, bf16* __restrict__ out, RowsGeom g) {
-  typedef typename VecOf<VEC>::type V;
+rearrange_kernel(const T* __restrict__ in, T* __restrict__ out, RowsGeom g) {
+  typedef typename VecOf<VEC * (int)sizeof(T)>::type V;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* slab = reinterpret_cast<bf16*>(smem_raw);
+  T* slab = reinterpret_cast<T*>(smem_raw);
 
   long long idx = blockIdx.x;
   const int z = (int)(idx % g.pt); idx /= g.pt;
@@ -79,13 +90,13 @@ rearrange_kernel(const bf16* __restrict__ in, bf16* __restrict__ out, RowsGeom g
     const int e0 = (j - wi * segs) * VEC;
     const long long at = rows_off + (row0 + wi) * g.row_stride + e0;
     V v;
-    bf16* ve = reinterpret_cast<bf16*>(&v);
+    T* ve = reinterpret_cast<T*>(&v);
     if (INVERSE) v = *reinterpret_cast<const V*>(in + at);
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
       const int e = e0 + k;
       const int p1 = e / g.p, p2 = e - p1 * g.p;
-      bf16& s = slab[p1 * g.W + wi * g.p + p2];
+      T& s = slab[p1 * g.W + wi * g.p + p2];
       if (INVERSE) s = ve[k];
       else ve[k] = s;
     }
@@ -98,30 +109,33 @@ rearrange_kernel(const bf16* __restrict__ in, bf16* __restrict__ out, RowsGeom g
   }
 }
 
-template <int VEC, bool INVERSE>
-int launch_rearrange(const bf16* in, bf16* out, const RowsGeom& g, int B, cudaStream_t stream) {
-  const size_t smem = (size_t)g.p * g.W * sizeof(bf16);
+template <typename T, int VEC, bool INVERSE>
+int launch_rearrange(const T* in, T* out, const RowsGeom& g, int B, cudaStream_t stream) {
+  const size_t smem = (size_t)g.p * g.W * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        rearrange_kernel<VEC, INVERSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        rearrange_kernel<T, VEC, INVERSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const long long blocks = (long long)B * g.t * g.h * g.pt;
   if (blocks <= 0 || blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  rearrange_kernel<VEC, INVERSE><<<(unsigned)blocks, RA_THREADS, smem, stream>>>(in, out, g);
+  rearrange_kernel<T, VEC, INVERSE><<<(unsigned)blocks, RA_THREADS, smem, stream>>>(in, out, g);
   return (int)cudaGetLastError();
 }
 
-template <bool INVERSE>
+// T bf16 or float; vec: 16-byte accesses (16 / sizeof(T) elements)
+template <typename T, bool INVERSE>
 int rearrange(const void* in, void* out, int B, int F, int H, int W, int pt, int p,
               long long batch_stride, long long row_stride, int vec, void* stream) {
   if (pt <= 0 || p <= 0 || F % pt || H % p || W % p) return (int)cudaErrorInvalidValue;
   const RowsGeom g = {F, H, W, pt, p, F / pt, H / p, W / p, batch_stride, row_stride};
-  const bf16* i = static_cast<const bf16*>(in);
-  bf16* o = static_cast<bf16*>(out);
+  const T* i = static_cast<const T*>(in);
+  T* o = static_cast<T*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? launch_rearrange<8, INVERSE>(i, o, g, B, s)
-             : launch_rearrange<1, INVERSE>(i, o, g, B, s);
+  constexpr int V16 = 16 / sizeof(T);
+  return vec ? launch_rearrange<T, V16, INVERSE>(i, o, g, B, s)
+             : launch_rearrange<T, 1, INVERSE>(i, o, g, B, s);
 }
 
 }  // namespace
@@ -133,8 +147,17 @@ int rearrange(const void* in, void* out, int B, int F, int H, int W, int pt, int
 CT_EXPORT int ct_rearrange_patches(const void* video, int B, int F, int H, int W, int pt, int p,
                                    void* out, long long out_batch_stride,
                                    long long out_row_stride, int vec, void* stream) {
-  return rearrange<false>(video, out, B, F, H, W, pt, p, out_batch_stride, out_row_stride, vec,
-                          stream);
+  return rearrange<bf16, false>(video, out, B, F, H, W, pt, p, out_batch_stride,
+                                out_row_stride, vec, stream);
+}
+
+// The f32 form: video and out f32; vec needs W % 4 == 0, (p*p) % 4 == 0,
+// both strides % 4 == 0 and 16-byte aligned pointers.
+CT_EXPORT int ct_rearrange_patches_f32(const void* video, int B, int F, int H, int W, int pt,
+                                       int p, void* out, long long out_batch_stride,
+                                       long long out_row_stride, int vec, void* stream) {
+  return rearrange<float, false>(video, out, B, F, H, W, pt, p, out_batch_stride,
+                                 out_row_stride, vec, stream);
 }
 
 // The inverse: rows[b, row, e] at b*rows_batch_stride + row*rows_row_stride + e
@@ -143,6 +166,14 @@ CT_EXPORT int ct_rearrange_patches(const void* video, int B, int F, int H, int W
 CT_EXPORT int ct_unrearrange_patches(const void* rows, long long rows_batch_stride,
                                      long long rows_row_stride, int B, int F, int H, int W,
                                      int pt, int p, void* video, int vec, void* stream) {
-  return rearrange<true>(rows, video, B, F, H, W, pt, p, rows_batch_stride, rows_row_stride,
-                         vec, stream);
+  return rearrange<bf16, true>(rows, video, B, F, H, W, pt, p, rows_batch_stride,
+                               rows_row_stride, vec, stream);
+}
+
+// The f32 form of ct_unrearrange_patches (the conditions of the f32 K6).
+CT_EXPORT int ct_unrearrange_patches_f32(const void* rows, long long rows_batch_stride,
+                                         long long rows_row_stride, int B, int F, int H, int W,
+                                         int pt, int p, void* video, int vec, void* stream) {
+  return rearrange<float, true>(rows, video, B, F, H, W, pt, p, rows_batch_stride,
+                                rows_row_stride, vec, stream);
 }

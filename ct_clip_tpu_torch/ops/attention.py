@@ -574,9 +574,14 @@ def peg_dw_plain(x: torch.Tensor, dout: torch.Tensor, pads) -> torch.Tensor:
 
 def peg_dw(x: torch.Tensor, dout: torch.Tensor, pads) -> torch.Tensor:
     """K14: the (28, c) weight and bias gradients of `peg_dw_plain`; a CPU
-    tensor takes the plain version, a CUDA tensor must be bf16 and takes the
-    kernel (csrc/peg_bwd.cu)."""
+    tensor takes the plain version, a bf16 CUDA tensor the kernel
+    (csrc/peg_bwd.cu).  An f32 CUDA tensor takes the plain version, counted
+    as `peg_dw_plain`: the JAX package runs K14 in bf16 only and its f32
+    PEG backward in XLA (peg.py:106, `kernels.ROUTES`)."""
     if x.device.type == "cpu":
+        return peg_dw_plain(x, dout, pads)
+    if K.route("peg_bwd", x.dtype) == K.PLAIN:
+        K.count_launch("peg_dw_plain")
         return peg_dw_plain(x, dout, pads)
     out = K.peg_dw(x.contiguous(), dout.contiguous(), pads)
     K.count_launch("peg_bwd")

@@ -7,7 +7,10 @@ wi (2*inner, dim) with the value half first and the gate half second (torch
 chunk order), wo (dim, inner).
 
 The residual is always added (the transformer's `ff(x) + x`).  On a CUDA
-tensor: LN (csrc/layernorm.cu), then one product that computes the
+tensor (bf16, or f32: the f32 forms, which keep the weights and every
+intermediate in f32 and take true f32 products, as the TPU kernel's
+`dot_precision` does for f32 operands): LN (csrc/layernorm.cu), then one
+product that computes the
 value and gate tiles side by side and writes value * gelu(gate) (GEGLU
 epilogue, csrc/gemm.cu), then act * wo^T + x (residual epilogue).  The
 inner width is padded from 1365 to a multiple of 8 with zero weight rows so
@@ -17,7 +20,8 @@ are exactly zero and meet zero columns of wo.
 The backward is the port of ffn.py::_pallas_ff_bwd (K11): it saves only the
 sublayer's input and recomputes flash-style.  On a CUDA tensor: LN again,
 one tile kernel that recomputes a and g and takes dact = do wo with the
-GEGLU derivative (act, da, dg in bf16, csrc/gemm.cu ff_bwd_kernel),
+GEGLU derivative (act, da, dg in the compute dtype, csrc/gemm.cu
+ff_bwd_kernel),
 dxn = [da | dg] [wa; wg] (NN product), the LN backward with the identity
 term (csrc/layernorm.cu), and the weight gradients [dwa; dwg] = [da | dg]^T
 LN(x) and dwo = do^T act over all rows in f32 (TN products).  The padding's
@@ -62,22 +66,22 @@ def _geglu_ff_cuda(x, scale, bias, wi, wo, eps):
     rows, dim = x.shape
     inner = wo.shape[1]
     padded = -(-inner // 8) * 8
-    bf = torch.bfloat16
+    cdt = x.dtype  # the compute dtype: bf16, or f32 for the f32 forms
     if wi.shape != (2 * inner, dim) or wo.shape[0] != dim:
         raise ValueError(f"FF weights {tuple(wi.shape)}, {tuple(wo.shape)} "
                          f"do not fit dim {dim}")
-    wib = wi.to(bf)
-    wa = _pad_rows(wib[:inner], padded)
-    wg = _pad_rows(wib[inner:], padded)
-    wo_p = torch.zeros((dim, padded), dtype=bf, device=x.device)
+    wic = wi.to(cdt)
+    wa = _pad_rows(wic[:inner], padded)
+    wg = _pad_rows(wic[inner:], padded)
+    wo_p = torch.zeros((dim, padded), dtype=cdt, device=x.device)
     wo_p[:, :inner] = wo
     xn = torch.empty_like(x)
     K.layernorm(x, scale, bias, eps, xn)
-    act = torch.empty((rows, padded), dtype=bf, device=x.device)
+    act = torch.empty((rows, padded), dtype=cdt, device=x.device)
     K.gemm(K.EPI_GEGLU, xn, wa, act, w2=wg)
     out = torch.empty_like(x)
     K.gemm(K.EPI_RESIDUAL, act, wo_p, out, residual=x)
-    K.count_launch("geglu_ff")
+    K.count_launch("geglu_ff", cdt)
     return out
 
 
@@ -85,11 +89,11 @@ def _geglu_ff_bwd_cuda(x, scale, bias, wi, wo, dout, eps):
     rows, dim = x.shape
     inner = wo.shape[1]
     padded = -(-inner // 8) * 8
-    bf = torch.bfloat16
-    wib = wi.to(bf)
-    wcat = torch.cat([_pad_rows(wib[:inner], padded), _pad_rows(wib[inner:], padded)])
-    woT = _pad_rows(wo.to(bf).t(), padded)
-    dout = dout.to(bf).contiguous()
+    cdt = x.dtype
+    wic = wi.to(cdt)
+    wcat = torch.cat([_pad_rows(wic[:inner], padded), _pad_rows(wic[inner:], padded)])
+    woT = _pad_rows(wo.to(cdt).t(), padded)
+    dout = dout.to(cdt).contiguous()
     xn = torch.empty_like(x)
     K.layernorm(x, scale, bias, eps, xn)
     act, dcat = K.ff_bwd_core(xn, dout, wcat[:padded], wcat[padded:], woT)
@@ -99,7 +103,7 @@ def _geglu_ff_bwd_cuda(x, scale, bias, wi, wo, dout, eps):
     dwcat = K.gemm_tn(dcat, xn)
     dwi = torch.cat([dwcat[:inner], dwcat[padded:padded + inner]])
     dwo = K.gemm_tn(dout, act)[:, :inner]
-    K.count_launch("geglu_ff_bwd")
+    K.count_launch("geglu_ff_bwd", cdt)
     return dx, dscale, dbias, dwi, dwo
 
 
@@ -124,9 +128,12 @@ class _GegluFF(torch.autograd.Function):
 def fused_geglu_ff(x: torch.Tensor, scale, bias, wi, wo,
                    eps: float = 1e-5) -> torch.Tensor:
     """x + geglu(LN(x) wi^T) wo^T for 2-D x (rows, dim).  Differentiable:
-    on CUDA the backward is the port of K11."""
+    on CUDA the backward is the port of K11.  A CUDA tensor must be bf16 or
+    f32 (`kernels.ROUTES`)."""
     if x.device.type == "cpu":
         return geglu_ff_plain(x, scale, bias, wi, wo, eps)
+    if K.route("geglu_ff", x.dtype) != K.KERNEL:
+        raise K.not_ported("geglu_ff", x.dtype)
     return _GegluFF.apply(x.contiguous(), scale, bias, wi, wo, eps)
 
 

@@ -73,8 +73,62 @@ KERNELS = (
                            # K13b, key bias and dropout (attention_dropout_bwd)
     # attention_tc32.cu's f32 3xTF32 backward
     "attention_tc32_bwd",  # K12a f32, key bias (attention_bwd)
+    # the f32 forms, counted beside the function's own counter
+    "geglu_ff_f32",        # K3 f32 (gemm.cu f32 products, layernorm.cu f32 rows)
+    "geglu_ff_bwd_f32",    # K11 f32
+    "spatial_attention_f32",  # K1 f32 (attention.cu attention_f32_kernel)
+    "grid_attention_f32",  # K2 grid f32
+    "seq_attention_f32",   # K2 seq f32
+    "vq_assign_f32",       # K5 on f32 rows (gemm.cu gemm_argmax_kernel's f32-row form)
+    "rearrange_patches_f32",  # K6 f32 (rearrange.cu)
+    "unrearrange_patches_f32",  # K17 f32
+    # the plain routes where the JAX package runs XLA in f32 (`ROUTES`)
+    "patch_embed_plain",   # K8 / K16a f32: patch_embed_plain and its autograd
+    "row_embed_plain",     # K4 / K16b f32: row_embed_plain and its autograd
+    "peg_dw_plain",        # K14 f32: peg_dw_plain
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+BF16, F32 = torch.bfloat16, torch.float32
+KERNEL, PLAIN, RAISES = "kernel", "plain", "raises"
+# What a CUDA tensor of each dtype takes, op by op: its kernel, its plain
+# version (where the JAX package's dispatch gates the Pallas kernel to bf16
+# and runs XLA in f32: patchify.py:440, 685, 700, 714 and peg.py:106), or a
+# ValueError (an f32 form not ported yet: the f32 CTViT backwards, slice 12
+# of ROADMAP.md's queue 2a).  Nothing gives way quietly.
+ROUTES = {
+    "patch_embed": {BF16: KERNEL, F32: PLAIN},         # K8
+    "patch_embed_bwd": {BF16: KERNEL, F32: PLAIN},     # K16a
+    "row_embed": {BF16: KERNEL, F32: PLAIN},           # K4
+    "row_embed_bwd": {BF16: KERNEL, F32: PLAIN},       # K16b
+    "peg_bwd": {BF16: KERNEL, F32: PLAIN},             # K14
+    "geglu_ff": {BF16: KERNEL, F32: KERNEL},           # K3
+    "geglu_ff_bwd": {BF16: KERNEL, F32: KERNEL},       # K11
+    "spatial_attention": {BF16: KERNEL, F32: KERNEL},  # K1
+    "grid_attention": {BF16: KERNEL, F32: KERNEL},     # K2 grid
+    "seq_attention": {BF16: KERNEL, F32: KERNEL},      # K2 seq
+    "vq_assign": {BF16: KERNEL, F32: KERNEL},          # K5 (f32: where vq.py's _plan takes it)
+    "rearrange_patches": {BF16: KERNEL, F32: KERNEL},  # K6
+    "unrearrange_patches": {BF16: KERNEL, F32: KERNEL},  # K17
+    "spatial_attention_bwd": {BF16: KERNEL, F32: RAISES},  # K9
+    "grid_attention_bwd": {BF16: KERNEL, F32: RAISES},  # K10 grid
+    "seq_attention_bwd": {BF16: KERNEL, F32: RAISES},  # K10 seq
+    "vq_assign_exact": {BF16: KERNEL, F32: RAISES},    # K5 exact
+    "vq_cluster_stats": {BF16: KERNEL, F32: RAISES},   # K15
+}
+
+
+def route(op: str, dtype: torch.dtype) -> str:
+    """KERNEL, PLAIN or RAISES: what a CUDA tensor of `dtype` takes for
+    `op` (`ROUTES`; any other dtype raises)."""
+    return ROUTES[op].get(dtype, RAISES)
+
+
+def not_ported(op: str, dtype: torch.dtype) -> ValueError:
+    """The error of a RAISES route."""
+    return ValueError(f"{op}: no CUDA kernel takes {dtype} here; the f32 forms of the "
+                      "CTViT backwards (K9, K10, K15, K5 exact) are slice 12 of "
+                      "ROADMAP.md's queue 2a")
 
 EPI_STORE, EPI_RESIDUAL, EPI_BIAS_ROUNDED, EPI_GEGLU = 0, 1, 2, 3
 
@@ -82,8 +136,11 @@ _lib = None
 _lock = threading.Lock()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, dtype: Optional[torch.dtype] = None) -> None:
+    """One launch of `name`; with dtype f32 its f32 form's counter too."""
     _launches[name] += 1
+    if dtype == torch.float32:
+        _launches[f"{name}_f32"] += 1
 
 
 def launch_counts() -> Dict[str, int]:
@@ -170,6 +227,16 @@ def _signatures():
     return {
         "ct_gemm": [i, p, i, p, p, i, i, i, i, p, i, p, i, p, i, p],
         "ct_gemm_argmax": [p, i, p, i, i, i, i, p, i, p],
+        "ct_gemm_f32": [i, p, i, p, p, i, i, i, i, p, i, p, i, p, i, p],
+        "ct_gemm_argmax_rows": [p, i, p, i, i, i, i, p, i, p],
+        "ct_layernorm_f32": [p, i, i, p, p, f, p, p],
+        "ct_attention_f32": [p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i, i, i, p, p, p,
+                             i, p],
+        "ct_rearrange_patches_f32": [p, i, i, i, i, i, i, p, ll, ll, i, p],
+        "ct_unrearrange_patches_f32": [p, ll, ll, i, i, i, i, i, i, p, i, p],
+        "ct_gemm_layout_f32": [i, i, p, i, p, i, i, i, i, i, p, i, ll, i, p],
+        "ct_ff_bwd_f32": [p, p, i, p, p, p, i, i, i, i, p, i, p, i, i, p],
+        "ct_layernorm_bwd_f32": [p, i, i, p, p, p, p, f, p, p, p, p, i, p],
         "ct_layernorm": [p, i, i, p, p, f, p, p],
         "ct_patch_layernorm": [p, i, i, i, i, i, i, p, p, f, p, p],
         "ct_attention": [p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i, i, i, p, p, p, i,
@@ -258,11 +325,12 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+def require(t: torch.Tensor, name: str, dtype, ndim: int,
             contiguous: bool = True) -> None:
+    """`dtype`: the one dtype the kernel takes, or a tuple of its forms'."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
@@ -270,20 +338,40 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+FORMS = (BF16, F32)  # the element types of the kernels with an f32 form
+
+
+def _chunk(t: torch.Tensor) -> int:
+    """Elements per 16-byte access."""
+    return 16 // t.element_size()
+
+
 def _rows_ok(t: torch.Tensor) -> bool:
-    """16-byte loads: rows of a multiple of 8 bf16 on a 16-byte boundary."""
-    return t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0
+    """16-byte loads: rows of a multiple of 16 bytes on a 16-byte boundary."""
+    return t.stride(0) % _chunk(t) == 0 and t.data_ptr() % 16 == 0
+
+
+def _form(name: str, t: torch.Tensor):
+    """The C entry point `name`, or its f32 form `name`_f32 for an f32 t."""
+    return getattr(library(), f"{name}_f32" if t.dtype == F32 else name)
+
+
+def _same_form(a: torch.Tensor, **tensors) -> None:
+    for name, t in tensors.items():
+        if t is not None and t.dtype != a.dtype:
+            raise ValueError(f"{name}: expected {a.dtype} like the first operand, got {t.dtype}")
 
 
 def gemm(epi: int, a: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
          w2: Optional[torch.Tensor] = None,
          residual: Optional[torch.Tensor] = None,
          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """out[m, n] = epilogue(sum_k a[m, k] * w[n, k]) (gemm.cu)."""
-    bf = torch.bfloat16
-    require(a, "a", bf, 2, contiguous=False)
-    require(w, "w", bf, 2)
-    require(out, "out", bf, 2, contiguous=False)
+    """out[m, n] = epilogue(sum_k a[m, k] * w[n, k]) (gemm.cu); every
+    operand bf16 (WMMA) or every operand f32 (the f32 form, FFMA)."""
+    dt = a.dtype
+    require(a, "a", FORMS, 2, contiguous=False)
+    require(w, "w", dt, 2)
+    require(out, "out", dt, 2, contiguous=False)
     if a.stride(1) != 1 or out.stride(1) != 1:
         raise ValueError("gemm: rows of a and out must be contiguous")
     M, K = a.shape
@@ -291,20 +379,20 @@ def gemm(epi: int, a: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
     if w.shape[1] != K or out.shape != (M, N):
         raise ValueError(f"gemm: shapes a {tuple(a.shape)}, w {tuple(w.shape)}, "
                          f"out {tuple(out.shape)}")
-    if epi == EPI_GEGLU and (w2 is None or w2.shape != w.shape
+    if epi == EPI_GEGLU and (w2 is None or w2.shape != w.shape or w2.dtype != dt
                              or w2.stride() != w.stride()):
         raise ValueError("gemm: GEGLU needs a second weight like the first")
     if epi == EPI_RESIDUAL:
-        require(residual, "residual", bf, 2, contiguous=False)
+        require(residual, "residual", dt, 2, contiguous=False)
         if residual.shape != (M, N) or residual.stride(1) != 1:
             raise ValueError("gemm: residual must match out")
     if epi == EPI_BIAS_ROUNDED:
-        require(bias, "bias", bf, 1)
+        require(bias, "bias", dt, 1)
         if bias.shape[0] != N:
             raise ValueError("gemm: bias must have N entries")
-    vec = (K % 8 == 0 and _rows_ok(a) and _rows_ok(w)
+    vec = (K % _chunk(a) == 0 and _rows_ok(a) and _rows_ok(w)
            and (w2 is None or _rows_ok(w2)))
-    err = library().ct_gemm(
+    err = _form("ct_gemm", a)(
         epi, _ptr(a), a.stride(0), _ptr(w), _ptr(w2), w.stride(0), M, N, K,
         _ptr(out), out.stride(0), _ptr(residual),
         residual.stride(0) if residual is not None else 0, _ptr(bias),
@@ -317,16 +405,23 @@ def gemm_argmax(a: torch.Tensor, w: torch.Tensor,
                 w_lo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """argmax_n sum_k a[m, k] * w[n, k] as int32 (gemm.cu); with `w_lo`, the
     similarities are a w^T + a w_lo^T (w and w_lo the bf16 hi and lo parts of
-    one codebook)."""
+    one codebook).  f32 rows `a` (K5 on f32 rows, no `w_lo`): each row
+    l2-normalised in f32 and rounded to bf16 as the kernel loads it, then
+    taken against the bf16 codebook `w`."""
     bf = torch.bfloat16
-    require(a, "a", bf, 2)
+    require(a, "a", FORMS, 2)
     require(w, "w", bf, 2)
     M, K = a.shape
     if w.shape[1] != K:
         raise ValueError("gemm_argmax: a and w disagree on K")
     ids = torch.empty((M,), dtype=torch.int32, device=a.device)
     vec = K % 8 == 0 and _rows_ok(a) and _rows_ok(w)
-    if w_lo is None:
+    if a.dtype == F32:
+        if w_lo is not None:
+            raise not_ported("gemm_argmax (exact mode)", a.dtype)
+        err = library().ct_gemm_argmax_rows(_ptr(a), a.stride(0), _ptr(w), w.stride(0), M,
+                                            w.shape[0], K, _ptr(ids), int(vec), _stream())
+    elif w_lo is None:
         err = library().ct_gemm_argmax(_ptr(a), a.stride(0), _ptr(w), w.stride(0),
                                        M, w.shape[0], K, _ptr(ids), int(vec),
                                        _stream())
@@ -342,33 +437,36 @@ def gemm_argmax(a: torch.Tensor, w: torch.Tensor,
 
 
 def _vec_ok(*tensors) -> bool:
-    """16-byte loads: every row stride and row length a multiple of 8 bf16
-    and every base on a 16-byte boundary."""
-    return all(t.stride(0) % 8 == 0 and t.shape[1] % 8 == 0 and t.data_ptr() % 16 == 0
-               for t in tensors)
+    """16-byte loads: every row stride and row length a multiple of 16
+    bytes and every base on a 16-byte boundary."""
+    return all(t.stride(0) % _chunk(t) == 0 and t.shape[1] % _chunk(t) == 0
+               and t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _rows_contig(t: torch.Tensor, name: str) -> None:
-    require(t, name, torch.bfloat16, 2, contiguous=False)
+    require(t, name, FORMS, 2, contiguous=False)
     if t.stride(1) != 1:
         raise ValueError(f"{name}: rows must be contiguous")
 
 
 def gemm_nn(dy: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """out = dy @ w for dy (M, K) and w (K, N), an nn.Linear weight whose
-    input width is N (dX = dY W); out (M, N) bf16 or f32 (gemm.cu)."""
+    input width is N (dX = dY W) (gemm.cu); bf16 operands with out bf16 or
+    f32, or f32 operands (the f32 form) with out f32."""
     _rows_contig(dy, "dy")
     _rows_contig(w, "w")
     M, K = dy.shape
     N = w.shape[1]
+    outs = (torch.float32,) if dy.dtype == F32 else (torch.bfloat16, torch.float32)
     if w.shape[0] != K or tuple(out.shape) != (M, N) or out.stride(1) != 1 \
-            or out.device != dy.device or out.dtype not in (torch.bfloat16, torch.float32):
+            or out.device != dy.device or out.dtype not in outs:
         raise ValueError(f"gemm_nn: dy {tuple(dy.shape)}, w {tuple(w.shape)}, "
                          f"out {tuple(out.shape)} {out.dtype}")
-    err = library().ct_gemm_layout(0, int(out.dtype == torch.float32), _ptr(dy),
-                                   dy.stride(0), _ptr(w), w.stride(0), M, N, K,
-                                   -(-K // 32) * 32, _ptr(out), out.stride(0), 0,
-                                   int(_vec_ok(dy, w)), _stream())
+    _same_form(dy, w=w)
+    err = _form("ct_gemm_layout", dy)(0, int(out.dtype == torch.float32), _ptr(dy),
+                                      dy.stride(0), _ptr(w), w.stride(0), M, N, K,
+                                      -(-K // 32) * 32, _ptr(out), out.stride(0), 0,
+                                      int(_vec_ok(dy, w)), _stream())
     _check(err, "ct_gemm_layout")
     return out
 
@@ -377,9 +475,10 @@ TN_ROWS = 4096  # rows of a weight-gradient product per split
 
 
 def gemm_tn(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """dy^T @ x over all rows as f32 (M, N), for dy (R, M) and x (R, N): the
-    weight gradient dW of y = x W^T (gemm.cu).  The rows are split in blocks
-    of TN_ROWS whose partial sums are added in order (sum_splits)."""
+    """dy^T @ x over all rows as f32 (M, N), for dy (R, M) and x (R, N), both
+    bf16 or both f32: the weight gradient dW of y = x W^T (gemm.cu).  The rows
+    are split in blocks of TN_ROWS whose partial sums are added in order
+    (sum_splits)."""
     _rows_contig(dy, "dy")
     _rows_contig(x, "x")
     R, M = dy.shape
@@ -390,9 +489,10 @@ def gemm_tn(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     chunk = -(-R // (splits * 32)) * 32
     splits = -(-R // chunk)
     part = torch.empty((splits, M, N), dtype=torch.float32, device=dy.device)
-    err = library().ct_gemm_layout(1, 1, _ptr(dy), dy.stride(0), _ptr(x), x.stride(0),
-                                   M, N, R, chunk, _ptr(part), N, M * N,
-                                   int(_vec_ok(dy, x)), _stream())
+    _same_form(dy, x=x)
+    err = _form("ct_gemm_layout", dy)(1, 1, _ptr(dy), dy.stride(0), _ptr(x), x.stride(0),
+                                      M, N, R, chunk, _ptr(part), N, M * N,
+                                      int(_vec_ok(dy, x)), _stream())
     _check(err, "ct_gemm_layout")
     return part[0] if splits == 1 else sum_splits(part)
 
@@ -411,19 +511,21 @@ def sum_splits(part: torch.Tensor) -> torch.Tensor:
 def ff_bwd_core(xn: torch.Tensor, dout: torch.Tensor, wa: torch.Tensor,
                 wg: torch.Tensor, woT: torch.Tensor):
     """K11's tile (gemm.cu, ff_bwd_kernel): a = xn wa^T, g = xn wg^T and
-    dact = dout woT^T -> act (M, N) and dcat (M, 2N) = [da | dg], bf16."""
+    dact = dout woT^T -> act (M, N) and dcat (M, 2N) = [da | dg], every
+    operand and output bf16, or every one f32 (the f32 form, unrounded)."""
     for name, t in (("xn", xn), ("dout", dout), ("wa", wa), ("wg", wg), ("woT", woT)):
-        require(t, name, torch.bfloat16, 2)
+        require(t, name, FORMS, 2)
+    _same_form(xn, dout=dout, wa=wa, wg=wg, woT=woT)
     M, K = xn.shape
     N = wa.shape[0]
     if dout.shape != xn.shape or any(w.shape != (N, K) for w in (wa, wg, woT)):
         raise ValueError("ff_bwd_core: shapes do not fit")
-    act = torch.empty((M, N), dtype=torch.bfloat16, device=xn.device)
-    dcat = torch.empty((M, 2 * N), dtype=torch.bfloat16, device=xn.device)
-    vec = K % 8 == 0 and all(_rows_ok(t) for t in (xn, dout, wa, wg, woT))
-    err = library().ct_ff_bwd(_ptr(xn), _ptr(dout), K, _ptr(wa), _ptr(wg), _ptr(woT), K,
-                              M, N, K, _ptr(act), N, _ptr(dcat), 2 * N, int(vec),
-                              _stream())
+    act = torch.empty((M, N), dtype=xn.dtype, device=xn.device)
+    dcat = torch.empty((M, 2 * N), dtype=xn.dtype, device=xn.device)
+    vec = K % _chunk(xn) == 0 and all(_rows_ok(t) for t in (xn, dout, wa, wg, woT))
+    err = _form("ct_ff_bwd", xn)(_ptr(xn), _ptr(dout), K, _ptr(wa), _ptr(wg), _ptr(woT), K,
+                                 M, N, K, _ptr(act), N, _ptr(dcat), 2 * N, int(vec),
+                                 _stream())
     _check(err, "ct_ff_bwd")
     return act, dcat
 
@@ -440,15 +542,16 @@ def _f32_vector(t: Optional[torch.Tensor], n: int, name: str):
 def layernorm(x: torch.Tensor, scale: Optional[torch.Tensor],
               bias: Optional[torch.Tensor], eps: float,
               out: torch.Tensor) -> torch.Tensor:
-    """Row LN of a contiguous (rows, D) bf16 tensor (layernorm.cu)."""
-    require(x, "x", torch.bfloat16, 2)
-    require(out, "out", torch.bfloat16, 2)
+    """Row LN of a contiguous (rows, D) bf16 or f32 tensor into `out` of its
+    dtype (layernorm.cu)."""
+    require(x, "x", FORMS, 2)
+    require(out, "out", x.dtype, 2)
     rows, D = x.shape
     if out.shape != x.shape or D > 4096:
         raise ValueError(f"layernorm: bad shapes {tuple(x.shape)}")
     scale, bias = _f32_vector(scale, D, "scale"), _f32_vector(bias, D, "bias")
-    err = library().ct_layernorm(_ptr(x), rows, D, _ptr(scale), _ptr(bias),
-                                 float(eps), _ptr(out), _stream())
+    err = _form("ct_layernorm", x)(_ptr(x), rows, D, _ptr(scale), _ptr(bias),
+                                   float(eps), _ptr(out), _stream())
     _check(err, "ct_layernorm")
     return out
 
@@ -460,18 +563,18 @@ def layernorm_bwd(x: torch.Tensor, scale: Optional[torch.Tensor], dxn: torch.Ten
                   eps: float, add: Optional[torch.Tensor] = None,
                   add2: Optional[torch.Tensor] = None, want_dbias: bool = False,
                   want_dx: bool = True, want_dxsum: bool = False):
-    """Backward of the row LN of x (rows, D) bf16 given dxn = dL/dLN(x) f32:
-    dx (bf16, plus `add` f32 and `add2` bf16 when given; None without
-    want_dx), dscale = sum of dxn * xhat and, with want_dbias, dbias = sum
-    of dxn, both f32 (layernorm.cu; column sums added over row blocks in
-    order).  With want_dxsum a fourth result: the column sum of the f32 dx
-    before its rounding to bf16."""
-    require(x, "x", torch.bfloat16, 2)
+    """Backward of the row LN of x (rows, D) bf16 or f32 given dxn =
+    dL/dLN(x) f32: dx (x's dtype, plus `add` f32 and `add2` of x's dtype when
+    given; None without want_dx), dscale = sum of dxn * xhat and, with
+    want_dbias, dbias = sum of dxn, both f32 (layernorm.cu; column sums added
+    over row blocks in order).  With want_dxsum a fourth result: the column
+    sum of the f32 dx before its rounding to x's dtype."""
+    require(x, "x", FORMS, 2)
     require(dxn, "dxn", torch.float32, 2)
     rows, D = x.shape
     if dxn.shape != x.shape or D > 4096:
         raise ValueError(f"layernorm_bwd: x {tuple(x.shape)}, dxn {tuple(dxn.shape)}")
-    for name, t, dt in (("add", add, torch.float32), ("add2", add2, torch.bfloat16)):
+    for name, t, dt in (("add", add, torch.float32), ("add2", add2, x.dtype)):
         if t is not None:
             require(t, name, dt, 2)
             if t.shape != x.shape:
@@ -482,9 +585,10 @@ def layernorm_bwd(x: torch.Tensor, scale: Optional[torch.Tensor], dxn: torch.Ten
     part_ds = torch.empty((blocks, D), dtype=torch.float32, device=x.device)
     part_db = torch.empty_like(part_ds) if want_dbias else None
     part_dxs = torch.empty_like(part_ds) if want_dxsum else None
-    err = library().ct_layernorm_bwd(_ptr(x), rows, D, _ptr(scale), _ptr(dxn), _ptr(add),
-                                     _ptr(add2), float(eps), _ptr(dx), _ptr(part_ds),
-                                     _ptr(part_db), _ptr(part_dxs), LN_BWD_ROWS, _stream())
+    err = _form("ct_layernorm_bwd", x)(_ptr(x), rows, D, _ptr(scale), _ptr(dxn), _ptr(add),
+                                       _ptr(add2), float(eps), _ptr(dx), _ptr(part_ds),
+                                       _ptr(part_db), _ptr(part_dxs), LN_BWD_ROWS,
+                                       _stream())
     _check(err, "ct_layernorm_bwd")
     out = (dx, sum_splits(part_ds), None if part_db is None else sum_splits(part_db))
     return out + (sum_splits(part_dxs),) if want_dxsum else out
@@ -538,13 +642,13 @@ def patch_layernorm(video: torch.Tensor, pt: int, p: int,
 
 def rearrange_patches(video: torch.Tensor, pt: int, p: int,
                       out: torch.Tensor) -> torch.Tensor:
-    """(B, F, H, W) video -> out (B, t*h*w, pt*p*p) patch rows (rearrange.cu).
+    """(B, F, H, W) video -> out (B, t*h*w, pt*p*p) patch rows (rearrange.cu),
+    bf16 or f32 (the f32 form).
 
     `out` may be a view, such as one slot of a batch buffer: its rows must
     be contiguous and must not overlap."""
-    bf = torch.bfloat16
-    require(video, "video", bf, 4)
-    require(out, "out", bf, 3, contiguous=False)
+    require(video, "video", FORMS, 4)
+    require(out, "out", video.dtype, 3, contiguous=False)
     B, F, H, W = video.shape
     if F % pt or H % p or W % p:
         raise ValueError(f"rearrange_patches: {tuple(video.shape)} vs {pt}x{p}x{p}")
@@ -553,10 +657,11 @@ def rearrange_patches(video: torch.Tensor, pt: int, p: int,
     if out.shape != (B, n, pd) or se != 1 or sr < pd or (B > 1 and sb < n * sr):
         raise ValueError(f"rearrange_patches: out {tuple(out.shape)} with strides "
                          f"{out.stride()} is not ({B}, {n}, {pd}) rows")
-    vec = (W % 8 == 0 and (p * p) % 8 == 0 and sb % 8 == 0 and sr % 8 == 0
+    c = _chunk(video)
+    vec = (W % c == 0 and (p * p) % c == 0 and sb % c == 0 and sr % c == 0
            and video.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    err = library().ct_rearrange_patches(_ptr(video), B, F, H, W, pt, p,
-                                         _ptr(out), sb, sr, int(vec), _stream())
+    err = _form("ct_rearrange_patches", video)(_ptr(video), B, F, H, W, pt, p, _ptr(out),
+                                               sb, sr, int(vec), _stream())
     _check(err, "ct_rearrange_patches")
     return out
 
@@ -564,22 +669,33 @@ def rearrange_patches(video: torch.Tensor, pt: int, p: int,
 def unrearrange_patches(rows: torch.Tensor, pt: int, p: int,
                         out: torch.Tensor) -> torch.Tensor:
     """(B, t*h*w, pt*p*p) patch rows -> out (B, F, H, W), the inverse of
-    `rearrange_patches` (rearrange.cu)."""
-    bf = torch.bfloat16
-    require(rows, "rows", bf, 3)
-    require(out, "out", bf, 4)
+    `rearrange_patches` (rearrange.cu), bf16 or f32."""
+    require(rows, "rows", FORMS, 3)
+    require(out, "out", rows.dtype, 4)
     B, F, H, W = out.shape
     if F % pt or H % p or W % p:
         raise ValueError(f"unrearrange_patches: {tuple(out.shape)} vs {pt}x{p}x{p}")
     n, pd = (F // pt) * (H // p) * (W // p), pt * p * p
     if tuple(rows.shape) != (B, n, pd):
         raise ValueError(f"unrearrange_patches: rows {tuple(rows.shape)} != {(B, n, pd)}")
-    vec = (W % 8 == 0 and (p * p) % 8 == 0 and pd % 8 == 0
+    c = _chunk(rows)
+    vec = (W % c == 0 and (p * p) % c == 0 and pd % c == 0
            and rows.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    err = library().ct_unrearrange_patches(_ptr(rows), n * pd, pd, B, F, H, W, pt, p,
-                                           _ptr(out), int(vec), _stream())
+    err = _form("ct_unrearrange_patches", rows)(_ptr(rows), n * pd, pd, B, F, H, W, pt, p,
+                                                _ptr(out), int(vec), _stream())
     _check(err, "ct_unrearrange_patches")
     return out
+
+
+# the dynamic shared memory one H100 block may opt into (bytes)
+SMEM_LIMIT = 227 * 1024
+
+
+def attention_f32_smem(n: int, d: int, warps: int) -> int:
+    """Bytes of shared memory attention.cu's f32 form takes (f32_smem_floats):
+    the (4 warps, n) score tile, the (4 warps, d) q tile, a 64-key chunk."""
+    qt = 4 * warps
+    return 4 * (qt * n + qt * d + 64 * (d + 1))
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -590,17 +706,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: Optional[torch.Tensor] = None,
               warps: int = 8) -> torch.Tensor:
     """softmax(q k^T + bias) v per (sequence, head) (attention.cu); bias
-    (heads, n, n) f32 or None.
+    (heads, n, n) f32 or None.  q, k, v and out all bf16, or all f32 (the f32
+    form: nothing rounded, blocks of 4 x `warps` query rows).
 
     q/out and k/v are addressed through (outer, inner, head, token) element
     strides; their last dim must be contiguous.  The caller checks that the
     strides stay inside the tensors."""
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        require(t, name, torch.bfloat16, t.dim(), contiguous=False)
+        require(t, name, q.dtype if name != "q" else FORMS, t.dim(), contiguous=False)
         if t.stride(-1) != 1:
             raise ValueError(f"attention: last dim of {name} must be contiguous")
     if d % 2 or d > 128:
         raise ValueError(f"attention: head dim {d} must be even and <= 128")
+    if q.dtype == F32 and attention_f32_smem(n, d, warps) > SMEM_LIMIT:
+        raise ValueError(f"attention: {n} tokens of f32 width {d} take "
+                         f"{attention_f32_smem(n, d, warps)} bytes of shared memory")
     qs = _f32_vector(q_scale, d, "q_scale")
     ks = _f32_vector(k_scale, d, "k_scale")
     if (qs is None) != (ks is None):
@@ -609,7 +729,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         require(bias, "bias", torch.float32, 3)
         if tuple(bias.shape) != (heads, n, n):
             raise ValueError(f"attention: bias {tuple(bias.shape)} != {(heads, n, n)}")
-    err = library().ct_attention(
+    err = _form("ct_attention", q)(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), *map(int, q_strides),
         *map(int, kv_strides), inner, sequences, heads, n, d, _ptr(qs),
         _ptr(ks), _ptr(bias), warps, _stream())

@@ -27,6 +27,12 @@ rows, LayerNorm(4000), Linear(4000, 512), LayerNorm(512).
 In both embeds the (tokens, 4000) normalised rows pass through device memory
 between the LN and the product.  Each backward's plain version is autograd of
 the plain forward, the JAX package's XLA VJP; a CPU tensor takes it.
+
+Dtypes on CUDA (`kernels.ROUTES`): K6 and K17 move bf16 or f32 (their f32
+forms, as the TPU kernels move f32 blocks).  The JAX package runs K8, K4,
+K16a and K16b in bf16 only and computes f32 embeds in XLA (patchify.py:440,
+685, 700, 714), so an f32 embed on CUDA takes the plain version and its
+autograd, counted as `patch_embed_plain` / `row_embed_plain`.
 """
 from __future__ import annotations
 
@@ -72,14 +78,15 @@ def unrearrange_patches(rows: torch.Tensor, pt: int, p: int, F: int, H: int,
                         W: int) -> torch.Tensor:
     """(b, t*h*w, pt*p*p) patch rows -> the (b, F, H, W) volume they came
     from (K17, K6's VJP); the values move untouched.  A CPU tensor takes the
-    plain version; a CUDA tensor must be bf16 and takes the kernel."""
+    plain version; a CUDA tensor (bf16 or f32) takes the kernel."""
     _check_tiling((rows.shape[0], F, H, W), pt, p)
     if rows.device.type == "cpu":
         return unrearrange_plain(rows, pt, p, F, H, W)
     out = torch.empty((rows.shape[0], F, H, W), dtype=rows.dtype, device=rows.device)
     K.unrearrange_patches(rows.contiguous(), pt, p, out)
-    K.count_launch("unrearrange_patches")
+    K.count_launch("unrearrange_patches", rows.dtype)
     return out
+
 
 
 def _rearrange_into(video, pt: int, p: int, out: Optional[torch.Tensor]) -> torch.Tensor:
@@ -94,7 +101,7 @@ def _rearrange_into(video, pt: int, p: int, out: Optional[torch.Tensor]) -> torc
     if out is None:
         out = torch.empty((b, n, pt * p * p), dtype=video.dtype, device=video.device)
     K.rearrange_patches(video.contiguous(), pt, p, out)
-    K.count_launch("rearrange_patches")
+    K.count_launch("rearrange_patches", video.dtype)
     return out
 
 
@@ -115,7 +122,7 @@ def rearrange_patches(video: torch.Tensor, pt: int, p: int,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(b, F, H, W) -> (b, t*h*w, pt*p*p) patch rows in (pt, p1, p2) order.
     The values move untouched.  A CPU tensor takes the plain version; a CUDA
-    tensor must be bf16 and takes the kernel.  Differentiable (the backward
+    tensor (bf16 or f32) takes the kernel.  Differentiable (the backward
     is K17), except when written into `out` (its rows contiguous, as in
     `buf[slot:slot + 1]` of a (B, n, patch_dim) batch buffer), which the
     ingest does with data that needs no gradient."""
@@ -323,10 +330,13 @@ class _RowEmbed(torch.autograd.Function):
 def fused_patch_embed(video: torch.Tensor, s1, b1, w, pbias, s2, b2,
                       pt: int, p: int, eps: float = 1e-5) -> torch.Tensor:
     """(b, F, H, W) single-channel video -> (b, t*h*w, dim) tokens in the
-    video's dtype.  A CPU tensor takes the plain versions; a CUDA tensor
-    must be bf16 and takes the kernels.  Differentiable in every argument
-    (K16a)."""
+    video's dtype.  A CPU tensor takes the plain versions; a bf16 CUDA tensor
+    the kernels, an f32 one the plain versions (`kernels.ROUTES`).
+    Differentiable in every argument (K16a)."""
     _check_tiling(video.shape, pt, p)
+    if video.device.type == "cuda" and K.route("patch_embed", video.dtype) == K.PLAIN:
+        K.count_launch("patch_embed_plain")
+        return patch_embed_plain(video, s1, b1, w, pbias, s2, b2, pt, p, eps)
     return _PatchEmbed.apply(video.contiguous(), s1, b1, w, pbias, s2, b2, pt, p, eps)
 
 
@@ -334,6 +344,9 @@ def fused_row_embed(rows: torch.Tensor, s1, b1, w, pbias, s2, b2,
                     eps: float = 1e-5) -> torch.Tensor:
     """(b, n, patch_dim) patch rows -> (b, n, dim) tokens in the rows'
     dtype: to_patch_emb minus the Rearrange.  A CPU tensor takes the plain
-    versions; a CUDA tensor must be bf16 and takes the kernels.
-    Differentiable in every argument (K16b)."""
+    versions; a bf16 CUDA tensor the kernels, an f32 one the plain versions
+    (`kernels.ROUTES`).  Differentiable in every argument (K16b)."""
+    if rows.device.type == "cuda" and K.route("row_embed", rows.dtype) == K.PLAIN:
+        K.count_launch("row_embed_plain")
+        return row_embed_plain(rows, s1, b1, w, pbias, s2, b2, eps)
     return _RowEmbed.apply(rows.contiguous(), s1, b1, w, pbias, s2, b2, eps)

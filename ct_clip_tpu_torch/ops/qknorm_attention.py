@@ -24,7 +24,10 @@ form takes the native (b, t, h*w, dim) token grid and attends along t.
 On a CUDA tensor: LN (csrc/layernorm.cu), the q and kv products
 (csrc/gemm.cu), the attention core (csrc/attention.cu, which reads the
 t-columns of the grid in place through strides) and the output product with
-the residual epilogue.
+the residual epilogue.  In bf16, or in f32 (the f32 forms: weights, q, k, v
+and scores in f32, true f32 products, as the TPU kernels run f32 operands
+at "highest"); the f32 backward (K9 / K10 in f32) is not ported yet and
+raises (`kernels.ROUTES`).
 
 The backwards are the ports of spatial_attention.py::_pallas_spatial_bwd
 (K9) and small_attention.py::_pallas_small_qknorm_bwd with grid_layout=True
@@ -136,14 +139,14 @@ def _layout(x, hd: int, dim_head: int, grid: bool):
 
 
 def _project(x2, gamma, wq, wkv, hd: int):
-    """LN(x) and the q = LN(x) wq^T, kv = x wkv^T products (bf16)."""
-    bf, rows = torch.bfloat16, x2.shape[0]
+    """LN(x) and the q = LN(x) wq^T, kv = x wkv^T products, in x's dtype."""
+    cdt, rows = x2.dtype, x2.shape[0]
     xn = torch.empty_like(x2)
     K.layernorm(x2, gamma, None, 1e-5, xn)
-    q = torch.empty((rows, hd), dtype=bf, device=x2.device)
-    K.gemm(K.EPI_STORE, xn, wq.to(bf).contiguous(), q)
-    kv = torch.empty((rows, 2 * hd), dtype=bf, device=x2.device)
-    K.gemm(K.EPI_STORE, x2, wkv.to(bf).contiguous(), kv)
+    q = torch.empty((rows, hd), dtype=cdt, device=x2.device)
+    K.gemm(K.EPI_STORE, xn, wq.to(cdt).contiguous(), q)
+    kv = torch.empty((rows, 2 * hd), dtype=cdt, device=x2.device)
+    K.gemm(K.EPI_STORE, x2, wkv.to(cdt).contiguous(), kv)
     return xn, q, kv
 
 
@@ -156,7 +159,6 @@ def _check_weights(x, wq, wkv, wout, hd: int) -> None:
 
 def _qknorm_attention_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
                            heads, dim_head, scale, grid: bool):
-    bf = torch.bfloat16
     dim = x.shape[-1]
     hd = heads * dim_head
     _check_weights(x, wq, wkv, wout, hd)
@@ -171,7 +173,7 @@ def _qknorm_attention_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
                 bias=None if bias is None else bias.float().contiguous(),
                 warps=8 if n >= 128 else 2)
     out = torch.empty_like(x2)
-    K.gemm(K.EPI_RESIDUAL, merged, wout.to(bf).contiguous(), out, residual=x2)
+    K.gemm(K.EPI_RESIDUAL, merged, wout.to(x.dtype).contiguous(), out, residual=x2)
     return out.view(x.shape)
 
 
@@ -204,6 +206,15 @@ def _qknorm_attention_bwd_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
             dqs * scale, dks, K.gemm_tn(dout, merged), dbias)
 
 
+def _apply(x, gamma, wq, wkv, q_scale, k_scale, wout, bias, heads, dim_head, scale,
+           form: str):
+    """The sublayer on a CUDA tensor, by `kernels.ROUTES`: bf16 or f32."""
+    if K.route(f"{form}_attention", x.dtype) != K.KERNEL:
+        raise K.not_ported(f"{form}_attention", x.dtype)
+    return _QKNormAttention.apply(x.contiguous(), gamma, wq, wkv, q_scale, k_scale, wout, bias,
+                                  heads, dim_head, scale, form)
+
+
 class _QKNormAttention(torch.autograd.Function):
     """K1 / K2 forward, K9 / K10 backward, on CUDA tensors; only x is saved.
     `form` is "spatial", "grid" or "seq", which names the launch counters."""
@@ -216,13 +227,15 @@ class _QKNormAttention(torch.autograd.Function):
         ctx.save_for_backward(x, gamma, wq, wkv, q_scale, k_scale, wout, bias)
         out = _qknorm_attention_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
                                      heads, dim_head, scale, grid)
-        K.count_launch(f"{form}_attention")
+        K.count_launch(f"{form}_attention", x.dtype)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         heads, dim_head, scale, grid, form = ctx.cfg
         saved = ctx.saved_tensors
+        if K.route(f"{form}_attention_bwd", saved[0].dtype) != K.KERNEL:
+            raise K.not_ported(f"{form}_attention_bwd", saved[0].dtype)
         grads = _qknorm_attention_bwd_cuda(*saved, dout, heads, dim_head, scale, grid)
         K.count_launch(f"{form}_attention_bwd")
         out = [grads[0]] + [None if g is None else g.to(t.dtype)
@@ -239,8 +252,8 @@ def fused_spatial_qknorm_attention(x, gamma, wq, wkv, q_scale, k_scale, wout,
     if x.device.type == "cpu":
         return qknorm_attention_plain(x, gamma, wq, wkv, q_scale, k_scale,
                                       wout, bias, heads, dim_head, scale)
-    return _QKNormAttention.apply(x.contiguous(), gamma, wq, wkv, q_scale, k_scale,
-                                  wout, bias, heads, dim_head, scale, "spatial")
+    return _apply(x, gamma, wq, wkv, q_scale, k_scale, wout, bias, heads, dim_head, scale,
+                  "spatial")
 
 
 def fused_small_qknorm_attention(x, gamma, wq, wkv, q_scale, k_scale, wout,
@@ -254,8 +267,8 @@ def fused_small_qknorm_attention(x, gamma, wq, wkv, q_scale, k_scale, wout,
     if x.device.type == "cpu":
         return qknorm_attention_plain(x, gamma, wq, wkv, q_scale, k_scale, wout,
                                       None, heads, dim_head, scale)
-    return _QKNormAttention.apply(x.contiguous(), gamma, wq, wkv, q_scale, k_scale,
-                                  wout, None, heads, dim_head, scale, "seq")
+    return _apply(x, gamma, wq, wkv, q_scale, k_scale, wout, None, heads, dim_head, scale,
+                  "seq")
 
 
 def fused_grid_qknorm_attention(x, gamma, wq, wkv, q_scale, k_scale, wout,
@@ -267,5 +280,5 @@ def fused_grid_qknorm_attention(x, gamma, wq, wkv, q_scale, k_scale, wout,
     if x.device.type == "cpu":
         return grid_qknorm_attention_plain(x, gamma, wq, wkv, q_scale,
                                            k_scale, wout, heads, dim_head, scale)
-    return _QKNormAttention.apply(x.contiguous(), gamma, wq, wkv, q_scale, k_scale,
-                                  wout, None, heads, dim_head, scale, "grid")
+    return _apply(x, gamma, wq, wkv, q_scale, k_scale, wout, None, heads, dim_head, scale,
+                  "grid")

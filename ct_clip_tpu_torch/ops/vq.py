@@ -21,10 +21,17 @@ The exact mode on bf16 input (training, vq.py:67-82 with exact=True) splits
 the normalised codebook into bf16 hi and lo parts and sums x.c_hi + x.c_lo
 in f32; on f32 input both modes are the f32 form above.
 
-On a CUDA tensor (bf16 only) the similarity product and the argmax over all
-codes run in one hand-written kernel (csrc/gemm.cu, gemm_argmax_kernel, or
+On a CUDA tensor the similarity product and the argmax over all codes run
+in one hand-written kernel (csrc/gemm.cu, gemm_argmax_kernel, or
 gemm_argmax2_kernel for the exact mode); the (tokens, codes) similarity
-matrix never reaches device memory.  The EMA statistics (bins and the sums
+matrix never reaches device memory.  f32 rows in inference take the
+kernel's f32-row form, the TPU kernel's math on f32 input (vq.py:83-93):
+each row l2-normalised in f32 and rounded to bf16 as it is loaded, one bf16
+pass against the bf16 codebook (`vq_assign_rows_plain` is its plain
+version).  The JAX package takes that kernel only where its `_plan` does
+(`rows_fit`) and its f32 XLA form elsewhere; so does the port, whose plain
+f32 version stands in for the XLA form.  The exact mode and K15 on f32 rows
+(an f32 CTViT in training) are not ported yet and raise.  The EMA statistics (bins and the sums
 of the normalised rows per code) are K15's port, csrc/vq_stats.cu, which
 groups the rows by code and adds each code's rows in row order.
 """
@@ -60,9 +67,42 @@ def vq_assign_plain(x: torch.Tensor, embed_n: torch.Tensor,
     return sim.argmax(dim=-1).to(torch.int32)
 
 
+def vq_assign_rows_plain(x: torch.Tensor, embed_n: torch.Tensor) -> torch.Tensor:
+    """Plain version of the f32-row form: (n, dim) f32 rows, each
+    normalised as x rsqrt(max(sum x^2, 1e-24)) and rounded to bf16, against
+    the bf16-rounded codebook, f32 sums (`_assign_kernel`, raw_bf16 False,
+    exact False)."""
+    x = x.float()
+    xn = x * torch.rsqrt(torch.clamp_min((x * x).sum(dim=-1, keepdim=True), 1e-24))
+    sim = xn.to(torch.bfloat16).float() @ embed_n.to(torch.bfloat16).float().t()
+    return sim.argmax(dim=-1).to(torch.int32)
+
+
+def rows_fit(rows: int, dim: int, codes: int) -> bool:
+    """Whether the JAX package's assignment takes its Pallas kernel for
+    these shapes (ct_clip_tpu/ops/pallas/vq.py::_plan: dim and codes
+    multiples of 128, rows of a multiple of 128, 256 or 512 that fit its
+    VMEM budget), where f32 rows get the kernel's bf16-rounded math; the
+    others take its f32 XLA form."""
+    if dim % 128 or codes % 128:
+        return False
+    budget = 48 * 1024 * 1024
+    return any(rows % m == 0 and m * codes * 4 + codes * dim * 4 + 16 * m * dim <= budget
+               for m in (512, 256, 128))
+
+
 def vq_assign(x: torch.Tensor, embed_n: torch.Tensor, exact: bool = False) -> torch.Tensor:
     if x.device.type == "cpu":
         return vq_assign_plain(x, embed_n, exact)
+    op = "vq_assign_exact" if exact else "vq_assign"
+    if K.route(op, x.dtype) != K.KERNEL:
+        raise K.not_ported(op, x.dtype)
+    if x.dtype == torch.float32:
+        if not rows_fit(x.shape[0], x.shape[1], embed_n.shape[0]):
+            return vq_assign_plain(x, embed_n)
+        ids = K.gemm_argmax(x.contiguous(), embed_n.to(torch.bfloat16).contiguous())
+        K.count_launch("vq_assign", x.dtype)
+        return ids
     if exact:
         hi, lo = split_hi_lo(embed_n)
         ids = K.gemm_argmax(x.contiguous(), hi, lo)
@@ -92,6 +132,8 @@ def cluster_stats(x: torch.Tensor, ids: torch.Tensor, codes: int):
     """bins and embed_sum of the rows x (n, dim) grouped by ids (n,)."""
     if x.device.type == "cpu":
         return cluster_stats_plain(x, ids, codes)
+    if K.route("vq_cluster_stats", x.dtype) != K.KERNEL:
+        raise K.not_ported("vq_cluster_stats", x.dtype)
     out = K.vq_cluster_stats(x.contiguous(), ids.to(torch.int32).contiguous(), codes)
     K.count_launch("vq_cluster_stats")
     return out

@@ -229,9 +229,11 @@ def test_launch_counters_count_only_kernel_paths(dev):
          _randn((512, 1365), g, dev, 0.05, torch.float32))
     fused_geglu_ff(x, *w)
     fused_geglu_ff(x.cpu().float(), *(t.cpu() for t in w))
-    assert K.launch_counts()["geglu_ff"] == 1
+    assert K.launch_counts()["geglu_ff"] == 1 and K.launch_counts()["geglu_ff_f32"] == 0
+    fused_geglu_ff(x.float(), *w)  # the f32 form, counted beside the function
+    assert K.launch_counts()["geglu_ff"] == 2 and K.launch_counts()["geglu_ff_f32"] == 1
     with pytest.raises(ValueError):
-        fused_geglu_ff(x.float(), *w)  # a CUDA tensor must be bf16
+        fused_geglu_ff(x.half(), *w)  # a CUDA tensor must be bf16 or f32
 
 
 @pytest.mark.parametrize("shape,pt,p", [((2, 20, 60, 40), 10, 20),  # 16-byte path
@@ -282,10 +284,16 @@ def test_row_route_counters_count_only_kernel_paths(dev):
     fused_row_embed(rows_cpu, *(t.cpu() for t in w))
     counts = K.launch_counts()
     assert counts["rearrange_patches"] == 1 and counts["row_embed"] == 1
+    # f32: K6's f32 form; K4 takes its plain version (XLA in the JAX package)
+    rows32 = rearrange_patches(video.float(), 2, 8)
+    fused_row_embed(rows32, *w)
+    counts = K.launch_counts()
+    assert counts["rearrange_patches_f32"] == 1 and counts["row_embed"] == 1
+    assert counts["row_embed_plain"] == 1
     with pytest.raises(ValueError):
-        rearrange_patches(video.float(), 2, 8)  # a CUDA tensor must be bf16
+        rearrange_patches(video.half(), 2, 8)  # a CUDA tensor must be bf16 or f32
     with pytest.raises(ValueError):
-        fused_row_embed(rows.float(), *w)
+        fused_row_embed(rows.half(), *w)
 
 
 F32 = torch.float32
@@ -413,10 +421,10 @@ def test_k7_dense_and_k12b(dev, dtype, bias_heads, n):
 def test_dense_bias_shapes_and_f32_maskgit_on_cuda(dev):
     """fused_attention takes (1, 1|h, n, n) dense biases on CUDA and raises
     on a per-batch one (XLA in the JAX package; no caller) and on one
-    without its batch axis; an f32 MaskGit forward on CUDA raises in its
-    feed-forward (K3 is instantiated in bf16 only) instead of falling back.
-    The MaskGit's 512 tokens of width 64 do not fit the fused sublayers, so
-    its self-attention is K7 dense, as at full width."""
+    without its batch axis; an f32 MaskGit forward on CUDA runs, its
+    feed-forward on K3's f32 form (counted), and a half one raises instead
+    of falling back.  The MaskGit's 512 tokens of width 64 do not fit the
+    fused sublayers, so its self-attention is K7 dense, as at full width."""
     from ct_clip_tpu_torch.config import MaskGitConfig
     from ct_clip_tpu_torch.models import MaskGit
     from ct_clip_tpu_torch.ops.attention import attention_plain, fused_attention
@@ -432,7 +440,12 @@ def test_dense_bias_shapes_and_f32_maskgit_on_cuda(dev):
     cfg = MaskGitConfig(dim=128, depth=1, dim_head=64, heads=2, max_seq_len=512, t5_dim=32)
     model = MaskGit(cfg, num_tokens=32, device=dev).init_weights(_gen(dev, 32))
     ids = torch.randint(0, 33, (2, 512), generator=_gen(dev, 33), device=dev)
-    with pytest.raises(ValueError, match="bfloat16"):
+    K.reset_launch_counts()
+    assert torch.isfinite(model(ids, (2, 16, 16))).all()
+    counts = K.launch_counts()
+    assert counts["geglu_ff_f32"] == 1 and counts["attention_dense"] == 1
+    model.dtype = torch.float16
+    with pytest.raises(ValueError, match="float16"):
         model(ids, (2, 16, 16))
     model.dtype = BF
     K.reset_launch_counts()
@@ -1015,3 +1028,237 @@ def test_tc32_k12a_f32_backward(dev, n):
     errs = [(g - r).abs().max().item() / r.abs().max().item()
             for g, r in zip(tf32[1:4], ref[1:4])]
     assert min(errs) > TC32_REL, f"plain TF32 reads within 1e-5: {errs}"
+
+
+# ------------------------------------------------------------ the f32 forms
+# K1, K2 (grid and sequence-major), K3, K11, K5 on f32 rows, K6 and K17 in
+# f32 (`-k f32`): true f32 products on the CUDA cores against the plain
+# versions in f32 with TF32 off, another summation order: forwards within
+# 1e-5 x max|plain|, K11's weight gradients (sums over all rows) 1e-4.
+F32_FWD = 1e-5
+F32_WGRAD = 1e-4
+
+
+@pytest.mark.parametrize("M,N,K_", [(100, 70, 40), (129, 64, 64), (64, 1365, 512),
+                                    (77, 33, 13)])
+@pytest.mark.parametrize("epi", [K.EPI_STORE, K.EPI_RESIDUAL,
+                                 K.EPI_BIAS_ROUNDED, K.EPI_GEGLU])
+def test_gemm_f32_epilogues(dev, M, N, K_, epi):
+    g = _gen(dev, 40)
+    a, w, w2 = (_randn(s, g, dev, dtype=F32) for s in ((M, K_), (N, K_), (N, K_)))
+    r, bias = _randn((M, N), g, dev, dtype=F32), _randn((N,), g, dev, dtype=F32)
+    out = torch.empty((M, N), dtype=F32, device=dev)
+    K.gemm(epi, a, w, out, w2=w2 if epi == K.EPI_GEGLU else None,
+           residual=r if epi == K.EPI_RESIDUAL else None,
+           bias=bias if epi == K.EPI_BIAS_ROUNDED else None)
+    acc = a.double() @ w.double().t()
+    if epi == K.EPI_RESIDUAL:
+        acc = acc + r.double()
+    elif epi == K.EPI_BIAS_ROUNDED:  # no rounding in f32
+        acc = acc + bias.double()
+    elif epi == K.EPI_GEGLU:
+        acc = acc * torch.nn.functional.gelu(a.double() @ w2.double().t())
+    torch.cuda.synchronize()
+    _close(out, acc, rel=F32_FWD)
+    with pytest.raises(ValueError):  # every operand of one form
+        K.gemm(epi, a, w.to(BF), out)
+
+
+@pytest.mark.parametrize("M,N,K_", [(100, 70, 300), (64, 512, 5000), (33, 17, 9)])
+def test_gemm_f32_nn_and_tn_layouts(dev, M, N, K_):
+    g = _gen(dev, 41)
+    dy, w = _randn((M, K_), g, dev, dtype=F32), _randn((K_, N), g, dev, dtype=F32)
+    out = torch.empty((M, N), dtype=F32, device=dev)
+    K.gemm_nn(dy, w, out)
+    x = _randn((M, N), g, dev, dtype=F32)
+    dw = K.gemm_tn(dy, x)
+    torch.cuda.synchronize()
+    _close(out, dy.double() @ w.double(), rel=F32_FWD)
+    _close(dw, dy.double().t() @ x.double(), rel=F32_FWD)
+    with pytest.raises(ValueError):  # f32 operands write f32
+        K.gemm_nn(dy, w, out.to(BF))
+
+
+def test_layernorm_f32_forward_and_backward(dev):
+    from ct_clip_tpu_torch.ops.autograd import vjp
+    from ct_clip_tpu_torch.ops.norms import layer_norm
+
+    g = _gen(dev, 42)
+    x = _randn((300, 512), g, dev, 3.0, F32) + 1.0
+    scale, bias = 1 + _randn((512,), g, dev, 0.1, F32), _randn((512,), g, dev, 0.1, F32)
+    out = torch.empty_like(x)
+    K.layernorm(x, scale, bias, 1e-5, out)
+    _close(out, layer_norm(x, scale, bias), rel=F32_FWD)
+    dxn, add2 = _randn((300, 512), g, dev, dtype=F32), _randn((300, 512), g, dev, dtype=F32)
+    dx, ds, db = K.layernorm_bwd(x, scale, dxn, 1e-5, add2=add2, want_dbias=True)
+    rdx, rds, rdb = vjp(lambda a, s, b: layer_norm(a, s, b), (x, scale, bias), dxn)
+    torch.cuda.synchronize()
+    assert dx.dtype == F32
+    _close(dx, rdx + add2, rel=F32_FWD)
+    _close(ds, rds, rel=F32_WGRAD)
+    _close(db, rdb, rel=F32_WGRAD)
+
+
+def _ff_f32_inputs(dev, rows, seed):
+    g = _gen(dev, seed)
+    x = _randn((rows, 512), g, dev, dtype=F32)
+    return (x, 1 + _randn((512,), g, dev, 0.1, F32), _randn((512,), g, dev, 0.1, F32),
+            _randn((2730, 512), g, dev, 512 ** -0.5, F32),
+            _randn((512, 1365), g, dev, 1365 ** -0.5, F32)), _randn((rows, 512), g, dev, dtype=F32)
+
+
+@pytest.mark.parametrize("rows", [300, 2048])
+def test_geglu_ff_f32_k3_and_k11(dev, rows):
+    from ct_clip_tpu_torch.ops.ffn import (fused_geglu_ff, geglu_ff_bwd_plain,
+                                           geglu_ff_plain)
+
+    args, do = _ff_f32_inputs(dev, rows, 43)
+    K.reset_launch_counts()
+    _close(fused_geglu_ff(*args), geglu_ff_plain(*args), rel=F32_FWD)
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    got = torch.autograd.grad(fused_geglu_ff(*leaves), leaves, do)
+    ref = geglu_ff_bwd_plain(*args, do)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["geglu_ff_f32"] == 2 and counts["geglu_ff_bwd_f32"] == 1
+    _close(got[0], ref[0], rel=F32_FWD)  # dx
+    for gr, r in zip(got[1:], ref[1:]):  # dscale, dbias, dwi, dwo
+        assert gr.dtype == F32
+        _close(gr, r, rel=F32_WGRAD)
+
+
+def test_ff_bwd_core_f32_keeps_act_unrounded(dev):
+    g = _gen(dev, 44)
+    xn, dout = (_randn((130, 96), g, dev, dtype=F32) for _ in range(2))
+    wa, wg, woT = (_randn((72, 96), g, dev, 0.1, F32) for _ in range(3))
+    act, dcat = K.ff_bwd_core(xn, dout, wa, wg, woT)
+    a, gt = xn.double() @ wa.double().t(), xn.double() @ wg.double().t()
+    dact = dout.double() @ woT.double().t()
+    gelu = torch.nn.functional.gelu(gt)
+    torch.cuda.synchronize()
+    assert act.dtype == dcat.dtype == F32
+    _close(act, a * gelu, rel=F32_FWD)
+    _close(dcat[:, :72], dact * gelu, rel=F32_FWD)
+
+
+def test_spatial_qknorm_attention_f32_k1(dev):
+    from ct_clip_tpu_torch.ops.qknorm_attention import (
+        fused_spatial_qknorm_attention, qknorm_attention_plain)
+
+    g = _gen(dev, 45)
+    w = _attn_weights(g, dev)
+    for b, n in ((2, 576), (6, 64), (3, 100)):
+        x = _randn((b, n, 512), g, dev, dtype=F32)
+        bias = _randn((8, n, n), g, dev, dtype=F32)
+        K.reset_launch_counts()
+        got = fused_spatial_qknorm_attention(x, *w, bias, 8, 32)
+        ref = qknorm_attention_plain(x, *w, bias, 8, 32)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["spatial_attention_f32"] == 1
+        _close(got, ref, rel=F32_FWD)
+
+
+def test_grid_and_seq_qknorm_attention_f32_k2(dev):
+    from ct_clip_tpu_torch.ops.qknorm_attention import (
+        fused_grid_qknorm_attention, fused_small_qknorm_attention,
+        grid_qknorm_attention_plain, qknorm_attention_plain)
+
+    g = _gen(dev, 46)
+    w = _attn_weights(g, dev)
+    xg = _randn((2, 24, 36, 512), g, dev, dtype=F32)
+    _close(fused_grid_qknorm_attention(xg, *w, 8, 32),
+           grid_qknorm_attention_plain(xg, *w, 8, 32), rel=F32_FWD)
+    xs = _randn((40, 20, 512), g, dev, dtype=F32)
+    K.reset_launch_counts()
+    _close(fused_small_qknorm_attention(xs, *w, 8, 32),
+           qknorm_attention_plain(xs, *w, None, 8, 32), rel=F32_FWD)
+    assert K.launch_counts()["seq_attention_f32"] == 1
+
+
+def test_qknorm_attention_f32_backward_raises(dev):
+    """The f32 backwards (K9, K10) are not ported yet: they raise, naming
+    where they are queued, and never fall back."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import fused_spatial_qknorm_attention
+
+    g = _gen(dev, 47)
+    w = [t.requires_grad_() for t in _attn_weights(g, dev)]
+    x = _randn((2, 64, 512), g, dev, dtype=F32).requires_grad_()
+    out = fused_spatial_qknorm_attention(x, *w, None, 8, 32)
+    with pytest.raises(ValueError, match="slice 12"):
+        out.sum().backward()
+
+
+def test_vq_assign_f32_rows_k5(dev):
+    from ct_clip_tpu_torch.ops.norms import l2norm
+    from ct_clip_tpu_torch.ops.vq import CosineVQ, vq_assign, vq_assign_rows_plain
+
+    g = _gen(dev, 48)
+    x = _randn((2048, 512), g, dev, dtype=F32)
+    embed_n = l2norm(torch.randn((8192, 512), generator=g, device=dev))
+    K.reset_launch_counts()
+    got = vq_assign(x, embed_n).long()
+    ref = vq_assign_rows_plain(x, embed_n).long()
+    torch.cuda.synchronize()
+    assert K.launch_counts()["vq_assign_f32"] == 1
+    assert (got == ref).float().mean().item() >= 0.999
+    # any disagreement is a tie of the kernel's own math up to f32 order
+    xn = (x * torch.rsqrt((x * x).sum(-1, keepdim=True))).to(BF).float()
+    sim = xn @ embed_n.to(BF).float().t()
+    gap = (sim.gather(1, ref[:, None]) - sim.gather(1, got[:, None])).abs()[:, 0]
+    assert (gap <= 1e-5 * sim.abs().max(dim=1).values).all()
+    # shapes the JAX package's plan refuses take the f32 XLA form's plain version
+    K.reset_launch_counts()
+    vq_assign(x[:100], embed_n)
+    assert K.launch_counts()["vq_assign_f32"] == 0
+    vq = CosineVQ(512, 8192, device=dev)
+    with pytest.raises(ValueError, match="slice 12"):  # exact mode (training), K15
+        vq(x[None], train=True)
+
+
+@pytest.mark.parametrize("shape,pt,p", [((2, 20, 60, 40), 10, 20),  # 16-byte path
+                                        ((1, 6, 15, 25), 2, 5)])   # 4-byte path
+def test_rearrange_patches_f32_k6_k17_bit_exact(dev, shape, pt, p):
+    from ct_clip_tpu_torch.ops.patch_embed import (rearrange_patches, rearrange_plain,
+                                                   unrearrange_patches)
+
+    video = _randn(shape, _gen(dev, 49), dev, dtype=F32)
+    K.reset_launch_counts()
+    got = rearrange_patches(video, pt, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rearrange_plain(video, pt, p))
+    buf = torch.full((3,) + tuple(got.shape[1:]), 7.0, dtype=F32, device=dev)
+    rearrange_patches(video[:1], pt, p, out=buf[1:2])
+    back = unrearrange_patches(got, pt, p, *shape[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(buf[1], got[0]) and (buf[0] == 7).all() and (buf[2] == 7).all()
+    assert torch.equal(back, video)
+    counts = K.launch_counts()
+    assert counts["rearrange_patches_f32"] == 2 and counts["unrearrange_patches_f32"] == 1
+
+
+def test_f32_plain_routes_where_jax_takes_xla(dev):
+    """K8 / K4 and K14 in f32 take their plain versions on CUDA (the JAX
+    package gates them to bf16), each counted; the bf16 calls the kernels."""
+    from ct_clip_tpu_torch.ops.attention import peg_conv, peg_dw_plain
+    from ct_clip_tpu_torch.ops.patch_embed import fused_patch_embed, patch_embed_plain
+
+    g = _gen(dev, 50)
+    video = _randn((1, 20, 40, 40), g, dev, dtype=F32)
+    w = (1 + _randn((4000,), g, dev, 0.1, F32), _randn((4000,), g, dev, 0.1, F32),
+         _randn((64, 4000), g, dev, 4000 ** -0.5, F32), _randn((64,), g, dev, 0.1, F32),
+         1 + _randn((64,), g, dev, 0.1, F32), _randn((64,), g, dev, 0.1, F32))
+    K.reset_launch_counts()
+    got = fused_patch_embed(video, *w, 10, 20)
+    assert torch.equal(got, patch_embed_plain(video, *w, 10, 20))
+    x = _randn((1, 4, 6, 8, 32), g, dev, dtype=F32).requires_grad_()
+    wt = _randn((32, 1, 3, 3, 3), g, dev, 0.2, F32).requires_grad_()
+    bt = _randn((32,), g, dev, 0.1, F32).requires_grad_()
+    do = _randn((1, 4, 6, 8, 32), g, dev, dtype=F32)
+    dw, db = torch.autograd.grad(peg_conv(x, wt, bt), (wt, bt), do)
+    ref = peg_dw_plain(x.detach(), do, (2, 1, 1))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["patch_embed_plain"] == 1 and counts["patch_embed"] == 0
+    assert counts["peg_dw_plain"] == 1 and counts["peg_bwd"] == 0
+    assert torch.equal(db, ref[27])
+    assert torch.equal(dw.reshape(32, 27), ref[:27].t())

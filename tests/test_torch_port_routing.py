@@ -75,3 +75,56 @@ def test_tc_backward_operands_copy_only_views_it_cannot_address():
     assert not K.tc_addressable(v) and got[2].is_contiguous() and torch.equal(got[2], v)
     assert got[3].dtype == BF and torch.equal(got[3], do.to(BF))
     assert all(K.tc_addressable(t) for t in got)
+
+
+# What a CUDA tensor takes by dtype (kernels.ROUTES): the plain version where
+# the JAX package's dispatch gates the Pallas kernel to bf16 and computes f32
+# in XLA (patchify.py:440, 685, 700, 714; peg.py:106), the kernel where the
+# TPU kernel runs f32 too, and a ValueError for the f32 forms not ported yet.
+KERNEL, PLAIN, RAISES = K.KERNEL, K.PLAIN, K.RAISES
+
+
+@pytest.mark.parametrize("op,bf16,f32", [
+    ("patch_embed", KERNEL, PLAIN),        # K8: `dtype == bfloat16` gate, patchify.py:440
+    ("patch_embed_bwd", KERNEL, PLAIN),    # K16a: patchify.py:714
+    ("row_embed", KERNEL, PLAIN),          # K4: patchify.py:685
+    ("row_embed_bwd", KERNEL, PLAIN),      # K16b: patchify.py:700
+    ("peg_bwd", KERNEL, PLAIN),            # K14: peg.py:106, `dtype != bfloat16` -> XLA
+    ("geglu_ff", KERNEL, KERNEL),          # K3: dot_precision, f32 "highest"
+    ("geglu_ff_bwd", KERNEL, KERNEL),      # K11
+    ("spatial_attention", KERNEL, KERNEL),  # K1: mm_precision_for(f32) "highest"
+    ("grid_attention", KERNEL, KERNEL),    # K2 grid
+    ("seq_attention", KERNEL, KERNEL),     # K2 seq
+    ("vq_assign", KERNEL, KERNEL),         # K5 on f32 rows, normalised then bf16
+    ("rearrange_patches", KERNEL, KERNEL),  # K6: f32 blocks, no dtype gate
+    ("unrearrange_patches", KERNEL, KERNEL),  # K17: f32 blocks
+    ("spatial_attention_bwd", KERNEL, RAISES),  # K9 f32: not ported yet
+    ("grid_attention_bwd", KERNEL, RAISES),     # K10 grid f32
+    ("seq_attention_bwd", KERNEL, RAISES),      # K10 seq f32
+    ("vq_assign_exact", KERNEL, RAISES),        # K5 exact on f32 rows
+    ("vq_cluster_stats", KERNEL, RAISES),       # K15 on f32 rows
+])
+def test_dtype_route_table(op, bf16, f32):
+    assert K.route(op, BF) == bf16
+    assert K.route(op, F32) == f32
+    assert K.route(op, torch.float16) == RAISES
+    # a plain route is counted where it runs
+    if PLAIN in (bf16, f32):
+        assert {"patch_embed": "patch_embed_plain", "patch_embed_bwd": "patch_embed_plain",
+                "row_embed": "row_embed_plain", "row_embed_bwd": "row_embed_plain",
+                "peg_bwd": "peg_dw_plain"}[op] in K.KERNELS
+
+
+def test_dtype_route_table_covers_every_kernel_counter():
+    """Every kernel counter that has a dtype route is in the table, and each
+    f32 kernel form has its own counter."""
+    assert set(K.ROUTES) <= set(K.KERNELS)
+    for op, routes in K.ROUTES.items():
+        if routes[F32] == KERNEL and op not in ("vq_assign",):
+            assert f"{op}_f32" in K.KERNELS
+    assert "vq_assign_f32" in K.KERNELS
+
+
+def test_unported_f32_forms_raise_naming_their_queue():
+    err = K.not_ported("spatial_attention_bwd", F32)
+    assert isinstance(err, ValueError) and "slice 12" in str(err)

@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""The bf16 forms of K1, K3 and K11 from one checkout, timed as chip_smoke.py
+times them, printed as one JSON line, so that two commits can be compared on
+one card in turns:
+
+    git archive PARENT | tar -x -C build/parent
+    for t in build/parent . . build/parent; do python tools/port_bf16_ab.py $t; done
+    python tools/port_bf16_ab.py --sass build/parent/build/ct_clip_tpu_torch/LIB.so \\
+        build/ct_clip_tpu_torch/LIB.so
+
+Each timing line: the tree, then for K1 (fused_spatial_qknorm_attention on
+the zero-shot batch's (48, 576, 512) planes), K3 (fused_geglu_ff on its
+27,648 rows) and K11 (the GEGLU FF backward at the training batch's 110,592
+rows) the median ms of 10 calls of the wrapper (CUDA events), from the
+tree's own chip_smoke.py cases.  With --sass, the two libraries' machine
+code (cuobjdump -sass), each kernel's instructions with addresses, encodings
+and symbol names dropped: how many of the first library's kernels have an
+identical twin in the second, and which have none.
+"""
+from __future__ import annotations
+
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+
+def sass_kernels(lib: str) -> dict:
+    """kernel symbol -> its normalised instruction list."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if name and m:
+            out[name].append(m.group(1))
+    return out
+
+
+def compare_sass(lib_a: str, lib_b: str) -> dict:
+    a, b = sass_kernels(lib_a), sass_kernels(lib_b)
+    twins = {tuple(code): n for n, code in b.items()}
+    missing = [n for n, code in a.items() if tuple(code) not in twins]
+    return dict(kernels_a=len(a), kernels_b=len(b), identical=len(a) - len(missing),
+                without_twin=missing)
+
+
+def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--sass":
+        print(json.dumps(compare_sass(sys.argv[2], sys.argv[3])), flush=True)
+        return 0
+    import torch
+
+    if len(sys.argv) != 2 or not torch.cuda.is_available():
+        print("usage: port_bf16_ab.py TREE | --sass LIB_A LIB_B (on a machine with an "
+              "NVIDIA GPU)", file=sys.stderr)
+        return 1
+    tree = Path(sys.argv[1]).resolve()
+    sys.path.insert(0, str(tree))
+    import chip_smoke as cs
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    K.library()
+    cases = cs.kernel_cases(dev)
+    res = {name: cs.cuda_ms(cases[key]["kern"])
+           for name, key in (("K1", "spatial_attention"), ("K3", "geglu_ff"))}
+    del cases
+    torch.cuda.empty_cache()
+    name, case = next(iter(cs.train_kernel_cases(dev)))
+    assert name == "geglu_ff_bwd", name
+    res["K11"] = cs.cuda_ms(case["kern"])
+    print(json.dumps(dict(tree=str(tree), library=K.library_path().name, ms=res)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
