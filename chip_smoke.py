@@ -142,7 +142,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
      launches per step, step time, peak memory, a profiled step), f32
      sampling of one volume; a tiny f32 MaskGit step card against CPU
      (gradients 1e-4 of max, weights 1e-5), and again with K11's act rounded
-     to bf16, which must fail.
+     to bf16, which must fail;
+ 11. f32 training, the JAX package's f32 CT-CLIP and CTViT autoencoder: the
+     f32 backwards against their plain versions in true f32 at full width
+     (dx TC32_REL_TOL, the sums over all sequences F32_REL_TOL): K9 f32 on
+     the contrastive batch's (192, 576, 512) planes with the CPB bias and on
+     the autoencoder's (160, 64, 512), K10 grid f32 at (8, 24, 576, 512), K10
+     seq f32 at (4,608, 16, 512) and (512, 20, 512), the core alone (merged
+     heads, dq, dkv TC32_REL_TOL) beside a copy with P rounded to bf16 that
+     must miss, K5 exact on 110,592 f32 rows (ids against the plain version
+     of its math; the full-f32 share reported), K15 on them (bins exact,
+     sums 1e-6 of max, which full-f32 sums must miss), K17 f32 as K6's
+     backward (bit-exact); `cli train --no-bf16` at batch 8, 4 steps with
+     the mini evaluation and a checkpoint (launches per step, step time,
+     peak memory, a profiled step); `CTViTTrainer` on an f32
+     CTViT(ae_config()): 3 generator steps with falling losses and a round
+     with the discriminator (the sequence-major f32 counters, K9 f32 at n =
+     64; step time, peak memory, a profiled step); a tiny f32 CT-CLIP step
+     and a tiny f32 autoencoder step card against CPU (gradients 1e-4 of
+     max, weights 1e-5, VQ ids equal and its EMA state 1e-5), each again
+     with K9/K10 f32's P rounded to bf16, which must fail.
 
 Prints the end-to-end numbers and the kernel table as one JSON line each,
 then the card's name and power limit (nvidia-smi), then
@@ -314,6 +333,24 @@ KERNELS = {
     "unrearrange_patches_f32": _kernel("_pallas_unrearrange (f32)", "patchify.py:138",
                                        "rearrange.cu", ["rearrange.cu"],
                                        "unrearrange_patches_f32", "maskgit_f32_sample"),
+    # the f32 CTViT backwards (phase 11), each with its own counter
+    "spatial_attention_bwd_f32": _kernel("_pallas_spatial_bwd (f32)", "spatial_attention.py:297",
+                                         "qknorm_attention_bwd.cu",
+                                         ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
+                                         "spatial_attention_bwd_f32", "ctclip_f32_train"),
+    "grid_attention_bwd_f32": _kernel("_pallas_small_qknorm_bwd (grid_layout, f32)",
+                                      "small_attention.py:437", "qknorm_attention_bwd.cu",
+                                      ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
+                                      "grid_attention_bwd_f32", "ctclip_f32_train"),
+    "seq_attention_bwd_f32": _kernel("_pallas_small_qknorm_bwd (sequence-major, f32)",
+                                     "small_attention.py:437", "qknorm_attention_bwd.cu",
+                                     ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
+                                     "seq_attention_bwd_f32", "ctvit_ae_f32_train"),
+    "vq_assign_exact_f32": _kernel("pallas_assign (exact, f32 rows)", "vq.py:104", "gemm.cu",
+                                   ["gemm.cu"], "vq_assign_exact_f32", "ctclip_f32_train"),
+    "vq_cluster_stats_f32": _kernel("pallas_cluster_stats (f32 rows)", "vq.py:168",
+                                    "vq_stats.cu", ["vq_stats.cu"], "vq_cluster_stats_f32",
+                                    "ctclip_f32_train"),
 }
 # launch counters each driven path must raise
 COMMON = ["spatial_attention", "grid_attention", "geglu_ff", "vq_assign",
@@ -395,6 +432,23 @@ PATHS["maskgit_f32_train"] = ["geglu_ff_f32", "geglu_ff_bwd_f32", "attention_den
 PATHS["maskgit_f32_sample"] = ["attention_dense", "fused_attention", "geglu_ff_f32",
                                "seq_attention_f32", "spatial_attention_f32",
                                "unrearrange_patches_f32"]
+# phase 11: f32 CT-CLIP pretraining (`cli train --no-bf16`: the f32 forms of
+# K1, K2 grid, K3 and their backwards K9, K10 grid, K11, K5 exact and K15 on
+# f32 rows, K6 f32 in the ingest, K13a / K13b f32, the PEG's plain dW; the
+# mini evaluation's K5 f32 rows, plain row embed, K7 f32) and the f32
+# autoencoder (K1 / K9 f32 at n = 64, K2 / K10 seq f32, K6 and K17 f32)
+PATHS["ctclip_f32_train"] = ["spatial_attention_bwd_f32", "grid_attention_bwd_f32",
+                             "vq_assign_exact_f32", "vq_cluster_stats_f32", "geglu_ff_bwd_f32",
+                             "geglu_ff_f32", "spatial_attention_f32", "grid_attention_f32",
+                             "rearrange_patches_f32", "attention_dropout",
+                             "attention_dropout_bwd", "peg_dw_plain", "vq_assign_f32",
+                             "row_embed_plain", "fused_attention"]
+AE_F32_TRAIN = ["seq_attention_f32", "seq_attention_bwd_f32", "spatial_attention_f32",
+                "spatial_attention_bwd_f32", "geglu_ff_f32", "geglu_ff_bwd_f32", "peg_dw_plain",
+                "vq_cluster_stats_f32", "vq_assign_exact_f32", "rearrange_patches_f32",
+                "unrearrange_patches_f32"]
+PATHS["ctvit_ae_f32_train"] = AE_F32_TRAIN
+PATHS["ctvit_ae_f32_discr"] = AE_F32_TRAIN
 # the paths on a non-cubic grid must not take the grid form, and back
 GRID_COUNTERS = ("grid_attention", "grid_attention_bwd")
 SEQ_COUNTERS = ("seq_attention", "seq_attention_bwd")
@@ -1194,6 +1248,8 @@ def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
             err, rel = _rel_errors(got, ref)
             ok = all(torch.equal(g, r) for g, r in zip(got, ref))
             res = dict(max_abs_err=err, max_rel_err=rel, tolerance="bit-exact")
+        elif case.get("check"):  # a check the case states itself
+            ok, res = case["check"](got, ref)
         elif case.get("tols"):  # one tolerance per output
             rels = [_rel_errors((g,), (r,))[1] for g, r in zip(got, ref)]
             err = _rel_errors(got, ref)[0]
@@ -1220,6 +1276,14 @@ def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
                 raise AssertionError(f"{name}: another seed's mask reads within tolerance")
         if case.get("twin"):
             res["replaced"] = twin_result(name, case["twin"], ref)
+        if case.get("copy"):  # a one-change copy of the kernel must miss the limits
+            crels = [_rel_errors((c,), (r,))[1] for c, r in zip(_as_tuple(case["copy"]()), ref)]
+            res["copy_rel_err_by_output"] = crels
+            missed = any(r > t for r, t in zip(crels, case["tols"]))
+            log(f"kernel {name}: the one-change copy ({case['copy_is']}) reads max_rel_err by "
+                f"output {[f'{r:.2e}' for r in crels]}, limits {case['tols']}: outside {missed}")
+            if not missed:
+                raise AssertionError(f"{name}: the copy ({case['copy_is']}) is within the limits")
         del got, ref
         torch.cuda.empty_cache()
         res.update(timing(case, case["outputs"]), batch=batch)
@@ -1901,8 +1965,9 @@ def timed_steps(step, state, batch, card: str, label: str, batch_size: int,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med = statistics.median(step_ms[1:])
     vcfg = state.model.config.ctvit
+    dtype = str(state.model.dtype).replace("torch.", "")
     log(f"{label} step: batch {batch_size} x ({vcfg.patch_t * vcfg.patch_hw ** 2:,} tokens, 512 "
-        f"text tokens), full width, bf16: "
+        f"text tokens), full width, {dtype}: "
         f"median {med:.2f} ms of steps 2-4 {[round(t, 2) for t in step_ms]} = "
         f"{batch_size / med * 1e3:.3f} volumes/s; peak memory {peak_gb:.2f} GB; loss "
         f"{m['loss'].item():.4f} on {card}")
@@ -1912,54 +1977,86 @@ def timed_steps(step, state, batch, card: str, label: str, batch_size: int,
                 peak_gb=peak_gb, step_breakdown=breakdown)
 
 
-def ctclip_train_phase(dev, work: Path, card: str, corpus) -> dict:
+# launches per step of `cli train`: bf16, the text tower's 12 layers' K13a
+# and K13b on the tensor cores; f32, each of the 4 + 4 layers' backward, one
+# K5 exact and one K15, K13a / K13b f32 on the CUDA cores (attention_train.cu)
+CLIP_PER_STEP = {
+    "bf16": dict(attention_dropout=BERT_LAYERS, attention_dropout_bwd=BERT_LAYERS,
+                 attention_tc_bwd=BERT_LAYERS),
+    "f32": dict(spatial_attention_bwd_f32=4, grid_attention_bwd_f32=4, vq_assign_exact_f32=1,
+                vq_cluster_stats_f32=1, geglu_ff_bwd_f32=8, attention_dropout=BERT_LAYERS,
+                attention_dropout_bwd=BERT_LAYERS, attention_tc=0, attention_tc_bwd=0,
+                peg_bwd=0, spatial_attention_bwd=4, grid_attention_bwd=4),
+}
+
+
+def ctclip_train_phase(dev, work: Path, card: str, corpus, dtype: str = "bf16") -> dict:
     """`cli train` at full width, batch 8, 4 steps (mini evaluation and
-    checkpoint at step 4), then the steady-state step time (CUDA events),
-    peak memory and a profiled step."""
+    checkpoint at step 4), in bf16 or with `--no-bf16` in f32 (the JAX
+    package's f32 CT-CLIP training); the launches per step against
+    CLIP_PER_STEP, then the steady-state step time (CUDA events), peak
+    memory and a profiled step."""
     import torch
 
     from ct_clip_tpu_torch import cli
 
+    f32 = dtype == "f32"
     train, valid, vocab = corpus
-    results = work / "train_results"
-    argv = ["--vocab", vocab, "--device", "cuda", "--seed", "0", "train",
+    results = work / ("train_f32_results" if f32 else "train_results")
+    argv = ["--vocab", vocab, "--device", "cuda", "--seed", "0",
+            *(["--no-bf16"] if f32 else []), "train",
             "--data-train", train[0], "--reports-train", train[1], "--meta-train", train[2],
             "--data-valid", valid[0], "--reports-valid", valid[1], "--meta-valid", valid[2],
             "--labels", valid[3], "--results", str(results), "--batch-size", str(TRAIN_B),
             "--steps", "4", "--workers", "4", "--save-results-every", "4",
             "--save-model-every", "4"]
-    trainer, counts, secs = drive("ctclip_train", lambda: cli.main(argv))
+    label = "ctclip f32" if f32 else "ctclip"
+    trainer, counts, secs = drive("ctclip_f32_train" if f32 else "ctclip_train",
+                                  lambda: cli.main(argv))
     recs = [json.loads(x) for x in (results / "metrics.jsonl").read_text().splitlines()]
     losses = [r["loss"] for r in recs if "loss" in r]
     evals = [r["mini_eval_mean_auc"] for r in recs if "mini_eval_mean_auc" in r]
     ckpts = sorted(p.name for p in (results / "checkpoints").iterdir())
-    log(f"ctclip train: {len(trainer.train_ds)} volumes, 4 steps of {TRAIN_B} at full width "
-        f"in {secs:.1f} s (host clock: build, ingest, mini evaluation and the checkpoint "
-        f"included); losses {losses}; grad norms "
+    model_dtype = trainer.state.model.dtype
+    log(f"{label} train: {len(trainer.train_ds)} volumes, 4 steps of {TRAIN_B} at full width, "
+        f"{model_dtype}, in {secs:.1f} s (host clock: build, ingest, mini evaluation and the "
+        f"checkpoint included); losses {losses}; grad norms "
         f"{[round(r['grad_norm'], 4) for r in recs if 'loss' in r]}; mini-eval mean AUC "
         f"{evals}; checkpoints {ckpts}")
-    if len(losses) != 4 or not np.isfinite(losses).all() or len(evals) != 1 \
+    if model_dtype != (torch.float32 if f32 else torch.bfloat16) or len(losses) != 4 \
+            or not np.isfinite(losses).all() or len(evals) != 1 \
             or ckpts != ["step_4.pt"] or not (results / "mini_eval_step4.csv").exists():
-        raise AssertionError(f"ctclip train: losses {losses}, evals {evals}, ckpts {ckpts}")
-    # per step, the text tower's 12 layers: K13a and K13b on the tensor
-    # cores; every attention forward of the run (K13a, the mini evaluation's
-    # K7) on attention_tc.cu, none on attention_train.cu
-    k13 = {k: counts[k] / 4 for k in ("attention_dropout", "attention_dropout_bwd",
-                                      "attention_tc_bwd")}
-    off_tc = counts["attention_dropout"] + counts["fused_attention"] - counts["attention_tc"]
-    log(f"ctclip train: K13 launches per step {k13}; attention forwards not on the tensor "
-        f"cores {off_tc}")
-    if any(v != BERT_LAYERS for v in k13.values()) or off_tc:
-        raise AssertionError(f"ctclip train: K13 launches per step {k13}, want {BERT_LAYERS}; "
-                             f"{off_tc} forwards off the tensor cores")
+        raise AssertionError(f"{label} train: {model_dtype}, losses {losses}, evals {evals}, "
+                             f"ckpts {ckpts}")
+    want = CLIP_PER_STEP[dtype]
+    per_step = {k: counts[k] / 4 for k in want}
+    if f32:
+        # the PEG's plain dW; K6 f32 moves each ingested volume (the mini
+        # evaluation's too) into its batch slot; K17 f32 none (the volume
+        # takes no gradient)
+        extra = {k: counts[k] / 4 for k in ("peg_dw_plain", "rearrange_patches_f32",
+                                             "unrearrange_patches_f32")}
+        extra_ok = extra["peg_dw_plain"] and not extra["unrearrange_patches_f32"] \
+            and extra["rearrange_patches_f32"] >= TRAIN_B
+    else:
+        # every attention forward of the run (K13a, the mini evaluation's
+        # K7) on attention_tc.cu, none on attention_train.cu
+        extra = dict(forwards_off_tc=counts["attention_dropout"] + counts["fused_attention"]
+                     - counts["attention_tc"])
+        extra_ok = not extra["forwards_off_tc"]
+    log(f"{label} train: launches per step {per_step}; {extra}")
+    if any(per_step[k] != v for k, v in want.items()) or not extra_ok:
+        raise AssertionError(f"{label} train: launches per step {per_step}, want {want}; "
+                             f"{extra}")
     shutil.rmtree(results / "checkpoints")
 
     batch = next(trainer._batches())
-    timed = timed_steps(trainer.step_fn, trainer.state, batch, card, "ctclip", TRAIN_B)
+    timed = timed_steps(trainer.step_fn, trainer.state, batch, card, label, TRAIN_B,
+                        F32_TRAIN_GROUPS if f32 else None)
     del trainer, batch
     torch.cuda.empty_cache()
     return dict(counts=counts, losses=losses, mini_eval_mean_auc=evals[0], cli_s=secs,
-                **timed)
+                launches_per_step=dict(per_step, **extra), **timed)
 
 
 def tiny_ctclip_config():
@@ -2032,10 +2129,12 @@ def tiny_ctclip_side(cfg, tcfg, start, inputs, device, dtype) -> dict:
     before = K.launch_counts()
     loss.backward()
     # one K12a per BERT layer and text pass (two with MLM): on the tensor
-    # cores at CXR-BERT's head dim 64, else on attention_train.cu
+    # cores at CXR-BERT's head dim 64 (bf16 attention_tc.cu, f32
+    # attention_tc32.cu), else on attention_train.cu
     k12a = cfg.bert.num_hidden_layers * (2 if cfg.use_mlm else 1)
     on_tc = cfg.bert.hidden_size // cfg.bert.num_attention_heads == K.TC_HEAD_DIM
-    want = dict(attention_bwd=k12a, attention_tc_bwd=k12a if on_tc else 0)
+    tc = "attention_tc_bwd" if dtype == torch.bfloat16 else "attention_tc32_bwd"
+    want = {"attention_bwd": k12a, tc: k12a if on_tc else 0}
     ran = {k: K.launch_counts()[k] - before[k] for k in want}
     if device.type == "cuda" and ran != want:
         raise AssertionError(f"tiny CT-CLIP: key-bias backwards {ran}, want {want}")
@@ -2583,15 +2682,17 @@ def _no_grid_path(name: str, counts) -> None:
         raise AssertionError(f"{name}: a non-cubic grid took the grid form: {counts}")
 
 
-def ctvit_ae_phase(dev, work: Path, card: str) -> dict:
-    """The CTViT autoencoder at full width, batch AE_B, on a synthetic
+def ctvit_ae_phase(dev, work: Path, card: str, dtype: str = "bf16") -> dict:
+    """The CTViT autoencoder at full width, batch AE_B, in bf16 or in f32
+    (CTViT(ae_config(), dtype=float32), the JAX package's default), on a synthetic
     GenerateCT corpus of 201 x 128 x 128 NIfTIs through VideoDataset(
     num_frames=200): `CTViTTrainer` 3 generator-only steps, whose losses
     must be finite and below step 1's, then one round with the
     discriminator (3 generator steps and a discriminator step); the
-    sequence-major counters must rise and the grid ones not.  Then the step
-    times (CUDA events, median), peak memory, a profiled generator step, a
-    .pt save -> restore round trip and one `dump_reconstruction` NIfTI."""
+    sequence-major counters must rise and the grid ones not (in f32, K9 f32
+    runs at n = 64).  Then the launches per generator step, the step times
+    (CUDA events, median), peak memory, a profiled generator step, a .pt
+    save -> restore round trip and one `dump_reconstruction` NIfTI."""
     import torch
 
     from ct_clip_tpu_torch.data import read_volume
@@ -2599,38 +2700,42 @@ def ctvit_ae_phase(dev, work: Path, card: str) -> dict:
     from ct_clip_tpu_torch.models import CTViT
     from ct_clip_tpu_torch.train import CTViTTrainer
 
+    f32 = dtype == "f32"
+    tag, model_dtype = ("_f32", torch.float32) if f32 else ("", torch.bfloat16)
+    groups = F32_TRAIN_GROUPS if f32 else AE_GROUPS
     cfg = ae_config()
-    ds = VideoDataset(str(write_volumes(work / "generatect", AE_B, (128, 128, 201), 6)),
+    ds = VideoDataset(str(write_volumes(work / f"generatect{tag}", AE_B, (128, 128, 201), 6)),
                       num_frames=AE_FRAMES, image_size=cfg.image_size)
     t0 = time.perf_counter()
     video = torch.from_numpy(np.stack([ds[i] for i in range(len(ds))]))[..., None].to(dev)
     ingest_s = time.perf_counter() - t0
     if video.shape != (AE_B, AE_FRAMES, 128, 128, 1):
         raise AssertionError(f"ctvit ae: bad batch {tuple(video.shape)}")
-    model = CTViT(cfg, dtype=torch.bfloat16, device=dev).init_weights(
+    model = CTViT(cfg, dtype=model_dtype, device=dev).init_weights(
         torch.Generator(device=dev).manual_seed(0))
-    results = work / "ctvit_ae"
+    results = work / f"ctvit_ae{tag}"
     trainer = CTViTTrainer(model, results_folder=str(results), save_model_every=10 ** 9,
                            save_results_every=10 ** 9)
     counts = {}
-    logs, counts["ctvit_ae_train"], secs = drive(
-        "ctvit_ae_train", lambda: [trainer.train_step(video) for _ in range(3)])
+    train_path, discr_path = f"ctvit_ae{tag}_train", f"ctvit_ae{tag}_discr"
+    logs, counts[train_path], secs = drive(
+        train_path, lambda: [trainer.train_step(video) for _ in range(3)])
     losses = [x["loss"] for x in logs]
-    log(f"ctvit ae: {AE_B} volumes of {AE_FRAMES}x128x128 ingested in {ingest_s:.2f} s "
+    per_step = {k: counts[train_path][k] / 3 for k in PATHS[train_path]}
+    log(f"ctvit ae {dtype}: {AE_B} volumes of {AE_FRAMES}x128x128 ingested in {ingest_s:.2f} s "
         f"(host: NIfTI decode + resize); 3 generator steps in {secs:.2f} s; losses "
         f"{losses}; recon {[x['recon_loss'] for x in logs]}; commit "
-        f"{[x['commit_loss'] for x in logs]}")
+        f"{[x['commit_loss'] for x in logs]}; launches per step {per_step}")
     if not np.isfinite(losses).all() or not all(x < losses[0] for x in losses[1:]):
-        raise AssertionError(f"ctvit ae: losses not finite and falling: {losses}")
-    _no_grid_path("ctvit_ae_train", counts["ctvit_ae_train"])
+        raise AssertionError(f"ctvit ae {dtype}: losses not finite and falling: {losses}")
+    _no_grid_path(train_path, counts[train_path])
     dtrainer = CTViTTrainer(model, use_discr=True, results_folder=str(results / "discr"),
                             save_model_every=10 ** 9, save_results_every=10 ** 9)
-    dlogs, counts["ctvit_ae_discr"], _ = drive("ctvit_ae_discr",
-                                                lambda: dtrainer.train_step(video))
-    log(f"ctvit ae with the discriminator: {dlogs}")
+    dlogs, counts[discr_path], _ = drive(discr_path, lambda: dtrainer.train_step(video))
+    log(f"ctvit ae {dtype} with the discriminator: {dlogs}")
     if not np.isfinite(list(dlogs.values())).all():
-        raise AssertionError(f"ctvit ae discriminator round: {dlogs}")
-    _no_grid_path("ctvit_ae_discr", counts["ctvit_ae_discr"])
+        raise AssertionError(f"ctvit ae {dtype} discriminator round: {dlogs}")
+    _no_grid_path(discr_path, counts[discr_path])
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2639,13 +2744,13 @@ def ctvit_ae_phase(dev, work: Path, card: str) -> dict:
     round_ms = cuda_step_ms(lambda: dtrainer.train_step(video), 2)
     gen = statistics.median(gen_ms[1:])
     log(f"ctvit ae step: batch {AE_B} x {AE_FRAMES}x128x128 (1,280 tokens each), full width, "
-        f"bf16: median {gen:.2f} ms of generator steps 2-4 {[round(t, 2) for t in gen_ms]} = "
+        f"{dtype}: median {gen:.2f} ms of generator steps 2-4 {[round(t, 2) for t in gen_ms]} = "
         f"{AE_B / gen * 1e3:.2f} volumes/s, peak memory {peak_gb:.2f} GB; a round with the "
         f"discriminator (3 generator steps + 1) {[round(t, 2) for t in round_ms]} ms on {card}")
-    breakdown = profile_step(lambda: trainer.train_step(video), AE_GROUPS, "ctvit_ae")
+    breakdown = profile_step(lambda: trainer.train_step(video), groups, f"ctvit_ae{tag}")
 
     path = trainer.ckpt.save(trainer.state.step, trainer.state)
-    other = CTViTTrainer(CTViT(cfg, dtype=torch.bfloat16, device=dev),
+    other = CTViTTrainer(CTViT(cfg, dtype=model_dtype, device=dev),
                          results_folder=str(results / "restored"))
     trainer.ckpt.restore(other.state)
     same = all(torch.equal(t, other.state.model.state_dict()[k])
@@ -2654,15 +2759,17 @@ def ctvit_ae_phase(dev, work: Path, card: str) -> dict:
         for k, t in trainer.state.ema_model.state_dict().items())
     dump = trainer.dump_reconstruction(video)
     arr = read_volume(dump)[0]
-    log(f"ctvit ae: checkpoint {path.name} ({path.stat().st_size / 1e6:.1f} MB) restored equal "
+    log(f"ctvit ae {dtype}: checkpoint {path.name} ({path.stat().st_size / 1e6:.1f} MB) restored equal "
         f"{same} at step {other.state.step}; reconstruction dump {dump.name} {arr.shape}, "
         f"finite {bool(np.isfinite(arr).all())}")
     if not same or other.state.step != trainer.state.step or arr.shape != (128, 128, AE_FRAMES) \
             or not np.isfinite(arr).all():
-        raise AssertionError("ctvit ae: checkpoint round trip or reconstruction dump failed")
+        raise AssertionError(f"ctvit ae {dtype}: checkpoint round trip or reconstruction "
+                             "dump failed")
     del trainer, dtrainer, other, model, video
     torch.cuda.empty_cache()
     return dict(counts=counts, losses=losses, discr_round=dlogs, ingest_s=ingest_s,
+                launches_per_step=per_step,
                 step_ms=gen, step_ms_all=gen_ms, round_with_discr_ms=round_ms,
                 volumes_per_s=AE_B / gen * 1e3, peak_gb=peak_gb, step_breakdown=breakdown,
                 checkpoint_mb=path.stat().st_size / 1e6)
@@ -3727,6 +3834,326 @@ def tiny_maskgit_f32_phase(dev, work: Path) -> dict:
     return res
 
 
+# --------------------------------------------------------------- phase 11
+# the f32 forms of the CTViT backwards and the two f32 training steps
+# kernel-name fragments of an f32 training step's groups (first match),
+# ahead of the CT-CLIP step's
+F32_TRAIN_GROUPS = (
+    ("K9/K10 f32 attention core backward (qk_attention_bwd_f32_kernel)",
+     ("qk_attention_bwd_f32_kernel",)),
+    ("K5 exact on f32 rows (gemm_argmax3_rows_kernel)", ("gemm_argmax3_rows",)),
+    ("K15 f32 row sums (sum_f32_kernel)", ("sum_f32_kernel",)),
+    ("K6/K17 rearrange (rearrange_kernel)", ("rearrange_kernel",)),
+) + CTCLIP_GROUPS
+
+
+def qk_core_plain(q, kv, dout, heads: int, d: int, n: int, qs, ks, bias):
+    """Plain version of the QK-norm attention core's backward on
+    sequence-major (S * n, heads * d) projections q and kv [k | v]: the
+    merged heads, dq, dkv, and the sums dq_scale (of the scale `qs` that
+    includes the logit scale), dk_scale and dbias, by autograd in f32."""
+    import torch
+
+    from ct_clip_tpu_torch.ops.norms import l2norm
+
+    hd = heads * d
+    leaves = [t.detach().clone().requires_grad_() for t in (q, kv, qs, ks, bias)]
+    ql, kvl, qsl, ksl, bl = leaves
+    S = ql.shape[0] // n
+    qn = l2norm(ql.view(S, n, heads, d)) * qsl
+    kn = l2norm(kvl[:, :hd].reshape(S, n, heads, d)) * ksl
+    v = kvl[:, hd:].reshape(S, n, heads, d)
+    p = (torch.einsum("sihd,sjhd->shij", qn, kn) + bl).softmax(dim=-1)
+    merged = torch.einsum("shij,sjhd->sihd", p, v).reshape(S * n, hd)
+    grads = torch.autograd.grad(merged, leaves, dout)
+    return (merged.detach(),) + grads
+
+
+def f32_train_kernel_cases(dev):
+    """The f32 training backwards at full width, each against its plain
+    version in true f32 (TF32 off): K9 f32 through the sublayer's backward
+    on the contrastive batch's (192, 576, 512) planes with the CPB bias and
+    on the autoencoder's (160, 64, 512) with an (8, 64, 64) bias, K10 grid
+    f32 at (8, 24, 576, 512), K10 seq f32 at (4,608, 16, 512) and (512, 20,
+    512): dx within TC32_REL_TOL of max|plain|, the sums over all sequences
+    (dgamma, dW, dq_scale, dk_scale, dbias) within F32_REL_TOL; the attention
+    core alone on the (192, 576) planes (the merged heads, dq, dkv within
+    TC32_REL_TOL, the sums F32_REL_TOL), beside a copy of it with P rounded
+    to bf16 in its row pass, which must miss; K5 exact on the batch's
+    110,592 f32 rows against 8,192 codes (ids equal to the plain version of
+    its own math up to ties within 1e-5; the share equal to the full-f32
+    argmax reported); K15 on the same rows (bins exact, sums within 1e-6 of
+    max, which the full-f32 sums must miss; their distance reported); K17 f32 as K6's backward on one f32 training volume
+    (bit-exact).  Bounds: the bf16 rows' products at the f32 CUDA-core peak,
+    K5 exact's three bf16 products at the bf16 peak, K15's bytes."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.norms import l2norm
+    from ct_clip_tpu_torch.ops.patch_embed import rearrange_patches, unrearrange_plain
+    from ct_clip_tpu_torch.ops.qknorm_attention import (
+        fused_grid_qknorm_attention, fused_small_qknorm_attention,
+        fused_spatial_qknorm_attention, grid_qknorm_attention_bwd_plain,
+        qknorm_attention_bwd_plain)
+    from ct_clip_tpu_torch.ops.vq import (cluster_stats, cluster_stats_plain,
+                                          cluster_stats_rows_plain, vq_assign,
+                                          vq_assign_exact_rows_plain, vq_assign_exact_rows_sim,
+                                          vq_assign_plain)
+
+    g = torch.Generator(device=dev).manual_seed(60)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    dim, heads, dh, hd = 512, 8, 32, 256
+    R = TRAIN_B * 13824
+    f32_case = dict(peak=PEAK_F32_FLOPS, library=None)
+    w = (1 + rn(dim, scale=0.1), rn(hd, dim, scale=dim ** -0.5),
+         rn(2 * hd, dim, scale=dim ** -0.5), 1 + rn(dh, scale=0.2), 1 + rn(dh, scale=0.2),
+         rn(dim, hd, scale=hd ** -0.5))
+
+    def bwd_case(fwd, plain, x, do, extra, core):
+        leaves = [t.clone().requires_grad_() for t in (x, *w, *extra)]
+        out = fwd(*leaves)
+        return dict(f32_case, kern=lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                    plain=plain, inputs=(x, do, *w, *extra), outputs=(x, *w, *extra),
+                    flops=2 * (x.numel() // dim) * dim * hd * 11 + core,
+                    tols=(TC32_REL_TOL,) + (F32_REL_TOL,) * (6 + len(extra)))
+
+    def spatial(S, n):
+        x, do, bias = rn(S, n, dim), rn(S, n, dim), rn(heads, n, n)
+        return bwd_case(lambda *a: fused_spatial_qknorm_attention(*a, heads, dh),
+                        lambda: qknorm_attention_bwd_plain(x, *w, bias, do, heads, dh),
+                        x, do, (bias,), 12 * S * heads * n * n * dh)
+    yield "spatial_attention_bwd_f32", spatial(TRAIN_B * 24, 576)
+    yield "spatial_attention_bwd_f32_n64", spatial(AE_B * AE_FRAMES // 10, 64)
+    xg, dog = rn(TRAIN_B, 24, 576, dim), rn(TRAIN_B, 24, 576, dim)
+    yield "grid_attention_bwd_f32", bwd_case(
+        lambda *a: fused_grid_qknorm_attention(*a, heads, dh),
+        lambda: grid_qknorm_attention_bwd_plain(xg, *w, dog, heads, dh), xg, dog, (),
+        12 * TRAIN_B * 576 * heads * 24 * 24 * dh)
+    del xg, dog
+    for name, (S, n) in (("seq_attention_bwd_f32", (CLIP160_B * 576, 16)),
+                         ("seq_attention_bwd_f32_generatect", (AE_B * 64, 20))):
+        x, do = rn(S, n, dim), rn(S, n, dim)
+        yield name, bwd_case(
+            lambda *a: fused_small_qknorm_attention(*a, heads, dh),
+            lambda x=x, do=do: qknorm_attention_bwd_plain(x, *w, None, do, heads, dh)[:7],
+            x, do, (), 12 * S * heads * n * n * dh)
+        del x, do
+
+    # the core alone, and its copy with P rounded to bf16 in the row pass
+    S, n = TRAIN_B * 24, 576
+    q, kv, dm, cpb = rn(S * n, hd), rn(S * n, 2 * hd), rn(S * n, hd), rn(heads, n, n)
+    qs, ks = w[3] * 8.0, w[4]
+    layout = dict(sequences=S, inner=1, heads=heads, n=n, d=dh,
+                  q_strides=(n * hd, 0, dh, hd), kv_strides=(n * 2 * hd, 0, dh, 2 * hd),
+                  q_scale=qs, k_scale=ks, bias=cpb, group=-(-S // 33), warps=8)
+    copy = K.copy_library("qknorm_attention_bwd.cu", CT_QK_BWD_F32_ROUND_P=1)
+    yield "spatial_attention_bwd_f32_core", dict(
+        f32_case, kern=lambda: K.qk_attention_bwd(q, kv, dm, **layout),
+        plain=lambda: qk_core_plain(q, kv, dm, heads, dh, n, qs, ks, cpb),
+        copy=lambda: K.qk_attention_bwd(q, kv, dm, lib=copy, **layout),
+        copy_is="P rounded to bf16 in the row pass",
+        inputs=(q, kv, dm, cpb), outputs=(q, q, kv, cpb),
+        flops=12 * S * heads * n * n * dh, tols=(TC32_REL_TOL,) * 3 + (F32_REL_TOL,) * 3)
+    del q, kv, dm, cpb
+
+    # K5 exact and K15 on the training batch's f32 rows
+    xv, embed_n = rn(R, dim), l2norm(rn(8192, dim))
+    yield "vq_assign_exact_f32", dict(
+        f32_case, kern=lambda: vq_assign(xv, embed_n, exact=True),
+        plain=lambda: vq_assign_exact_rows_plain(xv, embed_n),
+        sim=lambda: vq_assign_exact_rows_sim(xv, embed_n),
+        f32_plain=lambda: vq_assign_plain(xv, embed_n, exact=True), inputs=(xv, embed_n),
+        outputs=(torch.empty(R, dtype=torch.int32, device=dev),),
+        flops=2 * 3 * R * dim * 8192, peak=PEAK_BF16_FLOPS, ids=True)
+    ids = torch.randint(0, 8192, (R,), generator=g, device=dev, dtype=torch.int32)
+
+    def stats_check(got, ref):
+        """bins exact, sums within 1e-6 of max; the full-f32 sums (JAX's
+        XLA form) must miss that limit, or it could not tell hi + lo from
+        them."""
+        (bins, esum), (rbins, resum) = got, ref
+        diff = (esum - resum).abs()
+        top = resum.abs().max().item()
+        full = cluster_stats_plain(xv, ids, 8192)[1]
+        res = dict(max_abs_err=diff.max().item(), max_rel_err=diff.max().item() / top,
+                   entries_differing=int((diff > 0).sum()),
+                   full_f32_max_rel=(resum - full).abs().max().item() / top,
+                   bins_equal=torch.equal(bins, rbins),
+                   tolerance="bins exact; sums 1e-6 of max; full f32 must miss")
+        log(f"kernel vq_cluster_stats_f32: bins equal {res['bins_equal']}; sums "
+            f"{res['max_rel_err']:.2e} of max ({res['entries_differing']:,} of "
+            f"{diff.numel():,} entries differ at all); the full-f32 plain version "
+            f"{res['full_f32_max_rel']:.2e} of max from the plain version of its math "
+            f"(must miss 1e-6)")
+        ok = res["max_rel_err"] <= 1e-6 and res["full_f32_max_rel"] > 1e-6
+        return res["bins_equal"] and ok, res
+
+    def lib_stats():
+        esum = torch.zeros(8192, dim, device=dev).index_add_(0, ids.long(), l2norm(xv))
+        return torch.bincount(ids, minlength=8192), esum
+    yield "vq_cluster_stats_f32", dict(
+        f32_case, kern=lambda: cluster_stats(xv, ids, 8192),
+        plain=lambda: cluster_stats_rows_plain(xv, ids, 8192), library=lib_stats,
+        check=stats_check, inputs=(xv, ids),
+        outputs=(torch.empty(8192, device=dev), torch.empty(8192, dim, device=dev)),
+        flops=3 * R * dim)
+    del xv, ids, embed_n
+
+    # K17 f32 as the backward of K6 on one f32 training volume
+    video = rn(1, 240, 480, 480).requires_grad_()
+    rows = rearrange_patches(video, 10, 20)
+    drows = rn(*rows.shape)
+    yield "unrearrange_patches_f32_bwd", dict(
+        f32_case, kern=lambda: torch.autograd.grad(rows, video, drows, retain_graph=True),
+        plain=lambda: unrearrange_plain(drows, 10, 20, 240, 480, 480),
+        inputs=(drows,), outputs=(drows,), flops=0, exact=True)
+
+
+def f32_train_kernel_phase(dev) -> dict:
+    """`f32_train_kernel_cases` through `train_kernel_phase`, the second
+    shapes and the core nested under their kernel's entry (K17 f32 as K6's
+    backward stays `unrearrange_patches_f32_bwd`, for phase 10's entry);
+    every f32 form the cases drive must have launched."""
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    K.reset_launch_counts()
+    res = train_kernel_phase(dev, f32_train_kernel_cases(dev), TRAIN_B)
+    counts = K.launch_counts()
+    for k in ("spatial_attention_bwd_f32", "grid_attention_bwd_f32", "seq_attention_bwd_f32",
+              "vq_assign_exact_f32", "vq_cluster_stats_f32", "unrearrange_patches_f32"):
+        if not counts[k]:
+            raise AssertionError(f"f32 training kernels: {k} never launched")
+    sp = res["spatial_attention_bwd_f32"]
+    sp["at_n64"] = res.pop("spatial_attention_bwd_f32_n64")
+    sp["core"] = res.pop("spatial_attention_bwd_f32_core")
+    res["seq_attention_bwd_f32"]["at_generatect"] = res.pop("seq_attention_bwd_f32_generatect")
+    return res
+
+
+def tiny_f32_configs():
+    """The tiny f32 CT-CLIP and autoencoder of the card-vs-CPU steps, whose
+    VQ rows (256 and 640 of 128 dims against 768 codes, room for the tokens
+    the codebook is seeded with) lie within the JAX package's plan, so the
+    card takes K5 exact f32 and K15 f32: CT-CLIP on a
+    cubic (4, 4, 4) grid (K1 / K9, K2 / K10 grid), its BERT one head of 64
+    (K12a f32 on attention_tc32.cu); the autoencoder on a non-cubic (5, 8,
+    8) grid (K9 at n = 64, K2 / K10 seq)."""
+    from ct_clip_tpu_torch.config import BertConfig, CTCLIPConfig, CTViTConfig
+
+    vit = dict(dim=128, codebook_size=768, patch_size=16, temporal_patch_size=4,
+               spatial_depth=1, temporal_depth=1, dim_head=64, heads=2)
+    clip = CTCLIPConfig(
+        dim_text=64, dim_image=16 * 128, dim_latent=32,
+        ctvit=CTViTConfig(image_size=64, num_frames=16, **vit),
+        bert=BertConfig(vocab_size=64, hidden_size=64, num_hidden_layers=2,
+                        num_attention_heads=1, intermediate_size=128, hidden_dropout=0.0,
+                        attention_dropout=0.0))
+    return clip, CTViTConfig(image_size=128, num_frames=20, with_decoder=True, **vit)
+
+
+def k9_f32_round_p_fault():
+    """K9 / K10 f32 launching a copy of qknorm_attention_bwd.cu built with
+    CT_QK_BWD_F32_ROUND_P=1: P rounded to bf16 before the merged heads'
+    product in the row pass."""
+    import functools
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    copy = K.copy_library("qknorm_attention_bwd.cu", CT_QK_BWD_F32_ROUND_P=1)
+    return {"K9/K10 f32 with P rounded to bf16 in the row pass": (
+        K, "qk_attention_bwd", functools.partial(K.qk_attention_bwd, lib=copy))}
+
+
+# the f32 kernels each tiny f32 step must launch on the card
+TINY_F32_KERNELS = {
+    "CT-CLIP": ("spatial_attention_bwd_f32", "grid_attention_bwd_f32", "vq_assign_exact_f32",
+                "vq_cluster_stats_f32", "geglu_ff_bwd_f32", "attention_tc32_bwd"),
+    "CTViT autoencoder": ("spatial_attention_bwd_f32", "seq_attention_bwd_f32",
+                          "vq_assign_exact_f32", "vq_cluster_stats_f32", "geglu_ff_bwd_f32",
+                          "unrearrange_patches_f32")}
+
+
+def tiny_f32_train_phase(dev, work: Path) -> dict:
+    """One tiny f32 CT-CLIP training step and one tiny f32 autoencoder
+    generator step (`tiny_f32_configs`), each from the same weights and
+    inputs on the card (the f32 kernels) and on the CPU (plain versions),
+    with the codebook at the CPU's own tokens: held by `compare_f32_steps`
+    (gradients 1e-4 of max, the weights after the step 1e-5, Adam's
+    sensitive entries to its step bound), every VQ id equal and the EMA
+    state (codebook, cluster sizes) within 1e-5; then each with K9/K10 f32's
+    P rounded to bf16 in the row pass, which must fail."""
+    import torch
+
+    from ct_clip_tpu_torch.config import TrainConfig
+    from ct_clip_tpu_torch.models import CTCLIP, CTViT
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    f32, lr = torch.float32, 1e-3
+    clip_cfg, ae_cfg = tiny_f32_configs()
+    g = torch.Generator().manual_seed(15)
+    ids = torch.randint(5, 64, (4, 32), generator=g)
+    mask = (torch.arange(32)[None] < torch.tensor([[32], [20], [9], [27]])).long()
+    clip_video = torch.rand((4, 16, 64, 64, 1), generator=g) * 2 - 1
+    ae_video = torch.rand((2, 20, 128, 128, 1), generator=g) * 2 - 1
+    cpu_clip = CTCLIP(clip_cfg).init_weights(torch.Generator().manual_seed(16))
+    seed_codebook_at_tokens(cpu_clip.visual_transformer, clip_video)
+    cpu_ae = CTViT(ae_cfg).init_weights(torch.Generator().manual_seed(17))
+    seed_codebook_at_tokens(cpu_ae, ae_video)
+    tcfg = TrainConfig(lr=lr)
+    runs = {
+        "CT-CLIP": ({k: t.clone() for k, t in cpu_clip.state_dict().items()},
+                    "visual_transformer.vq._codebook.",
+                    lambda start, device: tiny_ctclip_side(
+                        clip_cfg, tcfg, start, (ids * mask, mask, clip_video), device, f32)),
+        "CTViT autoencoder": ({k: t.clone() for k, t in cpu_ae.state_dict().items()},
+                              "vq._codebook.",
+                              lambda start, device: tiny_ae_side(
+                                  ae_cfg, start, ae_video, device, f32, lr,
+                                  work / f"tiny_ae_f32_{device.type}"))}
+    out = {}
+    for label, (start, vq, side) in runs.items():
+        c = side(start, torch.device("cpu"))
+
+        def card_check(tag):
+            K.reset_launch_counts()
+            gside = side(start, dev)
+            counts = K.launch_counts()
+            res, failures = compare_f32_steps(c, gside, start, lr)
+            res["id_agreement"] = (gside["codes"] == c["codes"]).float().mean().item()
+            for key in ("embed", "cluster_size"):
+                res[f"{key}_abs"] = (gside["sd"][vq + key] - c["sd"][vq + key]).abs().max().item()
+            failures += [k for k, bad in (
+                ("VQ ids", res["id_agreement"] < 1.0), ("codebook", res["embed_abs"] > 1e-5),
+                ("cluster sizes", res["cluster_size_abs"] > 1e-5)) if bad]
+            log(f"reference: tiny {label} f32 step card vs CPU, {tag}: loss rel "
+                f"{res['loss_rel']:.2e} (tol 1e-5), grads {res['grad_rel']:.2e} of max "
+                f"({res['grad_worst']}; tol {F32_GRAD_TOL}), updated weights abs "
+                f"{res['weight_abs']:.2e} ({res['weight_worst']}; tol {F32_WEIGHT_TOL}; "
+                f"{res['sign_undecided_entries']} entries held to the step bound), steps within "
+                f"{res['step_max_over_lr']:.3f} lr; VQ ids equal {res['id_agreement']:.4f}, "
+                f"codebook abs {res['embed_abs']:.2e}, cluster sizes abs "
+                f"{res['cluster_size_abs']:.2e} (tol 1e-5); outside {failures or 'none'}; f32 "
+                f"launches { {k: counts[k] for k in TINY_F32_KERNELS[label]} }")
+            return res, failures, counts
+        res, failures, counts = card_check("kernels as built")
+        missing = [k for k in TINY_F32_KERNELS[label] if not counts[k]]
+        if failures or missing:
+            raise AssertionError(f"tiny {label} f32 step: card and CPU disagree on {failures}, "
+                                 f"kernels not launched {missing}: {res}")
+        res["faults"] = {}
+        for name, (module, attr, broken) in k9_f32_round_p_fault().items():
+            with replaced(module, attr, broken):
+                fres, ffail, _ = card_check(f"planted fault '{name}'")
+            if not ffail:
+                raise AssertionError(f"tiny {label} f32 step: planted fault '{name}' passes")
+            res["faults"][name] = dict(outside=ffail, **fres)
+        out[label] = res
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3803,6 +4230,15 @@ def main() -> int:
         mg32 = maskgit_f32_phase(dev, work, card)
         counts.update(mg32.pop("counts"))
         mg32_ref = tiny_maskgit_f32_phase(dev, work)
+        train32 = f32_train_kernel_phase(dev)
+        k17 = train32.pop("unrearrange_patches_f32_bwd")
+        results.update(train32)
+        results["unrearrange_patches_f32"]["as_k6_backward"] = k17
+        clip32 = ctclip_train_phase(dev, work, card, corpus, "f32")
+        counts["ctclip_f32_train"] = clip32.pop("counts")
+        ae32 = ctvit_ae_phase(dev, work, card, "f32")
+        counts.update(ae32.pop("counts"))
+        train32_ref = tiny_f32_train_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3828,7 +4264,9 @@ def main() -> int:
                               "ctvit_ae_tiny_card_vs_cpu": ae_ref, "maskgit": mg,
                               "maskgit_tiny_card_vs_cpu": mg_ref, "zero_shot_f32": zs32,
                               "tiny_f32_card_vs_cpu": ref32, "maskgit_f32": mg32,
-                              "maskgit_f32_tiny_card_vs_cpu": mg32_ref}}),
+                              "maskgit_f32_tiny_card_vs_cpu": mg32_ref,
+                              "ctclip_train_f32": clip32, "ctvit_ae_f32": ae32,
+                              "f32_train_tiny_card_vs_cpu": train32_ref}}),
           flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

@@ -14,7 +14,8 @@
 //     projection with the rounded bias add (EPI_BIAS_ROUNDED);
 //   * ops/pallas/vq.py::pallas_assign (K5): similarity against all 8192
 //     codes with a running row argmax (gemm_argmax_kernel), and its exact
-//     training mode against the hi + lo bf16 codebook (gemm_argmax2_kernel);
+//     training mode against the hi + lo bf16 codebook (gemm_argmax2_kernel;
+//     on f32 rows gemm_argmax3_rows_kernel, three bf16 products);
 //   * the products inside the backwards ops/pallas/ffn.py::_pallas_ff_bwd
 //     (K11: the recomputed a and g with dact = do wo and the GEGLU
 //     derivative in one tile, ff_bwd_kernel), spatial_attention.py::
@@ -457,6 +458,147 @@ gemm_argmax2_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict_
   if (half == 0 && m0 + r < M) ids[m0 + r] = best_i;
 }
 
+// The exact-mode f32-row form of load_tile (K5 exact on f32 rows,
+// vq.py:90-95): row r of the tile times rn[r] in f32, split into its bf16
+// hi part xh = bf16(xn) (into sh) and lo part xl = bf16(xn - xh) (into sl).
+// VEC: 16-byte loads, valid when K, ld and the base pointer are multiples
+// of 4.
+template <bool VEC>
+__device__ __forceinline__ void load_tile_split(bf16* __restrict__ sh, bf16* __restrict__ sl,
+                                                const float* __restrict__ g, int ld, int row0,
+                                                int rows, int k0, int K,
+                                                const float* __restrict__ rn) {
+  if (VEC) {
+    for (int c = threadIdx.x; c < 64 * BK / 4; c += THREADS) {
+      const int r = c / (BK / 4), kc = (c % (BK / 4)) * 4;
+      const int gr = row0 + r, gk = k0 + kc;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (gr < rows && gk < K) v = *reinterpret_cast<const float4*>(g + (size_t)gr * ld + gk);
+      const float f = rn[r];
+      const float x[4] = {v.x * f, v.y * f, v.z * f, v.w * f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bf16 h = f2bf(x[e]);
+        sh[r * LDS + kc + e] = h;
+        sl[r * LDS + kc + e] = f2bf(x[e] - bf2f(h));
+      }
+    }
+  } else {
+    for (int c = threadIdx.x; c < 64 * BK; c += THREADS) {
+      const int r = c / BK, kk = c % BK;
+      const int gr = row0 + r, gk = k0 + kk;
+      float v = 0.0f;
+      if (gr < rows && gk < K) v = g[(size_t)gr * ld + gk];
+      const float x = v * rn[r];
+      const bf16 h = f2bf(x);
+      sh[r * LDS + kk] = h;
+      sl[r * LDS + kk] = f2bf(x - bf2f(h));
+    }
+  }
+}
+
+// Exact-mode assignment on f32 rows (K5 exact, vq.py::_assign_kernel with
+// exact and f32 input, :83-95): each row l2-normalised in f32 (rn, as
+// gemm_argmax_kernel's f32-row form) and split into bf16 xh + xl as its
+// tile is loaded, the codebook into bf16 hi + lo (W, W2); three products
+// on the tensor cores, xh.c_hi, xh.c_lo and xl.c_hi, each summed in its own
+// f32 accumulator and added as (xh.c_hi + xh.c_lo) + xl.c_hi, then the
+// running row argmax.  The dropped xl.c_lo term is <= 2^-16 relative.
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+gemm_argmax3_rows_kernel(const float* __restrict__ A, int lda, const bf16* __restrict__ W,
+                         const bf16* __restrict__ W2, int ldw, int M, int N, int K,
+                         int* __restrict__ ids) {
+  __shared__ __align__(128) unsigned char smem[(2 * BM * LDS + 2 * BN * LDS) * 2
+                                               + BM * LDC * 4 + BM * 4];
+  bf16* Ah = reinterpret_cast<bf16*>(smem);
+  bf16* Al = Ah + BM * LDS;
+  bf16* Bh = Al + BM * LDS;
+  bf16* Bl = Bh + BN * LDS;
+  float* Cs = reinterpret_cast<float*>(smem + (2 * BM * LDS + 2 * BN * LDS) * 2);
+  float* rn = Cs + BM * LDC;
+
+  const int m0 = blockIdx.x * BM;
+  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+  {
+    float ss = 0.0f;
+    if (m0 + r < M)
+      for (int k = half; k < K; k += 2) {
+        const float x = A[(size_t)(m0 + r) * lda + k];
+        ss = fmaf(x, x, ss);
+      }
+    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+    if (half == 0) rn[r] = rsqrtf(fmaxf(ss, 1e-24f));
+    __syncthreads();
+  }
+  const int warp = threadIdx.x / 32;
+  const int wr = (warp >> 1) * 32, wc = (warp & 1) * 32;
+  float best = -INFINITY;
+  int best_i = 0;
+  for (int n0 = 0; n0 < N; n0 += BN) {
+    Acc acc[3][2][2];
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[p][i][j], 0.0f);
+    for (int k0 = 0; k0 < K; k0 += BK) {
+      load_tile_split<VEC>(Ah, Al, A, lda, m0, M, k0, K, rn);
+      load_tile<VEC>(Bh, W, ldw, n0, N, k0, K);
+      load_tile<VEC>(Bl, W2, ldw, n0, N, k0, K);
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        FragA ah[2], al[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          wmma::load_matrix_sync(ah[i], Ah + (wr + i * 16) * LDS + kk, LDS);
+          wmma::load_matrix_sync(al[i], Al + (wr + i * 16) * LDS + kk, LDS);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          FragB bh, bl;
+          wmma::load_matrix_sync(bh, Bh + (wc + j * 16) * LDS + kk, LDS);
+          wmma::load_matrix_sync(bl, Bl + (wc + j * 16) * LDS + kk, LDS);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            wmma::mma_sync(acc[0][i][j], ah[i], bh, acc[0][i][j]);
+            wmma::mma_sync(acc[1][i][j], ah[i], bl, acc[1][i][j]);
+            wmma::mma_sync(acc[2][i][j], al[i], bh, acc[2][i][j]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int t = 0; t < acc[0][i][j].num_elements; ++t)
+          acc[0][i][j].x[t] = (acc[0][i][j].x[t] + acc[1][i][j].x[t]) + acc[2][i][j].x[t];
+    stage_acc<1>(Cs, *reinterpret_cast<Acc(*)[1][2][2]>(&acc[0]));
+    __syncthreads();
+    for (int c = half * 32; c < half * 32 + 32; ++c) {
+      const int gn = n0 + c;
+      const float v = Cs[r * LDC + c];
+      if (gn < N && v > best) {
+        best = v;
+        best_i = gn;
+      }
+    }
+    __syncthreads();
+  }
+  const float ov = __shfl_xor_sync(0xffffffffu, best, 1);
+  const int oi = __shfl_xor_sync(0xffffffffu, best_i, 1);
+  if (ov > best || (ov == best && oi < best_i)) {
+    best = ov;
+    best_i = oi;
+  }
+  if (half == 0 && m0 + r < M) ids[m0 + r] = best_i;
+}
+
 // ------------------------------------------------ the backwards' layouts
 // C[m, n] = sum_k A(m, k) B(k, n) with
 //   A(m, k) = A[m * lda + k] (TA false: row-major (M, K)) or A[k * lda + m]
@@ -806,6 +948,24 @@ CT_EXPORT int ct_gemm_argmax2(const void* A, int lda, const void* W, const void*
     gemm_argmax2_kernel<true><<<grid, THREADS, 0, s>>>(a, lda, w, w2, ldw, M, N, K, out);
   else
     gemm_argmax2_kernel<false><<<grid, THREADS, 0, s>>>(a, lda, w, w2, ldw, M, N, K, out);
+  return (int)cudaGetLastError();
+}
+
+// K5 exact on f32 rows: argmax_n of (xh W^T + xh W2^T) + xl W^T with xh + xl
+// the bf16 split of l2norm(A[m]) (A (M, K) f32) and W, W2 the hi and lo bf16
+// parts of one codebook, sharing ldw; vec as ct_gemm_argmax_rows.
+CT_EXPORT int ct_gemm_argmax2_rows(const void* A, int lda, const void* W, const void* W2,
+                                   int ldw, int M, int N, int K, void* ids, int vec,
+                                   void* stream) {
+  const dim3 grid((M + BM - 1) / BM);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* a = static_cast<const float*>(A);
+  const bf16 *w = static_cast<const bf16*>(W), *w2 = static_cast<const bf16*>(W2);
+  int* out = static_cast<int*>(ids);
+  if (vec)
+    gemm_argmax3_rows_kernel<true><<<grid, THREADS, 0, s>>>(a, lda, w, w2, ldw, M, N, K, out);
+  else
+    gemm_argmax3_rows_kernel<false><<<grid, THREADS, 0, s>>>(a, lda, w, w2, ldw, M, N, K, out);
   return (int)cudaGetLastError();
 }
 

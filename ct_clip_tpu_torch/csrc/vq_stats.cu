@@ -19,6 +19,16 @@
 // What bounds it: memory.  At batch 8 it must read the 110592 x 512 bf16
 // rows (113 MB) and the ids and write the 8192 x 512 f32 sums (17 MB):
 // ~0.04 ms at 3.35 TB/s.  Step 4 reads each row once, with 16-byte loads.
+//
+// The f32-row form (sum_f32_kernel, _stats_kernel on f32 rows): steps 1-3
+// as they are; step 4 normalises each f32 row in f32, splits it into its
+// bf16 hi part h1 = bf16(xn) and lo part h2 = bf16(xn - h1) and adds h1 +
+// h2 (exact in f32), as the TPU kernel's two bf16 one-hot products sum
+// them (:149-157).  At batch 8 it reads 226 MB of rows: ~0.07 ms.  A row's
+// sum of squares is taken in a fixed order (each lane its 16-byte pieces
+// element by element, then the warp's xor butterfly) and its inverse root
+// rounded as 1 / sqrt, which the plain version repeats: a norm one ulp
+// apart flips the lo part's rounding.
 #include "common.cuh"
 
 namespace {
@@ -143,7 +153,97 @@ __global__ void sum_kernel(const bf16* __restrict__ x, int D, const int* __restr
   }
 }
 
+// The f32-row form of sum_kernel: D % 4 == 0 and D <= 1024
+__global__ void sum_f32_kernel(const float* __restrict__ x, int D, const int* __restrict__ perm,
+                               const int* __restrict__ start, const float* __restrict__ bins,
+                               int K, float* __restrict__ embed_sum) {
+  const int k = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (k >= K) return;
+  float acc[32];
+#pragma unroll
+  for (int u = 0; u < 32; ++u) acc[u] = 0.0f;
+  const int s0 = start[k], cnt = (int)bins[k];
+  for (int r = 0; r < cnt; ++r) {
+    const float* row = x + (size_t)perm[s0 + r] * D;
+    float v[32];
+    float ss = 0.0f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {  // 16-byte pieces: lane + 32 u of D / 4
+      const int c = (lane + 32 * u) * 4;
+      if (c < D) {
+        const float4 f = *reinterpret_cast<const float4*>(row + c);
+        v[4 * u] = f.x;
+        v[4 * u + 1] = f.y;
+        v[4 * u + 2] = f.z;
+        v[4 * u + 3] = f.w;
+        // one rounded square and one rounded add per element, in this
+        // order (no contraction), so cluster_stats_rows_plain can follow it
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ss = __fadd_rn(ss, __fmul_rn(v[4 * u + e], v[4 * u + e]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[4 * u + e] = 0.0f;
+      }
+    }
+    // a rounded sqrt and division (rsqrtf's error is not PyTorch's)
+    const float inv = __fdiv_rn(1.0f, __fsqrt_rn(fmaxf(warp_sum(ss), 1e-24f)));
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      const float xn = __fmul_rn(v[u], inv);
+      const float h1 = bf2f(f2bf(xn));
+      acc[u] += h1 + bf2f(f2bf(xn - h1));
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int c = (lane + 32 * u) * 4;
+    if (c < D)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) embed_sum[(size_t)k * D + c + e] = acc[4 * u + e];
+  }
+}
+
+// steps 1-3: rank, scan, place
+cudaError_t group_rows(const void* ids, int rows, int K, void* rank, void* counts, void* start,
+                       void* perm, void* bins, cudaStream_t s) {
+  const int chunks = (rows + CHUNK - 1) / CHUNK;
+  const size_t cursor_bytes = (size_t)K * sizeof(int);
+  if (cursor_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cursor_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const int* id = static_cast<const int*>(ids);
+  int *rk = static_cast<int*>(rank), *cn = static_cast<int*>(counts),
+      *st = static_cast<int*>(start), *pm = static_cast<int*>(perm);
+  float* bn = static_cast<float*>(bins);
+  rank_kernel<<<chunks, 32, cursor_bytes, s>>>(id, rows, K, rk, cn);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  scan_kernel<<<1, SCAN_THREADS, 0, s>>>(cn, chunks, K, bn, st);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  place_kernel<<<(rows + 255) / 256, 256, 0, s>>>(id, rk, cn, st, rows, K, pm);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The f32-row form of ct_vq_cluster_stats: x (rows, D) f32 contiguous, D %
+// 4 == 0; the same scratch and outputs.
+CT_EXPORT int ct_vq_cluster_stats_f32(const void* x, const void* ids, int rows, int D, int K,
+                                      void* rank, void* counts, void* start, void* perm,
+                                      void* bins, void* embed_sum, void* stream) {
+  if (D % 4 || D > 1024 || K < 1 || rows < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = group_rows(ids, rows, K, rank, counts, start, perm, bins, s);
+  if (err != cudaSuccess) return (int)err;
+  sum_f32_kernel<<<(K + 7) / 8, 256, 0, s>>>(static_cast<const float*>(x), D,
+                                            static_cast<const int*>(perm),
+                                            static_cast<const int*>(start),
+                                            static_cast<const float*>(bins), K,
+                                            static_cast<float*>(embed_sum));
+  return (int)cudaGetLastError();
+}
 
 // x (rows, D) bf16 contiguous, ids (rows,) int32 in [0, K); scratch:
 // rank (rows,), counts (ceil(rows / 1024), K), start (K,), perm (rows,)
@@ -153,25 +253,12 @@ CT_EXPORT int ct_vq_cluster_stats(const void* x, const void* ids, int rows, int 
                                   void* bins, void* embed_sum, void* stream) {
   if (D % 8 || D > 1024 || K < 1 || rows < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int chunks = (rows + CHUNK - 1) / CHUNK;
-  const size_t cursor_bytes = (size_t)K * sizeof(int);
-  if (cursor_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cursor_bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int* id = static_cast<const int*>(ids);
-  int *rk = static_cast<int*>(rank), *cn = static_cast<int*>(counts),
-      *st = static_cast<int*>(start), *pm = static_cast<int*>(perm);
-  float* bn = static_cast<float*>(bins);
-  rank_kernel<<<chunks, 32, cursor_bytes, s>>>(id, rows, K, rk, cn);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = group_rows(ids, rows, K, rank, counts, start, perm, bins, s);
   if (err != cudaSuccess) return (int)err;
-  scan_kernel<<<1, SCAN_THREADS, 0, s>>>(cn, chunks, K, bn, st);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  place_kernel<<<(rows + 255) / 256, 256, 0, s>>>(id, rk, cn, st, rows, K, pm);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  sum_kernel<<<(K + 7) / 8, 256, 0, s>>>(static_cast<const bf16*>(x), D, pm, st, bn, K,
+  sum_kernel<<<(K + 7) / 8, 256, 0, s>>>(static_cast<const bf16*>(x), D,
+                                        static_cast<const int*>(perm),
+                                        static_cast<const int*>(start),
+                                        static_cast<const float*>(bins), K,
                                         static_cast<float*>(embed_sum));
   return (int)cudaGetLastError();
 }

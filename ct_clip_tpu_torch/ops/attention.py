@@ -701,7 +701,7 @@ class QKNormAttention(nn.Module):
                                                self.dim_head, self.scale)
         n = x.shape[1]
         if (context is not None or mask is not None or self.num_null_kv
-                or not sublayer_fits(n, self.dim_head)):
+                or not sublayer_fits(n, self.dim_head, x.dtype)):
             return self._generic(x, attn_bias, mask, context)
         if attn_bias is not None:
             return fused_spatial_qknorm_attention(x, *args, attn_bias, self.heads,

@@ -82,20 +82,29 @@ KERNELS = (
     "vq_assign_f32",       # K5 on f32 rows (gemm.cu gemm_argmax_kernel's f32-row form)
     "rearrange_patches_f32",  # K6 f32 (rearrange.cu)
     "unrearrange_patches_f32",  # K17 f32
+    "spatial_attention_bwd_f32",  # K9 f32 (qknorm_attention_bwd.cu qk_attention_bwd_f32_kernel)
+    "grid_attention_bwd_f32",  # K10 grid f32
+    "seq_attention_bwd_f32",  # K10 seq f32
+    "vq_assign_exact_f32",  # K5 exact on f32 rows (gemm.cu gemm_argmax3_rows_kernel)
+    "vq_cluster_stats_f32",  # K15 on f32 rows (vq_stats.cu sum_f32_kernel)
     # the plain routes where the JAX package runs XLA in f32 (`ROUTES`)
     "patch_embed_plain",   # K8 / K16a f32: patch_embed_plain and its autograd
     "row_embed_plain",     # K4 / K16b f32: row_embed_plain and its autograd
     "peg_dw_plain",        # K14 f32: peg_dw_plain
+    # K5 (either mode) and K15 on f32 rows of shapes vq.py's _plan refuses
+    # (ops/vq.py::vq_route): vq_assign_plain, cluster_stats_plain
+    "vq_assign_plain",
+    "vq_cluster_stats_plain",
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 BF16, F32 = torch.bfloat16, torch.float32
 KERNEL, PLAIN, RAISES = "kernel", "plain", "raises"
-# What a CUDA tensor of each dtype takes, op by op: its kernel, its plain
+# What a CUDA tensor of each dtype takes, op by op: its kernel, or its plain
 # version (where the JAX package's dispatch gates the Pallas kernel to bf16
-# and runs XLA in f32: patchify.py:440, 685, 700, 714 and peg.py:106), or a
-# ValueError (an f32 form not ported yet: the f32 CTViT backwards, slice 12
-# of ROADMAP.md's queue 2a).  Nothing gives way quietly.
+# and runs XLA in f32: patchify.py:440, 685, 700, 714 and peg.py:106); any
+# other dtype a ValueError.  K5 and K15 on f32 rows also follow the shape
+# test of vq.py's _plan (ops/vq.py::vq_route).  Nothing gives way quietly.
 ROUTES = {
     "patch_embed": {BF16: KERNEL, F32: PLAIN},         # K8
     "patch_embed_bwd": {BF16: KERNEL, F32: PLAIN},     # K16a
@@ -110,11 +119,11 @@ ROUTES = {
     "vq_assign": {BF16: KERNEL, F32: KERNEL},          # K5 (f32: where vq.py's _plan takes it)
     "rearrange_patches": {BF16: KERNEL, F32: KERNEL},  # K6
     "unrearrange_patches": {BF16: KERNEL, F32: KERNEL},  # K17
-    "spatial_attention_bwd": {BF16: KERNEL, F32: RAISES},  # K9
-    "grid_attention_bwd": {BF16: KERNEL, F32: RAISES},  # K10 grid
-    "seq_attention_bwd": {BF16: KERNEL, F32: RAISES},  # K10 seq
-    "vq_assign_exact": {BF16: KERNEL, F32: RAISES},    # K5 exact
-    "vq_cluster_stats": {BF16: KERNEL, F32: RAISES},   # K15
+    "spatial_attention_bwd": {BF16: KERNEL, F32: KERNEL},  # K9
+    "grid_attention_bwd": {BF16: KERNEL, F32: KERNEL},  # K10 grid
+    "seq_attention_bwd": {BF16: KERNEL, F32: KERNEL},  # K10 seq
+    "vq_assign_exact": {BF16: KERNEL, F32: KERNEL},    # K5 exact
+    "vq_cluster_stats": {BF16: KERNEL, F32: KERNEL},   # K15
 }
 
 
@@ -126,9 +135,8 @@ def route(op: str, dtype: torch.dtype) -> str:
 
 def not_ported(op: str, dtype: torch.dtype) -> ValueError:
     """The error of a RAISES route."""
-    return ValueError(f"{op}: no CUDA kernel takes {dtype} here; the f32 forms of the "
-                      "CTViT backwards (K9, K10, K15, K5 exact) are slice 12 of "
-                      "ROADMAP.md's queue 2a")
+    return ValueError(f"{op}: no CUDA kernel takes {dtype} here; the kernels take "
+                      "torch.bfloat16 and torch.float32 (kernels.ROUTES)")
 
 EPI_STORE, EPI_RESIDUAL, EPI_BIAS_ROUNDED, EPI_GEGLU = 0, 1, 2, 3
 
@@ -251,6 +259,7 @@ def _signatures():
                            p],
         "ct_attn_tc32_bwd": [p, p, p, p, p, p, p, p, lp, p, p, p, p, p, i, i, i, p],
         "ct_gemm_argmax2": [p, i, p, p, i, i, i, i, p, i, p],
+        "ct_gemm_argmax2_rows": [p, i, p, p, i, i, i, i, p, i, p],
         "ct_gemm_layout": [i, i, p, i, p, i, i, i, i, i, p, i, ll, i, p],
         "ct_sum_splits": [p, i, ll, p, p],
         "ct_ff_bwd": [p, p, i, p, p, p, i, i, i, i, p, i, p, i, i, p],
@@ -258,8 +267,11 @@ def _signatures():
         "ct_patch_layernorm_bwd": [p, i, i, i, i, i, i, p, p, f, p, p, p, i, p],
         "ct_qk_attention_bwd": [p, p, p, p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i,
                                 i, i, i, p, p, p, p, p, p, p, i, p],
+        "ct_qk_attention_bwd_f32": [p, p, p, p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i,
+                                    i, i, i, i, p, p, p, p, p, p, p, i, p],
         "ct_peg_dw": [p, p, i, i, i, i, i, i, i, i, p, p],
         "ct_vq_cluster_stats": [p, p, i, i, i, p, p, p, p, p, p, p],
+        "ct_vq_cluster_stats_f32": [p, p, i, i, i, p, p, p, p, p, p, p],
     }
 
 
@@ -405,9 +417,10 @@ def gemm_argmax(a: torch.Tensor, w: torch.Tensor,
                 w_lo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """argmax_n sum_k a[m, k] * w[n, k] as int32 (gemm.cu); with `w_lo`, the
     similarities are a w^T + a w_lo^T (w and w_lo the bf16 hi and lo parts of
-    one codebook).  f32 rows `a` (K5 on f32 rows, no `w_lo`): each row
-    l2-normalised in f32 and rounded to bf16 as the kernel loads it, then
-    taken against the bf16 codebook `w`."""
+    one codebook).  f32 rows `a` (K5 on f32 rows): each row l2-normalised in
+    f32 as the kernel loads it, then rounded to bf16 and taken against the
+    bf16 codebook `w`, or with `w_lo` (K5 exact) split into bf16 hi + lo
+    parts xh + xl and taken as (xh w^T + xh w_lo^T) + xl w^T."""
     bf = torch.bfloat16
     require(a, "a", FORMS, 2)
     require(w, "w", bf, 2)
@@ -416,9 +429,14 @@ def gemm_argmax(a: torch.Tensor, w: torch.Tensor,
         raise ValueError("gemm_argmax: a and w disagree on K")
     ids = torch.empty((M,), dtype=torch.int32, device=a.device)
     vec = K % 8 == 0 and _rows_ok(a) and _rows_ok(w)
-    if a.dtype == F32:
-        if w_lo is not None:
-            raise not_ported("gemm_argmax (exact mode)", a.dtype)
+    if a.dtype == F32 and w_lo is not None:
+        require(w_lo, "w_lo", bf, 2)
+        if w_lo.shape != w.shape:
+            raise ValueError("gemm_argmax: w_lo must match w")
+        err = library().ct_gemm_argmax2_rows(_ptr(a), a.stride(0), _ptr(w), _ptr(w_lo),
+                                             w.stride(0), M, w.shape[0], K, _ptr(ids),
+                                             int(vec and _rows_ok(w_lo)), _stream())
+    elif a.dtype == F32:
         err = library().ct_gemm_argmax_rows(_ptr(a), a.stride(0), _ptr(w), w.stride(0), M,
                                             w.shape[0], K, _ptr(ids), int(vec), _stream())
     elif w_lo is None:
@@ -691,6 +709,14 @@ def unrearrange_patches(rows: torch.Tensor, pt: int, p: int,
 SMEM_LIMIT = 227 * 1024
 
 
+def qk_attention_bwd_f32_smem(n: int, d: int, warps: int) -> int:
+    """Bytes of shared memory qknorm_attention_bwd.cu's f32 form takes
+    (bwd_f32_smem_floats): per warp (max(n, 64), 4) score and dP tiles and
+    (d, 4) row tiles, two 64-row chunks, the rows' lse, rowsum and inverse
+    q and k norms."""
+    return 4 * (warps * 4 * (2 * max(n, 64) + 2 * d) + 2 * 64 * (d + 1) + 4 * n)
+
+
 def attention_f32_smem(n: int, d: int, warps: int) -> int:
     """Bytes of shared memory attention.cu's f32 form takes (f32_smem_floats):
     the (4 warps, n) score tile, the (4 warps, d) q tile, a 64-key chunk."""
@@ -740,23 +766,28 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def qk_attention_bwd(q, kv, dout, *, sequences: int, inner: int, heads: int,
                      n: int, d: int, q_strides, kv_strides, q_scale, k_scale,
                      bias: Optional[torch.Tensor] = None, group: int = 1,
-                     warps: int = 8):
+                     warps: int = 8, lib=None):
     """The QK-norm attention core's backward (qknorm_attention_bwd.cu) on the
     projections q (rows, h*d) and kv (rows, 2*h*d) [k | v], and dout, the
-    gradient of the merged heads, laid out as q.  Heads are addressed through
-    (outer, inner, head, token) element strides: `q_strides` for q, dout and
-    the outputs like q, `kv_strides` for k and v (the caller checks they stay
-    inside the tensors).  Returns merged and dq (like q), dkv (like kv),
-    dq_scale and dk_scale (d,) f32 (dq_scale before the logit scale) and
-    dbias (heads, n, n) f32 or None; sums over sequences are added in a fixed
-    order."""
+    gradient of the merged heads, laid out as q; all bf16, or all f32 (the
+    f32 form: nothing rounded, query and key tiles of 4 x `warps` rows).
+    Heads are addressed through (outer, inner, head, token) element strides:
+    `q_strides` for q, dout and the outputs like q, `kv_strides` for k and v
+    (the caller checks they stay inside the tensors). Returns merged and dq
+    (like q), dkv (like kv), dq_scale and dk_scale (d,) f32 (dq_scale before
+    the logit scale) and dbias (heads, n, n) f32 or None; sums over sequences
+    are added in a fixed order. `lib`: a one-change copy (`copy_library`) to
+    launch instead, for the card checks."""
     hd = heads * d
     for name, t, width in (("q", q, hd), ("kv", kv, 2 * hd), ("dout", dout, hd)):
-        require(t, name, torch.bfloat16, 2)
+        require(t, name, q.dtype if name != "q" else FORMS, 2)
         if t.shape[1] != width or t.shape[0] != q.shape[0]:
             raise ValueError(f"qk_attention_bwd: {name} {tuple(t.shape)}")
     if d % 2 or d > 64:
         raise ValueError(f"qk_attention_bwd: head dim {d} must be even and <= 64")
+    if q.dtype == F32 and qk_attention_bwd_f32_smem(n, d, warps) > SMEM_LIMIT:
+        raise ValueError(f"qk_attention_bwd: {n} tokens of f32 width {d} take "
+                         f"{qk_attention_bwd_f32_smem(n, d, warps)} bytes of shared memory")
     qs, ks = _f32_vector(q_scale, d, "q_scale"), _f32_vector(k_scale, d, "k_scale")
     merged, dq, dkv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(kv)
     groups = -(-sequences // group)
@@ -770,7 +801,9 @@ def qk_attention_bwd(q, kv, dout, *, sequences: int, inner: int, heads: int,
         dbias_part = torch.empty((groups, heads, n, n), **f32)
     dqs_part = torch.empty((groups * heads * warps, d), **f32)
     dks_part = torch.empty_like(dqs_part)
-    err = library().ct_qk_attention_bwd(
+    fn = getattr(lib or library(), "ct_qk_attention_bwd_f32" if q.dtype == F32
+                 else "ct_qk_attention_bwd")
+    err = fn(
         _ptr(q), _ptr(kv), _ptr(kv[:, hd:]), _ptr(dout), _ptr(merged), _ptr(dq),
         _ptr(dkv), _ptr(dkv[:, hd:]), *map(int, q_strides), *map(int, kv_strides),
         inner, sequences, heads, n, d, group, _ptr(qs), _ptr(ks), _ptr(bias),
@@ -800,11 +833,13 @@ def peg_dw(x: torch.Tensor, dout: torch.Tensor, pads) -> torch.Tensor:
 
 def vq_cluster_stats(x: torch.Tensor, ids: torch.Tensor, codes: int):
     """bins (codes,) and embed_sum (codes, D) f32 of the l2-normalised rows
-    of x (rows, D) bf16 grouped by ids (rows,) int32 (vq_stats.cu)."""
-    require(x, "x", torch.bfloat16, 2)
+    of x (rows, D) grouped by ids (rows,) int32 (vq_stats.cu): bf16 rows, or
+    f32 rows (the f32 form: each normalised row added as its bf16 hi + lo
+    parts)."""
+    require(x, "x", FORMS, 2)
     require(ids, "ids", torch.int32, 1)
     rows, D = x.shape
-    if ids.shape[0] != rows or D % 8 or D > 1024 or x.data_ptr() % 16:
+    if ids.shape[0] != rows or D % _chunk(x) or D > 1024 or x.data_ptr() % 16:
         raise ValueError(f"vq_cluster_stats: x {tuple(x.shape)}, ids {tuple(ids.shape)}")
     i32 = dict(dtype=torch.int32, device=x.device)
     rank, perm = torch.empty((rows,), **i32), torch.empty((rows,), **i32)
@@ -812,9 +847,9 @@ def vq_cluster_stats(x: torch.Tensor, ids: torch.Tensor, codes: int):
     start = torch.empty((codes,), **i32)
     bins = torch.empty((codes,), dtype=torch.float32, device=x.device)
     embed_sum = torch.empty((codes, D), dtype=torch.float32, device=x.device)
-    err = library().ct_vq_cluster_stats(_ptr(x), _ptr(ids), rows, D, codes, _ptr(rank),
-                                        _ptr(counts), _ptr(start), _ptr(perm), _ptr(bins),
-                                        _ptr(embed_sum), _stream())
+    err = _form("ct_vq_cluster_stats", x)(_ptr(x), _ptr(ids), rows, D, codes, _ptr(rank),
+                                          _ptr(counts), _ptr(start), _ptr(perm), _ptr(bins),
+                                          _ptr(embed_sum), _stream())
     _check(err, "ct_vq_cluster_stats")
     return bins, embed_sum
 

@@ -26,8 +26,7 @@ On a CUDA tensor: LN (csrc/layernorm.cu), the q and kv products
 t-columns of the grid in place through strides) and the output product with
 the residual epilogue.  In bf16, or in f32 (the f32 forms: weights, q, k, v
 and scores in f32, true f32 products, as the TPU kernels run f32 operands
-at "highest"); the f32 backward (K9 / K10 in f32) is not ported yet and
-raises (`kernels.ROUTES`).
+at "highest"), forward and backward (`kernels.ROUTES`).
 
 The backwards are the ports of spatial_attention.py::_pallas_spatial_bwd
 (K9) and small_attention.py::_pallas_small_qknorm_bwd with grid_layout=True
@@ -38,7 +37,9 @@ l2norm, dv, and the sums of dq_scale, dk_scale and, spatially, of the
 (heads, n, n) bias over all planes, in a fixed order), dxn = dq W_q and
 dx_kv = dkv W_kv (NN), the LN backward with dx_kv and the identity term,
 and the weight gradients dW_q, dW_kv, dW_out over all rows in f32 (TN
-products).  Their plain versions are autograd of the plain forwards.
+products).  In f32 every one of them is its f32 form and nothing is rounded
+to bf16 (dO, the weights, dmerged, the merged heads, dq and dkv stay f32).
+Their plain versions are autograd of the plain forwards.
 """
 from __future__ import annotations
 
@@ -64,18 +65,24 @@ def _align16(nbytes: int) -> int:
     return (nbytes + 15) & ~15
 
 
-def sublayer_fits(n: int, dim_head: int) -> bool:
+def sublayer_fits(n: int, dim_head: int, dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether the fused sublayers (K1 / K2 seq forward, K9 / K10 backward)
-    take (sequence, head) pairs of n tokens of width dim_head.  A block
-    stages its pair's whole k and v (backward: q, k, v and dout) in shared
-    memory, sized as the launches in csrc/attention.cu and
+    take (sequence, head) pairs of n tokens of width dim_head in `dtype`.
+    A bf16 block stages its pair's whole k and v (backward: q, k, v and
+    dout) in shared memory, sized as the launches in csrc/attention.cu and
     csrc/qknorm_attention_bwd.cu size it; the JAX package gates its Pallas
-    sublayers on their VMEM plans the same way."""
+    sublayers on their VMEM plans the same way.  f32 takes the same gate and
+    its own forms' tiles and chunks as well (`kernels.attention_f32_smem`,
+    `kernels.qk_attention_bwd_f32_smem`), which at small head widths take
+    more than the bf16 forms (d 16: from n ~808 against ~1,071)."""
     d, warps = dim_head, (8 if n >= 128 else 2)
     if d % 2 or d > 64:
         return False
     fwd = _align16(2 * n * (2 * d + 2)) + 4 * warps * (d + n)
     bwd = _align16(8 * n * (d + 2)) + 4 * (2 * n + warps * (2 * n + 2 * d))
+    if dtype == torch.float32:
+        fwd = max(fwd, K.attention_f32_smem(n, d, warps))
+        bwd = max(bwd, K.qk_attention_bwd_f32_smem(n, d, warps))
     return max(fwd, bwd) <= SMEM_LIMIT
 
 
@@ -179,16 +186,16 @@ def _qknorm_attention_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
 
 def _qknorm_attention_bwd_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
                                dout, heads, dim_head, scale, grid: bool):
-    bf, f32 = torch.bfloat16, torch.float32
+    cdt, f32 = x.dtype, torch.float32
     dim = x.shape[-1]
     hd = heads * dim_head
     x2 = x.view(-1, dim)
     rows = x2.shape[0]
-    dout = dout.to(bf).contiguous().view(rows, dim)
-    wq_b, wkv_b, wout_b = (w.to(bf).contiguous() for w in (wq, wkv, wout))
+    dout = dout.to(cdt).contiguous().view(rows, dim)
+    wq_c, wkv_c, wout_c = (w.to(cdt).contiguous() for w in (wq, wkv, wout))
     xn, q, kv = _project(x2, gamma, wq, wkv, hd)
-    dmerged = torch.empty((rows, hd), dtype=bf, device=x.device)
-    K.gemm_nn(dout, wout_b, dmerged)
+    dmerged = torch.empty((rows, hd), dtype=cdt, device=x.device)
+    K.gemm_nn(dout, wout_c, dmerged)
     sequences, inner, q_strides, kv_strides, n = _layout(x, hd, dim_head, grid)
     groups = min(sequences, -(-TARGET_BLOCKS // heads) if bias is not None else GRID_GROUPS)
     merged, dq, dkv, dqs, dks, dbias = K.qk_attention_bwd(
@@ -198,9 +205,9 @@ def _qknorm_attention_bwd_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
         bias=None if bias is None else bias.float().contiguous(),
         group=-(-sequences // groups), warps=8 if n >= 128 else 2)
     dxn = torch.empty((rows, dim), dtype=f32, device=x.device)
-    K.gemm_nn(dq, wq_b, dxn)
+    K.gemm_nn(dq, wq_c, dxn)
     dx_kv = torch.empty_like(dxn)
-    K.gemm_nn(dkv, wkv_b, dx_kv)
+    K.gemm_nn(dkv, wkv_c, dx_kv)
     dx, dgamma, _ = K.layernorm_bwd(x2, gamma, dxn, 1e-5, add=dx_kv, add2=dout)
     return (dx.view(x.shape), dgamma, K.gemm_tn(dq, xn), K.gemm_tn(dkv, x2),
             dqs * scale, dks, K.gemm_tn(dout, merged), dbias)
@@ -237,7 +244,7 @@ class _QKNormAttention(torch.autograd.Function):
         if K.route(f"{form}_attention_bwd", saved[0].dtype) != K.KERNEL:
             raise K.not_ported(f"{form}_attention_bwd", saved[0].dtype)
         grads = _qknorm_attention_bwd_cuda(*saved, dout, heads, dim_head, scale, grid)
-        K.count_launch(f"{form}_attention_bwd")
+        K.count_launch(f"{form}_attention_bwd", saved[0].dtype)
         out = [grads[0]] + [None if g is None else g.to(t.dtype)
                             for g, t in zip(grads[1:], saved[1:])]
         return (*out, None, None, None, None)

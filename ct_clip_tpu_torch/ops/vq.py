@@ -19,7 +19,8 @@ inference assignment has two numeric modes, as in the JAX package:
 
 The exact mode on bf16 input (training, vq.py:67-82 with exact=True) splits
 the normalised codebook into bf16 hi and lo parts and sums x.c_hi + x.c_lo
-in f32; on f32 input both modes are the f32 form above.
+in f32; on f32 input both modes are the f32 form above (the plain versions
+on the CPU, as the JAX package's XLA form off the TPU).
 
 On a CUDA tensor the similarity product and the argmax over all codes run
 in one hand-written kernel (csrc/gemm.cu, gemm_argmax_kernel, or
@@ -28,12 +29,19 @@ matrix never reaches device memory.  f32 rows in inference take the
 kernel's f32-row form, the TPU kernel's math on f32 input (vq.py:83-93):
 each row l2-normalised in f32 and rounded to bf16 as it is loaded, one bf16
 pass against the bf16 codebook (`vq_assign_rows_plain` is its plain
-version).  The JAX package takes that kernel only where its `_plan` does
-(`rows_fit`) and its f32 XLA form elsewhere; so does the port, whose plain
-f32 version stands in for the XLA form.  The exact mode and K15 on f32 rows
-(an f32 CTViT in training) are not ported yet and raise.  The EMA statistics (bins and the sums
-of the normalised rows per code) are K15's port, csrc/vq_stats.cu, which
-groups the rows by code and adds each code's rows in row order.
+version).  The exact mode on f32 rows (an f32 CTViT in training, vq.py:
+83-95) takes gemm_argmax3_rows_kernel: the normalised row split into bf16
+hi + lo parts xh + xl as it is loaded, three bf16 products (xh.c_hi +
+xh.c_lo) + xl.c_hi summed in f32 (`vq_assign_exact_rows_plain`).  The EMA
+statistics (bins and the sums of the normalised rows per code) are K15's
+port, csrc/vq_stats.cu, which groups the rows by code and adds each code's
+rows in row order; on f32 rows each normalised row as its bf16 hi + lo
+parts (`cluster_stats_rows_plain`, vq.py:149-157).  On f32 rows the JAX
+package takes its kernels only where its `_plan` does and its f32 XLA
+forms elsewhere (`_chunked_argmax_sim`, `_chunked_cluster_stats`,
+ops/vq.py:118-141); so does the port (`vq_route`), whose full-f32 plain
+versions stand in for the XLA forms, counted as `vq_assign_plain` and
+`vq_cluster_stats_plain`.
 """
 from __future__ import annotations
 
@@ -78,6 +86,51 @@ def vq_assign_rows_plain(x: torch.Tensor, embed_n: torch.Tensor) -> torch.Tensor
     return sim.argmax(dim=-1).to(torch.int32)
 
 
+def _lane_inv_norm(x: torch.Tensor) -> torch.Tensor:
+    """(rows, 1) inverse norms 1 / sqrt(max(sum x^2, 1e-24)) of f32 rows as
+    csrc/vq_stats.cu's sum_f32_kernel rounds them: lane l of a warp adds,
+    one rounded square at a time, the elements of its 16-byte pieces l,
+    l + 32, ...; the 32 lanes' sums meet in a xor butterfly (16, 8, 4, 2,
+    1); then a rounded sqrt and a rounded division."""
+    rows, dim = x.shape
+    pieces = nn.functional.pad(x, (0, -dim % 128)).reshape(rows, -1, 32, 4)
+    ss = torch.zeros((rows, 32), dtype=torch.float32, device=x.device)
+    for u in range(pieces.shape[1]):
+        for e in range(4):
+            ss = ss + pieces[:, u, :, e] * pieces[:, u, :, e]
+    lanes = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        ss = ss + ss[:, lanes ^ o]
+    return 1.0 / torch.sqrt(torch.clamp_min(ss[:, :1], 1e-24))
+
+
+def _split_rows(x: torch.Tensor, inv_norm=None):
+    """The f32 rows normalised as x rsqrt(max(sum x^2, 1e-24)) and split
+    into their bf16 hi and lo parts, as f32 (vq.py:90-95, :149-151); the
+    inverse norms by `inv_norm` where given."""
+    x = x.float()
+    inv = (torch.rsqrt(torch.clamp_min((x * x).sum(dim=-1, keepdim=True), 1e-24))
+           if inv_norm is None else inv_norm(x))
+    xn = x * inv
+    xh = xn.to(torch.bfloat16).float()
+    return xh, (xn - xh).to(torch.bfloat16).float()
+
+
+def vq_assign_exact_rows_sim(x: torch.Tensor, embed_n: torch.Tensor) -> torch.Tensor:
+    """The similarities of the exact mode on f32 rows (`_assign_kernel`,
+    exact, f32 input): (xh c_hi^T + xh c_lo^T) + xl c_hi^T, each product
+    summed in f32."""
+    xh, xl = _split_rows(x)
+    hi, lo = (t.float() for t in split_hi_lo(embed_n))
+    return (xh @ hi.t() + xh @ lo.t()) + xl @ hi.t()
+
+
+def vq_assign_exact_rows_plain(x: torch.Tensor, embed_n: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5 exact on f32 rows: the argmax of
+    `vq_assign_exact_rows_sim` as (n,) int32."""
+    return vq_assign_exact_rows_sim(x, embed_n).argmax(dim=-1).to(torch.int32)
+
+
 def rows_fit(rows: int, dim: int, codes: int) -> bool:
     """Whether the JAX package's assignment takes its Pallas kernel for
     these shapes (ct_clip_tpu/ops/pallas/vq.py::_plan: dim and codes
@@ -91,25 +144,35 @@ def rows_fit(rows: int, dim: int, codes: int) -> bool:
                for m in (512, 256, 128))
 
 
+def vq_route(op: str, dtype: torch.dtype, rows: int, dim: int, codes: int) -> str:
+    """What a CUDA tensor of `dtype` takes for `op` ("vq_assign",
+    "vq_assign_exact" or "vq_cluster_stats") on (rows, dim) rows against
+    `codes` codes: `kernels.ROUTES`, except that f32 rows of a shape the JAX
+    package's `_plan` refuses (`rows_fit`) take the full-f32 plain version,
+    as JAX takes its XLA forms there.  bf16 rows take the kernels at any
+    shape."""
+    r = K.route(op, dtype)
+    if r == K.KERNEL and dtype == torch.float32 and not rows_fit(rows, dim, codes):
+        return K.PLAIN
+    return r
+
+
 def vq_assign(x: torch.Tensor, embed_n: torch.Tensor, exact: bool = False) -> torch.Tensor:
     if x.device.type == "cpu":
         return vq_assign_plain(x, embed_n, exact)
     op = "vq_assign_exact" if exact else "vq_assign"
-    if K.route(op, x.dtype) != K.KERNEL:
+    r = vq_route(op, x.dtype, x.shape[0], x.shape[1], embed_n.shape[0])
+    if r == K.RAISES:
         raise K.not_ported(op, x.dtype)
-    if x.dtype == torch.float32:
-        if not rows_fit(x.shape[0], x.shape[1], embed_n.shape[0]):
-            return vq_assign_plain(x, embed_n)
-        ids = K.gemm_argmax(x.contiguous(), embed_n.to(torch.bfloat16).contiguous())
-        K.count_launch("vq_assign", x.dtype)
-        return ids
+    if r == K.PLAIN:
+        K.count_launch("vq_assign_plain")
+        return vq_assign_plain(x, embed_n, exact)
     if exact:
         hi, lo = split_hi_lo(embed_n)
         ids = K.gemm_argmax(x.contiguous(), hi, lo)
-        K.count_launch("vq_assign_exact")
-        return ids
-    ids = K.gemm_argmax(x.contiguous(), embed_n.to(torch.bfloat16).contiguous())
-    K.count_launch("vq_assign")
+    else:
+        ids = K.gemm_argmax(x.contiguous(), embed_n.to(torch.bfloat16).contiguous())
+    K.count_launch(op, x.dtype)
     return ids
 
 
@@ -128,14 +191,34 @@ def cluster_stats_plain(x: torch.Tensor, ids: torch.Tensor, codes: int,
     return bins, esum
 
 
+def cluster_stats_rows_plain(x: torch.Tensor, ids: torch.Tensor, codes: int,
+                             chunk: int = 16384):
+    """Plain version of K15 on f32 rows: as `cluster_stats_plain`, each
+    normalised row added as its bf16 hi + lo parts (`_stats_kernel`), the
+    row norms taken as the CUDA form takes them (`_lane_inv_norm`)."""
+    bins = torch.zeros((codes,), dtype=torch.float32, device=x.device)
+    esum = torch.zeros((codes, x.shape[1]), dtype=torch.float32, device=x.device)
+    lanes = torch.arange(codes, device=x.device)
+    for r in range(0, x.shape[0], chunk):
+        onehot = (ids[r:r + chunk, None].long() == lanes).float()
+        bins += onehot.sum(dim=0)
+        xh, xl = _split_rows(x[r:r + chunk], _lane_inv_norm)
+        esum += onehot.t() @ (xh + xl)
+    return bins, esum
+
+
 def cluster_stats(x: torch.Tensor, ids: torch.Tensor, codes: int):
     """bins and embed_sum of the rows x (n, dim) grouped by ids (n,)."""
     if x.device.type == "cpu":
         return cluster_stats_plain(x, ids, codes)
-    if K.route("vq_cluster_stats", x.dtype) != K.KERNEL:
+    r = vq_route("vq_cluster_stats", x.dtype, x.shape[0], x.shape[1], codes)
+    if r == K.RAISES:
         raise K.not_ported("vq_cluster_stats", x.dtype)
+    if r == K.PLAIN:
+        K.count_launch("vq_cluster_stats_plain")
+        return cluster_stats_plain(x, ids, codes)
     out = K.vq_cluster_stats(x.contiguous(), ids.to(torch.int32).contiguous(), codes)
-    K.count_launch("vq_cluster_stats")
+    K.count_launch("vq_cluster_stats", x.dtype)
     return out
 
 

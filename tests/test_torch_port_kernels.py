@@ -1176,16 +1176,128 @@ def test_grid_and_seq_qknorm_attention_f32_k2(dev):
 
 
 def test_qknorm_attention_f32_backward_raises(dev):
-    """The f32 backwards (K9, K10) are not ported yet: they raise, naming
-    where they are queued, and never fall back."""
+    """The f32 backward (K9 f32) runs on its kernel and is counted, f32 in and
+    out: it no longer raises, and never falls back."""
     from ct_clip_tpu_torch.ops.qknorm_attention import fused_spatial_qknorm_attention
 
     g = _gen(dev, 47)
     w = [t.requires_grad_() for t in _attn_weights(g, dev)]
     x = _randn((2, 64, 512), g, dev, dtype=F32).requires_grad_()
     out = fused_spatial_qknorm_attention(x, *w, None, 8, 32)
-    with pytest.raises(ValueError, match="slice 12"):
-        out.sum().backward()
+    K.reset_launch_counts()
+    out.sum().backward()
+    torch.cuda.synchronize()
+    c = K.launch_counts()
+    assert c["spatial_attention_bwd"] == 1 and c["spatial_attention_bwd_f32"] == 1
+    assert x.grad.dtype == F32 and all(t.grad.dtype == F32 for t in w)
+    assert torch.isfinite(x.grad).all()
+
+
+def _f32_bwd_close(got, ref):
+    """dx within F32_FWD of max|plain|; the sums over all sequences (dgamma,
+    the weight and scale gradients, dbias) within F32_WGRAD."""
+    assert len(got) == len(ref)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if b is not None:
+            _close(a, b, rel=F32_FWD if i == 0 else F32_WGRAD)
+
+
+def _qknorm_f32_grads(form, shape, seed):
+    """(kernel gradients, plain gradients, a rerun of the kernel's) of the
+    f32 sublayer `form` on x of `shape` + (512,), 8 heads of 32."""
+    from ct_clip_tpu_torch.ops import qknorm_attention as Q
+
+    dev = torch.device("cuda")
+    g = _gen(dev, seed)
+    w = _attn_weights(g, dev)
+    x, do = _randn(shape + (512,), g, dev, dtype=F32), _randn(shape + (512,), g, dev, dtype=F32)
+    n = shape[1]
+    bias = _randn((8, n, n), g, dev, dtype=F32) if form == "spatial" else None
+    fn = {"spatial": lambda *a: Q.fused_spatial_qknorm_attention(*a, 8, 32),
+          "grid": lambda *a: Q.fused_grid_qknorm_attention(*a, 8, 32),
+          "seq": lambda *a: Q.fused_small_qknorm_attention(*a, 8, 32)}[form]
+    args = (x, *w) + ((bias,) if bias is not None else ())
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    got = torch.autograd.grad(fn(*leaves), leaves, do)
+    if form == "grid":
+        ref = Q.grid_qknorm_attention_bwd_plain(x, *w, do, 8, 32)
+    else:
+        ref = Q.qknorm_attention_bwd_plain(x, *w, bias, do, 8, 32)
+        ref = ref if bias is not None else ref[:7]
+    return got, ref, lambda: torch.autograd.grad(fn(*leaves), leaves, do)
+
+
+@pytest.mark.parametrize("form,shape", [("spatial", (3, 100)), ("spatial", (2, 576)),
+                                        ("spatial", (6, 64)), ("grid", (2, 24, 36)),
+                                        ("seq", (40, 16)), ("seq", (40, 20))])
+def test_qknorm_attention_f32_backward_k9_k10(dev, form, shape):
+    """K9 f32 (with the CPB bias, n 100, 576 and the autoencoder's 64), K10
+    grid f32 (t 24) and K10 seq f32 (t 16, 20) against autograd of the plain
+    forward in true f32, counted on their f32 counters, and their
+    fixed-order sums (two runs bit-identical)."""
+    K.reset_launch_counts()
+    got, ref, again = _qknorm_f32_grads(form, shape, 52)
+    torch.cuda.synchronize()
+    c = K.launch_counts()
+    assert c[f"{form}_attention_bwd"] == 1 and c[f"{form}_attention_bwd_f32"] == 1
+    assert all(t.dtype == F32 for t in got)
+    _f32_bwd_close(got, ref)
+    assert all(torch.equal(a, b) for a, b in zip(got, again()))
+
+
+def test_qknorm_attention_f32_backward_planted_p_rounding_misses(dev, monkeypatch):
+    """A copy of the kernel with P rounded to bf16 before the merged heads'
+    product (CT_QK_BWD_F32_ROUND_P) must miss the f32 limits: dW_out reads
+    the bf16 rounding."""
+    import functools
+
+    copy = K.copy_library("qknorm_attention_bwd.cu", CT_QK_BWD_F32_ROUND_P=1)
+    monkeypatch.setattr(K, "qk_attention_bwd", functools.partial(K.qk_attention_bwd, lib=copy))
+    got, ref, _ = _qknorm_f32_grads("spatial", (3, 100), 52)
+    torch.cuda.synchronize()
+    dwout_rel = ((got[6] - ref[6]).abs().max() / ref[6].abs().max()).item()
+    assert dwout_rel > F32_WGRAD, dwout_rel
+
+
+def test_vq_exact_assign_f32_rows_k5_and_stats_k15(dev):
+    """K5 exact on f32 rows against the plain version of its own math (ids
+    equal up to ties within 1e-5), K15 on f32 rows against its plain version
+    (bins exact, sums within 1e-6 of max; the full-f32 sums must miss that
+    limit), each counted;
+    shapes the JAX package's plan refuses take the full-f32 plain versions,
+    counted as such."""
+    from ct_clip_tpu_torch.ops.norms import l2norm
+    from ct_clip_tpu_torch.ops.vq import (cluster_stats, cluster_stats_plain,
+                                          cluster_stats_rows_plain, vq_assign,
+                                          vq_assign_exact_rows_plain, vq_assign_exact_rows_sim)
+
+    g = _gen(dev, 53)
+    x = _randn((4096, 512), g, dev, dtype=F32)
+    embed_n = l2norm(torch.randn((8192, 512), generator=g, device=dev))
+    K.reset_launch_counts()
+    got = vq_assign(x, embed_n, exact=True)
+    bins, esum = cluster_stats(x, got, 8192)
+    torch.cuda.synchronize()
+    c = K.launch_counts()
+    assert c["vq_assign_exact_f32"] == 1 and c["vq_cluster_stats_f32"] == 1
+    ref = vq_assign_exact_rows_plain(x, embed_n)
+    assert (got == ref).float().mean().item() >= 0.999
+    sim = vq_assign_exact_rows_sim(x, embed_n)
+    gap = (sim.gather(1, ref.long()[:, None]) - sim.gather(1, got.long()[:, None])).abs()[:, 0]
+    assert (gap <= 1e-5 * sim.abs().max(dim=1).values).all()
+    rbins, resum = cluster_stats_rows_plain(x, got, 8192)
+    assert torch.equal(bins, rbins)
+    top = resum.abs().max()
+    assert ((esum - resum).abs() <= 1e-6 * top).all()
+    full = cluster_stats_plain(x, got, 8192)[1]
+    assert ((full - resum).abs() > 1e-6 * top).any()
+    assert torch.equal(cluster_stats(x, got, 8192)[1], esum)
+    K.reset_launch_counts()
+    vq_assign(x[:100], embed_n, exact=True)
+    cluster_stats(x[:100], got[:100], 8192)
+    c = K.launch_counts()
+    assert (c["vq_assign_plain"], c["vq_cluster_stats_plain"]) == (1, 1)
+    assert (c["vq_assign_exact"], c["vq_cluster_stats"]) == (0, 0)
 
 
 def test_vq_assign_f32_rows_k5(dev):
@@ -1211,8 +1323,10 @@ def test_vq_assign_f32_rows_k5(dev):
     vq_assign(x[:100], embed_n)
     assert K.launch_counts()["vq_assign_f32"] == 0
     vq = CosineVQ(512, 8192, device=dev)
-    with pytest.raises(ValueError, match="slice 12"):  # exact mode (training), K15
-        vq(x[None], train=True)
+    K.reset_launch_counts()
+    vq(x[None], train=True)  # exact mode (training) and K15, f32 forms
+    c = K.launch_counts()
+    assert c["vq_assign_exact_f32"] == 1 and c["vq_cluster_stats_f32"] == 1
 
 
 @pytest.mark.parametrize("shape,pt,p", [((2, 20, 60, 40), 10, 20),  # 16-byte path

@@ -244,7 +244,7 @@ def test_qknorm_attention_routes_by_fit(monkeypatch, biased):
         return [out] + [p.grad.clone() for p in mod.parameters() if p.numel()]
 
     fused = run()
-    monkeypatch.setattr(A, "sublayer_fits", lambda n, d: False)
+    monkeypatch.setattr(A, "sublayer_fits", lambda n, d, dtype: False)
     generic = run()
     assert routes == ["fused_spatial_qknorm_attention" if biased
                       else "fused_small_qknorm_attention", "sdpa"]

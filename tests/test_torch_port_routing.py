@@ -80,7 +80,7 @@ def test_tc_backward_operands_copy_only_views_it_cannot_address():
 # What a CUDA tensor takes by dtype (kernels.ROUTES): the plain version where
 # the JAX package's dispatch gates the Pallas kernel to bf16 and computes f32
 # in XLA (patchify.py:440, 685, 700, 714; peg.py:106), the kernel where the
-# TPU kernel runs f32 too, and a ValueError for the f32 forms not ported yet.
+# TPU kernel runs f32 too, and a ValueError for any other dtype.
 KERNEL, PLAIN, RAISES = K.KERNEL, K.PLAIN, K.RAISES
 
 
@@ -98,11 +98,11 @@ KERNEL, PLAIN, RAISES = K.KERNEL, K.PLAIN, K.RAISES
     ("vq_assign", KERNEL, KERNEL),         # K5 on f32 rows, normalised then bf16
     ("rearrange_patches", KERNEL, KERNEL),  # K6: f32 blocks, no dtype gate
     ("unrearrange_patches", KERNEL, KERNEL),  # K17: f32 blocks
-    ("spatial_attention_bwd", KERNEL, RAISES),  # K9 f32: not ported yet
-    ("grid_attention_bwd", KERNEL, RAISES),     # K10 grid f32
-    ("seq_attention_bwd", KERNEL, RAISES),      # K10 seq f32
-    ("vq_assign_exact", KERNEL, RAISES),        # K5 exact on f32 rows
-    ("vq_cluster_stats", KERNEL, RAISES),       # K15 on f32 rows
+    ("spatial_attention_bwd", KERNEL, KERNEL),  # K9 f32: "highest", :323
+    ("grid_attention_bwd", KERNEL, KERNEL),     # K10 grid f32: :487
+    ("seq_attention_bwd", KERNEL, KERNEL),      # K10 seq f32
+    ("vq_assign_exact", KERNEL, KERNEL),        # K5 exact on f32 rows, 3 bf16 passes
+    ("vq_cluster_stats", KERNEL, KERNEL),       # K15 on f32 rows, hi + lo
 ])
 def test_dtype_route_table(op, bf16, f32):
     assert K.route(op, BF) == bf16
@@ -126,5 +126,73 @@ def test_dtype_route_table_covers_every_kernel_counter():
 
 
 def test_unported_f32_forms_raise_naming_their_queue():
-    err = K.not_ported("spatial_attention_bwd", F32)
-    assert isinstance(err, ValueError) and "slice 12" in str(err)
+    """No f32 route raises any more; a dtype no kernel takes (float16) does,
+    naming the dtypes the kernels take and the table that says so."""
+    assert not [op for op, routes in K.ROUTES.items() if routes[F32] == RAISES]
+    assert K.route("spatial_attention_bwd", torch.float16) == RAISES
+    err = K.not_ported("spatial_attention_bwd", torch.float16)
+    assert isinstance(err, ValueError) and "torch.float16" in str(err)
+    assert "torch.float32" in str(err) and "kernels.ROUTES" in str(err)
+
+
+# K5 and K15 on f32 rows also follow the JAX package's `_plan` (its kernel
+# where the shape fits, its f32 XLA forms `_chunked_argmax_sim` /
+# `_chunked_cluster_stats` elsewhere: ct_clip_tpu/ops/vq.py:118-141); bf16
+# rows take the kernels at any shape.
+@pytest.mark.parametrize("op", ["vq_assign", "vq_assign_exact", "vq_cluster_stats"])
+@pytest.mark.parametrize("dtype,rows,dim,codes,route", [
+    (F32, 110592, 512, 8192, KERNEL),  # CT-CLIP training, batch 8
+    (F32, 10240, 512, 8192, KERNEL),   # the autoencoder, batch 8
+    (F32, 512, 128, 256, KERNEL),
+    (F32, 100, 128, 256, PLAIN),       # rows of no multiple of 128
+    (F32, 512, 64, 128, PLAIN),        # dim of no multiple of 128
+    (F32, 640, 128, 200, PLAIN),       # codes of no multiple of 128
+    (F32, 4 * 288, 32, 64, PLAIN),     # the tiny CT-CLIP of the CPU tests
+    (BF, 100, 128, 256, KERNEL),       # bf16 unchanged
+    (BF, 4 * 288, 32, 64, KERNEL),
+])
+def test_vq_f32_routes_follow_the_plan(op, dtype, rows, dim, codes, route):
+    from ct_clip_tpu_torch.ops.vq import vq_route
+
+    assert vq_route(op, dtype, rows, dim, codes) == route
+    assert vq_route(op, torch.float16, rows, dim, codes) == RAISES
+    # the plain route is counted where it runs
+    assert {"vq_assign": "vq_assign_plain", "vq_assign_exact": "vq_assign_plain",
+            "vq_cluster_stats": "vq_cluster_stats_plain"}[op] in K.KERNELS
+
+
+# the fused sublayers' fit per dtype: f32 also needs its own forms' shared
+# memory, which at head width 16 runs out from n ~808 where bf16 fits to
+# n ~1,071; at the shipped shapes both dtypes fit alike
+@pytest.mark.parametrize("n,d,bf16,f32", [
+    (576, 32, True, True),     # CT-CLIP's spatial planes
+    (64, 64, True, True),      # the autoencoder's planes
+    (20, 64, True, True),      # its temporal sequences
+    (800, 16, True, True),
+    (900, 16, True, False),
+    (1071, 16, True, False),
+    (1072, 16, False, False),
+    (1280, 64, False, False),  # MaskGIT's tokens
+])
+def test_sublayer_fit_per_dtype(n, d, bf16, f32):
+    from ct_clip_tpu_torch.ops.qknorm_attention import sublayer_fits
+
+    assert sublayer_fits(n, d) == sublayer_fits(n, d, BF) == bf16
+    assert sublayer_fits(n, d, F32) == f32
+
+
+def test_f32_self_attention_beyond_the_f32_fit_takes_the_generic_path(monkeypatch):
+    """An f32 self-attention with a bias at (n 900, d 16), where the bf16
+    sublayer fits and the f32 backward's shared memory does not, takes the
+    generic path (sdpa), never the fused sublayer."""
+    from ct_clip_tpu_torch.ops import attention as A
+
+    routes = []
+    for name in ("fused_spatial_qknorm_attention", "sdpa"):
+        monkeypatch.setattr(A, name, lambda *a, _f=getattr(A, name), _n=name, **kw:
+                            routes.append(_n) or _f(*a, **kw))
+    g = torch.Generator().manual_seed(3)
+    mod = A.QKNormAttention(32, 16, 2)
+    x = torch.randn((1, 900, 32), generator=g)
+    out = mod(x, torch.randn((2, 900, 900), generator=g))
+    assert routes == ["sdpa"] and out.shape == x.shape and out.dtype == F32

@@ -1,21 +1,22 @@
 #!/usr/bin/env python3
-"""The bf16 forms of K1, K3 and K11 from one checkout, timed as chip_smoke.py
-times them, printed as one JSON line, so that two commits can be compared on
-one card in turns:
+"""The bf16 training kernels K11, K9, K10 grid, K15 and K5 exact from one
+checkout, timed as chip_smoke.py times them, printed as one JSON line, so
+that two commits can be compared on one card in turns:
 
     git archive PARENT | tar -x -C build/parent
     for t in build/parent . . build/parent; do python tools/port_bf16_ab.py $t; done
     python tools/port_bf16_ab.py --sass build/parent/build/ct_clip_tpu_torch/LIB.so \\
         build/ct_clip_tpu_torch/LIB.so
 
-Each timing line: the tree, then for K1 (fused_spatial_qknorm_attention on
-the zero-shot batch's (48, 576, 512) planes), K3 (fused_geglu_ff on its
-27,648 rows) and K11 (the GEGLU FF backward at the training batch's 110,592
-rows) the median ms of 10 calls of the wrapper (CUDA events), from the
-tree's own chip_smoke.py cases.  With --sass, the two libraries' machine
-code (cuobjdump -sass), each kernel's instructions with addresses, encodings
-and symbol names dropped: how many of the first library's kernels have an
-identical twin in the second, and which have none.
+Each timing line: the tree, then for K11 (the GEGLU FF backward), K9 (the
+spatial sublayer's backward on (192, 576, 512) planes with the CPB bias),
+K10 grid (the temporal sublayer's on the (8, 24, 576, 512) grid), K15 (the
+VQ statistics) and K5 exact (the training assignment), all at the training
+batch's 110,592 rows, the median ms of 10 calls of the wrapper (CUDA
+events), from the tree's own chip_smoke.py cases.  With --sass, the two
+libraries' machine code (cuobjdump -sass), each kernel's instructions with
+addresses, encodings and symbol names dropped: how many of the first
+library's kernels have an identical twin in the second, and which have none.
 """
 from __future__ import annotations
 
@@ -72,14 +73,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     K.library()
-    cases = cs.kernel_cases(dev)
-    res = {name: cs.cuda_ms(cases[key]["kern"])
-           for name, key in (("K1", "spatial_attention"), ("K3", "geglu_ff"))}
-    del cases
-    torch.cuda.empty_cache()
-    name, case = next(iter(cs.train_kernel_cases(dev)))
-    assert name == "geglu_ff_bwd", name
-    res["K11"] = cs.cuda_ms(case["kern"])
+    res = {}
+    names = dict(geglu_ff_bwd="K11", spatial_attention_bwd="K9", grid_attention_bwd="K10 grid",
+                 vq_cluster_stats="K15", vq_assign_exact="K5 exact")
+    for name, case in cs.train_kernel_cases(dev):  # K14 between them, K13 after
+        if name in names:
+            res[names[name]] = cs.cuda_ms(case["kern"])
+        del case
+        torch.cuda.empty_cache()
+        if name == "vq_assign_exact":
+            break
     print(json.dumps(dict(tree=str(tree), library=K.library_path().name, ms=res)), flush=True)
     return 0
 
