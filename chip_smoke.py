@@ -14,20 +14,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
      backward) at (32, 12, 512, 64) in f32, checked at batch 8 (the plain
      K13 holds a (b, 12, 512, 512) mask) and timed at batch 32, plus K13's
      determinism, kept share and forward/backward mask identity; K12a f32
-     runs 3xTF32 on the tensor cores (attention_tc32.cu) and is held to
-     TC32_REL_TOL at n 512 and a ragged n, its dkey_bias bit-identical
-     across runs, beside a plain-TF32 copy of the kernel that must miss
-     that tolerance.  For each:
+     and K13b f32 run 3xTF32 on the tensor cores (attention_tc32.cu) and
+     are held to TC32_REL_TOL at n 512 and a ragged n 500, their dkey_bias
+     bit-identical across runs, beside a plain-TF32 copy of the kernel that
+     must miss that tolerance.  For each:
      max abs / rel error against a stated tolerance (K6, a pure move, must be
      bit-exact), median times (CUDA events) of the kernel, the plain version
      and, where one PyTorch call computes the same function, that call, and
      the bound: the least time the card could take, from the call's bytes
      and products and the H100's published peaks (bf16 tensor cores for the
      bf16 kernels, f32 CUDA cores for the f32 ones, TF32 for the 3xTF32
-     K12a).  The bf16 K7 / K12b / K12a / K13a / K13b kernels of
-     attention_tc.cu (wgmma) and the f32 K12a of attention_tc32.cu also
-     time the CUDA-core kernels of attention_train.cu they replaced, on the
-     same inputs ("replaced");
+     f32 backwards).  The bf16 K7 / K12b / K12a / K13a / K13b kernels of
+     attention_tc.cu (wgmma) and the f32 K12a, K12b and K13b of
+     attention_tc32.cu also time the CUDA-core kernels of attention_train.cu
+     they replaced, on the same inputs ("replaced");
   3. zero-shot phase: a 3-volume synthetic CT-RATE corpus (NIfTI + CSVs +
      a toy vocab) through `run_zero_shot` at full CT-CLIP width (seeded
      random weights), batch 2 with a tail batch, twice: on the patch-row
@@ -43,7 +43,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      and `radbert-eval` on that .pt, each with its launch counters (K13
      forward and backward in training, K7 f32 in validation and inference);
      checks the loss and the (64, 18) probabilities and times the training
-     step.  Then one step of a 2-layer full-width RadBERT with
+     step, whose 12 K13b f32 run on attention_tc32.cu (counted, one step).
+     Then one step of a 2-layer full-width RadBERT with
      attention_dropout 0, which must run its 2 K12a f32 on attention_tc32.cu
      (RadBERT is f32: nothing of it runs on attention_tc.cu), and one
      forward and backward of a 2-layer
@@ -57,7 +58,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      with both dropouts 0 takes one training step from the same weights on
      the card (K12a f32 on attention_tc32.cu) and on the CPU, and the
      logits, loss, gradients and updated weights must agree, and must not
-     with TC32 planted faults (D_i forced to 0; plain TF32);
+     with TC32 planted faults (D_i forced to 0; plain TF32); then the same
+     with attention dropout 0.1 (K13b f32 on attention_tc32.cu, the same
+     seeds on both sides, so the same Philox masks);
   6. CT-CLIP pretraining: the training kernels against their plain versions
      at full width, batch 8 (K11, K9, K10, K14, K15, K5 exact, and K13 in
      bf16 at CXR-BERT's batch 8 x 512 and a ragged n: K13a and K13b on
@@ -110,9 +113,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
   9. MaskGIT, the generative stack's second stage: K7's dense-bias form and
      K12b against their plain versions at MaskGIT's (8, 8, 1280, 64) with
      the (1, 8, n, n) CPB bias in bf16 (attention_tc.cu) and f32
-     (attention_train.cu), the critic's no-bias form in bf16 at that shape,
-     T5's (8, 12, 256, 64) in f32 and a ragged n = 1,000 with a one-head
-     bias, dbias bit-identical run to run; `MaskGitTrainer` at full width
+     (attention_train.cu forward, attention_tc32.cu backward), the critic's
+     no-bias form at that shape in bf16 and f32, T5's (8, 12, 256, 64) in
+     f32 and a ragged n = 1,000 with a one-head bias in bf16 and f32, dbias
+     bit-identical run to run, its rows summing to zero within 16x the plain
+     version's rounding; each f32 backward within TC32_REL_TOL, its
+     plain-TF32 copy outside, the replaced CUDA-core backward timed beside
+     it; `MaskGitTrainer` at full width
      (MaskGitConfig(), 8,192 codes, bf16 compute) with the TokenCritic at
      batch 8 on the codes of 8 synthetic 200 x 128 x 128 volumes from phase
      8's frozen autoencoder (`encode_ids`) and a CXR-BERT context of 8
@@ -139,10 +146,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      `score_batch` times and peak memory; a tiny f32 CT-CLIP card against CPU
      from volumes and rows; `MaskGitTrainer` in f32 with the critic on a
      frozen f32 autoencoder's codes and an f32 CXR-BERT context (4 steps,
-     launches per step, step time, peak memory, a profiled step), f32
-     sampling of one volume; a tiny f32 MaskGit step card against CPU
-     (gradients 1e-4 of max, weights 1e-5), and again with K11's act rounded
-     to bf16, which must fail;
+     launches per step: 12 backwards on attention_tc32.cu, step time, peak
+     memory, a profiled step), f32 sampling of one volume; a tiny f32
+     MaskGit step card against CPU (gradients 1e-4 of max, weights 1e-5,
+     its K12b f32 on attention_tc32.cu), and again with K11's act rounded to
+     bf16, with K12b f32's D_i forced to 0 and with K12b f32 in plain TF32,
+     each of which must fail;
  11. f32 training, the JAX package's f32 CT-CLIP and CTViT autoencoder: the
      f32 backwards against their plain versions in true f32 at full width
      (dx TC32_REL_TOL, the sums over all sequences F32_REL_TOL): K9 f32 on
@@ -154,7 +163,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      of its math; the full-f32 share reported), K15 on them (bins exact,
      sums 1e-6 of max, which full-f32 sums must miss), K17 f32 as K6's
      backward (bit-exact); `cli train --no-bf16` at batch 8, 4 steps with
-     the mini evaluation and a checkpoint (launches per step, step time,
+     the mini evaluation and a checkpoint (launches per step, 12 K13b f32 on
+     attention_tc32.cu among them, step time,
      peak memory, a profiled step); `CTViTTrainer` on an f32
      CTViT(ae_config()): 3 generator steps with falling losses and a round
      with the discriminator (the sequence-major f32 counters, K9 f32 at n =
@@ -192,9 +202,10 @@ REL_TOL = 2e-2
 # the f32 kernels run the same products as their plain versions in f32, in
 # another summation order
 F32_REL_TOL = 1e-4
-# K12a f32 in 3xTF32 (attention_tc32.cu) against the plain version in true
-# f32 (TF32 off): each product's operands split into TF32 hi + lo drop ~2^-22
-# of it, f32's own rounding order; plain TF32 (~2^-11) lands near 5e-4
+# the f32 attention backwards in 3xTF32 (attention_tc32.cu: K12a, K12b,
+# K13b) against the plain version in true f32 (TF32 off): each product's
+# operands split into TF32 hi + lo drop ~2^-22 of it, f32's own rounding
+# order; plain TF32 (~2^-11) lands near 5e-4
 TC32_REL_TOL = 1e-5
 # the two zero-shot routes see the same bf16 values and differ only in the
 # order LN(4000) sums them: P(present) agree far inside this
@@ -252,7 +263,7 @@ KERNELS = {
                                  "attention_train.cu", ATTN_TRAIN, "attention_dropout",
                                  "radbert_train"),
     "attention_dropout_bwd": _kernel("_pallas_attention_kbias_drop_bwd",
-                                     "attention.py:499", "attention_train.cu", ATTN_TRAIN,
+                                     "attention.py:499", "attention_tc32.cu", ATTN_TC32,
                                      "attention_dropout_bwd", "radbert_train"),
     "geglu_ff_bwd": _kernel("_pallas_ff_bwd", "ffn.py:238", "gemm.cu",
                             ["layernorm.cu", "gemm.cu"], "geglu_ff_bwd", "ctclip_train"),
@@ -303,6 +314,15 @@ KERNELS = {
     "attention_nobias_bwd": _kernel("_pallas_attention_bwd (no bias)", "attention.py:301",
                                     "attention_tc.cu", ATTN_TC, "attention_tc_bwd",
                                     "maskgit_train"),
+    # K12b in f32 (3xTF32) at MaskGIT's shape: the MaskGit's dense CPB bias
+    # and the critic's no bias (each f32 step runs 6 of each: 12 on
+    # attention_tc32_bwd)
+    "attention_dense_bwd_f32": _kernel("_pallas_attention_bwd (f32)", "attention.py:301",
+                                       "attention_tc32.cu", ATTN_TC32, "attention_tc32_bwd",
+                                       "maskgit_f32_train"),
+    "attention_nobias_bwd_f32": _kernel("_pallas_attention_bwd (no bias, f32)",
+                                        "attention.py:301", "attention_tc32.cu", ATTN_TC32,
+                                        "attention_tc32_bwd", "maskgit_f32_train"),
     # K12a in bf16: CXR-BERT with attention dropout off, under grad
     "attention_bwd_bf16": _kernel("_pallas_attention_bwd_kbias (bf16)", "attention.py:271",
                                   "attention_tc.cu", ATTN_TC, "attention_bwd",
@@ -359,7 +379,9 @@ PATHS = {
     "zero_shot_rows": COMMON + ["rearrange_patches", "row_embed"],
     "zero_shot_volume": COMMON + ["patch_embed"],
     "export_latents": COMMON + ["patch_embed"],
-    "radbert_train": ["attention_dropout", "attention_dropout_bwd", "fused_attention"],
+    "radbert_train": ["attention_dropout", "attention_dropout_bwd", "attention_tc32_bwd",
+                      "fused_attention"],
+    "radbert_step": ["attention_dropout", "attention_dropout_bwd", "attention_tc32_bwd"],
     "radbert_infer": ["fused_attention"],
     "radbert_eval": ["fused_attention"],
     "radbert_dropout_off": ["fused_attention", "attention_bwd", "attention_tc32_bwd"],
@@ -419,8 +441,9 @@ PATHS["maskgit_sample_primed"] = PATHS["maskgit_sample"] + ["patch_embed", "vq_a
 PATHS["t5_no_mask"] = ["attention_dense"]
 # phase 10: f32 zero-shot (the f32 forms of K1, K2 grid, K3, K5 on f32 rows,
 # K6; the embeds on their plain route, K7 f32 for the prompts) and the f32
-# MaskGIT stage (the frozen f32 CTViT's encode, K3 / K11 f32, K7 dense / K12b
-# f32, the PEG's plain dW; sampling's decoder with K2 seq, K1, K3 and K17 f32)
+# MaskGIT stage (the frozen f32 CTViT's encode, K3 / K11 f32, K7 dense f32,
+# K12b f32 dense and with no bias on attention_tc32.cu, the PEG's plain dW;
+# sampling's decoder with K2 seq, K1, K3 and K17 f32)
 F32_ZS = ["spatial_attention_f32", "grid_attention_f32", "geglu_ff_f32", "vq_assign_f32",
           "fused_attention"]
 PATHS["zero_shot_f32_rows"] = F32_ZS + ["rearrange_patches_f32", "row_embed_plain"]
@@ -428,20 +451,23 @@ PATHS["zero_shot_f32_volume"] = F32_ZS + ["patch_embed_plain"]
 PATHS["maskgit_f32_encode_ids"] = ["patch_embed_plain", "spatial_attention_f32",
                                    "seq_attention_f32", "geglu_ff_f32", "vq_assign_f32"]
 PATHS["maskgit_f32_train"] = ["geglu_ff_f32", "geglu_ff_bwd_f32", "attention_dense",
-                              "attention_dense_bwd", "fused_attention", "peg_dw_plain"]
+                              "attention_dense_bwd", "attention_tc32_bwd", "fused_attention",
+                              "peg_dw_plain"]
 PATHS["maskgit_f32_sample"] = ["attention_dense", "fused_attention", "geglu_ff_f32",
                                "seq_attention_f32", "spatial_attention_f32",
                                "unrearrange_patches_f32"]
 # phase 11: f32 CT-CLIP pretraining (`cli train --no-bf16`: the f32 forms of
 # K1, K2 grid, K3 and their backwards K9, K10 grid, K11, K5 exact and K15 on
-# f32 rows, K6 f32 in the ingest, K13a / K13b f32, the PEG's plain dW; the
+# f32 rows, K6 f32 in the ingest, K13a f32 and K13b f32 (attention_tc32.cu),
+# the PEG's plain dW; the
 # mini evaluation's K5 f32 rows, plain row embed, K7 f32) and the f32
 # autoencoder (K1 / K9 f32 at n = 64, K2 / K10 seq f32, K6 and K17 f32)
 PATHS["ctclip_f32_train"] = ["spatial_attention_bwd_f32", "grid_attention_bwd_f32",
                              "vq_assign_exact_f32", "vq_cluster_stats_f32", "geglu_ff_bwd_f32",
                              "geglu_ff_f32", "spatial_attention_f32", "grid_attention_f32",
                              "rearrange_patches_f32", "attention_dropout",
-                             "attention_dropout_bwd", "peg_dw_plain", "vq_assign_f32",
+                             "attention_dropout_bwd", "attention_tc32_bwd", "peg_dw_plain",
+                             "vq_assign_f32",
                              "row_embed_plain", "fused_attention"]
 AE_F32_TRAIN = ["seq_attention_f32", "seq_attention_bwd_f32", "spatial_attention_f32",
                 "spatial_attention_bwd_f32", "geglu_ff_f32", "geglu_ff_bwd_f32", "peg_dw_plain",
@@ -758,9 +784,10 @@ def train_attention_cases(dev, b: int):
     torch.autograd.grad of a kept forward), plain version, library call
     (F.scaled_dot_product_attention in f32 with the additive key mask, or
     autograd.grad of a kept SDPA output), the tensors it reads and its
-    products, at the f32 CUDA-core peak; K12a (attention_tc32.cu) at the
-    TF32 peak, three TF32 products for each f32 one, with the CUDA-core
-    bound beside it and the replaced CUDA-core kernel (`twin`)."""
+    products, at the f32 CUDA-core peak; the backwards K12a and K13b
+    (attention_tc32.cu) at the TF32 peak, three TF32 products for each f32
+    one, with the CUDA-core bound beside it and the replaced CUDA-core
+    kernel (`twin`)."""
     import torch
     import torch.nn.functional as F
 
@@ -817,7 +844,9 @@ def train_attention_cases(dev, b: int):
             plain=lambda: plain_bwd(dropout_mask(seed, b, h, n, DROP_RATE, dev)),
             library=lambda: grad(lib_drop, lib_in),
             backend=sdpa_backend(q, k, v, sdpa_mask, DROP_RATE),
-            inputs=(q, k, v, kb, seed, do, out_k13, lse), flops=5 * product, **f32),
+            inputs=(q, k, v, kb, seed, do, out_k13, lse), flops=3 * 5 * product,
+            peak=PEAK_TF32_FLOPS, f32_flops=5 * product, tol=TC32_REL_TOL,
+            twin=cuda_core_twin(q, k, v, do, key_bias=kb, seed=seed, rate=DROP_RATE)[1]),
     }
 
 
@@ -952,6 +981,7 @@ def train_attention_phase(dev) -> dict:
         del got, ref
     results["attention_dropout"].update(dropout_checks(dev))
     results["attention_bwd"].update(tc32_checks(dev))
+    results["attention_dropout_bwd"].update(tc32_checks(dev, DROP_RATE))
     torch.cuda.empty_cache()
 
     for name, case in train_attention_cases(dev, BERT_SHAPE[0]).items():
@@ -989,8 +1019,8 @@ def replaced(module, attr: str, value):
 
 
 def plain_tf32_bwd():
-    """The K12a f32 wrapper launching a copy of attention_tc32.cu built with
-    CT_TC32_PASSES=1: hi hi alone, plain TF32."""
+    """The 3xTF32 backwards' wrapper launching a copy of attention_tc32.cu
+    built with CT_TC32_PASSES=1: hi hi alone, plain TF32."""
     import functools
 
     from ct_clip_tpu_torch.ops import kernels as K
@@ -999,46 +1029,67 @@ def plain_tf32_bwd():
                              lib=K.copy_library("attention_tc32.cu", CT_TC32_PASSES=1))
 
 
-def tc32_checks(dev) -> dict:
-    """K12a f32 on attention_tc32.cu (3xTF32) at (CHECK_BATCH, 12, n, 64)
-    against the plain version in f32 (TF32 off): within TC32_REL_TOL of
-    max|plain| per output at n 512 and a ragged n 500; dq, dk, dv and
-    dkey_bias bit-identical across two runs; and the same call through a
-    plain-TF32 copy of the kernel (`plain_tf32_bwd`), whose error must
-    exceed TC32_REL_TOL: the tolerance tells 3xTF32 from TF32."""
+def tf32_copy(kern):
+    """`kern` with attention_tc32.cu's backwards launched from its plain-TF32
+    copy (`plain_tf32_bwd`)."""
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    hi_only = plain_tf32_bwd()
+
+    def run():
+        with replaced(K, "attention_tc32_bwd", hi_only):
+            return kern()
+    return run
+
+
+def tc32_checks(dev, rate: float = 0.0) -> dict:
+    """K12a f32 (rate 0) or K13b f32 (rate > 0, after the CUDA-core K13a
+    forward) on attention_tc32.cu (3xTF32) at (CHECK_BATCH, 12, n, 64)
+    against the plain version in f32 (TF32 off; K13b with the same seed's
+    mask): within TC32_REL_TOL of max|plain| per output at n 512 and a
+    ragged n 500; dq, dk, dv and dkey_bias bit-identical across two runs;
+    and the same call through a plain-TF32 copy of the kernel
+    (`plain_tf32_bwd`), whose error must exceed TC32_REL_TOL: the
+    tolerance tells 3xTF32 from TF32."""
     import torch
 
     from ct_clip_tpu_torch.ops import kernels as K
-    from ct_clip_tpu_torch.ops.attention import attention_bwd_plain, fused_attention
+    from ct_clip_tpu_torch.ops.attention import (attention_bwd_plain, dropout_mask,
+                                                 fused_attention, fused_attention_kbias_dropout)
 
-    res, hi_only = {}, plain_tf32_bwd()
+    res, name = {}, "K13b f32" if rate else "K12a f32"
     for label, n, seed in (("n512", BERT_SHAPE[2], 23), ("ragged_n500", 500, 24)):
         q, k, v, kb, do = train_attention_inputs(dev, CHECK_BATCH, seed, n)
+        drop_seed = torch.tensor([seed + 20261017], dtype=torch.int64, device=dev)
         leaves = [t.detach().requires_grad_() for t in (q, k, v, kb)]
-        out = fused_attention(*leaves[:3], key_bias=leaves[3])
+        if rate:
+            out = fused_attention_kbias_dropout(*leaves, drop_seed, rate)
+            mask = dropout_mask(drop_seed, CHECK_BATCH, BERT_SHAPE[1], n, rate, dev)
+        else:
+            out, mask = fused_attention(*leaves[:3], key_bias=leaves[3]), None
 
         def grad():
             before = K.launch_counts()["attention_tc32_bwd"]
             g = torch.autograd.grad(out, leaves, do, retain_graph=True)
             if K.launch_counts()["attention_tc32_bwd"] != before + 1:
-                raise AssertionError("K12a f32 did not run on attention_tc32.cu")
+                raise AssertionError(f"{name} did not run on attention_tc32.cu")
             return g
         got = grad()
-        ref = tuple(t for t in attention_bwd_plain(q, k, v, do, key_bias=kb) if t is not None)
+        ref = tuple(t for t in attention_bwd_plain(q, k, v, do, key_bias=kb, mask=mask)
+                    if t is not None)
         err, rel = _rel_errors(got, ref)
         res[f"{label}_max_rel_err"] = rel
         same = all(torch.equal(a, g) for a, g in zip(grad(), got))
         res[f"{label}_bit_identical"] = same
-        with replaced(K, "attention_tc32_bwd", hi_only):
-            _, rel1 = _rel_errors(grad(), ref)
+        _, rel1 = _rel_errors(tf32_copy(grad)(), ref)
         res[f"{label}_plain_tf32_max_rel_err"] = rel1
-        log(f"kernel attention_bwd (K12a f32, 3xTF32) at ({CHECK_BATCH}, 12, {n}, 64): "
-            f"max_abs_err {err:.4e} max_rel_err {rel:.4e} (rel {TC32_REL_TOL}); dq, dk, dv, "
-            f"dkey_bias bit-identical across two runs: {same}; the plain-TF32 copy "
-            f"max_rel_err {rel1:.4e} (must exceed {TC32_REL_TOL})")
+        log(f"kernel {name} (3xTF32) at ({CHECK_BATCH}, 12, {n}, 64): max_abs_err {err:.4e} "
+            f"max_rel_err {rel:.4e} (rel {TC32_REL_TOL}); dq, dk, dv, dkey_bias "
+            f"bit-identical across two runs: {same}; the plain-TF32 copy max_rel_err "
+            f"{rel1:.4e} (must exceed {TC32_REL_TOL})")
         if rel > TC32_REL_TOL or not same or rel1 <= TC32_REL_TOL:
-            raise AssertionError(f"attention_bwd (K12a f32) checks failed: {res}")
-        del got, ref, out, leaves
+            raise AssertionError(f"{name} checks failed: {res}")
+        del got, ref, out, leaves, mask
     return res
 
 
@@ -1287,6 +1338,9 @@ def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
         del got, ref
         torch.cuda.empty_cache()
         res.update(timing(case, case["outputs"]), batch=batch)
+        if case.get("f32_flops"):  # 3xTF32: the f32 CUDA-core bound beside the TF32 one
+            res["bound_f32_cuda_cores_ms"] = bound(nbytes(*case["inputs"], *case["outputs"]),
+                                                   case["f32_flops"], PEAK_F32_FLOPS)[0]
         lib = "none" if res["library_ms"] is None else f"{res['library_ms']:.3f} ms"
         if case.get("backend"):
             res["library_backend"] = case["backend"]
@@ -1565,8 +1619,8 @@ TC_BWD_GROUP = ("K12a / K12b / K13b bf16 backward on the tensor cores (attention
                 ("attn_tc_rows", "attn_tc_cols", "attn_tc_dkb", "attn_tc_dbias"))
 TC_FWD_GROUP = ("K7 / K13a bf16 forward on the tensor cores (attention_tc.cu)",
                 ("attn_tc_forward",))
-TC32_GROUP = ("K12a f32 backward, 3xTF32 on the tensor cores (attention_tc32.cu)",
-              ("tc32_rows", "tc32_cols", "tc32_dkb"))
+TC32_GROUP = ("K12a / K12b / K13b f32 backward, 3xTF32 on the tensor cores (attention_tc32.cu)",
+              ("tc32_rows", "tc32_cols", "tc32_dkb", "tc32_dbias"))
 STEP_GROUPS = (
     TC_BWD_GROUP,
     TC_FWD_GROUP,
@@ -1703,6 +1757,17 @@ def radbert_phase(dev, work: Path, card: str) -> dict:
     log(f"radbert step: batch 32 x 512 tokens, full width, f32: median {step:.2f} ms of "
         f"steps 2-5 {[round(t, 2) for t in step_ms]} = {32 / step * 1e3:.1f} reports/s; "
         f"peak memory {peak_gb:.2f} GB; loss {loss.item():.4f} on {card}")
+    # one step's launches: each of the 12 layers' K13a f32 on the CUDA cores
+    # and K13b f32 on attention_tc32.cu (3xTF32)
+    _, one, _ = drive("radbert_step", lambda: trainer.train_step(batch, 2e-5, 7))
+    counts["radbert_step"] = one
+    per_step = {k: one[k] for k in ("attention_dropout", "attention_dropout_bwd",
+                                    "attention_tc32_bwd", "attention_bwd")}
+    want = dict(attention_dropout=BERT_LAYERS, attention_dropout_bwd=BERT_LAYERS,
+                attention_tc32_bwd=BERT_LAYERS, attention_bwd=0)
+    log(f"radbert step: launches in one step {per_step}")
+    if per_step != want:
+        raise AssertionError(f"radbert step: launches {per_step}, want {want}")
     breakdown = profile_step(lambda: trainer.train_step(batch, 2e-5, 9))
     del model, trainer
     torch.cuda.empty_cache()
@@ -1729,7 +1794,8 @@ def radbert_phase(dev, work: Path, card: str) -> dict:
     del model, trainer
     torch.cuda.empty_cache()
     return dict(counts=counts, step_ms=step, step_ms_all=step_ms, peak_gb=peak_gb,
-                history=hist, train_cli_s=train_s, step_breakdown=breakdown)
+                history=hist, train_cli_s=train_s, step_breakdown=breakdown,
+                launches_per_step=per_step)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1786,31 +1852,61 @@ def small_reference_phase(dev, work: Path):
     return errs
 
 
-def tc32_planted_faults():
-    """name -> the K12a f32 wrapper (kernels.attention_tc32_bwd) broken on
-    purpose, which the tiny RadBERT step must catch: D_i forced to 0 (the
-    kernel's gradients plus the P D terms its omission adds), and the
-    plain-TF32 copy of the kernel."""
+def tc32_planted_faults(kernel: str = "K12a f32"):
+    """name -> the 3xTF32 backwards' wrapper (kernels.attention_tc32_bwd)
+    broken on purpose, which a tiny card-vs-CPU step must catch: D_i forced
+    to 0 (the kernel's gradients plus the P D terms its omission adds, with
+    or without dropout: dS = P (dP M - D)), and the plain-TF32 copy of the
+    kernel; `kernel` names the form in the names."""
     from ct_clip_tpu_torch.ops import kernels as K
 
     tc32 = K.attention_tc32_bwd
 
     def no_rowsum(q, k, v, out, dout, lse, **kw):
-        dq, dk, dv, dkb = tc32(q, k, v, out, dout, lse, **kw)
-        kb = kw["key_bias"]
-        p = (q @ k.transpose(-1, -2) + kb[:, None, None, :] - lse[..., None]).exp()
-        extra = p * (dout * out).sum(-1, keepdim=True)  # dS with D_i = 0 is dS + P D
-        return (dq + extra @ k, dk + extra.transpose(-1, -2) @ q, dv,
+        dq, dk, dv, db, dkb = tc32(q, k, v, out, dout, lse, **kw)
+        s = q @ k.transpose(-1, -2) - lse[..., None]
+        if kw.get("bias") is not None:
+            s = s + kw["bias"]
+        if kw.get("key_bias") is not None:
+            s = s + kw["key_bias"][:, None, None, :]
+        extra = s.exp() * (dout * out).sum(-1, keepdim=True)  # dS with D_i = 0 is dS + P D
+        if db is not None:  # summed over the batch, and the heads for a one-head bias
+            db = db + (extra.sum(0).sum(0, keepdim=True) if db.shape[0] == 1 else extra.sum(0))
+        return (dq + extra @ k, dk + extra.transpose(-1, -2) @ q, dv, db,
                 None if dkb is None else dkb + extra.sum(dim=(1, 2)))
-    return {"K12a f32 with D_i forced to 0": no_rowsum,
-            "K12a f32 in plain TF32 (hi hi alone)": plain_tf32_bwd()}
+    return {f"{kernel} with D_i forced to 0": no_rowsum,
+            f"{kernel} in plain TF32 (hi hi alone)": plain_tf32_bwd()}
 
 
-def radbert_reference_phase(dev, work: Path) -> dict:
+@contextlib.contextmanager
+def same_seeds(first: int = 20261017):
+    """Inside the block BERT's attention dropout (`fused_attention_kbias_dropout`
+    as models/bert.py calls it) takes the seeds first, first + 1, ... in
+    call order on the call's device, in place of its generator's draws,
+    which differ between the CPU and the card: so a step draws the same
+    Philox masks on both."""
+    import torch
+
+    from ct_clip_tpu_torch.models import bert
+
+    calls = iter(range(first, first + 10 ** 6))
+    drop = bert.fused_attention_kbias_dropout
+
+    def seeded(q, k, v, key_bias, seed, rate):
+        return drop(q, k, v, key_bias,
+                    torch.tensor([next(calls)], dtype=torch.int64, device=q.device), rate)
+    with replaced(bert, "fused_attention_kbias_dropout", seeded):
+        yield
+
+
+def radbert_reference_phase(dev, work: Path, attention_dropout: float = 0.0) -> dict:
     """One training step of a tiny RadBERT (2 layers, width 128, 2 heads of
-    64, both dropouts 0, batch 8 x 512 tokens) from the same weights on the
-    card (K7 f32, K12a f32 on attention_tc32.cu, asserted) and on the CPU
-    (plain versions), both f32.  They sum in other orders: logits and loss
+    64, hidden dropout 0, batch 8 x 512 tokens) from the same weights on the
+    card (K7 f32, and K12a f32 or, with `attention_dropout` > 0, K13a f32
+    and K13b f32, the backward on attention_tc32.cu, asserted) and on the
+    CPU (plain versions), both f32.  With dropout both sides take the same
+    seeds, one per layer (`same_seeds`), so the same Philox masks.  They sum
+    in other orders: logits and loss
     within 1e-5 relative, each parameter's gradient within 1e-4 of its
     largest entry, the updated weights within 1e-5.  The key biases'
     gradient is zero in exact arithmetic (softmax is shift invariant), so
@@ -1828,7 +1924,8 @@ def radbert_reference_phase(dev, work: Path) -> dict:
     tok = WordPieceTokenizer(str(work / "radbert_vocab.txt"))
     cfg = RadBertConfig(vocab_size=tok.vocab_size, hidden_size=128, num_hidden_layers=2,
                         num_attention_heads=2, intermediate_size=256,
-                        hidden_dropout=0.0, attention_dropout=0.0)
+                        hidden_dropout=0.0, attention_dropout=attention_dropout)
+    kernel = "K13b f32" if attention_dropout else "K12a f32"
     start = {k: v.clone() for k, v in
              RadBertClassifier(cfg).init_weights(torch.Generator().manual_seed(5))
              .state_dict().items()}
@@ -1844,12 +1941,15 @@ def radbert_reference_phase(dev, work: Path) -> dict:
             ids, mask = (torch.from_numpy(batch[k]).to(tr.device)
                          for k in ("input_ids", "attention_mask"))
             logits = model.eval()(ids, mask).cpu()
-        before = K.launch_counts()["attention_tc32_bwd"]
-        loss = tr.train_step(batch, lr).item()
-        ran = K.launch_counts()["attention_tc32_bwd"] - before
-        if device.type == "cuda" and ran != cfg.num_hidden_layers:
-            raise AssertionError(f"tiny RadBERT: {ran} K12a f32 launches on attention_tc32.cu, "
-                                 f"want {cfg.num_hidden_layers}")
+        before = K.launch_counts()
+        with same_seeds():
+            loss = tr.train_step(batch, lr).item()
+        ran = {c: K.launch_counts()[c] - before[c] for c in ("attention_tc32_bwd",
+                                                             "attention_dropout_bwd")}
+        want = {"attention_tc32_bwd": cfg.num_hidden_layers,
+                "attention_dropout_bwd": cfg.num_hidden_layers if attention_dropout else 0}
+        if device.type == "cuda" and ran != want:
+            raise AssertionError(f"tiny RadBERT: {kernel} launches {ran}, want {want}")
         return dict(logits=logits, loss=loss,
                     grads={n: p.grad.cpu() for n, p in model.named_parameters()},
                     weights={k: v.cpu() for k, v in model.state_dict().items()})
@@ -1875,24 +1975,24 @@ def radbert_reference_phase(dev, work: Path) -> dict:
                       key_bias_step_over_lr=2.0)
         return res, [k for k, lim in limits.items() if res[k] > lim]
 
+    label = f"tiny RadBERT step (attention dropout {attention_dropout})"
     c = side(torch.device("cpu"))
     res, failures = compare(c, side(dev))
-    log(f"reference: tiny RadBERT step card vs CPU: logits rel {res['logits_rel']:.2e}, loss "
+    log(f"reference: {label} card vs CPU: logits rel {res['logits_rel']:.2e}, loss "
         f"rel {res['loss_rel']:.2e} (tol 1e-5), grads rel {res['grad_rel']:.2e} (tol 1e-4), "
         f"updated weights abs {res['weight_abs']:.2e} (tol 1e-5), key bias step "
         f"{res['key_bias_step_over_lr']:.3f} lr (tol 2)")
     if failures:
-        raise AssertionError(f"tiny RadBERT card vs CPU disagree on {failures}: {res}")
+        raise AssertionError(f"{label}: card vs CPU disagree on {failures}: {res}")
     res["faults"] = {}
-    for name, broken in tc32_planted_faults().items():
+    for name, broken in tc32_planted_faults(kernel).items():
         with replaced(K, "attention_tc32_bwd", broken):
             fres, ffail = compare(c, side(dev))
-        log(f"reference: tiny RadBERT step, planted fault '{name}': grads rel "
+        log(f"reference: {label}, planted fault '{name}': grads rel "
             f"{fres['grad_rel']:.2e}, updated weights abs {fres['weight_abs']:.2e}, logits rel "
             f"{fres['logits_rel']:.2e}, loss rel {fres['loss_rel']:.2e}; outside {ffail}")
         if not ffail:
-            raise AssertionError(f"tiny RadBERT: planted fault '{name}' passes the limits: "
-                                 f"{fres}")
+            raise AssertionError(f"{label}: planted fault '{name}' passes the limits: {fres}")
         res["faults"][name] = dict(outside=ffail, **fres)
     return res
 
@@ -1902,6 +2002,7 @@ def radbert_reference_phase(dev, work: Path) -> dict:
 CTCLIP_GROUPS = (
     TC_BWD_GROUP,
     TC_FWD_GROUP,
+    TC32_GROUP,
     ("K11 GEGLU FF backward tile (ff_bwd_kernel)", ("ff_bwd_kernel",)),
     ("backward products NN/TN + split sums (gemm_layout_kernel, sum_splits)",
      ("gemm_layout_kernel", "gemm_layout_f32_kernel", "sum_splits_kernel")),
@@ -1979,14 +2080,16 @@ def timed_steps(step, state, batch, card: str, label: str, batch_size: int,
 
 # launches per step of `cli train`: bf16, the text tower's 12 layers' K13a
 # and K13b on the tensor cores; f32, each of the 4 + 4 layers' backward, one
-# K5 exact and one K15, K13a / K13b f32 on the CUDA cores (attention_train.cu)
+# K5 exact and one K15, K13a f32 on the CUDA cores (attention_train.cu) and
+# K13b f32 on the tensor cores in 3xTF32 (attention_tc32.cu)
 CLIP_PER_STEP = {
     "bf16": dict(attention_dropout=BERT_LAYERS, attention_dropout_bwd=BERT_LAYERS,
                  attention_tc_bwd=BERT_LAYERS),
     "f32": dict(spatial_attention_bwd_f32=4, grid_attention_bwd_f32=4, vq_assign_exact_f32=1,
                 vq_cluster_stats_f32=1, geglu_ff_bwd_f32=8, attention_dropout=BERT_LAYERS,
-                attention_dropout_bwd=BERT_LAYERS, attention_tc=0, attention_tc_bwd=0,
-                peg_bwd=0, spatial_attention_bwd=4, grid_attention_bwd=4),
+                attention_dropout_bwd=BERT_LAYERS, attention_tc32_bwd=BERT_LAYERS,
+                attention_tc=0, attention_tc_bwd=0, peg_bwd=0, spatial_attention_bwd=4,
+                grid_attention_bwd=4),
 }
 
 
@@ -2937,15 +3040,19 @@ MG_GROUPS = (
 def dense_attention_cases(dev):
     """K7 dense and K12b against their plain versions at MaskGIT's (8, 8,
     1280, 64) with the (1, 8, n, n) CPB bias in bf16 (attention_tc.cu) and
-    f32 (attention_train.cu), the TokenCritic's no-bias form at that shape in
-    bf16, T5's (8, 12, 256, 64) with its per-head bias in f32 and a ragged
-    n = 1,000 with a one-head bias in bf16: each case's kernel call
-    (fused_attention, its backward autograd.grad of a kept forward), plain
-    version, library call (F.scaled_dot_product_attention with the bias as
-    attn_mask, scale 1; the backward its autograd with the bias requiring
-    grad), the tensors it reads and writes and its products, at the bf16
-    tensor-core or the f32 CUDA-core peak; the bf16 cases also the replaced
-    CUDA-core kernels on the same inputs (`twin`)."""
+    f32 (the forward on attention_train.cu, the backward in 3xTF32 on
+    attention_tc32.cu), the TokenCritic's no-bias form at that shape in bf16
+    and f32, T5's (8, 12, 256, 64) with its per-head bias in f32 and a
+    ragged n = 1,000 with a one-head bias in bf16 and f32: each case's
+    kernel call (fused_attention, its backward autograd.grad of a kept
+    forward), plain version, library call (F.scaled_dot_product_attention
+    with the bias as attn_mask, scale 1; the backward its autograd with the
+    bias requiring grad), the tensors it reads and writes and its products,
+    at the bf16 tensor-core, the f32 CUDA-core or (the f32 backwards, three
+    TF32 products per f32 one) the TF32 peak; the bf16 cases and the f32
+    backwards also the replaced CUDA-core kernels on the same inputs
+    (`twin`); the f32 backwards within TC32_REL_TOL per output,
+    bit-identical across runs, and their plain-TF32 copy (`copy`)."""
     import torch
     import torch.nn.functional as F
 
@@ -2957,8 +3064,10 @@ def dense_attention_cases(dev):
             ("maskgit_bf16", (MG_B, 8, 1280, 64), 8, torch.bfloat16),
             ("critic_bf16", (MG_B, 8, 1280, 64), 0, torch.bfloat16),
             ("maskgit_f32", (MG_B, 8, 1280, 64), 8, torch.float32),
+            ("critic_f32", (MG_B, 8, 1280, 64), 0, torch.float32),
             ("t5_f32", (8, 12, 256, 64), 12, torch.float32),
-            ("ragged_one_head_bf16", (MG_B, 8, 1000, 64), 1, torch.bfloat16)):
+            ("ragged_one_head_bf16", (MG_B, 8, 1000, 64), 1, torch.bfloat16),
+            ("ragged_one_head_f32", (MG_B, 8, 1000, 64), 1, torch.float32)):
         q, k, v, do = ((torch.randn((b, n, h, d), generator=g, device=dev)).to(dtype)
                        .transpose(1, 2) for _ in range(4))
         q = q * d ** -0.5
@@ -2973,39 +3082,59 @@ def dense_attention_cases(dev):
         lse = torch.empty((b, h, n), device=dev)  # the residual a backward reads
         product = 2 * b * h * n * n * d
         f32 = dtype == torch.float32
-        peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
-        twin_fwd, twin_bwd = (None, None) if f32 else cuda_core_twin(q, k, v, do, bias=bias)
+        twin_fwd, twin_bwd = cuda_core_twin(q, k, v, do, bias=bias)
         yield f"attention_dense@{label}", dict(
             kern=lambda: fused_attention(q, k, v, bias),
             plain=lambda: attention_plain(q, k, v, bias),
             library=lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=bias.to(dtype) if bh else None, scale=1.0),
-            twin=twin_fwd, inputs=(q, k, v, *with_bias), outputs=(q,), flops=2 * product,
-            peak=peak, tol=F32_REL_TOL if f32 else REL_TOL)
-        yield f"attention_dense_bwd@{label}", dict(
-            kern=lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
-            plain=lambda: attention_bwd_plain(q, k, v, do, bias)[:4 if bh else 3],
+            twin=None if f32 else twin_fwd, inputs=(q, k, v, *with_bias), outputs=(q,),
+            flops=2 * product, peak=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS,
+            tol=F32_REL_TOL if f32 else REL_TOL)
+        kern = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
+        bwd = dict(
+            kern=kern, plain=lambda: attention_bwd_plain(q, k, v, do, bias)[:4 if bh else 3],
             library=lambda: torch.autograd.grad(lib_out, lib_in, do, retain_graph=True),
             twin=twin_bwd, inputs=(q, k, v, *with_bias, do, lse),
-            outputs=(q, k, v, *with_bias), flops=5 * product, peak=peak,
-            tol=F32_REL_TOL if f32 else BWD_REL_TOL)
+            outputs=(q, k, v, *with_bias))
+        if f32:
+            bwd.update(flops=3 * 5 * product, peak=PEAK_TF32_FLOPS, f32_flops=5 * product,
+                       tols=(TC32_REL_TOL,) * len(leaves), bit_identical=True,
+                       copy=tf32_copy(kern), copy_is="attention_tc32.cu in plain TF32")
+        else:
+            bwd.update(flops=5 * product, peak=PEAK_BF16_FLOPS, tol=BWD_REL_TOL)
+        yield f"attention_dense_bwd@{label}", bwd
+
+
+DENSE_SOURCES = {"attention_dense": ("attention_tc.cu", "attention_train.cu"),
+                 "attention_dense_bwd": ("attention_tc.cu", "attention_tc32.cu")}
 
 
 def dense_attention_phase(dev) -> dict:
     """`train_kernel_phase` over `dense_attention_cases`, and K12b's dbias
     bit-identical across two runs of each case, its rows summing to zero
-    within 16x the plain version's rounding.  Returns the MaskGIT bf16
-    rows as the table's, the other shapes under `at_<label>`, and the
-    critic's no-bias rows."""
+    within 16x the plain version's rounding, each f32 backward one launch
+    on attention_tc32.cu.  Returns the MaskGIT bf16 rows as the table's,
+    the other bf16 and the f32 forward shapes under `at_<label>`, the
+    critic's no-bias rows, and the f32 backwards' rows (K12b f32 dense at
+    MaskGIT's shape with T5's and the ragged one-head shape, and with no
+    bias)."""
     import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
 
     results = {}
     # one case at a time: each case's closures read the generator's current
     # tensors, so it runs before the generator moves on
     for name, case in dense_attention_cases(dev):
         results[name] = train_kernel_phase(dev, [(name, case)], MG_B)[name]
-        results[name]["source"] = CSRC + ("attention_train.cu" if case["peak"] == PEAK_F32_FLOPS
-                                          else "attention_tc.cu")
+        f32 = name.endswith("_f32")
+        results[name]["source"] = CSRC + DENSE_SOURCES[name.split("@")[0]][f32]
+        if f32 and name.startswith("attention_dense_bwd"):
+            before = K.launch_counts()["attention_tc32_bwd"]
+            case["kern"]()
+            if K.launch_counts()["attention_tc32_bwd"] != before + 1:
+                raise AssertionError(f"{name}: the f32 backward did not run on attention_tc32.cu")
         if name.startswith("attention_dense_bwd") and len(case["outputs"]) == 4:
             first = case["kern"]()[3].clone()
             same = torch.equal(case["kern"]()[3], first)
@@ -3014,7 +3143,8 @@ def dense_attention_phase(dev) -> dict:
             if not same:
                 raise AssertionError(f"{name}: dbias differs between two runs")
             # dS rows sum to zero exactly; the kernel's stay at f32 rounding
-            # (D_i summed from the f32 P and dP), like the plain version's
+            # (D_i summed from the f32 P and dP, or read from the f32 output),
+            # like the plain version's
             rows = first.sum(-1).abs().max().item()
             plain_rows = case["plain"]()[3].sum(-1).abs().max().item()
             results[name].update(dbias_row_sum_max=rows, plain_dbias_row_sum_max=plain_rows)
@@ -3025,13 +3155,22 @@ def dense_attention_phase(dev) -> dict:
         del case
         torch.cuda.empty_cache()
     table = {}
-    for key in ("attention_dense", "attention_dense_bwd"):
+    for key, others in (("attention_dense", ("maskgit_f32", "t5_f32", "ragged_one_head_bf16",
+                                             "ragged_one_head_f32")),
+                        ("attention_dense_bwd", ("ragged_one_head_bf16",))):
         table[key] = dict(results[f"{key}@maskgit_bf16"], shape=[MG_B, 8, 1280, 64],
-                          **{f"at_{label}": results[f"{key}@{label}"] for label in
-                             ("maskgit_f32", "t5_f32", "ragged_one_head_bf16")})
-    for key, row in (("attention_dense", "attention_nobias"),
-                     ("attention_dense_bwd", "attention_nobias_bwd")):
-        table[row] = dict(results[f"{key}@critic_bf16"], shape=[MG_B, 8, 1280, 64])
+                          **{f"at_{label}": results[f"{key}@{label}"] for label in others})
+    table["attention_dense_bwd_f32"] = dict(
+        results["attention_dense_bwd@maskgit_f32"], shape=[MG_B, 8, 1280, 64],
+        **{f"at_{label}": results[f"attention_dense_bwd@{label}"]
+           for label in ("t5_f32", "ragged_one_head_f32")})
+    table["attention_nobias"] = dict(results["attention_dense@critic_bf16"],
+                                     shape=[MG_B, 8, 1280, 64],
+                                     at_critic_f32=results["attention_dense@critic_f32"])
+    table["attention_nobias_bwd"] = dict(results["attention_dense_bwd@critic_bf16"],
+                                         shape=[MG_B, 8, 1280, 64])
+    table["attention_nobias_bwd_f32"] = dict(results["attention_dense_bwd@critic_f32"],
+                                             shape=[MG_B, 8, 1280, 64])
     return table
 
 
@@ -3310,8 +3449,8 @@ def tiny_maskgit_side(cfg, start, inputs, device, dtype, lr: float, folder: Path
     ids, ctx = ids.to(device), ctx.to(device)
     model = MaskGit(cfg, 64, dtype=dtype, device=device)
     model.load_state_dict(start)
-    # K12b: bf16 on the tensor cores, f32 on the CUDA cores (attention_train.cu)
-    counter = "attention_tc_bwd" if dtype == torch.bfloat16 else "attention_dense_bwd"
+    # K12b on the tensor cores: bf16 attention_tc.cu, f32 attention_tc32.cu
+    counter = "attention_tc_bwd" if dtype == torch.bfloat16 else "attention_tc32_bwd"
     before = K.launch_counts()[counter]
     loss, _ = maskgit_train_loss(model, ids, grid, context=ctx, draws=draws)
     loss.backward()
@@ -3640,9 +3779,9 @@ def maskgit_f32_phase(dev, work: Path, card: str) -> dict:
     8 synthetic 200 x 128 x 128 volumes from a frozen f32 CTViT(ae_config())
     (K8 plain route, K1 and K2 seq f32, K3 f32, K5 on f32 rows), with an f32
     CXR-BERT context of 8 reports: 4 steps with finite losses, the launches
-    per step (K3 f32, K11 f32, K7 dense f32 and K12b f32 on the CUDA cores,
-    the critic's no-bias backward, the PEG's dW on the plain route, K14
-    none), the median step of steps 2-4
+    per step (K3 f32, K11 f32, K7 dense f32 on the CUDA cores, K12b f32 and
+    the critic's no-bias backward on attention_tc32.cu, the PEG's dW on the
+    plain route, K14 none), the median step of steps 2-4
     (CUDA events), peak memory and a profiled step's idle share; then
     `MaskGITPipeline.sample` of 1 volume in f32 (K17 f32 in the decoder)."""
     import torch
@@ -3682,7 +3821,8 @@ def maskgit_f32_phase(dev, work: Path, card: str) -> dict:
     c = counts["maskgit_f32_train"]
     per_step = {k: c[k] for k in ("geglu_ff_f32", "geglu_ff_bwd_f32", "attention_dense",
                                   "attention_dense_bwd", "fused_attention", "attention_bwd",
-                                  "attention_tc", "attention_tc_bwd", "peg_dw_plain", "peg_bwd")}
+                                  "attention_tc", "attention_tc_bwd", "attention_tc32_bwd",
+                                  "peg_dw_plain", "peg_bwd")}
     log(f"maskgit f32 step: batch {MG_B} x {int(np.prod(grid)):,} tokens, full width, f32, "
         f"CXR-BERT f32 context {tuple(context.shape)}, critic on: median {med:.2f} ms of steps "
         f"2-4 {[round(t, 2) for t in step_ms]} = {MG_B / med * 1e3:.2f} volumes/s; peak "
@@ -3690,14 +3830,14 @@ def maskgit_f32_phase(dev, work: Path, card: str) -> dict:
         f"{[round(x['critic_loss'], 4) for x in logs]}; launches in one step {per_step} on {card}")
     if not all(np.isfinite([x["loss"], x["critic_loss"]]).all() for x in logs):
         raise AssertionError(f"maskgit f32: losses not finite: {logs}")
-    # 6 + 6 layers: the MaskGit's K7 dense / K12b and the critic's no-bias
-    # K7 in f32 on the CUDA cores (attention_train.cu, none on the tensor
-    # cores), whose no-bias backward that source counts as K12a
-    # (attention_bwd); every FF forward on K3's f32 form, its backward on
-    # K11's; every PEG dW on the plain route (K14 none)
-    want = dict(attention_dense=6, fused_attention=6, attention_dense_bwd=6, attention_bwd=6,
-                attention_tc=0, attention_tc_bwd=0, peg_bwd=0, geglu_ff_f32=c["geglu_ff"],
-                geglu_ff_bwd_f32=c["geglu_ff_bwd"])
+    # 6 + 6 layers: the MaskGit's K7 dense and the critic's no-bias K7 in
+    # f32 on the CUDA cores (attention_train.cu, none on attention_tc.cu),
+    # both backwards K12b (the critic's with no bias) on attention_tc32.cu
+    # in 3xTF32, K12a none; every FF forward on K3's f32 form, its backward
+    # on K11's; every PEG dW on the plain route (K14 none)
+    want = dict(attention_dense=6, fused_attention=6, attention_dense_bwd=12, attention_bwd=0,
+                attention_tc32_bwd=12, attention_tc=0, attention_tc_bwd=0, peg_bwd=0,
+                geglu_ff_f32=c["geglu_ff"], geglu_ff_bwd_f32=c["geglu_ff_bwd"])
     if any(per_step[k] != n for k, n in want.items()) or not (
             per_step["geglu_ff_f32"] and per_step["geglu_ff_bwd_f32"] and per_step["peg_dw_plain"]):
         raise AssertionError(f"maskgit f32: launches per step {per_step}, want {want}")
@@ -3767,7 +3907,8 @@ def compare_f32_steps(c: dict, g: dict, start: dict, lr: float):
 
 
 def f32_planted_faults():
-    """K11 f32 with act rounded to bf16 (the f32 form must keep it f32)."""
+    """K11 f32 with act rounded to bf16 (the f32 form must keep it f32), and
+    K12b f32's `tc32_planted_faults` (D_i forced to 0; plain TF32)."""
     import torch
 
     from ct_clip_tpu_torch.ops import kernels as K
@@ -3777,14 +3918,19 @@ def f32_planted_faults():
     def act_bf16(*args):
         act, dcat = core(*args)
         return act.to(torch.bfloat16).to(act.dtype), dcat
-    return {"K11 f32 with act rounded to bf16": (K, "ff_bwd_core", act_bf16)}
+    faults = {"K11 f32 with act rounded to bf16": (K, "ff_bwd_core", act_bf16)}
+    for name, broken in tc32_planted_faults("K12b f32").items():
+        faults[name] = (K, "attention_tc32_bwd", broken)
+    return faults
 
 
 def tiny_maskgit_f32_phase(dev, work: Path) -> dict:
     """The tiny MaskGit step of `tiny_maskgit_phase` in f32 on both sides:
-    the card's K7 dense / K12b f32 (CUDA cores), K3 / K11 f32 and the PEG's
-    plain dW against the CPU's plain versions, held by `compare_f32_steps`;
-    then with K11's act rounded to bf16, which must fail."""
+    the card's K7 dense f32 (CUDA cores), K12b f32 (attention_tc32.cu, its
+    launches asserted), K3 / K11 f32 and the PEG's plain dW against the
+    CPU's plain versions, held by `compare_f32_steps`; then with each of
+    `f32_planted_faults` (K11's act rounded to bf16, K12b f32's D_i forced
+    to 0, K12b f32 in plain TF32), which must fail."""
     import torch
 
     from ct_clip_tpu_torch.config import MaskGitConfig
@@ -3817,8 +3963,10 @@ def tiny_maskgit_f32_phase(dev, work: Path) -> dict:
         f"updated weights abs {res['weight_abs']:.2e} ({res['weight_worst']}; tol "
         f"{F32_WEIGHT_TOL}; {res['sign_undecided_entries']} entries whose gradient is within "
         f"{F32_NEAR_ZERO}x its card-CPU difference of 0 held to the step bound), every step within "
-        f"{res['step_max_over_lr']:.3f} lr (tol 2); K11 f32 launches {counts['geglu_ff_bwd_f32']}")
-    if failures or not counts["geglu_ff_bwd_f32"] or not counts["attention_dense_bwd"]:
+        f"{res['step_max_over_lr']:.3f} lr (tol 2); K11 f32 launches {counts['geglu_ff_bwd_f32']}, "
+        f"K12b f32 on attention_tc32.cu {counts['attention_tc32_bwd']}")
+    if failures or not counts["geglu_ff_bwd_f32"] or not counts["attention_tc32_bwd"] \
+            or counts["attention_tc32_bwd"] != counts["attention_dense_bwd"]:
         raise AssertionError(f"tiny MaskGit f32 card vs CPU disagree on {failures}: {res}")
     res["faults"] = {}
     for name, (module, attr, broken) in f32_planted_faults().items():
@@ -4009,6 +4157,8 @@ def f32_train_kernel_cases(dev):
     yield "unrearrange_patches_f32_bwd", dict(
         f32_case, kern=lambda: torch.autograd.grad(rows, video, drows, retain_graph=True),
         plain=lambda: unrearrange_plain(drows, 10, 20, 240, 480, 480),
+        library=lambda: drows.reshape(1, 24, 24, 24, 10, 20, 20)
+        .permute(0, 1, 4, 2, 5, 3, 6).contiguous(),
         inputs=(drows,), outputs=(drows,), flops=0, exact=True)
 
 
@@ -4192,6 +4342,7 @@ def main() -> int:
         results.update(train_kernel_phase(dev, bert_bf16_bwd_cases(dev), TRAIN_B))
         ref_errs = small_reference_phase(dev, work)
         radbert_ref = radbert_reference_phase(dev, work)
+        radbert_drop_ref = radbert_reference_phase(dev, work, DROP_RATE)
         corpus = write_train_corpus(work)
         ctclip = ctclip_train_phase(dev, work, card, corpus)
         counts["ctclip_train"] = ctclip.pop("counts")
@@ -4256,6 +4407,7 @@ def main() -> int:
                               "route_max_abs_diff": route_diff,
                               "tiny_card_vs_cpu_max_abs_diff": ref_errs,
                               "radbert": radbert, "radbert_tiny_card_vs_cpu": radbert_ref,
+                              "radbert_dropout_tiny_card_vs_cpu": radbert_drop_ref,
                               "ctclip_train": ctclip,
                               "ctclip_train_tiny_card_vs_cpu": ctclip_ref,
                               "embed_grad": embed_grad, "ctclip_aux": aux,

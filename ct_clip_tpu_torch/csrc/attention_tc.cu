@@ -122,8 +122,8 @@
 //     its quad) into each (b, h)'s dkey_bias share, a (b, h, n) scratch that
 //     attn_tc_dkb adds over the heads in order.  No atomics anywhere: dq, dk,
 //     dv, dbias and dkey_bias are bit-identical from run to run.
-//   * Dropout draws K13's Philox bits (common.cuh; the counter (b, h, i,
-//     j / 4), word j % 4) in K13a's forward and regenerates them in K13b's
+//   * Dropout draws K13's Philox bits (common.cuh, row_keep_bits there; the
+//     counter (b, h, i, j / 4), word j % 4) in K13a's forward and regenerates them in K13b's
 //     backward: the mask never exists in device memory.  The forward's S
 //     accumulator has the row pass's layout, so both draw the same way.
 //     Forward and row pass: lanes t and t ^ 1 hold the four
@@ -395,40 +395,6 @@ __device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, u
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-}
-
-// ------------------------------------------------------------ K13's mask
-// Keep bits of this thread's 32 accumulator elements of the (query i0 + rl,
-// + 8) x (keys j0..j0 + 63) tile: bit e set iff element e is kept.  Lanes t
-// and t ^ 1 hold keys 8c + {0..3} (q4 = 0, 1) or 8c + {4..7} (q4 = 2, 3),
-// one j / 4 group, in both rows: the even lane draws the group for the
-// first row, the odd lane for the second, and each trades the half the
-// other holds.  Every lane of the warp takes part (the shuffles).
-__device__ __forceinline__ uint32_t row_keep_bits(int b, int h, int i, int j0, int q4,
-                                                  uint32_t k0, uint32_t k1, uint32_t thresh) {
-  const int odd = q4 & 1;
-  uint32_t bits = 0;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const U4 w = philox(b, h, i + 8 * odd, (j0 >> 2) + 2 * c + (q4 >> 1), k0, k1);
-    // this lane's keys are words 0, 1 (even) or 2, 3 (odd) of the group
-    const uint32_t own = (uint32_t)((odd ? w.w[2] : w.w[0]) >= thresh)
-                       | (uint32_t)((odd ? w.w[3] : w.w[1]) >= thresh) << 1;
-    const uint32_t sent0 = __shfl_xor_sync(0xffffffffu, odd ? w.w[0] : w.w[2], 1);
-    const uint32_t sent1 = __shfl_xor_sync(0xffffffffu, odd ? w.w[1] : w.w[3], 1);
-    const uint32_t other = (uint32_t)(sent0 >= thresh) | (uint32_t)(sent1 >= thresh) << 1;
-    // element 4 c + 2 hi + {0, 1}: hi 0 the first row, hi 1 the second
-    bits |= (odd ? (other | own << 2) : (own | other << 2)) << (4 * c);
-  }
-  return bits;
-}
-
-// x M of accumulator element e (dA = dP M, or the forward's P M): M is
-// keep_scale where bit e of `kept` is set, else 0; without DROP, x
-template <bool DROP>
-__device__ __forceinline__ float masked(float dp, uint32_t kept, int e, float keep_scale) {
-  if (!DROP) return dp;
-  return dp * ((kept >> e) & 1 ? keep_scale : 0.0f);
 }
 
 // ---------------------------------------------------------------- forward

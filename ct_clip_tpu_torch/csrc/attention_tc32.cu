@@ -1,43 +1,66 @@
-// attention_tc32.cu — the f32 key-bias attention backward at head dim 64 on
-// the Hopper tensor cores, each product as three TF32 products (3xTF32).
+// attention_tc32.cu — the f32 attention backwards at head dim 64 on the
+// Hopper tensor cores, each product as three TF32 products (3xTF32).
 //
-// Replaces _pallas_attention_bwd_kbias (K12a) of
-// ct_clip_tpu/ops/pallas/attention.py (:271; pallas_call :286, body
-// _bwd_kernel_kbias :228-268) in f32: dq, dk, dv and dkey_bias (b, n), the
-// last summed over the heads in order and over the query rows, of
-// softmax(q k^T + key_bias) v.  RadBERT (f32, attention dropout 0) runs it at
-// (32, 12, 512, 64).  The TPU runs these f32 products at Precision.HIGHEST
-// (ops/pallas/_call.py:50-61), several bf16 passes on its matrix unit;
-// 3xTF32 is the H100's counterpart: each f32 operand x splits into hi =
-// tf32(x) (round to nearest, ties away, 10 mantissa bits) and lo = x - hi
-// (read as TF32, truncated), and A B ~ hi hi + hi lo + lo hi, accumulated in
-// f32 (lo lo, ~2^-22 of the product, is dropped).  Everything else stays f32: P, dP, dS, the
-// softmax (libm expf) and the sums.  Built with CT_TC32_PASSES=1 the file
-// runs hi hi alone, plain TF32: the copy the card checks hold it against to
-// show that the tolerance tells the two apart.
+// Replaces these TPU kernels of ct_clip_tpu/ops/pallas/attention.py in f32:
+//   * _pallas_attention_bwd_kbias (K12a, :271; pallas_call :286, body
+//     _bwd_kernel_kbias :228-268): dq, dk, dv and dkey_bias (b, n), the last
+//     summed over the heads in order and over the query rows, of
+//     softmax(q k^T + key_bias) v.  RadBERT with attention dropout 0 runs it
+//     at (32, 12, 512, 64) -> tc32_rows<KEY, false>, tc32_cols<KEY, false>,
+//     tc32_dkb;
+//   * _pallas_attention_kbias_drop_bwd (K13b, :499; pallas_call :516, body
+//     _bwd_kernel_kbias_drop :430-471): the same with K13's dropout mask M
+//     regenerated (dS = P (dP M - D), dv from (P M)^T dO).  RadBERT's default
+//     step runs it at (32, 12, 512, 64), rate 0.1 -> <KEY, true>;
+//   * _pallas_attention_bwd (K12b, :301; pallas_call :318, body
+//     _bwd_kernel_bias :167-212): dq, dk, dv and dbias for a dense (1|h, n,
+//     n) bias, summed over the batch (and the heads for a one-head bias), in
+//     a fixed order, heads outer and batch inner.  MaskGIT runs it at (8, 8,
+//     1280, 64) with the per-head CPB bias, T5 at (8, 12, 256, 64) ->
+//     <DENSE, false>, tc32_dbias.  The same passes with no bias and no dbias
+//     are MaskGIT's TokenCritic backward, which the JAX package runs in XLA
+//     (`_fused_bwd`, :357-381) -> <NONE, false>.
+// The TPU runs these f32 products at Precision.HIGHEST (ops/pallas/
+// _call.py:50-61), several bf16 passes on its matrix unit; 3xTF32 is the
+// H100's counterpart: each f32 operand x splits into hi = tf32(x) (round to
+// nearest, ties away, 10 mantissa bits) and lo = x - hi (read as TF32,
+// truncated), and A B ~ hi hi + hi lo + lo hi, accumulated in f32 (lo lo,
+// ~2^-22 of the product, is dropped).  Everything else stays f32: P, dP, dS,
+// the softmax (libm expf), the mask and the sums.  Built with
+// CT_TC32_PASSES=1 the file runs hi hi alone, plain TF32: the copy the card
+// checks hold it against to show that the tolerance tells the two apart.
 //
-// What bounds it on the H100.  At (32, 12, 512, 64) the function moves 352
-// MB of q, k, v, dO, dq, dk, dv (0.105 ms at 3.35 TB/s) and runs five
-// products of 12.88 GFLOP, 193 GFLOP as TF32 (0.390 ms at 495 TFLOP/s), so
-// the tensor cores bound it; on the f32 CUDA cores the same five products
-// take 0.962 ms at 67 TFLOP/s.  The layout below runs seven (S and dP twice),
-// 270 GFLOP of TF32 (0.546 ms), plus the split: 3 ALU operations per operand
-// element read, and every warp splits the whole K/V (Q/dO) tile it reads.
-// Measured (tools/port_attention_tc_probe.py, kernel-only, NVIDIA H100 80GB
-// HBM3 at 700 W): see PERF.md; mma.sync at m16n8k8 reaches well under the
-// TF32 peak, and the split's ALU work competes with it for issue slots.
+// What bounds it on the H100.  K12a at (32, 12, 512, 64) moves 352 MB of q,
+// k, v, dO, dq, dk, dv (0.105 ms at 3.35 TB/s) and runs five products of
+// 12.88 GFLOP, 193 GFLOP as TF32 (0.390 ms at 495 TFLOP/s), so the tensor
+// cores bound it; on the f32 CUDA cores the same five products take 0.962 ms
+// at 67 TFLOP/s.  K13b adds the draws: 25.2 M Philox calls of ~80 integer
+// operations in the row pass and as many in the column pass.  K12b at (8, 8,
+// 1280, 64) runs five products of 13.42 GFLOP (0.407 ms as TF32) and, for
+// dbias, writes and reads a (b, h, n, n) f32 dS scratch (419 MB each way,
+// ~0.25 ms).  The layout below runs seven products (S and dP twice), plus
+// the split: 3 ALU operations per operand element read, and every warp
+// splits the whole K/V (Q/dO) tile it reads.  Measured
+// (tools/port_attention_tc_probe.py, kernel-only, NVIDIA H100 80GB HBM3 at
+// 700 W): see PERF.md; mma.sync at m16n8k8 reaches well under the TF32
+// peak, and the split's ALU work competes with it for issue slots.
 //
 // Design, FA2's deterministic shape as in attention_tc.cu:
-//   * D_i = sum_c dO_ic O_ic from the forward's f32 output (K7 f32 stays
-//     true f32 on the CUDA cores), summed by the row pass before its sweep:
-//     one sweep over the key tiles, not two.
+//   * D_i = sum_c dO_ic O_ic from the forward's f32 output (K7 f32 and K13a
+//     f32 stay true f32 on the CUDA cores; with dropout O = (P M) V, so this
+//     is sum_j P_ij M_ij dP_ij, the TPU kernel's row sum), summed by the row
+//     pass before its sweep: one sweep over the key tiles, not two.  The
+//     dense form's dbias rows sum to 3-4x the plain f32 version's rounding
+//     this way (a CPU emulation of the arithmetic; the card check allows
+//     16x), so it needs no sweep of its own for D either.
 //   * Row pass (one CTA per 64-query tile and (b, h)): S = Q K^T, dP =
-//     dO V^T, P = exp(S + key_bias - lse), dS = P (dP - D), dq += dS K.
-//     Column pass (one CTA per 64-key tile and (b, h)): S^T = K Q^T, dP^T =
-//     V dO^T, dv += P^T dO, dk += dS^T Q, and the row sums of dS^T, this
-//     head's share of dkey_bias, into a (b, h, n) scratch that tc32_dkb adds
-//     over the heads in order.  No atomics: every output is bit-identical
-//     from run to run.
+//     dO V^T, P = exp(S + bias - lse), dS = P (dP M - D), dq += dS K, and
+//     for dbias each (b, h)'s dS into the scratch.  Column pass (one CTA per
+//     64-key tile and (b, h)): S^T = K Q^T, dP^T = V dO^T, dv += (P M)^T dO,
+//     dk += dS^T Q, and the row sums of dS^T, this head's share of
+//     dkey_bias, into a (b, h, n) scratch that tc32_dkb adds over the heads
+//     in order; tc32_dbias adds the dS scratch over the batch in a fixed
+//     order.  No atomics: every output is bit-identical from run to run.
 //   * A CTA is 4 warps, 16 rows each.  Products are mma.sync m16n8k8 TF32
 //     with f32 accumulators (`wgmma` takes TF32 operands only K-major from
 //     shared memory, and dq, dk, dv contract over tokens).  Tiles arrive raw
@@ -50,8 +73,24 @@
 //     its rows (t = lane % 4) where an A operand holds columns t and t + 4,
 //     so the contraction index is permuted, logical t <-> token 2t and t + 4
 //     <-> 2t + 1, in A and in B alike (the sum is the same in any order).
-// Forms are compile-time (KBIAS: the per-key bias of K12a), so dropout (K13b
-// f32) and a dense bias (K12b f32) are further instantiations of the passes.
+//   * Forms are compile-time (FORM: KEY, DENSE or NONE; DROP), so each form
+//     carries none of another's work and K12a's kernels are the code they
+//     were before the other forms existed.
+//   * The dense bias is read from device memory straight into the
+//     accumulator layout (each thread its 32 values of the tile, loaded
+//     before the tile's products so they arrive under them): a staged 64 x
+//     68 f32 tile would take the shared memory of the second CTA on the SM.
+//     A warp's reads cover 32-byte sectors whole, along keys in the row pass
+//     and, transposed, in the column pass.  The dense form walks the heads
+//     outer (grid row h B + b), so the batch rows that read one bias tile
+//     run together and find it in L2 (MaskGIT's per-head bias is 52 MB,
+//     above the 50 MB L2).
+//   * Dropout (K13's Philox bits, common.cuh): the row pass holds the
+//     wgmma-like row layout, so it draws with row_keep_bits, one call per
+//     four elements; in the column pass a thread's keys are rows and four
+//     lanes need words of one call, so the CTA first draws the tile's 64 x
+//     64 keep bits into shared memory (a 32-key half of one query row per
+//     thread: 8 calls) and every thread reads one word per query it holds.
 #include "common.cuh"
 
 #ifndef CT_TC32_PASSES
@@ -64,6 +103,9 @@ constexpr int TILE = 64;                  // query or key rows per tile
 constexpr int LD = 68;                    // floats per staged row (64 + 4)
 constexpr int TILE_FLOATS = TILE * LD;
 constexpr int NT = 128;                   // 4 warps of 16 rows
+// bias forms: a per-key (b, n) bias (K12a, K13b), a dense (1|h, n, n) bias
+// (K12b), none (K12b without a bias)
+enum Form : int { NONE, KEY, DENSE };
 
 // Element strides (batch, head, token) of one (b, h, n, 64) view.
 struct View { long long sb, sh, st; };
@@ -82,7 +124,42 @@ struct Args {
   float* dkb_head;          // (b, h, n) each head's share of dkey_bias, or null
   float* dkb;               // (b, n) dkey_bias, or null
   int B, H, n;
+  // after the key-bias form's fields, so that its kernels read theirs where
+  // they always did
+  const float* bias;        // (bias_heads, n, n) dense bias (DENSE)
+  int bias_heads;
+  float* ds;                // (b, h, n, n) dS scratch for dbias, or null (DENSE)
+  float* dbias;             // (bias_heads, n, n), or null
+  const long long* seed;    // (1,) Philox key in device memory (DROP)
+  uint32_t thresh;          // keep iff bits >= thresh
+  float keep_scale;         // 1 / (1 - rate)
 };
+
+// The grid row of (b, h): b H + h, or for the dense form h B + b (the heads
+// outer, so the batch rows that read one bias tile run together).
+template <int FORM>
+__device__ __forceinline__ int grid_bh(const Args& a) {
+  return FORM == DENSE ? (int)(blockIdx.y % a.B) * a.H + (int)(blockIdx.y / a.B)
+                       : (int)blockIdx.y;
+}
+
+// This thread's 32 dense-bias values of the (rows, columns) tile of head h
+// in its accumulator layout, element [nb][e] at row rows0 + g + 8 (e >> 1),
+// column cols0 + 8 nb + 2 t + (e & 1); `transposed`: rows are keys and
+// columns queries (the column pass).  Zero outside the (n, n) square.
+__device__ __forceinline__ void load_bias(float (&x)[8][4], const Args& a, int h, int rows0,
+                                          int cols0, int g, int t, bool transposed) {
+  const int n = a.n;
+  const float* bias = a.bias + (size_t)(a.bias_heads > 1 ? h : 0) * n * n;
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = rows0 + g + 8 * (e >> 1), c = cols0 + 8 * nb + 2 * t + (e & 1);
+      const int i = transposed ? c : r, j = transposed ? r : c;
+      x[nb][e] = i < n && j < n ? __ldg(bias + (size_t)i * n + j) : 0.0f;
+    }
+}
 
 // ------------------------------------------------------------- PTX helpers
 __device__ __forceinline__ uint32_t saddr(const void* p) {
@@ -251,8 +328,9 @@ __device__ __forceinline__ float prob(float s, float bias, float lse, bool ok) {
 // Shared memory: Q, dO, then 2 x K, 2 x V, 2 x the key bias (64 floats), D.
 constexpr size_t ROWS_SMEM = (6 * TILE_FLOATS + 3 * TILE) * sizeof(float);
 
-template <bool KBIAS>
+template <int FORM, bool DROP>
 __global__ void __launch_bounds__(NT, 2) tc32_rows(Args a) {
+  constexpr bool KBIAS = FORM == KEY;
   extern __shared__ __align__(16) float sm[];
   float* sq = sm;
   float* sdo = sq + TILE_FLOATS;
@@ -260,7 +338,7 @@ __global__ void __launch_bounds__(NT, 2) tc32_rows(Args a) {
   float* sv = sk + 2 * TILE_FLOATS;
   float* skb = sv + 2 * TILE_FLOATS;     // stage s at skb + s * TILE
   float* sD = skb + 2 * TILE;
-  const int i0 = blockIdx.x * TILE, bh = blockIdx.y, b = bh / a.H, h = bh % a.H, n = a.n;
+  const int i0 = blockIdx.x * TILE, bh = grid_bh<FORM>(a), b = bh / a.H, h = bh % a.H, n = a.n;
   const int tiles = (n + TILE - 1) / TILE;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;  // this warp's rows; a thread's are r0 + g and + 8
@@ -300,6 +378,8 @@ __global__ void __launch_bounds__(NT, 2) tc32_rows(Args a) {
   float lse[2];
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) lse[hi] = a.lse[(size_t)bh * n + min(i0 + r0 + g + 8 * hi, n - 1)];
+  uint32_t k0 = 0, k1 = 0;
+  if (DROP) seed_key(a.seed, a.thresh, k0, k1);
 
   float dq[8][4];
 #pragma unroll
@@ -320,6 +400,8 @@ __global__ void __launch_bounds__(NT, 2) tc32_rows(Args a) {
     const float* K = sk + (tile & 1) * TILE_FLOATS;
     const float* V = sv + (tile & 1) * TILE_FLOATS;
     const float* kb = skb + (tile & 1) * TILE;
+    float bias[8][4];  // DENSE: issued here, read after the products
+    if (FORM == DENSE) load_bias(bias, a, h, i0 + r0, j0, g, t, false);
     float s[8][4], dp[8][4];
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb)
@@ -339,16 +421,38 @@ __global__ void __launch_bounds__(NT, 2) tc32_rows(Args a) {
         mma3(dp[nb], oh, ol, bh_, bl);
       }
     }
-    // dS = P (dP - D_i), f32
+    // the keep bits of element [nb][e] at bit 4 nb + e (common.cuh)
+    const uint32_t kept = DROP ? row_keep_bits(b, h, i0 + r0 + g, j0, t, k0, k1, a.thresh) : 0u;
+    // dS = P (dP M - D_i), f32
     const float D[2] = {sD[r0 + g], sD[r0 + g + 8]};
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int hi = e >> 1, col = 8 * nb + 2 * t + (e & 1);
-        const float p = prob(s[nb][e], KBIAS ? kb[col] : 0.0f, lse[hi], j0 + col < n);
-        s[nb][e] = p * (dp[nb][e] - D[hi]);
+        const float p = prob(s[nb][e], KBIAS ? kb[col] : FORM == DENSE ? bias[nb][e] : 0.0f,
+                             lse[hi], j0 + col < n);
+        s[nb][e] = p * (masked<DROP>(dp[nb][e], kept, 4 * nb + e, a.keep_scale) - D[hi]);
       }
+    if (FORM == DENSE && a.ds) {  // this (b, h)'s dS rows for dbias
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int i = i0 + r0 + g + 8 * hi;
+        if (i >= n) continue;
+        float* row = a.ds + ((size_t)bh * n + i) * n;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const int c = j0 + 8 * nb + 2 * t;
+          const float x = s[nb][2 * hi], y = s[nb][2 * hi + 1];
+          if ((n & 1) == 0 && c + 1 < n) {
+            *reinterpret_cast<float2*>(row + c) = make_float2(x, y);
+          } else {
+            if (c < n) row[c] = x;
+            if (c + 1 < n) row[c + 1] = y;
+          }
+        }
+      }
+    }
     // dq += dS K, over the keys, the tile's share in its own accumulator
     tile_product(dq, s, K, g, t);
     __syncthreads();  // the next iteration's copies overwrite this stage
@@ -367,11 +471,14 @@ __global__ void __launch_bounds__(NT, 2) tc32_rows(Args a) {
 
 // ------------------------------------------------------------- column pass
 // Shared memory: K, V, then 2 x Q, 2 x dO, 2 x [lse | D] (128 floats), the
-// CTA's key bias.  A thread's rows are keys, its columns queries.
+// CTA's key bias, and with DROP the tile's keep bits (COLS_KEEP: a word per
+// 32 keys of a query).  A thread's rows are keys, its columns queries.
 constexpr size_t COLS_SMEM = (6 * TILE_FLOATS + 5 * TILE) * sizeof(float);
+constexpr size_t COLS_KEEP = 2 * TILE * sizeof(uint32_t);
 
-template <bool KBIAS>
+template <int FORM, bool DROP>
 __global__ void __launch_bounds__(NT, 2) tc32_cols(Args a) {
+  constexpr bool KBIAS = FORM == KEY;
   extern __shared__ __align__(16) float sm[];
   float* sk = sm;
   float* sv = sk + TILE_FLOATS;
@@ -379,7 +486,8 @@ __global__ void __launch_bounds__(NT, 2) tc32_cols(Args a) {
   float* sdo = sq + 2 * TILE_FLOATS;
   float* svec = sdo + 2 * TILE_FLOATS;   // stage s: lse at svec + 2 s TILE, D after it
   float* skb = svec + 4 * TILE;
-  const int j0 = blockIdx.x * TILE, bh = blockIdx.y, b = bh / a.H, h = bh % a.H, n = a.n;
+  uint32_t* skeep = reinterpret_cast<uint32_t*>(skb + TILE);
+  const int j0 = blockIdx.x * TILE, bh = grid_bh<FORM>(a), b = bh / a.H, h = bh % a.H, n = a.n;
   const int tiles = (n + TILE - 1) / TILE;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;  // this warp's keys: j0 + r0 + g and + 8
@@ -402,6 +510,8 @@ __global__ void __launch_bounds__(NT, 2) tc32_cols(Args a) {
   for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[nb][e] = dv[nb][e] = 0.0f;
+  uint32_t k0 = 0, k1 = 0;
+  if (DROP) seed_key(a.seed, a.thresh, k0, k1);
 
   for (int tile = 0; tile < tiles; ++tile) {
     if (tile + 1 < tiles) {
@@ -411,12 +521,26 @@ __global__ void __launch_bounds__(NT, 2) tc32_cols(Args a) {
     } else {
       cp_wait<0>();
     }
+    if (DROP) {  // keys j0 + 32 half + [0, 32) of query tile * TILE + il; the
+                 // barrier closing the last tile has passed its reads
+      const int il = threadIdx.x >> 1, half = threadIdx.x & 1;
+      uint32_t bits = 0;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const U4 w = philox(b, h, tile * TILE + il, (j0 >> 2) + 8 * half + q, k0, k1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) bits |= (uint32_t)(w.w[c] >= a.thresh) << (4 * q + c);
+      }
+      skeep[2 * il + half] = bits;
+    }
     __syncthreads();
     if (KBIAS && tile == 0) {
       kb[0] = skb[r0 + g];
       kb[1] = skb[r0 + g + 8];
     }
     const int i0 = tile * TILE;
+    float bias[8][4];  // DENSE, transposed: issued here, read after the products
+    if (FORM == DENSE) load_bias(bias, a, h, j0 + r0, i0, g, t, true);
     const float* Q = sq + (tile & 1) * TILE_FLOATS;
     const float* dO = sdo + (tile & 1) * TILE_FLOATS;
     const float* slse = svec + 2 * (tile & 1) * TILE;
@@ -440,20 +564,28 @@ __global__ void __launch_bounds__(NT, 2) tc32_cols(Args a) {
         mma3(dp[nb], vh, vl, bh_, bl);
       }
     }
-    // P^T and dS^T = P^T (dP^T - D), f32; this head's dkey_bias share
+    // (P M)^T and dS^T = P^T (dP^T M - D), f32; this head's dkey_bias share
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int hi = e >> 1, il = 8 * nb + 2 * t + (e & 1);
-        const float p = prob(s[nb][e], KBIAS ? kb[hi] : 0.0f, slse[il],
-                             i0 + il < n && j0 + r0 + g + 8 * hi < n);
-        const float ds = p * (dp[nb][e] - sD[il]);
-        s[nb][e] = p;
+        const float p = prob(s[nb][e], KBIAS ? kb[hi] : FORM == DENSE ? bias[nb][e] : 0.0f,
+                             slse[il], i0 + il < n && j0 + r0 + g + 8 * hi < n);
+        float ds;
+        if (DROP) {
+          const int jl = r0 + g + 8 * hi;
+          const float m = (skeep[2 * il + (jl >> 5)] >> (jl & 31)) & 1 ? a.keep_scale : 0.0f;
+          ds = p * (dp[nb][e] * m - sD[il]);
+          s[nb][e] = p * m;
+        } else {
+          ds = p * (dp[nb][e] - sD[il]);
+          s[nb][e] = p;
+        }
         dp[nb][e] = ds;
         if (KBIAS) dkb[hi] += ds;
       }
-    // dv += P^T dO, then dk += dS^T Q, over the queries, each tile's share
+    // dv += (P M)^T dO, then dk += dS^T Q, over the queries, each tile's share
     // in its own accumulator (see flush)
     tile_product(dv, s, dO, g, t);
     tile_product(dk, dp, Q, g, t);
@@ -487,6 +619,22 @@ __global__ void tc32_dkb(Args a) {
   a.dkb[e] = s;
 }
 
+// dbias[hb, i, j] = sum of the scratch's dS over the batch for a per-head
+// bias, over the heads (outer) and the batch (inner) for a one-head bias, in
+// that fixed order (as attention_tc.cu's attn_tc_dbias)
+__global__ void tc32_dbias(Args a) {
+  const size_t nn = (size_t)a.n * a.n;
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (size_t)a.bias_heads * nn) return;
+  const int hb = (int)(e / nn);
+  const size_t ij = e % nn;
+  const int h0 = a.bias_heads > 1 ? hb : 0, h1 = a.bias_heads > 1 ? hb + 1 : a.H;
+  float s = 0.0f;
+  for (int h = h0; h < h1; ++h)
+    for (int b = 0; b < a.B; ++b) s += a.ds[((size_t)b * a.H + h) * nn + ij];
+  a.dbias[e] = s;
+}
+
 template <typename K>
 cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t st, const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -503,19 +651,28 @@ bool aligned16(const void* p) { return p && (reinterpret_cast<uintptr_t>(p) & 15
 // q, k, v, out (the forward's f32 output), dout, dq, dk, dv: (b, h, n, 64)
 // f32 views with (batch, head, token) element strides in `strides` (8 views
 // x 3, in that order), each a multiple of 4 (16-byte rows), bases 16-byte
-// aligned; key_bias (b, n) f32; lse (b, h, n) f32 from the forward; rowsum
-// (b, h, n) f32 scratch; dkb_head (b, h, n) f32 scratch and dkb (b, n) f32
-// out, both null when dkey_bias is not wanted.
+// aligned; key_bias (b, n) f32 or null; bias (bias_heads, n, n) f32 or null
+// (not both); lse (b, h, n) f32 from the forward; rowsum (b, h, n) f32
+// scratch; ds (b, h, n, n) f32 scratch and dbias (bias_heads, n, n) f32
+// out, both null when dbias is not wanted; dkb_head (b, h, n) f32 scratch
+// and dkb (b, n) f32 out, both null when dkey_bias is not wanted; seed (1,)
+// int64 in device memory, thresh and keep_scale the dropout mask of K13a's
+// forward (thresh 0: none; a key bias only).  The form follows: dropout
+// (K13b), a key bias (K12a), a dense bias (K12b) or none.
 CT_EXPORT int ct_attn_tc32_bwd(const void* q, const void* k, const void* v, const void* out,
                                const void* dout, void* dq, void* dk, void* dv,
-                               const long long* strides, const void* key_bias,
-                               const void* lse, void* rowsum, void* dkb_head, void* dkb, int B,
-                               int H, int n, void* stream) {
+                               const long long* strides, const void* key_bias, const void* bias,
+                               int bias_heads, const void* lse, void* rowsum, void* ds,
+                               void* dbias, void* dkb_head, void* dkb, const void* seed,
+                               unsigned int thresh, float keep_scale, int B, int H, int n,
+                               void* stream) {
   Args a = {};
   View* const views[8] = {&a.vq, &a.vk, &a.vv, &a.vo, &a.vdo, &a.vdq, &a.vdk, &a.vdv};
   const void* bases[8] = {q, k, v, out, dout, dq, dk, dv};
-  if (B <= 0 || H <= 0 || n <= 0 || (long long)B * H > 65535 || !key_bias || !lse || !rowsum
-      || (!dkb_head != !dkb))
+  if (B <= 0 || H <= 0 || n <= 0 || (long long)B * H > 65535 || !lse || !rowsum
+      || (key_bias && bias) || (bias && bias_heads != 1 && bias_heads != H)
+      || (!ds != !dbias) || (dbias && !bias) || (!dkb_head != !dkb) || (dkb && !key_bias)
+      || (thresh && (!seed || !key_bias)))
     return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 8; ++i) {
     for (int c = 0; c < 3; ++c)
@@ -533,12 +690,28 @@ CT_EXPORT int ct_attn_tc32_bwd(const void* q, const void* k, const void* v, cons
   a.dkb_head = static_cast<float*>(dkb_head);
   a.dkb = static_cast<float*>(dkb);
   a.B = B; a.H = H; a.n = n;
+  a.bias = static_cast<const float*>(bias);
+  a.bias_heads = bias_heads;
+  a.ds = static_cast<float*>(ds);
+  a.dbias = static_cast<float*>(dbias);
+  a.seed = static_cast<const long long*>(seed);
+  a.thresh = thresh;
+  a.keep_scale = keep_scale;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((n + TILE - 1) / TILE, B * H);
-  cudaError_t err = launch(tc32_rows<true>, grid, ROWS_SMEM, st, a);
+  const bool drop = thresh != 0, kbias = key_bias != nullptr, dense = bias != nullptr;
+  void (*rows)(Args) = drop ? tc32_rows<KEY, true> : kbias ? tc32_rows<KEY, false>
+                     : dense ? tc32_rows<DENSE, false> : tc32_rows<NONE, false>;
+  void (*cols)(Args) = drop ? tc32_cols<KEY, true> : kbias ? tc32_cols<KEY, false>
+                     : dense ? tc32_cols<DENSE, false> : tc32_cols<NONE, false>;
+  cudaError_t err = launch(rows, grid, ROWS_SMEM, st, a);
   if (err != cudaSuccess) return (int)err;
-  err = launch(tc32_cols<true>, grid, COLS_SMEM, st, a);
+  err = launch(cols, grid, COLS_SMEM + (drop ? COLS_KEEP : 0), st, a);
   if (err != cudaSuccess) return (int)err;
+  if (dbias) {
+    const size_t elems = (size_t)bias_heads * n * n;
+    tc32_dbias<<<(unsigned)((elems + 255) / 256), 256, 0, st>>>(a);
+  }
   if (dkb) tc32_dkb<<<(B * n + 255) / 256, 256, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

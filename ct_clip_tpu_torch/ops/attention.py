@@ -28,15 +28,18 @@ Ports of ct_clip_tpu/ops/attention.py:
     dense (1, 1|h, n, n) bias (its gradient summed over the batch) or none.
     On CUDA `attention_route` picks the forward's and the backward's source:
     bf16 at d 64 runs both on the tensor cores (csrc/attention_tc.cu); f32
-    at d 64 with a key bias runs its backward (K12a) on the tensor cores in
-    3xTF32 (csrc/attention_tc32.cu); the other f32 forms and other head dims
-    run on the CUDA cores (csrc/attention_train.cu).  A dense bias together
+    at d 64 runs its backward, any bias form, on the tensor cores in 3xTF32
+    (csrc/attention_tc32.cu) and its forward on the CUDA cores
+    (csrc/attention_train.cu); other head dims run both on the CUDA cores.
+    A dense bias together
     with a key bias is XLA in the JAX package (`_xla_attention`), so here it
     is `attention_plain` on every device, differentiated by autograd;
   * `fused_attention_kbias_dropout` (K13, forward and backward): the same
-    with dropout on the probabilities from a Philox mask; on CUDA, in bf16
-    at d 64, its forward (K13a) and backward (K13b) run on attention_tc.cu,
-    which draws the same mask in both, else both on attention_train.cu.
+    with dropout on the probabilities from a Philox mask; on CUDA at d 64
+    its backward (K13b) runs on attention_tc.cu in bf16, on
+    attention_tc32.cu in f32, and its forward (K13a) on attention_tc.cu in
+    bf16, on attention_train.cu in f32, each drawing the same mask; other
+    head dims run both on attention_train.cu.
 
 Module and parameter names reproduce the reference torch state-dict layout
 (transformer_maskgit: `layers.{i}.0` PEG, `.1` attention, `.3` FF).
@@ -217,21 +220,34 @@ def attention_route(dtype: torch.dtype, head_dim: int, bias_form: str,
     CUDA cores).  `bias_form` is "none", "key" (a (b, n) per-key bias) or
     "dense" (a (1, 1|h, n, n) bias); `dropout` K13's (with a key bias).
 
-    | call                                                | forward | backward |
-    | bf16, d 64, any bias form, dropout or not           | TC      | TC       |
-    | f32, d 64, key bias, no dropout (K12a, RadBERT)     | TRAIN   | TC32     |
-    | f32, any other form (no bias, dense, key + dropout) | TRAIN   | TRAIN    |
-    | d != 64                                             | TRAIN   | TRAIN    |
+    | call                                       | forward | backward |
+    | bf16, d 64, any bias form, dropout or not  | TC      | TC       |
+    | f32, d 64, any bias form, dropout or not   | TRAIN   | TC32     |
+    | d != 64                                    | TRAIN   | TRAIN    |
 
-    TC32 reads D_i = dO . O from the f32 forward's output, which K7 f32
-    writes in true f32 on the CUDA cores."""
+    TC32 (K12a, K12b dense or with no bias, K13b) reads D_i = dO . O from
+    the f32 forward's output, which K7 f32 and K13a f32 write in true f32 on
+    the CUDA cores."""
     if bias_form not in BIAS_FORMS:
         raise ValueError(f"attention_route: bias form {bias_form!r} not in {BIAS_FORMS}")
     if head_dim != K.TC_HEAD_DIM:
         return TRAIN, TRAIN
     if dtype == torch.bfloat16:
         return TC, TC
-    return TRAIN, (TC32 if bias_form == "key" and not dropout else TRAIN)
+    return TRAIN, TC32
+
+
+def backward_counters(source: str, bias_form: str, dropout: bool) -> Tuple[str, ...]:
+    """The launch counters a fused attention backward on `source` (TC,
+    TC32 or TRAIN) adds one to: the tensor-core source's own
+    (`attention_tc_bwd`, `attention_tc32_bwd`; none for TRAIN), then the
+    function's, the same on every route: K13b `attention_dropout_bwd`, K12a
+    `attention_bwd` (a key bias), K12b `attention_dense_bwd` (a dense bias
+    or none)."""
+    own = {TC: ("attention_tc_bwd",), TC32: ("attention_tc32_bwd",), TRAIN: ()}[source]
+    if dropout:
+        return own + ("attention_dropout_bwd",)
+    return own + ("attention_bwd" if bias_form == "key" else "attention_dense_bwd",)
 
 
 def _tc_operand(t: torch.Tensor) -> torch.Tensor:
@@ -279,15 +295,15 @@ class _FusedAttention(torch.autograd.Function):
     """K7 forward, K12 backward (K12a with a key bias, K12b with a dense bias
     or none).  On the CPU both are the plain versions; on CUDA the sources
     `attention_route` picks: attention_tc.cu (bf16, d 64, wgmma) for both;
-    in f32 at d 64 with a key bias the key-tiled forward of
-    attention_train.cu and the 3xTF32 backward of attention_tc32.cu (K12a,
-    D_i from the forward's f32 output); else attention_train.cu for both.
-    Each backward reads the forward's row log-sum-exp (and, on
+    in f32 at d 64 the key-tiled forward of attention_train.cu and the
+    3xTF32 backward of attention_tc32.cu (D_i from the forward's f32
+    output), any bias form; else attention_train.cu for both.  Each
+    backward reads the forward's row log-sum-exp (and, on
     attention_train.cu in bf16, its f32 output); a dense bias stays f32 in
     both dtypes.  The counters name the function (`fused_attention`,
     `attention_dense`, `attention_bwd` for K12a, `attention_dense_bwd` for
-    K12b) and, on the tensor cores, the source (`attention_tc`,
-    `attention_tc_bwd`, `attention_tc32_bwd`)."""
+    K12b, dense or with no bias, on every route) and, on the tensor cores,
+    the source (`attention_tc`, `attention_tc_bwd`, `attention_tc32_bwd`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, key_bias):
@@ -300,6 +316,7 @@ class _FusedAttention(torch.autograd.Function):
                 kbias = _dense_bias(bias)
             form = "dense" if bias is not None else "none" if key_bias is None else "key"
             ctx.route = attention_route(q.dtype, q.shape[-1], form, False)
+            ctx.counters = backward_counters(ctx.route[1], form, False)
             if ctx.route[0] == TC:
                 out, lse = _launch_tc_fwd(q, k, v, key_bias, bias=kbias)
                 K.count_launch("attention_tc")
@@ -322,22 +339,17 @@ class _FusedAttention(torch.autograd.Function):
             dq, dk, dv, db, dkb = K.attention_tc_bwd(
                 *_tc_bwd_operands(q, k, v, dout), lse, bias=kbias, want_dbias=need_db,
                 key_bias=_float_key_bias(key_bias), want_dkey_bias=need_dkb)
-            K.count_launch("attention_tc_bwd")
-            # K12a with a key bias; K12b with a dense bias or none
-            K.count_launch("attention_bwd" if key_bias is not None else "attention_dense_bwd")
         elif ctx.route[1] == TC32:
-            dq, dk, dv, dkb = K.attention_tc32_bwd(
-                *map(_tc_operand, (q, k, v, out, dout.to(q.dtype))), lse,
-                key_bias=_float_key_bias(key_bias), want_dkey_bias=need_dkb)
-            db = None
-            K.count_launch("attention_tc32_bwd")
-            K.count_launch("attention_bwd")
+            dq, dk, dv, db, dkb = K.attention_tc32_bwd(
+                *map(_tc_operand, (q, k, v, out, dout.to(q.dtype))), lse, bias=kbias,
+                want_dbias=need_db, key_bias=_float_key_bias(key_bias), want_dkey_bias=need_dkb)
         else:
             dq, dk, dv, dkb, db = K.attention_train_bwd(
                 *map(_rows, (q, k, v, out, dout.to(q.dtype))), lse, out32=out32,
                 key_bias=_float_key_bias(key_bias), want_dkey_bias=need_dkb, bias=kbias,
                 want_dbias=need_db)
-            K.count_launch("attention_bwd" if bias is None else "attention_dense_bwd")
+        for name in ctx.counters:
+            K.count_launch(name)
         return (dq, dk, dv, None if db is None else db.reshape(bias.shape).to(bias.dtype),
                 None if dkb is None else dkb.to(key_bias.dtype))
 
@@ -396,10 +408,12 @@ class _FusedAttentionDropout(torch.autograd.Function):
     """K13 forward and backward: key-bias attention with dropout on the
     probabilities, the mask regenerated from the seed in the backward.  On
     CUDA `attention_route` picks: in bf16 at d 64 attention_tc.cu for both
-    (K13a, K13b; no f32 output kept), else attention_train.cu for both,
-    whose backward reads the forward's f32 output in bf16.  Counters:
-    `attention_dropout`, `attention_dropout_bwd` and, on the tensor cores,
-    `attention_tc` and `attention_tc_bwd`."""
+    (K13a, K13b; no f32 output kept); in f32 at d 64 attention_train.cu's
+    forward and attention_tc32.cu's 3xTF32 backward (D_i from the forward's
+    f32 output); else attention_train.cu for both, whose backward reads the
+    forward's f32 output in bf16.  Counters: `attention_dropout`,
+    `attention_dropout_bwd` and, on the tensor cores, `attention_tc`,
+    `attention_tc_bwd` and `attention_tc32_bwd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, seed, rate):
@@ -410,6 +424,7 @@ class _FusedAttentionDropout(torch.autograd.Function):
         else:
             seed = _seed_tensor(seed, q.device)
             ctx.route = attention_route(q.dtype, q.shape[-1], "key", True)
+            ctx.counters = backward_counters(ctx.route[1], "key", True)
             if ctx.route[0] == TC:
                 out, lse = _launch_tc_fwd(q, k, v, key_bias, seed=seed, rate=rate)
                 K.count_launch("attention_tc")
@@ -436,14 +451,19 @@ class _FusedAttentionDropout(torch.autograd.Function):
             dq, dk, dv, _, dkb = K.attention_tc_bwd(
                 *_tc_bwd_operands(q, k, v, dout), lse, key_bias=_float_key_bias(key_bias),
                 want_dkey_bias=need_dkb, seed=seed, rate=rate)
-            K.count_launch("attention_tc_bwd")
-            K.count_launch("attention_dropout_bwd")
+        elif ctx.route[1] == TC32:
+            dq, dk, dv, _, dkb = K.attention_tc32_bwd(
+                *map(_tc_operand, (q, k, v, out, dout.to(q.dtype))), lse,
+                key_bias=_float_key_bias(key_bias), want_dkey_bias=need_dkb, seed=seed,
+                rate=rate)
         else:
             dq, dk, dv, dkb, _ = K.attention_train_bwd(
                 *map(_rows, (q, k, v, out, dout.to(q.dtype))), lse, out32=out32,
                 key_bias=_float_key_bias(key_bias), want_dkey_bias=need_dkb, seed=seed,
                 thresh=dropout_threshold(rate), keep_scale=dropout_keep_scale(rate))
-            K.count_launch("attention_dropout_bwd")
+        if ctx.route is not None:  # a kernel ran
+            for name in ctx.counters:
+                K.count_launch(name)
         if dkb is not None:
             dkb = dkb.to(key_bias.dtype)
         return dq, dk, dv, dkb if need_dkb else None, None, None

@@ -47,7 +47,7 @@ KERNELS = (
     "fused_attention",     # K7 attention.py::fused_attention (bf16 and f32)
     "rearrange_patches",   # K6 patchify.py::rearrange_patches
     "row_embed",           # K4 patchify.py::fused_row_embed
-    "attention_bwd",       # K12 attention.py::_pallas_attention_bwd_kbias
+    "attention_bwd",       # K12a attention.py::_pallas_attention_bwd_kbias (a key bias)
     "attention_dropout",   # K13 attention.py::_pallas_attention_kbias_drop_impl
     "attention_dropout_bwd",  # K13 attention.py::_pallas_attention_kbias_drop_bwd
     "geglu_ff_bwd",        # K11 ffn.py::_pallas_ff_bwd
@@ -62,7 +62,8 @@ KERNELS = (
     "seq_attention",       # K2 small_attention.py::fused_small_qknorm_attention
     "seq_attention_bwd",   # K10 small_attention.py::_pallas_small_qknorm_bwd (sequence-major)
     "attention_dense",     # K7 attention.py::_pallas_attention, dense (1, 1|h, n, n) bias
-    "attention_dense_bwd",  # K12b attention.py::_pallas_attention_bwd (bf16 no bias too)
+    "attention_dense_bwd",  # K12b attention.py::_pallas_attention_bwd, dense bias or none
+                            # (the TokenCritic's, XLA in JAX), on every route
     # the source that ran, counted beside the function's own counter:
     # attention_tc.cu's bf16 tensor-core kernels
     "attention_tc",        # every forward there: K7, any bias form (fused_attention,
@@ -71,8 +72,10 @@ KERNELS = (
     "attention_tc_bwd",    # every backward there: K12b, dense bias or none
                            # (attention_dense_bwd), K12a, key bias (attention_bwd),
                            # K13b, key bias and dropout (attention_dropout_bwd)
-    # attention_tc32.cu's f32 3xTF32 backward
-    "attention_tc32_bwd",  # K12a f32, key bias (attention_bwd)
+    # attention_tc32.cu's f32 3xTF32 backwards at head dim 64
+    "attention_tc32_bwd",  # every f32 backward there: K12b, dense bias or none
+                           # (attention_dense_bwd), K12a, key bias (attention_bwd),
+                           # K13b, key bias and dropout (attention_dropout_bwd)
     # the f32 forms, counted beside the function's own counter
     "geglu_ff_f32",        # K3 f32 (gemm.cu f32 products, layernorm.cu f32 rows)
     "geglu_ff_bwd_f32",    # K11 f32
@@ -257,7 +260,8 @@ def _signatures():
         "ct_attn_tc_fwd": [p, p, p, p, lp, p, p, i, p, p, u, f, i, i, i, p],
         "ct_attn_tc_bwd": [p, p, p, p, p, p, p, lp, p, p, i, p, p, p, p, p, p, p, u, f, i, i, i,
                            p],
-        "ct_attn_tc32_bwd": [p, p, p, p, p, p, p, p, lp, p, p, p, p, p, i, i, i, p],
+        "ct_attn_tc32_bwd": [p, p, p, p, p, p, p, p, lp, p, p, i, p, p, p, p, p, p, p, u, f, i,
+                             i, i, p],
         "ct_gemm_argmax2": [p, i, p, p, i, i, i, i, p, i, p],
         "ct_gemm_argmax2_rows": [p, i, p, p, i, i, i, i, p, i, p],
         "ct_gemm_layout": [i, i, p, i, p, i, i, i, i, i, p, i, ll, i, p],
@@ -1044,6 +1048,36 @@ def attention_tc_fwd(q, k, v, out, lse, *, key_bias=None, bias=None, seed=None,
     return out
 
 
+def _tc_bwd_buffers(name, q, lse, bias, want_dbias, key_bias, want_dkey_bias, seed, rate):
+    """The tensor-core backwards' shared checks and buffers: (bias_heads,
+    seed, thresh, keep_scale, dq, dk, dv, rowsum, ds, dbias, dkb_head, dkb),
+    the scratches and dbias / dkey_bias None where not wanted."""
+    b, h, n, d = q.shape
+    require(lse, "lse", torch.float32, 3)
+    if tuple(lse.shape) != (b, h, n):
+        raise ValueError(f"{name}: lse {tuple(lse.shape)} != {(b, h, n)}")
+    _check_key_bias(key_bias, b, n)
+    bias_heads = _bias_heads(bias, h, n)
+    if key_bias is not None and bias is not None:
+        raise ValueError(f"{name}: a key bias and a dense bias together")
+    if bias is None and want_dbias:
+        raise ValueError(f"{name}: dbias needs a bias")
+    if key_bias is None and want_dkey_bias:
+        raise ValueError(f"{name}: dkey_bias needs a key_bias")
+    thresh = dropout_threshold(rate) if rate > 0 else 0
+    if thresh and key_bias is None:
+        raise ValueError(f"{name}: dropout (K13b) takes a key bias")
+    seed = _dropout_args(seed, thresh, q.device)
+    grads = [torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(3)]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (bias_heads, seed, thresh, dropout_keep_scale(rate) if thresh else 1.0, *grads,
+            torch.empty((b, h, n), **f32),
+            torch.empty((b, h, n, n), **f32) if want_dbias else None,
+            torch.empty((bias_heads, n, n), **f32) if want_dbias else None,
+            torch.empty((b, h, n), **f32) if want_dkey_bias else None,
+            torch.empty((b, n), **f32) if want_dkey_bias else None)
+
+
 def attention_tc_bwd(q, k, v, dout, lse, *, bias=None, want_dbias=False, key_bias=None,
                      want_dkey_bias=False, seed=None, rate=0.0):
     """dq, dk, dv (b, h, n, 64) bf16, dbias ((1|h, n, n) f32 summed over the
@@ -1058,61 +1092,44 @@ def attention_tc_bwd(q, k, v, dout, lse, *, bias=None, want_dbias=False, key_bia
     `rate` > 0 regenerate K13a's mask M (key bias only)."""
     b, h, n, d = q.shape
     _check_tc(q.shape, q=q, k=k, v=v, dout=dout)
-    require(lse, "lse", torch.float32, 3)
-    _check_key_bias(key_bias, b, n)
-    bias_heads = _bias_heads(bias, h, n)
-    if key_bias is not None and bias is not None:
-        raise ValueError("attention_tc: a key bias and a dense bias together")
-    if bias is None and want_dbias:
-        raise ValueError("attention_tc: dbias needs a bias")
-    if key_bias is None and want_dkey_bias:
-        raise ValueError("attention_tc: dkey_bias needs a key_bias")
-    thresh = dropout_threshold(rate) if rate > 0 else 0
-    if thresh and key_bias is None:
-        raise ValueError("attention_tc: dropout (K13b) takes a key bias")
-    seed = _dropout_args(seed, thresh, q.device)
-    dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    f32 = dict(dtype=torch.float32, device=q.device)
-    rowsum = torch.empty((b, h, n), **f32)
-    ds = torch.empty((b, h, n, n), **f32) if want_dbias else None
-    dbias = torch.empty((bias_heads, n, n), **f32) if want_dbias else None
-    dkb_head = torch.empty((b, h, n), **f32) if want_dkey_bias else None
-    dkb = torch.empty((b, n), **f32) if want_dkey_bias else None
+    (bias_heads, seed, thresh, keep_scale, dq, dk, dv, rowsum, ds, dbias, dkb_head,
+     dkb) = _tc_bwd_buffers("attention_tc", q, lse, bias, want_dbias, key_bias,
+                            want_dkey_bias, seed, rate)
     err = library().ct_attn_tc_bwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(dq), _ptr(dk), _ptr(dv),
         _bhnd_strides(q, k, v, dout, dq, dk, dv), _ptr(key_bias), _ptr(bias), bias_heads,
         _ptr(lse), _ptr(rowsum), _ptr(ds), _ptr(dbias), _ptr(dkb_head), _ptr(dkb), _ptr(seed),
-        thresh, dropout_keep_scale(rate) if thresh else 1.0, b, h, n, _stream())
+        thresh, keep_scale, b, h, n, _stream())
     _check(err, "ct_attn_tc_bwd")
     return dq, dk, dv, dbias, dkb
 
 
-def attention_tc32_bwd(q, k, v, out, dout, lse, *, key_bias, want_dkey_bias=False, lib=None):
-    """dq, dk, dv (b, h, n, 64) f32 and dkey_bias ((b, n) f32 summed over the
-    heads and query rows, or None) of f32 key-bias attention (K12a), each
-    product as 3xTF32 on the tensor cores (attention_tc32.cu): a row pass
-    (D_i = dO_i . O_i from the forward's f32 output `out`, then dq), a column
-    pass (dk, dv, each head's dkey_bias share into a (b, h, n) f32 scratch)
-    and the shares' sum over the heads in order.  q, k, v, out, dout (b, h,
-    n, 64) f32 views as `tc_addressable` says; key_bias (b, n) f32; lse (b,
-    h, n) f32 from the forward.  `lib`: a one-change copy (`copy_library`)
-    to launch instead, for the card checks."""
+def attention_tc32_bwd(q, k, v, out, dout, lse, *, bias=None, want_dbias=False,
+                       key_bias=None, want_dkey_bias=False, seed=None, rate=0.0, lib=None):
+    """dq, dk, dv (b, h, n, 64) f32, dbias ((1|h, n, n) f32 summed over the
+    batch, and over the heads for a one-head bias, or None) and dkey_bias
+    ((b, n) f32 summed over the heads and query rows, or None) of f32
+    attention, each product as 3xTF32 on the tensor cores
+    (attention_tc32.cu): K12b with a dense bias or none, K12a with a key
+    bias, K13b with a key bias and dropout.  A row pass (D_i = dO_i . O_i
+    from the forward's f32 output `out`, then dq; each (b, h)'s dS into a
+    (b, h, n, n) f32 scratch for dbias), a column pass (dk, dv, each head's
+    dkey_bias share into a (b, h, n) f32 scratch) and the scratches' sums in
+    a fixed order.  q, k, v, out, dout (b, h, n, 64) f32 views as
+    `tc_addressable` says; lse (b, h, n) f32 from the forward; a contiguous
+    (1|h, n, n) f32 dense bias or a (b, n) f32 key bias, not both; `seed`
+    (1,) int64 on the device and `rate` > 0 regenerate K13a's mask (key bias
+    only).  `lib`: a one-change copy (`copy_library`) to launch instead, for
+    the card checks."""
     b, h, n, d = q.shape
     _check_tc(q.shape, torch.float32, q=q, k=k, v=v, out=out, dout=dout)
-    require(lse, "lse", torch.float32, 3)
-    if tuple(lse.shape) != (b, h, n):
-        raise ValueError(f"attention_tc32: lse {tuple(lse.shape)} != {(b, h, n)}")
-    if key_bias is None:
-        raise ValueError("attention_tc32: the backward takes a key bias (K12a)")
-    _check_key_bias(key_bias, b, n)
-    dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    f32 = dict(dtype=torch.float32, device=q.device)
-    rowsum = torch.empty((b, h, n), **f32)
-    dkb_head = torch.empty((b, h, n), **f32) if want_dkey_bias else None
-    dkb = torch.empty((b, n), **f32) if want_dkey_bias else None
+    (bias_heads, seed, thresh, keep_scale, dq, dk, dv, rowsum, ds, dbias, dkb_head,
+     dkb) = _tc_bwd_buffers("attention_tc32", q, lse, bias, want_dbias, key_bias,
+                            want_dkey_bias, seed, rate)
     err = (lib or library()).ct_attn_tc32_bwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(dq), _ptr(dk), _ptr(dv),
-        _bhnd_strides(q, k, v, out, dout, dq, dk, dv), _ptr(key_bias), _ptr(lse), _ptr(rowsum),
-        _ptr(dkb_head), _ptr(dkb), b, h, n, _stream())
+        _bhnd_strides(q, k, v, out, dout, dq, dk, dv), _ptr(key_bias), _ptr(bias), bias_heads,
+        _ptr(lse), _ptr(rowsum), _ptr(ds), _ptr(dbias), _ptr(dkb_head), _ptr(dkb), _ptr(seed),
+        thresh, keep_scale, b, h, n, _stream())
     _check(err, "ct_attn_tc32_bwd")
-    return dq, dk, dv, dkb
+    return dq, dk, dv, dbias, dkb

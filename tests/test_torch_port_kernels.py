@@ -2,8 +2,8 @@
 versions, on the card: the inference kernels in bf16, the training attention
 kernels (K7 f32, K12, K13) in f32, K7's dense-bias form and K12b in f32 and
 bf16, the bf16 K7 / K12b / K12a / K13a / K13b of attention_tc.cu (wgmma) with
-their routing (`-k "tc or dense"`), and the f32 K12a of attention_tc32.cu
-(3xTF32, `-k tc32`).
+their routing (`-k "tc or dense"`), and the f32 K12a, K12b (dense, no bias)
+and K13b of attention_tc32.cu (3xTF32, `-k tc32`).
 
 Needs an NVIDIA GPU and nvcc (the kernels compile on first use); skipped
 elsewhere.  Run on the card with:
@@ -15,8 +15,8 @@ but sum in different orders, so an intermediate may land one bf16 ulp
 (2^-8 relative) apart and carry that through the following stages.  Each
 check allows a max abs error of 2e-2 x max|plain| unless stated.  The f32
 kernels run the same products as their plain versions in another summation
-order: 1e-4 x max|plain|; the 3xTF32 K12a 1e-5 x max|plain| against the
-plain version with TF32 off, which a plain-TF32 copy of it must miss.
+order: 1e-4 x max|plain|; the 3xTF32 backwards 1e-5 x max|plain| against
+the plain version with TF32 off, which a plain-TF32 copy of it must miss.
 """
 import pytest
 import torch
@@ -364,8 +364,9 @@ def test_training_attention_counters_count_only_kernel_paths(dev):
     with torch.no_grad():
         fused_attention(q, k, v, key_bias=kb)
     counts = K.launch_counts()
+    # at d 64 both f32 backwards (K12a, K13b) run on attention_tc32.cu
     assert (counts["fused_attention"], counts["attention_bwd"], counts["attention_tc32_bwd"],
-            counts["attention_dropout"], counts["attention_dropout_bwd"]) == (2, 1, 1, 1, 1)
+            counts["attention_dropout"], counts["attention_dropout_bwd"]) == (2, 1, 2, 1, 1)
     with pytest.raises(ValueError):  # the f32 kernels hold d <= 64
         fused_attention(*(torch.zeros(1, 1, 8, 96, device=dev) for _ in range(3)))
 
@@ -375,14 +376,15 @@ def test_training_attention_counters_count_only_kernel_paths(dev):
 @pytest.mark.parametrize("bias_heads", [8, 1])
 @pytest.mark.parametrize("n", [200, 1280])
 def test_k7_dense_and_k12b(dev, dtype, bias_heads, n):
-    """K7's dense-bias form and K12b (f32: attention_train.cu; bf16:
-    attention_tc.cu) against their plain versions at d 64, 8 heads, a
+    """K7's dense-bias form and K12b (f32: attention_train.cu's forward,
+    attention_tc32.cu's 3xTF32 backward; bf16: attention_tc.cu) against
+    their plain versions at d 64, 8 heads, a
     ragged n (200) and MaskGIT's 1,280, with a per-head and a one-head f32
     bias: the output, dq, dk, dv and dbias (summed over the batch, and over
     the heads for the one-head bias).  f32: 1e-4 of max|plain|; bf16: 2e-2
     forward, 3e-2 backward (dbias stays f32).  The rows of dS sum to zero in
     exact arithmetic; the kernels sum D_i = sum_j P_ij dP_ij in f32 (f32:
-    dO_i . O_i from the f32 output; bf16: from the backward's own f32 P and
+    dO_i . O_i from the forward's f32 output; bf16: from the backward's own f32 P and
     dP), as the TPU kernel does, so dbias's row sums stay at f32 rounding:
     within 16x those of the plain version in f32 on the same inputs (from
     the bf16-rounded output they read thousands of times more).  dbias is
@@ -1027,6 +1029,69 @@ def test_tc32_k12a_f32_backward(dev, n):
         K.attention_tc32_bwd = tc32
     errs = [(g - r).abs().max().item() / r.abs().max().item()
             for g, r in zip(tf32[1:4], ref[1:4])]
+    assert min(errs) > TC32_REL, f"plain TF32 reads within 1e-5: {errs}"
+
+
+@pytest.mark.parametrize("n", [512, 200])
+@pytest.mark.parametrize("form", ["dense", "dense_one_head", "none", "dropout"])
+def test_tc32_k12b_k13b_f32_backward(dev, form, n):
+    """The other f32 backwards of attention_tc32.cu (3xTF32) after the
+    CUDA-core forward: K12b with a per-head or one-head dense bias (dbias
+    summed over the batch, and the heads), K12b with no bias, K13b with a pad
+    key bias and dropout 0.1 (the plain version takes the same seed's mask),
+    at (3, 4, n, 64): dq, dk, dv and dbias / dkey_bias within 1e-5 of
+    max|plain| (TF32 off); bit-identical reruns; one launch of
+    attention_tc32_bwd beside the function's counter (K12b
+    `attention_dense_bwd`, K13b `attention_dropout_bwd`); the plain-TF32
+    copy of the kernel misses 1e-5 in dq, dk and dv."""
+    import functools
+
+    from ct_clip_tpu_torch.ops.attention import (attention_bwd_plain, dropout_mask,
+                                                 fused_attention, fused_attention_kbias_dropout)
+
+    b, h, rate = 3, 4, 0.1
+    q, k, v, kb, do = _train_attn_inputs(dev, b, h, n, 64, seed=46)
+    seed = torch.tensor([20261018], dtype=torch.int64, device=dev)
+    heads = {"dense": h, "dense_one_head": 1}.get(form)
+    bias = _randn((1, heads, n, n), _gen(dev, 47), dev, 1.0, F32) if heads else None
+    extra = {"dropout": kb, "dense": bias, "dense_one_head": bias}.get(form)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    if extra is not None:
+        leaves.append(extra.detach().clone().requires_grad_())
+
+    def run():
+        if form == "dropout":
+            out = fused_attention_kbias_dropout(*leaves, seed, rate)
+        else:
+            out = fused_attention(*leaves[:3], bias=leaves[3] if heads else None)
+        return torch.autograd.grad(out, leaves, do)
+    K.reset_launch_counts()
+    got = run()
+    c = K.launch_counts()
+    fn = "attention_dropout_bwd" if form == "dropout" else "attention_dense_bwd"
+    assert (c[fn], c["attention_tc32_bwd"], c["attention_bwd"], c["attention_tc_bwd"]) \
+        == (1, 1, 0, 0)
+    if form == "dropout":
+        ref = attention_bwd_plain(q, k, v, do, key_bias=kb,
+                                  mask=dropout_mask(seed, b, h, n, rate, dev))
+        ref = ref[:3] + (ref[4],)
+    else:
+        ref = attention_bwd_plain(q, k, v, do, bias)[:4 if heads else 3]
+    torch.cuda.synchronize()
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.dtype == F32 and g.shape == r.shape
+        _close(g, r, rel=TC32_REL)
+    assert all(torch.equal(x, y) for x, y in zip(run(), got))
+    tc32 = K.attention_tc32_bwd
+    K.attention_tc32_bwd = functools.partial(
+        tc32, lib=K.copy_library("attention_tc32.cu", CT_TC32_PASSES=1))
+    try:
+        tf32 = run()
+    finally:
+        K.attention_tc32_bwd = tc32
+    errs = [(g - r).abs().max().item() / r.abs().max().item()
+            for g, r in zip(tf32[:3], ref[:3])]
     assert min(errs) > TC32_REL, f"plain TF32 reads within 1e-5: {errs}"
 
 

@@ -7,7 +7,7 @@ import torch
 
 from ct_clip_tpu_torch.ops import kernels as K
 from ct_clip_tpu_torch.ops.attention import (TC, TC32, TRAIN, _tc_bwd_operands, _tc_operand,
-                                             attention_route)
+                                             attention_route, backward_counters)
 
 BF, F32 = torch.bfloat16, torch.float32
 
@@ -20,13 +20,14 @@ BF, F32 = torch.bfloat16, torch.float32
     (BF, 64, "dense", False, (TC, TC)),
     # bf16, d 64, key bias + dropout (K13): K13a and K13b both TC
     (BF, 64, "key", True, (TC, TC)),
-    # f32 at d 64: the key-bias backward (K12a, RadBERT with attention
-    # dropout 0) on the tensor cores in 3xTF32, every forward and every
-    # other backward on the CUDA cores
-    (F32, 64, "none", False, (TRAIN, TRAIN)),
+    # f32 at d 64: every backward on the tensor cores in 3xTF32 (K12b with
+    # no bias, the TokenCritic; K12a, RadBERT with attention dropout 0; K12b
+    # dense, MaskGIT and T5; K13b, RadBERT's default step), every forward on
+    # the CUDA cores, whose true-f32 output gives TC32 its D_i
+    (F32, 64, "none", False, (TRAIN, TC32)),
     (F32, 64, "key", False, (TRAIN, TC32)),
-    (F32, 64, "dense", False, (TRAIN, TRAIN)),
-    (F32, 64, "key", True, (TRAIN, TRAIN)),
+    (F32, 64, "dense", False, (TRAIN, TC32)),
+    (F32, 64, "key", True, (TRAIN, TC32)),
     # head dims other than 64
     (BF, 32, "none", False, (TRAIN, TRAIN)),
     (BF, 32, "key", False, (TRAIN, TRAIN)),
@@ -36,9 +37,38 @@ BF, F32 = torch.bfloat16, torch.float32
     (BF, 128, "key", True, (TRAIN, TRAIN)),
     (F32, 32, "key", False, (TRAIN, TRAIN)),
     (F32, 128, "key", False, (TRAIN, TRAIN)),
+    (F32, 32, "none", False, (TRAIN, TRAIN)),
+    (F32, 16, "dense", False, (TRAIN, TRAIN)),
+    (F32, 40, "key", True, (TRAIN, TRAIN)),
 ])
 def test_attention_route_table(dtype, d, form, dropout, route):
     assert attention_route(dtype, d, form, dropout) == route
+
+
+# The counters a backward adds one to (ops/attention.py::backward_counters):
+# its tensor-core source's own, then the function's, which names the TPU
+# kernel on every route: a backward with no bias of either kind is K12b
+# (`attention_dense_bwd`), as is a dense one; a key bias is K12a
+# (`attention_bwd`); a key bias with dropout K13b (`attention_dropout_bwd`).
+@pytest.mark.parametrize("dtype,d,form,dropout,counters", [
+    (BF, 64, "none", False, ("attention_tc_bwd", "attention_dense_bwd")),
+    (BF, 64, "dense", False, ("attention_tc_bwd", "attention_dense_bwd")),
+    (BF, 64, "key", False, ("attention_tc_bwd", "attention_bwd")),
+    (BF, 64, "key", True, ("attention_tc_bwd", "attention_dropout_bwd")),
+    (F32, 64, "none", False, ("attention_tc32_bwd", "attention_dense_bwd")),
+    (F32, 64, "dense", False, ("attention_tc32_bwd", "attention_dense_bwd")),
+    (F32, 64, "key", False, ("attention_tc32_bwd", "attention_bwd")),
+    (F32, 64, "key", True, ("attention_tc32_bwd", "attention_dropout_bwd")),
+    (F32, 32, "none", False, ("attention_dense_bwd",)),
+    (F32, 32, "dense", False, ("attention_dense_bwd",)),
+    (BF, 32, "none", False, ("attention_dense_bwd",)),
+    (BF, 32, "key", False, ("attention_bwd",)),
+    (F32, 40, "key", True, ("attention_dropout_bwd",)),
+])
+def test_backward_counters_name_the_kernel_on_every_route(dtype, d, form, dropout, counters):
+    got = backward_counters(attention_route(dtype, d, form, dropout)[1], form, dropout)
+    assert got == counters
+    assert set(got) <= set(K.KERNELS)
 
 
 def test_attention_route_rejects_unknown_bias_forms():

@@ -26,7 +26,9 @@ at (8, 8, 1280, 64), forward and backward; CXR-BERT's training shape (8, 12,
 with dkey_bias (K12a), and the forward (K13a) and backward (K13b) with
 dropout 0.1; all bf16.
 Copies of attention_tc32.cu, at RadBERT's (32, 12, 512, 64) f32 key-bias
-backward with dkey_bias (K12a f32):
+backward with dkey_bias (K12a f32) and with dropout 0.1 (K13b f32), and at
+MaskGIT's (8, 8, 1280, 64) with the per-head dense bias and dbias (K12b
+f32) and with no bias (the TokenCritic's):
   as_built     the source unchanged (3xTF32);
   hi_only      CT_TC32_PASSES 1: one TF32 product per f32 one (hi hi);
   no_products  every mma.sync left out (garbage results);
@@ -35,7 +37,8 @@ For each copy and shape: the median of 20 calls between CUDA events (the
 binding called directly), the kernels' own device times from torch.profiler,
 and, for the copy as built, the host time per call of the Python wrapper
 (`fused_attention` for a forward, `kernels.attention_tc_bwd` for the
-key-bias backwards) against the events around one call.
+key-bias backwards, `kernels.attention_tc32_bwd` for the f32 ones) against
+the events around one call.
 """
 from __future__ import annotations
 
@@ -196,7 +199,9 @@ def kernel_ms(fn, prefix: str = "attn_tc_", reps: int = 10) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key.split(prefix)[1].split("(")[0]: e.self_device_time_total / e.count / 1e3
+    # the name past `prefix` up to its parameter list: "rows<(Form)1, false>"
+    return {e.key.split(prefix)[1].rsplit("(", 1)[0].rstrip("("):
+            e.self_device_time_total / e.count / 1e3
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and prefix in e.key}
 
@@ -236,16 +241,25 @@ def in_turns(libs: dict, calls: dict, prefix: str, label: str, results: dict) ->
                   f"{k} {t:.4f}" for k, t in row["kernel_ms"].items()) + " ms", flush=True)
 
 
-def backward32(lib, q, k, v, out, do, kb, lse):
-    """attention_tc32.cu's K12a f32 with dkey_bias."""
+def backward32(lib, q, k, v, out, do, bias, kb, lse, seed, rate):
+    """attention_tc32.cu's f32 backward: dbias for a dense bias (K12b),
+    dkey_bias for a key bias (K12a; K13b with dropout at `rate` > 0 from
+    `seed`), neither without a bias."""
     b, h, n, d = q.shape
+    dev = q.device
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    f32 = dict(dtype=torch.float32, device=q.device)
-    rowsum, dkb_head, dkb = (torch.empty((b, h, n), **f32), torch.empty((b, h, n), **f32),
-                             torch.empty((b, n), **f32))
+    rowsum = torch.empty((b, h, n), device=dev)
+    ds = None if bias is None else torch.empty((b, h, n, n), device=dev)
+    dbias = None if bias is None else torch.empty_like(bias)
+    dkb_head = None if kb is None else torch.empty((b, h, n), device=dev)
+    dkb = None if kb is None else torch.empty((b, n), device=dev)
+    thresh = K.dropout_threshold(rate) if rate else 0
     err = lib.ct_attn_tc32_bwd(_p(q), _p(k), _p(v), _p(out), _p(do), _p(dq), _p(dk), _p(dv),
-                               K._bhnd_strides(q, k, v, out, do, dq, dk, dv), _p(kb), _p(lse),
-                               _p(rowsum), _p(dkb_head), _p(dkb), b, h, n, K._stream())
+                               K._bhnd_strides(q, k, v, out, do, dq, dk, dv), _p(kb), _p(bias),
+                               0 if bias is None else bias.shape[0], _p(lse), _p(rowsum), _p(ds),
+                               _p(dbias), _p(dkb_head), _p(dkb), _p(seed), thresh,
+                               K.dropout_keep_scale(rate) if thresh else 1.0, b, h, n,
+                               K._stream())
     if err:
         raise RuntimeError(f"ct_attn_tc32_bwd: CUDA error {err}")
 
@@ -299,18 +313,30 @@ def main() -> int:
         print(f"{label} / {wrapper}: host {row['host_ms']:.4f} ms per call, events around one "
               f"call {row['events_ms']:.4f} ms", flush=True)
 
-    # K12a f32 on attention_tc32.cu: RadBERT's (32, 12, 512, 64), the
-    # forward's out and lse from K7 f32 (attention_train.cu)
-    label = "K12a f32 key_bias (32, 12, 512, 64)"
-    q, k, v, do, _, kb = inputs(dev, 32, 12, 512, 0, (64, 513), g, torch.float32)
-    out, lse = torch.empty_like(q), torch.empty((32, 12, 512), device=dev)
-    K.attention_train_fwd(q, k, v, out, lse, key_bias=kb)
-    in_turns(built[TC32], {"bwd": lambda lib: lambda: backward32(lib, q, k, v, out, do, kb, lse)},
-             "tc32_", label, results)
-    results[f"{label} / kernels.attention_tc32_bwd"] = row = host_ms(
-        lambda: K.attention_tc32_bwd(q, k, v, out, do, lse, key_bias=kb, want_dkey_bias=True))
-    print(f"{label} / kernels.attention_tc32_bwd: host {row['host_ms']:.4f} ms per call, "
-          f"events around one call {row['events_ms']:.4f} ms", flush=True)
+    # the f32 backwards on attention_tc32.cu, the forward's out and lse from
+    # attention_train.cu (K7 f32, K13a f32)
+    shapes32 = {"K12a f32 key_bias (32, 12, 512, 64)": (32, 12, 512, 0, (64, 513), 0.0),
+                "K13b f32 dropout (32, 12, 512, 64)": (32, 12, 512, 0, (64, 513), 0.1),
+                "K12b f32 dense (8, 8, 1280, 64)": (8, 8, 1280, 8, None, 0.0),
+                "K12b f32 no bias (8, 8, 1280, 64)": (8, 8, 1280, 0, None, 0.0)}
+    for label, (b, h, n, bh, pads, rate) in shapes32.items():
+        q, k, v, do, bias, kb = inputs(dev, b, h, n, bh, pads, g, torch.float32)
+        out, lse = torch.empty_like(q), torch.empty((b, h, n), device=dev)
+        thresh = K.dropout_threshold(rate) if rate else 0
+        K.attention_train_fwd(q, k, v, out, lse, key_bias=kb, bias=bias,
+                              seed=seed if thresh else None, thresh=thresh,
+                              keep_scale=K.dropout_keep_scale(rate) if thresh else 1.0)
+        in_turns(built[TC32], {"bwd": lambda lib: lambda: backward32(
+            lib, q, k, v, out, do, bias, kb, lse, seed, rate)}, "tc32_", label, results)
+        results[f"{label} / kernels.attention_tc32_bwd"] = row = host_ms(
+            lambda: K.attention_tc32_bwd(q, k, v, out, do, lse, bias=bias,
+                                         want_dbias=bias is not None, key_bias=kb,
+                                         want_dkey_bias=kb is not None,
+                                         seed=seed if rate else None, rate=rate))
+        print(f"{label} / kernels.attention_tc32_bwd: host {row['host_ms']:.4f} ms per call, "
+              f"events around one call {row['events_ms']:.4f} ms", flush=True)
+        del q, k, v, do, bias, kb, out, lse
+        torch.cuda.empty_cache()
     if args.out:
         Path(args.out).write_text(json.dumps(results, indent=1))
     return 0
