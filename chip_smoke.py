@@ -13,21 +13,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the RadBERT training attention (K7 f32, K12 and K13, forward and
      backward) at (32, 12, 512, 64) in f32, checked at batch 8 (the plain
      K13 holds a (b, 12, 512, 512) mask) and timed at batch 32, plus K13's
-     determinism, kept share and forward/backward mask identity; K12a f32
-     and K13b f32 run 3xTF32 on the tensor cores (attention_tc32.cu) and
-     are held to TC32_REL_TOL at n 512 and a ragged n 500, their dkey_bias
+     determinism, kept share and forward/backward mask identity (K13a f32's
+     keep bits equal to K13b f32's and the plain mask's, bit for bit); all
+     four run 3xTF32 on the tensor cores (attention_tc32.cu) and are held
+     to TC32_REL_TOL (the backwards at n 512 and a ragged n 500),
      bit-identical across runs, beside a plain-TF32 copy of the kernel that
-     must miss that tolerance.  For each:
+     must miss that tolerance; the forward's lse against the backward row
+     pass's own S (key bias and dense).  For each:
      max abs / rel error against a stated tolerance (K6, a pure move, must be
      bit-exact), median times (CUDA events) of the kernel, the plain version
      and, where one PyTorch call computes the same function, that call, and
      the bound: the least time the card could take, from the call's bytes
      and products and the H100's published peaks (bf16 tensor cores for the
      bf16 kernels, f32 CUDA cores for the f32 ones, TF32 for the 3xTF32
-     f32 backwards).  The bf16 K7 / K12b / K12a / K13a / K13b kernels of
-     attention_tc.cu (wgmma) and the f32 K12a, K12b and K13b of
-     attention_tc32.cu also time the CUDA-core kernels of attention_train.cu
-     they replaced, on the same inputs ("replaced");
+     f32 attention, the f32 CUDA-core bound beside it).  The bf16 K7 / K12b
+     / K12a / K13a / K13b kernels of attention_tc.cu (wgmma) and the f32 K7,
+     K13a, K12a, K12b and K13b of attention_tc32.cu also time the CUDA-core
+     kernels of attention_train.cu they replaced, on the same inputs
+     ("replaced");
   3. zero-shot phase: a 3-volume synthetic CT-RATE corpus (NIfTI + CSVs +
      a toy vocab) through `run_zero_shot` at full CT-CLIP width (seeded
      random weights), batch 2 with a tail batch, twice: on the patch-row
@@ -43,9 +46,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      and `radbert-eval` on that .pt, each with its launch counters (K13
      forward and backward in training, K7 f32 in validation and inference);
      checks the loss and the (64, 18) probabilities and times the training
-     step, whose 12 K13b f32 run on attention_tc32.cu (counted, one step).
-     Then one step of a 2-layer full-width RadBERT with
-     attention_dropout 0, which must run its 2 K12a f32 on attention_tc32.cu
+     step, whose 12 K13a f32 and 12 K13b f32 run on attention_tc32.cu
+     (counted, one step).  Then one step of a 2-layer full-width RadBERT
+     with attention_dropout 0, which must run its 2 K7 f32 and 2 K12a f32
+     on attention_tc32.cu
      (RadBERT is f32: nothing of it runs on attention_tc.cu), and one
      forward and backward of a 2-layer
      CXR-BERT in bf16 with attention dropout off, whose key-bias attention
@@ -58,9 +62,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      with both dropouts 0 takes one training step from the same weights on
      the card (K12a f32 on attention_tc32.cu) and on the CPU, and the
      logits, loss, gradients and updated weights must agree, and must not
-     with TC32 planted faults (D_i forced to 0; plain TF32); then the same
-     with attention dropout 0.1 (K13b f32 on attention_tc32.cu, the same
-     seeds on both sides, so the same Philox masks);
+     with TC32 planted faults (D_i forced to 0; the backward in plain TF32;
+     the forward in plain TF32); then the same with attention dropout 0.1
+     (K13a f32 and K13b f32 on attention_tc32.cu, the same seeds on both
+     sides, so the same Philox masks);
   6. CT-CLIP pretraining: the training kernels against their plain versions
      at full width, batch 8 (K11, K9, K10, K14, K15, K5 exact, and K13 in
      bf16 at CXR-BERT's batch 8 x 512 and a ragged n: K13a and K13b on
@@ -112,14 +117,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
      sum dropped, which must fail;
   9. MaskGIT, the generative stack's second stage: K7's dense-bias form and
      K12b against their plain versions at MaskGIT's (8, 8, 1280, 64) with
-     the (1, 8, n, n) CPB bias in bf16 (attention_tc.cu) and f32
-     (attention_train.cu forward, attention_tc32.cu backward), the critic's
-     no-bias form at that shape in bf16 and f32, T5's (8, 12, 256, 64) in
-     f32 and a ragged n = 1,000 with a one-head bias in bf16 and f32, dbias
-     bit-identical run to run, its rows summing to zero within 16x the plain
-     version's rounding; each f32 backward within TC32_REL_TOL, its
-     plain-TF32 copy outside, the replaced CUDA-core backward timed beside
-     it; `MaskGitTrainer` at full width
+     the (1, 8, n, n) CPB bias in bf16 (attention_tc.cu) and f32 (both on
+     attention_tc32.cu), the critic's no-bias form at that shape in bf16 and
+     f32, T5's (8, 12, 256, 64) in f32 and a ragged n = 1,000 with a
+     one-head bias in bf16 and f32, dbias bit-identical run to run, its
+     rows summing to zero within 16x the plain version's rounding; each f32
+     forward and backward within TC32_REL_TOL, its plain-TF32 copy outside,
+     the replaced CUDA-core kernel timed beside it; `MaskGitTrainer` at full
+     width
      (MaskGitConfig(), 8,192 codes, bf16 compute) with the TokenCritic at
      batch 8 on the codes of 8 synthetic 200 x 128 x 128 volumes from phase
      8's frozen autoencoder (`encode_ids`) and a CXR-BERT context of 8
@@ -146,12 +151,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
      `score_batch` times and peak memory; a tiny f32 CT-CLIP card against CPU
      from volumes and rows; `MaskGitTrainer` in f32 with the critic on a
      frozen f32 autoencoder's codes and an f32 CXR-BERT context (4 steps,
-     launches per step: 12 backwards on attention_tc32.cu, step time, peak
+     launches per step: 12 forwards and 12 backwards on attention_tc32.cu,
+     step time, peak
      memory, a profiled step), f32 sampling of one volume; a tiny f32
      MaskGit step card against CPU (gradients 1e-4 of max, weights 1e-5,
-     its K12b f32 on attention_tc32.cu), and again with K11's act rounded to
-     bf16, with K12b f32's D_i forced to 0 and with K12b f32 in plain TF32,
-     each of which must fail;
+     its K7 dense and K12b f32 on attention_tc32.cu), and again with K11's
+     act rounded to bf16, with K12b f32's D_i forced to 0, with K12b f32 in
+     plain TF32 and with K7 dense f32 in plain TF32, each of which must
+     fail;
  11. f32 training, the JAX package's f32 CT-CLIP and CTViT autoencoder: the
      f32 backwards against their plain versions in true f32 at full width
      (dx TC32_REL_TOL, the sums over all sequences F32_REL_TOL): K9 f32 on
@@ -163,8 +170,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      of its math; the full-f32 share reported), K15 on them (bins exact,
      sums 1e-6 of max, which full-f32 sums must miss), K17 f32 as K6's
      backward (bit-exact); `cli train --no-bf16` at batch 8, 4 steps with
-     the mini evaluation and a checkpoint (launches per step, 12 K13b f32 on
-     attention_tc32.cu among them, step time,
+     the mini evaluation and a checkpoint (launches per step, 12 K13a f32
+     and 12 K13b f32 on attention_tc32.cu among them, step time,
      peak memory, a profiled step); `CTViTTrainer` on an f32
      CTViT(ae_config()): 3 generator steps with falling losses and a round
      with the discriminator (the sequence-major f32 counters, K9 f32 at n =
@@ -254,13 +261,13 @@ KERNELS = {
     "row_embed": _kernel("fused_row_embed", "patchify.py:609", "layernorm.cu",
                          ["layernorm.cu", "gemm.cu"], "row_embed", "zero_shot_rows"),
     "fused_attention_f32": _kernel("fused_attention (f32)", "attention.py:129",
-                                   "attention_train.cu", ATTN_TRAIN, "fused_attention",
+                                   "attention_tc32.cu", ATTN_TC32, "fused_attention",
                                    "radbert_train"),
     "attention_bwd": _kernel("_pallas_attention_bwd_kbias", "attention.py:271",
                              "attention_tc32.cu", ATTN_TC32, "attention_tc32_bwd",
                              "radbert_dropout_off"),
     "attention_dropout": _kernel("_pallas_attention_kbias_drop_impl", "attention.py:474",
-                                 "attention_train.cu", ATTN_TRAIN, "attention_dropout",
+                                 "attention_tc32.cu", ATTN_TC32, "attention_dropout",
                                  "radbert_train"),
     "attention_dropout_bwd": _kernel("_pallas_attention_kbias_drop_bwd",
                                      "attention.py:499", "attention_tc32.cu", ATTN_TC32,
@@ -314,6 +321,15 @@ KERNELS = {
     "attention_nobias_bwd": _kernel("_pallas_attention_bwd (no bias)", "attention.py:301",
                                     "attention_tc.cu", ATTN_TC, "attention_tc_bwd",
                                     "maskgit_train"),
+    # K7 in f32 (3xTF32) at MaskGIT's shape: the MaskGit's dense CPB bias
+    # and the critic's no bias (each f32 step runs 6 of each: 12 on
+    # attention_tc32)
+    "attention_dense_f32": _kernel("_pallas_attention (dense bias, f32)", "attention.py:157",
+                                   "attention_tc32.cu", ATTN_TC32, "attention_dense",
+                                   "maskgit_f32_train"),
+    "attention_nobias_f32": _kernel("_pallas_attention (no bias, f32)", "attention.py:149",
+                                    "attention_tc32.cu", ATTN_TC32, "fused_attention",
+                                    "maskgit_f32_train"),
     # K12b in f32 (3xTF32) at MaskGIT's shape: the MaskGit's dense CPB bias
     # and the critic's no bias (each f32 step runs 6 of each: 12 on
     # attention_tc32_bwd)
@@ -379,12 +395,14 @@ PATHS = {
     "zero_shot_rows": COMMON + ["rearrange_patches", "row_embed"],
     "zero_shot_volume": COMMON + ["patch_embed"],
     "export_latents": COMMON + ["patch_embed"],
-    "radbert_train": ["attention_dropout", "attention_dropout_bwd", "attention_tc32_bwd",
-                      "fused_attention"],
-    "radbert_step": ["attention_dropout", "attention_dropout_bwd", "attention_tc32_bwd"],
-    "radbert_infer": ["fused_attention"],
-    "radbert_eval": ["fused_attention"],
-    "radbert_dropout_off": ["fused_attention", "attention_bwd", "attention_tc32_bwd"],
+    "radbert_train": ["attention_dropout", "attention_dropout_bwd", "attention_tc32",
+                      "attention_tc32_bwd", "fused_attention"],
+    "radbert_step": ["attention_dropout", "attention_dropout_bwd", "attention_tc32",
+                     "attention_tc32_bwd"],
+    "radbert_infer": ["fused_attention", "attention_tc32"],
+    "radbert_eval": ["fused_attention", "attention_tc32"],
+    "radbert_dropout_off": ["fused_attention", "attention_bwd", "attention_tc32",
+                            "attention_tc32_bwd"],
     "bert_bf16_dropout_off": ["fused_attention", "attention_bwd", "attention_tc",
                               "attention_tc_bwd"],
     # the training step (K13a and K13b on the tensor cores) and the mini
@@ -438,23 +456,23 @@ PATHS["maskgit_encode_ids"] = ["patch_embed", "spatial_attention", "seq_attentio
 PATHS["maskgit_sample"] = ["attention_dense", "fused_attention", "attention_tc", "geglu_ff",
                            "seq_attention", "spatial_attention", "unrearrange_patches"]
 PATHS["maskgit_sample_primed"] = PATHS["maskgit_sample"] + ["patch_embed", "vq_assign"]
-PATHS["t5_no_mask"] = ["attention_dense"]
+PATHS["t5_no_mask"] = ["attention_dense", "attention_tc32"]
 # phase 10: f32 zero-shot (the f32 forms of K1, K2 grid, K3, K5 on f32 rows,
 # K6; the embeds on their plain route, K7 f32 for the prompts) and the f32
 # MaskGIT stage (the frozen f32 CTViT's encode, K3 / K11 f32, K7 dense f32,
 # K12b f32 dense and with no bias on attention_tc32.cu, the PEG's plain dW;
 # sampling's decoder with K2 seq, K1, K3 and K17 f32)
 F32_ZS = ["spatial_attention_f32", "grid_attention_f32", "geglu_ff_f32", "vq_assign_f32",
-          "fused_attention"]
+          "fused_attention", "attention_tc32"]
 PATHS["zero_shot_f32_rows"] = F32_ZS + ["rearrange_patches_f32", "row_embed_plain"]
 PATHS["zero_shot_f32_volume"] = F32_ZS + ["patch_embed_plain"]
 PATHS["maskgit_f32_encode_ids"] = ["patch_embed_plain", "spatial_attention_f32",
                                    "seq_attention_f32", "geglu_ff_f32", "vq_assign_f32"]
 PATHS["maskgit_f32_train"] = ["geglu_ff_f32", "geglu_ff_bwd_f32", "attention_dense",
-                              "attention_dense_bwd", "attention_tc32_bwd", "fused_attention",
-                              "peg_dw_plain"]
-PATHS["maskgit_f32_sample"] = ["attention_dense", "fused_attention", "geglu_ff_f32",
-                               "seq_attention_f32", "spatial_attention_f32",
+                              "attention_dense_bwd", "attention_tc32", "attention_tc32_bwd",
+                              "fused_attention", "peg_dw_plain"]
+PATHS["maskgit_f32_sample"] = ["attention_dense", "fused_attention", "attention_tc32",
+                               "geglu_ff_f32", "seq_attention_f32", "spatial_attention_f32",
                                "unrearrange_patches_f32"]
 # phase 11: f32 CT-CLIP pretraining (`cli train --no-bf16`: the f32 forms of
 # K1, K2 grid, K3 and their backwards K9, K10 grid, K11, K5 exact and K15 on
@@ -466,7 +484,8 @@ PATHS["ctclip_f32_train"] = ["spatial_attention_bwd_f32", "grid_attention_bwd_f3
                              "vq_assign_exact_f32", "vq_cluster_stats_f32", "geglu_ff_bwd_f32",
                              "geglu_ff_f32", "spatial_attention_f32", "grid_attention_f32",
                              "rearrange_patches_f32", "attention_dropout",
-                             "attention_dropout_bwd", "attention_tc32_bwd", "peg_dw_plain",
+                             "attention_dropout_bwd", "attention_tc32", "attention_tc32_bwd",
+                             "peg_dw_plain",
                              "vq_assign_f32",
                              "row_embed_plain", "fused_attention"]
 AE_F32_TRAIN = ["seq_attention_f32", "seq_attention_bwd_f32", "spatial_attention_f32",
@@ -779,15 +798,16 @@ def sdpa_backend(q, k, v, mask, dropout_p: float) -> str:
 
 
 def train_attention_cases(dev, b: int):
-    """K7 f32, K13 forward, K12 and K13 backward at (b, 12, 512, 64): each
-    case's kernel call (through the wrapper the model calls; a backward is
-    torch.autograd.grad of a kept forward), plain version, library call
-    (F.scaled_dot_product_attention in f32 with the additive key mask, or
-    autograd.grad of a kept SDPA output), the tensors it reads and its
-    products, at the f32 CUDA-core peak; the backwards K12a and K13b
-    (attention_tc32.cu) at the TF32 peak, three TF32 products for each f32
-    one, with the CUDA-core bound beside it and the replaced CUDA-core
-    kernel (`twin`)."""
+    """K7 f32, K13 forward, K12 and K13 backward at (b, 12, 512, 64), all on
+    attention_tc32.cu: each case's kernel call (through the wrapper the
+    model calls; a backward is torch.autograd.grad of a kept forward), plain
+    version, library call (F.scaled_dot_product_attention in f32 with the
+    additive key mask, or autograd.grad of a kept SDPA output), the tensors
+    it reads and its products, at the TF32 peak, three TF32 products for
+    each f32 one, with the CUDA-core bound beside it and the replaced
+    CUDA-core kernel (`twin`); the forwards also bit-identical across two
+    runs, and their plain-TF32 copy (`copy`), which must miss
+    TC32_REL_TOL."""
     import torch
     import torch.nn.functional as F
 
@@ -816,22 +836,28 @@ def train_attention_cases(dev, b: int):
         return tuple(t for t in attention_bwd_plain(q, k, v, do, key_bias=kb, mask=mask)
                      if t is not None)
 
-    f32 = dict(peak=PEAK_F32_FLOPS)
+    def k7():
+        return fused_attention(q, k, v, key_bias=kb)
+
+    def k13a():
+        return fused_attention_kbias_dropout(q, k, v, kb, seed, DROP_RATE)
+    fwd = dict(flops=3 * 2 * product, peak=PEAK_TF32_FLOPS, f32_flops=2 * product,
+               tol=TC32_REL_TOL, bit_identical=True)
     return {
         "fused_attention_f32": dict(
-            kern=lambda: fused_attention(q, k, v, key_bias=kb),
-            plain=lambda: attention_plain(q, k, v, key_bias=kb),
+            kern=k7, plain=lambda: attention_plain(q, k, v, key_bias=kb),
             library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
                                                            scale=1.0),
-            backend=sdpa_backend(q, k, v, sdpa_mask, 0.0),
-            inputs=(q, k, v, kb), flops=2 * product, **f32),
+            backend=sdpa_backend(q, k, v, sdpa_mask, 0.0), inputs=(q, k, v, kb),
+            copy=tf32_copy(k7, "attention_tc32_fwd"),
+            twin=cuda_core_twin(q, k, v, key_bias=kb)[0], **fwd),
         "attention_dropout": dict(
-            kern=lambda: fused_attention_kbias_dropout(q, k, v, kb, seed, DROP_RATE),
-            plain=lambda: attention_dropout_plain(q, k, v, kb, seed, DROP_RATE),
+            kern=k13a, plain=lambda: attention_dropout_plain(q, k, v, kb, seed, DROP_RATE),
             library=lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=sdpa_mask, dropout_p=DROP_RATE, scale=1.0),
-            backend=sdpa_backend(q, k, v, sdpa_mask, DROP_RATE),
-            inputs=(q, k, v, kb, seed), flops=2 * product, **f32),
+            backend=sdpa_backend(q, k, v, sdpa_mask, DROP_RATE), inputs=(q, k, v, kb, seed),
+            copy=tf32_copy(k13a, "attention_tc32_fwd"),
+            twin=cuda_core_twin(q, k, v, key_bias=kb, seed=seed, rate=DROP_RATE)[0], **fwd),
         "attention_bwd": dict(
             kern=lambda: grad(out_k12, leaves), plain=plain_bwd,
             library=lambda: grad(lib_out, lib_in),
@@ -918,6 +944,102 @@ def dropout_checks(dev) -> dict:
     return res
 
 
+def k13a_f32_mask_bits(dev) -> dict:
+    """K13a f32's mask (attention_tc32.cu's forward) is K13b f32's (its
+    backward) and the plain version's (`dropout_mask`), bit for bit, at
+    (CHECK_BATCH, 12, 512, 64), and its kept share lies within 4 sigma of
+    1 - rate: with q = k = 0 and no key bias every P is 1 / n, so with v
+    one-hot over 64 keys the output's column c is P M of key j0 + c (0 where
+    dropped), and with dO one-hot over 64 queries dv's column c is P M of
+    query i0 + c: eight calls each read every element's keep bit."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.attention import dropout_mask, fused_attention_kbias_dropout
+
+    b, (_, h, n, d) = CHECK_BATCH, BERT_SHAPE
+    seed = torch.tensor([20261020], dtype=torch.int64, device=dev)
+    zeros = torch.zeros((b, h, n, d), device=dev)
+    free = torch.zeros((b, n), device=dev)
+    fwd_keep = torch.empty((b, h, n, n), dtype=torch.bool, device=dev)
+    bwd_keep = torch.empty_like(fwd_keep)
+    before = K.launch_counts()
+    for c0 in range(0, n, d):
+        onehot = torch.zeros_like(zeros)
+        onehot[:, :, c0:c0 + d] = torch.eye(d, device=dev)
+        v = onehot.clone().requires_grad_()
+        out = fused_attention_kbias_dropout(zeros, zeros, v, free, seed, DROP_RATE)
+        dv, = torch.autograd.grad(out, v, onehot)
+        fwd_keep[..., c0:c0 + d] = out.detach() > 0  # [i, c]: query i, key c0 + c
+        bwd_keep[:, :, c0:c0 + d] = (dv > 0).transpose(-1, -2)  # [j, c]: key j, query c0 + c
+    ran = {k: K.launch_counts()[k] - before[k] for k in ("attention_tc32", "attention_tc32_bwd")}
+    plain = dropout_mask(seed, b, h, n, DROP_RATE, dev) > 0
+    share = fwd_keep.double().mean().item()
+    four_sigma = 4 * (DROP_RATE * (1 - DROP_RATE) / (b * h * n * n)) ** 0.5
+    res = dict(mask_fwd_equals_bwd=torch.equal(fwd_keep, bwd_keep),
+               mask_fwd_equals_plain=torch.equal(fwd_keep, plain),
+               mask_elements_differing=int((fwd_keep != bwd_keep).sum()),
+               kept_share_mask_bits=share, kept_share_4sigma=four_sigma)
+    log(f"kernel attention_dropout (K13a f32, attention_tc32.cu): keep bits of all "
+        f"{fwd_keep.numel():,} elements equal to K13b f32's {res['mask_fwd_equals_bwd']} "
+        f"({res['mask_elements_differing']} differ) and to the plain mask's "
+        f"{res['mask_fwd_equals_plain']}; kept share {share:.6f} (1 - rate {1 - DROP_RATE}, "
+        f"4 sigma {four_sigma:.2e}); launches {ran}")
+    if not (res["mask_fwd_equals_bwd"] and res["mask_fwd_equals_plain"]) \
+            or abs(share - (1 - DROP_RATE)) > four_sigma \
+            or ran != dict(attention_tc32=n // d, attention_tc32_bwd=n // d):
+        raise AssertionError(f"K13a f32 mask checks failed: {res}, launches {ran}")
+    return res
+
+
+def lse_identity_checks(dev) -> dict:
+    """The forward's lse against the S that attention_tc32.cu's backward row
+    pass recomputes, with a pad key bias at (CHECK_BATCH, 12, 512, 64) and
+    with MaskGIT's dense per-head bias at (2, 8, 1280, 64): with q's first
+    column 0 and k's 1 (S does not see them), v = 0 and out = dO = e_0 (so
+    D_i = 1 and dP = 0), the row pass's dS is -P and dq[..., 0] = -sum_j
+    P_ij = -exp(lse_S - lse), lse_S the log-sum-exp of the row pass's own
+    S + bias.  The largest |log(-dq[..., 0])| over the rows is the largest
+    difference, read through the backward's arithmetic (P K's rounding, ~1e-7,
+    included); it must stay under TC32_REL_TOL, and the CUDA-core forward's
+    (attention_train.cu, true f32 S) is reported beside it."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    res = {}
+    for label, (b, h, n), bias_heads in (("key_bias", (CHECK_BATCH, 12, 512), 0),
+                                         ("dense", (2, 8, 1280), 8)):
+        g = torch.Generator(device=dev).manual_seed(26)
+        q, k = (torch.randn((b, h, n, 64), generator=g, device=dev) for _ in range(2))
+        q = q * 0.125
+        q[..., 0], k[..., 0] = 0.0, 1.0
+        zeros, e0 = torch.zeros_like(q), torch.zeros_like(q)
+        e0[..., 0] = 1.0
+        bias = kb = None
+        if bias_heads:
+            bias = torch.randn((bias_heads, n, n), generator=g, device=dev)
+        else:
+            lengths = torch.randint(64, n + 1, (b,), generator=g, device=dev)
+            kb = (torch.arange(n, device=dev)[None] >= lengths[:, None]).float() \
+                * torch.finfo(torch.float32).min
+        diffs = {}
+        for fwd in (K.attention_tc32_fwd, K.attention_train_fwd):
+            lse = torch.empty((b, h, n), device=dev)
+            fwd(q, k, zeros, torch.empty_like(q), lse, key_bias=kb, bias=bias)
+            dq = K.attention_tc32_bwd(q, k, zeros, e0, e0, lse, key_bias=kb, bias=bias)[0]
+            diffs[fwd.__name__] = torch.log(-dq[..., 0].double()).abs().max().item()
+        res[f"{label}_max_lse_diff"] = diffs["attention_tc32_fwd"]
+        res[f"{label}_cuda_core_forward_max_lse_diff"] = diffs["attention_train_fwd"]
+        log(f"kernel fused_attention_f32: lse identity ({label}, ({b}, {h}, {n}, 64)): the "
+            f"largest |lse of the backward row pass's S - the forward's lse| "
+            f"{diffs['attention_tc32_fwd']:.3e} (attention_tc32.cu; tol {TC32_REL_TOL}), "
+            f"{diffs['attention_train_fwd']:.3e} from the CUDA-core forward (reported)")
+        if not diffs["attention_tc32_fwd"] <= TC32_REL_TOL:
+            raise AssertionError(f"lse identity ({label}): {diffs}")
+    return res
+
+
 def k13a_bf16_checks(dev) -> dict:
     """K13a in bf16 on attention_tc.cu at a ragged n 500 (batch CHECK_BATCH,
     12 heads, pad key bias): within REL_TOL of the plain version with the
@@ -974,12 +1096,27 @@ def train_attention_phase(dev) -> dict:
         errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
         rels = [e / r.abs().max().item() for e, r in zip(errs, ref)]
         tol = case.get("tol", F32_REL_TOL)
-        results[name] = dict(max_abs_err=max(errs), max_rel_err=max(rels),
-                             tolerance=f"rel {tol} per output", check_batch=CHECK_BATCH)
+        res = results[name] = dict(max_abs_err=max(errs), max_rel_err=max(rels),
+                                   tolerance=f"rel {tol} per output", check_batch=CHECK_BATCH)
         if max(rels) > tol:
             raise AssertionError(f"{name}: rel errors {rels} outside {tol}")
+        if case.get("bit_identical"):  # no atomics: a second run equals the first
+            res["bit_identical"] = all(torch.equal(a, g)
+                                       for a, g in zip(_as_tuple(case["kern"]()), got))
+            if not res["bit_identical"]:
+                raise AssertionError(f"{name}: a second run differs from the first")
+        if case.get("copy"):  # the plain-TF32 copy must miss the tolerance
+            res["plain_tf32_max_rel_err"] = _rel_errors(_as_tuple(case["copy"]()), ref)[1]
+            log(f"kernel {name} (3xTF32) at ({CHECK_BATCH}, 12, 512, 64): max_rel_err "
+                f"{max(rels):.4e} (rel {tol}); bit-identical across two runs: "
+                f"{res['bit_identical']}; the plain-TF32 copy max_rel_err "
+                f"{res['plain_tf32_max_rel_err']:.4e} (must exceed {tol})")
+            if res["plain_tf32_max_rel_err"] <= tol:
+                raise AssertionError(f"{name}: the plain-TF32 copy is within {tol}: {res}")
         del got, ref
     results["attention_dropout"].update(dropout_checks(dev))
+    results["attention_dropout"].update(k13a_f32_mask_bits(dev))
+    results["fused_attention_f32"].update(lse_identity_checks(dev))
     results["attention_bwd"].update(tc32_checks(dev))
     results["attention_dropout_bwd"].update(tc32_checks(dev, DROP_RATE))
     torch.cuda.empty_cache()
@@ -1018,38 +1155,39 @@ def replaced(module, attr: str, value):
         setattr(module, attr, original)
 
 
-def plain_tf32_bwd():
-    """The 3xTF32 backwards' wrapper launching a copy of attention_tc32.cu
-    built with CT_TC32_PASSES=1: hi hi alone, plain TF32."""
+def plain_tf32(wrapper: str = "attention_tc32_bwd"):
+    """attention_tc32.cu's `wrapper` (kernels.attention_tc32_bwd, the
+    backwards, or kernels.attention_tc32_fwd, the forwards) launching a copy
+    of the source built with CT_TC32_PASSES=1: hi hi alone, plain TF32."""
     import functools
 
     from ct_clip_tpu_torch.ops import kernels as K
 
-    return functools.partial(K.attention_tc32_bwd,
+    return functools.partial(getattr(K, wrapper),
                              lib=K.copy_library("attention_tc32.cu", CT_TC32_PASSES=1))
 
 
-def tf32_copy(kern):
-    """`kern` with attention_tc32.cu's backwards launched from its plain-TF32
-    copy (`plain_tf32_bwd`)."""
+def tf32_copy(kern, wrapper: str = "attention_tc32_bwd"):
+    """`kern` with attention_tc32.cu's `wrapper` launched from its
+    plain-TF32 copy (`plain_tf32`)."""
     from ct_clip_tpu_torch.ops import kernels as K
 
-    hi_only = plain_tf32_bwd()
+    hi_only = plain_tf32(wrapper)
 
     def run():
-        with replaced(K, "attention_tc32_bwd", hi_only):
+        with replaced(K, wrapper, hi_only):
             return kern()
     return run
 
 
 def tc32_checks(dev, rate: float = 0.0) -> dict:
-    """K12a f32 (rate 0) or K13b f32 (rate > 0, after the CUDA-core K13a
-    forward) on attention_tc32.cu (3xTF32) at (CHECK_BATCH, 12, n, 64)
+    """K12a f32 (rate 0) or K13b f32 (rate > 0) after the 3xTF32 forward,
+    on attention_tc32.cu (3xTF32) at (CHECK_BATCH, 12, n, 64)
     against the plain version in f32 (TF32 off; K13b with the same seed's
     mask): within TC32_REL_TOL of max|plain| per output at n 512 and a
     ragged n 500; dq, dk, dv and dkey_bias bit-identical across two runs;
     and the same call through a plain-TF32 copy of the kernel
-    (`plain_tf32_bwd`), whose error must exceed TC32_REL_TOL: the
+    (`plain_tf32`), whose error must exceed TC32_REL_TOL: the
     tolerance tells 3xTF32 from TF32."""
     import torch
 
@@ -1621,10 +1759,13 @@ TC_FWD_GROUP = ("K7 / K13a bf16 forward on the tensor cores (attention_tc.cu)",
                 ("attn_tc_forward",))
 TC32_GROUP = ("K12a / K12b / K13b f32 backward, 3xTF32 on the tensor cores (attention_tc32.cu)",
               ("tc32_rows", "tc32_cols", "tc32_dkb", "tc32_dbias"))
+TC32_FWD_GROUP = ("K7 / K13a f32 forward, 3xTF32 on the tensor cores (attention_tc32.cu)",
+                  ("tc32_fwd",))
 STEP_GROUPS = (
     TC_BWD_GROUP,
     TC_FWD_GROUP,
     TC32_GROUP,
+    TC32_FWD_GROUP,
     ("K13/K12 backward (attention_train.cu)", ("bwd_dq_kernel<", "bwd_dkv_kernel<",
                                                "rowdot_kernel<", "dkb_sum_kernel")),
     ("K13/K7 forward (attention_train.cu)", ("::fwd_kernel<",)),
@@ -1757,14 +1898,14 @@ def radbert_phase(dev, work: Path, card: str) -> dict:
     log(f"radbert step: batch 32 x 512 tokens, full width, f32: median {step:.2f} ms of "
         f"steps 2-5 {[round(t, 2) for t in step_ms]} = {32 / step * 1e3:.1f} reports/s; "
         f"peak memory {peak_gb:.2f} GB; loss {loss.item():.4f} on {card}")
-    # one step's launches: each of the 12 layers' K13a f32 on the CUDA cores
-    # and K13b f32 on attention_tc32.cu (3xTF32)
+    # one step's launches: each of the 12 layers' K13a f32 and K13b f32 on
+    # attention_tc32.cu (3xTF32)
     _, one, _ = drive("radbert_step", lambda: trainer.train_step(batch, 2e-5, 7))
     counts["radbert_step"] = one
     per_step = {k: one[k] for k in ("attention_dropout", "attention_dropout_bwd",
-                                    "attention_tc32_bwd", "attention_bwd")}
+                                    "attention_tc32", "attention_tc32_bwd", "attention_bwd")}
     want = dict(attention_dropout=BERT_LAYERS, attention_dropout_bwd=BERT_LAYERS,
-                attention_tc32_bwd=BERT_LAYERS, attention_bwd=0)
+                attention_tc32=BERT_LAYERS, attention_tc32_bwd=BERT_LAYERS, attention_bwd=0)
     log(f"radbert step: launches in one step {per_step}")
     if per_step != want:
         raise AssertionError(f"radbert step: launches {per_step}, want {want}")
@@ -1773,7 +1914,7 @@ def radbert_phase(dev, work: Path, card: str) -> dict:
     torch.cuda.empty_cache()
 
     # the same step with attention dropout off runs K7 and K12a, not K13:
-    # one K12a f32 per layer, on attention_tc32.cu (3xTF32)
+    # one K7 f32 and one K12a f32 per layer, on attention_tc32.cu (3xTF32)
     cfg = RadBertConfig(vocab_size=tok.vocab_size, num_hidden_layers=2,
                         attention_dropout=0.0)
     model = RadBertClassifier(cfg, device=dev).init_weights(
@@ -1783,9 +1924,10 @@ def radbert_phase(dev, work: Path, card: str) -> dict:
         "radbert_dropout_off", lambda: trainer.train_step(batch, 2e-5, 0))
     off = counts["radbert_dropout_off"]
     if not np.isfinite(loss.item()) or off["attention_dropout"] \
-            or (off["attention_bwd"], off["attention_tc32_bwd"]) != (2, 2):
+            or (off["fused_attention"], off["attention_tc32"], off["attention_bwd"],
+                off["attention_tc32_bwd"]) != (2, 2, 2, 2):
         raise AssertionError(f"radbert dropout-off step: loss {loss.item()}, launches {off}, "
-                             "want 2 K12a on attention_tc32.cu and no K13")
+                             "want 2 K7 and 2 K12a on attention_tc32.cu and no K13")
     # RadBERT is f32: nothing of it moves to the bf16 tensor-core kernels
     on_tc = {path: (c["attention_tc"], c["attention_tc_bwd"]) for path, c in counts.items()
              if c["attention_tc"] or c["attention_tc_bwd"]}
@@ -1852,12 +1994,14 @@ def small_reference_phase(dev, work: Path):
     return errs
 
 
-def tc32_planted_faults(kernel: str = "K12a f32"):
-    """name -> the 3xTF32 backwards' wrapper (kernels.attention_tc32_bwd)
-    broken on purpose, which a tiny card-vs-CPU step must catch: D_i forced
-    to 0 (the kernel's gradients plus the P D terms its omission adds, with
-    or without dropout: dS = P (dP M - D)), and the plain-TF32 copy of the
-    kernel; `kernel` names the form in the names."""
+def tc32_planted_faults(kernel: str = "K12a f32", forward: str = "K7 f32"):
+    """name -> (wrapper, broken): attention_tc32.cu's wrappers broken on
+    purpose, which a tiny card-vs-CPU step must catch: the backward
+    (kernels.attention_tc32_bwd) with D_i forced to 0 (the kernel's
+    gradients plus the P D terms its omission adds, with or without
+    dropout: dS = P (dP M - D)) and in its plain-TF32 copy, and the forward
+    (kernels.attention_tc32_fwd) in its plain-TF32 copy; `kernel` and
+    `forward` name the forms in the names."""
     from ct_clip_tpu_torch.ops import kernels as K
 
     tc32 = K.attention_tc32_bwd
@@ -1874,8 +2018,10 @@ def tc32_planted_faults(kernel: str = "K12a f32"):
             db = db + (extra.sum(0).sum(0, keepdim=True) if db.shape[0] == 1 else extra.sum(0))
         return (dq + extra @ k, dk + extra.transpose(-1, -2) @ q, dv, db,
                 None if dkb is None else dkb + extra.sum(dim=(1, 2)))
-    return {f"{kernel} with D_i forced to 0": no_rowsum,
-            f"{kernel} in plain TF32 (hi hi alone)": plain_tf32_bwd()}
+    return {f"{kernel} with D_i forced to 0": ("attention_tc32_bwd", no_rowsum),
+            f"{kernel} in plain TF32 (hi hi alone)": ("attention_tc32_bwd", plain_tf32()),
+            f"{forward} forward in plain TF32 (hi hi alone)":
+                ("attention_tc32_fwd", plain_tf32("attention_tc32_fwd"))}
 
 
 @contextlib.contextmanager
@@ -1985,8 +2131,9 @@ def radbert_reference_phase(dev, work: Path, attention_dropout: float = 0.0) -> 
     if failures:
         raise AssertionError(f"{label}: card vs CPU disagree on {failures}: {res}")
     res["faults"] = {}
-    for name, broken in tc32_planted_faults(kernel).items():
-        with replaced(K, "attention_tc32_bwd", broken):
+    for name, (wrapper, broken) in tc32_planted_faults(
+            kernel, "K13a f32" if attention_dropout else "K7 f32").items():
+        with replaced(K, wrapper, broken):
             fres, ffail = compare(c, side(dev))
         log(f"reference: {label}, planted fault '{name}': grads rel "
             f"{fres['grad_rel']:.2e}, updated weights abs {fres['weight_abs']:.2e}, logits rel "
@@ -2003,6 +2150,7 @@ CTCLIP_GROUPS = (
     TC_BWD_GROUP,
     TC_FWD_GROUP,
     TC32_GROUP,
+    TC32_FWD_GROUP,
     ("K11 GEGLU FF backward tile (ff_bwd_kernel)", ("ff_bwd_kernel",)),
     ("backward products NN/TN + split sums (gemm_layout_kernel, sum_splits)",
      ("gemm_layout_kernel", "gemm_layout_f32_kernel", "sum_splits_kernel")),
@@ -2080,8 +2228,8 @@ def timed_steps(step, state, batch, card: str, label: str, batch_size: int,
 
 # launches per step of `cli train`: bf16, the text tower's 12 layers' K13a
 # and K13b on the tensor cores; f32, each of the 4 + 4 layers' backward, one
-# K5 exact and one K15, K13a f32 on the CUDA cores (attention_train.cu) and
-# K13b f32 on the tensor cores in 3xTF32 (attention_tc32.cu)
+# K5 exact and one K15, K13a f32 and K13b f32 on the tensor cores in 3xTF32
+# (attention_tc32.cu)
 CLIP_PER_STEP = {
     "bf16": dict(attention_dropout=BERT_LAYERS, attention_dropout_bwd=BERT_LAYERS,
                  attention_tc_bwd=BERT_LAYERS),
@@ -2139,8 +2287,14 @@ def ctclip_train_phase(dev, work: Path, card: str, corpus, dtype: str = "bf16") 
         # takes no gradient)
         extra = {k: counts[k] / 4 for k in ("peg_dw_plain", "rearrange_patches_f32",
                                              "unrearrange_patches_f32")}
+        # every attention forward of the run (K13a, the mini evaluation's
+        # K7) on attention_tc32.cu, the step's 12 K13a among them
+        extra["forwards_off_tc32"] = counts["attention_dropout"] + counts["fused_attention"] \
+            - counts["attention_tc32"]
+        extra["attention_tc32_k13a"] = (counts["attention_tc32"] - counts["fused_attention"]) / 4
         extra_ok = extra["peg_dw_plain"] and not extra["unrearrange_patches_f32"] \
-            and extra["rearrange_patches_f32"] >= TRAIN_B
+            and extra["rearrange_patches_f32"] >= TRAIN_B and not extra["forwards_off_tc32"] \
+            and extra["attention_tc32_k13a"] == BERT_LAYERS
     else:
         # every attention forward of the run (K13a, the mini evaluation's
         # K7) on attention_tc.cu, none on attention_train.cu
@@ -3040,18 +3194,17 @@ MG_GROUPS = (
 def dense_attention_cases(dev):
     """K7 dense and K12b against their plain versions at MaskGIT's (8, 8,
     1280, 64) with the (1, 8, n, n) CPB bias in bf16 (attention_tc.cu) and
-    f32 (the forward on attention_train.cu, the backward in 3xTF32 on
-    attention_tc32.cu), the TokenCritic's no-bias form at that shape in bf16
-    and f32, T5's (8, 12, 256, 64) with its per-head bias in f32 and a
-    ragged n = 1,000 with a one-head bias in bf16 and f32: each case's
-    kernel call (fused_attention, its backward autograd.grad of a kept
-    forward), plain version, library call (F.scaled_dot_product_attention
-    with the bias as attn_mask, scale 1; the backward its autograd with the
-    bias requiring grad), the tensors it reads and writes and its products,
-    at the bf16 tensor-core, the f32 CUDA-core or (the f32 backwards, three
-    TF32 products per f32 one) the TF32 peak; the bf16 cases and the f32
-    backwards also the replaced CUDA-core kernels on the same inputs
-    (`twin`); the f32 backwards within TC32_REL_TOL per output,
+    f32 (both in 3xTF32 on attention_tc32.cu), the TokenCritic's no-bias
+    form at that shape in bf16 and f32, T5's (8, 12, 256, 64) with its
+    per-head bias in f32 and a ragged n = 1,000 with a one-head bias in bf16
+    and f32: each case's kernel call (fused_attention, its backward
+    autograd.grad of a kept forward), plain version, library call
+    (F.scaled_dot_product_attention with the bias as attn_mask, scale 1; the
+    backward its autograd with the bias requiring grad), the tensors it
+    reads and writes and its products, at the bf16 tensor-core or (f32,
+    three TF32 products per f32 one) the TF32 peak, the f32 CUDA-core bound
+    beside it; every case also the replaced CUDA-core kernel on the same
+    inputs (`twin`); the f32 cases within TC32_REL_TOL per output,
     bit-identical across runs, and their plain-TF32 copy (`copy`)."""
     import torch
     import torch.nn.functional as F
@@ -3083,14 +3236,22 @@ def dense_attention_cases(dev):
         product = 2 * b * h * n * n * d
         f32 = dtype == torch.float32
         twin_fwd, twin_bwd = cuda_core_twin(q, k, v, do, bias=bias)
-        yield f"attention_dense@{label}", dict(
-            kern=lambda: fused_attention(q, k, v, bias),
-            plain=lambda: attention_plain(q, k, v, bias),
+
+        def kern_fwd():
+            return fused_attention(q, k, v, bias)
+        fwd = dict(
+            kern=kern_fwd, plain=lambda: attention_plain(q, k, v, bias),
             library=lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=bias.to(dtype) if bh else None, scale=1.0),
-            twin=None if f32 else twin_fwd, inputs=(q, k, v, *with_bias), outputs=(q,),
-            flops=2 * product, peak=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS,
-            tol=F32_REL_TOL if f32 else REL_TOL)
+            twin=twin_fwd, inputs=(q, k, v, *with_bias), outputs=(q,))
+        if f32:
+            fwd.update(flops=3 * 2 * product, peak=PEAK_TF32_FLOPS, f32_flops=2 * product,
+                       tols=(TC32_REL_TOL,), bit_identical=True,
+                       copy=tf32_copy(kern_fwd, "attention_tc32_fwd"),
+                       copy_is="attention_tc32.cu in plain TF32")
+        else:
+            fwd.update(flops=2 * product, peak=PEAK_BF16_FLOPS, tol=REL_TOL)
+        yield f"attention_dense@{label}", fwd
         kern = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
         bwd = dict(
             kern=kern, plain=lambda: attention_bwd_plain(q, k, v, do, bias)[:4 if bh else 3],
@@ -3106,18 +3267,18 @@ def dense_attention_cases(dev):
         yield f"attention_dense_bwd@{label}", bwd
 
 
-DENSE_SOURCES = {"attention_dense": ("attention_tc.cu", "attention_train.cu"),
+DENSE_SOURCES = {"attention_dense": ("attention_tc.cu", "attention_tc32.cu"),
                  "attention_dense_bwd": ("attention_tc.cu", "attention_tc32.cu")}
 
 
 def dense_attention_phase(dev) -> dict:
     """`train_kernel_phase` over `dense_attention_cases`, and K12b's dbias
     bit-identical across two runs of each case, its rows summing to zero
-    within 16x the plain version's rounding, each f32 backward one launch
-    on attention_tc32.cu.  Returns the MaskGIT bf16 rows as the table's,
-    the other bf16 and the f32 forward shapes under `at_<label>`, the
-    critic's no-bias rows, and the f32 backwards' rows (K12b f32 dense at
-    MaskGIT's shape with T5's and the ragged one-head shape, and with no
+    within 16x the plain version's rounding, each f32 forward and backward
+    one launch on attention_tc32.cu.  Returns the MaskGIT bf16 rows as the
+    table's, the ragged bf16 shape under `at_<label>`, the critic's no-bias
+    rows, and the f32 rows (K7 dense and K12b f32 at MaskGIT's shape with
+    T5's and the ragged one-head shape under `at_<label>`, and with no
     bias)."""
     import torch
 
@@ -3130,11 +3291,13 @@ def dense_attention_phase(dev) -> dict:
         results[name] = train_kernel_phase(dev, [(name, case)], MG_B)[name]
         f32 = name.endswith("_f32")
         results[name]["source"] = CSRC + DENSE_SOURCES[name.split("@")[0]][f32]
-        if f32 and name.startswith("attention_dense_bwd"):
-            before = K.launch_counts()["attention_tc32_bwd"]
+        if f32:
+            counter = "attention_tc32_bwd" if name.startswith("attention_dense_bwd") \
+                else "attention_tc32"
+            before = K.launch_counts()[counter]
             case["kern"]()
-            if K.launch_counts()["attention_tc32_bwd"] != before + 1:
-                raise AssertionError(f"{name}: the f32 backward did not run on attention_tc32.cu")
+            if K.launch_counts()[counter] != before + 1:
+                raise AssertionError(f"{name}: the f32 kernel did not run on attention_tc32.cu")
         if name.startswith("attention_dense_bwd") and len(case["outputs"]) == 4:
             first = case["kern"]()[3].clone()
             same = torch.equal(case["kern"]()[3], first)
@@ -3155,18 +3318,17 @@ def dense_attention_phase(dev) -> dict:
         del case
         torch.cuda.empty_cache()
     table = {}
-    for key, others in (("attention_dense", ("maskgit_f32", "t5_f32", "ragged_one_head_bf16",
-                                             "ragged_one_head_f32")),
-                        ("attention_dense_bwd", ("ragged_one_head_bf16",))):
+    for key in ("attention_dense", "attention_dense_bwd"):
         table[key] = dict(results[f"{key}@maskgit_bf16"], shape=[MG_B, 8, 1280, 64],
-                          **{f"at_{label}": results[f"{key}@{label}"] for label in others})
-    table["attention_dense_bwd_f32"] = dict(
-        results["attention_dense_bwd@maskgit_f32"], shape=[MG_B, 8, 1280, 64],
-        **{f"at_{label}": results[f"attention_dense_bwd@{label}"]
-           for label in ("t5_f32", "ragged_one_head_f32")})
+                          at_ragged_one_head_bf16=results[f"{key}@ragged_one_head_bf16"])
+        table[f"{key}_f32"] = dict(
+            results[f"{key}@maskgit_f32"], shape=[MG_B, 8, 1280, 64],
+            **{f"at_{label}": results[f"{key}@{label}"]
+               for label in ("t5_f32", "ragged_one_head_f32")})
     table["attention_nobias"] = dict(results["attention_dense@critic_bf16"],
-                                     shape=[MG_B, 8, 1280, 64],
-                                     at_critic_f32=results["attention_dense@critic_f32"])
+                                     shape=[MG_B, 8, 1280, 64])
+    table["attention_nobias_f32"] = dict(results["attention_dense@critic_f32"],
+                                         shape=[MG_B, 8, 1280, 64])
     table["attention_nobias_bwd"] = dict(results["attention_dense_bwd@critic_bf16"],
                                          shape=[MG_B, 8, 1280, 64])
     table["attention_nobias_bwd_f32"] = dict(results["attention_dense_bwd@critic_f32"],
@@ -3392,7 +3554,8 @@ def maskgit_phase(dev, work: Path, card: str) -> dict:
     log(f"t5-base (f32, seeded) on 8 x 256 ids: no mask {t5_ms:.2f} ms (K7 dense launches "
         f"{counts['t5_no_mask']['attention_dense']}), pad mask {t5_mask_ms:.2f} ms (K7 dense "
         f"launches {masked_counts['attention_dense']}, plain attention) on {card}")
-    if counts["t5_no_mask"]["attention_dense"] != 12 or masked_counts["attention_dense"] \
+    if counts["t5_no_mask"]["attention_dense"] != 12 \
+            or counts["t5_no_mask"]["attention_tc32"] != 12 or masked_counts["attention_dense"] \
             or not (torch.isfinite(hidden).all() and torch.isfinite(masked).all()):
         raise AssertionError("t5: launches or outputs wrong")
     del t5, t5_context, hidden, masked
@@ -3685,6 +3848,8 @@ def zero_shot_f32_phase(dev, work: Path, card: str, bf16_counts: dict) -> dict:
         want = {k: cb[k] for k in F32_ZS_SAME}
         want.update({f"{k}_f32": cb[k] for k in F32_ZS_SAME if k != "fused_attention"})
         want[embed[0]] = cb[embed[1]]
+        # the prompts' K7 f32 on attention_tc32.cu, as the bf16 run's on attention_tc.cu
+        want["attention_tc32"] = cb["attention_tc"]
         got = {k: c[k] for k in want}
         log(f"e2e {name}: run_zero_shot in f32 scored 3 volumes in {secs:.2f} s host clock; "
             f"launches {got}, the bf16 run's {want}")
@@ -3821,8 +3986,8 @@ def maskgit_f32_phase(dev, work: Path, card: str) -> dict:
     c = counts["maskgit_f32_train"]
     per_step = {k: c[k] for k in ("geglu_ff_f32", "geglu_ff_bwd_f32", "attention_dense",
                                   "attention_dense_bwd", "fused_attention", "attention_bwd",
-                                  "attention_tc", "attention_tc_bwd", "attention_tc32_bwd",
-                                  "peg_dw_plain", "peg_bwd")}
+                                  "attention_tc", "attention_tc_bwd", "attention_tc32",
+                                  "attention_tc32_bwd", "peg_dw_plain", "peg_bwd")}
     log(f"maskgit f32 step: batch {MG_B} x {int(np.prod(grid)):,} tokens, full width, f32, "
         f"CXR-BERT f32 context {tuple(context.shape)}, critic on: median {med:.2f} ms of steps "
         f"2-4 {[round(t, 2) for t in step_ms]} = {MG_B / med * 1e3:.2f} volumes/s; peak "
@@ -3831,12 +3996,13 @@ def maskgit_f32_phase(dev, work: Path, card: str) -> dict:
     if not all(np.isfinite([x["loss"], x["critic_loss"]]).all() for x in logs):
         raise AssertionError(f"maskgit f32: losses not finite: {logs}")
     # 6 + 6 layers: the MaskGit's K7 dense and the critic's no-bias K7 in
-    # f32 on the CUDA cores (attention_train.cu, none on attention_tc.cu),
-    # both backwards K12b (the critic's with no bias) on attention_tc32.cu
-    # in 3xTF32, K12a none; every FF forward on K3's f32 form, its backward
-    # on K11's; every PEG dW on the plain route (K14 none)
+    # f32 and both backwards K12b (the critic's with no bias) on
+    # attention_tc32.cu in 3xTF32 (none on attention_tc.cu), K12a none;
+    # every FF forward on K3's f32 form, its backward on K11's; every PEG dW
+    # on the plain route (K14 none)
     want = dict(attention_dense=6, fused_attention=6, attention_dense_bwd=12, attention_bwd=0,
-                attention_tc32_bwd=12, attention_tc=0, attention_tc_bwd=0, peg_bwd=0,
+                attention_tc32=12, attention_tc32_bwd=12, attention_tc=0, attention_tc_bwd=0,
+                peg_bwd=0,
                 geglu_ff_f32=c["geglu_ff"], geglu_ff_bwd_f32=c["geglu_ff_bwd"])
     if any(per_step[k] != n for k, n in want.items()) or not (
             per_step["geglu_ff_f32"] and per_step["geglu_ff_bwd_f32"] and per_step["peg_dw_plain"]):
@@ -3908,7 +4074,8 @@ def compare_f32_steps(c: dict, g: dict, start: dict, lr: float):
 
 def f32_planted_faults():
     """K11 f32 with act rounded to bf16 (the f32 form must keep it f32), and
-    K12b f32's `tc32_planted_faults` (D_i forced to 0; plain TF32)."""
+    K12b f32's and K7 dense f32's `tc32_planted_faults` (D_i forced to 0;
+    the backward in plain TF32; the forward in plain TF32)."""
     import torch
 
     from ct_clip_tpu_torch.ops import kernels as K
@@ -3919,8 +4086,8 @@ def f32_planted_faults():
         act, dcat = core(*args)
         return act.to(torch.bfloat16).to(act.dtype), dcat
     faults = {"K11 f32 with act rounded to bf16": (K, "ff_bwd_core", act_bf16)}
-    for name, broken in tc32_planted_faults("K12b f32").items():
-        faults[name] = (K, "attention_tc32_bwd", broken)
+    for name, (wrapper, broken) in tc32_planted_faults("K12b f32", "K7 dense f32").items():
+        faults[name] = (K, wrapper, broken)
     return faults
 
 
@@ -3964,9 +4131,12 @@ def tiny_maskgit_f32_phase(dev, work: Path) -> dict:
         f"{F32_WEIGHT_TOL}; {res['sign_undecided_entries']} entries whose gradient is within "
         f"{F32_NEAR_ZERO}x its card-CPU difference of 0 held to the step bound), every step within "
         f"{res['step_max_over_lr']:.3f} lr (tol 2); K11 f32 launches {counts['geglu_ff_bwd_f32']}, "
-        f"K12b f32 on attention_tc32.cu {counts['attention_tc32_bwd']}")
+        f"K12b f32 on attention_tc32.cu {counts['attention_tc32_bwd']}, K7 (dense) f32 "
+        f"{counts['attention_tc32']}")
     if failures or not counts["geglu_ff_bwd_f32"] or not counts["attention_tc32_bwd"] \
-            or counts["attention_tc32_bwd"] != counts["attention_dense_bwd"]:
+            or counts["attention_tc32_bwd"] != counts["attention_dense_bwd"] \
+            or counts["attention_tc32"] != counts["attention_dense"] + counts["fused_attention"] \
+            or not counts["attention_tc32"]:
         raise AssertionError(f"tiny MaskGit f32 card vs CPU disagree on {failures}: {res}")
     res["faults"] = {}
     for name, (module, attr, broken) in f32_planted_faults().items():

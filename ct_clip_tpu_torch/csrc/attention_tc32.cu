@@ -1,7 +1,19 @@
-// attention_tc32.cu — the f32 attention backwards at head dim 64 on the
-// Hopper tensor cores, each product as three TF32 products (3xTF32).
+// attention_tc32.cu — f32 attention at head dim 64 on the Hopper tensor
+// cores, forward and backward, each product as three TF32 products (3xTF32).
 //
 // Replaces these TPU kernels of ct_clip_tpu/ops/pallas/attention.py in f32:
+//   * _pallas_attention (K7, :129; pallas_call :143 key bias, body
+//     _kernel_kbias :103; :149 no bias, _kernel :91; :157 dense bias,
+//     _kernel_bias :116): out = softmax(q k^T + bias) v and the row
+//     log-sum-exp (b, h, n) the backward reads.  RadBERT's inference and
+//     validation run the key-bias form at (32, 12, 512, 64), MaskGIT the
+//     dense (1, 8, n, n) CPB form at (8, 8, 1280, 64), its TokenCritic the
+//     no-bias form, T5 the dense form at (8, 12, 256, 64) -> tc32_fwd<KEY |
+//     DENSE | NONE, false>;
+//   * _pallas_attention_kbias_drop_impl (K13a, :474; pallas_call :490, body
+//     _kernel_kbias_drop :411): the key-bias forward with K13's dropout mask
+//     on the probabilities.  RadBERT's default step and f32 CT-CLIP training
+//     run it at (32, 12, 512, 64), rate 0.1 -> tc32_fwd<KEY, true>;
 //   * _pallas_attention_bwd_kbias (K12a, :271; pallas_call :286, body
 //     _bwd_kernel_kbias :228-268): dq, dk, dv and dkey_bias (b, n), the last
 //     summed over the heads in order and over the query rows, of
@@ -30,29 +42,50 @@
 // CT_TC32_PASSES=1 the file runs hi hi alone, plain TF32: the copy the card
 // checks hold it against to show that the tolerance tells the two apart.
 //
-// What bounds it on the H100.  K12a at (32, 12, 512, 64) moves 352 MB of q,
-// k, v, dO, dq, dk, dv (0.105 ms at 3.35 TB/s) and runs five products of
-// 12.88 GFLOP, 193 GFLOP as TF32 (0.390 ms at 495 TFLOP/s), so the tensor
-// cores bound it; on the f32 CUDA cores the same five products take 0.962 ms
-// at 67 TFLOP/s.  K13b adds the draws: 25.2 M Philox calls of ~80 integer
-// operations in the row pass and as many in the column pass.  K12b at (8, 8,
-// 1280, 64) runs five products of 13.42 GFLOP (0.407 ms as TF32) and, for
-// dbias, writes and reads a (b, h, n, n) f32 dS scratch (419 MB each way,
-// ~0.25 ms).  The layout below runs seven products (S and dP twice), plus
-// the split: 3 ALU operations per operand element read, and every warp
-// splits the whole K/V (Q/dO) tile it reads.  Measured
-// (tools/port_attention_tc_probe.py, kernel-only, NVIDIA H100 80GB HBM3 at
-// 700 W): see PERF.md; mma.sync at m16n8k8 reaches well under the TF32
-// peak, and the split's ALU work competes with it for issue slots.
+// What bounds it on the H100.  The forward at (32, 12, 512, 64) runs two
+// products of 12.88 GFLOP, 77.3 GFLOP as TF32 (0.156 ms at 495 TFLOP/s),
+// against 201 MB of q, k, v and out (0.060 ms at 3.35 TB/s): the tensor
+// cores bound it (on the f32 CUDA cores the same products take 0.385 ms at
+// 67 TFLOP/s); at T5's (8, 12, 256, 64) the products take 0.010 ms and
+// memory and the launch set the time.  K12a at (32, 12, 512, 64) moves 352
+// MB of q, k, v, dO, dq, dk, dv (0.105 ms) and runs five products of
+// 12.88 GFLOP, 193 GFLOP as TF32 (0.390 ms), so the tensor cores bound it;
+// on the f32 CUDA cores the same five products take 0.962 ms.  K13b adds the
+// draws: 25.2 M Philox calls of ~80 integer operations in the row pass and
+// as many in the column pass.  K12b at (8, 8, 1280, 64) runs five products
+// of 13.42 GFLOP (0.407 ms as TF32) and, for dbias, writes and reads a (b,
+// h, n, n) f32 dS scratch (419 MB each way, ~0.25 ms).  The backward's
+// layout runs seven products (S and dP twice), plus the split: 3 ALU
+// operations per operand element read, and every warp splits the whole K/V
+// (Q/dO) tile it reads.  Measured (tools/port_attention_tc_probe.py,
+// kernel-only, NVIDIA H100 80GB HBM3 at 700 W): see PERF.md; mma.sync at
+// m16n8k8 reaches well under the TF32 peak, and the split's ALU work
+// competes with it for issue slots.
 //
 // Design, FA2's deterministic shape as in attention_tc.cu:
-//   * D_i = sum_c dO_ic O_ic from the forward's f32 output (K7 f32 and K13a
-//     f32 stay true f32 on the CUDA cores; with dropout O = (P M) V, so this
-//     is sum_j P_ij M_ij dP_ij, the TPU kernel's row sum), summed by the row
-//     pass before its sweep: one sweep over the key tiles, not two.  The
-//     dense form's dbias rows sum to 3-4x the plain f32 version's rounding
-//     this way (a CPU emulation of the arithmetic; the card check allows
-//     16x), so it needs no sweep of its own for D either.
+//   * Forward (one CTA per 64-query tile and (b, h)): Q is split into its
+//     hi/lo fragments once and held in registers; K, V and the key bias
+//     stream through two cp.async stages.  S = Q K^T runs in the same
+//     fragment order over the head dim as the backward's row pass, so its S
+//     (and the forward's lse) is bit-identical to the S that pass
+//     recomputes: the backward's P rows sum to 1 up to expf.  An online
+//     softmax in f32 (libm expf) per accumulator row, reduced over the four
+//     lanes that share it; the running max is -inf only before the first
+//     key tile, so an f32-min pad bias gives exp(-3.4e38 - m) = 0 and a row
+//     whose keys are all padded attends uniformly, as the plain softmax
+//     does.  With dropout P is multiplied by K13's mask (row_keep_bits, the
+//     bits K13b regenerates) and the sum runs over every key.  O += P V
+//     takes P from the accumulators with no shuffle (below), each key tile's
+//     share in its own accumulator, the running O scaled by the max's
+//     correction before the flush; out = O / l in f32 with q's strides, lse
+//     = m + log l.
+//   * D_i = sum_c dO_ic O_ic from the forward's f32 output (with dropout O =
+//     (P M) V, so this is sum_j P_ij M_ij dP_ij, the TPU kernel's row sum),
+//     summed by the row pass before its sweep: one sweep over the key
+//     tiles, not two.  O comes out of the 3xTF32 forward above, not out of
+//     true f32 products: the dense form's dbias rows, whose zero sum D_i
+//     shifts, are what the card check holds to 16x the plain f32 version's
+//     rounding.
 //   * Row pass (one CTA per 64-query tile and (b, h)): S = Q K^T, dP =
 //     dO V^T, P = exp(S + bias - lse), dS = P (dP M - D), dq += dS K, and
 //     for dbias each (b, h)'s dS into the scratch.  Column pass (one CTA per
@@ -80,17 +113,18 @@
 //     accumulator layout (each thread its 32 values of the tile, loaded
 //     before the tile's products so they arrive under them): a staged 64 x
 //     68 f32 tile would take the shared memory of the second CTA on the SM.
-//     A warp's reads cover 32-byte sectors whole, along keys in the row pass
-//     and, transposed, in the column pass.  The dense form walks the heads
-//     outer (grid row h B + b), so the batch rows that read one bias tile
-//     run together and find it in L2 (MaskGIT's per-head bias is 52 MB,
-//     above the 50 MB L2).
-//   * Dropout (K13's Philox bits, common.cuh): the row pass holds the
-//     wgmma-like row layout, so it draws with row_keep_bits, one call per
-//     four elements; in the column pass a thread's keys are rows and four
-//     lanes need words of one call, so the CTA first draws the tile's 64 x
-//     64 keep bits into shared memory (a 32-key half of one query row per
-//     thread: 8 calls) and every thread reads one word per query it holds.
+//     A warp's reads cover 32-byte sectors whole, along keys in the forward
+//     and the row pass and, transposed, in the column pass.  The dense form
+//     walks the heads outer (grid row h B + b), so the batch rows that read
+//     one bias tile run together and find it in L2 (MaskGIT's per-head bias
+//     is 52 MB, above the 50 MB L2).
+//   * Dropout (K13's Philox bits, common.cuh): the forward and the row pass
+//     hold the wgmma-like row layout, so they draw with row_keep_bits, one
+//     call per four elements; in the column pass a thread's keys are rows
+//     and four lanes need words of one call, so the CTA first draws the
+//     tile's 64 x 64 keep bits into shared memory (a 32-key half of one
+//     query row per thread: 8 calls) and every thread reads one word per
+//     query it holds.
 #include "common.cuh"
 
 #ifndef CT_TC32_PASSES
@@ -133,6 +167,10 @@ struct Args {
   const long long* seed;    // (1,) Philox key in device memory (DROP)
   uint32_t thresh;          // keep iff bits >= thresh
   float keep_scale;         // 1 / (1 - rate)
+  // the forward's outputs, after the backward's fields so that its kernels
+  // read theirs where they always did
+  float* fwd_out;           // (b, h, n, 64) through the view vo
+  float* fwd_lse;           // (b, h, n)
 };
 
 // The grid row of (b, h): b H + h, or for the dense form h B + b (the heads
@@ -318,10 +356,142 @@ __device__ __forceinline__ float sum4(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+__device__ __forceinline__ float max4(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
 // P of one score: exp(s + bias - lse), 0 outside the (n, n) square.  The
 // difference is taken first: an f32-min pad bias gives exp(-3.4e38) = 0.
 __device__ __forceinline__ float prob(float s, float bias, float lse, bool ok) {
   return ok ? expf(s + bias - lse) : 0.0f;
+}
+
+// ----------------------------------------------------------------- forward
+// Shared memory: Q, then 2 x K, 2 x V, 2 x the key bias (64 floats): 87.5
+// KB, two CTAs per SM.
+constexpr size_t FWD_SMEM = (5 * TILE_FLOATS + 2 * TILE) * sizeof(float);
+
+template <int FORM, bool DROP>
+__global__ void __launch_bounds__(NT, 2) tc32_fwd(Args a) {
+  constexpr bool KBIAS = FORM == KEY;
+  extern __shared__ __align__(16) float sm[];
+  float* sq = sm;
+  float* sk = sq + TILE_FLOATS;          // stage s at sk + s * TILE_FLOATS
+  float* sv = sk + 2 * TILE_FLOATS;
+  float* skb = sv + 2 * TILE_FLOATS;     // stage s at skb + s * TILE
+  const int i0 = blockIdx.x * TILE, bh = grid_bh<FORM>(a), b = bh / a.H, h = bh % a.H, n = a.n;
+  const int tiles = (n + TILE - 1) / TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;  // this warp's rows; a thread's are r0 + g and + 8
+
+  auto stage = [&](int tile) {
+    const int s = tile & 1, j0 = tile * TILE;
+    load_tile(sk + s * TILE_FLOATS, a.k + at(a.vk, b, h, 0), a.vk.st, j0, n);
+    load_tile(sv + s * TILE_FLOATS, a.v + at(a.vv, b, h, 0), a.vv.st, j0, n);
+    if (KBIAS) load_vec(skb + s * TILE, a.key_bias + (size_t)b * n, j0, n);
+  };
+  load_tile(sq, a.q + at(a.vq, b, h, 0), a.vq.st, i0, n);
+  cp_commit();
+  stage(0);
+  cp_commit();
+  uint32_t k0 = 0, k1 = 0;
+  if (DROP) seed_key(a.seed, a.thresh, k0, k1);
+  float o[8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nb][e] = 0.0f;
+  cp_wait<1>();  // Q
+  __syncthreads();
+  // Q's A fragments over the head dim, split once for the whole key sweep
+  uint32_t qh[8][4], ql[8][4];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) frag_a(sq, r0, kk, g, t, qh[kk], ql[kk]);
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile + 1 < tiles) {
+      stage(tile + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int j0 = tile * TILE;
+    const float* K = sk + (tile & 1) * TILE_FLOATS;
+    const float* V = sv + (tile & 1) * TILE_FLOATS;
+    const float* kb = skb + (tile & 1) * TILE;
+    float bias[8][4];  // DENSE: issued here, read after the products
+    if (FORM == DENSE) load_bias(bias, a, h, i0 + r0, j0, g, t, false);
+    // the keep bits of element [nb][e] at bit 4 nb + e (common.cuh), drawn
+    // among the products
+    const uint32_t kept = DROP ? row_keep_bits(b, h, i0 + r0 + g, j0, t, k0, k1, a.thresh) : 0u;
+    // S = Q K^T in the row pass's order (tc32_rows), so the same S
+    float s[8][4];
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {  // over the head dim
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {  // over the keys
+        uint32_t bh_[2], bl[2];
+        frag_bt(K, nb, kk, g, t, bh_, bl);
+        mma3(s[nb], qh[kk], ql[kk], bh_, bl);
+      }
+    }
+    // the scores as the row pass's prob() adds the bias; keys at n and
+    // beyond -inf
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = e >> 1, col = 8 * nb + 2 * t + (e & 1);
+        const float x = s[nb][e] + (KBIAS ? kb[col] : FORM == DENSE ? bias[nb][e] : 0.0f);
+        s[nb][e] = j0 + col < n ? x : -INFINITY;
+        mx[hi] = fmaxf(mx[hi], s[nb][e]);
+      }
+    float corr[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      // key j0 < n lies in this tile, so the new max is finite
+      const float mn = fmaxf(m[hi], max4(mx[hi]));
+      corr[hi] = expf(m[hi] - mn);  // 0 before the first tile
+      m[hi] = mn;
+      l[hi] *= corr[hi];
+    }
+    // P, its sum over every key (kept or not), then P M in place of S
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = e >> 1;
+        const float p = expf(s[nb][e] - m[hi]);
+        l[hi] += p;
+        s[nb][e] = masked<DROP>(p, kept, 4 * nb + e, a.keep_scale);
+        o[nb][e] *= corr[hi];
+      }
+    // O += (P M) V, over the keys, the tile's share in its own accumulator
+    tile_product(o, s, V, g, t);
+    __syncthreads();  // the next iteration's copies overwrite this stage
+  }
+
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int i = i0 + r0 + g + 8 * hi;
+    const float sum = sum4(l[hi]);  // every lane: the shuffles
+    if (i >= n) continue;
+    const float inv = 1.0f / sum;
+    float* out = a.fwd_out + at(a.vo, b, h, i);
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+      *reinterpret_cast<float2*>(out + 8 * nb + 2 * t) =
+          make_float2(o[nb][2 * hi] * inv, o[nb][2 * hi + 1] * inv);
+    if (t == 0) a.fwd_lse[(size_t)bh * n + i] = m[hi] + logf(sum);
+  }
 }
 
 // ---------------------------------------------------------------- row pass
@@ -647,6 +817,48 @@ cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t st, const Args
 bool aligned16(const void* p) { return p && (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
+
+// q, k, v, out: (b, h, n, 64) f32 views with (batch, head, token) element
+// strides in `strides` (4 views x 3, in that order), each a multiple of 4
+// (16-byte rows), bases 16-byte aligned; key_bias (b, n) f32 or null; bias
+// (bias_heads, n, n) f32 or null (not both); lse (b, h, n) f32 out; seed (1,)
+// int64 in device memory, thresh and keep_scale K13a's dropout mask (thresh
+// 0: none; a key bias only).  The form follows: dropout (K13a), a key bias
+// (K7), a dense bias (K7 dense) or none (K7).
+CT_EXPORT int ct_attn_tc32_fwd(const void* q, const void* k, const void* v, void* out,
+                               const long long* strides, const void* key_bias, const void* bias,
+                               int bias_heads, void* lse, const void* seed, unsigned int thresh,
+                               float keep_scale, int B, int H, int n, void* stream) {
+  Args a = {};
+  View* const views[4] = {&a.vq, &a.vk, &a.vv, &a.vo};
+  const void* bases[4] = {q, k, v, out};
+  if (B <= 0 || H <= 0 || n <= 0 || (long long)B * H > 65535 || !lse
+      || (key_bias && bias) || (bias && bias_heads != 1 && bias_heads != H)
+      || (thresh && (!seed || !key_bias)))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 4; ++i) {
+    for (int c = 0; c < 3; ++c)
+      if (strides[3 * i + c] % 4) return (int)cudaErrorInvalidValue;
+    if (!aligned16(bases[i])) return (int)cudaErrorInvalidValue;
+    *views[i] = View{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  }
+  a.q = static_cast<const float*>(q); a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.fwd_out = static_cast<float*>(out);
+  a.fwd_lse = static_cast<float*>(lse);
+  a.key_bias = static_cast<const float*>(key_bias);
+  a.B = B; a.H = H; a.n = n;
+  a.bias = static_cast<const float*>(bias);
+  a.bias_heads = bias_heads;
+  a.seed = static_cast<const long long*>(seed);
+  a.thresh = thresh;
+  a.keep_scale = keep_scale;
+  const bool drop = thresh != 0, kbias = key_bias != nullptr, dense = bias != nullptr;
+  void (*fwd)(Args) = drop ? tc32_fwd<KEY, true> : kbias ? tc32_fwd<KEY, false>
+                    : dense ? tc32_fwd<DENSE, false> : tc32_fwd<NONE, false>;
+  return (int)launch(fwd, dim3((n + TILE - 1) / TILE, B * H), FWD_SMEM,
+                     static_cast<cudaStream_t>(stream), a);
+}
 
 // q, k, v, out (the forward's f32 output), dout, dq, dk, dv: (b, h, n, 64)
 // f32 views with (batch, head, token) element strides in `strides` (8 views

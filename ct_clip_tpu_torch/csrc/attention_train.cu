@@ -5,11 +5,11 @@
 // widened to f32 as they are staged, so every product and the softmax run in
 // f32 and only the stored outputs round to bf16.
 //
-// It serves the forms that attention_tc.cu (bf16, d 64, wgmma) and
-// attention_tc32.cu (the f32 key-bias backward at d 64, 3xTF32) do not take
-// (ops/attention.py::attention_route): the f32 forwards and the other f32
-// backwards (RadBERT, T5, the f32 rows), and head dims other than 64.  Of
-// ct_clip_tpu/ops/pallas/attention.py:
+// It serves what attention_tc.cu (bf16, d 64, wgmma) and attention_tc32.cu
+// (f32, d 64, 3xTF32, forward and backward) do not take
+// (ops/attention.py::attention_route): head dims other than 64, in both
+// dtypes; at d 64 chip_smoke.py times it beside the kernels that replaced
+// it.  Of ct_clip_tpu/ops/pallas/attention.py:
 //   * _pallas_attention (K7): softmax(q k^T + key_bias) v, the per-key (b, n)
 //     bias optional, or with an f32 (1, 1|h, n, n) dense bias
 //                                                -> ct_attn_train_fwd, rate 0;

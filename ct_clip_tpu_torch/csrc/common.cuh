@@ -51,8 +51,8 @@ __device__ __forceinline__ float warp_max(float v) {
 // counter (batch row, head, query i, key j / 4): word j % 4 of that call is
 // element (i, j)'s.  A probability is kept iff bits >= thresh and then
 // scaled by 1 / (1 - rate) (ct_clip_tpu/ops/pallas/attention.py:403-408).
-// attention_train.cu's forward and backward, attention_tc.cu's forward and
-// backward and attention_tc32.cu's backward draw from this one definition,
+// attention_train.cu's, attention_tc.cu's and attention_tc32.cu's forwards
+// and backwards draw from this one definition,
 // so they regenerate the same mask, which never exists in device memory;
 // ops/attention.py::dropout_mask computes the same bits in plain PyTorch.
 struct U4 { uint32_t w[4]; };

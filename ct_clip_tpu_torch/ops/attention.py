@@ -28,18 +28,17 @@ Ports of ct_clip_tpu/ops/attention.py:
     dense (1, 1|h, n, n) bias (its gradient summed over the batch) or none.
     On CUDA `attention_route` picks the forward's and the backward's source:
     bf16 at d 64 runs both on the tensor cores (csrc/attention_tc.cu); f32
-    at d 64 runs its backward, any bias form, on the tensor cores in 3xTF32
-    (csrc/attention_tc32.cu) and its forward on the CUDA cores
-    (csrc/attention_train.cu); other head dims run both on the CUDA cores.
+    at d 64 runs both, any bias form, on the tensor cores in 3xTF32
+    (csrc/attention_tc32.cu); other head dims run both on the CUDA cores
+    (csrc/attention_train.cu).
     A dense bias together
     with a key bias is XLA in the JAX package (`_xla_attention`), so here it
     is `attention_plain` on every device, differentiated by autograd;
   * `fused_attention_kbias_dropout` (K13, forward and backward): the same
     with dropout on the probabilities from a Philox mask; on CUDA at d 64
-    its backward (K13b) runs on attention_tc.cu in bf16, on
-    attention_tc32.cu in f32, and its forward (K13a) on attention_tc.cu in
-    bf16, on attention_train.cu in f32, each drawing the same mask; other
-    head dims run both on attention_train.cu.
+    its forward (K13a) and backward (K13b) run on attention_tc.cu in bf16,
+    on attention_tc32.cu in f32, each drawing the same mask; other head
+    dims run both on attention_train.cu.
 
 Module and parameter names reproduce the reference torch state-dict layout
 (transformer_maskgit: `layers.{i}.0` PEG, `.1` attention, `.3` FF).
@@ -222,19 +221,32 @@ def attention_route(dtype: torch.dtype, head_dim: int, bias_form: str,
 
     | call                                       | forward | backward |
     | bf16, d 64, any bias form, dropout or not  | TC      | TC       |
-    | f32, d 64, any bias form, dropout or not   | TRAIN   | TC32     |
+    | f32, d 64, any bias form, dropout or not   | TC32    | TC32     |
     | d != 64                                    | TRAIN   | TRAIN    |
 
-    TC32 (K12a, K12b dense or with no bias, K13b) reads D_i = dO . O from
-    the f32 forward's output, which K7 f32 and K13a f32 write in true f32 on
-    the CUDA cores."""
+    TC32's backward (K12a, K12b dense or with no bias, K13b) reads D_i = dO
+    . O from its forward's f32 output (K7 f32, K13a f32), itself 3xTF32: the
+    dense form's dbias rows, whose zero sum D_i shifts, are what the card
+    check holds (chip_smoke.py::dense_attention_phase)."""
     if bias_form not in BIAS_FORMS:
         raise ValueError(f"attention_route: bias form {bias_form!r} not in {BIAS_FORMS}")
     if head_dim != K.TC_HEAD_DIM:
         return TRAIN, TRAIN
     if dtype == torch.bfloat16:
         return TC, TC
-    return TRAIN, TC32
+    return TC32, TC32
+
+
+def forward_counters(source: str, bias_form: str, dropout: bool) -> Tuple[str, ...]:
+    """The launch counters a fused attention forward on `source` (TC, TC32
+    or TRAIN) adds one to: the tensor-core source's own (`attention_tc`,
+    `attention_tc32`; none for TRAIN), then the function's, the same on
+    every route: K13a `attention_dropout`, K7 dense `attention_dense`, K7
+    with a key bias or none `fused_attention`."""
+    own = {TC: ("attention_tc",), TC32: ("attention_tc32",), TRAIN: ()}[source]
+    if dropout:
+        return own + ("attention_dropout",)
+    return own + ("attention_dense" if bias_form == "dense" else "fused_attention",)
 
 
 def backward_counters(source: str, bias_form: str, dropout: bool) -> Tuple[str, ...]:
@@ -257,17 +269,18 @@ def _tc_operand(t: torch.Tensor) -> torch.Tensor:
     return t if K.tc_addressable(t) else t.contiguous()
 
 
-def _launch_tc_fwd(q, k, v, key_bias, bias=None, seed=None, rate=0.0):
-    """Forward kernel on the tensor cores (attention_tc.cu, bf16, d 64):
-    (out, lse); `bias` a contiguous (1|h, n, n) f32 dense bias or None;
-    `seed` and `rate` > 0 K13a's dropout.  `out` takes q's strides
+def _launch_tc_fwd(source, q, k, v, key_bias, bias=None, seed=None, rate=0.0):
+    """Forward kernel on the tensor cores at d 64, `source` TC
+    (attention_tc.cu, bf16, wgmma) or TC32 (attention_tc32.cu, f32 in
+    3xTF32): (out, lse); `bias` a contiguous (1|h, n, n) f32 dense bias or
+    None; `seed` and `rate` > 0 K13a's dropout.  `out` takes q's strides
     (empty_like of an addressable view), so merging the heads back is free."""
     q, k, v = map(_tc_operand, (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    K.attention_tc_fwd(q, k, v, out, lse,
-                       key_bias=None if key_bias is None else key_bias.float().contiguous(),
-                       bias=bias, seed=seed, rate=rate)
+    launch = K.attention_tc_fwd if source == TC else K.attention_tc32_fwd
+    launch(q, k, v, out, lse, key_bias=None if key_bias is None else key_bias.float().contiguous(),
+           bias=bias, seed=seed, rate=rate)
     return out, lse
 
 
@@ -295,15 +308,15 @@ class _FusedAttention(torch.autograd.Function):
     """K7 forward, K12 backward (K12a with a key bias, K12b with a dense bias
     or none).  On the CPU both are the plain versions; on CUDA the sources
     `attention_route` picks: attention_tc.cu (bf16, d 64, wgmma) for both;
-    in f32 at d 64 the key-tiled forward of attention_train.cu and the
-    3xTF32 backward of attention_tc32.cu (D_i from the forward's f32
-    output), any bias form; else attention_train.cu for both.  Each
+    attention_tc32.cu (f32, d 64, 3xTF32) for both, the backward's D_i from
+    the forward's f32 output; else attention_train.cu for both.  Each
     backward reads the forward's row log-sum-exp (and, on
     attention_train.cu in bf16, its f32 output); a dense bias stays f32 in
-    both dtypes.  The counters name the function (`fused_attention`,
-    `attention_dense`, `attention_bwd` for K12a, `attention_dense_bwd` for
-    K12b, dense or with no bias, on every route) and, on the tensor cores,
-    the source (`attention_tc`, `attention_tc_bwd`, `attention_tc32_bwd`)."""
+    both dtypes.  The counters (`forward_counters`, `backward_counters`)
+    name the function (`fused_attention`, `attention_dense`, `attention_bwd`
+    for K12a, `attention_dense_bwd` for K12b, dense or with no bias, on
+    every route) and, on the tensor cores, the source (`attention_tc`,
+    `attention_tc_bwd`, `attention_tc32`, `attention_tc32_bwd`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, key_bias):
@@ -317,14 +330,13 @@ class _FusedAttention(torch.autograd.Function):
             form = "dense" if bias is not None else "none" if key_bias is None else "key"
             ctx.route = attention_route(q.dtype, q.shape[-1], form, False)
             ctx.counters = backward_counters(ctx.route[1], form, False)
-            if ctx.route[0] == TC:
-                out, lse = _launch_tc_fwd(q, k, v, key_bias, bias=kbias)
-                K.count_launch("attention_tc")
+            if ctx.route[0] == TRAIN:
+                out, lse, out32 = _launch_train_fwd(q, k, v, key_bias, bias=kbias,
+                                                    for_backward=any(ctx.needs_input_grad))
             else:
-                out, lse, out32 = _launch_train_fwd(
-                    q, k, v, key_bias, bias=kbias,
-                    for_backward=any(ctx.needs_input_grad) and ctx.route[1] == TRAIN)
-            K.count_launch("fused_attention" if bias is None else "attention_dense")
+                out, lse = _launch_tc_fwd(ctx.route[0], q, k, v, key_bias, bias=kbias)
+            for name in forward_counters(ctx.route[0], form, False):
+                K.count_launch(name)
         ctx.save_for_backward(q, k, v, bias, key_bias, out, lse, kbias, out32)
         return out
 
@@ -408,12 +420,12 @@ class _FusedAttentionDropout(torch.autograd.Function):
     """K13 forward and backward: key-bias attention with dropout on the
     probabilities, the mask regenerated from the seed in the backward.  On
     CUDA `attention_route` picks: in bf16 at d 64 attention_tc.cu for both
-    (K13a, K13b; no f32 output kept); in f32 at d 64 attention_train.cu's
-    forward and attention_tc32.cu's 3xTF32 backward (D_i from the forward's
-    f32 output); else attention_train.cu for both, whose backward reads the
-    forward's f32 output in bf16.  Counters: `attention_dropout`,
-    `attention_dropout_bwd` and, on the tensor cores, `attention_tc`,
-    `attention_tc_bwd` and `attention_tc32_bwd`."""
+    (K13a, K13b; no f32 output kept); in f32 at d 64 attention_tc32.cu's
+    3xTF32 forward and backward (D_i from the forward's f32 output); else
+    attention_train.cu for both, whose backward reads the forward's f32
+    output in bf16.  Counters: `attention_dropout`, `attention_dropout_bwd`
+    and, on the tensor cores, `attention_tc`, `attention_tc_bwd`,
+    `attention_tc32` and `attention_tc32_bwd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, seed, rate):
@@ -425,14 +437,13 @@ class _FusedAttentionDropout(torch.autograd.Function):
             seed = _seed_tensor(seed, q.device)
             ctx.route = attention_route(q.dtype, q.shape[-1], "key", True)
             ctx.counters = backward_counters(ctx.route[1], "key", True)
-            if ctx.route[0] == TC:
-                out, lse = _launch_tc_fwd(q, k, v, key_bias, seed=seed, rate=rate)
-                K.count_launch("attention_tc")
+            if ctx.route[0] == TRAIN:
+                out, lse, out32 = _launch_train_fwd(q, k, v, key_bias, seed, rate,
+                                                    for_backward=any(ctx.needs_input_grad))
             else:
-                out, lse, out32 = _launch_train_fwd(
-                    q, k, v, key_bias, seed, rate,
-                    for_backward=any(ctx.needs_input_grad) and ctx.route[1] == TRAIN)
-            K.count_launch("attention_dropout")
+                out, lse = _launch_tc_fwd(ctx.route[0], q, k, v, key_bias, seed=seed, rate=rate)
+            for name in forward_counters(ctx.route[0], "key", True):
+                K.count_launch(name)
         ctx.rate, ctx.seed = rate, seed
         ctx.save_for_backward(q, k, v, key_bias, out, lse, out32)
         return out

@@ -72,7 +72,10 @@ KERNELS = (
     "attention_tc_bwd",    # every backward there: K12b, dense bias or none
                            # (attention_dense_bwd), K12a, key bias (attention_bwd),
                            # K13b, key bias and dropout (attention_dropout_bwd)
-    # attention_tc32.cu's f32 3xTF32 backwards at head dim 64
+    # attention_tc32.cu's f32 3xTF32 kernels at head dim 64
+    "attention_tc32",      # every f32 forward there: K7, any bias form (fused_attention,
+                           # attention_dense), K13a, key bias and dropout
+                           # (attention_dropout)
     "attention_tc32_bwd",  # every f32 backward there: K12b, dense bias or none
                            # (attention_dense_bwd), K12a, key bias (attention_bwd),
                            # K13b, key bias and dropout (attention_dropout_bwd)
@@ -260,6 +263,7 @@ def _signatures():
         "ct_attn_tc_fwd": [p, p, p, p, lp, p, p, i, p, p, u, f, i, i, i, p],
         "ct_attn_tc_bwd": [p, p, p, p, p, p, p, lp, p, p, i, p, p, p, p, p, p, p, u, f, i, i, i,
                            p],
+        "ct_attn_tc32_fwd": [p, p, p, p, lp, p, p, i, p, p, u, f, i, i, i, p],
         "ct_attn_tc32_bwd": [p, p, p, p, p, p, p, p, lp, p, p, i, p, p, p, p, p, p, p, u, f, i,
                              i, i, p],
         "ct_gemm_argmax2": [p, i, p, p, i, i, i, i, p, i, p],
@@ -1019,6 +1023,31 @@ def _check_tc(shape, dtype=torch.bfloat16, **tensors) -> None:
                              "addressable in 16-byte chunks (pass a contiguous copy)")
 
 
+def _tc_fwd_launch(name, entry, dtype, lib, q, k, v, out, lse, key_bias, bias, seed, rate):
+    """The tensor-core forwards' shared checks and launch: `entry` of `lib`
+    (or the package's library) on q, k, v, out (b, h, n, 64) `dtype` views
+    as `tc_addressable` says, lse (b, h, n) f32."""
+    b, h, n, d = q.shape
+    _check_tc(q.shape, dtype, q=q, k=k, v=v, out=out)
+    require(lse, "lse", torch.float32, 3)
+    if tuple(lse.shape) != (b, h, n):
+        raise ValueError(f"{name}: lse {tuple(lse.shape)} != {(b, h, n)}")
+    _check_key_bias(key_bias, b, n)
+    if key_bias is not None and bias is not None:
+        raise ValueError(f"{name}: a key bias and a dense bias together")
+    bias_heads = _bias_heads(bias, h, n)
+    thresh = dropout_threshold(rate) if rate > 0 else 0
+    if thresh and key_bias is None:
+        raise ValueError(f"{name}: dropout (K13a) takes a key bias")
+    seed = _dropout_args(seed, thresh, q.device)
+    err = getattr(lib or library(), entry)(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _bhnd_strides(q, k, v, out), _ptr(key_bias),
+        _ptr(bias), bias_heads, _ptr(lse), _ptr(seed), thresh,
+        dropout_keep_scale(rate) if thresh else 1.0, b, h, n, _stream())
+    _check(err, entry)
+    return out
+
+
 def attention_tc_fwd(q, k, v, out, lse, *, key_bias=None, bias=None, seed=None,
                      rate=0.0) -> torch.Tensor:
     """out = (softmax(q k^T + bias + key_bias) * dropout mask) v in bf16 and
@@ -1027,25 +1056,23 @@ def attention_tc_fwd(q, k, v, out, lse, *, key_bias=None, bias=None, seed=None,
     f32 or None; bias a contiguous (1|h, n, n) f32 dense bias or None, not
     both; `seed` (1,) int64 on the device and `rate` > 0 apply K13a's mask
     (key bias only)."""
-    b, h, n, d = q.shape
-    _check_tc(q.shape, q=q, k=k, v=v, out=out)
-    require(lse, "lse", torch.float32, 3)
-    if tuple(lse.shape) != (b, h, n):
-        raise ValueError(f"attention_tc: lse {tuple(lse.shape)} != {(b, h, n)}")
-    _check_key_bias(key_bias, b, n)
-    if key_bias is not None and bias is not None:
-        raise ValueError("attention_tc: a key bias and a dense bias together")
-    bias_heads = _bias_heads(bias, h, n)
-    thresh = dropout_threshold(rate) if rate > 0 else 0
-    if thresh and key_bias is None:
-        raise ValueError("attention_tc: dropout (K13a) takes a key bias")
-    seed = _dropout_args(seed, thresh, q.device)
-    err = library().ct_attn_tc_fwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _bhnd_strides(q, k, v, out), _ptr(key_bias),
-        _ptr(bias), bias_heads, _ptr(lse), _ptr(seed), thresh,
-        dropout_keep_scale(rate) if thresh else 1.0, b, h, n, _stream())
-    _check(err, "ct_attn_tc_fwd")
-    return out
+    return _tc_fwd_launch("attention_tc", "ct_attn_tc_fwd", torch.bfloat16, None, q, k, v,
+                          out, lse, key_bias, bias, seed, rate)
+
+
+def attention_tc32_fwd(q, k, v, out, lse, *, key_bias=None, bias=None, seed=None,
+                       rate=0.0, lib=None) -> torch.Tensor:
+    """out = (softmax(q k^T + bias + key_bias) * dropout mask) v in f32 and
+    the row log-sum-exp lse (b, h, n) f32, both products as 3xTF32 on the
+    tensor cores (attention_tc32.cu): K7 with a key bias, a dense bias or
+    none, K13a with a key bias and dropout.  q, k, v, out (b, h, n, 64) f32
+    views as `tc_addressable` says; key_bias (b, n) f32 or None; bias a
+    contiguous (1|h, n, n) f32 dense bias or None, not both; `seed` (1,)
+    int64 on the device and `rate` > 0 apply K13a's mask (key bias only),
+    the bits K13b regenerates.  `lib`: a one-change copy (`copy_library`)
+    to launch instead, for the card checks."""
+    return _tc_fwd_launch("attention_tc32", "ct_attn_tc32_fwd", torch.float32, lib, q, k,
+                          v, out, lse, key_bias, bias, seed, rate)
 
 
 def _tc_bwd_buffers(name, q, lse, bias, want_dbias, key_bias, want_dkey_bias, seed, rate):

@@ -2,8 +2,9 @@
 versions, on the card: the inference kernels in bf16, the training attention
 kernels (K7 f32, K12, K13) in f32, K7's dense-bias form and K12b in f32 and
 bf16, the bf16 K7 / K12b / K12a / K13a / K13b of attention_tc.cu (wgmma) with
-their routing (`-k "tc or dense"`), and the f32 K12a, K12b (dense, no bias)
-and K13b of attention_tc32.cu (3xTF32, `-k tc32`).
+their routing (`-k "tc or dense"`), and the f32 K7 (key bias, dense, no
+bias), K13a, K12a, K12b (dense, no bias) and K13b of attention_tc32.cu
+(3xTF32, `-k tc32`).
 
 Needs an NVIDIA GPU and nvcc (the kernels compile on first use); skipped
 elsewhere.  Run on the card with:
@@ -15,8 +16,9 @@ but sum in different orders, so an intermediate may land one bf16 ulp
 (2^-8 relative) apart and carry that through the following stages.  Each
 check allows a max abs error of 2e-2 x max|plain| unless stated.  The f32
 kernels run the same products as their plain versions in another summation
-order: 1e-4 x max|plain|; the 3xTF32 backwards 1e-5 x max|plain| against
-the plain version with TF32 off, which a plain-TF32 copy of it must miss.
+order: 1e-4 x max|plain|; the 3xTF32 forwards and backwards 1e-5 x
+max|plain| against the plain version with TF32 off, which a plain-TF32 copy
+of them must miss.
 """
 import pytest
 import torch
@@ -376,15 +378,15 @@ def test_training_attention_counters_count_only_kernel_paths(dev):
 @pytest.mark.parametrize("bias_heads", [8, 1])
 @pytest.mark.parametrize("n", [200, 1280])
 def test_k7_dense_and_k12b(dev, dtype, bias_heads, n):
-    """K7's dense-bias form and K12b (f32: attention_train.cu's forward,
-    attention_tc32.cu's 3xTF32 backward; bf16: attention_tc.cu) against
+    """K7's dense-bias form and K12b (f32: attention_tc32.cu's 3xTF32
+    forward and backward; bf16: attention_tc.cu) against
     their plain versions at d 64, 8 heads, a
     ragged n (200) and MaskGIT's 1,280, with a per-head and a one-head f32
     bias: the output, dq, dk, dv and dbias (summed over the batch, and over
     the heads for the one-head bias).  f32: 1e-4 of max|plain|; bf16: 2e-2
     forward, 3e-2 backward (dbias stays f32).  The rows of dS sum to zero in
     exact arithmetic; the kernels sum D_i = sum_j P_ij dP_ij in f32 (f32:
-    dO_i . O_i from the forward's f32 output; bf16: from the backward's own f32 P and
+    dO_i . O_i from the 3xTF32 forward's f32 output; bf16: from the backward's own f32 P and
     dP), as the TPU kernel does, so dbias's row sums stay at f32 rounding:
     within 16x those of the plain version in f32 on the same inputs (from
     the bf16-rounded output they read thousands of times more).  dbias is
@@ -1000,7 +1002,7 @@ TC32_REL = 1e-5
 def test_tc32_k12a_f32_backward(dev, n):
     """K12a f32 on attention_tc32.cu (3xTF32): dq, dk, dv and dkey_bias
     within 1e-5 of max|plain| (TF32 off) at (4, 12, n, 64) with pad key
-    biases, the forward on attention_train.cu; bit-identical reruns; a copy
+    biases, after the 3xTF32 forward; bit-identical reruns; a copy
     of the kernel built with CT_TC32_PASSES=1 (plain TF32) misses 1e-5."""
     import functools
 
@@ -1014,7 +1016,7 @@ def test_tc32_k12a_f32_backward(dev, n):
             c["attention_tc"], c["attention_tc_bwd"]) == (1, 1, 1, 0, 0)
     ref = _grads(lambda q, k, v, kb: attention_plain(q, k, v, key_bias=kb), *args)
     torch.cuda.synchronize()
-    _close(got[0], ref[0], rel=1e-4)  # K7 f32 on the CUDA cores
+    _close(got[0], ref[0], rel=1e-4)  # K7 f32, attention_tc32.cu's forward
     for g, r in zip(got[1:], ref[1:]):
         assert g.dtype == torch.float32
         _close(g, r, rel=TC32_REL)
@@ -1035,8 +1037,8 @@ def test_tc32_k12a_f32_backward(dev, n):
 @pytest.mark.parametrize("n", [512, 200])
 @pytest.mark.parametrize("form", ["dense", "dense_one_head", "none", "dropout"])
 def test_tc32_k12b_k13b_f32_backward(dev, form, n):
-    """The other f32 backwards of attention_tc32.cu (3xTF32) after the
-    CUDA-core forward: K12b with a per-head or one-head dense bias (dbias
+    """The other f32 backwards of attention_tc32.cu (3xTF32) after its
+    forward: K12b with a per-head or one-head dense bias (dbias
     summed over the batch, and the heads), K12b with no bias, K13b with a pad
     key bias and dropout 0.1 (the plain version takes the same seed's mask),
     at (3, 4, n, 64): dq, dk, dv and dbias / dkey_bias within 1e-5 of
@@ -1093,6 +1095,66 @@ def test_tc32_k12b_k13b_f32_backward(dev, form, n):
     errs = [(g - r).abs().max().item() / r.abs().max().item()
             for g, r in zip(tf32[:3], ref[:3])]
     assert min(errs) > TC32_REL, f"plain TF32 reads within 1e-5: {errs}"
+
+
+@pytest.mark.parametrize("n", [512, 200])
+@pytest.mark.parametrize("form", ["key", "dense", "dense_one_head", "none", "dropout"])
+def test_tc32_k7_k13a_f32_forward(dev, form, n):
+    """The f32 forwards of attention_tc32.cu (3xTF32): K7 with a pad key
+    bias, a per-head or one-head dense bias, or none, and K13a with a pad
+    key bias and dropout 0.1 (the plain version takes the same seed's mask),
+    at (3, 4, n, 64) through the wrapper the model calls: the output within
+    1e-5 of max|plain| (TF32 off) and the row log-sum-exp within 1e-5 of
+    max|lse| of the plain scores' (as the kernel adds the bias); one launch
+    of attention_tc32 beside the function's counter; bit-identical reruns;
+    the plain-TF32 copy of the kernel misses 1e-5."""
+    import functools
+
+    from ct_clip_tpu_torch.ops.attention import (attention_plain, dropout_mask,
+                                                 fused_attention, fused_attention_kbias_dropout)
+
+    b, h, rate = 3, 4, 0.1
+    q, k, v, kb, _ = _train_attn_inputs(dev, b, h, n, 64, seed=48)
+    seed = torch.tensor([20261019], dtype=torch.int64, device=dev)
+    heads = {"dense": h, "dense_one_head": 1}.get(form)
+    bias = _randn((1, heads, n, n), _gen(dev, 49), dev, 1.0, F32) if heads else None
+    key_bias = kb if form in ("key", "dropout") else None
+    mask = dropout_mask(seed, b, h, n, rate, dev) if form == "dropout" else None
+
+    def run():
+        if form == "dropout":
+            return fused_attention_kbias_dropout(q, k, v, kb, seed, rate)
+        return fused_attention(q, k, v, bias, key_bias)
+    K.reset_launch_counts()
+    got = run()
+    c = K.launch_counts()
+    fn = {"dropout": "attention_dropout", "dense": "attention_dense",
+          "dense_one_head": "attention_dense"}.get(form, "fused_attention")
+    assert (c[fn], c["attention_tc32"], c["attention_tc"]) == (1, 1, 0)
+    ref = attention_plain(q, k, v, bias, key_bias, mask=mask)
+    torch.cuda.synchronize()
+    assert got.dtype == F32 and got.shape == q.shape
+    _close(got, ref, rel=TC32_REL)
+    out, lse = torch.empty_like(q), torch.empty((b, h, n), device=dev)
+    drop = dict(seed=seed, rate=rate) if form == "dropout" else {}
+    K.attention_tc32_fwd(q, k, v, out, lse, key_bias=key_bias,
+                         bias=None if bias is None else bias[0].contiguous(), **drop)
+    s = q @ k.transpose(-1, -2)
+    if bias is not None:
+        s = s + bias
+    if key_bias is not None:
+        s = s + key_bias[:, None, None, :]
+    _close(lse, torch.logsumexp(s, dim=-1), rel=TC32_REL)
+    assert torch.equal(out, got) and torch.equal(run(), got)
+    fwd = K.attention_tc32_fwd
+    K.attention_tc32_fwd = functools.partial(
+        fwd, lib=K.copy_library("attention_tc32.cu", CT_TC32_PASSES=1))
+    try:
+        tf32 = run()
+    finally:
+        K.attention_tc32_fwd = fwd
+    err = (tf32 - ref).abs().max().item() / ref.abs().max().item()
+    assert err > TC32_REL, f"plain TF32 reads within 1e-5: {err}"
 
 
 # ------------------------------------------------------------ the f32 forms

@@ -7,7 +7,8 @@ import torch
 
 from ct_clip_tpu_torch.ops import kernels as K
 from ct_clip_tpu_torch.ops.attention import (TC, TC32, TRAIN, _tc_bwd_operands, _tc_operand,
-                                             attention_route, backward_counters)
+                                             attention_route, backward_counters,
+                                             forward_counters)
 
 BF, F32 = torch.bfloat16, torch.float32
 
@@ -20,14 +21,15 @@ BF, F32 = torch.bfloat16, torch.float32
     (BF, 64, "dense", False, (TC, TC)),
     # bf16, d 64, key bias + dropout (K13): K13a and K13b both TC
     (BF, 64, "key", True, (TC, TC)),
-    # f32 at d 64: every backward on the tensor cores in 3xTF32 (K12b with
-    # no bias, the TokenCritic; K12a, RadBERT with attention dropout 0; K12b
-    # dense, MaskGIT and T5; K13b, RadBERT's default step), every forward on
-    # the CUDA cores, whose true-f32 output gives TC32 its D_i
-    (F32, 64, "none", False, (TRAIN, TC32)),
-    (F32, 64, "key", False, (TRAIN, TC32)),
-    (F32, 64, "dense", False, (TRAIN, TC32)),
-    (F32, 64, "key", True, (TRAIN, TC32)),
+    # f32 at d 64: every forward and backward on the tensor cores in 3xTF32
+    # (K7 / K12b with no bias, the TokenCritic; K7 / K12a, RadBERT's
+    # inference and its step with attention dropout 0; K7 dense / K12b
+    # dense, MaskGIT and T5; K13a / K13b, RadBERT's default step), the
+    # backward's D_i from the 3xTF32 forward's f32 output
+    (F32, 64, "none", False, (TC32, TC32)),
+    (F32, 64, "key", False, (TC32, TC32)),
+    (F32, 64, "dense", False, (TC32, TC32)),
+    (F32, 64, "key", True, (TC32, TC32)),
     # head dims other than 64
     (BF, 32, "none", False, (TRAIN, TRAIN)),
     (BF, 32, "key", False, (TRAIN, TRAIN)),
@@ -67,6 +69,29 @@ def test_attention_route_table(dtype, d, form, dropout, route):
 ])
 def test_backward_counters_name_the_kernel_on_every_route(dtype, d, form, dropout, counters):
     got = backward_counters(attention_route(dtype, d, form, dropout)[1], form, dropout)
+    assert got == counters
+    assert set(got) <= set(K.KERNELS)
+
+
+# The counters a forward adds one to (ops/attention.py::forward_counters):
+# its tensor-core source's own, then the function's: K13a
+# `attention_dropout`, K7 dense `attention_dense`, K7 with a key bias or none
+# `fused_attention`.
+@pytest.mark.parametrize("dtype,d,form,dropout,counters", [
+    (BF, 64, "none", False, ("attention_tc", "fused_attention")),
+    (BF, 64, "key", False, ("attention_tc", "fused_attention")),
+    (BF, 64, "dense", False, ("attention_tc", "attention_dense")),
+    (BF, 64, "key", True, ("attention_tc", "attention_dropout")),
+    (F32, 64, "none", False, ("attention_tc32", "fused_attention")),
+    (F32, 64, "key", False, ("attention_tc32", "fused_attention")),
+    (F32, 64, "dense", False, ("attention_tc32", "attention_dense")),
+    (F32, 64, "key", True, ("attention_tc32", "attention_dropout")),
+    (F32, 32, "dense", False, ("attention_dense",)),
+    (BF, 32, "key", False, ("fused_attention",)),
+    (F32, 40, "key", True, ("attention_dropout",)),
+])
+def test_forward_counters_name_the_kernel_on_every_route(dtype, d, form, dropout, counters):
+    got = forward_counters(attention_route(dtype, d, form, dropout)[0], form, dropout)
     assert got == counters
     assert set(got) <= set(K.KERNELS)
 

@@ -1,20 +1,21 @@
-"""The arithmetic of csrc/attention_tc32.cu, the f32 attention backwards
-on the tensor cores in 3xTF32, emulated on the CPU: K12a (a key bias),
-K12b (a dense per-head or one-head bias, and no bias) and K13b (a key bias
-and dropout).
+"""The arithmetic of csrc/attention_tc32.cu, f32 attention on the tensor
+cores in 3xTF32, emulated on the CPU: the forwards K7 (a key bias, a dense
+bias, none) and K13a (a key bias and dropout), and the backwards K12a (a key
+bias), K12b (a dense per-head or one-head bias, and no bias) and K13b (a key
+bias and dropout), the backward reading the emulated forward's output and
+lse as on the card.
 
 The kernel splits each f32 operand x into hi = tf32(x) (cvt.rna.tf32.f32's
 rounding: to nearest, ties away from zero, at 10 mantissa bits) and lo =
 x - hi, which the tensor core reads as TF32 by dropping its low 13 bits, and
-runs every product A B as hi hi + hi lo + lo hi with f32 sums; P, dP, dS,
-the mask, the softmax and D_i = dO . O (from the forward's true-f32 output)
-stay f32.  The emulation below runs the same products in torch and is held
-against the JAX package's VJPs of `fused_attention` and
-`fused_attention_kbias_dropout` (their XLA twins on the CPU, at
-Precision.HIGHEST) within 1e-5 of max|JAX| per output, the card check's
-tolerance; plain TF32 (hi hi alone) must miss it in dq, dk and dv.  JAX's CPU
-dropout draws `bernoulli(fold_in(PRNGKey(0), seed), 1 - rate)`; the test
-derives that mask from the same key and hands it to the emulation.
+runs every product A B as hi hi + hi lo + lo hi with f32 sums; the online
+softmax, P, dP, dS, the mask and D_i = dO . O stay f32.  The emulation below
+runs the same products in torch and is held against the JAX package's
+`fused_attention` and `fused_attention_kbias_dropout` and their VJPs (their
+XLA twins on the CPU, at Precision.HIGHEST) within 1e-5 of max|JAX| per
+output, the card check's tolerance; plain TF32 (hi hi alone) must miss it.
+JAX's CPU dropout draws `bernoulli(fold_in(PRNGKey(0), seed), 1 - rate)`;
+the test derives that mask from the same key and hands it to the emulation.
 """
 import numpy as np
 import pytest
@@ -51,20 +52,48 @@ def mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
     return al @ bh + ah @ bl + ah @ bh
 
 
+TILE = 64  # keys per tile of the forward's sweep
+
+
+def _biased(s, key_bias=None, bias=None):
+    if bias is not None:
+        s = s + bias
+    return s if key_bias is None else s + key_bias[:, None, None, :]
+
+
+def tc32_forward_emulated(q, k, v, passes: int, key_bias=None, bias=None, mask=None):
+    """out and lse (b, h, n) as attention_tc32.cu's forward computes them: S
+    = Q K^T in `passes`-TF32 plus the bias, an online softmax in f32 over
+    64-key tiles (the running max's correction applied to the sum and to
+    the output before each tile's share), each tile's (P M) V a product of
+    its own added to the running output; out = O / l, lse = m + log l.
+    `mask` the scaled dropout mask (K13a)."""
+    s = _biased(mm_tf32(q, k.transpose(-1, -2), passes), key_bias, bias)
+    m = torch.full(s.shape[:-1] + (1,), -float("inf"))
+    l = torch.zeros_like(m)
+    o = torch.zeros(s.shape[:-1] + v.shape[-1:])
+    for j0 in range(0, s.shape[-1], TILE):
+        x = s[..., j0:j0 + TILE]
+        mn = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - mn)
+        p = torch.exp(x - mn)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        pm = p if mask is None else p * mask[..., j0:j0 + TILE]
+        o = o * corr + mm_tf32(pm, v[..., j0:j0 + TILE, :], passes)
+        m = mn
+    return o / l, (m + torch.log(l))[..., 0]
+
+
 def tc32_emulated(q, k, v, do, passes: int, key_bias=None, bias=None, mask=None):
     """dq, dk, dv and, with its bias, dbias (summed to the bias's shape) and
     dkey_bias, as attention_tc32.cu computes them: the forward's lse and
-    output in f32 (K7 / K13a f32 on the CUDA cores), then S, dP and the three
-    gradient products in `passes`-TF32; `mask` the scaled dropout mask
-    (K13b: dS = P (dP M - D), dv from (P M)^T dO)."""
+    output from its 3xTF32 form (`tc32_forward_emulated`), then S, dP and
+    the three gradient products in `passes`-TF32; `mask` the scaled dropout
+    mask (K13b: dS = P (dP M - D), dv from (P M)^T dO)."""
     def biased(s):
-        if bias is not None:
-            s = s + bias
-        return s if key_bias is None else s + key_bias[:, None, None, :]
-    s32 = biased(q @ k.transpose(-1, -2))
-    lse = torch.logsumexp(s32, dim=-1, keepdim=True)
-    p32 = torch.softmax(s32, dim=-1)
-    out = (p32 if mask is None else p32 * mask) @ v
+        return _biased(s, key_bias, bias)
+    out, lse = tc32_forward_emulated(q, k, v, 3, key_bias, bias, mask)
+    lse = lse[..., None]
     d = (do * out).sum(dim=-1, keepdim=True)
     p = torch.exp(biased(mm_tf32(q, k.transpose(-1, -2), passes)) - lse)
     dp = mm_tf32(do, v.transpose(-1, -2), passes)
@@ -200,3 +229,90 @@ def test_plain_tf32_backward_forms_miss_the_tolerance(form_cases, form):
     inputs, kw, ref = form_cases[form]
     errs = _rel_errors(tc32_emulated(*inputs, 1, **kw), ref)
     assert min(errs[:3]) > TOL, f"{form}: plain TF32 rel errors {errs}"
+
+
+# The forwards: K7 with a key bias (RadBERT's inference), a dense per-head
+# bias (MaskGIT's CPB, T5) and none (the TokenCritic), K13a with a key bias
+# and dropout 0.1 (RadBERT's default step)
+FWD_FORMS = ("key", "dense", "none", "dropout")
+
+
+@pytest.fixture(scope="module")
+def fwd_cases():
+    """form -> (q, k, v, the emulation's keyword arguments, the JAX
+    package's forward output, the row log-sum-exp of the f32 scores taken
+    in f64), from seeded numpy inputs; the dropout form's scaled mask
+    derived from the key JAX's CPU path draws with."""
+    from ct_clip_tpu.ops.pallas.attention import (fused_attention,
+                                                  fused_attention_kbias_dropout)
+
+    b, h, n, _ = SHAPE
+    out = {}
+    for i, form in enumerate(FWD_FORMS):
+        q, k, v, _, kb = _inputs(2041 + i)
+        kw, args = {}, (q, k, v)
+        with jax.default_matmul_precision("highest"):
+            if form == "dropout":
+                seed = np.array([20261019], np.int32)
+                ref = fused_attention_kbias_dropout(*map(jnp.asarray, (q, k, v, kb)),
+                                                    jnp.asarray(seed), RATE)
+                key = jax.random.fold_in(jax.random.PRNGKey(0), seed[0])
+                keep = np.asarray(jax.random.bernoulli(key, 1.0 - RATE, (b, h, n, n)))
+                kw = dict(key_bias=torch.from_numpy(kb), mask=torch.from_numpy(
+                    keep.astype(np.float32) / np.float32(1.0 - RATE)))
+            elif form == "key":
+                ref = jax.jit(lambda *a: fused_attention(a[0], a[1], a[2], None, a[3]))(
+                    *map(jnp.asarray, (q, k, v, kb)))
+                kw = dict(key_bias=torch.from_numpy(kb))
+            else:
+                if form == "dense":
+                    bias = np.random.RandomState(11).randn(1, h, n, n).astype(np.float32)
+                    args, kw = (q, k, v, bias), dict(bias=torch.from_numpy(bias))
+                ref = jax.jit(lambda *a: fused_attention(*a))(*map(jnp.asarray, args))
+        tq, tk, tv = map(torch.from_numpy, (q, k, v))
+        s64 = _biased(tq.double() @ tk.double().transpose(-1, -2),
+                      *(None if kw.get(x) is None else kw[x].double()
+                        for x in ("key_bias", "bias")))
+        out[form] = (tq, tk, tv), kw, np.asarray(ref), torch.logsumexp(s64, dim=-1).numpy()
+    return out
+
+
+@pytest.mark.parametrize("form", FWD_FORMS)
+def test_3xtf32_forward_forms_match_jax_f32(fwd_cases, form):
+    """out of the 3xTF32 forward's emulation (online softmax over 64-key
+    tiles) within 1e-5 of max|JAX|, the kernel's card tolerance, and its lse
+    within 1e-5 of max|lse| of the f64 log-sum-exp of the same scores."""
+    inputs, kw, ref, lse_ref = fwd_cases[form]
+    out, lse = tc32_forward_emulated(*inputs, 3, **kw)
+    err = _rel_errors([out], [ref])[0]
+    lse_err = _rel_errors([lse], [lse_ref])[0]
+    assert err <= TOL and lse_err <= TOL, f"{form}: out {err:.3e}, lse {lse_err:.3e}"
+
+
+@pytest.mark.parametrize("form", FWD_FORMS)
+def test_plain_tf32_forward_forms_miss_the_tolerance(fwd_cases, form):
+    """hi hi alone (plain TF32) misses 1e-5 of max|JAX| in the output of
+    every form: the tolerance tells the two forwards apart."""
+    inputs, kw, ref, _ = fwd_cases[form]
+    err = _rel_errors([tc32_forward_emulated(*inputs, 1, **kw)[0]], [ref])[0]
+    assert err > TOL, f"{form}: plain TF32 reads {err:.3e}"
+
+
+@pytest.mark.parametrize("heads", [SHAPE[1], 1])
+def test_3xtf32_forward_output_keeps_dense_dbias_rows_at_f32_rounding(heads):
+    """The chain the card runs for K7 dense / K12b f32: the emulated 3xTF32
+    forward's output and lse feed the emulated backward, whose D_i = dO . O
+    then comes from a 3xTF32 output.  dS rows sum to zero in exact
+    arithmetic; the chain's dbias rows (summed over the batch) must stay
+    within 16x those of the port's plain f32 version on the same inputs, the
+    limit of the card check (chip_smoke.py::dense_attention_phase), as a
+    true-f32 output kept them."""
+    from ct_clip_tpu_torch.ops.attention import attention_bwd_plain
+
+    q, k, v, do, _ = map(torch.from_numpy, _inputs(2051 + heads))
+    bias = torch.from_numpy(np.random.RandomState(13).randn(
+        1, heads, *SHAPE[2:3] * 2).astype(np.float32))
+    dbias = tc32_emulated(q, k, v, do, 3, bias=bias)[3]
+    plain = attention_bwd_plain(q, k, v, do, bias)[3]
+    rows, plain_rows = (x.sum(-1).abs().max().item() for x in (dbias, plain))
+    assert dbias.shape == bias.shape and rows <= 16 * plain_rows, (rows, plain_rows)

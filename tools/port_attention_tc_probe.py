@@ -25,10 +25,12 @@ at (8, 8, 1280, 64), forward and backward; CXR-BERT's training shape (8, 12,
 512, 64) with ragged pad lengths, the key-bias forward (K7) and backward
 with dkey_bias (K12a), and the forward (K13a) and backward (K13b) with
 dropout 0.1; all bf16.
-Copies of attention_tc32.cu, at RadBERT's (32, 12, 512, 64) f32 key-bias
-backward with dkey_bias (K12a f32) and with dropout 0.1 (K13b f32), and at
-MaskGIT's (8, 8, 1280, 64) with the per-head dense bias and dbias (K12b
-f32) and with no bias (the TokenCritic's):
+Copies of attention_tc32.cu, each timed on its forward and its backward:
+at RadBERT's (32, 12, 512, 64) with a pad key bias (K7 f32; the backward
+with dkey_bias, K12a f32) and with dropout 0.1 (K13a f32, K13b f32), at
+MaskGIT's (8, 8, 1280, 64) with the per-head dense bias (K7 dense f32; the
+backward with dbias, K12b f32) and with no bias (the TokenCritic's), and at
+T5's (8, 12, 256, 64) with its per-head dense bias:
   as_built     the source unchanged (3xTF32);
   hi_only      CT_TC32_PASSES 1: one TF32 product per f32 one (hi hi);
   no_products  every mma.sync left out (garbage results);
@@ -36,9 +38,10 @@ f32) and with no bias (the TokenCritic's):
 For each copy and shape: the median of 20 calls between CUDA events (the
 binding called directly), the kernels' own device times from torch.profiler,
 and, for the copy as built, the host time per call of the Python wrapper
-(`fused_attention` for a forward, `kernels.attention_tc_bwd` for the
-key-bias backwards, `kernels.attention_tc32_bwd` for the f32 ones) against
-the events around one call.
+(`fused_attention` or `fused_attention_kbias_dropout` for a forward,
+`kernels.attention_tc_bwd` for the key-bias backwards,
+`kernels.attention_tc32_bwd` for the f32 ones) against the events around one
+call.
 """
 from __future__ import annotations
 
@@ -241,6 +244,22 @@ def in_turns(libs: dict, calls: dict, prefix: str, label: str, results: dict) ->
                   f"{k} {t:.4f}" for k, t in row["kernel_ms"].items()) + " ms", flush=True)
 
 
+def forward32(lib, q, k, v, bias, kb, seed, rate):
+    """attention_tc32.cu's f32 forward: K7 with a dense bias, a key bias or
+    none; K13a with dropout at `rate` > 0 from `seed`."""
+    b, h, n, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, n), device=q.device)
+    thresh = K.dropout_threshold(rate) if rate else 0
+    err = lib.ct_attn_tc32_fwd(_p(q), _p(k), _p(v), _p(out), K._bhnd_strides(q, k, v, out),
+                               _p(kb), _p(bias), 0 if bias is None else bias.shape[0], _p(lse),
+                               _p(seed), thresh, K.dropout_keep_scale(rate) if thresh else 1.0,
+                               b, h, n, K._stream())
+    if err:
+        raise RuntimeError(f"ct_attn_tc32_fwd: CUDA error {err}")
+    return out, lse
+
+
 def backward32(lib, q, k, v, out, do, bias, kb, lse, seed, rate):
     """attention_tc32.cu's f32 backward: dbias for a dense bias (K12b),
     dkey_bias for a key bias (K12a; K13b with dropout at `rate` > 0 from
@@ -313,21 +332,26 @@ def main() -> int:
         print(f"{label} / {wrapper}: host {row['host_ms']:.4f} ms per call, events around one "
               f"call {row['events_ms']:.4f} ms", flush=True)
 
-    # the f32 backwards on attention_tc32.cu, the forward's out and lse from
-    # attention_train.cu (K7 f32, K13a f32)
+    # the f32 forwards and backwards on attention_tc32.cu, the backward's out
+    # and lse from the forward as built
     shapes32 = {"K12a f32 key_bias (32, 12, 512, 64)": (32, 12, 512, 0, (64, 513), 0.0),
                 "K13b f32 dropout (32, 12, 512, 64)": (32, 12, 512, 0, (64, 513), 0.1),
                 "K12b f32 dense (8, 8, 1280, 64)": (8, 8, 1280, 8, None, 0.0),
-                "K12b f32 no bias (8, 8, 1280, 64)": (8, 8, 1280, 0, None, 0.0)}
+                "K12b f32 no bias (8, 8, 1280, 64)": (8, 8, 1280, 0, None, 0.0),
+                "K12b f32 dense T5 (8, 12, 256, 64)": (8, 12, 256, 12, None, 0.0)}
     for label, (b, h, n, bh, pads, rate) in shapes32.items():
         q, k, v, do, bias, kb = inputs(dev, b, h, n, bh, pads, g, torch.float32)
-        out, lse = torch.empty_like(q), torch.empty((b, h, n), device=dev)
-        thresh = K.dropout_threshold(rate) if rate else 0
-        K.attention_train_fwd(q, k, v, out, lse, key_bias=kb, bias=bias,
-                              seed=seed if thresh else None, thresh=thresh,
-                              keep_scale=K.dropout_keep_scale(rate) if thresh else 1.0)
-        in_turns(built[TC32], {"bwd": lambda lib: lambda: backward32(
-            lib, q, k, v, out, do, bias, kb, lse, seed, rate)}, "tc32_", label, results)
+        out, lse = forward32(built[TC32]["as_built"], q, k, v, bias, kb, seed, rate)
+        in_turns(built[TC32], {
+            "fwd": lambda lib: lambda: forward32(lib, q, k, v, bias, kb, seed, rate),
+            "bwd": lambda lib: lambda: backward32(lib, q, k, v, out, do, bias, kb, lse, seed,
+                                                  rate)}, "tc32_", label, results)
+        wrapper = "fused_attention_kbias_dropout" if rate else "fused_attention"
+        results[f"{label} / {wrapper}"] = row = host_ms(
+            (lambda: fused_attention_kbias_dropout(q, k, v, kb, seed, rate)) if rate else
+            (lambda: fused_attention(q, k, v, None if bias is None else bias[None], kb)))
+        print(f"{label} / {wrapper}: host {row['host_ms']:.4f} ms per call, events around one "
+              f"call {row['events_ms']:.4f} ms", flush=True)
         results[f"{label} / kernels.attention_tc32_bwd"] = row = host_ms(
             lambda: K.attention_tc32_bwd(q, k, v, out, do, lse, bias=bias,
                                          want_dbias=bias is not None, key_bias=kb,
