@@ -67,7 +67,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
      (K13a f32 and K13b f32 on attention_tc32.cu, the same seeds on both
      sides, so the same Philox masks);
   6. CT-CLIP pretraining: the training kernels against their plain versions
-     at full width, batch 8 (K11, K9, K10, K14, K15, K5 exact, and K13 in
+     at full width, batch 8 (K11, K9 with the CUDA-core attention core it
+     replaced timed beside it, K9's bf16 core alone on the tensor cores
+     (qknorm_attention_tc.cu) against the plain version at the TPU's
+     rounding points, bit-identical across runs, its dbias rows within 16x
+     the plain f32 version's sums and a copy summing D_i from bf16(P)
+     outside them, the replaced core timed beside it, K10, K14, K15, K5
+     exact, and K13 in
      bf16 at CXR-BERT's batch 8 x 512 and a ragged n: K13a and K13b on
      attention_tc.cu, bit-identical across two runs, against the plain
      version with the forward's mask and, which must miss the tolerance,
@@ -77,8 +83,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      split) at full width, batch 8, 4 steps, with one mini evaluation on 2
      validation volumes and one checkpoint; every training counter must
      rise, and each step runs 12 K13a and 12 K13b on the tensor cores (every
-     attention forward of the run on attention_tc.cu).  The step time (CUDA events), peak memory and a
-     profiled step's breakdown and idle share follow, then a tiny CT-CLIP
+     attention forward of the run on attention_tc.cu) and its 4 K9 cores on
+     qknorm_attention_tc.cu (counter `qk_attention_tc_bwd`).  The step time
+     (CUDA events), peak memory and a profiled step's breakdown and idle
+     share follow, then a tiny CT-CLIP
      training step on the card against the CPU (both bf16, each gradient
      held against the CPU's own bf16-vs-f32 distance; its BERT has one head
      of 64, so K7 and K12a run on the tensor cores), the same card step with
@@ -105,8 +113,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      sequence-major form at (4608, 16, 512) (CT-CLIP at 160 frames, batch
      8) and (512, 20, 512) (the autoencoder's batch 8), K1 and K9 on its
      (160, 64, 512) planes with the (8, 64, 64) bias, each against its
-     plain version; `CTViTTrainer` at full width on 8 synthetic 201 x 128 x
-     128 NIfTIs through VideoDataset(num_frames=200), (t, h, w) = (20, 8,
+     plain version (K9 with the replaced CUDA-core core timed beside it,
+     and its tensor-core core alone there as in phase 6); `CTViTTrainer` at
+     full width on 8 synthetic 201 x 128 x 128 NIfTIs through
+     VideoDataset(num_frames=200), (t, h, w) = (20, 8,
      8): 3 generator steps with falling losses, one round with the
      discriminator, step times, peak memory, a profiled step, a checkpoint
      round trip and a reconstruction dump, with the sequence-major counters
@@ -275,9 +285,15 @@ KERNELS = {
     "geglu_ff_bwd": _kernel("_pallas_ff_bwd", "ffn.py:238", "gemm.cu",
                             ["layernorm.cu", "gemm.cu"], "geglu_ff_bwd", "ctclip_train"),
     "spatial_attention_bwd": _kernel("_pallas_spatial_bwd", "spatial_attention.py:297",
-                                     "qknorm_attention_bwd.cu",
-                                     ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
+                                     "qknorm_attention_tc.cu",
+                                     ["layernorm.cu", "gemm.cu", "qknorm_attention_tc.cu"],
                                      "spatial_attention_bwd", "ctclip_train"),
+    # K9's bf16 attention core alone, on the tensor cores (the route
+    # kernels.qk_bwd_tensor_cores gives K9's planes), its own counter
+    "spatial_attention_bwd_tc": _kernel("_pallas_spatial_bwd (bf16 attention core)",
+                                        "spatial_attention.py:297", "qknorm_attention_tc.cu",
+                                        ["qknorm_attention_tc.cu", "gemm.cu"],
+                                        "qk_attention_tc_bwd", "ctclip_train"),
     "grid_attention_bwd": _kernel("_pallas_small_qknorm_bwd (grid_layout)",
                                   "small_attention.py:437", "qknorm_attention_bwd.cu",
                                   ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
@@ -407,9 +423,9 @@ PATHS = {
                               "attention_tc_bwd"],
     # the training step (K13a and K13b on the tensor cores) and the mini
     # evaluation (K6 ingest, K4 embed, K5)
-    "ctclip_train": ["geglu_ff_bwd", "spatial_attention_bwd", "grid_attention_bwd",
-                     "peg_bwd", "vq_cluster_stats", "vq_assign_exact", "geglu_ff",
-                     "spatial_attention", "grid_attention", "attention_dropout",
+    "ctclip_train": ["geglu_ff_bwd", "spatial_attention_bwd", "qk_attention_tc_bwd",
+                     "grid_attention_bwd", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
+                     "geglu_ff", "spatial_attention", "grid_attention", "attention_dropout",
                      "attention_dropout_bwd", "attention_tc_bwd", "rearrange_patches",
                      "row_embed", "vq_assign", "fused_attention", "attention_tc"],
     # the inference embeds under grad, on a volume and on rows
@@ -419,26 +435,27 @@ PATHS = {
 # a training step on volumes with visual SSL: K6 in the CLIP embed, K8 and
 # K16a in each view's embed, the tower's kernels and backwards, K13
 AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "rearrange_patches", "geglu_ff_bwd",
-             "spatial_attention_bwd", "grid_attention_bwd", "peg_bwd", "vq_cluster_stats",
-             "vq_assign_exact", "geglu_ff", "spatial_attention", "grid_attention",
-             "attention_dropout", "attention_dropout_bwd", "attention_tc", "attention_tc_bwd"]
+             "spatial_attention_bwd", "qk_attention_tc_bwd", "grid_attention_bwd", "peg_bwd",
+             "vq_cluster_stats", "vq_assign_exact", "geglu_ff", "spatial_attention",
+             "grid_attention", "attention_dropout", "attention_dropout_bwd", "attention_tc",
+             "attention_tc_bwd"]
 PATHS["ctclip_aux_ssl_mlm"] = AUX_TRAIN + ["vq_assign", "fused_attention"]  # + mini-eval
 PATHS["ctclip_aux_filip_simclr"] = AUX_TRAIN
 # phase 8: the CTViT autoencoder on GenerateCT's non-cubic (20, 8, 8) grid
 # (training embed K6, decoder un-patchify K17 forward and K6 backward),
 # `cli reconstruct` on the cubic 24^3 grid, CT-CLIP at 160 frames (16, 24, 24)
 AE_TRAIN = ["seq_attention", "seq_attention_bwd", "spatial_attention", "spatial_attention_bwd",
-            "geglu_ff", "geglu_ff_bwd", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
-            "rearrange_patches", "unrearrange_patches"]
+            "qk_attention_tc_bwd", "geglu_ff", "geglu_ff_bwd", "peg_bwd", "vq_cluster_stats",
+            "vq_assign_exact", "rearrange_patches", "unrearrange_patches"]
 PATHS["ctvit_ae_train"] = AE_TRAIN
 PATHS["ctvit_ae_discr"] = AE_TRAIN + ["vq_assign", "patch_embed"]  # + the inference recon
 PATHS["reconstruct"] = ["patch_embed", "spatial_attention", "grid_attention", "geglu_ff",
                         "vq_assign", "unrearrange_patches"]
 PATHS["ctclip_160_train"] = ["seq_attention", "seq_attention_bwd", "spatial_attention",
-                             "spatial_attention_bwd", "geglu_ff", "geglu_ff_bwd", "peg_bwd",
-                             "vq_cluster_stats", "vq_assign_exact", "rearrange_patches",
-                             "attention_dropout", "attention_dropout_bwd", "attention_tc",
-                             "attention_tc_bwd"]
+                             "spatial_attention_bwd", "qk_attention_tc_bwd", "geglu_ff",
+                             "geglu_ff_bwd", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
+                             "rearrange_patches", "attention_dropout", "attention_dropout_bwd",
+                             "attention_tc", "attention_tc_bwd"]
 PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "seq_attention", "geglu_ff",
                           "vq_assign", "fused_attention", "attention_tc"]
 # phase 9: MaskGIT on the frozen autoencoder's (20, 8, 8) codes.  A training
@@ -704,9 +721,10 @@ def cuda_core_twin(q, k, v, do=None, key_bias=None, bias=None, seed=None, rate=0
     return lambda: fwd()[0], bwd
 
 
-def twin_result(name: str, fn, ref) -> dict:
+def twin_result(name: str, fn, ref, source: str = "attention_train.cu") -> dict:
     """Error against the plain outputs `ref` and median time of the replaced
-    CUDA-core kernel `fn` (cuda_core_twin)."""
+    CUDA-core kernel `fn` (cuda_core_twin; cuda_core_k9: `source`
+    qknorm_attention_bwd.cu)."""
     import torch
 
     got = _as_tuple(fn())
@@ -715,9 +733,80 @@ def twin_result(name: str, fn, ref) -> dict:
     dtype = str(got[0].dtype).split(".")[-1]
     del got
     ms = cuda_ms(fn)
-    log(f"kernel {name}: the replaced CUDA-core form (attention_train.cu, {dtype}) "
+    log(f"kernel {name}: the replaced CUDA-core form ({source}, {dtype}) "
         f"{ms:.3f} ms, max_abs_err {err:.4e} max_rel_err {rel:.4e}")
-    return dict(source=CSRC + "attention_train.cu", ms=ms, max_abs_err=err, max_rel_err=rel)
+    return dict(source=CSRC + source, ms=ms, max_abs_err=err, max_rel_err=rel)
+
+
+def cuda_core_k9(fn):
+    """`fn`, a call that reaches K9's attention core, with the core on the
+    CUDA-core qk_attention_bwd_kernel (qknorm_attention_bwd.cu) that
+    qknorm_attention_tc.cu replaced: kernels.qk_bwd_tensor_cores answers
+    False inside it, so neither the launch nor the counter takes the
+    tensor cores."""
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    def run():
+        with replaced(K, "qk_bwd_tensor_cores", lambda *a: False):
+            return fn()
+    return run
+
+
+def qk_core_case(dev, g, S: int, n: int) -> dict:
+    """K9's bf16 attention core alone (kernels.qk_attention_bwd) on (S, n)
+    planes, 8 heads of 32, with an (8, n, n) bias, as the sublayer's backward
+    hands it over (q and dO (S n, 256), kv (S n, 512)): on the tensor cores
+    against qk_attention_bwd_core_plain (the TPU kernel's rounding points),
+    merged, dq and dkv within REL_TOL of max|plain|, the sums over all planes
+    (dq_scale, dk_scale, dbias) within BWD_REL_TOL; dbias's rows sum to zero
+    within 16x the plain f32 version's rounding, and a copy summing D_i from
+    bf16(P) (CT_QK_TC_D_FROM_BF16_P) must land outside that; the replaced
+    CUDA-core kernel timed beside it."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.qknorm_attention import qk_attention_bwd_core_plain
+
+    heads, d = 8, 32
+    hd = heads * d
+    q, kv, dm = (torch.randn((S * n, w), generator=g, device=dev).to(torch.bfloat16)
+                 for w in (hd, 2 * hd, hd))
+    qs = (1 + 0.2 * torch.randn(d, generator=g, device=dev)) * 8.0
+    ks = 1 + 0.2 * torch.randn(d, generator=g, device=dev)
+    bias = torch.randn((heads, n, n), generator=g, device=dev)
+    layout = dict(sequences=S, inner=1, heads=heads, n=n, d=d, q_strides=(n * hd, 0, d, hd),
+                  kv_strides=(n * 2 * hd, 0, d, 2 * hd), q_scale=qs, k_scale=ks, bias=bias)
+    plain_args = (heads, d, n, qs, ks, bias)
+    tols = (REL_TOL,) * 3 + (BWD_REL_TOL,) * 3
+
+    def check(got, ref):
+        rels = [_rel_errors((a,), (b,))[1] for a, b in zip(got, ref)]
+        f32 = qk_attention_bwd_core_plain(q.float(), kv.float(), dm.float(), *plain_args)[5]
+        plain_rows = f32.sum(-1).abs().max().item()
+        del f32
+        rows = got[5].sum(-1).abs().max().item()
+        copy = K.copy_library("qknorm_attention_tc.cu", CT_QK_TC_D_FROM_BF16_P=1)
+        fault_rows = K.qk_attention_bwd(q, kv, dm, lib=copy, **layout)[5].sum(-1) \
+            .abs().max().item()
+        res = dict(max_abs_err=_rel_errors(got, ref)[0], max_rel_err=max(rels),
+                   rel_err_by_output=rels, tolerance=f"rel {tols} by output; dbias rows within "
+                   "16x the plain f32 version's sums, the D_i-from-bf16(P) copy outside",
+                   dbias_row_sum_max=rows, plain_f32_dbias_row_sum_max=plain_rows,
+                   d_from_bf16_p_dbias_row_sum_max=fault_rows)
+        log(f"kernel K9 core at ({S}, {n}): max_rel_err by output "
+            f"{[f'{r:.2e}' for r in rels]}; largest |row sum| of dbias {rows:.3e}, plain f32 "
+            f"{plain_rows:.3e}, the copy with D_i from bf16(P) {fault_rows:.3e} (must exceed "
+            f"16x the plain's)")
+        return all(r <= t for r, t in zip(rels, tols)) and rows <= 16 * plain_rows < fault_rows, \
+            res
+
+    return dict(kern=lambda: K.qk_attention_bwd(q, kv, dm, **layout),
+                plain=lambda: qk_attention_bwd_core_plain(q, kv, dm, *plain_args),
+                twin=cuda_core_k9(lambda: K.qk_attention_bwd(
+                    q, kv, dm, group=-(-S // min(S, 33)), warps=8, **layout)),
+                twin_source="qknorm_attention_bwd.cu", check=check, bit_identical=True,
+                library=None, inputs=(q, kv, dm, bias), outputs=(q, q, kv, bias),
+                flops=12 * S * heads * n * n * d)
 
 
 def kernel_phase(dev):
@@ -1305,12 +1394,14 @@ def train_kernel_cases(dev):
     xs, dos, cpb = rn(TRAIN_B * 24, 576, dim, dtype=bf), rn(TRAIN_B * 24, 576, dim, dtype=bf), \
         rn(heads, 576, 576)
     leaves = [t.clone().requires_grad_() for t in (xs, *w_attn, cpb)]
+    k9 = grad_case(lambda *a: fused_spatial_qknorm_attention(*a, heads, dh), leaves, dos)
     yield "spatial_attention_bwd", dict(
-        kern=grad_case(lambda *a: fused_spatial_qknorm_attention(*a, heads, dh), leaves, dos),
+        kern=k9, twin=cuda_core_k9(k9), twin_source="qknorm_attention_bwd.cu",
         plain=lambda: qknorm_attention_bwd_plain(xs, *w_attn, cpb, dos, heads, dh),
         library=None, inputs=(xs, dos, *w_attn, cpb), outputs=(xs, *w_attn, cpb),
         flops=proj + 12 * TRAIN_B * 24 * heads * 576 * 576 * dh, tol=BWD_REL_TOL)
-    del xs, dos, cpb, leaves
+    del xs, dos, cpb, leaves, k9
+    yield "spatial_attention_bwd_tc", qk_core_case(dev, g, TRAIN_B * 24, 576)
     xg, dog = rn(TRAIN_B, 24, 576, dim, dtype=bf), rn(TRAIN_B, 24, 576, dim, dtype=bf)
     leaves = [t.clone().requires_grad_() for t in (xg, *w_attn)]
     yield "grid_attention_bwd", dict(
@@ -1464,7 +1555,8 @@ def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
             if res["wrong_seed_max_rel_err"] <= case["tol"]:
                 raise AssertionError(f"{name}: another seed's mask reads within tolerance")
         if case.get("twin"):
-            res["replaced"] = twin_result(name, case["twin"], ref)
+            res["replaced"] = twin_result(name, case["twin"], ref,
+                                          case.get("twin_source", "attention_train.cu"))
         if case.get("copy"):  # a one-change copy of the kernel must miss the limits
             crels = [_rel_errors((c,), (r,))[1] for c, r in zip(_as_tuple(case["copy"]()), ref)]
             res["copy_rel_err_by_output"] = crels
@@ -2154,6 +2246,8 @@ CTCLIP_GROUPS = (
     ("K11 GEGLU FF backward tile (ff_bwd_kernel)", ("ff_bwd_kernel",)),
     ("backward products NN/TN + split sums (gemm_layout_kernel, sum_splits)",
      ("gemm_layout_kernel", "gemm_layout_f32_kernel", "sum_splits_kernel")),
+    ("K9 bf16 attention core backward on the tensor cores (qknorm_attention_tc.cu)",
+     ("qk_tc_",)),
     ("K9/K10 attention core backward (qk_attention_bwd_kernel)", ("qk_attention_bwd_kernel",)),
     ("LayerNorm backward (ln_bwd_kernel)", ("ln_bwd_kernel",)),
     ("K14 PEG dW/db (peg_dw_kernel)", ("peg_dw_kernel",)),
@@ -2227,17 +2321,18 @@ def timed_steps(step, state, batch, card: str, label: str, batch_size: int,
 
 
 # launches per step of `cli train`: bf16, the text tower's 12 layers' K13a
-# and K13b on the tensor cores; f32, each of the 4 + 4 layers' backward, one
+# and K13b on the tensor cores, the 4 spatial layers' K9 core on the tensor
+# cores (qknorm_attention_tc.cu); f32, each of the 4 + 4 layers' backward, one
 # K5 exact and one K15, K13a f32 and K13b f32 on the tensor cores in 3xTF32
 # (attention_tc32.cu)
 CLIP_PER_STEP = {
     "bf16": dict(attention_dropout=BERT_LAYERS, attention_dropout_bwd=BERT_LAYERS,
-                 attention_tc_bwd=BERT_LAYERS),
+                 attention_tc_bwd=BERT_LAYERS, spatial_attention_bwd=4, qk_attention_tc_bwd=4),
     "f32": dict(spatial_attention_bwd_f32=4, grid_attention_bwd_f32=4, vq_assign_exact_f32=1,
                 vq_cluster_stats_f32=1, geglu_ff_bwd_f32=8, attention_dropout=BERT_LAYERS,
                 attention_dropout_bwd=BERT_LAYERS, attention_tc32_bwd=BERT_LAYERS,
                 attention_tc=0, attention_tc_bwd=0, peg_bwd=0, spatial_attention_bwd=4,
-                grid_attention_bwd=4),
+                grid_attention_bwd=4, qk_attention_tc_bwd=0),
 }
 
 
@@ -2665,7 +2760,8 @@ def ctclip_train_reference_phase(dev, work: Path) -> dict:
 AUX_GROUPS = (
     ("K16a LN(4000) backward through the patch gather (ln_bwd_kernel<true>)",
      ("ln_bwd_kernel<true>",)),
-    ("K6/K17 rearrange (rearrange_kernel)", ("rearrange_kernel",)),
+    ("K6/K17 rearrange (rearrange_kernel, unrearrange_runs_kernel)",
+     ("rearrange_kernel", "unrearrange_runs_kernel")),
     ("BatchNorm of the SSL heads", ("batch_norm",)),
     # cuBLAS's f32 kernels; cuDNN's PEG kernels are also named "..._sgemm"
     ("f32 products: SSL heads, MLM head (cuBLAS)", ("_f32f32_", "simt_sgemm")),
@@ -2842,7 +2938,8 @@ CLIP160_B = 8  # CT-CLIP contrastive batch at 160 frames
 # the planted K10 fault > 10
 TINY_AE_GRAD_RATIO = 1.5
 # kernel-name fragments of an autoencoder step's groups (first match)
-AE_GROUPS = (("K6/K17 rearrange (rearrange_kernel)", ("rearrange_kernel",)),) + CTCLIP_GROUPS
+AE_GROUPS = (("K6/K17 rearrange (rearrange_kernel, unrearrange_runs_kernel)",
+              ("rearrange_kernel", "unrearrange_runs_kernel")),) + CTCLIP_GROUPS
 
 
 def ae_config():
@@ -2859,7 +2956,9 @@ def seq_kernel_cases(dev):
     """K2 and K10 in sequence-major form at CT-CLIP's 160-frame batch of 8,
     (4608, 16, 512), and at the autoencoder's batch of 8, (512, 20, 512);
     K1 and K9 on the autoencoder's (160, 64, 512) planes with the (8, 64,
-    64) bias.  Each as train_kernel_cases gives them."""
+    64) bias (K9 with the replaced CUDA-core core timed beside), and K9's
+    core alone there (`qk_core_case`).  Each as train_kernel_cases gives
+    them."""
     import torch
 
     from ct_clip_tpu_torch.ops.qknorm_attention import (
@@ -2892,8 +2991,12 @@ def seq_kernel_cases(dev):
                          flops=2 * rows * dim * 4 * hd + core, tol=REL_TOL)
         leaves = [t.clone().requires_grad_() for t in (x, *w, *extra)]
         out = fwd(*leaves)
+        kern = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
+        # K9 (a bias): the replaced CUDA-core core timed beside the tensor cores'
+        twin = {} if bias is None else dict(twin=cuda_core_k9(kern),
+                                            twin_source="qknorm_attention_bwd.cu")
         yield name + "_bwd", dict(
-            kern=lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+            kern=kern, **twin,
             plain=lambda: tuple(t for t in qknorm_attention_bwd_plain(
                 x, *w, bias, do, heads, dh) if t is not None),
             library=None, inputs=(x, do, *w, *extra), outputs=(x, *w, *extra),
@@ -2902,6 +3005,7 @@ def seq_kernel_cases(dev):
     yield from pair("seq_attention", CLIP160_B * 576, 16, None)
     yield from pair("seq_attention_generatect", AE_B * 64, 20, None)
     yield from pair("spatial_attention_n64", AE_B * AE_FRAMES // 10, 64, rn(heads, 64, 64))
+    yield "spatial_attention_n64_bwd_tc", qk_core_case(dev, g, AE_B * AE_FRAMES // 10, 64)
 
 
 def write_volumes(root: Path, n: int, shape, seed: int):
@@ -4161,7 +4265,8 @@ F32_TRAIN_GROUPS = (
      ("qk_attention_bwd_f32_kernel",)),
     ("K5 exact on f32 rows (gemm_argmax3_rows_kernel)", ("gemm_argmax3_rows",)),
     ("K15 f32 row sums (sum_f32_kernel)", ("sum_f32_kernel",)),
-    ("K6/K17 rearrange (rearrange_kernel)", ("rearrange_kernel",)),
+    ("K6/K17 rearrange (rearrange_kernel, unrearrange_runs_kernel)",
+     ("rearrange_kernel", "unrearrange_runs_kernel")),
 ) + CTCLIP_GROUPS
 
 
@@ -4530,7 +4635,7 @@ def main() -> int:
         for key in ("seq_attention", "seq_attention_bwd"):
             results[key] = dict(seq[key], at_generatect=seq[key.replace(
                 "seq_attention", "seq_attention_generatect")])
-        for key in ("spatial_attention", "spatial_attention_bwd"):
+        for key in ("spatial_attention", "spatial_attention_bwd", "spatial_attention_bwd_tc"):
             results[key]["at_n64"] = seq[key.replace("spatial_attention",
                                                      "spatial_attention_n64")]
         ae = ctvit_ae_phase(dev, work, card)

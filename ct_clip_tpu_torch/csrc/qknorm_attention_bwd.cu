@@ -8,11 +8,14 @@
 // Replaces the per-head core of these TPU kernels:
 //   * ct_clip_tpu/ops/pallas/spatial_attention.py::_pallas_spatial_bwd (K9,
 //     _bwd_kernel :138-236): 576-token planes with the CPB bias, whose
-//     gradient dbias is summed over all planes;
+//     gradient dbias is summed over all planes; in bf16 at head dim 32 from
+//     32 tokens (K9's planes) qknorm_attention_tc.cu takes it on the tensor
+//     cores (ops/kernels::qk_bwd_tensor_cores), the f32 form here every f32
+//     call;
 //   * ops/pallas/small_attention.py::_pallas_small_qknorm_bwd with
 //     grid_layout=True (K10, _bwd_kernel :249): 24-token t-columns of the
 //     (b, t, h*w, d) grid, read and written in place through strides, no
-//     bias.
+//     bias, and its sequence-major form (16- and 20-token sequences).
 // The products around it (projections, dX = dY W, weight gradients) run in
 // gemm.cu, the LayerNorm backward in layernorm.cu.
 //
@@ -43,8 +46,12 @@
 // gradient: the block owns one (heads, n, n) partial per group, accumulated
 // over its sequences in order, and ct_sum_splits adds the groups in order;
 // the scale gradients are per-(group, head, warp) partials summed the same
-// way.  No atomics: the result does not change from run to run.  Tensor-core
-// products are later work.
+// way.  No atomics: the result does not change from run to run.  At K9's
+// planes this kernel took ~45 ms of the 57.9 ms bf16 call (NVIDIA H100 80GB
+// HBM3, 700 W; PERF.md), its products on the CUDA cores at 0.9% of the
+// bound: qknorm_attention_tc.cu replaces it there; here it keeps K10's
+// short sequences, where one block per sequence group wastes nothing on
+// 64-row tiles.
 //
 // The f32 form (qk_attention_bwd_f32_kernel; the TPU kernels run f32
 // operands at "highest", spatial_attention.py:323, small_attention.py:487,

@@ -30,6 +30,21 @@
 // kernels' f32 blocks do (patchify.py:55-64, 200-215): the f32 zero-shot
 // rows ingest writes f32 rows (K6), and an f32 autoencoder's decoder
 // un-patchifies f32 pixel rows (K17).  An f32 slab is 38.4 KB at full width.
+//
+// K17 f32 where p % 4 == 0 (CTViT's p = 20, GenerateCT's 16) takes a form of
+// its own, unrearrange_runs_kernel: a patch row's run of p voxels (64 or 80
+// B) is a whole number of 16-byte vectors on both sides, so each thread
+// moves float4s straight from the rows to the volume, no slab round trip
+// through shared memory, the volume written in order (coalesced) and the
+// rows read a run at a time.  A block owns PASSES x rp consecutive volume
+// rows of one frame (rp = 256 / (W / 4) rows of W / 4 threads each: 1,024
+// vectors, 16 KB, at the sampler's W = 128; 960 at W = 480), so the
+// sampler's 13 MB run as 800 blocks, a 240 x 480 x 480 volume as 14,400.
+// Each thread finds its column's source offset once; each vector costs one
+// division (its row by p).  Kernel-only, NVIDIA H100 80GB HBM3 at 700 W
+// (tools/port_attention_tc_probe.py --kernel k17; PERF.md): 0.0061 ms at the sampler's shape
+// and 0.150 at a volume, against the slab form's 0.0088 and 0.156 and
+// .contiguous()'s 0.013 and 0.220.
 #include "common.cuh"
 
 namespace {
@@ -109,6 +124,39 @@ rearrange_kernel(const T* __restrict__ in, T* __restrict__ out, RowsGeom g) {
   }
 }
 
+constexpr int RUN_PASSES = 4;  // volume rows per thread, unrearrange_runs_kernel
+
+// K17 f32 for p % 4 == 0 (and W % 4 == 0, 16-byte aligned, W / 4 <= 1024):
+// grid (ceil(H / (PASSES rp)), B F), blockDim rp x W / 4.
+__global__ void __launch_bounds__(1024)
+unrearrange_runs_kernel(const float* __restrict__ rows, float* __restrict__ vol, RowsGeom g,
+                        int rp) {
+  const int w4 = g.W / 4;
+  const int c4 = threadIdx.x % w4, yq = threadIdx.x / w4;  // this thread's column and row
+  const int x = 4 * c4, wi = x / g.p;
+  const long long xsrc = wi * g.row_stride + (x - wi * g.p);
+  const int f = blockIdx.y % g.F;
+  const long long b = blockIdx.y / g.F;
+  const int ti = f / g.pt, z = f - ti * g.pt;
+  const float* src = rows + b * g.batch_stride + (long long)ti * g.h * g.w * g.row_stride
+                     + z * g.p * g.p + xsrc;
+  float* dst = vol + ((b * g.F + f) * g.H) * (long long)g.W + x;
+  const int y0 = blockIdx.x * RUN_PASSES * rp + yq;
+  float4 v[RUN_PASSES];
+#pragma unroll
+  for (int k = 0; k < RUN_PASSES; ++k) {
+    const int y = y0 + k * rp, hi = y / g.p;
+    if (y < g.H)
+      v[k] = *reinterpret_cast<const float4*>(src + (long long)hi * g.w * g.row_stride
+                                              + (y - hi * g.p) * g.p);
+  }
+#pragma unroll
+  for (int k = 0; k < RUN_PASSES; ++k) {
+    const int y = y0 + k * rp;
+    if (y < g.H) *reinterpret_cast<float4*>(dst + (long long)y * g.W) = v[k];
+  }
+}
+
 template <typename T, int VEC, bool INVERSE>
 int launch_rearrange(const T* in, T* out, const RowsGeom& g, int B, cudaStream_t stream) {
   const size_t smem = (size_t)g.p * g.W * sizeof(T);
@@ -170,10 +218,21 @@ CT_EXPORT int ct_unrearrange_patches(const void* rows, long long rows_batch_stri
                                rows_row_stride, vec, stream);
 }
 
-// The f32 form of ct_unrearrange_patches (the conditions of the f32 K6).
+// The f32 form of ct_unrearrange_patches (the conditions of the f32 K6);
+// with vec, p % 4 == 0 and at most 65,535 frames, unrearrange_runs_kernel.
 CT_EXPORT int ct_unrearrange_patches_f32(const void* rows, long long rows_batch_stride,
                                          long long rows_row_stride, int B, int F, int H, int W,
                                          int pt, int p, void* video, int vec, void* stream) {
-  return rearrange<float, true>(rows, video, B, F, H, W, pt, p, rows_batch_stride,
-                                rows_row_stride, vec, stream);
+  if (!vec || p % 4 || W / 4 > 1024 || rows_batch_stride % 4 || rows_row_stride % 4
+      || (long long)B * F > 65535)
+    return rearrange<float, true>(rows, video, B, F, H, W, pt, p, rows_batch_stride,
+                                  rows_row_stride, vec, stream);
+  if (pt <= 0 || p <= 0 || F % pt || H % p || W % p) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || F <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidConfiguration;
+  const RowsGeom g = {F, H, W, pt, p, F / pt, H / p, W / p, rows_batch_stride, rows_row_stride};
+  const int rp = W / 4 >= 256 ? 1 : 256 / (W / 4);
+  const dim3 grid((H + RUN_PASSES * rp - 1) / (RUN_PASSES * rp), B * F);
+  unrearrange_runs_kernel<<<grid, rp * (W / 4), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rows), static_cast<float*>(video), g, rp);
+  return (int)cudaGetLastError();
 }

@@ -14,12 +14,15 @@ C entry point reports a CUDA error.  Outputs are allocated by the callers
 (the op modules) with `torch.empty`.
 
 Launch counts: each op module that ports a TPU kernel adds one to its
-counter (`count_launch`) where its CUDA path runs, so a run can show that
-its main path went through the kernels (`launch_counts`).
+counter (`count_launch`) where its CUDA path runs, and a launch helper that
+chooses between kernels counts the one it launched (`qk_attention_tc_bwd`),
+so a run can show that its main path went through the kernels
+(`launch_counts`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -79,6 +82,9 @@ KERNELS = (
     "attention_tc32_bwd",  # every f32 backward there: K12b, dense bias or none
                            # (attention_dense_bwd), K12a, key bias (attention_bwd),
                            # K13b, key bias and dropout (attention_dropout_bwd)
+    # qknorm_attention_tc.cu's bf16 tensor-core core of the QK-norm backward
+    "qk_attention_tc_bwd",  # K9 where `qk_bwd_tensor_cores` takes it
+                            # (spatial_attention_bwd)
     # the f32 forms, counted beside the function's own counter
     "geglu_ff_f32",        # K3 f32 (gemm.cu f32 products, layernorm.cu f32 rows)
     "geglu_ff_bwd_f32",    # K11 f32
@@ -277,6 +283,8 @@ def _signatures():
                                 i, i, i, p, p, p, p, p, p, p, i, p],
         "ct_qk_attention_bwd_f32": [p, p, p, p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i,
                                     i, i, i, i, p, p, p, p, p, p, p, i, p],
+        "ct_qk_attention_tc_bwd": [p, p, p, p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i,
+                                   i, i, i, p, p, p, p, p, p, p, p, p, p, i, p, p, p],
         "ct_peg_dw": [p, p, i, i, i, i, i, i, i, i, p, p],
         "ct_vq_cluster_stats": [p, p, i, i, i, p, p, p, p, p, p, p],
         "ct_vq_cluster_stats_f32": [p, p, i, i, i, p, p, p, p, p, p, p],
@@ -341,8 +349,19 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _stream() -> int:
+    """The current device's current CUDA stream as an address, by the
+    binding PyTorch's own generated launchers read it with
+    (torch/_dynamo/device_interface.py), without building a
+    torch.cuda.Stream, which costs ~8 us of host time a call (NVIDIA H100
+    80GB HBM3; tools/port_attention_tc_probe.py --kernel k17): as much as a
+    small kernel.  A PyTorch that lacks the private binding takes the public
+    call."""
+    raw, device = (getattr(torch._C, name, None)
+                   for name in ("_cuda_getCurrentRawStream", "_cuda_getDevice"))
+    if raw is None or device is None:  # a PyTorch without the binding
+        return torch.cuda.current_stream().cuda_stream
+    return raw(device())
 
 
 def require(t: torch.Tensor, name: str, dtype, ndim: int,
@@ -666,6 +685,40 @@ def patch_layernorm(video: torch.Tensor, pt: int, p: int,
     return out
 
 
+def _on_card(name: str, *tensors) -> None:
+    """The per-call checks of the rearrange.cu wrappers: CUDA tensors of one
+    kernel form (their geometry is checked once, by the cached functions)."""
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
+        if t.dtype not in FORMS or t.dtype != tensors[0].dtype:
+            raise ValueError(f"{name}: expected {FORMS} alike, got {t.dtype}")
+
+
+@functools.lru_cache(maxsize=128)
+def rearrange_geometry(video_shape, dtype: torch.dtype, pt: int, p: int, out_shape,
+                       out_strides, aligned: bool):
+    """`rearrange_patches`' checks that depend on the geometry alone, once
+    per geometry (shapes, dtype, patch, the strides of `out` and whether both
+    bases are 16-byte aligned): the C entry's integer arguments (B, F, H,
+    W, pt, p), (batch, row strides of out) and `vec` (16-byte accesses).
+    Raises ValueError on a geometry the kernel does not take, every call."""
+    if len(video_shape) != 4 or len(out_shape) != 3:
+        raise ValueError(f"rearrange_patches: video {tuple(video_shape)} must be (B, F, H, W), "
+                         f"out {tuple(out_shape)} (B, n, pt*p*p)")
+    B, F, H, W = video_shape
+    if pt < 1 or p < 1 or F % pt or H % p or W % p:
+        raise ValueError(f"rearrange_patches: {tuple(video_shape)} vs {pt}x{p}x{p}")
+    n, pd = (F // pt) * (H // p) * (W // p), pt * p * p
+    sb, sr, se = out_strides
+    if tuple(out_shape) != (B, n, pd) or se != 1 or sr < pd or (B > 1 and sb < n * sr):
+        raise ValueError(f"rearrange_patches: out {tuple(out_shape)} with strides "
+                         f"{tuple(out_strides)} is not ({B}, {n}, {pd}) rows")
+    c = 16 // dtype.itemsize
+    vec = W % c == 0 and (p * p) % c == 0 and sb % c == 0 and sr % c == 0 and aligned
+    return (B, F, H, W, pt, p), (sb, sr), int(vec)
+
+
 def rearrange_patches(video: torch.Tensor, pt: int, p: int,
                       out: torch.Tensor) -> torch.Tensor:
     """(B, F, H, W) video -> out (B, t*h*w, pt*p*p) patch rows (rearrange.cu),
@@ -673,42 +726,48 @@ def rearrange_patches(video: torch.Tensor, pt: int, p: int,
 
     `out` may be a view, such as one slot of a batch buffer: its rows must
     be contiguous and must not overlap."""
-    require(video, "video", FORMS, 4)
-    require(out, "out", video.dtype, 3, contiguous=False)
-    B, F, H, W = video.shape
-    if F % pt or H % p or W % p:
-        raise ValueError(f"rearrange_patches: {tuple(video.shape)} vs {pt}x{p}x{p}")
-    n, pd = (F // pt) * (H // p) * (W // p), pt * p * p
-    sb, sr, se = out.stride()
-    if out.shape != (B, n, pd) or se != 1 or sr < pd or (B > 1 and sb < n * sr):
-        raise ValueError(f"rearrange_patches: out {tuple(out.shape)} with strides "
-                         f"{out.stride()} is not ({B}, {n}, {pd}) rows")
-    c = _chunk(video)
-    vec = (W % c == 0 and (p * p) % c == 0 and sb % c == 0 and sr % c == 0
-           and video.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    err = _form("ct_rearrange_patches", video)(_ptr(video), B, F, H, W, pt, p, _ptr(out),
-                                               sb, sr, int(vec), _stream())
+    _on_card("rearrange_patches", video, out)
+    if not video.is_contiguous():
+        raise ValueError("rearrange_patches: expected a contiguous video")
+    vp, op = video.data_ptr(), out.data_ptr()
+    geom, strides, vec = rearrange_geometry(video.shape, video.dtype, pt, p, out.shape,
+                                            out.stride(), (vp | op) % 16 == 0)
+    err = _form("ct_rearrange_patches", video)(vp, *geom, op, *strides, vec, _stream())
     _check(err, "ct_rearrange_patches")
     return out
+
+
+@functools.lru_cache(maxsize=128)
+def unrearrange_geometry(rows_shape, dtype: torch.dtype, pt: int, p: int, out_shape,
+                         aligned: bool):
+    """`unrearrange_patches`' checks that depend on the geometry alone, once
+    per geometry: the C entry's integer arguments (batch and row strides of
+    the rows, B, F, H, W, pt, p) and `vec`.  Raises ValueError on a geometry
+    the kernel does not take, every call."""
+    if len(rows_shape) != 3 or len(out_shape) != 4:
+        raise ValueError(f"unrearrange_patches: rows {tuple(rows_shape)} must be (B, n, "
+                         f"pt*p*p), out {tuple(out_shape)} (B, F, H, W)")
+    B, F, H, W = out_shape
+    if pt < 1 or p < 1 or F % pt or H % p or W % p:
+        raise ValueError(f"unrearrange_patches: {tuple(out_shape)} vs {pt}x{p}x{p}")
+    n, pd = (F // pt) * (H // p) * (W // p), pt * p * p
+    if tuple(rows_shape) != (B, n, pd):
+        raise ValueError(f"unrearrange_patches: rows {tuple(rows_shape)} != {(B, n, pd)}")
+    c = 16 // dtype.itemsize
+    vec = W % c == 0 and (p * p) % c == 0 and pd % c == 0 and aligned
+    return (n * pd, pd, B, F, H, W, pt, p), int(vec)
 
 
 def unrearrange_patches(rows: torch.Tensor, pt: int, p: int,
                         out: torch.Tensor) -> torch.Tensor:
     """(B, t*h*w, pt*p*p) patch rows -> out (B, F, H, W), the inverse of
-    `rearrange_patches` (rearrange.cu), bf16 or f32."""
-    require(rows, "rows", FORMS, 3)
-    require(out, "out", rows.dtype, 4)
-    B, F, H, W = out.shape
-    if F % pt or H % p or W % p:
-        raise ValueError(f"unrearrange_patches: {tuple(out.shape)} vs {pt}x{p}x{p}")
-    n, pd = (F // pt) * (H // p) * (W // p), pt * p * p
-    if tuple(rows.shape) != (B, n, pd):
-        raise ValueError(f"unrearrange_patches: rows {tuple(rows.shape)} != {(B, n, pd)}")
-    c = _chunk(rows)
-    vec = (W % c == 0 and (p * p) % c == 0 and pd % c == 0
-           and rows.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    err = _form("ct_unrearrange_patches", rows)(_ptr(rows), n * pd, pd, B, F, H, W, pt, p,
-                                                _ptr(out), int(vec), _stream())
+    `rearrange_patches` (rearrange.cu), bf16 or f32; both contiguous."""
+    _on_card("unrearrange_patches", rows, out)
+    if not (rows.is_contiguous() and out.is_contiguous()):
+        raise ValueError("unrearrange_patches: expected contiguous rows and out")
+    rp, op = rows.data_ptr(), out.data_ptr()
+    geom, vec = unrearrange_geometry(rows.shape, rows.dtype, pt, p, out.shape, (rp | op) % 16 == 0)
+    err = _form("ct_unrearrange_patches", rows)(rp, *geom, op, vec, _stream())
     _check(err, "ct_unrearrange_patches")
     return out
 
@@ -771,21 +830,92 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+# the bf16 QK-norm core on the tensor cores (qknorm_attention_tc.cu)
+QK_TC_HEAD_DIM = 32
+QK_TC_MIN_TOKENS = 32  # half a 64-row tile; K10's 16-24-token sequences stay
+# dbias-pass CTAs to aim for, one wave of three per SM (132): 576-token planes
+# give 648 CTAs of one group; three waves (two groups) read no faster
+QK_TC_DBIAS_CTAS = 396
+
+
+def qk_bwd_tensor_cores(dtype: torch.dtype, n: int, d: int) -> bool:
+    """Whether the QK-norm attention core's backward on `n`-token sequences
+    of head dim `d` takes qknorm_attention_tc.cu (bf16 `wgmma`, K9's 576-
+    and 64-token planes with or without the bias, any ragged n from 32 in
+    zero-filled 64-row tiles) rather than qknorm_attention_bwd.cu
+    (qk_attention_bwd_kernel on the CUDA cores: K10's 16-24-token
+    sequences, other head dims; qk_attention_bwd_f32_kernel: every f32
+    call).  `_qk_tc_bwd` counts each launch of the tensor-core route."""
+    return dtype == BF16 and d == QK_TC_HEAD_DIM and n >= QK_TC_MIN_TOKENS
+
+
+def qk_tc_dbias_groups(sequences: int, heads: int, n: int) -> int:
+    """The dbias pass's groups of sequences: about QK_TC_DBIAS_CTAS CTAs of
+    one (64 x 64 tile, head, group), the kernel giving each group
+    ceil(sequences / groups) sequences in order, and no group left empty."""
+    tiles = -(-n // 64)
+    groups = max(1, min(sequences, -(-QK_TC_DBIAS_CTAS // (tiles * tiles * heads))))
+    per = -(-sequences // groups)
+    return -(-sequences // per)
+
+
+def _qk_tc_bwd(q, kv, dout, qs, ks, bias, *, sequences, inner, heads, n, d, q_strides,
+               kv_strides, lib):
+    """qk_attention_bwd on qknorm_attention_tc.cu: its scratch (qn, kn and the
+    rows' inverse norms, lse, D_i) and the per-CTA scale partials, added in
+    two levels (one thread a column would sum 13,824 rows in turn: 0.6 ms);
+    dbias from the dbias pass's groups of sequences, added in order."""
+    strides = [*map(int, q_strides), *map(int, kv_strides)]
+    if any(st % 8 for st in strides) or any(t.data_ptr() % 16 for t in (q, kv, dout)):
+        raise ValueError("qk_attention_bwd: the tensor-core core takes strides of multiples "
+                         "of 8 elements and 16-byte aligned tensors")
+    merged, dq, dkv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(kv)
+    bf = dict(dtype=torch.bfloat16, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    qn, kn = (torch.empty((sequences, heads, n, d), **bf) for _ in range(2))
+    rq, rk, lse, rowsum = (torch.empty((sequences, heads, n), **f32) for _ in range(4))
+    tiles = -(-n // 64)
+    groups, dbias_part = 1, None
+    if bias is not None:
+        groups = qk_tc_dbias_groups(sequences, heads, n)
+        dbias_part = torch.empty((groups, heads, n, n), **f32)
+    dqs_part = torch.empty((sequences * heads * tiles, d), **f32)
+    dks_part = torch.empty_like(dqs_part)
+    hd = heads * d
+    err = (lib or library()).ct_qk_attention_tc_bwd(
+        _ptr(q), _ptr(kv), _ptr(kv[:, hd:]), _ptr(dout), _ptr(merged), _ptr(dq), _ptr(dkv),
+        _ptr(dkv[:, hd:]), *strides, inner, sequences, heads, n, d, _ptr(qs), _ptr(ks),
+        _ptr(bias), _ptr(qn), _ptr(kn), _ptr(rq), _ptr(rk), _ptr(lse), _ptr(rowsum),
+        _ptr(dbias_part), groups, _ptr(dqs_part), _ptr(dks_part), _stream())
+    _check(err, "ct_qk_attention_tc_bwd")
+    count_launch("qk_attention_tc_bwd")
+    dbias = None
+    if bias is not None:
+        dbias = dbias_part[0] if groups == 1 else sum_splits(dbias_part)
+
+    def scale_sum(part):  # over the sequences, then the (head, tile) rows, in order
+        return sum_splits(sum_splits(part.view(sequences, -1)).view(-1, d))
+    return merged, dq, dkv, scale_sum(dqs_part), scale_sum(dks_part), dbias
+
+
 def qk_attention_bwd(q, kv, dout, *, sequences: int, inner: int, heads: int,
                      n: int, d: int, q_strides, kv_strides, q_scale, k_scale,
                      bias: Optional[torch.Tensor] = None, group: int = 1,
                      warps: int = 8, lib=None):
-    """The QK-norm attention core's backward (qknorm_attention_bwd.cu) on the
-    projections q (rows, h*d) and kv (rows, 2*h*d) [k | v], and dout, the
-    gradient of the merged heads, laid out as q; all bf16, or all f32 (the
-    f32 form: nothing rounded, query and key tiles of 4 x `warps` rows).
-    Heads are addressed through (outer, inner, head, token) element strides:
-    `q_strides` for q, dout and the outputs like q, `kv_strides` for k and v
-    (the caller checks they stay inside the tensors). Returns merged and dq
-    (like q), dkv (like kv), dq_scale and dk_scale (d,) f32 (dq_scale before
-    the logit scale) and dbias (heads, n, n) f32 or None; sums over sequences
-    are added in a fixed order. `lib`: a one-change copy (`copy_library`) to
-    launch instead, for the card checks."""
+    """The QK-norm attention core's backward on the projections q (rows,
+    h*d) and kv (rows, 2*h*d) [k | v], and dout, the gradient of the merged
+    heads, laid out as q; all bf16, or all f32.  Where `qk_bwd_tensor_cores`
+    says so, qknorm_attention_tc.cu (bf16 `wgmma`; `group` and `warps` unused);
+    otherwise qknorm_attention_bwd.cu (bf16 on the CUDA cores, or its f32 form:
+    nothing rounded, query and key tiles of 4 x `warps` rows, sequences in
+    blocks of `group`).  Heads are addressed through (outer, inner, head,
+    token) element strides: `q_strides` for q, dout and the outputs like q,
+    `kv_strides` for k and v (the caller checks they stay inside the tensors).
+    Returns merged and dq (like q), dkv (like kv), dq_scale and dk_scale (d,)
+    f32 (dq_scale before the logit scale) and dbias (heads, n, n) f32 or None;
+    sums over sequences are added in a fixed order. `lib`: a one-change copy
+    (`copy_library`) of the source the call takes, to launch instead, for the
+    card checks."""
     hd = heads * d
     for name, t, width in (("q", q, hd), ("kv", kv, 2 * hd), ("dout", dout, hd)):
         require(t, name, q.dtype if name != "q" else FORMS, 2)
@@ -797,14 +927,19 @@ def qk_attention_bwd(q, kv, dout, *, sequences: int, inner: int, heads: int,
         raise ValueError(f"qk_attention_bwd: {n} tokens of f32 width {d} take "
                          f"{qk_attention_bwd_f32_smem(n, d, warps)} bytes of shared memory")
     qs, ks = _f32_vector(q_scale, d, "q_scale"), _f32_vector(k_scale, d, "k_scale")
+    if bias is not None:
+        require(bias, "bias", torch.float32, 3)
+        if tuple(bias.shape) != (heads, n, n):
+            raise ValueError(f"qk_attention_bwd: bias {tuple(bias.shape)}")
+    layout = dict(sequences=sequences, inner=inner, heads=heads, n=n, d=d,
+                  q_strides=q_strides, kv_strides=kv_strides)
+    if qk_bwd_tensor_cores(q.dtype, n, d):
+        return _qk_tc_bwd(q, kv, dout, qs, ks, bias, lib=lib, **layout)
     merged, dq, dkv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(kv)
     groups = -(-sequences // group)
     f32 = dict(dtype=torch.float32, device=q.device)
     bias_t = dbias_part = None
     if bias is not None:
-        require(bias, "bias", torch.float32, 3)
-        if tuple(bias.shape) != (heads, n, n):
-            raise ValueError(f"qk_attention_bwd: bias {tuple(bias.shape)}")
         bias_t = bias.transpose(1, 2).contiguous()
         dbias_part = torch.empty((groups, heads, n, n), **f32)
     dqs_part = torch.empty((groups * heads * warps, d), **f32)

@@ -79,14 +79,13 @@ def unrearrange_patches(rows: torch.Tensor, pt: int, p: int, F: int, H: int,
     """(b, t*h*w, pt*p*p) patch rows -> the (b, F, H, W) volume they came
     from (K17, K6's VJP); the values move untouched.  A CPU tensor takes the
     plain version; a CUDA tensor (bf16 or f32) takes the kernel."""
-    _check_tiling((rows.shape[0], F, H, W), pt, p)
     if rows.device.type == "cpu":
+        _check_tiling((rows.shape[0], F, H, W), pt, p)
         return unrearrange_plain(rows, pt, p, F, H, W)
-    out = torch.empty((rows.shape[0], F, H, W), dtype=rows.dtype, device=rows.device)
-    K.unrearrange_patches(rows.contiguous(), pt, p, out)
+    out = rows.new_empty((rows.shape[0], F, H, W))
+    K.unrearrange_patches(rows.contiguous(), pt, p, out)  # the tiling checked there
     K.count_launch("unrearrange_patches", rows.dtype)
     return out
-
 
 
 def _rearrange_into(video, pt: int, p: int, out: Optional[torch.Tensor]) -> torch.Tensor:

@@ -32,9 +32,13 @@ The backwards are the ports of spatial_attention.py::_pallas_spatial_bwd
 (K9) and small_attention.py::_pallas_small_qknorm_bwd with grid_layout=True
 (K10 grid) and False (K10 seq).  Each saves only the sublayer's input and
 recomputes: LN, the q and kv products, dO W_out (an NN product), the attention core's backward
-(csrc/qknorm_attention_bwd.cu: the merged heads, dq and dk through the
-l2norm, dv, and the sums of dq_scale, dk_scale and, spatially, of the
-(heads, n, n) bias over all planes, in a fixed order), dxn = dq W_q and
+(the merged heads, dq and dk through the l2norm, dv, and the sums of
+dq_scale, dk_scale and, spatially, of the (heads, n, n) bias over all
+planes, in a fixed order: in bf16 at head dim 32 and n >= 32, K9's planes,
+csrc/qknorm_attention_tc.cu on the tensor cores, counted
+`qk_attention_tc_bwd` where kernels.qk_attention_bwd launches it;
+otherwise csrc/qknorm_attention_bwd.cu on the CUDA cores, by
+`kernels.qk_bwd_tensor_cores`), dxn = dq W_q and
 dx_kv = dkv W_kv (NN), the LN backward with dx_kv and the identity term,
 and the weight gradients dW_q, dW_kv, dW_out over all rows in f32 (TN
 products).  In f32 every one of them is its f32 form and nothing is rounded
@@ -132,6 +136,55 @@ def grid_qknorm_attention_bwd_plain(x, gamma, wq, wkv, q_scale, k_scale, wout, d
     dwkv, dq_scale, dk_scale, dwout)."""
     return vjp(lambda *a: grid_qknorm_attention_plain(*a, heads, dim_head, scale),
                (x, gamma, wq, wkv, q_scale, k_scale, wout), dout)
+
+
+def qk_attention_bwd_core_plain(q, kv, dout, heads: int, d: int, n: int, q_scale, k_scale,
+                                bias: Optional[torch.Tensor]):
+    """Plain version of the attention core's backward (`kernels.qk_attention_bwd`)
+    on sequence-major (S n, heads d) projections q and kv [k | v] and dout,
+    the gradient of the merged heads: _bwd_kernel's arithmetic
+    (spatial_attention.py:166-211) in f32 with its roundings to q's dtype
+    (bf16: qn and kn, P before the merged heads and dv, dS before dq and dk;
+    f32: none).  q_scale includes the logit scale.  Returns (merged, dq,
+    dkv, dq_scale before the logit scale, dk_scale, dbias or None): merged,
+    dq and dkv in q's dtype, the sums over all sequences f32."""
+    dt, hd = q.dtype, heads * d
+    S = q.shape[0] // n
+
+    def split(t):  # (S n, heads d) -> (S, heads, n, d) f32
+        return t.reshape(S, n, heads, d).transpose(1, 2).float()
+
+    def merge(t):  # (S, heads, n, d) -> (S n, heads d) in q's dtype
+        return t.transpose(1, 2).reshape(S * n, hd).to(dt)
+
+    def rnd(t):  # a tensor of q's dtype between two stages
+        return t.to(dt).float()
+
+    def l2norm_bwd(xhat, r, dn, sc):
+        dh = dn * sc
+        return r * (dh - xhat * (xhat * dh).sum(-1, keepdim=True))
+
+    qf, kf, v, g = split(q), split(kv[:, :hd]), split(kv[:, hd:]), split(dout)
+    qs, ks = q_scale.float(), k_scale.float()
+    rq = torch.rsqrt(torch.clamp_min((qf * qf).sum(-1, keepdim=True), 1e-24))
+    rk = torch.rsqrt(torch.clamp_min((kf * kf).sum(-1, keepdim=True), 1e-24))
+    qhat, khat = qf * rq, kf * rk
+    qn, kn = rnd(qhat * qs), rnd(khat * ks)
+    s = qn @ kn.transpose(-1, -2)
+    if bias is not None:
+        s = s + bias.float()
+    p = s.softmax(dim=-1)
+    pb = rnd(p)
+    dp = g @ v.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dsb = rnd(ds)
+    dqn, dkn = dsb @ kn, dsb.transpose(-1, -2) @ qn
+    dq = l2norm_bwd(qhat, rq, dqn, qs)
+    dk = l2norm_bwd(khat, rk, dkn, ks)
+    dv = pb.transpose(-1, -2) @ g
+    return (merge(pb @ v), merge(dq), torch.cat([merge(dk), merge(dv)], dim=1),
+            (dqn * qhat).sum((0, 1, 2)), (dkn * khat).sum((0, 1, 2)),
+            None if bias is None else ds.sum(0))
 
 
 def _layout(x, hd: int, dim_head: int, grid: bool):

@@ -2,9 +2,10 @@
 versions, on the card: the inference kernels in bf16, the training attention
 kernels (K7 f32, K12, K13) in f32, K7's dense-bias form and K12b in f32 and
 bf16, the bf16 K7 / K12b / K12a / K13a / K13b of attention_tc.cu (wgmma) with
-their routing (`-k "tc or dense"`), and the f32 K7 (key bias, dense, no
+their routing (`-k "tc or dense"`), the f32 K7 (key bias, dense, no
 bias), K13a, K12a, K12b (dense, no bias) and K13b of attention_tc32.cu
-(3xTF32, `-k tc32`).
+(3xTF32, `-k tc32`), and K9's bf16 core on the tensor cores
+(qknorm_attention_tc.cu, `-k qk_core`) with K17 f32's run copy (`-k k17`).
 
 Needs an NVIDIA GPU and nvcc (the kernels compile on first use); skipped
 elsewhere.  Run on the card with:
@@ -551,11 +552,91 @@ def test_spatial_attention_backward_k9(dev, b, n):
     leaves = [t.detach().requires_grad_() for t in (x, *w, bias)]
     K.reset_launch_counts()
     got = torch.autograd.grad(fused_spatial_qknorm_attention(*leaves, 2, 32), leaves, do)
-    assert K.launch_counts()["spatial_attention_bwd"] == 1
+    counts = K.launch_counts()
+    # n >= 32 at head dim 32: the core on the tensor cores (qknorm_attention_tc.cu)
+    assert counts["spatial_attention_bwd"] == counts["qk_attention_tc_bwd"] == 1
     ref = qknorm_attention_bwd_plain(x, *w, bias, do, 2, 32)
     _grads_close(got, ref)
     again = torch.autograd.grad(fused_spatial_qknorm_attention(*leaves, 2, 32), leaves, do)
     assert all(torch.equal(a, c) for a, c in zip(got, again))  # fixed-order sums
+
+
+def test_stream_is_the_current_stream(dev):
+    """kernels._stream, which every launch passes, is PyTorch's current
+    stream, on the default stream and inside a side stream's context, by the
+    raw binding this build has."""
+    assert hasattr(torch._C, "_cuda_getCurrentRawStream")
+    assert K._stream() == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert K._stream() == side.cuda_stream != torch.cuda.default_stream().cuda_stream
+    assert K._stream() == torch.cuda.current_stream().cuda_stream
+
+
+def _qk_core_case(dev, S, n, bias, seed=11):
+    """K9's core inputs on (S, n) planes, 8 heads of 32 (the sublayer's
+    (S n, 256) q and dO, (S n, 512) kv), its layout, the CPB bias or None."""
+    g = _gen(dev, seed)
+    heads, d = 8, 32
+    q, kv, dm = (_randn((S * n, w), g, dev) for w in (heads * d, 2 * heads * d, heads * d))
+    qs = (1 + 0.2 * torch.randn(d, generator=g, device=dev)) * 8.0
+    ks = 1 + 0.2 * torch.randn(d, generator=g, device=dev)
+    b = torch.randn((heads, n, n), generator=g, device=dev) if bias else None
+    layout = dict(sequences=S, inner=1, heads=heads, n=n, d=d,
+                  q_strides=(n * heads * d, 0, d, heads * d),
+                  q_scale=qs, k_scale=ks, bias=b,
+                  kv_strides=(n * 2 * heads * d, 0, d, 2 * heads * d))
+    return q, kv, dm, layout
+
+
+def _dbias_row_sums(dbias):
+    return dbias.sum(-1).abs().max().item()
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("S,n", [(4, 576), (12, 64), (6, 100)])
+def test_qk_core_backward_k9_tensor_cores(dev, S, n, bias):
+    """K9's core on qknorm_attention_tc.cu (wgmma) at CT-CLIP's 576-token
+    planes, the autoencoder's 64 and a ragged 100, with the CPB bias and
+    without, against the plain version at the TPU kernel's rounding points:
+    merged, dq, dkv within 2e-2 of max|plain|, the sums over all planes
+    (dq_scale, dk_scale, dbias) within 3e-2; dbias rows sum to zero within
+    16x the plain f32 version's rounding (D_i from the f32 P); every output
+    bit-identical across runs."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import qk_attention_bwd_core_plain as plain
+
+    q, kv, dm, layout = _qk_core_case(dev, S, n, bias)
+    assert K.qk_bwd_tensor_cores(q.dtype, n, 32)
+    got = K.qk_attention_bwd(q, kv, dm, **layout)
+    args = (layout["heads"], 32, n, layout["q_scale"], layout["k_scale"], layout["bias"])
+    ref = plain(q, kv, dm, *args)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if b is None:
+            assert a is None
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        _close(a, b, REL if i < 3 else BWD_REL)
+    again = K.qk_attention_bwd(q, kv, dm, **layout)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+    if bias:
+        ref32 = plain(q.float(), kv.float(), dm.float(), *args)[5]
+        assert _dbias_row_sums(got[5]) <= 16 * _dbias_row_sums(ref32)
+
+
+def test_qk_core_backward_k9_planted_d_from_bf16_p_misses(dev):
+    """A copy of the tensor-core core summing D_i from bf16(P)
+    (CT_QK_TC_D_FROM_BF16_P) must leave dbias's rows off their zero sum,
+    outside 16x the plain f32 version's rounding."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import qk_attention_bwd_core_plain as plain
+
+    copy = K.copy_library("qknorm_attention_tc.cu", CT_QK_TC_D_FROM_BF16_P=1)
+    q, kv, dm, layout = _qk_core_case(dev, 4, 576, True)
+    got = K.qk_attention_bwd(q, kv, dm, lib=copy, **layout)
+    ref32 = plain(q.float(), kv.float(), dm.float(), layout["heads"], 32, 576,
+                  layout["q_scale"], layout["k_scale"], layout["bias"])[5]
+    torch.cuda.synchronize()
+    assert _dbias_row_sums(got[5]) > 16 * _dbias_row_sums(ref32)
 
 
 def test_grid_attention_backward_k10(dev):
@@ -568,7 +649,8 @@ def test_grid_attention_backward_k10(dev):
     leaves = [t.detach().requires_grad_() for t in (x, *w)]
     K.reset_launch_counts()
     got = torch.autograd.grad(fused_grid_qknorm_attention(*leaves, 2, 32), leaves, do)
-    assert K.launch_counts()["grid_attention_bwd"] == 1
+    counts = K.launch_counts()
+    assert counts["grid_attention_bwd"] == 1 and counts["qk_attention_tc_bwd"] == 0
     _grads_close(got, grid_qknorm_attention_bwd_plain(x, *w, do, 2, 32))
 
 
@@ -713,6 +795,28 @@ def test_unrearrange_patches_k17_bit_exact(dev, shape, pt, p):
     r = rows.detach().requires_grad_()  # the decoder's unpatchify: K17, VJP K6
     dr, = torch.autograd.grad(unpatchify(r, pt, p, *shape[1:]), r, video)
     assert torch.equal(dr, rearrange_patches(video, pt, p))
+
+
+@pytest.mark.parametrize("shape,pt,p", [((1, 200, 128, 128), 10, 16),   # the sampler's rows
+                                        ((1, 240, 480, 480), 10, 20)])  # a training volume
+def test_unrearrange_patches_f32_k17_runs_bit_exact(dev, shape, pt, p):
+    """K17 f32 at its two main-path shapes (unrearrange_runs_kernel: 16-byte
+    runs straight from the rows to the volume) equals the plain version bit
+    for bit, and is K6's VJP."""
+    from ct_clip_tpu_torch.ops.patch_embed import (rearrange_patches, unrearrange_patches,
+                                                   unrearrange_plain)
+
+    g = _gen(dev, 18)
+    n, pd = (shape[1] // pt) * (shape[2] // p) * (shape[3] // p), pt * p * p
+    rows = _randn((shape[0], n, pd), g, dev, dtype=F32)
+    K.reset_launch_counts()
+    got = unrearrange_patches(rows, pt, p, *shape[1:])
+    torch.cuda.synchronize()
+    assert K.launch_counts()["unrearrange_patches_f32"] == 1
+    assert torch.equal(got, unrearrange_plain(rows, pt, p, *shape[1:]))
+    v = torch.zeros(shape, device=dev, requires_grad=True)
+    dv, = torch.autograd.grad(rearrange_patches(v, pt, p), v, rows)
+    assert torch.equal(dv, got)
 
 
 def _embed_weights(g, dev, pd=4000, dim=512):

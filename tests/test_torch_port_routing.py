@@ -251,3 +251,172 @@ def test_f32_self_attention_beyond_the_f32_fit_takes_the_generic_path(monkeypatc
     x = torch.randn((1, 900, 32), generator=g)
     out = mod(x, torch.randn((2, 900, 900), generator=g))
     assert routes == ["sdpa"] and out.shape == x.shape and out.dtype == F32
+
+
+# The QK-norm attention core's backward on CUDA (kernels.qk_bwd_tensor_cores):
+# bf16 at head dim 32 from 32 tokens on takes qknorm_attention_tc.cu (wgmma),
+# with the CPB bias or without one (the kernel takes both, so the rule does
+# not read the bias); K10's 16-24-token sequences, other head dims and every
+# f32 call keep qknorm_attention_bwd.cu.
+@pytest.mark.parametrize("dtype,n,d,tc", [
+    (BF, 576, 32, True),    # K9: CT-CLIP's planes (24 x 24), 24 and 16 frames
+    (BF, 64, 32, True),     # K9: the autoencoder's 8 x 8 planes
+    (BF, 100, 32, True),    # a ragged n in zero-filled 64-row tiles
+    (BF, 32, 32, True),     # half a tile, the least it takes
+    (BF, 31, 32, False),
+    (BF, 24, 32, False),    # K10 grid: CT-CLIP's t 24
+    (BF, 20, 32, False),    # K10 seq: GenerateCT's t 20
+    (BF, 16, 32, False),    # K10 seq: 160 frames, t 16
+    (BF, 9, 16, False),     # the tiny card-vs-CPU configs' 3 x 3 planes at width 16
+    (BF, 576, 64, False),
+    (BF, 576, 16, False),
+    (F32, 576, 32, False),  # qk_attention_bwd_f32_kernel
+    (F32, 64, 32, False),
+    (torch.float16, 576, 32, False),
+])
+def test_qk_bwd_tensor_core_gate(dtype, n, d, tc):
+    assert K.qk_bwd_tensor_cores(dtype, n, d) is tc
+
+
+class _FakeQkLibrary:
+    """The C entries of the QK-norm core's backward, recording each call and
+    returning `rc` (0: launched; else a CUDA error)."""
+
+    def __init__(self, rc=0):
+        self.rc, self.calls = rc, []
+        for name in ("ct_qk_attention_tc_bwd", "ct_qk_attention_bwd",
+                     "ct_qk_attention_bwd_f32"):
+            setattr(self, name, lambda *a, name=name: self.calls.append(name) or self.rc)
+
+    def ct_error_string(self, err):
+        return b"planted"
+
+
+def _qk_core_cpu_call(monkeypatch, lib, S, n, d, dtype, bias):
+    """kernels.qk_attention_bwd on CPU tensors with the C library `lib`: the
+    device check, the stream and the in-order sums stubbed (no card here)."""
+    monkeypatch.setattr(K, "library", lambda: lib)
+    monkeypatch.setattr(K, "require", lambda *a, **k: None)
+    monkeypatch.setattr(K, "_stream", lambda: 0)
+    monkeypatch.setattr(K, "sum_splits", lambda part: part.sum(0))
+    heads = 2
+    hd = heads * d
+    q, dm = torch.zeros((S * n, hd), dtype=dtype), torch.zeros((S * n, hd), dtype=dtype)
+    kv = torch.zeros((S * n, 2 * hd), dtype=dtype)
+    K.reset_launch_counts()
+    return K.qk_attention_bwd(
+        q, kv, dm, sequences=S, inner=1, heads=heads, n=n, d=d,
+        q_strides=(n * hd, 0, d, hd), kv_strides=(n * 2 * hd, 0, d, 2 * hd),
+        q_scale=torch.ones(d), k_scale=torch.ones(d),
+        bias=torch.zeros((heads, n, n)) if bias else None)
+
+
+# kernels.qk_attention_bwd counts `qk_attention_tc_bwd` where it launches
+# qknorm_attention_tc.cu, and nowhere else: the count follows the C entry
+# called, which follows the gate (the C library is a recording stand-in).
+@pytest.mark.parametrize("S,n,d,dtype,bias,tc", [
+    (2, 576, 32, BF, True, True),     # K9 with the CPB bias
+    (2, 576, 32, BF, False, True),    # K9 with no bias
+    (3, 64, 32, BF, True, True),      # the autoencoder's planes
+    (2, 576, 32, F32, True, False),   # K9 f32
+    (2, 24, 32, BF, False, False),    # K10 grid's t-columns
+    (4, 20, 32, BF, False, False),    # K10 seq
+    (4, 16, 32, F32, False, False),
+])
+def test_qk_tensor_core_counter_counts_the_launch(monkeypatch, S, n, d, dtype, bias, tc):
+    lib = _FakeQkLibrary()
+    got = _qk_core_cpu_call(monkeypatch, lib, S, n, d, dtype, bias)
+    want = ("ct_qk_attention_tc_bwd" if tc else
+            "ct_qk_attention_bwd_f32" if dtype == F32 else "ct_qk_attention_bwd")
+    assert lib.calls == [want]
+    assert K.launch_counts()["qk_attention_tc_bwd"] == int(tc)
+    assert (got[5] is None) == (not bias)
+    if bias:
+        assert got[5].shape == (2, n, n)
+
+
+def test_qk_tensor_core_counter_skips_a_failed_launch(monkeypatch):
+    """A launch that reports a CUDA error raises and adds no count."""
+    lib = _FakeQkLibrary(rc=1)
+    with pytest.raises(RuntimeError, match="ct_qk_attention_tc_bwd"):
+        _qk_core_cpu_call(monkeypatch, lib, 2, 576, 32, BF, True)
+    assert lib.calls == ["ct_qk_attention_tc_bwd"]
+    assert K.launch_counts()["qk_attention_tc_bwd"] == 0
+
+
+@pytest.mark.parametrize("S,n,groups", [
+    (192, 576, 1),   # CT-CLIP at 240 frames: 648 CTAs in one group
+    (128, 576, 1),   # 160 frames
+    (160, 64, 40),   # the autoencoder: 50 groups of 4 would leave 10 empty
+    (12, 64, 12),
+    (1, 64, 1),
+    (7, 100, 7),
+])
+def test_qk_tensor_core_dbias_groups_hold_sequences(S, n, groups):
+    """The dbias pass's groups (kernels.qk_tc_dbias_groups), 8 heads: the
+    kernel gives each ceil(S / groups) sequences, and each holds one or more."""
+    assert K.qk_tc_dbias_groups(S, 8, n) == groups
+    per = -(-S // groups)
+    assert 1 <= groups <= S and (groups - 1) * per < S <= groups * per
+
+
+@pytest.mark.parametrize("binding", [True, False])
+def test_stream_reads_the_raw_binding_or_the_public_call(monkeypatch, binding):
+    """kernels._stream: the current stream's address by PyTorch's private
+    raw-stream binding of the current device where the build has it, else by
+    torch.cuda.current_stream() (a PyTorch that renamed the binding still
+    launches on the right stream)."""
+    import types
+
+    for name in ("_cuda_getCurrentRawStream", "_cuda_getDevice"):
+        monkeypatch.delattr(torch._C, name, raising=False)
+    if binding:
+        monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 3, raising=False)
+        monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                            lambda dev: 0x1000 + dev, raising=False)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0x2000))
+    assert K._stream() == (0x1003 if binding else 0x2000)
+
+
+def test_rearrange_geometry_is_checked_once_and_raises_every_call():
+    """rearrange.cu's wrappers check a geometry once (kernels.
+    unrearrange_geometry / rearrange_geometry, cached): the C entry's
+    arguments and whether it takes 16-byte accesses; a bad geometry raises on
+    every call, and a CPU tensor never reaches them."""
+    K.unrearrange_geometry.cache_clear()
+    sampler = (torch.Size([1, 1280, 2560]), F32, 10, 16, torch.Size([1, 200, 128, 128]))
+    want = ((1280 * 2560, 2560, 1, 200, 128, 128, 10, 16), 1)
+    assert K.unrearrange_geometry(*sampler, True) == want
+    assert K.unrearrange_geometry(*sampler, True) == want
+    assert K.unrearrange_geometry.cache_info().hits == 1
+    assert K.unrearrange_geometry(*sampler, False)[1] == 0  # a base off 16 bytes
+    volume = (torch.Size([1, 13824, 4000]), BF, 10, 20, torch.Size([1, 240, 480, 480]), True)
+    assert K.unrearrange_geometry(*volume) == ((13824 * 4000, 4000, 1, 240, 480, 480, 10, 20), 1)
+    # bf16 takes 16-byte accesses in 8-element steps: p = 5 breaks them
+    assert K.unrearrange_geometry(torch.Size([1, 45, 50]), BF, 2, 5,
+                                  torch.Size([1, 6, 15, 25]), True)[1] == 0
+    bad = [
+        (torch.Size([1, 1280, 2561]), F32, 10, 16, torch.Size([1, 200, 128, 128]), True),
+        (torch.Size([1, 1280, 2560]), F32, 10, 16, torch.Size([1, 200, 128, 120]), True),
+        (torch.Size([1, 1280, 2560]), F32, 10, 16, torch.Size([200, 128, 128]), True),
+        (torch.Size([2, 1280, 2560]), F32, 10, 16, torch.Size([1, 200, 128, 128]), True),
+        (torch.Size([1, 1280, 2560]), F32, 0, 16, torch.Size([1, 200, 128, 128]), True),
+    ]
+    for args in bad:
+        for _ in range(2):  # an error is not cached
+            with pytest.raises(ValueError, match="unrearrange_patches"):
+                K.unrearrange_geometry(*args)
+    K.rearrange_geometry.cache_clear()
+    slot = (torch.Size([1, 200, 128, 128]), F32, 10, 16, torch.Size([1, 1280, 2560]))
+    assert K.rearrange_geometry(*slot, (3 * 1280 * 2560, 2560, 1), True) == \
+        ((1, 200, 128, 128, 10, 16), (3 * 1280 * 2560, 2560), 1)
+    for out_strides in ((1280 * 2560, 2560, 2), (1280 * 2560, 2000, 1)):
+        for _ in range(2):
+            with pytest.raises(ValueError, match="rearrange_patches"):
+                K.rearrange_geometry(*slot, out_strides, True)
+    rows, vol = torch.zeros((1, 8, 32)), torch.zeros((1, 4, 8, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        K.unrearrange_patches(rows, 2, 4, vol)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.rearrange_patches(vol, 2, 4, rows)

@@ -4,10 +4,25 @@ and csrc/attention_tc32.cu, f32 in 3xTF32) back: time each kernel as built
 against copies with one change each, on one card, in turns, on the same
 inputs.
 
-    PYTHONPATH=. python tools/port_attention_tc_probe.py [--out FILE.json]
+    python tools/port_attention_tc_probe.py [--kernel attention] [--out FILE.json]
+    python tools/port_attention_tc_probe.py --kernel k17 | k9 [--tree DIR]
+    python tools/port_attention_tc_probe.py --kernel k9_copies
+
+`--kernel attention` (the default) times attention_tc.cu and
+attention_tc32.cu as below; `k17` and `k9` time K17 f32 and K9's bf16 core
+(further below) on the package of the checkout `--tree` (by default this
+one), so that two commits can be compared on one card in turns:
+
+    git archive PARENT | tar -x -C build/parent
+    for t in build/parent . . build/parent; do
+        python tools/port_attention_tc_probe.py --kernel k17 --tree $t
+    done
+
+Every result carries the card's name and power limit (nvidia-smi) and ends
+as one JSON line; the timers are tools/port_timing.py's.
 
 Copies of attention_tc.cu (each its own nvcc build under
-build/attention_tc_probe/<copy>/, beside its own common.cuh):
+build/attention_tc_probe/<copy>/, beside its own common.cuh and wgmma.cuh):
   as_built     the sources unchanged;
   two_ctas     the forward at two CTAs per SM (launch bounds 2, not 3);
   exp2f        libm's exp2f in place of one ex2.approx;
@@ -42,41 +57,74 @@ and, for the copy as built, the host time per call of the Python wrapper
 `kernels.attention_tc_bwd` for the key-bias backwards,
 `kernels.attention_tc32_bwd` for the f32 ones) against the events around one
 call.
+
+`--kernel k17`: K17 f32 (`ops/patch_embed.py::unrearrange_patches`,
+csrc/rearrange.cu) at the sampler's (1, 1,280, 2,560) rows of a 200 x 128 x
+128 volume (pt 10, p 16) and at one 240 x 480 x 480 training volume's (1,
+13,824, 4,000) rows (pt 10, p 20), beside the library call, `.contiguous()`
+of the inverse permutation, on the same rows: for each, events, the device
+time of its kernels per call and the host time per call (the least of 20
+rounds of 50 calls; again with each round queued behind a spin kernel, so
+that the sampler's 6 us kernel does not leave each launch an idle queue).  Also the host time of the pieces every wrapper pays:
+`torch.empty` of the volume, the current stream (`kernels._stream`).
+
+`--kernel k9`: K9's bf16 attention core alone (`kernels.qk_attention_bwd`,
+a CPB-like bias) on CT-CLIP's (192, 576) planes and the autoencoder's (160,
+64), 8 heads of 32, and the whole sublayer backward (autograd of
+`fused_spatial_qknorm_attention`) on (192, 576, 512) and (160, 64, 512):
+events, device time per kernel (the core) and host time per call.  Where the
+tree has `kernels.qk_bwd_tensor_cores`, each call again with the core on the
+CUDA-core qk_attention_bwd_kernel it replaced ("cuda_cores").
+
+`--kernel k9_copies`: K9's core at (192, 576) on copies of
+qknorm_attention_tc.cu with one change each, in turns, there and back, with
+each kernel's device time: `as_built`; `stages3` (rings of three stages in
+the row and column passes, not two); `no_loads` (no tile copied: stale
+shared memory, the time without global loads); `no_products` (every wgmma
+left out: the time without the tensor cores).  The last two compute garbage
+and only measure.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
-import statistics
 import subprocess
 import sys
-import time
+from contextlib import nullcontext
 from pathlib import Path
 
 import torch
+from port_timing import event_ms, host_ms, kernel_ms
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+
+
+def _tree() -> Path:
+    """The checkout whose package is timed: `--tree DIR`, else this one."""
+    if "--tree" in sys.argv[:-1]:
+        return Path(sys.argv[sys.argv.index("--tree") + 1]).resolve()
+    return ROOT
+
+
+sys.path.insert(0, str(_tree()))
 
 from ct_clip_tpu_torch.ops import kernels as K  # noqa: E402
-from ct_clip_tpu_torch.ops.attention import (fused_attention,  # noqa: E402
-                                             fused_attention_kbias_dropout)
 
 CSRC = ROOT / "ct_clip_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "attention_tc_probe"
-TC, TC32, COMMON = "attention_tc.cu", "attention_tc32.cu", "common.cuh"
+TC, TC32, COMMON, WGMMA = "attention_tc.cu", "attention_tc32.cu", "common.cuh", "wgmma.cuh"
 # copy -> (source, old text, new text) substitutions
 COPIES = {
     "as_built": [],
     "two_ctas": [(TC, "__launch_bounds__(NT, 3) attn_tc_forward",
                   "__launch_bounds__(NT, 2) attn_tc_forward")],
-    "exp2f": [(TC, 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "y = exp2f(x);")],
+    "exp2f": [(WGMMA, 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "y = exp2f(x);")],
     "stages4": [(TC, "constexpr int STAGES = 2;", "constexpr int STAGES = 4;")],
     "no_loads": [(TC, "    cp16(dst + r * 128", "    if (t < -1) cp16(dst + r * 128"),
-                 (TC, "      cp16(dst + (r * ld + c) * 4",
+                 (WGMMA, "      cp16(dst + (r * ld + c) * 4",
                   "      if (i < -1) cp16(dst + (r * ld + c) * 4")],
-    "no_products": [(TC, '"wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D',
+    "no_products": [(WGMMA, '"wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D',
                      '"// " WG_D')],
     "no_philox": [(COMMON, "for (int r = 0; r < 10; ++r) {", "for (int r = 0; r < 0; ++r) {")],
 }
@@ -96,7 +144,7 @@ def build_all(sets: dict) -> dict:
     procs = {}
     for source, copies in sets.items():
         for name, subs in copies.items():
-            texts = {src: (CSRC / src).read_text() for src in (source, COMMON)}
+            texts = {src: (CSRC / src).read_text() for src in (source, COMMON, WGMMA)}
             for src, old, new in subs:
                 if old not in texts[src]:
                     raise RuntimeError(f"{name}: {old!r} not in {src}")
@@ -176,52 +224,11 @@ def backward(lib, q, k, v, do, bias, kb, lse, seed, rate):
         raise RuntimeError(f"ct_attn_tc_bwd: CUDA error {err}")
 
 
-def event_ms(fn, reps: int = 20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def kernel_ms(fn, prefix: str = "attn_tc_", reps: int = 10) -> dict:
-    """Device time per launch of each kernel whose name holds `prefix`
-    (torch.profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    # the name past `prefix` up to its parameter list: "rows<(Form)1, false>"
-    return {e.key.split(prefix)[1].rsplit("(", 1)[0].rstrip("("):
-            e.self_device_time_total / e.count / 1e3
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and prefix in e.key}
-
-
-def host_ms(call) -> dict:
-    """The Python wrapper's host time per call (50 calls, no sync between)
-    and the events around one call."""
+def wrapper_ms(call) -> dict:
+    """The Python wrapper's host time per call and the events around one
+    call."""
     with torch.no_grad():
-        for _ in range(5):
-            call()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(50):
-            call()
-        host = (time.perf_counter() - t0) / 50 * 1e3
-        torch.cuda.synchronize()
-        return dict(host_ms=host, events_ms=event_ms(call))
+        return dict(host_ms=host_ms(call), events_ms=event_ms(call))
 
 
 def in_turns(libs: dict, calls: dict, prefix: str, label: str, results: dict) -> None:
@@ -283,18 +290,10 @@ def backward32(lib, q, k, v, out, do, bias, kb, lse, seed, rate):
         raise RuntimeError(f"ct_attn_tc32_bwd: CUDA error {err}")
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default=None, help="write the results as JSON here")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("needs an NVIDIA GPU", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-    print(f"card: {smi}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
+def attention(dev, results: dict) -> None:
+    """attention_tc.cu's and attention_tc32.cu's copies and wrappers."""
+    from ct_clip_tpu_torch.ops.attention import fused_attention, fused_attention_kbias_dropout
+
     built = build_all({TC: COPIES, TC32: COPIES32})
     libs = built[TC]
     g = torch.Generator(device=dev).manual_seed(0)
@@ -306,7 +305,6 @@ def main() -> int:
               "K12a key_bias (8, 12, 512, 64)": (8, 12, 512, 0, (64, 513), True, True, 0.0),
               "K13a dropout (8, 12, 512, 64)": (8, 12, 512, 0, (64, 513), True, False, 0.1),
               "K13b dropout (8, 12, 512, 64)": (8, 12, 512, 0, (64, 513), False, True, 0.1)}
-    results = {"card": smi}
     for label, (b, h, n, bh, pads, do_fwd, do_bwd, rate) in shapes.items():
         q, k, v, do, bias, kb = inputs(dev, b, h, n, bh, pads, g)
         lse = forward(libs["as_built"], q, k, v, bias, kb, seed, rate)[1]
@@ -328,7 +326,7 @@ def main() -> int:
             b4 = None if bias is None else bias[None]
             call = lambda: fused_attention(q, k, v, b4, kb)  # noqa: E731
             wrapper = "fused_attention"
-        results[f"{label} / {wrapper}"] = row = host_ms(call)
+        results[f"{label} / {wrapper}"] = row = wrapper_ms(call)
         print(f"{label} / {wrapper}: host {row['host_ms']:.4f} ms per call, events around one "
               f"call {row['events_ms']:.4f} ms", flush=True)
 
@@ -347,12 +345,12 @@ def main() -> int:
             "bwd": lambda lib: lambda: backward32(lib, q, k, v, out, do, bias, kb, lse, seed,
                                                   rate)}, "tc32_", label, results)
         wrapper = "fused_attention_kbias_dropout" if rate else "fused_attention"
-        results[f"{label} / {wrapper}"] = row = host_ms(
+        results[f"{label} / {wrapper}"] = row = wrapper_ms(
             (lambda: fused_attention_kbias_dropout(q, k, v, kb, seed, rate)) if rate else
             (lambda: fused_attention(q, k, v, None if bias is None else bias[None], kb)))
         print(f"{label} / {wrapper}: host {row['host_ms']:.4f} ms per call, events around one "
               f"call {row['events_ms']:.4f} ms", flush=True)
-        results[f"{label} / kernels.attention_tc32_bwd"] = row = host_ms(
+        results[f"{label} / kernels.attention_tc32_bwd"] = row = wrapper_ms(
             lambda: K.attention_tc32_bwd(q, k, v, out, do, lse, bias=bias,
                                          want_dbias=bias is not None, key_bias=kb,
                                          want_dkey_bias=kb is not None,
@@ -361,6 +359,153 @@ def main() -> int:
               f"events around one call {row['events_ms']:.4f} ms", flush=True)
         del q, k, v, do, bias, kb, out, lse
         torch.cuda.empty_cache()
+
+
+def measure(fn, rounds: int = 5) -> dict:
+    """Events, host time per call (the least of `rounds` of 50 calls; also
+    with the card held busy, `host_held_ms`) and each kernel's device time
+    per call with their sum ("total")."""
+    with torch.no_grad():
+        res = dict(events_ms=event_ms(fn), host_ms=host_ms(fn, rounds=rounds),
+                   host_held_ms=host_ms(fn, rounds=rounds, hold=True),
+                   kernel_ms=kernel_ms(fn))
+    res["kernel_ms"]["total"] = sum(res["kernel_ms"].values())
+    return res
+
+
+def k17(dev, g) -> dict:
+    from ct_clip_tpu_torch.ops.patch_embed import unrearrange_patches
+
+    out = {}
+    for label, (F, H, W, pt, p) in (("sampler", (200, 128, 128, 10, 16)),
+                                    ("volume", (240, 480, 480, 10, 20))):
+        t, h, w = F // pt, H // p, W // p
+        rows = torch.randn((1, t * h * w, pt * p * p), generator=g, device=dev)
+        row = dict(wrapper=measure(lambda: unrearrange_patches(rows, pt, p, F, H, W), 20),
+                   contiguous=measure(lambda: rows.reshape(1, t, h, w, pt, p, p)
+                                      .permute(0, 1, 4, 2, 5, 3, 6).contiguous(), 20),
+                   empty_host_ms=host_ms(lambda: torch.empty((1, F, H, W), device=dev),
+                                         rounds=20),
+                   stream_host_ms=host_ms(K._stream, rounds=20))
+        print(f"K17 f32 {label}: {json.dumps(row)}", flush=True)
+        out[label] = row
+        del rows
+    return out
+
+
+def k9(dev, g) -> dict:
+    from ct_clip_tpu_torch.ops.qknorm_attention import fused_spatial_qknorm_attention
+
+    class CudaCores:  # the core forced onto qk_attention_bwd_kernel
+        def __enter__(self):
+            self.gate = K.qk_bwd_tensor_cores
+            K.qk_bwd_tensor_cores = lambda *a: False
+
+        def __exit__(self, *exc):
+            K.qk_bwd_tensor_cores = self.gate
+
+    routes = {"as_built": nullcontext}
+    if hasattr(K, "qk_bwd_tensor_cores"):
+        routes["cuda_cores"] = CudaCores
+    heads, d, dim = 8, 32, 512
+    hd = heads * d
+    out = {}
+    for label, (S, n) in (("ctclip", (192, 576)), ("autoencoder", (160, 64))):
+        bf = torch.bfloat16
+        q, kv, dm = (torch.randn((S * n, wd), generator=g, device=dev).to(bf)
+                     for wd in (hd, 2 * hd, hd))
+        qs = (1 + 0.2 * torch.randn(d, generator=g, device=dev)) * 8.0
+        ks = 1 + 0.2 * torch.randn(d, generator=g, device=dev)
+        bias = torch.randn((heads, n, n), generator=g, device=dev)
+        layout = dict(sequences=S, inner=1, heads=heads, n=n, d=d,
+                      q_strides=(n * hd, 0, d, hd), kv_strides=(n * 2 * hd, 0, d, 2 * hd),
+                      q_scale=qs, k_scale=ks, bias=bias, group=-(-S // min(S, 33)), warps=8)
+        x, do = (torch.randn((S, n, dim), generator=g, device=dev).to(bf) for _ in range(2))
+        w = (1 + 0.1 * torch.randn(dim, generator=g, device=dev),
+             torch.randn((hd, dim), generator=g, device=dev) * dim ** -0.5,
+             torch.randn((2 * hd, dim), generator=g, device=dev) * dim ** -0.5, qs / 8,
+             ks, torch.randn((dim, hd), generator=g, device=dev) * hd ** -0.5)
+        leaves = [t.clone().requires_grad_() for t in (x, *w, bias)]
+        y = fused_spatial_qknorm_attention(*leaves, heads, d)
+        for route, ctx in routes.items():
+            with ctx():
+                core = measure(lambda: K.qk_attention_bwd(q, kv, dm, **layout))
+                with torch.enable_grad():
+                    whole = event_ms(lambda: torch.autograd.grad(y, leaves, do,
+                                                                 retain_graph=True), 10)
+            row = dict(core=core, sublayer_bwd_events_ms=whole)
+            print(f"K9 {label} {route}: {json.dumps(row)}", flush=True)
+            out[f"{label}/{route}"] = row
+        del q, kv, dm, x, do, leaves, y
+        torch.cuda.empty_cache()
+    return out
+
+
+QK_TC = "qknorm_attention_tc.cu"
+QK_COPIES = {
+    "as_built": [],
+    "stages3": [(QK_TC, "constexpr int STAGES = 2;", "constexpr int STAGES = 3;")],
+    "no_loads": [(QK_TC, "    cp16(dst + r * 128 + ((c ^ (r & 7)) << 4), src, ok ? 16 : 0);",
+                  "    if (t < -1) cp16(dst + r * 128 + ((c ^ (r & 7)) << 4), src, ok ? 16 : 0);"),
+                 (WGMMA, "      cp16(dst + (r * ld + c) * 4",
+                  "      if (i < -1) cp16(dst + (r * ld + c) * 4"),
+                 (WGMMA, "    cp4(dst + e * 4, v", "    if (t < -1) cp4(dst + e * 4, v")],
+    "no_products": [(WGMMA, '"wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D',
+                     '"// " WG_D')],
+}
+
+
+def k9_copies(dev, g) -> dict:
+    """K9's core at (192, 576) with the bias on each copy of QK_COPIES, in
+    turns."""
+    libs = build_all({QK_TC: QK_COPIES})[QK_TC]
+    heads, d, S, n = 8, 32, 192, 576
+    hd = heads * d
+    q, kv, dm = (torch.randn((S * n, wd), generator=g, device=dev).to(torch.bfloat16)
+                 for wd in (hd, 2 * hd, hd))
+    layout = dict(sequences=S, inner=1, heads=heads, n=n, d=d, q_strides=(n * hd, 0, d, hd),
+                  kv_strides=(n * 2 * hd, 0, d, 2 * hd), bias=torch.randn((heads, n, n),
+                  generator=g, device=dev), q_scale=torch.full((d,), 8.0, device=dev),
+                  k_scale=torch.ones(d, device=dev))
+    times = {name: [] for name in libs}
+    for name in list(libs) + list(libs)[::-1]:
+        times[name].append(event_ms(lambda: K.qk_attention_bwd(q, kv, dm, lib=libs[name],
+                                                                **layout)))
+    out = {}
+    for name, lib in libs.items():
+        out[name] = dict(events_ms=min(times[name]),
+                         kernel_ms=kernel_ms(lambda: K.qk_attention_bwd(q, kv, dm, lib=lib,
+                                                                        **layout)))
+        print(f"K9 core copy {name}: {json.dumps(out[name])}", flush=True)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", default="attention",
+                    choices=("attention", "k17", "k9", "k9_copies"))
+    ap.add_argument("--tree", default=str(ROOT),
+                    help="the checkout whose package is timed (k17, k9)")
+    ap.add_argument("--out", default=None, help="write the results as JSON here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {"card": smi, "kernel": args.kernel}
+    if args.kernel == "attention":
+        attention(dev, results)
+    else:
+        K.library()
+        g = torch.Generator(device=dev).manual_seed(15)
+        results.update(tree=str(_tree()), library=K.library_path().name)
+        results[args.kernel] = dict(k17=k17, k9=k9, k9_copies=k9_copies)[args.kernel](dev, g)
+    print(json.dumps(results), flush=True)
     if args.out:
         Path(args.out).write_text(json.dumps(results, indent=1))
     return 0

@@ -4,18 +4,23 @@ line, so that two commits can be compared on one card in turns:
 
     git archive PARENT | tar -x -C build/parent   # and the change likewise
     for t in build/parent build/change build/change build/parent; do
-        python tools/port_maskgit_ab.py $t [--phase maskgit | maskgit_f32 | radbert]
+        python tools/port_maskgit_ab.py $t [--phase maskgit | maskgit_f32 | radbert |
+                                              ctclip | ctclip_160 | ctvit_ae]
     done
 
 Phases: `maskgit` (the default; `maskgit_phase`: MaskGitTrainer steps with
 the TokenCritic at full width, sampling), `maskgit_f32` (`maskgit_f32_phase`,
-the same in f32) and `radbert` (`radbert_phase`: the CLI's radbert-train,
--infer and -eval at full width, then the f32 training step).  Each line: the
-tree, the phase, the median step (CUDA events: MaskGIT steps 2-4, RadBERT
-2-5) and every step, the profiled step's device busy time, host clock and
-idle share and its summed device ms by kernel group; for `maskgit`
-sampling's seconds per volume and the primed sample's seconds.  The steps
-are partly launch-bound, so compare only lines from one call.
+the same in f32), `radbert` (`radbert_phase`: the CLI's radbert-train,
+-infer and -eval at full width, then the f32 training step), `ctclip`
+(`ctclip_train_phase`: `cli train` at batch 8, bf16, then the timed steps),
+`ctclip_160` (`ctclip_160_phase`: CT-CLIP at 160 frames) and `ctvit_ae`
+(`ctvit_ae_phase`: the autoencoder's generator steps at batch 8).  Each
+line: the tree, the phase, the median step (CUDA events: MaskGIT, CT-CLIP
+and the autoencoder steps 2-4, RadBERT 2-5) and every step, the profiled
+step's device busy time, host clock and idle share and its summed device ms
+by kernel group; for `maskgit` sampling's seconds per volume and the primed
+sample's seconds.  The steps are partly launch-bound, so compare only lines
+from one call.
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ import torch
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("tree", help="the root of a checkout")
-    ap.add_argument("--phase", choices=("maskgit", "maskgit_f32", "radbert"), default="maskgit")
+    ap.add_argument("--phase", choices=("maskgit", "maskgit_f32", "radbert", "ctclip",
+                                        "ctclip_160", "ctvit_ae"), default="maskgit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_maskgit_ab.py needs a machine with an NVIDIA GPU", file=sys.stderr)
@@ -44,8 +50,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     K.library()
-    r = getattr(cs, f"{args.phase}_phase")(torch.device("cuda", 0), Path(tempfile.mkdtemp()),
-                                           str(tree))
+    dev, work = torch.device("cuda", 0), Path(tempfile.mkdtemp())
+    if args.phase in ("ctclip", "ctclip_160"):
+        fn = cs.ctclip_train_phase if args.phase == "ctclip" else cs.ctclip_160_phase
+        r = fn(dev, work, str(tree), cs.write_train_corpus(work))
+    else:
+        r = getattr(cs, f"{args.phase}_phase")(dev, work, str(tree))
     bd = r["step_breakdown"]
     line = dict(tree=str(tree), phase=args.phase, step_ms=r["step_ms"],
                 step_ms_all=r["step_ms_all"], busy_ms=bd["busy_ms"], wall_ms=bd["wall_ms"],
