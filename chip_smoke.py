@@ -67,7 +67,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      (K13a f32 and K13b f32 on attention_tc32.cu, the same seeds on both
      sides, so the same Philox masks);
   6. CT-CLIP pretraining: the training kernels against their plain versions
-     at full width, batch 8 (K11, K9 with the CUDA-core attention core it
+     at full width, batch 8 (K11, its tile and three products on
+     ffn_tc.cu's `wgmma`, bit-identical across runs, a copy whose dg lacks
+     g phi(g) outside the limit; K9 with the CUDA-core attention core it
      replaced timed beside it, K9's bf16 core alone on the tensor cores
      (qknorm_attention_tc.cu) against the plain version at the TPU's
      rounding points, bit-identical across runs, its dbias rows within 16x
@@ -83,8 +85,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      split) at full width, batch 8, 4 steps, with one mini evaluation on 2
      validation volumes and one checkpoint; every training counter must
      rise, and each step runs 12 K13a and 12 K13b on the tensor cores (every
-     attention forward of the run on attention_tc.cu) and its 4 K9 cores on
-     qknorm_attention_tc.cu (counter `qk_attention_tc_bwd`).  The step time
+     attention forward of the run on attention_tc.cu), its 4 K9 cores on
+     qknorm_attention_tc.cu (counter `qk_attention_tc_bwd`) and its 8 K11 on
+     ffn_tc.cu (counters `ff_tc_tile`, 8, and `ff_tc_gemm`, 24).  The step time
      (CUDA events), peak memory and a profiled step's breakdown and idle
      share follow, then a tiny CT-CLIP
      training step on the card against the CPU (both bf16, each gradient
@@ -173,15 +176,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
      f32 backwards against their plain versions in true f32 at full width
      (dx TC32_REL_TOL, the sums over all sequences F32_REL_TOL): K9 f32 on
      the contrastive batch's (192, 576, 512) planes with the CPB bias and on
-     the autoencoder's (160, 64, 512), K10 grid f32 at (8, 24, 576, 512), K10
-     seq f32 at (4,608, 16, 512) and (512, 20, 512), the core alone (merged
-     heads, dq, dkv TC32_REL_TOL) beside a copy with P rounded to bf16 that
-     must miss, K5 exact on 110,592 f32 rows (ids against the plain version
+     the autoencoder's (160, 64, 512), the CUDA-core core it replaced timed
+     beside it, K10 grid f32 at (8, 24, 576, 512), K10 seq f32 at (4,608, 16,
+     512) and (512, 20, 512), K9's f32 core alone in 3xTF32 on
+     qknorm_attention_tc32.cu at (192, 576) and (160, 64) (merged heads, dq,
+     dkv TC32_REL_TOL, the sums F32_REL_TOL, bit-identical across runs,
+     dbias rows within 16x the plain version's sums; a plain-TF32 copy and
+     the CUDA-core kernel's copy with P rounded to bf16 must each miss; the
+     CUDA-core f32 kernel timed beside it), K5 exact on 110,592 f32 rows (ids against the plain version
      of its math; the full-f32 share reported), K15 on them (bins exact,
      sums 1e-6 of max, which full-f32 sums must miss), K17 f32 as K6's
      backward (bit-exact); `cli train --no-bf16` at batch 8, 4 steps with
      the mini evaluation and a checkpoint (launches per step, 12 K13a f32
-     and 12 K13b f32 on attention_tc32.cu among them, step time,
+     and 12 K13b f32 on attention_tc32.cu and 4 K9 f32 cores on
+     qknorm_attention_tc32.cu among them, step time,
      peak memory, a profiled step); `CTViTTrainer` on an f32
      CTViT(ae_config()): 3 generator steps with falling losses and a round
      with the discriminator (the sequence-major f32 counters, K9 f32 at n =
@@ -282,8 +290,11 @@ KERNELS = {
     "attention_dropout_bwd": _kernel("_pallas_attention_kbias_drop_bwd",
                                      "attention.py:499", "attention_tc32.cu", ATTN_TC32,
                                      "attention_dropout_bwd", "radbert_train"),
-    "geglu_ff_bwd": _kernel("_pallas_ff_bwd", "ffn.py:238", "gemm.cu",
-                            ["layernorm.cu", "gemm.cu"], "geglu_ff_bwd", "ctclip_train"),
+    # K11 bf16: the tile and its three products on ffn_tc.cu (`wgmma`,
+    # counters ff_tc_tile and ff_tc_gemm beside geglu_ff_bwd)
+    "geglu_ff_bwd": _kernel("_pallas_ff_bwd", "ffn.py:238", "ffn_tc.cu",
+                            ["layernorm.cu", "ffn_tc.cu", "gemm.cu"], "geglu_ff_bwd",
+                            "ctclip_train"),
     "spatial_attention_bwd": _kernel("_pallas_spatial_bwd", "spatial_attention.py:297",
                                      "qknorm_attention_tc.cu",
                                      ["layernorm.cu", "gemm.cu", "qknorm_attention_tc.cu"],
@@ -387,9 +398,16 @@ KERNELS = {
                                        "unrearrange_patches_f32", "maskgit_f32_sample"),
     # the f32 CTViT backwards (phase 11), each with its own counter
     "spatial_attention_bwd_f32": _kernel("_pallas_spatial_bwd (f32)", "spatial_attention.py:297",
-                                         "qknorm_attention_bwd.cu",
-                                         ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
+                                         "qknorm_attention_tc32.cu",
+                                         ["layernorm.cu", "gemm.cu", "qknorm_attention_tc32.cu"],
                                          "spatial_attention_bwd_f32", "ctclip_f32_train"),
+    # K9's f32 attention core alone, 3xTF32 on the tensor cores (the route
+    # kernels.qk_bwd_tensor_cores gives K9's f32 planes), its own counter
+    "spatial_attention_bwd_f32_tc": _kernel("_pallas_spatial_bwd (f32 attention core)",
+                                            "spatial_attention.py:297",
+                                            "qknorm_attention_tc32.cu",
+                                            ["qknorm_attention_tc32.cu", "gemm.cu"],
+                                            "qk_attention_tc32_bwd", "ctclip_f32_train"),
     "grid_attention_bwd_f32": _kernel("_pallas_small_qknorm_bwd (grid_layout, f32)",
                                       "small_attention.py:437", "qknorm_attention_bwd.cu",
                                       ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
@@ -423,7 +441,8 @@ PATHS = {
                               "attention_tc_bwd"],
     # the training step (K13a and K13b on the tensor cores) and the mini
     # evaluation (K6 ingest, K4 embed, K5)
-    "ctclip_train": ["geglu_ff_bwd", "spatial_attention_bwd", "qk_attention_tc_bwd",
+    "ctclip_train": ["geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm", "spatial_attention_bwd",
+                     "qk_attention_tc_bwd",
                      "grid_attention_bwd", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
                      "geglu_ff", "spatial_attention", "grid_attention", "attention_dropout",
                      "attention_dropout_bwd", "attention_tc_bwd", "rearrange_patches",
@@ -434,7 +453,8 @@ PATHS = {
 }
 # a training step on volumes with visual SSL: K6 in the CLIP embed, K8 and
 # K16a in each view's embed, the tower's kernels and backwards, K13
-AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "rearrange_patches", "geglu_ff_bwd",
+AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "rearrange_patches", "geglu_ff_bwd", "ff_tc_tile",
+             "ff_tc_gemm",
              "spatial_attention_bwd", "qk_attention_tc_bwd", "grid_attention_bwd", "peg_bwd",
              "vq_cluster_stats", "vq_assign_exact", "geglu_ff", "spatial_attention",
              "grid_attention", "attention_dropout", "attention_dropout_bwd", "attention_tc",
@@ -445,15 +465,16 @@ PATHS["ctclip_aux_filip_simclr"] = AUX_TRAIN
 # (training embed K6, decoder un-patchify K17 forward and K6 backward),
 # `cli reconstruct` on the cubic 24^3 grid, CT-CLIP at 160 frames (16, 24, 24)
 AE_TRAIN = ["seq_attention", "seq_attention_bwd", "spatial_attention", "spatial_attention_bwd",
-            "qk_attention_tc_bwd", "geglu_ff", "geglu_ff_bwd", "peg_bwd", "vq_cluster_stats",
-            "vq_assign_exact", "rearrange_patches", "unrearrange_patches"]
+            "qk_attention_tc_bwd", "geglu_ff", "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm",
+            "peg_bwd", "vq_cluster_stats", "vq_assign_exact", "rearrange_patches",
+            "unrearrange_patches"]
 PATHS["ctvit_ae_train"] = AE_TRAIN
 PATHS["ctvit_ae_discr"] = AE_TRAIN + ["vq_assign", "patch_embed"]  # + the inference recon
 PATHS["reconstruct"] = ["patch_embed", "spatial_attention", "grid_attention", "geglu_ff",
                         "vq_assign", "unrearrange_patches"]
 PATHS["ctclip_160_train"] = ["seq_attention", "seq_attention_bwd", "spatial_attention",
                              "spatial_attention_bwd", "qk_attention_tc_bwd", "geglu_ff",
-                             "geglu_ff_bwd", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
+                             "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
                              "rearrange_patches", "attention_dropout", "attention_dropout_bwd",
                              "attention_tc", "attention_tc_bwd"]
 PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "seq_attention", "geglu_ff",
@@ -467,7 +488,7 @@ PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "seq_attention", "ge
 # mask (K7 dense in f32, 12 per-head biases)
 PATHS["maskgit_train"] = ["attention_dense", "attention_dense_bwd", "fused_attention",
                           "attention_tc", "attention_tc_bwd", "geglu_ff", "geglu_ff_bwd",
-                          "peg_bwd"]
+                          "ff_tc_tile", "ff_tc_gemm", "peg_bwd"]
 PATHS["maskgit_encode_ids"] = ["patch_embed", "spatial_attention", "seq_attention", "geglu_ff",
                                "vq_assign"]
 PATHS["maskgit_sample"] = ["attention_dense", "fused_attention", "attention_tc", "geglu_ff",
@@ -497,7 +518,8 @@ PATHS["maskgit_f32_sample"] = ["attention_dense", "fused_attention", "attention_
 # the PEG's plain dW; the
 # mini evaluation's K5 f32 rows, plain row embed, K7 f32) and the f32
 # autoencoder (K1 / K9 f32 at n = 64, K2 / K10 seq f32, K6 and K17 f32)
-PATHS["ctclip_f32_train"] = ["spatial_attention_bwd_f32", "grid_attention_bwd_f32",
+PATHS["ctclip_f32_train"] = ["spatial_attention_bwd_f32", "qk_attention_tc32_bwd",
+                             "grid_attention_bwd_f32",
                              "vq_assign_exact_f32", "vq_cluster_stats_f32", "geglu_ff_bwd_f32",
                              "geglu_ff_f32", "spatial_attention_f32", "grid_attention_f32",
                              "rearrange_patches_f32", "attention_dropout",
@@ -506,7 +528,7 @@ PATHS["ctclip_f32_train"] = ["spatial_attention_bwd_f32", "grid_attention_bwd_f3
                              "vq_assign_f32",
                              "row_embed_plain", "fused_attention"]
 AE_F32_TRAIN = ["seq_attention_f32", "seq_attention_bwd_f32", "spatial_attention_f32",
-                "spatial_attention_bwd_f32", "geglu_ff_f32", "geglu_ff_bwd_f32", "peg_dw_plain",
+                "spatial_attention_bwd_f32", "qk_attention_tc32_bwd", "geglu_ff_f32", "geglu_ff_bwd_f32", "peg_dw_plain",
                 "vq_cluster_stats_f32", "vq_assign_exact_f32", "rearrange_patches_f32",
                 "unrearrange_patches_f32"]
 PATHS["ctvit_ae_f32_train"] = AE_F32_TRAIN
@@ -740,14 +762,15 @@ def twin_result(name: str, fn, ref, source: str = "attention_train.cu") -> dict:
 
 def cuda_core_k9(fn):
     """`fn`, a call that reaches K9's attention core, with the core on the
-    CUDA-core qk_attention_bwd_kernel (qknorm_attention_bwd.cu) that
-    qknorm_attention_tc.cu replaced: kernels.qk_bwd_tensor_cores answers
-    False inside it, so neither the launch nor the counter takes the
-    tensor cores."""
+    CUDA-core kernels (qknorm_attention_bwd.cu: qk_attention_bwd_kernel, or
+    qk_attention_bwd_f32_kernel in f32) that qknorm_attention_tc.cu and
+    qknorm_attention_tc32.cu replaced: kernels.qk_bwd_tensor_cores answers
+    QK_CUDA_CORES inside it, so neither the launch nor the counter takes
+    the tensor cores."""
     from ct_clip_tpu_torch.ops import kernels as K
 
     def run():
-        with replaced(K, "qk_bwd_tensor_cores", lambda *a: False):
+        with replaced(K, "qk_bwd_tensor_cores", lambda *a: K.QK_CUDA_CORES):
             return fn()
     return run
 
@@ -1341,6 +1364,21 @@ def torch_finite(t) -> bool:
     return bool(torch.isfinite(t.float()).all())
 
 
+def no_gphi_k11(fn):
+    """`fn` with K11's tile launched from a copy of ffn_tc.cu built with
+    CT_FF_TC_NO_GPHI=1: dg = dact a Phi(g), the g phi(g) term dropped."""
+    import functools
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    tile = functools.partial(K.ff_tc_tile, lib=K.copy_library("ffn_tc.cu", CT_FF_TC_NO_GPHI=1))
+
+    def run():
+        with replaced(K, "ff_tc_tile", tile):
+            return fn()
+    return run
+
+
 def train_kernel_cases(dev):
     """The CT-CLIP training kernels at full width, batch 8 (K13 at CXR-BERT's
     batch 8 x 512): each case's kernel call through the wrapper the model
@@ -1374,17 +1412,20 @@ def train_kernel_cases(dev):
         out = fn(*leaves)
         return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
-    # K11
+    # K11: the tile and its products on ffn_tc.cu (wgmma); a copy whose dg
+    # lacks g phi(g)
     x, do = rn(R, dim, dtype=bf), rn(R, dim, dtype=bf)
     w = (1 + rn(dim, scale=0.1), rn(dim, scale=0.1), rn(2 * inner, dim, scale=dim ** -0.5),
          rn(dim, inner, scale=inner ** -0.5))
     leaves = [t.requires_grad_() for t in (x.clone(), *w)]
+    k11 = grad_case(fused_geglu_ff, leaves, do)
     yield "geglu_ff_bwd", dict(
-        kern=grad_case(fused_geglu_ff, leaves, do),
-        plain=lambda: geglu_ff_bwd_plain(x, *w, do), library=None,
+        kern=k11, plain=lambda: geglu_ff_bwd_plain(x, *w, do), library=None,
+        copy=no_gphi_k11(k11),
+        copy_is="ffn_tc.cu with dg lacking g phi(g) (CT_FF_TC_NO_GPHI)", bit_identical=True,
         inputs=(x, do, *w), outputs=(x, *w), flops=2 * R * dim * 8 * inner,
-        tol=BWD_REL_TOL)
-    del x, do, w, leaves
+        tols=(BWD_REL_TOL,) * 5)
+    del x, do, w, leaves, k11
 
     # K9, K10: the same weights; spatial planes with the CPB bias, the grid
     w_attn = (1 + rn(dim, scale=0.1), rn(hd, dim, scale=dim ** -0.5),
@@ -2243,11 +2284,15 @@ CTCLIP_GROUPS = (
     TC_FWD_GROUP,
     TC32_GROUP,
     TC32_FWD_GROUP,
+    ("K11 bf16 tile and products on the tensor cores (ffn_tc.cu: ff_tc_tile, ff_tc_gemm)",
+     ("ff_tc_",)),
     ("K11 GEGLU FF backward tile (ff_bwd_kernel)", ("ff_bwd_kernel",)),
     ("backward products NN/TN + split sums (gemm_layout_kernel, sum_splits)",
      ("gemm_layout_kernel", "gemm_layout_f32_kernel", "sum_splits_kernel")),
     ("K9 bf16 attention core backward on the tensor cores (qknorm_attention_tc.cu)",
      ("qk_tc_",)),
+    ("K9 f32 attention core backward, 3xTF32 on the tensor cores (qknorm_attention_tc32.cu)",
+     ("qk32_",)),
     ("K9/K10 attention core backward (qk_attention_bwd_kernel)", ("qk_attention_bwd_kernel",)),
     ("LayerNorm backward (ln_bwd_kernel)", ("ln_bwd_kernel",)),
     ("K14 PEG dW/db (peg_dw_kernel)", ("peg_dw_kernel",)),
@@ -2327,12 +2372,14 @@ def timed_steps(step, state, batch, card: str, label: str, batch_size: int,
 # (attention_tc32.cu)
 CLIP_PER_STEP = {
     "bf16": dict(attention_dropout=BERT_LAYERS, attention_dropout_bwd=BERT_LAYERS,
-                 attention_tc_bwd=BERT_LAYERS, spatial_attention_bwd=4, qk_attention_tc_bwd=4),
+                 attention_tc_bwd=BERT_LAYERS, spatial_attention_bwd=4, qk_attention_tc_bwd=4,
+                 geglu_ff_bwd=8, ff_tc_tile=8, ff_tc_gemm=24, qk_attention_tc32_bwd=0),
     "f32": dict(spatial_attention_bwd_f32=4, grid_attention_bwd_f32=4, vq_assign_exact_f32=1,
                 vq_cluster_stats_f32=1, geglu_ff_bwd_f32=8, attention_dropout=BERT_LAYERS,
                 attention_dropout_bwd=BERT_LAYERS, attention_tc32_bwd=BERT_LAYERS,
                 attention_tc=0, attention_tc_bwd=0, peg_bwd=0, spatial_attention_bwd=4,
-                grid_attention_bwd=4, qk_attention_tc_bwd=0),
+                grid_attention_bwd=4, qk_attention_tc_bwd=0, qk_attention_tc32_bwd=4,
+                ff_tc_tile=0, ff_tc_gemm=0),
 }
 
 
@@ -4292,17 +4339,84 @@ def qk_core_plain(q, kv, dout, heads: int, d: int, n: int, qs, ks, bias):
     return (merged.detach(),) + grads
 
 
+def qk_core_f32_case(dev, g, w, S: int, n: int) -> dict:
+    """K9's f32 attention core alone (kernels.qk_attention_bwd) on (S, n)
+    planes, 8 heads of 32, with an (8, n, n) bias, as the f32 sublayer's
+    backward hands it over: 3xTF32 on qknorm_attention_tc32.cu against the
+    plain version in true f32 (`qk_core_plain`, TF32 off): merged, dq and
+    dkv within TC32_REL_TOL of max|plain|, the sums over all planes
+    (dq_scale, dk_scale, dbias) within F32_REL_TOL; dbias's rows sum to zero
+    within 16x the plain f32 version's rounding; a plain-TF32 copy
+    (CT_TC32_PASSES=1) and the CUDA-core kernel's copy with P rounded to
+    bf16 (CT_QK_BWD_F32_ROUND_P) must each miss TC32_REL_TOL; the replaced
+    CUDA-core f32 kernel timed beside it."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    heads, d = 8, 32
+    hd = heads * d
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    q, kv, dm, bias = rn(S * n, hd), rn(S * n, 2 * hd), rn(S * n, hd), rn(heads, n, n)
+    qs, ks = w[3] * 8.0, w[4]
+    layout = dict(sequences=S, inner=1, heads=heads, n=n, d=d, q_strides=(n * hd, 0, d, hd),
+                  kv_strides=(n * 2 * hd, 0, d, 2 * hd), q_scale=qs, k_scale=ks, bias=bias,
+                  group=-(-S // min(S, 33)), warps=8)
+    tols = (TC32_REL_TOL,) * 3 + (F32_REL_TOL,) * 3
+    hi_only = K.copy_library("qknorm_attention_tc32.cu", CT_TC32_PASSES=1)
+    round_p = K.copy_library("qknorm_attention_bwd.cu", CT_QK_BWD_F32_ROUND_P=1)
+
+    def kern():
+        before = K.launch_counts()["qk_attention_tc32_bwd"]
+        out = K.qk_attention_bwd(q, kv, dm, **layout)
+        if K.launch_counts()["qk_attention_tc32_bwd"] != before + 1:
+            raise AssertionError("K9 f32 core did not run on qknorm_attention_tc32.cu")
+        return out
+
+    def check(got, ref):
+        rels = [_rel_errors((a,), (b,))[1] for a, b in zip(got, ref)]
+        rows, plain_rows = (t[5].sum(-1).abs().max().item() for t in (got, ref))
+        copies = {"plain TF32 (CT_TC32_PASSES=1)":
+                  K.qk_attention_bwd(q, kv, dm, lib=hi_only, **layout),
+                  "CUDA-core kernel with P rounded to bf16 (CT_QK_BWD_F32_ROUND_P=1)":
+                  cuda_core_k9(lambda: K.qk_attention_bwd(q, kv, dm, lib=round_p, **layout))()}
+        copy_rels = {k: max(_rel_errors((a,), (b,))[1] for a, b in zip(c[:3], ref[:3]))
+                     for k, c in copies.items()}
+        res = dict(max_abs_err=_rel_errors(got, ref)[0], max_rel_err=max(rels),
+                   rel_err_by_output=rels, tolerance=f"rel {tols} by output; dbias rows within "
+                   "16x the plain f32 version's sums; each copy outside the merged heads', "
+                   "dq's and dkv's limit", dbias_row_sum_max=rows,
+                   plain_f32_dbias_row_sum_max=plain_rows, copies_max_rel_err=copy_rels)
+        log(f"kernel K9 f32 core (3xTF32) at ({S}, {n}): max_rel_err by output "
+            f"{[f'{r:.2e}' for r in rels]} (limits {tols}); largest |row sum| of dbias "
+            f"{rows:.3e}, plain f32 {plain_rows:.3e} (limit 16x); the copies "
+            f"{ {k: f'{v:.2e}' for k, v in copy_rels.items()} } (must exceed {TC32_REL_TOL})")
+        ok = all(r <= t for r, t in zip(rels, tols)) and rows <= 16 * plain_rows \
+            and all(v > TC32_REL_TOL for v in copy_rels.values())
+        return ok, res
+
+    flops = 12 * S * heads * n * n * d
+    return dict(kern=kern, plain=lambda: qk_core_plain(q, kv, dm, heads, d, n, qs, ks, bias),
+                twin=cuda_core_k9(lambda: K.qk_attention_bwd(q, kv, dm, **layout)),
+                twin_source="qknorm_attention_bwd.cu", check=check, bit_identical=True,
+                library=None, inputs=(q, kv, dm, bias), outputs=(q, q, kv, bias),
+                peak=PEAK_TF32_FLOPS, flops=3 * flops, f32_flops=flops)
+
+
 def f32_train_kernel_cases(dev):
     """The f32 training backwards at full width, each against its plain
     version in true f32 (TF32 off): K9 f32 through the sublayer's backward
     on the contrastive batch's (192, 576, 512) planes with the CPB bias and
-    on the autoencoder's (160, 64, 512) with an (8, 64, 64) bias, K10 grid
-    f32 at (8, 24, 576, 512), K10 seq f32 at (4,608, 16, 512) and (512, 20,
-    512): dx within TC32_REL_TOL of max|plain|, the sums over all sequences
-    (dgamma, dW, dq_scale, dk_scale, dbias) within F32_REL_TOL; the attention
-    core alone on the (192, 576) planes (the merged heads, dq, dkv within
-    TC32_REL_TOL, the sums F32_REL_TOL), beside a copy of it with P rounded
-    to bf16 in its row pass, which must miss; K5 exact on the batch's
+    on the autoencoder's (160, 64, 512) with an (8, 64, 64) bias (its core
+    3xTF32 on the tensor cores, bound at 3 TF32 products per f32 one, the
+    f32 CUDA-core bound and the replaced CUDA-core core's time beside it),
+    K10 grid f32 at (8, 24, 576, 512), K10 seq f32 at (4,608, 16, 512) and
+    (512, 20, 512): dx within TC32_REL_TOL of max|plain|, the sums over all
+    sequences (dgamma, dW, dq_scale, dk_scale, dbias) within F32_REL_TOL;
+    K9's attention core alone on both planes (`qk_core_f32_case`); K5 exact on the batch's
     110,592 f32 rows against 8,192 codes (ids equal to the plain version of
     its own math up to ties within 1e-5; the share equal to the full-f32
     argmax reported); K15 on the same rows (bins exact, sums within 1e-6 of
@@ -4344,10 +4458,16 @@ def f32_train_kernel_cases(dev):
                     tols=(TC32_REL_TOL,) + (F32_REL_TOL,) * (6 + len(extra)))
 
     def spatial(S, n):
+        # the core 3xTF32 on the tensor cores, the products f32 FFMA tiles:
+        # bound at 3 TF32 products per f32 one, the f32 CUDA-core bound beside
+        # it; the replaced CUDA-core core timed beside the call
         x, do, bias = rn(S, n, dim), rn(S, n, dim), rn(heads, n, n)
-        return bwd_case(lambda *a: fused_spatial_qknorm_attention(*a, heads, dh),
+        case = bwd_case(lambda *a: fused_spatial_qknorm_attention(*a, heads, dh),
                         lambda: qknorm_attention_bwd_plain(x, *w, bias, do, heads, dh),
                         x, do, (bias,), 12 * S * heads * n * n * dh)
+        return dict(case, peak=PEAK_TF32_FLOPS, flops=3 * case["flops"],
+                    f32_flops=case["flops"], twin=cuda_core_k9(case["kern"]),
+                    twin_source="qknorm_attention_bwd.cu")
     yield "spatial_attention_bwd_f32", spatial(TRAIN_B * 24, 576)
     yield "spatial_attention_bwd_f32_n64", spatial(AE_B * AE_FRAMES // 10, 64)
     xg, dog = rn(TRAIN_B, 24, 576, dim), rn(TRAIN_B, 24, 576, dim)
@@ -4365,22 +4485,10 @@ def f32_train_kernel_cases(dev):
             x, do, (), 12 * S * heads * n * n * dh)
         del x, do
 
-    # the core alone, and its copy with P rounded to bf16 in the row pass
-    S, n = TRAIN_B * 24, 576
-    q, kv, dm, cpb = rn(S * n, hd), rn(S * n, 2 * hd), rn(S * n, hd), rn(heads, n, n)
-    qs, ks = w[3] * 8.0, w[4]
-    layout = dict(sequences=S, inner=1, heads=heads, n=n, d=dh,
-                  q_strides=(n * hd, 0, dh, hd), kv_strides=(n * 2 * hd, 0, dh, 2 * hd),
-                  q_scale=qs, k_scale=ks, bias=cpb, group=-(-S // 33), warps=8)
-    copy = K.copy_library("qknorm_attention_bwd.cu", CT_QK_BWD_F32_ROUND_P=1)
-    yield "spatial_attention_bwd_f32_core", dict(
-        f32_case, kern=lambda: K.qk_attention_bwd(q, kv, dm, **layout),
-        plain=lambda: qk_core_plain(q, kv, dm, heads, dh, n, qs, ks, cpb),
-        copy=lambda: K.qk_attention_bwd(q, kv, dm, lib=copy, **layout),
-        copy_is="P rounded to bf16 in the row pass",
-        inputs=(q, kv, dm, cpb), outputs=(q, q, kv, cpb),
-        flops=12 * S * heads * n * n * dh, tols=(TC32_REL_TOL,) * 3 + (F32_REL_TOL,) * 3)
-    del q, kv, dm, cpb
+    # the core alone on qknorm_attention_tc32.cu (3xTF32)
+    yield "spatial_attention_bwd_f32_tc", qk_core_f32_case(dev, g, w, TRAIN_B * 24, 576)
+    yield "spatial_attention_bwd_f32_tc_n64", qk_core_f32_case(dev, g, w, AE_B * AE_FRAMES // 10,
+                                                               64)
 
     # K5 exact and K15 on the training batch's f32 rows
     xv, embed_n = rn(R, dim), l2norm(rn(8192, dim))
@@ -4451,9 +4559,8 @@ def f32_train_kernel_phase(dev) -> dict:
               "vq_assign_exact_f32", "vq_cluster_stats_f32", "unrearrange_patches_f32"):
         if not counts[k]:
             raise AssertionError(f"f32 training kernels: {k} never launched")
-    sp = res["spatial_attention_bwd_f32"]
-    sp["at_n64"] = res.pop("spatial_attention_bwd_f32_n64")
-    sp["core"] = res.pop("spatial_attention_bwd_f32_core")
+    for key in ("spatial_attention_bwd_f32", "spatial_attention_bwd_f32_tc"):
+        res[key]["at_n64"] = res.pop(f"{key}_n64")
     res["seq_attention_bwd_f32"]["at_generatect"] = res.pop("seq_attention_bwd_f32_generatect")
     return res
 

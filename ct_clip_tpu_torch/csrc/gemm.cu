@@ -17,8 +17,9 @@
 //     training mode against the hi + lo bf16 codebook (gemm_argmax2_kernel;
 //     on f32 rows gemm_argmax3_rows_kernel, three bf16 products);
 //   * the products inside the backwards ops/pallas/ffn.py::_pallas_ff_bwd
-//     (K11: the recomputed a and g with dact = do wo and the GEGLU
-//     derivative in one tile, ff_bwd_kernel), spatial_attention.py::
+//     (K11 in f32: the recomputed a and g with dact = do wo and the GEGLU
+//     derivative in one tile, ff_bwd_kernel; in bf16 ffn_tc.cu's `wgmma`
+//     kernels take K11's tile and products), spatial_attention.py::
 //     _pallas_spatial_bwd (K9) and small_attention.py::
 //     _pallas_small_qknorm_bwd (K10): dX = dY W ("NN") and the weight
 //     gradients dW = dY^T X over all rows ("TN", f32, split over row blocks
@@ -738,45 +739,35 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, int splits, lo
 }
 
 // ---------------------------------------------- K11: the FF backward's core
-// One (64 rows x 64 inner) tile: recompute a = xn wa^T and g = xn wg^T
-// (K = dim), take dact = do wo over the same tile (wo passed transposed as
-// woT (inner, dim), so it is a third nn.Linear-layout weight with K = dim),
-// and write act = a gelu(g), da = dact gelu(g) and
-// dg = dact a (Phi(g) + g phi(g)), each rounded to bf16 as ffn.py::
-// _bwd_kernel rounds them (:165, :173-174).  da and dg go side by side into
-// one (rows, 2 * inner_pad) buffer, so dxn = [da | dg] [wa; wg] is one NN
-// product and [dwa; dwg] one TN product.
+// The f32 form (ffn.py's cdt f32, :145-174; the bf16 form is ffn_tc.cu's
+// ff_tc_tile).  One (64 rows x 64 inner) tile: recompute a = xn wa^T and
+// g = xn wg^T (K = dim) as f32 FMA-chain sums (f32_mainloop), take dact =
+// do wo over the same tile (wo passed transposed as woT (inner, dim), so it
+// is a third nn.Linear-layout weight with K = dim), and write act =
+// a gelu(g), da = dact gelu(g) and dg = dact a (Phi(g) + g phi(g)) in f32,
+// unrounded.  da and dg go side by side into one (rows, 2 * inner_pad)
+// buffer, so dxn = [da | dg] [wa; wg] is one NN product and [dwa; dwg] one
+// TN product.
 constexpr int FF_SMEM = 3 * BM * LDC * 4;
 
-// T float: the f32 form (ffn.py's cdt f32, :145-174): a, g and dact as f32
-// FMA-chain sums (f32_mainloop), act, da and dg written in f32, unrounded.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 ff_bwd_kernel(const T* __restrict__ xn, const T* __restrict__ dout, int ldx,
               const T* __restrict__ wa, const T* __restrict__ wg,
               const T* __restrict__ woT, int ldw, int M, int N, int K,
               T* __restrict__ act, int ldact, T* __restrict__ dcat, int lddc) {
+  static_assert(std::is_same<T, float>::value, "the f32 form alone");
   extern __shared__ __align__(128) unsigned char fsm[];
   float* Cs = reinterpret_cast<float*>(fsm);
 
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const T* Wag[2] = {wa, wg};
   const T* Wo[1] = {woT};
-  if constexpr (std::is_same<T, float>::value) {
-    float ag[2][FR][FC], dacc[1][FR][FC];
-    f32_mainloop<2, false, false, VEC>(ag, Cs, xn, ldx, Wag, ldw, m0, n0, M, N, 0, K);
-    f32_mainloop<1, false, false, VEC>(dacc, Cs, dout, ldx, Wo, ldw, m0, n0, M, N, 0, K);
-    f32_stage<2>(Cs, ag);
-    f32_stage<1>(Cs + 2 * BM * LDC, dacc);
-  } else {
-    bf16* As = reinterpret_cast<bf16*>(fsm);
-    bf16* Bs = As + BM * LDS;
-    Acc ag[2][2][2], dacc[1][2][2];
-    mainloop<2, VEC>(ag, As, Bs, xn, ldx, Wag, ldw, m0, n0, M, N, K);
-    mainloop<1, VEC>(dacc, As, Bs, dout, ldx, Wo, ldw, m0, n0, M, N, K);
-    stage_acc<2>(Cs, ag);
-    stage_acc<1>(Cs + 2 * BM * LDC, dacc);
-  }
+  float ag[2][FR][FC], dacc[1][FR][FC];
+  f32_mainloop<2, false, false, VEC>(ag, Cs, xn, ldx, Wag, ldw, m0, n0, M, N, 0, K);
+  f32_mainloop<1, false, false, VEC>(dacc, Cs, dout, ldx, Wo, ldw, m0, n0, M, N, 0, K);
+  f32_stage<2>(Cs, ag);
+  f32_stage<1>(Cs + 2 * BM * LDC, dacc);
   __syncthreads();
   for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
     const int r = e / BN, c = e % BN;
@@ -998,16 +989,9 @@ CT_EXPORT int ct_sum_splits(const void* part, int splits, long long n, void* out
   return (int)cudaGetLastError();
 }
 
-// xn, dout (M, K) with row stride ldx; wa, wg, woT (N, K) with row stride
-// ldw; act (M, N); dcat (M, 2N) [da | dg].
-CT_EXPORT int ct_ff_bwd(const void* xn, const void* dout, int ldx, const void* wa,
-                        const void* wg, const void* woT, int ldw, int M, int N, int K,
-                        void* act, int ldact, void* dcat, int lddc, int vec, void* stream) {
-  return ff_bwd<bf16>(xn, dout, ldx, wa, wg, woT, ldw, M, N, K, act, ldact, dcat, lddc, vec,
-                      stream);
-}
-
-// The f32 form: every operand and output f32 (vec: multiples of 4).
+// K11's tile in f32: xn, dout (M, K) with row stride ldx; wa, wg, woT (N,
+// K) with row stride ldw; act (M, N); dcat (M, 2N) [da | dg]; every operand
+// and output f32 (vec: K, the strides and the bases multiples of 4).
 CT_EXPORT int ct_ff_bwd_f32(const void* xn, const void* dout, int ldx, const void* wa,
                             const void* wg, const void* woT, int ldw, int M, int N, int K,
                             void* act, int ldact, void* dcat, int lddc, int vec, void* stream) {

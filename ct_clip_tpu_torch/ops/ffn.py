@@ -20,12 +20,13 @@ are exactly zero and meet zero columns of wo.
 The backward is the port of ffn.py::_pallas_ff_bwd (K11): it saves only the
 sublayer's input and recomputes flash-style.  On a CUDA tensor: LN again,
 one tile kernel that recomputes a and g and takes dact = do wo with the
-GEGLU derivative (act, da, dg in the compute dtype, csrc/gemm.cu
-ff_bwd_kernel),
-dxn = [da | dg] [wa; wg] (NN product), the LN backward with the identity
-term (csrc/layernorm.cu), and the weight gradients [dwa; dwg] = [da | dg]^T
-LN(x) and dwo = do^T act over all rows in f32 (TN products).  The padding's
-gradient rows are dropped.  Its plain version is autograd of the plain
+GEGLU derivative (act, da, dg in the compute dtype), dxn = [da | dg] [wa;
+wg] (NN product), the LN backward with the identity term
+(csrc/layernorm.cu), and the weight gradients [dwa; dwg] = [da | dg]^T
+LN(x) and dwo = do^T act over all rows in f32 (TN products): in bf16 the
+tile and the three products on the tensor cores with `wgmma`
+(csrc/ffn_tc.cu), in f32 csrc/gemm.cu's f32 forms (`bwd_kernels`).  The
+padding's gradient rows are dropped.  Its plain version is autograd of the plain
 forward (`geglu_ff_bwd_plain`), the XLA twin's VJP in the JAX package.
 """
 from __future__ import annotations
@@ -85,6 +86,15 @@ def _geglu_ff_cuda(x, scale, bias, wi, wo, eps):
     return out
 
 
+def bwd_kernels(dtype: torch.dtype):
+    """K11's tile, NN product and TN product for the compute dtype: bf16 on
+    csrc/ffn_tc.cu (`wgmma`: ff_tc_tile, gemm_nn_tc, gemm_tn_tc), f32 on
+    csrc/gemm.cu's f32 forms (ff_bwd_core, gemm_nn, gemm_tn)."""
+    if dtype == torch.bfloat16:
+        return K.ff_tc_tile, K.gemm_nn_tc, K.gemm_tn_tc
+    return K.ff_bwd_core, K.gemm_nn, K.gemm_tn
+
+
 def _geglu_ff_bwd_cuda(x, scale, bias, wi, wo, dout, eps):
     rows, dim = x.shape
     inner = wo.shape[1]
@@ -96,13 +106,14 @@ def _geglu_ff_bwd_cuda(x, scale, bias, wi, wo, dout, eps):
     dout = dout.to(cdt).contiguous()
     xn = torch.empty_like(x)
     K.layernorm(x, scale, bias, eps, xn)
-    act, dcat = K.ff_bwd_core(xn, dout, wcat[:padded], wcat[padded:], woT)
+    tile, gemm_nn, gemm_tn = bwd_kernels(cdt)
+    act, dcat = tile(xn, dout, wcat[:padded], wcat[padded:], woT)
     dxn = torch.empty((rows, dim), dtype=torch.float32, device=x.device)
-    K.gemm_nn(dcat, wcat, dxn)
+    gemm_nn(dcat, wcat, dxn)
     dx, dscale, dbias = K.layernorm_bwd(x, scale, dxn, eps, add2=dout, want_dbias=True)
-    dwcat = K.gemm_tn(dcat, xn)
+    dwcat = gemm_tn(dcat, xn)
     dwi = torch.cat([dwcat[:inner], dwcat[padded:padded + inner]])
-    dwo = K.gemm_tn(dout, act)[:, :inner]
+    dwo = gemm_tn(dout, act)[:, :inner]
     K.count_launch("geglu_ff_bwd", cdt)
     return dx, dscale, dbias, dwi, dwo
 

@@ -15,7 +15,8 @@ C entry point reports a CUDA error.  Outputs are allocated by the callers
 
 Launch counts: each op module that ports a TPU kernel adds one to its
 counter (`count_launch`) where its CUDA path runs, and a launch helper that
-chooses between kernels counts the one it launched (`qk_attention_tc_bwd`),
+chooses between kernels counts the one it launched (`qk_attention_tc_bwd`,
+`qk_attention_tc32_bwd`),
 so a run can show that its main path went through the kernels
 (`launch_counts`).
 """
@@ -83,8 +84,14 @@ KERNELS = (
                            # (attention_dense_bwd), K12a, key bias (attention_bwd),
                            # K13b, key bias and dropout (attention_dropout_bwd)
     # qknorm_attention_tc.cu's bf16 tensor-core core of the QK-norm backward
-    "qk_attention_tc_bwd",  # K9 where `qk_bwd_tensor_cores` takes it
+    "qk_attention_tc_bwd",  # K9 where `qk_bwd_tensor_cores` gives QK_WGMMA
                             # (spatial_attention_bwd)
+    # qknorm_attention_tc32.cu's f32 3xTF32 core of the QK-norm backward
+    "qk_attention_tc32_bwd",  # K9 f32 where `qk_bwd_tensor_cores` gives QK_TC32
+                              # (spatial_attention_bwd, spatial_attention_bwd_f32)
+    # ffn_tc.cu's bf16 K11 on the tensor cores (`wgmma`), beside geglu_ff_bwd
+    "ff_tc_tile",          # the tile: a, g, dact and the GEGLU derivative (one a call)
+    "ff_tc_gemm",          # its products: dxn (NN), [dwa; dwg] and dwo (TN), three a call
     # the f32 forms, counted beside the function's own counter
     "geglu_ff_f32",        # K3 f32 (gemm.cu f32 products, layernorm.cu f32 rows)
     "geglu_ff_bwd_f32",    # K11 f32
@@ -276,7 +283,8 @@ def _signatures():
         "ct_gemm_argmax2_rows": [p, i, p, p, i, i, i, i, p, i, p],
         "ct_gemm_layout": [i, i, p, i, p, i, i, i, i, i, p, i, ll, i, p],
         "ct_sum_splits": [p, i, ll, p, p],
-        "ct_ff_bwd": [p, p, i, p, p, p, i, i, i, i, p, i, p, i, i, p],
+        "ct_ff_tc_tile": [p, p, i, p, p, p, i, i, i, i, p, i, p, i, p],
+        "ct_ff_tc_gemm": [i, p, i, p, i, i, i, i, i, p, i, ll, p],
         "ct_layernorm_bwd": [p, i, i, p, p, p, p, f, p, p, p, p, i, p],
         "ct_patch_layernorm_bwd": [p, i, i, i, i, i, i, p, p, f, p, p, p, i, p],
         "ct_qk_attention_bwd": [p, p, p, p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i,
@@ -285,6 +293,8 @@ def _signatures():
                                     i, i, i, i, p, p, p, p, p, p, p, i, p],
         "ct_qk_attention_tc_bwd": [p, p, p, p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i,
                                    i, i, i, p, p, p, p, p, p, p, p, p, p, i, p, p, p],
+        "ct_qk_attention_tc32_bwd": [p, p, p, p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i,
+                                     i, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p, p, p],
         "ct_peg_dw": [p, p, i, i, i, i, i, i, i, i, p, p],
         "ct_vq_cluster_stats": [p, p, i, i, i, p, p, p, p, p, p, p],
         "ct_vq_cluster_stats_f32": [p, p, i, i, i, p, p, p, p, p, p, p],
@@ -555,12 +565,11 @@ def sum_splits(part: torch.Tensor) -> torch.Tensor:
 
 def ff_bwd_core(xn: torch.Tensor, dout: torch.Tensor, wa: torch.Tensor,
                 wg: torch.Tensor, woT: torch.Tensor):
-    """K11's tile (gemm.cu, ff_bwd_kernel): a = xn wa^T, g = xn wg^T and
-    dact = dout woT^T -> act (M, N) and dcat (M, 2N) = [da | dg], every
-    operand and output bf16, or every one f32 (the f32 form, unrounded)."""
+    """K11's tile in f32 (gemm.cu, ff_bwd_kernel): a = xn wa^T, g = xn wg^T
+    and dact = dout woT^T -> act (M, N) and dcat (M, 2N) = [da | dg], every
+    operand and output f32, unrounded (bf16: `ff_tc_tile`)."""
     for name, t in (("xn", xn), ("dout", dout), ("wa", wa), ("wg", wg), ("woT", woT)):
-        require(t, name, FORMS, 2)
-    _same_form(xn, dout=dout, wa=wa, wg=wg, woT=woT)
+        require(t, name, F32, 2)
     M, K = xn.shape
     N = wa.shape[0]
     if dout.shape != xn.shape or any(w.shape != (N, K) for w in (wa, wg, woT)):
@@ -568,11 +577,99 @@ def ff_bwd_core(xn: torch.Tensor, dout: torch.Tensor, wa: torch.Tensor,
     act = torch.empty((M, N), dtype=xn.dtype, device=xn.device)
     dcat = torch.empty((M, 2 * N), dtype=xn.dtype, device=xn.device)
     vec = K % _chunk(xn) == 0 and all(_rows_ok(t) for t in (xn, dout, wa, wg, woT))
-    err = _form("ct_ff_bwd", xn)(_ptr(xn), _ptr(dout), K, _ptr(wa), _ptr(wg), _ptr(woT), K,
-                                 M, N, K, _ptr(act), N, _ptr(dcat), 2 * N, int(vec),
-                                 _stream())
-    _check(err, "ct_ff_bwd")
+    err = library().ct_ff_bwd_f32(_ptr(xn), _ptr(dout), K, _ptr(wa), _ptr(wg), _ptr(woT), K,
+                                  M, N, K, _ptr(act), N, _ptr(dcat), 2 * N, int(vec),
+                                  _stream())
+    _check(err, "ct_ff_bwd_f32")
     return act, dcat
+
+
+# K11 in bf16 on the tensor cores (ffn_tc.cu)
+FF_TC_SPLIT_ROWS = 8192  # rows of a weight-gradient split, at most (tensor-core drift)
+FF_TC_K = 64  # a split's rows are a multiple of the kernels' k block
+
+
+def _ff_tc_operands(name: str, **tensors) -> None:
+    """bf16 (rows, width) tensors with contiguous rows whose widths, row
+    strides and bases are multiples of 16 bytes: the 16-byte copies of
+    ffn_tc.cu."""
+    for key, t in tensors.items():
+        _rows_contig(t, key)
+        if t.dtype != BF16 or t.shape[1] % 8 or t.stride(0) % 8 or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be bf16 with widths, row strides and bases "
+                             f"of multiples of 16 bytes (got {t.dtype} {tuple(t.shape)}, "
+                             f"stride {t.stride(0)})")
+
+
+def ff_tc_tile(xn: torch.Tensor, dout: torch.Tensor, wa: torch.Tensor, wg: torch.Tensor,
+               woT: torch.Tensor, lib=None):
+    """K11's tile on ffn_tc.cu (bf16 `wgmma`): a = xn wa^T, g = xn wg^T and
+    dact = dout woT^T -> act (M, N) and dcat (M, 2N) = [da | dg], bf16,
+    rounded where ffn.py::_bwd_kernel rounds them (counted `ff_tc_tile`).
+    `lib`: a one-change copy of ffn_tc.cu (`copy_library`) to launch
+    instead, for the card checks."""
+    _ff_tc_operands("ff_tc_tile", xn=xn, dout=dout, wa=wa, wg=wg, woT=woT)
+    M, K = xn.shape
+    N = wa.shape[0]
+    if dout.shape != xn.shape or any(w.shape != (N, K) for w in (wa, wg, woT)) \
+            or dout.stride(0) != xn.stride(0) \
+            or not wa.stride(0) == wg.stride(0) == woT.stride(0):
+        raise ValueError("ff_tc_tile: shapes or row strides do not fit")
+    act = torch.empty((M, N), dtype=BF16, device=xn.device)
+    dcat = torch.empty((M, 2 * N), dtype=BF16, device=xn.device)
+    err = (lib or library()).ct_ff_tc_tile(
+        _ptr(xn), _ptr(dout), xn.stride(0), _ptr(wa), _ptr(wg), _ptr(woT), wa.stride(0), M, N,
+        K, _ptr(act), N, _ptr(dcat), 2 * N, _stream())
+    _check(err, "ct_ff_tc_tile")
+    count_launch("ff_tc_tile")
+    return act, dcat
+
+
+def ff_tc_split(rows: int) -> int:
+    """Rows per split of a weight-gradient product on ffn_tc.cu: the fewest
+    splits of at most FF_TC_SPLIT_ROWS rows, each a multiple of FF_TC_K."""
+    splits = max(1, -(-rows // FF_TC_SPLIT_ROWS))
+    return -(-rows // (splits * FF_TC_K)) * FF_TC_K
+
+
+def gemm_nn_tc(dy: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """out (M, N) f32 = dy (M, K) @ w (K, N), bf16 operands, on ffn_tc.cu
+    (`wgmma`, w read MN-major): K11's dxn = [da | dg] [wa; wg] (counted
+    `ff_tc_gemm`)."""
+    _ff_tc_operands("gemm_nn_tc", dy=dy, w=w)
+    M, K = dy.shape
+    N = w.shape[1]
+    if w.shape[0] != K or tuple(out.shape) != (M, N) or out.dtype != F32 \
+            or out.stride(1) != 1 or out.stride(0) % 2 or out.data_ptr() % 16 \
+            or out.device != dy.device:
+        raise ValueError(f"gemm_nn_tc: dy {tuple(dy.shape)}, w {tuple(w.shape)}, "
+                         f"out {tuple(out.shape)} {out.dtype}")
+    err = library().ct_ff_tc_gemm(0, _ptr(dy), dy.stride(0), _ptr(w), w.stride(0), M, N, K,
+                                  -(-K // FF_TC_K) * FF_TC_K, _ptr(out), out.stride(0), 0,
+                                  _stream())
+    _check(err, "ct_ff_tc_gemm")
+    count_launch("ff_tc_gemm")
+    return out
+
+
+def gemm_tn_tc(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """dy^T @ x over all rows as f32 (M, N), for dy (R, M) and x (R, N) bf16,
+    on ffn_tc.cu (`wgmma`, both read MN-major): K11's weight gradients.  The
+    rows split in blocks of `ff_tc_split` whose partial sums are added in
+    order (sum_splits) (counted `ff_tc_gemm`)."""
+    _ff_tc_operands("gemm_tn_tc", dy=dy, x=x)
+    R, M = dy.shape
+    N = x.shape[1]
+    if x.shape[0] != R:
+        raise ValueError(f"gemm_tn_tc: dy {tuple(dy.shape)} and x {tuple(x.shape)}")
+    chunk = ff_tc_split(R)
+    splits = -(-R // chunk)
+    part = torch.empty((splits, M, N), dtype=torch.float32, device=dy.device)
+    err = library().ct_ff_tc_gemm(1, _ptr(dy), dy.stride(0), _ptr(x), x.stride(0), M, N, R,
+                                  chunk, _ptr(part), N, M * N, _stream())
+    _check(err, "ct_ff_tc_gemm")
+    count_launch("ff_tc_gemm")
+    return part[0] if splits == 1 else sum_splits(part)
 
 
 def _f32_vector(t: Optional[torch.Tensor], n: int, name: str):
@@ -830,23 +927,33 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-# the bf16 QK-norm core on the tensor cores (qknorm_attention_tc.cu)
+# the QK-norm core on the tensor cores: bf16 (qknorm_attention_tc.cu) and
+# f32 in 3xTF32 (qknorm_attention_tc32.cu)
 QK_TC_HEAD_DIM = 32
 QK_TC_MIN_TOKENS = 32  # half a 64-row tile; K10's 16-24-token sequences stay
 # dbias-pass CTAs to aim for, one wave of three per SM (132): 576-token planes
 # give 648 CTAs of one group; three waves (two groups) read no faster
 QK_TC_DBIAS_CTAS = 396
+# the routes of the core's backward (`qk_bwd_tensor_cores`)
+QK_WGMMA, QK_TC32, QK_CUDA_CORES = "wgmma", "tc32", "cuda_cores"
+# the dynamic shared memory the largest pass of qknorm_attention_tc32.cu
+# takes (its dbias pass: the bias tile and two stages of qn, dO, kn, v, lse
+# and D, 1024-byte aligned); the same at every n
+QK_TC32_BWD_SMEM = 1024 + 18432 + 2 * 37888
 
 
-def qk_bwd_tensor_cores(dtype: torch.dtype, n: int, d: int) -> bool:
-    """Whether the QK-norm attention core's backward on `n`-token sequences
-    of head dim `d` takes qknorm_attention_tc.cu (bf16 `wgmma`, K9's 576-
-    and 64-token planes with or without the bias, any ragged n from 32 in
-    zero-filled 64-row tiles) rather than qknorm_attention_bwd.cu
-    (qk_attention_bwd_kernel on the CUDA cores: K10's 16-24-token
-    sequences, other head dims; qk_attention_bwd_f32_kernel: every f32
-    call).  `_qk_tc_bwd` counts each launch of the tensor-core route."""
-    return dtype == BF16 and d == QK_TC_HEAD_DIM and n >= QK_TC_MIN_TOKENS
+def qk_bwd_tensor_cores(dtype: torch.dtype, n: int, d: int) -> str:
+    """The route of the QK-norm attention core's backward on `n`-token
+    sequences of head dim `d`: QK_WGMMA, qknorm_attention_tc.cu (bf16
+    `wgmma`), or QK_TC32, qknorm_attention_tc32.cu (f32 in 3xTF32 on
+    `mma.sync`), for K9's 576- and 64-token planes with or without the
+    bias and any ragged n from 32 in zero-filled 64-row tiles; otherwise
+    QK_CUDA_CORES, qknorm_attention_bwd.cu (qk_attention_bwd_kernel and its
+    f32 form: K10's 16-24-token sequences, other head dims).  `_qk_tc_bwd`
+    and `_qk_tc32_bwd` count each launch of their route."""
+    if d != QK_TC_HEAD_DIM or n < QK_TC_MIN_TOKENS:
+        return QK_CUDA_CORES
+    return {BF16: QK_WGMMA, F32: QK_TC32}.get(dtype, QK_CUDA_CORES)
 
 
 def qk_tc_dbias_groups(sequences: int, heads: int, n: int) -> int:
@@ -859,20 +966,22 @@ def qk_tc_dbias_groups(sequences: int, heads: int, n: int) -> int:
     return -(-sequences // per)
 
 
-def _qk_tc_bwd(q, kv, dout, qs, ks, bias, *, sequences, inner, heads, n, d, q_strides,
-               kv_strides, lib):
-    """qk_attention_bwd on qknorm_attention_tc.cu: its scratch (qn, kn and the
-    rows' inverse norms, lse, D_i) and the per-CTA scale partials, added in
-    two levels (one thread a column would sum 13,824 rows in turn: 0.6 ms);
-    dbias from the dbias pass's groups of sequences, added in order."""
+def _qk_core_bwd(entry, counter, q, kv, dout, qs, ks, bias, *, sequences, inner, heads, n, d,
+                 q_strides, kv_strides, lib):
+    """qk_attention_bwd on a tensor-core source (`entry`, counted `counter`
+    where it launches): its scratch (qn, kn in q's dtype and the rows'
+    inverse norms, lse, D_i) and the per-CTA scale partials, added in two
+    levels (one thread a column would sum 13,824 rows in turn: 0.6 ms); dbias
+    from the dbias pass's groups of sequences, added in order."""
     strides = [*map(int, q_strides), *map(int, kv_strides)]
-    if any(st % 8 for st in strides) or any(t.data_ptr() % 16 for t in (q, kv, dout)):
-        raise ValueError("qk_attention_bwd: the tensor-core core takes strides of multiples "
-                         "of 8 elements and 16-byte aligned tensors")
+    chunk = _chunk(q)
+    if any(st % chunk for st in strides) or any(t.data_ptr() % 16 for t in (q, kv, dout)):
+        raise ValueError(f"qk_attention_bwd: the tensor-core core takes strides of multiples "
+                         f"of {chunk} elements and 16-byte aligned tensors")
     merged, dq, dkv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(kv)
-    bf = dict(dtype=torch.bfloat16, device=q.device)
     f32 = dict(dtype=torch.float32, device=q.device)
-    qn, kn = (torch.empty((sequences, heads, n, d), **bf) for _ in range(2))
+    qn, kn = (torch.empty((sequences, heads, n, d), dtype=q.dtype, device=q.device)
+              for _ in range(2))
     rq, rk, lse, rowsum = (torch.empty((sequences, heads, n), **f32) for _ in range(4))
     tiles = -(-n // 64)
     groups, dbias_part = 1, None
@@ -882,13 +991,13 @@ def _qk_tc_bwd(q, kv, dout, qs, ks, bias, *, sequences, inner, heads, n, d, q_st
     dqs_part = torch.empty((sequences * heads * tiles, d), **f32)
     dks_part = torch.empty_like(dqs_part)
     hd = heads * d
-    err = (lib or library()).ct_qk_attention_tc_bwd(
+    err = getattr(lib or library(), entry)(
         _ptr(q), _ptr(kv), _ptr(kv[:, hd:]), _ptr(dout), _ptr(merged), _ptr(dq), _ptr(dkv),
         _ptr(dkv[:, hd:]), *strides, inner, sequences, heads, n, d, _ptr(qs), _ptr(ks),
         _ptr(bias), _ptr(qn), _ptr(kn), _ptr(rq), _ptr(rk), _ptr(lse), _ptr(rowsum),
         _ptr(dbias_part), groups, _ptr(dqs_part), _ptr(dks_part), _stream())
-    _check(err, "ct_qk_attention_tc_bwd")
-    count_launch("qk_attention_tc_bwd")
+    _check(err, entry)
+    count_launch(counter)
     dbias = None
     if bias is not None:
         dbias = dbias_part[0] if groups == 1 else sum_splits(dbias_part)
@@ -898,17 +1007,27 @@ def _qk_tc_bwd(q, kv, dout, qs, ks, bias, *, sequences, inner, heads, n, d, q_st
     return merged, dq, dkv, scale_sum(dqs_part), scale_sum(dks_part), dbias
 
 
+def _qk_tc_bwd(*args, **kw):
+    """The bf16 core on qknorm_attention_tc.cu (`wgmma`)."""
+    return _qk_core_bwd("ct_qk_attention_tc_bwd", "qk_attention_tc_bwd", *args, **kw)
+
+
+def _qk_tc32_bwd(*args, **kw):
+    """The f32 core on qknorm_attention_tc32.cu (3xTF32 on `mma.sync`)."""
+    return _qk_core_bwd("ct_qk_attention_tc32_bwd", "qk_attention_tc32_bwd", *args, **kw)
+
+
 def qk_attention_bwd(q, kv, dout, *, sequences: int, inner: int, heads: int,
                      n: int, d: int, q_strides, kv_strides, q_scale, k_scale,
                      bias: Optional[torch.Tensor] = None, group: int = 1,
                      warps: int = 8, lib=None):
     """The QK-norm attention core's backward on the projections q (rows,
     h*d) and kv (rows, 2*h*d) [k | v], and dout, the gradient of the merged
-    heads, laid out as q; all bf16, or all f32.  Where `qk_bwd_tensor_cores`
-    says so, qknorm_attention_tc.cu (bf16 `wgmma`; `group` and `warps` unused);
-    otherwise qknorm_attention_bwd.cu (bf16 on the CUDA cores, or its f32 form:
-    nothing rounded, query and key tiles of 4 x `warps` rows, sequences in
-    blocks of `group`).  Heads are addressed through (outer, inner, head,
+    heads, laid out as q; all bf16, or all f32.  By `qk_bwd_tensor_cores`:
+    qknorm_attention_tc.cu (bf16 `wgmma`) or qknorm_attention_tc32.cu (f32 in
+    3xTF32), `group` and `warps` unused; otherwise qknorm_attention_bwd.cu
+    (bf16 on the CUDA cores, or its f32 form: nothing rounded, query and key
+    tiles of 4 x `warps` rows, sequences in blocks of `group`).  Heads are addressed through (outer, inner, head,
     token) element strides: `q_strides` for q, dout and the outputs like q,
     `kv_strides` for k and v (the caller checks they stay inside the tensors).
     Returns merged and dq (like q), dkv (like kv), dq_scale and dk_scale (d,)
@@ -923,7 +1042,9 @@ def qk_attention_bwd(q, kv, dout, *, sequences: int, inner: int, heads: int,
             raise ValueError(f"qk_attention_bwd: {name} {tuple(t.shape)}")
     if d % 2 or d > 64:
         raise ValueError(f"qk_attention_bwd: head dim {d} must be even and <= 64")
-    if q.dtype == F32 and qk_attention_bwd_f32_smem(n, d, warps) > SMEM_LIMIT:
+    core = qk_bwd_tensor_cores(q.dtype, n, d)
+    if core == QK_CUDA_CORES and q.dtype == F32 \
+            and qk_attention_bwd_f32_smem(n, d, warps) > SMEM_LIMIT:
         raise ValueError(f"qk_attention_bwd: {n} tokens of f32 width {d} take "
                          f"{qk_attention_bwd_f32_smem(n, d, warps)} bytes of shared memory")
     qs, ks = _f32_vector(q_scale, d, "q_scale"), _f32_vector(k_scale, d, "k_scale")
@@ -933,8 +1054,9 @@ def qk_attention_bwd(q, kv, dout, *, sequences: int, inner: int, heads: int,
             raise ValueError(f"qk_attention_bwd: bias {tuple(bias.shape)}")
     layout = dict(sequences=sequences, inner=inner, heads=heads, n=n, d=d,
                   q_strides=q_strides, kv_strides=kv_strides)
-    if qk_bwd_tensor_cores(q.dtype, n, d):
-        return _qk_tc_bwd(q, kv, dout, qs, ks, bias, lib=lib, **layout)
+    if core != QK_CUDA_CORES:
+        launch = _qk_tc_bwd if core == QK_WGMMA else _qk_tc32_bwd
+        return launch(q, kv, dout, qs, ks, bias, lib=lib, **layout)
     merged, dq, dkv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(kv)
     groups = -(-sequences // group)
     f32 = dict(dtype=torch.float32, device=q.device)

@@ -36,9 +36,10 @@ recomputes: LN, the q and kv products, dO W_out (an NN product), the attention c
 dq_scale, dk_scale and, spatially, of the (heads, n, n) bias over all
 planes, in a fixed order: in bf16 at head dim 32 and n >= 32, K9's planes,
 csrc/qknorm_attention_tc.cu on the tensor cores, counted
-`qk_attention_tc_bwd` where kernels.qk_attention_bwd launches it;
-otherwise csrc/qknorm_attention_bwd.cu on the CUDA cores, by
-`kernels.qk_bwd_tensor_cores`), dxn = dq W_q and
+`qk_attention_tc_bwd` where kernels.qk_attention_bwd launches it; in f32
+there csrc/qknorm_attention_tc32.cu in 3xTF32, counted
+`qk_attention_tc32_bwd`; otherwise csrc/qknorm_attention_bwd.cu on the
+CUDA cores, by `kernels.qk_bwd_tensor_cores`), dxn = dq W_q and
 dx_kv = dkv W_kv (NN), the LN backward with dx_kv and the identity term,
 and the weight gradients dW_q, dW_kv, dW_out over all rows in f32 (TN
 products).  In f32 every one of them is its f32 form and nothing is rounded
@@ -77,8 +78,10 @@ def sublayer_fits(n: int, dim_head: int, dtype: torch.dtype = torch.bfloat16) ->
     csrc/qknorm_attention_bwd.cu size it; the JAX package gates its Pallas
     sublayers on their VMEM plans the same way.  f32 takes the same gate and
     its own forms' tiles and chunks as well (`kernels.attention_f32_smem`,
-    `kernels.qk_attention_bwd_f32_smem`), which at small head widths take
-    more than the bf16 forms (d 16: from n ~808 against ~1,071)."""
+    and for the backward the kernel `kernels.qk_bwd_tensor_cores` picks:
+    `kernels.qk_attention_bwd_f32_smem` on the CUDA cores, which at small
+    head widths takes more than the bf16 forms (d 16: from n ~808 against
+    ~1,071), or `kernels.QK_TC32_BWD_SMEM` for the 3xTF32 core)."""
     d, warps = dim_head, (8 if n >= 128 else 2)
     if d % 2 or d > 64:
         return False
@@ -86,7 +89,9 @@ def sublayer_fits(n: int, dim_head: int, dtype: torch.dtype = torch.bfloat16) ->
     bwd = _align16(8 * n * (d + 2)) + 4 * (2 * n + warps * (2 * n + 2 * d))
     if dtype == torch.float32:
         fwd = max(fwd, K.attention_f32_smem(n, d, warps))
-        bwd = max(bwd, K.qk_attention_bwd_f32_smem(n, d, warps))
+        core = K.qk_bwd_tensor_cores(dtype, n, d)
+        bwd = max(bwd, K.QK_TC32_BWD_SMEM if core == K.QK_TC32
+                  else K.qk_attention_bwd_f32_smem(n, d, warps))
     return max(fwd, bwd) <= SMEM_LIMIT
 
 

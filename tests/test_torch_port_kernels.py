@@ -4,8 +4,10 @@ kernels (K7 f32, K12, K13) in f32, K7's dense-bias form and K12b in f32 and
 bf16, the bf16 K7 / K12b / K12a / K13a / K13b of attention_tc.cu (wgmma) with
 their routing (`-k "tc or dense"`), the f32 K7 (key bias, dense, no
 bias), K13a, K12a, K12b (dense, no bias) and K13b of attention_tc32.cu
-(3xTF32, `-k tc32`), and K9's bf16 core on the tensor cores
-(qknorm_attention_tc.cu, `-k qk_core`) with K17 f32's run copy (`-k k17`).
+(3xTF32, `-k tc32`), K9's bf16 core on the tensor cores
+(qknorm_attention_tc.cu, `-k qk_core`) and its f32 core in 3xTF32
+(qknorm_attention_tc32.cu, `-k "qk_core and f32"`), K11 bf16 on `wgmma`
+(ffn_tc.cu, `-k "k11 or ff_tc"`), with K17 f32's run copy (`-k k17`).
 
 Needs an NVIDIA GPU and nvcc (the kernels compile on first use); skipped
 elsewhere.  Run on the card with:
@@ -525,10 +527,69 @@ def test_geglu_ff_backward_k11(dev):
     leaves = [x.detach().requires_grad_()] + [t.detach().requires_grad_() for t in w]
     K.reset_launch_counts()
     got = torch.autograd.grad(fused_geglu_ff(*leaves), leaves, do)
-    assert K.launch_counts()["geglu_ff_bwd"] == 1
+    c = K.launch_counts()
+    assert (c["geglu_ff_bwd"], c["ff_tc_tile"], c["ff_tc_gemm"]) == (1, 1, 3)
     ref = geglu_ff_bwd_plain(x, *w, do)
     assert all(gr.dtype == t.dtype for gr, t in zip(got, leaves))
     _grads_close(got, ref)
+
+
+def _k11_case(dev, rows, dim=512, inner=1365, seed=6):
+    g = _gen(dev, seed)
+    x, do = _randn((rows, dim), g, dev), _randn((rows, dim), g, dev)
+    w = (1 + 0.1 * torch.randn(dim, generator=g, device=dev),
+         0.1 * torch.randn(dim, generator=g, device=dev),
+         torch.randn((2 * inner, dim), generator=g, device=dev) * dim ** -0.5,
+         torch.randn((dim, inner), generator=g, device=dev) * inner ** -0.5)
+    return x, w, do
+
+
+def test_geglu_ff_backward_k11_wgmma_full_width(dev, monkeypatch):
+    """K11 bf16 at CT-CLIP's training rows (110,592 x 512, inner 1,365) on
+    ffn_tc.cu (`wgmma`): every gradient within 3e-2 of max|plain| (the row's
+    bf16 limit), bit-identical across runs, the tile and product counters
+    rising at their launches; a copy of the tile without the g phi(g) term
+    of dg (CT_FF_TC_NO_GPHI) must miss that limit."""
+    import functools
+
+    from ct_clip_tpu_torch.ops.ffn import fused_geglu_ff, geglu_ff_bwd_plain
+
+    x, w, do = _k11_case(dev, 110592)
+    leaves = [x.detach().requires_grad_()] + [t.detach().requires_grad_() for t in w]
+    out = fused_geglu_ff(*leaves)
+    K.reset_launch_counts()
+    got = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    c = K.launch_counts()
+    assert (c["geglu_ff_bwd"], c["ff_tc_tile"], c["ff_tc_gemm"]) == (1, 1, 3)
+    ref = geglu_ff_bwd_plain(x, *w, do)
+    _grads_close(got, ref)
+    again = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    copy = K.copy_library("ffn_tc.cu", CT_FF_TC_NO_GPHI=1)
+    monkeypatch.setattr(K, "ff_tc_tile", functools.partial(K.ff_tc_tile, lib=copy))
+    planted = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    torch.cuda.synchronize()
+    errs = [(a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+            for a, b in zip(planted, ref)]
+    assert max(errs) > BWD_REL, errs
+
+
+@pytest.mark.parametrize("split_rows", [8192, 256])
+def test_ff_tc_products_against_matmul(dev, monkeypatch, split_rows):
+    """ffn_tc.cu's products on ragged shapes against f32 matmuls of the same
+    bf16 operands: NN (dxn = dcat w, K 2,736 in 43 k blocks) and TN (the
+    weight gradients over 1,000 rows, in one split and in four of 256), each
+    counted at its launch; exact bf16 products summed in f32 in another
+    order: 1e-5 of max."""
+    monkeypatch.setattr(K, "FF_TC_SPLIT_ROWS", split_rows)
+    g = _gen(dev, 9)
+    dcat, w = _randn((300, 2736), g, dev), _randn((2736, 136), g, dev)
+    K.reset_launch_counts()
+    out = K.gemm_nn_tc(dcat, w, torch.empty((300, 136), device=dev))
+    _close(out, dcat.float() @ w.float(), rel=1e-5)
+    dy, xr = _randn((1000, 2736), g, dev), _randn((1000, 520), g, dev)
+    _close(K.gemm_tn_tc(dy, xr), dy.float().t() @ xr.float(), rel=1e-5)
+    assert K.launch_counts()["ff_tc_gemm"] == 2 and K.launch_counts()["ff_tc_tile"] == 0
 
 
 def _qk_args(g, dev, dim=64, heads=2, dh=32):
@@ -606,7 +667,7 @@ def test_qk_core_backward_k9_tensor_cores(dev, S, n, bias):
     from ct_clip_tpu_torch.ops.qknorm_attention import qk_attention_bwd_core_plain as plain
 
     q, kv, dm, layout = _qk_core_case(dev, S, n, bias)
-    assert K.qk_bwd_tensor_cores(q.dtype, n, 32)
+    assert K.qk_bwd_tensor_cores(q.dtype, n, 32) == K.QK_WGMMA
     got = K.qk_attention_bwd(q, kv, dm, **layout)
     args = (layout["heads"], 32, n, layout["q_scale"], layout["k_scale"], layout["bias"])
     ref = plain(q, kv, dm, *args)
@@ -1471,23 +1532,80 @@ def test_qknorm_attention_f32_backward_k9_k10(dev, form, shape):
     torch.cuda.synchronize()
     c = K.launch_counts()
     assert c[f"{form}_attention_bwd"] == 1 and c[f"{form}_attention_bwd_f32"] == 1
+    # K9's planes (n >= 32) take the 3xTF32 core, K10's short sequences not
+    assert c["qk_attention_tc32_bwd"] == int(form == "spatial")
     assert all(t.dtype == F32 for t in got)
     _f32_bwd_close(got, ref)
     assert all(torch.equal(a, b) for a, b in zip(got, again()))
 
 
 def test_qknorm_attention_f32_backward_planted_p_rounding_misses(dev, monkeypatch):
-    """A copy of the kernel with P rounded to bf16 before the merged heads'
-    product (CT_QK_BWD_F32_ROUND_P) must miss the f32 limits: dW_out reads
-    the bf16 rounding."""
+    """A copy of the CUDA-core kernel with P rounded to bf16 before the
+    merged heads' product (CT_QK_BWD_F32_ROUND_P), the core forced onto it
+    (K9's f32 planes take qknorm_attention_tc32.cu), must miss the f32
+    limits: dW_out reads the bf16 rounding."""
     import functools
 
     copy = K.copy_library("qknorm_attention_bwd.cu", CT_QK_BWD_F32_ROUND_P=1)
+    monkeypatch.setattr(K, "qk_bwd_tensor_cores", lambda *a: K.QK_CUDA_CORES)
     monkeypatch.setattr(K, "qk_attention_bwd", functools.partial(K.qk_attention_bwd, lib=copy))
     got, ref, _ = _qknorm_f32_grads("spatial", (3, 100), 52)
     torch.cuda.synchronize()
     dwout_rel = ((got[6] - ref[6]).abs().max() / ref[6].abs().max()).item()
     assert dwout_rel > F32_WGRAD, dwout_rel
+
+
+def _qk_core_f32(dev, S, n, bias):
+    q, kv, dm, layout = _qk_core_case(dev, S, n, bias, seed=53)
+    return q.float(), kv.float(), dm.float(), layout
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("S,n", [(4, 576), (12, 64), (6, 100)])
+def test_qk_core_backward_k9_f32_tc32(dev, S, n, bias):
+    """K9's f32 core on qknorm_attention_tc32.cu (3xTF32) at CT-CLIP's
+    576-token planes, the autoencoder's 64 and a ragged 100, with the CPB
+    bias and without, against the plain version in true f32 (TF32 off):
+    merged, dq, dkv within 1e-5 of max|plain|, the sums over all planes
+    within 1e-4; dbias rows sum to zero within 16x the plain version's
+    rounding; every output bit-identical across runs; counted
+    `qk_attention_tc32_bwd` at the launch."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import qk_attention_bwd_core_plain as plain
+
+    q, kv, dm, layout = _qk_core_f32(dev, S, n, bias)
+    assert K.qk_bwd_tensor_cores(q.dtype, n, 32) == K.QK_TC32
+    K.reset_launch_counts()
+    got = K.qk_attention_bwd(q, kv, dm, **layout)
+    assert K.launch_counts()["qk_attention_tc32_bwd"] == 1
+    ref = plain(q, kv, dm, layout["heads"], 32, n, layout["q_scale"], layout["k_scale"],
+                layout["bias"])
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if b is None:
+            assert a is None
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype == F32, i
+        _close(a, b, TC32_REL if i < 3 else F32_WGRAD)
+    again = K.qk_attention_bwd(q, kv, dm, **layout)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+    if bias:
+        assert _dbias_row_sums(got[5]) <= 16 * _dbias_row_sums(ref[5])
+
+
+def test_qk_core_backward_k9_f32_plain_tf32_copy_misses(dev):
+    """A copy of qknorm_attention_tc32.cu built with CT_TC32_PASSES=1 (hi hi
+    alone, plain TF32) misses 1e-5 in merged, dq and dkv: the tolerance
+    tells 3xTF32 from TF32."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import qk_attention_bwd_core_plain as plain
+
+    copy = K.copy_library("qknorm_attention_tc32.cu", CT_TC32_PASSES=1)
+    q, kv, dm, layout = _qk_core_f32(dev, 4, 576, True)
+    got = K.qk_attention_bwd(q, kv, dm, lib=copy, **layout)
+    ref = plain(q, kv, dm, layout["heads"], 32, 576, layout["q_scale"], layout["k_scale"],
+                layout["bias"])
+    torch.cuda.synchronize()
+    errs = [(a - b).abs().max().item() / b.abs().max().item() for a, b in zip(got[:3], ref[:3])]
+    assert min(errs) > TC32_REL, errs
 
 
 def test_vq_exact_assign_f32_rows_k5_and_stats_k15(dev):

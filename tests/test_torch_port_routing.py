@@ -256,8 +256,9 @@ def test_f32_self_attention_beyond_the_f32_fit_takes_the_generic_path(monkeypatc
 # The QK-norm attention core's backward on CUDA (kernels.qk_bwd_tensor_cores):
 # bf16 at head dim 32 from 32 tokens on takes qknorm_attention_tc.cu (wgmma),
 # with the CPB bias or without one (the kernel takes both, so the rule does
-# not read the bias); K10's 16-24-token sequences, other head dims and every
-# f32 call keep qknorm_attention_bwd.cu.
+# not read the bias); K10's 16-24-token sequences and other head dims keep
+# qknorm_attention_bwd.cu.  `tc`: the route is QK_WGMMA (f32 takes its own
+# route, QK_TC32, in the table below).
 @pytest.mark.parametrize("dtype,n,d,tc", [
     (BF, 576, 32, True),    # K9: CT-CLIP's planes (24 x 24), 24 and 16 frames
     (BF, 64, 32, True),     # K9: the autoencoder's 8 x 8 planes
@@ -275,7 +276,30 @@ def test_f32_self_attention_beyond_the_f32_fit_takes_the_generic_path(monkeypatc
     (torch.float16, 576, 32, False),
 ])
 def test_qk_bwd_tensor_core_gate(dtype, n, d, tc):
-    assert K.qk_bwd_tensor_cores(dtype, n, d) is tc
+    assert (K.qk_bwd_tensor_cores(dtype, n, d) == K.QK_WGMMA) is tc
+
+
+# The whole route table: bf16 -> wgmma, f32 -> 3xTF32 (qknorm_attention_tc32.cu)
+# on the same shapes (head dim 32, n >= 32), the CUDA cores elsewhere.
+@pytest.mark.parametrize("dtype,n,d,route", [
+    (BF, 576, 32, "wgmma"),
+    (BF, 64, 32, "wgmma"),
+    (F32, 576, 32, "tc32"),     # K9 f32: CT-CLIP's planes
+    (F32, 64, 32, "tc32"),      # K9 f32: the autoencoder's planes
+    (F32, 100, 32, "tc32"),     # a ragged n
+    (F32, 32, 32, "tc32"),
+    (F32, 31, 32, "cuda_cores"),
+    (F32, 24, 32, "cuda_cores"),  # K10 grid f32
+    (F32, 20, 32, "cuda_cores"),  # K10 seq f32
+    (F32, 16, 32, "cuda_cores"),
+    (F32, 576, 64, "cuda_cores"),
+    (F32, 576, 16, "cuda_cores"),
+    (BF, 24, 32, "cuda_cores"),
+    (torch.float16, 576, 32, "cuda_cores"),
+])
+def test_qk_bwd_route_table(dtype, n, d, route):
+    assert K.qk_bwd_tensor_cores(dtype, n, d) == route
+    assert route in (K.QK_WGMMA, K.QK_TC32, K.QK_CUDA_CORES)
 
 
 class _FakeQkLibrary:
@@ -284,15 +308,15 @@ class _FakeQkLibrary:
 
     def __init__(self, rc=0):
         self.rc, self.calls = rc, []
-        for name in ("ct_qk_attention_tc_bwd", "ct_qk_attention_bwd",
-                     "ct_qk_attention_bwd_f32"):
+        for name in ("ct_qk_attention_tc_bwd", "ct_qk_attention_tc32_bwd",
+                     "ct_qk_attention_bwd", "ct_qk_attention_bwd_f32"):
             setattr(self, name, lambda *a, name=name: self.calls.append(name) or self.rc)
 
     def ct_error_string(self, err):
         return b"planted"
 
 
-def _qk_core_cpu_call(monkeypatch, lib, S, n, d, dtype, bias):
+def _qk_core_cpu_call(monkeypatch, lib, S, n, d, dtype, bias, q_strides=None):
     """kernels.qk_attention_bwd on CPU tensors with the C library `lib`: the
     device check, the stream and the in-order sums stubbed (no card here)."""
     monkeypatch.setattr(K, "library", lambda: lib)
@@ -306,14 +330,15 @@ def _qk_core_cpu_call(monkeypatch, lib, S, n, d, dtype, bias):
     K.reset_launch_counts()
     return K.qk_attention_bwd(
         q, kv, dm, sequences=S, inner=1, heads=heads, n=n, d=d,
-        q_strides=(n * hd, 0, d, hd), kv_strides=(n * 2 * hd, 0, d, 2 * hd),
+        q_strides=q_strides or (n * hd, 0, d, hd), kv_strides=(n * 2 * hd, 0, d, 2 * hd),
         q_scale=torch.ones(d), k_scale=torch.ones(d),
         bias=torch.zeros((heads, n, n)) if bias else None)
 
 
 # kernels.qk_attention_bwd counts `qk_attention_tc_bwd` where it launches
-# qknorm_attention_tc.cu, and nowhere else: the count follows the C entry
-# called, which follows the gate (the C library is a recording stand-in).
+# qknorm_attention_tc.cu and `qk_attention_tc32_bwd` where it launches
+# qknorm_attention_tc32.cu, and nowhere else: the count follows the C entry
+# called, which follows the route (the C library is a recording stand-in).
 @pytest.mark.parametrize("S,n,d,dtype,bias,tc", [
     (2, 576, 32, BF, True, True),     # K9 with the CPB bias
     (2, 576, 32, BF, False, True),    # K9 with no bias
@@ -326,10 +351,13 @@ def _qk_core_cpu_call(monkeypatch, lib, S, n, d, dtype, bias):
 def test_qk_tensor_core_counter_counts_the_launch(monkeypatch, S, n, d, dtype, bias, tc):
     lib = _FakeQkLibrary()
     got = _qk_core_cpu_call(monkeypatch, lib, S, n, d, dtype, bias)
-    want = ("ct_qk_attention_tc_bwd" if tc else
-            "ct_qk_attention_bwd_f32" if dtype == F32 else "ct_qk_attention_bwd")
+    route = K.qk_bwd_tensor_cores(dtype, n, d)
+    assert (route == K.QK_WGMMA) is tc
+    want = {K.QK_WGMMA: "ct_qk_attention_tc_bwd", K.QK_TC32: "ct_qk_attention_tc32_bwd"}.get(
+        route, "ct_qk_attention_bwd_f32" if dtype == F32 else "ct_qk_attention_bwd")
     assert lib.calls == [want]
     assert K.launch_counts()["qk_attention_tc_bwd"] == int(tc)
+    assert K.launch_counts()["qk_attention_tc32_bwd"] == int(route == K.QK_TC32)
     assert (got[5] is None) == (not bias)
     if bias:
         assert got[5].shape == (2, n, n)
@@ -342,6 +370,131 @@ def test_qk_tensor_core_counter_skips_a_failed_launch(monkeypatch):
         _qk_core_cpu_call(monkeypatch, lib, 2, 576, 32, BF, True)
     assert lib.calls == ["ct_qk_attention_tc_bwd"]
     assert K.launch_counts()["qk_attention_tc_bwd"] == 0
+
+
+@pytest.mark.parametrize("S,n,bias", [(2, 576, True), (2, 576, False), (3, 64, True),
+                                      (2, 100, True)])
+def test_qk_tc32_counter_counts_the_launch(monkeypatch, S, n, bias):
+    """K9 f32 at head dim 32 launches qknorm_attention_tc32.cu, counted
+    `qk_attention_tc32_bwd` there and nowhere else; a failed launch raises
+    and adds no count."""
+    lib = _FakeQkLibrary()
+    got = _qk_core_cpu_call(monkeypatch, lib, S, n, 32, F32, bias)
+    assert lib.calls == ["ct_qk_attention_tc32_bwd"]
+    c = K.launch_counts()
+    assert (c["qk_attention_tc32_bwd"], c["qk_attention_tc_bwd"]) == (1, 0)
+    assert (got[5] is None) == (not bias) and got[1].dtype == F32
+    failing = _FakeQkLibrary(rc=1)
+    with pytest.raises(RuntimeError, match="ct_qk_attention_tc32_bwd"):
+        _qk_core_cpu_call(monkeypatch, failing, S, n, 32, F32, bias)
+    assert K.launch_counts()["qk_attention_tc32_bwd"] == 0
+
+
+@pytest.mark.parametrize("dtype,q_tok", [(F32, 66), (BF, 68)])
+def test_qk_tensor_core_layout_misfit_raises(monkeypatch, dtype, q_tok):
+    """The tensor-core cores take 16-byte rows: token strides of multiples of
+    4 f32 or 8 bf16 elements; another stride raises before any launch."""
+    lib = _FakeQkLibrary()
+    with pytest.raises(ValueError, match="strides of multiples of"):
+        _qk_core_cpu_call(monkeypatch, lib, 2, 64, 32, dtype, True,
+                          q_strides=(64 * q_tok, 0, 32, q_tok))
+    assert lib.calls == []
+
+
+def test_sublayer_fit_follows_the_backward_kernel(monkeypatch):
+    """The f32 fit reads the shared memory of the backward kernel that runs:
+    the 3xTF32 core's on K9's planes, the CUDA-core kernel's on K10's short
+    sequences."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import sublayer_fits
+
+    assert sublayer_fits(576, 32, F32) and sublayer_fits(24, 32, F32)
+    monkeypatch.setattr(K, "qk_attention_bwd_f32_smem", lambda *a: 10 ** 9)
+    assert sublayer_fits(576, 32, F32) and not sublayer_fits(24, 32, F32)
+    assert sublayer_fits(576, 32, BF)
+    monkeypatch.setattr(K, "QK_TC32_BWD_SMEM", 10 ** 9)
+    assert not sublayer_fits(576, 32, F32) and sublayer_fits(576, 32, BF)
+
+
+# K11: bf16 takes ffn_tc.cu's `wgmma` tile and products, f32 gemm.cu's f32 forms
+@pytest.mark.parametrize("dtype,names", [
+    (BF, ("ff_tc_tile", "gemm_nn_tc", "gemm_tn_tc")),
+    (F32, ("ff_bwd_core", "gemm_nn", "gemm_tn")),
+])
+def test_k11_backward_kernels_per_dtype(dtype, names):
+    from ct_clip_tpu_torch.ops.ffn import bwd_kernels
+
+    assert bwd_kernels(dtype) == tuple(getattr(K, name) for name in names)
+
+
+class _FakeFfLibrary:
+    """ffn_tc.cu's C entries, recording each call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+        for name in ("ct_ff_tc_tile", "ct_ff_tc_gemm"):
+            setattr(self, name, lambda *a, name=name: self.calls.append((name, a)) or 0)
+
+
+def _stub_card(monkeypatch, lib):
+    monkeypatch.setattr(K, "library", lambda: lib)
+    monkeypatch.setattr(K, "require", lambda *a, **k: None)
+    monkeypatch.setattr(K, "_stream", lambda: 0)
+    monkeypatch.setattr(K, "sum_splits", lambda part: part.sum(0))
+    K.reset_launch_counts()
+
+
+def test_k11_wgmma_wrappers_launch_and_count(monkeypatch):
+    """The tile and the three products of a K11 call on ffn_tc.cu, each
+    counted at its launch: the tile once, the products three times; the TN
+    products split 110,592 rows into 14 splits of 7,936."""
+    lib = _FakeFfLibrary()
+    _stub_card(monkeypatch, lib)
+    R, dim, N = 110592, 512, 1368
+    xn, dout = torch.zeros((R, dim), dtype=BF), torch.zeros((R, dim), dtype=BF)
+    w = torch.zeros((2 * N, dim), dtype=BF)
+    act, dcat = K.ff_tc_tile(xn, dout, w[:N], w[N:], torch.zeros((N, dim), dtype=BF))
+    assert act.shape == (R, N) and dcat.shape == (R, 2 * N)
+    K.gemm_nn_tc(dcat, w, torch.zeros((R, dim)))
+    assert K.gemm_tn_tc(dcat, xn).shape == (2 * N, dim)
+    assert K.gemm_tn_tc(dout, act).shape == (dim, N)
+    names = [c[0] for c in lib.calls]
+    assert names == ["ct_ff_tc_tile"] + ["ct_ff_tc_gemm"] * 3
+    nn, tn = lib.calls[1][1], lib.calls[2][1]
+    assert nn[0] == 0 and nn[8] == 2752  # NN: one split over K 2,736 in 64-row k blocks
+    assert tn[0] == 1 and tn[8] == 7936 and tn[7] == R  # TN: 14 splits of 7,936 rows
+    c = K.launch_counts()
+    assert (c["ff_tc_tile"], c["ff_tc_gemm"]) == (1, 3)
+
+
+@pytest.mark.parametrize("rows,chunk", [(110592, 7936), (10240, 5120), (8192, 8192),
+                                        (8193, 4160), (100, 128), (64, 64)])
+def test_k11_weight_gradient_splits(rows, chunk):
+    """The TN products' splits (kernels.ff_tc_split): the fewest of at most
+    FF_TC_SPLIT_ROWS rows, each a multiple of 64, covering every row."""
+    got = K.ff_tc_split(rows)
+    splits = -(-rows // got)
+    assert got == chunk and got % 64 == 0
+    assert got <= max(K.FF_TC_SPLIT_ROWS, 64) and (splits - 1) * got < rows <= splits * got
+
+
+@pytest.mark.parametrize("misfit", ["f32", "width", "stride", "offset"])
+def test_k11_wgmma_wrappers_raise_on_a_misfit(monkeypatch, misfit):
+    """ffn_tc.cu takes bf16 rows of multiples of 16 bytes on 16-byte
+    boundaries (its TMA copies); anything else raises before a launch."""
+    lib = _FakeFfLibrary()
+    _stub_card(monkeypatch, lib)
+    dy, x = torch.zeros((256, 64), dtype=BF), torch.zeros((256, 40), dtype=BF)
+    if misfit == "f32":
+        dy = dy.float()
+    elif misfit == "width":
+        x = x[:, :36]
+    elif misfit == "stride":
+        x = torch.zeros((256, 44), dtype=BF)[:, :40]
+    else:  # a base 2 bytes past a 16-byte boundary
+        x = torch.zeros(256 * 40 + 1, dtype=BF)[1:].view(256, 40)
+    with pytest.raises(ValueError):
+        K.gemm_tn_tc(dy, x)
+    assert lib.calls == []
 
 
 @pytest.mark.parametrize("S,n,groups", [

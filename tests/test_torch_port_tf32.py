@@ -316,3 +316,156 @@ def test_3xtf32_forward_output_keeps_dense_dbias_rows_at_f32_rounding(heads):
     plain = attention_bwd_plain(q, k, v, do, bias)[3]
     rows, plain_rows = (x.sum(-1).abs().max().item() for x in (dbias, plain))
     assert dbias.shape == bias.shape and rows <= 16 * plain_rows, (rows, plain_rows)
+
+
+# ------------------------------------------------------------------ K9 f32
+# csrc/qknorm_attention_tc32.cu: the QK-norm attention core's backward at
+# head dim 32 in 3xTF32, emulated below and run inside the sublayer's
+# backward (LN, projections, the l2norm and its scales, the CPB bias), held
+# against the JAX package's K9 in f32 (`_pallas_spatial_bwd` in interpret
+# mode, "highest" products) on a few sequences of 64 and 96 tokens.
+K9_SHAPES = ((3, 64), (2, 96))  # (sequences, tokens): one tile; a ragged second
+
+
+def k9_core_emulated(q, kv, dout, heads: int, n: int, qs, ks, bias, passes: int):
+    """(merged, dq, dkv, dq_scale, dk_scale, dbias) of the attention core as
+    qknorm_attention_tc32.cu computes them on (S n, heads 32) projections:
+    qn = l2norm(q) qs, kn = l2norm(k) ks; S and dP in `passes`-TF32; the row
+    pass's online lse and D_i = sum_j P dP over 64-key tiles; P = exp(S +
+    bias - lse), dS = P (dP - D); merged = P v and dqn = dS kn over the key
+    tiles, dv = P^T dO and dkn = dS^T qn over the query tiles, each tile's
+    product a sum of its own added in f32; the l2norm backward; dbias the
+    sum of dS over the sequences."""
+    d = 32
+    hd, S = heads * d, q.shape[0] // n
+
+    def split(t):
+        return t.reshape(S, n, heads, d).transpose(1, 2)
+
+    def merge(t):
+        return t.transpose(1, 2).reshape(S * n, hd)
+
+    def tiled(a, b):  # a @ b over the contraction in 64-token tiles, summed in f32
+        out = 0
+        for j0 in range(0, a.shape[-1], TILE):
+            out = out + mm_tf32(a[..., j0:j0 + TILE], b[..., j0:j0 + TILE, :], passes)
+        return out
+
+    qf, kf, v, g = split(q), split(kv[:, :hd]), split(kv[:, hd:]), split(dout)
+    rq = torch.rsqrt(torch.clamp_min((qf * qf).sum(-1, keepdim=True), 1e-24))
+    rk = torch.rsqrt(torch.clamp_min((kf * kf).sum(-1, keepdim=True), 1e-24))
+    qhat, khat = qf * rq, kf * rk
+    qn, kn = qhat * qs, khat * ks
+    s = mm_tf32(qn, kn.transpose(-1, -2), passes)
+    if bias is not None:
+        s = s + bias
+    dp = mm_tf32(g, v.transpose(-1, -2), passes)
+    m = torch.full(s.shape[:-1] + (1,), -float("inf"))
+    l, D = torch.zeros_like(m), torch.zeros_like(m)
+    for j0 in range(0, n, TILE):
+        x = s[..., j0:j0 + TILE]
+        mn = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        corr, p = torch.exp(m - mn), torch.exp(x - mn)
+        l = l * corr + p.sum(-1, keepdim=True)
+        D = D * corr + (p * dp[..., j0:j0 + TILE]).sum(-1, keepdim=True)
+        m = mn
+    p = torch.exp(s - (m + torch.log(l)))
+    ds = p * (dp - D / l)
+    dqn, dkn = tiled(ds, kn), tiled(ds.transpose(-1, -2), qn)
+
+    def l2norm_bwd(xhat, r, dn, sc):
+        dh = dn * sc
+        return r * (dh - xhat * (xhat * dh).sum(-1, keepdim=True))
+    dkv = torch.cat([merge(l2norm_bwd(khat, rk, dkn, ks)), merge(tiled(p.transpose(-1, -2), g))],
+                    dim=1)
+    return (merge(tiled(p, v)), merge(l2norm_bwd(qhat, rq, dqn, qs)), dkv,
+            (dqn * qhat).sum((0, 1, 2)), (dkn * khat).sum((0, 1, 2)),
+            None if bias is None else ds.sum(0))
+
+
+class _K9Core(torch.autograd.Function):
+    """The plain f32 core forward; its backward the emulated kernel."""
+
+    @staticmethod
+    def forward(ctx, q, kv, qs, ks, bias, heads, n, passes):
+        ctx.save_for_backward(q, kv, qs, ks, bias)
+        ctx.cfg = heads, n, passes
+        return k9_core_emulated(q, kv, torch.zeros_like(q), heads, n, qs, ks, bias, 3)[0]
+
+    @staticmethod
+    def backward(ctx, dmerged):
+        q, kv, qs, ks, bias = ctx.saved_tensors
+        heads, n, passes = ctx.cfg
+        _, dq, dkv, dqs, dks, dbias = k9_core_emulated(q, kv, dmerged, heads, n, qs, ks, bias,
+                                                       passes)
+        return dq, dkv, dqs, dks, dbias, None, None, None
+
+
+def k9_sublayer_emulated(x, gamma, wq, wkv, q_scale, k_scale, wout, bias, heads, passes):
+    """The spatial QK-norm sublayer as the port's f32 path runs it, its core
+    through `_K9Core`: autograd of it is K9 f32 with the kernel's core."""
+    from ct_clip_tpu_torch.ops.norms import layer_norm
+
+    b, n, dim = x.shape
+    xn = layer_norm(x, gamma)
+    q, kv = (xn @ wq.t()).reshape(b * n, -1), (x @ wkv.t()).reshape(b * n, -1)
+    merged = _K9Core.apply(q, kv, q_scale * 8.0, k_scale, bias, heads, n, passes)
+    return merged.reshape(b, n, -1) @ wout.t() + x
+
+
+@pytest.fixture(scope="module")
+def k9_cases():
+    """(the port's leaves, dO, the JAX package's K9 f32 gradients) for each
+    of K9_SHAPES: dim 64, 2 heads of 32, the (2, n, n) bias."""
+    from ct_clip_tpu.ops.pallas import _call
+    from ct_clip_tpu.ops.pallas.spatial_attention import _pallas_spatial_bwd
+
+    dim, heads, dh = 64, 2, 32
+    hd, out = heads * dh, []
+    _call.set_interpret(True)
+    jax.clear_caches()
+    try:
+        for i, (b, n) in enumerate(K9_SHAPES):
+            rng = np.random.RandomState(2061 + i)
+            x, do = (rng.randn(b, n, dim).astype(np.float32) for _ in range(2))
+            w = [1 + 0.1 * rng.randn(dim), rng.randn(dim, hd) / np.sqrt(dim),
+                 rng.randn(dim, 2 * hd) / np.sqrt(dim), 1 + 0.3 * rng.rand(dh),
+                 1 + 0.3 * rng.rand(dh), rng.randn(hd, dim) / np.sqrt(hd),
+                 rng.randn(heads, n, n)]
+            w = [a.astype(np.float32) for a in w]
+            ref = _pallas_spatial_bwd(*map(jnp.asarray, [x] + w[:-1]), jnp.asarray(w[-1]),
+                                      jnp.asarray(do), heads=heads, dim_head=dh, scale=8.0,
+                                      dtype=jnp.float32, residual=True)
+            ref = [np.asarray(r).T if j in (2, 3, 6) else np.asarray(r)
+                   for j, r in enumerate(ref)]  # (in, out) kernels -> nn.Linear layout
+            port = [x, w[0], w[1].T, w[2].T, w[3], w[4], w[5].T, w[6]]
+            out.append(([torch.from_numpy(np.ascontiguousarray(a)) for a in port],
+                        torch.from_numpy(do), ref))
+    finally:
+        _call.set_interpret(False)
+        jax.clear_caches()
+    return out
+
+
+def _k9_errors(case, passes):
+    leaves, do, ref = case
+    leaves = [t.clone().requires_grad_() for t in leaves]
+    got = torch.autograd.grad(k9_sublayer_emulated(*leaves, 2, passes), leaves, do)
+    return _rel_errors([g.detach() for g in got], ref)
+
+
+@pytest.mark.parametrize("shape", range(len(K9_SHAPES)), ids=[f"{b}x{n}" for b, n in K9_SHAPES])
+def test_3xtf32_k9_core_backward_matches_jax_f32(k9_cases, shape):
+    """dx, dgamma, dwq, dwkv, dq_scale, dk_scale, dwout and dbias (summed
+    over the sequences) of K9 f32 with the emulated 3xTF32 core within 1e-5
+    of max|JAX| each, the kernel's card tolerance for its direct outputs."""
+    errs = _k9_errors(k9_cases[shape], 3)
+    assert max(errs) <= TOL, f"3xTF32 K9 rel errors {errs}"
+
+
+@pytest.mark.parametrize("shape", range(len(K9_SHAPES)), ids=[f"{b}x{n}" for b, n in K9_SHAPES])
+def test_plain_tf32_k9_core_backward_misses_the_tolerance(k9_cases, shape):
+    """The same with the core's products in plain TF32 (hi hi alone) misses
+    1e-5 in dx: the tolerance tells the two apart."""
+    errs = _k9_errors(k9_cases[shape], 1)
+    assert errs[0] > TOL, f"plain TF32 K9 rel errors {errs}"

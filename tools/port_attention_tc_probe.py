@@ -5,8 +5,8 @@ against copies with one change each, on one card, in turns, on the same
 inputs.
 
     python tools/port_attention_tc_probe.py [--kernel attention] [--out FILE.json]
-    python tools/port_attention_tc_probe.py --kernel k17 | k9 [--tree DIR]
-    python tools/port_attention_tc_probe.py --kernel k9_copies
+    python tools/port_attention_tc_probe.py --kernel k17 | k9 | k9_f32 | k11 [--tree DIR]
+    python tools/port_attention_tc_probe.py --kernel k9_copies | k9_f32_copies
 
 `--kernel attention` (the default) times attention_tc.cu and
 attention_tc32.cu as below; `k17` and `k9` time K17 f32 and K9's bf16 core
@@ -22,7 +22,8 @@ Every result carries the card's name and power limit (nvidia-smi) and ends
 as one JSON line; the timers are tools/port_timing.py's.
 
 Copies of attention_tc.cu (each its own nvcc build under
-build/attention_tc_probe/<copy>/, beside its own common.cuh and wgmma.cuh):
+build/attention_tc_probe/<copy>/, beside its own common.cuh, wgmma.cuh and
+tc32.cuh):
   as_built     the sources unchanged;
   two_ctas     the forward at two CTAs per SM (launch bounds 2, not 3);
   exp2f        libm's exp2f in place of one ex2.approx;
@@ -76,13 +77,26 @@ events, device time per kernel (the core) and host time per call.  Where the
 tree has `kernels.qk_bwd_tensor_cores`, each call again with the core on the
 CUDA-core qk_attention_bwd_kernel it replaced ("cuda_cores").
 
+`--kernel k9_f32`: the same in f32 (the core 3xTF32 on
+qknorm_attention_tc32.cu where the tree has it; "cuda_cores" the
+qk_attention_bwd_f32_kernel it replaced).
+
+`--kernel k11`: K11 in bf16 (autograd of `fused_geglu_ff`) at CT-CLIP's
+110,592 training rows x 512 (inner 1,365) and at MaskGIT's and the
+autoencoder's 10,240: events, the device time of each kernel per call (the
+tile, the three products, the LN backward, the split sums: kernel-only) and
+the host time per call; with `--tree`, a parent's K11 the same way.
+
 `--kernel k9_copies`: K9's core at (192, 576) on copies of
 qknorm_attention_tc.cu with one change each, in turns, there and back, with
 each kernel's device time: `as_built`; `stages3` (rings of three stages in
 the row and column passes, not two); `no_loads` (no tile copied: stale
 shared memory, the time without global loads); `no_products` (every wgmma
 left out: the time without the tensor cores).  The last two compute garbage
-and only measure.
+and only measure.  `--kernel k9_f32_copies`: the same for the f32 core on
+copies of qknorm_attention_tc32.cu: `as_built`; `hi_only` (CT_TC32_PASSES
+1: one TF32 product per f32 one); `no_loads`; `no_products` (every mma.sync
+left out).
 """
 from __future__ import annotations
 
@@ -114,6 +128,7 @@ from ct_clip_tpu_torch.ops import kernels as K  # noqa: E402
 CSRC = ROOT / "ct_clip_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "attention_tc_probe"
 TC, TC32, COMMON, WGMMA = "attention_tc.cu", "attention_tc32.cu", "common.cuh", "wgmma.cuh"
+TC32H = "tc32.cuh"  # the 3xTF32 split and products attention_tc32.cu includes
 # copy -> (source, old text, new text) substitutions
 COPIES = {
     "as_built": [],
@@ -130,8 +145,8 @@ COPIES = {
 }
 COPIES32 = {
     "as_built": [],
-    "hi_only": [(TC32, "#define CT_TC32_PASSES 3", "#define CT_TC32_PASSES 1")],
-    "no_products": [(TC32, '"mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "',
+    "hi_only": [(TC32H, "#define CT_TC32_PASSES 3", "#define CT_TC32_PASSES 1")],
+    "no_products": [(TC32H, '"mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "',
                      '"// {%0, %1, %2, %3}, "')],
     "no_loads": [(TC32, "    cp16(d + (r * LD + 4 * c) * 4,",
                   "    if (tok < -1) cp16(d + (r * LD + 4 * c) * 4,")],
@@ -144,7 +159,7 @@ def build_all(sets: dict) -> dict:
     procs = {}
     for source, copies in sets.items():
         for name, subs in copies.items():
-            texts = {src: (CSRC / src).read_text() for src in (source, COMMON, WGMMA)}
+            texts = {src: (CSRC / src).read_text() for src in (source, COMMON, WGMMA, TC32H)}
             for src, old, new in subs:
                 if old not in texts[src]:
                     raise RuntimeError(f"{name}: {old!r} not in {src}")
@@ -393,13 +408,13 @@ def k17(dev, g) -> dict:
     return out
 
 
-def k9(dev, g) -> dict:
+def k9(dev, g, dtype=torch.bfloat16) -> dict:
     from ct_clip_tpu_torch.ops.qknorm_attention import fused_spatial_qknorm_attention
 
     class CudaCores:  # the core forced onto qk_attention_bwd_kernel
         def __enter__(self):
             self.gate = K.qk_bwd_tensor_cores
-            K.qk_bwd_tensor_cores = lambda *a: False
+            K.qk_bwd_tensor_cores = lambda *a: getattr(K, "QK_CUDA_CORES", False)
 
         def __exit__(self, *exc):
             K.qk_bwd_tensor_cores = self.gate
@@ -411,7 +426,7 @@ def k9(dev, g) -> dict:
     hd = heads * d
     out = {}
     for label, (S, n) in (("ctclip", (192, 576)), ("autoencoder", (160, 64))):
-        bf = torch.bfloat16
+        bf = dtype
         q, kv, dm = (torch.randn((S * n, wd), generator=g, device=dev).to(bf)
                      for wd in (hd, 2 * hd, hd))
         qs = (1 + 0.2 * torch.randn(d, generator=g, device=dev)) * 8.0
@@ -434,9 +449,37 @@ def k9(dev, g) -> dict:
                     whole = event_ms(lambda: torch.autograd.grad(y, leaves, do,
                                                                  retain_graph=True), 10)
             row = dict(core=core, sublayer_bwd_events_ms=whole)
-            print(f"K9 {label} {route}: {json.dumps(row)}", flush=True)
+            print(f"K9 {str(dtype)[6:]} {label} {route}: {json.dumps(row)}", flush=True)
             out[f"{label}/{route}"] = row
         del q, kv, dm, x, do, leaves, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def k11(dev, g) -> dict:
+    """K11 in bf16 (autograd of `fused_geglu_ff`) at CT-CLIP's training
+    rows (110,592 x 512, inner 1,365) and at MaskGIT's and the autoencoder's
+    10,240: events, the device time of each kernel per call (the tile, the
+    products, the LN backward, the split sums) and the host time per call."""
+    from ct_clip_tpu_torch.ops.ffn import fused_geglu_ff
+
+    dim, inner, out = 512, 1365, {}
+    for label, rows in (("ctclip", 110592), ("maskgit_autoencoder", 10240)):
+        def rn(*shape, scale=1.0):
+            return torch.randn(shape, generator=g, device=dev) * scale
+        x, do = rn(rows, dim).to(torch.bfloat16), rn(rows, dim).to(torch.bfloat16)
+        w = (1 + rn(dim, scale=0.1), rn(dim, scale=0.1), rn(2 * inner, dim, scale=dim ** -0.5),
+             rn(dim, inner, scale=inner ** -0.5))
+        leaves = [t.clone().requires_grad_() for t in (x, *w)]
+        y = fused_geglu_ff(*leaves)
+        with torch.enable_grad():
+            fn = lambda: torch.autograd.grad(y, leaves, do, retain_graph=True)  # noqa: E731
+            row = dict(events_ms=event_ms(fn, 10), host_ms=host_ms(fn, reps=10, rounds=3),
+                       kernel_ms=kernel_ms(fn))
+        row["kernel_ms"]["total"] = sum(row["kernel_ms"].values())
+        print(f"K11 bf16 {label}: {json.dumps(row)}", flush=True)
+        out[label] = row
+        del x, do, w, leaves, y
         torch.cuda.empty_cache()
     return out
 
@@ -455,13 +498,25 @@ QK_COPIES = {
 }
 
 
-def k9_copies(dev, g) -> dict:
-    """K9's core at (192, 576) with the bias on each copy of QK_COPIES, in
-    turns."""
-    libs = build_all({QK_TC: QK_COPIES})[QK_TC]
+QK32 = "qknorm_attention_tc32.cu"
+QK32_COPIES = {
+    "as_built": [],
+    "hi_only": [(TC32H, "#define CT_TC32_PASSES 3", "#define CT_TC32_PASSES 1")],
+    "no_products": COPIES32["no_products"],
+    "no_loads": [(QK32, "    cp16(dst + (r * LDF + 4 * c) * 4,",
+                  "    if (t < -1) cp16(dst + (r * LDF + 4 * c) * 4,"),
+                 *QK_COPIES["no_loads"][1:]],
+}
+
+
+def k9_copies(dev, g, source: str = QK_TC, copies=None, dtype=torch.bfloat16) -> dict:
+    """K9's core at (192, 576) with the bias on each copy of `copies` of
+    `source` (QK_COPIES of qknorm_attention_tc.cu in bf16, QK32_COPIES of
+    qknorm_attention_tc32.cu in f32), in turns."""
+    libs = build_all({source: copies or QK_COPIES})[source]
     heads, d, S, n = 8, 32, 192, 576
     hd = heads * d
-    q, kv, dm = (torch.randn((S * n, wd), generator=g, device=dev).to(torch.bfloat16)
+    q, kv, dm = (torch.randn((S * n, wd), generator=g, device=dev).to(dtype)
                  for wd in (hd, 2 * hd, hd))
     layout = dict(sequences=S, inner=1, heads=heads, n=n, d=d, q_strides=(n * hd, 0, d, hd),
                   kv_strides=(n * 2 * hd, 0, d, 2 * hd), bias=torch.randn((heads, n, n),
@@ -483,9 +538,10 @@ def k9_copies(dev, g) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", default="attention",
-                    choices=("attention", "k17", "k9", "k9_copies"))
+                    choices=("attention", "k17", "k9", "k9_f32", "k11", "k9_copies",
+                             "k9_f32_copies"))
     ap.add_argument("--tree", default=str(ROOT),
-                    help="the checkout whose package is timed (k17, k9)")
+                    help="the checkout whose package is timed (k17, k9, k9_f32, k11)")
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -504,7 +560,11 @@ def main() -> int:
         K.library()
         g = torch.Generator(device=dev).manual_seed(15)
         results.update(tree=str(_tree()), library=K.library_path().name)
-        results[args.kernel] = dict(k17=k17, k9=k9, k9_copies=k9_copies)[args.kernel](dev, g)
+        results[args.kernel] = dict(
+            k17=k17, k9=k9, k9_f32=lambda dev, g: k9(dev, g, torch.float32), k11=k11,
+            k9_copies=k9_copies,
+            k9_f32_copies=lambda dev, g: k9_copies(dev, g, QK32, QK32_COPIES, torch.float32),
+            )[args.kernel](dev, g)
     print(json.dumps(results), flush=True)
     if args.out:
         Path(args.out).write_text(json.dumps(results, indent=1))
