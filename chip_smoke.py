@@ -97,7 +97,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      forced to 0 among them), and a save -> resume round trip on the card;
   7. CT-CLIP pretraining with the auxiliary objectives: the embed backwards
      against their plain versions at full width, batch AUX_B (K16a and K16b
-     within BWD_REL_TOL of max|plain|, K17 bit-exact); the embeds under grad
+     within BWD_REL_TOL of max|plain|, K17 bit-exact; K16a's products on
+     ffn_tc.cu's `wgmma` with the LN(4000) sums in the dxn product's
+     epilogue, bit-identical across runs, a copy whose epilogue drops rstd
+     outside the limit, the replaced WMMA path with the LN(4000) backward
+     over a stored dxn timed beside it, and again with d(volume), dxn
+     stored); the embeds under grad
      at full width, which must pass gradients to all six weights and to the
      input (K8 / K16a / K17 on a volume, K4 / K16b on rows); then
      `CTClipTrainer` at full width on phase 6's corpus, (a) with visual SSL
@@ -106,7 +111,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      SimCLR on the pooled tap for 2 steps, each with its launch counters (the
      volume training embed runs K6, each SSL view K8 and K16a, and MLM runs
      the text tower twice, so K13 launches twice as often per step as in
-     phase 6: K13a and K13b 24 times each on the tensor cores), step time
+     phase 6: K13a and K13b 24 times each on the tensor cores; K16a's LN
+     sums, counter `ff_tc_ln_sums`, once per view and step), step time
      (CUDA events), peak memory and a profiled step;
      last, a tiny CT-CLIP step with all three objectives on (its BERT at
      four heads of 16, K12a on attention_train.cu), card against CPU as in
@@ -154,7 +160,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
  10. f32, the JAX package's default dtype: the f32 forms (compile-time
      templates of the bf16 kernels) against their plain versions in true
      f32 at full width (TC32_REL_TOL; K11's weight gradients over 10,240 rows
-     F32_REL_TOL): K3 at MaskGIT's and zero-shot's rows, K11 at MaskGIT's,
+     F32_REL_TOL): K3 at MaskGIT's, zero-shot's and the contrastive step's
+     rows (3xTF32 on ffn_tc32.cu's `wgmma`, bit-identical across runs, a
+     plain-TF32 copy outside TC32_REL_TOL, the replaced FFMA gemm_kernel
+     path timed beside it; counter `geglu_ff_tc32` on every f32 path that
+     runs K3), K11 at MaskGIT's,
      K1 on the zero-shot and autoencoder planes, K2 grid and seq, K5 on f32
      rows (ids equal to the plain version of its own math: rows normalised
      and rounded to bf16; the share equal to the full-f32 argmax reported),
@@ -321,8 +331,10 @@ KERNELS = {
     "attention_dropout_bwd_bf16": _kernel("_pallas_attention_kbias_drop_bwd (bf16)",
                                           "attention.py:499", "attention_tc.cu",
                                           ATTN_TC, "attention_dropout_bwd", "ctclip_train"),
-    "patch_embed_bwd": _kernel("_pallas_patch_embed_bwd", "patchify.py:375", "layernorm.cu",
-                               ["layernorm.cu", "gemm.cu"], "patch_embed_bwd",
+    # K16a: its three products on ffn_tc.cu (`wgmma`), the LN(4000) sums in
+    # the dxn product's epilogue (counter ff_tc_ln_sums beside it)
+    "patch_embed_bwd": _kernel("_pallas_patch_embed_bwd", "patchify.py:375", "ffn_tc.cu",
+                               ["layernorm.cu", "ffn_tc.cu", "gemm.cu"], "patch_embed_bwd",
                                "ctclip_aux_ssl_mlm"),
     "row_embed_bwd": _kernel("_pallas_row_embed_bwd", "patchify.py:637", "layernorm.cu",
                              ["layernorm.cu", "gemm.cu"], "row_embed_bwd", "embed_grad"),
@@ -371,8 +383,10 @@ KERNELS = {
                                   "attention_tc.cu", ATTN_TC, "attention_bwd",
                                   "bert_bf16_dropout_off"),
     # the f32 forms (phase 10), each with its own counter
-    "geglu_ff_f32": _kernel("fused_geglu_ff (f32)", "ffn.py:105", "gemm.cu",
-                            ["layernorm.cu", "gemm.cu"], "geglu_ff_f32", "maskgit_f32_train"),
+    # K3 f32: 3xTF32 on ffn_tc32.cu (`wgmma`, counter geglu_ff_tc32 beside it)
+    "geglu_ff_f32": _kernel("fused_geglu_ff (f32)", "ffn.py:105", "ffn_tc32.cu",
+                            ["layernorm.cu", "ffn_tc32.cu"], "geglu_ff_f32",
+                            "maskgit_f32_train"),
     "geglu_ff_bwd_f32": _kernel("_pallas_ff_bwd (f32)", "ffn.py:238", "gemm.cu",
                                 ["layernorm.cu", "gemm.cu"], "geglu_ff_bwd_f32",
                                 "maskgit_f32_train"),
@@ -448,13 +462,13 @@ PATHS = {
                      "attention_dropout_bwd", "attention_tc_bwd", "rearrange_patches",
                      "row_embed", "vq_assign", "fused_attention", "attention_tc"],
     # the inference embeds under grad, on a volume and on rows
-    "embed_grad": ["patch_embed", "patch_embed_bwd", "unrearrange_patches", "row_embed",
-                   "row_embed_bwd"],
+    "embed_grad": ["patch_embed", "patch_embed_bwd", "ff_tc_gemm", "unrearrange_patches",
+                   "row_embed", "row_embed_bwd"],
 }
 # a training step on volumes with visual SSL: K6 in the CLIP embed, K8 and
 # K16a in each view's embed, the tower's kernels and backwards, K13
-AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "rearrange_patches", "geglu_ff_bwd", "ff_tc_tile",
-             "ff_tc_gemm",
+AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "ff_tc_ln_sums", "rearrange_patches",
+             "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm",
              "spatial_attention_bwd", "qk_attention_tc_bwd", "grid_attention_bwd", "peg_bwd",
              "vq_cluster_stats", "vq_assign_exact", "geglu_ff", "spatial_attention",
              "grid_attention", "attention_dropout", "attention_dropout_bwd", "attention_tc",
@@ -500,17 +514,20 @@ PATHS["t5_no_mask"] = ["attention_dense", "attention_tc32"]
 # MaskGIT stage (the frozen f32 CTViT's encode, K3 / K11 f32, K7 dense f32,
 # K12b f32 dense and with no bias on attention_tc32.cu, the PEG's plain dW;
 # sampling's decoder with K2 seq, K1, K3 and K17 f32)
-F32_ZS = ["spatial_attention_f32", "grid_attention_f32", "geglu_ff_f32", "vq_assign_f32",
-          "fused_attention", "attention_tc32"]
+F32_ZS = ["spatial_attention_f32", "grid_attention_f32", "geglu_ff_f32", "geglu_ff_tc32",
+          "vq_assign_f32", "fused_attention", "attention_tc32"]
 PATHS["zero_shot_f32_rows"] = F32_ZS + ["rearrange_patches_f32", "row_embed_plain"]
 PATHS["zero_shot_f32_volume"] = F32_ZS + ["patch_embed_plain"]
 PATHS["maskgit_f32_encode_ids"] = ["patch_embed_plain", "spatial_attention_f32",
-                                   "seq_attention_f32", "geglu_ff_f32", "vq_assign_f32"]
-PATHS["maskgit_f32_train"] = ["geglu_ff_f32", "geglu_ff_bwd_f32", "attention_dense",
+                                   "seq_attention_f32", "geglu_ff_f32", "geglu_ff_tc32",
+                                   "vq_assign_f32"]
+PATHS["maskgit_f32_train"] = ["geglu_ff_f32", "geglu_ff_tc32", "geglu_ff_bwd_f32",
+                              "attention_dense",
                               "attention_dense_bwd", "attention_tc32", "attention_tc32_bwd",
                               "fused_attention", "peg_dw_plain"]
 PATHS["maskgit_f32_sample"] = ["attention_dense", "fused_attention", "attention_tc32",
-                               "geglu_ff_f32", "seq_attention_f32", "spatial_attention_f32",
+                               "geglu_ff_f32", "geglu_ff_tc32", "seq_attention_f32",
+                               "spatial_attention_f32",
                                "unrearrange_patches_f32"]
 # phase 11: f32 CT-CLIP pretraining (`cli train --no-bf16`: the f32 forms of
 # K1, K2 grid, K3 and their backwards K9, K10 grid, K11, K5 exact and K15 on
@@ -521,14 +538,16 @@ PATHS["maskgit_f32_sample"] = ["attention_dense", "fused_attention", "attention_
 PATHS["ctclip_f32_train"] = ["spatial_attention_bwd_f32", "qk_attention_tc32_bwd",
                              "grid_attention_bwd_f32",
                              "vq_assign_exact_f32", "vq_cluster_stats_f32", "geglu_ff_bwd_f32",
-                             "geglu_ff_f32", "spatial_attention_f32", "grid_attention_f32",
+                             "geglu_ff_f32", "geglu_ff_tc32", "spatial_attention_f32",
+                             "grid_attention_f32",
                              "rearrange_patches_f32", "attention_dropout",
                              "attention_dropout_bwd", "attention_tc32", "attention_tc32_bwd",
                              "peg_dw_plain",
                              "vq_assign_f32",
                              "row_embed_plain", "fused_attention"]
 AE_F32_TRAIN = ["seq_attention_f32", "seq_attention_bwd_f32", "spatial_attention_f32",
-                "spatial_attention_bwd_f32", "qk_attention_tc32_bwd", "geglu_ff_f32", "geglu_ff_bwd_f32", "peg_dw_plain",
+                "spatial_attention_bwd_f32", "qk_attention_tc32_bwd", "geglu_ff_f32",
+                "geglu_ff_tc32", "geglu_ff_bwd_f32", "peg_dw_plain",
                 "vq_cluster_stats_f32", "vq_assign_exact_f32", "rearrange_patches_f32",
                 "unrearrange_patches_f32"]
 PATHS["ctvit_ae_f32_train"] = AE_F32_TRAIN
@@ -745,8 +764,8 @@ def cuda_core_twin(q, k, v, do=None, key_bias=None, bias=None, seed=None, rate=0
 
 def twin_result(name: str, fn, ref, source: str = "attention_train.cu") -> dict:
     """Error against the plain outputs `ref` and median time of the replaced
-    CUDA-core kernel `fn` (cuda_core_twin; cuda_core_k9: `source`
-    qknorm_attention_bwd.cu)."""
+    kernel `fn` (cuda_core_twin; cuda_core_k9: `source`
+    qknorm_attention_bwd.cu; k16a_replaced; K3 f32's FFMA path)."""
     import torch
 
     got = _as_tuple(fn())
@@ -755,7 +774,7 @@ def twin_result(name: str, fn, ref, source: str = "attention_train.cu") -> dict:
     dtype = str(got[0].dtype).split(".")[-1]
     del got
     ms = cuda_ms(fn)
-    log(f"kernel {name}: the replaced CUDA-core form ({source}, {dtype}) "
+    log(f"kernel {name}: the replaced form ({source}, {dtype}) "
         f"{ms:.3f} ms, max_abs_err {err:.4e} max_rel_err {rel:.4e}")
     return dict(source=CSRC + source, ms=ms, max_abs_err=err, max_rel_err=rel)
 
@@ -1662,10 +1681,23 @@ def embed_bwd_cases(dev):
 
     leaves = [t.clone().requires_grad_() for t in pe]
     out = fused_patch_embed(video, *leaves, 10, 20)
+    k16a = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
     yield "patch_embed_bwd", dict(
+        kern=k16a, plain=lambda: plain_grads(lambda *w: patch_embed_plain(video, *w, 10, 20), pe),
+        copy=no_rstd_k16a(k16a),
+        copy_is="ffn_tc.cu with the epilogue's xhat lacking rstd (CT_FF_TC_LN_NO_RSTD)",
+        twin=lambda: k16a_replaced(video, pe, do), twin_source="layernorm.cu and gemm.cu",
+        bit_identical=True, library=None, inputs=(video, do, *pe), outputs=tuple(pe),
+        flops=flops, tols=(BWD_REL_TOL,) * 6)
+    del out, leaves, k16a
+    # with d(volume): dxn stored, the LN(4000) backward through the gather and K17
+    leaves = [t.clone().requires_grad_() for t in (video, *pe)]
+    out = fused_patch_embed(*leaves[:1], *leaves[1:], 10, 20)
+    yield "patch_embed_bwd_dvideo", dict(
         kern=lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
-        plain=lambda: plain_grads(lambda *w: patch_embed_plain(video, *w, 10, 20), pe),
-        library=None, inputs=(video, do, *pe), outputs=tuple(pe), flops=flops,
+        plain=lambda: plain_grads(lambda *a: patch_embed_plain(a[0], *a[1:], 10, 20),
+                                  (video, *pe)),
+        library=None, inputs=(video, do, *pe), outputs=(video, *pe), flops=flops,
         tol=BWD_REL_TOL)
     del out, leaves
     rows = rearrange_plain(video, 10, 20)
@@ -1682,6 +1714,43 @@ def embed_bwd_cases(dev):
         library=lambda: rows.reshape(AUX_B, 24, 24, 24, 10, 20, 20)
         .permute(0, 1, 4, 2, 5, 3, 6).contiguous(),
         inputs=(rows,), outputs=(video,), flops=0, exact=True)
+
+
+def k16a_replaced(video, pe, do, eps: float = 1e-5):
+    """K16a's six weight gradients as the port ran them before ffn_tc.cu:
+    the patch LN, gemm.cu's WMMA recompute, TN and NN products (dxn stored
+    in f32) and the LN(4000) backward through the patch gather
+    (ln_bwd_kernel<true>) -- the path it replaced, timed beside it."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.patch_embed import _embed_tail_bwd
+
+    s1, b1, w, pbias, s2, _ = pe
+    b, F, H, W = video.shape
+    xn = torch.empty((b * (F // 10) * (H // 20) * (W // 20), w.shape[1]), dtype=torch.bfloat16,
+                     device=video.device)
+    K.patch_layernorm(video, 10, 20, s1, b1, eps, xn)
+    dxn, dw, dpb, ds2, db2 = _embed_tail_bwd(xn, w, pbias, s2, do, eps)
+    del xn
+    _, ds1, db1 = K.patch_layernorm_bwd(video, 10, 20, s1, dxn, eps)
+    return ds1, db1, dw, dpb, ds2, db2
+
+
+def no_rstd_k16a(fn):
+    """`fn` with K16a's LN sums launched from a copy of ffn_tc.cu built with
+    CT_FF_TC_LN_NO_RSTD=1: the epilogue's xhat = x - mean, rstd dropped."""
+    import functools
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    sums = functools.partial(K.ln_sums_tc,
+                             lib=K.copy_library("ffn_tc.cu", CT_FF_TC_LN_NO_RSTD=1))
+
+    def run():
+        with replaced(K, "ln_sums_tc", sums):
+            return fn()
+    return run
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2280,6 +2349,8 @@ def radbert_reference_phase(dev, work: Path, attention_dropout: float = 0.0) -> 
 # ---------------------------------------------------------------- phase 6
 # kernel-name fragments of a CT-CLIP training step's groups (first match)
 CTCLIP_GROUPS = (
+    ("K3 f32, 3xTF32 on the tensor cores (ffn_tc32.cu: ff_tc32_kernel, tc32_split_kernel)",
+     ("ff_tc32_kernel", "tc32_split_kernel")),
     TC_BWD_GROUP,
     TC_FWD_GROUP,
     TC32_GROUP,
@@ -2805,8 +2876,11 @@ def ctclip_train_reference_phase(dev, work: Path) -> dict:
 # kernel-name fragments of an aux-objective step's groups (first match),
 # ahead of the CT-CLIP step's
 AUX_GROUPS = (
-    ("K16a LN(4000) backward through the patch gather (ln_bwd_kernel<true>)",
-     ("ln_bwd_kernel<true>",)),
+    ("K16a NT recompute and NN with the LN(4000) sums on the tensor cores (ffn_tc.cu: "
+     "ff_tc_gemm<0, 1>, <0, 2>; its TN dW counts with K11's products)",
+     ("ff_tc_gemm<0, 1>", "ff_tc_gemm<0, 2>")),
+    ("K16a LN(4000) backward through the patch gather (ln_bwd_kernel<bf16, true>; with "
+     "d(volume))", ("ln_bwd_kernel<__nv_bfloat16, true>",)),
     ("K6/K17 rearrange (rearrange_kernel, unrearrange_runs_kernel)",
      ("rearrange_kernel", "unrearrange_runs_kernel")),
     ("BatchNorm of the SSL heads", ("batch_norm",)),
@@ -2910,7 +2984,9 @@ def aux_train_phase(dev, work: Path, card: str, corpus, base_counts) -> dict:
         ckpts = sorted(p.name for p in (results / "checkpoints").glob("*.pt"))
         k13_rate = counts["attention_dropout"] / steps
         k13 = (2 if cfg.use_mlm else 1) * BERT_LAYERS * steps
-        want = dict(patch_embed_bwd=2 * steps, rearrange_patches=steps, attention_dropout=k13,
+        # K16a: one per view and step, each with its LN sums in the product's epilogue
+        want = dict(patch_embed_bwd=2 * steps, ff_tc_ln_sums=2 * steps,
+                    rearrange_patches=steps, attention_dropout=k13,
                     attention_dropout_bwd=k13, attention_tc_bwd=k13,
                     # every forward (K13a, the mini evaluation's K7) on the tensor cores
                     attention_tc=k13 + counts["fused_attention"])
@@ -3836,14 +3912,19 @@ def tiny_maskgit_phase(dev, work: Path) -> dict:
 def f32_kernel_cases(dev):
     """The f32 forms at the shapes of their main paths, each against its
     plain version in true f32: K3 at MaskGIT's 10,240 x 512 -> 2 x 1,365 ->
-    512 and zero-shot's 27,648 rows, K11 at MaskGIT's rows, K1 on the
+    512, zero-shot's 27,648 rows and the contrastive step's 110,592 (in
+    3xTF32: bounds at the TF32 peak, the f32 CUDA-core one beside them),
+    K11 at MaskGIT's rows, K1 on the
     zero-shot batch's (48, 576, 512) planes and the autoencoder's (160, 64,
     512), K2 grid on the zero-shot grid and K2 seq at (512, 20, 512), K5 on
     the zero-shot batch's f32 rows, K6 on one f32 volume into its slot and
-    K17 on the sampler's decoded rows.  Bounds at the f32 CUDA-core peak."""
+    K17 on the sampler's decoded rows.  Bounds at the f32 CUDA-core peak
+    unless stated."""
     import torch
 
-    from ct_clip_tpu_torch.ops.ffn import fused_geglu_ff, geglu_ff_bwd_plain, geglu_ff_plain
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.ffn import (_geglu_ff_gemm, _geglu_ff_tc32, fused_geglu_ff,
+                                           geglu_ff_bwd_plain, geglu_ff_plain)
     from ct_clip_tpu_torch.ops.norms import l2norm
     from ct_clip_tpu_torch.ops.patch_embed import (rearrange_patches, rearrange_plain,
                                                    unrearrange_patches, unrearrange_plain)
@@ -3862,14 +3943,25 @@ def f32_kernel_cases(dev):
     mg_rows, zs_rows = MG_B * 1280, B * 13824
     f32_case = dict(peak=PEAK_F32_FLOPS, library=None)
 
-    # K3, K11
+    # K3 in 3xTF32 on ffn_tc32.cu, a plain-TF32 copy of it, the replaced
+    # FFMA path (gemm.cu's f32 gemm_kernel) timed beside it; the products'
+    # operations at the padded inner width, 1,368
     w_ff = (1 + rn(dim, scale=0.1), rn(dim, scale=0.1), rn(2 * inner, dim, scale=dim ** -0.5),
             rn(dim, inner, scale=inner ** -0.5))
-    for name, rows in (("geglu_ff_f32", mg_rows), ("geglu_ff_f32_zero_shot", zs_rows)):
+    tf32_lib = K.copy_library("ffn_tc32.cu", CT_TC32_PASSES=1)
+    for name, rows in (("geglu_ff_f32", mg_rows), ("geglu_ff_f32_zero_shot", zs_rows),
+                       ("geglu_ff_f32_contrastive", TRAIN_B * 13824)):
         x = rn(rows, dim)
-        yield name, dict(f32_case, kern=lambda x=x: fused_geglu_ff(x, *w_ff),
-                         plain=lambda x=x: geglu_ff_plain(x, *w_ff), inputs=(x, *w_ff),
-                         outputs=(x,), flops=2 * rows * dim * 3 * inner, tol=TC32_REL_TOL)
+        products = 6 * rows * dim * 1368
+        yield name, dict(
+            f32_case, kern=lambda x=x: fused_geglu_ff(x, *w_ff),
+            plain=lambda x=x: geglu_ff_plain(x, *w_ff),
+            copy=lambda x=x: _geglu_ff_tc32(x, *w_ff, 1e-5, lib=tf32_lib),
+            copy_is="ffn_tc32.cu in plain TF32 (CT_TC32_PASSES=1)",
+            twin=lambda x=x: _geglu_ff_gemm(x, *w_ff, 1e-5),
+            twin_source="gemm.cu (f32 gemm_kernel, FFMA)", bit_identical=True,
+            inputs=(x, *w_ff), outputs=(x,), flops=3 * products, f32_flops=products,
+            peak=PEAK_TF32_FLOPS, tols=(TC32_REL_TOL,))
         del x
     x, do = rn(mg_rows, dim), rn(mg_rows, dim)
     leaves = [t.clone().requires_grad_() for t in (x, *w_ff)]
@@ -3956,6 +4048,7 @@ def f32_kernel_phase(dev) -> dict:
     nested under their kernel's entry."""
     res = train_kernel_phase(dev, f32_kernel_cases(dev), MG_B)
     res["geglu_ff_f32"]["at_zero_shot"] = res.pop("geglu_ff_f32_zero_shot")
+    res["geglu_ff_f32"]["at_contrastive"] = res.pop("geglu_ff_f32_contrastive")
     res["spatial_attention_f32"]["at_n64"] = res.pop("spatial_attention_f32_n64")
     return res
 
@@ -3999,8 +4092,10 @@ def zero_shot_f32_phase(dev, work: Path, card: str, bf16_counts: dict) -> dict:
         want = {k: cb[k] for k in F32_ZS_SAME}
         want.update({f"{k}_f32": cb[k] for k in F32_ZS_SAME if k != "fused_attention"})
         want[embed[0]] = cb[embed[1]]
-        # the prompts' K7 f32 on attention_tc32.cu, as the bf16 run's on attention_tc.cu
+        # the prompts' K7 f32 on attention_tc32.cu, as the bf16 run's on attention_tc.cu;
+        # every K3 f32 in 3xTF32 on ffn_tc32.cu
         want["attention_tc32"] = cb["attention_tc"]
+        want["geglu_ff_tc32"] = cb["geglu_ff"]
         got = {k: c[k] for k in want}
         log(f"e2e {name}: run_zero_shot in f32 scored 3 volumes in {secs:.2f} s host clock; "
             f"launches {got}, the bf16 run's {want}")
@@ -4135,7 +4230,8 @@ def maskgit_f32_phase(dev, work: Path, card: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med = statistics.median(step_ms)
     c = counts["maskgit_f32_train"]
-    per_step = {k: c[k] for k in ("geglu_ff_f32", "geglu_ff_bwd_f32", "attention_dense",
+    per_step = {k: c[k] for k in ("geglu_ff_f32", "geglu_ff_tc32", "geglu_ff_bwd_f32",
+                                  "attention_dense",
                                   "attention_dense_bwd", "fused_attention", "attention_bwd",
                                   "attention_tc", "attention_tc_bwd", "attention_tc32",
                                   "attention_tc32_bwd", "peg_dw_plain", "peg_bwd")}
@@ -4150,11 +4246,12 @@ def maskgit_f32_phase(dev, work: Path, card: str) -> dict:
     # f32 and both backwards K12b (the critic's with no bias) on
     # attention_tc32.cu in 3xTF32 (none on attention_tc.cu), K12a none;
     # every FF forward on K3's f32 form, its backward on K11's; every PEG dW
-    # on the plain route (K14 none)
+    # on the plain route (K14 none); every K3 f32 in 3xTF32 on ffn_tc32.cu
     want = dict(attention_dense=6, fused_attention=6, attention_dense_bwd=12, attention_bwd=0,
                 attention_tc32=12, attention_tc32_bwd=12, attention_tc=0, attention_tc_bwd=0,
                 peg_bwd=0,
-                geglu_ff_f32=c["geglu_ff"], geglu_ff_bwd_f32=c["geglu_ff_bwd"])
+                geglu_ff_f32=c["geglu_ff"], geglu_ff_tc32=c["geglu_ff"],
+                geglu_ff_bwd_f32=c["geglu_ff_bwd"])
     if any(per_step[k] != n for k, n in want.items()) or not (
             per_step["geglu_ff_f32"] and per_step["geglu_ff_bwd_f32"] and per_step["peg_dw_plain"]):
         raise AssertionError(f"maskgit f32: launches per step {per_step}, want {want}")
@@ -4730,6 +4827,7 @@ def main() -> int:
         counts["ctclip_train"] = ctclip.pop("counts")
         ctclip_ref = ctclip_train_reference_phase(dev, work)
         results.update(train_kernel_phase(dev, embed_bwd_cases(dev), AUX_B))
+        results["patch_embed_bwd"]["with_dvideo"] = results.pop("patch_embed_bwd_dvideo")
         embed_grad = embed_grad_phase(dev)
         counts["embed_grad"] = embed_grad.pop("counts")
         aux = aux_train_phase(dev, work, card, corpus, counts["ctclip_train"])

@@ -44,6 +44,32 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// ------------------------------------------------------- the patch gather
+// The volume's (pt, p, p) patches as the rows of a (B*t*h*w, pt*p*p) matrix,
+// read in place (layernorm.cu's patch LN and its backward, ffn_tc.cu's K16a
+// epilogue).
+struct PatchGeom {
+  int F, H, W, pt, p, t, h, w;
+};
+
+// The patch gather: row = ((b*t + ti)*h + hi)*w + wi, element
+// e = (z*p + p1)*p + p2 of video[b, ti*pt + z, hi*p + p1, wi*p + p2] lies at
+// patch_row_base(row) + patch_elem_offset(e).
+__device__ __forceinline__ size_t patch_row_base(const PatchGeom& g, size_t row) {
+  const int wi = (int)(row % g.w);
+  row /= g.w;
+  const int hi = (int)(row % g.h);
+  row /= g.h;
+  const int ti = (int)(row % g.t);
+  const size_t bb = row / g.t;
+  return ((bb * g.F + (size_t)ti * g.pt) * g.H + (size_t)hi * g.p) * g.W + (size_t)wi * g.p;
+}
+
+__device__ __forceinline__ int patch_elem_offset(const PatchGeom& g, int e) {
+  const int p2 = e % g.p, p1 = (e / g.p) % g.p, z = e / (g.p * g.p);
+  return (z * g.H + p1) * g.W + p2;
+}
+
 // ------------------------------------------------------------ K13's mask
 // The TPU draws dropout bits from its hardware generator seeded by (seed,
 // head, row).  Here the bits are Philox4x32-10 keyed on the 64-bit seed

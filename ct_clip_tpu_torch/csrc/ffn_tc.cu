@@ -20,6 +20,19 @@
 //     partials per split of the rows, which ct_sum_splits (gemm.cu) adds in
 //     order: no atomics, every output bit-identical from run to run.
 //
+// The products also run the bf16 volume-embed backward, ct_clip_tpu/ops/
+// pallas/patchify.py::_pallas_patch_embed_bwd (K16a, :375, pallas_call :399,
+// body _embed_bwd_kernel :269-327), in two more epilogue forms of ff_tc_gemm:
+// yb = xn W^T + b recomputed ("NT", B K-major, the bias added and rounded as
+// the TPU kernel rounds it), and dxn = dyb W whose f32 tile is multiplied by
+// xhat = (x - mean) rstd, rebuilt from the volume through the patch gather,
+// and reduced to the LN(4000) scale and bias gradients' per-tile column sums
+// in the epilogue: dxn, 1.77 GB of f32 at the training batch of 110,592
+// rows, never reaches device memory, and no LN(4000) backward pass re-reads
+// it.  dW = dyb^T xn is the "TN" form as it stands.  K16a's three products
+// are 1.36 TFLOP there (1.37 ms at 989 TFLOP/s) against ~2 GB of volume,
+// xn and yb moved (0.6 ms): the tensor cores bound it.
+//
 // What bounds it on the H100.  At CT-CLIP's batch 8 (110,592 rows x 512,
 // inner 1,365 padded to 1,368) the tile runs three products of 0.155 TFLOP
 // and the two weight gradients and dxn 0.775 TFLOP more: 1.24 TFLOP, 1.25 ms
@@ -52,10 +65,8 @@
 //     zero-filled by the TMA copies and masked at the stores; a split is a
 //     multiple of 64 rows, so no k block straddles two; widths and row
 //     strides must be multiples of 8 elements (16 bytes), as TMA requires.
-#include <cuda.h>  // CUtensorMap and its enums
-
 #include "common.cuh"
-#include "wgmma.cuh"
+#include "tma.cuh"
 
 // 1 in a one-change copy for the card checks (kernels.copy_library): dg
 // without the g phi(g) term of the GELU derivative, which the K11 checks
@@ -75,8 +86,16 @@ constexpr int TILE_STAGE = 2 * CWG * ATOM + 3 * ATOM;  // xn, dout; wa, wg, woT
 constexpr int GEMM_STAGES = 3;                         // two CTAs per SM
 constexpr int GEMM_STAGE = 4 * ATOM;                   // A: 2 atoms, B: 2 atoms
 
+// GEMM_LN_SUMS (below): a ring of two stages and the CTA's volume tile, 128
+// rows of 128 bf16 padded to 272 bytes (the epilogue's reads of 8 rows x 4
+// column pairs fall in 32 distinct banks), and its barrier
+constexpr int LN_STAGES = 2;
+constexpr int XS_LD = 272;
 __host__ __device__ constexpr int tile_smem() { return 1024 + TILE_STAGES * TILE_STAGE; }
 __host__ __device__ constexpr int gemm_smem() { return 1024 + GEMM_STAGES * GEMM_STAGE; }
+__host__ __device__ constexpr int ln_sums_smem() {
+  return 1024 + LN_STAGES * GEMM_STAGE + BM * XS_LD + 16;
+}
 
 // d += A B: m64 n64 k16, A and B from shared memory; TA / TB 1: that operand
 // MN-major
@@ -87,41 +106,6 @@ __device__ __forceinline__ void mma_t(float (&d)[32], uint64_t da, uint64_t db) 
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D
       ", %32, %33, p, 1, 1, %35, %36;\n}\n"
       : WG_OUT(d) : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-// one 64 x 64 box of the tensor `map` at (column c0, row r0) -> a swizzled
-// atom at dst; its bytes complete the transaction of barrier `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int r0,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(saddr(bar))
-      : "memory");
-}
-
-// the producer's arrival on `bar`, which then waits for `bytes` of copies
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(saddr(bar)), "r"(bytes) : "memory");
-}
-
-// wait until at most one committed group of this warpgroup's products is
-// in flight
-__device__ __forceinline__ void wg_wait1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-
-template <int RING>
-__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < RING; ++s) {
-      bar_init(&full[s], 1);
-      bar_init(&empty[s], 128 * CWG);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
 }
 
 // ------------------------------------------------------------- the tile
@@ -143,7 +127,7 @@ __global__ void __launch_bounds__(NT, 1) ff_tc_tile(const __grid_constant__ Tile
   uint8_t* ring = align1024(smem_raw);
   const int n0 = blockIdx.x * TC_TILE, m0 = blockIdx.y * BM;
   const int kblocks = (a.K + TC_TILE - 1) / TC_TILE;
-  init_ring<TILE_STAGES>(full, empty);
+  init_ring<TILE_STAGES, 128 * CWG>(full, empty);
 
   if (threadIdx.x >= 128 * CWG) {  // the producer: one thread
     if (threadIdx.x != 128 * CWG) return;
@@ -228,9 +212,26 @@ __global__ void __launch_bounds__(NT, 1) ff_tc_tile(const __grid_constant__ Tile
 // the k range of split blockIdx.z (kchunk rows each):
 //   A(m, k) = A[m * lda + k] (TA 0: K-major, row-major (M, K)) or
 //             A[k * lda + m] (TA 1: MN-major, a row-major (K, M) matrix);
-//   B(k, n) = B[k * ldb + n] (MN-major, a row-major (K, N) matrix).
+//   B(k, n) = B[k * ldb + n] (MN-major, a row-major (K, N) matrix) or, in
+//             the GEMM_BIAS form, B[n * ldb + k] (K-major, a row-major (N,
+//             K) matrix).
 // "NN": dxn = [da | dg] [wa; wg] (TA 0); "TN": dW = dY^T X (TA 1), the
-// split's sums to C + z * split_stride.
+// split's sums to C + z * split_stride.  The epilogue forms (compile-time):
+//   GEMM_STORE     C f32, as above;
+//   GEMM_BIAS      "NT", C bf16 = bf16(bf16(acc) + bias[n]): K16a's
+//                  recompute of yb = xn W^T + b, rounded as gemm.cu's
+//                  EPI_BIAS_ROUNDED rounds it (patchify.py:284-285);
+//   GEMM_LN_SUMS   "NN", dxn = dyb W reduced in the epilogue, never stored:
+//                  each accumulator times xhat = (x - mean) rstd of its patch
+//                  row element, x gathered from the volume into shared
+//                  memory by the producer warp's idle lanes while the
+//                  products run, mean and rstd from the recompute's (M, 2)
+//                  stats;
+//                  the tile's column sums of dxn xhat and of dxn go to row
+//                  blockIdx.y of the (tiles, 2 N) partials (ds1 | db1,
+//                  patchify.py:307-308), which the caller adds in order.
+enum GemmForm { GEMM_STORE = 0, GEMM_BIAS = 1, GEMM_LN_SUMS = 2 };
+
 struct GemmMaps {
   CUtensorMap A, B;
 };
@@ -238,20 +239,182 @@ struct GemmArgs {
   float* C;
   int M, N, K, ldc, kchunk;
   long long split_stride;
+  // GEMM_BIAS: the bias (N,); GEMM_LN_SUMS: the volume, its patch
+  // geometry and the recompute's stats
+  const bf16* bias;
+  const bf16* video;
+  const float* stats;
+  PatchGeom g;
 };
 
-template <int TA>
+// 1 in a one-change copy for the card checks (kernels.copy_library): the
+// K16a epilogue's xhat without rstd, which the K16a checks must catch
+#ifndef CT_FF_TC_LN_NO_RSTD
+#define CT_FF_TC_LN_NO_RSTD 0
+#endif
+
+// 8 bytes from global to shared memory; zero past `src_bytes`
+__device__ __forceinline__ void cp8(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// GEMM_LN_SUMS's producer warp.  Lane 0 issues the TMA copies of every k
+// block (A: dyb rows m0.., K-major; B: W rows k0.., MN-major); meanwhile
+// lanes 1-31 gather the CTA's volume tile, x of patch rows m0 .. m0 + 127 at
+// columns n0 .. n0 + 127, into xs: lane L the 4 columns n0 + 4 L .. of
+// every row (one 8-byte copy each: p % 4 == 0 and W % 4 == 0, so 4 columns
+// from a multiple of 4 lie side by side in one p-wide row of the patch),
+// columns n0 .. n0 + 3 every 31st row from row L - 1; zero outside (M, N).
+// Each of the 31 arrives on `xfull` once its copies have landed.
+template <int STAGES>
+__device__ __forceinline__ void ln_producer(const GemmMaps& maps, const GemmArgs& a,
+                                            uint8_t* ring, uint8_t* xs, uint64_t* full,
+                                            uint64_t* empty, uint64_t* xfull, int m0, int n0,
+                                            int kblocks) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    for (int kb = 0; kb < kblocks; ++kb) {
+      const int st = kb % STAGES, k0 = kb * TC_TILE;
+      if (kb >= STAGES) bar_wait(&empty[st], (kb / STAGES - 1) & 1);
+      const uint32_t dst = saddr(ring + st * GEMM_STAGE);
+      bar_expect(&full[st], GEMM_STAGE);
+#pragma unroll
+      for (int w = 0; w < CWG; ++w) {
+        tma_load(dst + w * ATOM, &maps.A, k0, m0 + 64 * w, &full[st]);
+        tma_load(dst + (CWG + w) * ATOM, &maps.B, n0 + 64 * w, k0, &full[st]);
+      }
+    }
+    return;
+  }
+  const PatchGeom& g = a.g;
+  const uint32_t xs0 = saddr(xs);
+  // columns n0 + 4 lane ..: row m0's patch indices, then one row at a time
+  // without divisions
+  const int col = n0 + 4 * lane;
+  const bool col_ok = col < a.N;
+  const size_t off = col_ok ? patch_elem_offset(g, col) : 0;
+  size_t r = m0;
+  int wi = (int)(r % g.w);
+  r /= g.w;
+  int hi = (int)(r % g.h);
+  r /= g.h;
+  int ti = (int)(r % g.t);
+  size_t bb = r / g.t;
+  for (int i = 0; i < BM; ++i) {
+    const bool ok = col_ok && m0 + i < a.M;
+    const size_t src = ((bb * g.F + (size_t)ti * g.pt) * g.H + (size_t)hi * g.p) * g.W
+                       + (size_t)wi * g.p + off;
+    cp8(xs0 + i * XS_LD + 8 * lane, a.video + (ok ? src : 0), ok ? 8 : 0);
+    if (++wi == g.w) {
+      wi = 0;
+      if (++hi == g.h) {
+        hi = 0;
+        if (++ti == g.t) {
+          ti = 0;
+          ++bb;
+        }
+      }
+    }
+  }
+  // columns n0 .. n0 + 3, lane 0's share
+  for (int i = lane - 1; i < BM; i += 31) {
+    const bool ok = n0 < a.N && m0 + i < a.M;
+    cp8(xs0 + i * XS_LD, a.video + (ok ? patch_row_base(g, m0 + i) + patch_elem_offset(g, n0) : 0),
+        ok ? 8 : 0);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  bar_arrive(xfull);
+}
+
+// GEMM_LN_SUMS's epilogue: this CTA's column sums of c xhat and of c over
+// its 128 rows into row blockIdx.y of the (tiles, 2 N) partials at a.C, x
+// read from the volume tile xs (`xfull`), in a fixed order: each thread's
+// two rows, the warp's eight row groups by shuffles, then the eight warps in
+// turn through the ring, which every product has finished reading.  A
+// thread's accumulator elements 4 q .. 4 q + 3 of each half are columns 8 q
+// + 2 (lane % 4) + {0, 1} of rows r and r + 8.  Rows and columns outside
+// read c = 0 (zero-filled operands) and x = 0.
+__device__ __forceinline__ void ln_sums(const GemmArgs& a, const float (&c0)[32],
+                                        const float (&c1)[32], int m0, int n0, int wg,
+                                        int warp, int lane, uint8_t* ring, const uint8_t* xs,
+                                        uint64_t* xfull) {
+  const int q4 = lane & 3, rl = 64 * wg + 16 * warp + (lane >> 2);
+  float mean[2], rstd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gm = m0 + rl + 8 * h;
+    const float2 st = gm < a.M ? *reinterpret_cast<const float2*>(a.stats + 2 * (size_t)gm)
+                               : make_float2(0.0f, 0.0f);
+    mean[h] = st.x;
+    rstd[h] = CT_FF_TC_LN_NO_RSTD ? 1.0f : st.y;
+  }
+  float* red = reinterpret_cast<float*>(ring);  // [warp][dxn xhat | dxn][128 columns]
+  consumers_sync(128 * CWG);  // every warpgroup's products are done with the ring
+  bar_wait(xfull, 0);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float(&c)[32] = half ? c1 : c0;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int col = 64 * half + 8 * q + 2 * q4;
+      float s0 = 0.0f, s1 = 0.0f, d0 = 0.0f, d1 = 0.0f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = 4 * q + 2 * h;
+        const float2 x = __bfloat1622float2(
+            *reinterpret_cast<const bf162*>(xs + (rl + 8 * h) * XS_LD + 2 * col));
+        s0 += c[e] * ((x.x - mean[h]) * rstd[h]);
+        s1 += c[e + 1] * ((x.y - mean[h]) * rstd[h]);
+        d0 += c[e];
+        d1 += c[e + 1];
+      }
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        d0 += __shfl_xor_sync(0xffffffffu, d0, o);
+        d1 += __shfl_xor_sync(0xffffffffu, d1, o);
+      }
+      if (lane < 4) {
+        float* w = red + (4 * wg + warp) * 256 + col;
+        *reinterpret_cast<float2*>(w) = make_float2(s0, s1);
+        *reinterpret_cast<float2*>(w + 128) = make_float2(d0, d1);
+      }
+    }
+  }
+  consumers_sync(128 * CWG);
+  const int u = threadIdx.x >> 7, col = threadIdx.x & 127;  // 256 consumers: 2 x 128
+  if (n0 + col < a.N) {
+    float v = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 4 * CWG; ++w) v += red[w * 256 + 128 * u + col];
+    a.C[(size_t)blockIdx.y * 2 * a.N + (size_t)u * a.N + n0 + col] = v;
+  }
+}
+
+template <int TA, int FORM = GEMM_STORE>
 __global__ void __launch_bounds__(NT, 2) ff_tc_gemm(const __grid_constant__ GemmMaps maps,
                                                     GemmArgs a) {
+  constexpr int TB = FORM == GEMM_BIAS ? 0 : 1;  // B K-major in the NT form
+  constexpr int STAGES = FORM == GEMM_LN_SUMS ? LN_STAGES : GEMM_STAGES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[GEMM_STAGES], empty[GEMM_STAGES];
   uint8_t* ring = align1024(smem_raw);
+  // GEMM_LN_SUMS: the volume tile and its barrier, past the ring
+  uint8_t* xs = ring + LN_STAGES * GEMM_STAGE;
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(xs + BM * XS_LD);
   const int n0 = blockIdx.x * 128, m0 = blockIdx.y * BM;
   const int kbeg = blockIdx.z * a.kchunk, kend = min(a.K, kbeg + a.kchunk);
   const int kblocks = (kend - kbeg + TC_TILE - 1) / TC_TILE;
-  init_ring<GEMM_STAGES>(full, empty);
+  if (FORM == GEMM_LN_SUMS && threadIdx.x == 0) bar_init(xfull, 31);
+  init_ring<GEMM_STAGES, 128 * CWG>(full, empty);
 
   if (threadIdx.x >= 128 * CWG) {  // the producer: one thread
+    if (FORM == GEMM_LN_SUMS) {
+      ln_producer<STAGES>(maps, a, ring, xs, full, empty, xfull, m0, n0, kblocks);
+      return;
+    }
     if (threadIdx.x != 128 * CWG) return;
     for (int kb = 0; kb < kblocks; ++kb) {
       const int st = kb % GEMM_STAGES, k0 = kbeg + kb * TC_TILE;
@@ -264,7 +427,10 @@ __global__ void __launch_bounds__(NT, 2) ff_tc_gemm(const __grid_constant__ Gemm
           tma_load(dst + w * ATOM, &maps.A, m0 + 64 * w, k0, &full[st]);
         else     // rows m0 + 64 w .. x k columns [k0, k0 + 64)
           tma_load(dst + w * ATOM, &maps.A, k0, m0 + 64 * w, &full[st]);
-        tma_load(dst + (CWG + w) * ATOM, &maps.B, n0 + 64 * w, k0, &full[st]);
+        if (TB)
+          tma_load(dst + (CWG + w) * ATOM, &maps.B, n0 + 64 * w, k0, &full[st]);
+        else  // rows n0 + 64 w .. of B (N, K) x k columns [k0, k0 + 64)
+          tma_load(dst + (CWG + w) * ATOM, &maps.B, k0, n0 + 64 * w, &full[st]);
       }
     }
     return;
@@ -276,35 +442,50 @@ __global__ void __launch_bounds__(NT, 2) ff_tc_gemm(const __grid_constant__ Gemm
 #pragma unroll
   for (int e = 0; e < 32; ++e) c0[e] = c1[e] = 0.0f;
   for (int kb = 0; kb < kblocks; ++kb) {
-    const int st = kb % GEMM_STAGES;
+    const int st = kb % STAGES;
     const uint32_t base = saddr(ring + st * GEMM_STAGE);
     const uint32_t at = base + wg * ATOM, b0 = base + CWG * ATOM, b1 = b0 + ATOM;
-    bar_wait(&full[st], (kb / GEMM_STAGES) & 1);
+    bar_wait(&full[st], (kb / STAGES) & 1);
     hold(c0);
     hold(c1);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t dA = desc(at + (TA ? 2048 : 32) * kk);
-      mma_t<TA, 1>(c0, dA, desc(b0 + 2048 * kk));
-      mma_t<TA, 1>(c1, dA, desc(b1 + 2048 * kk));
+      mma_t<TA, TB>(c0, dA, desc(b0 + (TB ? 2048 : 32) * kk));
+      mma_t<TA, TB>(c1, dA, desc(b1 + (TB ? 2048 : 32) * kk));
     }
     wg_commit();
     wg_wait1();  // the previous k block's products are done: free its stage
     hold(c0);
     hold(c1);
-    if (kb > 0) bar_arrive(&empty[(kb - 1) % GEMM_STAGES]);
+    if (kb > 0) bar_arrive(&empty[(kb - 1) % STAGES]);
   }
   wg_wait();
   hold(c0);
   hold(c1);
 
+  if (FORM == GEMM_LN_SUMS) {
+    ln_sums(a, c0, c1, m0, n0, wg, warp, lane, ring, xs, xfull);
+    return;
+  }
   float* C = a.C + blockIdx.z * a.split_stride;
   const int r = m0 + 64 * wg + 16 * warp + (lane >> 2);
 #pragma unroll
   for (int e = 0; e < 32; e += 2) {
     const int gm = r + 8 * acc_hi(e), gn = n0 + acc_col(e, q4);
     if (gm >= a.M) continue;  // N is even: gn + 1 < N with gn
+    if (FORM == GEMM_BIAS) {  // bf16(acc) + bias in bf16
+      bf16* Cb = reinterpret_cast<bf16*>(a.C) + (size_t)gm * a.ldc;
+      if (gn < a.N)
+        *reinterpret_cast<bf162*>(Cb + gn) = __floats2bfloat162_rn(
+            round_bf16(c0[e]) + bf2f(a.bias[gn]), round_bf16(c0[e + 1]) + bf2f(a.bias[gn + 1]));
+      if (gn + 64 < a.N)
+        *reinterpret_cast<bf162*>(Cb + gn + 64) = __floats2bfloat162_rn(
+            round_bf16(c1[e]) + bf2f(a.bias[gn + 64]),
+            round_bf16(c1[e + 1]) + bf2f(a.bias[gn + 65]));
+      continue;
+    }
     if (gn < a.N)
       *reinterpret_cast<float2*>(C + (size_t)gm * a.ldc + gn) = make_float2(c0[e], c0[e + 1]);
     if (gn + 64 < a.N)
@@ -319,40 +500,6 @@ cudaError_t launch(K kernel, dim3 grid, int smem, cudaStream_t st, const M& maps
   if (err != cudaSuccess) return err;
   kernel<<<grid, NT, smem, st>>>(maps, args);
   return cudaGetLastError();
-}
-
-bool aligned16(const void* p) { return p && (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, through the runtime, or null
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found)
-            != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// the tensor map of a row-major (rows, cols) bf16 matrix at x (row stride
-// ld elements) in 64 x 64 boxes with the 128-byte swizzle, zero outside
-bool tensor_map(CUtensorMap* map, const void* x, int rows, int cols, int ld) {
-  const EncodeTiled encode = encoder();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(bf16)};
-  const cuuint32_t box[2] = {TC_TILE, TC_TILE}, steps[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims, strides,
-                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
-         == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -406,4 +553,60 @@ CT_EXPORT int ct_ff_tc_gemm(int layout, const void* A, int lda, const void* B, i
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(layout ? launch(ff_tc_gemm<1>, grid, gemm_smem(), st, maps, a)
                       : launch(ff_tc_gemm<0>, grid, gemm_smem(), st, maps, a));
+}
+
+namespace {
+
+// the checks and tensor maps of an "NN" or "NT" product of A (M, K) K-major
+// and B, (K, N) MN-major (nt 0) or (N, K) K-major (nt 1), bf16
+bool gemm_maps(GemmMaps* maps, const void* A, int lda, const void* B, int ldb, int M, int N,
+               int K, bool nt) {
+  const int dims[] = {N, K, lda, ldb};
+  bool ok = M > 0 && N > 0 && K > 0 && aligned16(A) && aligned16(B) && (M + BM - 1) / BM <= 65535;
+  for (int x : dims) ok = ok && x % 8 == 0;
+  return ok && tensor_map(&maps->A, A, M, K, lda)
+         && (nt ? tensor_map(&maps->B, B, N, K, ldb) : tensor_map(&maps->B, B, K, N, ldb));
+}
+
+}  // namespace
+
+// K16a's recompute ("NT"): C (M, N) bf16 = bf16(bf16(A B^T) + bias) for A
+// (M, K) and B (N, K) bf16 with row strides lda and ldb, bias (N,) bf16, C
+// row stride ldc.  K, N and the strides multiples of 8, A, B and C 16-byte
+// aligned.
+CT_EXPORT int ct_ff_tc_gemm_bias(const void* A, int lda, const void* B, int ldb, int M, int N,
+                                 int K, const void* bias, void* C, int ldc, void* stream) {
+  GemmMaps maps;
+  if (!bias || !aligned16(C) || ldc % 8 || !gemm_maps(&maps, A, lda, B, ldb, M, N, K, true))
+    return (int)cudaErrorInvalidValue;
+  GemmArgs a = {static_cast<float*>(C), M, N, K, ldc, (K + TC_TILE - 1) / TC_TILE * TC_TILE, 0};
+  a.bias = static_cast<const bf16*>(bias);
+  return (int)launch(ff_tc_gemm<0, GEMM_BIAS>, dim3((N + 127) / 128, (M + BM - 1) / BM, 1),
+                     gemm_smem(), static_cast<cudaStream_t>(stream), maps, a);
+}
+
+// K16a's LN(pt p p) sums ("NN", dxn never stored): dxn = A (M, K) B (K, N),
+// A, B bf16 with row strides lda, ldb; with xhat = (x - mean) rstd of the
+// patch rows of video (Bv, F, H, W) bf16 and their stats (M, 2) f32 (mean,
+// rstd), part (ceil(M / 128), 2 N) f32 gets row by row each 128-row tile's
+// column sums of dxn xhat, then of dxn.  N = pt p p and M = Bv t h w; p and
+// W multiples of 4 (the volume tile copied 4 columns at a time); K, N and
+// the strides multiples of 8.
+CT_EXPORT int ct_ff_tc_ln_sums(const void* A, int lda, const void* B, int ldb, int M, int N,
+                               int K, const void* video, int Bv, int F, int H, int W, int pt,
+                               int p, const void* stats, void* part, void* stream) {
+  GemmMaps maps;
+  const bool geom = pt > 0 && p > 0 && F % pt == 0 && H % p == 0 && W % p == 0 && p % 4 == 0
+                    && W % 4 == 0 && N == pt * p * p
+                    && (long long)M == (long long)Bv * (F / pt) * (H / p) * (W / p);
+  if (!geom || !aligned16(video) || !aligned16(stats) || !aligned16(part)
+      || !gemm_maps(&maps, A, lda, B, ldb, M, N, K, false))
+    return (int)cudaErrorInvalidValue;
+  GemmArgs a = {static_cast<float*>(part), M, N, K, 2 * N, (K + TC_TILE - 1) / TC_TILE * TC_TILE,
+                0};
+  a.video = static_cast<const bf16*>(video);
+  a.stats = static_cast<const float*>(stats);
+  a.g = {F, H, W, pt, p, F / pt, H / p, W / p};
+  return (int)launch(ff_tc_gemm<0, GEMM_LN_SUMS>, dim3((N + 127) / 128, (M + BM - 1) / BM, 1),
+                     ln_sums_smem(), static_cast<cudaStream_t>(stream), maps, a);
 }

@@ -1,0 +1,286 @@
+// ffn_tc32.cu — the f32 GEGLU feed-forward (K3 in f32) in 3xTF32 on the
+// Hopper tensor cores: its two products as TF32 `wgmma` (sm_90a) kernels on
+// operands split once into TF32 hi and lo planes in device memory, the tiles
+// copied by TMA into 128-byte-swizzled shared memory behind a ring of
+// mbarriers (ffn_tc.cu's producer-warp design), for two consumer warpgroups.
+//
+// Replaces, for f32 operands, ct_clip_tpu/ops/pallas/ffn.py::_pallas_ff (K3,
+// :105, pallas_call :114, body _kernel :89-102), which takes "highest"
+// precision for f32 (`dot_precision`): LN -> [a | g] = xn [wa | wg] -> act =
+// a gelu(g) -> act wo + x, nothing rounded below f32.  gemm.cu's FFMA
+// gemm_kernel<float> ran its two products on the CUDA cores (it keeps its
+// other callers).  Here:
+//   * layernorm.cu's LN_SPLIT form writes xn as hi and lo planes; the three
+//     weights (wa, wg padded to the inner width, wo) are split by tc32_split
+//     once per call;
+//   * ff_tc32_geglu: a = xn wa^T and g = xn wg^T side by side (two 64-column
+//     accumulators a warpgroup), then act = a gelu(g) in f32 with the exact
+//     erf, written split as hi and lo planes;
+//   * ff_tc32_residual: out = act wo^T + x, the f32 x added to the f32 sum
+//     once.
+// Each f32 product A B runs as three TF32 products per k8 slice, lo hi, hi
+// lo, then hi hi, into one f32 accumulator (tc32.cuh's mma3 order; the lo
+// lo term, ~2^-22 of the product, is dropped); hi is x rounded to TF32 and
+// lo = x - hi, which the tensor core reads truncated to TF32.  A tensor-core
+// accumulator's sum is not rounded as an FMA chain's, so each FLUSH k range
+// sums in its own accumulator, added into an f32 total.
+//
+// What bounds it on the H100: the tensor cores.  At zero-shot's batch of 2
+// (27,648 rows x 512, inner 1,365 padded to 1,368) the products are 6 R 512
+// 1,368 = 116 GFLOP, three TF32 passes each: 0.704 ms at 495 TFLOP/s,
+// against ~0.4 GB of operands and planes (0.12 ms).  Both products read
+// both operands K-major, the only layout TF32 `wgmma` takes: xn (R, 512)
+// against wa, wg (1,368, 512); act (R, 1,368) against wo (512, 1,368).
+//
+// Design: a k block is 32 f32 (one 128-byte swizzled row); a stage holds A's
+// hi and lo tiles for the CTA's 128 rows and B's hi and lo tiles for its 128
+// columns (64 KB); three stages, one CTA per SM.  Ragged edges (rows, the
+// inner width 1,368 and the last k block, 1,368 = 42 x 32 + 24) are
+// zero-filled by the TMA copies and masked at the stores.  Widths and row
+// strides must be multiples of 4 floats (16 bytes), as TMA requires.
+#include "common.cuh"
+#include "tc32.cuh"
+#include "tma.cuh"
+
+namespace {
+
+constexpr int CWG = 2;              // consumer warpgroups
+constexpr int NT = 128 * CWG + 32;  // + the producer warp
+constexpr int BM = 64 * CWG;        // rows of a CTA tile
+constexpr int KB = 32;              // f32 of a k block: one 128-byte row
+constexpr int ATOM = TC_TILE * 128;  // one swizzled atom: 64 rows x 32 f32
+constexpr int STAGES = 3;
+constexpr int STAGE = 8 * ATOM;  // A hi, lo: 2 atoms each; B hi, lo: 2 atoms each
+constexpr int FLUSH = 8;         // k blocks (256 of K) summed in one accumulator
+constexpr int SMEM = 1024 + STAGES * STAGE;
+
+// d += A B: m64 n64 k8, TF32 operands, both K-major in shared memory
+__device__ __forceinline__ void mma_tf32(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_D ", %32, %33, p, 1, 1;\n}\n"
+      : WG_OUT(d) : "l"(da), "l"(db), "r"(1));
+}
+
+// one k8 slice in 3xTF32: lo hi, hi lo, then hi hi (tc32.cuh's mma3 order);
+// built with CT_TC32_PASSES=1, hi hi alone (plain TF32)
+__device__ __forceinline__ void mma3_tf32(float (&d)[32], uint64_t ah, uint64_t al,
+                                          uint64_t bh, uint64_t bl) {
+  if (CT_TC32_PASSES == 3) {
+    mma_tf32(d, al, bh);
+    mma_tf32(d, ah, bl);
+  }
+  mma_tf32(d, ah, bh);
+}
+
+// total += d, d = 0, once the warpgroup's products are done
+__device__ __forceinline__ void flush(float (&total)[32], float (&d)[32]) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    total[e] += d[e];
+    d[e] = 0.0f;
+  }
+}
+
+// A (M, K) hi / lo and B0, B1 (N, K) hi / lo, f32 planes, through tensor maps
+struct Maps {
+  CUtensorMap ah, al, b0h, b0l, b1h, b1l;
+};
+struct Args {
+  float *outh, *outl;  // geglu: act hi, lo (M, N); residual: out (M, N) in outh
+  const float* x;      // residual: x (M, N)
+  int M, N, K, ldo, ldx;
+};
+
+// RESIDUAL 0 (ff_tc32_geglu): one CTA per (128 rows, 64 inner columns), B0 =
+// wa and B1 = wg at the same 64 rows, two accumulators a and g a warpgroup;
+// RESIDUAL 1 (ff_tc32_residual): one CTA per (128 rows, 128 columns), B0 and
+// B1 the two 64-row halves of wo's tile (B1's maps are B0's).
+template <int RESIDUAL>
+__global__ void __launch_bounds__(NT, 1) ff_tc32_kernel(const __grid_constant__ Maps maps,
+                                                        Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  uint8_t* ring = align1024(smem_raw);
+  const int n0 = blockIdx.x * (RESIDUAL ? 128 : 64), m0 = blockIdx.y * BM;
+  const int kblocks = (a.K + KB - 1) / KB;
+  init_ring<STAGES, 128 * CWG>(full, empty);
+
+  if (threadIdx.x >= 128 * CWG) {  // the producer: one thread
+    if (threadIdx.x != 128 * CWG) return;
+    const int nb1 = RESIDUAL ? n0 + 64 : n0;
+    for (int kb = 0; kb < kblocks; ++kb) {
+      const int st = kb % STAGES, k0 = kb * KB;
+      if (kb >= STAGES) bar_wait(&empty[st], (kb / STAGES - 1) & 1);
+      const uint32_t dst = saddr(ring + st * STAGE);
+      bar_expect(&full[st], STAGE);
+#pragma unroll
+      for (int w = 0; w < CWG; ++w) {
+        tma_load(dst + w * ATOM, &maps.ah, k0, m0 + 64 * w, &full[st]);
+        tma_load(dst + (CWG + w) * ATOM, &maps.al, k0, m0 + 64 * w, &full[st]);
+      }
+      tma_load(dst + 4 * ATOM, &maps.b0h, k0, n0, &full[st]);
+      tma_load(dst + 5 * ATOM, &maps.b0l, k0, n0, &full[st]);
+      tma_load(dst + 6 * ATOM, &maps.b1h, k0, nb1, &full[st]);
+      tma_load(dst + 7 * ATOM, &maps.b1l, k0, nb1, &full[st]);
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int q4 = lane & 3;
+  float c0[32], c1[32], t0[32], t1[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) c0[e] = c1[e] = t0[e] = t1[e] = 0.0f;
+  for (int kb = 0; kb < kblocks; ++kb) {
+    const int st = kb % STAGES;
+    const uint32_t base = saddr(ring + st * STAGE);
+    const uint32_t ah = base + wg * ATOM, al = base + (CWG + wg) * ATOM;
+    bar_wait(&full[st], (kb / STAGES) & 1);
+    hold(c0);
+    hold(c1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dah = desc(ah + 32 * kk), dal = desc(al + 32 * kk);
+      mma3_tf32(c0, dah, dal, desc(base + 4 * ATOM + 32 * kk), desc(base + 5 * ATOM + 32 * kk));
+      mma3_tf32(c1, dah, dal, desc(base + 6 * ATOM + 32 * kk), desc(base + 7 * ATOM + 32 * kk));
+    }
+    wg_commit();
+    wg_wait1();  // the previous k block's products are done: free its stage
+    hold(c0);
+    hold(c1);
+    if (kb > 0) bar_arrive(&empty[(kb - 1) % STAGES]);
+    if ((kb + 1) % FLUSH == 0 && kb + 1 < kblocks) {  // a k range done: its own sum
+      wg_wait();
+      hold(c0);
+      hold(c1);
+      flush(t0, c0);
+      flush(t1, c1);
+    }
+  }
+  wg_wait();
+  hold(c0);
+  hold(c1);
+  flush(t0, c0);
+  flush(t1, c1);
+
+  const int r = m0 + 64 * wg + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) {
+    const int gm = r + 8 * acc_hi(e), gn = n0 + acc_col(e, q4);
+    if (gm >= a.M) continue;  // N is even: gn + 1 < N with gn
+    if (RESIDUAL) {  // one f32 add, one rounding
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int n = gn + 64 * half;
+        if (n >= a.N) continue;
+        const float(&t)[32] = half ? t1 : t0;
+        const float2 x = *reinterpret_cast<const float2*>(a.x + (size_t)gm * a.ldx + n);
+        *reinterpret_cast<float2*>(a.outh + (size_t)gm * a.ldo + n) =
+            make_float2(t[e] + x.x, t[e + 1] + x.y);
+      }
+    } else {  // act = a gelu(g), exact erf (gemm.cu's EPI_GEGLU), split
+      if (gn >= a.N) continue;
+      uint32_t h[2], l[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float v = t0[e + u], g = t1[e + u];
+        split(v * (0.5f * g * (1.0f + erff(g * 0.70710678118654752f))), h[u], l[u]);
+      }
+      const size_t o = (size_t)gm * a.ldo + gn;
+      *reinterpret_cast<float2*>(a.outh + o) =
+          make_float2(__uint_as_float(h[0]), __uint_as_float(h[1]));
+      *reinterpret_cast<float2*>(a.outl + o) =
+          make_float2(__uint_as_float(l[0]), __uint_as_float(l[1]));
+    }
+  }
+}
+
+// x -> its TF32 hi and lo planes (tc32.cuh's split)
+__global__ void tc32_split_kernel(const float* __restrict__ x, float* __restrict__ hi,
+                                  float* __restrict__ lo, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    uint32_t h, l;
+    split(x[i], h, l);
+    hi[i] = __uint_as_float(h);
+    lo[i] = __uint_as_float(l);
+  }
+}
+
+template <typename K>
+cudaError_t launch(K kernel, dim3 grid, cudaStream_t st, const Maps& maps, const Args& args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NT, SMEM, st>>>(maps, args);
+  return cudaGetLastError();
+}
+
+bool fits(const void* const* ptrs, int n, const int* dims, int m) {
+  bool ok = true;
+  for (int i = 0; i < n; ++i) ok = ok && aligned16(ptrs[i]);
+  for (int i = 0; i < m; ++i) ok = ok && dims[i] > 0 && dims[i] % 4 == 0;
+  return ok;
+}
+
+}  // namespace
+
+// x (n,) f32 -> hi, lo (n,) f32: the TF32 hi plane and the lo plane
+CT_EXPORT int ct_tc32_split(const void* x, void* hi, void* lo, long long n, void* stream) {
+  if (n <= 0 || !x || !hi || !lo) return (int)cudaErrorInvalidValue;
+  const long long blocks = (n + 255) / 256;
+  tc32_split_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(hi), static_cast<float*>(lo), n);
+  return (int)cudaGetLastError();
+}
+
+// K3 f32's first product and GEGLU: xn hi, lo (M, K) with row stride ldx; wa
+// hi, lo and wg hi, lo (N, K) with row stride ldw -> act hi, lo (M, N) with
+// row stride ldact, all f32.  K, N and the strides multiples of 4, every
+// base 16-byte aligned.
+CT_EXPORT int ct_ff_tc32_geglu(const void* xh, const void* xl, int ldx, const void* wah,
+                               const void* wal, const void* wgh, const void* wgl, int ldw, int M,
+                               int N, int K, void* acth, void* actl, int ldact, void* stream) {
+  const void* ptrs[] = {xh, xl, wah, wal, wgh, wgl, acth, actl};
+  const int dims[] = {K, N, ldx, ldw, ldact};
+  if (M <= 0 || !fits(ptrs, 8, dims, 5) || (M + BM - 1) / BM > 65535)
+    return (int)cudaErrorInvalidValue;
+  Maps maps;
+  if (!tensor_map(&maps.ah, xh, M, K, ldx, true) || !tensor_map(&maps.al, xl, M, K, ldx, true)
+      || !tensor_map(&maps.b0h, wah, N, K, ldw, true)
+      || !tensor_map(&maps.b0l, wal, N, K, ldw, true)
+      || !tensor_map(&maps.b1h, wgh, N, K, ldw, true)
+      || !tensor_map(&maps.b1l, wgl, N, K, ldw, true))
+    return (int)cudaErrorInvalidValue;
+  const Args a = {static_cast<float*>(acth), static_cast<float*>(actl), nullptr, M, N, K, ldact,
+                  0};
+  return (int)launch(ff_tc32_kernel<0>, dim3((N + 63) / 64, (M + BM - 1) / BM),
+                     static_cast<cudaStream_t>(stream), maps, a);
+}
+
+// K3 f32's second product: out (M, N) = act (M, K) wo^T + x, act hi, lo with
+// row stride lda, wo hi, lo (N, K) with row stride ldw, x and out (M, N) with
+// row stride ldx, all f32.  K, N and the strides multiples of 4, every base
+// 16-byte aligned.
+CT_EXPORT int ct_ff_tc32_residual(const void* ah, const void* al, int lda, const void* woh,
+                                  const void* wol, int ldw, int M, int N, int K, const void* x,
+                                  void* out, int ldx, void* stream) {
+  const void* ptrs[] = {ah, al, woh, wol, x, out};
+  const int dims[] = {K, N, lda, ldw, ldx};
+  if (M <= 0 || !fits(ptrs, 6, dims, 5) || (M + BM - 1) / BM > 65535)
+    return (int)cudaErrorInvalidValue;
+  Maps maps;
+  if (!tensor_map(&maps.ah, ah, M, K, lda, true) || !tensor_map(&maps.al, al, M, K, lda, true)
+      || !tensor_map(&maps.b0h, woh, N, K, ldw, true)
+      || !tensor_map(&maps.b0l, wol, N, K, ldw, true))
+    return (int)cudaErrorInvalidValue;
+  maps.b1h = maps.b0h;
+  maps.b1l = maps.b0l;
+  const Args a = {static_cast<float*>(out), nullptr, static_cast<const float*>(x), M, N, K, ldx,
+                  ldx};
+  return (int)launch(ff_tc32_kernel<1>, dim3((N + 127) / 128, (M + BM - 1) / BM),
+                     static_cast<cudaStream_t>(stream), maps, a);
+}

@@ -16,6 +16,12 @@
 //     and ::_pallas_row_embed_bwd (K16b), both with the LN(512) backward
 //     whose column sum of the f32 dx is the projection bias gradient.
 //
+// The patch LN also runs as K16a's recompute (patch_ln_stats_kernel: each
+// row's mean and rstd written beside it, 8-byte gathers), and the f32 row LN
+// has a compile-time form that writes its rows split into TF32 hi and lo
+// planes (LnForm; the f32 K3's 3xTF32 products); the plain forms compile to
+// the code they had.
+//
 // f32 forms (compile-time template forms on the element type T; the bf16
 // instantiations are the code as it was): f32 rows in and out for the f32
 // K3 / K1 / K2 (ln_kernel), and the backward on f32 x with an f32 dx for the
@@ -31,6 +37,7 @@
 // walks 64 rows per block and writes each block's column sums as one row of
 // a partial buffer, which ct_sum_splits adds in order: no atomics.
 #include "common.cuh"
+#include "tc32.cuh"
 
 namespace {
 
@@ -48,33 +55,17 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-struct PatchGeom {
-  int F, H, W, pt, p, t, h, w;
-};
-
-// The patch gather: row = ((b*t + ti)*h + hi)*w + wi, element
-// e = (z*p + p1)*p + p2 of video[b, ti*pt + z, hi*p + p1, wi*p + p2] lies at
-// patch_row_base(row) + patch_elem_offset(e).
-__device__ __forceinline__ size_t patch_row_base(const PatchGeom& g, size_t row) {
-  const int wi = (int)(row % g.w);
-  row /= g.w;
-  const int hi = (int)(row % g.h);
-  row /= g.h;
-  const int ti = (int)(row % g.t);
-  const size_t bb = row / g.t;
-  return ((bb * g.F + (size_t)ti * g.pt) * g.H + (size_t)hi * g.p) * g.W + (size_t)wi * g.p;
-}
-
-__device__ __forceinline__ int patch_elem_offset(const PatchGeom& g, int e) {
-  const int p2 = e % g.p, p1 = (e / g.p) % g.p, z = e / (g.p * g.p);
-  return (z * g.H + p1) * g.W + p2;
-}
+// Output forms of ln_kernel: the normalised rows alone; or, f32 rows, as the
+// TF32 hi plane in `out` and the lo plane in `aux` (tc32.cuh's split: the
+// f32 K3's operand, ffn_tc32.cu).
+enum LnForm { LN_PLAIN = 0, LN_SPLIT = 1 };
 
 // GATHER: row `row` of the patch rows of the video x; else x[row*D + e].
-template <typename T, bool GATHER>
+template <typename T, bool GATHER, int FORM = LN_PLAIN>
 __global__ void __launch_bounds__(LN_THREADS)
 ln_kernel(const T* __restrict__ x, int D, const float* __restrict__ scale,
-          const float* __restrict__ bias, float eps, T* __restrict__ out, PatchGeom g) {
+          const float* __restrict__ bias, float eps, T* __restrict__ out, PatchGeom g,
+          float* __restrict__ aux) {
   __shared__ float red[LN_THREADS / 32];
   const size_t row = blockIdx.x;
   float vals[LN_PER];
@@ -107,8 +98,75 @@ ln_kernel(const T* __restrict__ x, int D, const float* __restrict__ scale,
       float y = (vals[i] - mean) * rstd;
       if (scale) y *= scale[e];
       if (bias) y += bias[e];
-      out[base + e] = from_f<T>(y);
+      if (FORM == LN_SPLIT) {
+        uint32_t hi, lo;
+        split(y, hi, lo);
+        out[base + e] = from_f<T>(__uint_as_float(hi));
+        aux[base + e] = __uint_as_float(lo);
+      } else {
+        out[base + e] = from_f<T>(y);
+      }
     }
+  }
+}
+
+// The patch LN of K16a's recompute: ln_kernel<bf16, true>'s rows, and each
+// row's mean and rstd as (rows, 2) f32 in `stats`, from which ffn_tc.cu's
+// epilogue rebuilds xhat.  A thread takes runs of 4 elements, each one
+// 8-byte load and one 8-byte store (p % 4 == 0 and W % 4 == 0: a run never
+// leaves a p-wide row of its patch), where ln_kernel loads 2 bytes at a
+// time: the 20-element rows of a 20-wide patch are 5 such loads.
+__global__ void __launch_bounds__(LN_THREADS)
+patch_ln_stats_kernel(const bf16* __restrict__ x, int D, const float* __restrict__ scale,
+                      const float* __restrict__ bias, float eps, bf16* __restrict__ out,
+                      PatchGeom g, float* __restrict__ stats) {
+  constexpr int RUNS = LN_PER / 4;
+  __shared__ float red[LN_THREADS / 32];
+  const size_t row = blockIdx.x;
+  const size_t base = row * (size_t)D, src = patch_row_base(g, row);
+  float vals[LN_PER];
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < RUNS; ++i) {
+    const int e = 4 * (threadIdx.x + i * LN_THREADS);
+    uint2 v = make_uint2(0u, 0u);
+    if (e < D) v = *reinterpret_cast<const uint2*>(x + src + patch_elem_offset(g, e));
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const bf162*>(&v.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const bf162*>(&v.y));
+    vals[4 * i] = lo.x;
+    vals[4 * i + 1] = lo.y;
+    vals[4 * i + 2] = hi.x;
+    vals[4 * i + 3] = hi.y;
+    s += (lo.x + lo.y) + (hi.x + hi.y);
+  }
+  const float mean = block_sum(s, red) / D;
+  float q = 0.0f;
+#pragma unroll
+  for (int i = 0; i < RUNS; ++i) {
+    if (4 * (threadIdx.x + i * LN_THREADS) < D) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float c = vals[4 * i + u] - mean;
+        q += c * c;
+      }
+    }
+  }
+  const float rstd = rsqrtf(block_sum(q, red) / D + eps);
+  if (threadIdx.x == 0) *reinterpret_cast<float2*>(stats + 2 * row) = make_float2(mean, rstd);
+#pragma unroll
+  for (int i = 0; i < RUNS; ++i) {
+    const int e = 4 * (threadIdx.x + i * LN_THREADS);
+    if (e >= D) continue;
+    float y[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      y[u] = (vals[4 * i + u] - mean) * rstd * (scale ? scale[e + u] : 1.0f)
+             + (bias ? bias[e + u] : 0.0f);
+    bf162 a = __floats2bfloat162_rn(y[0], y[1]), b = __floats2bfloat162_rn(y[2], y[3]);
+    uint2 w;
+    w.x = *reinterpret_cast<uint32_t*>(&a);
+    w.y = *reinterpret_cast<uint32_t*>(&b);
+    *reinterpret_cast<uint2*>(out + base + e) = w;
   }
 }
 
@@ -269,7 +327,7 @@ int layernorm(const void* x, int rows, int D, const void* scale, const void* bia
   PatchGeom g = {0, 0, 0, 0, 0, 0, 0, 0};
   ln_kernel<T, false><<<rows, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), D, static_cast<const float*>(scale),
-      static_cast<const float*>(bias), eps, static_cast<T*>(out), g);
+      static_cast<const float*>(bias), eps, static_cast<T*>(out), g, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -281,23 +339,50 @@ CT_EXPORT int ct_layernorm(const void* x, int rows, int D, const void* scale, co
   return layernorm<bf16>(x, rows, D, scale, bias, eps, out, stream);
 }
 
+// The f32 form split for 3xTF32 (tc32.cuh): x f32 -> the normalised rows'
+// TF32 hi plane `hi` and lo plane `lo`, (rows, D) f32 each.
+CT_EXPORT int ct_layernorm_split_f32(const void* x, int rows, int D, const void* scale,
+                                     const void* bias, float eps, void* hi, void* lo,
+                                     void* stream) {
+  if (D > LN_THREADS * LN_PER) return (int)cudaErrorInvalidValue;
+  const PatchGeom g = {0, 0, 0, 0, 0, 0, 0, 0};
+  ln_kernel<float, false, LN_SPLIT><<<rows, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), D, static_cast<const float*>(scale),
+      static_cast<const float*>(bias), eps, static_cast<float*>(hi), g, static_cast<float*>(lo));
+  return (int)cudaGetLastError();
+}
+
 // The f32 form: x and out f32.
 CT_EXPORT int ct_layernorm_f32(const void* x, int rows, int D, const void* scale,
                                const void* bias, float eps, void* out, void* stream) {
   return layernorm<float>(x, rows, D, scale, bias, eps, out, stream);
 }
 
-// video (B, F, H, W) bf16 -> out (B*t*h*w, pt*p*p) bf16, LN over each patch.
+// video (B, F, H, W) bf16 -> out (B*t*h*w, pt*p*p) bf16, LN over each patch;
+// with `stats` (not null), each row's mean and rstd as (rows, 2) f32 too
+// (patch_ln_stats_kernel: p and W multiples of 4, video and out 8-byte
+// aligned).
 CT_EXPORT int ct_patch_layernorm(const void* video, int B, int F, int H, int W, int pt, int p,
                                  const void* scale, const void* bias, float eps, void* out,
-                                 void* stream) {
+                                 void* stats, void* stream) {
   const int D = pt * p * p;
   if (D > LN_THREADS * LN_PER) return (int)cudaErrorInvalidValue;
   PatchGeom g = {F, H, W, pt, p, F / pt, H / p, W / p};
   const int rows = B * g.t * g.h * g.w;
-  ln_kernel<bf16, true><<<rows, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(video), D, static_cast<const float*>(scale),
-      static_cast<const float*>(bias), eps, static_cast<bf16*>(out), g);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (stats) {
+    if (p % 4 || W % 4 || (reinterpret_cast<uintptr_t>(video) & 7)
+        || (reinterpret_cast<uintptr_t>(out) & 7) || (reinterpret_cast<uintptr_t>(stats) & 7))
+      return (int)cudaErrorInvalidValue;
+    patch_ln_stats_kernel<<<rows, LN_THREADS, 0, st>>>(
+        static_cast<const bf16*>(video), D, static_cast<const float*>(scale),
+        static_cast<const float*>(bias), eps, static_cast<bf16*>(out), g,
+        static_cast<float*>(stats));
+  } else {
+    ln_kernel<bf16, true><<<rows, LN_THREADS, 0, st>>>(
+        static_cast<const bf16*>(video), D, static_cast<const float*>(scale),
+        static_cast<const float*>(bias), eps, static_cast<bf16*>(out), g, nullptr);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -6,16 +6,18 @@ twin `_xla_ff` (exact-erf GELU).  Weights are in nn.Linear layout:
 wi (2*inner, dim) with the value half first and the gate half second (torch
 chunk order), wo (dim, inner).
 
-The residual is always added (the transformer's `ff(x) + x`).  On a CUDA
-tensor (bf16, or f32: the f32 forms, which keep the weights and every
-intermediate in f32 and take true f32 products, as the TPU kernel's
-`dot_precision` does for f32 operands): LN (csrc/layernorm.cu), then one
-product that computes the
+The residual is always added (the transformer's `ff(x) + x`).  On a bf16
+CUDA tensor: LN (csrc/layernorm.cu), then one product that computes the
 value and gate tiles side by side and writes value * gelu(gate) (GEGLU
-epilogue, csrc/gemm.cu), then act * wo^T + x (residual epilogue).  The
-inner width is padded from 1365 to a multiple of 8 with zero weight rows so
-every product takes 16-byte loads; the padded columns of the intermediate
-are exactly zero and meet zero columns of wo.
+epilogue, csrc/gemm.cu), then act * wo^T + x (residual epilogue).  On an
+f32 one (the f32 form: the weights and every intermediate in f32, as the
+TPU kernel's `dot_precision` takes "highest" for f32 operands) the same
+steps in 3xTF32 on the tensor cores (csrc/ffn_tc32.cu): the LN written as
+TF32 hi and lo planes, each product three TF32 products per f32 one, act
+written split, x added in f32.  The inner width is padded from 1365 to a
+multiple of 8 with zero weight rows so every product takes 16-byte loads;
+the padded columns of the intermediate are exactly zero and meet zero
+columns of wo.
 
 The backward is the port of ffn.py::_pallas_ff_bwd (K11): it saves only the
 sublayer's input and recomputes flash-style.  On a CUDA tensor: LN again,
@@ -63,14 +65,21 @@ def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
     return out
 
 
-def _geglu_ff_cuda(x, scale, bias, wi, wo, eps):
-    rows, dim = x.shape
-    inner = wo.shape[1]
-    padded = -(-inner // 8) * 8
-    cdt = x.dtype  # the compute dtype: bf16, or f32 for the f32 forms
+def _inner(x, wi, wo):
+    """(inner, padded inner) of the FF weights, checked against x."""
+    dim, inner = x.shape[1], wo.shape[1]
     if wi.shape != (2 * inner, dim) or wo.shape[0] != dim:
         raise ValueError(f"FF weights {tuple(wi.shape)}, {tuple(wo.shape)} "
                          f"do not fit dim {dim}")
+    return inner, -(-inner // 8) * 8
+
+
+def _geglu_ff_gemm(x, scale, bias, wi, wo, eps):
+    """K3 on csrc/gemm.cu: bf16 on WMMA (the f32 form, FFMA register tiles,
+    is what `_geglu_ff_tc32` replaced on the f32 route)."""
+    rows, dim = x.shape
+    inner, padded = _inner(x, wi, wo)
+    cdt = x.dtype
     wic = wi.to(cdt)
     wa = _pad_rows(wic[:inner], padded)
     wg = _pad_rows(wic[inner:], padded)
@@ -82,7 +91,33 @@ def _geglu_ff_cuda(x, scale, bias, wi, wo, eps):
     K.gemm(K.EPI_GEGLU, xn, wa, act, w2=wg)
     out = torch.empty_like(x)
     K.gemm(K.EPI_RESIDUAL, act, wo_p, out, residual=x)
-    K.count_launch("geglu_ff", cdt)
+    return out
+
+
+def _tc32_weights(wi, wo, padded: int) -> torch.Tensor:
+    """(3, padded * dim) f32: the value and gate halves of wi (padded, dim)
+    and wo (dim, padded), the padding zero: `kernels.ff_tc32`'s operand."""
+    dim, inner = wo.shape
+    w = torch.zeros((3, padded * dim), dtype=torch.float32, device=wi.device)
+    w[0].view(padded, dim)[:inner] = wi[:inner]
+    w[1].view(padded, dim)[:inner] = wi[inner:]
+    w[2].view(dim, padded)[:, :inner] = wo
+    return w
+
+
+def _geglu_ff_tc32(x, scale, bias, wi, wo, eps, lib=None):
+    """The f32 K3 in 3xTF32 on csrc/ffn_tc32.cu: LN written split into TF32
+    hi and lo planes (layernorm.cu), then `kernels.ff_tc32`.  `lib`: a
+    one-change copy of ffn_tc32.cu for the card checks."""
+    _, padded = _inner(x, wi, wo)
+    xn_hi, xn_lo = K.layernorm_split(x, scale, bias, eps)
+    return K.ff_tc32(x, xn_hi, xn_lo, _tc32_weights(wi, wo, padded), lib=lib)
+
+
+def _geglu_ff_cuda(x, scale, bias, wi, wo, eps):
+    ff = _geglu_ff_tc32 if x.dtype == torch.float32 else _geglu_ff_gemm
+    out = ff(x, scale, bias, wi, wo, eps)
+    K.count_launch("geglu_ff", x.dtype)
     return out
 
 

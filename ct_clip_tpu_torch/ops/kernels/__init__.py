@@ -91,7 +91,12 @@ KERNELS = (
                               # (spatial_attention_bwd, spatial_attention_bwd_f32)
     # ffn_tc.cu's bf16 K11 on the tensor cores (`wgmma`), beside geglu_ff_bwd
     "ff_tc_tile",          # the tile: a, g, dact and the GEGLU derivative (one a call)
-    "ff_tc_gemm",          # its products: dxn (NN), [dwa; dwg] and dwo (TN), three a call
+    "ff_tc_gemm",          # its products: dxn (NN), [dwa; dwg] and dwo (TN), three a call;
+                           # K16a's three (yb NT, dW TN, dxn NN with the LN sums or stored)
+    "ff_tc_ln_sums",       # K16a's dxn = dyb W reduced to the LN(4000) sums in the
+                           # product's epilogue (patch_embed_bwd without d(volume))
+    # ffn_tc32.cu's f32 K3 in 3xTF32 on the tensor cores (`wgmma`), beside geglu_ff
+    "geglu_ff_tc32",       # the weight split, the GEGLU product and the residual product
     # the f32 forms, counted beside the function's own counter
     "geglu_ff_f32",        # K3 f32 (gemm.cu f32 products, layernorm.cu f32 rows)
     "geglu_ff_bwd_f32",    # K11 f32
@@ -265,7 +270,8 @@ def _signatures():
         "ct_ff_bwd_f32": [p, p, i, p, p, p, i, i, i, i, p, i, p, i, i, p],
         "ct_layernorm_bwd_f32": [p, i, i, p, p, p, p, f, p, p, p, p, i, p],
         "ct_layernorm": [p, i, i, p, p, f, p, p],
-        "ct_patch_layernorm": [p, i, i, i, i, i, i, p, p, f, p, p],
+        "ct_patch_layernorm": [p, i, i, i, i, i, i, p, p, f, p, p, p],
+        "ct_layernorm_split_f32": [p, i, i, p, p, f, p, p, p],
         "ct_attention": [p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i, i, i, p, p, p, i,
                          p],
         "ct_rearrange_patches": [p, i, i, i, i, i, i, p, ll, ll, i, p],
@@ -285,6 +291,11 @@ def _signatures():
         "ct_sum_splits": [p, i, ll, p, p],
         "ct_ff_tc_tile": [p, p, i, p, p, p, i, i, i, i, p, i, p, i, p],
         "ct_ff_tc_gemm": [i, p, i, p, i, i, i, i, i, p, i, ll, p],
+        "ct_ff_tc_gemm_bias": [p, i, p, i, i, i, i, p, p, i, p],
+        "ct_ff_tc_ln_sums": [p, i, p, i, i, i, i, p, i, i, i, i, i, i, p, p, p],
+        "ct_tc32_split": [p, p, p, ll, p],
+        "ct_ff_tc32_geglu": [p, p, i, p, p, p, p, i, i, i, i, p, p, i, p],
+        "ct_ff_tc32_residual": [p, p, i, p, p, i, i, i, i, p, p, i, p],
         "ct_layernorm_bwd": [p, i, i, p, p, p, p, f, p, p, p, p, i, p],
         "ct_patch_layernorm_bwd": [p, i, i, i, i, i, i, p, p, f, p, p, p, i, p],
         "ct_qk_attention_bwd": [p, p, p, p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i,
@@ -672,6 +683,124 @@ def gemm_tn_tc(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return part[0] if splits == 1 else sum_splits(part)
 
 
+def gemm_bias_tc(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """out (M, N) bf16 = bf16(bf16(x w^T) + bias) for x (M, K) and w (N, K)
+    bf16, bias (N,) bf16, on ffn_tc.cu ("NT", `wgmma`, both K-major): K16a's
+    recompute of yb, rounded as gemm.cu's EPI_BIAS_ROUNDED rounds it (counted
+    `ff_tc_gemm`)."""
+    _ff_tc_operands("gemm_bias_tc", x=x, w=w)
+    require(bias, "bias", BF16, 1)
+    M, K = x.shape
+    N = w.shape[0]
+    if w.shape[1] != K or bias.shape != (N,):
+        raise ValueError(f"gemm_bias_tc: x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                         f"bias {tuple(bias.shape)}")
+    out = torch.empty((M, N), dtype=BF16, device=x.device)
+    err = library().ct_ff_tc_gemm_bias(_ptr(x), x.stride(0), _ptr(w), w.stride(0), M, N, K,
+                                       _ptr(bias), _ptr(out), N, _stream())
+    _check(err, "ct_ff_tc_gemm_bias")
+    count_launch("ff_tc_gemm")
+    return out
+
+
+LN_SUMS_GROUPS = 32  # first-level groups of the tiles' partial sums (ln_sums_tc)
+
+
+def ln_sums_plan(rows: int):
+    """(tiles, padded tiles) of `ln_sums_tc`'s partials: one row per 128
+    rows, padded with zero rows to a multiple of LN_SUMS_GROUPS.  They are
+    added in two levels, in a fixed order: the LN_SUMS_GROUPS blocks of
+    consecutive rows row by row (one thread a column, each LN_SUMS_GROUPS
+    deep), then the rows of that sum."""
+    tiles = -(-rows // 128)
+    return tiles, -(-tiles // LN_SUMS_GROUPS) * LN_SUMS_GROUPS
+
+
+def ln_sums_tc(dy: torch.Tensor, w: torch.Tensor, video: torch.Tensor, pt: int, p: int,
+               stats: torch.Tensor, lib=None):
+    """K16a's LN(pt p p) scale and bias gradients, (ds, db) f32, without dxn
+    in device memory: dxn = dy w for dy (M, K) and w (K, N = pt p p) bf16 on
+    ffn_tc.cu ("NN", `wgmma`), each f32 accumulator times xhat = (x - mean)
+    rstd, x read from the bf16 video (B, F, H, W) through the patch gather,
+    mean and rstd from the recompute's stats (M, 2) f32 (`patch_layernorm`);
+    the 128-row tiles' column sums added in order (`ln_sums_plan`, two
+    levels of sum_splits) (counted `ff_tc_gemm` and `ff_tc_ln_sums`).  p and
+    W must be multiples of 4 (the volume tile is copied 4 columns at a
+    time).  `lib`: a one-change copy of ffn_tc.cu (`copy_library`)
+    to launch instead, for the card checks."""
+    _ff_tc_operands("ln_sums_tc", dy=dy, w=w)
+    require(video, "video", BF16, 4)
+    require(stats, "stats", F32, 2)
+    M, K = dy.shape
+    N = w.shape[1]
+    B, F, H, W = video.shape
+    if (w.shape[0] != K or N != pt * p * p or F % pt or H % p or W % p or p % 4 or W % 4
+            or M != B * (F // pt) * (H // p) * (W // p) or stats.shape != (M, 2)
+            or video.data_ptr() % 16):
+        raise ValueError(f"ln_sums_tc: dy {tuple(dy.shape)}, w {tuple(w.shape)}, video "
+                         f"{tuple(video.shape)} vs {pt}x{p}x{p} (p and W multiples of 4), "
+                         f"stats "
+                         f"{tuple(stats.shape)}")
+    tiles, padded = ln_sums_plan(M)
+    part = torch.empty((padded, 2 * N), dtype=F32, device=dy.device)
+    part[tiles:].zero_()
+    err = (lib or library()).ct_ff_tc_ln_sums(
+        _ptr(dy), dy.stride(0), _ptr(w), w.stride(0), M, N, K, _ptr(video), B, F, H, W, pt, p,
+        _ptr(stats), _ptr(part), _stream())
+    _check(err, "ct_ff_tc_ln_sums")
+    count_launch("ff_tc_gemm")
+    count_launch("ff_tc_ln_sums")
+    sums = sum_splits(sum_splits(part.view(LN_SUMS_GROUPS, -1)).view(-1, 2 * N))
+    return sums[:N], sums[N:]
+
+
+# the f32 K3 in 3xTF32 on the tensor cores (ffn_tc32.cu)
+def _tc32_operands(name: str, **tensors) -> None:
+    """f32 (rows, width) tensors with contiguous rows whose widths, row
+    strides and bases are multiples of 16 bytes: ffn_tc32.cu's TMA copies."""
+    for key, t in tensors.items():
+        _rows_contig(t, key)
+        if t.dtype != F32 or t.shape[1] % 4 or t.stride(0) % 4 or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be f32 with widths, row strides and bases "
+                             f"of multiples of 16 bytes (got {t.dtype} {tuple(t.shape)}, "
+                             f"stride {t.stride(0)})")
+
+
+def ff_tc32(x: torch.Tensor, xn_hi: torch.Tensor, xn_lo: torch.Tensor, w: torch.Tensor,
+            lib=None) -> torch.Tensor:
+    """The f32 K3 after its LN, in 3xTF32 on ffn_tc32.cu (`wgmma`): x (M, D)
+    f32, LN(x) split as xn_hi, xn_lo (`layernorm_split`), w (3, P D) f32 the
+    value and gate weights (P, D) and wo (D, P) side by side, P the inner
+    width padded to a multiple of 4 with zero rows (and columns of wo) ->
+    act wo^T + x, f32 (M, D), act = a gelu(g) with a = xn wa^T, g = xn wg^T.
+    Splits w into TF32 hi and lo planes, then the GEGLU product (act written
+    split) and the residual product (counted `geglu_ff_tc32` once, after the
+    three launches).  `lib`: a one-change copy of ffn_tc32.cu
+    (`copy_library`, e.g. CT_TC32_PASSES=1) to launch instead."""
+    _tc32_operands("ff_tc32", x=x, xn_hi=xn_hi, xn_lo=xn_lo)
+    require(w, "w", F32, 2)
+    M, D = x.shape
+    P = w.shape[1] // D
+    if xn_hi.shape != x.shape or xn_lo.shape != x.shape or w.shape != (3, P * D) or P % 4:
+        raise ValueError(f"ff_tc32: x {tuple(x.shape)}, xn {tuple(xn_hi.shape)}, "
+                         f"w {tuple(w.shape)}")
+    lib = lib or library()
+    hi, lo = torch.empty_like(w), torch.empty_like(w)
+    _check(lib.ct_tc32_split(_ptr(w), _ptr(hi), _ptr(lo), w.numel(), _stream()),
+           "ct_tc32_split")
+    act_hi = torch.empty((M, P), dtype=F32, device=x.device)
+    act_lo = torch.empty_like(act_hi)
+    _check(lib.ct_ff_tc32_geglu(_ptr(xn_hi), _ptr(xn_lo), D, _ptr(hi[0]), _ptr(lo[0]),
+                                _ptr(hi[1]), _ptr(lo[1]), D, M, P, D, _ptr(act_hi),
+                                _ptr(act_lo), P, _stream()), "ct_ff_tc32_geglu")
+    out = torch.empty_like(x)
+    _check(lib.ct_ff_tc32_residual(_ptr(act_hi), _ptr(act_lo), P, _ptr(hi[2]), _ptr(lo[2]), P,
+                                   M, D, P, _ptr(x), _ptr(out), D, _stream()),
+           "ct_ff_tc32_residual")
+    count_launch("geglu_ff_tc32")
+    return out
+
+
 def _f32_vector(t: Optional[torch.Tensor], n: int, name: str):
     if t is None:
         return None
@@ -696,6 +825,23 @@ def layernorm(x: torch.Tensor, scale: Optional[torch.Tensor],
                                    float(eps), _ptr(out), _stream())
     _check(err, "ct_layernorm")
     return out
+
+
+def layernorm_split(x: torch.Tensor, scale: Optional[torch.Tensor],
+                    bias: Optional[torch.Tensor], eps: float):
+    """Row LN of a contiguous (rows, D) f32 tensor, written split for 3xTF32
+    (layernorm.cu's LN_SPLIT form): the TF32 hi plane and the lo plane, (rows,
+    D) f32 each, hi + lo the f32 LN(x)."""
+    require(x, "x", F32, 2)
+    rows, D = x.shape
+    if D > 4096:
+        raise ValueError(f"layernorm_split: bad shape {tuple(x.shape)}")
+    scale, bias = _f32_vector(scale, D, "scale"), _f32_vector(bias, D, "bias")
+    hi, lo = torch.empty_like(x), torch.empty_like(x)
+    err = library().ct_layernorm_split_f32(_ptr(x), rows, D, _ptr(scale), _ptr(bias),
+                                           float(eps), _ptr(hi), _ptr(lo), _stream())
+    _check(err, "ct_layernorm_split_f32")
+    return hi, lo
 
 
 LN_BWD_ROWS = 64  # rows per block of the LayerNorm backward
@@ -764,20 +910,28 @@ def patch_layernorm_bwd(video: torch.Tensor, pt: int, p: int, scale: torch.Tenso
 
 def patch_layernorm(video: torch.Tensor, pt: int, p: int,
                     scale: torch.Tensor, bias: torch.Tensor, eps: float,
-                    out: torch.Tensor) -> torch.Tensor:
-    """(B, F, H, W) video -> LN over each (pt, p, p) patch (layernorm.cu)."""
+                    out: torch.Tensor, stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, F, H, W) video -> LN over each (pt, p, p) patch (layernorm.cu);
+    with `stats` (rows, 2) f32, each row's mean and rstd written there too
+    (K16a's recompute, patch_ln_stats_kernel: p and W multiples of 4)."""
     require(video, "video", torch.bfloat16, 4)
     require(out, "out", torch.bfloat16, 2)
     B, F, H, W = video.shape
     D = pt * p * p
     if F % pt or H % p or W % p or D > 4096:
         raise ValueError(f"patch_layernorm: {tuple(video.shape)} vs {pt}x{p}x{p}")
-    if out.shape != (B * (F // pt) * (H // p) * (W // p), D):
+    rows = B * (F // pt) * (H // p) * (W // p)
+    if out.shape != (rows, D):
         raise ValueError("patch_layernorm: bad out shape")
+    if stats is not None:  # the 8-byte gathers of patch_ln_stats_kernel
+        require(stats, "stats", torch.float32, 2)
+        if stats.shape != (rows, 2) or p % 4 or W % 4:
+            raise ValueError(f"patch_layernorm: stats {tuple(stats.shape)}, want ({rows}, 2), "
+                             f"with p ({p}) and W ({W}) multiples of 4")
     scale, bias = _f32_vector(scale, D, "scale"), _f32_vector(bias, D, "bias")
     err = library().ct_patch_layernorm(_ptr(video), B, F, H, W, pt, p,
                                        _ptr(scale), _ptr(bias), float(eps),
-                                       _ptr(out), _stream())
+                                       _ptr(out), _ptr(stats), _stream())
     _check(err, "ct_patch_layernorm")
     return out
 

@@ -11,7 +11,10 @@ rows, LayerNorm(4000), Linear(4000, 512), LayerNorm(512).
     (csrc/gemm.cu) and LN(512).  Its backward is K16a
     (`_pallas_patch_embed_bwd`), which saves only the volume and recomputes
     the normalised rows: the six weight gradients and, when the volume
-    requires grad, d(volume) through K17.
+    requires grad, d(volume) through K17.  Its three products run on
+    csrc/ffn_tc.cu's `wgmma`, and without d(volume) the LN(4000) scale and
+    bias gradients come out of the dxn product's epilogue, so dxn never
+    reaches device memory (`_patch_embed_bwd_cuda`).
   * `rearrange_patches` (K6) moves a volume into patch rows
     (csrc/rearrange.cu): the last stage of the patch-row ingest, where it
     writes into a view the caller passes (one slot of the batch buffer), and
@@ -234,19 +237,39 @@ def _patch_embed_cuda(video, s1, b1, w, pbias, s2, b2, pt, p, eps):
 
 def _patch_embed_bwd_cuda(video, s1, b1, w, pbias, s2, b2, dout, pt, p, eps,
                           want_dvideo: bool):
-    """K16a: (dvideo or None, ds1, db1, dw, dpbias, ds2, db2)."""
+    """K16a: (dvideo or None, ds1, db1, dw, dpbias, ds2, db2), as
+    _embed_bwd_kernel (patchify.py:269-327) computes them, its products on
+    csrc/ffn_tc.cu's `wgmma`: the patch LN again (with each row's mean and
+    rstd), yb = xn W^T + b rounded as the TPU kernel rounds it (NT), the
+    LN(dim) backward (dyb, ds2, db2 and dpb, the column sum of the f32 dyb),
+    dW = dyb^T xn (TN).  Without d(volume), dxn = dyb W goes no further than
+    the NN product's epilogue, which takes ds1 and db1 from it and xhat
+    rebuilt from the volume (`kernels.ln_sums_tc`); with it, dxn is stored
+    in f32 and the LN(patch_dim) backward through the patch gather and K17
+    follow."""
     b, F, H, W = video.shape
     n, pd = (F // pt) * (H // p) * (W // p), pt * p * p
-    xn = torch.empty((b * n, pd), dtype=torch.bfloat16, device=video.device)
-    K.patch_layernorm(video, pt, p, s1, b1, eps, xn)
-    dxn, dw, dpb, ds2, db2 = _embed_tail_bwd(xn, w, pbias, s2, dout, eps)
+    R, dim, bf = b * n, w.shape[0], torch.bfloat16
+    wb = w.to(bf).contiguous()
+    xn = torch.empty((R, pd), dtype=bf, device=video.device)
+    stats = None if want_dvideo else torch.empty((R, 2), dtype=torch.float32,
+                                                 device=video.device)
+    K.patch_layernorm(video, pt, p, s1, b1, eps, xn, stats=stats)
+    yb = K.gemm_bias_tc(xn, wb, pbias.to(bf).contiguous())
+    dyn = dout.reshape(R, dim).float().contiguous()
+    dyb, ds2, db2, dpb = K.layernorm_bwd(yb, s2, dyn, eps, want_dbias=True, want_dxsum=True)
+    del yb, dyn
+    dw = K.gemm_tn_tc(dyb, xn)
     del xn
-    dpatch, ds1, db1 = K.patch_layernorm_bwd(video, pt, p, s1, dxn, eps,
-                                             want_dx=want_dvideo)
-    del dxn
     dvideo = None
     if want_dvideo:
+        dxn = torch.empty((R, pd), dtype=torch.float32, device=video.device)
+        K.gemm_nn_tc(dyb, wb, dxn)
+        dpatch, ds1, db1 = K.patch_layernorm_bwd(video, pt, p, s1, dxn, eps, want_dx=True)
+        del dxn
         dvideo = unrearrange_patches(dpatch.view(b, n, pd), pt, p, F, H, W)
+    else:
+        ds1, db1 = K.ln_sums_tc(dyb, wb, video, pt, p, stats)
     K.count_launch("patch_embed_bwd")
     return dvideo, ds1, db1, dw, dpb, ds2, db2
 

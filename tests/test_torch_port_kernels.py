@@ -7,7 +7,8 @@ bias), K13a, K12a, K12b (dense, no bias) and K13b of attention_tc32.cu
 (3xTF32, `-k tc32`), K9's bf16 core on the tensor cores
 (qknorm_attention_tc.cu, `-k qk_core`) and its f32 core in 3xTF32
 (qknorm_attention_tc32.cu, `-k "qk_core and f32"`), K11 bf16 on `wgmma`
-(ffn_tc.cu, `-k "k11 or ff_tc"`), with K17 f32's run copy (`-k k17`).
+(ffn_tc.cu, `-k "k11 or ff_tc"`), with K17 f32's run copy (`-k k17`), K16a on
+ffn_tc.cu (`-k k16a`) and K3 f32 in 3xTF32 on ffn_tc32.cu (`-k "ff_f32"`).
 
 Needs an NVIDIA GPU and nvcc (the kernels compile on first use); skipped
 elsewhere.  Run on the card with:
@@ -887,16 +888,20 @@ def _embed_weights(g, dev, pd=4000, dim=512):
             1 + _randn((dim,), g, dev, 0.1, f32), _randn((dim,), g, dev, 0.1, f32)]
 
 
+@pytest.mark.parametrize("shape", [(2, 20, 60, 40), (3, 20, 220, 180)])
 @pytest.mark.parametrize("input_grad", [False, True])
-def test_patch_embed_backward_k16a(dev, input_grad):
+def test_patch_embed_backward_k16a(dev, input_grad, shape):
     """K16a's six weight gradients (f32) and, when the volume requires grad,
-    d(volume) through K17, against autograd of the plain forward."""
+    d(volume) through K17, against autograd of the plain forward: its
+    products on ffn_tc.cu (NT, TN, NN), the LN(4000) sums in the NN
+    product's epilogue without d(volume), dxn stored with it; 24 and 594
+    patch rows (ragged against the 128-row tiles)."""
     from ct_clip_tpu_torch.ops.patch_embed import fused_patch_embed, patch_embed_bwd_plain
 
     g = _gen(dev, 18)
-    video = _randn((2, 20, 60, 40), g, dev)
+    video = _randn(shape, g, dev)
     w = _embed_weights(g, dev)
-    do = _randn((2, 12, 512), g, dev)
+    do = _randn((shape[0], (shape[1] // 10) * (shape[2] // 20) * (shape[3] // 20), 512), g, dev)
     leaves = [video.detach().requires_grad_(input_grad)] + [t.detach().requires_grad_()
                                                             for t in w]
     K.reset_launch_counts()
@@ -904,11 +909,39 @@ def test_patch_embed_backward_k16a(dev, input_grad):
     got = torch.autograd.grad(out, leaves if input_grad else leaves[1:], do)
     counts = K.launch_counts()
     assert counts["patch_embed_bwd"] == 1 and counts["unrearrange_patches"] == int(input_grad)
+    assert counts["ff_tc_gemm"] == 3 and counts["ff_tc_ln_sums"] == int(not input_grad)
     assert all(gr.dtype == torch.float32 for gr in got[-6:])
     ref = patch_embed_bwd_plain(video, *w, do, 10, 20)
     _grads_close(got, ref if input_grad else ref[1:])
     again = torch.autograd.grad(fused_patch_embed(*leaves, 10, 20), leaves[1:], do)
     assert all(torch.equal(a, c) for a, c in zip(got[-6:], again))  # fixed-order sums
+
+
+def test_k16a_ln_sums_copy_without_rstd_misses(dev):
+    """A copy of ffn_tc.cu whose K16a epilogue drops rstd from xhat
+    (CT_FF_TC_LN_NO_RSTD) puts ds1 outside the tolerance; db1 and the other
+    gradients, which do not read xhat, stay within it."""
+    import functools
+
+    from ct_clip_tpu_torch.ops.patch_embed import fused_patch_embed, patch_embed_bwd_plain
+
+    g = _gen(dev, 20)
+    video = _randn((2, 20, 60, 40), g, dev, 0.25)  # rstd ~4: dropping it shows
+    w = _embed_weights(g, dev)
+    do = _randn((2, 12, 512), g, dev)
+    leaves = [t.detach().requires_grad_() for t in w]
+    copy = functools.partial(K.ln_sums_tc,
+                             lib=K.copy_library("ffn_tc.cu", CT_FF_TC_LN_NO_RSTD=1))
+    real = K.ln_sums_tc
+    K.ln_sums_tc = copy
+    try:
+        got = torch.autograd.grad(fused_patch_embed(video, *leaves, 10, 20), leaves, do)
+    finally:
+        K.ln_sums_tc = real
+    ref = patch_embed_bwd_plain(video, *w, do, 10, 20)[1:]
+    with pytest.raises(AssertionError):
+        _close(got[0], ref[0])
+    _grads_close(got[1:], ref[1:])
 
 
 def test_row_embed_backward_k16b(dev):
@@ -1399,20 +1432,29 @@ def _ff_f32_inputs(dev, rows, seed):
             _randn((512, 1365), g, dev, 1365 ** -0.5, F32)), _randn((rows, 512), g, dev, dtype=F32)
 
 
-@pytest.mark.parametrize("rows", [300, 2048])
+@pytest.mark.parametrize("rows", [130, 300, 2048])
 def test_geglu_ff_f32_k3_and_k11(dev, rows):
-    from ct_clip_tpu_torch.ops.ffn import (fused_geglu_ff, geglu_ff_bwd_plain,
+    """K3 f32 in 3xTF32 on ffn_tc32.cu (rows ragged against its 128-row
+    tiles at 130 and 300) within F32_FWD of the plain version in true f32,
+    bit-identical across runs, its plain-TF32 copy outside; K11 f32."""
+    from ct_clip_tpu_torch.ops.ffn import (_geglu_ff_tc32, fused_geglu_ff, geglu_ff_bwd_plain,
                                            geglu_ff_plain)
 
     args, do = _ff_f32_inputs(dev, rows, 43)
     K.reset_launch_counts()
-    _close(fused_geglu_ff(*args), geglu_ff_plain(*args), rel=F32_FWD)
+    out, ref_out = fused_geglu_ff(*args), geglu_ff_plain(*args)
+    _close(out, ref_out, rel=F32_FWD)
+    assert torch.equal(out, fused_geglu_ff(*args))
     leaves = [t.detach().clone().requires_grad_() for t in args]
     got = torch.autograd.grad(fused_geglu_ff(*leaves), leaves, do)
     ref = geglu_ff_bwd_plain(*args, do)
     torch.cuda.synchronize()
     counts = K.launch_counts()
-    assert counts["geglu_ff_f32"] == 2 and counts["geglu_ff_bwd_f32"] == 1
+    assert counts["geglu_ff_f32"] == 3 and counts["geglu_ff_tc32"] == 3
+    assert counts["geglu_ff_bwd_f32"] == 1
+    tf32 = _geglu_ff_tc32(*args, 1e-5, lib=K.copy_library("ffn_tc32.cu", CT_TC32_PASSES=1))
+    with pytest.raises(AssertionError):
+        _close(tf32, ref_out, rel=F32_FWD)
     _close(got[0], ref[0], rel=F32_FWD)  # dx
     for gr, r in zip(got[1:], ref[1:]):  # dscale, dbias, dwi, dwo
         assert gr.dtype == F32

@@ -573,3 +573,149 @@ def test_rearrange_geometry_is_checked_once_and_raises_every_call():
         K.unrearrange_patches(rows, 2, 4, vol)
     with pytest.raises(ValueError, match="CUDA"):
         K.rearrange_patches(vol, 2, 4, rows)
+
+
+class _RecordingLibrary:
+    """Any C entry, recording each call's name and arguments (returns 0)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("ct_"):
+            raise AttributeError(name)
+        return lambda *a: self.calls.append((name, a)) or 0
+
+    def names(self):
+        return [n for n, _ in self.calls]
+
+
+def _k16a_call(monkeypatch, want_dvideo):
+    """K16a's CUDA body on CPU tensors with the C library stubbed: 8 patch
+    rows of a (1, 20, 40, 40) volume, patches 10 x 20 x 20 (4,000 wide)."""
+    from ct_clip_tpu_torch.ops import patch_embed as pe
+
+    lib = _RecordingLibrary()
+    _stub_card(monkeypatch, lib)
+    monkeypatch.setattr(pe, "unrearrange_patches", lambda rows, *geom: rows)
+    video = torch.zeros((1, 20, 40, 40), dtype=BF)
+    dim, pd = 512, 4000
+    params = (torch.ones(pd), torch.zeros(pd), torch.zeros((dim, pd)), torch.zeros(dim),
+              torch.ones(dim), torch.zeros(dim))
+    out = pe._patch_embed_bwd_cuda(video, *params, torch.zeros((1, 8, dim), dtype=BF), 10, 20,
+                                   1e-5, want_dvideo)
+    return lib, out
+
+
+@pytest.mark.parametrize("want_dvideo", [False, True])
+def test_k16a_runs_the_wgmma_products_and_keeps_dxn_out_of_memory(monkeypatch, want_dvideo):
+    """K16a in bf16: the patch LN (with its stats when the volume needs no
+    gradient), the NT recompute, the LN(512) backward, the TN dW on
+    ffn_tc.cu, then either the NN product with the LN(4000) sums in its
+    epilogue (no f32 dxn, no LN(4000) backward pass) or, with d(volume), the
+    storing NN product and the LN(4000) backward through the gather; each
+    counter counts its launch."""
+    lib, out = _k16a_call(monkeypatch, want_dvideo)
+    names = lib.names()
+    tail = (["ct_ff_tc_gemm", "ct_patch_layernorm_bwd"] if want_dvideo
+            else ["ct_ff_tc_ln_sums"])
+    assert names == ["ct_patch_layernorm", "ct_ff_tc_gemm_bias", "ct_layernorm_bwd",
+                     "ct_ff_tc_gemm"] + tail
+    stats = lib.calls[0][1][-2]
+    assert (stats is None) == want_dvideo  # the recompute's mean and rstd
+    assert lib.calls[3][1][0] == 1  # the TN dW
+    if want_dvideo:
+        assert lib.calls[4][1][0] == 0  # the storing NN
+    else:
+        args = lib.calls[4][1]
+        assert args[4:7] == (8, 4000, 512)  # M, N, K: dxn = dyb W
+        assert args[8:14] == (1, 20, 40, 40, 10, 20)  # the volume's geometry
+    dvideo, ds1, db1, dw, dpb, ds2, db2 = out
+    assert (dvideo is None) != want_dvideo
+    assert ds1.shape == db1.shape == (4000,) and dw.shape == (512, 4000)
+    c = K.launch_counts()
+    assert (c["patch_embed_bwd"], c["ff_tc_gemm"], c["ff_tc_ln_sums"]) == \
+        (1, 3, 0 if want_dvideo else 1)
+
+
+@pytest.mark.parametrize("rows,tiles,padded", [(110592, 864, 864), (13824, 108, 128),
+                                               (8, 1, 32), (4097, 33, 64)])
+def test_k16a_ln_sums_partials_plan(rows, tiles, padded):
+    """One partial row per 128 rows, padded to whole first-level groups of
+    kernels.LN_SUMS_GROUPS rows."""
+    assert K.ln_sums_plan(rows) == (tiles, padded)
+    assert padded % K.LN_SUMS_GROUPS == 0 and (tiles - 1) * 128 < rows <= tiles * 128
+
+
+@pytest.mark.parametrize("misfit", ["p_odd", "w_odd", "p_not_4", "stats", "rows", "f32"])
+def test_k16a_ln_sums_raise_on_a_misfit(monkeypatch, misfit):
+    """The LN sums copy the volume 4 columns at a time (p and W multiples of
+    4) and read one stats row per patch row; anything else raises before a
+    launch."""
+    lib = _RecordingLibrary()
+    _stub_card(monkeypatch, lib)
+    pt, p, shape = 8, 4, (1, 8, 8, 8)  # 4 rows of 128 columns
+    if misfit == "p_odd":
+        pt, p, shape = 8, 3, (1, 8, 6, 6)
+    elif misfit == "w_odd":
+        pt, p, shape = 2, 8, (1, 2, 8, 9)
+    elif misfit == "p_not_4":
+        pt, p, shape = 2, 6, (1, 2, 6, 12)
+    video = torch.zeros(shape, dtype=BF)
+    rows = (shape[1] // pt) * (shape[2] // p) * (shape[3] // p)
+    dy = torch.zeros((rows + (misfit == "rows"), 64), dtype=F32 if misfit == "f32" else BF)
+    w = torch.zeros((64, pt * p * p), dtype=BF)
+    stats = torch.zeros((rows, 3 if misfit == "stats" else 2))
+    with pytest.raises(ValueError):
+        K.ln_sums_tc(dy, w, video, pt, p, stats)
+    assert lib.calls == []
+
+
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_k3_routes_f32_to_3xtf32_and_keeps_bf16(monkeypatch, dtype):
+    """K3 on a CUDA tensor: f32 takes ffn_tc32.cu (the LN split into hi and
+    lo, the weight split, the GEGLU product, the residual product; counted
+    `geglu_ff_tc32`), bf16 keeps gemm.cu's LN and two products."""
+    from ct_clip_tpu_torch.ops.ffn import _geglu_ff_cuda
+
+    lib = _RecordingLibrary()
+    _stub_card(monkeypatch, lib)
+    rows, dim, inner = 300, 512, 1365
+    x = torch.zeros((rows, dim), dtype=dtype)
+    out = _geglu_ff_cuda(x, torch.ones(dim), torch.zeros(dim), torch.zeros((2 * inner, dim)),
+                         torch.zeros((dim, inner)), 1e-5)
+    assert out.shape == x.shape and out.dtype == dtype
+    c = K.launch_counts()
+    if dtype == F32:
+        assert lib.names() == ["ct_layernorm_split_f32", "ct_tc32_split", "ct_ff_tc32_geglu",
+                               "ct_ff_tc32_residual"]
+        assert lib.calls[1][1][3] == 3 * 1368 * dim  # the three weights, split at once
+        assert lib.calls[2][1][8:11] == (rows, 1368, dim)  # M, N, K: [a | g] = xn [wa | wg]
+        assert lib.calls[3][1][6:9] == (rows, dim, 1368)  # act wo^T + x
+        assert (c["geglu_ff"], c["geglu_ff_f32"], c["geglu_ff_tc32"]) == (1, 1, 1)
+    else:
+        assert lib.names() == ["ct_layernorm", "ct_gemm", "ct_gemm"]
+        assert (c["geglu_ff"], c["geglu_ff_f32"], c["geglu_ff_tc32"]) == (1, 0, 0)
+
+
+@pytest.mark.parametrize("misfit", ["width", "stride", "bf16", "weights"])
+def test_k3_tc32_wrapper_raises_on_a_misfit(monkeypatch, misfit):
+    """ffn_tc32.cu takes f32 rows of multiples of 16 bytes on 16-byte
+    boundaries and the three weights side by side; anything else raises
+    before a launch, and nothing is counted."""
+    lib = _RecordingLibrary()
+    _stub_card(monkeypatch, lib)
+    rows, dim, P = 64, 64, 136
+    x = torch.zeros((rows, dim))
+    w = torch.zeros((3, P * dim))
+    if misfit == "width":
+        x = torch.zeros((rows, 66))[:, :62]
+    elif misfit == "stride":
+        x = torch.zeros((rows, 66))[:, :64]
+    elif misfit == "bf16":
+        x = x.to(BF)
+    else:
+        w = torch.zeros((2, P * dim))
+    with pytest.raises(ValueError):
+        K.ff_tc32(x, x, x, w)
+    assert lib.calls == [] and K.launch_counts()["geglu_ff_tc32"] == 0

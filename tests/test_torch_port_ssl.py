@@ -111,6 +111,61 @@ def test_k16a_plain_backward_matches_pallas_patch_embed_bwd(pallas_interpret):
         _close(g, r, 1e-4, name)
 
 
+def k16a_emulated(video, s1, b1, w, pb, s2, do, tile: int, eps: float = 1e-5):
+    """K16a's gradients as csrc/ffn_tc.cu reorganises them (f32, so no
+    rounding point applies): the patch LN recomputed with each row's mean
+    and rstd, yb = xn W^T + b, the LN(dim) backward, dW = dyb^T xn, and
+    ds1 / db1 never from a stored dxn but as per-`tile`-row partial column
+    sums of (dyb W) xhat and of dyb W, xhat = (x - mean) rstd rebuilt from
+    the volume with those stats, added in two levels in a fixed order as
+    `kernels.ln_sums_tc` adds them (`kernels.ln_sums_plan`'s grouping).
+    Returns (ds1, db1, dw, dpb, ds2, db2)."""
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.patch_embed import patchify
+
+    x = patchify(video, PT, P).reshape(-1, PT * P * P)
+    mean = x.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((x - mean) ** 2).mean(-1, keepdim=True) + eps)
+    xn = (x - mean) * rstd * s1 + b1
+    yb = xn @ w.t() + pb
+    m2 = yb.mean(-1, keepdim=True)
+    r2 = torch.rsqrt(((yb - m2) ** 2).mean(-1, keepdim=True) + eps)
+    xhat2, dyn = (yb - m2) * r2, do.reshape(-1, yb.shape[1])
+    dxhat2 = dyn * s2
+    dyb = r2 * (dxhat2 - dxhat2.mean(-1, keepdim=True)
+                - xhat2 * (dxhat2 * xhat2).mean(-1, keepdim=True))
+    rows, n = x.shape
+    tiles = -(-rows // tile)
+    padded = -(-tiles // K.LN_SUMS_GROUPS) * K.LN_SUMS_GROUPS
+    part = torch.zeros((padded, 2 * n))
+    for t in range(tiles):  # the epilogue: the tile's dxn, never stored whole
+        r = slice(t * tile, (t + 1) * tile)
+        dxn = dyb[r] @ w
+        xhat = (x[r] - mean[r]) * rstd[r]
+        part[t] = torch.cat([(dxn * xhat).sum(0), dxn.sum(0)])
+    sums = part.view(K.LN_SUMS_GROUPS, -1).sum(0).view(-1, 2 * n).sum(0)
+    return (sums[:n], sums[n:], dyb.t() @ xn, dyb.sum(0), (dyn * xhat2).sum(0), dyn.sum(0))
+
+
+@pytest.mark.parametrize("tile", [128, 16])
+def test_k16a_reorganised_sums_match_pallas_patch_embed_bwd(pallas_interpret, tile):
+    """The arithmetic of K16a on ffn_tc.cu (`k16a_emulated`: ds1 and db1 from
+    per-tile partials of (dyb W) xhat in the NN product's epilogue, xhat from
+    the recompute's stats) against `_pallas_patch_embed_bwd` in interpret
+    mode: the six gradients within 1e-4 relative; at the kernel's 128-row
+    tiles and at 16-row ones (8 tiles a batch here)."""
+    from ct_clip_tpu.ops.pallas.patchify import _pallas_patch_embed_bwd
+
+    video, w, do = _embed_inputs(40)
+    ref = _pallas_patch_embed_bwd(_f(video), *_jax_weights(w), _f(do), PT, P, 1e-5,
+                                  jnp.float32)
+    s1, b1, wi, pb, s2, _ = _port_weights(w)
+    got = k16a_emulated(_t(video), s1, b1, wi, pb, s2, _t(do), tile)
+    for name, g, r in zip(("ds1", "db1", "dw", "dpb", "ds2", "db2"), got,
+                          _as_port_layout(ref)):
+        _close(g, r, 1e-4, name)
+
+
 def test_k16b_plain_backward_matches_pallas_row_embed_bwd(pallas_interpret):
     """K16b's plain version (the backward of `fused_row_embed` on the CPU)
     against `_pallas_row_embed_bwd` in interpret mode: d(rows) and the six

@@ -469,3 +469,65 @@ def test_plain_tf32_k9_core_backward_misses_the_tolerance(k9_cases, shape):
     1e-5 in dx: the tolerance tells the two apart."""
     errs = _k9_errors(k9_cases[shape], 1)
     assert errs[0] > TOL, f"plain TF32 K9 rel errors {errs}"
+
+
+# ------------------------------------------------- K3 f32 (csrc/ffn_tc32.cu)
+FLUSH = 256  # of K: each such range sums in its own accumulator (ffn_tc32.cu)
+
+
+def mm_tf32_ranges(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """`mm_tf32` as ffn_tc32.cu accumulates it: each FLUSH-wide k range in
+    an accumulator of its own, added into an f32 total in order."""
+    out = torch.zeros((a.shape[0], b.shape[1]))
+    for k0 in range(0, a.shape[1], FLUSH):
+        out = out + mm_tf32(a[:, k0:k0 + FLUSH], b[k0:k0 + FLUSH], passes)
+    return out
+
+
+def k3_tc32_emulated(x, scale, bias, wi, wo, passes: int, eps: float = 1e-5):
+    """The f32 K3 as csrc/ffn_tc32.cu computes it: LN in f32, [a | g] = xn
+    [wa | wg] and act wo^T in `passes`-TF32 (the operands split into hi and
+    lo planes), act = a gelu(g) with the exact erf in f32, x added to the f32
+    sum once."""
+    inner = wo.shape[1]
+    mean = x.mean(-1, keepdim=True)
+    xn = (x - mean) * torch.rsqrt(((x - mean) ** 2).mean(-1, keepdim=True) + eps) * scale + bias
+    a = mm_tf32_ranges(xn, wi[:inner].t(), passes)
+    g = mm_tf32_ranges(xn, wi[inner:].t(), passes)
+    act = a * (0.5 * g * (1.0 + torch.erf(g * 0.70710678118654752)))
+    return mm_tf32_ranges(act, wo.t(), passes) + x
+
+
+@pytest.fixture(scope="module")
+def k3_case():
+    """300 rows of width 128 (inner 341), numpy-seeded, and the JAX
+    package's K3 in f32 (`_xla_ff` at Precision.HIGHEST, the exact erf, the
+    residual folded in) on them."""
+    from ct_clip_tpu.ops.pallas.ffn import _xla_ff
+
+    rng = np.random.RandomState(17)
+    rows, dim = 300, 128
+    inner = int(4 * (2.0 / 3.0) * dim)
+    a = dict(x=rng.randn(rows, dim), scale=1 + 0.2 * rng.randn(dim), bias=0.1 * rng.randn(dim),
+             wia=rng.randn(dim, inner) / np.sqrt(dim), wig=rng.randn(dim, inner) / np.sqrt(dim),
+             wo=rng.randn(inner, dim) / np.sqrt(inner))
+    f = {k: jnp.asarray(v, jnp.float32) for k, v in a.items()}
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(_xla_ff(f["x"], f["scale"], f["bias"], f["wia"], f["wig"], f["wo"],
+                                 1e-5, residual=True))
+    t = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in a.items()}
+    port = (t["x"], t["scale"], t["bias"], torch.cat([t["wia"], t["wig"]], 1).t(), t["wo"].t())
+    return port, ref
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_k3_f32_tc32_arithmetic_against_jax(k3_case, passes):
+    """3xTF32 (`k3_tc32_emulated`) lands within 1e-5 of max|JAX|, the card
+    check's tolerance; plain TF32 (hi hi alone) misses it."""
+    port, ref = k3_case
+    err = np.abs(k3_tc32_emulated(*port, passes).numpy().astype(np.float64) - ref).max()
+    rel = err / np.abs(ref).max()
+    if passes == 3:
+        assert rel <= TOL, f"3xTF32 K3: {rel:.3e} of max|JAX|"
+    else:
+        assert rel > TOL, f"plain TF32 K3 reads {rel:.3e}, within the tolerance"

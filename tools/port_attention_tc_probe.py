@@ -5,7 +5,8 @@ against copies with one change each, on one card, in turns, on the same
 inputs.
 
     python tools/port_attention_tc_probe.py [--kernel attention] [--out FILE.json]
-    python tools/port_attention_tc_probe.py --kernel k17 | k9 | k9_f32 | k11 [--tree DIR]
+    python tools/port_attention_tc_probe.py --kernel k17 | k9 | k9_f32 | k11 | k16a | k3_f32
+                                            [--tree DIR]
     python tools/port_attention_tc_probe.py --kernel k9_copies | k9_f32_copies
 
 `--kernel attention` (the default) times attention_tc.cu and
@@ -86,6 +87,22 @@ qk_attention_bwd_f32_kernel it replaced).
 autoencoder's 10,240: events, the device time of each kernel per call (the
 tile, the three products, the LN backward, the split sums: kernel-only) and
 the host time per call; with `--tree`, a parent's K11 the same way.
+
+`--kernel k16a`: K16a (autograd of `fused_patch_embed` into its six
+weights) at the aux steps' 8 volumes of 240 x 480 x 480 (110,592 rows x
+4,000 -> 512): events, the device time of each kernel per call (the patch LN
+recompute, the NT product, the LN(512) backward, the TN product and its
+split sums, the NN product with the LN(4,000) sums and their sums:
+kernel-only; the products also by form, ff_tc_gemm<TA, FORM>) and the host
+time per call; beside it, where the tree's
+chip_smoke.py has it, the path it replaced (`k16a_replaced`: gemm.cu's WMMA
+products and the LN(4,000) backward over a stored f32 dxn), the same way.
+
+`--kernel k3_f32`: K3 in f32 (`fused_geglu_ff`, no grad) at MaskGIT's 10,240
+rows, zero-shot's 27,648 and the contrastive step's 110,592 (x 512, inner
+1,365): events, the device time of each kernel per call and the host time
+per call; beside it, where the tree has `ops/ffn.py::_geglu_ff_gemm`, the
+path it replaced (gemm.cu's f32 FFMA gemm_kernel on the same f32 tensors).
 
 `--kernel k9_copies`: K9's core at (192, 576) on copies of
 qknorm_attention_tc.cu with one change each, in turns, there and back, with
@@ -484,6 +501,65 @@ def k11(dev, g) -> dict:
     return out
 
 
+def _timed(fn, forms: str = "") -> dict:
+    """Events, host time per call and each kernel's device time with their
+    sum, of `fn` (under grad where it takes one); with `forms`, also the
+    device time of each template form of the kernels whose name holds it."""
+    with torch.enable_grad():
+        row = dict(events_ms=event_ms(fn, 10), host_ms=host_ms(fn, reps=10, rounds=3),
+                   kernel_ms=kernel_ms(fn))
+        if forms:
+            row[f"{forms}_ms"] = kernel_ms(fn, forms)
+    row["kernel_ms"]["total"] = sum(row["kernel_ms"].values())
+    return row
+
+
+def k16a(dev, g) -> dict:
+    """K16a at the aux steps' batch, and the path it replaced (module doc)."""
+    import chip_smoke as cs
+    from ct_clip_tpu_torch.ops.patch_embed import fused_patch_embed
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    dim, pd, b = 512, 4000, 8
+    video = (torch.rand((b, 240, 480, 480), generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
+    pe = [1 + rn(pd, scale=0.1), rn(pd, scale=0.1), rn(dim, pd, scale=pd ** -0.5),
+          rn(dim, scale=0.1), 1 + rn(dim, scale=0.1), rn(dim, scale=0.1)]
+    do = rn(b, 13824, dim).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in pe]
+    with torch.enable_grad():
+        out = fused_patch_embed(video, *leaves, 10, 20)
+    res = {"k16a": _timed(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                          "ff_tc_gemm")}
+    print(f"K16a: {json.dumps(res['k16a'])}", flush=True)
+    if hasattr(cs, "k16a_replaced"):
+        res["replaced"] = _timed(lambda: cs.k16a_replaced(video, pe, do))
+        print(f"K16a replaced: {json.dumps(res['replaced'])}", flush=True)
+    return res
+
+
+def k3_f32(dev, g) -> dict:
+    """K3 f32 at three row counts, and the path it replaced (module doc)."""
+    from ct_clip_tpu_torch.ops import ffn
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    dim, inner, out = 512, 1365, {}
+    w = (1 + rn(dim, scale=0.1), rn(dim, scale=0.1), rn(2 * inner, dim, scale=dim ** -0.5),
+         rn(dim, inner, scale=inner ** -0.5))
+    for label, rows in (("maskgit", 10240), ("zero_shot", 27648), ("contrastive", 110592)):
+        x = rn(rows, dim)
+        with torch.no_grad():
+            row = {"k3_f32": _timed(lambda: ffn.fused_geglu_ff(x, *w))}
+            if hasattr(ffn, "_geglu_ff_gemm"):
+                row["replaced"] = _timed(lambda: ffn._geglu_ff_gemm(x, *w, 1e-5))
+        print(f"K3 f32 {label}: {json.dumps(row)}", flush=True)
+        out[label] = row
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
 QK_TC = "qknorm_attention_tc.cu"
 QK_COPIES = {
     "as_built": [],
@@ -538,10 +614,11 @@ def k9_copies(dev, g, source: str = QK_TC, copies=None, dtype=torch.bfloat16) ->
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", default="attention",
-                    choices=("attention", "k17", "k9", "k9_f32", "k11", "k9_copies",
-                             "k9_f32_copies"))
+                    choices=("attention", "k17", "k9", "k9_f32", "k11", "k16a", "k3_f32",
+                             "k9_copies", "k9_f32_copies"))
     ap.add_argument("--tree", default=str(ROOT),
-                    help="the checkout whose package is timed (k17, k9, k9_f32, k11)")
+                    help="the checkout whose package is timed (k17, k9, k9_f32, k11, k16a, "
+                         "k3_f32)")
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -562,6 +639,7 @@ def main() -> int:
         results.update(tree=str(_tree()), library=K.library_path().name)
         results[args.kernel] = dict(
             k17=k17, k9=k9, k9_f32=lambda dev, g: k9(dev, g, torch.float32), k11=k11,
+            k16a=k16a, k3_f32=k3_f32,
             k9_copies=k9_copies,
             k9_f32_copies=lambda dev, g: k9_copies(dev, g, QK32, QK32_COPIES, torch.float32),
             )[args.kernel](dev, g)

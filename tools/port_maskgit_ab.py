@@ -6,7 +6,8 @@ line, so that two commits can be compared on one card in turns:
     for t in build/parent build/change build/change build/parent; do
         python tools/port_maskgit_ab.py $t [--phase maskgit | maskgit_f32 | radbert |
                                               ctclip | ctclip_f32 | ctclip_160 |
-                                              ctvit_ae | ctvit_ae_f32]
+                                              ctvit_ae | ctvit_ae_f32 | zeroshot_f32 |
+                                              ctclip_aux_a]
     done
 
 Phases: `maskgit` (the default; `maskgit_phase`: MaskGitTrainer steps with
@@ -17,7 +18,12 @@ the same in f32), `radbert` (`radbert_phase`: the CLI's radbert-train,
 `ctclip_f32` (the same with `--no-bf16`: the f32 contrastive step),
 `ctclip_160` (`ctclip_160_phase`: CT-CLIP at 160 frames), `ctvit_ae`
 (`ctvit_ae_phase`: the autoencoder's generator steps at batch 8) and
-`ctvit_ae_f32` (the same on an f32 CTViT).  Each
+`ctvit_ae_f32` (the same on an f32 CTViT), `zeroshot_f32` (`score_batch`
+of an f32 CTCLIP at full width on a batch of 2, patch rows: 5 calls between
+CUDA events, their median the "step", and a profiled call) and
+`ctclip_aux_a` (the aux (a) step: `CTClipTrainer` with SimSiam on the
+temporal tap and MLM at batch 8 on volumes, `timed_steps` without the CLI
+run, the evaluation or the checkpoint).  Each
 line: the tree, the phase, the median step (CUDA events: MaskGIT, CT-CLIP
 and the autoencoder steps 2-4, RadBERT 2-5) and every step, the profiled
 step's device busy time, host clock and idle share and its summed device ms
@@ -36,11 +42,65 @@ from pathlib import Path
 import torch
 
 
+def zeroshot_f32(cs, dev) -> dict:
+    """`score_batch` of CTCLIP(dtype=float32) at full width on 2 volumes' patch
+    rows (K6 route, seeded weights): 5 calls between CUDA events and a
+    profiled call."""
+    from ct_clip_tpu_torch.config import CTCLIPConfig
+    from ct_clip_tpu_torch.data import WordPieceTokenizer
+    from ct_clip_tpu_torch.inference import ZeroShotClassifier
+    from ct_clip_tpu_torch.models import CTCLIP
+
+    vocab = Path(tempfile.mkdtemp()) / "vocab.txt"
+    cs.write_vocab(vocab)
+    model = CTCLIP(CTCLIPConfig(), dtype=torch.float32, device=dev).eval()
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    clf = ZeroShotClassifier(model, WordPieceTokenizer(str(vocab)))
+    v = model.config.ctvit
+    x = torch.rand((cs.B, v.patch_t * v.patch_hw ** 2, v.patch_dim),
+                   generator=torch.Generator(device=dev).manual_seed(3), device=dev) * 2 - 1
+    with torch.inference_mode():
+        clf.prompt_latents()
+        times = []
+        for _ in range(6):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            clf.score_batch(x)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        bd = cs.profile_step(lambda: clf.score_batch(x), cs.CTCLIP_GROUPS, "zero-shot f32")
+    return dict(step_ms=sorted(times[1:])[2], step_ms_all=times, step_breakdown=bd)
+
+
+def ctclip_aux_a(cs, dev, work: Path, tree: str) -> dict:
+    """The aux (a) step (visual SSL: SimSiam on the temporal tap, with MLM) at
+    full width, batch cs.AUX_B, on the synthetic corpus: `timed_steps`."""
+    from ct_clip_tpu_torch.config import CTCLIPConfig, TrainConfig
+    from ct_clip_tpu_torch.data import CTReportDataset, WordPieceTokenizer
+    from ct_clip_tpu_torch.models import CTCLIP
+    from ct_clip_tpu_torch.train import CTClipTrainer
+
+    train, _, vocab = cs.write_train_corpus(work)
+    model = CTCLIP(CTCLIPConfig(use_visual_ssl=True, use_mlm=True), dtype=torch.bfloat16,
+                   device=dev).init_weights(torch.Generator(device=dev).manual_seed(0))
+    trainer = CTClipTrainer(
+        model, WordPieceTokenizer(vocab), train_dataset=CTReportDataset(*train[:3]),
+        valid_dataset=None,
+        config=TrainConfig(batch_size=cs.AUX_B, save_results_every=10 ** 9,
+                           save_model_every=10 ** 9),
+        results_folder=str(work / "aux_a"), num_workers=4)
+    batch = next(trainer._batches())
+    return cs.timed_steps(trainer.step_fn, trainer.state, batch, tree, "ctclip_aux_ssl_mlm",
+                          cs.AUX_B, cs.AUX_GROUPS)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("tree", help="the root of a checkout")
     ap.add_argument("--phase", choices=("maskgit", "maskgit_f32", "radbert", "ctclip",
-                                        "ctclip_f32", "ctclip_160", "ctvit_ae", "ctvit_ae_f32"),
+                                        "ctclip_f32", "ctclip_160", "ctvit_ae", "ctvit_ae_f32",
+                                        "zeroshot_f32", "ctclip_aux_a"),
                     default="maskgit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -62,6 +122,10 @@ def main() -> int:
         r = cs.ctclip_160_phase(dev, work, str(tree), cs.write_train_corpus(work))
     elif args.phase == "ctvit_ae_f32":
         r = cs.ctvit_ae_phase(dev, work, str(tree), "f32")
+    elif args.phase == "zeroshot_f32":
+        r = zeroshot_f32(cs, dev)
+    elif args.phase == "ctclip_aux_a":
+        r = ctclip_aux_a(cs, dev, work, str(tree))
     else:
         r = getattr(cs, f"{args.phase}_phase")(dev, work, str(tree))
     bd = r["step_breakdown"]
