@@ -30,7 +30,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
      / K12a / K13a / K13b kernels of attention_tc.cu (wgmma) and the f32 K7,
      K13a, K12a, K12b and K13b of attention_tc32.cu also time the CUDA-core
      kernels of attention_train.cu they replaced, on the same inputs
-     ("replaced");
+     ("replaced").  K1, its core on the tensor cores (qknorm_attention_tc.cu's
+     forward pass), at zero-shot's (48, 576, 512), the contrastive step's
+     (192, 576, 512) and a ragged (48, 40, 512) (the autoencoder's (160, 64,
+     512) in phase 8), the replaced path (the core on attention.cu's CUDA
+     cores) timed beside it; the core alone at those planes against its plain
+     version at the TPU's rounding points, bit-identical across runs, with
+     SDPA on the normalised heads as the library call (`k1_phase`);
   3. zero-shot phase: a 3-volume synthetic CT-RATE corpus (NIfTI + CSVs +
      a toy vocab) through `run_zero_shot` at full CT-CLIP width (seeded
      random weights), batch 2 with a tail batch, twice: on the patch-row
@@ -164,8 +170,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      rows (3xTF32 on ffn_tc32.cu's `wgmma`, bit-identical across runs, a
      plain-TF32 copy outside TC32_REL_TOL, the replaced FFMA gemm_kernel
      path timed beside it; counter `geglu_ff_tc32` on every f32 path that
-     runs K3), K11 at MaskGIT's,
-     K1 on the zero-shot and autoencoder planes, K2 grid and seq, K5 on f32
+     runs K3), K11 at MaskGIT's and the contrastive step's 110,592 rows,
+     K1 on the zero-shot and autoencoder planes (all in 3xTF32: the core on
+     qknorm_attention_tc32.cu, the products on ffn_tc32.cu; the replaced
+     path, attention.cu's f32 core and gemm.cu's FFMA products, timed beside
+     it; the contrastive and ragged planes and the core alone, its plain-TF32
+     copy outside TC32_REL_TOL, as in phase 2), K2 grid and seq, K5 on f32
      rows (ids equal to the plain version of its own math: rows normalised
      and rounded to bf16; the share equal to the full-f32 argmax reported),
      K6 and K17 bit-exact; `run_zero_shot` with CTCLIP(dtype=float32) on
@@ -270,10 +280,18 @@ ATTN_TC32 = ["attention_tc32.cu"]
 KERNELS = {
     "patch_embed": _kernel("fused_patch_embed", "patchify.py:341", "layernorm.cu",
                            ["layernorm.cu", "gemm.cu"], "patch_embed", "zero_shot_volume"),
+    # K1: its core on the tensor cores (qknorm_attention_tc.cu's forward
+    # pass, counter qk_attention_tc beside spatial_attention)
     "spatial_attention": _kernel("fused_spatial_qknorm_attention",
-                                 "spatial_attention.py:276", "attention.cu",
-                                 ["layernorm.cu", "gemm.cu", "attention.cu"],
+                                 "spatial_attention.py:276", "qknorm_attention_tc.cu",
+                                 ["layernorm.cu", "gemm.cu", "qknorm_attention_tc.cu"],
                                  "spatial_attention", "zero_shot_rows"),
+    # K1's bf16 attention core alone (the route kernels.qk_bwd_tensor_cores
+    # gives K1's planes), its own counter
+    "spatial_attention_tc": _kernel("_pallas_spatial (bf16 attention core)",
+                                    "spatial_attention.py:276", "qknorm_attention_tc.cu",
+                                    ["qknorm_attention_tc.cu"], "qk_attention_tc",
+                                    "zero_shot_rows"),
     "grid_attention": _kernel("fused_small_qknorm_attention_grid",
                               "small_attention.py:196", "attention.cu",
                               ["layernorm.cu", "gemm.cu", "attention.cu"],
@@ -390,10 +408,18 @@ KERNELS = {
     "geglu_ff_bwd_f32": _kernel("_pallas_ff_bwd (f32)", "ffn.py:238", "gemm.cu",
                                 ["layernorm.cu", "gemm.cu"], "geglu_ff_bwd_f32",
                                 "maskgit_f32_train"),
+    # K1 f32: all in 3xTF32, the core on qknorm_attention_tc32.cu's forward
+    # pass (counter qk_attention_tc32), the three products on ffn_tc32.cu
+    # (counter tc32_gemm)
     "spatial_attention_f32": _kernel("fused_spatial_qknorm_attention (f32)",
-                                     "spatial_attention.py:276", "attention.cu",
-                                     ["layernorm.cu", "gemm.cu", "attention.cu"],
+                                     "spatial_attention.py:276", "qknorm_attention_tc32.cu",
+                                     ["layernorm.cu", "ffn_tc32.cu", "qknorm_attention_tc32.cu"],
                                      "spatial_attention_f32", "zero_shot_f32_rows"),
+    # K1's f32 attention core alone, 3xTF32 on the tensor cores, its own counter
+    "spatial_attention_f32_tc": _kernel("_pallas_spatial (f32 attention core)",
+                                        "spatial_attention.py:276", "qknorm_attention_tc32.cu",
+                                        ["qknorm_attention_tc32.cu"], "qk_attention_tc32",
+                                        "zero_shot_f32_rows"),
     "grid_attention_f32": _kernel("fused_small_qknorm_attention_grid (f32)",
                                   "small_attention.py:196", "attention.cu",
                                   ["layernorm.cu", "gemm.cu", "attention.cu"],
@@ -437,7 +463,7 @@ KERNELS = {
                                     "ctclip_f32_train"),
 }
 # launch counters each driven path must raise
-COMMON = ["spatial_attention", "grid_attention", "geglu_ff", "vq_assign",
+COMMON = ["spatial_attention", "qk_attention_tc", "grid_attention", "geglu_ff", "vq_assign",
           "fused_attention", "attention_tc"]
 PATHS = {
     "zero_shot_rows": COMMON + ["rearrange_patches", "row_embed"],
@@ -458,8 +484,9 @@ PATHS = {
     "ctclip_train": ["geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm", "spatial_attention_bwd",
                      "qk_attention_tc_bwd",
                      "grid_attention_bwd", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
-                     "geglu_ff", "spatial_attention", "grid_attention", "attention_dropout",
-                     "attention_dropout_bwd", "attention_tc_bwd", "rearrange_patches",
+                     "geglu_ff", "spatial_attention", "qk_attention_tc", "grid_attention",
+                     "attention_dropout", "attention_dropout_bwd", "attention_tc_bwd",
+                     "rearrange_patches",
                      "row_embed", "vq_assign", "fused_attention", "attention_tc"],
     # the inference embeds under grad, on a volume and on rows
     "embed_grad": ["patch_embed", "patch_embed_bwd", "ff_tc_gemm", "unrearrange_patches",
@@ -471,27 +498,29 @@ AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "ff_tc_ln_sums", "rearrange_patch
              "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm",
              "spatial_attention_bwd", "qk_attention_tc_bwd", "grid_attention_bwd", "peg_bwd",
              "vq_cluster_stats", "vq_assign_exact", "geglu_ff", "spatial_attention",
-             "grid_attention", "attention_dropout", "attention_dropout_bwd", "attention_tc",
-             "attention_tc_bwd"]
+             "qk_attention_tc", "grid_attention", "attention_dropout", "attention_dropout_bwd",
+             "attention_tc", "attention_tc_bwd"]
 PATHS["ctclip_aux_ssl_mlm"] = AUX_TRAIN + ["vq_assign", "fused_attention"]  # + mini-eval
 PATHS["ctclip_aux_filip_simclr"] = AUX_TRAIN
 # phase 8: the CTViT autoencoder on GenerateCT's non-cubic (20, 8, 8) grid
 # (training embed K6, decoder un-patchify K17 forward and K6 backward),
 # `cli reconstruct` on the cubic 24^3 grid, CT-CLIP at 160 frames (16, 24, 24)
-AE_TRAIN = ["seq_attention", "seq_attention_bwd", "spatial_attention", "spatial_attention_bwd",
-            "qk_attention_tc_bwd", "geglu_ff", "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm",
+AE_TRAIN = ["seq_attention", "seq_attention_bwd", "spatial_attention", "qk_attention_tc",
+            "spatial_attention_bwd", "qk_attention_tc_bwd", "geglu_ff", "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm",
             "peg_bwd", "vq_cluster_stats", "vq_assign_exact", "rearrange_patches",
             "unrearrange_patches"]
 PATHS["ctvit_ae_train"] = AE_TRAIN
 PATHS["ctvit_ae_discr"] = AE_TRAIN + ["vq_assign", "patch_embed"]  # + the inference recon
-PATHS["reconstruct"] = ["patch_embed", "spatial_attention", "grid_attention", "geglu_ff",
+PATHS["reconstruct"] = ["patch_embed", "spatial_attention", "qk_attention_tc", "grid_attention",
+                        "geglu_ff",
                         "vq_assign", "unrearrange_patches"]
 PATHS["ctclip_160_train"] = ["seq_attention", "seq_attention_bwd", "spatial_attention",
-                             "spatial_attention_bwd", "qk_attention_tc_bwd", "geglu_ff",
+                             "qk_attention_tc", "spatial_attention_bwd", "qk_attention_tc_bwd", "geglu_ff",
                              "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
                              "rearrange_patches", "attention_dropout", "attention_dropout_bwd",
                              "attention_tc", "attention_tc_bwd"]
-PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "seq_attention", "geglu_ff",
+PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "qk_attention_tc", "seq_attention",
+                          "geglu_ff",
                           "vq_assign", "fused_attention", "attention_tc"]
 # phase 9: MaskGIT on the frozen autoencoder's (20, 8, 8) codes.  A training
 # step: the MaskGit's self-attention with the 3-D CPB bias (K7 dense, K12b)
@@ -503,10 +532,11 @@ PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "seq_attention", "ge
 PATHS["maskgit_train"] = ["attention_dense", "attention_dense_bwd", "fused_attention",
                           "attention_tc", "attention_tc_bwd", "geglu_ff", "geglu_ff_bwd",
                           "ff_tc_tile", "ff_tc_gemm", "peg_bwd"]
-PATHS["maskgit_encode_ids"] = ["patch_embed", "spatial_attention", "seq_attention", "geglu_ff",
-                               "vq_assign"]
+PATHS["maskgit_encode_ids"] = ["patch_embed", "spatial_attention", "qk_attention_tc",
+                               "seq_attention", "geglu_ff", "vq_assign"]
 PATHS["maskgit_sample"] = ["attention_dense", "fused_attention", "attention_tc", "geglu_ff",
-                           "seq_attention", "spatial_attention", "unrearrange_patches"]
+                           "seq_attention", "spatial_attention", "qk_attention_tc",
+                           "unrearrange_patches"]
 PATHS["maskgit_sample_primed"] = PATHS["maskgit_sample"] + ["patch_embed", "vq_assign"]
 PATHS["t5_no_mask"] = ["attention_dense", "attention_tc32"]
 # phase 10: f32 zero-shot (the f32 forms of K1, K2 grid, K3, K5 on f32 rows,
@@ -514,12 +544,12 @@ PATHS["t5_no_mask"] = ["attention_dense", "attention_tc32"]
 # MaskGIT stage (the frozen f32 CTViT's encode, K3 / K11 f32, K7 dense f32,
 # K12b f32 dense and with no bias on attention_tc32.cu, the PEG's plain dW;
 # sampling's decoder with K2 seq, K1, K3 and K17 f32)
-F32_ZS = ["spatial_attention_f32", "grid_attention_f32", "geglu_ff_f32", "geglu_ff_tc32",
-          "vq_assign_f32", "fused_attention", "attention_tc32"]
+F32_ZS = ["spatial_attention_f32", "qk_attention_tc32", "tc32_gemm", "grid_attention_f32",
+          "geglu_ff_f32", "geglu_ff_tc32", "vq_assign_f32", "fused_attention", "attention_tc32"]
 PATHS["zero_shot_f32_rows"] = F32_ZS + ["rearrange_patches_f32", "row_embed_plain"]
 PATHS["zero_shot_f32_volume"] = F32_ZS + ["patch_embed_plain"]
 PATHS["maskgit_f32_encode_ids"] = ["patch_embed_plain", "spatial_attention_f32",
-                                   "seq_attention_f32", "geglu_ff_f32", "geglu_ff_tc32",
+                                   "qk_attention_tc32", "tc32_gemm", "seq_attention_f32", "geglu_ff_f32", "geglu_ff_tc32",
                                    "vq_assign_f32"]
 PATHS["maskgit_f32_train"] = ["geglu_ff_f32", "geglu_ff_tc32", "geglu_ff_bwd_f32",
                               "attention_dense",
@@ -527,7 +557,7 @@ PATHS["maskgit_f32_train"] = ["geglu_ff_f32", "geglu_ff_tc32", "geglu_ff_bwd_f32
                               "fused_attention", "peg_dw_plain"]
 PATHS["maskgit_f32_sample"] = ["attention_dense", "fused_attention", "attention_tc32",
                                "geglu_ff_f32", "geglu_ff_tc32", "seq_attention_f32",
-                               "spatial_attention_f32",
+                               "spatial_attention_f32", "qk_attention_tc32", "tc32_gemm",
                                "unrearrange_patches_f32"]
 # phase 11: f32 CT-CLIP pretraining (`cli train --no-bf16`: the f32 forms of
 # K1, K2 grid, K3 and their backwards K9, K10 grid, K11, K5 exact and K15 on
@@ -539,14 +569,14 @@ PATHS["ctclip_f32_train"] = ["spatial_attention_bwd_f32", "qk_attention_tc32_bwd
                              "grid_attention_bwd_f32",
                              "vq_assign_exact_f32", "vq_cluster_stats_f32", "geglu_ff_bwd_f32",
                              "geglu_ff_f32", "geglu_ff_tc32", "spatial_attention_f32",
-                             "grid_attention_f32",
+                             "qk_attention_tc32", "tc32_gemm", "grid_attention_f32",
                              "rearrange_patches_f32", "attention_dropout",
                              "attention_dropout_bwd", "attention_tc32", "attention_tc32_bwd",
                              "peg_dw_plain",
                              "vq_assign_f32",
                              "row_embed_plain", "fused_attention"]
 AE_F32_TRAIN = ["seq_attention_f32", "seq_attention_bwd_f32", "spatial_attention_f32",
-                "spatial_attention_bwd_f32", "qk_attention_tc32_bwd", "geglu_ff_f32",
+                "qk_attention_tc32", "tc32_gemm", "spatial_attention_bwd_f32", "qk_attention_tc32_bwd", "geglu_ff_f32",
                 "geglu_ff_tc32", "geglu_ff_bwd_f32", "peg_dw_plain",
                 "vq_cluster_stats_f32", "vq_assign_exact_f32", "rearrange_patches_f32",
                 "unrearrange_patches_f32"]
@@ -659,9 +689,11 @@ def kernel_cases(dev):
     proj_flops = 2 * tokens * dim * (hd + 2 * hd + hd)
     xs = rn(B * 24, 576, dim, dtype=bf)
     cpb = rn(heads, 576, 576)
+    k1 = lambda: fused_spatial_qknorm_attention(xs, *w_attn, cpb, heads, dh)  # noqa: E731
     cases["spatial_attention"] = dict(
-        kern=lambda: fused_spatial_qknorm_attention(xs, *w_attn, cpb, heads, dh),
-        plain=lambda: qknorm_attention_plain(xs, *w_attn, cpb, heads, dh),
+        kern=k1, plain=lambda: qknorm_attention_plain(xs, *w_attn, cpb, heads, dh),
+        # the core on attention.cu's CUDA cores, as before the tensor cores
+        twin=cuda_core_k9(k1), twin_source=K1_REPLACED,
         library=None, inputs=(xs, *w_attn, cpb),
         flops=proj_flops + 4 * (B * 24) * heads * 576 * 576 * dh)
     xg = rn(B, 24, 576, dim, dtype=bf)
@@ -780,18 +812,154 @@ def twin_result(name: str, fn, ref, source: str = "attention_train.cu") -> dict:
 
 
 def cuda_core_k9(fn):
-    """`fn`, a call that reaches K9's attention core, with the core on the
-    CUDA-core kernels (qknorm_attention_bwd.cu: qk_attention_bwd_kernel, or
-    qk_attention_bwd_f32_kernel in f32) that qknorm_attention_tc.cu and
-    qknorm_attention_tc32.cu replaced: kernels.qk_bwd_tensor_cores answers
-    QK_CUDA_CORES inside it, so neither the launch nor the counter takes
-    the tensor cores."""
+    """`fn`, a call that reaches K9's attention core or K1's forward, with
+    the core on the CUDA-core kernels that qknorm_attention_tc.cu and
+    qknorm_attention_tc32.cu replaced (K9: qknorm_attention_bwd.cu's
+    qk_attention_bwd_kernel, or qk_attention_bwd_f32_kernel in f32; K1:
+    attention.cu's attention_kernel, or attention_f32_kernel in f32 with the
+    projections on gemm.cu's FFMA tiles): kernels.qk_bwd_tensor_cores, the
+    one gate of both directions, answers QK_CUDA_CORES inside it, so neither
+    the launch nor the counter takes the tensor cores."""
     from ct_clip_tpu_torch.ops import kernels as K
 
     def run():
         with replaced(K, "qk_bwd_tensor_cores", lambda *a: K.QK_CUDA_CORES):
             return fn()
     return run
+
+
+# the sources of K1's replaced path (`cuda_core_k9`), by dtype
+K1_REPLACED = "attention.cu (attention_kernel; the products on gemm.cu, as on the new route)"
+K1_F32_REPLACED = "attention.cu (attention_f32_kernel; gemm.cu's FFMA products)"
+
+
+def k1_core_case(dev, g, S: int, n: int, dtype) -> dict:
+    """K1's attention core alone (kernels.qk_attention_fwd) on (S, n) planes,
+    8 heads of 32, with an (8, n, n) bias, as the sublayer's forward hands it
+    over (q (S n, 256) and kv (S n, 512) in `dtype`; the pre-pass included):
+    bf16 on qknorm_attention_tc.cu against qk_attention_core_plain (the
+    TPU's rounding points) within REL_TOL of max|plain|; f32 in 3xTF32 on
+    qknorm_attention_tc32.cu, merged written as hi and lo planes, hi + lo
+    within TC32_REL_TOL, a plain-TF32 copy (CT_TC32_PASSES=1) outside it;
+    bit-identical across runs.  The replaced core (attention.cu's
+    attention_kernel / attention_f32_kernel) is timed beside it, and, as the
+    library yardstick, SDPA on the normalised heads (computed outside the
+    timing) with the bias as attn_mask and scale 1."""
+    import torch
+    import torch.nn.functional as F
+
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.norms import l2norm
+    from ct_clip_tpu_torch.ops.qknorm_attention import qk_attention_core_plain
+
+    heads, d = 8, 32
+    hd, f32 = heads * d, dtype == torch.float32
+    q, kv = (torch.randn((S * n, w), generator=g, device=dev).to(dtype) for w in (hd, 2 * hd))
+    qs = (1 + 0.2 * torch.randn(d, generator=g, device=dev)) * 8.0
+    ks = 1 + 0.2 * torch.randn(d, generator=g, device=dev)
+    bias = torch.randn((heads, n, n), generator=g, device=dev)
+    layout = dict(sequences=S, inner=1, heads=heads, n=n, d=d, q_strides=(n * hd, 0, d, hd),
+                  kv_strides=(n * 2 * hd, 0, d, 2 * hd), q_scale=qs, k_scale=ks, bias=bias)
+    counter = "qk_attention_tc32" if f32 else "qk_attention_tc"
+    tol = TC32_REL_TOL if f32 else REL_TOL
+
+    def kern(lib=None):
+        before = K.launch_counts()[counter]
+        out = K.qk_attention_fwd(q, kv, lib=lib, **layout)
+        if lib is None and K.launch_counts()[counter] != before + 1:
+            raise AssertionError(f"K1 core did not launch {counter}")
+        return out
+
+    def replaced():
+        merged = torch.empty_like(q)
+        return K.attention(q, kv, kv[:, hd:], merged, warps=8 if n >= 128 else 2, **layout)
+
+    def check(got, ref):
+        merged = got[0] + got[1] if f32 else got[0]
+        err, rel = _rel_errors((merged,), ref)
+        log(f"kernel K1 core ({str(dtype)[6:]}) at ({S}, {n}): max_abs_err {err:.4e} "
+            f"max_rel_err {rel:.4e} (rel {tol})")
+        return rel <= tol, dict(max_abs_err=err, max_rel_err=rel,
+                                tolerance=f"rel {tol}" + (" (hi + lo)" if f32 else ""))
+
+    def sdpa_heads():
+        def heads_of(t, sc):
+            return (l2norm(t.float().view(S, n, heads, d)) * sc).to(dtype).transpose(1, 2)
+        v = kv[:, hd:].reshape(S, n, heads, d).transpose(1, 2)
+        return heads_of(q, qs), heads_of(kv[:, :hd], ks), v, bias.to(dtype)[None]
+    lib_in = sdpa_heads()
+    flops = 4 * S * heads * n * n * d
+    case = dict(kern=kern, plain=lambda: qk_attention_core_plain(q, kv, heads, d, n, qs, ks, bias),
+                check=check, bit_identical=True, twin=replaced,
+                twin_source=("attention.cu (attention_f32_kernel)" if f32
+                             else "attention.cu (attention_kernel)"),
+                library=lambda: F.scaled_dot_product_attention(
+                    *lib_in[:3], attn_mask=lib_in[3], scale=1.0),
+                inputs=(q, kv, bias), outputs=(q, q) if f32 else (q,), flops=flops)
+    if f32:
+        tf32_lib = K.copy_library("qknorm_attention_tc32.cu", CT_TC32_PASSES=1)
+        case.update(peak=PEAK_TF32_FLOPS, flops=3 * flops, f32_flops=flops, tols=(tol,),
+                    copy=lambda: sum(kern(tf32_lib)),
+                    copy_is="qknorm_attention_tc32.cu in plain TF32 (CT_TC32_PASSES=1), hi + lo")
+    return case
+
+
+def k1_cases(dev, dtype):
+    """K1 in `dtype` on the tensor cores beyond the shapes of the kernel
+    phases (zero-shot's (48, 576, 512) there in kernel_cases /
+    f32_kernel_cases, the autoencoder's (160, 64, 512) in seq_kernel_cases /
+    f32_kernel_cases): the sublayer at the contrastive step's (192, 576,
+    512) and a ragged (48, 40, 512), the replaced path (`cuda_core_k9`)
+    timed beside it; the core alone (`k1_core_case`) at zero-shot's,
+    the contrastive step's, the autoencoder's and the ragged planes."""
+    import torch
+
+    from ct_clip_tpu_torch.ops.qknorm_attention import (fused_spatial_qknorm_attention,
+                                                        qknorm_attention_plain)
+
+    f32 = dtype == torch.float32
+    g = torch.Generator(device=dev).manual_seed(70 + f32)
+    tag = "spatial_attention_f32" if f32 else "spatial_attention"
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    dim, heads, dh, hd = 512, 8, 32, 256
+    w = (1 + rn(dim, scale=0.1), rn(hd, dim, scale=dim ** -0.5), rn(2 * hd, dim, scale=dim ** -0.5),
+         1 + rn(dh, scale=0.2), 1 + rn(dh, scale=0.2), rn(dim, hd, scale=hd ** -0.5))
+    for label, (S, n) in (("contrastive", (TRAIN_B * 24, 576)), ("ragged_n40", (B * 24, 40))):
+        x, bias = rn(S, n, dim).to(dtype), rn(heads, n, n)
+        kern = lambda x=x, bias=bias: fused_spatial_qknorm_attention(  # noqa: E731
+            x, *w, bias, heads, dh)
+        flops = 2 * S * n * dim * 4 * hd + 4 * S * heads * n * n * dh
+        case = dict(kern=kern, plain=lambda x=x, bias=bias: qknorm_attention_plain(
+            x, *w, bias, heads, dh), twin=cuda_core_k9(kern),
+            twin_source=K1_F32_REPLACED if f32 else K1_REPLACED, library=None,
+            inputs=(x, *w, bias), outputs=(x,), flops=flops,
+            tol=TC32_REL_TOL if f32 else REL_TOL)
+        if f32:
+            case.update(peak=PEAK_TF32_FLOPS, flops=3 * flops, f32_flops=flops)
+        yield f"{tag}_{label}", case
+        del x, bias
+    for label, (S, n) in (("", (B * 24, 576)), ("_contrastive", (TRAIN_B * 24, 576)),
+                          ("_n64", (AE_B * AE_FRAMES // 10, 64)), ("_ragged_n40", (B * 24, 40))):
+        yield f"{tag}_tc{label}", k1_core_case(dev, g, S, n, dtype)
+
+
+def k1_phase(dev, dtype, results: dict) -> None:
+    """`k1_cases` through `train_kernel_phase`, into `results`: the
+    sublayer's shapes under the K1 entry, the core's under its own
+    (`spatial_attention_tc`, `spatial_attention_f32_tc`)."""
+    import torch
+
+    tag = "spatial_attention_f32" if dtype == torch.float32 else "spatial_attention"
+    res = train_kernel_phase(dev, k1_cases(dev, dtype), B)
+    for label in ("contrastive", "ragged_n40"):
+        results[tag][f"at_{label}"] = res.pop(f"{tag}_{label}")
+    core = res.pop(f"{tag}_tc")
+    for label in ("contrastive", "n64", "ragged_n40"):
+        core[f"at_{label}"] = res.pop(f"{tag}_tc_{label}")
+    results[f"{tag}_tc"] = core
 
 
 def qk_core_case(dev, g, S: int, n: int) -> dict:
@@ -876,7 +1044,8 @@ def kernel_phase(dev):
             raise AssertionError(f"{name}: error {err:.3e} (rel {rel:.3e}) "
                                  f"outside {res['tolerance']}")
         if case.get("twin"):
-            res["replaced"] = twin_result(name, case["twin"], ref)
+            res["replaced"] = twin_result(name, case["twin"], ref,
+                                          case.get("twin_source", "attention_train.cu"))
         results[name] = res
         del got, ref
 
@@ -1257,6 +1426,8 @@ def train_attention_phase(dev) -> dict:
         got = _as_tuple(case["kern"]())
         res.update(timing(case, got), library_backend=case["backend"], shape=list(BERT_SHAPE))
         peak = "f32 peak"
+        if case.get("bound_tf32_ms"):  # an f32 form's bound were it in 3xTF32
+            res["bound_3xtf32_ms"] = case["bound_tf32_ms"]
         if case.get("f32_flops"):  # 3xTF32: the f32 CUDA-core bound beside the TF32 one
             res["bound_f32_cuda_cores_ms"] = bound(nbytes(*case["inputs"], *got),
                                                    case["f32_flops"], PEAK_F32_FLOPS)[0]
@@ -1628,6 +1799,8 @@ def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
         del got, ref
         torch.cuda.empty_cache()
         res.update(timing(case, case["outputs"]), batch=batch)
+        if case.get("bound_tf32_ms"):  # an f32 form's bound were it in 3xTF32
+            res["bound_3xtf32_ms"] = case["bound_tf32_ms"]
         if case.get("f32_flops"):  # 3xTF32: the f32 CUDA-core bound beside the TF32 one
             res["bound_f32_cuda_cores_ms"] = bound(nbytes(*case["inputs"], *case["outputs"]),
                                                    case["f32_flops"], PEAK_F32_FLOPS)[0]
@@ -2349,8 +2522,8 @@ def radbert_reference_phase(dev, work: Path, attention_dropout: float = 0.0) -> 
 # ---------------------------------------------------------------- phase 6
 # kernel-name fragments of a CT-CLIP training step's groups (first match)
 CTCLIP_GROUPS = (
-    ("K3 f32, 3xTF32 on the tensor cores (ffn_tc32.cu: ff_tc32_kernel, tc32_split_kernel)",
-     ("ff_tc32_kernel", "tc32_split_kernel")),
+    ("K3 f32 and K1 f32's projections, 3xTF32 on the tensor cores (ffn_tc32.cu: "
+     "ff_tc32_kernel, tc32_split_kernel)", ("ff_tc32_kernel", "tc32_split_kernel")),
     TC_BWD_GROUP,
     TC_FWD_GROUP,
     TC32_GROUP,
@@ -2360,10 +2533,14 @@ CTCLIP_GROUPS = (
     ("K11 GEGLU FF backward tile (ff_bwd_kernel)", ("ff_bwd_kernel",)),
     ("backward products NN/TN + split sums (gemm_layout_kernel, sum_splits)",
      ("gemm_layout_kernel", "gemm_layout_f32_kernel", "sum_splits_kernel")),
-    ("K9 bf16 attention core backward on the tensor cores (qknorm_attention_tc.cu)",
-     ("qk_tc_",)),
-    ("K9 f32 attention core backward, 3xTF32 on the tensor cores (qknorm_attention_tc32.cu)",
-     ("qk32_",)),
+    ("K1 bf16 attention core forward on the tensor cores (qknorm_attention_tc.cu: qk_tc_fwd)",
+     ("qk_tc_fwd",)),
+    ("K1 f32 attention core forward, 3xTF32 on the tensor cores (qknorm_attention_tc32.cu: "
+     "qk32_fwd)", ("qk32_fwd",)),
+    ("K9 bf16 attention core backward on the tensor cores (qknorm_attention_tc.cu; the "
+     "pre-pass of K1's too)", ("qk_tc_",)),
+    ("K9 f32 attention core backward, 3xTF32 on the tensor cores (qknorm_attention_tc32.cu; "
+     "the pre-pass of K1 f32's too)", ("qk32_",)),
     ("K9/K10 attention core backward (qk_attention_bwd_kernel)", ("qk_attention_bwd_kernel",)),
     ("LayerNorm backward (ln_bwd_kernel)", ("ln_bwd_kernel",)),
     ("K14 PEG dW/db (peg_dw_kernel)", ("peg_dw_kernel",)),
@@ -2372,8 +2549,9 @@ CTCLIP_GROUPS = (
     ("K5 exact assignment (gemm_argmax2_kernel)", ("gemm_argmax2",)),
     ("forward products K1-K3 (gemm_kernel) and LN (ln_kernel)", ("gemm_kernel<",
                                                                  "ln_kernel")),
-    ("K1/K2 attention core forward (attention_kernel)", ("attention_kernel",
-                                                        "attention_f32_kernel")),
+    ("K1/K2 attention core forward on the CUDA cores (attention_kernel: K2, and K1 off the "
+     "tensor cores)",
+     ("attention_kernel", "attention_f32_kernel")),
     ("CUDA-core attention forward (attention_train.cu)", ("fwd_kernel<",)),
     ("CUDA-core attention backward (attention_train.cu)", ("bwd_dq_kernel", "bwd_dkv_kernel",
                                                            "rowdot_kernel", "dkb_sum")),
@@ -2505,15 +2683,24 @@ def ctclip_train_phase(dev, work: Path, card: str, corpus, dtype: str = "bf16") 
         extra["forwards_off_tc32"] = counts["attention_dropout"] + counts["fused_attention"] \
             - counts["attention_tc32"]
         extra["attention_tc32_k13a"] = (counts["attention_tc32"] - counts["fused_attention"]) / 4
+        # every K1 f32 of the run (the steps' and the mini evaluation's) on
+        # qknorm_attention_tc32.cu, its products on ffn_tc32.cu
+        extra["k1_off_tc32"] = counts["spatial_attention_f32"] - counts["qk_attention_tc32"]
+        extra["k1_products_off_tc32"] = 3 * counts["spatial_attention_f32"] \
+            - counts["tc32_gemm"]
         extra_ok = extra["peg_dw_plain"] and not extra["unrearrange_patches_f32"] \
             and extra["rearrange_patches_f32"] >= TRAIN_B and not extra["forwards_off_tc32"] \
-            and extra["attention_tc32_k13a"] == BERT_LAYERS
+            and extra["attention_tc32_k13a"] == BERT_LAYERS and not extra["k1_off_tc32"] \
+            and not extra["k1_products_off_tc32"] and not counts["qk_attention_tc"]
     else:
         # every attention forward of the run (K13a, the mini evaluation's
         # K7) on attention_tc.cu, none on attention_train.cu
         extra = dict(forwards_off_tc=counts["attention_dropout"] + counts["fused_attention"]
-                     - counts["attention_tc"])
-        extra_ok = not extra["forwards_off_tc"]
+                     - counts["attention_tc"],
+                     # every K1 of the run on qknorm_attention_tc.cu
+                     k1_off_tc=counts["spatial_attention"] - counts["qk_attention_tc"])
+        extra_ok = not extra["forwards_off_tc"] and not extra["k1_off_tc"] \
+            and not counts["qk_attention_tc32"]
     log(f"{label} train: launches per step {per_step}; {extra}")
     if any(per_step[k] != v for k, v in want.items()) or not extra_ok:
         raise AssertionError(f"{label} train: launches per step {per_step}, want {want}; "
@@ -3108,7 +3295,10 @@ def seq_kernel_cases(dev):
             fwd = lambda *a: fused_small_qknorm_attention(*a, heads, dh)  # noqa: E731
         else:
             fwd = lambda *a: fused_spatial_qknorm_attention(*a, heads, dh)  # noqa: E731
-        yield name, dict(kern=lambda: fwd(x, *w, *extra),
+        kern_fwd = lambda: fwd(x, *w, *extra)  # noqa: E731
+        # K1 (a bias): the replaced path, the core on attention.cu's CUDA cores
+        twin = {} if bias is None else dict(twin=cuda_core_k9(kern_fwd), twin_source=K1_REPLACED)
+        yield name, dict(kern=kern_fwd, **twin,
                          plain=lambda: qknorm_attention_plain(x, *w, bias, heads, dh),
                          library=None, inputs=(x, *w, *extra), outputs=(x,),
                          flops=2 * rows * dim * 4 * hd + core, tol=REL_TOL)
@@ -3963,16 +4153,26 @@ def f32_kernel_cases(dev):
             inputs=(x, *w_ff), outputs=(x,), flops=3 * products, f32_flops=products,
             peak=PEAK_TF32_FLOPS, tols=(TC32_REL_TOL,))
         del x
-    x, do = rn(mg_rows, dim), rn(mg_rows, dim)
-    leaves = [t.clone().requires_grad_() for t in (x, *w_ff)]
-    out = fused_geglu_ff(*leaves)
-    # dx to TC32_REL_TOL; dscale, dbias, dwi, dwo sum over all 10,240 rows
-    yield "geglu_ff_bwd_f32", dict(
-        f32_case, kern=lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
-        plain=lambda: geglu_ff_bwd_plain(x, *w_ff, do), inputs=(x, do, *w_ff),
-        outputs=(x, *w_ff), flops=2 * mg_rows * dim * 8 * inner,
-        tols=(TC32_REL_TOL,) + (F32_REL_TOL,) * 4)
-    del x, do, leaves, out
+    # K11 f32 at MaskGIT's (and the autoencoder's) 10,240 rows and at the
+    # contrastive step's 110,592 (8 launches a step): dx to TC32_REL_TOL;
+    # dscale, dbias, dwi, dwo sum over all rows; the 3xTF32 bound beside.
+    # The second shape draws from a generator of its own, so that the cases
+    # after it keep their inputs.
+    g11 = torch.Generator(device=dev).manual_seed(41)
+    for name, rows, gen in (("geglu_ff_bwd_f32", mg_rows, g),
+                            ("geglu_ff_bwd_f32_contrastive", TRAIN_B * 13824, g11)):
+        x, do = (torch.randn((rows, dim), generator=gen, device=dev) for _ in range(2))
+        leaves = [t.clone().requires_grad_() for t in (x, *w_ff)]
+        out = fused_geglu_ff(*leaves)
+        flops = 2 * rows * dim * 8 * inner
+        yield name, dict(
+            f32_case, kern=lambda out=out, leaves=leaves, do=do: torch.autograd.grad(
+                out, leaves, do, retain_graph=True),
+            plain=lambda x=x, do=do: geglu_ff_bwd_plain(x, *w_ff, do), inputs=(x, do, *w_ff),
+            outputs=(x, *w_ff), flops=flops,
+            bound_tf32_ms=bound(nbytes(x, do, *w_ff, x, *w_ff), 3 * flops, PEAK_TF32_FLOPS)[0],
+            tols=(TC32_REL_TOL,) + (F32_REL_TOL,) * 4)
+        del x, do, leaves, out
 
     # K1, K2
     w_attn = (1 + rn(dim, scale=0.1), rn(hd, dim, scale=dim ** -0.5),
@@ -3981,15 +4181,20 @@ def f32_kernel_cases(dev):
 
     def proj(rows):
         return 2 * rows * dim * (hd + 2 * hd + hd)
+    # K1 in 3xTF32 (the core on qknorm_attention_tc32.cu, the products on
+    # ffn_tc32.cu), the replaced path (attention.cu's f32 core, gemm.cu's
+    # FFMA products) timed beside it
     for name, (b, n) in (("spatial_attention_f32", (B * 24, 576)),
                          ("spatial_attention_f32_n64", (MG_B * 20, 64))):
         xs, cpb = rn(b, n, dim), rn(heads, n, n)
+        k1 = lambda xs=xs, cpb=cpb: fused_spatial_qknorm_attention(  # noqa: E731
+            xs, *w_attn, cpb, heads, dh)
+        flops = proj(b * n) + 4 * b * heads * n * n * dh
         yield name, dict(
-            f32_case, kern=lambda xs=xs, cpb=cpb: fused_spatial_qknorm_attention(
-                xs, *w_attn, cpb, heads, dh),
+            f32_case, kern=k1, twin=cuda_core_k9(k1), twin_source=K1_F32_REPLACED,
             plain=lambda xs=xs, cpb=cpb: qknorm_attention_plain(xs, *w_attn, cpb, heads, dh),
-            inputs=(xs, *w_attn, cpb), outputs=(xs,),
-            flops=proj(b * n) + 4 * b * heads * n * n * dh, tol=TC32_REL_TOL)
+            inputs=(xs, *w_attn, cpb), outputs=(xs,), flops=3 * flops, f32_flops=flops,
+            peak=PEAK_TF32_FLOPS, tol=TC32_REL_TOL)
         del xs, cpb
     xg = rn(B, 24, 576, dim)
     yield "grid_attention_f32", dict(
@@ -4049,6 +4254,7 @@ def f32_kernel_phase(dev) -> dict:
     res = train_kernel_phase(dev, f32_kernel_cases(dev), MG_B)
     res["geglu_ff_f32"]["at_zero_shot"] = res.pop("geglu_ff_f32_zero_shot")
     res["geglu_ff_f32"]["at_contrastive"] = res.pop("geglu_ff_f32_contrastive")
+    res["geglu_ff_bwd_f32"]["at_contrastive"] = res.pop("geglu_ff_bwd_f32_contrastive")
     res["spatial_attention_f32"]["at_n64"] = res.pop("spatial_attention_f32_n64")
     return res
 
@@ -4096,10 +4302,14 @@ def zero_shot_f32_phase(dev, work: Path, card: str, bf16_counts: dict) -> dict:
         # every K3 f32 in 3xTF32 on ffn_tc32.cu
         want["attention_tc32"] = cb["attention_tc"]
         want["geglu_ff_tc32"] = cb["geglu_ff"]
+        # every K1 f32 core on qknorm_attention_tc32.cu as the bf16 run's on
+        # qknorm_attention_tc.cu, its three products in 3xTF32 on ffn_tc32.cu
+        want["qk_attention_tc32"] = cb["qk_attention_tc"]
+        want["tc32_gemm"] = 3 * cb["qk_attention_tc"]
         got = {k: c[k] for k in want}
         log(f"e2e {name}: run_zero_shot in f32 scored 3 volumes in {secs:.2f} s host clock; "
             f"launches {got}, the bf16 run's {want}")
-        if got != want or c[embed[1]] or c["attention_tc"]:
+        if got != want or c[embed[1]] or c["attention_tc"] or c["qk_attention_tc"]:
             raise AssertionError(f"{name}: launches {got}, want {want}")
     diff = float(np.abs(outs["zero_shot_f32_rows"]["predicted"]
                         - outs["zero_shot_f32_volume"]["predicted"]).max())
@@ -4807,6 +5017,7 @@ def main() -> int:
         f"({K.library_path().name})")
 
     results = kernel_phase(dev)
+    k1_phase(dev, torch.bfloat16, results)
     results.update(train_attention_phase(dev))
     results.update(train_kernel_phase(dev))
     results["attention_dropout_bf16"].update(k13a_bf16_checks(dev))
@@ -4855,6 +5066,7 @@ def main() -> int:
         counts.update(mg.pop("counts"))
         mg_ref = tiny_maskgit_phase(dev, work)
         results.update(f32_kernel_phase(dev))
+        k1_phase(dev, torch.float32, results)
         zs32 = zero_shot_f32_phase(dev, work, card, counts)
         counts.update(zs32.pop("counts"))
         ref32 = small_reference_f32_phase(dev, work)

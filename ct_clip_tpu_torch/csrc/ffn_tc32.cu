@@ -18,6 +18,11 @@
 //     erf, written split as hi and lo planes;
 //   * ff_tc32_residual: out = act wo^T + x, the f32 x added to the f32 sum
 //     once.
+// The same products serve K1 f32's projections (ops/qknorm_attention.py,
+// ct_clip_tpu/ops/pallas/spatial_attention.py::_pallas_spatial, :276, f32
+// at "highest"), which gemm.cu's FFMA tiles ran: q = LN(x) wq^T and kv = x
+// wkv^T in the plain-store form (ct_tc32_gemm), out = merged wout^T + x in
+// the residual form.
 // Each f32 product A B runs as three TF32 products per k8 slice, lo hi, hi
 // lo, then hi hi, into one f32 accumulator (tc32.cuh's mma3 order; the lo
 // lo term, ~2^-22 of the product, is dropped); hi is x rounded to TF32 and
@@ -53,6 +58,8 @@ constexpr int STAGES = 3;
 constexpr int STAGE = 8 * ATOM;  // A hi, lo: 2 atoms each; B hi, lo: 2 atoms each
 constexpr int FLUSH = 8;         // k blocks (256 of K) summed in one accumulator
 constexpr int SMEM = 1024 + STAGES * STAGE;
+// the kernel's epilogue forms (compile-time)
+constexpr int EPI_GEGLU = 0, EPI_RESIDUAL = 1, EPI_STORE = 2;
 
 // d += A B: m64 n64 k8, TF32 operands, both K-major in shared memory
 __device__ __forceinline__ void mma_tf32(float (&d)[32], uint64_t da, uint64_t db) {
@@ -92,23 +99,24 @@ struct Args {
   int M, N, K, ldo, ldx;
 };
 
-// RESIDUAL 0 (ff_tc32_geglu): one CTA per (128 rows, 64 inner columns), B0 =
+// EPI_GEGLU (ff_tc32_geglu): one CTA per (128 rows, 64 inner columns), B0 =
 // wa and B1 = wg at the same 64 rows, two accumulators a and g a warpgroup;
-// RESIDUAL 1 (ff_tc32_residual): one CTA per (128 rows, 128 columns), B0 and
-// B1 the two 64-row halves of wo's tile (B1's maps are B0's).
-template <int RESIDUAL>
+// EPI_RESIDUAL (ff_tc32_residual, out = A W^T + x) and EPI_STORE (tc32_gemm,
+// out = A W^T): one CTA per (128 rows, 128 columns), B0 and B1 the two 64-row
+// halves of W's tile (B1's maps are B0's).
+template <int EPI>
 __global__ void __launch_bounds__(NT, 1) ff_tc32_kernel(const __grid_constant__ Maps maps,
                                                         Args a) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
   uint8_t* ring = align1024(smem_raw);
-  const int n0 = blockIdx.x * (RESIDUAL ? 128 : 64), m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * (EPI != EPI_GEGLU ? 128 : 64), m0 = blockIdx.y * BM;
   const int kblocks = (a.K + KB - 1) / KB;
   init_ring<STAGES, 128 * CWG>(full, empty);
 
   if (threadIdx.x >= 128 * CWG) {  // the producer: one thread
     if (threadIdx.x != 128 * CWG) return;
-    const int nb1 = RESIDUAL ? n0 + 64 : n0;
+    const int nb1 = EPI != EPI_GEGLU ? n0 + 64 : n0;
     for (int kb = 0; kb < kblocks; ++kb) {
       const int st = kb % STAGES, k0 = kb * KB;
       if (kb >= STAGES) bar_wait(&empty[st], (kb / STAGES - 1) & 1);
@@ -170,7 +178,7 @@ __global__ void __launch_bounds__(NT, 1) ff_tc32_kernel(const __grid_constant__ 
   for (int e = 0; e < 32; e += 2) {
     const int gm = r + 8 * acc_hi(e), gn = n0 + acc_col(e, q4);
     if (gm >= a.M) continue;  // N is even: gn + 1 < N with gn
-    if (RESIDUAL) {  // one f32 add, one rounding
+    if (EPI == EPI_RESIDUAL) {  // one f32 add, one rounding
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int n = gn + 64 * half;
@@ -179,6 +187,14 @@ __global__ void __launch_bounds__(NT, 1) ff_tc32_kernel(const __grid_constant__ 
         const float2 x = *reinterpret_cast<const float2*>(a.x + (size_t)gm * a.ldx + n);
         *reinterpret_cast<float2*>(a.outh + (size_t)gm * a.ldo + n) =
             make_float2(t[e] + x.x, t[e + 1] + x.y);
+      }
+    } else if (EPI == EPI_STORE) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int n = gn + 64 * half;
+        if (n >= a.N) continue;
+        const float(&t)[32] = half ? t1 : t0;
+        *reinterpret_cast<float2*>(a.outh + (size_t)gm * a.ldo + n) = make_float2(t[e], t[e + 1]);
       }
     } else {  // act = a gelu(g), exact erf (gemm.cu's EPI_GEGLU), split
       if (gn >= a.N) continue;
@@ -257,7 +273,7 @@ CT_EXPORT int ct_ff_tc32_geglu(const void* xh, const void* xl, int ldx, const vo
     return (int)cudaErrorInvalidValue;
   const Args a = {static_cast<float*>(acth), static_cast<float*>(actl), nullptr, M, N, K, ldact,
                   0};
-  return (int)launch(ff_tc32_kernel<0>, dim3((N + 63) / 64, (M + BM - 1) / BM),
+  return (int)launch(ff_tc32_kernel<EPI_GEGLU>, dim3((N + 63) / 64, (M + BM - 1) / BM),
                      static_cast<cudaStream_t>(stream), maps, a);
 }
 
@@ -281,6 +297,29 @@ CT_EXPORT int ct_ff_tc32_residual(const void* ah, const void* al, int lda, const
   maps.b1l = maps.b0l;
   const Args a = {static_cast<float*>(out), nullptr, static_cast<const float*>(x), M, N, K, ldx,
                   ldx};
-  return (int)launch(ff_tc32_kernel<1>, dim3((N + 127) / 128, (M + BM - 1) / BM),
+  return (int)launch(ff_tc32_kernel<EPI_RESIDUAL>, dim3((N + 127) / 128, (M + BM - 1) / BM),
+                     static_cast<cudaStream_t>(stream), maps, a);
+}
+
+// out (M, N) = A (M, K) W^T in 3xTF32, A hi, lo with row stride lda, W hi, lo
+// (N, K) with row stride ldw, out with row stride ldo, all f32 (K1 f32's q
+// and kv products).  K, N and the strides multiples of 4, every base 16-byte
+// aligned.
+CT_EXPORT int ct_tc32_gemm(const void* ah, const void* al, int lda, const void* wh,
+                           const void* wl, int ldw, int M, int N, int K, void* out, int ldo,
+                           void* stream) {
+  const void* ptrs[] = {ah, al, wh, wl, out};
+  const int dims[] = {K, N, lda, ldw, ldo};
+  if (M <= 0 || !fits(ptrs, 5, dims, 5) || (M + BM - 1) / BM > 65535)
+    return (int)cudaErrorInvalidValue;
+  Maps maps;
+  if (!tensor_map(&maps.ah, ah, M, K, lda, true) || !tensor_map(&maps.al, al, M, K, lda, true)
+      || !tensor_map(&maps.b0h, wh, N, K, ldw, true)
+      || !tensor_map(&maps.b0l, wl, N, K, ldw, true))
+    return (int)cudaErrorInvalidValue;
+  maps.b1h = maps.b0h;
+  maps.b1l = maps.b0l;
+  const Args a = {static_cast<float*>(out), nullptr, nullptr, M, N, K, ldo, 0};
+  return (int)launch(ff_tc32_kernel<EPI_STORE>, dim3((N + 127) / 128, (M + BM - 1) / BM),
                      static_cast<cudaStream_t>(stream), maps, a);
 }

@@ -71,6 +71,25 @@
 //     output is bit-identical from run to run.
 //   * Ragged n: tiles are zero-filled past n, keys past n score -inf (first
 //     sweep) or P = 0; rows past n are not written.
+//
+// The forward pass (ct_qk_attention_tc_fwd) replaces, in bf16 at the same
+// shapes, the core of ct_clip_tpu/ops/pallas/spatial_attention.py::
+// _pallas_spatial (K1, :276, pallas_call :285, body _kernel :111-135), which
+// attention.cu's attention_kernel ran on the CUDA cores (it keeps K2's
+// 16-24-token sequences).  The pre-pass above writes qn and kn; then one CTA
+// per 64-query tile of a (sequence, head), a consumer warpgroup and the
+// producer warp, streams the [kn | v] key tiles once with the bias tile
+// staged as the row pass stages it: S = qn kn^T + bias on `wgmma` in f32, an
+// online softmax (running max m and sum l in f32), e = exp(S - m) rounded to
+// bf16 as the A operand of e [kn | v] (columns 32-63 hold e v), the output
+// rescaled by exp(m_old - m) before each tile's share; merged = bf16(O / l)
+// in q's strides.  The TPU rounds exp(S - rowmax) with the row's final max
+// (spatial_attention.py:125-130); this one sweep rounds exp(S - running
+// max), the same bf16 rounding at another scale (K13a's forward does the
+// same), and divides by the f32 sum of the unrounded exponentials as the TPU
+// does.  At zero-shot's batch of 2 the core is 48 planes x 8 heads of 576 x
+// 576 scores: two n^2 d products, 16.3 GFLOP (16 us at the bf16 peak), and
+// 127 M exponentials, against ~40 MB of q, k, v, the bias and merged.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -605,6 +624,128 @@ __global__ void __launch_bounds__(NT, 3) qk_tc_dbias(Args a) {
   }
 }
 
+// ---------------------------------------------------------- forward pass
+// S = A B^T of the first halves of two [x | y] tiles (k16 slices at bytes 0
+// and 32)
+__device__ __forceinline__ void scores_only(float (&s_)[32], uint32_t a, uint32_t b) {
+  hold(s_);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) mma_ss(s_, desc(a + 32 * kk), desc(b + 32 * kk), kk);
+  wg_commit();
+  wg_wait();
+  hold(s_);
+}
+
+// x += bf16(p) T for a [.. | ..] tile T at `t` read MN-major
+__device__ __forceinline__ void p_product(float (&x)[32], const float (&p)[32], uint32_t t) {
+  uint32_t pa[4][4];
+  to_a(p, pa);
+  hold(x);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mma_rs(x, pa[kk], desc(t + 2048 * kk));
+  wg_commit();
+  wg_wait();
+  hold(x);
+  hold(pa);
+}
+
+// One CTA per (64-query tile, sequence, head), three a SM.  Shared memory:
+// [qn | qn] (S reads the first half), then STAGES x [[kn | v] | bias tile],
+// the key tiles streamed once.
+template <bool BIAS>
+__global__ void __launch_bounds__(NT, 3) qk_tc_fwd(Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], qbar;
+  uint8_t* sq = align1024(smem_raw);
+  constexpr int stage = rows_stage(BIAS);
+  const int n = a.n, tiles = a.tiles;
+  const int i0 = (blockIdx.x % tiles) * TILE, sh = blockIdx.x / tiles;
+  const int h = sh % a.H, s = sh / a.H;
+  init_ring<STAGES>(full, empty, &qbar);
+
+  if (threadIdx.x >= WG) {  // the producer warp
+    const int lane = threadIdx.x - WG;
+    const bf16* qn = a.qn + (size_t)sh * n * HD;
+    const bf16* kn = a.kn + (size_t)sh * n * HD;
+    const bf16* v = a.v + kv_at(a, s, h);
+    load_pair(saddr(sq), qn, HD, qn, HD, i0, n, lane);
+    bar_arrive_copies(&qbar);
+    for (int t = 0; t < tiles; ++t) {
+      const int st = t % STAGES, j0 = t * TILE;
+      if (t >= STAGES) bar_wait(&empty[st], (t / STAGES - 1) & 1);
+      const uint32_t dst = saddr(sq + TILE_BYTES + st * stage);
+      load_pair(dst, kn, HD, v, a.kv_tok, j0, n, lane);
+      if (BIAS) load_bias(dst + TILE_BYTES, a.bias + (size_t)h * n * n, n, i0, j0, LD_ROWS, lane);
+      bar_arrive_copies(&full[st]);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q4 = lane & 3;
+  const int rl = 16 * warp + (lane >> 2);  // this thread's rows: rl, rl + 8
+  float s_[32], mo[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s_[e] = mo[e] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  const uint32_t qa = saddr(sq);
+  bar_wait(&qbar, 0);
+
+  for (int t = 0; t < tiles; ++t) {
+    const int st = t % STAGES, j0 = t * TILE;
+    uint8_t* stp = sq + TILE_BYTES + st * stage;
+    bar_wait(&full[st], (t / STAGES) & 1);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const uint32_t ka = saddr(stp);
+    scores_only(s_, qa, ka);
+    const float* sb = reinterpret_cast<const float*>(stp + TILE_BYTES);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int hi = acc_hi(e), col = acc_col(e, q4);
+      float x = s_[e];
+      if (BIAS) x += sb[(rl + 8 * hi) * LD_ROWS + col];
+      x = j0 + col < n ? x : -INFINITY;
+      s_[e] = x;
+      mx[hi] = fmaxf(mx[hi], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      // key j0 < n lies in this tile, so the new max is finite
+      const float mn = fmaxf(m[hi], max4(mx[hi]));
+      corr[hi] = fexp2((m[hi] - mn) * LOG2E);  // 0 before the first tile
+      m[hi] = mn;
+      l[hi] *= corr[hi];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int hi = acc_hi(e);
+      const float p = fexp2((s_[e] - m[hi]) * LOG2E);
+      l[hi] += p;
+      s_[e] = p;
+      mo[e] *= corr[hi];
+    }
+    // O += bf16(e) [kn | v]: columns 32-63 hold e v
+    p_product(mo, s_, ka);
+    bar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const float sum = sum4(l[hi]);
+    const int i = i0 + rl + 8 * hi;
+    if (i >= n) continue;
+    bf16* out = a.merged + q_at(a, s, h) + (size_t)i * a.q_tok;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<bf162*>(out + 8 * j + 2 * q4) = __floats2bfloat162_rn(
+          mo[4 * (j + 4) + 2 * hi] / sum, mo[4 * (j + 4) + 2 * hi + 1] / sum);
+  }
+}
+
 template <typename K>
 cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t st, const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -678,4 +819,46 @@ CT_EXPORT int ct_qk_attention_tc_bwd(const void* q, const void* k, const void* v
   if (err != cudaSuccess || !bias) return (int)err;
   return (int)launch(qk_tc_dbias, dim3(tiles * tiles, heads, groups),
                      1024 + DB_BIAS + DB_STAGES * DB_STAGE, st, a);
+}
+
+// K1's core forward: merged (like q, bf16) = softmax(qn kn^T + bias) v per
+// (sequence, head), addressed as ct_qk_attention_tc_bwd, head dim 32, every
+// stride a multiple of 8 elements, q, k, v, merged, qn and kn 16-byte
+// aligned.  Scratch: qn, kn (S, H, n, 32) bf16; rq, rk (S, H, n) f32 (the
+// pre-pass writes them; the forward reads qn and kn).
+CT_EXPORT int ct_qk_attention_tc_fwd(const void* q, const void* k, const void* v, void* merged,
+                                     long long q_outer, long long q_inner, long long q_head,
+                                     long long q_tok, long long kv_outer, long long kv_inner,
+                                     long long kv_head, long long kv_tok, int inner,
+                                     int sequences, int heads, int n, int d, const void* q_scale,
+                                     const void* k_scale, const void* bias, void* qn, void* kn,
+                                     void* rq, void* rk, void* stream) {
+  const long long strides[] = {q_outer, q_inner, q_head, q_tok,
+                               kv_outer, kv_inner, kv_head, kv_tok};
+  bool ok = d == HD && n > 0 && heads > 0 && sequences > 0 && inner > 0 && rq && rk;
+  for (long long s : strides) ok = ok && s % 8 == 0;
+  const void* ptrs[] = {q, k, v, merged, qn, kn};
+  for (const void* p : ptrs) ok = ok && aligned16(p);
+  const int tiles = (n + TILE - 1) / TILE;
+  const long long ctas = (long long)tiles * sequences * heads;
+  const long long rows = (long long)sequences * heads * n;
+  if (!ok || ctas > 2147483647LL || rows * 4 > 2147483647LL * 256)
+    return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.q = static_cast<const bf16*>(q); a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v); a.merged = static_cast<bf16*>(merged);
+  a.q_outer = q_outer; a.q_inner = q_inner; a.q_head = q_head; a.q_tok = q_tok;
+  a.kv_outer = kv_outer; a.kv_inner = kv_inner; a.kv_head = kv_head; a.kv_tok = kv_tok;
+  a.inner = inner; a.S = sequences; a.H = heads; a.n = n; a.tiles = tiles; a.groups = 1;
+  a.qs = static_cast<const float*>(q_scale);
+  a.ks = static_cast<const float*>(k_scale);
+  a.bias = static_cast<const float*>(bias);
+  a.qn = static_cast<bf16*>(qn); a.kn = static_cast<bf16*>(kn);
+  a.rq = static_cast<float*>(rq); a.rk = static_cast<float*>(rk);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  qk_tc_norm<<<(unsigned)((rows * 4 + 255) / 256), 256, 0, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch(bias ? qk_tc_fwd<true> : qk_tc_fwd<false>, dim3((unsigned)ctas),
+                     1024 + TILE_BYTES + STAGES * rows_stage(bias != nullptr), st, a);
 }

@@ -15,8 +15,8 @@ C entry point reports a CUDA error.  Outputs are allocated by the callers
 
 Launch counts: each op module that ports a TPU kernel adds one to its
 counter (`count_launch`) where its CUDA path runs, and a launch helper that
-chooses between kernels counts the one it launched (`qk_attention_tc_bwd`,
-`qk_attention_tc32_bwd`),
+chooses between kernels counts the one it launched (`qk_attention_tc`,
+`qk_attention_tc32`, `qk_attention_tc_bwd`, `qk_attention_tc32_bwd`),
 so a run can show that its main path went through the kernels
 (`launch_counts`).
 """
@@ -83,10 +83,14 @@ KERNELS = (
     "attention_tc32_bwd",  # every f32 backward there: K12b, dense bias or none
                            # (attention_dense_bwd), K12a, key bias (attention_bwd),
                            # K13b, key bias and dropout (attention_dropout_bwd)
-    # qknorm_attention_tc.cu's bf16 tensor-core core of the QK-norm backward
+    # qknorm_attention_tc.cu's bf16 tensor-core core of the QK-norm sublayer
+    "qk_attention_tc",     # K1 (and K2 grid / seq at n >= 32) where `qk_bwd_tensor_cores`
+                           # gives QK_WGMMA: the forward core (spatial_attention)
     "qk_attention_tc_bwd",  # K9 where `qk_bwd_tensor_cores` gives QK_WGMMA
                             # (spatial_attention_bwd)
-    # qknorm_attention_tc32.cu's f32 3xTF32 core of the QK-norm backward
+    # qknorm_attention_tc32.cu's f32 3xTF32 core of the QK-norm sublayer
+    "qk_attention_tc32",   # K1 f32 where `qk_bwd_tensor_cores` gives QK_TC32: the forward
+                           # core (spatial_attention, spatial_attention_f32)
     "qk_attention_tc32_bwd",  # K9 f32 where `qk_bwd_tensor_cores` gives QK_TC32
                               # (spatial_attention_bwd, spatial_attention_bwd_f32)
     # ffn_tc.cu's bf16 K11 on the tensor cores (`wgmma`), beside geglu_ff_bwd
@@ -97,6 +101,8 @@ KERNELS = (
                            # product's epilogue (patch_embed_bwd without d(volume))
     # ffn_tc32.cu's f32 K3 in 3xTF32 on the tensor cores (`wgmma`), beside geglu_ff
     "geglu_ff_tc32",       # the weight split, the GEGLU product and the residual product
+    "tc32_gemm",           # one product there (plain store or + x): K1 f32's q, kv and
+                           # output projections, three a call beside qk_attention_tc32
     # the f32 forms, counted beside the function's own counter
     "geglu_ff_f32",        # K3 f32 (gemm.cu f32 products, layernorm.cu f32 rows)
     "geglu_ff_bwd_f32",    # K11 f32
@@ -296,6 +302,7 @@ def _signatures():
         "ct_tc32_split": [p, p, p, ll, p],
         "ct_ff_tc32_geglu": [p, p, i, p, p, p, p, i, i, i, i, p, p, i, p],
         "ct_ff_tc32_residual": [p, p, i, p, p, i, i, i, i, p, p, i, p],
+        "ct_tc32_gemm": [p, p, i, p, p, i, i, i, i, p, i, p],
         "ct_layernorm_bwd": [p, i, i, p, p, p, p, f, p, p, p, p, i, p],
         "ct_patch_layernorm_bwd": [p, i, i, i, i, i, i, p, p, f, p, p, p, i, p],
         "ct_qk_attention_bwd": [p, p, p, p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i,
@@ -306,6 +313,10 @@ def _signatures():
                                    i, i, i, p, p, p, p, p, p, p, p, p, p, i, p, p, p],
         "ct_qk_attention_tc32_bwd": [p, p, p, p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i,
                                      i, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p, p, p],
+        "ct_qk_attention_tc_fwd": [p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i, i, i, p,
+                                   p, p, p, p, p, p, p],
+        "ct_qk_attention_tc32_fwd": [p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i, i,
+                                     i, p, p, p, p, p, p, p, p],
         "ct_peg_dw": [p, p, i, i, i, i, i, i, i, i, p, p],
         "ct_vq_cluster_stats": [p, p, i, i, i, p, p, p, p, p, p, p],
         "ct_vq_cluster_stats_f32": [p, p, i, i, i, p, p, p, p, p, p, p],
@@ -785,9 +796,7 @@ def ff_tc32(x: torch.Tensor, xn_hi: torch.Tensor, xn_lo: torch.Tensor, w: torch.
         raise ValueError(f"ff_tc32: x {tuple(x.shape)}, xn {tuple(xn_hi.shape)}, "
                          f"w {tuple(w.shape)}")
     lib = lib or library()
-    hi, lo = torch.empty_like(w), torch.empty_like(w)
-    _check(lib.ct_tc32_split(_ptr(w), _ptr(hi), _ptr(lo), w.numel(), _stream()),
-           "ct_tc32_split")
+    hi, lo = tc32_split(w, lib)
     act_hi = torch.empty((M, P), dtype=F32, device=x.device)
     act_lo = torch.empty_like(act_hi)
     _check(lib.ct_ff_tc32_geglu(_ptr(xn_hi), _ptr(xn_lo), D, _ptr(hi[0]), _ptr(lo[0]),
@@ -798,6 +807,51 @@ def ff_tc32(x: torch.Tensor, xn_hi: torch.Tensor, xn_lo: torch.Tensor, w: torch.
                                    M, D, P, _ptr(x), _ptr(out), D, _stream()),
            "ct_ff_tc32_residual")
     count_launch("geglu_ff_tc32")
+    return out
+
+
+def tc32_split(x: torch.Tensor, lib=None):
+    """A contiguous f32 tensor -> its TF32 hi plane and lo plane, hi + lo =
+    x exactly (ffn_tc32.cu's tc32_split_kernel: tc32.cuh's split)."""
+    require(x, "x", F32, x.dim())
+    hi, lo = torch.empty_like(x), torch.empty_like(x)
+    _check((lib or library()).ct_tc32_split(_ptr(x), _ptr(hi), _ptr(lo), x.numel(), _stream()),
+           "ct_tc32_split")
+    return hi, lo
+
+
+def tc32_gemm(a_hi: torch.Tensor, a_lo: torch.Tensor, w_hi: torch.Tensor, w_lo: torch.Tensor,
+              residual: Optional[torch.Tensor] = None, lib=None) -> torch.Tensor:
+    """out (M, N) = A W^T in 3xTF32 on ffn_tc32.cu (`wgmma`), f32: A (M, K)
+    and W (N, K) each as its TF32 hi and lo planes (`tc32_split`,
+    `layernorm_split`, or the core's split output); with `residual` (M, N)
+    f32, contiguous, the residual form adds it to the f32 sum once
+    (ct_ff_tc32_residual), without it the plain-store form (ct_tc32_gemm).
+    Counted `tc32_gemm` at the launch.  `lib`: a one-change copy of
+    ffn_tc32.cu (`copy_library`) to launch instead."""
+    ops = dict(a_hi=a_hi, a_lo=a_lo, w_hi=w_hi, w_lo=w_lo)
+    if residual is not None:
+        ops["residual"] = residual
+    _tc32_operands("tc32_gemm", **ops)
+    (M, Kd), N = a_hi.shape, w_hi.shape[0]
+    if a_lo.shape != a_hi.shape or w_lo.shape != w_hi.shape or w_hi.shape[1] != Kd \
+            or a_lo.stride(0) != a_hi.stride(0) or w_lo.stride(0) != w_hi.stride(0) \
+            or (residual is not None and (residual.shape != (M, N) or residual.stride(0) != N)):
+        raise ValueError(f"tc32_gemm: A {tuple(a_hi.shape)} / {tuple(a_lo.shape)}, W "
+                         f"{tuple(w_hi.shape)} / {tuple(w_lo.shape)}, residual "
+                         f"{None if residual is None else tuple(residual.shape)}")
+    lib = lib or library()
+    out = torch.empty((M, N), dtype=F32, device=a_hi.device)
+    a_args = (_ptr(a_hi), _ptr(a_lo), a_hi.stride(0), _ptr(w_hi), _ptr(w_lo), w_hi.stride(0),
+              M, N, Kd)
+    if residual is None:
+        name = "ct_tc32_gemm"
+        err = lib.ct_tc32_gemm(*a_args, _ptr(out), N, _stream())
+    else:
+        name = "ct_ff_tc32_residual"
+        err = lib.ct_ff_tc32_residual(*a_args, _ptr(residual), _ptr(out), N, _stream())
+    _check(err, name)
+    count_launch("tc32_gemm")
     return out
 
 
@@ -1094,17 +1148,25 @@ QK_WGMMA, QK_TC32, QK_CUDA_CORES = "wgmma", "tc32", "cuda_cores"
 # takes (its dbias pass: the bias tile and two stages of qn, dO, kn, v, lse
 # and D, 1024-byte aligned); the same at every n
 QK_TC32_BWD_SMEM = 1024 + 18432 + 2 * 37888
+# ... and the forward passes' with the bias (qk_tc_fwd: [qn | qn], two stages
+# of [kn | v] and the bias tile; qk32_fwd: qn, two stages of kn, v and the
+# bias tile), the same at every n
+QK_TC_FWD_SMEM = 1024 + 8192 + 2 * 26624
+QK_TC32_FWD_SMEM = 1024 + 9216 + 2 * 36864
 
 
 def qk_bwd_tensor_cores(dtype: torch.dtype, n: int, d: int) -> str:
-    """The route of the QK-norm attention core's backward on `n`-token
-    sequences of head dim `d`: QK_WGMMA, qknorm_attention_tc.cu (bf16
-    `wgmma`), or QK_TC32, qknorm_attention_tc32.cu (f32 in 3xTF32 on
-    `mma.sync`), for K9's 576- and 64-token planes with or without the
-    bias and any ragged n from 32 in zero-filled 64-row tiles; otherwise
-    QK_CUDA_CORES, qknorm_attention_bwd.cu (qk_attention_bwd_kernel and its
-    f32 form: K10's 16-24-token sequences, other head dims).  `_qk_tc_bwd`
-    and `_qk_tc32_bwd` count each launch of their route."""
+    """The route of the QK-norm attention core, forward and backward, on
+    `n`-token sequences of head dim `d`: QK_WGMMA, qknorm_attention_tc.cu
+    (bf16 `wgmma`), or QK_TC32, qknorm_attention_tc32.cu (f32 in 3xTF32 on
+    `mma.sync`, and the f32 sublayer's projections in 3xTF32 on ffn_tc32.cu),
+    for K1's and K9's 576- and 64-token planes with or without the bias and
+    any ragged n from 32 in zero-filled 64-row tiles; otherwise
+    QK_CUDA_CORES: attention.cu forward (attention_kernel and its f32 form,
+    gemm.cu's products) and qknorm_attention_bwd.cu backward
+    (qk_attention_bwd_kernel and its f32 form): K2's and K10's 16-24-token
+    sequences, other head dims.  `qk_attention_fwd`, `_qk_tc_bwd` and
+    `_qk_tc32_bwd` count each launch of their route."""
     if d != QK_TC_HEAD_DIM or n < QK_TC_MIN_TOKENS:
         return QK_CUDA_CORES
     return {BF16: QK_WGMMA, F32: QK_TC32}.get(dtype, QK_CUDA_CORES)
@@ -1120,6 +1182,17 @@ def qk_tc_dbias_groups(sequences: int, heads: int, n: int) -> int:
     return -(-sequences // per)
 
 
+def _qk_tc_strides(name: str, q_strides, kv_strides, q, *tensors):
+    """The eight element strides of a tensor-core core's launch, checked:
+    multiples of 16 bytes, every tensor 16-byte aligned."""
+    strides = [*map(int, q_strides), *map(int, kv_strides)]
+    chunk = _chunk(q)
+    if any(st % chunk for st in strides) or any(t.data_ptr() % 16 for t in (q, *tensors)):
+        raise ValueError(f"{name}: the tensor-core core takes strides of multiples "
+                         f"of {chunk} elements and 16-byte aligned tensors")
+    return strides
+
+
 def _qk_core_bwd(entry, counter, q, kv, dout, qs, ks, bias, *, sequences, inner, heads, n, d,
                  q_strides, kv_strides, lib):
     """qk_attention_bwd on a tensor-core source (`entry`, counted `counter`
@@ -1127,11 +1200,7 @@ def _qk_core_bwd(entry, counter, q, kv, dout, qs, ks, bias, *, sequences, inner,
     inverse norms, lse, D_i) and the per-CTA scale partials, added in two
     levels (one thread a column would sum 13,824 rows in turn: 0.6 ms); dbias
     from the dbias pass's groups of sequences, added in order."""
-    strides = [*map(int, q_strides), *map(int, kv_strides)]
-    chunk = _chunk(q)
-    if any(st % chunk for st in strides) or any(t.data_ptr() % 16 for t in (q, kv, dout)):
-        raise ValueError(f"qk_attention_bwd: the tensor-core core takes strides of multiples "
-                         f"of {chunk} elements and 16-byte aligned tensors")
+    strides = _qk_tc_strides("qk_attention_bwd", q_strides, kv_strides, q, kv, dout)
     merged, dq, dkv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(kv)
     f32 = dict(dtype=torch.float32, device=q.device)
     qn, kn = (torch.empty((sequences, heads, n, d), dtype=q.dtype, device=q.device)
@@ -1231,6 +1300,51 @@ def qk_attention_bwd(q, kv, dout, *, sequences: int, inner: int, heads: int,
     _check(err, "ct_qk_attention_bwd")
     dbias = None if dbias_part is None else sum_splits(dbias_part)
     return merged, dq, dkv, sum_splits(dqs_part), sum_splits(dks_part), dbias
+
+
+def qk_attention_fwd(q, kv, *, sequences: int, inner: int, heads: int, n: int, d: int,
+                     q_strides, kv_strides, q_scale, k_scale,
+                     bias: Optional[torch.Tensor] = None, lib=None):
+    """The QK-norm attention core's forward (K1's) on the tensor cores, on
+    the projections q (rows, h*d) and kv (rows, 2*h*d) [k | v], addressed as
+    `qk_attention_bwd` addresses them: softmax(l2norm(q) q_scale (l2norm(k)
+    k_scale)^T + bias) v per (sequence, head), q_scale including the logit
+    scale, bias (heads, n, n) f32 or None.  bf16 (QK_WGMMA): merged, like
+    q, on qknorm_attention_tc.cu, counted `qk_attention_tc`; f32 (QK_TC32):
+    (hi, lo), merged's TF32 planes (hi + lo = merged), each laid out as q, in
+    3xTF32 on qknorm_attention_tc32.cu, counted `qk_attention_tc32`.  A
+    shape `qk_bwd_tensor_cores` sends to the CUDA cores raises (the caller
+    launches attention.cu there).  `lib`: a one-change copy (`copy_library`)
+    of the source, to launch instead."""
+    hd = heads * d
+    for name, t, width in (("q", q, hd), ("kv", kv, 2 * hd)):
+        require(t, name, q.dtype if name != "q" else FORMS, 2)
+        if t.shape[1] != width or t.shape[0] != q.shape[0]:
+            raise ValueError(f"qk_attention_fwd: {name} {tuple(t.shape)}")
+    core = qk_bwd_tensor_cores(q.dtype, n, d)
+    if core == QK_CUDA_CORES:
+        raise ValueError(f"qk_attention_fwd: {q.dtype} at n {n}, head dim {d} takes "
+                         "attention.cu (kernels.qk_bwd_tensor_cores)")
+    strides = _qk_tc_strides("qk_attention_fwd", q_strides, kv_strides, q, kv)
+    qs, ks = _f32_vector(q_scale, d, "q_scale"), _f32_vector(k_scale, d, "k_scale")
+    if bias is not None:
+        require(bias, "bias", torch.float32, 3)
+        if tuple(bias.shape) != (heads, n, n):
+            raise ValueError(f"qk_attention_fwd: bias {tuple(bias.shape)}")
+    qn, kn = (torch.empty((sequences, heads, n, d), dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    rq, rk = (torch.empty((sequences, heads, n), dtype=torch.float32, device=q.device)
+              for _ in range(2))
+    merged = torch.empty_like(q)
+    outs = (merged,) if core == QK_WGMMA else (merged, torch.empty_like(q))
+    entry, counter = (("ct_qk_attention_tc_fwd", "qk_attention_tc") if core == QK_WGMMA
+                      else ("ct_qk_attention_tc32_fwd", "qk_attention_tc32"))
+    err = getattr(lib or library(), entry)(
+        _ptr(q), _ptr(kv), _ptr(kv[:, hd:]), *map(_ptr, outs), *strides, inner, sequences, heads,
+        n, d, _ptr(qs), _ptr(ks), _ptr(bias), _ptr(qn), _ptr(kn), _ptr(rq), _ptr(rk), _stream())
+    _check(err, entry)
+    count_launch(counter)
+    return merged if core == QK_WGMMA else outs
 
 
 def peg_dw(x: torch.Tensor, dout: torch.Tensor, pads) -> torch.Tensor:

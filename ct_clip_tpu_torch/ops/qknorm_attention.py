@@ -21,12 +21,20 @@ first, wout (dim, h*dh).  The spatial and sequence-major forms take (b, n,
 dim) sequences (the same core, the spatial one with the CPB bias); the grid
 form takes the native (b, t, h*w, dim) token grid and attends along t.
 
-On a CUDA tensor: LN (csrc/layernorm.cu), the q and kv products
-(csrc/gemm.cu), the attention core (csrc/attention.cu, which reads the
-t-columns of the grid in place through strides) and the output product with
-the residual epilogue.  In bf16, or in f32 (the f32 forms: weights, q, k, v
-and scores in f32, true f32 products, as the TPU kernels run f32 operands
-at "highest"), forward and backward (`kernels.ROUTES`).
+On a CUDA tensor, where `kernels.qk_bwd_tensor_cores` gives the tensor
+cores (head dim 32, n >= 32: K1's 576- and 64-token planes): in bf16, LN
+(csrc/layernorm.cu), the q and kv products (csrc/gemm.cu), the core on
+csrc/qknorm_attention_tc.cu (`wgmma`, counted `qk_attention_tc`) and the
+output product with the residual epilogue; in f32 the whole forward in
+3xTF32 (nothing rounded below f32, as the TPU kernels run f32 operands at
+"highest"): LN written as TF32 hi and lo planes, x and the weights split,
+q and kv on csrc/ffn_tc32.cu's plain-store product, the core on
+csrc/qknorm_attention_tc32.cu (counted `qk_attention_tc32`, merged written
+split), out = merged wout^T + x on ffn_tc32.cu's residual product (each
+product counted `tc32_gemm`).  Elsewhere (K2's 16-24-token sequences) LN,
+the products on gemm.cu (the f32 forms FFMA tiles) and the core on
+csrc/attention.cu, which reads the t-columns of the grid in place through
+strides.  Forward and backward in bf16 or f32 (`kernels.ROUTES`).
 
 The backwards are the ports of spatial_attention.py::_pallas_spatial_bwd
 (K9) and small_attention.py::_pallas_small_qknorm_bwd with grid_layout=True
@@ -76,20 +84,25 @@ def sublayer_fits(n: int, dim_head: int, dtype: torch.dtype = torch.bfloat16) ->
     A bf16 block stages its pair's whole k and v (backward: q, k, v and
     dout) in shared memory, sized as the launches in csrc/attention.cu and
     csrc/qknorm_attention_bwd.cu size it; the JAX package gates its Pallas
-    sublayers on their VMEM plans the same way.  f32 takes the same gate and
-    its own forms' tiles and chunks as well (`kernels.attention_f32_smem`,
-    and for the backward the kernel `kernels.qk_bwd_tensor_cores` picks:
-    `kernels.qk_attention_bwd_f32_smem` on the CUDA cores, which at small
-    head widths takes more than the bf16 forms (d 16: from n ~808 against
-    ~1,071), or `kernels.QK_TC32_BWD_SMEM` for the 3xTF32 core)."""
+    sublayers on their VMEM plans the same way.  Where
+    `kernels.qk_bwd_tensor_cores` takes the tensor cores, their forward's
+    tiles count too (`kernels.QK_TC_FWD_SMEM`, `QK_TC32_FWD_SMEM`).  f32
+    takes the same gate and its own forms' tiles and chunks as well
+    (`kernels.attention_f32_smem`, and for the backward the kernel
+    `kernels.qk_bwd_tensor_cores` picks: `kernels.qk_attention_bwd_f32_smem`
+    on the CUDA cores, which at small head widths takes more than the bf16
+    forms (d 16: from n ~808 against ~1,071), or `kernels.QK_TC32_BWD_SMEM`
+    for the 3xTF32 core)."""
     d, warps = dim_head, (8 if n >= 128 else 2)
     if d % 2 or d > 64:
         return False
     fwd = _align16(2 * n * (2 * d + 2)) + 4 * warps * (d + n)
     bwd = _align16(8 * n * (d + 2)) + 4 * (2 * n + warps * (2 * n + 2 * d))
+    core = K.qk_bwd_tensor_cores(dtype, n, d)
+    if core != K.QK_CUDA_CORES:
+        fwd = max(fwd, K.QK_TC_FWD_SMEM if core == K.QK_WGMMA else K.QK_TC32_FWD_SMEM)
     if dtype == torch.float32:
         fwd = max(fwd, K.attention_f32_smem(n, d, warps))
-        core = K.qk_bwd_tensor_cores(dtype, n, d)
         bwd = max(bwd, K.QK_TC32_BWD_SMEM if core == K.QK_TC32
                   else K.qk_attention_bwd_f32_smem(n, d, warps))
     return max(fwd, bwd) <= SMEM_LIMIT
@@ -141,6 +154,33 @@ def grid_qknorm_attention_bwd_plain(x, gamma, wq, wkv, q_scale, k_scale, wout, d
     dwkv, dq_scale, dk_scale, dwout)."""
     return vjp(lambda *a: grid_qknorm_attention_plain(*a, heads, dim_head, scale),
                (x, gamma, wq, wkv, q_scale, k_scale, wout), dout)
+
+
+def qk_attention_core_plain(q, kv, heads: int, d: int, n: int, q_scale, k_scale,
+                            bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Plain version of the attention core's forward (`kernels.qk_attention_fwd`)
+    on sequence-major (S n, heads d) projections q and kv [k | v]: _kernel's
+    arithmetic (spatial_attention.py:111-131) in f32 with its roundings to
+    q's dtype (bf16: qn and kn, the unnormalised e = exp(S - rowmax) before e
+    v, then e v divided by the f32 row sum of e, merged; f32: none).  q_scale
+    includes the logit scale.  Returns merged (S n, heads d) in q's dtype."""
+    dt, hd = q.dtype, heads * d
+    S = q.shape[0] // n
+
+    def split(t):  # (S n, heads d) -> (S, heads, n, d) f32
+        return t.reshape(S, n, heads, d).transpose(1, 2).float()
+
+    def normed(t, sc):
+        r = torch.rsqrt(torch.clamp_min((t * t).sum(-1, keepdim=True), 1e-24))
+        return (t * r * sc.float()).to(dt).float()
+
+    qn, kn = normed(split(q), q_scale), normed(split(kv[:, :hd]), k_scale)
+    s = qn @ kn.transpose(-1, -2)
+    if bias is not None:
+        s = s + bias.float()
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    merged = (e.to(dt).float() @ split(kv[:, hd:])) / e.sum(-1, keepdim=True)
+    return merged.transpose(1, 2).reshape(S * n, hd).to(dt)
 
 
 def qk_attention_bwd_core_plain(q, kv, dout, heads: int, d: int, n: int, q_scale, k_scale,
@@ -215,6 +255,32 @@ def _project(x2, gamma, wq, wkv, hd: int):
     return xn, q, kv
 
 
+def _tc32_weights(wq, wkv, wout):
+    """wq, wkv and wout in f32, split into TF32 hi and lo planes by one
+    launch: ((hi, lo) of wq, of wkv, of wout)."""
+    ws = [w.float() for w in (wq, wkv, wout)]
+    hi, lo = K.tc32_split(torch.cat([w.reshape(-1) for w in ws]))
+    out, at = [], 0
+    for w in ws:
+        out.append((hi[at:at + w.numel()].view(w.shape), lo[at:at + w.numel()].view(w.shape)))
+        at += w.numel()
+    return out
+
+
+def _qknorm_attention_tc32(x2, gamma, wq, wkv, wout, layout):
+    """The f32 sublayer forward on (rows, dim) x2, all in 3xTF32: LN written
+    as TF32 hi and lo planes, x split, q = LN(x) wq^T and kv = x wkv^T (the
+    plain-store product), the core writing merged split, merged wout^T + x
+    (the residual product)."""
+    (wq_h, wq_l), (wkv_h, wkv_l), (wo_h, wo_l) = _tc32_weights(wq, wkv, wout)
+    xn_h, xn_l = K.layernorm_split(x2, gamma, None, 1e-5)
+    x_h, x_l = K.tc32_split(x2)
+    q = K.tc32_gemm(xn_h, xn_l, wq_h, wq_l)
+    kv = K.tc32_gemm(x_h, x_l, wkv_h, wkv_l)
+    m_h, m_l = K.qk_attention_fwd(q, kv, **layout)
+    return K.tc32_gemm(m_h, m_l, wo_h, wo_l, residual=x2)
+
+
 def _check_weights(x, wq, wkv, wout, hd: int) -> None:
     dim = x.shape[-1]
     if wq.shape != (hd, dim) or wkv.shape != (2 * hd, dim) \
@@ -228,15 +294,20 @@ def _qknorm_attention_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
     hd = heads * dim_head
     _check_weights(x, wq, wkv, wout, hd)
     x2 = x.view(-1, dim)
-    _, q, kv = _project(x2, gamma, wq, wkv, hd)
-    merged = torch.empty_like(q)
     sequences, inner, q_strides, kv_strides, n = _layout(x, hd, dim_head, grid)
-    K.attention(q, kv, kv[:, hd:], merged, sequences=sequences, inner=inner,
-                heads=heads, n=n, d=dim_head, q_strides=q_strides,
-                kv_strides=kv_strides, q_scale=q_scale.float() * scale,
-                k_scale=k_scale,
-                bias=None if bias is None else bias.float().contiguous(),
-                warps=8 if n >= 128 else 2)
+    layout = dict(sequences=sequences, inner=inner, heads=heads, n=n, d=dim_head,
+                  q_strides=q_strides, kv_strides=kv_strides,
+                  q_scale=q_scale.float() * scale, k_scale=k_scale,
+                  bias=None if bias is None else bias.float().contiguous())
+    core = K.qk_bwd_tensor_cores(x.dtype, n, dim_head)
+    if core == K.QK_TC32:
+        return _qknorm_attention_tc32(x2, gamma, wq, wkv, wout, layout).view(x.shape)
+    _, q, kv = _project(x2, gamma, wq, wkv, hd)
+    if core == K.QK_WGMMA:
+        merged = K.qk_attention_fwd(q, kv, **layout)
+    else:
+        merged = torch.empty_like(q)
+        K.attention(q, kv, kv[:, hd:], merged, **layout, warps=8 if n >= 128 else 2)
     out = torch.empty_like(x2)
     K.gemm(K.EPI_RESIDUAL, merged, wout.to(x.dtype).contiguous(), out, residual=x2)
     return out.view(x.shape)

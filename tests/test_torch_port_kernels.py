@@ -1767,3 +1767,85 @@ def test_f32_plain_routes_where_jax_takes_xla(dev):
     assert counts["peg_dw_plain"] == 1 and counts["peg_bwd"] == 0
     assert torch.equal(db, ref[27])
     assert torch.equal(dw.reshape(32, 27), ref[:27].t())
+
+
+# ------------------------------------------------------ K1 on the tensor cores
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("S,n", [(4, 576), (12, 64), (6, 100), (5, 40)])
+def test_qk_core_forward_k1_tensor_cores(dev, dtype, S, n, bias):
+    """K1's core alone (kernels.qk_attention_fwd) at CT-CLIP's 576-token
+    planes, the autoencoder's 64 and ragged 100 and 40, with the CPB bias
+    and without: bf16 on qknorm_attention_tc.cu within 2e-2 of max|plain|
+    (the plain core at the TPU's rounding point), f32 (hi + lo) in 3xTF32 on
+    qknorm_attention_tc32.cu within 1e-5; bit-identical across runs;
+    counted `qk_attention_tc` / `qk_attention_tc32` at the launch."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import qk_attention_core_plain
+
+    q, kv, _, layout = _qk_core_case(dev, S, n, bias, seed=71)
+    q, kv = q.to(dtype), kv.to(dtype)
+    K.reset_launch_counts()
+    got = K.qk_attention_fwd(q, kv, **layout)
+    counter = "qk_attention_tc" if dtype == BF else "qk_attention_tc32"
+    assert K.launch_counts()[counter] == 1 and sum(K.launch_counts().values()) == 1
+    again = K.qk_attention_fwd(q, kv, **layout)
+    if dtype == F32:
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        got = got[0] + got[1]
+    else:
+        assert torch.equal(got, again)
+    ref = qk_attention_core_plain(q, kv, 8, 32, n, layout["q_scale"], layout["k_scale"],
+                                  layout["bias"])
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype == dtype
+    _close(got, ref, REL if dtype == BF else TC32_REL)
+
+
+def test_qk_core_forward_k1_f32_plain_tf32_copy_misses(dev):
+    """A copy of qknorm_attention_tc32.cu built with CT_TC32_PASSES=1 (hi hi
+    alone, plain TF32) misses 1e-5 in K1's merged heads."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import qk_attention_core_plain
+
+    copy = K.copy_library("qknorm_attention_tc32.cu", CT_TC32_PASSES=1)
+    q, kv, _, layout = _qk_core_case(dev, 4, 576, True, seed=72)
+    q, kv = q.float(), kv.float()
+    hi, lo = K.qk_attention_fwd(q, kv, lib=copy, **layout)
+    ref = qk_attention_core_plain(q, kv, 8, 32, 576, layout["q_scale"], layout["k_scale"],
+                                  layout["bias"])
+    torch.cuda.synchronize()
+    err = (hi + lo - ref).abs().max().item() / ref.abs().max().item()
+    assert err > TC32_REL, err
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_spatial_qknorm_attention_k1_tensor_cores(dev, dtype):
+    """The K1 sublayer at head dim 32 launches the tensor-core core (and in
+    f32 its three products in 3xTF32 on ffn_tc32.cu): bf16 within 2e-2 of
+    max|plain|, f32 within 1e-5; K2's 24- and 20-token sequences keep
+    attention.cu."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import (
+        fused_grid_qknorm_attention, fused_small_qknorm_attention,
+        fused_spatial_qknorm_attention, grid_qknorm_attention_plain, qknorm_attention_plain)
+
+    g = _gen(dev, 73)
+    w = _attn_weights(g, dev)
+    tc = "qk_attention_tc" if dtype == BF else "qk_attention_tc32"
+    for b, n in ((2, 576), (6, 64), (3, 100)):
+        x = _randn((b, n, 512), g, dev, dtype=dtype)
+        bias = _randn((8, n, n), g, dev, dtype=F32)
+        K.reset_launch_counts()
+        got = fused_spatial_qknorm_attention(x, *w, bias, 8, 32)
+        ref = qknorm_attention_plain(x, *w, bias, 8, 32)
+        torch.cuda.synchronize()
+        c = K.launch_counts()
+        assert (c["spatial_attention"], c[tc], c["tc32_gemm"]) == (1, 1, 3 * (dtype == F32))
+        _close(got, ref, REL if dtype == BF else TC32_REL)
+    xg, xs = _randn((2, 24, 36, 512), g, dev, dtype=dtype), _randn((40, 20, 512), g, dev,
+                                                                   dtype=dtype)
+    K.reset_launch_counts()
+    _close(fused_grid_qknorm_attention(xg, *w, 8, 32), grid_qknorm_attention_plain(xg, *w, 8, 32),
+           REL if dtype == BF else F32_FWD)
+    _close(fused_small_qknorm_attention(xs, *w, 8, 32),
+           qknorm_attention_plain(xs, *w, None, 8, 32), REL if dtype == BF else F32_FWD)
+    c = K.launch_counts()
+    assert c[tc] == 0 and c["tc32_gemm"] == 0 and c["grid_attention"] == c["seq_attention"] == 1

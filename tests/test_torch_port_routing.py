@@ -309,7 +309,8 @@ class _FakeQkLibrary:
     def __init__(self, rc=0):
         self.rc, self.calls = rc, []
         for name in ("ct_qk_attention_tc_bwd", "ct_qk_attention_tc32_bwd",
-                     "ct_qk_attention_bwd", "ct_qk_attention_bwd_f32"):
+                     "ct_qk_attention_bwd", "ct_qk_attention_bwd_f32",
+                     "ct_qk_attention_tc_fwd", "ct_qk_attention_tc32_fwd"):
             setattr(self, name, lambda *a, name=name: self.calls.append(name) or self.rc)
 
     def ct_error_string(self, err):
@@ -413,6 +414,111 @@ def test_sublayer_fit_follows_the_backward_kernel(monkeypatch):
     assert sublayer_fits(576, 32, BF)
     monkeypatch.setattr(K, "QK_TC32_BWD_SMEM", 10 ** 9)
     assert not sublayer_fits(576, 32, F32) and sublayer_fits(576, 32, BF)
+
+
+# K1's forward shares the gate: its core takes qknorm_attention_tc.cu (bf16)
+# or qknorm_attention_tc32.cu (f32, with the projections in 3xTF32 on
+# ffn_tc32.cu) at head dim 32 from 32 tokens, attention.cu (and gemm.cu's
+# products) on K2's 16-24-token sequences.  The C library is a recording
+# stand-in; `names` are the entries one sublayer forward calls, in order.
+_TC_BF16 = ["ct_layernorm", "ct_gemm", "ct_gemm", "ct_qk_attention_tc_fwd", "ct_gemm"]
+_TC_F32 = ["ct_tc32_split", "ct_layernorm_split_f32", "ct_tc32_split", "ct_tc32_gemm",
+           "ct_tc32_gemm", "ct_qk_attention_tc32_fwd", "ct_ff_tc32_residual"]
+
+
+@pytest.mark.parametrize("dtype,shape,grid,names", [
+    (BF, (2, 576, 64), False, _TC_BF16),        # K1: CT-CLIP's planes
+    (BF, (3, 64, 64), False, _TC_BF16),         # K1: the autoencoder's
+    (BF, (2, 100, 64), False, _TC_BF16),        # a ragged n
+    (F32, (2, 576, 64), False, _TC_F32),        # K1 f32
+    (F32, (3, 64, 64), False, _TC_F32),
+    (BF, (1, 24, 9, 64), True, ["ct_layernorm", "ct_gemm", "ct_gemm", "ct_attention",
+                                "ct_gemm"]),    # K2 grid: t 24
+    (BF, (4, 20, 64), False, ["ct_layernorm", "ct_gemm", "ct_gemm", "ct_attention",
+                              "ct_gemm"]),      # K2 seq: t 20
+    (F32, (4, 16, 64), False, ["ct_layernorm_f32", "ct_gemm_f32", "ct_gemm_f32",
+                               "ct_attention_f32", "ct_gemm_f32"]),  # K2 seq f32
+])
+def test_k1_forward_takes_the_tensor_cores_where_the_gate_does(monkeypatch, dtype, shape,
+                                                               grid, names):
+    from ct_clip_tpu_torch.ops import qknorm_attention as Q
+
+    lib = _RecordingLibrary()
+    _stub_card(monkeypatch, lib)
+    dim, heads, dh = shape[-1], 2, 32
+    hd = heads * dh
+    n = shape[1]
+    x = torch.zeros(shape, dtype=dtype)
+    out = Q._qknorm_attention_cuda(
+        x, torch.ones(dim), torch.zeros((hd, dim)), torch.zeros((2 * hd, dim)), torch.ones(dh),
+        torch.ones(dh), torch.zeros((dim, hd)), None if grid else torch.zeros((heads, n, n)),
+        heads, dh, 8.0, grid)
+    assert out.shape == x.shape and out.dtype == dtype
+    assert lib.names() == names
+    c = K.launch_counts()
+    assert c["qk_attention_tc"] == int(names is _TC_BF16)
+    assert c["qk_attention_tc32"] == int(names is _TC_F32)
+    assert c["tc32_gemm"] == 3 * int(names is _TC_F32)
+    if names is _TC_F32:
+        assert lib.calls[0][1][3] == hd * dim * 4  # wq, wkv, wout split at once
+        assert lib.calls[3][1][6:9] == (x.numel() // dim, hd, dim)  # q = LN(x) wq^T
+        assert lib.calls[4][1][6:9] == (x.numel() // dim, 2 * hd, dim)  # kv = x wkv^T
+        assert lib.calls[6][1][6:9] == (x.numel() // dim, dim, hd)  # merged wout^T + x
+
+
+@pytest.mark.parametrize("dtype,entry,counter", [
+    (BF, "ct_qk_attention_tc_fwd", "qk_attention_tc"),
+    (F32, "ct_qk_attention_tc32_fwd", "qk_attention_tc32"),
+])
+def test_qk_forward_counter_counts_the_launch_and_skips_a_failed_one(monkeypatch, dtype, entry,
+                                                                     counter):
+    """kernels.qk_attention_fwd counts its source's counter where the C
+    entry launched and nowhere else: a launch that reports a CUDA error
+    raises and adds no count; a shape the gate sends to the CUDA cores
+    raises before any launch."""
+    heads, d = 2, 32
+    hd = heads * d
+
+    def call(lib, S, n):
+        _stub_card(monkeypatch, lib)
+        q, kv = torch.zeros((S * n, hd), dtype=dtype), torch.zeros((S * n, 2 * hd), dtype=dtype)
+        return K.qk_attention_fwd(q, kv, sequences=S, inner=1, heads=heads, n=n, d=d,
+                                  q_strides=(n * hd, 0, d, hd),
+                                  kv_strides=(n * 2 * hd, 0, d, 2 * hd), q_scale=torch.ones(d),
+                                  k_scale=torch.ones(d), bias=torch.zeros((heads, n, n)))
+    lib = _FakeQkLibrary()
+    got = call(lib, 2, 576)
+    assert lib.calls == [entry] and K.launch_counts()[counter] == 1
+    assert sum(K.launch_counts().values()) == 1
+    if dtype == F32:  # merged as its TF32 hi and lo planes
+        assert len(got) == 2 and all(t.shape == (2 * 576, hd) and t.dtype == F32 for t in got)
+    else:
+        assert got.shape == (2 * 576, hd) and got.dtype == BF
+    failing = _FakeQkLibrary(rc=1)
+    with pytest.raises(RuntimeError, match=entry):
+        call(failing, 2, 576)
+    assert failing.calls == [entry] and K.launch_counts()[counter] == 0
+    idle = _FakeQkLibrary()
+    with pytest.raises(ValueError, match="attention.cu"):
+        call(idle, 4, 24)
+    assert idle.calls == [] and K.launch_counts()[counter] == 0
+
+
+def test_sublayer_fit_counts_the_tensor_core_forward(monkeypatch):
+    """`sublayer_fits` accepts every shape the gate gives the tensor cores
+    (head dim 32, n >= 32, bf16 and f32) and counts their forward's shared
+    memory there, and only there."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import sublayer_fits
+
+    for dtype in (BF, F32):
+        for n in (32, 40, 64, 100, 576):
+            assert K.qk_bwd_tensor_cores(dtype, n, 32) != K.QK_CUDA_CORES
+            assert sublayer_fits(n, 32, dtype), (dtype, n)
+    monkeypatch.setattr(K, "QK_TC_FWD_SMEM", 10 ** 9)
+    assert not sublayer_fits(576, 32, BF) and sublayer_fits(576, 32, F32)
+    assert sublayer_fits(24, 32, BF) and sublayer_fits(64, 64, BF)
+    monkeypatch.setattr(K, "QK_TC32_FWD_SMEM", 10 ** 9)
+    assert not sublayer_fits(576, 32, F32) and sublayer_fits(24, 32, F32)
 
 
 # K11: bf16 takes ffn_tc.cu's `wgmma` tile and products, f32 gemm.cu's f32 forms

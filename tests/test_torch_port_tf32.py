@@ -531,3 +531,93 @@ def test_k3_f32_tc32_arithmetic_against_jax(k3_case, passes):
         assert rel <= TOL, f"3xTF32 K3: {rel:.3e} of max|JAX|"
     else:
         assert rel > TOL, f"plain TF32 K3 reads {rel:.3e}, within the tolerance"
+
+
+# ------------------------------------------------------------------ K1 f32
+# The f32 spatial sublayer's forward as the card runs it: LN, q = LN(x) wq^T
+# and kv = x wkv^T on ffn_tc32.cu's plain-store product, the attention core
+# on qknorm_attention_tc32.cu's forward pass (one sweep of an online softmax
+# over 64-key tiles, each tile's P v a product of its own), merged wout^T + x
+# on the residual product, every product in 3xTF32; held against the JAX
+# package's K1 in f32 (`_pallas_spatial` in interpret mode, "highest"
+# products) on a few sequences of 40, 64 and 96 tokens (one ragged tile, one
+# whole tile, a whole and a ragged tile).
+K1_SHAPES = ((3, 40), (2, 64), (2, 96))  # (sequences, tokens)
+
+
+def k1_core_emulated(q, kv, heads: int, n: int, qs, ks, bias, passes: int):
+    """merged (S n, heads 32) as qknorm_attention_tc32.cu's forward computes
+    it: qn = l2norm(q) qs, kn = l2norm(k) ks in f32, then
+    `tc32_forward_emulated` (S in `passes`-TF32 plus the bias, the online
+    softmax and the tiles' P v)."""
+    d = 32
+    hd, S = heads * d, q.shape[0] // n
+
+    def split(t):
+        return t.reshape(S, n, heads, d).transpose(1, 2)
+
+    def normed(t, sc):
+        return t * torch.rsqrt(torch.clamp_min((t * t).sum(-1, keepdim=True), 1e-24)) * sc
+    out, _ = tc32_forward_emulated(normed(split(q), qs), normed(split(kv[:, :hd]), ks),
+                                   split(kv[:, hd:]), passes, bias=bias)
+    return out.transpose(1, 2).reshape(S * n, hd)
+
+
+def k1_sublayer_emulated(x, gamma, wq, wkv, q_scale, k_scale, wout, bias, heads, passes):
+    """The f32 sublayer forward as the card's 3xTF32 route computes it: the
+    three projections in `passes`-TF32 (`mm_tf32_ranges`), the core by
+    `k1_core_emulated`, x added to the output product's f32 sum."""
+    from ct_clip_tpu_torch.ops.norms import layer_norm
+
+    b, n, dim = x.shape
+    x2 = x.reshape(b * n, dim)
+    q = mm_tf32_ranges(layer_norm(x2, gamma), wq.t(), passes)
+    kv = mm_tf32_ranges(x2, wkv.t(), passes)
+    merged = k1_core_emulated(q, kv, heads, n, q_scale * 8.0, k_scale, bias, passes)
+    return (mm_tf32_ranges(merged, wout.t(), passes) + x2).reshape(b, n, dim)
+
+
+@pytest.fixture(scope="module")
+def k1_cases():
+    """(the port's weights, the JAX package's K1 f32 output) for each of
+    K1_SHAPES: dim 64, 2 heads of 32, a seeded (2, n, n) bias."""
+    from ct_clip_tpu.ops.pallas import _call
+    from ct_clip_tpu.ops.pallas.spatial_attention import _pallas_spatial
+
+    dim, heads, dh = 64, 2, 32
+    hd, out = heads * dh, []
+    _call.set_interpret(True)
+    jax.clear_caches()
+    try:
+        for i, (b, n) in enumerate(K1_SHAPES):
+            rng = np.random.RandomState(2081 + i)
+            x = rng.randn(b, n, dim).astype(np.float32)
+            w = [1 + 0.1 * rng.randn(dim), rng.randn(dim, hd) / np.sqrt(dim),
+                 rng.randn(dim, 2 * hd) / np.sqrt(dim), 1 + 0.3 * rng.rand(dh),
+                 1 + 0.3 * rng.rand(dh), rng.randn(hd, dim) / np.sqrt(hd),
+                 rng.randn(heads, n, n)]
+            w = [a.astype(np.float32) for a in w]
+            ref = _pallas_spatial(*map(jnp.asarray, [x] + w), heads=heads, dim_head=dh,
+                                  scale=8.0, dtype=jnp.float32, residual=True)
+            port = [x, w[0], w[1].T, w[2].T, w[3], w[4], w[5].T, w[6]]
+            out.append(([torch.from_numpy(np.ascontiguousarray(a)) for a in port],
+                        np.asarray(ref)))
+    finally:
+        _call.set_interpret(False)
+        jax.clear_caches()
+    return out
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "plain_tf32"])
+@pytest.mark.parametrize("shape", range(len(K1_SHAPES)), ids=[f"{b}x{n}" for b, n in K1_SHAPES])
+def test_k1_f32_tc32_forward_against_jax(k1_cases, shape, passes):
+    """The sublayer's output with every product in 3xTF32 lands within 1e-5
+    of max|JAX|, the card check's tolerance; with plain TF32 (hi hi alone)
+    it misses: the tolerance tells the two apart."""
+    port, ref = k1_cases[shape]
+    got = k1_sublayer_emulated(*port, 2, passes)
+    err = _rel_errors([got], [ref])[0]
+    if passes == 3:
+        assert err <= TOL, f"3xTF32 K1: {err:.3e} of max|JAX|"
+    else:
+        assert err > TOL, f"plain TF32 K1 reads {err:.3e}, within the tolerance"

@@ -6,7 +6,7 @@ inputs.
 
     python tools/port_attention_tc_probe.py [--kernel attention] [--out FILE.json]
     python tools/port_attention_tc_probe.py --kernel k17 | k9 | k9_f32 | k11 | k16a | k3_f32
-                                            [--tree DIR]
+                                            | k1 | k1_f32 [--tree DIR]
     python tools/port_attention_tc_probe.py --kernel k9_copies | k9_f32_copies
 
 `--kernel attention` (the default) times attention_tc.cu and
@@ -103,6 +103,20 @@ rows, zero-shot's 27,648 and the contrastive step's 110,592 (x 512, inner
 1,365): events, the device time of each kernel per call and the host time
 per call; beside it, where the tree has `ops/ffn.py::_geglu_ff_gemm`, the
 path it replaced (gemm.cu's f32 FFMA gemm_kernel on the same f32 tensors).
+
+`--kernel k1`: K1 in bf16 (`fused_spatial_qknorm_attention`, no grad) with
+a CPB-like bias at zero-shot's (48, 576, 512) planes, the contrastive step's
+(192, 576, 512) and the autoencoder's (160, 64, 512): events, the device
+time of each kernel per call and the host time per call; where the tree has
+`kernels.qk_bwd_tensor_cores`, again with the gate answering QK_CUDA_CORES
+("cuda_cores": the core on attention.cu, the path the tensor cores
+replaced), which splits that path's time between LN, the products and the
+core.  Then, kernel-only, each piece of the tensor-core route on its own
+(where the tree has `kernels.qk_attention_fwd`): LN, the q, kv and output
+products (gemm.cu), the core's pre-pass and forward pass.  `--kernel
+k1_f32`: the same in f32, whose pieces are the LN split, the x and weight
+splits, the q, kv (ffn_tc32.cu's plain-store form) and output (its
+residual form) products in 3xTF32, the core's pre-pass and forward pass.
 
 `--kernel k9_copies`: K9's core at (192, 576) on copies of
 qknorm_attention_tc.cu with one change each, in turns, there and back, with
@@ -425,20 +439,32 @@ def k17(dev, g) -> dict:
     return out
 
 
-def k9(dev, g, dtype=torch.bfloat16) -> dict:
-    from ct_clip_tpu_torch.ops.qknorm_attention import fused_spatial_qknorm_attention
+class CudaCores:
+    """The QK-norm core's gate answering QK_CUDA_CORES inside the block: K9's
+    core on qk_attention_bwd_kernel, K1's on attention.cu (in f32 with
+    gemm.cu's FFMA products), the paths the tensor cores replaced."""
 
-    class CudaCores:  # the core forced onto qk_attention_bwd_kernel
-        def __enter__(self):
-            self.gate = K.qk_bwd_tensor_cores
-            K.qk_bwd_tensor_cores = lambda *a: getattr(K, "QK_CUDA_CORES", False)
+    def __enter__(self):
+        self.gate = K.qk_bwd_tensor_cores
+        K.qk_bwd_tensor_cores = lambda *a: getattr(K, "QK_CUDA_CORES", False)
 
-        def __exit__(self, *exc):
-            K.qk_bwd_tensor_cores = self.gate
+    def __exit__(self, *exc):
+        K.qk_bwd_tensor_cores = self.gate
 
+
+def qk_routes() -> dict:
+    """route -> context: as built, and where the tree has the gate, with it
+    answering QK_CUDA_CORES."""
     routes = {"as_built": nullcontext}
     if hasattr(K, "qk_bwd_tensor_cores"):
         routes["cuda_cores"] = CudaCores
+    return routes
+
+
+def k9(dev, g, dtype=torch.bfloat16) -> dict:
+    from ct_clip_tpu_torch.ops.qknorm_attention import fused_spatial_qknorm_attention
+
+    routes = qk_routes()
     heads, d, dim = 8, 32, 512
     hd = heads * d
     out = {}
@@ -471,6 +497,74 @@ def k9(dev, g, dtype=torch.bfloat16) -> dict:
         del q, kv, dm, x, do, leaves, y
         torch.cuda.empty_cache()
     return out
+
+
+def k1(dev, g, dtype=torch.bfloat16) -> dict:
+    """K1 at three shapes on both routes, and its pieces (module doc)."""
+    from ct_clip_tpu_torch.ops import qknorm_attention as Q
+
+    routes = qk_routes()
+    heads, d, dim = 8, 32, 512
+    hd, f32 = heads * d, dtype == torch.float32
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    w = (1 + rn(dim, scale=0.1), rn(hd, dim, scale=dim ** -0.5), rn(2 * hd, dim, scale=dim ** -0.5),
+         1 + rn(d, scale=0.2), 1 + rn(d, scale=0.2), rn(dim, hd, scale=hd ** -0.5))
+    out = {}
+    for label, (S, n) in (("zero_shot", (48, 576)), ("contrastive", (192, 576)),
+                          ("autoencoder", (160, 64))):
+        x, bias = rn(S, n, dim).to(dtype), rn(heads, n, n)
+        for route, ctx in routes.items():
+            with ctx():
+                row = measure(lambda: Q.fused_spatial_qknorm_attention(x, *w, bias, heads, d))
+            print(f"K1 {str(dtype)[6:]} {label} {route}: {json.dumps(row)}", flush=True)
+            out[f"{label}/{route}"] = row
+        if hasattr(K, "qk_attention_fwd"):
+            out[f"{label}/pieces"] = k1_pieces(x, w, bias, heads, d, f32)
+            print(f"K1 {str(dtype)[6:]} {label} pieces: {json.dumps(out[f'{label}/pieces'])}",
+                  flush=True)
+        del x, bias
+        torch.cuda.empty_cache()
+    return out
+
+
+def k1_pieces(x, w, bias, heads, d, f32) -> dict:
+    """Each launch of K1's tensor-core route on its own, on the inputs of the
+    call: events and each kernel's device time per call."""
+    from ct_clip_tpu_torch.ops import qknorm_attention as Q
+
+    S, n, dim = x.shape
+    hd, x2 = heads * d, x.view(-1, dim)
+    gamma, wq, wkv, qs, ks, wout = w
+    layout = dict(sequences=S, inner=1, heads=heads, n=n, d=d, q_strides=(n * hd, 0, d, hd),
+                  kv_strides=(n * 2 * hd, 0, d, 2 * hd), q_scale=qs * 8.0, k_scale=ks,
+                  bias=bias)
+    if f32:
+        ws = Q._tc32_weights(wq, wkv, wout)
+        xn = K.layernorm_split(x2, gamma, None, 1e-5)
+        xs = K.tc32_split(x2)
+        q, kv = K.tc32_gemm(*xn, *ws[0]), K.tc32_gemm(*xs, *ws[1])
+        merged = K.qk_attention_fwd(q, kv, **layout)
+        calls = dict(weights_split=lambda: Q._tc32_weights(wq, wkv, wout),
+                     ln_split=lambda: K.layernorm_split(x2, gamma, None, 1e-5),
+                     x_split=lambda: K.tc32_split(x2),
+                     q_product=lambda: K.tc32_gemm(*xn, *ws[0]),
+                     kv_product=lambda: K.tc32_gemm(*xs, *ws[1]),
+                     core=lambda: K.qk_attention_fwd(q, kv, **layout),
+                     out_product=lambda: K.tc32_gemm(*merged, *ws[2], residual=x2))
+    else:
+        wq_c, wkv_c, wo_c = (t.to(x.dtype).contiguous() for t in (wq, wkv, wout))
+        xn, q, kv = Q._project(x2, gamma, wq, wkv, hd)
+        merged, res = K.qk_attention_fwd(q, kv, **layout), torch.empty_like(x2)
+        calls = dict(ln=lambda: K.layernorm(x2, gamma, None, 1e-5, torch.empty_like(x2)),
+                     q_product=lambda: K.gemm(K.EPI_STORE, xn, wq_c, torch.empty_like(q)),
+                     kv_product=lambda: K.gemm(K.EPI_STORE, x2, wkv_c, torch.empty_like(kv)),
+                     core=lambda: K.qk_attention_fwd(q, kv, **layout),
+                     out_product=lambda: K.gemm(K.EPI_RESIDUAL, merged, wo_c, res, residual=x2))
+    with torch.no_grad():
+        return {name: dict(events_ms=event_ms(fn), kernel_ms=kernel_ms(fn))
+                for name, fn in calls.items()}
 
 
 def k11(dev, g) -> dict:
@@ -615,10 +709,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", default="attention",
                     choices=("attention", "k17", "k9", "k9_f32", "k11", "k16a", "k3_f32",
-                             "k9_copies", "k9_f32_copies"))
+                             "k9_copies", "k9_f32_copies", "k1", "k1_f32"))
     ap.add_argument("--tree", default=str(ROOT),
                     help="the checkout whose package is timed (k17, k9, k9_f32, k11, k16a, "
-                         "k3_f32)")
+                         "k3_f32, k1, k1_f32)")
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -639,7 +733,7 @@ def main() -> int:
         results.update(tree=str(_tree()), library=K.library_path().name)
         results[args.kernel] = dict(
             k17=k17, k9=k9, k9_f32=lambda dev, g: k9(dev, g, torch.float32), k11=k11,
-            k16a=k16a, k3_f32=k3_f32,
+            k16a=k16a, k3_f32=k3_f32, k1=k1, k1_f32=lambda dev, g: k1(dev, g, torch.float32),
             k9_copies=k9_copies,
             k9_f32_copies=lambda dev, g: k9_copies(dev, g, QK32, QK32_COPIES, torch.float32),
             )[args.kernel](dev, g)

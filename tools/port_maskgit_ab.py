@@ -6,8 +6,8 @@ line, so that two commits can be compared on one card in turns:
     for t in build/parent build/change build/change build/parent; do
         python tools/port_maskgit_ab.py $t [--phase maskgit | maskgit_f32 | radbert |
                                               ctclip | ctclip_f32 | ctclip_160 |
-                                              ctvit_ae | ctvit_ae_f32 | zeroshot_f32 |
-                                              ctclip_aux_a]
+                                              ctvit_ae | ctvit_ae_f32 | zeroshot |
+                                              zeroshot_f32 | ctclip_aux_a]
     done
 
 Phases: `maskgit` (the default; `maskgit_phase`: MaskGitTrainer steps with
@@ -18,9 +18,10 @@ the same in f32), `radbert` (`radbert_phase`: the CLI's radbert-train,
 `ctclip_f32` (the same with `--no-bf16`: the f32 contrastive step),
 `ctclip_160` (`ctclip_160_phase`: CT-CLIP at 160 frames), `ctvit_ae`
 (`ctvit_ae_phase`: the autoencoder's generator steps at batch 8) and
-`ctvit_ae_f32` (the same on an f32 CTViT), `zeroshot_f32` (`score_batch`
-of an f32 CTCLIP at full width on a batch of 2, patch rows: 5 calls between
-CUDA events, their median the "step", and a profiled call) and
+`ctvit_ae_f32` (the same on an f32 CTViT), `zeroshot` (`score_batch` of a
+bf16 CTCLIP at full width on a batch of 2, patch rows: 5 calls between CUDA
+events, their median the "step", and a profiled call), `zeroshot_f32` (the
+same for an f32 CTCLIP) and
 `ctclip_aux_a` (the aux (a) step: `CTClipTrainer` with SimSiam on the
 temporal tap and MLM at batch 8 on volumes, `timed_steps` without the CLI
 run, the evaluation or the checkpoint).  Each
@@ -42,8 +43,8 @@ from pathlib import Path
 import torch
 
 
-def zeroshot_f32(cs, dev) -> dict:
-    """`score_batch` of CTCLIP(dtype=float32) at full width on 2 volumes' patch
+def zeroshot(cs, dev, dtype=torch.bfloat16) -> dict:
+    """`score_batch` of CTCLIP(dtype=dtype) at full width on 2 volumes' patch
     rows (K6 route, seeded weights): 5 calls between CUDA events and a
     profiled call."""
     from ct_clip_tpu_torch.config import CTCLIPConfig
@@ -53,7 +54,7 @@ def zeroshot_f32(cs, dev) -> dict:
 
     vocab = Path(tempfile.mkdtemp()) / "vocab.txt"
     cs.write_vocab(vocab)
-    model = CTCLIP(CTCLIPConfig(), dtype=torch.float32, device=dev).eval()
+    model = CTCLIP(CTCLIPConfig(), dtype=dtype, device=dev).eval()
     model.init_weights(torch.Generator(device=dev).manual_seed(0))
     clf = ZeroShotClassifier(model, WordPieceTokenizer(str(vocab)))
     v = model.config.ctvit
@@ -69,7 +70,8 @@ def zeroshot_f32(cs, dev) -> dict:
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
-        bd = cs.profile_step(lambda: clf.score_batch(x), cs.CTCLIP_GROUPS, "zero-shot f32")
+        bd = cs.profile_step(lambda: clf.score_batch(x), cs.CTCLIP_GROUPS,
+                             f"zero-shot {str(dtype)[6:]}")
     return dict(step_ms=sorted(times[1:])[2], step_ms_all=times, step_breakdown=bd)
 
 
@@ -100,7 +102,7 @@ def main() -> int:
     ap.add_argument("tree", help="the root of a checkout")
     ap.add_argument("--phase", choices=("maskgit", "maskgit_f32", "radbert", "ctclip",
                                         "ctclip_f32", "ctclip_160", "ctvit_ae", "ctvit_ae_f32",
-                                        "zeroshot_f32", "ctclip_aux_a"),
+                                        "zeroshot", "zeroshot_f32", "ctclip_aux_a"),
                     default="maskgit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -122,8 +124,8 @@ def main() -> int:
         r = cs.ctclip_160_phase(dev, work, str(tree), cs.write_train_corpus(work))
     elif args.phase == "ctvit_ae_f32":
         r = cs.ctvit_ae_phase(dev, work, str(tree), "f32")
-    elif args.phase == "zeroshot_f32":
-        r = zeroshot_f32(cs, dev)
+    elif args.phase in ("zeroshot", "zeroshot_f32"):
+        r = zeroshot(cs, dev, torch.float32 if args.phase == "zeroshot_f32" else torch.bfloat16)
     elif args.phase == "ctclip_aux_a":
         r = ctclip_aux_a(cs, dev, work, str(tree))
     else:
