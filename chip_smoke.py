@@ -36,7 +36,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
      512) in phase 8), the replaced path (the core on attention.cu's CUDA
      cores) timed beside it; the core alone at those planes against its plain
      version at the TPU's rounding points, bit-identical across runs, with
-     SDPA on the normalised heads as the library call (`k1_phase`);
+     SDPA on the normalised heads as the library call (`k1_phase`).  K3 bf16
+     (its GEGLU and residual products on ffn_tc.cu's `wgmma`, counter
+     `ff_tc_fwd`) at zero-shot's 27,648 rows, MaskGIT's 10,240, the
+     contrastive step's 110,592 and a ragged 10,001 (`k3_phase`: bit-identical
+     across runs), and K5's inference assignment on bf16 rows (vq_tc.cu,
+     counter `vq_assign_tc`) at (27,648, 512, 8,192), ragged rows and a
+     ragged code count (>= 99% of ids equal, the rest near-ties) and on
+     planted exact ties (ids equal to torch.argmax's, bit for bit); each with
+     the replaced gemm.cu path and a cuBLAS yardstick timed beside it (a
+     note: no one PyTorch call computes K3 or K5);
   3. zero-shot phase: a 3-volume synthetic CT-RATE corpus (NIfTI + CSVs +
      a toy vocab) through `run_zero_shot` at full CT-CLIP width (seeded
      random weights), batch 2 with a tail batch, twice: on the patch-row
@@ -176,8 +185,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      path, attention.cu's f32 core and gemm.cu's FFMA products, timed beside
      it; the contrastive and ragged planes and the core alone, its plain-TF32
      copy outside TC32_REL_TOL, as in phase 2), K2 grid and seq, K5 on f32
-     rows (ids equal to the plain version of its own math: rows normalised
-     and rounded to bf16; the share equal to the full-f32 argmax reported),
+     rows on three seeds (vq_tc.cu's pre-pass and assignment; ids equal to
+     the plain version of its own math, `vq_assign_rows_lane_plain`, whose
+     bf16 rows are the pre-pass's bit for bit, the rest ties within 1e-5 of
+     the row's largest |sim|; the share equal to the full-f32 argmax
+     reported; gemm.cu's f32-row form timed beside it),
      K6 and K17 bit-exact; `run_zero_shot` with CTCLIP(dtype=float32) on
      both routes (launches per kernel equal to the bf16 run's, on the f32
      forms, the embeds on their plain route, as JAX takes XLA there) with
@@ -296,9 +308,12 @@ KERNELS = {
                               "small_attention.py:196", "attention.cu",
                               ["layernorm.cu", "gemm.cu", "attention.cu"],
                               "grid_attention", "zero_shot_rows"),
-    "geglu_ff": _kernel("fused_geglu_ff", "ffn.py:105", "gemm.cu",
-                        ["layernorm.cu", "gemm.cu"], "geglu_ff", "zero_shot_rows"),
-    "vq_assign": _kernel("pallas_assign", "vq.py:104", "gemm.cu", ["gemm.cu"],
+    # K3 bf16: its GEGLU and residual products on ffn_tc.cu (`wgmma`, counter
+    # ff_tc_fwd beside geglu_ff)
+    "geglu_ff": _kernel("fused_geglu_ff", "ffn.py:105", "ffn_tc.cu",
+                        ["layernorm.cu", "ffn_tc.cu"], "geglu_ff", "zero_shot_rows"),
+    # K5 inference on vq_tc.cu (`wgmma`, counter vq_assign_tc beside vq_assign)
+    "vq_assign": _kernel("pallas_assign", "vq.py:104", "vq_tc.cu", ["vq_tc.cu"],
                          "vq_assign", "zero_shot_rows"),
     "fused_attention": _kernel("fused_attention", "attention.py:129", "attention_tc.cu",
                                ATTN_TC, "fused_attention", "zero_shot_rows"),
@@ -428,7 +443,8 @@ KERNELS = {
                                  "small_attention.py:196", "attention.cu",
                                  ["layernorm.cu", "gemm.cu", "attention.cu"],
                                  "seq_attention_f32", "maskgit_f32_encode_ids"),
-    "vq_assign_f32": _kernel("pallas_assign (f32 rows)", "vq.py:104", "gemm.cu", ["gemm.cu"],
+    # K5 on f32 rows: vq_tc.cu's pre-pass, then its assignment
+    "vq_assign_f32": _kernel("pallas_assign (f32 rows)", "vq.py:104", "vq_tc.cu", ["vq_tc.cu"],
                              "vq_assign_f32", "zero_shot_f32_rows"),
     "rearrange_patches_f32": _kernel("rearrange_patches (f32)", "patchify.py:105",
                                      "rearrange.cu", ["rearrange.cu"], "rearrange_patches_f32",
@@ -463,8 +479,8 @@ KERNELS = {
                                     "ctclip_f32_train"),
 }
 # launch counters each driven path must raise
-COMMON = ["spatial_attention", "qk_attention_tc", "grid_attention", "geglu_ff", "vq_assign",
-          "fused_attention", "attention_tc"]
+COMMON = ["spatial_attention", "qk_attention_tc", "grid_attention", "geglu_ff", "ff_tc_fwd",
+          "vq_assign", "vq_assign_tc", "fused_attention", "attention_tc"]
 PATHS = {
     "zero_shot_rows": COMMON + ["rearrange_patches", "row_embed"],
     "zero_shot_volume": COMMON + ["patch_embed"],
@@ -484,10 +500,11 @@ PATHS = {
     "ctclip_train": ["geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm", "spatial_attention_bwd",
                      "qk_attention_tc_bwd",
                      "grid_attention_bwd", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
-                     "geglu_ff", "spatial_attention", "qk_attention_tc", "grid_attention",
+                     "geglu_ff", "ff_tc_fwd", "spatial_attention", "qk_attention_tc",
+                     "grid_attention",
                      "attention_dropout", "attention_dropout_bwd", "attention_tc_bwd",
                      "rearrange_patches",
-                     "row_embed", "vq_assign", "fused_attention", "attention_tc"],
+                     "row_embed", "vq_assign", "vq_assign_tc", "fused_attention", "attention_tc"],
     # the inference embeds under grad, on a volume and on rows
     "embed_grad": ["patch_embed", "patch_embed_bwd", "ff_tc_gemm", "unrearrange_patches",
                    "row_embed", "row_embed_bwd"],
@@ -497,31 +514,35 @@ PATHS = {
 AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "ff_tc_ln_sums", "rearrange_patches",
              "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm",
              "spatial_attention_bwd", "qk_attention_tc_bwd", "grid_attention_bwd", "peg_bwd",
-             "vq_cluster_stats", "vq_assign_exact", "geglu_ff", "spatial_attention",
+             "vq_cluster_stats", "vq_assign_exact", "geglu_ff", "ff_tc_fwd", "spatial_attention",
              "qk_attention_tc", "grid_attention", "attention_dropout", "attention_dropout_bwd",
              "attention_tc", "attention_tc_bwd"]
-PATHS["ctclip_aux_ssl_mlm"] = AUX_TRAIN + ["vq_assign", "fused_attention"]  # + mini-eval
+PATHS["ctclip_aux_ssl_mlm"] = AUX_TRAIN + ["vq_assign", "vq_assign_tc",
+                                           "fused_attention"]  # + mini-eval
 PATHS["ctclip_aux_filip_simclr"] = AUX_TRAIN
 # phase 8: the CTViT autoencoder on GenerateCT's non-cubic (20, 8, 8) grid
 # (training embed K6, decoder un-patchify K17 forward and K6 backward),
 # `cli reconstruct` on the cubic 24^3 grid, CT-CLIP at 160 frames (16, 24, 24)
 AE_TRAIN = ["seq_attention", "seq_attention_bwd", "spatial_attention", "qk_attention_tc",
-            "spatial_attention_bwd", "qk_attention_tc_bwd", "geglu_ff", "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm",
+            "spatial_attention_bwd", "qk_attention_tc_bwd", "geglu_ff", "ff_tc_fwd",
+            "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm",
             "peg_bwd", "vq_cluster_stats", "vq_assign_exact", "rearrange_patches",
             "unrearrange_patches"]
 PATHS["ctvit_ae_train"] = AE_TRAIN
-PATHS["ctvit_ae_discr"] = AE_TRAIN + ["vq_assign", "patch_embed"]  # + the inference recon
+# + the inference recon
+PATHS["ctvit_ae_discr"] = AE_TRAIN + ["vq_assign", "vq_assign_tc", "patch_embed"]
 PATHS["reconstruct"] = ["patch_embed", "spatial_attention", "qk_attention_tc", "grid_attention",
-                        "geglu_ff",
-                        "vq_assign", "unrearrange_patches"]
+                        "geglu_ff", "ff_tc_fwd",
+                        "vq_assign", "vq_assign_tc", "unrearrange_patches"]
 PATHS["ctclip_160_train"] = ["seq_attention", "seq_attention_bwd", "spatial_attention",
-                             "qk_attention_tc", "spatial_attention_bwd", "qk_attention_tc_bwd", "geglu_ff",
+                             "qk_attention_tc", "spatial_attention_bwd", "qk_attention_tc_bwd",
+                             "geglu_ff", "ff_tc_fwd",
                              "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
                              "rearrange_patches", "attention_dropout", "attention_dropout_bwd",
                              "attention_tc", "attention_tc_bwd"]
 PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "qk_attention_tc", "seq_attention",
-                          "geglu_ff",
-                          "vq_assign", "fused_attention", "attention_tc"]
+                          "geglu_ff", "ff_tc_fwd",
+                          "vq_assign", "vq_assign_tc", "fused_attention", "attention_tc"]
 # phase 9: MaskGIT on the frozen autoencoder's (20, 8, 8) codes.  A training
 # step: the MaskGit's self-attention with the 3-D CPB bias (K7 dense, K12b)
 # and the critic's without a bias (K7, K12b with no bias), all bf16 on the
@@ -530,14 +551,18 @@ PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "qk_attention_tc", "
 # dense, the critic's K7, the decoder's K2 seq, K1, K3, K17); T5 without a
 # mask (K7 dense in f32, 12 per-head biases)
 PATHS["maskgit_train"] = ["attention_dense", "attention_dense_bwd", "fused_attention",
-                          "attention_tc", "attention_tc_bwd", "geglu_ff", "geglu_ff_bwd",
+                          "attention_tc", "attention_tc_bwd", "geglu_ff", "ff_tc_fwd",
+                          "geglu_ff_bwd",
                           "ff_tc_tile", "ff_tc_gemm", "peg_bwd"]
 PATHS["maskgit_encode_ids"] = ["patch_embed", "spatial_attention", "qk_attention_tc",
-                               "seq_attention", "geglu_ff", "vq_assign"]
+                               "seq_attention", "geglu_ff", "ff_tc_fwd", "vq_assign",
+                               "vq_assign_tc"]
 PATHS["maskgit_sample"] = ["attention_dense", "fused_attention", "attention_tc", "geglu_ff",
+                           "ff_tc_fwd",
                            "seq_attention", "spatial_attention", "qk_attention_tc",
                            "unrearrange_patches"]
-PATHS["maskgit_sample_primed"] = PATHS["maskgit_sample"] + ["patch_embed", "vq_assign"]
+PATHS["maskgit_sample_primed"] = PATHS["maskgit_sample"] + ["patch_embed", "vq_assign",
+                                                             "vq_assign_tc"]
 PATHS["t5_no_mask"] = ["attention_dense", "attention_tc32"]
 # phase 10: f32 zero-shot (the f32 forms of K1, K2 grid, K3, K5 on f32 rows,
 # K6; the embeds on their plain route, K7 f32 for the prompts) and the f32
@@ -545,12 +570,13 @@ PATHS["t5_no_mask"] = ["attention_dense", "attention_tc32"]
 # K12b f32 dense and with no bias on attention_tc32.cu, the PEG's plain dW;
 # sampling's decoder with K2 seq, K1, K3 and K17 f32)
 F32_ZS = ["spatial_attention_f32", "qk_attention_tc32", "tc32_gemm", "grid_attention_f32",
-          "geglu_ff_f32", "geglu_ff_tc32", "vq_assign_f32", "fused_attention", "attention_tc32"]
+          "geglu_ff_f32", "geglu_ff_tc32", "vq_assign_f32", "vq_assign_tc", "fused_attention",
+          "attention_tc32"]
 PATHS["zero_shot_f32_rows"] = F32_ZS + ["rearrange_patches_f32", "row_embed_plain"]
 PATHS["zero_shot_f32_volume"] = F32_ZS + ["patch_embed_plain"]
 PATHS["maskgit_f32_encode_ids"] = ["patch_embed_plain", "spatial_attention_f32",
                                    "qk_attention_tc32", "tc32_gemm", "seq_attention_f32", "geglu_ff_f32", "geglu_ff_tc32",
-                                   "vq_assign_f32"]
+                                   "vq_assign_f32", "vq_assign_tc"]
 PATHS["maskgit_f32_train"] = ["geglu_ff_f32", "geglu_ff_tc32", "geglu_ff_bwd_f32",
                               "attention_dense",
                               "attention_dense_bwd", "attention_tc32", "attention_tc32_bwd",
@@ -573,7 +599,7 @@ PATHS["ctclip_f32_train"] = ["spatial_attention_bwd_f32", "qk_attention_tc32_bwd
                              "rearrange_patches_f32", "attention_dropout",
                              "attention_dropout_bwd", "attention_tc32", "attention_tc32_bwd",
                              "peg_dw_plain",
-                             "vq_assign_f32",
+                             "vq_assign_f32", "vq_assign_tc",
                              "row_embed_plain", "fused_attention"]
 AE_F32_TRAIN = ["seq_attention_f32", "seq_attention_bwd_f32", "spatial_attention_f32",
                 "qk_attention_tc32", "tc32_gemm", "spatial_attention_bwd_f32", "qk_attention_tc32_bwd", "geglu_ff_f32",
@@ -644,7 +670,7 @@ def kernel_cases(dev):
     import torch.nn.functional as F
 
     from ct_clip_tpu_torch.ops.attention import attention_plain, fused_attention
-    from ct_clip_tpu_torch.ops.ffn import fused_geglu_ff, geglu_ff_plain
+    from ct_clip_tpu_torch.ops.ffn import _geglu_ff_gemm, fused_geglu_ff, geglu_ff_plain
     from ct_clip_tpu_torch.ops.patch_embed import (
         fused_patch_embed, fused_row_embed, patch_embed_plain, rearrange_patches,
         rearrange_plain, row_embed_plain)
@@ -708,6 +734,8 @@ def kernel_cases(dev):
             rn(2730, dim, scale=dim ** -0.5), rn(dim, 1365, scale=1365 ** -0.5))
     cases["geglu_ff"] = dict(
         kern=lambda: fused_geglu_ff(xf, *w_ff), plain=lambda: geglu_ff_plain(xf, *w_ff),
+        twin=lambda: _geglu_ff_gemm(xf, *w_ff, 1e-5), twin_source=K3_REPLACED,
+        yardstick=k3_yardstick(xf, w_ff), yardstick_is=K3_YARDSTICK,
         library=None, inputs=(xf, *w_ff), flops=2 * tokens * dim * (2730 + 1365))
 
     # BERT: 36 prompts x 12 heads x 512 positions x 64, head-major views of
@@ -728,16 +756,109 @@ def kernel_cases(dev):
     return cases
 
 
-def vq_case(dev):
+# K3 bf16's replaced path and its cuBLAS yardstick (a note, not the row's
+# one-call library time: no PyTorch call computes K3 whole)
+K3_REPLACED = "gemm.cu (WMMA EPI_GEGLU and EPI_RESIDUAL, layernorm.cu's LN as on the new route)"
+K3_YARDSTICK = "F.layer_norm, F.linear to [a | g], a * gelu(g), F.linear + x (cuBLAS)"
+K5_REPLACED = "gemm.cu (gemm_argmax_kernel, WMMA)"
+K5_YARDSTICK = "x @ c^T (cuBLAS, bf16 out) then argmax"
+
+
+def k3_yardstick(x, w_ff):
+    """K3 bf16 as PyTorch calls (`K3_YARDSTICK`) on the same x and weights."""
+    import torch.nn.functional as F
+
+    scale, bias, wi, wo = w_ff
+    wi, wo = wi.to(x.dtype), wo.to(x.dtype)
+    inner = wo.shape[1]
+
+    def run():
+        h = F.linear(F.layer_norm(x, (x.shape[1],), scale.to(x.dtype), bias.to(x.dtype)), wi)
+        return F.linear(h[:, :inner] * F.gelu(h[:, inner:]), wo) + x
+    return run
+
+
+def vq_case(dev, rows: int = B * 13824, codes: int = 8192, seed: int = 1):
+    """K5 on bf16 rows: (x, embed_n, kernel, plain) at zero-shot's (27,648,
+    512, 8,192) unless stated."""
     import torch
 
     from ct_clip_tpu_torch.ops.norms import l2norm
     from ct_clip_tpu_torch.ops.vq import vq_assign, vq_assign_plain
 
-    g = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn((B * 13824, 512), generator=g, device=dev).to(torch.bfloat16)
-    embed_n = l2norm(torch.randn((8192, 512), generator=g, device=dev))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((rows, 512), generator=g, device=dev).to(torch.bfloat16)
+    embed_n = l2norm(torch.randn((codes, 512), generator=g, device=dev))
     return x, embed_n, (lambda: vq_assign(x, embed_n)), (lambda: vq_assign_plain(x, embed_n))
+
+
+def k5_bf16_check(label: str, x, embed_n, got, ref) -> dict:
+    """K5 bf16's check: >= 99% of ids equal to the plain version's, the rest
+    near-ties within the bf16 margin (4e-3 of the row's largest |sim|,
+    vq.py:17-22)."""
+    import torch
+
+    sim = x.float() @ embed_n.to(torch.bfloat16).float().t()
+    gap = (sim.gather(1, ref[:, None]) - sim.gather(1, got[:, None])).abs()[:, 0]
+    agree = (got == ref).float().mean().item()
+    margin_ok = bool((gap <= 4e-3 * sim.abs().max(dim=1).values).all())
+    log(f"kernel {label}: id agreement {agree:.6f} max sim gap {gap.max().item():.4e} "
+        f"(>= 0.99 equal, the rest within 4e-3 of max)")
+    if agree < 0.99 or not margin_ok:
+        raise AssertionError(f"{label}: agreement {agree}, near-ties {margin_ok}")
+    del sim
+    return dict(max_abs_err=gap.max().item(), id_agreement=agree,
+                tolerance=">= 0.99 ids equal, rest near-ties")
+
+
+def ids_twin_result(name: str, fn, ref, source: str) -> dict:
+    """The replaced assignment `fn` on the same rows: its median time and
+    its ids' agreement with the plain version's `ref` (reported)."""
+    import torch
+
+    got = fn().long()
+    torch.cuda.synchronize()
+    agree = (got == ref.long()).float().mean().item()
+    ms = cuda_ms(fn)
+    log(f"kernel {name}: the replaced form ({source}) {ms:.3f} ms, ids equal to the plain "
+        f"version's {agree:.6f}")
+    return dict(source=CSRC + source.split(" ")[0], source_is=source, ms=ms, id_agreement=agree)
+
+
+def k5_planted_ties(dev) -> dict:
+    """K5 bf16 on exactly tied similarities at zero-shot's (27,648, 512,
+    8,192): rows of integers in [-2, 2] against codes of integers in [-1,
+    1] (every product and f32 sum exact, in any order), with the best code
+    of one row in eleven copied to another index, lower or higher; the ids
+    must equal torch.argmax's on the exact similarities, bit for bit (the
+    lower code wins a tie)."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.vq import vq_assign
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    rows, dim, codes = B * 13824, 512, 8192
+    x = torch.randint(-2, 3, (rows, dim), generator=g, device=dev).to(torch.bfloat16)
+    c = torch.randint(-1, 2, (codes, dim), generator=g, device=dev).float()
+    best = (x.float() @ c.t()).argmax(dim=-1)[::11]
+    dst = torch.randint(0, codes, best.shape, generator=g, device=dev)
+    c[dst] = c[best]
+    sim = x.float() @ c.t()
+    want = sim.argmax(dim=-1).to(torch.int32)
+    tied = int(((sim == sim.max(dim=-1, keepdim=True).values).sum(dim=-1) > 1).sum())
+    del sim
+    K.reset_launch_counts()
+    got = vq_assign(x, c)
+    torch.cuda.synchronize()
+    launched = K.launch_counts()["vq_assign_tc"]
+    equal = bool(torch.equal(got, want))
+    log(f"kernel vq_assign on planted exact ties: {tied} of {rows} rows tie at their max; ids "
+        f"equal to torch.argmax's: {equal} (vq_tc.cu launches {launched})")
+    if not equal or tied < 1000 or launched != 1:
+        raise AssertionError(f"vq_assign planted ties: equal {equal}, tied rows {tied}, "
+                             f"launches {launched}")
+    return dict(rows_tied_at_max=tied, ids_equal_torch_argmax=equal)
 
 
 def timing(case, out) -> dict:
@@ -962,6 +1083,43 @@ def k1_phase(dev, dtype, results: dict) -> None:
     results[f"{tag}_tc"] = core
 
 
+def k3_cases(dev):
+    """K3 bf16 on ffn_tc.cu beyond zero-shot's 27,648 rows (kernel_cases):
+    MaskGIT's (and the autoencoder's) 10,240 rows, the contrastive step's
+    110,592 (its 8 forward FFs a step) and a ragged 10,001, each within
+    REL_TOL of max|plain| and bit-identical across runs, the replaced path
+    (gemm.cu's WMMA epilogues) and the cuBLAS yardstick timed beside it."""
+    import torch
+
+    from ct_clip_tpu_torch.ops.ffn import _geglu_ff_gemm, fused_geglu_ff, geglu_ff_plain
+
+    g = torch.Generator(device=dev).manual_seed(72)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    dim, inner = 512, 1365
+    w_ff = (1 + rn(dim, scale=0.1), rn(dim, scale=0.1), rn(2 * inner, dim, scale=dim ** -0.5),
+            rn(dim, inner, scale=inner ** -0.5))
+    for label, rows in (("maskgit", MG_B * 1280), ("contrastive", TRAIN_B * 13824),
+                        ("ragged", 10001)):
+        x = rn(rows, dim).to(torch.bfloat16)
+        yield f"geglu_ff_{label}", dict(
+            kern=lambda x=x: fused_geglu_ff(x, *w_ff), plain=lambda x=x: geglu_ff_plain(x, *w_ff),
+            twin=lambda x=x: _geglu_ff_gemm(x, *w_ff, 1e-5), twin_source=K3_REPLACED,
+            yardstick=k3_yardstick(x, w_ff), yardstick_is=K3_YARDSTICK, bit_identical=True,
+            library=None, inputs=(x, *w_ff), outputs=(x,),
+            flops=2 * rows * dim * (2 * inner + inner), tol=REL_TOL)
+        del x
+
+
+def k3_phase(dev, results: dict) -> None:
+    """`k3_cases` through `train_kernel_phase`, nested under K3's entry."""
+    res = train_kernel_phase(dev, k3_cases(dev), B)
+    for label in ("maskgit", "contrastive", "ragged"):
+        results["geglu_ff"][f"at_{label}"] = res.pop(f"geglu_ff_{label}")
+
+
 def qk_core_case(dev, g, S: int, n: int) -> dict:
     """K9's bf16 attention core alone (kernels.qk_attention_bwd) on (S, n)
     planes, 8 heads of 32, with an (8, n, n) bias, as the sublayer's backward
@@ -1046,29 +1204,52 @@ def kernel_phase(dev):
         if case.get("twin"):
             res["replaced"] = twin_result(name, case["twin"], ref,
                                           case.get("twin_source", "attention_train.cu"))
+        yardstick(case, res, name)
         results[name] = res
         del got, ref
 
-    x, embed_n, kern, plain = vq_case(dev)
-    got, ref = kern().long(), plain().long()
-    sim = x.float() @ embed_n.to(torch.bfloat16).float().t()
-    gap = (sim.gather(1, ref[:, None]) - sim.gather(1, got[:, None])).abs()[:, 0]
-    agree = (got == ref).float().mean().item()
-    # a disagreement must be a near-tie within the bf16 margin (vq.py:17-22)
-    margin_ok = bool((gap <= 4e-3 * sim.abs().max(dim=1).values).all())
-    res = timing(dict(kern=kern, plain=plain, library=None,
-                      inputs=(x, embed_n), flops=2 * x.shape[0] * 512 * 8192), got.int())
-    log(f"kernel vq_assign: id agreement {agree:.6f} max sim gap "
-        f"{gap.max().item():.4e} kernel {res['ms']:.3f} ms plain {res['plain_ms']:.3f} ms "
-        f"library none bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
-        f"{100 * res['bound_share']:.1f}% of it reached)")
-    if agree < 0.99 or not margin_ok:
-        raise AssertionError(f"vq_assign: agreement {agree}, near-ties {margin_ok}")
-    results["vq_assign"] = dict(max_abs_err=gap.max().item(), id_agreement=agree,
-                                tolerance=">= 0.99 ids equal, rest near-ties", **res)
-    del sim, x, embed_n
+    # K5 on bf16 rows at zero-shot's (27,648, 512, 8,192), then ragged rows
+    # and a ragged code count (checked, untimed), then planted exact ties
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    for label, shape in (("", {}), ("_ragged_rows", dict(rows=10001, seed=2)),
+                         ("_ragged_codes", dict(codes=8000, seed=3))):
+        x, embed_n, kern, plain = vq_case(dev, **shape)
+        got, ref = kern().long(), plain().long()
+        res = k5_bf16_check(f"vq_assign{label}", x, embed_n, got, ref)
+        if label:
+            results["vq_assign"][f"at{label}"] = dict(res, rows=x.shape[0],
+                                                      codes=embed_n.shape[0])
+            del x, embed_n, got, ref
+            continue
+        cb = embed_n.to(torch.bfloat16).contiguous()
+        case = dict(kern=kern, plain=plain, library=None, inputs=(x, embed_n),
+                    flops=2 * x.shape[0] * 512 * 8192, yardstick_is=K5_YARDSTICK,
+                    yardstick=lambda: (x @ cb.t()).argmax(dim=-1))
+        res.update(timing(case, got.int()))
+        res["replaced"] = ids_twin_result("vq_assign", lambda: K.gemm_argmax(x, cb), ref,
+                                          K5_REPLACED)
+        yardstick(case, res, "vq_assign")
+        log(f"kernel vq_assign: kernel {res['ms']:.3f} ms plain {res['plain_ms']:.3f} ms "
+            f"library none bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+            f"{100 * res['bound_share']:.1f}% of it reached)")
+        results["vq_assign"] = res
+        del x, embed_n, cb, got, ref
+    results["vq_assign"]["planted_ties"] = k5_planted_ties(dev)
     torch.cuda.empty_cache()
     return results
+
+
+def yardstick(case, res: dict, name: str) -> None:
+    """A case's cuBLAS yardstick (`yardstick`: PyTorch calls computing the
+    same function, not one call, so not the row's library time): its median
+    time into `res` as a note."""
+    if not case.get("yardstick"):
+        return
+    res["cublas_yardstick_ms"] = cuda_ms(case["yardstick"])
+    res["cublas_yardstick"] = case["yardstick_is"]
+    log(f"kernel {name}: cuBLAS yardstick ({case['yardstick_is']}) "
+        f"{res['cublas_yardstick_ms']:.3f} ms")
 
 
 # ------------------------------------------ phase 2, RadBERT training attention
@@ -1748,7 +1929,10 @@ def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
             margin = sims[0].abs().max(dim=1).values
             ok = agree >= 0.999 and bool((gap <= 1e-5 * margin).all())
             res = dict(max_abs_err=gap.max().item(), max_rel_err=None, id_agreement=agree,
+                       max_gap_of_row_max=(gap / margin).max().item(),
                        tolerance=">= 0.999 ids equal, the rest ties within 1e-5")
+            log(f"kernel {name}: ids equal {agree:.6f}, largest gap {gap.max().item():.3e} = "
+                f"{res['max_gap_of_row_max']:.3e} of its row's largest |sim| (limit 1e-5)")
             if case.get("f32_plain"):  # the share equal to the full-f32 plain version
                 res["id_agreement_full_f32"] = (gi == case["f32_plain"]().long()).float() \
                     .mean().item()
@@ -1785,9 +1969,12 @@ def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
                 f"max_rel_err {res['wrong_seed_max_rel_err']:.4e} (must exceed {case['tol']})")
             if res["wrong_seed_max_rel_err"] <= case["tol"]:
                 raise AssertionError(f"{name}: another seed's mask reads within tolerance")
-        if case.get("twin"):
+        if case.get("twin") and case.get("ids"):
+            res["replaced"] = ids_twin_result(name, case["twin"], ref[0], case["twin_source"])
+        elif case.get("twin"):
             res["replaced"] = twin_result(name, case["twin"], ref,
                                           case.get("twin_source", "attention_train.cu"))
+        yardstick(case, res, name)
         if case.get("copy"):  # a one-change copy of the kernel must miss the limits
             crels = [_rel_errors((c,), (r,))[1] for c, r in zip(_as_tuple(case["copy"]()), ref)]
             res["copy_rel_err_by_output"] = crels
@@ -2528,6 +2715,10 @@ CTCLIP_GROUPS = (
     TC_FWD_GROUP,
     TC32_GROUP,
     TC32_FWD_GROUP,
+    ("K3 bf16 GEGLU and residual products on the tensor cores (ffn_tc.cu: ff_tc_gemm<0, 3>, "
+     "<0, 4>)", ("ff_tc_gemm<0, 3>", "ff_tc_gemm<0, 4>", "ff_tc_gemm<0,3>", "ff_tc_gemm<0,4>")),
+    ("K5 inference assignment on the tensor cores (vq_tc.cu: vq_tc_argmax, and the f32 rows' "
+     "pre-pass vq_rows_bf16_kernel)", ("vq_tc_argmax", "vq_rows_bf16")),
     ("K11 bf16 tile and products on the tensor cores (ffn_tc.cu: ff_tc_tile, ff_tc_gemm)",
      ("ff_tc_",)),
     ("K11 GEGLU FF backward tile (ff_bwd_kernel)", ("ff_bwd_kernel",)),
@@ -4121,7 +4312,8 @@ def f32_kernel_cases(dev):
     from ct_clip_tpu_torch.ops.qknorm_attention import (
         fused_grid_qknorm_attention, fused_small_qknorm_attention,
         fused_spatial_qknorm_attention, grid_qknorm_attention_plain, qknorm_attention_plain)
-    from ct_clip_tpu_torch.ops.vq import vq_assign, vq_assign_plain, vq_assign_rows_plain
+    from ct_clip_tpu_torch.ops.vq import (vq_assign, vq_assign_plain, vq_assign_rows_lane_plain,
+                                          vq_rows_lane_sim)
 
     g = torch.Generator(device=dev).manual_seed(40)
     f32 = torch.float32
@@ -4156,11 +4348,10 @@ def f32_kernel_cases(dev):
     # K11 f32 at MaskGIT's (and the autoencoder's) 10,240 rows and at the
     # contrastive step's 110,592 (8 launches a step): dx to TC32_REL_TOL;
     # dscale, dbias, dwi, dwo sum over all rows; the 3xTF32 bound beside.
-    # The second shape draws from a generator of its own, so that the cases
-    # after it keep their inputs.
-    g11 = torch.Generator(device=dev).manual_seed(41)
+    # Both draw from the shared generator, so K5's first f32-row seed below
+    # gets the inputs that once showed its check's fault (ROADMAP 3)
     for name, rows, gen in (("geglu_ff_bwd_f32", mg_rows, g),
-                            ("geglu_ff_bwd_f32_contrastive", TRAIN_B * 13824, g11)):
+                            ("geglu_ff_bwd_f32_contrastive", TRAIN_B * 13824, g)):
         x, do = (torch.randn((rows, dim), generator=gen, device=dev) for _ in range(2))
         leaves = [t.clone().requires_grad_() for t in (x, *w_ff)]
         out = fused_geglu_ff(*leaves)
@@ -4212,19 +4403,32 @@ def f32_kernel_cases(dev):
         tol=TC32_REL_TOL)
     del xq
 
-    # K5 on f32 rows: ids against the plain version of the kernel's own math
-    xv, embed_n = rn(zs_rows, dim), l2norm(rn(8192, dim))
-
-    def rows_sim():
-        xn = xv * torch.rsqrt(torch.clamp_min((xv * xv).sum(-1, keepdim=True), 1e-24))
-        return xn.to(torch.bfloat16).float() @ embed_n.to(torch.bfloat16).float().t()
-    yield "vq_assign_f32", dict(
-        f32_case, kern=lambda: vq_assign(xv, embed_n),
-        plain=lambda: vq_assign_rows_plain(xv, embed_n), sim=rows_sim,
-        f32_plain=lambda: vq_assign_plain(xv, embed_n), inputs=(xv, embed_n),
-        outputs=(torch.empty(zs_rows, dtype=torch.int32, device=dev),),
-        flops=2 * zs_rows * dim * 8192, peak=PEAK_BF16_FLOPS, ids=True)
-    del xv, embed_n
+    # K5 on f32 rows (vq_tc.cu: the pre-pass, then the bf16 assignment): ids
+    # against the plain version of the kernel's own math, whose bf16 rows are
+    # the pre-pass's bit for bit (`vq_assign_rows_lane_plain`), on three
+    # seeds: the shared generator, then two of their own; the first with the
+    # replaced gemm.cu f32-row form and the yardstick timed beside it
+    for name, gen in (("vq_assign_f32", g),
+                      *((f"vq_assign_f32_seed{sd}", torch.Generator(device=dev).manual_seed(sd))
+                        for sd in VQ_F32_SEEDS)):
+        xv = torch.randn((zs_rows, dim), generator=gen, device=dev)
+        embed_n = l2norm(torch.randn((8192, dim), generator=gen, device=dev))
+        cb = embed_n.to(torch.bfloat16).contiguous()
+        case = dict(
+            f32_case, kern=lambda xv=xv, e=embed_n: vq_assign(xv, e),
+            plain=lambda xv=xv, e=embed_n: vq_assign_rows_lane_plain(xv, e),
+            sim=lambda xv=xv, e=embed_n: vq_rows_lane_sim(xv, e),
+            f32_plain=lambda xv=xv, e=embed_n: vq_assign_plain(xv, e), inputs=(xv, embed_n),
+            outputs=(torch.empty(zs_rows, dtype=torch.int32, device=dev),),
+            flops=2 * zs_rows * dim * 8192, peak=PEAK_BF16_FLOPS, ids=True)
+        if name == "vq_assign_f32":
+            case.update(twin=lambda xv=xv, cb=cb: K.gemm_argmax(xv, cb),
+                        twin_source="gemm.cu (gemm_argmax_kernel's f32-row form, WMMA)",
+                        yardstick_is="row l2norm, then " + K5_YARDSTICK,
+                        yardstick=lambda xv=xv, cb=cb: (
+                            l2norm(xv).to(torch.bfloat16) @ cb.t()).argmax(dim=-1))
+        yield name, case
+        del xv, embed_n, cb, case
 
     # K6 on one f32 volume into the last slot of the batch buffer; K17 on the
     # sampler's decoded (1, 1,280, 2,560) pixel rows
@@ -4248,10 +4452,16 @@ def f32_kernel_cases(dev):
         .contiguous(), inputs=(pix,), outputs=(pix,), flops=0, exact=True)
 
 
+# K5 f32 rows' own seeds beside the shared generator's (f32_kernel_cases)
+VQ_F32_SEEDS = (401, 402)
+
+
 def f32_kernel_phase(dev) -> dict:
     """`f32_kernel_cases` through `train_kernel_phase`, the second shapes
-    nested under their kernel's entry."""
+    and K5's other seeds nested under their kernel's entry."""
     res = train_kernel_phase(dev, f32_kernel_cases(dev), MG_B)
+    for sd in VQ_F32_SEEDS:
+        res["vq_assign_f32"][f"at_seed{sd}"] = res.pop(f"vq_assign_f32_seed{sd}")
     res["geglu_ff_f32"]["at_zero_shot"] = res.pop("geglu_ff_f32_zero_shot")
     res["geglu_ff_f32"]["at_contrastive"] = res.pop("geglu_ff_f32_contrastive")
     res["geglu_ff_bwd_f32"]["at_contrastive"] = res.pop("geglu_ff_bwd_f32_contrastive")
@@ -4306,10 +4516,13 @@ def zero_shot_f32_phase(dev, work: Path, card: str, bf16_counts: dict) -> dict:
         # qknorm_attention_tc.cu, its three products in 3xTF32 on ffn_tc32.cu
         want["qk_attention_tc32"] = cb["qk_attention_tc"]
         want["tc32_gemm"] = 3 * cb["qk_attention_tc"]
+        # every K5 on vq_tc.cu, its f32 rows through the pre-pass
+        want["vq_assign_tc"] = cb["vq_assign_tc"]
         got = {k: c[k] for k in want}
         log(f"e2e {name}: run_zero_shot in f32 scored 3 volumes in {secs:.2f} s host clock; "
             f"launches {got}, the bf16 run's {want}")
-        if got != want or c[embed[1]] or c["attention_tc"] or c["qk_attention_tc"]:
+        if got != want or c[embed[1]] or c["attention_tc"] or c["qk_attention_tc"] \
+                or c["ff_tc_fwd"]:
             raise AssertionError(f"{name}: launches {got}, want {want}")
     diff = float(np.abs(outs["zero_shot_f32_rows"]["predicted"]
                         - outs["zero_shot_f32_volume"]["predicted"]).max())
@@ -5017,6 +5230,7 @@ def main() -> int:
         f"({K.library_path().name})")
 
     results = kernel_phase(dev)
+    k3_phase(dev, results)
     k1_phase(dev, torch.bfloat16, results)
     results.update(train_attention_phase(dev))
     results.update(train_kernel_phase(dev))

@@ -33,6 +33,23 @@
 // are 1.36 TFLOP there (1.37 ms at 989 TFLOP/s) against ~2 GB of volume,
 // xn and yb moved (0.6 ms): the tensor cores bound it.
 //
+// And the bf16 GEGLU feed-forward forward after its LN, ct_clip_tpu/ops/
+// pallas/ffn.py::_pallas_ff (K3, :105, pallas_call :114, body _kernel
+// :89-103), which gemm.cu's EPI_GEGLU and EPI_RESIDUAL ran on WMMA with
+// synchronous staging (they stay, for the shapes TMA cannot take), in two
+// more epilogue forms, both "NT" (A and B K-major):
+//   * GEMM_GEGLU: a = xn wa^T and g = xn wg^T for one 128-row x 64-column
+//     tile, the weights [wa; wg] side by side in one (2 N, K) matrix, then
+//     act = bf16(a gelu(g)) with the exact erf, rounded where gemm.cu's
+//     EPI_GEGLU and the TPU kernel (:97) round it;
+//   * GEMM_RESIDUAL: out = bf16(f32(act wo^T) + x), one rounding (:98-102),
+//     x read in the epilogue.  Its K, the padded inner width 1,368, is no
+//     multiple of 64: the last k block's columns past it are zero-filled by
+//     the TMA copy, as are the padded columns' zero weights.
+// At zero-shot's 27,648 rows the two are 116 GFLOP, 0.117 ms at 989
+// TFLOP/s, against ~60 MB of xn, act, x and out (0.02 ms): the tensor
+// cores bound it.
+//
 // What bounds it on the H100.  At CT-CLIP's batch 8 (110,592 rows x 512,
 // inner 1,365 padded to 1,368) the tile runs three products of 0.155 TFLOP
 // and the two weight gradients and dxn 0.775 TFLOP more: 1.24 TFLOP, 1.25 ms
@@ -61,6 +78,11 @@
 //     and dg as bf16 pairs.
 //   * The products: 128 x 128 output tiles, two 64-column accumulators per
 //     warpgroup, k blocks of 64; the TN form walks one split of the rows.
+//     K3's two forms issue one m64n128k16 over both B atoms (which lie side
+//     by side in the stage) where the others issue two m64n64k16 sharing A:
+//     two n64 products read A twice, 8 KB of shared memory per k16 slice and
+//     warpgroup, which at the tensor cores' rate is all the SM's shared
+//     memory bandwidth (~128 bytes a clock); one n128 reads 6 KB.
 //   * Ragged edges (rows, the padded inner width, the last k block) are
 //     zero-filled by the TMA copies and masked at the stores; a split is a
 //     multiple of 64 rows, so no k block straddles two; widths and row
@@ -221,6 +243,9 @@ __global__ void __launch_bounds__(NT, 1) ff_tc_tile(const __grid_constant__ Tile
 //   GEMM_BIAS      "NT", C bf16 = bf16(bf16(acc) + bias[n]): K16a's
 //                  recompute of yb = xn W^T + b, rounded as gemm.cu's
 //                  EPI_BIAS_ROUNDED rounds it (patchify.py:284-285);
+//   GEMM_GEGLU     "NT", K3's act = bf16(a gelu(g)) (bf16 C, 64 columns a
+//                  CTA: a from B rows n0.., g from B rows inner + n0..);
+//   GEMM_RESIDUAL  "NT", K3's out = bf16(acc + x) (bf16 C, x bf16);
 //   GEMM_LN_SUMS   "NN", dxn = dyb W reduced in the epilogue, never stored:
 //                  each accumulator times xhat = (x - mean) rstd of its patch
 //                  row element, x gathered from the volume into shared
@@ -230,7 +255,7 @@ __global__ void __launch_bounds__(NT, 1) ff_tc_tile(const __grid_constant__ Tile
 //                  the tile's column sums of dxn xhat and of dxn go to row
 //                  blockIdx.y of the (tiles, 2 N) partials (ds1 | db1,
 //                  patchify.py:307-308), which the caller adds in order.
-enum GemmForm { GEMM_STORE = 0, GEMM_BIAS = 1, GEMM_LN_SUMS = 2 };
+enum GemmForm { GEMM_STORE = 0, GEMM_BIAS = 1, GEMM_LN_SUMS = 2, GEMM_GEGLU = 3, GEMM_RESIDUAL = 4 };
 
 struct GemmMaps {
   CUtensorMap A, B;
@@ -245,6 +270,10 @@ struct GemmArgs {
   const bf16* video;
   const float* stats;
   PatchGeom g;
+  // GEMM_RESIDUAL: x (M, N) bf16, row stride ldr; GEMM_GEGLU: the row of
+  // wg in B
+  const bf16* resid;
+  int ldr, inner;
 };
 
 // 1 in a one-change copy for the card checks (kernels.copy_library): the
@@ -396,15 +425,17 @@ __device__ __forceinline__ void ln_sums(const GemmArgs& a, const float (&c0)[32]
 template <int TA, int FORM = GEMM_STORE>
 __global__ void __launch_bounds__(NT, 2) ff_tc_gemm(const __grid_constant__ GemmMaps maps,
                                                     GemmArgs a) {
-  constexpr int TB = FORM == GEMM_BIAS ? 0 : 1;  // B K-major in the NT form
+  // B K-major in the NT forms
+  constexpr int TB = FORM == GEMM_BIAS || FORM == GEMM_GEGLU || FORM == GEMM_RESIDUAL ? 0 : 1;
   constexpr int STAGES = FORM == GEMM_LN_SUMS ? LN_STAGES : GEMM_STAGES;
+  constexpr int BN = FORM == GEMM_GEGLU ? 64 : 128;  // C columns of a CTA
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[GEMM_STAGES], empty[GEMM_STAGES];
   uint8_t* ring = align1024(smem_raw);
   // GEMM_LN_SUMS: the volume tile and its barrier, past the ring
   uint8_t* xs = ring + LN_STAGES * GEMM_STAGE;
   uint64_t* xfull = reinterpret_cast<uint64_t*>(xs + BM * XS_LD);
-  const int n0 = blockIdx.x * 128, m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int kbeg = blockIdx.z * a.kchunk, kend = min(a.K, kbeg + a.kchunk);
   const int kblocks = (kend - kbeg + TC_TILE - 1) / TC_TILE;
   if (FORM == GEMM_LN_SUMS && threadIdx.x == 0) bar_init(xfull, 31);
@@ -429,8 +460,10 @@ __global__ void __launch_bounds__(NT, 2) ff_tc_gemm(const __grid_constant__ Gemm
           tma_load(dst + w * ATOM, &maps.A, k0, m0 + 64 * w, &full[st]);
         if (TB)
           tma_load(dst + (CWG + w) * ATOM, &maps.B, n0 + 64 * w, k0, &full[st]);
-        else  // rows n0 + 64 w .. of B (N, K) x k columns [k0, k0 + 64)
-          tma_load(dst + (CWG + w) * ATOM, &maps.B, k0, n0 + 64 * w, &full[st]);
+        else  // rows n0 + 64 w .. of B (N, K) x k columns [k0, k0 + 64); GEGLU:
+              // the wa rows n0 .., then the wg rows inner + n0 ..
+          tma_load(dst + (CWG + w) * ATOM, &maps.B, k0,
+                   FORM == GEMM_GEGLU ? n0 + w * a.inner : n0 + 64 * w, &full[st]);
       }
     }
     return;
@@ -452,6 +485,10 @@ __global__ void __launch_bounds__(NT, 2) ff_tc_gemm(const __grid_constant__ Gemm
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t dA = desc(at + (TA ? 2048 : 32) * kk);
+      if (FORM == GEMM_GEGLU || FORM == GEMM_RESIDUAL) {  // both B atoms in one n128
+        mma_ss128(c0, c1, dA, desc(b0 + 32 * kk), 1);
+        continue;
+      }
       mma_t<TA, TB>(c0, dA, desc(b0 + (TB ? 2048 : 32) * kk));
       mma_t<TA, TB>(c1, dA, desc(b1 + (TB ? 2048 : 32) * kk));
     }
@@ -475,6 +512,32 @@ __global__ void __launch_bounds__(NT, 2) ff_tc_gemm(const __grid_constant__ Gemm
   for (int e = 0; e < 32; e += 2) {
     const int gm = r + 8 * acc_hi(e), gn = n0 + acc_col(e, q4);
     if (gm >= a.M) continue;  // N is even: gn + 1 < N with gn
+    if (FORM == GEMM_GEGLU) {  // value * gelu_erf(gate), one rounding (gemm.cu EPI_GEGLU)
+      if (gn < a.N) {
+        float v[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float g = c1[e + u];
+          v[u] = c0[e + u] * (0.5f * g * (1.0f + erff(g * 0.70710678118654752f)));
+        }
+        *reinterpret_cast<bf162*>(reinterpret_cast<bf16*>(a.C) + (size_t)gm * a.ldc + gn) =
+            __floats2bfloat162_rn(v[0], v[1]);
+      }
+      continue;
+    }
+    if (FORM == GEMM_RESIDUAL) {  // one f32 add, one rounding (gemm.cu EPI_RESIDUAL)
+      bf16* Cb = reinterpret_cast<bf16*>(a.C) + (size_t)gm * a.ldc;
+      const bf16* R = a.resid + (size_t)gm * a.ldr;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = gn + 64 * h;
+        if (c >= a.N) continue;
+        const float2 x = __bfloat1622float2(*reinterpret_cast<const bf162*>(R + c));
+        const float(&acc)[32] = h ? c1 : c0;
+        *reinterpret_cast<bf162*>(Cb + c) = __floats2bfloat162_rn(acc[e] + x.x, acc[e + 1] + x.y);
+      }
+      continue;
+    }
     if (FORM == GEMM_BIAS) {  // bf16(acc) + bias in bf16
       bf16* Cb = reinterpret_cast<bf16*>(a.C) + (size_t)gm * a.ldc;
       if (gn < a.N)
@@ -609,4 +672,38 @@ CT_EXPORT int ct_ff_tc_ln_sums(const void* A, int lda, const void* B, int ldb, i
   a.g = {F, H, W, pt, p, F / pt, H / p, W / p};
   return (int)launch(ff_tc_gemm<0, GEMM_LN_SUMS>, dim3((N + 127) / 128, (M + BM - 1) / BM, 1),
                      ln_sums_smem(), static_cast<cudaStream_t>(stream), maps, a);
+}
+
+// K3's GEGLU product ("NT"): act (M, N) bf16 = bf16(a gelu(g)), a = A wa^T
+// and g = A wg^T, for A (M, K) bf16 (row stride lda) and W (2 N, K) = [wa;
+// wg] bf16 (row stride ldw); act row stride ldact.  N (the padded inner
+// width), K and the strides multiples of 8, A, W and act 16-byte aligned.
+CT_EXPORT int ct_ff_tc_geglu(const void* A, int lda, const void* W, int ldw, int M, int N, int K,
+                             void* act, int ldact, void* stream) {
+  GemmMaps maps;
+  if (N % 8 || ldact % 8 || !aligned16(act)
+      || !gemm_maps(&maps, A, lda, W, ldw, M, 2 * N, K, true))
+    return (int)cudaErrorInvalidValue;
+  GemmArgs a = {static_cast<float*>(act), M, N, K, ldact, (K + TC_TILE - 1) / TC_TILE * TC_TILE,
+                0};
+  a.inner = N;
+  return (int)launch(ff_tc_gemm<0, GEMM_GEGLU>, dim3((N + 63) / 64, (M + BM - 1) / BM, 1),
+                     gemm_smem(), static_cast<cudaStream_t>(stream), maps, a);
+}
+
+// K3's residual product ("NT"): out (M, N) bf16 = bf16(A W^T + x) for A (M,
+// K) and W (N, K) bf16 (row strides lda, ldw; K the padded inner width,
+// W's padded columns zero), x (M, N) bf16 (row stride ldx), out row stride
+// ldo.  N, K and the strides multiples of 8, every base 16-byte aligned.
+CT_EXPORT int ct_ff_tc_residual(const void* A, int lda, const void* W, int ldw, int M, int N,
+                                int K, const void* x, int ldx, void* out, int ldo, void* stream) {
+  GemmMaps maps;
+  if (ldx % 8 || ldo % 8 || !aligned16(x) || !aligned16(out)
+      || !gemm_maps(&maps, A, lda, W, ldw, M, N, K, true))
+    return (int)cudaErrorInvalidValue;
+  GemmArgs a = {static_cast<float*>(out), M, N, K, ldo, (K + TC_TILE - 1) / TC_TILE * TC_TILE, 0};
+  a.resid = static_cast<const bf16*>(x);
+  a.ldr = ldx;
+  return (int)launch(ff_tc_gemm<0, GEMM_RESIDUAL>, dim3((N + 127) / 128, (M + BM - 1) / BM, 1),
+                     gemm_smem(), static_cast<cudaStream_t>(stream), maps, a);
 }

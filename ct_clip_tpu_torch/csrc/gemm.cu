@@ -9,11 +9,14 @@
 //     ops/pallas/small_attention.py::_pallas_small_qknorm (K2): the q, kv and
 //     out projections (EPI_STORE, EPI_RESIDUAL);
 //   * ops/pallas/ffn.py::_pallas_ff (K3): x*Wa and x*Wg with the GEGLU
-//     epilogue (EPI_GEGLU), then act*Wo + x (EPI_RESIDUAL);
+//     epilogue (EPI_GEGLU), then act*Wo + x (EPI_RESIDUAL); in bf16 only at
+//     model widths ffn_tc.cu's TMA copies cannot take (ops/ffn.py::
+//     fwd_route), elsewhere ffn_tc.cu's `wgmma` forms;
 //   * ops/pallas/patchify.py::_pallas_patch_embed (K8): the 4000x512
 //     projection with the rounded bias add (EPI_BIAS_ROUNDED);
 //   * ops/pallas/vq.py::pallas_assign (K5): similarity against all 8192
-//     codes with a running row argmax (gemm_argmax_kernel), and its exact
+//     codes with a running row argmax (gemm_argmax_kernel: the inference
+//     mode at widths vq_tc.cu does not fit, kernels.vq_tc_fits), and its exact
 //     training mode against the hi + lo bf16 codebook (gemm_argmax2_kernel;
 //     on f32 rows gemm_argmax3_rows_kernel, three bf16 products);
 //   * the products inside the backwards ops/pallas/ffn.py::_pallas_ff_bwd

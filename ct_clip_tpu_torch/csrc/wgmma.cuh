@@ -100,6 +100,24 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da, uint64_t db,
       : WG_OUT(d) : "l"(da), "l"(db), "r"(acc));
 }
 
+// [d0 | d1] = A B (+ [d0 | d1] when `acc`): m64 n128 k16, A and B K-major in
+// shared memory, B's 128 rows two swizzled 64-row atoms side by side; d0
+// takes columns 0-63, d1 columns 64-127 (each in the n64 accumulator
+// layout).  One product where two n64 ones would read A twice: 6 KB of
+// shared memory per k16 slice in place of 8.
+__device__ __forceinline__ void mma_ss128(float (&d0)[32], float (&d1)[32], uint64_t da,
+                                          uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_OUT(d0), WG_OUT(d1) : "l"(da), "l"(db), "r"(acc));
+}
+
 // d += A B: m64 n64 k16, A from registers (the accumulator layout, bf16
 // pairs), B MN-major in shared memory
 __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {

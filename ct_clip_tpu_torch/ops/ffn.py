@@ -7,11 +7,14 @@ wi (2*inner, dim) with the value half first and the gate half second (torch
 chunk order), wo (dim, inner).
 
 The residual is always added (the transformer's `ff(x) + x`).  On a bf16
-CUDA tensor: LN (csrc/layernorm.cu), then one product that computes the
-value and gate tiles side by side and writes value * gelu(gate) (GEGLU
-epilogue, csrc/gemm.cu), then act * wo^T + x (residual epilogue).  On an
-f32 one (the f32 form: the weights and every intermediate in f32, as the
-TPU kernel's `dot_precision` takes "highest" for f32 operands) the same
+CUDA tensor (`fwd_route`): LN (csrc/layernorm.cu), then one product that
+computes the value and gate tiles side by side and writes value *
+gelu(gate), then act * wo^T + x, both on the tensor cores with `wgmma`
+and TMA copies (csrc/ffn_tc.cu's GEGLU and residual forms) where the model
+width suits TMA (a multiple of 8), else on csrc/gemm.cu's WMMA epilogues
+(EPI_GEGLU, EPI_RESIDUAL), rounded at the same points.  On an f32 one
+(the f32 form: the weights and every intermediate in f32, as the TPU
+kernel's `dot_precision` takes "highest" for f32 operands) the same
 steps in 3xTF32 on the tensor cores (csrc/ffn_tc32.cu): the LN written as
 TF32 hi and lo planes, each product three TF32 products per f32 one, act
 written split, x added in f32.  The inner width is padded from 1365 to a
@@ -65,6 +68,13 @@ def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
     return out
 
 
+def _value_gate(wi, inner: int, padded: int, dtype) -> torch.Tensor:
+    """(2 padded, dim) [wa; wg]: wi's value and gate halves in `dtype`, each
+    padded to `padded` rows with zeros (ffn_tc.cu's operand)."""
+    wic = wi.to(dtype)
+    return torch.cat([_pad_rows(wic[:inner], padded), _pad_rows(wic[inner:], padded)])
+
+
 def _inner(x, wi, wo):
     """(inner, padded inner) of the FF weights, checked against x."""
     dim, inner = x.shape[1], wo.shape[1]
@@ -74,24 +84,53 @@ def _inner(x, wi, wo):
     return inner, -(-inner // 8) * 8
 
 
+# the forward's routes on a CUDA tensor (`fwd_route`)
+FF_WGMMA, FF_WMMA, FF_TC32 = "ffn_tc.cu", "gemm.cu", "ffn_tc32.cu"
+
+
+def fwd_route(dtype: torch.dtype, dim: int) -> str:
+    """The source of K3's products for a CUDA tensor of `dtype` and model
+    width `dim`: FF_TC32 (f32, 3xTF32 on `wgmma`), FF_WGMMA (bf16 where
+    ffn_tc.cu's TMA copies take the rows: the width a multiple of 8; the
+    padded inner width always is) or FF_WMMA (bf16 at any other width,
+    gemm.cu)."""
+    if dtype == torch.float32:
+        return FF_TC32
+    return FF_WGMMA if dim % 8 == 0 else FF_WMMA
+
+
 def _geglu_ff_gemm(x, scale, bias, wi, wo, eps):
     """K3 on csrc/gemm.cu: bf16 on WMMA (the f32 form, FFMA register tiles,
-    is what `_geglu_ff_tc32` replaced on the f32 route)."""
+    is what `_geglu_ff_tc32` replaced on the f32 route); the bf16 route of
+    widths TMA cannot take, and what `_geglu_ff_tc` replaced elsewhere."""
     rows, dim = x.shape
     inner, padded = _inner(x, wi, wo)
     cdt = x.dtype
-    wic = wi.to(cdt)
-    wa = _pad_rows(wic[:inner], padded)
-    wg = _pad_rows(wic[inner:], padded)
+    wcat = _value_gate(wi, inner, padded, cdt)
     wo_p = torch.zeros((dim, padded), dtype=cdt, device=x.device)
     wo_p[:, :inner] = wo
     xn = torch.empty_like(x)
     K.layernorm(x, scale, bias, eps, xn)
     act = torch.empty((rows, padded), dtype=cdt, device=x.device)
-    K.gemm(K.EPI_GEGLU, xn, wa, act, w2=wg)
+    K.gemm(K.EPI_GEGLU, xn, wcat[:padded], act, w2=wcat[padded:])
     out = torch.empty_like(x)
     K.gemm(K.EPI_RESIDUAL, act, wo_p, out, residual=x)
     return out
+
+
+def _geglu_ff_tc(x, scale, bias, wi, wo, eps, lib=None):
+    """The bf16 K3 on csrc/ffn_tc.cu: LN (layernorm.cu), then
+    `kernels.ff_tc_fwd`, its GEGLU and residual products on `wgmma`.  `lib`:
+    a one-change copy of ffn_tc.cu for the card checks."""
+    dim = x.shape[1]
+    inner, padded = _inner(x, wi, wo)
+    if x.data_ptr() % 16:  # TMA reads rows from 16-byte boundaries: a stated copy
+        x = x.clone()
+    wo_p = torch.zeros((dim, padded), dtype=x.dtype, device=x.device)
+    wo_p[:, :inner] = wo
+    xn = torch.empty_like(x)
+    K.layernorm(x, scale, bias, eps, xn)
+    return K.ff_tc_fwd(x, xn, _value_gate(wi, inner, padded, x.dtype), wo_p, lib=lib)
 
 
 def _tc32_weights(wi, wo, padded: int) -> torch.Tensor:
@@ -115,7 +154,8 @@ def _geglu_ff_tc32(x, scale, bias, wi, wo, eps, lib=None):
 
 
 def _geglu_ff_cuda(x, scale, bias, wi, wo, eps):
-    ff = _geglu_ff_tc32 if x.dtype == torch.float32 else _geglu_ff_gemm
+    route = fwd_route(x.dtype, x.shape[1])
+    ff = {FF_TC32: _geglu_ff_tc32, FF_WGMMA: _geglu_ff_tc}.get(route, _geglu_ff_gemm)
     out = ff(x, scale, bias, wi, wo, eps)
     K.count_launch("geglu_ff", x.dtype)
     return out
@@ -135,8 +175,7 @@ def _geglu_ff_bwd_cuda(x, scale, bias, wi, wo, dout, eps):
     inner = wo.shape[1]
     padded = -(-inner // 8) * 8
     cdt = x.dtype
-    wic = wi.to(cdt)
-    wcat = torch.cat([_pad_rows(wic[:inner], padded), _pad_rows(wic[inner:], padded)])
+    wcat = _value_gate(wi, inner, padded, cdt)
     woT = _pad_rows(wo.to(cdt).t(), padded)
     dout = dout.to(cdt).contiguous()
     xn = torch.empty_like(x)

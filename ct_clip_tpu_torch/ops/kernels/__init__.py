@@ -99,6 +99,12 @@ KERNELS = (
                            # K16a's three (yb NT, dW TN, dxn NN with the LN sums or stored)
     "ff_tc_ln_sums",       # K16a's dxn = dyb W reduced to the LN(4000) sums in the
                            # product's epilogue (patch_embed_bwd without d(volume))
+    "ff_tc_fwd",           # K3 bf16 after its LN: the GEGLU and residual products on
+                           # ffn_tc.cu (one a call, beside geglu_ff) where `ops/ffn.py::
+                           # fwd_route` gives FF_WGMMA
+    # vq_tc.cu's K5 inference assignment on the tensor cores (`wgmma`), beside
+    # vq_assign / vq_assign_f32
+    "vq_assign_tc",        # one a call: bf16 rows, or f32 rows after the pre-pass
     # ffn_tc32.cu's f32 K3 in 3xTF32 on the tensor cores (`wgmma`), beside geglu_ff
     "geglu_ff_tc32",       # the weight split, the GEGLU product and the residual product
     "tc32_gemm",           # one product there (plain store or + x): K1 f32's q, kv and
@@ -109,7 +115,8 @@ KERNELS = (
     "spatial_attention_f32",  # K1 f32 (attention.cu attention_f32_kernel)
     "grid_attention_f32",  # K2 grid f32
     "seq_attention_f32",   # K2 seq f32
-    "vq_assign_f32",       # K5 on f32 rows (gemm.cu gemm_argmax_kernel's f32-row form)
+    "vq_assign_f32",       # K5 on f32 rows (vq_tc.cu's pre-pass and assignment; gemm.cu's
+                           # gemm_argmax_kernel f32-row form at widths vq_tc.cu does not fit)
     "rearrange_patches_f32",  # K6 f32 (rearrange.cu)
     "unrearrange_patches_f32",  # K17 f32
     "spatial_attention_bwd_f32",  # K9 f32 (qknorm_attention_bwd.cu qk_attention_bwd_f32_kernel)
@@ -299,6 +306,10 @@ def _signatures():
         "ct_ff_tc_gemm": [i, p, i, p, i, i, i, i, i, p, i, ll, p],
         "ct_ff_tc_gemm_bias": [p, i, p, i, i, i, i, p, p, i, p],
         "ct_ff_tc_ln_sums": [p, i, p, i, i, i, i, p, i, i, i, i, i, i, p, p, p],
+        "ct_ff_tc_geglu": [p, i, p, i, i, i, i, p, i, p],
+        "ct_ff_tc_residual": [p, i, p, i, i, i, i, p, i, p, i, p],
+        "ct_vq_assign_tc": [p, i, p, i, i, i, i, p, p],
+        "ct_vq_rows_bf16": [p, i, i, p, p],
         "ct_tc32_split": [p, p, p, ll, p],
         "ct_ff_tc32_geglu": [p, p, i, p, p, p, p, i, i, i, i, p, p, i, p],
         "ct_ff_tc32_residual": [p, p, i, p, p, i, i, i, i, p, p, i, p],
@@ -712,6 +723,72 @@ def gemm_bias_tc(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.
     _check(err, "ct_ff_tc_gemm_bias")
     count_launch("ff_tc_gemm")
     return out
+
+
+def ff_tc_fwd(x: torch.Tensor, xn: torch.Tensor, wcat: torch.Tensor, wo: torch.Tensor,
+              lib=None) -> torch.Tensor:
+    """The bf16 K3 after its LN on ffn_tc.cu (`wgmma`, both products "NT"):
+    x (M, D), xn = LN(x) (M, D), wcat (2 P, D) = [wa; wg] and wo (D, P), P
+    the inner width padded to a multiple of 8 with zero rows of wa and wg
+    and zero columns of wo -> out = bf16(act wo^T + x) (M, D), act =
+    bf16(a gelu(g)) (M, P) with a = xn wa^T, g = xn wg^T, rounded where
+    gemm.cu's EPI_GEGLU and EPI_RESIDUAL round them.  Counted `ff_tc_fwd`
+    once, after both launches.  `lib`: a one-change copy of ffn_tc.cu
+    (`copy_library`) to launch instead."""
+    _ff_tc_operands("ff_tc_fwd", x=x, xn=xn, wcat=wcat, wo=wo)
+    M, D = x.shape
+    P = wo.shape[1]
+    if xn.shape != x.shape or wcat.shape != (2 * P, D) or wo.shape[0] != D:
+        raise ValueError(f"ff_tc_fwd: x {tuple(x.shape)}, xn {tuple(xn.shape)}, wcat "
+                         f"{tuple(wcat.shape)}, wo {tuple(wo.shape)}")
+    lib = lib or library()
+    act = torch.empty((M, P), dtype=BF16, device=x.device)
+    _check(lib.ct_ff_tc_geglu(_ptr(xn), xn.stride(0), _ptr(wcat), wcat.stride(0), M, P, D,
+                              _ptr(act), P, _stream()), "ct_ff_tc_geglu")
+    out = torch.empty((M, D), dtype=BF16, device=x.device)
+    _check(lib.ct_ff_tc_residual(_ptr(act), P, _ptr(wo), wo.stride(0), M, D, P, _ptr(x),
+                                 x.stride(0), _ptr(out), D, _stream()), "ct_ff_tc_residual")
+    count_launch("ff_tc_fwd")
+    return out
+
+
+# K5's inference assignment on the tensor cores (vq_tc.cu)
+VQ_TC_MAX_DIM = 512  # the widest row vq_tc.cu's resident row tile holds
+
+
+def vq_tc_fits(dim: int) -> bool:
+    """Whether vq_tc.cu takes rows of width `dim`: TMA's 16-byte rows (a
+    multiple of 8 bf16) and a row tile that fits shared memory."""
+    return dim % 8 == 0 and 0 < dim <= VQ_TC_MAX_DIM
+
+
+def vq_assign_tc(x: torch.Tensor, codes: torch.Tensor, lib=None) -> torch.Tensor:
+    """K5's inference assignment on vq_tc.cu (`wgmma`): ids (M,) int32 =
+    argmax_n x[m] . codes[n], f32 sums, a tie to the lower code, for codes
+    (N, D) bf16 and x (M, D) bf16 rows (raw) or f32 rows, each of which a
+    pre-pass normalises (the order of `ops/vq.py::_lane_inv_norm`) and
+    rounds to bf16 first.  D must fit (`vq_tc_fits`).  Counted
+    `vq_assign_tc` once a call, after its launches.  `lib`: a one-change
+    copy of vq_tc.cu (`copy_library`) to launch instead."""
+    require(x, "x", FORMS, 2)
+    require(codes, "codes", BF16, 2)
+    M, D = x.shape
+    if codes.shape[1] != D or not vq_tc_fits(D):
+        raise ValueError(f"vq_assign_tc: x {tuple(x.shape)}, codes {tuple(codes.shape)} "
+                         f"(width a multiple of 8 up to {VQ_TC_MAX_DIM})")
+    lib = lib or library()
+    if x.dtype == F32:
+        if x.data_ptr() % 16:
+            raise ValueError("vq_assign_tc: f32 rows must start on a 16-byte boundary")
+        rows = torch.empty((M, D), dtype=BF16, device=x.device)
+        _check(lib.ct_vq_rows_bf16(_ptr(x), M, D, _ptr(rows), _stream()), "ct_vq_rows_bf16")
+        x = rows
+    _ff_tc_operands("vq_assign_tc", x=x, codes=codes)
+    ids = torch.empty((M,), dtype=torch.int32, device=x.device)
+    _check(lib.ct_vq_assign_tc(_ptr(x), x.stride(0), _ptr(codes), codes.stride(0), M,
+                               codes.shape[0], D, _ptr(ids), _stream()), "ct_vq_assign_tc")
+    count_launch("vq_assign_tc")
+    return ids
 
 
 LN_SUMS_GROUPS = 32  # first-level groups of the tiles' partial sums (ln_sums_tc)

@@ -23,13 +23,17 @@ in f32; on f32 input both modes are the f32 form above (the plain versions
 on the CPU, as the JAX package's XLA form off the TPU).
 
 On a CUDA tensor the similarity product and the argmax over all codes run
-in one hand-written kernel (csrc/gemm.cu, gemm_argmax_kernel, or
-gemm_argmax2_kernel for the exact mode); the (tokens, codes) similarity
-matrix never reaches device memory.  f32 rows in inference take the
-kernel's f32-row form, the TPU kernel's math on f32 input (vq.py:83-93):
-each row l2-normalised in f32 and rounded to bf16 as it is loaded, one bf16
-pass against the bf16 codebook (`vq_assign_rows_plain` is its plain
-version).  The exact mode on f32 rows (an f32 CTViT in training, vq.py:
+in one hand-written kernel; the (tokens, codes) similarity matrix never
+reaches device memory.  The inference mode takes csrc/vq_tc.cu (`wgmma`,
+the argmax on the accumulators in registers) at widths it fits
+(`kernels.vq_tc_fits`: multiples of 8 up to 512), csrc/gemm.cu's
+gemm_argmax_kernel elsewhere; the exact mode gemm_argmax2_kernel.  f32
+rows in inference take the TPU kernel's math on f32 input (vq.py:83-93):
+each row l2-normalised in f32 and rounded to bf16 (on vq_tc.cu by a
+pre-pass whose row norm `_lane_inv_norm` repeats bit for bit:
+`vq_assign_rows_lane_plain` is its plain version; on gemm.cu as the tile
+loads, `vq_assign_rows_plain`), one bf16 pass against the bf16 codebook.
+The exact mode on f32 rows (an f32 CTViT in training, vq.py:
 83-95) takes gemm_argmax3_rows_kernel: the normalised row split into bf16
 hi + lo parts xh + xl as it is loaded, three bf16 products (xh.c_hi +
 xh.c_lo) + xl.c_hi summed in f32 (`vq_assign_exact_rows_plain`).  The EMA
@@ -86,9 +90,27 @@ def vq_assign_rows_plain(x: torch.Tensor, embed_n: torch.Tensor) -> torch.Tensor
     return sim.argmax(dim=-1).to(torch.int32)
 
 
+def vq_rows_lane_sim(x: torch.Tensor, embed_n: torch.Tensor) -> torch.Tensor:
+    """The similarities of K5 on f32 rows as csrc/vq_tc.cu takes them: each
+    row times its inverse norm in the order of `_lane_inv_norm`, rounded to
+    bf16 (the kernel's pre-pass, bit for bit), against the bf16-rounded
+    codebook, f32 sums."""
+    x = x.float()
+    xh = (x * _lane_inv_norm(x)).to(torch.bfloat16).float()
+    return xh @ embed_n.to(torch.bfloat16).float().t()
+
+
+def vq_assign_rows_lane_plain(x: torch.Tensor, embed_n: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5 on f32 rows on csrc/vq_tc.cu: the argmax of
+    `vq_rows_lane_sim` as (n,) int32.  Its bf16 rows are the kernel's, so
+    ids differ only where two codes' f32 sums tie within their order."""
+    return vq_rows_lane_sim(x, embed_n).argmax(dim=-1).to(torch.int32)
+
+
 def _lane_inv_norm(x: torch.Tensor) -> torch.Tensor:
     """(rows, 1) inverse norms 1 / sqrt(max(sum x^2, 1e-24)) of f32 rows as
-    csrc/vq_stats.cu's sum_f32_kernel rounds them: lane l of a warp adds,
+    csrc/vq_stats.cu's sum_f32_kernel and csrc/vq_tc.cu's pre-pass round
+    them: lane l of a warp adds,
     one rounded square at a time, the elements of its 16-byte pieces l,
     l + 32, ...; the 32 lanes' sums meet in a xor butterfly (16, 8, 4, 2,
     1); then a rounded sqrt and a rounded division."""
@@ -160,6 +182,10 @@ def vq_route(op: str, dtype: torch.dtype, rows: int, dim: int, codes: int) -> st
 def vq_assign(x: torch.Tensor, embed_n: torch.Tensor, exact: bool = False) -> torch.Tensor:
     if x.device.type == "cpu":
         return vq_assign_plain(x, embed_n, exact)
+    return _vq_assign_cuda(x, embed_n, exact)
+
+
+def _vq_assign_cuda(x: torch.Tensor, embed_n: torch.Tensor, exact: bool) -> torch.Tensor:
     op = "vq_assign_exact" if exact else "vq_assign"
     r = vq_route(op, x.dtype, x.shape[0], x.shape[1], embed_n.shape[0])
     if r == K.RAISES:
@@ -170,6 +196,11 @@ def vq_assign(x: torch.Tensor, embed_n: torch.Tensor, exact: bool = False) -> to
     if exact:
         hi, lo = split_hi_lo(embed_n)
         ids = K.gemm_argmax(x.contiguous(), hi, lo)
+    elif K.vq_tc_fits(x.shape[1]):
+        x = x.contiguous()
+        if x.data_ptr() % 16:  # TMA reads rows from 16-byte boundaries: a stated copy
+            x = x.clone()
+        ids = K.vq_assign_tc(x, embed_n.to(torch.bfloat16).contiguous())
     else:
         ids = K.gemm_argmax(x.contiguous(), embed_n.to(torch.bfloat16).contiguous())
     K.count_launch(op, x.dtype)

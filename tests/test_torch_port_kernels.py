@@ -8,7 +8,9 @@ bias), K13a, K12a, K12b (dense, no bias) and K13b of attention_tc32.cu
 (qknorm_attention_tc.cu, `-k qk_core`) and its f32 core in 3xTF32
 (qknorm_attention_tc32.cu, `-k "qk_core and f32"`), K11 bf16 on `wgmma`
 (ffn_tc.cu, `-k "k11 or ff_tc"`), with K17 f32's run copy (`-k k17`), K16a on
-ffn_tc.cu (`-k k16a`) and K3 f32 in 3xTF32 on ffn_tc32.cu (`-k "ff_f32"`).
+ffn_tc.cu (`-k k16a`), K3 f32 in 3xTF32 on ffn_tc32.cu (`-k "ff_f32"`), K3
+bf16's GEGLU and residual forms on ffn_tc.cu and K5's inference assignment
+on vq_tc.cu, bf16 and f32 rows (`-k "k3_wgmma or k5_wgmma"`).
 
 Needs an NVIDIA GPU and nvcc (the kernels compile on first use); skipped
 elsewhere.  Run on the card with:
@@ -222,6 +224,102 @@ def test_vq_assign(dev):
     gap = (sim.gather(1, ref[:, None]) - sim.gather(1, got[:, None])).abs()[:, 0]
     scale = sim.abs().max(dim=1).values
     assert (gap <= 4e-3 * scale).all()
+
+
+@pytest.mark.parametrize("rows", [300, 27648, 10001, 64])
+def test_geglu_ff_k3_wgmma_forms(dev, rows):
+    """K3 bf16 on ffn_tc.cu's GEGLU and residual forms (counted `ff_tc_fwd`)
+    against the plain version at ragged and full row counts, bit-identical
+    across runs; gemm.cu's path, which it replaced, lands as close."""
+    from ct_clip_tpu_torch.ops.ffn import _geglu_ff_gemm, fused_geglu_ff, geglu_ff_plain
+
+    g = _gen(dev, 31)
+    x = _randn((rows, 512), g, dev)
+    w = (1 + _randn((512,), g, dev, 0.1, F32), _randn((512,), g, dev, 0.1, F32),
+         _randn((2730, 512), g, dev, 512 ** -0.5, F32), _randn((512, 1365), g, dev,
+                                                              1365 ** -0.5, F32))
+    K.reset_launch_counts()
+    got = fused_geglu_ff(x, *w)
+    assert K.launch_counts()["ff_tc_fwd"] == 1 and K.launch_counts()["geglu_ff"] == 1
+    ref = geglu_ff_plain(x, *w)
+    torch.cuda.synchronize()
+    _close(got, ref)
+    _close(_geglu_ff_gemm(x, *w, 1e-5), ref)
+    assert torch.equal(fused_geglu_ff(x, *w), got)
+
+
+def test_geglu_ff_k3_wgmma_narrow_widths(dev):
+    """K3 bf16 at a width of 64 (ffn_tc.cu, inner 170 padded to 176) and at
+    36, which TMA cannot take (gemm.cu), each against the plain version."""
+    from ct_clip_tpu_torch.ops.ffn import fused_geglu_ff, geglu_ff_plain
+
+    g = _gen(dev, 32)
+    for dim, tc in ((64, 1), (36, 0)):
+        inner = int(4 * (2.0 / 3.0) * dim)
+        x = _randn((500, dim), g, dev)
+        w = (1 + _randn((dim,), g, dev, 0.1, F32), _randn((dim,), g, dev, 0.1, F32),
+             _randn((2 * inner, dim), g, dev, dim ** -0.5, F32),
+             _randn((dim, inner), g, dev, inner ** -0.5, F32))
+        K.reset_launch_counts()
+        got = fused_geglu_ff(x, *w)
+        assert K.launch_counts()["ff_tc_fwd"] == tc
+        _close(got, geglu_ff_plain(x, *w))
+
+
+@pytest.mark.parametrize("rows,codes", [(2000, 8192), (10001, 8192), (300, 8000), (64, 100)])
+def test_vq_assign_k5_wgmma_bf16(dev, rows, codes):
+    """K5 bf16 on vq_tc.cu (counted `vq_assign_tc`) at ragged row and code
+    counts: >= 99% of ids equal to the plain version's, the rest near-ties
+    within the bf16 margin; equal run to run."""
+    from ct_clip_tpu_torch.ops.norms import l2norm
+    from ct_clip_tpu_torch.ops.vq import vq_assign, vq_assign_plain
+
+    g = _gen(dev, 33)
+    x = _randn((rows, 512), g, dev)
+    embed_n = l2norm(torch.randn((codes, 512), generator=g, device=dev))
+    K.reset_launch_counts()
+    got = vq_assign(x, embed_n).long()
+    assert K.launch_counts()["vq_assign_tc"] == 1
+    ref = vq_assign_plain(x, embed_n).long()
+    assert got.max().item() < codes
+    assert (got == ref).float().mean().item() >= 0.99
+    sim = x.float() @ embed_n.to(BF).float().t()
+    gap = (sim.gather(1, ref[:, None]) - sim.gather(1, got[:, None])).abs()[:, 0]
+    assert (gap <= 4e-3 * sim.abs().max(dim=1).values).all()
+    assert torch.equal(vq_assign(x, embed_n).long(), got)
+
+
+@pytest.mark.parametrize("codes", [8192, 1000])
+def test_vq_assign_k5_wgmma_exact_ties_take_the_lower_code(dev, codes):
+    """On exactly tied similarities (integer rows and codes: every sum exact
+    in f32) with planted duplicate codes, vq_tc.cu's ids equal
+    torch.argmax's, the lower code winning each tie."""
+    from ct_clip_tpu_torch.ops.vq import vq_assign
+
+    g = _gen(dev, 34)
+    x = torch.randint(-2, 3, (3000, 512), generator=g, device=dev).to(BF)
+    c = torch.randint(-1, 2, (codes, 512), generator=g, device=dev).float()
+    best = (x.float() @ c.t()).argmax(dim=-1)[::3]
+    c[torch.randint(0, codes, best.shape, generator=g, device=dev)] = c[best]
+    sim = x.float() @ c.t()
+    assert ((sim == sim.max(dim=-1, keepdim=True).values).sum(dim=-1) > 1).sum() >= 100
+    assert torch.equal(vq_assign(x, c), sim.argmax(dim=-1).to(torch.int32))
+
+
+def test_vq_assign_k5_wgmma_f32_rows_pre_pass_is_the_plain_norm(dev):
+    """vq_tc.cu's pre-pass writes each f32 row times `_lane_inv_norm`,
+    rounded to bf16, bit for bit."""
+    from ct_clip_tpu_torch.ops.vq import _lane_inv_norm
+
+    g = _gen(dev, 35)
+    for dim in (512, 128, 40):
+        x = torch.randn((777, dim), generator=g, device=dev) * 3.0
+        x[5] = 0.0
+        out = torch.empty((777, dim), dtype=BF, device=dev)
+        K._check(K.library().ct_vq_rows_bf16(K._ptr(x), 777, dim, K._ptr(out), K._stream()),
+                 "ct_vq_rows_bf16")
+        torch.cuda.synchronize()
+        assert torch.equal(out, (x * _lane_inv_norm(x)).to(BF))
 
 
 def test_launch_counters_count_only_kernel_paths(dev):
@@ -1693,20 +1791,21 @@ def test_vq_exact_assign_f32_rows_k5_and_stats_k15(dev):
 
 def test_vq_assign_f32_rows_k5(dev):
     from ct_clip_tpu_torch.ops.norms import l2norm
-    from ct_clip_tpu_torch.ops.vq import CosineVQ, vq_assign, vq_assign_rows_plain
+    from ct_clip_tpu_torch.ops.vq import (CosineVQ, vq_assign, vq_assign_rows_lane_plain,
+                                          vq_rows_lane_sim)
 
     g = _gen(dev, 48)
     x = _randn((2048, 512), g, dev, dtype=F32)
     embed_n = l2norm(torch.randn((8192, 512), generator=g, device=dev))
     K.reset_launch_counts()
     got = vq_assign(x, embed_n).long()
-    ref = vq_assign_rows_plain(x, embed_n).long()
+    ref = vq_assign_rows_lane_plain(x, embed_n).long()
     torch.cuda.synchronize()
-    assert K.launch_counts()["vq_assign_f32"] == 1
+    assert K.launch_counts()["vq_assign_f32"] == 1 and K.launch_counts()["vq_assign_tc"] == 1
     assert (got == ref).float().mean().item() >= 0.999
-    # any disagreement is a tie of the kernel's own math up to f32 order
-    xn = (x * torch.rsqrt((x * x).sum(-1, keepdim=True))).to(BF).float()
-    sim = xn @ embed_n.to(BF).float().t()
+    # any disagreement is a tie of the kernel's own math (its bf16 rows are
+    # the plain version's, bit for bit) up to f32 order
+    sim = vq_rows_lane_sim(x, embed_n)
     gap = (sim.gather(1, ref[:, None]) - sim.gather(1, got[:, None])).abs()[:, 0]
     assert (gap <= 1e-5 * sim.abs().max(dim=1).values).all()
     # shapes the JAX package's plan refuses take the f32 XLA form's plain version

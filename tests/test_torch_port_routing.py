@@ -781,7 +781,8 @@ def test_k16a_ln_sums_raise_on_a_misfit(monkeypatch, misfit):
 def test_k3_routes_f32_to_3xtf32_and_keeps_bf16(monkeypatch, dtype):
     """K3 on a CUDA tensor: f32 takes ffn_tc32.cu (the LN split into hi and
     lo, the weight split, the GEGLU product, the residual product; counted
-    `geglu_ff_tc32`), bf16 keeps gemm.cu's LN and two products."""
+    `geglu_ff_tc32`), bf16 at the model width takes layernorm.cu's LN and
+    ffn_tc.cu's GEGLU and residual products (`wgmma`; counted `ff_tc_fwd`)."""
     from ct_clip_tpu_torch.ops.ffn import _geglu_ff_cuda
 
     lib = _RecordingLibrary()
@@ -800,8 +801,151 @@ def test_k3_routes_f32_to_3xtf32_and_keeps_bf16(monkeypatch, dtype):
         assert lib.calls[3][1][6:9] == (rows, dim, 1368)  # act wo^T + x
         assert (c["geglu_ff"], c["geglu_ff_f32"], c["geglu_ff_tc32"]) == (1, 1, 1)
     else:
-        assert lib.names() == ["ct_layernorm", "ct_gemm", "ct_gemm"]
-        assert (c["geglu_ff"], c["geglu_ff_f32"], c["geglu_ff_tc32"]) == (1, 0, 0)
+        assert lib.names() == ["ct_layernorm", "ct_ff_tc_geglu", "ct_ff_tc_residual"]
+        assert lib.calls[1][1][4:7] == (rows, 1368, dim)  # M, N, K: act = geglu(xn [wa; wg]^T)
+        assert lib.calls[2][1][4:7] == (rows, dim, 1368)  # act wo^T + x
+        assert (c["geglu_ff"], c["geglu_ff_f32"], c["geglu_ff_tc32"], c["ff_tc_fwd"]) == \
+            (1, 0, 0, 1)
+
+
+@pytest.mark.parametrize("dtype,dim,route", [
+    (BF, 512, "ffn_tc.cu"),    # every model width of the repo: CT-CLIP, CTViT, MaskGIT
+    (BF, 64, "ffn_tc.cu"),
+    (BF, 8, "ffn_tc.cu"),
+    (BF, 100, "gemm.cu"),      # rows of 200 bytes: no TMA copy takes them
+    (BF, 36, "gemm.cu"),
+    (F32, 512, "ffn_tc32.cu"),
+    (F32, 100, "ffn_tc32.cu"),
+])
+def test_k3_forward_route_table(dtype, dim, route):
+    """K3's products by dtype and model width (`ops/ffn.py::fwd_route`):
+    bf16 on ffn_tc.cu where TMA takes the rows (a width of a multiple of 8;
+    the padded inner width always is), gemm.cu's WMMA epilogues elsewhere;
+    f32 in 3xTF32 on ffn_tc32.cu."""
+    from ct_clip_tpu_torch.ops import ffn
+
+    assert ffn.fwd_route(dtype, dim) == route
+    assert route in (ffn.FF_WGMMA, ffn.FF_WMMA, ffn.FF_TC32)
+
+
+def test_k3_bf16_width_tma_cannot_take_keeps_gemm_cu(monkeypatch):
+    """A bf16 width of no multiple of 8 takes gemm.cu's LN and two WMMA
+    products, counted `geglu_ff` but not `ff_tc_fwd`."""
+    from ct_clip_tpu_torch.ops.ffn import _geglu_ff_cuda
+
+    lib = _RecordingLibrary()
+    _stub_card(monkeypatch, lib)
+    rows, dim, inner = 40, 36, 96
+    out = _geglu_ff_cuda(torch.zeros((rows, dim), dtype=BF), torch.ones(dim),
+                         torch.zeros(dim), torch.zeros((2 * inner, dim)),
+                         torch.zeros((dim, inner)), 1e-5)
+    assert out.shape == (rows, dim) and out.dtype == BF
+    assert lib.names() == ["ct_layernorm", "ct_gemm", "ct_gemm"]
+    c = K.launch_counts()
+    assert (c["geglu_ff"], c["ff_tc_fwd"]) == (1, 0)
+
+
+class _FailingLibrary(_RecordingLibrary):
+    """Records every call; the entry `fail` returns a CUDA error."""
+
+    def __init__(self, fail):
+        super().__init__()
+        self.fail = fail
+
+    def __getattr__(self, name):
+        if name == "ct_error_string":
+            return lambda err: b"planted"
+        if not name.startswith("ct_"):
+            raise AttributeError(name)
+        return lambda *a: self.calls.append((name, a)) or int(name == self.fail)
+
+
+@pytest.mark.parametrize("fail", [None, "ct_ff_tc_geglu", "ct_ff_tc_residual"])
+def test_k3_ff_tc_fwd_counts_the_launches_and_skips_a_failed_one(monkeypatch, fail):
+    """`kernels.ff_tc_fwd` launches the GEGLU then the residual product and
+    counts `ff_tc_fwd` once, after both; a launch that reports an error
+    raises, naming its entry, and nothing is counted."""
+    lib = _FailingLibrary(fail)
+    _stub_card(monkeypatch, lib)
+    rows, dim, P = 300, 64, 176
+    x = torch.zeros((rows, dim), dtype=BF)
+    args = (x, torch.zeros_like(x), torch.zeros((2 * P, dim), dtype=BF),
+            torch.zeros((dim, P), dtype=BF))
+    if fail is None:
+        assert K.ff_tc_fwd(*args).shape == (rows, dim)
+        assert lib.names() == ["ct_ff_tc_geglu", "ct_ff_tc_residual"]
+        assert K.launch_counts()["ff_tc_fwd"] == 1
+        return
+    with pytest.raises(RuntimeError, match=fail):
+        K.ff_tc_fwd(*args)
+    assert lib.names()[-1] == fail
+    assert K.launch_counts()["ff_tc_fwd"] == 0
+
+
+@pytest.mark.parametrize("misfit", ["width", "stride", "f32", "weights"])
+def test_k3_ff_tc_fwd_raises_on_a_misfit(monkeypatch, misfit):
+    """ffn_tc.cu's K3 forms take bf16 rows of multiples of 16 bytes on
+    16-byte boundaries and the value and gate weights side by side; anything
+    else raises before a launch, and nothing is counted."""
+    lib = _RecordingLibrary()
+    _stub_card(monkeypatch, lib)
+    rows, dim, P = 64, 64, 176
+    x, wcat, wo = (torch.zeros((rows, dim), dtype=BF), torch.zeros((2 * P, dim), dtype=BF),
+                   torch.zeros((dim, P), dtype=BF))
+    if misfit == "width":
+        x = torch.zeros((rows, 68), dtype=BF)[:, :60]
+    elif misfit == "stride":
+        x = torch.zeros((rows, 68), dtype=BF)[:, :64]
+    elif misfit == "f32":
+        x = x.float()
+    else:
+        wcat = wcat[:P]
+    with pytest.raises(ValueError):
+        K.ff_tc_fwd(x, torch.zeros_like(x), wcat, wo)
+    assert lib.calls == [] and K.launch_counts()["ff_tc_fwd"] == 0
+
+
+@pytest.mark.parametrize("dtype,dim,exact,names,tc", [
+    (BF, 512, False, ["ct_vq_assign_tc"], 1),                     # K5 bf16: vq_tc.cu
+    (F32, 512, False, ["ct_vq_rows_bf16", "ct_vq_assign_tc"], 1),  # f32 rows: pre-pass first
+    (BF, 512, True, ["ct_gemm_argmax2"], 0),                       # K5 exact stays on gemm.cu
+    (F32, 512, True, ["ct_gemm_argmax2_rows"], 0),
+    (BF, 640, False, ["ct_gemm_argmax"], 0),                       # wider than the row tile
+    (BF, 100, False, ["ct_gemm_argmax"], 0),                       # no TMA row
+])
+def test_k5_routes_inference_to_vq_tc_and_keeps_exact(monkeypatch, dtype, dim, exact, names, tc):
+    """K5 on a CUDA tensor: the inference mode on bf16 and on f32 rows takes
+    vq_tc.cu (counted `vq_assign_tc` beside `vq_assign`) where the width
+    fits (`kernels.vq_tc_fits`), gemm.cu's gemm_argmax_kernel elsewhere;
+    the exact mode stays on gemm.cu."""
+    from ct_clip_tpu_torch.ops import vq
+
+    lib = _RecordingLibrary()
+    _stub_card(monkeypatch, lib)
+    monkeypatch.setattr(vq, "vq_route", lambda *a: K.KERNEL)  # any shape: the kernels
+    rows, codes = 384, 256
+    ids = vq._vq_assign_cuda(torch.zeros((rows, dim), dtype=dtype), torch.zeros((codes, dim)),
+                             exact)
+    assert ids.shape == (rows,) and ids.dtype == torch.int32
+    assert lib.names() == names
+    c = K.launch_counts()
+    op = "vq_assign_exact" if exact else "vq_assign"
+    assert (c["vq_assign_tc"], c[op], c[f"{op}_f32"]) == (tc, 1, int(dtype == F32))
+    if tc:
+        assert lib.calls[-1][1][4:7] == (rows, codes, dim)  # M, N, K
+
+
+@pytest.mark.parametrize("dtype,fail", [(BF, "ct_vq_assign_tc"), (F32, "ct_vq_rows_bf16"),
+                                        (F32, "ct_vq_assign_tc")])
+def test_k5_vq_assign_tc_skips_a_failed_launch(monkeypatch, dtype, fail):
+    """A launch of vq_tc.cu that reports a CUDA error raises, naming its
+    entry, and adds no count; nothing gives way to gemm.cu."""
+    lib = _FailingLibrary(fail)
+    _stub_card(monkeypatch, lib)
+    with pytest.raises(RuntimeError, match=fail):
+        K.vq_assign_tc(torch.zeros((256, 64), dtype=dtype), torch.zeros((512, 64), dtype=BF))
+    assert lib.names()[-1] == fail and "ct_gemm_argmax" not in lib.names()
+    assert K.launch_counts()["vq_assign_tc"] == 0
 
 
 @pytest.mark.parametrize("misfit", ["width", "stride", "bf16", "weights"])

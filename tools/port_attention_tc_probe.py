@@ -6,7 +6,7 @@ inputs.
 
     python tools/port_attention_tc_probe.py [--kernel attention] [--out FILE.json]
     python tools/port_attention_tc_probe.py --kernel k17 | k9 | k9_f32 | k11 | k16a | k3_f32
-                                            | k1 | k1_f32 [--tree DIR]
+                                            | k1 | k1_f32 | k3 | k5 [--tree DIR]
     python tools/port_attention_tc_probe.py --kernel k9_copies | k9_f32_copies
 
 `--kernel attention` (the default) times attention_tc.cu and
@@ -117,6 +117,24 @@ products (gemm.cu), the core's pre-pass and forward pass.  `--kernel
 k1_f32`: the same in f32, whose pieces are the LN split, the x and weight
 splits, the q, kv (ffn_tc32.cu's plain-store form) and output (its
 residual form) products in 3xTF32, the core's pre-pass and forward pass.
+
+`--kernel k3`: K3 in bf16 (`fused_geglu_ff`, no grad) at MaskGIT's 10,240
+rows, zero-shot's 27,648 and the contrastive step's 110,592 (x 512, inner
+1,365): events, the device time of each kernel per call and the host time
+per call; where the tree has `ops/ffn.py::_geglu_ff_tc`, the path it
+replaced (`_geglu_ff_gemm`: gemm.cu's WMMA EPI_GEGLU and EPI_RESIDUAL) the
+same way, and each piece of the new route alone, kernel-only: the LN
+(layernorm.cu), the GEGLU product and the residual product (ffn_tc.cu).
+
+`--kernel k5`: K5's inference assignment (`ops/vq.py::vq_assign`) at
+zero-shot's 27,648 rows x 512 against 8,192 codes, on bf16 and on f32 rows:
+events, the device time of each kernel per call and the host time per call;
+where the tree has `kernels.vq_assign_tc`, the path it replaced
+(`kernels.gemm_argmax`: gemm.cu's gemm_argmax_kernel) the same way, each
+piece alone (the f32 rows' pre-pass, the assignment on bf16 rows), and the
+L2-traffic variants in turns with the kernel as built: a copy of vq_tc.cu
+with 192-row tiles (CT_VQ_TC_CWG=3: three consumer warpgroups, a third less
+codebook read from L2, 144 CTAs) at events and kernel-only.
 
 `--kernel k9_copies`: K9's core at (192, 576) on copies of
 qknorm_attention_tc.cu with one change each, in turns, there and back, with
@@ -654,6 +672,84 @@ def k3_f32(dev, g) -> dict:
     return out
 
 
+def k3(dev, g) -> dict:
+    """K3 bf16 at three row counts, the path it replaced and each piece of
+    the new route alone (module doc)."""
+    from ct_clip_tpu_torch.ops import ffn
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    dim, inner, out = 512, 1365, {}
+    w = (1 + rn(dim, scale=0.1), rn(dim, scale=0.1), rn(2 * inner, dim, scale=dim ** -0.5),
+         rn(dim, inner, scale=inner ** -0.5))
+    for label, rows in (("maskgit", 10240), ("zero_shot", 27648), ("contrastive", 110592)):
+        x = rn(rows, dim).to(torch.bfloat16)
+        with torch.no_grad():
+            row = {"k3": _timed(lambda: ffn.fused_geglu_ff(x, *w))}
+            if hasattr(ffn, "_geglu_ff_tc"):
+                row["replaced"] = _timed(lambda: ffn._geglu_ff_gemm(x, *w, 1e-5))
+                P = -(-inner // 8) * 8
+                wcat = torch.zeros((2 * P, dim), dtype=x.dtype, device=dev)
+                wcat[:inner], wcat[P:P + inner] = w[2][:inner], w[2][inner:]
+                wo = torch.zeros((dim, P), dtype=x.dtype, device=dev)
+                wo[:, :inner] = w[3]
+                xn, act = torch.empty_like(x), torch.empty((rows, P), dtype=x.dtype, device=dev)
+                lib, st = K.library(), K._stream
+                pieces = {
+                    "layernorm": lambda: K.layernorm(x, w[0], w[1], 1e-5, xn),
+                    "geglu_product": lambda: lib.ct_ff_tc_geglu(
+                        K._ptr(xn), dim, K._ptr(wcat), dim, rows, P, dim, K._ptr(act), P, st()),
+                    "residual_product": lambda: lib.ct_ff_tc_residual(
+                        K._ptr(act), P, K._ptr(wo), P, rows, dim, P, K._ptr(x), dim,
+                        K._ptr(xn), dim, st())}
+                row["pieces_kernel_ms"] = {k: kernel_ms(f) for k, f in pieces.items()}
+        print(f"K3 bf16 {label}: {json.dumps(row)}", flush=True)
+        out[label] = row
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def k5(dev, g) -> dict:
+    """K5's inference assignment on bf16 and f32 rows, the path it replaced,
+    its pieces and the L2-traffic variants (module doc)."""
+    from ct_clip_tpu_torch.ops.norms import l2norm
+    from ct_clip_tpu_torch.ops.vq import vq_assign
+
+    rows, dim, codes, out = 27648, 512, 8192, {}
+    embed_n = l2norm(torch.randn((codes, dim), generator=g, device=dev))
+    cb = embed_n.to(torch.bfloat16).contiguous()
+    copy = None
+    if hasattr(K, "vq_assign_tc"):
+        copy = K.copy_library("vq_tc.cu", CT_VQ_TC_CWG=3)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((rows, dim), generator=g, device=dev).to(dtype)
+        label = str(dtype).split(".")[-1]
+        row = {"k5": _timed(lambda: vq_assign(x, embed_n))}
+        if copy is not None:
+            row["replaced"] = _timed(lambda: K.gemm_argmax(x, cb))
+            xb = x if dtype == torch.bfloat16 else torch.empty((rows, dim), dtype=torch.bfloat16,
+                                                                device=dev)
+            if dtype == torch.float32:
+                row["pre_pass_kernel_ms"] = kernel_ms(lambda: K.library().ct_vq_rows_bf16(
+                    K._ptr(x), rows, dim, K._ptr(xb), K._stream()))
+            variants = {"as_built": None, "rows192": copy}
+            times = {name: [] for name in variants}
+            for name in list(variants) + list(variants)[::-1]:
+                times[name].append(event_ms(lambda: K.vq_assign_tc(xb, cb, lib=variants[name])))
+            row["assignment_alone"] = {
+                name: dict(events_ms=min(times[name]),
+                           kernel_ms=kernel_ms(lambda: K.vq_assign_tc(xb, cb, lib=lib)),
+                           ids_equal=bool(torch.equal(K.vq_assign_tc(xb, cb, lib=lib),
+                                                      K.vq_assign_tc(xb, cb))))
+                for name, lib in variants.items()}
+        print(f"K5 {label}: {json.dumps(row)}", flush=True)
+        out[label] = row
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
 QK_TC = "qknorm_attention_tc.cu"
 QK_COPIES = {
     "as_built": [],
@@ -709,10 +805,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", default="attention",
                     choices=("attention", "k17", "k9", "k9_f32", "k11", "k16a", "k3_f32",
-                             "k9_copies", "k9_f32_copies", "k1", "k1_f32"))
+                             "k9_copies", "k9_f32_copies", "k1", "k1_f32", "k3", "k5"))
     ap.add_argument("--tree", default=str(ROOT),
                     help="the checkout whose package is timed (k17, k9, k9_f32, k11, k16a, "
-                         "k3_f32, k1, k1_f32)")
+                         "k3_f32, k1, k1_f32, k3, k5)")
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -734,6 +830,7 @@ def main() -> int:
         results[args.kernel] = dict(
             k17=k17, k9=k9, k9_f32=lambda dev, g: k9(dev, g, torch.float32), k11=k11,
             k16a=k16a, k3_f32=k3_f32, k1=k1, k1_f32=lambda dev, g: k1(dev, g, torch.float32),
+            k3=k3, k5=k5,
             k9_copies=k9_copies,
             k9_f32_copies=lambda dev, g: k9_copies(dev, g, QK32, QK32_COPIES, torch.float32),
             )[args.kernel](dev, g)
