@@ -36,7 +36,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
      512) in phase 8), the replaced path (the core on attention.cu's CUDA
      cores) timed beside it; the core alone at those planes against its plain
      version at the TPU's rounding points, bit-identical across runs, with
-     SDPA on the normalised heads as the library call (`k1_phase`).  K3 bf16
+     SDPA on the normalised heads as the library call (`k1_phase`); its
+     projections on ffn_tc.cu's NT store and residual forms (counter
+     `qk_proj_tc`).  K2 grid with its core on qknorm_attention_short.cu
+     (counter `qk_attention_short`) and its products on ffn_tc.cu at
+     zero-shot's (2, 24, 576, 512) and the contrastive step's (8, 24, 576,
+     512), the replaced path (attention.cu's core, gemm.cu's WMMA products)
+     timed beside it; the core alone at those grids and at the
+     sequence-major (4,608, 16) and (512, 20) against its plain version at
+     the TPU's rounding points, bit-identical across runs, attention.cu's
+     core timed beside it and SDPA on the normalised heads as the library
+     call (`k2_phase`).  K3 bf16
      (its GEGLU and residual products on ffn_tc.cu's `wgmma`, counter
      `ff_tc_fwd`) at zero-shot's 27,648 rows, MaskGIT's 10,240, the
      contrastive step's 110,592 and a ragged 10,001 (`k3_phase`: bit-identical
@@ -135,7 +145,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      which must fail;
   8. non-cubic token grids and the CTViT autoencoder: K2 and K10 in
      sequence-major form at (4608, 16, 512) (CT-CLIP at 160 frames, batch
-     8) and (512, 20, 512) (the autoencoder's batch 8), K1 and K9 on its
+     8) and (512, 20, 512) (the autoencoder's batch 8; K2 with its replaced
+     path timed beside it), K1 and K9 on its
      (160, 64, 512) planes with the (8, 64, 64) bias, each against its
      plain version (K9 with the replaced CUDA-core core timed beside it,
      and its tensor-core core alone there as in phase 6); `CTViTTrainer` at
@@ -184,7 +195,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      qknorm_attention_tc32.cu, the products on ffn_tc32.cu; the replaced
      path, attention.cu's f32 core and gemm.cu's FFMA products, timed beside
      it; the contrastive and ragged planes and the core alone, its plain-TF32
-     copy outside TC32_REL_TOL, as in phase 2), K2 grid and seq, K5 on f32
+     copy outside TC32_REL_TOL, as in phase 2), K2 grid and seq (the core
+     on qknorm_attention_short.cu's CUDA cores in true f32, merged written
+     as hi and lo planes, the products in 3xTF32 on ffn_tc32.cu; the replaced
+     path, attention.cu's f32 core and gemm.cu's FFMA products, timed beside
+     it; the contrastive grid and the core alone as in phase 2), K5 on f32
      rows on three seeds (vq_tc.cu's pre-pass and assignment; ids equal to
      the plain version of its own math, `vq_assign_rows_lane_plain`, whose
      bf16 rows are the pre-pass's bit for bit, the rest ties within 1e-5 of
@@ -264,6 +279,14 @@ F32_REL_TOL = 1e-4
 # operands split into TF32 hi + lo drop ~2^-22 of it, f32's own rounding
 # order; plain TF32 (~2^-11) lands near 5e-4
 TC32_REL_TOL = 1e-5
+# K2's bf16 core against its plain version at the TPU kernel's rounding
+# points (e = exp(S - rowmax) rounded before e v, then divided by the f32
+# sum): mean|err| <= K2_POINT_TOL * mean|plain|.  Another f32 summation
+# order flips a bf16 rounding in well under 1% of merged's elements;
+# rounding the normalised p instead (attention.cu's point, the XLA twin's)
+# moves ~43% of them, ~1.8e-3, and the check requires that reading to miss.
+# On an H100 the core reads below 1e-6 (PERF.md, section 6)
+K2_POINT_TOL = 2e-4
 # the two zero-shot routes see the same bf16 values and differ only in the
 # order LN(4000) sums them: P(present) agree far inside this
 ROUTE_TOL = 0.05
@@ -293,10 +316,11 @@ KERNELS = {
     "patch_embed": _kernel("fused_patch_embed", "patchify.py:341", "layernorm.cu",
                            ["layernorm.cu", "gemm.cu"], "patch_embed", "zero_shot_volume"),
     # K1: its core on the tensor cores (qknorm_attention_tc.cu's forward
-    # pass, counter qk_attention_tc beside spatial_attention)
+    # pass, counter qk_attention_tc beside spatial_attention), its products
+    # on ffn_tc.cu's NT forms (counter qk_proj_tc)
     "spatial_attention": _kernel("fused_spatial_qknorm_attention",
                                  "spatial_attention.py:276", "qknorm_attention_tc.cu",
-                                 ["layernorm.cu", "gemm.cu", "qknorm_attention_tc.cu"],
+                                 ["layernorm.cu", "ffn_tc.cu", "qknorm_attention_tc.cu"],
                                  "spatial_attention", "zero_shot_rows"),
     # K1's bf16 attention core alone (the route kernels.qk_bwd_tensor_cores
     # gives K1's planes), its own counter
@@ -304,10 +328,18 @@ KERNELS = {
                                     "spatial_attention.py:276", "qknorm_attention_tc.cu",
                                     ["qknorm_attention_tc.cu"], "qk_attention_tc",
                                     "zero_shot_rows"),
+    # K2 grid: its core on qknorm_attention_short.cu (counter
+    # qk_attention_short beside grid_attention), its products on ffn_tc.cu
     "grid_attention": _kernel("fused_small_qknorm_attention_grid",
-                              "small_attention.py:196", "attention.cu",
-                              ["layernorm.cu", "gemm.cu", "attention.cu"],
+                              "small_attention.py:196", "qknorm_attention_short.cu",
+                              ["layernorm.cu", "ffn_tc.cu", "qknorm_attention_short.cu"],
                               "grid_attention", "zero_shot_rows"),
+    # K2's bf16 attention core alone (the route kernels.qk_fwd_route gives
+    # its 16-31-token sequences, grid and sequence-major), its own counter
+    "grid_attention_short": _kernel("_pallas_small_qknorm (bf16 attention core)",
+                                    "small_attention.py:196", "qknorm_attention_short.cu",
+                                    ["qknorm_attention_short.cu"], "qk_attention_short",
+                                    "zero_shot_rows"),
     # K3 bf16: its GEGLU and residual products on ffn_tc.cu (`wgmma`, counter
     # ff_tc_fwd beside geglu_ff)
     "geglu_ff": _kernel("fused_geglu_ff", "ffn.py:105", "ffn_tc.cu",
@@ -340,7 +372,8 @@ KERNELS = {
                             "ctclip_train"),
     "spatial_attention_bwd": _kernel("_pallas_spatial_bwd", "spatial_attention.py:297",
                                      "qknorm_attention_tc.cu",
-                                     ["layernorm.cu", "gemm.cu", "qknorm_attention_tc.cu"],
+                                     ["layernorm.cu", "ffn_tc.cu", "gemm.cu",
+                                      "qknorm_attention_tc.cu"],
                                      "spatial_attention_bwd", "ctclip_train"),
     # K9's bf16 attention core alone, on the tensor cores (the route
     # kernels.qk_bwd_tensor_cores gives K9's planes), its own counter
@@ -350,7 +383,8 @@ KERNELS = {
                                         "qk_attention_tc_bwd", "ctclip_train"),
     "grid_attention_bwd": _kernel("_pallas_small_qknorm_bwd (grid_layout)",
                                   "small_attention.py:437", "qknorm_attention_bwd.cu",
-                                  ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
+                                  ["layernorm.cu", "ffn_tc.cu", "gemm.cu",
+                                   "qknorm_attention_bwd.cu"],
                                   "grid_attention_bwd", "ctclip_train"),
     "peg_bwd": _kernel("_pallas_peg_bwd", "peg.py:181", "peg_bwd.cu",
                        ["peg_bwd.cu", "gemm.cu"], "peg_bwd", "ctclip_train"),
@@ -374,11 +408,13 @@ KERNELS = {
     "unrearrange_patches": _kernel("_pallas_unrearrange", "patchify.py:138", "rearrange.cu",
                                    ["rearrange.cu"], "unrearrange_patches", "embed_grad"),
     "seq_attention": _kernel("fused_small_qknorm_attention", "small_attention.py:196",
-                             "attention.cu", ["layernorm.cu", "gemm.cu", "attention.cu"],
+                             "qknorm_attention_short.cu",
+                             ["layernorm.cu", "ffn_tc.cu", "qknorm_attention_short.cu"],
                              "seq_attention", "ctvit_ae_train"),
     "seq_attention_bwd": _kernel("_pallas_small_qknorm_bwd (sequence-major)",
                                  "small_attention.py:437", "qknorm_attention_bwd.cu",
-                                 ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
+                                 ["layernorm.cu", "ffn_tc.cu", "gemm.cu",
+                                  "qknorm_attention_bwd.cu"],
                                  "seq_attention_bwd", "ctvit_ae_train"),
     "attention_dense": _kernel("_pallas_attention (dense bias)", "attention.py:157",
                                "attention_tc.cu", ATTN_TC, "attention_dense",
@@ -435,13 +471,20 @@ KERNELS = {
                                         "spatial_attention.py:276", "qknorm_attention_tc32.cu",
                                         ["qknorm_attention_tc32.cu"], "qk_attention_tc32",
                                         "zero_shot_f32_rows"),
+    # K2 f32: its core on qknorm_attention_short.cu (CUDA cores, counter
+    # qk_attention_short_f32), its three products in 3xTF32 on ffn_tc32.cu
     "grid_attention_f32": _kernel("fused_small_qknorm_attention_grid (f32)",
-                                  "small_attention.py:196", "attention.cu",
-                                  ["layernorm.cu", "gemm.cu", "attention.cu"],
+                                  "small_attention.py:196", "qknorm_attention_short.cu",
+                                  ["layernorm.cu", "ffn_tc32.cu", "qknorm_attention_short.cu"],
                                   "grid_attention_f32", "zero_shot_f32_rows"),
+    # K2's f32 attention core alone, its own counter
+    "grid_attention_f32_short": _kernel("_pallas_small_qknorm (f32 attention core)",
+                                        "small_attention.py:196", "qknorm_attention_short.cu",
+                                        ["qknorm_attention_short.cu"], "qk_attention_short_f32",
+                                        "zero_shot_f32_rows"),
     "seq_attention_f32": _kernel("fused_small_qknorm_attention (f32)",
-                                 "small_attention.py:196", "attention.cu",
-                                 ["layernorm.cu", "gemm.cu", "attention.cu"],
+                                 "small_attention.py:196", "qknorm_attention_short.cu",
+                                 ["layernorm.cu", "ffn_tc32.cu", "qknorm_attention_short.cu"],
                                  "seq_attention_f32", "maskgit_f32_encode_ids"),
     # K5 on f32 rows: vq_tc.cu's pre-pass, then its assignment
     "vq_assign_f32": _kernel("pallas_assign (f32 rows)", "vq.py:104", "vq_tc.cu", ["vq_tc.cu"],
@@ -479,8 +522,9 @@ KERNELS = {
                                     "ctclip_f32_train"),
 }
 # launch counters each driven path must raise
-COMMON = ["spatial_attention", "qk_attention_tc", "grid_attention", "geglu_ff", "ff_tc_fwd",
-          "vq_assign", "vq_assign_tc", "fused_attention", "attention_tc"]
+COMMON = ["spatial_attention", "qk_attention_tc", "grid_attention", "qk_attention_short",
+          "qk_proj_tc", "geglu_ff", "ff_tc_fwd", "vq_assign", "vq_assign_tc", "fused_attention",
+          "attention_tc"]
 PATHS = {
     "zero_shot_rows": COMMON + ["rearrange_patches", "row_embed"],
     "zero_shot_volume": COMMON + ["patch_embed"],
@@ -501,7 +545,7 @@ PATHS = {
                      "qk_attention_tc_bwd",
                      "grid_attention_bwd", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
                      "geglu_ff", "ff_tc_fwd", "spatial_attention", "qk_attention_tc",
-                     "grid_attention",
+                     "grid_attention", "qk_attention_short", "qk_proj_tc",
                      "attention_dropout", "attention_dropout_bwd", "attention_tc_bwd",
                      "rearrange_patches",
                      "row_embed", "vq_assign", "vq_assign_tc", "fused_attention", "attention_tc"],
@@ -515,15 +559,16 @@ AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "ff_tc_ln_sums", "rearrange_patch
              "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm",
              "spatial_attention_bwd", "qk_attention_tc_bwd", "grid_attention_bwd", "peg_bwd",
              "vq_cluster_stats", "vq_assign_exact", "geglu_ff", "ff_tc_fwd", "spatial_attention",
-             "qk_attention_tc", "grid_attention", "attention_dropout", "attention_dropout_bwd",
-             "attention_tc", "attention_tc_bwd"]
+             "qk_attention_tc", "grid_attention", "qk_attention_short", "qk_proj_tc",
+             "attention_dropout", "attention_dropout_bwd", "attention_tc", "attention_tc_bwd"]
 PATHS["ctclip_aux_ssl_mlm"] = AUX_TRAIN + ["vq_assign", "vq_assign_tc",
                                            "fused_attention"]  # + mini-eval
 PATHS["ctclip_aux_filip_simclr"] = AUX_TRAIN
 # phase 8: the CTViT autoencoder on GenerateCT's non-cubic (20, 8, 8) grid
 # (training embed K6, decoder un-patchify K17 forward and K6 backward),
 # `cli reconstruct` on the cubic 24^3 grid, CT-CLIP at 160 frames (16, 24, 24)
-AE_TRAIN = ["seq_attention", "seq_attention_bwd", "spatial_attention", "qk_attention_tc",
+AE_TRAIN = ["seq_attention", "qk_attention_short", "qk_proj_tc", "seq_attention_bwd",
+            "spatial_attention", "qk_attention_tc",
             "spatial_attention_bwd", "qk_attention_tc_bwd", "geglu_ff", "ff_tc_fwd",
             "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm",
             "peg_bwd", "vq_cluster_stats", "vq_assign_exact", "rearrange_patches",
@@ -532,15 +577,17 @@ PATHS["ctvit_ae_train"] = AE_TRAIN
 # + the inference recon
 PATHS["ctvit_ae_discr"] = AE_TRAIN + ["vq_assign", "vq_assign_tc", "patch_embed"]
 PATHS["reconstruct"] = ["patch_embed", "spatial_attention", "qk_attention_tc", "grid_attention",
-                        "geglu_ff", "ff_tc_fwd",
+                        "qk_attention_short", "qk_proj_tc", "geglu_ff", "ff_tc_fwd",
                         "vq_assign", "vq_assign_tc", "unrearrange_patches"]
-PATHS["ctclip_160_train"] = ["seq_attention", "seq_attention_bwd", "spatial_attention",
+PATHS["ctclip_160_train"] = ["seq_attention", "qk_attention_short", "qk_proj_tc",
+                             "seq_attention_bwd", "spatial_attention",
                              "qk_attention_tc", "spatial_attention_bwd", "qk_attention_tc_bwd",
                              "geglu_ff", "ff_tc_fwd",
                              "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
                              "rearrange_patches", "attention_dropout", "attention_dropout_bwd",
                              "attention_tc", "attention_tc_bwd"]
 PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "qk_attention_tc", "seq_attention",
+                          "qk_attention_short", "qk_proj_tc",
                           "geglu_ff", "ff_tc_fwd",
                           "vq_assign", "vq_assign_tc", "fused_attention", "attention_tc"]
 # phase 9: MaskGIT on the frozen autoencoder's (20, 8, 8) codes.  A training
@@ -555,12 +602,13 @@ PATHS["maskgit_train"] = ["attention_dense", "attention_dense_bwd", "fused_atten
                           "geglu_ff_bwd",
                           "ff_tc_tile", "ff_tc_gemm", "peg_bwd"]
 PATHS["maskgit_encode_ids"] = ["patch_embed", "spatial_attention", "qk_attention_tc",
-                               "seq_attention", "geglu_ff", "ff_tc_fwd", "vq_assign",
+                               "seq_attention", "qk_attention_short", "qk_proj_tc", "geglu_ff",
+                               "ff_tc_fwd", "vq_assign",
                                "vq_assign_tc"]
 PATHS["maskgit_sample"] = ["attention_dense", "fused_attention", "attention_tc", "geglu_ff",
                            "ff_tc_fwd",
-                           "seq_attention", "spatial_attention", "qk_attention_tc",
-                           "unrearrange_patches"]
+                           "seq_attention", "qk_attention_short", "qk_proj_tc",
+                           "spatial_attention", "qk_attention_tc", "unrearrange_patches"]
 PATHS["maskgit_sample_primed"] = PATHS["maskgit_sample"] + ["patch_embed", "vq_assign",
                                                              "vq_assign_tc"]
 PATHS["t5_no_mask"] = ["attention_dense", "attention_tc32"]
@@ -570,12 +618,13 @@ PATHS["t5_no_mask"] = ["attention_dense", "attention_tc32"]
 # K12b f32 dense and with no bias on attention_tc32.cu, the PEG's plain dW;
 # sampling's decoder with K2 seq, K1, K3 and K17 f32)
 F32_ZS = ["spatial_attention_f32", "qk_attention_tc32", "tc32_gemm", "grid_attention_f32",
-          "geglu_ff_f32", "geglu_ff_tc32", "vq_assign_f32", "vq_assign_tc", "fused_attention",
-          "attention_tc32"]
+          "qk_attention_short_f32", "geglu_ff_f32", "geglu_ff_tc32", "vq_assign_f32",
+          "vq_assign_tc", "fused_attention", "attention_tc32"]
 PATHS["zero_shot_f32_rows"] = F32_ZS + ["rearrange_patches_f32", "row_embed_plain"]
 PATHS["zero_shot_f32_volume"] = F32_ZS + ["patch_embed_plain"]
 PATHS["maskgit_f32_encode_ids"] = ["patch_embed_plain", "spatial_attention_f32",
-                                   "qk_attention_tc32", "tc32_gemm", "seq_attention_f32", "geglu_ff_f32", "geglu_ff_tc32",
+                                   "qk_attention_tc32", "tc32_gemm", "seq_attention_f32",
+                                   "qk_attention_short_f32", "geglu_ff_f32", "geglu_ff_tc32",
                                    "vq_assign_f32", "vq_assign_tc"]
 PATHS["maskgit_f32_train"] = ["geglu_ff_f32", "geglu_ff_tc32", "geglu_ff_bwd_f32",
                               "attention_dense",
@@ -583,7 +632,8 @@ PATHS["maskgit_f32_train"] = ["geglu_ff_f32", "geglu_ff_tc32", "geglu_ff_bwd_f32
                               "fused_attention", "peg_dw_plain"]
 PATHS["maskgit_f32_sample"] = ["attention_dense", "fused_attention", "attention_tc32",
                                "geglu_ff_f32", "geglu_ff_tc32", "seq_attention_f32",
-                               "spatial_attention_f32", "qk_attention_tc32", "tc32_gemm",
+                               "qk_attention_short_f32", "spatial_attention_f32",
+                               "qk_attention_tc32", "tc32_gemm",
                                "unrearrange_patches_f32"]
 # phase 11: f32 CT-CLIP pretraining (`cli train --no-bf16`: the f32 forms of
 # K1, K2 grid, K3 and their backwards K9, K10 grid, K11, K5 exact and K15 on
@@ -596,12 +646,14 @@ PATHS["ctclip_f32_train"] = ["spatial_attention_bwd_f32", "qk_attention_tc32_bwd
                              "vq_assign_exact_f32", "vq_cluster_stats_f32", "geglu_ff_bwd_f32",
                              "geglu_ff_f32", "geglu_ff_tc32", "spatial_attention_f32",
                              "qk_attention_tc32", "tc32_gemm", "grid_attention_f32",
-                             "rearrange_patches_f32", "attention_dropout",
+                             "qk_attention_short_f32", "rearrange_patches_f32",
+                             "attention_dropout",
                              "attention_dropout_bwd", "attention_tc32", "attention_tc32_bwd",
                              "peg_dw_plain",
                              "vq_assign_f32", "vq_assign_tc",
                              "row_embed_plain", "fused_attention"]
-AE_F32_TRAIN = ["seq_attention_f32", "seq_attention_bwd_f32", "spatial_attention_f32",
+AE_F32_TRAIN = ["seq_attention_f32", "qk_attention_short_f32", "seq_attention_bwd_f32",
+                "spatial_attention_f32",
                 "qk_attention_tc32", "tc32_gemm", "spatial_attention_bwd_f32", "qk_attention_tc32_bwd", "geglu_ff_f32",
                 "geglu_ff_tc32", "geglu_ff_bwd_f32", "peg_dw_plain",
                 "vq_cluster_stats_f32", "vq_assign_exact_f32", "rearrange_patches_f32",
@@ -723,9 +775,11 @@ def kernel_cases(dev):
         library=None, inputs=(xs, *w_attn, cpb),
         flops=proj_flops + 4 * (B * 24) * heads * 576 * 576 * dh)
     xg = rn(B, 24, 576, dim, dtype=bf)
+    k2 = lambda: fused_grid_qknorm_attention(xg, *w_attn, heads, dh)  # noqa: E731
     cases["grid_attention"] = dict(
-        kern=lambda: fused_grid_qknorm_attention(xg, *w_attn, heads, dh),
-        plain=lambda: grid_qknorm_attention_plain(xg, *w_attn, heads, dh),
+        kern=k2, plain=lambda: grid_qknorm_attention_plain(xg, *w_attn, heads, dh),
+        # the core on attention.cu's CUDA cores, the products on gemm.cu
+        twin=cuda_core_k2(k2), twin_source=K2_REPLACED,
         library=None, inputs=(xg, *w_attn),
         flops=proj_flops + 4 * (B * 576) * heads * 24 * 24 * dh)
 
@@ -950,8 +1004,175 @@ def cuda_core_k9(fn):
 
 
 # the sources of K1's replaced path (`cuda_core_k9`), by dtype
-K1_REPLACED = "attention.cu (attention_kernel; the products on gemm.cu, as on the new route)"
+K1_REPLACED = "attention.cu (attention_kernel; the products on ffn_tc.cu, as on the new route)"
 K1_F32_REPLACED = "attention.cu (attention_f32_kernel; gemm.cu's FFMA products)"
+# ... and K2's (`cuda_core_k2`)
+K2_REPLACED = "attention.cu (attention_kernel) and gemm.cu's WMMA products"
+K2_F32_REPLACED = "attention.cu (attention_f32_kernel) and gemm.cu's FFMA products"
+
+
+def cuda_core_k2(fn):
+    """`fn`, a call that reaches K2's forward, on the path that
+    qknorm_attention_short.cu and the tensor-core products replaced:
+    kernels.qk_fwd_route answers QK_CUDA_CORES inside it (the core on
+    attention.cu's attention_kernel, or attention_f32_kernel with gemm.cu's
+    FFMA products in f32) and qknorm_attention.proj_route PROJ_WMMA (the bf16
+    products on gemm.cu's WMMA)."""
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops import qknorm_attention as Q
+
+    def run():
+        with replaced(K, "qk_fwd_route", lambda *a: K.QK_CUDA_CORES), \
+                replaced(Q, "proj_route", lambda *a: Q.PROJ_WMMA):
+            return fn()
+    return run
+
+
+def k2_core_case(dev, g, shape, dtype) -> dict:
+    """K2's attention core alone (kernels.qk_attention_short) as the
+    sublayer's forward hands it over, 8 heads of 32: the (rows, 256) q and
+    (rows, 512) kv of a (b, t, S) token grid read through its t-columns, or
+    of (S, n) sequences.  bf16 on mma.sync against qk_attention_core_plain
+    (the TPU's rounding points) within REL_TOL of max|plain| and its mean
+    error within K2_POINT_TOL of mean|plain|, which attention_plain (the
+    normalised p rounded, attention.cu's point) on the same heads must miss;
+    f32 on the CUDA cores, merged written as hi and lo planes, hi + lo
+    within TC32_REL_TOL; bit-identical across runs.  The replaced core (attention.cu's
+    attention_kernel / attention_f32_kernel) is timed beside it, and, as
+    K1's core row, SDPA on the normalised heads ((sequences, 8, n, 32),
+    computed outside the timing, scale 1) as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.attention import attention_plain
+    from ct_clip_tpu_torch.ops.norms import l2norm
+    from ct_clip_tpu_torch.ops.qknorm_attention import qk_attention_core_plain
+
+    heads, d = 8, 32
+    hd, f32 = heads * d, dtype == torch.float32
+    if len(shape) == 3:  # the grid's t-columns
+        b, n, S = shape
+        seqs = b * S
+        layout = dict(sequences=seqs, inner=S, q_strides=(n * S * hd, hd, d, S * hd),
+                      kv_strides=(n * S * 2 * hd, 2 * hd, d, S * 2 * hd))
+    else:
+        seqs, n = shape
+        layout = dict(sequences=seqs, inner=1, q_strides=(n * hd, 0, d, hd),
+                      kv_strides=(n * 2 * hd, 0, d, 2 * hd))
+    rows = seqs * n
+    q, kv = (torch.randn((rows, w), generator=g, device=dev).to(dtype) for w in (hd, 2 * hd))
+    qs = (1 + 0.2 * torch.randn(d, generator=g, device=dev)) * 8.0
+    ks = 1 + 0.2 * torch.randn(d, generator=g, device=dev)
+    layout.update(heads=heads, n=n, d=d, q_scale=qs, k_scale=ks)
+    counter = "qk_attention_short"
+    tol = TC32_REL_TOL if f32 else REL_TOL
+
+    def seq_major(t):  # grid rows (b, t, S) -> sequence-major (b, S, t)
+        return t if len(shape) == 2 else t.view(b, n, S, -1).transpose(1, 2).reshape(rows, -1)
+
+    def as_q(out):  # sequence-major rows (b, S, t) -> q's rows
+        return out if len(shape) == 2 else out.view(b, S, n, -1).transpose(1, 2).reshape(rows, -1)
+
+    def plain():
+        return as_q(qk_attention_core_plain(seq_major(q), seq_major(kv), heads, d, n, qs, ks,
+                                            None))
+
+    def kern():
+        before = K.launch_counts()[counter]
+        out = K.qk_attention_short(q, kv, **layout)
+        if K.launch_counts()[counter] != before + 1:
+            raise AssertionError(f"K2 core did not launch {counter}")
+        return out
+
+    def replaced_core():
+        merged = torch.empty_like(q)
+        return K.attention(q, kv, kv[:, hd:], merged, warps=2, **layout)
+
+    def heads_of(t, sc):
+        return (l2norm(seq_major(t).float().view(seqs, n, heads, d)) * sc).to(dtype) \
+            .transpose(1, 2)
+    lib_in = (heads_of(q, qs), heads_of(kv[:, :hd], ks),
+              seq_major(kv)[:, hd:].reshape(seqs, n, heads, d).transpose(1, 2))
+
+    def check(got, ref):
+        merged = got[0] + got[1] if f32 else got[0]
+        err, rel = _rel_errors((merged,), ref)
+        res = dict(max_abs_err=err, max_rel_err=rel,
+                   tolerance=f"rel {tol}" + (" (hi + lo)" if f32 else ""))
+        ok = rel <= tol
+        if not f32:
+            p_point = as_q(attention_plain(*lib_in).transpose(1, 2).reshape(rows, hd))
+            res.update(mean_rel_err=_mean_rel_error(merged, ref[0]),
+                       p_point_mean_rel_err=_mean_rel_error(p_point, ref[0]),
+                       tolerance=f"rel {tol}; mean {K2_POINT_TOL}")
+            ok = ok and res["mean_rel_err"] <= K2_POINT_TOL < res["p_point_mean_rel_err"]
+        log(f"kernel K2 core ({str(dtype)[6:]}) at {shape}: max_abs_err {err:.4e} "
+            f"max_rel_err {rel:.4e} (rel {tol})"
+            + ("" if f32 else f"; mean_rel_err {res['mean_rel_err']:.4e} (mean {K2_POINT_TOL}), "
+               f"rounding the normalised p {res['p_point_mean_rel_err']:.4e} (must miss)"))
+        return ok, res
+    return dict(kern=kern, plain=plain, check=check, bit_identical=True, twin=replaced_core,
+                twin_source=("attention.cu (attention_f32_kernel)" if f32
+                             else "attention.cu (attention_kernel)"),
+                library=lambda: F.scaled_dot_product_attention(*lib_in, scale=1.0),
+                inputs=(q, kv), outputs=(q, q) if f32 else (q,),
+                flops=4 * seqs * heads * n * n * d,
+                peak=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+
+
+def k2_cases(dev, dtype):
+    """K2 in `dtype` beyond the shapes of the kernel phases (zero-shot's (2,
+    24, 576, 512) grid there in kernel_cases / f32_kernel_cases, the
+    sequence-major shapes in seq_kernel_cases / f32_kernel_cases): the
+    sublayer at the contrastive step's (8, 24, 576, 512) grid, the replaced
+    path (`cuda_core_k2`) timed beside it; the core alone (`k2_core_case`)
+    at zero-shot's and the contrastive step's grids and at the
+    sequence-major (4,608, 16) and (512, 20)."""
+    import torch
+
+    from ct_clip_tpu_torch.ops.qknorm_attention import (fused_grid_qknorm_attention,
+                                                        grid_qknorm_attention_plain)
+
+    f32 = dtype == torch.float32
+    g = torch.Generator(device=dev).manual_seed(80 + f32)
+    tag = "grid_attention_f32" if f32 else "grid_attention"
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    dim, heads, dh, hd = 512, 8, 32, 256
+    w = (1 + rn(dim, scale=0.1), rn(hd, dim, scale=dim ** -0.5), rn(2 * hd, dim, scale=dim ** -0.5),
+         1 + rn(dh, scale=0.2), 1 + rn(dh, scale=0.2), rn(dim, hd, scale=hd ** -0.5))
+    x = rn(TRAIN_B, 24, 576, dim).to(dtype)
+    kern = lambda: fused_grid_qknorm_attention(x, *w, heads, dh)  # noqa: E731
+    flops = 2 * x.numel() * 4 * hd + 4 * TRAIN_B * 576 * heads * 24 * 24 * dh
+    case = dict(kern=kern, plain=lambda: grid_qknorm_attention_plain(x, *w, heads, dh),
+                twin=cuda_core_k2(kern), twin_source=K2_F32_REPLACED if f32 else K2_REPLACED,
+                library=None, inputs=(x, *w), outputs=(x,), flops=flops,
+                tol=TC32_REL_TOL if f32 else REL_TOL)
+    if f32:
+        case.update(peak=PEAK_TF32_FLOPS, flops=3 * flops, f32_flops=flops)
+    yield f"{tag}_contrastive", case
+    del x, case
+    for label, shape in (("", (B, 24, 576)), ("_contrastive", (TRAIN_B, 24, 576)),
+                         ("_seq160", (CLIP160_B * 576, 16)), ("_generatect", (AE_B * 64, 20))):
+        yield f"{tag}_short{label}", k2_core_case(dev, g, shape, dtype)
+
+
+def k2_phase(dev, dtype, results: dict) -> None:
+    """`k2_cases` through `train_kernel_phase`, into `results`: the
+    contrastive sublayer under K2's entry, the core's shapes under its own
+    (`grid_attention_short`, `grid_attention_f32_short`)."""
+    import torch
+
+    tag = "grid_attention_f32" if dtype == torch.float32 else "grid_attention"
+    res = train_kernel_phase(dev, k2_cases(dev, dtype), B)
+    results[tag]["at_contrastive"] = res.pop(f"{tag}_contrastive")
+    core = res.pop(f"{tag}_short")
+    for label in ("contrastive", "seq160", "generatect"):
+        core[f"at_{label}"] = res.pop(f"{tag}_short_{label}")
+    results[f"{tag}_short"] = core
 
 
 def k1_core_case(dev, g, S: int, n: int, dtype) -> dict:
@@ -1727,6 +1948,12 @@ def _rel_errors(got, ref):
         errs.append(e)
         rels.append(e / max(r.float().abs().max().item(), 1e-30))
     return max(errs), max(rels)
+
+
+def _mean_rel_error(got, ref) -> float:
+    """mean|got - ref| / mean|ref|."""
+    d = (got.float() - ref.float()).abs().mean().item()
+    return d / max(ref.float().abs().mean().item(), 1e-30)
 
 
 def torch_finite(t) -> bool:
@@ -2716,7 +2943,10 @@ CTCLIP_GROUPS = (
     TC32_GROUP,
     TC32_FWD_GROUP,
     ("K3 bf16 GEGLU and residual products on the tensor cores (ffn_tc.cu: ff_tc_gemm<0, 3>, "
-     "<0, 4>)", ("ff_tc_gemm<0, 3>", "ff_tc_gemm<0, 4>", "ff_tc_gemm<0,3>", "ff_tc_gemm<0,4>")),
+     "<0, 4>; <0, 4> is K1 / K2 bf16's output product too)",
+     ("ff_tc_gemm<0, 3>", "ff_tc_gemm<0, 4>", "ff_tc_gemm<0,3>", "ff_tc_gemm<0,4>")),
+    ("K1 / K2 bf16 q and kv products on the tensor cores (ffn_tc.cu: ff_tc_gemm<0, 5>; K9 / "
+     "K10's recompute too)", ("ff_tc_gemm<0, 5>", "ff_tc_gemm<0,5>")),
     ("K5 inference assignment on the tensor cores (vq_tc.cu: vq_tc_argmax, and the f32 rows' "
      "pre-pass vq_rows_bf16_kernel)", ("vq_tc_argmax", "vq_rows_bf16")),
     ("K11 bf16 tile and products on the tensor cores (ffn_tc.cu: ff_tc_tile, ff_tc_gemm)",
@@ -2728,6 +2958,8 @@ CTCLIP_GROUPS = (
      ("qk_tc_fwd",)),
     ("K1 f32 attention core forward, 3xTF32 on the tensor cores (qknorm_attention_tc32.cu: "
      "qk32_fwd)", ("qk32_fwd",)),
+    ("K2 attention core forward, bf16 and f32 (qknorm_attention_short.cu: qk_short_fwd)",
+     ("qk_short_fwd",)),
     ("K9 bf16 attention core backward on the tensor cores (qknorm_attention_tc.cu; the "
      "pre-pass of K1's too)", ("qk_tc_",)),
     ("K9 f32 attention core backward, 3xTF32 on the tensor cores (qknorm_attention_tc32.cu; "
@@ -2875,23 +3107,35 @@ def ctclip_train_phase(dev, work: Path, card: str, corpus, dtype: str = "bf16") 
             - counts["attention_tc32"]
         extra["attention_tc32_k13a"] = (counts["attention_tc32"] - counts["fused_attention"]) / 4
         # every K1 f32 of the run (the steps' and the mini evaluation's) on
-        # qknorm_attention_tc32.cu, its products on ffn_tc32.cu
+        # qknorm_attention_tc32.cu, every K2 f32 on qknorm_attention_short.cu,
+        # the products of both on ffn_tc32.cu
         extra["k1_off_tc32"] = counts["spatial_attention_f32"] - counts["qk_attention_tc32"]
-        extra["k1_products_off_tc32"] = 3 * counts["spatial_attention_f32"] \
-            - counts["tc32_gemm"]
+        extra["k2_off_short"] = counts["grid_attention_f32"] - counts["qk_attention_short_f32"]
+        extra["products_off_tc32"] = 3 * (counts["spatial_attention_f32"]
+                                          + counts["grid_attention_f32"]) - counts["tc32_gemm"]
         extra_ok = extra["peg_dw_plain"] and not extra["unrearrange_patches_f32"] \
             and extra["rearrange_patches_f32"] >= TRAIN_B and not extra["forwards_off_tc32"] \
             and extra["attention_tc32_k13a"] == BERT_LAYERS and not extra["k1_off_tc32"] \
-            and not extra["k1_products_off_tc32"] and not counts["qk_attention_tc"]
+            and not extra["k2_off_short"] and not extra["products_off_tc32"] \
+            and not counts["qk_attention_tc"] and not counts["qk_proj_tc"]
     else:
         # every attention forward of the run (K13a, the mini evaluation's
         # K7) on attention_tc.cu, none on attention_train.cu
         extra = dict(forwards_off_tc=counts["attention_dropout"] + counts["fused_attention"]
                      - counts["attention_tc"],
-                     # every K1 of the run on qknorm_attention_tc.cu
-                     k1_off_tc=counts["spatial_attention"] - counts["qk_attention_tc"])
+                     # every K1 of the run on qknorm_attention_tc.cu, every K2
+                     # on qknorm_attention_short.cu
+                     k1_off_tc=counts["spatial_attention"] - counts["qk_attention_tc"],
+                     k2_off_short=counts["grid_attention"] - counts["qk_attention_short"],
+                     # their products on ffn_tc.cu: three a forward, two a
+                     # backward's recompute
+                     products_off_wgmma=3 * (counts["spatial_attention"]
+                                             + counts["grid_attention"])
+                     + 2 * (counts["spatial_attention_bwd"] + counts["grid_attention_bwd"])
+                     - counts["qk_proj_tc"])
         extra_ok = not extra["forwards_off_tc"] and not extra["k1_off_tc"] \
-            and not counts["qk_attention_tc32"]
+            and not extra["k2_off_short"] and not extra["products_off_wgmma"] \
+            and not counts["qk_attention_tc32"] and not counts["qk_proj_gemm"]
     log(f"{label} train: launches per step {per_step}; {extra}")
     if any(per_step[k] != v for k, v in want.items()) or not extra_ok:
         raise AssertionError(f"{label} train: launches per step {per_step}, want {want}; "
@@ -3487,8 +3731,10 @@ def seq_kernel_cases(dev):
         else:
             fwd = lambda *a: fused_spatial_qknorm_attention(*a, heads, dh)  # noqa: E731
         kern_fwd = lambda: fwd(x, *w, *extra)  # noqa: E731
-        # K1 (a bias): the replaced path, the core on attention.cu's CUDA cores
-        twin = {} if bias is None else dict(twin=cuda_core_k9(kern_fwd), twin_source=K1_REPLACED)
+        # the replaced path: K1 (a bias) the core on attention.cu's CUDA
+        # cores; K2 that and gemm.cu's products
+        twin = dict(twin=cuda_core_k2(kern_fwd), twin_source=K2_REPLACED) if bias is None \
+            else dict(twin=cuda_core_k9(kern_fwd), twin_source=K1_REPLACED)
         yield name, dict(kern=kern_fwd, **twin,
                          plain=lambda: qknorm_attention_plain(x, *w, bias, heads, dh),
                          library=None, inputs=(x, *w, *extra), outputs=(x,),
@@ -4387,20 +4633,26 @@ def f32_kernel_cases(dev):
             inputs=(xs, *w_attn, cpb), outputs=(xs,), flops=3 * flops, f32_flops=flops,
             peak=PEAK_TF32_FLOPS, tol=TC32_REL_TOL)
         del xs, cpb
+    # K2 grid and seq: the products in 3xTF32 on ffn_tc32.cu, the core on
+    # qknorm_attention_short.cu's CUDA cores; the replaced path (attention.cu's
+    # f32 core, gemm.cu's FFMA products) timed beside it
     xg = rn(B, 24, 576, dim)
+    k2 = lambda: fused_grid_qknorm_attention(xg, *w_attn, heads, dh)  # noqa: E731
+    flops = proj(B * 24 * 576) + 4 * B * 576 * heads * 24 * 24 * dh
     yield "grid_attention_f32", dict(
-        f32_case, kern=lambda: fused_grid_qknorm_attention(xg, *w_attn, heads, dh),
+        f32_case, kern=k2, twin=cuda_core_k2(k2), twin_source=K2_F32_REPLACED,
         plain=lambda: grid_qknorm_attention_plain(xg, *w_attn, heads, dh),
-        inputs=(xg, *w_attn), outputs=(xg,),
-        flops=proj(B * 24 * 576) + 4 * B * 576 * heads * 24 * 24 * dh, tol=TC32_REL_TOL)
+        inputs=(xg, *w_attn), outputs=(xg,), flops=3 * flops, f32_flops=flops,
+        peak=PEAK_TF32_FLOPS, tol=TC32_REL_TOL)
     del xg
     xq = rn(MG_B * 64, 20, dim)
+    k2 = lambda: fused_small_qknorm_attention(xq, *w_attn, heads, dh)  # noqa: E731
+    flops = proj(MG_B * 64 * 20) + 4 * MG_B * 64 * heads * 20 * 20 * dh
     yield "seq_attention_f32", dict(
-        f32_case, kern=lambda: fused_small_qknorm_attention(xq, *w_attn, heads, dh),
+        f32_case, kern=k2, twin=cuda_core_k2(k2), twin_source=K2_F32_REPLACED,
         plain=lambda: qknorm_attention_plain(xq, *w_attn, None, heads, dh),
-        inputs=(xq, *w_attn), outputs=(xq,),
-        flops=proj(MG_B * 64 * 20) + 4 * MG_B * 64 * heads * 20 * 20 * dh,
-        tol=TC32_REL_TOL)
+        inputs=(xq, *w_attn), outputs=(xq,), flops=3 * flops, f32_flops=flops,
+        peak=PEAK_TF32_FLOPS, tol=TC32_REL_TOL)
     del xq
 
     # K5 on f32 rows (vq_tc.cu: the pre-pass, then the bf16 assignment): ids
@@ -4515,14 +4767,17 @@ def zero_shot_f32_phase(dev, work: Path, card: str, bf16_counts: dict) -> dict:
         # every K1 f32 core on qknorm_attention_tc32.cu as the bf16 run's on
         # qknorm_attention_tc.cu, its three products in 3xTF32 on ffn_tc32.cu
         want["qk_attention_tc32"] = cb["qk_attention_tc"]
-        want["tc32_gemm"] = 3 * cb["qk_attention_tc"]
+        # every K2 f32 core on qknorm_attention_short.cu as the bf16 run's,
+        # its three products in 3xTF32 too
+        want["qk_attention_short_f32"] = cb["qk_attention_short"]
+        want["tc32_gemm"] = 3 * (cb["qk_attention_tc"] + cb["qk_attention_short"])
         # every K5 on vq_tc.cu, its f32 rows through the pre-pass
         want["vq_assign_tc"] = cb["vq_assign_tc"]
         got = {k: c[k] for k in want}
         log(f"e2e {name}: run_zero_shot in f32 scored 3 volumes in {secs:.2f} s host clock; "
             f"launches {got}, the bf16 run's {want}")
         if got != want or c[embed[1]] or c["attention_tc"] or c["qk_attention_tc"] \
-                or c["ff_tc_fwd"]:
+                or c["ff_tc_fwd"] or c["qk_proj_tc"] or c["qk_proj_gemm"]:
             raise AssertionError(f"{name}: launches {got}, want {want}")
     diff = float(np.abs(outs["zero_shot_f32_rows"]["predicted"]
                         - outs["zero_shot_f32_volume"]["predicted"]).max())
@@ -5232,6 +5487,7 @@ def main() -> int:
     results = kernel_phase(dev)
     k3_phase(dev, results)
     k1_phase(dev, torch.bfloat16, results)
+    k2_phase(dev, torch.bfloat16, results)
     results.update(train_attention_phase(dev))
     results.update(train_kernel_phase(dev))
     results["attention_dropout_bf16"].update(k13a_bf16_checks(dev))
@@ -5281,6 +5537,7 @@ def main() -> int:
         mg_ref = tiny_maskgit_phase(dev, work)
         results.update(f32_kernel_phase(dev))
         k1_phase(dev, torch.float32, results)
+        k2_phase(dev, torch.float32, results)
         zs32 = zero_shot_f32_phase(dev, work, card, counts)
         counts.update(zs32.pop("counts"))
         ref32 = small_reference_f32_phase(dev, work)

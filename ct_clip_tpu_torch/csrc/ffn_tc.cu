@@ -50,6 +50,17 @@
 // TFLOP/s, against ~60 MB of xn, act, x and out (0.02 ms): the tensor
 // cores bound it.
 //
+// And the bf16 projections of the CTViT QK-norm attention sublayer
+// (ct_clip_tpu/ops/pallas/spatial_attention.py::_pallas_spatial, K1, :98-101
+// and small_attention.py::_pallas_small_qknorm, K2, :98-101, :145-148; also
+// the recompute at the top of their backwards, K9 and K10), which gemm.cu's
+// EPI_STORE and EPI_RESIDUAL ran on WMMA (they stay, for the widths TMA
+// cannot take): q = bf16(LN(x) wq^T) and kv = bf16(x wkv^T) in one more "NT"
+// form, GEMM_NT_STORE, and out = bf16(merged wout^T + x) on GEMM_RESIDUAL as
+// it stands (K = heads x 32).  At zero-shot's 27,648 rows the three are 29
+// GFLOP (0.029 ms at 989 TFLOP/s) against ~170 MB of operands and outputs
+// (0.051 ms at 3.35 TB/s): bytes bound them.
+//
 // What bounds it on the H100.  At CT-CLIP's batch 8 (110,592 rows x 512,
 // inner 1,365 padded to 1,368) the tile runs three products of 0.155 TFLOP
 // and the two weight gradients and dxn 0.775 TFLOP more: 1.24 TFLOP, 1.25 ms
@@ -245,7 +256,10 @@ __global__ void __launch_bounds__(NT, 1) ff_tc_tile(const __grid_constant__ Tile
 //                  EPI_BIAS_ROUNDED rounds it (patchify.py:284-285);
 //   GEMM_GEGLU     "NT", K3's act = bf16(a gelu(g)) (bf16 C, 64 columns a
 //                  CTA: a from B rows n0.., g from B rows inner + n0..);
-//   GEMM_RESIDUAL  "NT", K3's out = bf16(acc + x) (bf16 C, x bf16);
+//   GEMM_RESIDUAL  "NT", K3's out = bf16(acc + x) (bf16 C, x bf16), and the
+//                  QK-norm sublayer's output product;
+//   GEMM_NT_STORE  "NT", C bf16 = bf16(acc): the sublayer's q and kv
+//                  projections, rounded once as gemm.cu's EPI_STORE;
 //   GEMM_LN_SUMS   "NN", dxn = dyb W reduced in the epilogue, never stored:
 //                  each accumulator times xhat = (x - mean) rstd of its patch
 //                  row element, x gathered from the volume into shared
@@ -255,7 +269,10 @@ __global__ void __launch_bounds__(NT, 1) ff_tc_tile(const __grid_constant__ Tile
 //                  the tile's column sums of dxn xhat and of dxn go to row
 //                  blockIdx.y of the (tiles, 2 N) partials (ds1 | db1,
 //                  patchify.py:307-308), which the caller adds in order.
-enum GemmForm { GEMM_STORE = 0, GEMM_BIAS = 1, GEMM_LN_SUMS = 2, GEMM_GEGLU = 3, GEMM_RESIDUAL = 4 };
+enum GemmForm {
+  GEMM_STORE = 0, GEMM_BIAS = 1, GEMM_LN_SUMS = 2, GEMM_GEGLU = 3, GEMM_RESIDUAL = 4,
+  GEMM_NT_STORE = 5
+};
 
 struct GemmMaps {
   CUtensorMap A, B;
@@ -426,7 +443,8 @@ template <int TA, int FORM = GEMM_STORE>
 __global__ void __launch_bounds__(NT, 2) ff_tc_gemm(const __grid_constant__ GemmMaps maps,
                                                     GemmArgs a) {
   // B K-major in the NT forms
-  constexpr int TB = FORM == GEMM_BIAS || FORM == GEMM_GEGLU || FORM == GEMM_RESIDUAL ? 0 : 1;
+  constexpr int TB = FORM == GEMM_BIAS || FORM == GEMM_GEGLU || FORM == GEMM_RESIDUAL
+                     || FORM == GEMM_NT_STORE ? 0 : 1;
   constexpr int STAGES = FORM == GEMM_LN_SUMS ? LN_STAGES : GEMM_STAGES;
   constexpr int BN = FORM == GEMM_GEGLU ? 64 : 128;  // C columns of a CTA
   extern __shared__ uint8_t smem_raw[];
@@ -485,7 +503,8 @@ __global__ void __launch_bounds__(NT, 2) ff_tc_gemm(const __grid_constant__ Gemm
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t dA = desc(at + (TA ? 2048 : 32) * kk);
-      if (FORM == GEMM_GEGLU || FORM == GEMM_RESIDUAL) {  // both B atoms in one n128
+      if (FORM == GEMM_GEGLU || FORM == GEMM_RESIDUAL || FORM == GEMM_NT_STORE) {
+        // both B atoms in one n128
         mma_ss128(c0, c1, dA, desc(b0 + 32 * kk), 1);
         continue;
       }
@@ -535,6 +554,17 @@ __global__ void __launch_bounds__(NT, 2) ff_tc_gemm(const __grid_constant__ Gemm
         const float2 x = __bfloat1622float2(*reinterpret_cast<const bf162*>(R + c));
         const float(&acc)[32] = h ? c1 : c0;
         *reinterpret_cast<bf162*>(Cb + c) = __floats2bfloat162_rn(acc[e] + x.x, acc[e + 1] + x.y);
+      }
+      continue;
+    }
+    if (FORM == GEMM_NT_STORE) {  // one rounding (gemm.cu EPI_STORE)
+      bf16* Cb = reinterpret_cast<bf16*>(a.C) + (size_t)gm * a.ldc;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = gn + 64 * h;
+        if (c >= a.N) continue;
+        const float(&acc)[32] = h ? c1 : c0;
+        *reinterpret_cast<bf162*>(Cb + c) = __floats2bfloat162_rn(acc[e], acc[e + 1]);
       }
       continue;
     }
@@ -691,7 +721,23 @@ CT_EXPORT int ct_ff_tc_geglu(const void* A, int lda, const void* W, int ldw, int
                      gemm_smem(), static_cast<cudaStream_t>(stream), maps, a);
 }
 
-// K3's residual product ("NT"): out (M, N) bf16 = bf16(A W^T + x) for A (M,
+// The QK-norm sublayer's q and kv products ("NT"): C (M, N) bf16 = bf16(A
+// B^T) for A (M, K) and B (N, K) bf16 with row strides lda and ldb, C row
+// stride ldc.  K, N and the strides multiples of 8, A, B and C 16-byte
+// aligned.
+CT_EXPORT int ct_ff_tc_gemm_nt(const void* A, int lda, const void* B, int ldb, int M, int N,
+                               int K, void* C, int ldc, void* stream) {
+  GemmMaps maps;
+  if (!aligned16(C) || ldc % 8 || !gemm_maps(&maps, A, lda, B, ldb, M, N, K, true))
+    return (int)cudaErrorInvalidValue;
+  const GemmArgs a = {static_cast<float*>(C), M, N, K, ldc,
+                      (K + TC_TILE - 1) / TC_TILE * TC_TILE, 0};
+  return (int)launch(ff_tc_gemm<0, GEMM_NT_STORE>, dim3((N + 127) / 128, (M + BM - 1) / BM, 1),
+                     gemm_smem(), static_cast<cudaStream_t>(stream), maps, a);
+}
+
+// K3's residual product ("NT"), also the QK-norm sublayer's output product
+// (K = heads x 32): out (M, N) bf16 = bf16(A W^T + x) for A (M,
 // K) and W (N, K) bf16 (row strides lda, ldw; K the padded inner width,
 // W's padded columns zero), x (M, N) bf16 (row stride ldx), out row stride
 // ldo.  N, K and the strides multiples of 8, every base 16-byte aligned.

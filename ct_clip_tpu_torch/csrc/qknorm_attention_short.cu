@@ -1,0 +1,455 @@
+// qknorm_attention_short.cu — the attention core of the CTViT QK-norm
+// sublayer's forward on short sequences at head dim 32, in bf16 and in f32:
+// from the projections q and kv = [k | v] it writes the merged heads
+// softmax(l2norm(q) qs (l2norm(k) ks)^T) v of every (sequence, head).
+//
+// Replaces, at head dim 32 and 16 <= n < 32 tokens (ops/kernels::
+// qk_fwd_route), the core of ct_clip_tpu/ops/pallas/small_attention.py::
+// _pallas_small_qknorm (K2, :196, pallas_call :239, body _kernel :82-149, the
+// core :104-146) in both its layouts: the t-columns of the native (b, t, h w,
+// dim) token grid, read in place through the strides
+// (fused_small_qknorm_attention_grid, :606; CT-CLIP's 24 and 16 frames of
+// tokens), and the sequence-major (b h w, t, dim) sequences of non-cubic
+// grids (fused_small_qknorm_attention, :503; the autoencoder's 20).
+// attention.cu's attention_kernel and attention_f32_kernel ran it before (one
+// (sequence, head) per 64-thread block, 2-byte loads, each output a serial
+// FMA chain from shared memory); they keep every other shape.
+//
+// Math per (sequence, head), at the TPU kernel's rounding points: qn =
+// l2norm(q) qs, qs including the logit scale 8, kn = l2norm(k) ks; S = qn
+// kn^T in f32; e = exp(S - rowmax); merged = (e v) / sum(e).  bf16 rounds qn
+// and kn (:117-118) and e before e v (:142); the sum is the f32 sum of the
+// unrounded e (:140), and merged is rounded once (:144).  f32 rounds nothing
+// and writes merged as its TF32 hi and lo planes, the A operand of
+// ffn_tc32.cu's residual product.
+//
+// What bounds it on the H100: bytes.  At zero-shot's batch of 2 (1,152
+// t-columns of 24 tokens, 8 heads of 32) the scores and e v are 0.68 GFLOP
+// against 57 MB of q, kv and merged in bf16 (0.017 ms at 3.35 TB/s); in f32,
+// merged written twice, 141 MB (0.042 ms), and the same 0.68 GFLOP are 0.010
+// ms on the f32 CUDA cores.
+//
+// Design:
+//   * One CTA of four warps takes one sequence and all of its heads: its n
+//     token rows of q (heads x 32 contiguous elements: 512 bytes in bf16 at 8
+//     heads) and of kv (1,024) are copied whole by 16-byte cp.async into
+//     shared memory, each staged row padded by 16 bytes, so the eight rows a
+//     fragment read or a quarter-warp's 16-byte read touches start 4 banks
+//     apart.  A sequence is ~37 KB in bf16 and ~74 KB in f32 at n 24: five /
+//     three CTAs an SM, one CTA's copies in flight under another's arithmetic,
+//     and no grid of 9,216 64-thread blocks.
+//   * A warp owns one (sequence, head) at a time (heads warp, warp + 4, ...).
+//     bf16 runs the two products on mma.sync m16n8k16: the queries padded to
+//     two m16 tiles, the keys to four n8 tiles for S and two k16 steps for e
+//     v, the 32 dims two k16 steps.  The four threads of a fragment row hold
+//     its 32 dims, so q and k are normalised as their fragments are read (a
+//     sum over the quad), v comes by ldmatrix.trans, and e goes from S's
+//     accumulators into the A operand of e v with no shuffle.  Keys past n
+//     score -inf; rows past n are zero and never written.
+//   * f32 runs on the CUDA cores in true f32 (FFMA: more exact than 3xTF32,
+//     and ~0.01 ms of work): a lane a query, its qn row in registers, the kn
+//     rows (normalised in place, a lane a key) and the v rows broadcast from
+//     shared memory.
+//   * merged goes over the warp's own q columns in shared memory (f32: the hi
+//     plane there, the lo plane over its k columns), and the CTA stores whole
+//     rows with 16-byte stores once every warp is done.
+// A launch that the checks or the card refuse returns its error.
+#include "common.cuh"
+#include "tc32.cuh"
+#include "wgmma.cuh"
+
+namespace {
+
+constexpr int HD = 32;          // head dim
+constexpr int WARPS = 4;
+constexpr int NT = 32 * WARPS;  // threads of a CTA
+constexpr int MAX_N = 32;       // tokens a warp's tiles hold
+
+struct ShortArgs {
+  const void* q;
+  const void* kv;
+  void* merged;
+  void* merged_lo;  // f32: merged's TF32 lo plane
+  long long q_outer, q_inner, q_tok, kv_outer, kv_inner, kv_tok;
+  int inner, H, n;
+  const float* qs;  // (32,) q scale incl. the logit scale
+  const float* ks;  // (32,) k scale
+};
+
+// elements of a staged q or kv row: heads x 32 (q) or 2 heads x 32 (kv),
+// plus 16 bytes
+template <typename T>
+__host__ __device__ constexpr int pad_elems() { return 16 / (int)sizeof(T); }
+template <typename T>
+__host__ __device__ inline int q_ld(int H) { return H * HD + pad_elems<T>(); }
+template <typename T>
+__host__ __device__ inline int kv_ld(int H) { return 2 * H * HD + pad_elems<T>(); }
+template <typename T>
+size_t smem_bytes(int H, int n) { return (size_t)n * (q_ld<T>(H) + kv_ld<T>(H)) * sizeof(T); }
+
+// n rows of `width` elements, src + t tok, into shared memory at dst + t ld
+// elements, 16 bytes a copy
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, long long tok, int n, int width,
+                                      int ld) {
+  constexpr int CH = pad_elems<T>();
+  const int chunks = width / CH;
+  const uint32_t base = saddr(dst);
+  for (int i = threadIdx.x; i < n * chunks; i += NT) {
+    const int t = i / chunks, c = i - t * chunks;
+    cp16(base + (uint32_t)(t * ld + c * CH) * sizeof(T), src + t * tok + c * CH, 16);
+  }
+}
+
+// n rows of `width` elements from shared memory (src + t ld) to dst + t tok,
+// 16 bytes a store
+template <typename T>
+__device__ __forceinline__ void store_rows(T* dst, long long tok, const T* src, int ld, int n,
+                                           int width) {
+  constexpr int CH = pad_elems<T>();
+  const int chunks = width / CH;
+  for (int i = threadIdx.x; i < n * chunks; i += NT) {
+    const int t = i / chunks, c = i - t * chunks;
+    *reinterpret_cast<uint4*>(dst + t * tok + c * CH) =
+        *reinterpret_cast<const uint4*>(src + t * ld + c * CH);
+  }
+}
+
+// ------------------------------------------------------ bf16 on mma.sync
+// d += A B: m16 n8 k16, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices, transposed: lane L gives row L % 8 of matrix L / 8
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// The 8 of a row's 32 dims a fragment thread holds, dims 8 u + 2 q4 + {0, 1}
+// as r[u], l2-normalised over the row (its four threads) and scaled by sc,
+// rounded to bf16; zero for a row past n (`ok` false).  Every lane calls it.
+__device__ __forceinline__ void normed_row(uint32_t (&r)[4], const bf16* row, bool ok,
+                                           const float* sc, int q4) {
+  float x[8];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float2 v = ok ? __bfloat1622float2(*reinterpret_cast<const bf162*>(row + 8 * u + 2 * q4))
+                        : make_float2(0.0f, 0.0f);
+    x[2 * u] = v.x;
+    x[2 * u + 1] = v.y;
+  }
+  float ss = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ss = fmaf(x[i], x[i], ss);
+  const float f = rsqrtf(fmaxf(sum4(ss), 1e-24f));
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    r[u] = pack_bf16(x[2 * u] * f * sc[8 * u + 2 * q4], x[2 * u + 1] * f * sc[8 * u + 2 * q4 + 1]);
+}
+
+// One (sequence, head) in bf16: Qh, Kh, Vh its columns of the staged rows;
+// merged over Qh.
+__device__ __forceinline__ void pair_mma(bf16* Qh, const bf16* Kh, const bf16* Vh, int qld,
+                                         int kvld, int n, const float* qs, const float* ks,
+                                         int lane) {
+  const int g = lane >> 2, q4 = lane & 3;
+  // kn as B of S = qn kn^T: key tile nt (keys 8 nt + g), dims 0-15 in kb[nt][0..1],
+  // 16-31 in kb[nt][2..3]
+  uint32_t kb[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+    normed_row(kb[nt], Kh + (8 * nt + g) * kvld, 8 * nt + g < n, ks, q4);
+  // v as B of e v: key step ks (keys 16 ks ..), dim tile dt; matrix m of an x4 is
+  // keys 16 ks + 8 (m & 1) .. of dims 8 (2 dp + (m >> 1)) ..; keys past n read
+  // row 0 (finite; their e is 0)
+  uint32_t vb[2][4][2];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int dp = 0; dp < 2; ++dp) {
+      const int m = lane >> 3, j = 16 * ks + 8 * (m & 1) + (lane & 7);
+      uint32_t r[4];
+      ldsm_x4_trans(r, saddr(Vh + (j < n ? j : 0) * kvld + 8 * (2 * dp + (m >> 1))));
+      vb[ks][2 * dp][0] = r[0];
+      vb[ks][2 * dp][1] = r[1];
+      vb[ks][2 * dp + 1][0] = r[2];
+      vb[ks][2 * dp + 1][1] = r[3];
+    }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int i0 = 16 * mt + g;  // this thread's rows: i0, i0 + 8
+    uint32_t lo[4], hi[4];
+    normed_row(lo, Qh + i0 * qld, i0 < n, qs, q4);
+    normed_row(hi, Qh + (i0 + 8) * qld, i0 + 8 < n, qs, q4);
+    const uint32_t qa0[4] = {lo[0], hi[0], lo[1], hi[1]};  // dims 0-15
+    const uint32_t qa1[4] = {lo[2], hi[2], lo[3], hi[3]};  // dims 16-31
+    float s[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+      mma16816(s[nt], qa0, kb[nt][0], kb[nt][1]);
+      mma16816(s[nt], qa1, kb[nt][2], kb[nt][3]);
+    }
+    // the rows' softmax: element e of tile nt is row i0 + 8 (e >> 1), key 8 nt + 2 q4 + (e & 1)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = 8 * nt + 2 * q4 + (e & 1) < n ? s[nt][e] : -INFINITY;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    mx[0] = max4(mx[0]);
+    mx[1] = max4(mx[1]);
+    float l[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fexp2((s[nt][e] - mx[e >> 1]) * LOG2E);  // 0 past n
+        l[e >> 1] += p;
+        s[nt][e] = p;
+      }
+    l[0] = sum4(l[0]);
+    l[1] = sum4(l[1]);
+    // e v, e rounded to bf16 as the A operand (S tiles 2 ks, 2 ks + 1 are its k16 step ks)
+    float o[4][4];
+#pragma unroll
+    for (int dt = 0; dt < 4; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dt][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * ks][0], s[2 * ks][1]),
+                              pack_bf16(s[2 * ks][2], s[2 * ks][3]),
+                              pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]),
+                              pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3])};
+#pragma unroll
+      for (int dt = 0; dt < 4; ++dt) mma16816(o[dt], pa, vb[ks][dt][0], vb[ks][dt][1]);
+    }
+    __syncwarp();  // every lane has read this m tile's q rows
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + 8 * h;
+      if (i >= n) continue;
+#pragma unroll
+      for (int dt = 0; dt < 4; ++dt)
+        *reinterpret_cast<bf162*>(Qh + i * qld + 8 * dt + 2 * q4) =
+            __floats2bfloat162_rn(o[dt][2 * h] / l[h], o[dt][2 * h + 1] / l[h]);
+    }
+  }
+}
+
+// ------------------------------------------------------- f32 on FFMA
+// 8 elements of a row in shared memory, and back
+__device__ __forceinline__ void load8(const float* p, float* x) {
+  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w; x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+__device__ __forceinline__ void store8(float* p, const float* x) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+// a row's 32 elements l2-normalised and scaled by sc
+__device__ __forceinline__ void normed(float (&x)[HD], const float* sc) {
+  float ss = 0.0f;
+#pragma unroll
+  for (int c = 0; c < HD; ++c) ss = fmaf(x[c], x[c], ss);
+  const float f = rsqrtf(fmaxf(ss, 1e-24f));
+#pragma unroll
+  for (int c = 0; c < HD; ++c) x[c] = x[c] * f * sc[c];
+}
+
+// One (sequence, head) in f32 on the CUDA cores, a lane a query: kn
+// normalised in place over Kh (a lane a key), merged's hi plane over Qh and
+// its lo plane over Kh.
+__device__ __forceinline__ void pair_ffma(float* Qh, float* Kh, const float* Vh, int qld,
+                                          int kvld, int n, const float* qs, const float* ks,
+                                          int lane) {
+  float x[HD];
+  if (lane < n) {
+#pragma unroll
+    for (int c = 0; c < HD; c += 8) load8(Kh + lane * kvld + c, x + c);
+    normed(x, ks);
+#pragma unroll
+    for (int c = 0; c < HD; c += 8) store8(Kh + lane * kvld + c, x + c);
+  }
+  float q[HD];
+#pragma unroll
+  for (int c = 0; c < HD; c += 8) {
+    if (lane < n) load8(Qh + lane * qld + c, q + c);
+    else
+#pragma unroll
+      for (int i = 0; i < 8; ++i) q[c + i] = 0.0f;
+  }
+  normed(q, qs);
+  __syncwarp();  // kn is in place
+  float s[MAX_N], mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < MAX_N; ++j) {
+    s[j] = 0.0f;
+    if (j < n) {
+#pragma unroll
+      for (int c = 0; c < HD; c += 8) {
+        float k[8];
+        load8(Kh + j * kvld + c, k);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s[j] = fmaf(q[c + i], k[i], s[j]);
+      }
+      mx = fmaxf(mx, s[j]);
+    }
+  }
+  float l = 0.0f;
+#pragma unroll
+  for (int j = 0; j < MAX_N; ++j)
+    if (j < n) {
+      const float p = fexp2((s[j] - mx) * LOG2E);
+      l += p;
+      s[j] = p;
+    }
+  float o[HD];
+#pragma unroll
+  for (int c = 0; c < HD; ++c) o[c] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < MAX_N; ++j)
+    if (j < n) {
+#pragma unroll
+      for (int c = 0; c < HD; c += 8) {
+        float v[8];
+        load8(Vh + j * kvld + c, v);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) o[c + i] = fmaf(s[j], v[i], o[c + i]);
+      }
+    }
+  __syncwarp();  // every lane's scores are done with kn
+  if (lane >= n) return;
+#pragma unroll
+  for (int c = 0; c < HD; ++c) o[c] /= l;
+  float hi[HD], lo[HD];
+#pragma unroll
+  for (int c = 0; c < HD; ++c) {
+    uint32_t h, l32;
+    split(o[c], h, l32);
+    hi[c] = __uint_as_float(h);
+    lo[c] = __uint_as_float(l32);
+  }
+#pragma unroll
+  for (int c = 0; c < HD; c += 8) {
+    store8(Qh + lane * qld + c, hi + c);
+    store8(Kh + lane * kvld + c, lo + c);
+  }
+}
+
+// ----------------------------------------------------------------- kernel
+// One CTA a sequence: stage its q and kv rows, a warp a (sequence, head),
+// store merged's rows.
+// CTAs an SM: five in bf16 (96 registers a thread), three in f32 (a
+// sequence's 74 KB of shared memory at n 24)
+template <typename T>
+__global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 5 : 3) qk_short_fwd(ShortArgs a) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ float sc[2][HD];  // qs, ks
+  const int H = a.H, n = a.n, hd = H * HD, qld = q_ld<T>(H), kvld = kv_ld<T>(H);
+  T* sq = reinterpret_cast<T*>(smem_raw);
+  T* skv = sq + (size_t)n * qld;
+  const int s = blockIdx.x;
+  const long long qo = (long long)(s / a.inner) * a.q_outer + (long long)(s % a.inner) * a.q_inner;
+  const long long ko =
+      (long long)(s / a.inner) * a.kv_outer + (long long)(s % a.inner) * a.kv_inner;
+  stage(sq, static_cast<const T*>(a.q) + qo, a.q_tok, n, hd, qld);
+  stage(skv, static_cast<const T*>(a.kv) + ko, a.kv_tok, n, 2 * hd, kvld);
+  if (threadIdx.x < 2 * HD)
+    sc[threadIdx.x / HD][threadIdx.x % HD] = (threadIdx.x < HD ? a.qs : a.ks)[threadIdx.x % HD];
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int h = warp; h < H; h += WARPS) {
+    T* Qh = sq + h * HD;
+    T* Kh = skv + h * HD;
+    const T* Vh = skv + hd + h * HD;
+    if constexpr (sizeof(T) == 2)
+      pair_mma(Qh, Kh, Vh, qld, kvld, n, sc[0], sc[1], lane);
+    else
+      pair_ffma(Qh, Kh, Vh, qld, kvld, n, sc[0], sc[1], lane);
+  }
+  __syncthreads();
+  store_rows(static_cast<T*>(a.merged) + qo, a.q_tok, sq, qld, n, hd);
+  if constexpr (sizeof(T) == 4)
+    store_rows(static_cast<T*>(a.merged_lo) + qo, a.q_tok, skv, kvld, n, hd);
+}
+
+bool aligned16(const void* p) { return p && (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <typename T>
+int launch_short(const void* q, const void* kv, void* merged, void* merged_lo,
+                 const long long (&st)[8], int inner, int sequences, int heads, int n, int d,
+                 const void* q_scale, const void* k_scale, void* stream) {
+  // (outer, inner, head, token) element strides of q / merged and of kv; the
+  // heads of a token lie side by side (head stride 32) in rows the copies
+  // take whole, 16 bytes at a time
+  bool ok = d == HD && n >= 1 && n <= MAX_N && heads >= 1 && sequences >= 1 && inner >= 1
+            && st[2] == HD && st[6] == HD && q_scale && k_scale;
+  const int idx[] = {0, 1, 3, 4, 5, 7};
+  for (int i : idx) ok = ok && st[i] % pad_elems<T>() == 0;
+  const void* ptrs[] = {q, kv, merged};
+  for (const void* p : ptrs) ok = ok && aligned16(p);
+  if (sizeof(T) == 4) ok = ok && aligned16(merged_lo);
+  const size_t smem = smem_bytes<T>(heads, n);
+  if (!ok || smem + 2 * HD * sizeof(float) > 227 * 1024) return (int)cudaErrorInvalidValue;
+  ShortArgs a = {};
+  a.q = q; a.kv = kv; a.merged = merged; a.merged_lo = merged_lo;
+  a.q_outer = st[0]; a.q_inner = st[1]; a.q_tok = st[3];
+  a.kv_outer = st[4]; a.kv_inner = st[5]; a.kv_tok = st[7];
+  a.inner = inner; a.H = heads; a.n = n;
+  a.qs = static_cast<const float*>(q_scale);
+  a.ks = static_cast<const float*>(k_scale);
+  cudaError_t err = cudaFuncSetAttribute(qk_short_fwd<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  qk_short_fwd<T><<<(unsigned)sequences, NT, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K2's core, bf16: merged (like q) = softmax(qn kn^T) v per (sequence, head)
+// of the projections q (rows, heads 32) and kv (rows, 2 heads 32) [k | v],
+// addressed through (outer, inner, head, token) element strides as
+// ct_qk_attention_tc_fwd addresses them, the head strides 32; the other
+// strides multiples of 8 elements, q, kv and merged 16-byte aligned; 1 <= n
+// <= 32, head dim 32; q_scale (incl. the logit scale) and k_scale (32,) f32.
+CT_EXPORT int ct_qk_attention_short(const void* q, const void* kv, void* merged,
+                                    long long q_outer, long long q_inner, long long q_head,
+                                    long long q_tok, long long kv_outer, long long kv_inner,
+                                    long long kv_head, long long kv_tok, int inner,
+                                    int sequences, int heads, int n, int d, const void* q_scale,
+                                    const void* k_scale, void* stream) {
+  const long long st[8] = {q_outer, q_inner, q_head, q_tok, kv_outer, kv_inner, kv_head, kv_tok};
+  return launch_short<bf16>(q, kv, merged, nullptr, st, inner, sequences, heads, n, d, q_scale,
+                            k_scale, stream);
+}
+
+// The same in f32, nothing rounded: merged written as its TF32 hi plane
+// (merged) and lo plane (merged_lo), both laid out as q; strides multiples
+// of 4 elements.
+CT_EXPORT int ct_qk_attention_short_f32(const void* q, const void* kv, void* merged,
+                                        void* merged_lo, long long q_outer, long long q_inner,
+                                        long long q_head, long long q_tok, long long kv_outer,
+                                        long long kv_inner, long long kv_head, long long kv_tok,
+                                        int inner, int sequences, int heads, int n, int d,
+                                        const void* q_scale, const void* k_scale,
+                                        void* stream) {
+  const long long st[8] = {q_outer, q_inner, q_head, q_tok, kv_outer, kv_inner, kv_head, kv_tok};
+  return launch_short<float>(q, kv, merged, merged_lo, st, inner, sequences, heads, n, d,
+                             q_scale, k_scale, stream);
+}

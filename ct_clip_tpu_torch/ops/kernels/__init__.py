@@ -16,9 +16,9 @@ C entry point reports a CUDA error.  Outputs are allocated by the callers
 Launch counts: each op module that ports a TPU kernel adds one to its
 counter (`count_launch`) where its CUDA path runs, and a launch helper that
 chooses between kernels counts the one it launched (`qk_attention_tc`,
-`qk_attention_tc32`, `qk_attention_tc_bwd`, `qk_attention_tc32_bwd`),
-so a run can show that its main path went through the kernels
-(`launch_counts`).
+`qk_attention_tc32`, `qk_attention_short`, `qk_attention_tc_bwd`,
+`qk_attention_tc32_bwd`, `qk_proj_tc`), so a run can show that its main
+path went through the kernels (`launch_counts`).
 """
 from __future__ import annotations
 
@@ -84,15 +84,26 @@ KERNELS = (
                            # (attention_dense_bwd), K12a, key bias (attention_bwd),
                            # K13b, key bias and dropout (attention_dropout_bwd)
     # qknorm_attention_tc.cu's bf16 tensor-core core of the QK-norm sublayer
-    "qk_attention_tc",     # K1 (and K2 grid / seq at n >= 32) where `qk_bwd_tensor_cores`
+    "qk_attention_tc",     # K1 (and K2 grid / seq at n >= 32) where `qk_fwd_route`
                            # gives QK_WGMMA: the forward core (spatial_attention)
     "qk_attention_tc_bwd",  # K9 where `qk_bwd_tensor_cores` gives QK_WGMMA
                             # (spatial_attention_bwd)
     # qknorm_attention_tc32.cu's f32 3xTF32 core of the QK-norm sublayer
-    "qk_attention_tc32",   # K1 f32 where `qk_bwd_tensor_cores` gives QK_TC32: the forward
+    "qk_attention_tc32",   # K1 f32 where `qk_fwd_route` gives QK_TC32: the forward
                            # core (spatial_attention, spatial_attention_f32)
     "qk_attention_tc32_bwd",  # K9 f32 where `qk_bwd_tensor_cores` gives QK_TC32
                               # (spatial_attention_bwd, spatial_attention_bwd_f32)
+    # qknorm_attention_short.cu's core of the QK-norm sublayer's forward on
+    # 16-31-token sequences (bf16 on mma.sync, f32 on the CUDA cores)
+    "qk_attention_short",  # K2 grid / seq where `qk_fwd_route` gives QK_SHORT (grid_attention,
+                           # seq_attention; their f32 forms beside qk_attention_short_f32)
+    "qk_attention_cuda_cores",  # the forward core on attention.cu where `qk_fwd_route`
+                                # gives QK_CUDA_CORES (other head dims and lengths)
+    # the QK-norm sublayer's projections: q, kv and the output product (three a
+    # forward; q and kv, two, a backward's recompute)
+    "qk_proj_tc",          # bf16 on ffn_tc.cu (`wgmma`: the NT store and residual forms)
+    "qk_proj_gemm",        # on gemm.cu (bf16 at widths TMA cannot take, and f32 outside the
+                           # 3xTF32 forward: the backwards' recompute, other head dims)
     # ffn_tc.cu's bf16 K11 on the tensor cores (`wgmma`), beside geglu_ff_bwd
     "ff_tc_tile",          # the tile: a, g, dact and the GEGLU derivative (one a call)
     "ff_tc_gemm",          # its products: dxn (NN), [dwa; dwg] and dwo (TN), three a call;
@@ -107,14 +118,16 @@ KERNELS = (
     "vq_assign_tc",        # one a call: bf16 rows, or f32 rows after the pre-pass
     # ffn_tc32.cu's f32 K3 in 3xTF32 on the tensor cores (`wgmma`), beside geglu_ff
     "geglu_ff_tc32",       # the weight split, the GEGLU product and the residual product
-    "tc32_gemm",           # one product there (plain store or + x): K1 f32's q, kv and
-                           # output projections, three a call beside qk_attention_tc32
+    "tc32_gemm",           # one product there (plain store or + x): K1 and K2 f32's q, kv
+                           # and output projections, three a call beside qk_attention_tc32
+                           # or qk_attention_short
     # the f32 forms, counted beside the function's own counter
     "geglu_ff_f32",        # K3 f32 (gemm.cu f32 products, layernorm.cu f32 rows)
     "geglu_ff_bwd_f32",    # K11 f32
     "spatial_attention_f32",  # K1 f32 (attention.cu attention_f32_kernel)
     "grid_attention_f32",  # K2 grid f32
     "seq_attention_f32",   # K2 seq f32
+    "qk_attention_short_f32",  # K2's f32 core (qknorm_attention_short.cu)
     "vq_assign_f32",       # K5 on f32 rows (vq_tc.cu's pre-pass and assignment; gemm.cu's
                            # gemm_argmax_kernel f32-row form at widths vq_tc.cu does not fit)
     "rearrange_patches_f32",  # K6 f32 (rearrange.cu)
@@ -305,6 +318,7 @@ def _signatures():
         "ct_ff_tc_tile": [p, p, i, p, p, p, i, i, i, i, p, i, p, i, p],
         "ct_ff_tc_gemm": [i, p, i, p, i, i, i, i, i, p, i, ll, p],
         "ct_ff_tc_gemm_bias": [p, i, p, i, i, i, i, p, p, i, p],
+        "ct_ff_tc_gemm_nt": [p, i, p, i, i, i, i, p, i, p],
         "ct_ff_tc_ln_sums": [p, i, p, i, i, i, i, p, i, i, i, i, i, i, p, p, p],
         "ct_ff_tc_geglu": [p, i, p, i, i, i, i, p, i, p],
         "ct_ff_tc_residual": [p, i, p, i, i, i, i, p, i, p, i, p],
@@ -328,6 +342,10 @@ def _signatures():
                                    p, p, p, p, p, p, p],
         "ct_qk_attention_tc32_fwd": [p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i, i,
                                      i, p, p, p, p, p, p, p, p],
+        "ct_qk_attention_short": [p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i, i, i, p, p,
+                                  p],
+        "ct_qk_attention_short_f32": [p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i, i, i,
+                                      p, p, p],
         "ct_peg_dw": [p, p, i, i, i, i, i, i, i, i, p, p],
         "ct_vq_cluster_stats": [p, p, i, i, i, p, p, p, p, p, p, p],
         "ct_vq_cluster_stats_f32": [p, p, i, i, i, p, p, p, p, p, p, p],
@@ -722,6 +740,42 @@ def gemm_bias_tc(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.
                                        _ptr(bias), _ptr(out), N, _stream())
     _check(err, "ct_ff_tc_gemm_bias")
     count_launch("ff_tc_gemm")
+    return out
+
+
+def gemm_nt_tc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """out (M, N) bf16 = bf16(x w^T) for x (M, K) and w (N, K) bf16 on
+    ffn_tc.cu's NT store form (`wgmma`, one m64n128k16 a k16 slice): the
+    QK-norm sublayer's q and kv projections, rounded once as gemm.cu's
+    EPI_STORE rounds them (counted `qk_proj_tc`)."""
+    _ff_tc_operands("gemm_nt_tc", x=x, w=w)
+    M, Kd = x.shape
+    N = w.shape[0]
+    if w.shape[1] != Kd:
+        raise ValueError(f"gemm_nt_tc: x {tuple(x.shape)}, w {tuple(w.shape)}")
+    out = torch.empty((M, N), dtype=BF16, device=x.device)
+    _check(library().ct_ff_tc_gemm_nt(_ptr(x), x.stride(0), _ptr(w), w.stride(0), M, N, Kd,
+                                      _ptr(out), N, _stream()), "ct_ff_tc_gemm_nt")
+    count_launch("qk_proj_tc")
+    return out
+
+
+def gemm_residual_tc(a: torch.Tensor, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """out (M, N) bf16 = bf16(f32(a w^T) + x) for a (M, K), w (N, K) and x
+    (M, N) bf16 on ffn_tc.cu's residual form (K3's; x read in the epilogue,
+    one rounding): the QK-norm sublayer's output product (counted
+    `qk_proj_tc`)."""
+    _ff_tc_operands("gemm_residual_tc", a=a, w=w, x=x)
+    M, Kd = a.shape
+    N = w.shape[0]
+    if w.shape[1] != Kd or x.shape != (M, N):
+        raise ValueError(f"gemm_residual_tc: a {tuple(a.shape)}, w {tuple(w.shape)}, "
+                         f"x {tuple(x.shape)}")
+    out = torch.empty((M, N), dtype=BF16, device=a.device)
+    _check(library().ct_ff_tc_residual(_ptr(a), a.stride(0), _ptr(w), w.stride(0), M, N, Kd,
+                                       _ptr(x), x.stride(0), _ptr(out), N, _stream()),
+           "ct_ff_tc_residual")
+    count_launch("qk_proj_tc")
     return out
 
 
@@ -1215,12 +1269,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # the QK-norm core on the tensor cores: bf16 (qknorm_attention_tc.cu) and
 # f32 in 3xTF32 (qknorm_attention_tc32.cu)
 QK_TC_HEAD_DIM = 32
-QK_TC_MIN_TOKENS = 32  # half a 64-row tile; K10's 16-24-token sequences stay
+QK_TC_MIN_TOKENS = 32  # half a 64-row tile; below it K10 keeps the CUDA cores, K2 `qk_fwd_route`
+QK_SHORT_MIN_TOKENS = 16  # the least n the short-sequence forward core takes
 # dbias-pass CTAs to aim for, one wave of three per SM (132): 576-token planes
 # give 648 CTAs of one group; three waves (two groups) read no faster
 QK_TC_DBIAS_CTAS = 396
 # the routes of the core's backward (`qk_bwd_tensor_cores`)
 QK_WGMMA, QK_TC32, QK_CUDA_CORES = "wgmma", "tc32", "cuda_cores"
+# ... and the forward's short-sequence core (`qk_fwd_route`)
+QK_SHORT = "short"
 # the dynamic shared memory the largest pass of qknorm_attention_tc32.cu
 # takes (its dbias pass: the bias tile and two stages of qn, dO, kn, v, lse
 # and D, 1024-byte aligned); the same at every n
@@ -1233,20 +1290,45 @@ QK_TC32_FWD_SMEM = 1024 + 9216 + 2 * 36864
 
 
 def qk_bwd_tensor_cores(dtype: torch.dtype, n: int, d: int) -> str:
-    """The route of the QK-norm attention core, forward and backward, on
-    `n`-token sequences of head dim `d`: QK_WGMMA, qknorm_attention_tc.cu
-    (bf16 `wgmma`), or QK_TC32, qknorm_attention_tc32.cu (f32 in 3xTF32 on
-    `mma.sync`, and the f32 sublayer's projections in 3xTF32 on ffn_tc32.cu),
-    for K1's and K9's 576- and 64-token planes with or without the bias and
-    any ragged n from 32 in zero-filled 64-row tiles; otherwise
-    QK_CUDA_CORES: attention.cu forward (attention_kernel and its f32 form,
-    gemm.cu's products) and qknorm_attention_bwd.cu backward
-    (qk_attention_bwd_kernel and its f32 form): K2's and K10's 16-24-token
-    sequences, other head dims.  `qk_attention_fwd`, `_qk_tc_bwd` and
-    `_qk_tc32_bwd` count each launch of their route."""
+    """The route of the QK-norm attention core's backward, and of its
+    forward from 32 tokens on, on `n`-token sequences of head dim `d`:
+    QK_WGMMA, qknorm_attention_tc.cu (bf16 `wgmma`), or QK_TC32,
+    qknorm_attention_tc32.cu (f32 in 3xTF32 on `mma.sync`, and the f32
+    sublayer's projections in 3xTF32 on ffn_tc32.cu), for K1's and K9's 576-
+    and 64-token planes with or without the bias and any ragged n from 32 in
+    zero-filled 64-row tiles; otherwise QK_CUDA_CORES: the backward on
+    qknorm_attention_bwd.cu (qk_attention_bwd_kernel and its f32 form: K10's
+    16-24-token sequences, other head dims).  The forward below 32 tokens
+    reads `qk_fwd_route` (K2's sequences take qknorm_attention_short.cu).
+    `qk_attention_fwd`, `qk_attention_short`, `_qk_tc_bwd` and `_qk_tc32_bwd`
+    count each launch of their route."""
     if d != QK_TC_HEAD_DIM or n < QK_TC_MIN_TOKENS:
         return QK_CUDA_CORES
     return {BF16: QK_WGMMA, F32: QK_TC32}.get(dtype, QK_CUDA_CORES)
+
+
+def qk_short_smem(n: int, heads: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory a CTA of qknorm_attention_short.cu takes: one
+    sequence's n token rows of q (heads x 32) and kv (2 heads x 32), each
+    padded by 16 bytes, and the two scale vectors."""
+    return n * (3 * heads * QK_TC_HEAD_DIM * (4 if dtype == F32 else 2) + 32) + 256
+
+
+def qk_fwd_route(dtype: torch.dtype, n: int, d: int, heads: int, bias: bool = False) -> str:
+    """The route of the QK-norm attention core's forward: `qk_bwd_tensor_cores`'
+    QK_WGMMA or QK_TC32 (K1's planes, n >= 32); QK_SHORT, qknorm_attention_short.cu
+    (bf16 on `mma.sync`, f32 on the CUDA cores, and in f32 the sublayer's
+    projections in 3xTF32 on ffn_tc32.cu), for K2's 16-31-token sequences at
+    head dim 32 without a bias, in both its layouts, where one sequence's rows
+    fit a CTA's shared memory; otherwise QK_CUDA_CORES, attention.cu
+    (attention_kernel and its f32 form, counted `qk_attention_cuda_cores`).
+    A shape gate: the backward keeps its own (`qk_bwd_tensor_cores`)."""
+    core = qk_bwd_tensor_cores(dtype, n, d)
+    if (core == QK_CUDA_CORES and dtype in FORMS and d == QK_TC_HEAD_DIM and not bias
+            and QK_SHORT_MIN_TOKENS <= n < QK_TC_MIN_TOKENS
+            and qk_short_smem(n, heads, dtype) <= SMEM_LIMIT):
+        return QK_SHORT
+    return core
 
 
 def qk_tc_dbias_groups(sequences: int, heads: int, n: int) -> int:
@@ -1401,7 +1483,7 @@ def qk_attention_fwd(q, kv, *, sequences: int, inner: int, heads: int, n: int, d
     core = qk_bwd_tensor_cores(q.dtype, n, d)
     if core == QK_CUDA_CORES:
         raise ValueError(f"qk_attention_fwd: {q.dtype} at n {n}, head dim {d} takes "
-                         "attention.cu (kernels.qk_bwd_tensor_cores)")
+                         "qk_attention_short or attention.cu (kernels.qk_fwd_route)")
     strides = _qk_tc_strides("qk_attention_fwd", q_strides, kv_strides, q, kv)
     qs, ks = _f32_vector(q_scale, d, "q_scale"), _f32_vector(k_scale, d, "k_scale")
     if bias is not None:
@@ -1422,6 +1504,44 @@ def qk_attention_fwd(q, kv, *, sequences: int, inner: int, heads: int, n: int, d
     _check(err, entry)
     count_launch(counter)
     return merged if core == QK_WGMMA else outs
+
+
+def qk_attention_short(q, kv, *, sequences: int, inner: int, heads: int, n: int, d: int,
+                       q_strides, kv_strides, q_scale, k_scale,
+                       bias: Optional[torch.Tensor] = None, lib=None):
+    """The QK-norm attention core's forward (K2's) on 16-31-token sequences
+    (qknorm_attention_short.cu), on the projections q (rows, h*d) and kv
+    (rows, 2*h*d) [k | v] addressed as `qk_attention_fwd` addresses them, the
+    head strides d: softmax(l2norm(q) q_scale (l2norm(k) k_scale)^T) v per
+    (sequence, head), q_scale including the logit scale; no bias (K2 has
+    none).  bf16: merged, like q, at the TPU kernel's rounding points (on
+    `mma.sync`); f32: (hi, lo), merged's TF32 planes (hi + lo = merged), each
+    laid out as q (on the CUDA cores, nothing rounded).  Counted
+    `qk_attention_short` (and `qk_attention_short_f32`).  A shape
+    `qk_fwd_route` does not send here raises.  `lib`: a one-change copy
+    (`copy_library`) of the source, to launch instead."""
+    hd = heads * d
+    for name, t, width in (("q", q, hd), ("kv", kv, 2 * hd)):
+        require(t, name, q.dtype if name != "q" else FORMS, 2)
+        if t.shape[1] != width or t.shape[0] != q.shape[0]:
+            raise ValueError(f"qk_attention_short: {name} {tuple(t.shape)}")
+    if bias is not None or qk_fwd_route(q.dtype, n, d, heads) != QK_SHORT:
+        raise ValueError(f"qk_attention_short: {q.dtype} at n {n}, head dim {d}, "
+                         f"{heads} heads{', a bias' if bias is not None else ''} is not "
+                         "its route (kernels.qk_fwd_route)")
+    strides = _qk_tc_strides("qk_attention_short", q_strides, kv_strides, q, kv)
+    if strides[2] != d or strides[6] != d:
+        raise ValueError("qk_attention_short: the heads of a token must lie side by side")
+    qs, ks = _f32_vector(q_scale, d, "q_scale"), _f32_vector(k_scale, d, "k_scale")
+    f32 = q.dtype == F32
+    outs = (torch.empty_like(q), torch.empty_like(q)) if f32 else (torch.empty_like(q),)
+    entry = "ct_qk_attention_short_f32" if f32 else "ct_qk_attention_short"
+    err = getattr(lib or library(), entry)(
+        _ptr(q), _ptr(kv), *map(_ptr, outs), *strides, inner, sequences, heads, n, d, _ptr(qs),
+        _ptr(ks), _stream())
+    _check(err, entry)
+    count_launch("qk_attention_short", q.dtype)
+    return outs if f32 else outs[0]
 
 
 def peg_dw(x: torch.Tensor, dout: torch.Tensor, pads) -> torch.Tensor:

@@ -21,20 +21,25 @@ first, wout (dim, h*dh).  The spatial and sequence-major forms take (b, n,
 dim) sequences (the same core, the spatial one with the CPB bias); the grid
 form takes the native (b, t, h*w, dim) token grid and attends along t.
 
-On a CUDA tensor, where `kernels.qk_bwd_tensor_cores` gives the tensor
-cores (head dim 32, n >= 32: K1's 576- and 64-token planes): in bf16, LN
-(csrc/layernorm.cu), the q and kv products (csrc/gemm.cu), the core on
-csrc/qknorm_attention_tc.cu (`wgmma`, counted `qk_attention_tc`) and the
-output product with the residual epilogue; in f32 the whole forward in
-3xTF32 (nothing rounded below f32, as the TPU kernels run f32 operands at
-"highest"): LN written as TF32 hi and lo planes, x and the weights split,
-q and kv on csrc/ffn_tc32.cu's plain-store product, the core on
-csrc/qknorm_attention_tc32.cu (counted `qk_attention_tc32`, merged written
-split), out = merged wout^T + x on ffn_tc32.cu's residual product (each
-product counted `tc32_gemm`).  Elsewhere (K2's 16-24-token sequences) LN,
-the products on gemm.cu (the f32 forms FFMA tiles) and the core on
-csrc/attention.cu, which reads the t-columns of the grid in place through
-strides.  Forward and backward in bf16 or f32 (`kernels.ROUTES`).
+On a CUDA tensor the forward's core takes the route `kernels.qk_fwd_route`
+gives: at head dim 32, K1's 576- and 64-token planes (n >= 32) the tensor
+cores (csrc/qknorm_attention_tc.cu, bf16 `wgmma`, counted `qk_attention_tc`;
+csrc/qknorm_attention_tc32.cu, f32 in 3xTF32, `qk_attention_tc32`), and K2's
+16-31-token sequences csrc/qknorm_attention_short.cu (one CTA a sequence,
+its token rows staged whole, the t-columns of the grid read in place through
+strides; bf16 on mma.sync, f32 on the CUDA cores; counted
+`qk_attention_short`); other shapes csrc/attention.cu (counted
+`qk_attention_cuda_cores`).  In bf16: LN (csrc/layernorm.cu), the q and kv
+products on csrc/ffn_tc.cu's NT store form and the output product, merged
+wout^T + x, on its residual form (`wgmma`, each counted `qk_proj_tc`) where
+`proj_route` says so, else on csrc/gemm.cu (`qk_proj_gemm`).  In f32, on the
+tensor-core and short routes, the whole forward in 3xTF32 (nothing rounded
+below f32, as the TPU kernels run f32 operands at "highest"): LN written as
+TF32 hi and lo planes, x and the weights split, q and kv on
+csrc/ffn_tc32.cu's plain-store product, the core writing merged split, out =
+merged wout^T + x on ffn_tc32.cu's residual product (each product counted
+`tc32_gemm`); on the CUDA-core route gemm.cu's FFMA tiles.  Forward and
+backward in bf16 or f32 (`kernels.ROUTES`).
 
 The backwards are the ports of spatial_attention.py::_pallas_spatial_bwd
 (K9) and small_attention.py::_pallas_small_qknorm_bwd with grid_layout=True
@@ -243,16 +248,48 @@ def _layout(x, hd: int, dim_head: int, grid: bool):
     return b, 1, (n * hd, 0, dim_head, hd), (n * 2 * hd, 0, dim_head, 2 * hd), n
 
 
+# the sources of the sublayer's bf16 projections (`proj_route`)
+PROJ_WGMMA, PROJ_WMMA = "ffn_tc.cu", "gemm.cu"
+
+
+def proj_route(dtype: torch.dtype, dim: int, hd: int) -> str:
+    """The source of the sublayer's q, kv and output products in `_project`
+    and `_out_product`: PROJ_WGMMA (bf16 where ffn_tc.cu's TMA copies take
+    the rows: the model width and heads x dim_head multiples of 8, every
+    model of the repo) or PROJ_WMMA, gemm.cu (bf16 at other widths; f32,
+    whose forward on the tensor-core and short routes takes ffn_tc32.cu
+    through `_qknorm_attention_tc32` instead)."""
+    return PROJ_WGMMA if dtype == torch.bfloat16 and dim % 8 == 0 and hd % 8 == 0 else PROJ_WMMA
+
+
 def _project(x2, gamma, wq, wkv, hd: int):
-    """LN(x) and the q = LN(x) wq^T, kv = x wkv^T products, in x's dtype."""
+    """LN(x) and the q = LN(x) wq^T, kv = x wkv^T products, in x's dtype,
+    on `proj_route`'s source."""
     cdt, rows = x2.dtype, x2.shape[0]
     xn = torch.empty_like(x2)
     K.layernorm(x2, gamma, None, 1e-5, xn)
+    wq_c, wkv_c = wq.to(cdt).contiguous(), wkv.to(cdt).contiguous()
+    if proj_route(cdt, x2.shape[1], hd) == PROJ_WGMMA:
+        return xn, K.gemm_nt_tc(xn, wq_c), K.gemm_nt_tc(x2, wkv_c)
     q = torch.empty((rows, hd), dtype=cdt, device=x2.device)
-    K.gemm(K.EPI_STORE, xn, wq.to(cdt).contiguous(), q)
     kv = torch.empty((rows, 2 * hd), dtype=cdt, device=x2.device)
-    K.gemm(K.EPI_STORE, x2, wkv.to(cdt).contiguous(), kv)
+    for a, w, out in ((xn, wq_c, q), (x2, wkv_c, kv)):
+        K.gemm(K.EPI_STORE, a, w, out)
+        K.count_launch("qk_proj_gemm")
     return xn, q, kv
+
+
+def _out_product(merged, wout, x2):
+    """merged wout^T + x in x's dtype, summed in f32 and rounded once, on
+    `proj_route`'s source (ffn_tc.cu's residual form or gemm.cu's
+    EPI_RESIDUAL)."""
+    w = wout.to(x2.dtype).contiguous()
+    if proj_route(x2.dtype, x2.shape[1], merged.shape[1]) == PROJ_WGMMA:
+        return K.gemm_residual_tc(merged, w, x2)
+    out = torch.empty_like(x2)
+    K.gemm(K.EPI_RESIDUAL, merged, w, out, residual=x2)
+    K.count_launch("qk_proj_gemm")
+    return out
 
 
 def _tc32_weights(wq, wkv, wout):
@@ -267,17 +304,19 @@ def _tc32_weights(wq, wkv, wout):
     return out
 
 
-def _qknorm_attention_tc32(x2, gamma, wq, wkv, wout, layout):
+def _qknorm_attention_tc32(x2, gamma, wq, wkv, wout, layout, core=K.QK_TC32):
     """The f32 sublayer forward on (rows, dim) x2, all in 3xTF32: LN written
     as TF32 hi and lo planes, x split, q = LN(x) wq^T and kv = x wkv^T (the
-    plain-store product), the core writing merged split, merged wout^T + x
-    (the residual product)."""
+    plain-store product), the core (`core`: QK_TC32, K1's on
+    qknorm_attention_tc32.cu, or QK_SHORT, K2's on qknorm_attention_short.cu)
+    writing merged split, merged wout^T + x (the residual product)."""
     (wq_h, wq_l), (wkv_h, wkv_l), (wo_h, wo_l) = _tc32_weights(wq, wkv, wout)
     xn_h, xn_l = K.layernorm_split(x2, gamma, None, 1e-5)
     x_h, x_l = K.tc32_split(x2)
     q = K.tc32_gemm(xn_h, xn_l, wq_h, wq_l)
     kv = K.tc32_gemm(x_h, x_l, wkv_h, wkv_l)
-    m_h, m_l = K.qk_attention_fwd(q, kv, **layout)
+    attend = K.qk_attention_short if core == K.QK_SHORT else K.qk_attention_fwd
+    m_h, m_l = attend(q, kv, **layout)
     return K.tc32_gemm(m_h, m_l, wo_h, wo_l, residual=x2)
 
 
@@ -299,18 +338,19 @@ def _qknorm_attention_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
                   q_strides=q_strides, kv_strides=kv_strides,
                   q_scale=q_scale.float() * scale, k_scale=k_scale,
                   bias=None if bias is None else bias.float().contiguous())
-    core = K.qk_bwd_tensor_cores(x.dtype, n, dim_head)
-    if core == K.QK_TC32:
-        return _qknorm_attention_tc32(x2, gamma, wq, wkv, wout, layout).view(x.shape)
+    core = K.qk_fwd_route(x.dtype, n, dim_head, heads, bias is not None)
+    if x.dtype == torch.float32 and core != K.QK_CUDA_CORES:
+        return _qknorm_attention_tc32(x2, gamma, wq, wkv, wout, layout, core).view(x.shape)
     _, q, kv = _project(x2, gamma, wq, wkv, hd)
     if core == K.QK_WGMMA:
         merged = K.qk_attention_fwd(q, kv, **layout)
+    elif core == K.QK_SHORT:
+        merged = K.qk_attention_short(q, kv, **layout)
     else:
         merged = torch.empty_like(q)
         K.attention(q, kv, kv[:, hd:], merged, **layout, warps=8 if n >= 128 else 2)
-    out = torch.empty_like(x2)
-    K.gemm(K.EPI_RESIDUAL, merged, wout.to(x.dtype).contiguous(), out, residual=x2)
-    return out.view(x.shape)
+        K.count_launch("qk_attention_cuda_cores")
+    return _out_product(merged, wout, x2).view(x.shape)
 
 
 def _qknorm_attention_bwd_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,

@@ -5,7 +5,9 @@ bf16, the bf16 K7 / K12b / K12a / K13a / K13b of attention_tc.cu (wgmma) with
 their routing (`-k "tc or dense"`), the f32 K7 (key bias, dense, no
 bias), K13a, K12a, K12b (dense, no bias) and K13b of attention_tc32.cu
 (3xTF32, `-k tc32`), K9's bf16 core on the tensor cores
-(qknorm_attention_tc.cu, `-k qk_core`) and its f32 core in 3xTF32
+(qknorm_attention_tc.cu, `-k qk_core`), K2's core on short sequences
+(qknorm_attention_short.cu) and the sublayer's bf16 projections on
+ffn_tc.cu (`-k "k2 or qk_projection"`) and its f32 core in 3xTF32
 (qknorm_attention_tc32.cu, `-k "qk_core and f32"`), K11 bf16 on `wgmma`
 (ffn_tc.cu, `-k "k11 or ff_tc"`), with K17 f32's run copy (`-k k17`), K16a on
 ffn_tc.cu (`-k k16a`), K3 f32 in 3xTF32 on ffn_tc32.cu (`-k "ff_f32"`), K3
@@ -1920,8 +1922,8 @@ def test_qk_core_forward_k1_f32_plain_tf32_copy_misses(dev):
 def test_spatial_qknorm_attention_k1_tensor_cores(dev, dtype):
     """The K1 sublayer at head dim 32 launches the tensor-core core (and in
     f32 its three products in 3xTF32 on ffn_tc32.cu): bf16 within 2e-2 of
-    max|plain|, f32 within 1e-5; K2's 24- and 20-token sequences keep
-    attention.cu."""
+    max|plain|, f32 within 1e-5; K2's 24- and 20-token sequences take
+    qknorm_attention_short.cu (f32 again with the 3xTF32 products)."""
     from ct_clip_tpu_torch.ops.qknorm_attention import (
         fused_grid_qknorm_attention, fused_small_qknorm_attention,
         fused_spatial_qknorm_attention, grid_qknorm_attention_plain, qknorm_attention_plain)
@@ -1947,4 +1949,146 @@ def test_spatial_qknorm_attention_k1_tensor_cores(dev, dtype):
     _close(fused_small_qknorm_attention(xs, *w, 8, 32),
            qknorm_attention_plain(xs, *w, None, 8, 32), REL if dtype == BF else F32_FWD)
     c = K.launch_counts()
-    assert c[tc] == 0 and c["tc32_gemm"] == 0 and c["grid_attention"] == c["seq_attention"] == 1
+    assert c[tc] == 0 and c["grid_attention"] == c["seq_attention"] == 1
+    assert c["qk_attention_short"] == 2 and c["tc32_gemm"] == 6 * (dtype == F32)
+
+
+# ------------------------------------------- K2's core on qknorm_attention_short.cu
+def _k2_core_case(dev, dtype, grid, shape, seed=74):
+    """K2's core inputs, 8 heads of 32: the (rows, 256) q and (rows, 512) kv
+    of a (b, t, S) token grid read through its t-columns, or of (S, n)
+    sequences; the layout the sublayer hands over."""
+    g = _gen(dev, seed)
+    heads, d = 8, 32
+    hd = heads * d
+    if grid:
+        b, n, S = shape
+        layout = dict(sequences=b * S, inner=S, q_strides=(n * S * hd, hd, d, S * hd),
+                      kv_strides=(n * S * 2 * hd, 2 * hd, d, S * 2 * hd))
+    else:
+        S, n = shape
+        layout = dict(sequences=S, inner=1, q_strides=(n * hd, 0, d, hd),
+                      kv_strides=(n * 2 * hd, 0, d, 2 * hd))
+    rows = layout["sequences"] * n
+    q, kv = (_randn((rows, w), g, dev, dtype=dtype) for w in (hd, 2 * hd))
+    layout.update(heads=heads, n=n, d=d, q_scale=(1 + 0.2 * torch.randn(d, generator=g,
+                                                                         device=dev)) * 8.0,
+                  k_scale=1 + 0.2 * torch.randn(d, generator=g, device=dev))
+    return q, kv, layout
+
+
+def _k2_core_plain(q, kv, layout, grid, shape, p_point=False):
+    """qk_attention_core_plain on the sequence-major copy of q and kv, laid
+    back out as q; with `p_point`, attention_plain on the same normalised
+    heads instead (the normalised p rounded: attention.cu's rounding point)."""
+    from ct_clip_tpu_torch.ops.attention import attention_plain
+    from ct_clip_tpu_torch.ops.norms import l2norm
+    from ct_clip_tpu_torch.ops.qknorm_attention import qk_attention_core_plain
+
+    n, heads, d = layout["n"], 8, 32
+    qs, ks = layout["q_scale"], layout["k_scale"]
+    b, S = (shape[0], shape[2]) if grid else (1, layout["sequences"])
+
+    def seqs(t):
+        return t.view(b, n, S, -1).transpose(1, 2).reshape(b * S * n, -1) if grid else t
+    qq, kk = seqs(q), seqs(kv)
+    if p_point:
+        def heads_of(t, sc=None):
+            t = t.float().view(b * S, n, heads, d)
+            return (t if sc is None else (l2norm(t) * sc).to(q.dtype)).transpose(1, 2)
+        out = attention_plain(heads_of(qq, qs), heads_of(kk[:, :heads * d], ks),
+                              heads_of(kk[:, heads * d:]).to(q.dtype))
+        out = out.transpose(1, 2).reshape(b * S * n, -1)
+    else:
+        out = qk_attention_core_plain(qq, kk, heads, d, n, qs, ks, None)
+    return out.view(b, S, n, -1).transpose(1, 2).reshape(b * n * S, -1) if grid else out
+
+
+# K2's bf16 core: mean|err| against the plain core at the TPU's rounding
+# points, as a share of mean|plain| (chip_smoke.py's K2_POINT_TOL)
+K2_POINT = 2e-4
+
+
+def _mean_rel(got, ref):
+    return ((got.float() - ref.float()).abs().mean() / ref.float().abs().mean()).item()
+
+
+K2_CORE_SHAPES = [(True, (2, 24, 36)), (True, (1, 16, 24)), (False, (40, 20)), (False, (33, 31)),
+                  (False, (72, 16))]
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("grid,shape", K2_CORE_SHAPES)
+def test_qk_core_forward_k2_short(dev, dtype, grid, shape):
+    """K2's core alone (kernels.qk_attention_short) on a grid's t-columns
+    read in place (t 24, 16) and on sequence-major sequences (n 20, 31, 16):
+    bf16 within 2e-2 of max|plain| (the plain core at the TPU's rounding
+    points) and its mean error within K2_POINT of mean|plain|, which the
+    normalised p rounded (attention.cu's point) on the same heads misses;
+    f32 (hi + lo) within 1e-5; bit-identical across runs; counted
+    `qk_attention_short` at the launch."""
+    q, kv, layout = _k2_core_case(dev, dtype, grid, shape)
+    K.reset_launch_counts()
+    got = K.qk_attention_short(q, kv, **layout)
+    c = K.launch_counts()
+    assert c["qk_attention_short"] == 1 and c["qk_attention_short_f32"] == int(dtype == F32)
+    again = K.qk_attention_short(q, kv, **layout)
+    if dtype == F32:
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        got = got[0] + got[1]
+    else:
+        assert torch.equal(got, again)
+    ref = _k2_core_plain(q, kv, layout, grid, shape)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == q.shape and got.dtype == ref.dtype == dtype
+    _close(got, ref, REL if dtype == BF else TC32_REL)
+    if dtype == BF:
+        assert _mean_rel(got, ref) <= K2_POINT
+        assert _mean_rel(_k2_core_plain(q, kv, layout, grid, shape, p_point=True), ref) > K2_POINT
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_k2_sublayer_takes_the_short_core(dev, dtype):
+    """K2 grid (t 24, 16) and seq (t 20, 16) at head dim 32: the short core
+    once a call; bf16 with its three products on ffn_tc.cu (`qk_proj_tc`),
+    f32 in 3xTF32 on ffn_tc32.cu (`tc32_gemm`); bf16 within 2e-2 of
+    max|plain|, f32 within 1e-5; nothing on attention.cu."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import (
+        fused_grid_qknorm_attention, fused_small_qknorm_attention, grid_qknorm_attention_plain,
+        qknorm_attention_plain)
+
+    g = _gen(dev, 75)
+    w = _attn_weights(g, dev)
+    tol = REL if dtype == BF else TC32_REL
+    for shape in ((2, 24, 36, 512), (1, 16, 24, 512), (40, 20, 512), (72, 16, 512)):
+        x = _randn(shape, g, dev, dtype=dtype)
+        grid = len(shape) == 4
+        K.reset_launch_counts()
+        if grid:
+            got, ref = (fused_grid_qknorm_attention(x, *w, 8, 32),
+                        grid_qknorm_attention_plain(x, *w, 8, 32))
+        else:
+            got, ref = (fused_small_qknorm_attention(x, *w, 8, 32),
+                        qknorm_attention_plain(x, *w, None, 8, 32))
+        torch.cuda.synchronize()
+        c = K.launch_counts()
+        assert c["grid_attention" if grid else "seq_attention"] == 1
+        assert c["qk_attention_short"] == 1 and c["qk_attention_cuda_cores"] == 0
+        assert (c["qk_proj_tc"], c["tc32_gemm"]) == ((3, 0) if dtype == BF else (0, 3))
+        _close(got, ref, tol)
+
+
+def test_qk_projection_nt_forms(dev):
+    """ffn_tc.cu's NT store form (q, kv) and residual form (the output
+    product) at the sublayer's widths on ragged rows: within one bf16
+    rounding of the f32 products."""
+    g = _gen(dev, 76)
+    rows = 1000
+    x = _randn((rows, 512), g, dev)
+    for n_out in (256, 512):
+        w = _randn((n_out, 512), g, dev, 512 ** -0.5)
+        ref = (x.float() @ w.float().t()).to(BF)
+        _close(K.gemm_nt_tc(x, w), ref, 1e-2)
+    merged, wo = _randn((rows, 256), g, dev), _randn((512, 256), g, dev, 256 ** -0.5)
+    ref = (merged.float() @ wo.float().t() + x.float()).to(BF)
+    _close(K.gemm_residual_tc(merged, wo, x), ref, 1e-2)

@@ -416,14 +416,20 @@ def test_sublayer_fit_follows_the_backward_kernel(monkeypatch):
     assert not sublayer_fits(576, 32, F32) and sublayer_fits(576, 32, BF)
 
 
-# K1's forward shares the gate: its core takes qknorm_attention_tc.cu (bf16)
-# or qknorm_attention_tc32.cu (f32, with the projections in 3xTF32 on
-# ffn_tc32.cu) at head dim 32 from 32 tokens, attention.cu (and gemm.cu's
-# products) on K2's 16-24-token sequences.  The C library is a recording
-# stand-in; `names` are the entries one sublayer forward calls, in order.
-_TC_BF16 = ["ct_layernorm", "ct_gemm", "ct_gemm", "ct_qk_attention_tc_fwd", "ct_gemm"]
+# The sublayer's forward by `kernels.qk_fwd_route`: at head dim 32 from 32
+# tokens its core takes qknorm_attention_tc.cu (bf16) or
+# qknorm_attention_tc32.cu (f32, with the projections in 3xTF32 on
+# ffn_tc32.cu); K2's 16-31-token sequences (no bias) take
+# qknorm_attention_short.cu, f32 again with the 3xTF32 projections; the bf16
+# projections run on ffn_tc.cu's NT store and residual forms.  The C library
+# is a recording stand-in; `names` are the entries one sublayer forward
+# calls, in order.
+_TC_BF16 = ["ct_layernorm", "ct_ff_tc_gemm_nt", "ct_ff_tc_gemm_nt", "ct_qk_attention_tc_fwd",
+            "ct_ff_tc_residual"]
 _TC_F32 = ["ct_tc32_split", "ct_layernorm_split_f32", "ct_tc32_split", "ct_tc32_gemm",
            "ct_tc32_gemm", "ct_qk_attention_tc32_fwd", "ct_ff_tc32_residual"]
+_SHORT_BF16 = _TC_BF16[:3] + ["ct_qk_attention_short", "ct_ff_tc_residual"]
+_SHORT_F32 = _TC_F32[:5] + ["ct_qk_attention_short_f32", "ct_ff_tc32_residual"]
 
 
 @pytest.mark.parametrize("dtype,shape,grid,names", [
@@ -432,12 +438,9 @@ _TC_F32 = ["ct_tc32_split", "ct_layernorm_split_f32", "ct_tc32_split", "ct_tc32_
     (BF, (2, 100, 64), False, _TC_BF16),        # a ragged n
     (F32, (2, 576, 64), False, _TC_F32),        # K1 f32
     (F32, (3, 64, 64), False, _TC_F32),
-    (BF, (1, 24, 9, 64), True, ["ct_layernorm", "ct_gemm", "ct_gemm", "ct_attention",
-                                "ct_gemm"]),    # K2 grid: t 24
-    (BF, (4, 20, 64), False, ["ct_layernorm", "ct_gemm", "ct_gemm", "ct_attention",
-                              "ct_gemm"]),      # K2 seq: t 20
-    (F32, (4, 16, 64), False, ["ct_layernorm_f32", "ct_gemm_f32", "ct_gemm_f32",
-                               "ct_attention_f32", "ct_gemm_f32"]),  # K2 seq f32
+    (BF, (1, 24, 9, 64), True, _SHORT_BF16),    # K2 grid: t 24
+    (BF, (4, 20, 64), False, _SHORT_BF16),      # K2 seq: t 20
+    (F32, (4, 16, 64), False, _SHORT_F32),      # K2 seq f32: t 16
 ])
 def test_k1_forward_takes_the_tensor_cores_where_the_gate_does(monkeypatch, dtype, shape,
                                                                grid, names):
@@ -449,21 +452,39 @@ def test_k1_forward_takes_the_tensor_cores_where_the_gate_does(monkeypatch, dtyp
     hd = heads * dh
     n = shape[1]
     x = torch.zeros(shape, dtype=dtype)
+    short = names in (_SHORT_BF16, _SHORT_F32)
     out = Q._qknorm_attention_cuda(
         x, torch.ones(dim), torch.zeros((hd, dim)), torch.zeros((2 * hd, dim)), torch.ones(dh),
-        torch.ones(dh), torch.zeros((dim, hd)), None if grid else torch.zeros((heads, n, n)),
+        torch.ones(dh), torch.zeros((dim, hd)), None if short else torch.zeros((heads, n, n)),
         heads, dh, 8.0, grid)
     assert out.shape == x.shape and out.dtype == dtype
     assert lib.names() == names
     c = K.launch_counts()
     assert c["qk_attention_tc"] == int(names is _TC_BF16)
     assert c["qk_attention_tc32"] == int(names is _TC_F32)
-    assert c["tc32_gemm"] == 3 * int(names is _TC_F32)
-    if names is _TC_F32:
+    assert c["qk_attention_short"] == int(short)
+    assert c["qk_attention_short_f32"] == int(names is _SHORT_F32)
+    assert c["qk_attention_cuda_cores"] == c["qk_proj_gemm"] == 0
+    assert c["tc32_gemm"] == 3 * int(dtype == F32)
+    assert c["qk_proj_tc"] == 3 * int(dtype == BF)
+    rows = x.numel() // dim
+    if dtype == F32:
         assert lib.calls[0][1][3] == hd * dim * 4  # wq, wkv, wout split at once
-        assert lib.calls[3][1][6:9] == (x.numel() // dim, hd, dim)  # q = LN(x) wq^T
-        assert lib.calls[4][1][6:9] == (x.numel() // dim, 2 * hd, dim)  # kv = x wkv^T
-        assert lib.calls[6][1][6:9] == (x.numel() // dim, dim, hd)  # merged wout^T + x
+        assert lib.calls[3][1][6:9] == (rows, hd, dim)  # q = LN(x) wq^T
+        assert lib.calls[4][1][6:9] == (rows, 2 * hd, dim)  # kv = x wkv^T
+        assert lib.calls[6][1][6:9] == (rows, dim, hd)  # merged wout^T + x
+    else:
+        assert lib.calls[1][1][4:7] == (rows, hd, dim)  # q = LN(x) wq^T
+        assert lib.calls[2][1][4:7] == (rows, 2 * hd, dim)  # kv = x wkv^T
+        assert lib.calls[4][1][4:7] == (rows, dim, hd)  # merged wout^T + x
+    if short:  # the core reads the layout's strides: the grid's t-columns in place
+        core = lib.calls[3 if dtype == BF else 5][1]
+        strides = core[3:11] if dtype == BF else core[4:12]
+        if grid:
+            S = shape[2]
+            assert strides == (n * S * hd, hd, dh, S * hd, n * S * 2 * hd, 2 * hd, dh, S * 2 * hd)
+        else:
+            assert strides == (n * hd, 0, dh, hd, n * 2 * hd, 0, dh, 2 * hd)
 
 
 @pytest.mark.parametrize("dtype,entry,counter", [

@@ -6,7 +6,7 @@ inputs.
 
     python tools/port_attention_tc_probe.py [--kernel attention] [--out FILE.json]
     python tools/port_attention_tc_probe.py --kernel k17 | k9 | k9_f32 | k11 | k16a | k3_f32
-                                            | k1 | k1_f32 | k3 | k5 [--tree DIR]
+                                            | k1 | k1_f32 | k3 | k5 | k2 | k2_f32 [--tree DIR]
     python tools/port_attention_tc_probe.py --kernel k9_copies | k9_f32_copies
 
 `--kernel attention` (the default) times attention_tc.cu and
@@ -113,7 +113,8 @@ time of each kernel per call and the host time per call; where the tree has
 replaced), which splits that path's time between LN, the products and the
 core.  Then, kernel-only, each piece of the tensor-core route on its own
 (where the tree has `kernels.qk_attention_fwd`): LN, the q, kv and output
-products (gemm.cu), the core's pre-pass and forward pass.  `--kernel
+products (gemm.cu, and where the tree has them ffn_tc.cu's NT store and
+residual forms, "_nt"), the core's pre-pass and forward pass.  `--kernel
 k1_f32`: the same in f32, whose pieces are the LN split, the x and weight
 splits, the q, kv (ffn_tc32.cu's plain-store form) and output (its
 residual form) products in 3xTF32, the core's pre-pass and forward pass.
@@ -135,6 +136,17 @@ piece alone (the f32 rows' pre-pass, the assignment on bf16 rows), and the
 L2-traffic variants in turns with the kernel as built: a copy of vq_tc.cu
 with 192-row tiles (CT_VQ_TC_CWG=3: three consumer warpgroups, a third less
 codebook read from L2, 144 CTAs) at events and kernel-only.
+
+`--kernel k2`: K2 in bf16 (no grad) on zero-shot's (2, 24, 576, 512) grid,
+the contrastive step's (8, 24, 576, 512) grid, and the sequence-major
+(4,608, 16, 512) (CT-CLIP at 160 frames) and (512, 20, 512) (the
+autoencoder): events, the device time of each kernel per call and the host
+time per call; where the tree has `kernels.qk_fwd_route`, again on the path
+it replaced (the route answering QK_CUDA_CORES and `proj_route` PROJ_WMMA:
+attention.cu's core, gemm.cu's products), and each piece alone: the LN, the
+q, kv and output products on ffn_tc.cu and on gemm.cu, the core on
+qknorm_attention_short.cu and on attention.cu.  `--kernel k2_f32`: the same in f32 (the pieces: the
+splits, the 3xTF32 products, the core and attention.cu's f32 core).
 
 `--kernel k9_copies`: K9's core at (192, 576) on copies of
 qknorm_attention_tc.cu with one change each, in turns, there and back, with
@@ -479,6 +491,25 @@ def qk_routes() -> dict:
     return routes
 
 
+class Replaced:
+    """K2's forward on the path qknorm_attention_short.cu and the `wgmma`
+    products replaced, inside the block: `kernels.qk_fwd_route` answering
+    QK_CUDA_CORES (attention.cu; in f32 gemm.cu's FFMA products) and
+    `proj_route` answering PROJ_WMMA (gemm.cu's bf16 products)."""
+
+    def __enter__(self):
+        from ct_clip_tpu_torch.ops import qknorm_attention as Q
+
+        self.saved = K.qk_fwd_route, Q.proj_route
+        K.qk_fwd_route = lambda *a, **kw: K.QK_CUDA_CORES
+        Q.proj_route = lambda *a: Q.PROJ_WMMA
+
+    def __exit__(self, *exc):
+        from ct_clip_tpu_torch.ops import qknorm_attention as Q
+
+        K.qk_fwd_route, Q.proj_route = self.saved
+
+
 def k9(dev, g, dtype=torch.bfloat16) -> dict:
     from ct_clip_tpu_torch.ops.qknorm_attention import fused_spatial_qknorm_attention
 
@@ -580,6 +611,86 @@ def k1_pieces(x, w, bias, heads, d, f32) -> dict:
                      kv_product=lambda: K.gemm(K.EPI_STORE, x2, wkv_c, torch.empty_like(kv)),
                      core=lambda: K.qk_attention_fwd(q, kv, **layout),
                      out_product=lambda: K.gemm(K.EPI_RESIDUAL, merged, wo_c, res, residual=x2))
+        if hasattr(K, "gemm_nt_tc"):  # the products on ffn_tc.cu's NT forms
+            calls.update(q_product_nt=lambda: K.gemm_nt_tc(xn, wq_c),
+                         kv_product_nt=lambda: K.gemm_nt_tc(x2, wkv_c),
+                         out_product_nt=lambda: K.gemm_residual_tc(merged, wo_c, x2))
+    with torch.no_grad():
+        return {name: dict(events_ms=event_ms(fn), kernel_ms=kernel_ms(fn))
+                for name, fn in calls.items()}
+
+
+def k2(dev, g, dtype=torch.bfloat16) -> dict:
+    """K2 at four shapes on both routes, and its pieces (module doc)."""
+    from ct_clip_tpu_torch.ops import qknorm_attention as Q
+
+    heads, d, dim = 8, 32, 512
+    hd = heads * d
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    w = (1 + rn(dim, scale=0.1), rn(hd, dim, scale=dim ** -0.5), rn(2 * hd, dim, scale=dim ** -0.5),
+         1 + rn(d, scale=0.2), 1 + rn(d, scale=0.2), rn(dim, hd, scale=hd ** -0.5))
+    short = hasattr(K, "qk_fwd_route")
+    out = {}
+    for label, shape in (("zero_shot", (2, 24, 576)), ("contrastive", (8, 24, 576)),
+                         ("clip160", (4608, 16)), ("generatect", (512, 20))):
+        grid = len(shape) == 3
+        x = rn(*shape, dim).to(dtype)
+        fused = Q.fused_grid_qknorm_attention if grid else Q.fused_small_qknorm_attention
+        row = {"as_built": measure(lambda: fused(x, *w, heads, d))}
+        if short:
+            with Replaced():
+                row["replaced"] = measure(lambda: fused(x, *w, heads, d))
+            row["pieces"] = k2_pieces(x, w, heads, d, grid)
+        print(f"K2 {str(dtype)[6:]} {label}: {json.dumps(row)}", flush=True)
+        out[label] = row
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def k2_pieces(x, w, heads, d, grid) -> dict:
+    """Each launch of K2's new route on its own, with the pieces it
+    replaced, on the inputs of the call: events and each kernel's device time
+    per call."""
+    from ct_clip_tpu_torch.ops import qknorm_attention as Q
+
+    dim = x.shape[-1]
+    hd, x2 = heads * d, x.view(-1, dim)
+    gamma, wq, wkv, qs, ks, wout = w
+    sequences, inner, q_strides, kv_strides, n = Q._layout(x, hd, d, grid)
+    layout = dict(sequences=sequences, inner=inner, heads=heads, n=n, d=d, q_strides=q_strides,
+                  kv_strides=kv_strides, q_scale=qs * 8.0, k_scale=ks)
+    if x.dtype == torch.float32:
+        ws = Q._tc32_weights(wq, wkv, wout)
+        xn = K.layernorm_split(x2, gamma, None, 1e-5)
+        xs = K.tc32_split(x2)
+        q, kv = K.tc32_gemm(*xn, *ws[0]), K.tc32_gemm(*xs, *ws[1])
+        merged = K.qk_attention_short(q, kv, **layout)
+        calls = dict(weights_split=lambda: Q._tc32_weights(wq, wkv, wout),
+                     ln_split=lambda: K.layernorm_split(x2, gamma, None, 1e-5),
+                     x_split=lambda: K.tc32_split(x2),
+                     q_product=lambda: K.tc32_gemm(*xn, *ws[0]),
+                     kv_product=lambda: K.tc32_gemm(*xs, *ws[1]),
+                     core=lambda: K.qk_attention_short(q, kv, **layout),
+                     out_product=lambda: K.tc32_gemm(*merged, *ws[2], residual=x2))
+    else:
+        wq_c, wkv_c, wo_c = (t.to(x.dtype).contiguous() for t in (wq, wkv, wout))
+        xn, q, kv = Q._project(x2, gamma, wq, wkv, hd)
+        merged = K.qk_attention_short(q, kv, **layout)
+        calls = dict(ln=lambda: K.layernorm(x2, gamma, None, 1e-5, torch.empty_like(x2)),
+                     q_product=lambda: K.gemm_nt_tc(xn, wq_c),
+                     kv_product=lambda: K.gemm_nt_tc(x2, wkv_c),
+                     core=lambda: K.qk_attention_short(q, kv, **layout),
+                     out_product=lambda: K.gemm_residual_tc(merged, wo_c, x2),
+                     q_product_gemm_cu=lambda: K.gemm(K.EPI_STORE, xn, wq_c, torch.empty_like(q)),
+                     kv_product_gemm_cu=lambda: K.gemm(K.EPI_STORE, x2, wkv_c,
+                                                       torch.empty_like(kv)),
+                     out_product_gemm_cu=lambda: K.gemm(K.EPI_RESIDUAL, merged, wo_c,
+                                                        torch.empty_like(x2), residual=x2))
+    calls["core_attention_cu"] = lambda: K.attention(q, kv, kv[:, hd:], torch.empty_like(q),
+                                                     **layout, warps=2)
     with torch.no_grad():
         return {name: dict(events_ms=event_ms(fn), kernel_ms=kernel_ms(fn))
                 for name, fn in calls.items()}
@@ -805,10 +916,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", default="attention",
                     choices=("attention", "k17", "k9", "k9_f32", "k11", "k16a", "k3_f32",
-                             "k9_copies", "k9_f32_copies", "k1", "k1_f32", "k3", "k5"))
+                             "k9_copies", "k9_f32_copies", "k1", "k1_f32", "k3", "k5", "k2",
+                             "k2_f32"))
     ap.add_argument("--tree", default=str(ROOT),
                     help="the checkout whose package is timed (k17, k9, k9_f32, k11, k16a, "
-                         "k3_f32, k1, k1_f32, k3, k5)")
+                         "k3_f32, k1, k1_f32, k3, k5, k2, k2_f32)")
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -830,7 +942,7 @@ def main() -> int:
         results[args.kernel] = dict(
             k17=k17, k9=k9, k9_f32=lambda dev, g: k9(dev, g, torch.float32), k11=k11,
             k16a=k16a, k3_f32=k3_f32, k1=k1, k1_f32=lambda dev, g: k1(dev, g, torch.float32),
-            k3=k3, k5=k5,
+            k3=k3, k5=k5, k2=k2, k2_f32=lambda dev, g: k2(dev, g, torch.float32),
             k9_copies=k9_copies,
             k9_f32_copies=lambda dev, g: k9_copies(dev, g, QK32, QK32_COPIES, torch.float32),
             )[args.kernel](dev, g)
