@@ -254,6 +254,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import functools
 import json
 import shutil
 import statistics
@@ -456,8 +457,11 @@ KERNELS = {
     "geglu_ff_f32": _kernel("fused_geglu_ff (f32)", "ffn.py:105", "ffn_tc32.cu",
                             ["layernorm.cu", "ffn_tc32.cu"], "geglu_ff_f32",
                             "maskgit_f32_train"),
-    "geglu_ff_bwd_f32": _kernel("_pallas_ff_bwd (f32)", "ffn.py:238", "gemm.cu",
-                                ["layernorm.cu", "gemm.cu"], "geglu_ff_bwd_f32",
+    # K11 f32: 3xTF32 on ffn_tc32.cu (`wgmma`: the tile, counter
+    # ff_tc32_tile; dxn on the plain-store form, tc32_gemm; the weight
+    # gradients on the TN form, tc32_gemm_tn)
+    "geglu_ff_bwd_f32": _kernel("_pallas_ff_bwd (f32)", "ffn.py:238", "ffn_tc32.cu",
+                                ["layernorm.cu", "ffn_tc32.cu"], "geglu_ff_bwd_f32",
                                 "maskgit_f32_train"),
     # K1 f32: all in 3xTF32, the core on qknorm_attention_tc32.cu's forward
     # pass (counter qk_attention_tc32), the three products on ffn_tc32.cu
@@ -496,25 +500,38 @@ KERNELS = {
                                        "rearrange.cu", ["rearrange.cu"],
                                        "unrearrange_patches_f32", "maskgit_f32_sample"),
     # the f32 CTViT backwards (phase 11), each with its own counter
+    # K9 f32: its core 3xTF32 on qknorm_attention_tc32.cu, its products in
+    # 3xTF32 on ffn_tc32.cu (counters tc32_gemm, tc32_gemm_tn)
     "spatial_attention_bwd_f32": _kernel("_pallas_spatial_bwd (f32)", "spatial_attention.py:297",
                                          "qknorm_attention_tc32.cu",
-                                         ["layernorm.cu", "gemm.cu", "qknorm_attention_tc32.cu"],
+                                         ["layernorm.cu", "ffn_tc32.cu",
+                                          "qknorm_attention_tc32.cu"],
                                          "spatial_attention_bwd_f32", "ctclip_f32_train"),
     # K9's f32 attention core alone, 3xTF32 on the tensor cores (the route
     # kernels.qk_bwd_tensor_cores gives K9's f32 planes), its own counter
     "spatial_attention_bwd_f32_tc": _kernel("_pallas_spatial_bwd (f32 attention core)",
                                             "spatial_attention.py:297",
                                             "qknorm_attention_tc32.cu",
-                                            ["qknorm_attention_tc32.cu", "gemm.cu"],
+                                            ["qknorm_attention_tc32.cu"],
                                             "qk_attention_tc32_bwd", "ctclip_f32_train"),
+    # K10 f32: its core on qknorm_attention_short.cu (true f32, counter
+    # qk_attention_short_bwd_f32), its products in 3xTF32 on ffn_tc32.cu
     "grid_attention_bwd_f32": _kernel("_pallas_small_qknorm_bwd (grid_layout, f32)",
-                                      "small_attention.py:437", "qknorm_attention_bwd.cu",
-                                      ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
+                                      "small_attention.py:437", "qknorm_attention_short.cu",
+                                      ["layernorm.cu", "ffn_tc32.cu",
+                                       "qknorm_attention_short.cu"],
                                       "grid_attention_bwd_f32", "ctclip_f32_train"),
     "seq_attention_bwd_f32": _kernel("_pallas_small_qknorm_bwd (sequence-major, f32)",
-                                     "small_attention.py:437", "qknorm_attention_bwd.cu",
-                                     ["layernorm.cu", "gemm.cu", "qknorm_attention_bwd.cu"],
+                                     "small_attention.py:437", "qknorm_attention_short.cu",
+                                     ["layernorm.cu", "ffn_tc32.cu", "qknorm_attention_short.cu"],
                                      "seq_attention_bwd_f32", "ctvit_ae_f32_train"),
+    # K10's f32 attention core alone (the route kernels.qk_bwd_route gives
+    # its 16-31-token sequences, grid and sequence-major), its own counter
+    "grid_attention_bwd_f32_short": _kernel("_pallas_small_qknorm_bwd (f32 attention core)",
+                                            "small_attention.py:437",
+                                            "qknorm_attention_short.cu",
+                                            ["qknorm_attention_short.cu"],
+                                            "qk_attention_short_bwd_f32", "ctclip_f32_train"),
     "vq_assign_exact_f32": _kernel("pallas_assign (exact, f32 rows)", "vq.py:104", "gemm.cu",
                                    ["gemm.cu"], "vq_assign_exact_f32", "ctclip_f32_train"),
     "vq_cluster_stats_f32": _kernel("pallas_cluster_stats (f32 rows)", "vq.py:168",
@@ -627,6 +644,7 @@ PATHS["maskgit_f32_encode_ids"] = ["patch_embed_plain", "spatial_attention_f32",
                                    "qk_attention_short_f32", "geglu_ff_f32", "geglu_ff_tc32",
                                    "vq_assign_f32", "vq_assign_tc"]
 PATHS["maskgit_f32_train"] = ["geglu_ff_f32", "geglu_ff_tc32", "geglu_ff_bwd_f32",
+                              "ff_tc32_tile", "tc32_gemm", "tc32_gemm_tn",
                               "attention_dense",
                               "attention_dense_bwd", "attention_tc32", "attention_tc32_bwd",
                               "fused_attention", "peg_dw_plain"]
@@ -642,7 +660,8 @@ PATHS["maskgit_f32_sample"] = ["attention_dense", "fused_attention", "attention_
 # mini evaluation's K5 f32 rows, plain row embed, K7 f32) and the f32
 # autoencoder (K1 / K9 f32 at n = 64, K2 / K10 seq f32, K6 and K17 f32)
 PATHS["ctclip_f32_train"] = ["spatial_attention_bwd_f32", "qk_attention_tc32_bwd",
-                             "grid_attention_bwd_f32",
+                             "grid_attention_bwd_f32", "qk_attention_short_bwd_f32",
+                             "ff_tc32_tile", "tc32_gemm_tn",
                              "vq_assign_exact_f32", "vq_cluster_stats_f32", "geglu_ff_bwd_f32",
                              "geglu_ff_f32", "geglu_ff_tc32", "spatial_attention_f32",
                              "qk_attention_tc32", "tc32_gemm", "grid_attention_f32",
@@ -653,6 +672,7 @@ PATHS["ctclip_f32_train"] = ["spatial_attention_bwd_f32", "qk_attention_tc32_bwd
                              "vq_assign_f32", "vq_assign_tc",
                              "row_embed_plain", "fused_attention"]
 AE_F32_TRAIN = ["seq_attention_f32", "qk_attention_short_f32", "seq_attention_bwd_f32",
+                "qk_attention_short_bwd_f32", "ff_tc32_tile", "tc32_gemm_tn",
                 "spatial_attention_f32",
                 "qk_attention_tc32", "tc32_gemm", "spatial_attention_bwd_f32", "qk_attention_tc32_bwd", "geglu_ff_f32",
                 "geglu_ff_tc32", "geglu_ff_bwd_f32", "peg_dw_plain",
@@ -1009,6 +1029,28 @@ K1_F32_REPLACED = "attention.cu (attention_f32_kernel; gemm.cu's FFMA products)"
 # ... and K2's (`cuda_core_k2`)
 K2_REPLACED = "attention.cu (attention_kernel) and gemm.cu's WMMA products"
 K2_F32_REPLACED = "attention.cu (attention_f32_kernel) and gemm.cu's FFMA products"
+# ... K11 f32's (ops/ffn.py::_geglu_ff_bwd_products on gemm.cu's f32 forms)
+K11_F32_REPLACED = "gemm.cu (ff_bwd_kernel<float>, gemm_layout_f32_kernel: FFMA)"
+# ... and K9 / K10 f32's (`replaced_qk_bwd_f32`)
+K10_F32_REPLACED = ("qknorm_attention_bwd.cu (qk_attention_bwd_f32_kernel) and gemm.cu's FFMA "
+                    "products")
+K9_F32_REPLACED = "qknorm_attention_tc32.cu's core (as now) and gemm.cu's FFMA products"
+
+
+def replaced_qk_bwd_f32(fn):
+    """`fn`, a call that reaches K9 / K10 f32's backward, on the path the
+    3xTF32 products and the short backward core replaced:
+    kernels.qk_bwd_route answers QK_CUDA_CORES inside it, so the sublayer's
+    backward takes gemm.cu's FFMA products around the core that
+    kernels.qk_bwd_tensor_cores picks (K9: qknorm_attention_tc32.cu, K10:
+    qknorm_attention_bwd.cu's f32 kernel).  The forward's gates are not
+    touched."""
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    def run():
+        with replaced(K, "qk_bwd_route", lambda *a: K.QK_CUDA_CORES):
+            return fn()
+    return run
 
 
 def cuda_core_k2(fn):
@@ -1241,8 +1283,8 @@ def k1_core_case(dev, g, S: int, n: int, dtype) -> dict:
     if f32:
         tf32_lib = K.copy_library("qknorm_attention_tc32.cu", CT_TC32_PASSES=1)
         case.update(peak=PEAK_TF32_FLOPS, flops=3 * flops, f32_flops=flops, tols=(tol,),
-                    copy=lambda: sum(kern(tf32_lib)),
-                    copy_is="qknorm_attention_tc32.cu in plain TF32 (CT_TC32_PASSES=1), hi + lo")
+                    copies={"qknorm_attention_tc32.cu in plain TF32 (CT_TC32_PASSES=1), hi + lo":
+                            lambda: sum(kern(tf32_lib))})
     return case
 
 
@@ -2019,8 +2061,8 @@ def train_kernel_cases(dev):
     k11 = grad_case(fused_geglu_ff, leaves, do)
     yield "geglu_ff_bwd", dict(
         kern=k11, plain=lambda: geglu_ff_bwd_plain(x, *w, do), library=None,
-        copy=no_gphi_k11(k11),
-        copy_is="ffn_tc.cu with dg lacking g phi(g) (CT_FF_TC_NO_GPHI)", bit_identical=True,
+        copies={"ffn_tc.cu with dg lacking g phi(g) (CT_FF_TC_NO_GPHI)": no_gphi_k11(k11)},
+        bit_identical=True,
         inputs=(x, do, *w), outputs=(x, *w), flops=2 * R * dim * 8 * inner,
         tols=(BWD_REL_TOL,) * 5)
     del x, do, w, leaves, k11
@@ -2202,14 +2244,14 @@ def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
             res["replaced"] = twin_result(name, case["twin"], ref,
                                           case.get("twin_source", "attention_train.cu"))
         yardstick(case, res, name)
-        if case.get("copy"):  # a one-change copy of the kernel must miss the limits
-            crels = [_rel_errors((c,), (r,))[1] for c, r in zip(_as_tuple(case["copy"]()), ref)]
-            res["copy_rel_err_by_output"] = crels
+        for label, copy in case.get("copies", {}).items():  # one-change copies must miss
+            crels = [_rel_errors((c,), (r,))[1] for c, r in zip(_as_tuple(copy()), ref)]
+            res.setdefault("copies_rel_err_by_output", {})[label] = crels
             missed = any(r > t for r, t in zip(crels, case["tols"]))
-            log(f"kernel {name}: the one-change copy ({case['copy_is']}) reads max_rel_err by "
+            log(f"kernel {name}: the one-change copy ({label}) reads max_rel_err by "
                 f"output {[f'{r:.2e}' for r in crels]}, limits {case['tols']}: outside {missed}")
             if not missed:
-                raise AssertionError(f"{name}: the copy ({case['copy_is']}) is within the limits")
+                raise AssertionError(f"{name}: the copy ({label}) is within the limits")
         del got, ref
         torch.cuda.empty_cache()
         res.update(timing(case, case["outputs"]), batch=batch)
@@ -2271,8 +2313,8 @@ def embed_bwd_cases(dev):
     k16a = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
     yield "patch_embed_bwd", dict(
         kern=k16a, plain=lambda: plain_grads(lambda *w: patch_embed_plain(video, *w, 10, 20), pe),
-        copy=no_rstd_k16a(k16a),
-        copy_is="ffn_tc.cu with the epilogue's xhat lacking rstd (CT_FF_TC_LN_NO_RSTD)",
+        copies={"ffn_tc.cu with the epilogue's xhat lacking rstd (CT_FF_TC_LN_NO_RSTD)":
+                no_rstd_k16a(k16a)},
         twin=lambda: k16a_replaced(video, pe, do), twin_source="layernorm.cu and gemm.cu",
         bit_identical=True, library=None, inputs=(video, do, *pe), outputs=tuple(pe),
         flops=flops, tols=(BWD_REL_TOL,) * 6)
@@ -2936,8 +2978,14 @@ def radbert_reference_phase(dev, work: Path, attention_dropout: float = 0.0) -> 
 # ---------------------------------------------------------------- phase 6
 # kernel-name fragments of a CT-CLIP training step's groups (first match)
 CTCLIP_GROUPS = (
+    ("K11 f32 tile and the f32 backwards' TN products and transposed splits, 3xTF32 on the "
+     "tensor cores (ffn_tc32.cu: ff_tc32_bwd_kernel, tc32_split_t_kernel)",
+     ("ff_tc32_bwd_kernel", "tc32_split_t_kernel")),
+    ("K10 f32 attention core backward on 16-31-token sequences (qknorm_attention_short.cu: "
+     "qk_short_bwd_f32)", ("qk_short_bwd",)),
     ("K3 f32 and K1 f32's projections, 3xTF32 on the tensor cores (ffn_tc32.cu: "
-     "ff_tc32_kernel, tc32_split_kernel)", ("ff_tc32_kernel", "tc32_split_kernel")),
+     "ff_tc32_kernel, tc32_split_kernel; the f32 backwards' plain-store products too)",
+     ("ff_tc32_kernel", "tc32_split_kernel")),
     TC_BWD_GROUP,
     TC_FWD_GROUP,
     TC32_GROUP,
@@ -3041,7 +3089,8 @@ def timed_steps(step, state, batch, card: str, label: str, batch_size: int,
 # and K13b on the tensor cores, the 4 spatial layers' K9 core on the tensor
 # cores (qknorm_attention_tc.cu); f32, each of the 4 + 4 layers' backward, one
 # K5 exact and one K15, K13a f32 and K13b f32 on the tensor cores in 3xTF32
-# (attention_tc32.cu)
+# (attention_tc32.cu), K11's tile, K10's short core and the backwards'
+# products in 3xTF32 (ffn_tc32.cu)
 CLIP_PER_STEP = {
     "bf16": dict(attention_dropout=BERT_LAYERS, attention_dropout_bwd=BERT_LAYERS,
                  attention_tc_bwd=BERT_LAYERS, spatial_attention_bwd=4, qk_attention_tc_bwd=4,
@@ -3051,7 +3100,10 @@ CLIP_PER_STEP = {
                 attention_dropout_bwd=BERT_LAYERS, attention_tc32_bwd=BERT_LAYERS,
                 attention_tc=0, attention_tc_bwd=0, peg_bwd=0, spatial_attention_bwd=4,
                 grid_attention_bwd=4, qk_attention_tc_bwd=0, qk_attention_tc32_bwd=4,
-                ff_tc_tile=0, ff_tc_gemm=0),
+                ff_tc_tile=0, ff_tc_gemm=0, ff_tc32_tile=8, qk_attention_short_bwd_f32=4,
+                # K11: two TN products; K9 and K10: three TN (their plain-store
+                # products count as tc32_gemm, checked with the forwards')
+                tc32_gemm_tn=2 * 8 + 3 * 8, qk_proj_gemm=0),
 }
 
 
@@ -3108,11 +3160,15 @@ def ctclip_train_phase(dev, work: Path, card: str, corpus, dtype: str = "bf16") 
         extra["attention_tc32_k13a"] = (counts["attention_tc32"] - counts["fused_attention"]) / 4
         # every K1 f32 of the run (the steps' and the mini evaluation's) on
         # qknorm_attention_tc32.cu, every K2 f32 on qknorm_attention_short.cu,
-        # the products of both on ffn_tc32.cu
+        # the plain-store products on ffn_tc32.cu: three a K1 / K2 forward,
+        # five a K9 / K10 backward (q and kv recomputed, dmerged, dxn, dx_kv),
+        # one a K11 backward (dxn)
         extra["k1_off_tc32"] = counts["spatial_attention_f32"] - counts["qk_attention_tc32"]
         extra["k2_off_short"] = counts["grid_attention_f32"] - counts["qk_attention_short_f32"]
         extra["products_off_tc32"] = 3 * (counts["spatial_attention_f32"]
-                                          + counts["grid_attention_f32"]) - counts["tc32_gemm"]
+                                          + counts["grid_attention_f32"]) \
+            + 5 * (counts["spatial_attention_bwd_f32"] + counts["grid_attention_bwd_f32"]) \
+            + counts["geglu_ff_bwd_f32"] - counts["tc32_gemm"]
         extra_ok = extra["peg_dw_plain"] and not extra["unrearrange_patches_f32"] \
             and extra["rearrange_patches_f32"] >= TRAIN_B and not extra["forwards_off_tc32"] \
             and extra["attention_tc32_k13a"] == BERT_LAYERS and not extra["k1_off_tc32"] \
@@ -4101,8 +4157,8 @@ def dense_attention_cases(dev):
         if f32:
             fwd.update(flops=3 * 2 * product, peak=PEAK_TF32_FLOPS, f32_flops=2 * product,
                        tols=(TC32_REL_TOL,), bit_identical=True,
-                       copy=tf32_copy(kern_fwd, "attention_tc32_fwd"),
-                       copy_is="attention_tc32.cu in plain TF32")
+                       copies={"attention_tc32.cu in plain TF32":
+                               tf32_copy(kern_fwd, "attention_tc32_fwd")})
         else:
             fwd.update(flops=2 * product, peak=PEAK_BF16_FLOPS, tol=REL_TOL)
         yield f"attention_dense@{label}", fwd
@@ -4115,7 +4171,7 @@ def dense_attention_cases(dev):
         if f32:
             bwd.update(flops=3 * 5 * product, peak=PEAK_TF32_FLOPS, f32_flops=5 * product,
                        tols=(TC32_REL_TOL,) * len(leaves), bit_identical=True,
-                       copy=tf32_copy(kern), copy_is="attention_tc32.cu in plain TF32")
+                       copies={"attention_tc32.cu in plain TF32": tf32_copy(kern)})
         else:
             bwd.update(flops=5 * product, peak=PEAK_BF16_FLOPS, tol=BWD_REL_TOL)
         yield f"attention_dense_bwd@{label}", bwd
@@ -4550,7 +4606,8 @@ def f32_kernel_cases(dev):
     import torch
 
     from ct_clip_tpu_torch.ops import kernels as K
-    from ct_clip_tpu_torch.ops.ffn import (_geglu_ff_gemm, _geglu_ff_tc32, fused_geglu_ff,
+    from ct_clip_tpu_torch.ops.ffn import (_geglu_ff_bwd_products, _geglu_ff_bwd_tc32,
+                                           _geglu_ff_gemm, _geglu_ff_tc32, fused_geglu_ff,
                                            geglu_ff_bwd_plain, geglu_ff_plain)
     from ct_clip_tpu_torch.ops.norms import l2norm
     from ct_clip_tpu_torch.ops.patch_embed import (rearrange_patches, rearrange_plain,
@@ -4584,18 +4641,21 @@ def f32_kernel_cases(dev):
         yield name, dict(
             f32_case, kern=lambda x=x: fused_geglu_ff(x, *w_ff),
             plain=lambda x=x: geglu_ff_plain(x, *w_ff),
-            copy=lambda x=x: _geglu_ff_tc32(x, *w_ff, 1e-5, lib=tf32_lib),
-            copy_is="ffn_tc32.cu in plain TF32 (CT_TC32_PASSES=1)",
+            copies={"ffn_tc32.cu in plain TF32 (CT_TC32_PASSES=1)":
+                    lambda x=x: _geglu_ff_tc32(x, *w_ff, 1e-5, lib=tf32_lib)},
             twin=lambda x=x: _geglu_ff_gemm(x, *w_ff, 1e-5),
             twin_source="gemm.cu (f32 gemm_kernel, FFMA)", bit_identical=True,
             inputs=(x, *w_ff), outputs=(x,), flops=3 * products, f32_flops=products,
             peak=PEAK_TF32_FLOPS, tols=(TC32_REL_TOL,))
         del x
-    # K11 f32 at MaskGIT's (and the autoencoder's) 10,240 rows and at the
+    # K11 f32 in 3xTF32 on ffn_tc32.cu (the tile, one NN and two TN
+    # products) at MaskGIT's (and the autoencoder's) 10,240 rows and at the
     # contrastive step's 110,592 (8 launches a step): dx to TC32_REL_TOL;
-    # dscale, dbias, dwi, dwo sum over all rows; the 3xTF32 bound beside.
-    # Both draw from the shared generator, so K5's first f32-row seed below
-    # gets the inputs that once showed its check's fault (ROADMAP 3)
+    # dscale, dbias, dwi, dwo sum over all rows (F32_REL_TOL); the plain-TF32
+    # copy must miss; the replaced path (gemm.cu's FFMA tile and products)
+    # timed beside it.  Both draw from the shared generator, so K5's first
+    # f32-row seed below gets the inputs that once showed its check's fault
+    # (ROADMAP 3)
     for name, rows, gen in (("geglu_ff_bwd_f32", mg_rows, g),
                             ("geglu_ff_bwd_f32_contrastive", TRAIN_B * 13824, g)):
         x, do = (torch.randn((rows, dim), generator=gen, device=dev) for _ in range(2))
@@ -4605,9 +4665,13 @@ def f32_kernel_cases(dev):
         yield name, dict(
             f32_case, kern=lambda out=out, leaves=leaves, do=do: torch.autograd.grad(
                 out, leaves, do, retain_graph=True),
-            plain=lambda x=x, do=do: geglu_ff_bwd_plain(x, *w_ff, do), inputs=(x, do, *w_ff),
-            outputs=(x, *w_ff), flops=flops,
-            bound_tf32_ms=bound(nbytes(x, do, *w_ff, x, *w_ff), 3 * flops, PEAK_TF32_FLOPS)[0],
+            plain=lambda x=x, do=do: geglu_ff_bwd_plain(x, *w_ff, do),
+            copies={"ffn_tc32.cu in plain TF32 (CT_TC32_PASSES=1)":
+                    lambda x=x, do=do: _geglu_ff_bwd_tc32(x, *w_ff, do, 1e-5, lib=tf32_lib)},
+            twin=lambda x=x, do=do: _geglu_ff_bwd_products(x, *w_ff, do, 1e-5, K.ff_bwd_core,
+                                                           K.gemm_nn, K.gemm_tn),
+            twin_source=K11_F32_REPLACED, bit_identical=True, inputs=(x, do, *w_ff),
+            outputs=(x, *w_ff), flops=3 * flops, f32_flops=flops, peak=PEAK_TF32_FLOPS,
             tols=(TC32_REL_TOL,) + (F32_REL_TOL,) * 4)
         del x, do, leaves, out
 
@@ -4999,19 +5063,17 @@ def compare_f32_steps(c: dict, g: dict, start: dict, lr: float):
 
 
 def f32_planted_faults():
-    """K11 f32 with act rounded to bf16 (the f32 form must keep it f32), and
-    K12b f32's and K7 dense f32's `tc32_planted_faults` (D_i forced to 0;
-    the backward in plain TF32; the forward in plain TF32)."""
-    import torch
-
+    """K11 f32 with act rounded to bf16 in its 3xTF32 tile (the f32 form must
+    keep it f32: a copy of ffn_tc32.cu built with CT_FF_TC32_ACT_BF16=1
+    launched for the whole backward), and K12b f32's and K7 dense f32's
+    `tc32_planted_faults` (D_i forced to 0; the backward in plain TF32; the
+    forward in plain TF32)."""
+    from ct_clip_tpu_torch.ops import ffn
     from ct_clip_tpu_torch.ops import kernels as K
 
-    core = K.ff_bwd_core
-
-    def act_bf16(*args):
-        act, dcat = core(*args)
-        return act.to(torch.bfloat16).to(act.dtype), dcat
-    faults = {"K11 f32 with act rounded to bf16": (K, "ff_bwd_core", act_bf16)}
+    act_bf16 = K.copy_library("ffn_tc32.cu", CT_FF_TC32_ACT_BF16=1)
+    faults = {"K11 f32 with act rounded to bf16": (
+        ffn, "_geglu_ff_bwd_tc32", functools.partial(ffn._geglu_ff_bwd_tc32, lib=act_bf16))}
     for name, (wrapper, broken) in tc32_planted_faults("K12b f32", "K7 dense f32").items():
         faults[name] = (K, wrapper, broken)
     return faults
@@ -5083,7 +5145,8 @@ def tiny_maskgit_f32_phase(dev, work: Path) -> dict:
 # kernel-name fragments of an f32 training step's groups (first match),
 # ahead of the CT-CLIP step's
 F32_TRAIN_GROUPS = (
-    ("K9/K10 f32 attention core backward (qk_attention_bwd_f32_kernel)",
+    ("K9/K10 f32 attention core backward on the CUDA cores (qk_attention_bwd_f32_kernel: "
+     "head dims other than 32, lengths off the other routes)",
      ("qk_attention_bwd_f32_kernel",)),
     ("K5 exact on f32 rows (gemm_argmax3_rows_kernel)", ("gemm_argmax3_rows",)),
     ("K15 f32 row sums (sum_f32_kernel)", ("sum_f32_kernel",)),
@@ -5181,6 +5244,72 @@ def qk_core_f32_case(dev, g, w, S: int, n: int) -> dict:
                 peak=PEAK_TF32_FLOPS, flops=3 * flops, f32_flops=flops)
 
 
+def short_core_f32_case(dev, g, w, B: int, n: int, S: int) -> dict:
+    """K10's f32 attention core alone (kernels.qk_attention_short_bwd) on a
+    (B, n, S) token grid's t-columns (S = 1: B sequences, sequence-major), 8
+    heads of 32, as the f32 sublayer's backward hands it over: true f32 on
+    qknorm_attention_short.cu against the plain version of its math
+    (`qk_attention_bwd_core_plain` in f32, its rows put back in the grid's
+    order): merged, dq and dkv (hi + lo of the planes it writes, row-major
+    and transposed) within TC32_REL_TOL of max|plain|, dq_scale and dk_scale
+    within F32_REL_TOL; the replaced CUDA-core kernel (qknorm_attention_bwd.cu's
+    f32 form) timed beside it.  The timed call is the wrapper alone.  Bound:
+    the function's own bytes, q, kv and dO read once and merged, dq and dkv
+    written once in f32 (8 x 256 floats a row; the ten TF32 planes the kernel
+    writes instead, 14 x 256 floats a row, are its layout's cost, not the
+    function's); the six n x n x 32 products at the f32 CUDA-core peak."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.qknorm_attention import GRID_GROUPS, qk_attention_bwd_core_plain
+
+    heads, d = 8, 32
+    hd, rows, sequences = heads * d, B * n * S, B * S
+    q, kv, dm = (torch.randn((rows, width), generator=g, device=dev)
+                 for width in (hd, 2 * hd, hd))
+    c = torch.arange(rows, device=dev)  # sequence-major row c = (b S + s) n + t
+    order = ((c // n // S) * n + c % n) * S + c // n % S
+    layout = dict(sequences=sequences, inner=S, heads=heads, n=n, d=d,
+                  q_strides=(n * S * hd, hd, d, S * hd),
+                  kv_strides=(n * S * 2 * hd, 2 * hd, d, S * 2 * hd), q_scale=w[3] * 8.0,
+                  k_scale=w[4])
+
+    def in_grid_order(t):  # sequence-major rows -> the grid's
+        out = torch.empty_like(t)
+        out[order] = t
+        return out
+
+    def plain():
+        merged, dq, dkv, dqs, dks, _ = qk_attention_bwd_core_plain(
+            q[order], kv[order], dm[order], heads, d, n, layout["q_scale"], layout["k_scale"],
+            None)
+        return in_grid_order(merged), in_grid_order(dq), in_grid_order(dkv), dqs, dks
+
+    def check(got, ref):
+        planes = [(got[0] + got[1], ref[1]), (got[2] + got[3], ref[2]),
+                  (in_grid_order((got[4] + got[5]).t()), ref[0]),
+                  (in_grid_order((got[6] + got[7]).t()), ref[1]),
+                  (in_grid_order((got[8] + got[9]).t()), ref[2]),
+                  (got[10], ref[3]), (got[11], ref[4])]
+        tols = (TC32_REL_TOL,) * 5 + (F32_REL_TOL,) * 2
+        rels = [_rel_errors((a,), (b,))[1] for a, b in planes]
+        res = dict(max_abs_err=max(_rel_errors((a,), (b,))[0] for a, b in planes),
+                   max_rel_err=max(rels), rel_err_by_output=rels,
+                   tolerance=f"rel {tols} by output (dq, dkv row-major; merged, dq, dkv "
+                   "transposed; dq_scale, dk_scale)")
+        return all(r <= t for r, t in zip(rels, tols)), res
+
+    def replaced_core():  # n < 32: kernels.qk_attention_bwd takes the CUDA-core kernel
+        return K.qk_attention_bwd(q, kv, dm, group=-(-sequences // min(sequences, GRID_GROUPS)),
+                                  warps=2, **layout)[:5]
+    return dict(kern=lambda: K.qk_attention_short_bwd(q, kv, dm, **layout), plain=plain,
+                check=check, twin=replaced_core,
+                twin_source="qknorm_attention_bwd.cu (qk_attention_bwd_f32_kernel)",
+                bit_identical=True, library=None, inputs=(q, kv, dm),
+                outputs=(dm, q, kv),  # merged, dq, dkv: the same shapes
+                peak=PEAK_F32_FLOPS, flops=12 * sequences * heads * n * n * d)
+
+
 def f32_train_kernel_cases(dev):
     """The f32 training backwards at full width, each against its plain
     version in true f32 (TF32 off): K9 f32 through the sublayer's backward
@@ -5204,7 +5333,7 @@ def f32_train_kernel_cases(dev):
     from ct_clip_tpu_torch.ops.norms import l2norm
     from ct_clip_tpu_torch.ops.patch_embed import rearrange_patches, unrearrange_plain
     from ct_clip_tpu_torch.ops.qknorm_attention import (
-        fused_grid_qknorm_attention, fused_small_qknorm_attention,
+        _qknorm_attention_bwd_tc32, fused_grid_qknorm_attention, fused_small_qknorm_attention,
         fused_spatial_qknorm_attention, grid_qknorm_attention_bwd_plain,
         qknorm_attention_bwd_plain)
     from ct_clip_tpu_torch.ops.vq import (cluster_stats, cluster_stats_plain,
@@ -5224,46 +5353,75 @@ def f32_train_kernel_cases(dev):
          rn(2 * hd, dim, scale=dim ** -0.5), 1 + rn(dh, scale=0.2), 1 + rn(dh, scale=0.2),
          rn(dim, hd, scale=hd ** -0.5))
 
-    def bwd_case(fwd, plain, x, do, extra, core):
+    tf32_lib = K.copy_library("ffn_tc32.cu", CT_TC32_PASSES=1)
+    round_p = K.copy_library("qknorm_attention_short.cu", CT_QK_SHORT_BWD_ROUND_P=1)
+
+    def bwd_case(fwd, plain, x, do, extra, core, grid, core_tc32):
+        # every product in 3xTF32 (ffn_tc32.cu): bound at 3 TF32 products per
+        # f32 one; the core in 3xTF32 too (K9) or in f32 on the CUDA cores
+        # (K10's short core: its operations counted at the f32 peak, scaled
+        # to the TF32 one); the f32 CUDA-core bound beside it; the replaced
+        # path (gemm.cu's FFMA products) timed beside the call; the products
+        # in plain TF32 must miss the limits
         leaves = [t.clone().requires_grad_() for t in (x, *w, *extra)]
         out = fwd(*leaves)
-        return dict(f32_case, kern=lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
-                    plain=plain, inputs=(x, do, *w, *extra), outputs=(x, *w, *extra),
-                    flops=2 * (x.numel() // dim) * dim * hd * 11 + core,
+        products = 2 * (x.numel() // dim) * dim * hd * 11
+        kern = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
+        route = K.QK_TC32 if core_tc32 else K.QK_SHORT
+        return dict(f32_case, kern=kern, plain=plain, inputs=(x, do, *w, *extra),
+                    outputs=(x, *w, *extra), peak=PEAK_TF32_FLOPS, f32_flops=products + core,
+                    flops=3 * (products + core) if core_tc32
+                    else 3 * products + core * PEAK_TF32_FLOPS / PEAK_F32_FLOPS,
+                    twin=replaced_qk_bwd_f32(kern),
+                    twin_source=K9_F32_REPLACED if core_tc32 else K10_F32_REPLACED,
+                    copies={"ffn_tc32.cu in plain TF32 (CT_TC32_PASSES=1)":
+                            lambda: _qknorm_attention_bwd_tc32(
+                                x, *w, *(extra or (None,)), do, heads, dh, 8.0, grid, route,
+                                lib=tf32_lib)},
                     tols=(TC32_REL_TOL,) + (F32_REL_TOL,) * (6 + len(extra)))
 
+    def with_round_p(case):
+        # beside the plain-TF32 copy, the short core built with P rounded to
+        # bf16 before the merged heads
+        def run():
+            with replaced(K, "qk_attention_short_bwd",
+                          functools.partial(K.qk_attention_short_bwd, lib=round_p)):
+                return case["kern"]()
+        case["copies"]["the short core with P rounded to bf16 (CT_QK_SHORT_BWD_ROUND_P=1)"] = run
+        return case
+
     def spatial(S, n):
-        # the core 3xTF32 on the tensor cores, the products f32 FFMA tiles:
-        # bound at 3 TF32 products per f32 one, the f32 CUDA-core bound beside
-        # it; the replaced CUDA-core core timed beside the call
         x, do, bias = rn(S, n, dim), rn(S, n, dim), rn(heads, n, n)
-        case = bwd_case(lambda *a: fused_spatial_qknorm_attention(*a, heads, dh),
+        return bwd_case(lambda *a: fused_spatial_qknorm_attention(*a, heads, dh),
                         lambda: qknorm_attention_bwd_plain(x, *w, bias, do, heads, dh),
-                        x, do, (bias,), 12 * S * heads * n * n * dh)
-        return dict(case, peak=PEAK_TF32_FLOPS, flops=3 * case["flops"],
-                    f32_flops=case["flops"], twin=cuda_core_k9(case["kern"]),
-                    twin_source="qknorm_attention_bwd.cu")
+                        x, do, (bias,), 12 * S * heads * n * n * dh, False, True)
     yield "spatial_attention_bwd_f32", spatial(TRAIN_B * 24, 576)
     yield "spatial_attention_bwd_f32_n64", spatial(AE_B * AE_FRAMES // 10, 64)
     xg, dog = rn(TRAIN_B, 24, 576, dim), rn(TRAIN_B, 24, 576, dim)
-    yield "grid_attention_bwd_f32", bwd_case(
+    yield "grid_attention_bwd_f32", with_round_p(bwd_case(
         lambda *a: fused_grid_qknorm_attention(*a, heads, dh),
         lambda: grid_qknorm_attention_bwd_plain(xg, *w, dog, heads, dh), xg, dog, (),
-        12 * TRAIN_B * 576 * heads * 24 * 24 * dh)
+        12 * TRAIN_B * 576 * heads * 24 * 24 * dh, True, False))
     del xg, dog
     for name, (S, n) in (("seq_attention_bwd_f32", (CLIP160_B * 576, 16)),
                          ("seq_attention_bwd_f32_generatect", (AE_B * 64, 20))):
         x, do = rn(S, n, dim), rn(S, n, dim)
-        yield name, bwd_case(
+        yield name, with_round_p(bwd_case(
             lambda *a: fused_small_qknorm_attention(*a, heads, dh),
             lambda x=x, do=do: qknorm_attention_bwd_plain(x, *w, None, do, heads, dh)[:7],
-            x, do, (), 12 * S * heads * n * n * dh)
+            x, do, (), 12 * S * heads * n * n * dh, False, False))
         del x, do
 
     # the core alone on qknorm_attention_tc32.cu (3xTF32)
     yield "spatial_attention_bwd_f32_tc", qk_core_f32_case(dev, g, w, TRAIN_B * 24, 576)
     yield "spatial_attention_bwd_f32_tc_n64", qk_core_f32_case(dev, g, w, AE_B * AE_FRAMES // 10,
                                                                64)
+    # K10's core alone on qknorm_attention_short.cu (true f32): the contrastive
+    # grid's t-columns, the 160-frame and the autoencoder's sequences
+    yield "grid_attention_bwd_f32_core", short_core_f32_case(dev, g, w, TRAIN_B, 24, 576)
+    yield "seq_attention_bwd_f32_core", short_core_f32_case(dev, g, w, CLIP160_B * 576, 16, 1)
+    yield "seq_attention_bwd_f32_core_generatect", short_core_f32_case(dev, g, w, AE_B * 64, 20,
+                                                                       1)
 
     # K5 exact and K15 on the training batch's f32 rows
     xv, embed_n = rn(R, dim), l2norm(rn(8192, dim))
@@ -5331,12 +5489,17 @@ def f32_train_kernel_phase(dev) -> dict:
     res = train_kernel_phase(dev, f32_train_kernel_cases(dev), TRAIN_B)
     counts = K.launch_counts()
     for k in ("spatial_attention_bwd_f32", "grid_attention_bwd_f32", "seq_attention_bwd_f32",
-              "vq_assign_exact_f32", "vq_cluster_stats_f32", "unrearrange_patches_f32"):
+              "vq_assign_exact_f32", "vq_cluster_stats_f32", "unrearrange_patches_f32",
+              "qk_attention_short_bwd_f32", "tc32_gemm", "tc32_gemm_tn"):
         if not counts[k]:
             raise AssertionError(f"f32 training kernels: {k} never launched")
     for key in ("spatial_attention_bwd_f32", "spatial_attention_bwd_f32_tc"):
         res[key]["at_n64"] = res.pop(f"{key}_n64")
     res["seq_attention_bwd_f32"]["at_generatect"] = res.pop("seq_attention_bwd_f32_generatect")
+    res["grid_attention_bwd_f32_short"] = res.pop("grid_attention_bwd_f32_core")
+    res["grid_attention_bwd_f32_short"]["at_seq_4608x16"] = res.pop("seq_attention_bwd_f32_core")
+    res["grid_attention_bwd_f32_short"]["at_seq_512x20"] = res.pop(
+        "seq_attention_bwd_f32_core_generatect")
     return res
 
 
@@ -5347,7 +5510,10 @@ def tiny_f32_configs():
     card takes K5 exact f32 and K15 f32: CT-CLIP on a
     cubic (4, 4, 4) grid (K1 / K9, K2 / K10 grid), its BERT one head of 64
     (K12a f32 on attention_tc32.cu); the autoencoder on a non-cubic (5, 8,
-    8) grid (K9 at n = 64, K2 / K10 seq)."""
+    8) grid (K9 at n = 64, K2 / K10 seq); and an autoencoder with heads of 32
+    on a (16, 4, 4) grid (512 VQ rows), whose 16-token sequences take K10
+    f32's short route (`kernels.qk_bwd_route`: qknorm_attention_short.cu's
+    backward core and the 3xTF32 products)."""
     from ct_clip_tpu_torch.config import BertConfig, CTCLIPConfig, CTViTConfig
 
     vit = dict(dim=128, codebook_size=768, patch_size=16, temporal_patch_size=4,
@@ -5358,7 +5524,9 @@ def tiny_f32_configs():
         bert=BertConfig(vocab_size=64, hidden_size=64, num_hidden_layers=2,
                         num_attention_heads=1, intermediate_size=128, hidden_dropout=0.0,
                         attention_dropout=0.0))
-    return clip, CTViTConfig(image_size=128, num_frames=20, with_decoder=True, **vit)
+    short = dict(vit, dim_head=32, heads=4)
+    return (clip, CTViTConfig(image_size=128, num_frames=20, with_decoder=True, **vit),
+            CTViTConfig(image_size=64, num_frames=64, with_decoder=True, **short))
 
 
 def k9_f32_round_p_fault():
@@ -5374,24 +5542,45 @@ def k9_f32_round_p_fault():
         K, "qk_attention_bwd", functools.partial(K.qk_attention_bwd, lib=copy))}
 
 
+def k10_short_round_p_fault():
+    """K10 f32's short backward core launching a copy of
+    qknorm_attention_short.cu built with CT_QK_SHORT_BWD_ROUND_P=1: P rounded
+    to bf16 before the merged heads."""
+    import functools
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    copy = K.copy_library("qknorm_attention_short.cu", CT_QK_SHORT_BWD_ROUND_P=1)
+    return {"K10 f32's short core with P rounded to bf16": (
+        K, "qk_attention_short_bwd", functools.partial(K.qk_attention_short_bwd, lib=copy))}
+
+
 # the f32 kernels each tiny f32 step must launch on the card
 TINY_F32_KERNELS = {
     "CT-CLIP": ("spatial_attention_bwd_f32", "grid_attention_bwd_f32", "vq_assign_exact_f32",
-                "vq_cluster_stats_f32", "geglu_ff_bwd_f32", "attention_tc32_bwd"),
+                "vq_cluster_stats_f32", "geglu_ff_bwd_f32", "ff_tc32_tile", "tc32_gemm_tn",
+                "attention_tc32_bwd"),
     "CTViT autoencoder": ("spatial_attention_bwd_f32", "seq_attention_bwd_f32",
                           "vq_assign_exact_f32", "vq_cluster_stats_f32", "geglu_ff_bwd_f32",
-                          "unrearrange_patches_f32")}
+                          "ff_tc32_tile", "tc32_gemm_tn", "unrearrange_patches_f32"),
+    "CTViT autoencoder, short route": ("spatial_attention_bwd_f32", "seq_attention_bwd_f32",
+                                       "qk_attention_short_bwd_f32", "vq_assign_exact_f32",
+                                       "vq_cluster_stats_f32", "geglu_ff_bwd_f32",
+                                       "ff_tc32_tile", "tc32_gemm_tn",
+                                       "unrearrange_patches_f32")}
 
 
 def tiny_f32_train_phase(dev, work: Path) -> dict:
-    """One tiny f32 CT-CLIP training step and one tiny f32 autoencoder
-    generator step (`tiny_f32_configs`), each from the same weights and
+    """One tiny f32 CT-CLIP training step and two tiny f32 autoencoder
+    generator steps (`tiny_f32_configs`), each from the same weights and
     inputs on the card (the f32 kernels) and on the CPU (plain versions),
     with the codebook at the CPU's own tokens: held by `compare_f32_steps`
     (gradients 1e-4 of max, the weights after the step 1e-5, Adam's
     sensitive entries to its step bound), every VQ id equal and the EMA
-    state (codebook, cluster sizes) within 1e-5; then each with K9/K10 f32's
-    P rounded to bf16 in the row pass, which must fail."""
+    state (codebook, cluster sizes) within 1e-5; then each with a planted
+    fault that must fail: K9/K10 f32's P rounded to bf16 in
+    qknorm_attention_bwd.cu's row pass, and on the short route's run also
+    K10's short backward core with P rounded to bf16."""
     import torch
 
     from ct_clip_tpu_torch.config import TrainConfig
@@ -5399,16 +5588,19 @@ def tiny_f32_train_phase(dev, work: Path) -> dict:
     from ct_clip_tpu_torch.ops import kernels as K
 
     f32, lr = torch.float32, 1e-3
-    clip_cfg, ae_cfg = tiny_f32_configs()
+    clip_cfg, ae_cfg, short_cfg = tiny_f32_configs()
     g = torch.Generator().manual_seed(15)
     ids = torch.randint(5, 64, (4, 32), generator=g)
     mask = (torch.arange(32)[None] < torch.tensor([[32], [20], [9], [27]])).long()
     clip_video = torch.rand((4, 16, 64, 64, 1), generator=g) * 2 - 1
     ae_video = torch.rand((2, 20, 128, 128, 1), generator=g) * 2 - 1
+    short_video = torch.rand((2, 64, 64, 64, 1), generator=g) * 2 - 1
     cpu_clip = CTCLIP(clip_cfg).init_weights(torch.Generator().manual_seed(16))
     seed_codebook_at_tokens(cpu_clip.visual_transformer, clip_video)
     cpu_ae = CTViT(ae_cfg).init_weights(torch.Generator().manual_seed(17))
     seed_codebook_at_tokens(cpu_ae, ae_video)
+    cpu_short = CTViT(short_cfg).init_weights(torch.Generator().manual_seed(18))
+    seed_codebook_at_tokens(cpu_short, short_video)
     tcfg = TrainConfig(lr=lr)
     runs = {
         "CT-CLIP": ({k: t.clone() for k, t in cpu_clip.state_dict().items()},
@@ -5419,7 +5611,13 @@ def tiny_f32_train_phase(dev, work: Path) -> dict:
                               "vq._codebook.",
                               lambda start, device: tiny_ae_side(
                                   ae_cfg, start, ae_video, device, f32, lr,
-                                  work / f"tiny_ae_f32_{device.type}"))}
+                                  work / f"tiny_ae_f32_{device.type}")),
+        "CTViT autoencoder, short route": (
+            {k: t.clone() for k, t in cpu_short.state_dict().items()}, "vq._codebook.",
+            lambda start, device: tiny_ae_side(short_cfg, start, short_video, device, f32, lr,
+                                               work / f"tiny_ae_short_f32_{device.type}"))}
+    faults = dict(k9_f32_round_p_fault())
+    short_faults = dict(faults, **k10_short_round_p_fault())
     out = {}
     for label, (start, vq, side) in runs.items():
         c = side(start, torch.device("cpu"))
@@ -5451,7 +5649,8 @@ def tiny_f32_train_phase(dev, work: Path) -> dict:
             raise AssertionError(f"tiny {label} f32 step: card and CPU disagree on {failures}, "
                                  f"kernels not launched {missing}: {res}")
         res["faults"] = {}
-        for name, (module, attr, broken) in k9_f32_round_p_fault().items():
+        for name, (module, attr, broken) in (short_faults if "short" in label
+                                             else faults).items():
             with replaced(module, attr, broken):
                 fres, ffail, _ = card_check(f"planted fault '{name}'")
             if not ffail:

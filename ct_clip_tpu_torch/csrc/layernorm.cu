@@ -35,7 +35,11 @@
 // (up to 16 values a thread, so D <= 4096) and computes mean and variance in
 // two passes, as ct_clip_tpu/ops/norms.py::layer_norm does.  The backward
 // walks 64 rows per block and writes each block's column sums as one row of
-// a partial buffer, which ct_sum_splits adds in order: no atomics.
+// a partial buffer, which ct_sum_splits adds in order: no atomics.  f32 rows
+// of 128-512 floats (the f32 sublayers' 512) take warp-a-row forms of the
+// split LN and of the backward (ln_split_rows_kernel, ln_bwd_rows_kernel):
+// the same arithmetic with warp-shuffle sums and 16-byte accesses, in place
+// of four block barriers a row.
 #include "common.cuh"
 #include "tc32.cuh"
 
@@ -261,6 +265,161 @@ ln_bwd_kernel(const T* __restrict__ x, int rows, int D, const float* __restrict_
   }
 }
 
+// ---------------------------------------------- f32 rows, a warp a row
+// The f32 forms on rows of D = 128 PER floats (PER <= 4: the f32 sublayers'
+// 512): a warp takes a row, each lane PER float4 chunks (element j 128 +
+// 4 lane + u), so the row's sums are warp shuffles with no block barrier,
+// and eight warps of a block walk its rows in turn.  The block-per-row
+// kernels above spend most of their time in four barriers a row (the f32 LN
+// backward at 110,592 x 512 ran at ~22% of its bytes' bound); these read
+// and write 16 bytes a lane.  Same arithmetic as ln_kernel / ln_bwd_kernel;
+// the backward's column sums go per warp over its rows, then over the warps
+// in order, into the block's partial row.
+constexpr int ROW_WARPS = LN_THREADS / 32;
+
+template <int PER>
+__device__ __forceinline__ void load_row(const float* p, int lane, float (&v)[4 * PER]) {
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const float4 f = *reinterpret_cast<const float4*>(p + j * 128 + 4 * lane);
+    v[4 * j] = f.x; v[4 * j + 1] = f.y; v[4 * j + 2] = f.z; v[4 * j + 3] = f.w;
+  }
+}
+template <int PER>
+__device__ __forceinline__ void store_row(float* p, int lane, const float (&v)[4 * PER]) {
+#pragma unroll
+  for (int j = 0; j < PER; ++j)
+    *reinterpret_cast<float4*>(p + j * 128 + 4 * lane) =
+        make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+}
+
+// mean and rstd of a row held as v, over D elements (two passes, as ln_kernel)
+template <int PER>
+__device__ __forceinline__ void row_stats(const float (&v)[4 * PER], int D, float eps,
+                                          float& mean, float& rstd) {
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4 * PER; ++i) s += v[i];
+  mean = warp_sum(s) / D;
+  float q = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4 * PER; ++i) {
+    const float c = v[i] - mean;
+    q += c * c;
+  }
+  rstd = rsqrtf(warp_sum(q) / D + eps);
+}
+
+// ct_layernorm_split_f32 on such rows: the normalised row as TF32 hi and lo
+template <int PER>
+__global__ void __launch_bounds__(LN_THREADS)
+ln_split_rows_kernel(const float* __restrict__ x, int rows, int D,
+                     const float* __restrict__ scale, const float* __restrict__ bias, float eps,
+                     float* __restrict__ hi, float* __restrict__ lo) {
+  const int lane = threadIdx.x & 31;
+  const size_t row = (size_t)blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  if (row >= (size_t)rows) return;
+  float v[4 * PER];
+  load_row<PER>(x + row * D, lane, v);
+  float mean, rstd;
+  row_stats<PER>(v, D, eps, mean, rstd);
+  float h[4 * PER], l[4 * PER];
+#pragma unroll
+  for (int i = 0; i < 4 * PER; ++i) {
+    const int e = (i >> 2) * 128 + 4 * lane + (i & 3);
+    float y = (v[i] - mean) * rstd;
+    if (scale) y *= scale[e];
+    if (bias) y += bias[e];
+    uint32_t uh, ul;
+    split(y, uh, ul);
+    h[i] = __uint_as_float(uh);
+    l[i] = __uint_as_float(ul);
+  }
+  store_row<PER>(hi + row * D, lane, h);
+  store_row<PER>(lo + row * D, lane, l);
+}
+
+// out[e] = the sum over the block's warps, in order, of each warp's v at
+// column e (every thread of the block calls it)
+template <int PER>
+__device__ __forceinline__ void block_col_sums(const float (&v)[4 * PER],
+                                               float (*red)[4 * PER * 32], float* out, int D) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 4 * PER; ++i) red[warp][(i >> 2) * 128 + 4 * lane + (i & 3)] = v[i];
+  __syncthreads();
+  for (int e = threadIdx.x; e < D; e += LN_THREADS) {
+    float t = 0.0f;
+#pragma unroll
+    for (int w = 0; w < ROW_WARPS; ++w) t += red[w][e];
+    out[e] = t;
+  }
+  __syncthreads();
+}
+
+// ct_layernorm_bwd_f32 on such rows (ln_bwd_kernel's arithmetic)
+template <int PER>
+__global__ void __launch_bounds__(LN_THREADS)
+ln_bwd_rows_kernel(const float* __restrict__ x, int rows, int D, const float* __restrict__ scale,
+                   const float* __restrict__ dxn, const float* __restrict__ add,
+                   const float* __restrict__ add2, float eps, float* __restrict__ dx,
+                   float* __restrict__ part_ds, float* __restrict__ part_db,
+                   float* __restrict__ part_dxs, int rows_per_block) {
+  __shared__ float red[ROW_WARPS][4 * PER * 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float sc[4 * PER], ds[4 * PER], db[4 * PER], dxs[4 * PER];
+#pragma unroll
+  for (int i = 0; i < 4 * PER; ++i) {
+    sc[i] = scale ? scale[(i >> 2) * 128 + 4 * lane + (i & 3)] : 1.0f;
+    ds[i] = db[i] = dxs[i] = 0.0f;
+  }
+  const int r0 = blockIdx.x * rows_per_block, r1 = min(rows, r0 + rows_per_block);
+  for (int row = r0 + warp; row < r1; row += ROW_WARPS) {
+    const size_t base = (size_t)row * D;
+    float xv[4 * PER], g[4 * PER];
+    load_row<PER>(x + base, lane, xv);
+    load_row<PER>(dxn + base, lane, g);
+    float mean, rstd;
+    row_stats<PER>(xv, D, eps, mean, rstd);
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4 * PER; ++i) {
+      xv[i] = (xv[i] - mean) * rstd;  // xhat
+      const float dh = g[i] * sc[i];
+      s1 += dh;
+      s2 += dh * xv[i];
+      ds[i] += g[i] * xv[i];
+      db[i] += g[i];
+    }
+    const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D;
+    float a[4 * PER], b[4 * PER];
+    if (add) load_row<PER>(add + base, lane, a);
+    if (add2) load_row<PER>(add2 + base, lane, b);
+#pragma unroll
+    for (int i = 0; i < 4 * PER; ++i) {
+      float v = rstd * (g[i] * sc[i] - m1 - xv[i] * m2);
+      if (add) v += a[i];
+      if (add2) v += b[i];
+      dxs[i] += v;
+      g[i] = v;
+    }
+    if (dx) store_row<PER>(dx + base, lane, g);
+  }
+  // the block's column sums: each warp's, then over the warps in order
+  if (part_ds) block_col_sums<PER>(ds, red, part_ds + (size_t)blockIdx.x * D, D);
+  if (part_db) block_col_sums<PER>(db, red, part_db + (size_t)blockIdx.x * D, D);
+  if (part_dxs) block_col_sums<PER>(dxs, red, part_dxs + (size_t)blockIdx.x * D, D);
+}
+
+// the warp-a-row forms take f32 rows of D = 128 PER, PER <= 4, on 16-byte
+// boundaries; 0 when they do not
+int row_per(int D, const void* const* ptrs, int n) {
+  if (D % 128 || D > 512) return 0;
+  for (int i = 0; i < n; ++i)
+    if (ptrs[i] && (reinterpret_cast<uintptr_t>(ptrs[i]) & 15)) return 0;
+  return D / 128;
+}
+
 template <typename T>
 int launch_ln_bwd(bool gather, const void* x, int rows, int D, const void* scale,
                   const void* dxn, const void* add, const void* add2, float eps, void* dx,
@@ -295,10 +454,27 @@ CT_EXPORT int ct_layernorm_bwd(const void* x, int rows, int D, const void* scale
 }
 
 // The f32 form of ct_layernorm_bwd: x, add2 and dx f32 (dx unrounded).
+// Rows of D = 128, 256, 384 or 512 take the warp-a-row form
+// (ln_bwd_rows_kernel), other widths ln_bwd_kernel<float>.
 CT_EXPORT int ct_layernorm_bwd_f32(const void* x, int rows, int D, const void* scale,
                                    const void* dxn, const void* add, const void* add2,
                                    float eps, void* dx, void* part_ds, void* part_db,
                                    void* part_dxs, int rows_per_block, void* stream) {
+  const void* ptrs[] = {x, dxn, add, add2, dx};
+  const int per = row_per(D, ptrs, 5);
+  if (per && rows_per_block >= 1) {
+    const unsigned blocks = (rows + rows_per_block - 1) / rows_per_block;
+    auto kernel = per == 1 ? ln_bwd_rows_kernel<1>
+                : per == 2 ? ln_bwd_rows_kernel<2>
+                : per == 3 ? ln_bwd_rows_kernel<3> : ln_bwd_rows_kernel<4>;
+    kernel<<<blocks, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), rows, D, static_cast<const float*>(scale),
+        static_cast<const float*>(dxn), static_cast<const float*>(add),
+        static_cast<const float*>(add2), eps, static_cast<float*>(dx),
+        static_cast<float*>(part_ds), static_cast<float*>(part_db),
+        static_cast<float*>(part_dxs), rows_per_block);
+    return (int)cudaGetLastError();
+  }
   const PatchGeom g = {0, 0, 0, 0, 0, 0, 0, 0};
   return launch_ln_bwd<float>(false, x, rows, D, scale, dxn, add, add2, eps, dx, part_ds,
                               part_db, part_dxs, rows_per_block, g, stream);
@@ -341,10 +517,24 @@ CT_EXPORT int ct_layernorm(const void* x, int rows, int D, const void* scale, co
 
 // The f32 form split for 3xTF32 (tc32.cuh): x f32 -> the normalised rows'
 // TF32 hi plane `hi` and lo plane `lo`, (rows, D) f32 each.
+// Rows of D = 128, 256, 384 or 512 take the warp-a-row form
+// (ln_split_rows_kernel), other widths ln_kernel's LN_SPLIT form.
 CT_EXPORT int ct_layernorm_split_f32(const void* x, int rows, int D, const void* scale,
                                      const void* bias, float eps, void* hi, void* lo,
                                      void* stream) {
   if (D > LN_THREADS * LN_PER) return (int)cudaErrorInvalidValue;
+  const void* ptrs[] = {x, hi, lo};
+  const int per = row_per(D, ptrs, 3);
+  if (per) {
+    const unsigned blocks = (rows + ROW_WARPS - 1) / ROW_WARPS;
+    auto kernel = per == 1 ? ln_split_rows_kernel<1>
+                : per == 2 ? ln_split_rows_kernel<2>
+                : per == 3 ? ln_split_rows_kernel<3> : ln_split_rows_kernel<4>;
+    kernel<<<blocks, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), rows, D, static_cast<const float*>(scale),
+        static_cast<const float*>(bias), eps, static_cast<float*>(hi), static_cast<float*>(lo));
+    return (int)cudaGetLastError();
+  }
   const PatchGeom g = {0, 0, 0, 0, 0, 0, 0, 0};
   ln_kernel<float, false, LN_SPLIT><<<rows, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), D, static_cast<const float*>(scale),

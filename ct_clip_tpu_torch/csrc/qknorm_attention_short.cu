@@ -453,3 +453,404 @@ CT_EXPORT int ct_qk_attention_short_f32(const void* q, const void* kv, void* mer
   return launch_short<float>(q, kv, merged, merged_lo, st, inner, sequences, heads, n, d,
                              q_scale, k_scale, stream);
 }
+
+// ============================================================ the backward
+// The f32 core of the sublayer's backward on the same short sequences
+// (kernels.qk_bwd_route: f32, head dim 32, 16 <= n < 32, no bias, both
+// layouts).  Replaces, there, the core of ct_clip_tpu/ops/pallas/
+// small_attention.py::_pallas_small_qknorm_bwd (K10, :437, pallas_call :483,
+// body _bwd_kernel :249; grid form via _bwd_grid :633, sequence-major via
+// _bwd :532), which runs f32 at "highest"; qknorm_attention_bwd.cu's
+// qk_attention_bwd_f32_kernel ran it before (it keeps every other f32 shape
+// off the tensor cores).  From the projections q, kv = [k | v] and dO, the
+// gradient of the merged heads (the dmerged product), per (sequence, head):
+// qn = l2norm(q) qs (qs including the logit scale), kn = l2norm(k) ks, S = qn
+// kn^T, P = softmax(S), merged = P v, dP = dO v^T, D = rowsum(P dP) (=
+// rowsum(dO o merged)), dS = P (dP - D), dV = P^T dO, dqn = dS kn, dkn = dS^T
+// qn, then through the l2norms (dq = rq (dqhat - qhat (qhat . dqhat)), dqhat
+// = dqn qs), and the partial sums of dq_scale (sum dqn qhat) and dk_scale.
+// Nothing is rounded: true f32 on the CUDA cores (FFMA), as the forward's
+// f32 core.
+//
+// What it writes is what the 3xTF32 products after it read (ffn_tc32.cu):
+// dq and dkv as TF32 hi and lo planes laid out as q and kv (the NN products
+// dxn = dq wq, dx_kv = dkv wkv), and merged, dq and dkv as transposed planes
+// (heads x 32 or 2 heads x 32, ldt), the sequence's tokens in columns s n ..
+// s n + n - 1 (the TN products' operands: tc32_split_t writes x, xn and dO
+// in the same column order); per CTA the 32 dims of dq_scale's and
+// dk_scale's sums over its tokens and heads, which the caller adds in two
+// levels.
+//
+// What bounds it on the H100: bytes.  At the contrastive step's (8, 24, 576)
+// grid (4,608 t-columns, 8 heads) it reads 0.45 GB of q, kv and dO and writes
+// 1.6 GB of planes (0.61 ms at 3.35 TB/s); its n x n x 32 products are 8.2
+// GFLOP (0.12 ms on the f32 CUDA cores).
+//
+// Design: one CTA of four warps per (sequence, group of four heads), so that
+// three CTAs fit an SM at n 24 and one CTA's copies run under another's
+// arithmetic; a warp a (sequence, head).  The group's columns of the
+// sequence's q, k, v and dO rows are staged whole by 16-byte cp.async (rows
+// padded by 16 bytes).  A row pass (a lane a query) writes S, then P, and dP,
+// then dS, into the warp's own n x n scratch (row stride n | 1, odd, so that
+// a row's and a column's 32 lanes both hit 32 banks), and takes merged and
+// dqn = ks o sum_j (dS_ij rk_j) k_j; a column pass (a lane a key) reads P and
+// dS down the columns for dv and dkn: nothing recomputed, and no 32-wide
+// array indexed by token in registers.  Each dot product over the 32 dims
+// runs four keys at a time, four independent FMA chains.  Every output goes
+// to device memory from the lane that holds it: a planes' row is 128
+// contiguous bytes, a transposed plane's 32 stores a column run of the
+// sequence's n tokens.  The scale sums over a warp's lanes go by a fixed
+// butterfly (`lane_sums`), then over the warps in order: no atomics.
+
+// 1 in a one-change copy for the card checks (kernels.copy_library): P
+// rounded to bf16 before the merged heads' product, which the f32
+// comparisons must catch
+#ifndef CT_QK_SHORT_BWD_ROUND_P
+#define CT_QK_SHORT_BWD_ROUND_P 0
+#endif
+
+namespace {
+
+constexpr int HG = 4;  // heads of a CTA: one a warp
+
+struct ShortBwdArgs {
+  const float* q;
+  const float* kv;
+  const float* dout;                   // laid out as q
+  float *dqh, *dql, *dkvh, *dkvl;      // laid out as q and kv
+  float *mth, *mtl, *dqth, *dqtl;      // (H 32, ldt)
+  float *dkvth, *dkvtl;                // (2 H 32, ldt)
+  float *dqs, *dks;                    // (sequences G, 32), G = ceil(H / HG)
+  long long q_outer, q_inner, q_tok, kv_outer, kv_inner, kv_tok;
+  int inner, H, n, ldt;
+  const float* qs;  // (32,) q scale incl. the logit scale
+  const float* ks;  // (32,) k scale
+};
+
+// floats of a staged row of one tensor (a group's heads x 32, plus 16 bytes),
+// of a scratch row (odd), and the CTA's dynamic shared memory in bytes: q, k,
+// v and dO rows, then each warp's P and dS
+__host__ __device__ inline int bwd_ld(int H) { return (H < HG ? H : HG) * HD + 4; }
+__host__ __device__ inline int bwd_lds(int n) { return n | 1; }
+size_t bwd_smem_bytes(int H, int n) {
+  return ((size_t)4 * n * bwd_ld(H) + (size_t)WARPS * 2 * n * bwd_lds(n)) * sizeof(float);
+}
+// the kernel's static shared memory, at most
+constexpr size_t BWD_STATIC_SMEM = 4096;
+
+// one step of `lane_sums`: v[0, OFF) keeps the half of v[0, 2 OFF) this
+// lane's bit OFF picks, plus the partner lane's same half
+template <int OFF>
+__device__ __forceinline__ void halve(float (&v)[HD], int lane) {
+  const bool upper = lane & OFF;
+#pragma unroll
+  for (int k = 0; k < OFF; ++k) {
+    const float send = upper ? v[k] : v[k + OFF];
+    const float keep = upper ? v[k + OFF] : v[k];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+  }
+}
+
+// lane L returns sum over the warp's lanes of v[L], in a fixed order (a
+// butterfly that halves the vector each step, every index static so v
+// stays in registers); v is consumed
+__device__ __forceinline__ float lane_sums(float (&v)[HD], int lane) {
+  halve<16>(v, lane);
+  halve<8>(v, lane);
+  halve<4>(v, lane);
+  halve<2>(v, lane);
+  halve<1>(v, lane);
+  return v[0];
+}
+
+// 32 f32 values -> their hi and lo planes' rows at hi, lo (16-byte stores)
+__device__ __forceinline__ void store_split_row(float* hi, float* lo, const float (&x)[HD]) {
+#pragma unroll
+  for (int c = 0; c < HD; c += 4) {
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) split(x[c + u], h[u], l[u]);
+    *reinterpret_cast<uint4*>(hi + c) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + c) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// ... and into a transposed pair of planes: element c at hi + c ldt
+__device__ __forceinline__ void store_split_col(float* hi, float* lo, int ldt,
+                                                const float (&x)[HD]) {
+#pragma unroll
+  for (int c = 0; c < HD; ++c) {
+    uint32_t h, l;
+    split(x[c], h, l);
+    hi[(size_t)c * ldt] = __uint_as_float(h);
+    lo[(size_t)c * ldt] = __uint_as_float(l);
+  }
+}
+
+// dx of a row's l2norm times scale: x's 32 raw elements, r its inverse norm,
+// dn the gradient of the normalised, scaled row; c_out = dn o xhat (the
+// scale's gradient), dn becomes dx
+__device__ __forceinline__ void l2norm_bwd(const float* row, float r, const float* sc,
+                                           float (&dn)[HD], float (&c_out)[HD]) {
+  float xh[HD], dot = 0.0f;
+#pragma unroll
+  for (int c = 0; c < HD; c += 8) load8(row + c, xh + c);
+#pragma unroll
+  for (int c = 0; c < HD; ++c) {
+    xh[c] *= r;
+    c_out[c] = dn[c] * xh[c];
+    dn[c] *= sc[c];
+    dot = fmaf(xh[c], dn[c], dot);
+  }
+#pragma unroll
+  for (int c = 0; c < HD; ++c) dn[c] = r * (dn[c] - xh[c] * dot);
+}
+
+// out[j * ld] = x . rows[j * rld] (32 dims, x in registers) for j < n, four
+// rows at a time, each an FMA chain over the dims in order
+__device__ __forceinline__ void row_dots(const float (&x)[HD], const float* rows, int rld, int n,
+                                         float* out, int ld) {
+  for (int j0 = 0; j0 < n; j0 += 4) {
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < HD; c += 8) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (j0 + u < n) {
+          float r8[8];
+          load8(rows + (j0 + u) * rld + c, r8);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[u] = fmaf(x[c + e], r8[e], acc[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (j0 + u < n) out[(j0 + u) * ld] = acc[u];
+  }
+}
+
+// a += w_j rows_j and b += z_j rows2_j over j < n, the weights read from the
+// scratch at stride wst (P and dS down a row or a column), 32 dims each
+__device__ __forceinline__ void weighted_rows(float (&a)[HD], float (&b)[HD], const float* w,
+                                              const float* z, int wst, const float* za,
+                                              const float* rows_a, const float* rows_b, int rld,
+                                              int n) {
+  for (int j = 0; j < n; ++j) {
+    const float p = CT_QK_SHORT_BWD_ROUND_P ? round_bf16(w[j * wst]) : w[j * wst];
+    const float y = z[j * wst] * za[j];
+#pragma unroll
+    for (int c = 0; c < HD; c += 8) {
+      float ra[8], rb[8];
+      load8(rows_a + j * rld + c, ra);
+      load8(rows_b + j * rld + c, rb);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        a[c + e] = fmaf(p, ra[e], a[c + e]);
+        b[c + e] = fmaf(y, rb[e], b[c + e]);
+      }
+    }
+  }
+}
+
+// One CTA per (sequence, group of HG heads), a warp a (sequence, head).
+// CTAs an SM: three at n 24 (70 KB of shared memory, at most 170 registers)
+__global__ void __launch_bounds__(NT, 3) qk_short_bwd_f32(ShortBwdArgs a) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ float sc[2][HD];             // qs, ks
+  __shared__ float rowv[WARPS][2][MAX_N];  // a warp's rq, rk
+  __shared__ float part[2][WARPS][HD];     // the warps' scale sums
+  const int H = a.H, n = a.n, hd = H * HD, ld = bwd_ld(H), lds = bwd_lds(n);
+  const int groups = (H + HG - 1) / HG, s = blockIdx.x / groups, grp = blockIdx.x % groups;
+  const int h0 = grp * HG, gh = H - h0 < HG ? H - h0 : HG, width = gh * HD;
+  float* sq = reinterpret_cast<float*>(smem_raw);
+  float* sk = sq + (size_t)n * ld;
+  float* sv = sk + (size_t)n * ld;
+  float* sg = sv + (size_t)n * ld;
+  const long long qo = (long long)(s / a.inner) * a.q_outer + (long long)(s % a.inner) * a.q_inner;
+  const long long ko =
+      (long long)(s / a.inner) * a.kv_outer + (long long)(s % a.inner) * a.kv_inner;
+  stage(sq, a.q + qo + h0 * HD, a.q_tok, n, width, ld);
+  stage(sk, a.kv + ko + h0 * HD, a.kv_tok, n, width, ld);
+  stage(sv, a.kv + ko + hd + h0 * HD, a.kv_tok, n, width, ld);
+  stage(sg, a.dout + qo + h0 * HD, a.q_tok, n, width, ld);
+  if (threadIdx.x < 2 * HD)
+    sc[threadIdx.x / HD][threadIdx.x % HD] = (threadIdx.x < HD ? a.qs : a.ks)[threadIdx.x % HD];
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, h = h0 + warp;
+  const bool live = lane < n;
+  const float *qs = sc[0], *ks = sc[1];
+  float* rq = rowv[warp][0];
+  float* rk = rowv[warp][1];
+  float* sP = sg + (size_t)n * ld + (size_t)warp * 2 * n * lds;  // P, then dS, n x lds each
+  float* sD = sP + (size_t)n * lds;
+  float accq = 0.0f, acck = 0.0f;  // dim `lane` of the warp's scale sums
+  if (warp < gh) {
+    const float* Q = sq + warp * HD;
+    const float* Kr = sk + warp * HD;
+    const float* V = sv + warp * HD;
+    const float* G = sg + warp * HD;
+    const size_t col = (size_t)s * n + lane;  // this lane's token in the transposed planes
+    // the rows' inverse norms: a lane a query and a key
+    {
+      float ssq = 0.0f, ssk = 0.0f;
+      if (live) {
+#pragma unroll
+        for (int c = 0; c < HD; c += 8) {
+          float x[8], y[8];
+          load8(Q + lane * ld + c, x);
+          load8(Kr + lane * ld + c, y);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            ssq = fmaf(x[i], x[i], ssq);
+            ssk = fmaf(y[i], y[i], ssk);
+          }
+        }
+      }
+      rq[lane] = rsqrtf(fmaxf(ssq, 1e-24f));
+      rk[lane] = rsqrtf(fmaxf(ssk, 1e-24f));
+    }
+    __syncwarp();
+    // ---- the row pass: lane i a query
+    if (live) {
+      float* Pi = sP + lane * lds;
+      float* Di = sD + lane * lds;
+      {
+        float u[HD];  // qn o ks of the row
+        const float r = rq[lane];
+#pragma unroll
+        for (int c = 0; c < HD; c += 8) load8(Q + lane * ld + c, u + c);
+#pragma unroll
+        for (int c = 0; c < HD; ++c) u[c] = u[c] * r * qs[c] * ks[c];
+        row_dots(u, Kr, ld, n, Pi, 1);  // S_ij = rk_j (u . k_j) once scaled below
+      }
+      float mx = -INFINITY;
+      for (int j = 0; j < n; ++j) {
+        Pi[j] *= rk[j];
+        mx = fmaxf(mx, Pi[j]);
+      }
+      float l = 0.0f;
+      for (int j = 0; j < n; ++j) {
+        const float e = fexp2((Pi[j] - mx) * LOG2E);
+        Pi[j] = e;
+        l += e;
+      }
+      const float inv = 1.0f / l;
+      for (int j = 0; j < n; ++j) Pi[j] *= inv;  // P
+      {
+        float g[HD];  // dO of the row
+#pragma unroll
+        for (int c = 0; c < HD; c += 8) load8(G + lane * ld + c, g + c);
+        row_dots(g, V, ld, n, Di, 1);  // dP
+      }
+      float d = 0.0f;
+      for (int j = 0; j < n; ++j) d = fmaf(Pi[j], Di[j], d);
+      for (int j = 0; j < n; ++j) Di[j] = Pi[j] * (Di[j] - d);  // dS
+    }
+    {
+      float m[HD], dq[HD], cq[HD];
+#pragma unroll
+      for (int c = 0; c < HD; ++c) m[c] = dq[c] = cq[c] = 0.0f;
+      if (live) {
+        weighted_rows(m, dq, sP + lane * lds, sD + lane * lds, 1, rk, V, Kr, ld, n);
+        store_split_col(a.mth + (size_t)h * HD * a.ldt + col, a.mtl + (size_t)h * HD * a.ldt + col,
+                        a.ldt, m);
+#pragma unroll
+        for (int c = 0; c < HD; ++c) dq[c] *= ks[c];  // dqn
+        l2norm_bwd(Q + lane * ld, rq[lane], qs, dq, cq);
+        const long long o = qo + lane * a.q_tok + h * HD;
+        store_split_row(a.dqh + o, a.dql + o, dq);
+        store_split_col(a.dqth + (size_t)h * HD * a.ldt + col,
+                        a.dqtl + (size_t)h * HD * a.ldt + col, a.ldt, dq);
+      }
+      accq = lane_sums(cq, lane);
+    }
+    __syncwarp();  // every row of P and dS is in place
+    // ---- the column pass: lane j a key
+    {
+      float dv[HD], dk[HD], ck[HD];
+#pragma unroll
+      for (int c = 0; c < HD; ++c) dv[c] = dk[c] = ck[c] = 0.0f;
+      if (live) {
+        weighted_rows(dv, dk, sP + lane, sD + lane, lds, rq, G, Q, ld, n);
+#pragma unroll
+        for (int c = 0; c < HD; ++c) dk[c] *= qs[c];  // dkn
+        l2norm_bwd(Kr + lane * ld, rk[lane], ks, dk, ck);
+        const long long o = ko + lane * a.kv_tok + h * HD;
+        store_split_row(a.dkvh + o, a.dkvl + o, dk);
+        store_split_row(a.dkvh + o + hd, a.dkvl + o + hd, dv);
+        store_split_col(a.dkvth + (size_t)h * HD * a.ldt + col,
+                        a.dkvtl + (size_t)h * HD * a.ldt + col, a.ldt, dk);
+        store_split_col(a.dkvth + (size_t)(hd + h * HD) * a.ldt + col,
+                        a.dkvtl + (size_t)(hd + h * HD) * a.ldt + col, a.ldt, dv);
+      }
+      acck = lane_sums(ck, lane);
+    }
+  }
+  part[0][warp][lane] = accq;
+  part[1][warp][lane] = acck;
+  __syncthreads();
+  if (threadIdx.x < 2 * HD) {
+    const int which = threadIdx.x / HD, c = threadIdx.x % HD;
+    float v = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) v += part[which][w][c];
+    (which ? a.dks : a.dqs)[(size_t)blockIdx.x * HD + c] = v;
+  }
+}
+
+}  // namespace
+
+// K10 f32's core (kernels.qk_attention_short_bwd): from q (rows, heads 32),
+// kv (rows, 2 heads 32) [k | v] and dout (laid out as q), addressed through
+// (outer, inner, head, token) element strides as ct_qk_attention_short_f32
+// addresses them, the head strides 32, the other strides multiples of 4
+// elements -> dq hi, lo (laid out as q), dkv hi, lo (laid out as kv), and the
+// transposed planes of merged, dq (heads 32, ldt) and dkv (2 heads 32, ldt),
+// sequence s's token t in column s n + t; dq_scale (before the logit scale)
+// and dk_scale partials (sequences x ceil(heads / 4), 32), row s G + g the
+// sums over head group g of sequence s.  16-byte aligned bases, 1 <= n <=
+// 32, head dim 32, ldt >= sequences n; q_scale (incl. the logit scale) and
+// k_scale (32,) f32.
+CT_EXPORT int ct_qk_attention_short_bwd_f32(
+    const void* q, const void* kv, const void* dout, void* dqh, void* dql, void* dkvh, void* dkvl,
+    void* mth, void* mtl, void* dqth, void* dqtl, void* dkvth, void* dkvtl, int ldt,
+    long long q_outer, long long q_inner, long long q_head, long long q_tok, long long kv_outer,
+    long long kv_inner, long long kv_head, long long kv_tok, int inner, int sequences, int heads,
+    int n, int d, const void* q_scale, const void* k_scale, void* dq_scale_part,
+    void* dk_scale_part, void* stream) {
+  const long long st[8] = {q_outer, q_inner, q_head, q_tok, kv_outer, kv_inner, kv_head, kv_tok};
+  const long long ctas = (long long)sequences * ((heads + HG - 1) / HG);
+  bool ok = d == HD && n >= 1 && n <= MAX_N && heads >= 1 && sequences >= 1 && inner >= 1
+            && st[2] == HD && st[6] == HD && q_scale && k_scale && dq_scale_part
+            && dk_scale_part && (long long)ldt >= (long long)sequences * n && ctas < (1ll << 31);
+  const int idx[] = {0, 1, 3, 4, 5, 7};
+  for (int i : idx) ok = ok && st[i] % 4 == 0;
+  const void* ptrs[] = {q, kv, dout, dqh, dql, dkvh, dkvl, mth, mtl, dqth, dqtl, dkvth, dkvtl};
+  for (const void* p : ptrs) ok = ok && aligned16(p);
+  const size_t smem = bwd_smem_bytes(heads, n);
+  if (!ok || smem + BWD_STATIC_SMEM > 227 * 1024) return (int)cudaErrorInvalidValue;
+  ShortBwdArgs a = {};
+  a.q = static_cast<const float*>(q);
+  a.kv = static_cast<const float*>(kv);
+  a.dout = static_cast<const float*>(dout);
+  a.dqh = static_cast<float*>(dqh); a.dql = static_cast<float*>(dql);
+  a.dkvh = static_cast<float*>(dkvh); a.dkvl = static_cast<float*>(dkvl);
+  a.mth = static_cast<float*>(mth); a.mtl = static_cast<float*>(mtl);
+  a.dqth = static_cast<float*>(dqth); a.dqtl = static_cast<float*>(dqtl);
+  a.dkvth = static_cast<float*>(dkvth); a.dkvtl = static_cast<float*>(dkvtl);
+  a.dqs = static_cast<float*>(dq_scale_part);
+  a.dks = static_cast<float*>(dk_scale_part);
+  a.q_outer = st[0]; a.q_inner = st[1]; a.q_tok = st[3];
+  a.kv_outer = st[4]; a.kv_inner = st[5]; a.kv_tok = st[7];
+  a.inner = inner; a.H = heads; a.n = n; a.ldt = ldt;
+  a.qs = static_cast<const float*>(q_scale);
+  a.ks = static_cast<const float*>(k_scale);
+  cudaError_t err = cudaFuncSetAttribute(qk_short_bwd_f32,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  qk_short_bwd_f32<<<(unsigned)ctas, NT, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}

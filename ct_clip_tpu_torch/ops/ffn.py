@@ -30,9 +30,12 @@ wg] (NN product), the LN backward with the identity term
 (csrc/layernorm.cu), and the weight gradients [dwa; dwg] = [da | dg]^T
 LN(x) and dwo = do^T act over all rows in f32 (TN products): in bf16 the
 tile and the three products on the tensor cores with `wgmma`
-(csrc/ffn_tc.cu), in f32 csrc/gemm.cu's f32 forms (`bwd_kernels`).  The
-padding's gradient rows are dropped.  Its plain version is autograd of the plain
-forward (`geglu_ff_bwd_plain`), the XLA twin's VJP in the JAX package.
+(csrc/ffn_tc.cu), in f32 the same in 3xTF32 on `wgmma` (csrc/ffn_tc32.cu,
+`_geglu_ff_bwd_tc32`: the tile writes dcat and act as TF32 planes, the TN
+products read transposed planes, as TF32 `wgmma` reads K-major operands
+only).  The padding's gradient rows are dropped.  Its plain version is
+autograd of the plain forward (`geglu_ff_bwd_plain`), the XLA twin's VJP in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -163,14 +166,19 @@ def _geglu_ff_cuda(x, scale, bias, wi, wo, eps):
 
 def bwd_kernels(dtype: torch.dtype):
     """K11's tile, NN product and TN product for the compute dtype: bf16 on
-    csrc/ffn_tc.cu (`wgmma`: ff_tc_tile, gemm_nn_tc, gemm_tn_tc), f32 on
-    csrc/gemm.cu's f32 forms (ff_bwd_core, gemm_nn, gemm_tn)."""
+    csrc/ffn_tc.cu (`wgmma`: ff_tc_tile, gemm_nn_tc, gemm_tn_tc), f32 in
+    3xTF32 on csrc/ffn_tc32.cu (`wgmma`: ff_tc32_tile, tc32_gemm, whose
+    operands are TF32 planes, tc32_gemm_tn, on transposed planes)."""
     if dtype == torch.bfloat16:
         return K.ff_tc_tile, K.gemm_nn_tc, K.gemm_tn_tc
-    return K.ff_bwd_core, K.gemm_nn, K.gemm_tn
+    return K.ff_tc32_tile, K.tc32_gemm, K.tc32_gemm_tn
 
 
-def _geglu_ff_bwd_cuda(x, scale, bias, wi, wo, dout, eps):
+def _geglu_ff_bwd_products(x, scale, bias, wi, wo, dout, eps, tile, gemm_nn, gemm_tn):
+    """K11 on one dtype's tile, NN and TN products over unsplit operands:
+    bf16 `bwd_kernels`; in f32 csrc/gemm.cu's FFMA forms (K.ff_bwd_core,
+    K.gemm_nn, K.gemm_tn), the path `_geglu_ff_bwd_tc32` replaced, which the
+    card checks time beside it."""
     rows, dim = x.shape
     inner = wo.shape[1]
     padded = -(-inner // 8) * 8
@@ -180,7 +188,6 @@ def _geglu_ff_bwd_cuda(x, scale, bias, wi, wo, dout, eps):
     dout = dout.to(cdt).contiguous()
     xn = torch.empty_like(x)
     K.layernorm(x, scale, bias, eps, xn)
-    tile, gemm_nn, gemm_tn = bwd_kernels(cdt)
     act, dcat = tile(xn, dout, wcat[:padded], wcat[padded:], woT)
     dxn = torch.empty((rows, dim), dtype=torch.float32, device=x.device)
     gemm_nn(dcat, wcat, dxn)
@@ -188,8 +195,45 @@ def _geglu_ff_bwd_cuda(x, scale, bias, wi, wo, dout, eps):
     dwcat = gemm_tn(dcat, xn)
     dwi = torch.cat([dwcat[:inner], dwcat[padded:padded + inner]])
     dwo = gemm_tn(dout, act)[:, :inner]
-    K.count_launch("geglu_ff_bwd", cdt)
     return dx, dscale, dbias, dwi, dwo
+
+
+def _geglu_ff_bwd_tc32(x, scale, bias, wi, wo, dout, eps, lib=None):
+    """The f32 K11 in 3xTF32 on csrc/ffn_tc32.cu: the weights split once, [wa;
+    wg] also transposed (the NN product's B) and wo as wo^T; LN(x) written
+    split, xn^T and dout^T as transposed planes (`kernels.tc32_split_t`);
+    the tile (dcat and its transpose, act^T); dxn = dcat [wa; wg]; the LN
+    backward with the identity term; [dwa; dwg] = dcat^T xn and dwo = dout^T
+    act on the TN form.  `lib`: a one-change copy of ffn_tc32.cu for the
+    card checks."""
+    inner, padded = _inner(x, wi, wo)
+    tile, gemm_nn, gemm_tn = bwd_kernels(torch.float32)
+    dout = dout.float().contiguous()
+    wcat = _value_gate(wi, inner, padded, torch.float32)
+    wo_p = torch.zeros((x.shape[1], padded), dtype=torch.float32, device=x.device)
+    wo_p[:, :inner] = wo
+    wc_hi, wc_lo, wc_t_hi, wc_t_lo = K.tc32_split_t(wcat, rows=True, lib=lib)
+    wo_t = K.tc32_split_t(wo_p, lib=lib)
+    xn_hi, xn_lo = K.layernorm_split(x, scale, bias, eps)
+    xn_t = K.tc32_split_t(xn_hi, xn_lo, lib=lib)
+    do_hi, do_lo, *do_t = K.tc32_split_t(dout, rows=True, lib=lib)
+    dcat_hi, dcat_lo, *planes = tile(xn_hi, xn_lo, do_hi, do_lo, (wc_hi[:padded], wc_lo[:padded]),
+                                     (wc_hi[padded:], wc_lo[padded:]), wo_t, lib=lib)
+    dxn = gemm_nn(dcat_hi, dcat_lo, wc_t_hi, wc_t_lo, lib=lib)
+    dx, dscale, dbias = K.layernorm_bwd(x, scale, dxn, eps, add2=dout, want_dbias=True)
+    dwcat = gemm_tn(*planes[:2], *xn_t, lib=lib)
+    dwi = torch.cat([dwcat[:inner], dwcat[padded:padded + inner]])
+    dwo = gemm_tn(*do_t, *planes[2:], lib=lib)[:, :inner]
+    return dx, dscale, dbias, dwi, dwo
+
+
+def _geglu_ff_bwd_cuda(x, scale, bias, wi, wo, dout, eps):
+    if x.dtype == torch.float32:
+        grads = _geglu_ff_bwd_tc32(x, scale, bias, wi, wo, dout, eps)
+    else:
+        grads = _geglu_ff_bwd_products(x, scale, bias, wi, wo, dout, eps, *bwd_kernels(x.dtype))
+    K.count_launch("geglu_ff_bwd", x.dtype)
+    return grads
 
 
 class _GegluFF(torch.autograd.Function):

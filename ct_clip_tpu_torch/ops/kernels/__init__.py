@@ -120,7 +120,16 @@ KERNELS = (
     "geglu_ff_tc32",       # the weight split, the GEGLU product and the residual product
     "tc32_gemm",           # one product there (plain store or + x): K1 and K2 f32's q, kv
                            # and output projections, three a call beside qk_attention_tc32
-                           # or qk_attention_short
+                           # or qk_attention_short; K11 f32's dxn (one a call); K9 / K10
+                           # f32's q and kv recompute, dmerged, dxn, dx_kv (five a call)
+    # ffn_tc32.cu's f32 backwards in 3xTF32 on the tensor cores (`wgmma`)
+    "ff_tc32_tile",        # K11 f32's tile: a, g, dact, the GEGLU derivative (one a call,
+                           # beside geglu_ff_bwd)
+    "tc32_gemm_tn",        # a weight gradient over all rows (TN): K11's [dwa; dwg], dwo
+                           # (two a call); K9 / K10's dWq, dWkv, dWout (three)
+    "qk_attention_short_bwd_f32",  # K10 f32's core on 16-31-token sequences
+                                   # (qknorm_attention_short.cu) where `qk_bwd_route`
+                                   # gives QK_SHORT
     # the f32 forms, counted beside the function's own counter
     "geglu_ff_f32",        # K3 f32 (gemm.cu f32 products, layernorm.cu f32 rows)
     "geglu_ff_bwd_f32",    # K11 f32
@@ -328,6 +337,9 @@ def _signatures():
         "ct_ff_tc32_geglu": [p, p, i, p, p, p, p, i, i, i, i, p, p, i, p],
         "ct_ff_tc32_residual": [p, p, i, p, p, i, i, i, i, p, p, i, p],
         "ct_tc32_gemm": [p, p, i, p, p, i, i, i, i, p, i, p],
+        "ct_tc32_split_t": [p, p, i, i, i, i, i, p, p, p, p, i, p],
+        "ct_ff_tc32_tile": [p, p, p, p, i, p, p, p, p, p, p, i, i, i, i, p, p, p, p, p, p, i, p],
+        "ct_tc32_gemm_tn": [p, p, i, p, p, i, i, i, i, i, p, p],
         "ct_layernorm_bwd": [p, i, i, p, p, p, p, f, p, p, p, p, i, p],
         "ct_patch_layernorm_bwd": [p, i, i, i, i, i, i, p, p, f, p, p, p, i, p],
         "ct_qk_attention_bwd": [p, p, p, p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i,
@@ -346,6 +358,8 @@ def _signatures():
                                   p],
         "ct_qk_attention_short_f32": [p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i, i, i,
                                       p, p, p],
+        "ct_qk_attention_short_bwd_f32": [p, p, p, p, p, p, p, p, p, p, p, p, p, i, ll, ll, ll,
+                                          ll, ll, ll, ll, ll, i, i, i, i, i, p, p, p, p, p],
         "ct_peg_dw": [p, p, i, i, i, i, i, i, i, i, p, p],
         "ct_vq_cluster_stats": [p, p, i, i, i, p, p, p, p, p, p, p],
         "ct_vq_cluster_stats_f32": [p, p, i, i, i, p, p, p, p, p, p, p],
@@ -955,11 +969,11 @@ def tc32_gemm(a_hi: torch.Tensor, a_lo: torch.Tensor, w_hi: torch.Tensor, w_lo: 
               residual: Optional[torch.Tensor] = None, lib=None) -> torch.Tensor:
     """out (M, N) = A W^T in 3xTF32 on ffn_tc32.cu (`wgmma`), f32: A (M, K)
     and W (N, K) each as its TF32 hi and lo planes (`tc32_split`,
-    `layernorm_split`, or the core's split output); with `residual` (M, N)
-    f32, contiguous, the residual form adds it to the f32 sum once
-    (ct_ff_tc32_residual), without it the plain-store form (ct_tc32_gemm).
-    Counted `tc32_gemm` at the launch.  `lib`: a one-change copy of
-    ffn_tc32.cu (`copy_library`) to launch instead."""
+    `layernorm_split`, `tc32_split_t`, or a kernel's split output); with
+    `residual` (M, N) f32, contiguous, the residual form adds it to the f32
+    sum once (ct_ff_tc32_residual), without it the plain-store form
+    (ct_tc32_gemm).  Counted `tc32_gemm` at the launch.  `lib`: a one-change
+    copy of ffn_tc32.cu (`copy_library`) to launch instead."""
     ops = dict(a_hi=a_hi, a_lo=a_lo, w_hi=w_hi, w_lo=w_lo)
     if residual is not None:
         ops["residual"] = residual
@@ -984,6 +998,112 @@ def tc32_gemm(a_hi: torch.Tensor, a_lo: torch.Tensor, w_hi: torch.Tensor, w_lo: 
     _check(err, name)
     count_launch("tc32_gemm")
     return out
+
+
+def tc32_split_t(x: torch.Tensor, x2: Optional[torch.Tensor] = None, *, rows: bool = False,
+                 seq=(1, 1), lib=None):
+    """x (R, C) f32 with contiguous rows (+ x2 of its layout: the lo plane of
+    a split x, whose sum with x is exact) -> the TF32 hi and lo planes
+    transposed, (C, R) views of (C, ldt) tensors, ldt = R rounded up to a
+    multiple of 4 (ffn_tc32.cu's tc32_split_t_kernel); with `rows` also the
+    row-major planes (R, C) first: (hi, lo, hi_t, lo_t).  `seq` = (n, S):
+    the transposed planes take the rows of a (b, n, S) token grid in the
+    order of its t-columns, (b S + s) n + t for row (b n + t) S + s (K10
+    grid's order: the TN products' operands must share it); (1, 1) keeps
+    the order."""
+    ops = dict(x=x) if x2 is None else dict(x=x, x2=x2)
+    _tc32_operands("tc32_split_t", **ops)
+    R, C = x.shape
+    n, S = seq
+    if (x2 is not None and (x2.shape != x.shape or x2.stride(0) != x.stride(0))) \
+            or R % (n * S):
+        raise ValueError(f"tc32_split_t: x {tuple(x.shape)}, grid (n, S) {seq}")
+    ldt = -(-R // 4) * 4
+    hi_t, lo_t = (torch.empty((C, ldt), dtype=F32, device=x.device) for _ in range(2))
+    hi = lo = None
+    if rows:
+        hi, lo = (torch.empty((R, C), dtype=F32, device=x.device) for _ in range(2))
+    _check((lib or library()).ct_tc32_split_t(
+        _ptr(x), _ptr(x2), R, C, x.stride(0), n, S, _ptr(hi), _ptr(lo), _ptr(hi_t), _ptr(lo_t),
+        ldt, _stream()), "ct_tc32_split_t")
+    planes = (hi_t[:, :R], lo_t[:, :R])
+    return (hi, lo) + planes if rows else planes
+
+
+def ff_tc32_tile(xn_hi: torch.Tensor, xn_lo: torch.Tensor, do_hi: torch.Tensor,
+                 do_lo: torch.Tensor, wa: tuple, wg: tuple, wo_t: tuple, lib=None):
+    """K11 f32's tile in 3xTF32 on ffn_tc32.cu (`wgmma`): from LN(x) and dout
+    (M, D), each as its TF32 hi and lo planes, and the (hi, lo) planes of
+    wa, wg and wo^T (P, D) (P the inner width padded to a multiple of 4 with
+    zero rows), a = xn wa^T, g = xn wg^T and dact = dout wo, then act =
+    a gelu(g), da = dact gelu(g), dg = dact a (Phi(g) + g phi(g)) in f32 ->
+    (dcat hi, lo) (M, 2P) = [da | dg], (dcat^T hi, lo) (2P, M) and (act^T
+    hi, lo) (P, M): the operands of the NN product dxn = dcat [wa; wg] and
+    of the TN products (`tc32_gemm_tn`).  Counted `ff_tc32_tile`.  `lib`: a
+    one-change copy of ffn_tc32.cu (`copy_library`) to launch instead."""
+    ws = dict(wa_hi=wa[0], wa_lo=wa[1], wg_hi=wg[0], wg_lo=wg[1], wo_hi=wo_t[0], wo_lo=wo_t[1])
+    _tc32_operands("ff_tc32_tile", xn_hi=xn_hi, xn_lo=xn_lo, do_hi=do_hi, do_lo=do_lo, **ws)
+    M, D = xn_hi.shape
+    P = wa[0].shape[0]
+    ldx, ldw = xn_hi.stride(0), wa[0].stride(0)
+    if any(t.shape != (M, D) or t.stride(0) != ldx for t in (xn_lo, do_hi, do_lo)) \
+            or any(t.shape != (P, D) or t.stride(0) != ldw for t in ws.values()) or P % 4:
+        raise ValueError(f"ff_tc32_tile: xn {tuple(xn_hi.shape)}, wa {tuple(wa[0].shape)}: "
+                         "shapes or row strides do not fit")
+    ldt = -(-M // 4) * 4
+    dev = xn_hi.device
+    dcat_hi, dcat_lo = (torch.empty((M, 2 * P), dtype=F32, device=dev) for _ in range(2))
+    dcat_t_hi, dcat_t_lo = (torch.empty((2 * P, ldt), dtype=F32, device=dev) for _ in range(2))
+    act_t_hi, act_t_lo = (torch.empty((P, ldt), dtype=F32, device=dev) for _ in range(2))
+    _check((lib or library()).ct_ff_tc32_tile(
+        _ptr(xn_hi), _ptr(xn_lo), _ptr(do_hi), _ptr(do_lo), ldx, *map(_ptr, ws.values()), ldw,
+        M, P, D, _ptr(dcat_hi), _ptr(dcat_lo), _ptr(dcat_t_hi), _ptr(dcat_t_lo), _ptr(act_t_hi),
+        _ptr(act_t_lo), ldt, _stream()), "ct_ff_tc32_tile")
+    count_launch("ff_tc32_tile")
+    return (dcat_hi, dcat_lo, dcat_t_hi[:, :M], dcat_t_lo[:, :M], act_t_hi[:, :M],
+            act_t_lo[:, :M])
+
+
+TC32_TN_SPLIT_ROWS = 8192  # rows of a TN product's split, at most
+TC32_TN_CTAS = 264  # CTAs of a TN product to aim for: two per SM of the H100's 132
+TC32_FLUSH_ROWS = 256  # a split's rows are whole k ranges of ffn_tc32.cu (FLUSH x 32)
+
+
+def tc32_tn_split(rows: int, tiles: int) -> int:
+    """Rows per split of a TN product over `rows` rows with `tiles` output
+    tiles of 128 x 128: the fewest splits of at most TC32_TN_SPLIT_ROWS rows
+    that give TC32_TN_CTAS CTAs, each a multiple of TC32_FLUSH_ROWS."""
+    splits = max(-(-rows // TC32_TN_SPLIT_ROWS), -(-TC32_TN_CTAS // tiles), 1)
+    return -(-rows // (splits * TC32_FLUSH_ROWS)) * TC32_FLUSH_ROWS
+
+
+def tc32_gemm_tn(a_hi: torch.Tensor, a_lo: torch.Tensor, w_hi: torch.Tensor,
+                 w_lo: torch.Tensor, lib=None) -> torch.Tensor:
+    """out (M, N) f32 = A W^T over all K in 3xTF32 on ffn_tc32.cu (`wgmma`),
+    for A (M, K) and W (N, K) given as transposed TF32 planes (`tc32_split_t`,
+    `ff_tc32_tile`, `qk_attention_short_bwd`): K is the rows of a weight
+    gradient's two operands, so out is dY^T X.  The rows split in blocks of
+    `tc32_tn_split` whose partial sums are added in order (sum_splits).
+    Counted `tc32_gemm_tn`.  `lib`: a one-change copy of ffn_tc32.cu to
+    launch instead."""
+    for key, t in dict(a_hi=a_hi, a_lo=a_lo, w_hi=w_hi, w_lo=w_lo).items():
+        _rows_contig(t, key)
+        if t.dtype != F32 or t.stride(0) % 4 or t.data_ptr() % 16:
+            raise ValueError(f"tc32_gemm_tn: {key} must be f32 with row strides and bases of "
+                             f"multiples of 16 bytes")
+    (M, Kr), N = a_hi.shape, w_hi.shape[0]
+    if a_lo.shape != a_hi.shape or w_lo.shape != w_hi.shape or w_hi.shape[1] != Kr \
+            or a_lo.stride(0) != a_hi.stride(0) or w_lo.stride(0) != w_hi.stride(0) \
+            or M % 4 or N % 4:
+        raise ValueError(f"tc32_gemm_tn: A {tuple(a_hi.shape)}, W {tuple(w_hi.shape)}")
+    chunk = tc32_tn_split(Kr, -(-M // 128) * -(-N // 128))
+    splits = -(-Kr // chunk)
+    part = torch.empty((splits, M, N), dtype=F32, device=a_hi.device)
+    _check((lib or library()).ct_tc32_gemm_tn(
+        _ptr(a_hi), _ptr(a_lo), a_hi.stride(0), _ptr(w_hi), _ptr(w_lo), w_hi.stride(0), M, N,
+        Kr, chunk, _ptr(part), _stream()), "ct_tc32_gemm_tn")
+    count_launch("tc32_gemm_tn")
+    return part[0] if splits == 1 else sum_splits(part)
 
 
 def _f32_vector(t: Optional[torch.Tensor], n: int, name: str):
@@ -1298,8 +1418,10 @@ def qk_bwd_tensor_cores(dtype: torch.dtype, n: int, d: int) -> str:
     and 64-token planes with or without the bias and any ragged n from 32 in
     zero-filled 64-row tiles; otherwise QK_CUDA_CORES: the backward on
     qknorm_attention_bwd.cu (qk_attention_bwd_kernel and its f32 form: K10's
-    16-24-token sequences, other head dims).  The forward below 32 tokens
-    reads `qk_fwd_route` (K2's sequences take qknorm_attention_short.cu).
+    16-24-token sequences in bf16, other head dims; in f32 `qk_bwd_route`
+    sends K10's sequences to qknorm_attention_short.cu).  The forward below
+    32 tokens reads `qk_fwd_route` (K2's sequences take
+    qknorm_attention_short.cu).
     `qk_attention_fwd`, `qk_attention_short`, `_qk_tc_bwd` and `_qk_tc32_bwd`
     count each launch of their route."""
     if d != QK_TC_HEAD_DIM or n < QK_TC_MIN_TOKENS:
@@ -1327,6 +1449,36 @@ def qk_fwd_route(dtype: torch.dtype, n: int, d: int, heads: int, bias: bool = Fa
     if (core == QK_CUDA_CORES and dtype in FORMS and d == QK_TC_HEAD_DIM and not bias
             and QK_SHORT_MIN_TOKENS <= n < QK_TC_MIN_TOKENS
             and qk_short_smem(n, heads, dtype) <= SMEM_LIMIT):
+        return QK_SHORT
+    return core
+
+
+QK_SHORT_BWD_HEADS = 4  # heads of a CTA of the short backward core: one a warp
+
+
+def qk_short_bwd_smem(n: int, heads: int) -> int:
+    """Bytes of shared memory a CTA of qknorm_attention_short.cu's f32
+    backward takes: its group of heads' n token rows of q, k, v and dO in
+    f32 (up to QK_SHORT_BWD_HEADS x 32 each, padded by 16 bytes), each
+    warp's n x (n | 1) tiles of P and dS, and its static scratch (the
+    scales, the rows' norms, the scale sums)."""
+    width = min(heads, QK_SHORT_BWD_HEADS) * QK_TC_HEAD_DIM + 4
+    return 4 * (4 * n * width + QK_SHORT_BWD_HEADS * 2 * n * (n | 1)) + 4096
+
+
+def qk_bwd_route(dtype: torch.dtype, n: int, d: int, heads: int, bias: bool = False) -> str:
+    """The route of the QK-norm attention core's backward: `qk_bwd_tensor_cores`'
+    QK_WGMMA or QK_TC32 (K9's planes, n >= 32), QK_SHORT for K10 f32's
+    16-31-token sequences at head dim 32 without a bias where a CTA's rows
+    (one sequence's, up to four heads) fit (`qk_short_bwd_smem`): qknorm_attention_short.cu's f32
+    backward core, and the sublayer's backward products in 3xTF32 on
+    ffn_tc32.cu; otherwise QK_CUDA_CORES, qknorm_attention_bwd.cu (bf16 K10,
+    other head dims and lengths).  The forward's gate is `qk_fwd_route`; this
+    one moves none of its answers."""
+    core = qk_bwd_tensor_cores(dtype, n, d)
+    if (core == QK_CUDA_CORES and dtype == F32 and d == QK_TC_HEAD_DIM and not bias
+            and QK_SHORT_MIN_TOKENS <= n < QK_TC_MIN_TOKENS
+            and qk_short_bwd_smem(n, heads) <= SMEM_LIMIT):
         return QK_SHORT
     return core
 
@@ -1542,6 +1694,64 @@ def qk_attention_short(q, kv, *, sequences: int, inner: int, heads: int, n: int,
     _check(err, entry)
     count_launch("qk_attention_short", q.dtype)
     return outs if f32 else outs[0]
+
+
+QK_SHORT_SCALE_GROUPS = 32  # first-level groups of the short backward's scale partials
+
+
+def qk_attention_short_bwd(q, kv, dout, *, sequences: int, inner: int, heads: int, n: int,
+                           d: int, q_strides, kv_strides, q_scale, k_scale, lib=None):
+    """The QK-norm attention core's f32 backward (K10's) on 16-31-token
+    sequences (qknorm_attention_short.cu), on the projections q (rows, h*d),
+    kv (rows, 2*h*d) [k | v] and dout, the gradient of the merged heads laid
+    out as q, addressed as `qk_attention_short` addresses them, in true f32.
+    Returns the operands of the 3xTF32 products after it: (dq hi, lo) like q,
+    (dkv hi, lo) like kv, and the transposed planes (merged hi, lo), (dq hi,
+    lo) (h*d, S n) and (dkv hi, lo) (2*h*d, S n), sequence s's token t in
+    column s n + t (`tc32_split_t`'s order for seq = (n, inner)); then
+    dq_scale (before the logit scale) and dk_scale (d,) f32: the partials of
+    each (sequence, group of QK_SHORT_BWD_HEADS heads), one CTA's, added in
+    two levels (QK_SHORT_SCALE_GROUPS blocks of them row by row, then the
+    blocks' sums), in a fixed order.  Counted
+    `qk_attention_short_bwd_f32`.  A shape `qk_bwd_route` does not send here
+    raises.  `lib`: a one-change copy (`copy_library`) of the source, to
+    launch instead."""
+    hd = heads * d
+    for name, t, width in (("q", q, hd), ("kv", kv, 2 * hd), ("dout", dout, hd)):
+        require(t, name, F32, 2)
+        if t.shape[1] != width or t.shape[0] != q.shape[0]:
+            raise ValueError(f"qk_attention_short_bwd: {name} {tuple(t.shape)}")
+    if qk_bwd_route(q.dtype, n, d, heads) != QK_SHORT or q.shape[0] != sequences * n:
+        raise ValueError(f"qk_attention_short_bwd: {q.dtype} at n {n}, head dim {d}, "
+                         f"{heads} heads, {q.shape[0]} rows is not its route "
+                         "(kernels.qk_bwd_route)")
+    strides = _qk_tc_strides("qk_attention_short_bwd", q_strides, kv_strides, q, kv, dout)
+    if strides[2] != d or strides[6] != d:
+        raise ValueError("qk_attention_short_bwd: the heads of a token must lie side by side")
+    qs, ks = _f32_vector(q_scale, d, "q_scale"), _f32_vector(k_scale, d, "k_scale")
+    rows, ldt = q.shape[0], -(-q.shape[0] // 4) * 4
+    dev = q.device
+    dq_hi, dq_lo, dkv_hi, dkv_lo = (torch.empty_like(t) for t in (q, q, kv, kv))
+    m_t_hi, m_t_lo, dq_t_hi, dq_t_lo = (torch.empty((hd, ldt), dtype=F32, device=dev)
+                                        for _ in range(4))
+    dkv_t_hi, dkv_t_lo = (torch.empty((2 * hd, ldt), dtype=F32, device=dev) for _ in range(2))
+    ctas = sequences * -(-heads // QK_SHORT_BWD_HEADS)
+    rows_p = -(-ctas // QK_SHORT_SCALE_GROUPS) * QK_SHORT_SCALE_GROUPS
+    parts = torch.zeros((2, rows_p, d), dtype=F32, device=dev)
+    err = (lib or library()).ct_qk_attention_short_bwd_f32(
+        _ptr(q), _ptr(kv), _ptr(dout), _ptr(dq_hi), _ptr(dq_lo), _ptr(dkv_hi), _ptr(dkv_lo),
+        _ptr(m_t_hi), _ptr(m_t_lo), _ptr(dq_t_hi), _ptr(dq_t_lo), _ptr(dkv_t_hi),
+        _ptr(dkv_t_lo), ldt, *strides, inner, sequences, heads, n, d, _ptr(qs), _ptr(ks),
+        _ptr(parts[0]), _ptr(parts[1]), _stream())
+    _check(err, "ct_qk_attention_short_bwd_f32")
+    count_launch("qk_attention_short_bwd_f32")
+
+    def scale_sum(part):  # blocks of sequences row by row, then the blocks' sums
+        return sum_splits(sum_splits(part.view(QK_SHORT_SCALE_GROUPS, -1)).view(-1, d))
+    cols = slice(0, rows)
+    return (dq_hi, dq_lo, dkv_hi, dkv_lo, m_t_hi[:, cols], m_t_lo[:, cols], dq_t_hi[:, cols],
+            dq_t_lo[:, cols], dkv_t_hi[:, cols], dkv_t_lo[:, cols], scale_sum(parts[0]),
+            scale_sum(parts[1]))
 
 
 def peg_dw(x: torch.Tensor, dout: torch.Tensor, pads) -> torch.Tensor:

@@ -56,11 +56,17 @@ CUDA cores, by `kernels.qk_bwd_tensor_cores`), dxn = dq W_q and
 dx_kv = dkv W_kv (NN), the LN backward with dx_kv and the identity term,
 and the weight gradients dW_q, dW_kv, dW_out over all rows in f32 (TN
 products).  In f32 every one of them is its f32 form and nothing is rounded
-to bf16 (dO, the weights, dmerged, the merged heads, dq and dkv stay f32).
-Their plain versions are autograd of the plain forwards.
+to bf16 (dO, the weights, dmerged, the merged heads, dq and dkv stay f32);
+on the routes `kernels.qk_bwd_route` gives the tensor cores (K9's planes) or
+the short core (K10's 16-31-token sequences: csrc/qknorm_attention_short.cu's
+f32 backward, counted `qk_attention_short_bwd_f32`) every product runs in
+3xTF32 on csrc/ffn_tc32.cu (`_qknorm_attention_bwd_tc32`: the weight
+gradients on its TN form over transposed TF32 planes).  Their plain
+versions are autograd of the plain forwards.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -353,11 +359,72 @@ def _qknorm_attention_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
     return _out_product(merged, wout, x2).view(x.shape)
 
 
+def _qknorm_attention_bwd_tc32(x, gamma, wq, wkv, q_scale, k_scale, wout, bias, dout, heads,
+                               dim_head, scale, grid: bool, core: str, lib=None):
+    """The f32 sublayer backward on the tensor-core routes, its products in
+    3xTF32 on csrc/ffn_tc32.cu: the weights split once (wq and wkv row-major
+    for the recompute, all three transposed for the NN products), LN(x), x
+    and dO split (x, LN(x) and dO also as transposed planes, the rows in the
+    core's column order), q and kv recomputed, dmerged = dO wout, the core
+    (`core`: QK_SHORT, K10's short sequences on qknorm_attention_short.cu,
+    which writes dq, dkv and the transposed planes itself; QK_TC32, K9's
+    planes on qknorm_attention_tc32.cu, its f32 outputs then split by
+    `kernels.tc32_split_t`), dxn = dq wq and dx_kv = dkv wkv, the LN
+    backward, and dWq, dWkv, dWout on the TN form.  `lib`: a one-change
+    copy of ffn_tc32.cu (the products) for the card checks."""
+    dim = x.shape[-1]
+    hd = heads * dim_head
+    x2 = x.view(-1, dim)
+    rows = x2.shape[0]
+    dout = dout.float().contiguous().view(rows, dim)
+    sequences, inner, q_strides, kv_strides, n = _layout(x, hd, dim_head, grid)
+    seq = dict(seq=(n, inner), lib=lib)  # the transposed planes in the core's column order
+    w_qkv = torch.cat([wq.float(), wkv.float()])
+    wqkv_hi, wqkv_lo, wqkv_t_hi, wqkv_t_lo = K.tc32_split_t(w_qkv, rows=True, lib=lib)
+    wo_t = K.tc32_split_t(wout.float().contiguous(), lib=lib)
+    xn_hi, xn_lo = K.layernorm_split(x2, gamma, None, 1e-5)
+    xn_t = K.tc32_split_t(xn_hi, xn_lo, **seq)
+    x_hi, x_lo, *x_t = K.tc32_split_t(x2, rows=True, **seq)
+    do_hi, do_lo, *do_t = K.tc32_split_t(dout, rows=True, **seq)
+
+    def gemm(a_hi, a_lo, w_hi, w_lo):
+        return K.tc32_gemm(a_hi, a_lo, w_hi, w_lo, lib=lib)
+    q = gemm(xn_hi, xn_lo, wqkv_hi[:hd], wqkv_lo[:hd])
+    kv = gemm(x_hi, x_lo, wqkv_hi[hd:], wqkv_lo[hd:])
+    dmerged = gemm(do_hi, do_lo, *wo_t)
+    layout = dict(sequences=sequences, inner=inner, heads=heads, n=n, d=dim_head,
+                  q_strides=q_strides, kv_strides=kv_strides,
+                  q_scale=q_scale.float() * scale, k_scale=k_scale)
+    dbias = None
+    if core == K.QK_SHORT:
+        *planes, dqs, dks = K.qk_attention_short_bwd(q, kv, dmerged, **layout)
+        dq, dkv = planes[0:2], planes[2:4]
+        merged_t, dq_t, dkv_t = planes[4:6], planes[6:8], planes[8:10]
+    else:
+        merged, dq32, dkv32, dqs, dks, dbias = K.qk_attention_bwd(
+            q, kv, dmerged, bias=None if bias is None else bias.float().contiguous(), **layout)
+        merged_t = K.tc32_split_t(merged, **seq)
+        dq_hi, dq_lo, *dq_t = K.tc32_split_t(dq32, rows=True, **seq)
+        dkv_hi, dkv_lo, *dkv_t = K.tc32_split_t(dkv32, rows=True, **seq)
+        dq, dkv = (dq_hi, dq_lo), (dkv_hi, dkv_lo)
+    dxn = gemm(*dq, wqkv_t_hi[:, :hd], wqkv_t_lo[:, :hd])
+    dx_kv = gemm(*dkv, wqkv_t_hi[:, hd:], wqkv_t_lo[:, hd:])
+    dx, dgamma, _ = K.layernorm_bwd(x2, gamma, dxn, 1e-5, add=dx_kv, add2=dout)
+    tn = functools.partial(K.tc32_gemm_tn, lib=lib)
+    return (dx.view(x.shape), dgamma, tn(*dq_t, *xn_t), tn(*dkv_t, *x_t), dqs * scale, dks,
+            tn(*do_t, *merged_t), dbias)
+
+
 def _qknorm_attention_bwd_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
                                dout, heads, dim_head, scale, grid: bool):
     cdt, f32 = x.dtype, torch.float32
     dim = x.shape[-1]
     hd = heads * dim_head
+    sequences, inner, q_strides, kv_strides, n = _layout(x, hd, dim_head, grid)
+    core = K.qk_bwd_route(cdt, n, dim_head, heads, bias is not None)
+    if cdt == f32 and core != K.QK_CUDA_CORES:
+        return _qknorm_attention_bwd_tc32(x, gamma, wq, wkv, q_scale, k_scale, wout, bias, dout,
+                                          heads, dim_head, scale, grid, core)
     x2 = x.view(-1, dim)
     rows = x2.shape[0]
     dout = dout.to(cdt).contiguous().view(rows, dim)
@@ -365,7 +432,6 @@ def _qknorm_attention_bwd_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
     xn, q, kv = _project(x2, gamma, wq, wkv, hd)
     dmerged = torch.empty((rows, hd), dtype=cdt, device=x.device)
     K.gemm_nn(dout, wout_c, dmerged)
-    sequences, inner, q_strides, kv_strides, n = _layout(x, hd, dim_head, grid)
     groups = min(sequences, -(-TARGET_BLOCKS // heads) if bias is not None else GRID_GROUPS)
     merged, dq, dkv, dqs, dks, dbias = K.qk_attention_bwd(
         q, kv, dmerged, sequences=sequences, inner=inner, heads=heads, n=n,

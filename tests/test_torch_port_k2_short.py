@@ -327,9 +327,13 @@ def test_k2_forward_launches_the_short_core_and_counts_it(monkeypatch, dtype, sh
 
 @pytest.mark.parametrize("dtype,grid", [(BF, True), (BF, False), (F32, True), (F32, False)])
 def test_k2_backward_keeps_the_cuda_core_kernel(monkeypatch, dtype, grid):
-    """K10's route does not change: its core is qknorm_attention_bwd.cu on
-    the CUDA cores (counted on no tensor-core counter), and its bf16
-    recompute of q and kv runs the NT store form."""
+    """K10's bf16 route does not change: its core is qknorm_attention_bwd.cu
+    on the CUDA cores (counted on no tensor-core counter), and its recompute
+    of q and kv runs the NT store form.  K10 f32 takes the short backward
+    core (qknorm_attention_short.cu, counted `qk_attention_short_bwd_f32`)
+    and its products in 3xTF32 on ffn_tc32.cu, the recompute of q and kv
+    among them (counted `tc32_gemm`): nothing of qknorm_attention_bwd.cu
+    or gemm.cu."""
     from ct_clip_tpu_torch.ops import qknorm_attention as Q
 
     lib = _RecordingLibrary()
@@ -340,14 +344,18 @@ def test_k2_backward_keeps_the_cuda_core_kernel(monkeypatch, dtype, grid):
                                          32, 8.0, grid)
     assert grads[0].shape == x.shape and grads[-1] is None
     names = lib.names()
-    assert names.count("ct_qk_attention_bwd_f32" if dtype == F32 else "ct_qk_attention_bwd") == 1
-    assert not any("short" in n or "_tc_bwd" in n or "tc32_bwd" in n for n in names)
     c = K.launch_counts()
     assert c["qk_attention_tc_bwd"] == c["qk_attention_tc32_bwd"] == c["qk_attention_short"] == 0
     if dtype == BF:
+        assert names.count("ct_qk_attention_bwd") == 1
+        assert not any("short" in n or "_tc_bwd" in n or "tc32_bwd" in n for n in names)
         assert names[1:3] == ["ct_ff_tc_gemm_nt", "ct_ff_tc_gemm_nt"] and c["qk_proj_tc"] == 2
     else:
-        assert names[1:3] == ["ct_gemm_f32", "ct_gemm_f32"] and c["qk_proj_gemm"] == 2
+        assert names.count("ct_qk_attention_short_bwd_f32") == 1
+        assert not any(n in names for n in ("ct_qk_attention_bwd_f32", "ct_gemm_f32",
+                                            "ct_gemm_layout_f32"))
+        assert names[6:8] == ["ct_tc32_gemm", "ct_tc32_gemm"] and c["qk_proj_gemm"] == 0
+        assert c["qk_attention_short_bwd_f32"] == 1 and c["tc32_gemm"] == 5
 
 
 def test_k2_other_head_dims_keep_attention_cu(monkeypatch):

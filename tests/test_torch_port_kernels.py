@@ -8,7 +8,9 @@ bias), K13a, K12a, K12b (dense, no bias) and K13b of attention_tc32.cu
 (qknorm_attention_tc.cu, `-k qk_core`), K2's core on short sequences
 (qknorm_attention_short.cu) and the sublayer's bf16 projections on
 ffn_tc.cu (`-k "k2 or qk_projection"`) and its f32 core in 3xTF32
-(qknorm_attention_tc32.cu, `-k "qk_core and f32"`), K11 bf16 on `wgmma`
+(qknorm_attention_tc32.cu, `-k "qk_core and f32"`), the f32 backwards'
+3xTF32 forms on ffn_tc32.cu and K10's f32 core on qknorm_attention_short.cu
+(`-k "tc32_split_t or gemm_tn or k11_f32_tc32 or short_bwd"`), K11 bf16 on `wgmma`
 (ffn_tc.cu, `-k "k11 or ff_tc"`), with K17 f32's run copy (`-k k17`), K16a on
 ffn_tc.cu (`-k k16a`), K3 f32 in 3xTF32 on ffn_tc32.cu (`-k "ff_f32"`), K3
 bf16's GEGLU and residual forms on ffn_tc.cu and K5's inference assignment
@@ -2092,3 +2094,131 @@ def test_qk_projection_nt_forms(dev):
     merged, wo = _randn((rows, 256), g, dev), _randn((512, 256), g, dev, 256 ** -0.5)
     ref = (merged.float() @ wo.float().t() + x.float()).to(BF)
     _close(K.gemm_residual_tc(merged, wo, x), ref, 1e-2)
+
+
+# ---- the f32 backwards in 3xTF32 (ffn_tc32.cu) and K10's short core
+@pytest.mark.parametrize("rows,seq", [(130, (1, 1)), (1000, (1, 1)), (2 * 24 * 36, (24, 36))])
+def test_tc32_split_t_planes_and_t_column_order(dev, rows, seq):
+    """tc32_split_t: hi + lo is x exactly, row-major and transposed, the
+    transposed columns in the t-column order of a (b, n, S) grid; with a
+    second input (a split's lo plane) the same planes."""
+    g = _gen(dev, 81)
+    x = _randn((rows, 96), g, dev, dtype=F32)
+    hi, lo, hi_t, lo_t = K.tc32_split_t(x, rows=True, seq=seq)
+    n, S = seq
+    c = torch.arange(rows, device=dev)
+    order = ((c // n // S) * n + c % n) * S + c // n % S
+    torch.cuda.synchronize()
+    assert torch.equal(hi + lo, x) and torch.equal((hi_t + lo_t).t(), x[order])
+    assert torch.equal((hi.view(torch.int32) & 0x1FFF), torch.zeros_like(hi, dtype=torch.int32))
+    again = K.tc32_split_t(hi, lo, seq=seq)
+    assert torch.equal(again[0], hi_t) and torch.equal(again[1], lo_t)
+
+
+@pytest.mark.parametrize("rows,M,N", [(1000, 344, 96), (9000, 96, 176), (300, 64, 64)])
+def test_tc32_gemm_tn_over_rows(dev, rows, M, N):
+    """The TN form: A^T W over all rows in row splits added in order, within
+    F32_FWD of the f64 product; its plain-TF32 copy misses."""
+    g = _gen(dev, 82)
+    a, w = _randn((rows, M), g, dev, dtype=F32), _randn((rows, N), g, dev, dtype=F32)
+    ref = (a.double().t() @ w.double()).float()
+    K.reset_launch_counts()
+    got = K.tc32_gemm_tn(*K.tc32_split_t(a), *K.tc32_split_t(w))
+    torch.cuda.synchronize()
+    assert K.launch_counts()["tc32_gemm_tn"] == 1
+    _close(got, ref, rel=F32_FWD)
+    copy = K.copy_library("ffn_tc32.cu", CT_TC32_PASSES=1)
+    tf32 = K.tc32_gemm_tn(*K.tc32_split_t(a, lib=copy), *K.tc32_split_t(w, lib=copy), lib=copy)
+    with pytest.raises(AssertionError):
+        _close(tf32, ref, rel=F32_FWD)
+
+
+@pytest.mark.parametrize("rows", [130, 2048])
+def test_k11_f32_tc32_tile_and_products(dev, rows):
+    """K11 f32 launches the 3xTF32 tile, one NN and two TN products (counted
+    ff_tc32_tile, tc32_gemm, tc32_gemm_tn); the plain-TF32 copy and the
+    copy with act rounded to bf16 (CT_FF_TC32_ACT_BF16) each miss the f32
+    limits (dwo reads act)."""
+    from ct_clip_tpu_torch.ops.ffn import _geglu_ff_bwd_cuda, _geglu_ff_bwd_tc32, geglu_ff_bwd_plain
+
+    args, do = _ff_f32_inputs(dev, rows, 83)
+    K.reset_launch_counts()
+    got = _geglu_ff_bwd_cuda(*args, do, 1e-5)
+    ref = geglu_ff_bwd_plain(*args, do)
+    torch.cuda.synchronize()
+    c = K.launch_counts()
+    assert (c["ff_tc32_tile"], c["tc32_gemm"], c["tc32_gemm_tn"]) == (1, 1, 2)
+    _close(got[0], ref[0], rel=F32_FWD)
+    for gr, r in zip(got[1:], ref[1:]):
+        _close(gr, r, rel=F32_WGRAD)
+    for define in ("CT_TC32_PASSES", "CT_FF_TC32_ACT_BF16"):
+        copy = K.copy_library("ffn_tc32.cu", **{define: 1})
+        bad = _geglu_ff_bwd_tc32(*args, do, 1e-5, lib=copy)
+        rels = [((b - r).abs().max() / r.abs().max()).item() for b, r in zip(bad, ref)]
+        assert rels[4] > F32_WGRAD, (define, rels)
+
+
+@pytest.mark.parametrize("layout,B,n,S,heads", [("grid", 2, 24, 36, 8), ("seq", 40, 16, 1, 8),
+                                                ("seq", 40, 20, 1, 6), ("seq", 9, 31, 1, 8)])
+def test_qk_short_bwd_core_f32(dev, layout, B, n, S, heads):
+    """K10's f32 core on qknorm_attention_short.cu (grid t-columns in place
+    and sequences; six heads: a partial group of four) against the plain
+    version of its math in f32: merged, dq, dkv (hi + lo of its planes)
+    within F32_FWD, dq_scale and dk_scale within F32_WGRAD; two runs equal."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import qk_attention_bwd_core_plain
+
+    g = _gen(dev, 84)
+    d, hd, rows = 32, heads * 32, B * n * S
+    q, kv, dm = (_randn((rows, wd), g, dev, dtype=F32) for wd in (hd, 2 * hd, hd))
+    qs, ks = (1 + 0.2 * torch.randn(d, generator=g, device=dev)) * 8.0, \
+        1 + 0.2 * torch.randn(d, generator=g, device=dev)
+    layout = dict(sequences=B * S, inner=S, heads=heads, n=n, d=d,
+                  q_strides=(n * S * hd, hd, d, S * hd),
+                  kv_strides=(n * S * 2 * hd, 2 * hd, d, S * 2 * hd), q_scale=qs, k_scale=ks)
+    c = torch.arange(rows, device=dev)
+    order = ((c // n // S) * n + c % n) * S + c // n % S
+    K.reset_launch_counts()
+    out = K.qk_attention_short_bwd(q, kv, dm, **layout)
+    ref = qk_attention_bwd_core_plain(q[order], kv[order], dm[order], heads, d, n, qs, ks, None)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["qk_attention_short_bwd_f32"] == 1
+    _close((out[4] + out[5]).t(), ref[0], rel=F32_FWD)
+    _close((out[0] + out[1])[order], ref[1], rel=F32_FWD)
+    _close((out[2] + out[3])[order], ref[2], rel=F32_FWD)
+    _close((out[6] + out[7]).t(), ref[1], rel=F32_FWD)
+    _close((out[8] + out[9]).t(), ref[2], rel=F32_FWD)
+    _close(out[10], ref[3], rel=F32_WGRAD)
+    _close(out[11], ref[4], rel=F32_WGRAD)
+    again = K.qk_attention_short_bwd(q, kv, dm, **layout)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("D", [128, 384, 512, 640])
+def test_layernorm_f32_rows_forms(dev, D):
+    """The f32 LN split and backward on rows of 128-512 floats (the
+    warp-a-row forms; 640 keeps the block-per-row kernels): the split's hi +
+    lo within F32_FWD of the plain LN, hi a TF32 value; dx with both added
+    terms within F32_FWD, the column sums (dscale, dbias, the f32 dx) within
+    F32_WGRAD; two runs equal."""
+    from ct_clip_tpu_torch.ops.autograd import vjp
+    from ct_clip_tpu_torch.ops.norms import layer_norm
+
+    g = _gen(dev, 85)
+    x = _randn((1001, D), g, dev, 3.0, F32) + 1.0
+    scale, bias = 1 + _randn((D,), g, dev, 0.1, F32), _randn((D,), g, dev, 0.1, F32)
+    hi, lo = K.layernorm_split(x, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    _close(hi + lo, layer_norm(x, scale, bias), rel=F32_FWD)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    dxn, add, add2 = (_randn((1001, D), g, dev, dtype=F32) for _ in range(3))
+    out = K.layernorm_bwd(x, scale, dxn, 1e-5, add=add, add2=add2, want_dbias=True,
+                          want_dxsum=True)
+    rdx, rds, rdb = vjp(lambda a, s, b: layer_norm(a, s, b), (x, scale, bias), dxn)
+    torch.cuda.synchronize()
+    ref_dx = rdx + add + add2
+    _close(out[0], ref_dx, rel=F32_FWD)
+    for got, ref in zip(out[1:], (rds, rdb, ref_dx.sum(0))):
+        _close(got, ref, rel=F32_WGRAD)
+    again = K.layernorm_bwd(x, scale, dxn, 1e-5, add=add, add2=add2, want_dbias=True,
+                            want_dxsum=True)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))

@@ -542,10 +542,10 @@ def test_sublayer_fit_counts_the_tensor_core_forward(monkeypatch):
     assert not sublayer_fits(576, 32, F32) and sublayer_fits(24, 32, F32)
 
 
-# K11: bf16 takes ffn_tc.cu's `wgmma` tile and products, f32 gemm.cu's f32 forms
+# K11: bf16 takes ffn_tc.cu's `wgmma` tile and products, f32 ffn_tc32.cu's 3xTF32 forms
 @pytest.mark.parametrize("dtype,names", [
     (BF, ("ff_tc_tile", "gemm_nn_tc", "gemm_tn_tc")),
-    (F32, ("ff_bwd_core", "gemm_nn", "gemm_tn")),
+    (F32, ("ff_tc32_tile", "tc32_gemm", "tc32_gemm_tn")),
 ])
 def test_k11_backward_kernels_per_dtype(dtype, names):
     from ct_clip_tpu_torch.ops.ffn import bwd_kernels

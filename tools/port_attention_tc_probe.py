@@ -6,7 +6,8 @@ inputs.
 
     python tools/port_attention_tc_probe.py [--kernel attention] [--out FILE.json]
     python tools/port_attention_tc_probe.py --kernel k17 | k9 | k9_f32 | k11 | k16a | k3_f32
-                                            | k1 | k1_f32 | k3 | k5 | k2 | k2_f32 [--tree DIR]
+                                            | k1 | k1_f32 | k3 | k5 | k2 | k2_f32 | k11_f32
+                                            | k10_f32 [--tree DIR]
     python tools/port_attention_tc_probe.py --kernel k9_copies | k9_f32_copies
 
 `--kernel attention` (the default) times attention_tc.cu and
@@ -147,6 +148,12 @@ attention.cu's core, gemm.cu's products), and each piece alone: the LN, the
 q, kv and output products on ffn_tc.cu and on gemm.cu, the core on
 qknorm_attention_short.cu and on attention.cu.  `--kernel k2_f32`: the same in f32 (the pieces: the
 splits, the 3xTF32 products, the core and attention.cu's f32 core).
+
+`--kernel k11_f32`: K11 in f32 (autograd of `fused_geglu_ff`) at 110,592
+and 10,240 rows, and `--kernel k10_f32`: K10 f32 (grid, both sequence
+shapes) and K9 f32 (both planes) through autograd of the sublayer; each
+with the path it replaced timed beside it where the tree has that path
+(`k11_f32`, `k10_f32` docstrings).
 
 `--kernel k9_copies`: K9's core at (192, 576) on copies of
 qknorm_attention_tc.cu with one change each, in turns, there and back, with
@@ -724,6 +731,86 @@ def k11(dev, g) -> dict:
     return out
 
 
+def k11_f32(dev, g) -> dict:
+    """K11 in f32 (autograd of `fused_geglu_ff`) at CT-CLIP's training rows
+    (110,592 x 512, inner 1,365) and at MaskGIT's and the autoencoder's
+    10,240: events, host time and each kernel's device time per call (the
+    3xTF32 tile and TN forms of ffn_tc32.cu's ff_tc32_bwd_kernel apart);
+    where the tree has it, the same again on the path it replaced
+    (`ops/ffn.py::_geglu_ff_bwd_products` on gemm.cu's FFMA forms,
+    "replaced")."""
+    from ct_clip_tpu_torch.ops import ffn
+
+    dim, inner, out = 512, 1365, {}
+    for label, rows in (("ctclip", 110592), ("maskgit_autoencoder", 10240)):
+        def rn(*shape, scale=1.0):
+            return torch.randn(shape, generator=g, device=dev) * scale
+        x, do = rn(rows, dim), rn(rows, dim)
+        w = (1 + rn(dim, scale=0.1), rn(dim, scale=0.1), rn(2 * inner, dim, scale=dim ** -0.5),
+             rn(dim, inner, scale=inner ** -0.5))
+        leaves = [t.clone().requires_grad_() for t in (x, *w)]
+        y = ffn.fused_geglu_ff(*leaves)
+        row = _timed(lambda: torch.autograd.grad(y, leaves, do, retain_graph=True),
+                     "ff_tc32_bwd_kernel")
+        if hasattr(ffn, "_geglu_ff_bwd_products"):
+            row["replaced"] = _timed(lambda: ffn._geglu_ff_bwd_products(
+                x, *w, do, 1e-5, K.ff_bwd_core, K.gemm_nn, K.gemm_tn))
+        print(f"K11 f32 {label}: {json.dumps(row)}", flush=True)
+        out[label] = row
+        del x, do, w, leaves, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def k10_f32(dev, g) -> dict:
+    """K10 f32 (autograd of the sublayer) on CT-CLIP's (8, 24, 576, 512)
+    grid, the 160-frame (4,608, 16, 512) and the autoencoder's (512, 20,
+    512) sequences, and K9 f32 on (192, 576, 512) and (160, 64, 512) planes
+    with a bias, 8 heads of 32: events, host time and each kernel's device
+    time per call (ffn_tc32.cu's forms apart); where the tree has
+    `kernels.qk_bwd_route`, the same again with it answering QK_CUDA_CORES
+    (gemm.cu's FFMA products around the core qk_bwd_tensor_cores picks:
+    the path the 3xTF32 products and the short core replaced,
+    "replaced")."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import (fused_grid_qknorm_attention,
+                                                        fused_small_qknorm_attention,
+                                                        fused_spatial_qknorm_attention)
+
+    dim, heads, dh, hd, out = 512, 8, 32, 256, {}
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    w = (1 + rn(dim, scale=0.1), rn(hd, dim, scale=dim ** -0.5), rn(2 * hd, dim, scale=dim ** -0.5),
+         1 + rn(dh, scale=0.2), 1 + rn(dh, scale=0.2), rn(dim, hd, scale=hd ** -0.5))
+    cases = (("grid_8x24x576", (8, 24, 576, dim), None),
+             ("seq_4608x16", (4608, 16, dim), None), ("seq_512x20", (512, 20, dim), None),
+             ("k9_192x576", (192, 576, dim), 576), ("k9_160x64", (160, 64, dim), 64))
+    for label, shape, bias_n in cases:
+        x, do = rn(*shape), rn(*shape)
+        extra = [rn(heads, bias_n, bias_n)] if bias_n else []
+        leaves = [t.clone().requires_grad_() for t in (x, *w, *extra)]
+        if bias_n:
+            y = fused_spatial_qknorm_attention(*leaves, heads, dh)
+        elif len(shape) == 4:
+            y = fused_grid_qknorm_attention(*leaves, heads, dh)
+        else:
+            y = fused_small_qknorm_attention(*leaves, heads, dh)
+        fn = lambda: torch.autograd.grad(y, leaves, do, retain_graph=True)  # noqa: E731
+        row = _timed(fn, "ff_tc32_bwd_kernel")
+        if hasattr(K, "qk_bwd_route"):
+            route = K.qk_bwd_route
+            K.qk_bwd_route = lambda *a, **k: K.QK_CUDA_CORES
+            try:
+                row["replaced"] = _timed(fn)
+            finally:
+                K.qk_bwd_route = route
+        print(f"K10/K9 f32 {label}: {json.dumps(row)}", flush=True)
+        out[label] = row
+        del x, do, extra, leaves, y
+        torch.cuda.empty_cache()
+    return out
+
+
 def _timed(fn, forms: str = "") -> dict:
     """Events, host time per call and each kernel's device time with their
     sum, of `fn` (under grad where it takes one); with `forms`, also the
@@ -917,10 +1004,10 @@ def main() -> int:
     ap.add_argument("--kernel", default="attention",
                     choices=("attention", "k17", "k9", "k9_f32", "k11", "k16a", "k3_f32",
                              "k9_copies", "k9_f32_copies", "k1", "k1_f32", "k3", "k5", "k2",
-                             "k2_f32"))
+                             "k2_f32", "k11_f32", "k10_f32"))
     ap.add_argument("--tree", default=str(ROOT),
                     help="the checkout whose package is timed (k17, k9, k9_f32, k11, k16a, "
-                         "k3_f32, k1, k1_f32, k3, k5, k2, k2_f32)")
+                         "k3_f32, k1, k1_f32, k3, k5, k2, k2_f32, k11_f32, k10_f32)")
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -943,6 +1030,7 @@ def main() -> int:
             k17=k17, k9=k9, k9_f32=lambda dev, g: k9(dev, g, torch.float32), k11=k11,
             k16a=k16a, k3_f32=k3_f32, k1=k1, k1_f32=lambda dev, g: k1(dev, g, torch.float32),
             k3=k3, k5=k5, k2=k2, k2_f32=lambda dev, g: k2(dev, g, torch.float32),
+            k11_f32=k11_f32, k10_f32=k10_f32,
             k9_copies=k9_copies,
             k9_f32_copies=lambda dev, g: k9_copies(dev, g, QK32, QK32_COPIES, torch.float32),
             )[args.kernel](dev, g)
