@@ -99,8 +99,19 @@ Phases, each fatal on failure (exit code != 0, no result line):
      (qknorm_attention_tc.cu) against the plain version at the TPU's
      rounding points, bit-identical across runs, its dbias rows within 16x
      the plain f32 version's sums and a copy summing D_i from bf16(P)
-     outside them, the replaced core timed beside it, K10, K14, K15, K5
-     exact, and K13 in
+     outside them, the replaced core timed beside it; K9's products on
+     ffn_tc.cu with the replaced gemm.cu products timed beside it
+     (`replaced_qk_bwd_bf16`); K10 grid bf16 (its core the short core's bf16
+     form, every product on ffn_tc.cu) against its plain version at the TPU
+     kernel's own rounding points (`small_qknorm_bwd_plain`: each gradient
+     within REL_TOL of max and K10_MEAN_TOL of mean|plain|, bit-identical
+     across runs), the replaced path (qknorm_attention_bwd.cu at K9's
+     rounding points, gemm.cu's products) timed beside it, which must miss
+     the mean tolerance; K10's bf16 core alone (`short_core_bf16_case`:
+     K2_POINT_TOL of mean, the copy rounding P to bf16 outside it); K14,
+     K15, K5 exact on vq_tc.cu at 110,592 and 10,240 rows (gemm.cu's
+     gemm_argmax2_kernel and a cuBLAS yardstick timed beside it) with
+     planted exact ties (`k5_exact_planted_ties`), and K13 in
      bf16 at CXR-BERT's batch 8 x 512 and a ragged n: K13a and K13b on
      attention_tc.cu, bit-identical across two runs, against the plain
      version with the forward's mask and, which must miss the tolerance,
@@ -112,7 +123,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      rise, and each step runs 12 K13a and 12 K13b on the tensor cores (every
      attention forward of the run on attention_tc.cu), its 4 K9 cores on
      qknorm_attention_tc.cu (counter `qk_attention_tc_bwd`) and its 8 K11 on
-     ffn_tc.cu (counters `ff_tc_tile`, 8, and `ff_tc_gemm`, 24).  The step time
+     ffn_tc.cu (counters `ff_tc_tile`, 8, and `ff_tc_gemm`, 72 with the six
+     products each of K9's 4 and K10's 4), its 4 K10 cores on the short
+     core's bf16 form (`qk_attention_short_bwd`) and its K5 exact on
+     vq_tc.cu (`vq_assign_exact_tc`).  The step time
      (CUDA events), peak memory and a profiled step's breakdown and idle
      share follow, then a tiny CT-CLIP
      training step on the card against the CPU (both bf16, each gradient
@@ -146,9 +160,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
   8. non-cubic token grids and the CTViT autoencoder: K2 and K10 in
      sequence-major form at (4608, 16, 512) (CT-CLIP at 160 frames, batch
      8) and (512, 20, 512) (the autoencoder's batch 8; K2 with its replaced
-     path timed beside it), K1 and K9 on its
+     path timed beside it; K10 as K10 grid in phase 6, and its core alone
+     at both shapes), K1 and K9 on its
      (160, 64, 512) planes with the (8, 64, 64) bias, each against its
-     plain version (K9 with the replaced CUDA-core core timed beside it,
+     plain version (K9 with the replaced gemm.cu products timed beside it,
      and its tensor-core core alone there as in phase 6); `CTViTTrainer` at
      full width on 8 synthetic 201 x 128 x 128 NIfTIs through
      VideoDataset(num_frames=200), (t, h, w) = (20, 8,
@@ -159,7 +174,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      default 240 x 480 x 480 (the grid path); CT-CLIP at 160 frames, one
      contrastive step at batch 8 and one zero-shot batch of 2; a tiny
      autoencoder step card against CPU, and again with K10 seq's dk_scale
-     sum dropped, which must fail;
+     sum dropped, which must fail; a tiny bf16 autoencoder with heads of 32
+     on a (16, 4, 4) grid, whose K10 takes the short core's bf16 form, card
+     against CPU with each short-core call also held to its plain version
+     (K2_POINT_TOL of mean), and again with the copy rounding P to bf16,
+     which must fail (`tiny_ae_short_phase`);
   9. MaskGIT, the generative stack's second stage: K7's dense-bias form and
      K12b against their plain versions at MaskGIT's (8, 8, 1280, 64) with
      the (1, 8, n, n) CPB bias in bf16 (attention_tc.cu) and f32 (both on
@@ -230,8 +249,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      dkv TC32_REL_TOL, the sums F32_REL_TOL, bit-identical across runs,
      dbias rows within 16x the plain version's sums; a plain-TF32 copy and
      the CUDA-core kernel's copy with P rounded to bf16 must each miss; the
-     CUDA-core f32 kernel timed beside it), K5 exact on 110,592 f32 rows (ids against the plain version
-     of its math; the full-f32 share reported), K15 on them (bins exact,
+     CUDA-core f32 kernel timed beside it), K5 exact on vq_tc.cu on 110,592
+     and 10,240 f32 rows (ids against the plain version of its math, the rows
+     split in the pre-pass's order; the full-f32 share reported; gemm.cu's
+     gemm_argmax3_rows_kernel and a cuBLAS yardstick timed beside it; planted
+     exact ties), K15 on them (bins exact,
      sums 1e-6 of max, which full-f32 sums must miss), K17 f32 as K6's
      backward (bit-exact); `cli train --no-bf16` at batch 8, 4 steps with
      the mini evaluation and a checkpoint (launches per step, 12 K13a f32
@@ -288,6 +310,16 @@ TC32_REL_TOL = 1e-5
 # moves ~43% of them, ~1.8e-3, and the check requires that reading to miss.
 # On an H100 the core reads below 1e-6 (PERF.md, section 6)
 K2_POINT_TOL = 2e-4
+# K10 bf16 (the short core's bf16 form) rounds only its outputs, each once
+# from f32 (small_attention.py::_bwd_kernel's points): the core alone holds
+# merged, dq and dkv to K2_POINT_TOL of mean|plain| as K2's core, which the
+# copy with P rounded to bf16 (CT_QK_SHORT_BWD_ROUND_P) must miss; the whole
+# sublayer's seven gradients each to K10_MEAN_TOL of mean|plain|, which K9's
+# rounding points (q, kv, dmerged, qn, kn, P and dS rounded: the replaced
+# path) must miss.  Max errors stay within REL_TOL: both sets of points pass
+# that.  (CPU: 8e-5 against the JAX kernel in interpret mode; K9's points
+# read 3e-3-9e-3, tests/test_torch_port_k10k5_tc.py.)
+K10_MEAN_TOL = 5e-4
 # the two zero-shot routes see the same bf16 values and differ only in the
 # order LN(4000) sums them: P(present) agree far inside this
 ROUTE_TOL = 0.05
@@ -382,16 +414,26 @@ KERNELS = {
                                         "spatial_attention.py:297", "qknorm_attention_tc.cu",
                                         ["qknorm_attention_tc.cu", "gemm.cu"],
                                         "qk_attention_tc_bwd", "ctclip_train"),
+    # K10 bf16: its core on qknorm_attention_short.cu's bf16 form (true f32
+    # inside, at the TPU kernel's rounding points; counter
+    # qk_attention_short_bwd), every product on ffn_tc.cu (`wgmma`)
     "grid_attention_bwd": _kernel("_pallas_small_qknorm_bwd (grid_layout)",
-                                  "small_attention.py:437", "qknorm_attention_bwd.cu",
+                                  "small_attention.py:437", "qknorm_attention_short.cu",
                                   ["layernorm.cu", "ffn_tc.cu", "gemm.cu",
-                                   "qknorm_attention_bwd.cu"],
+                                   "qknorm_attention_short.cu"],
                                   "grid_attention_bwd", "ctclip_train"),
+    # K10's bf16 attention core alone (the route kernels.qk_bwd_route gives
+    # its 16-31-token sequences, grid and sequence-major), its own counter
+    "grid_attention_bwd_short": _kernel("_pallas_small_qknorm_bwd (bf16 attention core)",
+                                        "small_attention.py:437", "qknorm_attention_short.cu",
+                                        ["qknorm_attention_short.cu", "gemm.cu"],
+                                        "qk_attention_short_bwd", "ctclip_train"),
     "peg_bwd": _kernel("_pallas_peg_bwd", "peg.py:181", "peg_bwd.cu",
                        ["peg_bwd.cu", "gemm.cu"], "peg_bwd", "ctclip_train"),
     "vq_cluster_stats": _kernel("pallas_cluster_stats", "vq.py:168", "vq_stats.cu",
                                 ["vq_stats.cu"], "vq_cluster_stats", "ctclip_train"),
-    "vq_assign_exact": _kernel("pallas_assign (exact)", "vq.py:104", "gemm.cu", ["gemm.cu"],
+    # K5 exact on vq_tc.cu (`wgmma`, counter vq_assign_exact_tc beside it)
+    "vq_assign_exact": _kernel("pallas_assign (exact)", "vq.py:104", "vq_tc.cu", ["vq_tc.cu"],
                                "vq_assign_exact", "ctclip_train"),
     "attention_dropout_bf16": _kernel("_pallas_attention_kbias_drop_impl (bf16)",
                                       "attention.py:474", "attention_tc.cu", ATTN_TC,
@@ -413,9 +455,9 @@ KERNELS = {
                              ["layernorm.cu", "ffn_tc.cu", "qknorm_attention_short.cu"],
                              "seq_attention", "ctvit_ae_train"),
     "seq_attention_bwd": _kernel("_pallas_small_qknorm_bwd (sequence-major)",
-                                 "small_attention.py:437", "qknorm_attention_bwd.cu",
+                                 "small_attention.py:437", "qknorm_attention_short.cu",
                                  ["layernorm.cu", "ffn_tc.cu", "gemm.cu",
-                                  "qknorm_attention_bwd.cu"],
+                                  "qknorm_attention_short.cu"],
                                  "seq_attention_bwd", "ctvit_ae_train"),
     "attention_dense": _kernel("_pallas_attention (dense bias)", "attention.py:157",
                                "attention_tc.cu", ATTN_TC, "attention_dense",
@@ -532,8 +574,9 @@ KERNELS = {
                                             "qknorm_attention_short.cu",
                                             ["qknorm_attention_short.cu"],
                                             "qk_attention_short_bwd_f32", "ctclip_f32_train"),
-    "vq_assign_exact_f32": _kernel("pallas_assign (exact, f32 rows)", "vq.py:104", "gemm.cu",
-                                   ["gemm.cu"], "vq_assign_exact_f32", "ctclip_f32_train"),
+    # K5 exact on f32 rows: vq_tc.cu's splitting pre-pass, then its exact form
+    "vq_assign_exact_f32": _kernel("pallas_assign (exact, f32 rows)", "vq.py:104", "vq_tc.cu",
+                                   ["vq_tc.cu"], "vq_assign_exact_f32", "ctclip_f32_train"),
     "vq_cluster_stats_f32": _kernel("pallas_cluster_stats (f32 rows)", "vq.py:168",
                                     "vq_stats.cu", ["vq_stats.cu"], "vq_cluster_stats_f32",
                                     "ctclip_f32_train"),
@@ -559,7 +602,7 @@ PATHS = {
     # the training step (K13a and K13b on the tensor cores) and the mini
     # evaluation (K6 ingest, K4 embed, K5)
     "ctclip_train": ["geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm", "spatial_attention_bwd",
-                     "qk_attention_tc_bwd",
+                     "qk_attention_tc_bwd", "qk_attention_short_bwd", "vq_assign_exact_tc",
                      "grid_attention_bwd", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
                      "geglu_ff", "ff_tc_fwd", "spatial_attention", "qk_attention_tc",
                      "grid_attention", "qk_attention_short", "qk_proj_tc",
@@ -575,6 +618,7 @@ PATHS = {
 AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "ff_tc_ln_sums", "rearrange_patches",
              "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm",
              "spatial_attention_bwd", "qk_attention_tc_bwd", "grid_attention_bwd", "peg_bwd",
+             "qk_attention_short_bwd", "vq_assign_exact_tc",
              "vq_cluster_stats", "vq_assign_exact", "geglu_ff", "ff_tc_fwd", "spatial_attention",
              "qk_attention_tc", "grid_attention", "qk_attention_short", "qk_proj_tc",
              "attention_dropout", "attention_dropout_bwd", "attention_tc", "attention_tc_bwd"]
@@ -585,7 +629,7 @@ PATHS["ctclip_aux_filip_simclr"] = AUX_TRAIN
 # (training embed K6, decoder un-patchify K17 forward and K6 backward),
 # `cli reconstruct` on the cubic 24^3 grid, CT-CLIP at 160 frames (16, 24, 24)
 AE_TRAIN = ["seq_attention", "qk_attention_short", "qk_proj_tc", "seq_attention_bwd",
-            "spatial_attention", "qk_attention_tc",
+            "qk_attention_short_bwd", "vq_assign_exact_tc", "spatial_attention", "qk_attention_tc",
             "spatial_attention_bwd", "qk_attention_tc_bwd", "geglu_ff", "ff_tc_fwd",
             "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm",
             "peg_bwd", "vq_cluster_stats", "vq_assign_exact", "rearrange_patches",
@@ -597,7 +641,8 @@ PATHS["reconstruct"] = ["patch_embed", "spatial_attention", "qk_attention_tc", "
                         "qk_attention_short", "qk_proj_tc", "geglu_ff", "ff_tc_fwd",
                         "vq_assign", "vq_assign_tc", "unrearrange_patches"]
 PATHS["ctclip_160_train"] = ["seq_attention", "qk_attention_short", "qk_proj_tc",
-                             "seq_attention_bwd", "spatial_attention",
+                             "seq_attention_bwd", "qk_attention_short_bwd",
+                             "vq_assign_exact_tc", "spatial_attention",
                              "qk_attention_tc", "spatial_attention_bwd", "qk_attention_tc_bwd",
                              "geglu_ff", "ff_tc_fwd",
                              "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
@@ -662,7 +707,8 @@ PATHS["maskgit_f32_sample"] = ["attention_dense", "fused_attention", "attention_
 PATHS["ctclip_f32_train"] = ["spatial_attention_bwd_f32", "qk_attention_tc32_bwd",
                              "grid_attention_bwd_f32", "qk_attention_short_bwd_f32",
                              "ff_tc32_tile", "tc32_gemm_tn",
-                             "vq_assign_exact_f32", "vq_cluster_stats_f32", "geglu_ff_bwd_f32",
+                             "vq_assign_exact_f32", "vq_assign_exact_tc",
+                             "vq_cluster_stats_f32", "geglu_ff_bwd_f32",
                              "geglu_ff_f32", "geglu_ff_tc32", "spatial_attention_f32",
                              "qk_attention_tc32", "tc32_gemm", "grid_attention_f32",
                              "qk_attention_short_f32", "rearrange_patches_f32",
@@ -676,8 +722,8 @@ AE_F32_TRAIN = ["seq_attention_f32", "qk_attention_short_f32", "seq_attention_bw
                 "spatial_attention_f32",
                 "qk_attention_tc32", "tc32_gemm", "spatial_attention_bwd_f32", "qk_attention_tc32_bwd", "geglu_ff_f32",
                 "geglu_ff_tc32", "geglu_ff_bwd_f32", "peg_dw_plain",
-                "vq_cluster_stats_f32", "vq_assign_exact_f32", "rearrange_patches_f32",
-                "unrearrange_patches_f32"]
+                "vq_cluster_stats_f32", "vq_assign_exact_f32", "vq_assign_exact_tc",
+                "rearrange_patches_f32", "unrearrange_patches_f32"]
 PATHS["ctvit_ae_f32_train"] = AE_F32_TRAIN
 PATHS["ctvit_ae_f32_discr"] = AE_F32_TRAIN
 # the paths on a non-cubic grid must not take the grid form, and back
@@ -935,6 +981,52 @@ def k5_planted_ties(dev) -> dict:
     return dict(rows_tied_at_max=tied, ids_equal_torch_argmax=equal)
 
 
+def k5_exact_planted_ties(dev, rows_form: str) -> dict:
+    """K5 exact on vq_tc.cu on exactly tied similarities at the contrastive
+    step's (110,592, 512, 8,192), as `k5_planted_ties`: codes of integers
+    in [-1, 1] (so c_lo = 0), the best code of one row in eleven copied to
+    another index; bf16 rows of integers in [-2, 2], or f32 rows of 64
+    entries +-1 (the rest 0), which normalise exactly (xn = +-1/8, xl = 0):
+    every product and f32 sum exact, in any order.  The ids must equal
+    torch.argmax's on the exact similarities, bit for bit (the lower code
+    wins a tie)."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.vq import vq_assign
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows, dim, codes = TRAIN_B * 13824, 512, 8192
+    if rows_form == "bf16":
+        x = torch.randint(-2, 3, (rows, dim), generator=g, device=dev).to(torch.bfloat16)
+        xs = x.float()
+    else:
+        x = torch.zeros((rows, dim), device=dev)
+        at = torch.rand((rows, dim), generator=g, device=dev).argsort(dim=1)[:, :64]
+        x.scatter_(1, at, torch.randint(0, 2, (rows, 64), generator=g, device=dev).float() * 2 - 1)
+        xs = x / 8
+        del at
+    c = torch.randint(-1, 2, (codes, dim), generator=g, device=dev).float()
+    best = (xs @ c.t()).argmax(dim=-1)[::11]
+    dst = torch.randint(0, codes, best.shape, generator=g, device=dev)
+    c[dst] = c[best]
+    sim = xs @ c.t()
+    want = sim.argmax(dim=-1).to(torch.int32)
+    tied = int(((sim == sim.max(dim=-1, keepdim=True).values).sum(dim=-1) > 1).sum())
+    del sim, xs
+    K.reset_launch_counts()
+    got = vq_assign(x, c, exact=True)
+    torch.cuda.synchronize()
+    launched = K.launch_counts()["vq_assign_exact_tc"]
+    equal = bool(torch.equal(got, want))
+    log(f"kernel vq_assign exact ({rows_form} rows) on planted exact ties: {tied} of {rows} rows "
+        f"tie at their max; ids equal to torch.argmax's: {equal} (vq_tc.cu launches {launched})")
+    if not equal or tied < 1000 or launched != 1:
+        raise AssertionError(f"vq_assign exact ({rows_form}) planted ties: equal {equal}, tied "
+                             f"rows {tied}, launches {launched}")
+    return dict(rows_tied_at_max=tied, ids_equal_torch_argmax=equal)
+
+
 def timing(case, out) -> dict:
     """Median kernel, plain and library times, and the bound, of one case
     (`out`: the tensor or tensors the call writes)."""
@@ -1051,6 +1143,78 @@ def replaced_qk_bwd_f32(fn):
         with replaced(K, "qk_bwd_route", lambda *a: K.QK_CUDA_CORES):
             return fn()
     return run
+
+
+def replaced_qk_bwd_bf16(fn):
+    """`fn`, a call that reaches K9 / K10 bf16's backward, on the path that
+    ffn_tc.cu's NN / TN products and K10's short core replaced: the products
+    on gemm.cu's gemm_layout (kernels.gemm_nn_tc and gemm_tn_tc answered by
+    gemm_nn and gemm_tn) and kernels.qk_bwd_route answering QK_CUDA_CORES
+    (K10's core on qknorm_attention_bwd.cu at K9's rounding points; K9's
+    core stays on qknorm_attention_tc.cu); the q and kv recompute on
+    ffn_tc.cu's NT store form, as before."""
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    def run():
+        with replaced(K, "qk_bwd_route", lambda *a: K.QK_CUDA_CORES), \
+                replaced(K, "gemm_nn_tc", K.gemm_nn), replaced(K, "gemm_tn_tc", K.gemm_tn):
+            return fn()
+    return run
+
+
+# the sources of K9 / K10 bf16's replaced path (`replaced_qk_bwd_bf16`)
+K10_REPLACED = ("qknorm_attention_bwd.cu (qk_attention_bwd_kernel) and gemm.cu's WMMA "
+                "products (gemm_layout_kernel)")
+K9_REPLACED = "qknorm_attention_tc.cu's core (as now) and gemm.cu's WMMA products"
+
+
+def k10_bf16_check(name: str, copy=None):
+    """The check of K10 bf16's whole backward (seven gradients) or of its
+    core alone (`copy`: a call of the core on a one-change copy, whose
+    outputs must miss the mean tolerance): each output's max error within
+    REL_TOL of max|plain| and its mean error within the mean tolerance of
+    mean|plain| (K10_MEAN_TOL whole, K2_POINT_TOL for the core's merged, dq
+    and dkv; the core's f32 scale sums within F32_REL_TOL)."""
+    def check(got, ref):
+        core = copy is not None
+        rels = [_rel_errors((a,), (b,))[1] for a, b in zip(got, ref)]
+        means = [_mean_rel_error(a, b) for a, b in zip(got, ref)]
+        if core:
+            ok = all(r <= REL_TOL and m <= K2_POINT_TOL for r, m in zip(rels[:3], means[:3])) \
+                and all(r <= F32_REL_TOL for r in rels[3:])
+            tol = (f"merged, dq, dkv: rel {REL_TOL} of max and {K2_POINT_TOL} of mean; the "
+                   f"scale sums rel {F32_REL_TOL}")
+        else:
+            ok = all(r <= REL_TOL for r in rels) and all(m <= K10_MEAN_TOL for m in means)
+            tol = f"rel {REL_TOL} of max and {K10_MEAN_TOL} of mean, each output"
+        res = dict(max_abs_err=_rel_errors(got, ref)[0], max_rel_err=max(rels),
+                   rel_err_by_output=rels, mean_rel_err_by_output=means, tolerance=tol)
+        log(f"kernel {name}: by output max_rel_err {[f'{r:.2e}' for r in rels]}, mean "
+            f"{[f'{m:.2e}' for m in means]} ({tol})")
+        if core:
+            cmeans = [_mean_rel_error(a, b) for a, b in zip(_as_tuple(copy())[:3], ref[:3])]
+            res["round_p_copy_mean_rel_err"] = cmeans
+            missed = max(cmeans) > K2_POINT_TOL
+            log(f"kernel {name}: the copy with P rounded to bf16 (CT_QK_SHORT_BWD_ROUND_P) "
+                f"reads mean {[f'{m:.2e}' for m in cmeans]}: outside {missed}")
+            ok = ok and missed
+        return ok, res
+    return check
+
+
+def k10_points_miss(name: str, res: dict, twin, ref) -> None:
+    """K9's rounding points (the replaced path `twin`) must miss K10_MEAN_TOL
+    against the plain version at the TPU's points `ref`."""
+    import torch
+
+    got = _as_tuple(twin())
+    torch.cuda.synchronize()
+    means = [_mean_rel_error(a, b) for a, b in zip(got, ref)]
+    res["replaced"]["mean_rel_err_by_output"] = means
+    log(f"kernel {name}: the replaced path (K9's rounding points) reads mean "
+        f"{[f'{m:.2e}' for m in means]}: must exceed {K10_MEAN_TOL}")
+    if min(means) <= K10_MEAN_TOL:
+        raise AssertionError(f"{name}: K9's rounding points read within {K10_MEAN_TOL}")
 
 
 def cuda_core_k2(fn):
@@ -2033,11 +2197,12 @@ def train_kernel_cases(dev):
         fused_attention_kbias_dropout, peg_dw, peg_dw_plain)
     from ct_clip_tpu_torch.ops.ffn import fused_geglu_ff, geglu_ff_bwd_plain
     from ct_clip_tpu_torch.ops.norms import l2norm
+    from ct_clip_tpu_torch.ops import kernels as K
     from ct_clip_tpu_torch.ops.qknorm_attention import (
         fused_grid_qknorm_attention, fused_spatial_qknorm_attention,
-        grid_qknorm_attention_bwd_plain, qknorm_attention_bwd_plain)
-    from ct_clip_tpu_torch.ops.vq import (cluster_stats, cluster_stats_plain, vq_assign,
-                                          vq_assign_plain)
+        qknorm_attention_bwd_plain, small_qknorm_bwd_plain)
+    from ct_clip_tpu_torch.ops.vq import (cluster_stats, cluster_stats_plain, split_hi_lo,
+                                          vq_assign, vq_assign_plain)
 
     g = torch.Generator(device=dev).manual_seed(30)
     bf, f32 = torch.bfloat16, torch.float32
@@ -2077,20 +2242,26 @@ def train_kernel_cases(dev):
     leaves = [t.clone().requires_grad_() for t in (xs, *w_attn, cpb)]
     k9 = grad_case(lambda *a: fused_spatial_qknorm_attention(*a, heads, dh), leaves, dos)
     yield "spatial_attention_bwd", dict(
-        kern=k9, twin=cuda_core_k9(k9), twin_source="qknorm_attention_bwd.cu",
+        kern=k9, twin=replaced_qk_bwd_bf16(k9), twin_source=K9_REPLACED,
         plain=lambda: qknorm_attention_bwd_plain(xs, *w_attn, cpb, dos, heads, dh),
         library=None, inputs=(xs, dos, *w_attn, cpb), outputs=(xs, *w_attn, cpb),
         flops=proj + 12 * TRAIN_B * 24 * heads * 576 * 576 * dh, tol=BWD_REL_TOL)
     del xs, dos, cpb, leaves, k9
     yield "spatial_attention_bwd_tc", qk_core_case(dev, g, TRAIN_B * 24, 576)
+    # K10 bf16: against its plain version at the TPU kernel's rounding
+    # points; K9's points (the replaced path) must miss the mean tolerance
     xg, dog = rn(TRAIN_B, 24, 576, dim, dtype=bf), rn(TRAIN_B, 24, 576, dim, dtype=bf)
     leaves = [t.clone().requires_grad_() for t in (xg, *w_attn)]
+    k10 = grad_case(lambda *a: fused_grid_qknorm_attention(*a, heads, dh), leaves, dog)
     yield "grid_attention_bwd", dict(
-        kern=grad_case(lambda *a: fused_grid_qknorm_attention(*a, heads, dh), leaves, dog),
-        plain=lambda: grid_qknorm_attention_bwd_plain(xg, *w_attn, dog, heads, dh),
+        kern=k10, plain=lambda: small_qknorm_bwd_plain(xg, *w_attn, dog, heads, dh, 8.0, True),
+        check=k10_bf16_check("grid_attention_bwd"), twin=replaced_qk_bwd_bf16(k10),
+        twin_source=K10_REPLACED, twin_must_miss=True, bit_identical=True,
         library=None, inputs=(xg, dog, *w_attn), outputs=(xg, *w_attn),
-        flops=proj + 12 * TRAIN_B * 576 * heads * 24 * 24 * dh, tol=BWD_REL_TOL)
-    del xg, dog, leaves, w_attn
+        flops=proj + 12 * TRAIN_B * 576 * heads * 24 * 24 * dh)
+    del xg, dog, leaves, k10
+    yield "grid_attention_bwd_short", short_core_bf16_case(dev, g, w_attn, TRAIN_B, 24, 576)
+    del w_attn
 
     # K14 on the frame-causal PEG (leading pads t 2, h 1, w 1); the library
     # call is cuDNN's weight and bias gradient of the same padded conv
@@ -2123,14 +2294,24 @@ def train_kernel_cases(dev):
         flops=3 * R * dim, tol=SUM_REL_TOL)
     del ids
 
-    # K5 exact: ids, checked as the inference K5 (agreement, near-ties)
+    # K5 exact on vq_tc.cu: ids, checked as the inference K5 (agreement,
+    # near-ties), at the contrastive step's rows and the autoencoder's
+    # 10,240; gemm.cu's gemm_argmax2_kernel timed beside it
     embed_n = l2norm(rn(8192, dim))
-    yield "vq_assign_exact", dict(
-        kern=lambda: vq_assign(xv, embed_n, exact=True),
-        plain=lambda: vq_assign_plain(xv, embed_n, exact=True), library=None,
-        inputs=(xv, embed_n), outputs=(torch.empty(R, dtype=torch.int32, device=dev),),
-        flops=2 * 2 * R * dim * 8192, ids=True)
-    del xv, embed_n
+    hi, lo = split_hi_lo(embed_n)
+    for label, x5 in (("vq_assign_exact", xv), ("vq_assign_exact_10240", xv[:10240])):
+        yield label, dict(
+            kern=lambda x5=x5: vq_assign(x5, embed_n, exact=True),
+            plain=lambda x5=x5: vq_assign_plain(x5, embed_n, exact=True), library=None,
+            twin=lambda x5=x5: K.gemm_argmax(x5, hi, lo),
+            twin_source="gemm.cu (gemm_argmax2_kernel, WMMA)",
+            yardstick=lambda x5=x5: (x5.float() @ hi.float().t()).add_(
+                x5.float() @ lo.float().t()).argmax(dim=-1),
+            yardstick_is="x c_hi^T + x c_lo^T in f32 (cuBLAS), then argmax",
+            inputs=(x5, embed_n), outputs=(torch.empty(x5.shape[0], dtype=torch.int32,
+                                                       device=dev),),
+            flops=2 * 2 * x5.shape[0] * dim * 8192, ids=True)
+    del xv, embed_n, hi, lo
 
     # K13 in bf16 at CXR-BERT's training batch (8, 12, 512, 64): K13a and
     # K13b on attention_tc.cu
@@ -2243,6 +2424,8 @@ def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
         elif case.get("twin"):
             res["replaced"] = twin_result(name, case["twin"], ref,
                                           case.get("twin_source", "attention_train.cu"))
+        if case.get("twin_must_miss"):  # K10 bf16: K9's rounding points miss the mean
+            k10_points_miss(name, res, case["twin"], ref)
         yardstick(case, res, name)
         for label, copy in case.get("copies", {}).items():  # one-change copies must miss
             crels = [_rel_errors((c,), (r,))[1] for c, r in zip(_as_tuple(copy()), ref)]
@@ -2981,8 +3164,11 @@ CTCLIP_GROUPS = (
     ("K11 f32 tile and the f32 backwards' TN products and transposed splits, 3xTF32 on the "
      "tensor cores (ffn_tc32.cu: ff_tc32_bwd_kernel, tc32_split_t_kernel)",
      ("ff_tc32_bwd_kernel", "tc32_split_t_kernel")),
-    ("K10 f32 attention core backward on 16-31-token sequences (qknorm_attention_short.cu: "
-     "qk_short_bwd_f32)", ("qk_short_bwd",)),
+    ("K10 attention core backward on 16-31-token sequences, bf16 and f32 "
+     "(qknorm_attention_short.cu: qk_short_bwd<true>, <false>)", ("qk_short_bwd",)),
+    ("K5 exact assignment on the tensor cores (vq_tc.cu: vq_tc_argmax<1>, <2>, and the f32 "
+     "rows' splitting pre-pass vq_rows_bf16_kernel<true>)",
+     ("vq_tc_argmax<1>", "vq_tc_argmax<2>", "vq_rows_bf16_kernel<true>")),
     ("K3 f32 and K1 f32's projections, 3xTF32 on the tensor cores (ffn_tc32.cu: "
      "ff_tc32_kernel, tc32_split_kernel; the f32 backwards' plain-store products too)",
      ("ff_tc32_kernel", "tc32_split_kernel")),
@@ -2997,7 +3183,8 @@ CTCLIP_GROUPS = (
      "K10's recompute too)", ("ff_tc_gemm<0, 5>", "ff_tc_gemm<0,5>")),
     ("K5 inference assignment on the tensor cores (vq_tc.cu: vq_tc_argmax, and the f32 rows' "
      "pre-pass vq_rows_bf16_kernel)", ("vq_tc_argmax", "vq_rows_bf16")),
-    ("K11 bf16 tile and products on the tensor cores (ffn_tc.cu: ff_tc_tile, ff_tc_gemm)",
+    ("K11 bf16 tile and products, K9 / K10 bf16's products on the tensor cores (ffn_tc.cu: "
+     "ff_tc_tile, ff_tc_gemm; K10's f32-store NT recompute <0, 6>, K9's bf16-store NN <0, 7>)",
      ("ff_tc_",)),
     ("K11 GEGLU FF backward tile (ff_bwd_kernel)", ("ff_bwd_kernel",)),
     ("backward products NN/TN + split sums (gemm_layout_kernel, sum_splits)",
@@ -3013,7 +3200,8 @@ CTCLIP_GROUPS = (
     ("K9 f32 attention core backward, 3xTF32 on the tensor cores (qknorm_attention_tc32.cu; "
      "the pre-pass of K1 f32's too)", ("qk32_",)),
     ("K9/K10 attention core backward (qk_attention_bwd_kernel)", ("qk_attention_bwd_kernel",)),
-    ("LayerNorm backward (ln_bwd_kernel)", ("ln_bwd_kernel",)),
+    ("LayerNorm backward (ln_bwd_kernel; the warp-a-row ln_bwd_rows_kernel, f32 and bf16)",
+     ("ln_bwd_kernel", "ln_bwd_rows_kernel")),
     ("K14 PEG dW/db (peg_dw_kernel)", ("peg_dw_kernel",)),
     ("K15 VQ statistics (vq_stats.cu)", ("rank_kernel", "scan_kernel", "place_kernel",
                                          "sum_kernel")),
@@ -3092,15 +3280,19 @@ def timed_steps(step, state, batch, card: str, label: str, batch_size: int,
 # (attention_tc32.cu), K11's tile, K10's short core and the backwards'
 # products in 3xTF32 (ffn_tc32.cu)
 CLIP_PER_STEP = {
+    # K11's three products, K9's and K10's six each on ffn_tc.cu
     "bf16": dict(attention_dropout=BERT_LAYERS, attention_dropout_bwd=BERT_LAYERS,
                  attention_tc_bwd=BERT_LAYERS, spatial_attention_bwd=4, qk_attention_tc_bwd=4,
-                 geglu_ff_bwd=8, ff_tc_tile=8, ff_tc_gemm=24, qk_attention_tc32_bwd=0),
+                 grid_attention_bwd=4, qk_attention_short_bwd=4, vq_assign_exact=1,
+                 vq_assign_exact_tc=1, geglu_ff_bwd=8, ff_tc_tile=8, ff_tc_gemm=3 * 8 + 6 * 8,
+                 qk_attention_tc32_bwd=0, qk_attention_short_bwd_f32=0),
     "f32": dict(spatial_attention_bwd_f32=4, grid_attention_bwd_f32=4, vq_assign_exact_f32=1,
                 vq_cluster_stats_f32=1, geglu_ff_bwd_f32=8, attention_dropout=BERT_LAYERS,
                 attention_dropout_bwd=BERT_LAYERS, attention_tc32_bwd=BERT_LAYERS,
                 attention_tc=0, attention_tc_bwd=0, peg_bwd=0, spatial_attention_bwd=4,
                 grid_attention_bwd=4, qk_attention_tc_bwd=0, qk_attention_tc32_bwd=4,
                 ff_tc_tile=0, ff_tc_gemm=0, ff_tc32_tile=8, qk_attention_short_bwd_f32=4,
+                vq_assign_exact_tc=1,
                 # K11: two TN products; K9 and K10: three TN (their plain-store
                 # products count as tc32_gemm, checked with the forwards')
                 tc32_gemm_tn=2 * 8 + 3 * 8, qk_proj_gemm=0),
@@ -3764,7 +3956,7 @@ def seq_kernel_cases(dev):
 
     from ct_clip_tpu_torch.ops.qknorm_attention import (
         fused_small_qknorm_attention, fused_spatial_qknorm_attention,
-        qknorm_attention_bwd_plain, qknorm_attention_plain)
+        qknorm_attention_bwd_plain, qknorm_attention_plain, small_qknorm_bwd_plain)
 
     g = torch.Generator(device=dev).manual_seed(50)
     bf, f32 = torch.bfloat16, torch.float32
@@ -3798,18 +3990,28 @@ def seq_kernel_cases(dev):
         leaves = [t.clone().requires_grad_() for t in (x, *w, *extra)]
         out = fwd(*leaves)
         kern = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
-        # K9 (a bias): the replaced CUDA-core core timed beside the tensor cores'
-        twin = {} if bias is None else dict(twin=cuda_core_k9(kern),
-                                            twin_source="qknorm_attention_bwd.cu")
+        # the replaced path timed beside: gemm.cu's products (K9's core as
+        # now; K10's on the CUDA cores at K9's rounding points, which must
+        # miss K10's mean tolerance)
+        if bias is None:
+            check = dict(plain=lambda: small_qknorm_bwd_plain(x, *w, do, heads, dh),
+                         check=k10_bf16_check(name + "_bwd"), twin_source=K10_REPLACED,
+                         twin_must_miss=True, bit_identical=True)
+        else:
+            check = dict(plain=lambda: tuple(t for t in qknorm_attention_bwd_plain(
+                x, *w, bias, do, heads, dh) if t is not None), tol=BWD_REL_TOL,
+                twin_source=K9_REPLACED)
         yield name + "_bwd", dict(
-            kern=kern, **twin,
-            plain=lambda: tuple(t for t in qknorm_attention_bwd_plain(
-                x, *w, bias, do, heads, dh) if t is not None),
+            kern=kern, twin=replaced_qk_bwd_bf16(kern), **check,
             library=None, inputs=(x, do, *w, *extra), outputs=(x, *w, *extra),
-            flops=2 * rows * dim * hd * 11 + 3 * core, tol=BWD_REL_TOL)
+            flops=2 * rows * dim * hd * 11 + 3 * core)
 
     yield from pair("seq_attention", CLIP160_B * 576, 16, None)
+    yield "grid_attention_bwd_short_seq16", short_core_bf16_case(dev, g, w, CLIP160_B * 576,
+                                                                 16, 1)
     yield from pair("seq_attention_generatect", AE_B * 64, 20, None)
+    yield "grid_attention_bwd_short_generatect", short_core_bf16_case(dev, g, w, AE_B * 64, 20,
+                                                                      1)
     yield from pair("spatial_attention_n64", AE_B * AE_FRAMES // 10, 64, rn(heads, 64, 64))
     yield "spatial_attention_n64_bwd_tc", qk_core_case(dev, g, AE_B * AE_FRAMES // 10, 64)
 
@@ -4087,6 +4289,94 @@ def tiny_ae_phase(dev, work: Path) -> dict:
         ae_planted_faults(), "CTViT autoencoder", vq_prefix="vq._codebook.",
         grad_ratio=TINY_AE_GRAD_RATIO)
     return res
+
+
+def tiny_ae_short_config():
+    """A tiny bf16 autoencoder whose temporal stage takes K10 bf16's short
+    route: heads of 32 on a non-cubic (16, 4, 4) grid (16-token sequences,
+    `kernels.qk_bwd_route`), as the tiny f32 one of `tiny_f32_configs`."""
+    from ct_clip_tpu_torch.config import CTViTConfig
+
+    return CTViTConfig(dim=64, codebook_size=768, image_size=64, patch_size=16,
+                       temporal_patch_size=4, num_frames=64, spatial_depth=1, temporal_depth=1,
+                       dim_head=32, heads=2, with_decoder=True)
+
+
+def short_core_checked(fn, record: list):
+    """kernels.qk_attention_short_bwd as `fn` computes it (the build, or a
+    one-change copy), each bf16 call's merged, dq and dkv held against the
+    plain version of the core at the TPU kernel's rounding points
+    (`qk_short_bwd_core_plain`) on its own inputs: the mean error of each
+    call, over its three outputs the largest, into `record`."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import qk_short_bwd_core_plain
+
+    def call(q, kv, dout, **kw):
+        out = fn(q, kv, dout, **kw)
+        if kw.get("out_dtype") is not None and kw["out_dtype"] != q.dtype \
+                and kw["inner"] == 1:  # the bf16 form on sequences
+            ref = qk_short_bwd_core_plain(q, kv, dout, kw["heads"], kw["d"], kw["n"],
+                                          kw["q_scale"], kw["k_scale"])
+            record.append(max(_mean_rel_error(a, b) for a, b in zip(out[:3], ref[:3])))
+        return out
+    return call
+
+
+def tiny_ae_short_phase(dev, work: Path) -> dict:
+    """One tiny bf16 autoencoder generator step on K10 bf16's short route
+    (`tiny_ae_short_config`), card against CPU as `tiny_ae_phase` holds it,
+    every short-core call of the card step also held against its plain
+    version on its own inputs (mean error within K2_POINT_TOL of
+    mean|plain|); then with the short core's copy rounding P to bf16
+    (CT_QK_SHORT_BWD_ROUND_P), which must fail."""
+    import functools
+
+    import torch
+
+    from ct_clip_tpu_torch.models import CTViT
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    cfg, lr, bf = tiny_ae_short_config(), 1e-3, torch.bfloat16
+    video = torch.rand((2, 64, 64, 64, 1), generator=torch.Generator().manual_seed(21)) * 2 - 1
+    cpu = CTViT(cfg, dtype=bf).init_weights(torch.Generator().manual_seed(22))
+    seed_codebook_at_tokens(cpu, video)
+    start = {k: t.clone() for k, t in cpu.state_dict().items()}
+
+    def side(device, dtype):
+        return tiny_ae_side(cfg, start, video, device, dtype, lr,
+                            work / f"tiny_ae_short_{device.type}")
+    c, c32 = side(torch.device("cpu"), bf), side(torch.device("cpu"), torch.float32)
+    held = dict(vq_prefix="vq._codebook.", grad_ratio=TINY_AE_GRAD_RATIO)
+    copy = K.copy_library("qknorm_attention_short.cu", CT_QK_SHORT_BWD_ROUND_P=1)
+    out = {}
+    for label, core in (("kernels as built", K.qk_attention_short_bwd),
+                        ("planted fault: the short core with P rounded to bf16",
+                         functools.partial(K.qk_attention_short_bwd, lib=copy))):
+        record = []
+        K.reset_launch_counts()
+        with replaced(K, "qk_attention_short_bwd", short_core_checked(core, record)):
+            gp = side(dev, bf)
+        counts = K.launch_counts()
+        res, failures = compare_tiny_steps(c, c32, gp, start, lr, **held)
+        res["short_core_mean_rel_err"] = max(record) if record else None
+        if not record or max(record) > K2_POINT_TOL:
+            failures = failures + ["K10 bf16's short core against its plain version"]
+        _log_tiny(f"CTViT autoencoder (bf16, K10's short route), {label}", res, failures)
+        log(f"reference: tiny bf16 short-route autoencoder, {label}: {len(record)} short-core "
+            f"calls, largest mean error {res['short_core_mean_rel_err']} (limit {K2_POINT_TOL}); "
+            f"launches qk_attention_short_bwd {counts['qk_attention_short_bwd']}, "
+            f"seq_attention_bwd {counts['seq_attention_bwd']}, vq_assign_exact_tc "
+            f"{counts['vq_assign_exact_tc']}")
+        fault = label != "kernels as built"
+        if not fault and (failures or not counts["qk_attention_short_bwd"]
+                          or not counts["vq_assign_exact_tc"]):
+            raise AssertionError(f"tiny bf16 short-route autoencoder step: card and CPU "
+                                 f"disagree on {failures}, launches {counts}: {res}")
+        if fault and not failures:
+            raise AssertionError(f"tiny bf16 short-route autoencoder step: the planted fault "
+                                 f"passes: {res}")
+        out[label] = dict(outside=failures, **{k: res[k] for k in (
+            "grad_ratio", "grad_worst", "short_core_mean_rel_err") if k in res})
+    return out
 
 
 # ---------------------------------------------------------------- phase 9
@@ -5244,6 +5534,33 @@ def qk_core_f32_case(dev, g, w, S: int, n: int) -> dict:
                 peak=PEAK_TF32_FLOPS, flops=3 * flops, f32_flops=flops)
 
 
+def short_core_inputs(dev, g, w, B: int, n: int, S: int):
+    """The short backward core's f32 inputs on a (B, n, S) token grid's
+    t-columns (S = 1: B sequences), 8 heads of 32, as the sublayer's backward
+    hands them over: (heads, d, heads d, sequences, q, kv, dmerged, order,
+    layout, in_grid_order), `order` the grid's row of each sequence-major
+    row (c = (b S + s) n + t), `in_grid_order` putting sequence-major rows
+    back in the grid's order."""
+    import torch
+
+    heads, d = 8, 32
+    hd, rows, sequences = heads * d, B * n * S, B * S
+    q, kv, dm = (torch.randn((rows, width), generator=g, device=dev)
+                 for width in (hd, 2 * hd, hd))
+    c = torch.arange(rows, device=dev)
+    order = ((c // n // S) * n + c % n) * S + c // n % S
+    layout = dict(sequences=sequences, inner=S, heads=heads, n=n, d=d,
+                  q_strides=(n * S * hd, hd, d, S * hd),
+                  kv_strides=(n * S * 2 * hd, 2 * hd, d, S * 2 * hd), q_scale=w[3] * 8.0,
+                  k_scale=w[4])
+
+    def in_grid_order(t):
+        out = torch.empty_like(t)
+        out[order] = t
+        return out
+    return heads, d, hd, sequences, q, kv, dm, order, layout, in_grid_order
+
+
 def short_core_f32_case(dev, g, w, B: int, n: int, S: int) -> dict:
     """K10's f32 attention core alone (kernels.qk_attention_short_bwd) on a
     (B, n, S) token grid's t-columns (S = 1: B sequences, sequence-major), 8
@@ -5258,26 +5575,11 @@ def short_core_f32_case(dev, g, w, B: int, n: int, S: int) -> dict:
     written once in f32 (8 x 256 floats a row; the ten TF32 planes the kernel
     writes instead, 14 x 256 floats a row, are its layout's cost, not the
     function's); the six n x n x 32 products at the f32 CUDA-core peak."""
-    import torch
-
     from ct_clip_tpu_torch.ops import kernels as K
     from ct_clip_tpu_torch.ops.qknorm_attention import GRID_GROUPS, qk_attention_bwd_core_plain
 
-    heads, d = 8, 32
-    hd, rows, sequences = heads * d, B * n * S, B * S
-    q, kv, dm = (torch.randn((rows, width), generator=g, device=dev)
-                 for width in (hd, 2 * hd, hd))
-    c = torch.arange(rows, device=dev)  # sequence-major row c = (b S + s) n + t
-    order = ((c // n // S) * n + c % n) * S + c // n % S
-    layout = dict(sequences=sequences, inner=S, heads=heads, n=n, d=d,
-                  q_strides=(n * S * hd, hd, d, S * hd),
-                  kv_strides=(n * S * 2 * hd, 2 * hd, d, S * 2 * hd), q_scale=w[3] * 8.0,
-                  k_scale=w[4])
-
-    def in_grid_order(t):  # sequence-major rows -> the grid's
-        out = torch.empty_like(t)
-        out[order] = t
-        return out
+    heads, d, hd, sequences, q, kv, dm, order, layout, in_grid_order = short_core_inputs(
+        dev, g, w, B, n, S)
 
     def plain():
         merged, dq, dkv, dqs, dks, _ = qk_attention_bwd_core_plain(
@@ -5310,6 +5612,51 @@ def short_core_f32_case(dev, g, w, B: int, n: int, S: int) -> dict:
                 peak=PEAK_F32_FLOPS, flops=12 * sequences * heads * n * n * d)
 
 
+def short_core_bf16_case(dev, g, w, B: int, n: int, S: int) -> dict:
+    """K10's bf16 attention core alone (kernels.qk_attention_short_bwd with
+    out_dtype bf16) on a (B, n, S) token grid's t-columns (S = 1: B
+    sequences, sequence-major), 8 heads of 32, as the bf16 sublayer's
+    backward hands it over (f32 q, kv and dmerged): against the plain
+    version at the TPU kernel's rounding points (`qk_short_bwd_core_plain`,
+    rows put back in the grid's order) by `k10_bf16_check`, with the copy
+    rounding P to bf16 (CT_QK_SHORT_BWD_ROUND_P), which must miss the mean
+    tolerance; the replaced bf16 CUDA-core kernel (qknorm_attention_bwd.cu,
+    K9's rounding points, on the inputs rounded to bf16) timed beside it.
+    Bound: q, kv and dmerged read in f32, merged, dq and dkv written in
+    bf16; the six n x n x 32 products at the f32 CUDA-core peak."""
+    import functools
+
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.qknorm_attention import GRID_GROUPS, qk_short_bwd_core_plain
+
+    heads, d, hd, sequences, q, kv, dm, order, old, in_grid_order = short_core_inputs(
+        dev, g, w, B, n, S)
+    layout = dict(old, out_dtype=torch.bfloat16)
+
+    def plain():
+        merged, dq, dkv, dqs, dks = qk_short_bwd_core_plain(
+            q[order], kv[order], dm[order], heads, d, n, layout["q_scale"], layout["k_scale"])
+        return in_grid_order(merged), in_grid_order(dq), in_grid_order(dkv), dqs, dks
+
+    copy = functools.partial(K.qk_attention_short_bwd, q, kv, dm, **layout, lib=K.copy_library(
+        "qknorm_attention_short.cu", CT_QK_SHORT_BWD_ROUND_P=1))
+    qb, kvb, dmb = q.bfloat16(), kv.bfloat16(), dm.bfloat16()
+
+    def replaced_core():  # the bf16 CUDA-core kernel at n < 32, K9's rounding points
+        return K.qk_attention_bwd(qb, kvb, dmb, group=-(-sequences // min(sequences, GRID_GROUPS)),
+                                  warps=2, **old)[:5]
+    # merged, dq and dkv: 4 heads x 32 bf16 a row
+    outs = torch.empty((q.shape[0], 4 * hd), dtype=torch.bfloat16, device=dev)
+    return dict(kern=lambda: K.qk_attention_short_bwd(q, kv, dm, **layout), plain=plain,
+                check=k10_bf16_check(f"K10 bf16 core at ({B}, {n}, {S})", copy),
+                twin=replaced_core,
+                twin_source="qknorm_attention_bwd.cu (qk_attention_bwd_kernel, bf16 inputs)",
+                bit_identical=True, library=None, inputs=(q, kv, dm), outputs=(outs,),
+                peak=PEAK_F32_FLOPS, flops=12 * sequences * heads * n * n * d)
+
+
 def f32_train_kernel_cases(dev):
     """The f32 training backwards at full width, each against its plain
     version in true f32 (TF32 off): K9 f32 through the sublayer's backward
@@ -5336,10 +5683,11 @@ def f32_train_kernel_cases(dev):
         _qknorm_attention_bwd_tc32, fused_grid_qknorm_attention, fused_small_qknorm_attention,
         fused_spatial_qknorm_attention, grid_qknorm_attention_bwd_plain,
         qknorm_attention_bwd_plain)
-    from ct_clip_tpu_torch.ops.vq import (cluster_stats, cluster_stats_plain,
-                                          cluster_stats_rows_plain, vq_assign,
-                                          vq_assign_exact_rows_plain, vq_assign_exact_rows_sim,
-                                          vq_assign_plain)
+    from ct_clip_tpu_torch.ops.vq import (_lane_inv_norm, _split_rows, cluster_stats,
+                                          cluster_stats_plain, cluster_stats_rows_plain,
+                                          split_hi_lo, vq_assign,
+                                          vq_assign_exact_rows_lane_plain, vq_assign_plain,
+                                          vq_exact_rows_lane_sim)
 
     g = torch.Generator(device=dev).manual_seed(60)
 
@@ -5423,15 +5771,33 @@ def f32_train_kernel_cases(dev):
     yield "seq_attention_bwd_f32_core_generatect", short_core_f32_case(dev, g, w, AE_B * 64, 20,
                                                                        1)
 
-    # K5 exact and K15 on the training batch's f32 rows
+    # K5 exact on vq_tc.cu (its splitting pre-pass, then three products a k
+    # block) and K15 on the training batch's f32 rows, K5 also on the
+    # autoencoder's 10,240: against the plain version of the kernel's own
+    # math (the rows split in `_lane_inv_norm`'s order), gemm.cu's
+    # gemm_argmax3_rows_kernel and a cuBLAS yardstick timed beside it
     xv, embed_n = rn(R, dim), l2norm(rn(8192, dim))
-    yield "vq_assign_exact_f32", dict(
-        f32_case, kern=lambda: vq_assign(xv, embed_n, exact=True),
-        plain=lambda: vq_assign_exact_rows_plain(xv, embed_n),
-        sim=lambda: vq_assign_exact_rows_sim(xv, embed_n),
-        f32_plain=lambda: vq_assign_plain(xv, embed_n, exact=True), inputs=(xv, embed_n),
-        outputs=(torch.empty(R, dtype=torch.int32, device=dev),),
-        flops=2 * 3 * R * dim * 8192, peak=PEAK_BF16_FLOPS, ids=True)
+    hi, lo = split_hi_lo(embed_n)
+
+    def k5_yardstick(x5):  # normalised, split, three f32 products, argmax
+        xh, xl = _split_rows(x5, _lane_inv_norm)
+        return (xh @ hi.float().t()).add_(xh @ lo.float().t()).add_(xl @ hi.float().t()) \
+            .argmax(dim=-1)
+    for label, x5 in (("vq_assign_exact_f32", xv), ("vq_assign_exact_f32_10240", xv[:10240])):
+        yield label, dict(
+            f32_case, kern=lambda x5=x5: vq_assign(x5, embed_n, exact=True),
+            plain=lambda x5=x5: vq_assign_exact_rows_lane_plain(x5, embed_n),
+            sim=lambda x5=x5: vq_exact_rows_lane_sim(x5, embed_n),
+            f32_plain=lambda x5=x5: vq_assign_plain(x5, embed_n, exact=True),
+            twin=lambda x5=x5: K.gemm_argmax(x5, hi, lo),
+            twin_source="gemm.cu (gemm_argmax3_rows_kernel, WMMA)",
+            yardstick=lambda x5=x5: k5_yardstick(x5),
+            yardstick_is="rows normalised and split, xh c_hi^T + xh c_lo^T + xl c_hi^T in f32 "
+                         "(cuBLAS), then argmax",
+            inputs=(x5, embed_n), outputs=(torch.empty(x5.shape[0], dtype=torch.int32,
+                                                       device=dev),),
+            flops=2 * 3 * x5.shape[0] * dim * 8192, peak=PEAK_BF16_FLOPS, ids=True)
+    del hi, lo
     ids = torch.randint(0, 8192, (R,), generator=g, device=dev, dtype=torch.int32)
 
     def stats_check(got, ref):
@@ -5490,9 +5856,11 @@ def f32_train_kernel_phase(dev) -> dict:
     counts = K.launch_counts()
     for k in ("spatial_attention_bwd_f32", "grid_attention_bwd_f32", "seq_attention_bwd_f32",
               "vq_assign_exact_f32", "vq_cluster_stats_f32", "unrearrange_patches_f32",
-              "qk_attention_short_bwd_f32", "tc32_gemm", "tc32_gemm_tn"):
+              "qk_attention_short_bwd_f32", "tc32_gemm", "tc32_gemm_tn", "vq_assign_exact_tc"):
         if not counts[k]:
             raise AssertionError(f"f32 training kernels: {k} never launched")
+    res["vq_assign_exact_f32"]["at_10240"] = res.pop("vq_assign_exact_f32_10240")
+    res["vq_assign_exact_f32"]["planted_ties"] = k5_exact_planted_ties(dev, "f32")
     for key in ("spatial_attention_bwd_f32", "spatial_attention_bwd_f32_tc"):
         res[key]["at_n64"] = res.pop(f"{key}_n64")
     res["seq_attention_bwd_f32"]["at_generatect"] = res.pop("seq_attention_bwd_f32_generatect")
@@ -5689,6 +6057,8 @@ def main() -> int:
     k2_phase(dev, torch.bfloat16, results)
     results.update(train_attention_phase(dev))
     results.update(train_kernel_phase(dev))
+    results["vq_assign_exact"]["at_10240"] = results.pop("vq_assign_exact_10240")
+    results["vq_assign_exact"]["planted_ties"] = k5_exact_planted_ties(dev, "bf16")
     results["attention_dropout_bf16"].update(k13a_bf16_checks(dev))
     work_root = ROOT / "build" / "chip_smoke"
     work_root.mkdir(parents=True, exist_ok=True)
@@ -5723,6 +6093,9 @@ def main() -> int:
         for key in ("spatial_attention", "spatial_attention_bwd", "spatial_attention_bwd_tc"):
             results[key]["at_n64"] = seq[key.replace("spatial_attention",
                                                      "spatial_attention_n64")]
+        for at in ("seq16", "generatect"):
+            results["grid_attention_bwd_short"][f"at_{at}"] = \
+                seq[f"grid_attention_bwd_short_{at}"]
         ae = ctvit_ae_phase(dev, work, card)
         counts.update(ae.pop("counts"))
         recon = reconstruct_phase(dev, work, card)
@@ -5730,6 +6103,7 @@ def main() -> int:
         clip160 = ctclip_160_phase(dev, work, card, corpus)
         counts.update(clip160.pop("counts"))
         ae_ref = tiny_ae_phase(dev, work)
+        ae_ref["short_route_bf16"] = tiny_ae_short_phase(dev, work)
         results.update(dense_attention_phase(dev))
         mg = maskgit_phase(dev, work, card)
         counts.update(mg.pop("counts"))

@@ -61,6 +61,14 @@
 // GFLOP (0.029 ms at 989 TFLOP/s) against ~170 MB of operands and outputs
 // (0.051 ms at 3.35 TB/s): bytes bound them.
 //
+// And the products of the sublayer's bf16 backwards, small_attention.py::
+// _bwd_kernel (K10, :249-403) and spatial_attention.py::_bwd_kernel (K9),
+// which gemm.cu's gemm_layout_kernel ran (it stays for the widths TMA cannot
+// take): dxn = dq wq and dx_kv = dkv wkv on "NN", the weight gradients on
+// "TN", and two more forms: GEMM_NT_F32, K10's q = LN(x) wq^T and kv = x
+// wkv^T kept f32 as the TPU kernel keeps them (:278-279), and
+// GEMM_STORE_BF16, K9's dmerged = dO wout rounded to bf16 once.
+//
 // What bounds it on the H100.  At CT-CLIP's batch 8 (110,592 rows x 512,
 // inner 1,365 padded to 1,368) the tile runs three products of 0.155 TFLOP
 // and the two weight gradients and dxn 0.775 TFLOP more: 1.24 TFLOP, 1.25 ms
@@ -260,6 +268,10 @@ __global__ void __launch_bounds__(NT, 1) ff_tc_tile(const __grid_constant__ Tile
 //                  QK-norm sublayer's output product;
 //   GEMM_NT_STORE  "NT", C bf16 = bf16(acc): the sublayer's q and kv
 //                  projections, rounded once as gemm.cu's EPI_STORE;
+//   GEMM_NT_F32    "NT", C f32 = acc: K10 bf16's recompute of q and kv,
+//                  which small_attention.py::_bwd_kernel keeps f32 (:278-279);
+//   GEMM_STORE_BF16 "NN", C bf16 = bf16(acc): K9 bf16's dmerged = dO wout,
+//                  rounded once as gemm.cu's gemm_layout_kernel rounds it;
 //   GEMM_LN_SUMS   "NN", dxn = dyb W reduced in the epilogue, never stored:
 //                  each accumulator times xhat = (x - mean) rstd of its patch
 //                  row element, x gathered from the volume into shared
@@ -271,7 +283,7 @@ __global__ void __launch_bounds__(NT, 1) ff_tc_tile(const __grid_constant__ Tile
 //                  patchify.py:307-308), which the caller adds in order.
 enum GemmForm {
   GEMM_STORE = 0, GEMM_BIAS = 1, GEMM_LN_SUMS = 2, GEMM_GEGLU = 3, GEMM_RESIDUAL = 4,
-  GEMM_NT_STORE = 5
+  GEMM_NT_STORE = 5, GEMM_NT_F32 = 6, GEMM_STORE_BF16 = 7
 };
 
 struct GemmMaps {
@@ -444,7 +456,7 @@ __global__ void __launch_bounds__(NT, 2) ff_tc_gemm(const __grid_constant__ Gemm
                                                     GemmArgs a) {
   // B K-major in the NT forms
   constexpr int TB = FORM == GEMM_BIAS || FORM == GEMM_GEGLU || FORM == GEMM_RESIDUAL
-                     || FORM == GEMM_NT_STORE ? 0 : 1;
+                     || FORM == GEMM_NT_STORE || FORM == GEMM_NT_F32 ? 0 : 1;
   constexpr int STAGES = FORM == GEMM_LN_SUMS ? LN_STAGES : GEMM_STAGES;
   constexpr int BN = FORM == GEMM_GEGLU ? 64 : 128;  // C columns of a CTA
   extern __shared__ uint8_t smem_raw[];
@@ -503,7 +515,8 @@ __global__ void __launch_bounds__(NT, 2) ff_tc_gemm(const __grid_constant__ Gemm
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t dA = desc(at + (TA ? 2048 : 32) * kk);
-      if (FORM == GEMM_GEGLU || FORM == GEMM_RESIDUAL || FORM == GEMM_NT_STORE) {
+      if (FORM == GEMM_GEGLU || FORM == GEMM_RESIDUAL || FORM == GEMM_NT_STORE
+          || FORM == GEMM_NT_F32) {
         // both B atoms in one n128
         mma_ss128(c0, c1, dA, desc(b0 + 32 * kk), 1);
         continue;
@@ -557,7 +570,7 @@ __global__ void __launch_bounds__(NT, 2) ff_tc_gemm(const __grid_constant__ Gemm
       }
       continue;
     }
-    if (FORM == GEMM_NT_STORE) {  // one rounding (gemm.cu EPI_STORE)
+    if (FORM == GEMM_NT_STORE || FORM == GEMM_STORE_BF16) {  // one rounding (gemm.cu EPI_STORE)
       bf16* Cb = reinterpret_cast<bf16*>(a.C) + (size_t)gm * a.ldc;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -622,30 +635,34 @@ CT_EXPORT int ct_ff_tc_tile(const void* xn, const void* dout, int ldx, const voi
 
 // layout 0 ("NN"): C (M, N) = A (M, K) B (K, N), one split; layout 1
 // ("TN"): C = A^T B for A (K, M) and B (K, N), ceil(K / kchunk) splits of
-// split_stride floats each (kchunk a multiple of 64).  A, B bf16, row
-// strides lda, ldb; C f32, row stride ldc.  The widths and strides of A and
-// B multiples of 8 (ldc of 2), every base 16-byte aligned.
+// split_stride floats each (kchunk a multiple of 64); layout 2: "NN" with C
+// bf16, each element rounded once.  A, B bf16, row strides lda, ldb; C f32
+// (or bf16), row stride ldc.  The widths and strides of A and B multiples of
+// 8 (ldc of 2), every base 16-byte aligned.
 CT_EXPORT int ct_ff_tc_gemm(int layout, const void* A, int lda, const void* B, int ldb, int M,
                             int N, int K, int kchunk, void* C, int ldc, long long split_stride,
                             void* stream) {
   const int dims[] = {N, lda, ldb};
-  bool ok = M > 0 && N > 0 && K > 0 && ldc % 2 == 0 && (layout == 0 || layout == 1)
-            && kchunk > 0 && kchunk % TC_TILE == 0 && (layout == 1 || kchunk >= K)
-            && (layout == 0 || M % 8 == 0) && (layout == 1 || K % 8 == 0);
+  const bool tn = layout == 1;
+  bool ok = M > 0 && N > 0 && K > 0 && ldc % 2 == 0 && layout >= 0 && layout <= 2
+            && kchunk > 0 && kchunk % TC_TILE == 0 && (tn || kchunk >= K)
+            && (!tn || M % 8 == 0) && (tn || K % 8 == 0);
   for (int x : dims) ok = ok && x % 8 == 0;
   const void* ptrs[] = {A, B, C};
   for (const void* p : ptrs) ok = ok && aligned16(p);
   const int splits = ok ? (K + kchunk - 1) / kchunk : 0;
   if (!ok || (M + BM - 1) / BM > 65535 || splits > 65535) return (int)cudaErrorInvalidValue;
   GemmMaps maps;
-  if (!(layout ? tensor_map(&maps.A, A, K, M, lda) : tensor_map(&maps.A, A, M, K, lda))
+  if (!(tn ? tensor_map(&maps.A, A, K, M, lda) : tensor_map(&maps.A, A, M, K, lda))
       || !tensor_map(&maps.B, B, K, N, ldb))
     return (int)cudaErrorInvalidValue;
   const GemmArgs a = {static_cast<float*>(C), M, N, K, ldc, kchunk, split_stride};
   const dim3 grid((N + 127) / 128, (M + BM - 1) / BM, splits);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(layout ? launch(ff_tc_gemm<1>, grid, gemm_smem(), st, maps, a)
-                      : launch(ff_tc_gemm<0>, grid, gemm_smem(), st, maps, a));
+  if (layout == 2)
+    return (int)launch(ff_tc_gemm<0, GEMM_STORE_BF16>, grid, gemm_smem(), st, maps, a);
+  return (int)(tn ? launch(ff_tc_gemm<1>, grid, gemm_smem(), st, maps, a)
+                  : launch(ff_tc_gemm<0>, grid, gemm_smem(), st, maps, a));
 }
 
 namespace {
@@ -733,6 +750,19 @@ CT_EXPORT int ct_ff_tc_gemm_nt(const void* A, int lda, const void* B, int ldb, i
   const GemmArgs a = {static_cast<float*>(C), M, N, K, ldc,
                       (K + TC_TILE - 1) / TC_TILE * TC_TILE, 0};
   return (int)launch(ff_tc_gemm<0, GEMM_NT_STORE>, dim3((N + 127) / 128, (M + BM - 1) / BM, 1),
+                     gemm_smem(), static_cast<cudaStream_t>(stream), maps, a);
+}
+
+// The same with C f32, unrounded (K10 bf16's recompute of q and kv): C row
+// stride ldc a multiple of 2, C 16-byte aligned.
+CT_EXPORT int ct_ff_tc_gemm_nt_f32(const void* A, int lda, const void* B, int ldb, int M, int N,
+                                   int K, void* C, int ldc, void* stream) {
+  GemmMaps maps;
+  if (!aligned16(C) || ldc % 2 || !gemm_maps(&maps, A, lda, B, ldb, M, N, K, true))
+    return (int)cudaErrorInvalidValue;
+  const GemmArgs a = {static_cast<float*>(C), M, N, K, ldc,
+                      (K + TC_TILE - 1) / TC_TILE * TC_TILE, 0};
+  return (int)launch(ff_tc_gemm<0, GEMM_NT_F32>, dim3((N + 127) / 128, (M + BM - 1) / BM, 1),
                      gemm_smem(), static_cast<cudaStream_t>(stream), maps, a);
 }
 

@@ -39,7 +39,8 @@
 // of 128-512 floats (the f32 sublayers' 512) take warp-a-row forms of the
 // split LN and of the backward (ln_split_rows_kernel, ln_bwd_rows_kernel):
 // the same arithmetic with warp-shuffle sums and 16-byte accesses, in place
-// of four block barriers a row.
+// of four block barriers a row; bf16 rows of that width take the backward's
+// warp-a-row form too (8-byte accesses of x, add2 and dx).
 #include "common.cuh"
 #include "tc32.cuh"
 
@@ -292,6 +293,27 @@ __device__ __forceinline__ void store_row(float* p, int lane, const float (&v)[4
     *reinterpret_cast<float4*>(p + j * 128 + 4 * lane) =
         make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
 }
+// ... bf16 rows in the same element order: 8 bytes a lane and chunk
+template <int PER>
+__device__ __forceinline__ void load_row(const bf16* p, int lane, float (&v)[4 * PER]) {
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p + j * 128 + 4 * lane);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const bf162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const bf162*>(&u.y));
+    v[4 * j] = a.x; v[4 * j + 1] = a.y; v[4 * j + 2] = b.x; v[4 * j + 3] = b.y;
+  }
+}
+template <int PER>
+__device__ __forceinline__ void store_row(bf16* p, int lane, const float (&v)[4 * PER]) {
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    uint2 u;
+    *reinterpret_cast<bf162*>(&u.x) = __floats2bfloat162_rn(v[4 * j], v[4 * j + 1]);
+    *reinterpret_cast<bf162*>(&u.y) = __floats2bfloat162_rn(v[4 * j + 2], v[4 * j + 3]);
+    *reinterpret_cast<uint2*>(p + j * 128 + 4 * lane) = u;
+  }
+}
 
 // mean and rstd of a row held as v, over D elements (two passes, as ln_kernel)
 template <int PER>
@@ -357,12 +379,13 @@ __device__ __forceinline__ void block_col_sums(const float (&v)[4 * PER],
   __syncthreads();
 }
 
-// ct_layernorm_bwd_f32 on such rows (ln_bwd_kernel's arithmetic)
-template <int PER>
+// ct_layernorm_bwd_f32 and ct_layernorm_bwd on such rows (ln_bwd_kernel's
+// arithmetic): T float, or bf16 x, add2 and dx (dxn and add f32 in both)
+template <typename T, int PER>
 __global__ void __launch_bounds__(LN_THREADS)
-ln_bwd_rows_kernel(const float* __restrict__ x, int rows, int D, const float* __restrict__ scale,
+ln_bwd_rows_kernel(const T* __restrict__ x, int rows, int D, const float* __restrict__ scale,
                    const float* __restrict__ dxn, const float* __restrict__ add,
-                   const float* __restrict__ add2, float eps, float* __restrict__ dx,
+                   const T* __restrict__ add2, float eps, T* __restrict__ dx,
                    float* __restrict__ part_ds, float* __restrict__ part_db,
                    float* __restrict__ part_dxs, int rows_per_block) {
   __shared__ float red[ROW_WARPS][4 * PER * 32];
@@ -420,6 +443,27 @@ int row_per(int D, const void* const* ptrs, int n) {
   return D / 128;
 }
 
+// launches the warp-a-row backward where the rows take it (`row_per`);
+// false where they do not
+template <typename T>
+bool launch_ln_bwd_rows(const void* x, int rows, int D, const void* scale, const void* dxn,
+                        const void* add, const void* add2, float eps, void* dx, void* part_ds,
+                        void* part_db, void* part_dxs, int rows_per_block, void* stream) {
+  const void* ptrs[] = {x, dxn, add, add2, dx};
+  const int per = row_per(D, ptrs, 5);
+  if (!per || rows_per_block < 1) return false;
+  const unsigned blocks = (rows + rows_per_block - 1) / rows_per_block;
+  auto kernel = per == 1 ? ln_bwd_rows_kernel<T, 1>
+              : per == 2 ? ln_bwd_rows_kernel<T, 2>
+              : per == 3 ? ln_bwd_rows_kernel<T, 3> : ln_bwd_rows_kernel<T, 4>;
+  kernel<<<blocks, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), rows, D, static_cast<const float*>(scale),
+      static_cast<const float*>(dxn), static_cast<const float*>(add),
+      static_cast<const T*>(add2), eps, static_cast<T*>(dx), static_cast<float*>(part_ds),
+      static_cast<float*>(part_db), static_cast<float*>(part_dxs), rows_per_block);
+  return true;
+}
+
 template <typename T>
 int launch_ln_bwd(bool gather, const void* x, int rows, int D, const void* scale,
                   const void* dxn, const void* add, const void* add2, float eps, void* dx,
@@ -443,11 +487,16 @@ int launch_ln_bwd(bool gather, const void* x, int rows, int D, const void* scale
 // column sums (ceil(rows / rows_per_block), D) f32 of dxn * xhat, of dxn and
 // of the f32 dx (dx, part_db and part_dxs may be null).  scale (D,) f32 or
 // null; add (rows, D) f32 and add2 (rows, D) bf16 are added to dx when not
-// null.
+// null.  Rows of D = 128, 256, 384 or 512 take the warp-a-row form
+// (ln_bwd_rows_kernel<bf16>: every model of the repo), other widths
+// ln_bwd_kernel<bf16>.
 CT_EXPORT int ct_layernorm_bwd(const void* x, int rows, int D, const void* scale,
                                const void* dxn, const void* add, const void* add2, float eps,
                                void* dx, void* part_ds, void* part_db, void* part_dxs,
                                int rows_per_block, void* stream) {
+  if (launch_ln_bwd_rows<bf16>(x, rows, D, scale, dxn, add, add2, eps, dx, part_ds, part_db,
+                               part_dxs, rows_per_block, stream))
+    return (int)cudaGetLastError();
   const PatchGeom g = {0, 0, 0, 0, 0, 0, 0, 0};
   return launch_ln_bwd<bf16>(false, x, rows, D, scale, dxn, add, add2, eps, dx, part_ds,
                              part_db, part_dxs, rows_per_block, g, stream);
@@ -460,21 +509,9 @@ CT_EXPORT int ct_layernorm_bwd_f32(const void* x, int rows, int D, const void* s
                                    const void* dxn, const void* add, const void* add2,
                                    float eps, void* dx, void* part_ds, void* part_db,
                                    void* part_dxs, int rows_per_block, void* stream) {
-  const void* ptrs[] = {x, dxn, add, add2, dx};
-  const int per = row_per(D, ptrs, 5);
-  if (per && rows_per_block >= 1) {
-    const unsigned blocks = (rows + rows_per_block - 1) / rows_per_block;
-    auto kernel = per == 1 ? ln_bwd_rows_kernel<1>
-                : per == 2 ? ln_bwd_rows_kernel<2>
-                : per == 3 ? ln_bwd_rows_kernel<3> : ln_bwd_rows_kernel<4>;
-    kernel<<<blocks, LN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), rows, D, static_cast<const float*>(scale),
-        static_cast<const float*>(dxn), static_cast<const float*>(add),
-        static_cast<const float*>(add2), eps, static_cast<float*>(dx),
-        static_cast<float*>(part_ds), static_cast<float*>(part_db),
-        static_cast<float*>(part_dxs), rows_per_block);
+  if (launch_ln_bwd_rows<float>(x, rows, D, scale, dxn, add, add2, eps, dx, part_ds, part_db,
+                                part_dxs, rows_per_block, stream))
     return (int)cudaGetLastError();
-  }
   const PatchGeom g = {0, 0, 0, 0, 0, 0, 0, 0};
   return launch_ln_bwd<float>(false, x, rows, D, scale, dxn, add, add2, eps, dx, part_ds,
                               part_db, part_dxs, rows_per_block, g, stream);

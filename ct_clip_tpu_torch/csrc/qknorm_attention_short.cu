@@ -472,7 +472,7 @@ CT_EXPORT int ct_qk_attention_short_f32(const void* q, const void* kv, void* mer
 // Nothing is rounded: true f32 on the CUDA cores (FFMA), as the forward's
 // f32 core.
 //
-// What it writes is what the 3xTF32 products after it read (ffn_tc32.cu):
+// In f32 what it writes is what the 3xTF32 products after it read (ffn_tc32.cu):
 // dq and dkv as TF32 hi and lo planes laid out as q and kv (the NN products
 // dxn = dq wq, dx_kv = dkv wkv), and merged, dq and dkv as transposed planes
 // (heads x 32 or 2 heads x 32, ldt), the sequence's tokens in columns s n ..
@@ -481,10 +481,20 @@ CT_EXPORT int ct_qk_attention_short_f32(const void* q, const void* kv, void* mer
 // dk_scale's sums over its tokens and heads, which the caller adds in two
 // levels.
 //
+// The bf16 form (qk_short_bwd<true>, K10 bf16: kernels.qk_bwd_route gives
+// QK_SHORT for bf16 too) is _bwd_kernel's own arithmetic (small_attention.py
+// :249-403): the recompute q = LN(x)_bf16 wq and kv = x_bf16 wkv and dmerged =
+// dO wout come in as f32, unrounded (:278-279, :301-303), the whole (n, n)
+// core runs in f32 exactly as the f32 form (:304-350), and only its outputs
+// are rounded, each once: dq (:353), [dk | dv] (:354) and merged (:377) go out
+// as bf16 rows laid out as q and kv, the operands of ffn_tc.cu's bf16 NN and
+// TN products after it; the scale partials stay f32.
+//
 // What bounds it on the H100: bytes.  At the contrastive step's (8, 24, 576)
 // grid (4,608 t-columns, 8 heads) it reads 0.45 GB of q, kv and dO and writes
 // 1.6 GB of planes (0.61 ms at 3.35 TB/s); its n x n x 32 products are 8.2
-// GFLOP (0.12 ms on the f32 CUDA cores).
+// GFLOP (0.12 ms on the f32 CUDA cores).  The bf16 form reads the same 0.45
+// GB and writes dq, dkv and merged in bf16, 0.23 GB (0.20 ms).
 //
 // Design: one CTA of four warps per (sequence, group of four heads), so that
 // three CTAs fit an SM at n 24 and one CTA's copies run under another's
@@ -517,7 +527,8 @@ struct ShortBwdArgs {
   const float* q;
   const float* kv;
   const float* dout;                   // laid out as q
-  float *dqh, *dql, *dkvh, *dkvl;      // laid out as q and kv
+  float *dqh, *dql, *dkvh, *dkvl;      // laid out as q and kv (the bf16 form: dqh, dkvh and
+                                       // mth carry its bf16 dq, dkv and merged rows)
   float *mth, *mtl, *dqth, *dqtl;      // (H 32, ldt)
   float *dkvth, *dkvtl;                // (2 H 32, ldt)
   float *dqs, *dks;                    // (sequences G, 32), G = ceil(H / HG)
@@ -572,6 +583,18 @@ __device__ __forceinline__ void store_split_row(float* hi, float* lo, const floa
     for (int u = 0; u < 4; ++u) split(x[c + u], h[u], l[u]);
     *reinterpret_cast<uint4*>(hi + c) = make_uint4(h[0], h[1], h[2], h[3]);
     *reinterpret_cast<uint4*>(lo + c) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// 32 f32 values -> one bf16 row of 64 bytes, each rounded once (16-byte stores)
+__device__ __forceinline__ void store_bf16_row(bf16* p, const float (&x)[HD]) {
+#pragma unroll
+  for (int c = 0; c < HD; c += 8) {
+    uint4 u;
+    bf162* h = reinterpret_cast<bf162*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(x[c + 2 * k], x[c + 2 * k + 1]);
+    *reinterpret_cast<uint4*>(p + c) = u;
   }
 }
 
@@ -654,8 +677,11 @@ __device__ __forceinline__ void weighted_rows(float (&a)[HD], float (&b)[HD], co
 }
 
 // One CTA per (sequence, group of HG heads), a warp a (sequence, head).
-// CTAs an SM: three at n 24 (70 KB of shared memory, at most 170 registers)
-__global__ void __launch_bounds__(NT, 3) qk_short_bwd_f32(ShortBwdArgs a) {
+// CTAs an SM: three at n 24 (70 KB of shared memory, at most 170 registers).
+// BF: the bf16 form, which writes merged, dq and dkv as bf16 rows through
+// the mth, dqh and dkvh pointers (laid out as q, q and kv) and no planes.
+template <bool BF>
+__global__ void __launch_bounds__(NT, 3) qk_short_bwd(ShortBwdArgs a) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __shared__ float sc[2][HD];             // qs, ks
   __shared__ float rowv[WARPS][2][MAX_N];  // a warp's rq, rk
@@ -755,15 +781,22 @@ __global__ void __launch_bounds__(NT, 3) qk_short_bwd_f32(ShortBwdArgs a) {
       for (int c = 0; c < HD; ++c) m[c] = dq[c] = cq[c] = 0.0f;
       if (live) {
         weighted_rows(m, dq, sP + lane * lds, sD + lane * lds, 1, rk, V, Kr, ld, n);
-        store_split_col(a.mth + (size_t)h * HD * a.ldt + col, a.mtl + (size_t)h * HD * a.ldt + col,
-                        a.ldt, m);
+        if constexpr (BF)
+          store_bf16_row(reinterpret_cast<bf16*>(a.mth) + qo + lane * a.q_tok + h * HD, m);
+        else
+          store_split_col(a.mth + (size_t)h * HD * a.ldt + col,
+                          a.mtl + (size_t)h * HD * a.ldt + col, a.ldt, m);
 #pragma unroll
         for (int c = 0; c < HD; ++c) dq[c] *= ks[c];  // dqn
         l2norm_bwd(Q + lane * ld, rq[lane], qs, dq, cq);
         const long long o = qo + lane * a.q_tok + h * HD;
-        store_split_row(a.dqh + o, a.dql + o, dq);
-        store_split_col(a.dqth + (size_t)h * HD * a.ldt + col,
-                        a.dqtl + (size_t)h * HD * a.ldt + col, a.ldt, dq);
+        if constexpr (BF) {
+          store_bf16_row(reinterpret_cast<bf16*>(a.dqh) + o, dq);
+        } else {
+          store_split_row(a.dqh + o, a.dql + o, dq);
+          store_split_col(a.dqth + (size_t)h * HD * a.ldt + col,
+                          a.dqtl + (size_t)h * HD * a.ldt + col, a.ldt, dq);
+        }
       }
       accq = lane_sums(cq, lane);
     }
@@ -779,12 +812,17 @@ __global__ void __launch_bounds__(NT, 3) qk_short_bwd_f32(ShortBwdArgs a) {
         for (int c = 0; c < HD; ++c) dk[c] *= qs[c];  // dkn
         l2norm_bwd(Kr + lane * ld, rk[lane], ks, dk, ck);
         const long long o = ko + lane * a.kv_tok + h * HD;
-        store_split_row(a.dkvh + o, a.dkvl + o, dk);
-        store_split_row(a.dkvh + o + hd, a.dkvl + o + hd, dv);
-        store_split_col(a.dkvth + (size_t)h * HD * a.ldt + col,
-                        a.dkvtl + (size_t)h * HD * a.ldt + col, a.ldt, dk);
-        store_split_col(a.dkvth + (size_t)(hd + h * HD) * a.ldt + col,
-                        a.dkvtl + (size_t)(hd + h * HD) * a.ldt + col, a.ldt, dv);
+        if constexpr (BF) {
+          store_bf16_row(reinterpret_cast<bf16*>(a.dkvh) + o, dk);
+          store_bf16_row(reinterpret_cast<bf16*>(a.dkvh) + o + hd, dv);
+        } else {
+          store_split_row(a.dkvh + o, a.dkvl + o, dk);
+          store_split_row(a.dkvh + o + hd, a.dkvl + o + hd, dv);
+          store_split_col(a.dkvth + (size_t)h * HD * a.ldt + col,
+                          a.dkvtl + (size_t)h * HD * a.ldt + col, a.ldt, dk);
+          store_split_col(a.dkvth + (size_t)(hd + h * HD) * a.ldt + col,
+                          a.dkvtl + (size_t)(hd + h * HD) * a.ldt + col, a.ldt, dv);
+        }
       }
       acck = lane_sums(ck, lane);
     }
@@ -799,6 +837,48 @@ __global__ void __launch_bounds__(NT, 3) qk_short_bwd_f32(ShortBwdArgs a) {
     for (int w = 0; w < WARPS; ++w) v += part[which][w][c];
     (which ? a.dks : a.dqs)[(size_t)blockIdx.x * HD + c] = v;
   }
+}
+
+// the checks and arguments of a launch of either form; false if the shape
+// or the layout is refused.  elem: the outputs' element size (4 or 2), whose
+// 16-byte stores need strides of 16 / elem elements.
+bool short_bwd_args(ShortBwdArgs* a, const void* q, const void* kv, const void* dout,
+                    const void* const* outs, int nout, int ldt, const long long (&st)[8],
+                    int inner, int sequences, int heads, int n, int d, const void* q_scale,
+                    const void* k_scale, void* dq_scale_part, void* dk_scale_part, int elem) {
+  const long long ctas = (long long)sequences * ((heads + HG - 1) / HG);
+  bool ok = d == HD && n >= 1 && n <= MAX_N && heads >= 1 && sequences >= 1 && inner >= 1
+            && st[2] == HD && st[6] == HD && q_scale && k_scale && dq_scale_part
+            && dk_scale_part && (long long)ldt >= (long long)sequences * n && ctas < (1ll << 31);
+  const int idx[] = {0, 1, 3, 4, 5, 7};
+  for (int i : idx) ok = ok && st[i] % (16 / elem) == 0;
+  const void* ins[] = {q, kv, dout};
+  for (const void* p : ins) ok = ok && aligned16(p);
+  for (int i = 0; i < nout; ++i) ok = ok && aligned16(outs[i]);
+  if (!ok || bwd_smem_bytes(heads, n) + BWD_STATIC_SMEM > 227 * 1024) return false;
+  *a = ShortBwdArgs{};
+  a->q = static_cast<const float*>(q);
+  a->kv = static_cast<const float*>(kv);
+  a->dout = static_cast<const float*>(dout);
+  a->dqs = static_cast<float*>(dq_scale_part);
+  a->dks = static_cast<float*>(dk_scale_part);
+  a->q_outer = st[0]; a->q_inner = st[1]; a->q_tok = st[3];
+  a->kv_outer = st[4]; a->kv_inner = st[5]; a->kv_tok = st[7];
+  a->inner = inner; a->H = heads; a->n = n; a->ldt = ldt;
+  a->qs = static_cast<const float*>(q_scale);
+  a->ks = static_cast<const float*>(k_scale);
+  return true;
+}
+
+template <bool BF>
+int launch_short_bwd(const ShortBwdArgs& a, int sequences, void* stream) {
+  const size_t smem = bwd_smem_bytes(a.H, a.n);
+  cudaError_t err = cudaFuncSetAttribute(qk_short_bwd<BF>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long ctas = (long long)sequences * ((a.H + HG - 1) / HG);
+  qk_short_bwd<BF><<<(unsigned)ctas, NT, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -822,35 +902,37 @@ CT_EXPORT int ct_qk_attention_short_bwd_f32(
     int n, int d, const void* q_scale, const void* k_scale, void* dq_scale_part,
     void* dk_scale_part, void* stream) {
   const long long st[8] = {q_outer, q_inner, q_head, q_tok, kv_outer, kv_inner, kv_head, kv_tok};
-  const long long ctas = (long long)sequences * ((heads + HG - 1) / HG);
-  bool ok = d == HD && n >= 1 && n <= MAX_N && heads >= 1 && sequences >= 1 && inner >= 1
-            && st[2] == HD && st[6] == HD && q_scale && k_scale && dq_scale_part
-            && dk_scale_part && (long long)ldt >= (long long)sequences * n && ctas < (1ll << 31);
-  const int idx[] = {0, 1, 3, 4, 5, 7};
-  for (int i : idx) ok = ok && st[i] % 4 == 0;
-  const void* ptrs[] = {q, kv, dout, dqh, dql, dkvh, dkvl, mth, mtl, dqth, dqtl, dkvth, dkvtl};
-  for (const void* p : ptrs) ok = ok && aligned16(p);
-  const size_t smem = bwd_smem_bytes(heads, n);
-  if (!ok || smem + BWD_STATIC_SMEM > 227 * 1024) return (int)cudaErrorInvalidValue;
-  ShortBwdArgs a = {};
-  a.q = static_cast<const float*>(q);
-  a.kv = static_cast<const float*>(kv);
-  a.dout = static_cast<const float*>(dout);
+  const void* outs[] = {dqh, dql, dkvh, dkvl, mth, mtl, dqth, dqtl, dkvth, dkvtl};
+  ShortBwdArgs a;
+  if (!short_bwd_args(&a, q, kv, dout, outs, 10, ldt, st, inner, sequences, heads, n, d, q_scale,
+                      k_scale, dq_scale_part, dk_scale_part, 4))
+    return (int)cudaErrorInvalidValue;
   a.dqh = static_cast<float*>(dqh); a.dql = static_cast<float*>(dql);
   a.dkvh = static_cast<float*>(dkvh); a.dkvl = static_cast<float*>(dkvl);
   a.mth = static_cast<float*>(mth); a.mtl = static_cast<float*>(mtl);
   a.dqth = static_cast<float*>(dqth); a.dqtl = static_cast<float*>(dqtl);
   a.dkvth = static_cast<float*>(dkvth); a.dkvtl = static_cast<float*>(dkvtl);
-  a.dqs = static_cast<float*>(dq_scale_part);
-  a.dks = static_cast<float*>(dk_scale_part);
-  a.q_outer = st[0]; a.q_inner = st[1]; a.q_tok = st[3];
-  a.kv_outer = st[4]; a.kv_inner = st[5]; a.kv_tok = st[7];
-  a.inner = inner; a.H = heads; a.n = n; a.ldt = ldt;
-  a.qs = static_cast<const float*>(q_scale);
-  a.ks = static_cast<const float*>(k_scale);
-  cudaError_t err = cudaFuncSetAttribute(qk_short_bwd_f32,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  qk_short_bwd_f32<<<(unsigned)ctas, NT, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  return launch_short_bwd<false>(a, sequences, stream);
+}
+
+// K10 bf16's core (kernels.qk_attention_short_bwd, out_dtype bf16): the same
+// f32 inputs, addressed the same way with strides multiples of 8 elements ->
+// dq (laid out as q), dkv (laid out as kv) and merged (laid out as q) in bf16,
+// each rounded once from the f32 core; the same f32 scale partials.
+CT_EXPORT int ct_qk_attention_short_bwd(
+    const void* q, const void* kv, const void* dout, void* dq, void* dkv, void* merged,
+    long long q_outer, long long q_inner, long long q_head, long long q_tok, long long kv_outer,
+    long long kv_inner, long long kv_head, long long kv_tok, int inner, int sequences, int heads,
+    int n, int d, const void* q_scale, const void* k_scale, void* dq_scale_part,
+    void* dk_scale_part, void* stream) {
+  const long long st[8] = {q_outer, q_inner, q_head, q_tok, kv_outer, kv_inner, kv_head, kv_tok};
+  const void* outs[] = {dq, dkv, merged};
+  ShortBwdArgs a;
+  if (!short_bwd_args(&a, q, kv, dout, outs, 3, sequences * n, st, inner, sequences, heads, n, d,
+                      q_scale, k_scale, dq_scale_part, dk_scale_part, 2))
+    return (int)cudaErrorInvalidValue;
+  a.dqh = static_cast<float*>(dq);
+  a.dkvh = static_cast<float*>(dkv);
+  a.mth = static_cast<float*>(merged);
+  return launch_short_bwd<true>(a, sequences, stream);
 }

@@ -6,8 +6,7 @@
 // Replaces ct_clip_tpu/ops/pallas/vq.py::pallas_assign (K5, :104,
 // pallas_call :121, body _assign_kernel :62-101) in its inference mode,
 // which gemm.cu's gemm_argmax_kernel ran on WMMA with synchronous staging
-// (it stays, for the exact mode's siblings and for shapes this kernel does
-// not take):
+// (it stays, for shapes this kernel does not take):
 //   * bf16 rows (raw_bf16, :67-82): the raw rows against the bf16-rounded
 //     normalised codebook, one bf16 product, f32 sums;
 //   * f32 rows (:83-93): each row l2-normalised in f32 and rounded to bf16
@@ -19,6 +18,27 @@
 //     and its inverse norm a rounded sqrt and division, which
 //     ops/vq.py::_lane_inv_norm repeats bit for bit: the card's check holds
 //     the ids to a plain version whose bf16 rows are the kernel's.
+//
+// And the same function in its exact mode (training, exact=True), which
+// gemm.cu's gemm_argmax2_kernel and gemm_argmax3_rows_kernel ran on WMMA
+// (they stay for the widths this kernel does not take):
+//   * bf16 rows (:67-82): sim = x c_hi + x c_lo against the normalised
+//     codebook split into bf16 hi and lo parts;
+//   * f32 rows (:83-95): the pre-pass also writes xl = bf16(xn - xh), and
+//     sim = (xh c_hi + xh c_lo) + xl c_hi.
+// The exact forms are the inference kernel with more products per k block:
+// each stage of the ring holds one 64-wide k block of a code tile's c_hi and
+// c_lo, and the consumers run x c_hi, x c_lo (and xl c_hi) for each k16
+// slice into the one accumulator pair, so the pair alternation and the
+// argmax under the next tile's products stay as they are.  This sums in
+// another order than the TPU kernel's separate dots (ids can differ only
+// where two codes tie within that order's f32 rounding).  Shared memory:
+// 128 resident rows of x (128 KB at K 512) and three stages of both parts
+// (96 KB); with f32 rows xh and xl are both resident, so a CTA takes 64
+// rows (one consumer warpgroup) and every CTA walks the codebook's 16 MiB
+// of hi and lo: 1,728 CTAs read ~29 GB from L2 at the contrastive step's
+// 110,592 rows (864 CTAs and ~14 GB with bf16 rows), which a cluster
+// multicasting the code tiles would halve.
 //
 // What bounds it on the H100.  At zero-shot's 27,648 rows x 512 against
 // 8,192 codes the products are 232 GFLOP, 0.235 ms at 989 TFLOP/s, against
@@ -49,6 +69,8 @@
 //     copies; codes past N are skipped by the compare, rows past M by the
 //     store.  K, the row strides and every base must suit TMA: multiples of
 //     8 elements (16 bytes).
+#include <type_traits>
+
 #include "common.cuh"
 #include "tma.cuh"
 
@@ -62,19 +84,39 @@ namespace {
 
 constexpr int ATOM = TC_TILE * 128;  // one swizzled atom: 64 rows of 128 bytes
 constexpr int CWG = CT_VQ_TC_CWG;
-constexpr int NT = 128 * CWG + 32;  // + the producer warp
-constexpr int BM = 64 * CWG;        // rows of a CTA tile
 constexpr int BN = 128;             // codes of a tile: two n64 accumulators
 constexpr int KMAX = 512;           // the widest row the resident tile holds
-constexpr int STAGES = CWG == 2 ? 4 : 2;
-constexpr int STAGE = 2 * ATOM;  // one 64-wide k block of a code tile
 
-int vq_smem(int kblocks) { return 1024 + kblocks * CWG * ATOM + STAGES * STAGE; }
-static_assert(1024 + KMAX / TC_TILE * CWG * ATOM + STAGES * STAGE <= 232448,
-              "the row tile and the ring fit one CTA's shared memory");
+// the forms: the inference mode, and the exact mode on bf16 rows (x c_hi + x
+// c_lo) and on f32 rows ((xh c_hi + xh c_lo) + xl c_hi)
+enum VqMode { VQ_INFER = 0, VQ_EXACT = 1, VQ_EXACT_ROWS = 2 };
+
+// the shape of a form: consumer warpgroups, threads, rows of a CTA tile,
+// resident row tiles (x; or xh and xl), codebook parts a stage holds (c_hi;
+// or c_hi and c_lo, one 64-wide k block of a 128-code tile each) and the
+// ring's stages.  The inference form keeps the shape it had; the exact forms
+// take 128 rows (bf16) or, with xl resident beside xh, 64 (f32 rows), and
+// three stages of both parts, so that rows and ring fit 227 KB at K 512.
+template <int MODE>
+struct Form {
+  static constexpr int cwg = MODE == VQ_INFER ? CWG : MODE == VQ_EXACT ? 2 : 1;
+  static constexpr int nt = 128 * cwg + 32;  // + the producer warp
+  static constexpr int bm = 64 * cwg;
+  static constexpr int xparts = MODE == VQ_EXACT_ROWS ? 2 : 1;
+  static constexpr int cparts = MODE == VQ_INFER ? 1 : 2;
+  static constexpr int stages = MODE == VQ_INFER ? (CWG == 2 ? 4 : 2) : 3;
+  static constexpr int stage = cparts * 2 * ATOM;
+  static int smem(int kblocks) { return 1024 + kblocks * xparts * cwg * ATOM + stages * stage; }
+  static_assert(1024 + KMAX / TC_TILE * xparts * cwg * ATOM + stages * stage <= 232448,
+                "the row tiles and the ring fit one CTA's shared memory");
+};
 
 struct Maps {
   CUtensorMap x, codes;
+};
+// the exact forms': the second parts xl (f32 rows) and lo beside them
+struct ExactMaps {
+  CUtensorMap x, codes, xl, lo;
 };
 
 // this thread's share of one 128-code tile's similarities (d0: codes c0 ..
@@ -103,28 +145,38 @@ __device__ __forceinline__ void take_tile(const float (&d0)[32], const float (&d
 // the products of code tile t into (d0, d1), k block by k block (global
 // stage counter `it`); with `prev`, once the first k block is issued the
 // previous tile's accumulators (p0, p1) are final and go through take_tile
-// while these products run
+// while these products run.  The exact forms run two (x c_hi, x c_lo) or
+// three (xh c_hi, xh c_lo, xl c_hi) products per k16 slice into the same
+// accumulators, in that order, every one unconditional (a wgmma under a
+// branch is serialized)
+template <int MODE>
 __device__ __forceinline__ void tile_products(float (&d0)[32], float (&d1)[32], float (&p0)[32],
                                               float (&p1)[32], bool prev, int t, int& it,
                                               int kblocks, uint32_t xs, uint8_t* ring,
                                               uint64_t* full, uint64_t* empty, int N, int q4,
                                               float (&best)[2], int (&arg)[2]) {
+  using F = Form<MODE>;
   for (int kb = 0; kb < kblocks; ++kb, ++it) {
-    const int st = it % STAGES;
-    const uint32_t b0 = saddr(ring + st * STAGE);  // codes t BN .., two atoms
-    const uint32_t at = xs + kb * CWG * ATOM;
-    bar_wait(&full[st], (it / STAGES) & 1);
+    const int st = it % F::stages;
+    const uint32_t b0 = saddr(ring + st * F::stage);  // codes t BN .., two atoms (then c_lo's)
+    const uint32_t at = xs + kb * F::cwg * ATOM;
+    bar_wait(&full[st], (it / F::stages) & 1);
     hold(d0);
     hold(d1);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < 4; ++kk) {
       mma_ss128(d0, d1, desc(at + 32 * kk), desc(b0 + 32 * kk), kb > 0 || kk > 0);
+      if constexpr (MODE != VQ_INFER)
+        mma_ss128(d0, d1, desc(at + 32 * kk), desc(b0 + 2 * ATOM + 32 * kk), 1);
+      if constexpr (MODE == VQ_EXACT_ROWS)  // xl, kblocks x cwg atoms past xh
+        mma_ss128(d0, d1, desc(at + kblocks * F::cwg * ATOM + 32 * kk), desc(b0 + 32 * kk), 1);
+    }
     wg_commit();
     wg_wait1();  // every earlier group is done: free the previous stage
     hold(d0);
     hold(d1);
-    if (it > 0) bar_arrive(&empty[(it - 1) % STAGES]);
+    if (it > 0) bar_arrive(&empty[(it - 1) % F::stages]);
     if (prev && kb == 0) {
       hold(p0);
       hold(p1);
@@ -134,36 +186,48 @@ __device__ __forceinline__ void tile_products(float (&d0)[32], float (&d1)[32], 
 }
 
 // ids (M,) int32 = argmax over the N codes (N, K) of x (M, K) . code, bf16
-// operands through their tensor maps, f32 sums
-__global__ void __launch_bounds__(NT, 1) vq_tc_argmax(const __grid_constant__ Maps maps,
-                                                      int M, int N, int K,
-                                                      int* __restrict__ ids) {
+// operands through their tensor maps, f32 sums; the exact forms add the
+// products of the second parts (c_lo; and xl) in the same accumulators
+template <int MODE>
+__global__ void __launch_bounds__(Form<MODE>::nt, 1) vq_tc_argmax(
+    const __grid_constant__ std::conditional_t<MODE == VQ_INFER, Maps, ExactMaps> maps, int M,
+    int N, int K, int* __restrict__ ids) {
+  using F = Form<MODE>;
+  constexpr int cwg = F::cwg;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], xfull;
+  __shared__ __align__(8) uint64_t full[F::stages], empty[F::stages], xfull;
   uint8_t* base = align1024(smem_raw);
   const int kblocks = (K + TC_TILE - 1) / TC_TILE, tiles = (N + BN - 1) / BN;
-  uint8_t* ring = base + kblocks * CWG * ATOM;  // past the resident row tile
-  const int m0 = blockIdx.x * BM;
+  uint8_t* ring = base + kblocks * F::xparts * cwg * ATOM;  // past the resident row tiles
+  const int m0 = blockIdx.x * F::bm;
   if (threadIdx.x == 0) bar_init(&xfull, 1);
-  init_ring<STAGES, 128 * CWG>(full, empty);
+  init_ring<F::stages, 128 * cwg>(full, empty);
 
-  if (threadIdx.x >= 128 * CWG) {  // the producer: one thread
-    if (threadIdx.x != 128 * CWG) return;
-    bar_expect(&xfull, kblocks * CWG * ATOM);
+  if (threadIdx.x >= 128 * cwg) {  // the producer: one thread
+    if (threadIdx.x != 128 * cwg) return;
+    bar_expect(&xfull, kblocks * F::xparts * cwg * ATOM);
     for (int kb = 0; kb < kblocks; ++kb)
 #pragma unroll
-      for (int w = 0; w < CWG; ++w)
-        tma_load(saddr(base + (kb * CWG + w) * ATOM), &maps.x, kb * TC_TILE, m0 + 64 * w,
+      for (int w = 0; w < cwg; ++w) {
+        tma_load(saddr(base + (kb * cwg + w) * ATOM), &maps.x, kb * TC_TILE, m0 + 64 * w,
                  &xfull);
+        if constexpr (MODE == VQ_EXACT_ROWS)
+          tma_load(saddr(base + ((kblocks + kb) * cwg + w) * ATOM), &maps.xl, kb * TC_TILE,
+                   m0 + 64 * w, &xfull);
+      }
     int it = 0;
     for (int t = 0; t < tiles; ++t)
       for (int kb = 0; kb < kblocks; ++kb, ++it) {
-        const int st = it % STAGES;
-        if (it >= STAGES) bar_wait(&empty[st], (it / STAGES - 1) & 1);
-        const uint32_t dst = saddr(ring + st * STAGE);
-        bar_expect(&full[st], STAGE);
+        const int st = it % F::stages;
+        if (it >= F::stages) bar_wait(&empty[st], (it / F::stages - 1) & 1);
+        const uint32_t dst = saddr(ring + st * F::stage);
+        bar_expect(&full[st], F::stage);
         tma_load(dst, &maps.codes, kb * TC_TILE, t * BN, &full[st]);
         tma_load(dst + ATOM, &maps.codes, kb * TC_TILE, t * BN + 64, &full[st]);
+        if constexpr (MODE != VQ_INFER) {
+          tma_load(dst + 2 * ATOM, &maps.lo, kb * TC_TILE, t * BN, &full[st]);
+          tma_load(dst + 3 * ATOM, &maps.lo, kb * TC_TILE, t * BN + 64, &full[st]);
+        }
       }
     return;
   }
@@ -179,14 +243,14 @@ __global__ void __launch_bounds__(NT, 1) vq_tc_argmax(const __grid_constant__ Ma
   bar_wait(&xfull, 0);
   int it = 0, t = 0;
   for (; t + 1 < tiles; t += 2) {
-    tile_products(a0, a1, b0, b1, t > 0, t, it, kblocks, xs, ring, full, empty, N, q4, best,
-                  arg);
-    tile_products(b0, b1, a0, a1, true, t + 1, it, kblocks, xs, ring, full, empty, N, q4, best,
-                  arg);
+    tile_products<MODE>(a0, a1, b0, b1, t > 0, t, it, kblocks, xs, ring, full, empty, N, q4,
+                        best, arg);
+    tile_products<MODE>(b0, b1, a0, a1, true, t + 1, it, kblocks, xs, ring, full, empty, N, q4,
+                        best, arg);
   }
   if (t < tiles) {  // an odd count: the last tile in (a0, a1)
-    tile_products(a0, a1, b0, b1, t > 0, t, it, kblocks, xs, ring, full, empty, N, q4, best,
-                  arg);
+    tile_products<MODE>(a0, a1, b0, b1, t > 0, t, it, kblocks, xs, ring, full, empty, N, q4,
+                        best, arg);
     wg_wait();
     hold(a0);
     hold(a1);
@@ -217,9 +281,12 @@ __global__ void __launch_bounds__(NT, 1) vq_tc_argmax(const __grid_constant__ Ma
 
 // f32 rows (M, D) -> each normalised as x / sqrt(max(sum x^2, 1e-24)) and
 // rounded to bf16 (M, D): one warp a row, the sum in sum_f32_kernel's order
-// (vq_stats.cu), a rounded sqrt and division, a rounded product
+// (vq_stats.cu), a rounded sqrt and division, a rounded product.  SPLIT (the
+// exact mode): also the lo part bf16(xn - xh) into lo (vq.py:90-95)
+template <bool SPLIT>
 __global__ void __launch_bounds__(256) vq_rows_bf16_kernel(const float* __restrict__ x, int M,
-                                                           int D, bf16* __restrict__ out) {
+                                                           int D, bf16* __restrict__ out,
+                                                           bf16* __restrict__ lo) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= M) return;
   const float* xr = x + (size_t)row * D;
@@ -248,10 +315,38 @@ __global__ void __launch_bounds__(256) vq_rows_bf16_kernel(const float* __restri
     const int c = (lane + 32 * u) * 4;
     if (c < D) {
       bf162* o = reinterpret_cast<bf162*>(out + (size_t)row * D + c);
-      o[0] = __floats2bfloat162_rn(__fmul_rn(v[4 * u], inv), __fmul_rn(v[4 * u + 1], inv));
-      o[1] = __floats2bfloat162_rn(__fmul_rn(v[4 * u + 2], inv), __fmul_rn(v[4 * u + 3], inv));
+      if constexpr (SPLIT) {
+        float xn[4];
+        bf162 h[2];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xn[e] = __fmul_rn(v[4 * u + e], inv);
+        h[0] = __floats2bfloat162_rn(xn[0], xn[1]);
+        h[1] = __floats2bfloat162_rn(xn[2], xn[3]);
+        o[0] = h[0];
+        o[1] = h[1];
+        const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
+        bf162* l = reinterpret_cast<bf162*>(lo + (size_t)row * D + c);
+        l[0] = __floats2bfloat162_rn(__fsub_rn(xn[0], f0.x), __fsub_rn(xn[1], f0.y));
+        l[1] = __floats2bfloat162_rn(__fsub_rn(xn[2], f1.x), __fsub_rn(xn[3], f1.y));
+      } else {
+        o[0] = __floats2bfloat162_rn(__fmul_rn(v[4 * u], inv), __fmul_rn(v[4 * u + 1], inv));
+        o[1] = __floats2bfloat162_rn(__fmul_rn(v[4 * u + 2], inv),
+                                     __fmul_rn(v[4 * u + 3], inv));
+      }
     }
   }
+}
+
+template <int MODE, typename MapsT>
+int launch_argmax(const MapsT& maps, int M, int N, int K, void* ids, void* stream) {
+  using F = Form<MODE>;
+  const int smem = F::smem((K + TC_TILE - 1) / TC_TILE);
+  cudaError_t err = cudaFuncSetAttribute(vq_tc_argmax<MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  vq_tc_argmax<MODE><<<(M + F::bm - 1) / F::bm, F::nt, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps, M, N, K, static_cast<int*>(ids));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -267,22 +362,42 @@ CT_EXPORT int ct_vq_assign_tc(const void* x, int ldx, const void* codes, int ldc
   Maps maps;
   if (!ok || !tensor_map(&maps.x, x, M, K, ldx) || !tensor_map(&maps.codes, codes, N, K, ldc))
     return (int)cudaErrorInvalidValue;
-  const int smem = vq_smem((K + TC_TILE - 1) / TC_TILE);
-  cudaError_t err =
-      cudaFuncSetAttribute(vq_tc_argmax, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  vq_tc_argmax<<<(M + BM - 1) / BM, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      maps, M, N, K, static_cast<int*>(ids));
-  return (int)cudaGetLastError();
+  return launch_argmax<VQ_INFER>(maps, M, N, K, ids, stream);
+}
+
+// K5's exact assignment (training): ids (M,) int32 = argmax_n of x[m] .
+// hi[n] + x[m] . lo[n] (xl null: bf16 rows) or of (x[m] . hi[n] + x[m] .
+// lo[n]) + xl[m] . hi[n] (f32 rows split by ct_vq_rows_bf16 into x = xh and
+// xl), summed in f32 per k16 slice in that order, ties to the lower code.
+// hi and lo (N, K) bf16 share the row stride ldc, x and xl (M, K) bf16 ldx.
+// K <= 512; K and the strides multiples of 8; every base 16-byte aligned.
+CT_EXPORT int ct_vq_assign_exact_tc(const void* x, const void* xl, int ldx, const void* hi,
+                                    const void* lo, int ldc, int M, int N, int K, void* ids,
+                                    void* stream) {
+  const bool ok = M > 0 && N > 0 && K > 0 && K <= KMAX && K % 8 == 0 && ldx % 8 == 0
+                  && ldc % 8 == 0 && aligned16(x) && aligned16(hi) && aligned16(lo)
+                  && (!xl || aligned16(xl)) && ids;
+  ExactMaps maps;
+  if (!ok || !tensor_map(&maps.x, x, M, K, ldx) || !tensor_map(&maps.codes, hi, N, K, ldc)
+      || !tensor_map(&maps.lo, lo, N, K, ldc) || (xl && !tensor_map(&maps.xl, xl, M, K, ldx)))
+    return (int)cudaErrorInvalidValue;
+  return xl ? launch_argmax<VQ_EXACT_ROWS>(maps, M, N, K, ids, stream)
+            : launch_argmax<VQ_EXACT>(maps, M, N, K, ids, stream);
 }
 
 // K5's pre-pass on f32 rows: x (M, D) f32 contiguous -> out (M, D) bf16,
-// each row normalised (vq_rows_bf16_kernel); D % 4 == 0, D <= 1024, x 16-byte
+// each row normalised (vq_rows_bf16_kernel), and with lo (the exact mode)
+// the lo parts bf16(xn - out) (M, D); D % 4 == 0, D <= 1024, x 16-byte
 // aligned.
-CT_EXPORT int ct_vq_rows_bf16(const void* x, int M, int D, void* out, void* stream) {
+CT_EXPORT int ct_vq_rows_bf16(const void* x, int M, int D, void* out, void* lo, void* stream) {
   if (M < 1 || D < 1 || D % 4 || D > 1024 || !aligned16(x) || !out)
     return (int)cudaErrorInvalidValue;
-  vq_rows_bf16_kernel<<<(M + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), M, D, static_cast<bf16*>(out));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (lo)
+    vq_rows_bf16_kernel<true><<<(M + 7) / 8, 256, 0, st>>>(
+        static_cast<const float*>(x), M, D, static_cast<bf16*>(out), static_cast<bf16*>(lo));
+  else
+    vq_rows_bf16_kernel<false><<<(M + 7) / 8, 256, 0, st>>>(
+        static_cast<const float*>(x), M, D, static_cast<bf16*>(out), nullptr);
   return (int)cudaGetLastError();
 }

@@ -116,6 +116,8 @@ KERNELS = (
     # vq_tc.cu's K5 inference assignment on the tensor cores (`wgmma`), beside
     # vq_assign / vq_assign_f32
     "vq_assign_tc",        # one a call: bf16 rows, or f32 rows after the pre-pass
+    "vq_assign_exact_tc",  # K5's exact mode there (beside vq_assign_exact / _f32): one a call,
+                           # bf16 rows, or f32 rows after the splitting pre-pass
     # ffn_tc32.cu's f32 K3 in 3xTF32 on the tensor cores (`wgmma`), beside geglu_ff
     "geglu_ff_tc32",       # the weight split, the GEGLU product and the residual product
     "tc32_gemm",           # one product there (plain store or + x): K1 and K2 f32's q, kv
@@ -127,9 +129,10 @@ KERNELS = (
                            # beside geglu_ff_bwd)
     "tc32_gemm_tn",        # a weight gradient over all rows (TN): K11's [dwa; dwg], dwo
                            # (two a call); K9 / K10's dWq, dWkv, dWout (three)
-    "qk_attention_short_bwd_f32",  # K10 f32's core on 16-31-token sequences
-                                   # (qknorm_attention_short.cu) where `qk_bwd_route`
-                                   # gives QK_SHORT
+    "qk_attention_short_bwd",  # K10's core on 16-31-token sequences (qknorm_attention_short.cu)
+                               # where `qk_bwd_route` gives QK_SHORT, bf16 or f32 (the f32 form
+                               # beside qk_attention_short_bwd_f32)
+    "qk_attention_short_bwd_f32",
     # the f32 forms, counted beside the function's own counter
     "geglu_ff_f32",        # K3 f32 (gemm.cu f32 products, layernorm.cu f32 rows)
     "geglu_ff_bwd_f32",    # K11 f32
@@ -328,11 +331,13 @@ def _signatures():
         "ct_ff_tc_gemm": [i, p, i, p, i, i, i, i, i, p, i, ll, p],
         "ct_ff_tc_gemm_bias": [p, i, p, i, i, i, i, p, p, i, p],
         "ct_ff_tc_gemm_nt": [p, i, p, i, i, i, i, p, i, p],
+        "ct_ff_tc_gemm_nt_f32": [p, i, p, i, i, i, i, p, i, p],
         "ct_ff_tc_ln_sums": [p, i, p, i, i, i, i, p, i, i, i, i, i, i, p, p, p],
         "ct_ff_tc_geglu": [p, i, p, i, i, i, i, p, i, p],
         "ct_ff_tc_residual": [p, i, p, i, i, i, i, p, i, p, i, p],
         "ct_vq_assign_tc": [p, i, p, i, i, i, i, p, p],
-        "ct_vq_rows_bf16": [p, i, i, p, p],
+        "ct_vq_assign_exact_tc": [p, p, i, p, p, i, i, i, i, p, p],
+        "ct_vq_rows_bf16": [p, i, i, p, p, p],
         "ct_tc32_split": [p, p, p, ll, p],
         "ct_ff_tc32_geglu": [p, p, i, p, p, p, p, i, i, i, i, p, p, i, p],
         "ct_ff_tc32_residual": [p, p, i, p, p, i, i, i, i, p, p, i, p],
@@ -360,6 +365,8 @@ def _signatures():
                                       p, p, p],
         "ct_qk_attention_short_bwd_f32": [p, p, p, p, p, p, p, p, p, p, p, p, p, i, ll, ll, ll,
                                           ll, ll, ll, ll, ll, i, i, i, i, i, p, p, p, p, p],
+        "ct_qk_attention_short_bwd": [p, p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i,
+                                      i, i, p, p, p, p, p],
         "ct_peg_dw": [p, p, i, i, i, i, i, i, i, i, p, p],
         "ct_vq_cluster_stats": [p, p, i, i, i, p, p, p, p, p, p, p],
         "ct_vq_cluster_stats_f32": [p, p, i, i, i, p, p, p, p, p, p, p],
@@ -699,17 +706,20 @@ def ff_tc_split(rows: int) -> int:
 
 def gemm_nn_tc(dy: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """out (M, N) f32 = dy (M, K) @ w (K, N), bf16 operands, on ffn_tc.cu
-    (`wgmma`, w read MN-major): K11's dxn = [da | dg] [wa; wg] (counted
+    (`wgmma`, w read MN-major): K11's dxn = [da | dg] [wa; wg], the QK-norm
+    sublayer's backward dxn = dq wq, dx_kv = dkv wkv and (K10) dmerged = dO
+    wout; out bf16 rounds each element once (K9's dmerged) (counted
     `ff_tc_gemm`)."""
     _ff_tc_operands("gemm_nn_tc", dy=dy, w=w)
     M, K = dy.shape
     N = w.shape[1]
-    if w.shape[0] != K or tuple(out.shape) != (M, N) or out.dtype != F32 \
+    if w.shape[0] != K or tuple(out.shape) != (M, N) or out.dtype not in FORMS \
             or out.stride(1) != 1 or out.stride(0) % 2 or out.data_ptr() % 16 \
             or out.device != dy.device:
         raise ValueError(f"gemm_nn_tc: dy {tuple(dy.shape)}, w {tuple(w.shape)}, "
                          f"out {tuple(out.shape)} {out.dtype}")
-    err = library().ct_ff_tc_gemm(0, _ptr(dy), dy.stride(0), _ptr(w), w.stride(0), M, N, K,
+    layout = 0 if out.dtype == F32 else 2
+    err = library().ct_ff_tc_gemm(layout, _ptr(dy), dy.stride(0), _ptr(w), w.stride(0), M, N, K,
                                   -(-K // FF_TC_K) * FF_TC_K, _ptr(out), out.stride(0), 0,
                                   _stream())
     _check(err, "ct_ff_tc_gemm")
@@ -757,19 +767,22 @@ def gemm_bias_tc(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.
     return out
 
 
-def gemm_nt_tc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def gemm_nt_tc(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype = BF16) -> torch.Tensor:
     """out (M, N) bf16 = bf16(x w^T) for x (M, K) and w (N, K) bf16 on
     ffn_tc.cu's NT store form (`wgmma`, one m64n128k16 a k16 slice): the
     QK-norm sublayer's q and kv projections, rounded once as gemm.cu's
-    EPI_STORE rounds them (counted `qk_proj_tc`)."""
+    EPI_STORE rounds them; with out_dtype f32 the unrounded f32 sums
+    (GEMM_NT_F32: K10 bf16's recompute, kept f32 as small_attention.py
+    :278-279 keeps it) (counted `qk_proj_tc`)."""
     _ff_tc_operands("gemm_nt_tc", x=x, w=w)
     M, Kd = x.shape
     N = w.shape[0]
-    if w.shape[1] != Kd:
-        raise ValueError(f"gemm_nt_tc: x {tuple(x.shape)}, w {tuple(w.shape)}")
-    out = torch.empty((M, N), dtype=BF16, device=x.device)
-    _check(library().ct_ff_tc_gemm_nt(_ptr(x), x.stride(0), _ptr(w), w.stride(0), M, N, Kd,
-                                      _ptr(out), N, _stream()), "ct_ff_tc_gemm_nt")
+    if w.shape[1] != Kd or out_dtype not in FORMS:
+        raise ValueError(f"gemm_nt_tc: x {tuple(x.shape)}, w {tuple(w.shape)} -> {out_dtype}")
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    entry = "ct_ff_tc_gemm_nt_f32" if out_dtype == F32 else "ct_ff_tc_gemm_nt"
+    _check(getattr(library(), entry)(_ptr(x), x.stride(0), _ptr(w), w.stride(0), M, N, Kd,
+                                     _ptr(out), N, _stream()), entry)
     count_launch("qk_proj_tc")
     return out
 
@@ -849,13 +862,52 @@ def vq_assign_tc(x: torch.Tensor, codes: torch.Tensor, lib=None) -> torch.Tensor
         if x.data_ptr() % 16:
             raise ValueError("vq_assign_tc: f32 rows must start on a 16-byte boundary")
         rows = torch.empty((M, D), dtype=BF16, device=x.device)
-        _check(lib.ct_vq_rows_bf16(_ptr(x), M, D, _ptr(rows), _stream()), "ct_vq_rows_bf16")
+        _check(lib.ct_vq_rows_bf16(_ptr(x), M, D, _ptr(rows), None, _stream()),
+               "ct_vq_rows_bf16")
         x = rows
     _ff_tc_operands("vq_assign_tc", x=x, codes=codes)
     ids = torch.empty((M,), dtype=torch.int32, device=x.device)
     _check(lib.ct_vq_assign_tc(_ptr(x), x.stride(0), _ptr(codes), codes.stride(0), M,
                                codes.shape[0], D, _ptr(ids), _stream()), "ct_vq_assign_tc")
     count_launch("vq_assign_tc")
+    return ids
+
+
+def vq_assign_exact_tc(x: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
+                       lib=None) -> torch.Tensor:
+    """K5's exact assignment on vq_tc.cu (`wgmma`): ids (M,) int32, a tie to
+    the lower code, against the normalised codebook's bf16 hi and lo parts
+    (N, D) (`ops/vq.py::split_hi_lo`).  bf16 rows x (M, D), raw: argmax_n x
+    . hi[n] + x . lo[n]; f32 rows: a pre-pass normalises each (the order of
+    `ops/vq.py::_lane_inv_norm`) and splits it into bf16 xh and xl =
+    bf16(xn - xh), then argmax_n (xh . hi[n] + xh . lo[n]) + xl . hi[n]; the
+    products of each k16 slice summed in f32 in that order.  D must fit
+    (`vq_tc_fits`).  Counted `vq_assign_exact_tc` once a call, after its
+    launches.  `lib`: a one-change copy of vq_tc.cu (`copy_library`) to
+    launch instead."""
+    require(x, "x", FORMS, 2)
+    for name, t in (("hi", hi), ("lo", lo)):
+        require(t, name, BF16, 2)
+    M, D = x.shape
+    if hi.shape[1] != D or lo.shape != hi.shape or hi.stride(0) != lo.stride(0) \
+            or not vq_tc_fits(D):
+        raise ValueError(f"vq_assign_exact_tc: x {tuple(x.shape)}, hi {tuple(hi.shape)}, "
+                         f"lo {tuple(lo.shape)} (width a multiple of 8 up to {VQ_TC_MAX_DIM})")
+    lib = lib or library()
+    xl = None
+    if x.dtype == F32:
+        if x.data_ptr() % 16:
+            raise ValueError("vq_assign_exact_tc: f32 rows must start on a 16-byte boundary")
+        xh, xl = (torch.empty((M, D), dtype=BF16, device=x.device) for _ in range(2))
+        _check(lib.ct_vq_rows_bf16(_ptr(x), M, D, _ptr(xh), _ptr(xl), _stream()),
+               "ct_vq_rows_bf16")
+        x = xh
+    _ff_tc_operands("vq_assign_exact_tc", x=x, hi=hi, lo=lo)
+    ids = torch.empty((M,), dtype=torch.int32, device=x.device)
+    _check(lib.ct_vq_assign_exact_tc(_ptr(x), _ptr(xl), x.stride(0), _ptr(hi), _ptr(lo),
+                                     hi.stride(0), M, hi.shape[0], D, _ptr(ids), _stream()),
+           "ct_vq_assign_exact_tc")
+    count_launch("vq_assign_exact_tc")
     return ids
 
 
@@ -1417,9 +1469,9 @@ def qk_bwd_tensor_cores(dtype: torch.dtype, n: int, d: int) -> str:
     sublayer's projections in 3xTF32 on ffn_tc32.cu), for K1's and K9's 576-
     and 64-token planes with or without the bias and any ragged n from 32 in
     zero-filled 64-row tiles; otherwise QK_CUDA_CORES: the backward on
-    qknorm_attention_bwd.cu (qk_attention_bwd_kernel and its f32 form: K10's
-    16-24-token sequences in bf16, other head dims; in f32 `qk_bwd_route`
-    sends K10's sequences to qknorm_attention_short.cu).  The forward below
+    qknorm_attention_bwd.cu (qk_attention_bwd_kernel and its f32 form: other
+    head dims and lengths; `qk_bwd_route` sends K10's 16-31-token sequences
+    to qknorm_attention_short.cu).  The forward below
     32 tokens reads `qk_fwd_route` (K2's sequences take
     qknorm_attention_short.cu).
     `qk_attention_fwd`, `qk_attention_short`, `_qk_tc_bwd` and `_qk_tc32_bwd`
@@ -1457,9 +1509,10 @@ QK_SHORT_BWD_HEADS = 4  # heads of a CTA of the short backward core: one a warp
 
 
 def qk_short_bwd_smem(n: int, heads: int) -> int:
-    """Bytes of shared memory a CTA of qknorm_attention_short.cu's f32
-    backward takes: its group of heads' n token rows of q, k, v and dO in
-    f32 (up to QK_SHORT_BWD_HEADS x 32 each, padded by 16 bytes), each
+    """Bytes of shared memory a CTA of qknorm_attention_short.cu's backward
+    takes, in either form (both read f32 q, kv and dO): its group of heads'
+    n token rows of q, k, v and dO in f32 (up to QK_SHORT_BWD_HEADS x 32
+    each, padded by 16 bytes), each
     warp's n x (n | 1) tiles of P and dS, and its static scratch (the
     scales, the rows' norms, the scale sums)."""
     width = min(heads, QK_SHORT_BWD_HEADS) * QK_TC_HEAD_DIM + 4
@@ -1468,15 +1521,17 @@ def qk_short_bwd_smem(n: int, heads: int) -> int:
 
 def qk_bwd_route(dtype: torch.dtype, n: int, d: int, heads: int, bias: bool = False) -> str:
     """The route of the QK-norm attention core's backward: `qk_bwd_tensor_cores`'
-    QK_WGMMA or QK_TC32 (K9's planes, n >= 32), QK_SHORT for K10 f32's
-    16-31-token sequences at head dim 32 without a bias where a CTA's rows
-    (one sequence's, up to four heads) fit (`qk_short_bwd_smem`): qknorm_attention_short.cu's f32
-    backward core, and the sublayer's backward products in 3xTF32 on
-    ffn_tc32.cu; otherwise QK_CUDA_CORES, qknorm_attention_bwd.cu (bf16 K10,
-    other head dims and lengths).  The forward's gate is `qk_fwd_route`; this
-    one moves none of its answers."""
+    QK_WGMMA or QK_TC32 (K9's planes, n >= 32), QK_SHORT for K10's
+    16-31-token sequences at head dim 32 without a bias, bf16 or f32, where a
+    CTA's rows (one sequence's, up to four heads) fit (`qk_short_bwd_smem`):
+    qknorm_attention_short.cu's backward core in true f32 (its bf16 form
+    rounds only its outputs, at small_attention.py::_bwd_kernel's points),
+    and the sublayer's backward products in 3xTF32 on ffn_tc32.cu (f32) or
+    on ffn_tc.cu's bf16 `wgmma` forms (bf16); otherwise QK_CUDA_CORES,
+    qknorm_attention_bwd.cu (other head dims and lengths).  The forward's
+    gate is `qk_fwd_route`; this one moves none of its answers."""
     core = qk_bwd_tensor_cores(dtype, n, d)
-    if (core == QK_CUDA_CORES and dtype == F32 and d == QK_TC_HEAD_DIM and not bias
+    if (core == QK_CUDA_CORES and dtype in FORMS and d == QK_TC_HEAD_DIM and not bias
             and QK_SHORT_MIN_TOKENS <= n < QK_TC_MIN_TOKENS
             and qk_short_bwd_smem(n, heads) <= SMEM_LIMIT):
         return QK_SHORT
@@ -1700,19 +1755,25 @@ QK_SHORT_SCALE_GROUPS = 32  # first-level groups of the short backward's scale p
 
 
 def qk_attention_short_bwd(q, kv, dout, *, sequences: int, inner: int, heads: int, n: int,
-                           d: int, q_strides, kv_strides, q_scale, k_scale, lib=None):
-    """The QK-norm attention core's f32 backward (K10's) on 16-31-token
-    sequences (qknorm_attention_short.cu), on the projections q (rows, h*d),
-    kv (rows, 2*h*d) [k | v] and dout, the gradient of the merged heads laid
-    out as q, addressed as `qk_attention_short` addresses them, in true f32.
-    Returns the operands of the 3xTF32 products after it: (dq hi, lo) like q,
+                           d: int, q_strides, kv_strides, q_scale, k_scale, lib=None,
+                           out_dtype: torch.dtype = F32):
+    """The QK-norm attention core's backward (K10's) on 16-31-token
+    sequences (qknorm_attention_short.cu), on the f32 projections q (rows,
+    h*d), kv (rows, 2*h*d) [k | v] and dout, the gradient of the merged
+    heads laid out as q, addressed as `qk_attention_short` addresses them,
+    in true f32.  out_dtype bf16 (K10 bf16, at small_attention.py::
+    _bwd_kernel's rounding points): returns (merged, dq, dkv, dq_scale,
+    dk_scale), merged and dq like q and dkv like kv in bf16, each rounded
+    once from f32, the strides multiples of 8 elements; counted
+    `qk_attention_short_bwd`.  out_dtype f32 (K10 f32):
+    returns the operands of the 3xTF32 products after it: (dq hi, lo) like q,
     (dkv hi, lo) like kv, and the transposed planes (merged hi, lo), (dq hi,
     lo) (h*d, S n) and (dkv hi, lo) (2*h*d, S n), sequence s's token t in
     column s n + t (`tc32_split_t`'s order for seq = (n, inner)); then
     dq_scale (before the logit scale) and dk_scale (d,) f32: the partials of
     each (sequence, group of QK_SHORT_BWD_HEADS heads), one CTA's, added in
     two levels (QK_SHORT_SCALE_GROUPS blocks of them row by row, then the
-    blocks' sums), in a fixed order.  Counted
+    blocks' sums), in a fixed order.  Counted `qk_attention_short_bwd` and
     `qk_attention_short_bwd_f32`.  A shape `qk_bwd_route` does not send here
     raises.  `lib`: a one-change copy (`copy_library`) of the source, to
     launch instead."""
@@ -1721,33 +1782,46 @@ def qk_attention_short_bwd(q, kv, dout, *, sequences: int, inner: int, heads: in
         require(t, name, F32, 2)
         if t.shape[1] != width or t.shape[0] != q.shape[0]:
             raise ValueError(f"qk_attention_short_bwd: {name} {tuple(t.shape)}")
-    if qk_bwd_route(q.dtype, n, d, heads) != QK_SHORT or q.shape[0] != sequences * n:
-        raise ValueError(f"qk_attention_short_bwd: {q.dtype} at n {n}, head dim {d}, "
+    if out_dtype not in FORMS or qk_bwd_route(out_dtype, n, d, heads) != QK_SHORT \
+            or q.shape[0] != sequences * n or any(t.dtype != F32 for t in (q, kv, dout)):
+        raise ValueError(f"qk_attention_short_bwd: {out_dtype} at n {n}, head dim {d}, "
                          f"{heads} heads, {q.shape[0]} rows is not its route "
                          "(kernels.qk_bwd_route)")
     strides = _qk_tc_strides("qk_attention_short_bwd", q_strides, kv_strides, q, kv, dout)
     if strides[2] != d or strides[6] != d:
         raise ValueError("qk_attention_short_bwd: the heads of a token must lie side by side")
+    if out_dtype == BF16 and any(st % 8 for st in strides):
+        raise ValueError("qk_attention_short_bwd: its bf16 rows take strides of multiples of "
+                         "8 elements")
     qs, ks = _f32_vector(q_scale, d, "q_scale"), _f32_vector(k_scale, d, "k_scale")
     rows, ldt = q.shape[0], -(-q.shape[0] // 4) * 4
     dev = q.device
+    ctas = sequences * -(-heads // QK_SHORT_BWD_HEADS)
+    rows_p = -(-ctas // QK_SHORT_SCALE_GROUPS) * QK_SHORT_SCALE_GROUPS
+    parts = torch.zeros((2, rows_p, d), dtype=F32, device=dev)
+
+    def scale_sum(part):  # blocks of sequences row by row, then the blocks' sums
+        return sum_splits(sum_splits(part.view(QK_SHORT_SCALE_GROUPS, -1)).view(-1, d))
+    if out_dtype == BF16:
+        merged, dq, dkv = (torch.empty(t.shape, dtype=BF16, device=dev) for t in (q, q, kv))
+        err = (lib or library()).ct_qk_attention_short_bwd(
+            _ptr(q), _ptr(kv), _ptr(dout), _ptr(dq), _ptr(dkv), _ptr(merged), *strides, inner,
+            sequences, heads, n, d, _ptr(qs), _ptr(ks), _ptr(parts[0]), _ptr(parts[1]),
+            _stream())
+        _check(err, "ct_qk_attention_short_bwd")
+        count_launch("qk_attention_short_bwd")
+        return merged, dq, dkv, scale_sum(parts[0]), scale_sum(parts[1])
     dq_hi, dq_lo, dkv_hi, dkv_lo = (torch.empty_like(t) for t in (q, q, kv, kv))
     m_t_hi, m_t_lo, dq_t_hi, dq_t_lo = (torch.empty((hd, ldt), dtype=F32, device=dev)
                                         for _ in range(4))
     dkv_t_hi, dkv_t_lo = (torch.empty((2 * hd, ldt), dtype=F32, device=dev) for _ in range(2))
-    ctas = sequences * -(-heads // QK_SHORT_BWD_HEADS)
-    rows_p = -(-ctas // QK_SHORT_SCALE_GROUPS) * QK_SHORT_SCALE_GROUPS
-    parts = torch.zeros((2, rows_p, d), dtype=F32, device=dev)
     err = (lib or library()).ct_qk_attention_short_bwd_f32(
         _ptr(q), _ptr(kv), _ptr(dout), _ptr(dq_hi), _ptr(dq_lo), _ptr(dkv_hi), _ptr(dkv_lo),
         _ptr(m_t_hi), _ptr(m_t_lo), _ptr(dq_t_hi), _ptr(dq_t_lo), _ptr(dkv_t_hi),
         _ptr(dkv_t_lo), ldt, *strides, inner, sequences, heads, n, d, _ptr(qs), _ptr(ks),
         _ptr(parts[0]), _ptr(parts[1]), _stream())
     _check(err, "ct_qk_attention_short_bwd_f32")
-    count_launch("qk_attention_short_bwd_f32")
-
-    def scale_sum(part):  # blocks of sequences row by row, then the blocks' sums
-        return sum_splits(sum_splits(part.view(QK_SHORT_SCALE_GROUPS, -1)).view(-1, d))
+    count_launch("qk_attention_short_bwd", F32)
     cols = slice(0, rows)
     return (dq_hi, dq_lo, dkv_hi, dkv_lo, m_t_hi[:, cols], m_t_lo[:, cols], dq_t_hi[:, cols],
             dq_t_lo[:, cols], dkv_t_hi[:, cols], dkv_t_lo[:, cols], scale_sum(parts[0]),

@@ -61,8 +61,17 @@ on the routes `kernels.qk_bwd_route` gives the tensor cores (K9's planes) or
 the short core (K10's 16-31-token sequences: csrc/qknorm_attention_short.cu's
 f32 backward, counted `qk_attention_short_bwd_f32`) every product runs in
 3xTF32 on csrc/ffn_tc32.cu (`_qknorm_attention_bwd_tc32`: the weight
-gradients on its TN form over transposed TF32 planes).  Their plain
-versions are autograd of the plain forwards.
+gradients on its TN form over transposed TF32 planes).  In bf16 on the
+short route (K10, `_qknorm_attention_bwd_short`) the backward follows
+small_attention.py::_bwd_kernel's own rounding points: q, kv and dmerged
+f32, the short core's bf16 form (true f32 inside, counted
+`qk_attention_short_bwd`; plain version `qk_short_bwd_core_plain`), dq,
+dkv and merged rounded once, every product on csrc/ffn_tc.cu's bf16
+`wgmma` forms (plain version of the whole backward:
+`small_qknorm_bwd_plain`); K9 bf16 keeps its core and rounding points, its
+dmerged, NN and TN products on ffn_tc.cu too where `proj_route` gives
+PROJ_WGMMA.  The training paths' plain versions on the CPU are autograd of
+the plain forwards.
 """
 from __future__ import annotations
 
@@ -243,6 +252,73 @@ def qk_attention_bwd_core_plain(q, kv, dout, heads: int, d: int, n: int, q_scale
             None if bias is None else ds.sum(0))
 
 
+def qk_short_bwd_core_plain(q, kv, dout, heads: int, d: int, n: int, q_scale, k_scale):
+    """Plain version of the short backward core's bf16 form
+    (`kernels.qk_attention_short_bwd(..., out_dtype=bf16)`, K10 bf16) on
+    sequence-major (S n, heads d) f32 projections q, kv [k | v] and dout:
+    `qk_attention_bwd_core_plain` in f32, nothing rounded inside, then
+    merged, dq and dkv rounded to bf16 once (small_attention.py:353-354,
+    :377).  Returns (merged, dq, dkv, dq_scale before the logit scale,
+    dk_scale); the sums f32."""
+    merged, dq, dkv, dqs, dks, _ = qk_attention_bwd_core_plain(
+        q.float(), kv.float(), dout.float(), heads, d, n, q_scale, k_scale, None)
+    bf = torch.bfloat16
+    return merged.to(bf), dq.to(bf), dkv.to(bf), dqs, dks
+
+
+def small_qknorm_bwd_plain(x, gamma, wq, wkv, q_scale, k_scale, wout, dout, heads: int,
+                           dim_head: int, scale: float = 8.0, grid: bool = False):
+    """Plain version of K10 bf16's backward at the TPU kernel's own rounding
+    points (ct_clip_tpu/ops/pallas/small_attention.py::_bwd_kernel,
+    :249-403), on the (b, t, S, dim) grid (grid=True) or on (b, n, dim)
+    sequences, residual included: the LN recomputed in f32 and xn rounded to
+    x's dtype (:269-276); q = xn wq^T and kv = x wkv^T kept f32 (:278-279);
+    dmerged = f32(dO) wout (:301-303); the whole (n, n) core in f32
+    (:304-350); dq, [dk | dv] rounded (:353-354); dxn = dq wq, dx_kv = dkv
+    wkv in f32 (:355-358); the LN backward and dx = dx_ln + dx_kv + dO
+    (:361-369); dWq = dq^T xn, dWkv = dkv^T x, dWout = dO^T merged with dO
+    and merged rounded (:371-379); dgamma = sum dxn xhat (:380).  Every
+    product takes its operands at those points exactly and sums in f32.
+    The TPU runs these dots under mm_precision "default" (_call.py:64-84),
+    which on its MXU may round the f32 operands of the f32 dots; interpret
+    mode on the CPU cannot show that, and this version, like the kernel
+    body as written and the port's card path, keeps them f32.  Returns (dx,
+    dgamma, dwq, dwkv, dq_scale, dk_scale, dwout) in the port's layouts,
+    dx in x's dtype, the rest f32."""
+    dt, f32 = x.dtype, torch.float32
+    dim = x.shape[-1]
+    if grid:  # the t-columns as sequences
+        xs, ds = x.transpose(1, 2), dout.transpose(1, 2)
+    else:
+        xs, ds = x, dout
+    n = xs.shape[-2]
+    x2, do2 = xs.reshape(-1, dim), ds.reshape(-1, dim)
+    xf = x2.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + 1e-5)
+    xhat = xc * rstd
+    gf = gamma.float()
+    xn = (xhat * gf).to(dt)
+    wq_f, wkv_f, wout_f = (w.to(dt).float() for w in (wq, wkv, wout))
+    dof = do2.to(dt).float()
+    q = xn.float() @ wq_f.t()
+    kv = x2.float() @ wkv_f.t()
+    dmerged = dof @ wout_f
+    merged, dq, dkv, dqs, dks = qk_short_bwd_core_plain(
+        q, kv, dmerged, heads, dim_head, n, q_scale.float() * scale, k_scale)
+    dxn = dq.float() @ wq_f
+    dx_kv = dkv.float() @ wkv_f
+    dxhat = dxn * gf
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (dxhat - m1 - xhat * m2) + dx_kv + dof).to(dt).view(xs.shape)
+    if grid:
+        dx = dx.transpose(1, 2).contiguous()
+    return (dx, (dxn * xhat).sum(0), dq.float().t() @ xn.float(), dkv.float().t() @ x2.float(),
+            dqs * scale, dks.to(f32), dof.t() @ merged.float())
+
+
 def _layout(x, hd: int, dim_head: int, grid: bool):
     """(sequences, inner, q_strides, kv_strides, n) of the attention core on
     the (rows, hd) q and (rows, 2 hd) kv products of x."""
@@ -415,6 +491,40 @@ def _qknorm_attention_bwd_tc32(x, gamma, wq, wkv, q_scale, k_scale, wout, bias, 
             tn(*do_t, *merged_t), dbias)
 
 
+def _qknorm_attention_bwd_short(x, gamma, wq, wkv, q_scale, k_scale, wout, dout, heads,
+                                dim_head, scale, grid: bool):
+    """K10 bf16's backward on the short route, at small_attention.py::
+    _bwd_kernel's rounding points (`small_qknorm_bwd_plain`): xn = bf16(LN(x))
+    (layernorm.cu), q = xn wq^T and kv = x wkv^T kept f32 (ffn_tc.cu's NT
+    form GEMM_NT_F32), dmerged = dO wout in f32 (the NN form), the short
+    core's bf16 form (f32 inside; dq, dkv and merged rounded once), dxn = dq
+    wq and dx_kv = dkv wkv in f32 (NN), the LN backward with dx_kv and dO,
+    and dWq = dq^T xn, dWkv = dkv^T x, dWout = dO^T merged on the TN form,
+    f32 over all rows: every product on ffn_tc.cu's bf16 `wgmma` forms."""
+    dim = x.shape[-1]
+    hd = heads * dim_head
+    x2 = x.view(-1, dim)
+    rows = x2.shape[0]
+    dout = dout.to(x.dtype).contiguous().view(rows, dim)
+    sequences, inner, q_strides, kv_strides, n = _layout(x, hd, dim_head, grid)
+    wq_c, wkv_c, wout_c = (w.to(x.dtype).contiguous() for w in (wq, wkv, wout))
+    xn = torch.empty_like(x2)
+    K.layernorm(x2, gamma, None, 1e-5, xn)
+    q = K.gemm_nt_tc(xn, wq_c, torch.float32)
+    kv = K.gemm_nt_tc(x2, wkv_c, torch.float32)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dmerged = K.gemm_nn_tc(dout, wout_c, torch.empty((rows, hd), **f32))
+    merged, dq, dkv, dqs, dks = K.qk_attention_short_bwd(
+        q, kv, dmerged, sequences=sequences, inner=inner, heads=heads, n=n, d=dim_head,
+        q_strides=q_strides, kv_strides=kv_strides, q_scale=q_scale.float() * scale,
+        k_scale=k_scale, out_dtype=torch.bfloat16)
+    dxn = K.gemm_nn_tc(dq, wq_c, torch.empty((rows, dim), **f32))
+    dx_kv = K.gemm_nn_tc(dkv, wkv_c, torch.empty((rows, dim), **f32))
+    dx, dgamma, _ = K.layernorm_bwd(x2, gamma, dxn, 1e-5, add=dx_kv, add2=dout)
+    return (dx.view(x.shape), dgamma, K.gemm_tn_tc(dq, xn), K.gemm_tn_tc(dkv, x2),
+            dqs * scale, dks, K.gemm_tn_tc(dout, merged), None)
+
+
 def _qknorm_attention_bwd_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
                                dout, heads, dim_head, scale, grid: bool):
     cdt, f32 = x.dtype, torch.float32
@@ -422,16 +532,23 @@ def _qknorm_attention_bwd_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
     hd = heads * dim_head
     sequences, inner, q_strides, kv_strides, n = _layout(x, hd, dim_head, grid)
     core = K.qk_bwd_route(cdt, n, dim_head, heads, bias is not None)
+    tc = proj_route(cdt, dim, hd) == PROJ_WGMMA
     if cdt == f32 and core != K.QK_CUDA_CORES:
         return _qknorm_attention_bwd_tc32(x, gamma, wq, wkv, q_scale, k_scale, wout, bias, dout,
                                           heads, dim_head, scale, grid, core)
+    if core == K.QK_SHORT and tc:
+        return _qknorm_attention_bwd_short(x, gamma, wq, wkv, q_scale, k_scale, wout, dout,
+                                           heads, dim_head, scale, grid)
     x2 = x.view(-1, dim)
     rows = x2.shape[0]
     dout = dout.to(cdt).contiguous().view(rows, dim)
     wq_c, wkv_c, wout_c = (w.to(cdt).contiguous() for w in (wq, wkv, wout))
     xn, q, kv = _project(x2, gamma, wq, wkv, hd)
-    dmerged = torch.empty((rows, hd), dtype=cdt, device=x.device)
-    K.gemm_nn(dout, wout_c, dmerged)
+    # bf16 products on ffn_tc.cu's `wgmma` forms where its TMA copies take the
+    # rows (K9 bf16: dmerged rounded once, as gemm.cu rounds it), else gemm.cu
+    nn = K.gemm_nn_tc if tc else K.gemm_nn
+    tn = K.gemm_tn_tc if tc else K.gemm_tn
+    dmerged = nn(dout, wout_c, torch.empty((rows, hd), dtype=cdt, device=x.device))
     groups = min(sequences, -(-TARGET_BLOCKS // heads) if bias is not None else GRID_GROUPS)
     merged, dq, dkv, dqs, dks, dbias = K.qk_attention_bwd(
         q, kv, dmerged, sequences=sequences, inner=inner, heads=heads, n=n,
@@ -439,13 +556,11 @@ def _qknorm_attention_bwd_cuda(x, gamma, wq, wkv, q_scale, k_scale, wout, bias,
         q_scale=q_scale.float() * scale, k_scale=k_scale,
         bias=None if bias is None else bias.float().contiguous(),
         group=-(-sequences // groups), warps=8 if n >= 128 else 2)
-    dxn = torch.empty((rows, dim), dtype=f32, device=x.device)
-    K.gemm_nn(dq, wq_c, dxn)
-    dx_kv = torch.empty_like(dxn)
-    K.gemm_nn(dkv, wkv_c, dx_kv)
+    dxn = nn(dq, wq_c, torch.empty((rows, dim), dtype=f32, device=x.device))
+    dx_kv = nn(dkv, wkv_c, torch.empty((rows, dim), dtype=f32, device=x.device))
     dx, dgamma, _ = K.layernorm_bwd(x2, gamma, dxn, 1e-5, add=dx_kv, add2=dout)
-    return (dx.view(x.shape), dgamma, K.gemm_tn(dq, xn), K.gemm_tn(dkv, x2),
-            dqs * scale, dks, K.gemm_tn(dout, merged), dbias)
+    return (dx.view(x.shape), dgamma, tn(dq, xn), tn(dkv, x2),
+            dqs * scale, dks, tn(dout, merged), dbias)
 
 
 def _apply(x, gamma, wq, wkv, q_scale, k_scale, wout, bias, heads, dim_head, scale,

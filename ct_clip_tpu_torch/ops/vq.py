@@ -24,19 +24,24 @@ on the CPU, as the JAX package's XLA form off the TPU).
 
 On a CUDA tensor the similarity product and the argmax over all codes run
 in one hand-written kernel; the (tokens, codes) similarity matrix never
-reaches device memory.  The inference mode takes csrc/vq_tc.cu (`wgmma`,
-the argmax on the accumulators in registers) at widths it fits
-(`kernels.vq_tc_fits`: multiples of 8 up to 512), csrc/gemm.cu's
-gemm_argmax_kernel elsewhere; the exact mode gemm_argmax2_kernel.  f32
+reaches device memory.  Both modes take csrc/vq_tc.cu (`wgmma`, the argmax
+on the accumulators in registers; the exact mode's two or three products
+per k block into one accumulator, `kernels.vq_assign_exact_tc`) at widths
+it fits (`kernels.vq_tc_fits`: multiples of 8 up to 512), csrc/gemm.cu
+elsewhere (gemm_argmax_kernel; the exact mode gemm_argmax2_kernel and
+gemm_argmax3_rows_kernel).  f32
 rows in inference take the TPU kernel's math on f32 input (vq.py:83-93):
 each row l2-normalised in f32 and rounded to bf16 (on vq_tc.cu by a
 pre-pass whose row norm `_lane_inv_norm` repeats bit for bit:
 `vq_assign_rows_lane_plain` is its plain version; on gemm.cu as the tile
 loads, `vq_assign_rows_plain`), one bf16 pass against the bf16 codebook.
 The exact mode on f32 rows (an f32 CTViT in training, vq.py:
-83-95) takes gemm_argmax3_rows_kernel: the normalised row split into bf16
-hi + lo parts xh + xl as it is loaded, three bf16 products (xh.c_hi +
-xh.c_lo) + xl.c_hi summed in f32 (`vq_assign_exact_rows_plain`).  The EMA
+83-95): the normalised row split into bf16 hi + lo parts xh + xl (on
+vq_tc.cu by the pre-pass, in `_lane_inv_norm`'s order: `_split_rows(x,
+_lane_inv_norm)`; on gemm.cu's gemm_argmax3_rows_kernel as it is loaded),
+three bf16 products (xh.c_hi + xh.c_lo) + xl.c_hi summed in f32
+(`vq_assign_exact_rows_plain`; `vq_assign_exact_rows_lane_plain`, the
+plain version of vq_tc.cu's form, takes the pre-pass's rows).  The EMA
 statistics (bins and the sums of the normalised rows per code) are K15's
 port, csrc/vq_stats.cu, which groups the rows by code and adds each code's
 rows in row order; on f32 rows each normalised row as its bf16 hi + lo
@@ -153,6 +158,22 @@ def vq_assign_exact_rows_plain(x: torch.Tensor, embed_n: torch.Tensor) -> torch.
     return vq_assign_exact_rows_sim(x, embed_n).argmax(dim=-1).to(torch.int32)
 
 
+def vq_exact_rows_lane_sim(x: torch.Tensor, embed_n: torch.Tensor) -> torch.Tensor:
+    """The similarities of K5 exact on f32 rows as csrc/vq_tc.cu takes them:
+    each row's xh and xl from the norm in `_lane_inv_norm`'s order (the
+    kernel's pre-pass, bit for bit), then (xh c_hi^T + xh c_lo^T) + xl
+    c_hi^T, each product summed in f32."""
+    xh, xl = _split_rows(x, _lane_inv_norm)
+    hi, lo = (t.float() for t in split_hi_lo(embed_n))
+    return (xh @ hi.t() + xh @ lo.t()) + xl @ hi.t()
+
+
+def vq_assign_exact_rows_lane_plain(x: torch.Tensor, embed_n: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5 exact on f32 rows on csrc/vq_tc.cu: the argmax of
+    `vq_exact_rows_lane_sim` as (n,) int32."""
+    return vq_exact_rows_lane_sim(x, embed_n).argmax(dim=-1).to(torch.int32)
+
+
 def rows_fit(rows: int, dim: int, codes: int) -> bool:
     """Whether the JAX package's assignment takes its Pallas kernel for
     these shapes (ct_clip_tpu/ops/pallas/vq.py::_plan: dim and codes
@@ -193,14 +214,15 @@ def _vq_assign_cuda(x: torch.Tensor, embed_n: torch.Tensor, exact: bool) -> torc
     if r == K.PLAIN:
         K.count_launch("vq_assign_plain")
         return vq_assign_plain(x, embed_n, exact)
-    if exact:
-        hi, lo = split_hi_lo(embed_n)
-        ids = K.gemm_argmax(x.contiguous(), hi, lo)
-    elif K.vq_tc_fits(x.shape[1]):
+    if K.vq_tc_fits(x.shape[1]):
         x = x.contiguous()
         if x.data_ptr() % 16:  # TMA reads rows from 16-byte boundaries: a stated copy
             x = x.clone()
-        ids = K.vq_assign_tc(x, embed_n.to(torch.bfloat16).contiguous())
+        ids = (K.vq_assign_exact_tc(x, *split_hi_lo(embed_n)) if exact
+               else K.vq_assign_tc(x, embed_n.to(torch.bfloat16).contiguous()))
+    elif exact:
+        hi, lo = split_hi_lo(embed_n)
+        ids = K.gemm_argmax(x.contiguous(), hi, lo)
     else:
         ids = K.gemm_argmax(x.contiguous(), embed_n.to(torch.bfloat16).contiguous())
     K.count_launch(op, x.dtype)

@@ -257,8 +257,8 @@ def test_seq_order_is_the_t_column_order():
     (F32, 20, 32, 8, False, K.QK_SHORT, K.QK_SHORT),       # K10 seq f32: the autoencoder's 20
     (F32, 16, 32, 8, False, K.QK_SHORT, K.QK_SHORT),       # K10 seq f32: 160 frames, t 16
     (F32, 31, 32, 8, False, K.QK_SHORT, K.QK_SHORT),
-    (BF, 24, 32, 8, False, K.QK_CUDA_CORES, K.QK_SHORT),   # bf16 K10 keeps the CUDA cores
-    (BF, 16, 32, 8, False, K.QK_CUDA_CORES, K.QK_SHORT),
+    (BF, 24, 32, 8, False, K.QK_SHORT, K.QK_SHORT),        # bf16 K10 takes the short core too
+    (BF, 16, 32, 8, False, K.QK_SHORT, K.QK_SHORT),
     (F32, 15, 32, 8, False, K.QK_CUDA_CORES, K.QK_CUDA_CORES),  # below the route
     (F32, 24, 32, 8, True, K.QK_CUDA_CORES, K.QK_CUDA_CORES),   # a bias
     (F32, 24, 64, 8, False, K.QK_CUDA_CORES, K.QK_CUDA_CORES),  # another head dim

@@ -278,7 +278,8 @@ def _weights(dim, heads, dh):
 ])
 def test_k2_forward_route_table(dtype, n, d, heads, bias, route):
     assert K.qk_fwd_route(dtype, n, d, heads, bias) == route
-    # the backward's gate is its own: K10's short sequences keep the CUDA cores
+    # below 32 tokens the tensor-core gate answers the CUDA cores; the short
+    # sequences' backward route is `qk_bwd_route`'s
     if n < K.QK_TC_MIN_TOKENS:
         assert K.qk_bwd_tensor_cores(dtype, n, d) == K.QK_CUDA_CORES
 
@@ -327,13 +328,13 @@ def test_k2_forward_launches_the_short_core_and_counts_it(monkeypatch, dtype, sh
 
 @pytest.mark.parametrize("dtype,grid", [(BF, True), (BF, False), (F32, True), (F32, False)])
 def test_k2_backward_keeps_the_cuda_core_kernel(monkeypatch, dtype, grid):
-    """K10's bf16 route does not change: its core is qknorm_attention_bwd.cu
-    on the CUDA cores (counted on no tensor-core counter), and its recompute
-    of q and kv runs the NT store form.  K10 f32 takes the short backward
-    core (qknorm_attention_short.cu, counted `qk_attention_short_bwd_f32`)
-    and its products in 3xTF32 on ffn_tc32.cu, the recompute of q and kv
-    among them (counted `tc32_gemm`): nothing of qknorm_attention_bwd.cu
-    or gemm.cu."""
+    """K10 takes the short backward core in both dtypes (counted on no
+    tensor-core counter): bf16 its bf16 form (counted
+    `qk_attention_short_bwd`) with the recompute of q and kv on ffn_tc.cu's
+    f32-store NT form and every other product on ffn_tc.cu; f32 its f32
+    form (`qk_attention_short_bwd_f32`) and its products in 3xTF32 on
+    ffn_tc32.cu, the recompute of q and kv among them (counted
+    `tc32_gemm`): nothing of qknorm_attention_bwd.cu or gemm.cu."""
     from ct_clip_tpu_torch.ops import qknorm_attention as Q
 
     lib = _RecordingLibrary()
@@ -347,9 +348,11 @@ def test_k2_backward_keeps_the_cuda_core_kernel(monkeypatch, dtype, grid):
     c = K.launch_counts()
     assert c["qk_attention_tc_bwd"] == c["qk_attention_tc32_bwd"] == c["qk_attention_short"] == 0
     if dtype == BF:
-        assert names.count("ct_qk_attention_bwd") == 1
-        assert not any("short" in n or "_tc_bwd" in n or "tc32_bwd" in n for n in names)
-        assert names[1:3] == ["ct_ff_tc_gemm_nt", "ct_ff_tc_gemm_nt"] and c["qk_proj_tc"] == 2
+        assert names.count("ct_qk_attention_short_bwd") == 1
+        assert not any(n in names for n in ("ct_qk_attention_bwd", "ct_gemm_layout", "ct_gemm"))
+        assert not any("_tc_bwd" in n or "tc32" in n for n in names)
+        assert names[1:3] == ["ct_ff_tc_gemm_nt_f32", "ct_ff_tc_gemm_nt_f32"]
+        assert c["qk_proj_tc"] == 2 and c["qk_attention_short_bwd"] == 1
     else:
         assert names.count("ct_qk_attention_short_bwd_f32") == 1
         assert not any(n in names for n in ("ct_qk_attention_bwd_f32", "ct_gemm_f32",

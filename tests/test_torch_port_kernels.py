@@ -320,8 +320,8 @@ def test_vq_assign_k5_wgmma_f32_rows_pre_pass_is_the_plain_norm(dev):
         x = torch.randn((777, dim), generator=g, device=dev) * 3.0
         x[5] = 0.0
         out = torch.empty((777, dim), dtype=BF, device=dev)
-        K._check(K.library().ct_vq_rows_bf16(K._ptr(x), 777, dim, K._ptr(out), K._stream()),
-                 "ct_vq_rows_bf16")
+        K._check(K.library().ct_vq_rows_bf16(K._ptr(x), 777, dim, K._ptr(out), None,
+                                             K._stream()), "ct_vq_rows_bf16")
         torch.cuda.synchronize()
         assert torch.equal(out, (x * _lane_inv_norm(x)).to(BF))
 
@@ -2218,6 +2218,110 @@ def test_layernorm_f32_rows_forms(dev, D):
     ref_dx = rdx + add + add2
     _close(out[0], ref_dx, rel=F32_FWD)
     for got, ref in zip(out[1:], (rds, rdb, ref_dx.sum(0))):
+        _close(got, ref, rel=F32_WGRAD)
+    again = K.layernorm_bwd(x, scale, dxn, 1e-5, add=add, add2=add2, want_dbias=True,
+                            want_dxsum=True)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def _mean_rel(got, ref) -> float:
+    return ((got.float() - ref.float()).abs().mean() / ref.float().abs().mean()).item()
+
+
+@pytest.mark.parametrize("layout,B,n,S,heads", [("grid", 2, 24, 36, 8), ("seq", 40, 16, 1, 8),
+                                                ("seq", 40, 20, 1, 6), ("seq", 9, 31, 1, 8)])
+def test_qk_short_bwd_core_bf16(dev, layout, B, n, S, heads):
+    """K10 bf16's core (the short core's bf16 form) against the plain version
+    at the TPU kernel's rounding points: merged, dq and dkv within REL of
+    max|plain| and 2e-4 of mean|plain|, the scale sums within F32_WGRAD; the
+    copy rounding P to bf16 misses the mean; two runs equal."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import qk_short_bwd_core_plain
+
+    g = _gen(dev, 86)
+    d, hd, rows = 32, heads * 32, B * n * S
+    q, kv, dm = (_randn((rows, wd), g, dev, dtype=F32) for wd in (hd, 2 * hd, hd))
+    qs, ks = (1 + 0.2 * torch.randn(d, generator=g, device=dev)) * 8.0, \
+        1 + 0.2 * torch.randn(d, generator=g, device=dev)
+    layout = dict(sequences=B * S, inner=S, heads=heads, n=n, d=d,
+                  q_strides=(n * S * hd, hd, d, S * hd),
+                  kv_strides=(n * S * 2 * hd, 2 * hd, d, S * 2 * hd), q_scale=qs, k_scale=ks,
+                  out_dtype=BF)
+    c = torch.arange(rows, device=dev)
+    order = ((c // n // S) * n + c % n) * S + c // n % S
+    K.reset_launch_counts()
+    out = K.qk_attention_short_bwd(q, kv, dm, **layout)
+    ref = qk_short_bwd_core_plain(q[order], kv[order], dm[order], heads, d, n, qs, ks)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["qk_attention_short_bwd"] == 1
+    assert [t.dtype for t in out[:3]] == [BF] * 3
+    for got, r in zip(out[:3], ref[:3]):
+        _close(got[order], r)
+        assert _mean_rel(got[order], r) <= 2e-4
+    _close(out[3], ref[3], rel=F32_WGRAD)
+    _close(out[4], ref[4], rel=F32_WGRAD)
+    again = K.qk_attention_short_bwd(q, kv, dm, **layout)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    copy = K.copy_library("qknorm_attention_short.cu", CT_QK_SHORT_BWD_ROUND_P=1)
+    bad = K.qk_attention_short_bwd(q, kv, dm, lib=copy, **layout)
+    assert _mean_rel(bad[0][order], ref[0]) > 2e-4
+
+
+@pytest.mark.parametrize("dtype,rows,dim,codes", [(BF, 10240, 512, 8192), (F32, 10240, 512, 8192),
+                                                  (BF, 1001, 64, 1000), (F32, 777, 128, 500)])
+def test_k5_exact_wgmma(dev, dtype, rows, dim, codes):
+    """K5's exact assignment on vq_tc.cu (bf16 rows, and f32 rows after the
+    splitting pre-pass, ragged rows and codes) against the plain version of
+    its math: ids equal but for ties within 1e-5 of the row's largest
+    |sim|; the pre-pass's xh and xl equal `_split_rows` with the lane norm
+    bit for bit."""
+    from ct_clip_tpu_torch.ops.norms import l2norm
+    from ct_clip_tpu_torch.ops.vq import (_lane_inv_norm, _split_rows, split_hi_lo,
+                                          vq_exact_rows_lane_sim)
+
+    g = _gen(dev, 87)
+    x = torch.randn((rows, dim), generator=g, device=dev).to(dtype)
+    embed_n = l2norm(torch.randn((codes, dim), generator=g, device=dev))
+    hi, lo = split_hi_lo(embed_n)
+    K.reset_launch_counts()
+    got = K.vq_assign_exact_tc(x, hi, lo).long()
+    if dtype == BF:
+        sim = x.float() @ hi.float().t() + x.float() @ lo.float().t()
+    else:
+        sim = vq_exact_rows_lane_sim(x, embed_n)
+        xh, xl = (torch.empty((rows, dim), dtype=BF, device=dev) for _ in range(2))
+        K._check(K.library().ct_vq_rows_bf16(K._ptr(x), rows, dim, K._ptr(xh), K._ptr(xl),
+                                             K._stream()), "ct_vq_rows_bf16")
+        ph, pl = _split_rows(x, _lane_inv_norm)
+        assert torch.equal(xh.float(), ph) and torch.equal(xl.float(), pl)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["vq_assign_exact_tc"] == 1
+    ref = sim.argmax(dim=-1)
+    gap = (sim.gather(1, ref[:, None]) - sim.gather(1, got[:, None]))[:, 0].abs()
+    assert (gap <= 1e-5 * sim.abs().max(dim=1).values).all()
+    assert (got == ref).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("D", [128, 512, 640])
+def test_layernorm_bf16_rows_backward(dev, D):
+    """The bf16 LN backward on rows of 128-512 (the warp-a-row form; 640
+    keeps the block-per-row kernel): dx within REL of the plain f32 backward
+    rounded once, the column sums within F32_WGRAD; two runs equal."""
+    from ct_clip_tpu_torch.ops.autograd import vjp
+    from ct_clip_tpu_torch.ops.norms import layer_norm
+
+    g = _gen(dev, 88)
+    x = _randn((1001, D), g, dev, 3.0) + 1.0
+    scale = 1 + _randn((D,), g, dev, 0.1, F32)
+    dxn, add = (_randn((1001, D), g, dev, dtype=F32) for _ in range(2))
+    add2 = _randn((1001, D), g, dev)
+    out = K.layernorm_bwd(x, scale, dxn, 1e-5, add=add, add2=add2, want_dbias=True,
+                          want_dxsum=True)
+    rdx, rds = vjp(lambda a, s: layer_norm(a, s, None), (x.float(), scale), dxn)
+    torch.cuda.synchronize()
+    ref_dx = rdx + add + add2.float()
+    assert out[0].dtype == BF
+    _close(out[0], ref_dx)
+    for got, ref in zip(out[1:], (rds, dxn.sum(0), ref_dx.sum(0))):
         _close(got, ref, rel=F32_WGRAD)
     again = K.layernorm_bwd(x, scale, dxn, 1e-5, add=add, add2=add2, want_dbias=True,
                             want_dxsum=True)

@@ -929,16 +929,19 @@ def test_k3_ff_tc_fwd_raises_on_a_misfit(monkeypatch, misfit):
 @pytest.mark.parametrize("dtype,dim,exact,names,tc", [
     (BF, 512, False, ["ct_vq_assign_tc"], 1),                     # K5 bf16: vq_tc.cu
     (F32, 512, False, ["ct_vq_rows_bf16", "ct_vq_assign_tc"], 1),  # f32 rows: pre-pass first
-    (BF, 512, True, ["ct_gemm_argmax2"], 0),                       # K5 exact stays on gemm.cu
-    (F32, 512, True, ["ct_gemm_argmax2_rows"], 0),
+    (BF, 512, True, ["ct_vq_assign_exact_tc"], 1),                 # K5 exact: vq_tc.cu too
+    (F32, 512, True, ["ct_vq_rows_bf16", "ct_vq_assign_exact_tc"], 1),
     (BF, 640, False, ["ct_gemm_argmax"], 0),                       # wider than the row tile
     (BF, 100, False, ["ct_gemm_argmax"], 0),                       # no TMA row
+    (BF, 640, True, ["ct_gemm_argmax2"], 0),                       # ... exact: gemm.cu
+    (F32, 100, True, ["ct_gemm_argmax2_rows"], 0),
 ])
 def test_k5_routes_inference_to_vq_tc_and_keeps_exact(monkeypatch, dtype, dim, exact, names, tc):
-    """K5 on a CUDA tensor: the inference mode on bf16 and on f32 rows takes
-    vq_tc.cu (counted `vq_assign_tc` beside `vq_assign`) where the width
-    fits (`kernels.vq_tc_fits`), gemm.cu's gemm_argmax_kernel elsewhere;
-    the exact mode stays on gemm.cu."""
+    """K5 on a CUDA tensor: both modes on bf16 and on f32 rows take
+    vq_tc.cu (counted `vq_assign_tc` beside `vq_assign`, the exact mode
+    `vq_assign_exact_tc` beside `vq_assign_exact`) where the width fits
+    (`kernels.vq_tc_fits`), gemm.cu elsewhere (gemm_argmax_kernel; the
+    exact mode gemm_argmax2_kernel and gemm_argmax3_rows_kernel)."""
     from ct_clip_tpu_torch.ops import vq
 
     lib = _RecordingLibrary()
@@ -951,9 +954,11 @@ def test_k5_routes_inference_to_vq_tc_and_keeps_exact(monkeypatch, dtype, dim, e
     assert lib.names() == names
     c = K.launch_counts()
     op = "vq_assign_exact" if exact else "vq_assign"
-    assert (c["vq_assign_tc"], c[op], c[f"{op}_f32"]) == (tc, 1, int(dtype == F32))
+    assert (c[f"{op}_tc"], c[op], c[f"{op}_f32"]) == (tc, 1, int(dtype == F32))
+    assert c["vq_assign_exact_tc" if not exact else "vq_assign_tc"] == 0
     if tc:
-        assert lib.calls[-1][1][4:7] == (rows, codes, dim)  # M, N, K
+        at = 6 if exact else 4  # M, N, K
+        assert lib.calls[-1][1][at:at + 3] == (rows, codes, dim)
 
 
 @pytest.mark.parametrize("dtype,fail", [(BF, "ct_vq_assign_tc"), (F32, "ct_vq_rows_bf16"),

@@ -7,7 +7,7 @@ inputs.
     python tools/port_attention_tc_probe.py [--kernel attention] [--out FILE.json]
     python tools/port_attention_tc_probe.py --kernel k17 | k9 | k9_f32 | k11 | k16a | k3_f32
                                             | k1 | k1_f32 | k3 | k5 | k2 | k2_f32 | k11_f32
-                                            | k10_f32 [--tree DIR]
+                                            | k10_f32 | k10 | k5_exact [--tree DIR]
     python tools/port_attention_tc_probe.py --kernel k9_copies | k9_f32_copies
 
 `--kernel attention` (the default) times attention_tc.cu and
@@ -154,6 +154,20 @@ and 10,240 rows, and `--kernel k10_f32`: K10 f32 (grid, both sequence
 shapes) and K9 f32 (both planes) through autograd of the sublayer; each
 with the path it replaced timed beside it where the tree has that path
 (`k11_f32`, `k10_f32` docstrings).
+
+`--kernel k10`: K10 bf16 (grid, both sequence shapes) and K9 bf16 (both
+planes, with a bias) through autograd of the sublayer: events, host time and
+each kernel's device time per call; and the same with
+`kernels.qk_bwd_route` answering QK_CUDA_CORES and ffn_tc.cu's NN / TN
+products answered by gemm.cu's (`kernels.gemm_nn`, `gemm_tn`): the path the
+short core's bf16 form and the products on `wgmma` replaced ("replaced"; a
+parent tree takes it anyway).  `--kernel k5_exact`: K5's exact assignment
+(`vq_assign(..., exact=True)`) on bf16 and on f32 rows at the contrastive
+step's 110,592 and the autoencoder's 10,240 rows x 512 against 8,192
+codes: events, host time and each kernel's device time (the f32 rows'
+splitting pre-pass apart); beside it gemm.cu's gemm_argmax2_kernel /
+gemm_argmax3_rows_kernel (`kernels.gemm_argmax` with the lo part), the path
+vq_tc.cu's exact forms replaced.
 
 `--kernel k9_copies`: K9's core at (192, 576) on copies of
 qknorm_attention_tc.cu with one change each, in turns, there and back, with
@@ -928,9 +942,10 @@ def k5(dev, g) -> dict:
             row["replaced"] = _timed(lambda: K.gemm_argmax(x, cb))
             xb = x if dtype == torch.bfloat16 else torch.empty((rows, dim), dtype=torch.bfloat16,
                                                                 device=dev)
-            if dtype == torch.float32:
+            if dtype == torch.float32:  # a tree whose pre-pass takes a lo output passes null
+                lo = (None,) if len(K._signatures()["ct_vq_rows_bf16"]) == 6 else ()
                 row["pre_pass_kernel_ms"] = kernel_ms(lambda: K.library().ct_vq_rows_bf16(
-                    K._ptr(x), rows, dim, K._ptr(xb), K._stream()))
+                    K._ptr(x), rows, dim, K._ptr(xb), *lo, K._stream()))
             variants = {"as_built": None, "rows192": copy}
             times = {name: [] for name in variants}
             for name in list(variants) + list(variants)[::-1]:
@@ -945,6 +960,83 @@ def k5(dev, g) -> dict:
         out[label] = row
         del x
         torch.cuda.empty_cache()
+    return out
+
+
+def _replaced_bf16(fn):
+    """`fn` on the path K10 bf16's short core and K9 / K10's products on
+    ffn_tc.cu replaced: kernels.qk_bwd_route answering QK_CUDA_CORES, the NN
+    and TN products on gemm.cu."""
+    def run():
+        saved = {name: getattr(K, name) for name in ("qk_bwd_route", "gemm_nn_tc", "gemm_tn_tc")
+                 if hasattr(K, name)}
+        if "qk_bwd_route" in saved:
+            K.qk_bwd_route = lambda *a, **k: K.QK_CUDA_CORES
+        if "gemm_nn_tc" in saved:
+            K.gemm_nn_tc, K.gemm_tn_tc = K.gemm_nn, K.gemm_tn
+        try:
+            return fn()
+        finally:
+            for name, value in saved.items():
+                setattr(K, name, value)
+    return run
+
+
+def k10(dev, g) -> dict:
+    """K10 bf16 and K9 bf16 through autograd of the sublayer, and the path
+    they replaced (module doc)."""
+    from ct_clip_tpu_torch.ops.qknorm_attention import (fused_grid_qknorm_attention,
+                                                        fused_small_qknorm_attention,
+                                                        fused_spatial_qknorm_attention)
+
+    dim, heads, dh, hd, out, bf = 512, 8, 32, 256, {}, torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    w = (1 + rn(dim, scale=0.1), rn(hd, dim, scale=dim ** -0.5), rn(2 * hd, dim, scale=dim ** -0.5),
+         1 + rn(dh, scale=0.2), 1 + rn(dh, scale=0.2), rn(dim, hd, scale=hd ** -0.5))
+    cases = (("grid_8x24x576", (8, 24, 576, dim), None),
+             ("seq_4608x16", (4608, 16, dim), None), ("seq_512x20", (512, 20, dim), None),
+             ("k9_192x576", (192, 576, dim), 576), ("k9_160x64", (160, 64, dim), 64))
+    for label, shape, bias_n in cases:
+        x, do = rn(*shape).to(bf), rn(*shape).to(bf)
+        extra = [rn(heads, bias_n, bias_n)] if bias_n else []
+        leaves = [t.clone().requires_grad_() for t in (x, *w, *extra)]
+        if bias_n:
+            y = fused_spatial_qknorm_attention(*leaves, heads, dh)
+        elif len(shape) == 4:
+            y = fused_grid_qknorm_attention(*leaves, heads, dh)
+        else:
+            y = fused_small_qknorm_attention(*leaves, heads, dh)
+        fn = lambda: torch.autograd.grad(y, leaves, do, retain_graph=True)  # noqa: E731
+        row = _timed(fn, "ff_tc_gemm")
+        row["replaced"] = _timed(_replaced_bf16(fn), "ff_tc_gemm")
+        print(f"K10/K9 bf16 {label}: {json.dumps(row)}", flush=True)
+        out[label] = row
+        del x, do, extra, leaves, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def k5_exact(dev, g) -> dict:
+    """K5's exact assignment on bf16 and f32 rows and the path it replaced
+    (module doc)."""
+    from ct_clip_tpu_torch.ops.norms import l2norm
+    from ct_clip_tpu_torch.ops.vq import split_hi_lo, vq_assign
+
+    dim, codes, out = 512, 8192, {}
+    embed_n = l2norm(torch.randn((codes, dim), generator=g, device=dev))
+    hi, lo = split_hi_lo(embed_n)
+    for rows in (110592, 10240):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((rows, dim), generator=g, device=dev).to(dtype)
+            label = f"{str(dtype).split('.')[-1]}_{rows}"
+            row = dict(k5_exact=_timed(lambda: vq_assign(x, embed_n, exact=True)),
+                       replaced=_timed(lambda: K.gemm_argmax(x, hi, lo)))
+            print(f"K5 exact {label}: {json.dumps(row)}", flush=True)
+            out[label] = row
+            del x
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1004,10 +1096,11 @@ def main() -> int:
     ap.add_argument("--kernel", default="attention",
                     choices=("attention", "k17", "k9", "k9_f32", "k11", "k16a", "k3_f32",
                              "k9_copies", "k9_f32_copies", "k1", "k1_f32", "k3", "k5", "k2",
-                             "k2_f32", "k11_f32", "k10_f32"))
+                             "k2_f32", "k11_f32", "k10_f32", "k10", "k5_exact"))
     ap.add_argument("--tree", default=str(ROOT),
                     help="the checkout whose package is timed (k17, k9, k9_f32, k11, k16a, "
-                         "k3_f32, k1, k1_f32, k3, k5, k2, k2_f32, k11_f32, k10_f32)")
+                         "k3_f32, k1, k1_f32, k3, k5, k2, k2_f32, k11_f32, k10_f32, k10, "
+                         "k5_exact)")
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1030,7 +1123,7 @@ def main() -> int:
             k17=k17, k9=k9, k9_f32=lambda dev, g: k9(dev, g, torch.float32), k11=k11,
             k16a=k16a, k3_f32=k3_f32, k1=k1, k1_f32=lambda dev, g: k1(dev, g, torch.float32),
             k3=k3, k5=k5, k2=k2, k2_f32=lambda dev, g: k2(dev, g, torch.float32),
-            k11_f32=k11_f32, k10_f32=k10_f32,
+            k11_f32=k11_f32, k10_f32=k10_f32, k10=k10, k5_exact=k5_exact,
             k9_copies=k9_copies,
             k9_f32_copies=lambda dev, g: k9_copies(dev, g, QK32, QK32_COPIES, torch.float32),
             )[args.kernel](dev, g)
