@@ -428,8 +428,15 @@ KERNELS = {
                                         "small_attention.py:437", "qknorm_attention_short.cu",
                                         ["qknorm_attention_short.cu", "gemm.cu"],
                                         "qk_attention_short_bwd", "ctclip_train"),
-    "peg_bwd": _kernel("_pallas_peg_bwd", "peg.py:181", "peg_bwd.cu",
-                       ["peg_bwd.cu", "gemm.cu"], "peg_bwd", "ctclip_train"),
+    # K14 whole (dx, dW and db) in one pass: peg_stencil.cu's backward form,
+    # the tiles' dW / db rows added by gemm.cu's sum_splits
+    "peg_bwd": _kernel("_pallas_peg_bwd", "peg.py:181", "peg_stencil.cu",
+                       ["peg_stencil.cu", "gemm.cu"], "peg_bwd", "ctclip_train"),
+    # the PEG forward: peg_stencil.cu's forward form, which replaces XLA's conv
+    "peg_fwd": dict(name="PEG forward (replaces no TPU kernel: XLA's conv, lax_peg_conv "
+                         "peg.py:83)", replaces=f"none: XLA's conv, {PALLAS}peg.py:83",
+                    source="peg_stencil.cu", sources=["peg_stencil.cu"], counter="peg_fwd",
+                    path="ctclip_train"),
     "vq_cluster_stats": _kernel("pallas_cluster_stats", "vq.py:168", "vq_stats.cu",
                                 ["vq_stats.cu"], "vq_cluster_stats", "ctclip_train"),
     # K5 exact on vq_tc.cu (`wgmma`, counter vq_assign_exact_tc beside it)
@@ -580,11 +587,19 @@ KERNELS = {
     "vq_cluster_stats_f32": _kernel("pallas_cluster_stats (f32 rows)", "vq.py:168",
                                     "vq_stats.cu", ["vq_stats.cu"], "vq_cluster_stats_f32",
                                     "ctclip_f32_train"),
+    # the PEG in f32 (XLA in JAX: xla_peg_conv and its jax.vjp), the stencil's
+    # f32 forms, each with its own counter
+    "peg_bwd_f32": _kernel("_pallas_peg_bwd (f32)", "peg.py:181", "peg_stencil.cu",
+                           ["peg_stencil.cu", "gemm.cu"], "peg_bwd_f32", "ctclip_f32_train"),
+    "peg_fwd_f32": dict(name="PEG forward, f32 (replaces no TPU kernel: XLA's conv, "
+                             "xla_peg_conv peg.py:55)", replaces=f"none: XLA, {PALLAS}peg.py:55",
+                        source="peg_stencil.cu", sources=["peg_stencil.cu"],
+                        counter="peg_fwd_f32", path="ctclip_f32_train"),
 }
 # launch counters each driven path must raise
 COMMON = ["spatial_attention", "qk_attention_tc", "grid_attention", "qk_attention_short",
           "qk_proj_tc", "geglu_ff", "ff_tc_fwd", "vq_assign", "vq_assign_tc", "fused_attention",
-          "attention_tc"]
+          "attention_tc", "peg_fwd"]
 PATHS = {
     "zero_shot_rows": COMMON + ["rearrange_patches", "row_embed"],
     "zero_shot_volume": COMMON + ["patch_embed"],
@@ -603,8 +618,9 @@ PATHS = {
     # evaluation (K6 ingest, K4 embed, K5)
     "ctclip_train": ["geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm", "spatial_attention_bwd",
                      "qk_attention_tc_bwd", "qk_attention_short_bwd", "vq_assign_exact_tc",
-                     "grid_attention_bwd", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
-                     "geglu_ff", "ff_tc_fwd", "spatial_attention", "qk_attention_tc",
+                     "grid_attention_bwd", "peg_bwd", "peg_fwd", "vq_cluster_stats",
+                     "vq_assign_exact", "geglu_ff", "ff_tc_fwd", "spatial_attention",
+                     "qk_attention_tc",
                      "grid_attention", "qk_attention_short", "qk_proj_tc",
                      "attention_dropout", "attention_dropout_bwd", "attention_tc_bwd",
                      "rearrange_patches",
@@ -618,6 +634,7 @@ PATHS = {
 AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "ff_tc_ln_sums", "rearrange_patches",
              "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm",
              "spatial_attention_bwd", "qk_attention_tc_bwd", "grid_attention_bwd", "peg_bwd",
+             "peg_fwd",
              "qk_attention_short_bwd", "vq_assign_exact_tc",
              "vq_cluster_stats", "vq_assign_exact", "geglu_ff", "ff_tc_fwd", "spatial_attention",
              "qk_attention_tc", "grid_attention", "qk_attention_short", "qk_proj_tc",
@@ -632,76 +649,80 @@ AE_TRAIN = ["seq_attention", "qk_attention_short", "qk_proj_tc", "seq_attention_
             "qk_attention_short_bwd", "vq_assign_exact_tc", "spatial_attention", "qk_attention_tc",
             "spatial_attention_bwd", "qk_attention_tc_bwd", "geglu_ff", "ff_tc_fwd",
             "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm",
-            "peg_bwd", "vq_cluster_stats", "vq_assign_exact", "rearrange_patches",
+            "peg_bwd", "peg_fwd", "vq_cluster_stats", "vq_assign_exact", "rearrange_patches",
             "unrearrange_patches"]
 PATHS["ctvit_ae_train"] = AE_TRAIN
 # + the inference recon
 PATHS["ctvit_ae_discr"] = AE_TRAIN + ["vq_assign", "vq_assign_tc", "patch_embed"]
 PATHS["reconstruct"] = ["patch_embed", "spatial_attention", "qk_attention_tc", "grid_attention",
                         "qk_attention_short", "qk_proj_tc", "geglu_ff", "ff_tc_fwd",
-                        "vq_assign", "vq_assign_tc", "unrearrange_patches"]
+                        "vq_assign", "vq_assign_tc", "unrearrange_patches", "peg_fwd"]
 PATHS["ctclip_160_train"] = ["seq_attention", "qk_attention_short", "qk_proj_tc",
                              "seq_attention_bwd", "qk_attention_short_bwd",
                              "vq_assign_exact_tc", "spatial_attention",
                              "qk_attention_tc", "spatial_attention_bwd", "qk_attention_tc_bwd",
                              "geglu_ff", "ff_tc_fwd",
-                             "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm", "peg_bwd", "vq_cluster_stats", "vq_assign_exact",
+                             "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm", "peg_bwd", "peg_fwd",
+                             "vq_cluster_stats", "vq_assign_exact",
                              "rearrange_patches", "attention_dropout", "attention_dropout_bwd",
                              "attention_tc", "attention_tc_bwd"]
 PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "qk_attention_tc", "seq_attention",
                           "qk_attention_short", "qk_proj_tc",
                           "geglu_ff", "ff_tc_fwd",
-                          "vq_assign", "vq_assign_tc", "fused_attention", "attention_tc"]
+                          "vq_assign", "vq_assign_tc", "fused_attention", "attention_tc",
+                          "peg_fwd"]
 # phase 9: MaskGIT on the frozen autoencoder's (20, 8, 8) codes.  A training
 # step: the MaskGit's self-attention with the 3-D CPB bias (K7 dense, K12b)
 # and the critic's without a bias (K7, K12b with no bias), all bf16 on the
-# tensor cores (attention_tc), the FF (K3, K11), the non-causal PEG (K14);
+# tensor cores (attention_tc), the FF (K3, K11), the non-causal PEG (the
+# stencil's forward and K14);
 # the CTViT's inference encode (K8, K1, K2 seq, K3, K5); the sampler (K7
 # dense, the critic's K7, the decoder's K2 seq, K1, K3, K17); T5 without a
 # mask (K7 dense in f32, 12 per-head biases)
 PATHS["maskgit_train"] = ["attention_dense", "attention_dense_bwd", "fused_attention",
                           "attention_tc", "attention_tc_bwd", "geglu_ff", "ff_tc_fwd",
                           "geglu_ff_bwd",
-                          "ff_tc_tile", "ff_tc_gemm", "peg_bwd"]
+                          "ff_tc_tile", "ff_tc_gemm", "peg_bwd", "peg_fwd"]
 PATHS["maskgit_encode_ids"] = ["patch_embed", "spatial_attention", "qk_attention_tc",
                                "seq_attention", "qk_attention_short", "qk_proj_tc", "geglu_ff",
                                "ff_tc_fwd", "vq_assign",
-                               "vq_assign_tc"]
+                               "vq_assign_tc", "peg_fwd"]
 PATHS["maskgit_sample"] = ["attention_dense", "fused_attention", "attention_tc", "geglu_ff",
                            "ff_tc_fwd",
                            "seq_attention", "qk_attention_short", "qk_proj_tc",
-                           "spatial_attention", "qk_attention_tc", "unrearrange_patches"]
+                           "spatial_attention", "qk_attention_tc", "unrearrange_patches",
+                           "peg_fwd"]
 PATHS["maskgit_sample_primed"] = PATHS["maskgit_sample"] + ["patch_embed", "vq_assign",
                                                              "vq_assign_tc"]
 PATHS["t5_no_mask"] = ["attention_dense", "attention_tc32"]
 # phase 10: f32 zero-shot (the f32 forms of K1, K2 grid, K3, K5 on f32 rows,
 # K6; the embeds on their plain route, K7 f32 for the prompts) and the f32
 # MaskGIT stage (the frozen f32 CTViT's encode, K3 / K11 f32, K7 dense f32,
-# K12b f32 dense and with no bias on attention_tc32.cu, the PEG's plain dW;
+# K12b f32 dense and with no bias on attention_tc32.cu, the PEG's f32 stencil;
 # sampling's decoder with K2 seq, K1, K3 and K17 f32)
 F32_ZS = ["spatial_attention_f32", "qk_attention_tc32", "tc32_gemm", "grid_attention_f32",
           "qk_attention_short_f32", "geglu_ff_f32", "geglu_ff_tc32", "vq_assign_f32",
-          "vq_assign_tc", "fused_attention", "attention_tc32"]
+          "vq_assign_tc", "fused_attention", "attention_tc32", "peg_fwd", "peg_fwd_f32"]
 PATHS["zero_shot_f32_rows"] = F32_ZS + ["rearrange_patches_f32", "row_embed_plain"]
 PATHS["zero_shot_f32_volume"] = F32_ZS + ["patch_embed_plain"]
 PATHS["maskgit_f32_encode_ids"] = ["patch_embed_plain", "spatial_attention_f32",
                                    "qk_attention_tc32", "tc32_gemm", "seq_attention_f32",
                                    "qk_attention_short_f32", "geglu_ff_f32", "geglu_ff_tc32",
-                                   "vq_assign_f32", "vq_assign_tc"]
+                                   "vq_assign_f32", "vq_assign_tc", "peg_fwd_f32"]
 PATHS["maskgit_f32_train"] = ["geglu_ff_f32", "geglu_ff_tc32", "geglu_ff_bwd_f32",
                               "ff_tc32_tile", "tc32_gemm", "tc32_gemm_tn",
                               "attention_dense",
                               "attention_dense_bwd", "attention_tc32", "attention_tc32_bwd",
-                              "fused_attention", "peg_dw_plain"]
+                              "fused_attention", "peg_fwd_f32", "peg_bwd", "peg_bwd_f32"]
 PATHS["maskgit_f32_sample"] = ["attention_dense", "fused_attention", "attention_tc32",
                                "geglu_ff_f32", "geglu_ff_tc32", "seq_attention_f32",
                                "qk_attention_short_f32", "spatial_attention_f32",
                                "qk_attention_tc32", "tc32_gemm",
-                               "unrearrange_patches_f32"]
+                               "unrearrange_patches_f32", "peg_fwd_f32"]
 # phase 11: f32 CT-CLIP pretraining (`cli train --no-bf16`: the f32 forms of
 # K1, K2 grid, K3 and their backwards K9, K10 grid, K11, K5 exact and K15 on
 # f32 rows, K6 f32 in the ingest, K13a f32 and K13b f32 (attention_tc32.cu),
-# the PEG's plain dW; the
+# the PEG's f32 stencil (forward and K14); the
 # mini evaluation's K5 f32 rows, plain row embed, K7 f32) and the f32
 # autoencoder (K1 / K9 f32 at n = 64, K2 / K10 seq f32, K6 and K17 f32)
 PATHS["ctclip_f32_train"] = ["spatial_attention_bwd_f32", "qk_attention_tc32_bwd",
@@ -714,14 +735,14 @@ PATHS["ctclip_f32_train"] = ["spatial_attention_bwd_f32", "qk_attention_tc32_bwd
                              "qk_attention_short_f32", "rearrange_patches_f32",
                              "attention_dropout",
                              "attention_dropout_bwd", "attention_tc32", "attention_tc32_bwd",
-                             "peg_dw_plain",
+                             "peg_fwd_f32", "peg_bwd", "peg_bwd_f32",
                              "vq_assign_f32", "vq_assign_tc",
                              "row_embed_plain", "fused_attention"]
 AE_F32_TRAIN = ["seq_attention_f32", "qk_attention_short_f32", "seq_attention_bwd_f32",
                 "qk_attention_short_bwd_f32", "ff_tc32_tile", "tc32_gemm_tn",
                 "spatial_attention_f32",
                 "qk_attention_tc32", "tc32_gemm", "spatial_attention_bwd_f32", "qk_attention_tc32_bwd", "geglu_ff_f32",
-                "geglu_ff_tc32", "geglu_ff_bwd_f32", "peg_dw_plain",
+                "geglu_ff_tc32", "geglu_ff_bwd_f32", "peg_fwd_f32", "peg_bwd", "peg_bwd_f32",
                 "vq_cluster_stats_f32", "vq_assign_exact_f32", "vq_assign_exact_tc",
                 "rearrange_patches_f32", "unrearrange_patches_f32"]
 PATHS["ctvit_ae_f32_train"] = AE_F32_TRAIN
@@ -2194,7 +2215,7 @@ def train_kernel_cases(dev):
 
     from ct_clip_tpu_torch.ops.attention import (
         attention_bwd_plain, attention_dropout_plain, dropout_mask,
-        fused_attention_kbias_dropout, peg_dw, peg_dw_plain)
+        fused_attention_kbias_dropout)
     from ct_clip_tpu_torch.ops.ffn import fused_geglu_ff, geglu_ff_bwd_plain
     from ct_clip_tpu_torch.ops.norms import l2norm
     from ct_clip_tpu_torch.ops import kernels as K
@@ -2262,22 +2283,6 @@ def train_kernel_cases(dev):
     del xg, dog, leaves, k10
     yield "grid_attention_bwd_short", short_core_bf16_case(dev, g, w_attn, TRAIN_B, 24, 576)
     del w_attn
-
-    # K14 on the frame-causal PEG (leading pads t 2, h 1, w 1); the library
-    # call is cuDNN's weight and bias gradient of the same padded conv
-    xp, dop = rn(TRAIN_B, 24, 24, 24, dim, dtype=bf), rn(TRAIN_B, 24, 24, 24, dim, dtype=bf)
-    weight = rn(dim, 1, 3, 3, 3, scale=0.2, dtype=bf)
-
-    def cudnn_dw():
-        xc = F.pad(xp.permute(0, 4, 1, 2, 3), [1, 1, 1, 1, 2, 0])
-        return torch.ops.aten.convolution_backward(
-            dop.permute(0, 4, 1, 2, 3), xc, weight, [dim], [1, 1, 1], [0, 0, 0],
-            [1, 1, 1], False, [0, 0, 0], dim, [False, True, True])[1:]
-    yield "peg_bwd", dict(
-        kern=lambda: peg_dw(xp, dop, (2, 1, 1)), plain=lambda: peg_dw_plain(xp, dop, (2, 1, 1)),
-        library=cudnn_dw, inputs=(xp, dop), outputs=(torch.empty(28, dim, device=dev),),
-        flops=2 * 27 * xp.numel(), tol=SUM_REL_TOL)
-    del xp, dop, weight
 
     # K15 on uniform random ids (13.5 rows per code); library: index_add_ of
     # the normalised rows and bincount
@@ -2355,6 +2360,172 @@ def train_kernel_cases(dev):
         twin=cuda_core_twin(q, k, v, dob, key_bias=kb, seed=seed, rate=DROP_RATE)[1],
         bit_identical=True, inputs=(q, k, v, kb, seed, dob), outputs=(q, k, v, kb),
         flops=5 * product, tol=BWD_REL_TOL)
+
+
+# ------------------------------------------------ the PEG stencil, K14
+# The bf16 forward and dx round where JAX's grouped convs do (the conv's f32
+# sum, + x or + dout, + bias): the kernel sums the 27 exact products in the
+# plain version's order, so a reading other than 0 is a rounding one bf16 ulp
+# apart.  mean|err| <= PEG_MEAN_TOL * mean|plain|, which the single rounding
+# of xla_peg_conv's point (x, taps and bias summed in f32, rounded once: a
+# planted copy) must miss; the max alone cannot tell the two points apart.
+# (CPU: 0 against lax_peg_conv, the single rounding 2.2e-3-2.4e-3 of mean;
+# tests/test_torch_port_peg_stencil.py.)
+PEG_MEAN_TOL = 5e-4
+# label -> (B, T, H, W), rotated, causal, the directions timed: every shape
+# and geometry a path runs the stencil at (C 512; the tiny steps' 64): the
+# contrastive step's spatial (frame-causal) and temporal (rotated) stages,
+# zero-shot's batch of 2, CT-CLIP at 160 frames (its temporal stage reads the
+# reinterpreted (b, h, w, t) memory as the same dims), the autoencoder's
+# (20, 8, 8) grid and MaskGIT's non-causal PEG on it, the tiny steps' grid
+PEG_CASES = {
+    "ctclip": ((TRAIN_B, 24, 24, 24), False, True, "fb"),
+    "ctclip_rotated": ((TRAIN_B, 24, 24, 24), True, True, "fb"),
+    "zero_shot": ((B, 24, 24, 24), False, True, "f"),
+    "zero_shot_rotated": ((B, 24, 24, 24), True, True, "f"),
+    "frames_160": ((8, 16, 24, 24), False, True, "fb"),
+    "autoencoder": ((8, 20, 8, 8), False, True, "fb"),
+    "maskgit": ((8, 20, 8, 8), False, False, "fb"),
+    "tiny": ((4, 3, 3, 3), True, True, "fb"),
+}
+
+
+def _depthwise(x, w, pad):
+    """Depthwise conv of the channels-last (b, t, h, w, c) x with the Conv3d
+    weight w (c, 1, kt, kh, kw), padded by the F.pad list `pad`: cuDNN's
+    grouped conv, the PEG stencil's library yardstick (the port calls it
+    nowhere); channels-last out."""
+    import torch.nn.functional as F
+
+    xc = x.permute(0, 4, 1, 2, 3)
+    return F.conv3d(F.pad(xc, pad), w, groups=x.shape[-1]).permute(0, 2, 3, 4, 1)
+
+
+def cudnn_peg(x, do, weight, bias, rotated: bool, causal: bool):
+    """(forward, backward): cuDNN's calls computing the PEG forward (x + conv
+    + bias) and its backward (dx: the flipped kernel, pads complemented, +
+    dout; dW and db: `convolution_backward`) on the channels-last x and dout,
+    as the port ran them before the stencil (`_depthwise`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ct_clip_tpu_torch.ops.attention import _peg_geometry
+
+    w, pad = _peg_geometry(weight.to(x.dtype), rotated, causal)
+    c = x.shape[-1]
+
+    def fwd():
+        return _depthwise(x, w, pad) + x + bias.to(x.dtype)
+
+    def bwd():
+        dx = _depthwise(do, w.flip(2, 3, 4), [2 - p for p in pad]) + do
+        xc = F.pad(x.permute(0, 4, 1, 2, 3), pad)
+        return (dx, *torch.ops.aten.convolution_backward(
+            do.permute(0, 4, 1, 2, 3), xc, w, [c], [1, 1, 1], [0, 0, 0], [1, 1, 1], False,
+            [0, 0, 0], c, [False, True, True])[1:])
+    return fwd, bwd
+
+
+def peg_one_rounding(x, taps, bias, pads):
+    """The PEG forward at xla_peg_conv's point (a planted copy): from x, the
+    27 bf16 taps' products and the f32 bias summed in f32, rounded once."""
+    from ct_clip_tpu_torch.ops.attention import _peg_shifts
+
+    s = x.float()
+    for j, win in enumerate(_peg_shifts(x, pads)):
+        s = s + win * taps[j]
+    return (s + bias.float()).to(x.dtype)
+
+
+def peg_check(bf16: bool, bwd: bool, planted=None):
+    """A PEG case's check: bf16 forward and dx within REL_TOL of max|plain|
+    and PEG_MEAN_TOL of mean|plain| (the planted single rounding must miss
+    the mean), f32 within 1e-5 of max; dW and db within SUM_REL_TOL (bf16)
+    or 1e-4 (f32)."""
+    def check(got, ref):
+        rel = _rel_errors(got[:1], ref[:1])[1]
+        res = dict(max_abs_err=_rel_errors(got, ref)[0], max_rel_err=rel,
+                   mean_rel_err=_mean_rel_error(got[0], ref[0]),
+                   tolerance=(f"{'dx' if bwd else 'out'} rel {REL_TOL}, mean {PEG_MEAN_TOL}"
+                              if bf16 else f"{'dx' if bwd else 'out'} rel 1e-5"))
+        ok = rel <= (REL_TOL if bf16 else 1e-5)
+        if bf16:
+            ok = ok and res["mean_rel_err"] <= PEG_MEAN_TOL
+        if bwd:
+            res["dwb_rel_err"] = _rel_errors(got[1:], ref[1:])[1]
+            res["tolerance"] += f"; dW, db rel {SUM_REL_TOL if bf16 else 1e-4}"
+            ok = ok and res["dwb_rel_err"] <= (SUM_REL_TOL if bf16 else 1e-4)
+        if planted is not None:
+            res["one_rounding_mean_rel_err"] = _mean_rel_error(planted(), ref[0])
+            log(f"PEG forward: xla_peg_conv's single rounding (planted) reads mean "
+                f"{res['one_rounding_mean_rel_err']:.3e} of mean|plain| (must exceed "
+                f"{PEG_MEAN_TOL})")
+            ok = ok and res["one_rounding_mean_rel_err"] > PEG_MEAN_TOL
+        return ok, res
+    return check
+
+
+def peg_kernel_cases(dev, dtype):
+    """The PEG stencil (csrc/peg_stencil.cu) at every PEG_CASES shape in
+    `dtype`: the forward (`ops/attention.py::peg_fwd`) and K14 whole, dx, dW
+    and db (`peg_bwd`), each through the function `peg_conv` calls, against
+    its plain versions and cuDNN: the forward's library is `_depthwise(x) + x +
+    bias`, K14's cuDNN's dx (`_depthwise` of dout with the flipped kernel and
+    complemented pads, + dout) and its weight and bias gradient
+    (`convolution_backward`), as the parent's path ran them."""
+    import torch
+
+    from ct_clip_tpu_torch.ops.attention import (_peg_leads, _peg_taps, peg_bwd, peg_dw_plain,
+                                                 peg_dx_plain, peg_fwd, peg_fwd_plain)
+
+    g = torch.Generator(device=dev).manual_seed(32)
+    bf = dtype == torch.bfloat16
+    for label, (dims, rotated, causal, dirs) in PEG_CASES.items():
+        dim = 64 if label == "tiny" else 512
+        x, do = (torch.randn((*dims, dim), generator=g, device=dev).to(dtype) for _ in range(2))
+        weight = torch.randn((dim, 1, 3, 3, 3), generator=g, device=dev) * 0.2
+        bias = torch.randn(dim, generator=g, device=dev) * 0.1
+        taps, pads = _peg_taps(weight, rotated, dtype), _peg_leads(rotated, causal)
+        cudnn_fwd, cudnn_bwd = cudnn_peg(x, do, weight, bias, rotated, causal)
+        dwb = torch.empty((28, dim), device=dev)
+        yield ("fwd", label), dict(
+            kern=lambda: peg_fwd(x, weight, bias, rotated, causal),
+            plain=lambda: peg_fwd_plain(x, taps, bias, pads),
+            library=cudnn_fwd,
+            check=peg_check(bf, False, (lambda: peg_one_rounding(x, taps, bias, pads))
+                            if bf and label == "ctclip" else None),
+            bit_identical=True, inputs=(x, weight, bias), outputs=(x,),
+            flops=2 * 27 * x.numel(), peak=PEAK_F32_FLOPS)
+        if "b" in dirs:
+            yield ("bwd", label), dict(
+                kern=lambda: peg_bwd(x, do, weight, rotated, causal),
+                plain=lambda: (peg_dx_plain(do, taps, pads), peg_dw_plain(x, do, pads)),
+                library=cudnn_bwd, check=peg_check(bf, True), bit_identical=True,
+                inputs=(x, do, weight), outputs=(x, dwb), flops=2 * 54 * x.numel(),
+                peak=PEAK_F32_FLOPS)
+        del x, do
+
+
+def peg_phase(dev) -> dict:
+    """The PEG stencil's cases in bf16 and f32 (`peg_kernel_cases`, checked
+    and timed by `train_kernel_phase`): the contrastive step's frame-causal
+    shape as the rows peg_fwd, peg_bwd (K14), peg_fwd_f32 and peg_bwd_f32,
+    every other shape nested in its row as at_<label>."""
+    import torch
+
+    out = {}
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        cases = ((f"peg_{d}{suffix}:{label}", case)
+                 for (d, label), case in peg_kernel_cases(dev, dtype))
+        for key, res in train_kernel_phase(dev, cases, TRAIN_B).items():
+            row, label = key.split(":")
+            dims = PEG_CASES[label][0]
+            res.update(batch=dims[0], shape=[*dims, 64 if label == "tiny" else 512])
+            if label == "ctclip":
+                out.setdefault(row, {}).update(res)
+            else:
+                out.setdefault(row, {})[f"at_{label}"] = res
+    return out
 
 
 def train_kernel_phase(dev, cases=None, batch: int = TRAIN_B) -> dict:
@@ -2723,6 +2894,7 @@ def end_to_end_phase(dev, work: Path, card: str):
             if name == "zero_shot_rows":
                 profile = profile_step(lambda: clf.score_batch(x), CTCLIP_GROUPS,
                                        "zero-shot score_batch (rows)")
+                no_cudnn("zero-shot score_batch", profile)
             del x
     return counts, route_diff, batch_ms, profile
 
@@ -3159,6 +3331,20 @@ def radbert_reference_phase(dev, work: Path, attention_dropout: float = 0.0) -> 
 
 
 # ---------------------------------------------------------------- phase 6
+# cuDNN's convolutions: the discriminator's k4 s2 convs (XLA's conv in JAX
+# too) and nothing else; until the PEG stencil, the PEG forward and dx, 512
+# per-group kernels a call.  The contrastive and zero-shot profiles must show
+# none.
+CUDNN_GROUP = "cuDNN conv (no PEG since the stencil; the discriminator's convs)"
+
+
+def no_cudnn(label: str, breakdown: dict) -> None:
+    """A profiled step without a cuDNN convolution: every PEG on the stencil."""
+    ms = breakdown["groups"][CUDNN_GROUP]
+    if ms > 0:
+        raise AssertionError(f"{label}: {ms:.3f} ms of cuDNN convolution kernels in the profile")
+
+
 # kernel-name fragments of a CT-CLIP training step's groups (first match)
 CTCLIP_GROUPS = (
     ("K11 f32 tile and the f32 backwards' TN products and transposed splits, 3xTF32 on the "
@@ -3202,7 +3388,8 @@ CTCLIP_GROUPS = (
     ("K9/K10 attention core backward (qk_attention_bwd_kernel)", ("qk_attention_bwd_kernel",)),
     ("LayerNorm backward (ln_bwd_kernel; the warp-a-row ln_bwd_rows_kernel, f32 and bf16)",
      ("ln_bwd_kernel", "ln_bwd_rows_kernel")),
-    ("K14 PEG dW/db (peg_dw_kernel)", ("peg_dw_kernel",)),
+    ("PEG stencil: forward and K14 (peg_stencil.cu: peg_stencil_kernel<T, false>, <T, true>)",
+     ("peg_stencil",)),
     ("K15 VQ statistics (vq_stats.cu)", ("rank_kernel", "scan_kernel", "place_kernel",
                                          "sum_kernel")),
     ("K5 exact assignment (gemm_argmax2_kernel)", ("gemm_argmax2",)),
@@ -3214,7 +3401,7 @@ CTCLIP_GROUPS = (
     ("CUDA-core attention forward (attention_train.cu)", ("fwd_kernel<",)),
     ("CUDA-core attention backward (attention_train.cu)", ("bwd_dq_kernel", "bwd_dkv_kernel",
                                                            "rowdot_kernel", "dkb_sum")),
-    ("cuDNN depthwise conv (PEG forward and dx)", ("conv", "cudnn", "depthwise")),
+    (CUDNN_GROUP, ("conv", "cudnn", "depthwise")),
     ("cuBLAS products (BERT, embed, latent projections)", ("gemm", "xmma", "cutlass",
                                                            "cublas", "sm90")),
     ("Adam (multi-tensor)", ("multi_tensor", "foreach")),
@@ -3285,11 +3472,13 @@ CLIP_PER_STEP = {
                  attention_tc_bwd=BERT_LAYERS, spatial_attention_bwd=4, qk_attention_tc_bwd=4,
                  grid_attention_bwd=4, qk_attention_short_bwd=4, vq_assign_exact=1,
                  vq_assign_exact_tc=1, geglu_ff_bwd=8, ff_tc_tile=8, ff_tc_gemm=3 * 8 + 6 * 8,
-                 qk_attention_tc32_bwd=0, qk_attention_short_bwd_f32=0),
+                 qk_attention_tc32_bwd=0, qk_attention_short_bwd_f32=0, peg_bwd=8,
+                 peg_bwd_f32=0),
     "f32": dict(spatial_attention_bwd_f32=4, grid_attention_bwd_f32=4, vq_assign_exact_f32=1,
                 vq_cluster_stats_f32=1, geglu_ff_bwd_f32=8, attention_dropout=BERT_LAYERS,
                 attention_dropout_bwd=BERT_LAYERS, attention_tc32_bwd=BERT_LAYERS,
-                attention_tc=0, attention_tc_bwd=0, peg_bwd=0, spatial_attention_bwd=4,
+                attention_tc=0, attention_tc_bwd=0, peg_bwd=8, peg_bwd_f32=8,
+                spatial_attention_bwd=4,
                 grid_attention_bwd=4, qk_attention_tc_bwd=0, qk_attention_tc32_bwd=4,
                 ff_tc_tile=0, ff_tc_gemm=0, ff_tc32_tile=8, qk_attention_short_bwd_f32=4,
                 vq_assign_exact_tc=1,
@@ -3340,11 +3529,9 @@ def ctclip_train_phase(dev, work: Path, card: str, corpus, dtype: str = "bf16") 
     want = CLIP_PER_STEP[dtype]
     per_step = {k: counts[k] / 4 for k in want}
     if f32:
-        # the PEG's plain dW; K6 f32 moves each ingested volume (the mini
-        # evaluation's too) into its batch slot; K17 f32 none (the volume
-        # takes no gradient)
-        extra = {k: counts[k] / 4 for k in ("peg_dw_plain", "rearrange_patches_f32",
-                                             "unrearrange_patches_f32")}
+        # K6 f32 moves each ingested volume (the mini evaluation's too) into
+        # its batch slot; K17 f32 none (the volume takes no gradient)
+        extra = {k: counts[k] / 4 for k in ("rearrange_patches_f32", "unrearrange_patches_f32")}
         # every attention forward of the run (K13a, the mini evaluation's
         # K7) on attention_tc32.cu, the step's 12 K13a among them
         extra["forwards_off_tc32"] = counts["attention_dropout"] + counts["fused_attention"] \
@@ -3361,7 +3548,7 @@ def ctclip_train_phase(dev, work: Path, card: str, corpus, dtype: str = "bf16") 
                                           + counts["grid_attention_f32"]) \
             + 5 * (counts["spatial_attention_bwd_f32"] + counts["grid_attention_bwd_f32"]) \
             + counts["geglu_ff_bwd_f32"] - counts["tc32_gemm"]
-        extra_ok = extra["peg_dw_plain"] and not extra["unrearrange_patches_f32"] \
+        extra_ok = not extra["unrearrange_patches_f32"] \
             and extra["rearrange_patches_f32"] >= TRAIN_B and not extra["forwards_off_tc32"] \
             and extra["attention_tc32_k13a"] == BERT_LAYERS and not extra["k1_off_tc32"] \
             and not extra["k2_off_short"] and not extra["products_off_tc32"] \
@@ -3384,6 +3571,11 @@ def ctclip_train_phase(dev, work: Path, card: str, corpus, dtype: str = "bf16") 
         extra_ok = not extra["forwards_off_tc"] and not extra["k1_off_tc"] \
             and not extra["k2_off_short"] and not extra["products_off_wgmma"] \
             and not counts["qk_attention_tc32"] and not counts["qk_proj_gemm"]
+    # every PEG forward of the run on the stencil (8 a step, 4 + 4 layers, and
+    # the mini evaluation's), each in the run's dtype
+    extra["peg_fwd"] = counts["peg_fwd"] / 4
+    extra_ok = extra_ok and extra["peg_fwd"] >= 8 \
+        and counts["peg_fwd_f32"] == (counts["peg_fwd"] if f32 else 0)
     log(f"{label} train: launches per step {per_step}; {extra}")
     if any(per_step[k] != v for k, v in want.items()) or not extra_ok:
         raise AssertionError(f"{label} train: launches per step {per_step}, want {want}; "
@@ -3393,6 +3585,7 @@ def ctclip_train_phase(dev, work: Path, card: str, corpus, dtype: str = "bf16") 
     batch = next(trainer._batches())
     timed = timed_steps(trainer.step_fn, trainer.state, batch, card, label, TRAIN_B,
                         F32_TRAIN_GROUPS if f32 else None)
+    no_cudnn(f"{label} step", timed["step_breakdown"])
     del trainer, batch
     torch.cuda.empty_cache()
     return dict(counts=counts, losses=losses, mini_eval_mean_auc=evals[0], cli_s=secs,
@@ -3587,7 +3780,7 @@ def planted_faults():
     qa = importlib.import_module("ct_clip_tpu_torch.ops.qknorm_attention")
     ffn = importlib.import_module("ct_clip_tpu_torch.ops.ffn")
     k9, k11, k15 = qa._qknorm_attention_bwd_cuda, ffn._geglu_ff_bwd_cuda, K.vq_cluster_stats
-    tc_bwd = K.attention_tc_bwd
+    tc_bwd, peg_fwd = K.attention_tc_bwd, K.peg_fwd
 
     def k12a_no_rowsum(q, k, v, dout, lse, **kw):
         # the key-bias backward with D_i forced to 0, so dS = P dA: the
@@ -3620,10 +3813,17 @@ def planted_faults():
         c = int(bins.argmax())
         bins[c], esum[c] = 0.0, 0.0
         return bins, esum
+
+    def peg_rotated_frame_pads(x, weight, bias, pads, rotated):
+        # the rotated form (the temporal stage on the cubic grid) with the
+        # frame-causal leading pads (2, 1, 1) in place of its (1, 2, 1)
+        return peg_fwd(x, weight, bias, (2, 1, 1) if rotated else pads, rotated)
     return {"K9 without the bias gradient": (qa, "_qknorm_attention_bwd_cuda", k9_no_dbias),
             "K11 with dW_out 5% high": (ffn, "_geglu_ff_bwd_cuda", k11_dwo_high),
             "K15 dropping its fullest code": (K, "vq_cluster_stats", k15_drop_fullest),
-            "K12a with D_i forced to 0": (K, "attention_tc_bwd", k12a_no_rowsum)}
+            "K12a with D_i forced to 0": (K, "attention_tc_bwd", k12a_no_rowsum),
+            "the PEG stencil's rotated form with the frame-causal pads":
+                (K, "peg_fwd", peg_rotated_frame_pads)}
 
 
 def tiny_step_check(dev, cfg, faults, label: str, noise_aware_updates: bool = False):
@@ -4699,7 +4899,8 @@ def maskgit_phase(dev, work: Path, card: str) -> dict:
     c = counts["maskgit_train"]
     per_step = {k: c[k] for k in ("attention_dense", "attention_dense_bwd", "fused_attention",
                                   "attention_bwd", "attention_tc", "attention_tc_bwd",
-                                  "geglu_ff", "geglu_ff_bwd", "peg_bwd")}
+                                  "geglu_ff", "geglu_ff_bwd", "peg_bwd", "peg_bwd_f32",
+                                  "peg_fwd")}
     log(f"maskgit step: batch {MG_B} x {int(np.prod(grid)):,} tokens, full width, bf16, CXR-BERT "
         f"context {tuple(context.shape)}, critic on: median {med:.2f} ms of steps 2-4 "
         f"{[round(t, 2) for t in step_ms]} = {MG_B / med * 1e3:.2f} volumes/s; peak memory "
@@ -4708,10 +4909,11 @@ def maskgit_phase(dev, work: Path, card: str) -> dict:
     if not all(np.isfinite([x["loss"], x["critic_loss"]]).all() for x in logs):
         raise AssertionError(f"maskgit: losses not finite: {logs}")
     # the MaskGit's K7 dense / K12b and the critic's no-bias K7 / K12b, all on
-    # the tensor cores; K12a (attention_bwd) no more
+    # the tensor cores; K12a (attention_bwd) no more; the 6 + 6 layers' PEG on
+    # the stencil, forward and K14
     want = dict(attention_dense=6, fused_attention=6, attention_dense_bwd=12, attention_bwd=0,
-                attention_tc=12, attention_tc_bwd=12)
-    if any(per_step[k] != n for k, n in want.items()):
+                attention_tc=12, attention_tc_bwd=12, peg_bwd=12, peg_bwd_f32=0)
+    if any(per_step[k] != n for k, n in want.items()) or per_step["peg_fwd"] < 12:
         raise AssertionError(f"maskgit: launches per step {per_step}, want {want}")
     breakdown = profile_step(lambda: trainer.train_step(ids, grid, context=context),
                              MG_GROUPS, "maskgit")
@@ -5078,7 +5280,7 @@ def f32_kernel_phase(dev) -> dict:
 # the launches an f32 zero-shot run must show: the same per kernel as the
 # bf16 run on the same corpus, on the f32 forms, and the plain embed route
 F32_ZS_SAME = ("spatial_attention", "grid_attention", "geglu_ff", "vq_assign",
-               "fused_attention")
+               "fused_attention", "peg_fwd")
 
 
 def zero_shot_f32_phase(dev, work: Path, card: str, bf16_counts: dict) -> dict:
@@ -5223,8 +5425,8 @@ def maskgit_f32_phase(dev, work: Path, card: str) -> dict:
     (K8 plain route, K1 and K2 seq f32, K3 f32, K5 on f32 rows), with an f32
     CXR-BERT context of 8 reports: 4 steps with finite losses, the launches
     per step (K3 f32, K11 f32, K7 dense f32 on the CUDA cores, K12b f32 and
-    the critic's no-bias backward on attention_tc32.cu, the PEG's dW on the
-    plain route, K14 none), the median step of steps 2-4
+    the critic's no-bias backward on attention_tc32.cu, the PEG's forward and
+    K14 on the stencil's f32 forms), the median step of steps 2-4
     (CUDA events), peak memory and a profiled step's idle share; then
     `MaskGITPipeline.sample` of 1 volume in f32 (K17 f32 in the decoder)."""
     import torch
@@ -5266,7 +5468,8 @@ def maskgit_f32_phase(dev, work: Path, card: str) -> dict:
                                   "attention_dense",
                                   "attention_dense_bwd", "fused_attention", "attention_bwd",
                                   "attention_tc", "attention_tc_bwd", "attention_tc32",
-                                  "attention_tc32_bwd", "peg_dw_plain", "peg_bwd")}
+                                  "attention_tc32_bwd", "peg_bwd", "peg_bwd_f32", "peg_fwd",
+                                  "peg_fwd_f32")}
     log(f"maskgit f32 step: batch {MG_B} x {int(np.prod(grid)):,} tokens, full width, f32, "
         f"CXR-BERT f32 context {tuple(context.shape)}, critic on: median {med:.2f} ms of steps "
         f"2-4 {[round(t, 2) for t in step_ms]} = {MG_B / med * 1e3:.2f} volumes/s; peak "
@@ -5277,15 +5480,16 @@ def maskgit_f32_phase(dev, work: Path, card: str) -> dict:
     # 6 + 6 layers: the MaskGit's K7 dense and the critic's no-bias K7 in
     # f32 and both backwards K12b (the critic's with no bias) on
     # attention_tc32.cu in 3xTF32 (none on attention_tc.cu), K12a none;
-    # every FF forward on K3's f32 form, its backward on K11's; every PEG dW
-    # on the plain route (K14 none); every K3 f32 in 3xTF32 on ffn_tc32.cu
+    # every FF forward on K3's f32 form, its backward on K11's; every PEG on
+    # the stencil's f32 forms, forward and K14; every K3 f32 in 3xTF32 on
+    # ffn_tc32.cu
     want = dict(attention_dense=6, fused_attention=6, attention_dense_bwd=12, attention_bwd=0,
                 attention_tc32=12, attention_tc32_bwd=12, attention_tc=0, attention_tc_bwd=0,
-                peg_bwd=0,
+                peg_bwd=12, peg_bwd_f32=12, peg_fwd_f32=c["peg_fwd"],
                 geglu_ff_f32=c["geglu_ff"], geglu_ff_tc32=c["geglu_ff"],
                 geglu_ff_bwd_f32=c["geglu_ff_bwd"])
     if any(per_step[k] != n for k, n in want.items()) or not (
-            per_step["geglu_ff_f32"] and per_step["geglu_ff_bwd_f32"] and per_step["peg_dw_plain"]):
+            per_step["geglu_ff_f32"] and per_step["geglu_ff_bwd_f32"] and per_step["peg_fwd"]):
         raise AssertionError(f"maskgit f32: launches per step {per_step}, want {want}")
     breakdown = profile_step(lambda: trainer.train_step(ids, grid, context=context),
                              MG_GROUPS, "maskgit f32")
@@ -5372,7 +5576,7 @@ def f32_planted_faults():
 def tiny_maskgit_f32_phase(dev, work: Path) -> dict:
     """The tiny MaskGit step of `tiny_maskgit_phase` in f32 on both sides:
     the card's K7 dense f32 (CUDA cores), K12b f32 (attention_tc32.cu, its
-    launches asserted), K3 / K11 f32 and the PEG's plain dW against the
+    launches asserted), K3 / K11 f32 and the PEG's f32 stencil against the
     CPU's plain versions, held by `compare_f32_steps`; then with each of
     `f32_planted_faults` (K11's act rounded to bf16, K12b f32's D_i forced
     to 0, K12b f32 in plain TF32), which must fail."""
@@ -6057,6 +6261,7 @@ def main() -> int:
     k2_phase(dev, torch.bfloat16, results)
     results.update(train_attention_phase(dev))
     results.update(train_kernel_phase(dev))
+    results.update(peg_phase(dev))
     results["vq_assign_exact"]["at_10240"] = results.pop("vq_assign_exact_10240")
     results["vq_assign_exact"]["planted_ties"] = k5_exact_planted_ties(dev, "bf16")
     results["attention_dropout_bf16"].update(k13a_bf16_checks(dev))

@@ -6,12 +6,16 @@ Ports of ct_clip_tpu/ops/attention.py:
     gather to the (heads, N, N) bias.  Plain torch (the JAX package runs it
     in XLA), computed once per weight load in inference;
   * `PEG` (:439-498), including `rotated=True`: the depthwise 3x3x3 conv with
-    causal frame padding (or, for MaskGIT, a pad of 1 on every side).  The JAX package runs it as an XLA grouped conv
-    (ops/pallas/peg.py::lax_peg_conv), so here it is `F.conv3d(groups=c)`.
-    Its backward (`peg_conv`, an autograd.Function) ports peg.py::_peg_bwd:
-    dx is the depthwise conv of dout with the flipped kernel and complemented
-    pads (lax_peg_dx, a conv in JAX too), dW and db are the port of K14
-    (_pallas_peg_bwd, csrc/peg_bwd.cu; plain version `peg_dw_plain`);
+    causal frame padding (or, for MaskGIT, a pad of 1 on every side), + x +
+    bias.  On CUDA both directions run one hand-written stencil
+    (csrc/peg_stencil.cu): the forward form in place of the JAX package's
+    XLA grouped conv (ops/pallas/peg.py::lax_peg_conv, xla_peg_conv in f32),
+    and the backward form (`peg_conv`, an autograd.Function porting
+    peg.py::_peg_bwd) as K14 (_pallas_peg_bwd) whole: dx, the correlation
+    of dout with the flipped kernel and complemented pads (lax_peg_dx), and
+    dW and db in the same pass.  Plain versions `peg_fwd_plain`,
+    `peg_dx_plain` and `peg_dw_plain` (27 shifted multiply-adds in f32 at
+    the kernel's rounding points) take CPU tensors;
   * `QKNormAttention` and `MaskgitTransformer` (:224-384, :501-583) for the
     CTViT encoder and decoder and for MaskGIT: PEG -> attention -> (cross
     attention) -> feed-forward per layer, residuals folded into the
@@ -578,45 +582,101 @@ def _peg_geometry(weight: torch.Tensor, rotated: bool, causal: bool = True):
     return w, [1, 1, 2, 0, 1, 1] if rotated else [1, 1, 1, 1, 2, 0]
 
 
-def _depthwise(x: torch.Tensor, w: torch.Tensor, pad) -> torch.Tensor:
-    """Depthwise conv of the channels-last (b, t, h, w, c) x, padded by the
-    F.pad list `pad`; channels-last out."""
-    xc = x.permute(0, 4, 1, 2, 3)
-    return F.conv3d(F.pad(xc, pad), w, groups=x.shape[-1]).permute(0, 2, 3, 4, 1)
+def _peg_leads(rotated: bool, causal: bool):
+    """The leading pads (t, h, w) of `_peg_geometry`'s pad list."""
+    if not causal:
+        return 1, 1, 1
+    return (1, 2, 1) if rotated else (2, 1, 1)
+
+
+def _peg_taps(weight: torch.Tensor, rotated: bool, dtype: torch.dtype) -> torch.Tensor:
+    """(27, c) taps as applied, rounded to `dtype` and back to f32, tap
+    (kz * 3 + ky) * 3 + kx."""
+    w, _ = _peg_geometry(weight.to(dtype), rotated)
+    return w.reshape(w.shape[0], 27).t().float()
+
+
+def _peg_shifts(x: torch.Tensor, lead):
+    """The 27 windows of the zero-padded f32 x (b, t, h, w, c), tap order:
+    window j = (jz, jy, jx) holds x[p + j - lead] at p."""
+    b, t, h, w, c = x.shape
+    xp = F.pad(x.float(), (0, 0, lead[2], 2 - lead[2], lead[1], 2 - lead[1], lead[0],
+                           2 - lead[0]))
+    return [xp[:, jz:jz + t, jy:jy + h, jx:jx + w]
+            for jz in range(3) for jy in range(3) for jx in range(3)]
+
+
+def peg_fwd_plain(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, pads) -> torch.Tensor:
+    """Plain version of the stencil's forward form: x + the depthwise conv of
+    x (b, t, h, w, c) with the (27, c) f32 taps as applied and leading pads
+    `pads` (t, h, w) + bias, 27 shifted multiply-adds in f32.  bf16 at
+    `lax_peg_conv`'s points: taps and bias rounded to bf16, the 27 products
+    summed in tap order and rounded, then + x rounded, then + bias rounded;
+    f32 in `xla_peg_conv`'s order: from x, the 27 taps, then the bias."""
+    f32 = x.dtype == torch.float32
+    s = x.float() if f32 else torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for j, win in enumerate(_peg_shifts(x, pads)):
+        s = s + win * taps[j]
+    b = bias.to(x.dtype).float()
+    if f32:
+        return s + b
+    return ((s.to(x.dtype) + x).float() + b).to(x.dtype)
+
+
+def peg_dx_plain(dout: torch.Tensor, taps: torch.Tensor, pads) -> torch.Tensor:
+    """Plain version of the stencil's dx: the correlation of dout with the
+    flipped (27, c) taps and the complemented pads 2 - `pads`, + dout
+    (`lax_peg_dx` with the residual), the 27 products summed in f32 in
+    window order (tap 26 - j for window j); bf16 rounds the sum, then + dout,
+    f32 starts from dout."""
+    f32 = dout.dtype == torch.float32
+    s = dout.float() if f32 else torch.zeros(dout.shape, dtype=torch.float32,
+                                              device=dout.device)
+    for j, win in enumerate(_peg_shifts(dout, [2 - p for p in pads])):
+        s = s + win * taps[26 - j]
+    return s if f32 else (s.to(dout.dtype) + dout)
 
 
 def peg_dw_plain(x: torch.Tensor, dout: torch.Tensor, pads) -> torch.Tensor:
-    """Plain version of K14 (`_dw_kernel`): (28, c) f32, rows 0-26 the
-    weight gradient of tap (kz * 3 + ky) * 3 + kx, row 27 the bias gradient,
-    of a depthwise conv over x (b, t, h, w, c) with leading pads `pads`
-    (t, h, w): 27 shifted multiply-reduce taps in f32."""
-    b, t, h, w, c = x.shape
-    (p0, p1, p2) = pads
-    xp = F.pad(x.float(), (0, 0, p2, 2 - p2, p1, 2 - p1, p0, 2 - p0))
+    """Plain version of K14's dW and db (`_dw_kernel`): (28, c) f32, rows
+    0-26 the weight gradient of tap (kz * 3 + ky) * 3 + kx, row 27 the bias
+    gradient, of a depthwise conv over x (b, t, h, w, c) with leading pads
+    `pads` (t, h, w): 27 shifted multiply-reduce taps in f32."""
     g = dout.float()
-    rows = []
-    for kz in range(3):
-        for ky in range(3):
-            for kx in range(3):
-                rows.append((xp[:, kz:kz + t, ky:ky + h, kx:kx + w] * g).sum(dim=(0, 1, 2, 3)))
+    rows = [(win * g).sum(dim=(0, 1, 2, 3)) for win in _peg_shifts(x, pads)]
     rows.append(g.sum(dim=(0, 1, 2, 3)))
     return torch.stack(rows)
 
 
-def peg_dw(x: torch.Tensor, dout: torch.Tensor, pads) -> torch.Tensor:
-    """K14: the (28, c) weight and bias gradients of `peg_dw_plain`; a CPU
-    tensor takes the plain version, a bf16 CUDA tensor the kernel
-    (csrc/peg_bwd.cu).  An f32 CUDA tensor takes the plain version, counted
-    as `peg_dw_plain`: the JAX package runs K14 in bf16 only and its f32
-    PEG backward in XLA (peg.py:106, `kernels.ROUTES`)."""
+def _peg_route(op: str, x: torch.Tensor) -> None:
+    if K.route(op, x.dtype) != K.KERNEL:
+        raise K.not_ported(op, x.dtype)
+
+
+def peg_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, rotated: bool,
+            causal: bool) -> torch.Tensor:
+    """x + the PEG's conv of x + bias: a CPU tensor takes `peg_fwd_plain`, a
+    CUDA one the stencil's forward form (kernels.peg_fwd), bf16 or f32."""
+    pads = _peg_leads(rotated, causal)
     if x.device.type == "cpu":
-        return peg_dw_plain(x, dout, pads)
-    if K.route("peg_bwd", x.dtype) == K.PLAIN:
-        K.count_launch("peg_dw_plain")
-        return peg_dw_plain(x, dout, pads)
-    out = K.peg_dw(x.contiguous(), dout.contiguous(), pads)
-    K.count_launch("peg_bwd")
-    return out
+        return peg_fwd_plain(x, _peg_taps(weight, rotated, x.dtype), bias, pads)
+    _peg_route("peg_fwd", x)
+    return K.peg_fwd(x.contiguous(), weight.float().contiguous(), bias.float().contiguous(),
+                     pads, rotated)
+
+
+def peg_bwd(x: torch.Tensor, dout: torch.Tensor, weight: torch.Tensor, rotated: bool,
+            causal: bool):
+    """K14: (dx, (28, c) f32 dW as applied and db) of `peg_fwd`; a CPU tensor
+    takes `peg_dx_plain` and `peg_dw_plain`, a CUDA one the stencil's
+    backward form (kernels.peg_bwd), bf16 or f32."""
+    pads = _peg_leads(rotated, causal)
+    if x.device.type == "cpu":
+        return peg_dx_plain(dout, _peg_taps(weight, rotated, x.dtype), pads), \
+            peg_dw_plain(x, dout, pads)
+    _peg_route("peg_bwd", x)
+    return K.peg_bwd(x.contiguous(), dout.contiguous(), weight.float().contiguous(), pads,
+                     rotated)
 
 
 class _PEGConv(torch.autograd.Function):
@@ -627,19 +687,13 @@ class _PEGConv(torch.autograd.Function):
     def forward(ctx, x, weight, bias, rotated, causal):
         ctx.rotated, ctx.causal = rotated, causal
         ctx.save_for_backward(x, weight)
-        w, pad = _peg_geometry(weight.to(x.dtype), rotated, causal)
-        return _depthwise(x, w, pad) + x + bias.to(x.dtype)
+        return peg_fwd(x, weight, bias, rotated, causal)
 
     @staticmethod
     def backward(ctx, dout):
         x, weight = ctx.saved_tensors
         c = x.shape[-1]
-        w, pad = _peg_geometry(weight.to(x.dtype), ctx.rotated, ctx.causal)
-        dout = dout.to(x.dtype).contiguous()
-        # dx: correlation with the flipped kernel, pads complemented, plus
-        # the residual's identity term (peg.py::lax_peg_dx)
-        dx = _depthwise(dout, w.flip(2, 3, 4), [2 - p for p in pad]) + dout
-        dwb = peg_dw(x, dout, (pad[4], pad[2], pad[0]))
+        dx, dwb = peg_bwd(x, dout.to(x.dtype).contiguous(), weight, ctx.rotated, ctx.causal)
         dw = dwb[:27].t().reshape(c, 1, 3, 3, 3)
         if ctx.rotated:  # back from the rotated taps: dK[b, c, a] = dK_r[a, b, c]
             dw = dw.permute(0, 1, 3, 4, 2)
@@ -651,9 +705,9 @@ def peg_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """x + conv(x) + bias for the channels-last (b, t, h, w, c) x and the
     Conv3d weight (c, 1, 3, 3, 3) and bias (c,), causal frame pad (or the
     rotated form, or with causal=False a pad of 1 on every side,
-    `_peg_geometry`).  Differentiable: dW and db are the port of K14 on
-    CUDA (leading pads (1, 1, 1) when not causal), its plain version on the
-    CPU."""
+    `_peg_geometry`).  Differentiable: its backward is K14 (`peg_bwd`).  On
+    CUDA both directions run csrc/peg_stencil.cu, on the CPU the plain
+    versions."""
     return _PEGConv.apply(x, weight, bias, rotated, causal)
 
 
@@ -661,6 +715,9 @@ class PEG(nn.Module):
     """Depthwise 3x3x3 conv positional encoding (transformer_maskgit/
     attention.py:56-84), + x: causal frame padding in the CTViT
     (peg_causal=True), a pad of 1 on every side in MaskGIT (causal=False).
+    The conv is the hand-written stencil of csrc/peg_stencil.cu on CUDA in
+    both directions (`peg_conv`); `dsconv` is an nn.Conv3d only to hold the
+    weight and bias with the reference's names and initializers.
 
     rotated=True computes the reference's temporal-stage semantics on the
     native (b, t, h, w, c) grid: the reference reinterprets (b, h, w, t, c)

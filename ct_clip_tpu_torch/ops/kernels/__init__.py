@@ -17,8 +17,9 @@ Launch counts: each op module that ports a TPU kernel adds one to its
 counter (`count_launch`) where its CUDA path runs, and a launch helper that
 chooses between kernels counts the one it launched (`qk_attention_tc`,
 `qk_attention_tc32`, `qk_attention_short`, `qk_attention_tc_bwd`,
-`qk_attention_tc32_bwd`, `qk_proj_tc`), so a run can show that its main
-path went through the kernels (`launch_counts`).
+`qk_attention_tc32_bwd`, `qk_proj_tc`), as do the PEG stencil's helpers
+(`peg_fwd`, `peg_bwd` and their `_f32` forms), so a run can show that its
+main path went through the kernels (`launch_counts`).
 """
 from __future__ import annotations
 
@@ -57,7 +58,9 @@ KERNELS = (
     "geglu_ff_bwd",        # K11 ffn.py::_pallas_ff_bwd
     "spatial_attention_bwd",  # K9 spatial_attention.py::_pallas_spatial_bwd
     "grid_attention_bwd",  # K10 small_attention.py::_pallas_small_qknorm_bwd (grid)
-    "peg_bwd",             # K14 peg.py::_pallas_peg_bwd
+    "peg_bwd",             # K14 peg.py::_pallas_peg_bwd: dx, dW and db (peg_stencil.cu)
+    "peg_fwd",             # the PEG forward, XLA's conv in JAX (peg.py::lax_peg_conv): no TPU
+                           # kernel; the stencil's forward form (peg_stencil.cu)
     "vq_cluster_stats",    # K15 vq.py::pallas_cluster_stats
     "vq_assign_exact",     # K5 vq.py::pallas_assign(exact=True)
     "patch_embed_bwd",     # K16a patchify.py::_pallas_patch_embed_bwd
@@ -149,10 +152,11 @@ KERNELS = (
     "seq_attention_bwd_f32",  # K10 seq f32
     "vq_assign_exact_f32",  # K5 exact on f32 rows (gemm.cu gemm_argmax3_rows_kernel)
     "vq_cluster_stats_f32",  # K15 on f32 rows (vq_stats.cu sum_f32_kernel)
+    "peg_fwd_f32",         # the PEG forward in f32 (peg_stencil.cu)
+    "peg_bwd_f32",         # K14 in f32 (peg_stencil.cu)
     # the plain routes where the JAX package runs XLA in f32 (`ROUTES`)
     "patch_embed_plain",   # K8 / K16a f32: patch_embed_plain and its autograd
     "row_embed_plain",     # K4 / K16b f32: row_embed_plain and its autograd
-    "peg_dw_plain",        # K14 f32: peg_dw_plain
     # K5 (either mode) and K15 on f32 rows of shapes vq.py's _plan refuses
     # (ops/vq.py::vq_route): vq_assign_plain, cluster_stats_plain
     "vq_assign_plain",
@@ -164,15 +168,21 @@ BF16, F32 = torch.bfloat16, torch.float32
 KERNEL, PLAIN, RAISES = "kernel", "plain", "raises"
 # What a CUDA tensor of each dtype takes, op by op: its kernel, or its plain
 # version (where the JAX package's dispatch gates the Pallas kernel to bf16
-# and runs XLA in f32: patchify.py:440, 685, 700, 714 and peg.py:106); any
-# other dtype a ValueError.  K5 and K15 on f32 rows also follow the shape
-# test of vq.py's _plan (ops/vq.py::vq_route).  Nothing gives way quietly.
+# and runs XLA in f32: patchify.py:440, 685, 700, 714); any other dtype a
+# ValueError.  K5 and K15 on f32 rows also follow the shape test of vq.py's
+# _plan (ops/vq.py::vq_route).  Nothing gives way quietly.  The PEG in f32
+# is XLA in JAX too (peg.py:106: the forward `xla_peg_conv`, the backward
+# `jax.vjp` of it, :234-246), but the port computes that function, forward,
+# dx, dW and db, with the stencil in both dtypes (peg_stencil.cu): its plain
+# versions are 27 full-size shifted products and reductions a call, and a
+# plain version stays off the card's path.
 ROUTES = {
     "patch_embed": {BF16: KERNEL, F32: PLAIN},         # K8
     "patch_embed_bwd": {BF16: KERNEL, F32: PLAIN},     # K16a
     "row_embed": {BF16: KERNEL, F32: PLAIN},           # K4
     "row_embed_bwd": {BF16: KERNEL, F32: PLAIN},       # K16b
-    "peg_bwd": {BF16: KERNEL, F32: PLAIN},             # K14
+    "peg_bwd": {BF16: KERNEL, F32: KERNEL},            # K14
+    "peg_fwd": {BF16: KERNEL, F32: KERNEL},            # the PEG forward (XLA's conv in JAX)
     "geglu_ff": {BF16: KERNEL, F32: KERNEL},           # K3
     "geglu_ff_bwd": {BF16: KERNEL, F32: KERNEL},       # K11
     "spatial_attention": {BF16: KERNEL, F32: KERNEL},  # K1
@@ -367,7 +377,10 @@ def _signatures():
                                           ll, ll, ll, ll, ll, i, i, i, i, i, p, p, p, p, p],
         "ct_qk_attention_short_bwd": [p, p, p, p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i,
                                       i, i, p, p, p, p, p],
-        "ct_peg_dw": [p, p, i, i, i, i, i, i, i, i, p, p],
+        "ct_peg_fwd": [p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p],
+        "ct_peg_fwd_f32": [p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p],
+        "ct_peg_bwd": [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p],
+        "ct_peg_bwd_f32": [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p],
         "ct_vq_cluster_stats": [p, p, i, i, i, p, p, p, p, p, p, p],
         "ct_vq_cluster_stats_f32": [p, p, i, i, i, p, p, p, p, p, p, p],
     }
@@ -1828,21 +1841,85 @@ def qk_attention_short_bwd(q, kv, dout, *, sequences: int, inner: int, heads: in
             scale_sum(parts[1]))
 
 
-def peg_dw(x: torch.Tensor, dout: torch.Tensor, pads) -> torch.Tensor:
-    """(28, C) f32: rows 0-26 the depthwise 3x3x3 weight gradient, tap
-    (kz * 3 + ky) * 3 + kx, row 27 the bias gradient, of a conv over the
-    (B, T, H, W, C) bf16 x with leading pads `pads` = (t, h, w); the frames
-    added in order (peg_bwd.cu)."""
-    require(x, "x", torch.bfloat16, 5)
-    require(dout, "dout", torch.bfloat16, 5)
-    if dout.shape != x.shape or x.shape[-1] % 2 or x.data_ptr() % 4 or dout.data_ptr() % 4:
-        raise ValueError(f"peg_dw: x {tuple(x.shape)}, dout {tuple(dout.shape)}")
-    B, T, H, W, C = x.shape
-    part = torch.empty((B * T, 28, C), dtype=torch.float32, device=x.device)
-    err = library().ct_peg_dw(_ptr(x), _ptr(dout), B, T, H, W, C, *map(int, pads),
-                              _ptr(part), _stream())
-    _check(err, "ct_peg_dw")
-    return sum_splits(part)
+PEG_NQ = 4  # peg_stencil.cu: consecutive w outputs of a warp step (tile widths its multiples)
+PEG_TH = {False: 4, True: 2}  # the most h rows a tile takes: forward, backward (shared memory)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def peg_plan(shape, dtype: torch.dtype, bwd: bool, sms: int = 132):
+    """(th, tw, tiles) of a peg_stencil.cu launch over (B, T, H, W, C): tiles
+    of tw columns (W rounded up to PEG_NQ, at most 32) and th rows, the most
+    rows (PEG_TH) that still give two CTAs per SM on `sms` SMs, each CTA 128
+    bytes of channels; tiles = B x ceil(H / th) x ceil(W / tw), the partial
+    dW / db rows of the backward."""
+    B, _, H, W, C = shape
+    tw = min(-(-W // PEG_NQ) * PEG_NQ, 32)
+    nwt, slabs = -(-W // tw), -(-C // (64 if dtype == BF16 else 32))
+    th = PEG_TH[bwd]
+    while th > 1 and slabs * B * -(-H // th) * nwt < 2 * sms:
+        th //= 2
+    return th, tw, B * -(-H // th) * nwt
+
+
+def _peg_operands(name: str, x: torch.Tensor, weight: torch.Tensor, pads, **tensors):
+    require(x, "x", FORMS, 5)
+    for label, t in tensors.items():
+        require(t, label, x.dtype, 5)
+        if t.shape != x.shape:
+            raise ValueError(f"{name}: {label} {tuple(t.shape)} != x {tuple(x.shape)}")
+    C = x.shape[-1]
+    require(weight, "weight", F32, 5)
+    if tuple(weight.shape) != (C, 1, 3, 3, 3):
+        raise ValueError(f"{name}: weight {tuple(weight.shape)} for {C} channels")
+    if C % 8 or any(t.data_ptr() % 16 for t in (x, *tensors.values())):
+        raise ValueError(f"{name}: takes C a multiple of 8 and 16-byte aligned tensors "
+                         f"(x {tuple(x.shape)})")
+    if len(pads) != 3 or any(p not in (0, 1, 2) for p in pads):
+        raise ValueError(f"{name}: leading pads {pads} must each be 0, 1 or 2")
+    plan = peg_plan(x.shape, x.dtype, bool(tensors), _sm_count(x.device.index or 0))
+    return (*x.shape, *map(int, pads)), plan
+
+
+def peg_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, pads,
+            rotated: bool) -> torch.Tensor:
+    """x + the depthwise 3x3x3 conv of x + bias (peg_stencil.cu's forward
+    form) over the contiguous (B, T, H, W, C) bf16 or f32 x, with the f32
+    Conv3d weight (C, 1, 3, 3, 3), its taps rotated (t, h, w) -> (h, w, t)
+    with `rotated`, the f32 bias (C,) and leading pads `pads` = (t, h, w),
+    at the rounding points of JAX's `lax_peg_conv` (bf16) or `xla_peg_conv`
+    (f32).  Counted `peg_fwd` (and `peg_fwd_f32`)."""
+    dims, (th, tw, _) = _peg_operands("peg_fwd", x, weight, pads)
+    require(bias, "bias", F32, 1)
+    if bias.shape[0] != x.shape[-1]:
+        raise ValueError(f"peg_fwd: bias {tuple(bias.shape)} for {x.shape[-1]} channels")
+    out = torch.empty_like(x)
+    err = _form("ct_peg_fwd", x)(_ptr(x), _ptr(weight), _ptr(bias), _ptr(out), *dims,
+                                 int(rotated), th, tw, _stream())
+    _check(err, "ct_peg_fwd")
+    count_launch("peg_fwd", x.dtype)
+    return out
+
+
+def peg_bwd(x: torch.Tensor, dout: torch.Tensor, weight: torch.Tensor, pads, rotated: bool):
+    """K14 in one pass over x and dout (peg_stencil.cu's backward form): dx
+    (B, T, H, W, C) in x's dtype, the correlation of dout with the flipped
+    taps and complemented pads plus dout (`lax_peg_dx`'s rounding in bf16),
+    and (28, C) f32: rows 0-26 the weight gradient of tap (kz * 3 + ky) * 3
+    + kx as applied, row 27 the bias gradient, the tiles' partial rows added
+    in order.  Counted `peg_bwd` (and `peg_bwd_f32`)."""
+    dims, (th, tw, tiles) = _peg_operands("peg_bwd", x, weight, pads, dout=dout)
+    dx = torch.empty_like(x)
+    part = torch.empty((tiles, 28, x.shape[-1]), dtype=F32, device=x.device)
+    err = _form("ct_peg_bwd", x)(_ptr(x), _ptr(dout), _ptr(weight), _ptr(dx), _ptr(part),
+                                 *dims, int(rotated), th, tw, _stream())
+    _check(err, "ct_peg_bwd")
+    dwb = sum_splits(part)
+    count_launch("peg_bwd", x.dtype)
+    return dx, dwb
 
 
 def vq_cluster_stats(x: torch.Tensor, ids: torch.Tensor, codes: int):

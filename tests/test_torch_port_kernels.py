@@ -14,7 +14,8 @@ ffn_tc.cu (`-k "k2 or qk_projection"`) and its f32 core in 3xTF32
 (ffn_tc.cu, `-k "k11 or ff_tc"`), with K17 f32's run copy (`-k k17`), K16a on
 ffn_tc.cu (`-k k16a`), K3 f32 in 3xTF32 on ffn_tc32.cu (`-k "ff_f32"`), K3
 bf16's GEGLU and residual forms on ffn_tc.cu and K5's inference assignment
-on vq_tc.cu, bf16 and f32 rows (`-k "k3_wgmma or k5_wgmma"`).
+on vq_tc.cu, bf16 and f32 rows (`-k "k3_wgmma or k5_wgmma"`), the PEG
+stencil's forward and K14, bf16 and f32 (peg_stencil.cu, `-k peg`).
 
 Needs an NVIDIA GPU and nvcc (the kernels compile on first use); skipped
 elsewhere.  Run on the card with:
@@ -838,26 +839,68 @@ def test_seq_attention_backward_k10(dev, n):
     assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
-@pytest.mark.parametrize("rotated", [False, True])
-def test_peg_backward_k14(dev, rotated):
-    from ct_clip_tpu_torch.ops.attention import _peg_geometry, peg_conv, peg_dw_plain
+# the PEG stencil (peg_stencil.cu): (rotated, causal) -> leading pads
+# (2, 1, 1) frame-causal, (1, 2, 1) rotated, (1, 1, 1) non-causal; ragged
+# grids (T, H or W of 1, 3, 5) and C of 8, 64 and 520 (a ragged channel slab)
+PEG_GEOMETRIES = [(False, True), (True, True), (False, False)]
+PEG_SHAPES = [(2, 5, 5, 5, 128), (1, 1, 3, 5, 8), (2, 3, 1, 3, 64), (1, 5, 3, 1, 520),
+              (3, 4, 5, 6, 64)]
+PEG_MEAN = 5e-4  # bf16 out / dx: mean|err| of mean|plain| (chip_smoke.PEG_MEAN_TOL)
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("shape", PEG_SHAPES)
+@pytest.mark.parametrize("rotated,causal", PEG_GEOMETRIES)
+def test_peg_backward_k14(dev, rotated, causal, shape, dtype):
+    """`peg_conv` forward and backward on the card (the stencil's forward form
+    and K14 whole, one launch each) against the plain versions on the same
+    card tensors: out and dx within 2e-2 of max and PEG_MEAN of mean in bf16,
+    1e-5 in f32; dW and db within 1e-5 (bf16: exact products) or 1e-4 (f32);
+    a second run equal bit for bit."""
+    from ct_clip_tpu_torch.ops.attention import (_peg_leads, _peg_taps, peg_conv, peg_dw_plain,
+                                                 peg_dx_plain, peg_fwd_plain)
 
     g = _gen(dev, 9)
-    x, do = _randn((2, 5, 5, 5, 128), g, dev), _randn((2, 5, 5, 5, 128), g, dev)
-    weight = torch.randn((128, 1, 3, 3, 3), generator=g, device=dev) * 0.2
-    bias = torch.randn(128, generator=g, device=dev) * 0.1
+    c = shape[-1]
+    x, do = _randn(shape, g, dev, dtype=dtype), _randn(shape, g, dev, dtype=dtype)
+    weight = torch.randn((c, 1, 3, 3, 3), generator=g, device=dev) * 0.2
+    bias = torch.randn(c, generator=g, device=dev) * 0.1
     leaves = [t.detach().requires_grad_() for t in (x, weight, bias)]
     K.reset_launch_counts()
-    dx, dw, db = torch.autograd.grad(peg_conv(*leaves, rotated), leaves, do)
-    assert K.launch_counts()["peg_bwd"] == 1
-    _, pad = _peg_geometry(weight, rotated)
-    want = peg_dw_plain(x, do, (pad[4], pad[2], pad[0]))
-    got = dw.permute(0, 1, 4, 2, 3) if rotated else dw
-    _close(got.reshape(128, 27).t(), want[:27], rel=1e-5)
-    _close(db, want[27], rel=1e-5)
-    cpu = [t.detach().cpu().requires_grad_() for t in (x, weight, bias)]
-    ref = torch.autograd.grad(peg_conv(*cpu, rotated), cpu, do.cpu())
-    _close(dx.cpu(), ref[0])
+    out = peg_conv(*leaves, rotated, causal)
+    dx, dw, db = torch.autograd.grad(out, leaves, do)
+    counts = K.launch_counts()
+    f32 = int(dtype == F32)
+    assert (counts["peg_fwd"], counts["peg_bwd"], counts["peg_fwd_f32"],
+            counts["peg_bwd_f32"]) == (1, 1, f32, f32)
+    taps, pads = _peg_taps(weight, rotated, dtype), _peg_leads(rotated, causal)
+    want = peg_dw_plain(x, do, pads)
+    got = dw.permute(0, 1, 4, 2, 3) if rotated else dw  # the taps as applied
+    for a, r in ((out, peg_fwd_plain(x, taps, bias, pads)), (dx, peg_dx_plain(do, taps, pads))):
+        assert a.dtype == dtype and a.shape == r.shape
+        _close(a, r, REL if dtype == BF else 1e-5)
+        if dtype == BF:
+            assert (a.float() - r.float()).abs().mean() <= PEG_MEAN * r.float().abs().mean()
+    _close(got.reshape(c, 27).t(), want[:27], rel=1e-5 if dtype == BF else 1e-4)
+    _close(db, want[27], rel=1e-5 if dtype == BF else 1e-4)
+    again = torch.autograd.grad(peg_conv(*leaves, rotated, causal), leaves, do)
+    assert all(torch.equal(a, b) for a, b in zip((dx, dw, db), again))
+
+
+def test_peg_stencil_rejects_misfits(dev):
+    """The stencil's wrappers raise on what the kernel does not take."""
+    g = _gen(dev, 11)
+    w, b = torch.randn((12, 1, 3, 3, 3), device=dev), torch.zeros(12, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):  # C of 12
+        K.peg_fwd(_randn((1, 3, 3, 3, 12), g, dev), w, b, (2, 1, 1), False)
+    x = _randn((1, 3, 3, 3, 16), g, dev)
+    w16 = torch.randn((16, 1, 3, 3, 3), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.peg_bwd(x, x.transpose(1, 2), w16, (2, 1, 1), False)
+    with pytest.raises(ValueError, match="pads"):
+        K.peg_fwd(x, w16, torch.zeros(16, device=dev), (3, 1, 1), False)
+    with pytest.raises(ValueError, match="float16"):
+        K.peg_fwd(x.half(), w16, torch.zeros(16, device=dev), (2, 1, 1), False)
 
 
 def test_vq_cluster_stats_k15_with_empty_codes(dev):
@@ -1845,9 +1888,12 @@ def test_rearrange_patches_f32_k6_k17_bit_exact(dev, shape, pt, p):
 
 
 def test_f32_plain_routes_where_jax_takes_xla(dev):
-    """K8 / K4 and K14 in f32 take their plain versions on CUDA (the JAX
-    package gates them to bf16), each counted; the bf16 calls the kernels."""
-    from ct_clip_tpu_torch.ops.attention import peg_conv, peg_dw_plain
+    """K8 / K4 in f32 take their plain versions on CUDA (the JAX package
+    gates them to bf16), each counted; the bf16 calls the kernels.  The f32
+    PEG, XLA in JAX too, runs the stencil's f32 forms (`peg_fwd_f32`,
+    `peg_bwd_f32`) and matches the plain versions."""
+    from ct_clip_tpu_torch.ops.attention import (_peg_leads, _peg_taps, peg_conv, peg_dw_plain,
+                                                 peg_dx_plain, peg_fwd_plain)
     from ct_clip_tpu_torch.ops.patch_embed import fused_patch_embed, patch_embed_plain
 
     g = _gen(dev, 50)
@@ -1862,14 +1908,18 @@ def test_f32_plain_routes_where_jax_takes_xla(dev):
     wt = _randn((32, 1, 3, 3, 3), g, dev, 0.2, F32).requires_grad_()
     bt = _randn((32,), g, dev, 0.1, F32).requires_grad_()
     do = _randn((1, 4, 6, 8, 32), g, dev, dtype=F32)
-    dw, db = torch.autograd.grad(peg_conv(x, wt, bt), (wt, bt), do)
+    out = peg_conv(x, wt, bt)
+    dx, dw, db = torch.autograd.grad(out, (x, wt, bt), do)
     ref = peg_dw_plain(x.detach(), do, (2, 1, 1))
     torch.cuda.synchronize()
     counts = K.launch_counts()
     assert counts["patch_embed_plain"] == 1 and counts["patch_embed"] == 0
-    assert counts["peg_dw_plain"] == 1 and counts["peg_bwd"] == 0
-    assert torch.equal(db, ref[27])
-    assert torch.equal(dw.reshape(32, 27), ref[:27].t())
+    assert counts["peg_fwd_f32"] == 1 and counts["peg_bwd_f32"] == 1 and counts["peg_bwd"] == 1
+    taps, pads = _peg_taps(wt.detach(), False, F32), _peg_leads(False, True)
+    _close(out, peg_fwd_plain(x.detach(), taps, bt.detach(), pads), 1e-5)
+    _close(dx, peg_dx_plain(do, taps, pads), 1e-5)
+    _close(db, ref[27], 1e-4)
+    _close(dw.reshape(32, 27), ref[:27].t(), 1e-4)
 
 
 # ------------------------------------------------------ K1 on the tensor cores

@@ -134,8 +134,10 @@ def test_tc_backward_operands_copy_only_views_it_cannot_address():
 
 # What a CUDA tensor takes by dtype (kernels.ROUTES): the plain version where
 # the JAX package's dispatch gates the Pallas kernel to bf16 and computes f32
-# in XLA (patchify.py:440, 685, 700, 714; peg.py:106), the kernel where the
-# TPU kernel runs f32 too, and a ValueError for any other dtype.
+# in XLA (patchify.py:440, 685, 700, 714), the kernel where the TPU kernel
+# runs f32 too and for the PEG (peg.py:106 gates K14 to bf16, but the f32
+# PEG, XLA in JAX, runs the same stencil here, forward and backward), and a
+# ValueError for any other dtype.
 KERNEL, PLAIN, RAISES = K.KERNEL, K.PLAIN, K.RAISES
 
 
@@ -144,7 +146,8 @@ KERNEL, PLAIN, RAISES = K.KERNEL, K.PLAIN, K.RAISES
     ("patch_embed_bwd", KERNEL, PLAIN),    # K16a: patchify.py:714
     ("row_embed", KERNEL, PLAIN),          # K4: patchify.py:685
     ("row_embed_bwd", KERNEL, PLAIN),      # K16b: patchify.py:700
-    ("peg_bwd", KERNEL, PLAIN),            # K14: peg.py:106, `dtype != bfloat16` -> XLA
+    ("peg_bwd", KERNEL, KERNEL),           # K14: peg.py:106 (f32 XLA in JAX) -> the stencil
+    ("peg_fwd", KERNEL, KERNEL),           # the PEG forward, XLA's conv in JAX -> the stencil
     ("geglu_ff", KERNEL, KERNEL),          # K3: dot_precision, f32 "highest"
     ("geglu_ff_bwd", KERNEL, KERNEL),      # K11
     ("spatial_attention", KERNEL, KERNEL),  # K1: mm_precision_for(f32) "highest"
@@ -166,8 +169,8 @@ def test_dtype_route_table(op, bf16, f32):
     # a plain route is counted where it runs
     if PLAIN in (bf16, f32):
         assert {"patch_embed": "patch_embed_plain", "patch_embed_bwd": "patch_embed_plain",
-                "row_embed": "row_embed_plain", "row_embed_bwd": "row_embed_plain",
-                "peg_bwd": "peg_dw_plain"}[op] in K.KERNELS
+                "row_embed": "row_embed_plain", "row_embed_bwd": "row_embed_plain"}[op] \
+            in K.KERNELS
 
 
 def test_dtype_route_table_covers_every_kernel_counter():

@@ -7,7 +7,7 @@ inputs.
     python tools/port_attention_tc_probe.py [--kernel attention] [--out FILE.json]
     python tools/port_attention_tc_probe.py --kernel k17 | k9 | k9_f32 | k11 | k16a | k3_f32
                                             | k1 | k1_f32 | k3 | k5 | k2 | k2_f32 | k11_f32
-                                            | k10_f32 | k10 | k5_exact [--tree DIR]
+                                            | k10_f32 | k10 | k5_exact | k14 [--tree DIR]
     python tools/port_attention_tc_probe.py --kernel k9_copies | k9_f32_copies
 
 `--kernel attention` (the default) times attention_tc.cu and
@@ -169,6 +169,18 @@ splitting pre-pass apart); beside it gemm.cu's gemm_argmax2_kernel /
 gemm_argmax3_rows_kernel (`kernels.gemm_argmax` with the lo part), the path
 vq_tc.cu's exact forms replaced.
 
+`--kernel k14`: the PEG through `ops/attention.py::peg_conv` (its forward,
+and autograd into x, the weight and the bias: K14) in bf16 and f32 at the
+contrastive step's (8, 24, 24, 24, 512) (frame-causal and rotated), zero-
+shot's (2, 24, 24, 24, 512) and the autoencoder's (8, 20, 8, 8, 512)
+(frame-causal; MaskGIT's non-causal): events, host time, the device time of
+each kernel per call and the kernels launched per call; on a tree before
+the stencil that is cuDNN's grouped conv (forward, dx) beside
+peg_bwd.cu's peg_dw_kernel (bf16; the plain dW in f32), after it
+peg_stencil.cu.  Beside each, cuDNN's calls on the same tensors (the
+library yardstick, which the port calls nowhere): the forward conv + x +
+bias, and dx with the weight and bias gradients.
+
 `--kernel k9_copies`: K9's core at (192, 576) on copies of
 qknorm_attention_tc.cu with one change each, in turns, there and back, with
 each kernel's device time: `as_built`; `stages3` (rings of three stages in
@@ -191,7 +203,7 @@ from contextlib import nullcontext
 from pathlib import Path
 
 import torch
-from port_timing import event_ms, host_ms, kernel_ms
+from port_timing import event_ms, host_ms, kernel_ms, launches_per_call
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -1040,6 +1052,49 @@ def k5_exact(dev, g) -> dict:
     return out
 
 
+def k14(dev, g) -> dict:
+    """The PEG forward and K14 through `peg_conv`, and cuDNN's calls beside
+    them (module doc)."""
+    import importlib.util
+
+    from ct_clip_tpu_torch.ops.attention import peg_conv
+
+    # this checkout's chip_smoke.py (a parent tree's predates cuDNN's yardstick)
+    spec = importlib.util.spec_from_file_location("chip_smoke_k14", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    out = {}
+    cases = (("ctclip", (8, 24, 24, 24), False, True),
+             ("ctclip_rotated", (8, 24, 24, 24), True, True),
+             ("zero_shot", (2, 24, 24, 24), False, True),
+             ("autoencoder", (8, 20, 8, 8), False, True), ("maskgit", (8, 20, 8, 8), False, False))
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, dims, rotated, causal in cases:
+            x, do = (torch.randn((*dims, 512), generator=g, device=dev).to(dtype)
+                     for _ in range(2))
+            weight = torch.randn((512, 1, 3, 3, 3), generator=g, device=dev) * 0.2
+            bias = torch.randn(512, generator=g, device=dev) * 0.1
+            leaves = [t.clone().requires_grad_() for t in (x, weight, bias)]
+
+            def fwd():
+                with torch.no_grad():
+                    return peg_conv(x, weight, bias, rotated, causal)
+            y = peg_conv(*leaves, rotated, causal)
+            bwd = lambda: torch.autograd.grad(y, leaves, do, retain_graph=True)  # noqa: E731
+            lib_fwd, lib_bwd = cs.cudnn_peg(x, do, weight, bias, rotated, causal)
+            row = {}
+            for name, fn in (("forward", fwd), ("k14", bwd), ("cudnn_forward", lib_fwd),
+                             ("cudnn_backward", lib_bwd)):
+                row[name] = _timed(fn)
+                row[name]["launches_per_call"] = launches_per_call(fn)
+            key = f"{str(dtype).split('.')[-1]}_{label}"
+            print(f"K14 / PEG forward {key}: {json.dumps(row)}", flush=True)
+            out[key] = row
+            del x, do, leaves, y
+            torch.cuda.empty_cache()
+    return out
+
+
 QK_TC = "qknorm_attention_tc.cu"
 QK_COPIES = {
     "as_built": [],
@@ -1096,11 +1151,11 @@ def main() -> int:
     ap.add_argument("--kernel", default="attention",
                     choices=("attention", "k17", "k9", "k9_f32", "k11", "k16a", "k3_f32",
                              "k9_copies", "k9_f32_copies", "k1", "k1_f32", "k3", "k5", "k2",
-                             "k2_f32", "k11_f32", "k10_f32", "k10", "k5_exact"))
+                             "k2_f32", "k11_f32", "k10_f32", "k10", "k5_exact", "k14"))
     ap.add_argument("--tree", default=str(ROOT),
                     help="the checkout whose package is timed (k17, k9, k9_f32, k11, k16a, "
                          "k3_f32, k1, k1_f32, k3, k5, k2, k2_f32, k11_f32, k10_f32, k10, "
-                         "k5_exact)")
+                         "k5_exact, k14)")
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1123,7 +1178,7 @@ def main() -> int:
             k17=k17, k9=k9, k9_f32=lambda dev, g: k9(dev, g, torch.float32), k11=k11,
             k16a=k16a, k3_f32=k3_f32, k1=k1, k1_f32=lambda dev, g: k1(dev, g, torch.float32),
             k3=k3, k5=k5, k2=k2, k2_f32=lambda dev, g: k2(dev, g, torch.float32),
-            k11_f32=k11_f32, k10_f32=k10_f32, k10=k10, k5_exact=k5_exact,
+            k11_f32=k11_f32, k10_f32=k10_f32, k10=k10, k5_exact=k5_exact, k14=k14,
             k9_copies=k9_copies,
             k9_f32_copies=lambda dev, g: k9_copies(dev, g, QK32, QK32_COPIES, torch.float32),
             )[args.kernel](dev, g)

@@ -88,7 +88,7 @@ def main() -> int:
     names = dict(geglu_ff_bwd="K11", spatial_attention_bwd="K9", grid_attention_bwd="K10 grid",
                  grid_attention_bwd_short="K10 core", vq_cluster_stats="K15",
                  vq_assign_exact="K5 exact")
-    for name, case in cs.train_kernel_cases(dev):  # K14 between them, K13 after
+    for name, case in cs.train_kernel_cases(dev):  # K13 after them
         if name in names:
             res[names[name]] = cs.cuda_ms(case["kern"])
         del case

@@ -7,7 +7,8 @@ numbers from different kernels and commits are taken the same way:
     host_ms    the host time per call: the least over `rounds` of `reps`
                calls (perf_counter, no sync between calls); with `hold`,
                each round queued behind a spin kernel, so that every call
-               launches into a busy queue whatever its kernel's length.
+               launches into a busy queue whatever its kernel's length;
+    launches_per_call  the CUDA kernels a call launches (torch.profiler).
 """
 from __future__ import annotations
 
@@ -83,3 +84,17 @@ def host_ms(fn, reps: int = 50, rounds: int = 5, hold: bool = False) -> float:
         best = min(best, (time.perf_counter() - t0) / reps * 1e3)
     torch.cuda.synchronize()
     return best
+
+
+def launches_per_call(fn, reps: int = 5) -> float:
+    """CUDA kernels launched per call of `fn` (torch.profiler's device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / reps
