@@ -55,7 +55,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      ragged code count (>= 99% of ids equal, the rest near-ties) and on
      planted exact ties (ids equal to torch.argmax's, bit for bit); each with
      the replaced gemm.cu path and a cuBLAS yardstick timed beside it (a
-     note: no one PyTorch call computes K3 or K5);
+     note: no one PyTorch call computes K3 or K5); K4 and K8 on embed_tc.cu
+     (counter `embed_tc`) also held to a mean limit that a planted copy
+     rounding y + bias once must miss, bit-identical across runs, the
+     three passes they replaced and a cuBLAS yardstick timed beside them;
   3. zero-shot phase: a 3-volume synthetic CT-RATE corpus (NIfTI + CSVs +
      a toy vocab) through `run_zero_shot` at full CT-CLIP width (seeded
      random weights), batch 2 with a tail batch, twice: on the patch-row
@@ -346,8 +349,10 @@ ATTN_TRAIN = ["attention_train.cu"]
 ATTN_TC = ["attention_tc.cu"]
 ATTN_TC32 = ["attention_tc32.cu"]
 KERNELS = {
-    "patch_embed": _kernel("fused_patch_embed", "patchify.py:341", "layernorm.cu",
-                           ["layernorm.cu", "gemm.cu"], "patch_embed", "zero_shot_volume"),
+    # K8 and K4 bf16 on embed_tc.cu (`wgmma`, the row tiles normalised in
+    # shared memory; counter embed_tc beside patch_embed / row_embed)
+    "patch_embed": _kernel("fused_patch_embed", "patchify.py:341", "embed_tc.cu",
+                           ["embed_tc.cu"], "patch_embed", "zero_shot_volume"),
     # K1: its core on the tensor cores (qknorm_attention_tc.cu's forward
     # pass, counter qk_attention_tc beside spatial_attention), its products
     # on ffn_tc.cu's NT forms (counter qk_proj_tc)
@@ -384,8 +389,8 @@ KERNELS = {
                                ATTN_TC, "fused_attention", "zero_shot_rows"),
     "rearrange_patches": _kernel("rearrange_patches", "patchify.py:105", "rearrange.cu",
                                  ["rearrange.cu"], "rearrange_patches", "zero_shot_rows"),
-    "row_embed": _kernel("fused_row_embed", "patchify.py:609", "layernorm.cu",
-                         ["layernorm.cu", "gemm.cu"], "row_embed", "zero_shot_rows"),
+    "row_embed": _kernel("fused_row_embed", "patchify.py:609", "embed_tc.cu",
+                         ["embed_tc.cu"], "row_embed", "zero_shot_rows"),
     "fused_attention_f32": _kernel("fused_attention (f32)", "attention.py:129",
                                    "attention_tc32.cu", ATTN_TC32, "fused_attention",
                                    "radbert_train"),
@@ -601,9 +606,9 @@ COMMON = ["spatial_attention", "qk_attention_tc", "grid_attention", "qk_attentio
           "qk_proj_tc", "geglu_ff", "ff_tc_fwd", "vq_assign", "vq_assign_tc", "fused_attention",
           "attention_tc", "peg_fwd"]
 PATHS = {
-    "zero_shot_rows": COMMON + ["rearrange_patches", "row_embed"],
-    "zero_shot_volume": COMMON + ["patch_embed"],
-    "export_latents": COMMON + ["patch_embed"],
+    "zero_shot_rows": COMMON + ["rearrange_patches", "row_embed", "embed_tc"],
+    "zero_shot_volume": COMMON + ["patch_embed", "embed_tc"],
+    "export_latents": COMMON + ["patch_embed", "embed_tc"],
     "radbert_train": ["attention_dropout", "attention_dropout_bwd", "attention_tc32",
                       "attention_tc32_bwd", "fused_attention"],
     "radbert_step": ["attention_dropout", "attention_dropout_bwd", "attention_tc32",
@@ -624,14 +629,15 @@ PATHS = {
                      "grid_attention", "qk_attention_short", "qk_proj_tc",
                      "attention_dropout", "attention_dropout_bwd", "attention_tc_bwd",
                      "rearrange_patches",
-                     "row_embed", "vq_assign", "vq_assign_tc", "fused_attention", "attention_tc"],
+                     "row_embed", "embed_tc", "vq_assign", "vq_assign_tc", "fused_attention",
+                     "attention_tc"],
     # the inference embeds under grad, on a volume and on rows
     "embed_grad": ["patch_embed", "patch_embed_bwd", "ff_tc_gemm", "unrearrange_patches",
-                   "row_embed", "row_embed_bwd"],
+                   "row_embed", "row_embed_bwd", "embed_tc"],
 }
 # a training step on volumes with visual SSL: K6 in the CLIP embed, K8 and
 # K16a in each view's embed, the tower's kernels and backwards, K13
-AUX_TRAIN = ["patch_embed", "patch_embed_bwd", "ff_tc_ln_sums", "rearrange_patches",
+AUX_TRAIN = ["patch_embed", "embed_tc", "patch_embed_bwd", "ff_tc_ln_sums", "rearrange_patches",
              "geglu_ff_bwd", "ff_tc_tile", "ff_tc_gemm",
              "spatial_attention_bwd", "qk_attention_tc_bwd", "grid_attention_bwd", "peg_bwd",
              "peg_fwd",
@@ -653,8 +659,10 @@ AE_TRAIN = ["seq_attention", "qk_attention_short", "qk_proj_tc", "seq_attention_
             "unrearrange_patches"]
 PATHS["ctvit_ae_train"] = AE_TRAIN
 # + the inference recon
-PATHS["ctvit_ae_discr"] = AE_TRAIN + ["vq_assign", "vq_assign_tc", "patch_embed"]
-PATHS["reconstruct"] = ["patch_embed", "spatial_attention", "qk_attention_tc", "grid_attention",
+PATHS["ctvit_ae_discr"] = AE_TRAIN + ["vq_assign", "vq_assign_tc", "patch_embed",
+                                      "embed_tc"]
+PATHS["reconstruct"] = ["patch_embed", "embed_tc", "spatial_attention", "qk_attention_tc",
+                        "grid_attention",
                         "qk_attention_short", "qk_proj_tc", "geglu_ff", "ff_tc_fwd",
                         "vq_assign", "vq_assign_tc", "unrearrange_patches", "peg_fwd"]
 PATHS["ctclip_160_train"] = ["seq_attention", "qk_attention_short", "qk_proj_tc",
@@ -666,7 +674,8 @@ PATHS["ctclip_160_train"] = ["seq_attention", "qk_attention_short", "qk_proj_tc"
                              "vq_cluster_stats", "vq_assign_exact",
                              "rearrange_patches", "attention_dropout", "attention_dropout_bwd",
                              "attention_tc", "attention_tc_bwd"]
-PATHS["zero_shot_160"] = ["row_embed", "spatial_attention", "qk_attention_tc", "seq_attention",
+PATHS["zero_shot_160"] = ["row_embed", "embed_tc", "spatial_attention", "qk_attention_tc",
+                          "seq_attention",
                           "qk_attention_short", "qk_proj_tc",
                           "geglu_ff", "ff_tc_fwd",
                           "vq_assign", "vq_assign_tc", "fused_attention", "attention_tc",
@@ -683,17 +692,17 @@ PATHS["maskgit_train"] = ["attention_dense", "attention_dense_bwd", "fused_atten
                           "attention_tc", "attention_tc_bwd", "geglu_ff", "ff_tc_fwd",
                           "geglu_ff_bwd",
                           "ff_tc_tile", "ff_tc_gemm", "peg_bwd", "peg_fwd"]
-PATHS["maskgit_encode_ids"] = ["patch_embed", "spatial_attention", "qk_attention_tc",
-                               "seq_attention", "qk_attention_short", "qk_proj_tc", "geglu_ff",
-                               "ff_tc_fwd", "vq_assign",
+PATHS["maskgit_encode_ids"] = ["patch_embed", "embed_tc", "spatial_attention",
+                               "qk_attention_tc", "seq_attention", "qk_attention_short",
+                               "qk_proj_tc", "geglu_ff", "ff_tc_fwd", "vq_assign",
                                "vq_assign_tc", "peg_fwd"]
 PATHS["maskgit_sample"] = ["attention_dense", "fused_attention", "attention_tc", "geglu_ff",
                            "ff_tc_fwd",
                            "seq_attention", "qk_attention_short", "qk_proj_tc",
                            "spatial_attention", "qk_attention_tc", "unrearrange_patches",
                            "peg_fwd"]
-PATHS["maskgit_sample_primed"] = PATHS["maskgit_sample"] + ["patch_embed", "vq_assign",
-                                                             "vq_assign_tc"]
+PATHS["maskgit_sample_primed"] = PATHS["maskgit_sample"] + ["patch_embed", "embed_tc",
+                                                             "vq_assign", "vq_assign_tc"]
 PATHS["t5_no_mask"] = ["attention_dense", "attention_tc32"]
 # phase 10: f32 zero-shot (the f32 forms of K1, K2 grid, K3, K5 on f32 rows,
 # K6; the embeds on their plain route, K7 f32 for the prompts) and the f32
@@ -833,7 +842,7 @@ def kernel_cases(dev):
     cases["patch_embed"] = dict(
         kern=lambda: fused_patch_embed(video, *pe, 10, 20),
         plain=lambda: patch_embed_plain(video, *pe, 10, 20), library=None,
-        inputs=(video, *pe), flops=2 * tokens * pd * dim)
+        **embed_checks(video, pe, (10, 20)), inputs=(video, *pe), flops=2 * tokens * pd * dim)
     rows = rearrange_plain(video, 10, 20)
     # as the ingest calls it: one volume into the last slot of the batch buffer
     one, slot = video[-1:], torch.empty_like(rows)[-1:]
@@ -846,7 +855,7 @@ def kernel_cases(dev):
     cases["row_embed"] = dict(
         kern=lambda: fused_row_embed(rows, *pe),
         plain=lambda: row_embed_plain(rows, *pe), library=None,
-        inputs=(rows, *pe), flops=2 * tokens * pd * dim)
+        **embed_checks(rows, pe, None), inputs=(rows, *pe), flops=2 * tokens * pd * dim)
 
     w_attn = (1 + rn(dim, scale=0.1), rn(hd, dim, scale=dim ** -0.5),
               rn(2 * hd, dim, scale=dim ** -0.5), 1 + rn(dh, scale=0.2),
@@ -895,6 +904,73 @@ def kernel_cases(dev):
         twin=cuda_core_twin(q, k, v, key_bias=key_bias)[0],
         inputs=(q, k, v, key_bias), flops=4 * 36 * 12 * 512 * 512 * 64)
     return cases
+
+
+# K4 / K8 bf16 on embed_tc.cu against their plain versions: mean|err| <=
+# EMBED_MEAN_TOL * mean|plain| besides REL_TOL of max.  The kernel rounds
+# where the TPU kernel does (xn, y, yb = bf16(bf16(y) + bias), out) and sums
+# in other orders; the planted copy adding the bias to the f32 y before one
+# rounding (CT_EMBED_TC_ONE_ROUNDING) reads ~1.6e-3 (CPU, 2,000 x 4,000 ->
+# 512) and must miss, as the max cannot tell the two apart
+EMBED_MEAN_TOL = 2e-4
+EMBED_REPLACED = ("layernorm.cu (LN(4000), plain or through the patch gather), gemm.cu "
+                  "(WMMA product, EPI_BIAS_ROUNDED), layernorm.cu (LN(512))")
+EMBED_YARDSTICK = "F.layer_norm, F.linear with the bias, F.layer_norm (cuBLAS)"
+
+
+def embed_three_passes(x, pe, geom, eps: float = 1e-5):
+    """K4 (x the (b, n, 4000) rows) or K8 (x the volume, geom (pt, p)) as
+    the port ran them before embed_tc.cu: LN(4000) into stored normalised
+    rows, gemm.cu's WMMA product with the rounded bias, LN(512): the
+    replaced path, timed beside the kernel."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    s1, b1, w, pbias, s2, b2 = pe
+    dim, pd = w.shape
+    bf = torch.bfloat16
+    b = x.shape[0]
+    n = x.shape[1] if geom is None else x[0].numel() // pd
+    xn = torch.empty((b * n, pd), dtype=bf, device=x.device)
+    if geom is None:
+        K.layernorm(x.reshape(b * n, pd), s1, b1, eps, xn)
+    else:
+        K.patch_layernorm(x, *geom, s1, b1, eps, xn)
+    y = torch.empty((b * n, dim), dtype=bf, device=x.device)
+    K.gemm(K.EPI_BIAS_ROUNDED, xn, w.to(bf).contiguous(), y, bias=pbias.to(bf).contiguous())
+    out = torch.empty_like(y)
+    K.layernorm(y, s2, b2, eps, out)
+    return out.view(b, n, dim)
+
+
+def embed_checks(x, pe, geom) -> dict:
+    """The K4 / K8 case's extra checks for `kernel_phase`: the mean limit,
+    the planted single rounding (which must miss it), bit-identical runs, the
+    replaced three passes timed beside it, and the cuBLAS yardstick (a note:
+    no one PyTorch call computes the embed)."""
+    import torch.nn.functional as F
+
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.patch_embed import rearrange_plain
+
+    s1, b1, w, pbias, s2, b2 = pe
+    dim, pd = w.shape
+    bf = x.dtype
+    src = x.reshape(-1, pd) if geom is None else x
+
+    def planted():
+        return K.embed_tc(src, *pe, 1e-5, geom=geom,
+                          lib=K.copy_library("embed_tc.cu", CT_EMBED_TC_ONE_ROUNDING=1))
+
+    def yard():
+        rows = x if geom is None else rearrange_plain(x, *geom)
+        h = F.layer_norm(rows, (pd,), s1.to(bf), b1.to(bf))
+        return F.layer_norm(F.linear(h, w.to(bf), pbias.to(bf)), (dim,), s2.to(bf), b2.to(bf))
+    return dict(mean_tol=EMBED_MEAN_TOL, planted=planted, bit_identical=True,
+                twin=lambda: embed_three_passes(x, pe, geom), twin_source=EMBED_REPLACED,
+                yardstick=yard, yardstick_is=EMBED_YARDSTICK
+                + ("" if geom is None else ", after the patch rows' contiguous copy"))
 
 
 # K3 bf16's replaced path and its cuBLAS yardstick (a note, not the row's
@@ -1649,6 +1725,19 @@ def kernel_phase(dev):
         if (exact and not torch.equal(got, ref)) or rel > REL_TOL:
             raise AssertionError(f"{name}: error {err:.3e} (rel {rel:.3e}) "
                                  f"outside {res['tolerance']}")
+        if case.get("mean_tol"):  # K4 / K8: the mean tells the rounding points apart
+            res["mean_rel_err"] = _mean_rel_error(got, ref)
+            res["planted_one_rounding_mean_rel_err"] = _mean_rel_error(
+                case["planted"]().view(ref.shape), ref)
+            res["tolerance"] += f", mean {case['mean_tol']}"
+            res["bit_identical"] = bool(torch.equal(case["kern"](), got))
+            log(f"kernel {name}: mean_rel_err {res['mean_rel_err']:.3e} (limit "
+                f"{case['mean_tol']}); the planted single rounding of y + bias "
+                f"{res['planted_one_rounding_mean_rel_err']:.3e} (must exceed it); "
+                f"bit-identical across two runs: {res['bit_identical']}")
+            if res["mean_rel_err"] > case["mean_tol"] or not res["bit_identical"] \
+                    or res["planted_one_rounding_mean_rel_err"] <= case["mean_tol"]:
+                raise AssertionError(f"{name}: mean check failed: {res}")
         if case.get("twin"):
             res["replaced"] = twin_result(name, case["twin"], ref,
                                           case.get("twin_source", "attention_train.cu"))
@@ -2847,6 +2936,13 @@ def end_to_end_phase(dev, work: Path, card: str):
     if counts["zero_shot_rows"]["patch_embed"] or counts["zero_shot_volume"]["row_embed"] \
             or counts["zero_shot_volume"]["rearrange_patches"]:
         raise AssertionError("a zero-shot route ran the other route's embed")
+    # every embed on embed_tc.cu, no gemm.cu product
+    for name in ("zero_shot_rows", "zero_shot_volume"):
+        c = counts[name]
+        if c["qk_proj_gemm"] or c["embed_tc"] != c["row_embed"] + c["patch_embed"]:
+            raise AssertionError(f"{name}: embeds {c['row_embed'] + c['patch_embed']}, on "
+                                 f"embed_tc.cu {c['embed_tc']}; gemm.cu launches "
+                                 f"{c['qk_proj_gemm']}")
     route_diff = float(np.abs(outs["zero_shot_rows"]["predicted"]
                               - outs["zero_shot_volume"]["predicted"]).max())
     log(f"e2e: P(present) rows route vs volume route max abs diff {route_diff:.4e} "
@@ -3369,6 +3465,8 @@ CTCLIP_GROUPS = (
      "K10's recompute too)", ("ff_tc_gemm<0, 5>", "ff_tc_gemm<0,5>")),
     ("K5 inference assignment on the tensor cores (vq_tc.cu: vq_tc_argmax, and the f32 rows' "
      "pre-pass vq_rows_bf16_kernel)", ("vq_tc_argmax", "vq_rows_bf16")),
+    ("K4 / K8 bf16 embed on the tensor cores (embed_tc.cu: embed_stats, embed_tc_kernel)",
+     ("embed_stats", "embed_tc_kernel")),
     ("K11 bf16 tile and products, K9 / K10 bf16's products on the tensor cores (ffn_tc.cu: "
      "ff_tc_tile, ff_tc_gemm; K10's f32-store NT recompute <0, 6>, K9's bf16-store NN <0, 7>)",
      ("ff_tc_",)),
@@ -3686,10 +3784,19 @@ def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float,
                        grad_ratio: float = TINY_GRAD_RATIO):
     """(readings, failures) of a card side `g` against the CPU side `c`,
     with the CPU's f32 side `c32` giving each gradient's bf16 noise.  With
-    `noise_aware_updates`, a tensor's update error on its large-gradient
-    entries is also held against the CPU's own bf16-vs-f32 update error on
-    those entries (TINY_GRAD_RATIO times it), for configurations whose bf16
-    gradients flip the sign of Adam's first step on the CPU already.
+    `noise_aware_updates`, for configurations whose bf16 gradients flip the
+    sign of Adam's first step on the CPU already, an update's sign and its
+    size are held apart.  Its sign against the f32 step's: on each entry
+    whose f32 gradient is above 2e-1 of its tensor's largest, the card's
+    update within lr of the f32 step's, unless the CPU's bf16 step also
+    flips one of those entries (its sign is then within bf16 noise).  Its
+    size against the CPU's bf16 step, on the entries large there where the
+    card's update has that step's sign: within TINY_UPDATE_TOL lr, or a
+    tensor's largest error within TINY_GRAD_RATIO times the CPU bf16 step's
+    own against the f32 step on the same entries.  (An entry large in the
+    CPU's bf16 step alone is large by that step's own rounding and its sign
+    is noise on any bf16 side, tools/port_tiny_aux_probe.py --embed; its
+    gradient stays held with every other entry by the L2 distance above.)
     `grad_ratio` is the gradients' limit (TINY_GRAD_RATIO unless a
     configuration states its own)."""
     def l2_rel(a, b):
@@ -3712,12 +3819,23 @@ def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float,
         cs_err = (g["sd"][key + "cluster_size"] - c["sd"][key + "cluster_size"]).abs().max().item()
         cb_err = (g["sd"][key + "embed"] - c["sd"][key + "embed"]).abs().max().item()
     upd_err, upd_worst, upd_max, within_cpu_noise = 0.0, "", 0.0, []
+    flips, flips_within_cpu_noise = {}, {}
     for n, ref in c["grads"].items():
         if not ref.numel() or n.endswith(ZERO_GRAD):
             continue
-        diff = ((g["sd"][n] - start[n].float()) - (c["sd"][n] - start[n].float())).abs()
+        step = g["sd"][n] - start[n].float()
+        diff = (step - (c["sd"][n] - start[n].float())).abs()
         big = ref.abs() >= 2e-1 * ref.abs().max()
         upd_max = max(upd_max, diff.max().item())
+        if noise_aware_updates:
+            true = c32["grads"][n]
+            big32 = true.abs() >= 2e-1 * true.abs().max()
+            step32 = c32["sd"][n] - start[n].float()
+            flipped = int(((step - step32).abs()[big32] > lr).sum())
+            if flipped:
+                own = int(((c["sd"][n] - c32["sd"][n]).abs()[big32] > lr).sum())
+                (flips_within_cpu_noise if own else flips)[n] = [flipped, own]
+            big = big & (diff <= lr)  # sizes where the card's step has the CPU's sign
         if not big.any():
             continue
         err = diff[big].max().item()
@@ -3739,12 +3857,15 @@ def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float,
                cluster_size_abs=cs_err, codebook_abs=cb_err, update_err_over_lr=upd_err / lr,
                update_worst=upd_worst, update_max_over_lr=upd_max / lr,
                updates_within_cpu_bf16_noise=within_cpu_noise)
+    if noise_aware_updates:  # tensor -> [the card's flips, the CPU bf16 step's]
+        res.update(update_sign_flips=flips, update_sign_flips_within_cpu_bf16_noise=(
+            flips_within_cpu_noise))
     failures = [name for name, bad in (
         ("loss", res["loss_rel"] > TINY_LOSS_TOL),
         ("gradients", res["grad_ratio"] > grad_ratio),
         ("zero gradients", zero > TINY_ZERO_TOL), ("VQ ids", agree < 1.0),
         ("cluster sizes", cs_err > 1e-6), ("codebook", cb_err > 1e-2),
-        ("updates", upd_err > TINY_UPDATE_TOL * lr),
+        ("updates", upd_err > TINY_UPDATE_TOL * lr), ("update signs", bool(flips)),
         ("update bound", upd_max > 2 * lr * (1 + 1e-6))) if bad]
     return res, failures
 
@@ -3763,8 +3884,12 @@ def _log_tiny(label: str, res: dict, failures) -> None:
         f"tol {TINY_UPDATE_TOL} lr; tensors whose update error is within "
         f"{TINY_GRAD_RATIO}x the CPU's own bf16-f32 one, (tensor, err / lr, CPU's / lr): "
         f"{[(n, round(e, 3), round(o, 3)) for n, e, o in res['updates_within_cpu_bf16_noise']]}"
-        f"), every update within {res['update_max_over_lr']:.2e} lr (tol 2 lr); outside: "
-        f"{failures or 'none'}")
+        f"), every update within {res['update_max_over_lr']:.2e} lr (tol 2 lr); "
+        + (f"update signs against the f32 step's on its large entries, (card's flips, the "
+           f"CPU bf16 step's): {res['update_sign_flips'] or 'none'}, within the CPU's bf16 "
+           f"noise {res['update_sign_flips_within_cpu_bf16_noise']}; "
+           if "update_sign_flips" in res else "")
+        + f"outside: {failures or 'none'}")
 
 
 def planted_faults():
@@ -4089,8 +4214,9 @@ def tiny_aux_config():
     that their gradients carry weight in every tensor they reach.  With the
     SSL heads' gradient in them, ten tensors' bf16 gradients lie ~20% (L2)
     from the f32 ones on the CPU itself and flip the sign of some of Adam's
-    first steps there (a CPU reading), so this check holds the updates
-    against the CPU's own bf16-f32 updates (`noise_aware_updates`).  Its
+    first steps there (a CPU reading), so this check holds each update's
+    sign against the f32 step and its size against the CPU's bf16 step,
+    each beside the CPU's own bf16-f32 error (`noise_aware_updates`).  Its
     BERT keeps four heads of 16 (K12a on attention_train.cu): with one head
     of 64 the CPU's bf16 gradient of to_visual_latent.weight reads -0.23 of
     its max at an entry where the f32 one reads -0.003, so the card's Adam

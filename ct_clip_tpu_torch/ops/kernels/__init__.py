@@ -116,6 +116,10 @@ KERNELS = (
     "ff_tc_fwd",           # K3 bf16 after its LN: the GEGLU and residual products on
                            # ffn_tc.cu (one a call, beside geglu_ff) where `ops/ffn.py::
                            # fwd_route` gives FF_WGMMA
+    # embed_tc.cu's bf16 K4 / K8 on the tensor cores (`wgmma`), beside row_embed /
+    # patch_embed: the row statistics, the product on tiles normalised in shared
+    # memory, LN(dim) (one a call)
+    "embed_tc",
     # vq_tc.cu's K5 inference assignment on the tensor cores (`wgmma`), beside
     # vq_assign / vq_assign_f32
     "vq_assign_tc",        # one a call: bf16 rows, or f32 rows after the pre-pass
@@ -383,6 +387,8 @@ def _signatures():
         "ct_peg_bwd_f32": [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p],
         "ct_vq_cluster_stats": [p, p, i, i, i, p, p, p, p, p, p, p],
         "ct_vq_cluster_stats_f32": [p, p, i, i, i, p, p, p, p, p, p, p],
+        "ct_embed_stats": [p, i, p, i, i, i, i, i, i, i, i, f, p, p],
+        "ct_embed_tc": [p, i, p, i, i, i, i, i, i, p, i, p, p, p, p, p, f, i, i, i, p, p, p],
     }
 
 
@@ -843,6 +849,75 @@ def ff_tc_fwd(x: torch.Tensor, xn: torch.Tensor, wcat: torch.Tensor, wo: torch.T
     _check(lib.ct_ff_tc_residual(_ptr(act), P, _ptr(wo), wo.stride(0), M, D, P, _ptr(x),
                                  x.stride(0), _ptr(out), D, _stream()), "ct_ff_tc_residual")
     count_launch("ff_tc_fwd")
+    return out
+
+
+# K4 / K8 in bf16 on the tensor cores (embed_tc.cu)
+EMBED_MAX_K = 4096  # patch_dim: embed_tc.cu's stats pass holds a row in registers
+EMBED_MAX_DIM = 512  # dim: a CTA holds whole output rows, for LN(dim) in its epilogue
+
+
+def embed_fits(patch_dim: int, dim: int, geom=None) -> bool:
+    """Whether embed_tc.cu takes the bf16 embed: patch_dim and dim multiples
+    of 8 (16-byte rows for TMA), patch_dim <= EMBED_MAX_K, dim <=
+    EMBED_MAX_DIM; on the volume (`geom` = (video shape, pt, p)) also p and W
+    multiples of 4 (its 8-byte gathers).  Every config of the repo fits;
+    `embed_tc` raises on a width that does not."""
+    ok = patch_dim % 8 == 0 and dim % 8 == 0 and patch_dim <= EMBED_MAX_K \
+        and dim <= EMBED_MAX_DIM
+    if geom is not None:
+        shape, _, p = geom
+        ok = ok and p % 4 == 0 and shape[-1] % 4 == 0
+    return ok
+
+
+def embed_tc(x: torch.Tensor, s1, b1, w: torch.Tensor, pbias, s2, b2, eps: float,
+             geom: Optional[tuple] = None, lib=None) -> torch.Tensor:
+    """The bf16 patch embed on embed_tc.cu (`wgmma`): (M, dim) bf16 =
+    LN(dim)(bf16(bf16(xn w^T) + pbias)), xn = LN(patch_dim) of the rows,
+    rounded where patchify.py::_rows_embed_math rounds them.  The rows: x
+    (M, patch_dim) bf16 with contiguous rows (K4), or, with geom = (pt, p),
+    the patch rows of the (B, F, H, W) bf16 volume x (K8).  w (dim,
+    patch_dim); s1, b1 (patch_dim,), pbias, s2, b2 (dim,).  Raises on a
+    width `embed_fits` refuses.  Counted `embed_tc`.  `lib`: a copy of
+    embed_tc.cu (`copy_library`) to launch instead."""
+    lib = lib or library()
+    bf = BF16
+    dim, pd = w.shape
+    if geom is None:
+        require(x, "x", bf, 2, contiguous=False)
+        if x.stride(1) != 1 or x.shape[1] != pd:
+            raise ValueError(f"embed_tc: rows {tuple(x.shape)} (contiguous rows) vs w "
+                             f"{tuple(w.shape)}")
+        M, rows, video, shape = x.shape[0], x, None, None
+    else:
+        require(x, "video", bf, 4)
+        pt, p = geom
+        Bv, F, H, W = x.shape
+        if F % pt or H % p or W % p or pt * p * p != pd:
+            raise ValueError(f"embed_tc: video {tuple(x.shape)} vs {pt}x{p}x{p}, w "
+                             f"{tuple(w.shape)}")
+        M, rows, video, shape = Bv * (F // pt) * (H // p) * (W // p), None, x, (x.shape, pt, p)
+    if not embed_fits(pd, dim, shape):
+        raise ValueError(f"embed_tc: patch_dim {pd}, dim {dim}"
+                         + ("" if geom is None else f", video {tuple(x.shape)}, p {geom[1]}")
+                         + " do not fit embed_tc.cu (kernels.embed_fits)")
+    # the rows' statistics first: the card runs them while the operands below
+    # are cast
+    src = (_ptr(rows), 0 if rows is None else rows.stride(0), _ptr(video),
+           *((0,) * 6 if geom is None else (Bv, F, H, W, *geom)))
+    stats = torch.empty((M, 2), dtype=torch.float32, device=x.device)
+    stream = _stream()
+    _check(lib.ct_embed_stats(*src, M, pd, float(eps), _ptr(stats), stream), "ct_embed_stats")
+    wb = w.to(bf).contiguous()
+    pb = pbias.to(bf).contiguous()
+    s1, b1 = _f32_vector(s1, pd, "s1"), _f32_vector(b1, pd, "b1")
+    s2, b2 = _f32_vector(s2, dim, "s2"), _f32_vector(b2, dim, "b2")
+    out = torch.empty((M, dim), dtype=bf, device=x.device)
+    _check(lib.ct_embed_tc(*src, _ptr(wb), wb.stride(0), _ptr(s1), _ptr(b1), _ptr(pb),
+                           _ptr(s2), _ptr(b2), float(eps), M, dim, pd, _ptr(stats), _ptr(out),
+                           stream), "ct_embed_tc")
+    count_launch("embed_tc")
     return out
 
 

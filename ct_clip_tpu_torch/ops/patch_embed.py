@@ -5,16 +5,18 @@ plain twins.  The reference chain is CTViT's to_patch_emb
 (transformer_maskgit/ctvit.py:170-175): Rearrange to '(c pt p1 p2)' patch
 rows, LayerNorm(4000), Linear(4000, 512), LayerNorm(512).
 
-  * `fused_patch_embed` (K8) embeds a (b, F, H, W) volume.  On a CUDA tensor
-    it runs as three hand-written launches: the patch gather fused with
-    LN(4000) (csrc/layernorm.cu), the 4000x512 product with the bias epilogue
-    (csrc/gemm.cu) and LN(512).  Its backward is K16a
-    (`_pallas_patch_embed_bwd`), which saves only the volume and recomputes
-    the normalised rows: the six weight gradients and, when the volume
-    requires grad, d(volume) through K17.  Its three products run on
-    csrc/ffn_tc.cu's `wgmma`, and without d(volume) the LN(4000) scale and
-    bias gradients come out of the dxn product's epilogue, so dxn never
-    reaches device memory (`_patch_embed_bwd_cuda`).
+  * `fused_patch_embed` (K8) embeds a (b, F, H, W) volume.  On a bf16 CUDA
+    tensor it runs on csrc/embed_tc.cu (`kernels.embed_tc`): each patch
+    row's mean and rstd in a pre-pass through the patch gather, then one
+    `wgmma` kernel that gathers the raw rows' k blocks into shared memory,
+    normalises them there and multiplies them by W, so the (tokens, 4000)
+    normalised rows never reach device memory, LN(512) in its epilogue.  Its
+    backward is K16a (`_pallas_patch_embed_bwd`), which saves only the
+    volume and recomputes the normalised rows: the six weight gradients and,
+    when the volume requires grad, d(volume) through K17.  Its three
+    products run on csrc/ffn_tc.cu's `wgmma`, and without d(volume) the
+    LN(4000) scale and bias gradients come out of the dxn product's
+    epilogue, so dxn never reaches device memory (`_patch_embed_bwd_cuda`).
   * `rearrange_patches` (K6) moves a volume into patch rows
     (csrc/rearrange.cu): the last stage of the patch-row ingest, where it
     writes into a view the caller passes (one slot of the batch buffer), and
@@ -22,14 +24,15 @@ rows, LayerNorm(4000), Linear(4000, 512), LayerNorm(512).
     (`_pallas_unrearrange`, `unrearrange_patches`), the move back, which
     the CTViT decoder also runs forward on its pixel rows (`unpatchify`,
     whose backward is K6).
-  * `fused_row_embed` (K4) embeds patch rows: LN(4000) of the contiguous
-    rows (csrc/layernorm.cu), then the same product and LN(512) as K8.  Its
-    backward is K16b (`_pallas_row_embed_bwd`), with d(rows) when the rows
-    require grad.
+  * `fused_row_embed` (K4) embeds patch rows: the same kernel with the
+    rows' k blocks copied by TMA.  Its backward is K16b
+    (`_pallas_row_embed_bwd`), with d(rows) when the rows require grad.
 
-In both embeds the (tokens, 4000) normalised rows pass through device memory
-between the LN and the product.  Each backward's plain version is autograd of
-the plain forward, the JAX package's XLA VJP; a CPU tensor takes it.
+A width embed_tc.cu does not take (`kernels.embed_fits`; every config of
+the repo fits) raises.  K16b's backward recomputes the normalised rows on
+csrc/layernorm.cu and the product on csrc/gemm.cu (`_embed_tail_bwd`).  Each
+backward's plain version is autograd of the plain forward, the JAX package's
+XLA VJP; a CPU tensor takes it.
 
 Dtypes on CUDA (`kernels.ROUTES`): K6 and K17 move bf16 or f32 (their f32
 forms, as the TPU kernels move f32 blocks).  The JAX package runs K8, K4,
@@ -191,22 +194,9 @@ def row_embed_bwd_plain(rows, s1, b1, w, pbias, s2, b2, dout, eps: float = 1e-5)
     return vjp(lambda *a: row_embed_plain(*a, eps), (rows, s1, b1, w, pbias, s2, b2), dout)
 
 
-def _embed_tail(xn, w, pbias, s2, b2, eps, b, n):
-    """(b*n, patch_dim) normalised rows -> product + rounded bias -> LN(dim)."""
-    dim, bf = w.shape[0], torch.bfloat16
-    if w.shape[1] != xn.shape[1]:
-        raise ValueError(f"patch weight {tuple(w.shape)} != (dim, {xn.shape[1]})")
-    y = torch.empty((b * n, dim), dtype=bf, device=xn.device)
-    K.gemm(K.EPI_BIAS_ROUNDED, xn, w.to(bf).contiguous(), y,
-           bias=pbias.to(bf).contiguous())
-    out = torch.empty_like(y)
-    K.layernorm(y, s2, b2, eps, out)
-    return out.view(b, n, dim)
-
-
 def _embed_tail_bwd(xn, w, pbias, s2, dout, eps):
-    """The backward of `_embed_tail` from the normalised rows xn (R, pd),
-    as _embed_bwd_kernel (patchify.py:285-306) computes it: the product and
+    """The backward of the embed's product, bias and LN(dim) from the
+    normalised rows xn (R, pd), as _embed_bwd_kernel (patchify.py:285-306) computes it: the product and
     its rounded bias add again, the LN(dim) backward (dyb, ds2, db2 and dpb,
     the column sum of the f32 dyb), dW = dyb^T xn (split TN product) and
     dxn = dyb W (NN product), f32."""
@@ -228,9 +218,7 @@ def _embed_tail_bwd(xn, w, pbias, s2, dout, eps):
 def _patch_embed_cuda(video, s1, b1, w, pbias, s2, b2, pt, p, eps):
     b, F, H, W = video.shape
     n = (F // pt) * (H // p) * (W // p)
-    xn = torch.empty((b * n, pt * p * p), dtype=torch.bfloat16, device=video.device)
-    K.patch_layernorm(video, pt, p, s1, b1, eps, xn)
-    out = _embed_tail(xn, w, pbias, s2, b2, eps, b, n)
+    out = K.embed_tc(video, s1, b1, w, pbias, s2, b2, eps, geom=(pt, p)).view(b, n, -1)
     K.count_launch("patch_embed")
     return out
 
@@ -276,9 +264,7 @@ def _patch_embed_bwd_cuda(video, s1, b1, w, pbias, s2, b2, dout, pt, p, eps,
 
 def _row_embed_cuda(rows, s1, b1, w, pbias, s2, b2, eps):
     b, n, pd = rows.shape
-    xn = torch.empty((b * n, pd), dtype=torch.bfloat16, device=rows.device)
-    K.layernorm(rows.view(b * n, pd), s1, b1, eps, xn)
-    out = _embed_tail(xn, w, pbias, s2, b2, eps, b, n)
+    out = K.embed_tc(rows.view(b * n, pd), s1, b1, w, pbias, s2, b2, eps).view(b, n, -1)
     K.count_launch("row_embed")
     return out
 

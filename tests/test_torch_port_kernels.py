@@ -15,7 +15,9 @@ ffn_tc.cu (`-k "k2 or qk_projection"`) and its f32 core in 3xTF32
 ffn_tc.cu (`-k k16a`), K3 f32 in 3xTF32 on ffn_tc32.cu (`-k "ff_f32"`), K3
 bf16's GEGLU and residual forms on ffn_tc.cu and K5's inference assignment
 on vq_tc.cu, bf16 and f32 rows (`-k "k3_wgmma or k5_wgmma"`), the PEG
-stencil's forward and K14, bf16 and f32 (peg_stencil.cu, `-k peg`).
+stencil's forward and K14, bf16 and f32 (peg_stencil.cu, `-k peg`), K4 and
+K8 bf16 on embed_tc.cu with a mean limit, its planted single-rounding copy
+and misfit widths raising (`-k embed`).
 
 Needs an NVIDIA GPU and nvcc (the kernels compile on first use); skipped
 elsewhere.  Run on the card with:
@@ -2376,3 +2378,103 @@ def test_layernorm_bf16_rows_backward(dev, D):
     again = K.layernorm_bwd(x, scale, dxn, 1e-5, add=add, add2=add2, want_dbias=True,
                             want_dxsum=True)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+# K4 / K8 bf16 on embed_tc.cu: mean|err| <= EMBED_MEAN_TOL * mean|plain|.  The
+# kernel rounds where the plain version does (xn, y, yb, out) and sums in
+# another order, which flips a rounding in few elements; the single rounding
+# of y + pbias (the planted copy) reads ~1.6e-3 there (CPU, 2,000 x 4,000 ->
+# 512), within the max limit REL.
+EMBED_MEAN_TOL = 2e-4
+# kind, leading shape (rows: (b, n); volume: (b, F, H, W)), pt, p, dim: the
+# zero-shot batch at full width, ragged row counts, the tiny configs' 1,024 -> 64
+EMBED_CASES = [("rows", (2, 13824), 10, 20, 512), ("rows", (2, 300), 10, 20, 512),
+               ("volume", (2, 240, 480, 480), 10, 20, 512), ("volume", (2, 20, 60, 40), 10, 20, 512),
+               ("rows", (3, 37), 4, 16, 64), ("volume", (1, 12, 48, 48), 4, 16, 64)]
+
+
+def _mean_rel(got, ref):
+    return ((got.float() - ref.float()).abs().mean() / ref.float().abs().mean()).item()
+
+
+def _embed_inputs(dev, kind, shape, pt, p, dim, seed=90):
+    g = _gen(dev, seed)
+    pd = pt * p * p
+    x = _randn((*shape, pd) if kind == "rows" else shape, g, dev)
+    if kind == "volume":
+        x = (x.float().clamp(-3, 3) / 3).to(BF)
+    w = (1 + _randn((pd,), g, dev, 0.1, F32), _randn((pd,), g, dev, 0.1, F32),
+         _randn((dim, pd), g, dev, pd ** -0.5, F32), _randn((dim,), g, dev, 0.1, F32),
+         1 + _randn((dim,), g, dev, 0.1, F32), _randn((dim,), g, dev, 0.1, F32))
+    return x, w
+
+
+def _embed_calls(kind, x, w, pt, p):
+    from ct_clip_tpu_torch.ops.patch_embed import (fused_patch_embed, fused_row_embed,
+                                                   patch_embed_plain, row_embed_plain)
+    if kind == "rows":
+        return (lambda: fused_row_embed(x, *w)), (lambda: row_embed_plain(x, *w)), \
+            (lambda lib: K.embed_tc(x.view(-1, x.shape[-1]), *w, 1e-5, lib=lib))
+    return (lambda: fused_patch_embed(x, *w, pt, p)), \
+        (lambda: patch_embed_plain(x, *w, pt, p)), \
+        (lambda lib: K.embed_tc(x, *w, 1e-5, geom=(pt, p), lib=lib))
+
+
+@pytest.mark.parametrize("kind,shape,pt,p,dim", EMBED_CASES)
+def test_embed_tc_k4_k8(dev, kind, shape, pt, p, dim):
+    """K4 / K8 on embed_tc.cu against the plain version: REL of max and
+    EMBED_MEAN_TOL of mean; one launch counted; a second run equal bit for
+    bit."""
+    x, w = _embed_inputs(dev, kind, shape, pt, p, dim)
+    kern, plain, _ = _embed_calls(kind, x, w, pt, p)
+    K.reset_launch_counts()
+    got = kern()
+    counts = K.launch_counts()
+    ref = plain()
+    torch.cuda.synchronize()
+    assert counts["embed_tc"] == 1
+    assert counts["row_embed" if kind == "rows" else "patch_embed"] == 1
+    assert got.dtype == BF and got.shape == ref.shape
+    _close(got, ref)
+    assert _mean_rel(got, ref) <= EMBED_MEAN_TOL
+    assert torch.equal(kern(), got)
+
+
+@pytest.mark.parametrize("kind", ["rows", "volume"])
+def test_embed_tc_one_rounding_copy_misses_the_mean(dev, kind):
+    """The copy adding pbias to the f32 y before one rounding
+    (CT_EMBED_TC_ONE_ROUNDING) must read outside EMBED_MEAN_TOL."""
+    shape = (2, 300) if kind == "rows" else (2, 20, 60, 40)
+    x, w = _embed_inputs(dev, kind, shape, 10, 20, 512, seed=91)
+    _, plain, on_lib = _embed_calls(kind, x, w, 10, 20)
+    got = on_lib(K.copy_library("embed_tc.cu", CT_EMBED_TC_ONE_ROUNDING=1))
+    ref = plain().view(got.shape)
+    torch.cuda.synchronize()
+    assert _mean_rel(got, ref) > EMBED_MEAN_TOL
+
+
+def test_embed_misfit_widths_raise(dev):
+    """Widths embed_tc.cu does not take raise, with no launch counted: K8
+    with p = 6 (its 8-byte gathers need p % 4 == 0), K4 with patch_dim 50
+    (TMA rows need multiples of 8), through the embeds and `kernels.embed_tc`."""
+    from ct_clip_tpu_torch.ops.patch_embed import fused_patch_embed, fused_row_embed
+
+    g = _gen(dev, 93)
+    video = _randn((1, 4, 24, 24), g, dev)
+    w6 = (1 + _randn((72,), g, dev, 0.1, F32), _randn((72,), g, dev, 0.1, F32),
+          _randn((64, 72), g, dev, 0.1, F32), _randn((64,), g, dev, 0.1, F32),
+          1 + _randn((64,), g, dev, 0.1, F32), _randn((64,), g, dev, 0.1, F32))
+    rows = _randn((1, 30, 50), g, dev)
+    w5 = (1 + _randn((50,), g, dev, 0.1, F32), _randn((50,), g, dev, 0.1, F32),
+          _randn((64, 50), g, dev, 0.1, F32), *w6[3:])
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="embed_fits"):
+        fused_patch_embed(video, *w6, 2, 6)
+    with pytest.raises(ValueError, match="embed_fits"):
+        fused_row_embed(rows, *w5)
+    with pytest.raises(ValueError, match="embed_fits"):
+        K.embed_tc(video, *w6, 1e-5, geom=(2, 6))
+    with pytest.raises(ValueError, match="embed_fits"):
+        K.embed_tc(rows.view(30, 50), *w5, 1e-5)
+    counts = K.launch_counts()
+    assert counts["embed_tc"] == counts["patch_embed"] == counts["row_embed"] == 0

@@ -7,7 +7,8 @@ inputs.
     python tools/port_attention_tc_probe.py [--kernel attention] [--out FILE.json]
     python tools/port_attention_tc_probe.py --kernel k17 | k9 | k9_f32 | k11 | k16a | k3_f32
                                             | k1 | k1_f32 | k3 | k5 | k2 | k2_f32 | k11_f32
-                                            | k10_f32 | k10 | k5_exact | k14 [--tree DIR]
+                                            | k10_f32 | k10 | k5_exact | k14 | k4 | k8
+                                            [--tree DIR] [--copies]
     python tools/port_attention_tc_probe.py --kernel k9_copies | k9_f32_copies
 
 `--kernel attention` (the default) times attention_tc.cu and
@@ -181,6 +182,18 @@ peg_stencil.cu.  Beside each, cuDNN's calls on the same tensors (the
 library yardstick, which the port calls nowhere): the forward conv + x +
 bias, and dx with the weight and bias gradients.
 
+`--kernel k4` / `k8`: K4 (`fused_row_embed` on zero-shot's (2, 13,824,
+4,000) patch rows) or K8 (`fused_patch_embed` on its (2, 240, 480, 480)
+volumes, patches 10 x 20 x 20), -> 512, bf16, no grad: events, host time,
+each kernel's device time and the launches per call; beside it the three
+passes of the path both ran before embed_tc.cu (layernorm.cu's LN(4,000), plain or
+through the patch gather; gemm.cu's WMMA product with the rounded bias;
+layernorm.cu's LN(512)), together and each alone (kernel-only), and the
+yardstick F.layer_norm -> F.linear -> F.layer_norm (cuBLAS; a note, not one
+call).  With `--copies`, where the tree has `kernels.embed_tc`, also
+embed_tc.cu as built and one-change copies of it (`EMBED_COPIES`), each
+built alone.
+
 `--kernel k9_copies`: K9's core at (192, 576) on copies of
 qknorm_attention_tc.cu with one change each, in turns, there and back, with
 each kernel's device time: `as_built`; `stages3` (rings of three stages in
@@ -223,6 +236,7 @@ CSRC = ROOT / "ct_clip_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "attention_tc_probe"
 TC, TC32, COMMON, WGMMA = "attention_tc.cu", "attention_tc32.cu", "common.cuh", "wgmma.cuh"
 TC32H = "tc32.cuh"  # the 3xTF32 split and products attention_tc32.cu includes
+TMA = "tma.cuh"  # the tensor maps and rings of the TMA-fed kernels
 # copy -> (source, old text, new text) substitutions
 COPIES = {
     "as_built": [],
@@ -253,7 +267,8 @@ def build_all(sets: dict) -> dict:
     procs = {}
     for source, copies in sets.items():
         for name, subs in copies.items():
-            texts = {src: (CSRC / src).read_text() for src in (source, COMMON, WGMMA, TC32H)}
+            texts = {src: (CSRC / src).read_text()
+                     for src in (source, COMMON, WGMMA, TC32H, TMA)}
             for src, old, new in subs:
                 if old not in texts[src]:
                     raise RuntimeError(f"{name}: {old!r} not in {src}")
@@ -1095,6 +1110,84 @@ def k14(dev, g) -> dict:
     return out
 
 
+def embed(dev, g, volume: bool) -> dict:
+    """K4 (`fused_row_embed` on patch rows) or K8 (`fused_patch_embed` on the
+    volume) at zero-shot's batch, and the three passes of the path it ran
+    before embed_tc.cu (module doc)."""
+    import torch.nn.functional as F
+
+    from ct_clip_tpu_torch.ops import patch_embed as pe_mod
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    dim, pd, b, eps, bf = 512, 4000, 2, 1e-5, torch.bfloat16
+    video = (torch.rand((b, 240, 480, 480), generator=g, device=dev) * 2 - 1).to(bf)
+    pe = [1 + rn(pd, scale=0.1), rn(pd, scale=0.1), rn(dim, pd, scale=pd ** -0.5),
+          rn(dim, scale=0.1), 1 + rn(dim, scale=0.1), rn(dim, scale=0.1)]
+    s1, b1, w, pbias, s2, b2 = pe
+    rows = pe_mod.rearrange_plain(video, 10, 20)
+    x = rows.view(-1, pd)
+    wb, pb = w.to(bf).contiguous(), pbias.to(bf).contiguous()
+    xn, y, out = torch.empty_like(x), torch.empty((x.shape[0], dim), dtype=bf, device=dev), \
+        torch.empty((x.shape[0], dim), dtype=bf, device=dev)
+    if volume:
+        call = lambda: pe_mod.fused_patch_embed(video, *pe, 10, 20)  # noqa: E731
+        ln1 = lambda: K.patch_layernorm(video, 10, 20, s1, b1, eps, xn)  # noqa: E731
+    else:
+        call = lambda: pe_mod.fused_row_embed(rows, *pe)  # noqa: E731
+        ln1 = lambda: K.layernorm(x, s1, b1, eps, xn)  # noqa: E731
+    pieces = {"ln_patch_dim": ln1,
+              "product": lambda: K.gemm(K.EPI_BIAS_ROUNDED, xn, wb, y, bias=pb),
+              "ln_dim": lambda: K.layernorm(y, s2, b2, eps, out)}
+
+    def replaced():
+        for f in pieces.values():
+            f()
+    ys = [t.to(bf) for t in (s1, b1, s2, b2)]
+
+    def yardstick():
+        h = F.layer_norm(x, (pd,), ys[0], ys[1], eps)
+        return F.layer_norm(F.linear(h, wb, pb), (dim,), ys[2], ys[3], eps)
+    key = "k8" if volume else "k4"
+    with torch.no_grad():
+        row = {key: _timed(call)}
+        row[key]["launches_per_call"] = launches_per_call(call)
+        row["replaced"] = _timed(replaced)
+        row["replaced_pieces_kernel_ms"] = {k: kernel_ms(f) for k, f in pieces.items()}
+        row["yardstick"] = _timed(yardstick)
+        if "--copies" in sys.argv and hasattr(K, "embed_tc"):  # one-change copies
+            geom = (10, 20) if volume else None
+            src = video if volume else x
+            for label, lib in build_all({EMBED: EMBED_COPIES})[EMBED].items():
+                row[f"copy_{label}"] = _timed(
+                    lambda: K.embed_tc(src, *pe, eps, geom=geom, lib=lib))
+    print(f"{key}: {json.dumps(row)}", flush=True)
+    return row
+
+
+# one-change copies of embed_tc.cu that compute garbage and only measure: no
+# normalise (the raw rows multiplied), no products (every wgmma left out),
+# neither (the copies, barriers and handshakes alone); and s1, b1 read from
+# global memory (__ldg) in place of the stage's slot
+EMBED = "embed_tc.cu"
+_NO_NORM = (EMBED, "      *p = v;", "      if (kb < 0) *p = v;")
+_NO_MMA = (EMBED, "for (int kk = 0; kk < 4; ++kk) mma256(", "for (int kk = 0; kk < 0; ++kk) mma256(")
+EMBED_COPIES = {
+    "as_built": [],
+    "no_normalise": [_NO_NORM],
+    "no_products": [_NO_MMA],
+    "copies_only": [_NO_NORM, _NO_MMA],
+    "sb_from_global": [(
+        EMBED,
+        "    const float4 sl = sb[0], sh = sb[1], bl = sb[TC_TILE / 4], bh = sb[TC_TILE / 4 + 1];",
+        "    const float4* g = reinterpret_cast<const float4*>(a.s1 + kb * TC_TILE + 8 * c);\n"
+        "    const float4* h = reinterpret_cast<const float4*>(a.b1 + kb * TC_TILE + 8 * c);\n"
+        "    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);\n"
+        "    const float4 sl = in_k ? __ldg(g) : z, sh = in_k ? __ldg(g + 1) : z,\n"
+        "                 bl = in_k ? __ldg(h) : z, bh = in_k ? __ldg(h + 1) : z;")],
+}
+
+
 QK_TC = "qknorm_attention_tc.cu"
 QK_COPIES = {
     "as_built": [],
@@ -1151,12 +1244,15 @@ def main() -> int:
     ap.add_argument("--kernel", default="attention",
                     choices=("attention", "k17", "k9", "k9_f32", "k11", "k16a", "k3_f32",
                              "k9_copies", "k9_f32_copies", "k1", "k1_f32", "k3", "k5", "k2",
-                             "k2_f32", "k11_f32", "k10_f32", "k10", "k5_exact", "k14"))
+                             "k2_f32", "k11_f32", "k10_f32", "k10", "k5_exact", "k14", "k4",
+                             "k8"))
     ap.add_argument("--tree", default=str(ROOT),
                     help="the checkout whose package is timed (k17, k9, k9_f32, k11, k16a, "
                          "k3_f32, k1, k1_f32, k3, k5, k2, k2_f32, k11_f32, k10_f32, k10, "
-                         "k5_exact, k14)")
+                         "k5_exact, k14, k4, k8)")
     ap.add_argument("--out", default=None, help="write the results as JSON here")
+    ap.add_argument("--copies", action="store_true",
+                    help="k4, k8: also one-change copies of embed_tc.cu (EMBED_COPIES)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -1179,6 +1275,7 @@ def main() -> int:
             k16a=k16a, k3_f32=k3_f32, k1=k1, k1_f32=lambda dev, g: k1(dev, g, torch.float32),
             k3=k3, k5=k5, k2=k2, k2_f32=lambda dev, g: k2(dev, g, torch.float32),
             k11_f32=k11_f32, k10_f32=k10_f32, k10=k10, k5_exact=k5_exact, k14=k14,
+            k4=lambda dev, g: embed(dev, g, False), k8=lambda dev, g: embed(dev, g, True),
             k9_copies=k9_copies,
             k9_f32_copies=lambda dev, g: k9_copies(dev, g, QK32, QK32_COPIES, torch.float32),
             )[args.kernel](dev, g)
