@@ -112,7 +112,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      rounding points, gemm.cu's products) timed beside it, which must miss
      the mean tolerance; K10's bf16 core alone (`short_core_bf16_case`:
      K2_POINT_TOL of mean, the copy rounding P to bf16 outside it); K14,
-     K15, K5 exact on vq_tc.cu at 110,592 and 10,240 rows (gemm.cu's
+     K15 on vq_segstats.cu at 110,592 and 10,240 rows, on uniform ids and
+     with half the rows in one code (`k15_case`: bins exact, sums within
+     SUM_REL_TOL, bit-identical across runs, vq_stats.cu's path and
+     `index_add_` + `bincount` timed beside it, a copy dropping a segment
+     of each crowded code outside the limit), K5 exact on vq_tc.cu at
+     110,592 and 10,240 rows (gemm.cu's
      gemm_argmax2_kernel and a cuBLAS yardstick timed beside it) with
      planted exact ties (`k5_exact_planted_ties`), and K13 in
      bf16 at CXR-BERT's batch 8 x 512 and a ragged n: K13a and K13b on
@@ -144,7 +149,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      epilogue, bit-identical across runs, a copy whose epilogue drops rstd
      outside the limit, the replaced WMMA path with the LN(4000) backward
      over a stored dxn timed beside it, and again with d(volume), dxn
-     stored); the embeds under grad
+     stored; K16b on K16a's forms with d(rows) and into the weights alone,
+     bit-identical across runs, the weights' LN(4000) sums from the rows in
+     the dxn product's epilogue with its no-rstd copy outside the limit,
+     the replaced path timed beside both); the embeds under grad
      at full width, which must pass gradients to all six weights and to the
      input (K8 / K16a / K17 on a volume, K4 / K16b on rows); then
      `CTClipTrainer` at full width on phase 6's corpus, (a) with visual SSL
@@ -157,9 +165,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      sums, counter `ff_tc_ln_sums`, once per view and step), step time
      (CUDA events), peak memory and a profiled step;
      last, a tiny CT-CLIP step with all three objectives on (its BERT at
-     four heads of 16, K12a on attention_train.cu), card against CPU as in
-     phase 6, and again with K16a's LN scale gradient dropped,
-     which must fail;
+     four heads of 16, K12a on attention_train.cu), the card held to the
+     f32 step with the CPU's own bf16 noise pooled over six init seeds
+     (`compare_tiny_steps`), and again with K16a's LN scale gradient
+     dropped, which must fail;
   8. non-cubic token grids and the CTViT autoencoder: K2 and K10 in
      sequence-major form at (4608, 16, 512) (CT-CLIP at 160 frames, batch
      8) and (512, 20, 512) (the autoencoder's batch 8; K2 with its replaced
@@ -173,7 +182,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      8): 3 generator steps with falling losses, one round with the
      discriminator, step times, peak memory, a profiled step, a checkpoint
      round trip and a reconstruction dump, with the sequence-major counters
-     rising and the grid ones not; `cli reconstruct` on two volumes at its
+     rising and the grid ones not; K15 on the ids of its third step's VQ
+     statistics (`k15_ae_cases`: its own 10,240 rows, and the ids repeated
+     over 110,592, bf16 and f32 rows); `cli reconstruct` on two volumes at its
      default 240 x 480 x 480 (the grid path); CT-CLIP at 160 frames, one
      contrastive step at batch 8 and one zero-shot batch of 2; a tiny
      autoencoder step card against CPU, and again with K10 seq's dk_scale
@@ -256,8 +267,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      and 10,240 f32 rows (ids against the plain version of its math, the rows
      split in the pre-pass's order; the full-f32 share reported; gemm.cu's
      gemm_argmax3_rows_kernel and a cuBLAS yardstick timed beside it; planted
-     exact ties), K15 on them (bins exact,
-     sums 1e-6 of max, which full-f32 sums must miss), K17 f32 as K6's
+     exact ties), K15 on them and on 10,240, uniform and with half the rows
+     in one code (`k15_case`: bins exact, sums 1e-6 of max of the plain
+     version in the kernel's order, which the full-f32 sums of the uniform
+     rows must miss), K17 f32 as K6's
      backward (bit-exact); `cli train --no-bf16` at batch 8, 4 steps with
      the mini evaluation and a checkpoint (launches per step, 12 K13a f32
      and 12 K13b f32 on attention_tc32.cu and 4 K9 f32 cores on
@@ -280,6 +293,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import functools
+import itertools
 import json
 import shutil
 import statistics
@@ -442,8 +456,10 @@ KERNELS = {
                          "peg.py:83)", replaces=f"none: XLA's conv, {PALLAS}peg.py:83",
                     source="peg_stencil.cu", sources=["peg_stencil.cu"], counter="peg_fwd",
                     path="ctclip_train"),
-    "vq_cluster_stats": _kernel("pallas_cluster_stats", "vq.py:168", "vq_stats.cu",
-                                ["vq_stats.cu"], "vq_cluster_stats", "ctclip_train"),
+    # K15 on vq_segstats.cu: rows grouped by code in one cooperative launch,
+    # then a warp per segment of <= 32 rows and the partials added in order
+    "vq_cluster_stats": _kernel("pallas_cluster_stats", "vq.py:168", "vq_segstats.cu",
+                                ["vq_segstats.cu"], "vq_cluster_stats", "ctclip_train"),
     # K5 exact on vq_tc.cu (`wgmma`, counter vq_assign_exact_tc beside it)
     "vq_assign_exact": _kernel("pallas_assign (exact)", "vq.py:104", "vq_tc.cu", ["vq_tc.cu"],
                                "vq_assign_exact", "ctclip_train"),
@@ -458,8 +474,12 @@ KERNELS = {
     "patch_embed_bwd": _kernel("_pallas_patch_embed_bwd", "patchify.py:375", "ffn_tc.cu",
                                ["layernorm.cu", "ffn_tc.cu", "gemm.cu"], "patch_embed_bwd",
                                "ctclip_aux_ssl_mlm"),
-    "row_embed_bwd": _kernel("_pallas_row_embed_bwd", "patchify.py:637", "layernorm.cu",
-                             ["layernorm.cu", "gemm.cu"], "row_embed_bwd", "embed_grad"),
+    # K16b on K16a's forms: xn and its stats on embed_tc.cu, the products on
+    # ffn_tc.cu (`wgmma`), without d(rows) the LN(4000) sums in the dxn
+    # product's epilogue (counter ff_tc_ln_sums)
+    "row_embed_bwd": _kernel("_pallas_row_embed_bwd", "patchify.py:637", "ffn_tc.cu",
+                             ["embed_tc.cu", "ffn_tc.cu", "layernorm.cu", "gemm.cu"],
+                             "row_embed_bwd", "embed_grad"),
     "unrearrange_patches": _kernel("_pallas_unrearrange", "patchify.py:138", "rearrange.cu",
                                    ["rearrange.cu"], "unrearrange_patches", "embed_grad"),
     "seq_attention": _kernel("fused_small_qknorm_attention", "small_attention.py:196",
@@ -590,8 +610,8 @@ KERNELS = {
     "vq_assign_exact_f32": _kernel("pallas_assign (exact, f32 rows)", "vq.py:104", "vq_tc.cu",
                                    ["vq_tc.cu"], "vq_assign_exact_f32", "ctclip_f32_train"),
     "vq_cluster_stats_f32": _kernel("pallas_cluster_stats (f32 rows)", "vq.py:168",
-                                    "vq_stats.cu", ["vq_stats.cu"], "vq_cluster_stats_f32",
-                                    "ctclip_f32_train"),
+                                    "vq_segstats.cu", ["vq_segstats.cu"],
+                                    "vq_cluster_stats_f32", "ctclip_f32_train"),
     # the PEG in f32 (XLA in JAX: xla_peg_conv and its jax.vjp), the stencil's
     # f32 forms, each with its own counter
     "peg_bwd_f32": _kernel("_pallas_peg_bwd (f32)", "peg.py:181", "peg_stencil.cu",
@@ -2311,8 +2331,7 @@ def train_kernel_cases(dev):
     from ct_clip_tpu_torch.ops.qknorm_attention import (
         fused_grid_qknorm_attention, fused_spatial_qknorm_attention,
         qknorm_attention_bwd_plain, small_qknorm_bwd_plain)
-    from ct_clip_tpu_torch.ops.vq import (cluster_stats, cluster_stats_plain, split_hi_lo,
-                                          vq_assign, vq_assign_plain)
+    from ct_clip_tpu_torch.ops.vq import split_hi_lo, vq_assign, vq_assign_plain
 
     g = torch.Generator(device=dev).manual_seed(30)
     bf, f32 = torch.bfloat16, torch.float32
@@ -2373,20 +2392,13 @@ def train_kernel_cases(dev):
     yield "grid_attention_bwd_short", short_core_bf16_case(dev, g, w_attn, TRAIN_B, 24, 576)
     del w_attn
 
-    # K15 on uniform random ids (13.5 rows per code); library: index_add_ of
-    # the normalised rows and bincount
+    # K15 at the contrastive step's 110,592 rows and the autoencoder's 10,240,
+    # on uniform ids (13.5 and 1.25 rows per code) and with half the rows in
+    # one code (the autoencoder's own ids in phase 8)
     xv = rn(R, dim, dtype=bf)
-    ids = torch.randint(0, 8192, (R,), generator=g, device=dev, dtype=torch.int32)
-
-    def lib_stats():
-        esum = torch.zeros(8192, dim, device=dev).index_add_(0, ids.long(), l2norm(xv.float()))
-        return torch.bincount(ids, minlength=8192), esum
-    yield "vq_cluster_stats", dict(
-        kern=lambda: cluster_stats(xv, ids, 8192), plain=lambda: cluster_stats_plain(xv, ids, 8192),
-        library=lib_stats, inputs=(xv, ids),
-        outputs=(torch.empty(8192, device=dev), torch.empty(8192, dim, device=dev)),
-        flops=3 * R * dim, tol=SUM_REL_TOL)
-    del ids
+    for label, x15 in (("vq_cluster_stats", xv), ("vq_cluster_stats_10240", xv[:10240])):
+        for dist in K15_IDS[:2]:
+            yield label + K15_SUFFIX[dist], k15_case(x15, k15_ids(dist, x15.shape[0], g, dev))
 
     # K5 exact on vq_tc.cu: ids, checked as the inference K5 (agreement,
     # near-ties), at the contrastive step's rows and the autoencoder's
@@ -2449,6 +2461,144 @@ def train_kernel_cases(dev):
         twin=cuda_core_twin(q, k, v, dob, key_bias=kb, seed=seed, rate=DROP_RATE)[1],
         bit_identical=True, inputs=(q, k, v, kb, seed, dob), outputs=(q, k, v, kb),
         flops=5 * product, tol=BWD_REL_TOL)
+
+
+# ------------------------------------------------------------- K15's cases
+# the id distributions K15 is held on: uniform over the 8,192 codes; half the
+# rows (at random positions) in code 0, the rest uniform; the autoencoder's
+# own ids (phase 8: its VQ's statistics in its third step, repeated to fill
+# larger row counts)
+K15_IDS = ("uniform", "half", "ae")
+K15_SUFFIX = {"uniform": "", "half": "_half", "ae": "_ae"}
+
+
+def k15_ids(dist: str, rows: int, g, dev, ae_ids=None, codes: int = 8192):
+    """(rows,) int32 ids over `codes` codes in distribution `dist`
+    (K15_IDS)."""
+    import torch
+
+    ids = torch.randint(0, codes, (rows,), generator=g, device=dev, dtype=torch.int32)
+    if dist == "ae":
+        ids = ae_ids.repeat(-(-rows // ae_ids.numel()))[:rows].contiguous()
+    elif dist == "half":
+        ids[torch.randperm(rows, generator=g, device=dev)[: rows // 2]] = 0
+    return ids
+
+
+def vq_stats_twin(x, ids, codes: int):
+    """K15's (bins, embed_sum) as vq_stats.cu computes them (one warp
+    walking each code's rows, the (chunk, code) counts scanned by one CTA):
+    the path vq_segstats.cu replaced, launched from the package's library
+    and timed and checked beside it.  The package never launches it."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    rows, dim = x.shape
+    i32 = dict(dtype=torch.int32, device=x.device)
+    rank, perm = torch.empty((rows,), **i32), torch.empty((rows,), **i32)
+    counts = torch.empty((-(-rows // 1024), codes), **i32)
+    start = torch.empty((codes,), **i32)
+    bins = torch.empty((codes,), dtype=torch.float32, device=x.device)
+    embed_sum = torch.empty((codes, dim), dtype=torch.float32, device=x.device)
+    entry = "ct_vq_cluster_stats_f32" if x.dtype == torch.float32 else "ct_vq_cluster_stats"
+    args = (x, ids, rows, dim, codes, rank, counts, start, perm, bins, embed_sum)
+    K._check(getattr(K.library(), entry)(
+        *(K._ptr(a) if isinstance(a, torch.Tensor) else a for a in args), K._stream()), entry)
+    return bins, embed_sum
+
+
+def k15_case(x, ids, codes: int = 8192, full_must_miss: bool = False) -> dict:
+    """K15 (`ops/vq.py::cluster_stats`, vq_segstats.cu) on the rows x and
+    ids: bins exact; sums within SUM_REL_TOL of max|plain| (bf16 rows,
+    `cluster_stats_plain`'s one-hot products) or within 1e-6 (f32 rows,
+    `cluster_stats_segments_plain`: each normalised row as its bf16 hi + lo
+    parts, added in the kernel's order -- another order of 5,120 rows in one
+    code moves the sums by ~1e-6 of max; the full-f32 sums' distance
+    reported, and with `full_must_miss` required to exceed the limit, which
+    it does on random rows); bit-identical across two runs; vq_stats.cu's path
+    (`vq_stats_twin`, the one it replaced) checked and timed
+    beside it; the library call, index_add_ of the normalised rows with
+    bincount.  Where a code holds more than one segment of rows, the copy of
+    vq_segstats.cu whose second segment of each such code adds nothing
+    (CT_VQ_SEG_DROP) must miss the limit."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+    from ct_clip_tpu_torch.ops.norms import l2norm
+    from ct_clip_tpu_torch.ops.vq import (SEG_ROWS, cluster_stats, cluster_stats_plain,
+                                          cluster_stats_segments_plain)
+
+    f32 = x.dtype == torch.float32
+    tol = 1e-6 if f32 else SUM_REL_TOL
+    plain = cluster_stats_segments_plain if f32 else cluster_stats_plain
+    rows, dim = x.shape
+
+    def check(got, ref):
+        (bins, esum), (rbins, resum) = got, ref
+        top = resum.abs().max().item()
+        err = (esum - resum).abs().max().item()
+        res = dict(max_abs_err=err, max_rel_err=err / top, bins_equal=torch.equal(bins, rbins),
+                   fullest_code_rows=int(rbins.max()),
+                   tolerance=f"bins exact; sums {tol} of max"
+                   + ("; the full-f32 sums must miss" if full_must_miss else ""))
+        ok = res["bins_equal"] and res["max_rel_err"] <= tol
+        if f32:
+            full = cluster_stats_plain(x, ids, codes)[1]
+            res["full_f32_max_rel"] = (resum - full).abs().max().item() / top
+            ok = ok and (res["full_f32_max_rel"] > tol or not full_must_miss)
+        log(f"kernel K15 {rows} x {dim} {x.dtype}, fullest code {res['fullest_code_rows']} rows: "
+            f"bins equal {res['bins_equal']}; sums {res['max_rel_err']:.2e} of max (limit {tol})"
+            + (f"; the full-f32 sums {res['full_f32_max_rel']:.2e}"
+               + (" (must exceed it)" if full_must_miss else "") if f32 else ""))
+        return ok, res
+
+    def library():
+        esum = torch.zeros(codes, dim, device=x.device).index_add_(0, ids.long(),
+                                                                   l2norm(x.float()))
+        return torch.bincount(ids, minlength=codes), esum
+    case = dict(kern=lambda: cluster_stats(x, ids, codes), plain=lambda: plain(x, ids, codes),
+                library=library, check=check, bit_identical=True,
+                twin=lambda: vq_stats_twin(x, ids, codes),
+                twin_source="vq_stats.cu (a warp a code)", tols=(0.0, tol), inputs=(x, ids),
+                outputs=(torch.empty(codes, device=x.device),
+                         torch.empty(codes, dim, device=x.device)),
+                flops=3 * rows * dim)
+    if f32:
+        case["peak"] = PEAK_F32_FLOPS
+    if int(torch.bincount(ids, minlength=codes).max()) > SEG_ROWS:
+        drop = K.copy_library("vq_segstats.cu", CT_VQ_SEG_DROP=1)
+
+        def dropped():
+            with replaced(K, "vq_cluster_stats", functools.partial(K.vq_cluster_stats, lib=drop)):
+                return cluster_stats(x, ids, codes)
+        case["copies"] = {"vq_segstats.cu without each crowded code's second segment "
+                          "(CT_VQ_SEG_DROP)": dropped}
+    return case
+
+
+def k15_ae_cases(dev, x, ids):
+    """K15 on the autoencoder's ids (phase 8's third step's VQ statistics): its own
+    10,240 bf16 rows and ids, the same rows in f32, and the ids repeated
+    over the contrastive step's 110,592 rows (bf16 and f32, random rows)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    big = torch.randn((TRAIN_B * 13824, x.shape[1]), generator=g, device=dev)
+    for label, x15 in (("vq_cluster_stats_10240_ae", x),
+                       ("vq_cluster_stats_ae", big.to(torch.bfloat16)),
+                       ("vq_cluster_stats_f32_10240_ae", x.float()),
+                       ("vq_cluster_stats_f32_ae", big)):
+        yield label, k15_case(x15, k15_ids("ae", x15.shape[0], g, dev, ids))
+
+
+def nest_k15(results: dict, key: str) -> None:
+    """K15's other cases under `key`'s entry ("vq_cluster_stats" or
+    "vq_cluster_stats_f32"): each `key`_rest popped into results[key] as
+    "at_"rest (at_half, at_10240, at_ae, ...); the f32 ones stay apart."""
+    for name in [n for n in results if n.startswith(key + "_")
+                 and not n.startswith(key + "_f32")]:
+        results[key][f"at_{name[len(key) + 1:]}"] = results.pop(name)
 
 
 # ------------------------------------------------ the PEG stencil, K14
@@ -2757,7 +2907,7 @@ def embed_bwd_cases(dev):
     yield "patch_embed_bwd", dict(
         kern=k16a, plain=lambda: plain_grads(lambda *w: patch_embed_plain(video, *w, 10, 20), pe),
         copies={"ffn_tc.cu with the epilogue's xhat lacking rstd (CT_FF_TC_LN_NO_RSTD)":
-                no_rstd_k16a(k16a)},
+                no_rstd_ln_sums(k16a)},
         twin=lambda: k16a_replaced(video, pe, do), twin_source="layernorm.cu and gemm.cu",
         bit_identical=True, library=None, inputs=(video, do, *pe), outputs=tuple(pe),
         flops=flops, tols=(BWD_REL_TOL,) * 6)
@@ -2773,19 +2923,83 @@ def embed_bwd_cases(dev):
         tol=BWD_REL_TOL)
     del out, leaves
     rows = rearrange_plain(video, 10, 20)
+    # K16b with d(rows) (the embed_grad path): dxn stored, the LN(4000) row
+    # backward; then into the weights alone, the LN(4000) sums in the dxn
+    # product's epilogue, and a copy whose epilogue drops rstd
     leaves = [t.clone().requires_grad_() for t in (rows, *pe)]
     out = fused_row_embed(*leaves)
     yield "row_embed_bwd", dict(
         kern=lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
         plain=lambda: plain_grads(row_embed_plain, (rows, *pe)), library=None,
-        inputs=(rows, do, *pe), outputs=(rows, *pe), flops=flops, tol=BWD_REL_TOL)
+        twin=lambda: k16b_replaced(rows, pe, do, True), twin_source=K16B_REPLACED,
+        bit_identical=True, inputs=(rows, do, *pe), outputs=(rows, *pe), flops=flops,
+        tol=BWD_REL_TOL)
     del out, leaves
+    leaves = [t.clone().requires_grad_() for t in pe]
+    out = fused_row_embed(rows, *leaves)
+    k16b = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
+    yield "row_embed_bwd_weights", dict(
+        kern=k16b, plain=lambda: plain_grads(lambda *w: row_embed_plain(rows, *w), pe),
+        copies={"ffn_tc.cu with the epilogue's xhat lacking rstd (CT_FF_TC_LN_NO_RSTD)":
+                no_rstd_ln_sums(k16b, "ln_sums_rows_tc")},
+        twin=lambda: k16b_replaced(rows, pe, do, False), twin_source=K16B_REPLACED,
+        bit_identical=True, library=None, inputs=(rows, do, *pe), outputs=tuple(pe),
+        flops=flops, tols=(BWD_REL_TOL,) * 6)
+    del out, leaves, k16b
     yield "unrearrange_patches", dict(
         kern=lambda: unrearrange_patches(rows, 10, 20, 240, 480, 480),
         plain=lambda: unrearrange_plain(rows, 10, 20, 240, 480, 480),
         library=lambda: rows.reshape(AUX_B, 24, 24, 24, 10, 20, 20)
         .permute(0, 1, 4, 2, 5, 3, 6).contiguous(),
         inputs=(rows,), outputs=(video,), flops=0, exact=True)
+
+
+def embed_tail_replaced(xn, w, pbias, s2, dout, eps):
+    """The backward of the embed's product, bias and LN(dim) from the
+    normalised rows xn (R, pd) as the port ran it for K16a and K16b before
+    ffn_tc.cu's forms, on gemm.cu's WMMA: the product and its rounded
+    bias add again, the LN(dim) backward (dyb, ds2, db2 and dpb, the column
+    sum of the f32 dyb), dW = dyb^T xn (split TN product) and dxn = dyb W
+    (NN product), f32."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    bf = torch.bfloat16
+    R, pd = xn.shape
+    dim = w.shape[0]
+    wb = w.to(bf).contiguous()
+    yb = torch.empty((R, dim), dtype=bf, device=xn.device)
+    K.gemm(K.EPI_BIAS_ROUNDED, xn, wb, yb, bias=pbias.to(bf).contiguous())
+    dyn = dout.reshape(R, dim).float().contiguous()
+    dyb, ds2, db2, dpb = K.layernorm_bwd(yb, s2, dyn, eps, want_dbias=True, want_dxsum=True)
+    del yb
+    dw = K.gemm_tn(dyb, xn)
+    dxn = torch.empty((R, pd), dtype=torch.float32, device=xn.device)
+    K.gemm_nn(dyb, wb, dxn)
+    return dxn, dw, dpb, ds2, db2
+
+
+K16B_REPLACED = "layernorm.cu and gemm.cu (LN(4000), WMMA products, dxn stored, LN backwards)"
+
+
+def k16b_replaced(rows, pe, do, want_drows: bool, eps: float = 1e-5):
+    """K16b's gradients (d(rows) first with `want_drows`) as the port ran
+    them before ffn_tc.cu's forms: layernorm.cu's LN(4000) writing xn,
+    `embed_tail_replaced`, the LN(4000) row backward over the stored dxn --
+    the path it replaced, timed beside it."""
+    import torch
+
+    from ct_clip_tpu_torch.ops import kernels as K
+
+    s1, b1, w, pbias, s2, _ = pe
+    x = rows.reshape(-1, rows.shape[-1])
+    xn = torch.empty_like(x)
+    K.layernorm(x, s1, b1, eps, xn)
+    dxn, dw, dpb, ds2, db2 = embed_tail_replaced(xn, w, pbias, s2, do, eps)
+    del xn
+    drows, ds1, db1 = K.layernorm_bwd(x, s1, dxn, eps, want_dbias=True, want_dx=want_drows)
+    return ((drows.view(rows.shape),) if want_drows else ()) + (ds1, db1, dw, dpb, ds2, db2)
 
 
 def k16a_replaced(video, pe, do, eps: float = 1e-5):
@@ -2796,31 +3010,29 @@ def k16a_replaced(video, pe, do, eps: float = 1e-5):
     import torch
 
     from ct_clip_tpu_torch.ops import kernels as K
-    from ct_clip_tpu_torch.ops.patch_embed import _embed_tail_bwd
 
     s1, b1, w, pbias, s2, _ = pe
     b, F, H, W = video.shape
     xn = torch.empty((b * (F // 10) * (H // 20) * (W // 20), w.shape[1]), dtype=torch.bfloat16,
                      device=video.device)
     K.patch_layernorm(video, 10, 20, s1, b1, eps, xn)
-    dxn, dw, dpb, ds2, db2 = _embed_tail_bwd(xn, w, pbias, s2, do, eps)
+    dxn, dw, dpb, ds2, db2 = embed_tail_replaced(xn, w, pbias, s2, do, eps)
     del xn
     _, ds1, db1 = K.patch_layernorm_bwd(video, 10, 20, s1, dxn, eps)
     return ds1, db1, dw, dpb, ds2, db2
 
 
-def no_rstd_k16a(fn):
-    """`fn` with K16a's LN sums launched from a copy of ffn_tc.cu built with
-    CT_FF_TC_LN_NO_RSTD=1: the epilogue's xhat = x - mean, rstd dropped."""
-    import functools
-
+def no_rstd_ln_sums(fn, wrapper: str = "ln_sums_tc"):
+    """`fn` with K16a's (`ln_sums_tc`) or K16b's (`ln_sums_rows_tc`) LN sums
+    launched from a copy of ffn_tc.cu built with CT_FF_TC_LN_NO_RSTD=1: the
+    epilogue's xhat = x - mean, rstd dropped."""
     from ct_clip_tpu_torch.ops import kernels as K
 
-    sums = functools.partial(K.ln_sums_tc,
+    sums = functools.partial(getattr(K, wrapper),
                              lib=K.copy_library("ffn_tc.cu", CT_FF_TC_LN_NO_RSTD=1))
 
     def run():
-        with replaced(K, "ln_sums_tc", sums):
+        with replaced(K, wrapper, sums):
             return fn()
     return run
 
@@ -3488,8 +3700,7 @@ CTCLIP_GROUPS = (
      ("ln_bwd_kernel", "ln_bwd_rows_kernel")),
     ("PEG stencil: forward and K14 (peg_stencil.cu: peg_stencil_kernel<T, false>, <T, true>)",
      ("peg_stencil",)),
-    ("K15 VQ statistics (vq_stats.cu)", ("rank_kernel", "scan_kernel", "place_kernel",
-                                         "sum_kernel")),
+    ("K15 VQ statistics (vq_segstats.cu: group_rows, seg_sum)", ("group_rows", "seg_sum")),
     ("K5 exact assignment (gemm_argmax2_kernel)", ("gemm_argmax2",)),
     ("forward products K1-K3 (gemm_kernel) and LN (ln_kernel)", ("gemm_kernel<",
                                                                  "ln_kernel")),
@@ -3715,6 +3926,11 @@ TINY_LOSS_TOL = 2e-3
 TINY_GRAD_RATIO = 1.15
 TINY_ZERO_TOL = 1e-3  # x the largest gradient, parameters whose true gradient is zero
 TINY_UPDATE_TOL = 1e-2  # x lr, entries whose gradient is >= 0.2 of its tensor's max
+# init seeds over which phase 7's tiny aux step pools the CPU's own bf16
+# noise (its own, 8, first): at one init a tensor's bf16 gradient can land
+# near its f32 value by chance (the temperature's lies 0.6-13% from it over
+# these six), which the card's other rounding points need not repeat
+AUX_NOISE_SEEDS = (1, 2, 3, 4, 5)
 # parameters whose true gradient is zero: softmax shift invariance, and the
 # SimSiam predictor's first bias, which a BatchNorm cancels
 ZERO_GRAD = ("attention.self.key.bias", "spatial_rel_pos_bias.net.2.bias",
@@ -3778,25 +3994,71 @@ def tiny_ctclip_side(cfg, tcfg, start, inputs, device, dtype) -> dict:
                 sd={k: v.float().cpu() for k, v in model.state_dict().items()})
 
 
+def update_noise(x: dict, x32: dict, start: dict, lr: float) -> dict:
+    """How the update of side `x` strays from the f32 step `x32` on the
+    entries whose f32 gradient is >= 2e-1 of its tensor's largest: per
+    tensor the entries whose step differs by more than lr (Adam's first step
+    is lr g / (|g| + eps): a sign flip), their total, and the largest
+    difference where the signs agree (a size, which moves only where |g|
+    nears eps)."""
+    flips, size, worst = {}, 0.0, ""
+    for n, true in x32["grads"].items():
+        if not true.numel() or n.endswith(ZERO_GRAD):
+            continue
+        big = true.abs() >= 2e-1 * true.abs().max()
+        d = (x["sd"][n] - x32["sd"][n]).abs()[big]
+        if int((d > lr).sum()):
+            flips[n] = int((d > lr).sum())
+        agree = d[d <= lr]
+        if agree.numel() and agree.max().item() > size:
+            size, worst = agree.max().item(), n
+    return dict(flips=flips, total_flips=sum(flips.values()), size=size, size_worst=worst)
+
+
+def pooled_cpu_noise(sides, lr: float) -> dict:
+    """The CPU's own bf16 noise pooled over init seeds: `sides` (c, c32,
+    start) of the tiny step at each seed, on the CPU in bf16 and in f32.  Per
+    tensor the largest relative L2 distance of the bf16 gradient from the
+    f32 one, each seed's over that seed's f32 norm (a tensor's gradient at
+    one init may round to near its f32 value by chance, as the
+    temperature's reads 0.6-13% over six seeds), and the most update signs
+    the bf16 step flips against the f32 step on that tensor's large entries;
+    over the step's tensors and seeds the largest update size error where
+    the signs agree (`update_noise`)."""
+    grad, flips, size, seeds = {}, {}, 0.0, 0
+    for c, c32, start in sides:
+        for n, true in c32["grads"].items():
+            rel = (c["grads"][n] - true).norm().item() / max(true.norm().item(), 1e-30)
+            grad[n] = max(grad.get(n, 0.0), rel)
+        u = update_noise(c, c32, start, lr)
+        for n, k in u["flips"].items():
+            flips[n] = max(flips.get(n, 0), k)
+        size, seeds = max(size, u["size"]), seeds + 1
+    return dict(grad=grad, flips=flips, size=size, seeds=seeds)
+
+
 def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float,
-                       noise_aware_updates: bool = False,
+                       pooled=None,
                        vq_prefix: str = "visual_transformer.vq._codebook.",
                        grad_ratio: float = TINY_GRAD_RATIO):
     """(readings, failures) of a card side `g` against the CPU side `c`,
     with the CPU's f32 side `c32` giving each gradient's bf16 noise.  With
-    `noise_aware_updates`, for configurations whose bf16 gradients flip the
-    sign of Adam's first step on the CPU already, an update's sign and its
-    size are held apart.  Its sign against the f32 step's: on each entry
-    whose f32 gradient is above 2e-1 of its tensor's largest, the card's
-    update within lr of the f32 step's, unless the CPU's bf16 step also
-    flips one of those entries (its sign is then within bf16 noise).  Its
-    size against the CPU's bf16 step, on the entries large there where the
-    card's update has that step's sign: within TINY_UPDATE_TOL lr, or a
-    tensor's largest error within TINY_GRAD_RATIO times the CPU bf16 step's
-    own against the f32 step on the same entries.  (An entry large in the
-    CPU's bf16 step alone is large by that step's own rounding and its sign
-    is noise on any bf16 side, tools/port_tiny_aux_probe.py --embed; its
-    gradient stays held with every other entry by the L2 distance above.)
+    `pooled` (`pooled_cpu_noise`), for configurations whose bf16 gradients
+    lie 15-25% from the f32 ones on the CPU itself and flip the sign of
+    Adam's first step there: the card is held to the f32 step, its noise
+    scale the CPU's own bf16 noise pooled over init seeds.  Each gradient's
+    L2 distance card-f32 over the f32 norm within `grad_ratio` times the
+    largest such CPU bf16-f32 distance of that tensor over the seeds (the
+    card rounds at the TPU kernels' points and the CPU at the plain chain's:
+    two roundings lie ~sqrt(2) times one apart, so the f32 step and not the
+    CPU's bf16 step is the reference); on each tensor the update signs the
+    card flips against the f32 step on its large entries within the most
+    the CPU's bf16 step flips there over the seeds; the largest update size
+    error where the signs agree within TINY_UPDATE_TOL lr or the CPU bf16
+    step's largest over the tensors and seeds (`update_noise`).  Without
+    `pooled`: each gradient against the CPU's bf16 one over that tensor's
+    own bf16-f32 distance, each update on the entries whose CPU bf16
+    gradient is large within TINY_UPDATE_TOL lr of the CPU bf16 step.
     `grad_ratio` is the gradients' limit (TINY_GRAD_RATIO unless a
     configuration states its own)."""
     def l2_rel(a, b):
@@ -3808,8 +4070,12 @@ def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float,
         if n.endswith(ZERO_GRAD):
             zero = max(zero, g["grads"][n].abs().max().item() / top)
             continue
-        noise = max(l2_rel(ref, c32["grads"][n]), 1e-3)
-        dist = l2_rel(g["grads"][n], ref)
+        if pooled is None:
+            noise = max(l2_rel(ref, c32["grads"][n]), 1e-3)
+            dist = l2_rel(g["grads"][n], ref)
+        else:  # over the f32 gradient's norm, the pooled noise each over its seed's
+            noise = max(pooled["grad"][n], 1e-3)
+            dist = l2_rel(g["grads"][n], c32["grads"][n])
         ratio[n] = (dist / noise, dist, noise)
     worst = sorted(ratio.items(), key=lambda kv: -kv[1][0])
     agree, cs_err, cb_err = 1.0, 0.0, 0.0
@@ -3818,34 +4084,22 @@ def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float,
         agree = (g["codes"] == c["codes"]).float().mean().item()
         cs_err = (g["sd"][key + "cluster_size"] - c["sd"][key + "cluster_size"]).abs().max().item()
         cb_err = (g["sd"][key + "embed"] - c["sd"][key + "embed"]).abs().max().item()
-    upd_err, upd_worst, upd_max, within_cpu_noise = 0.0, "", 0.0, []
-    flips, flips_within_cpu_noise = {}, {}
+    upd_err, upd_worst, upd_max = 0.0, "", 0.0
     for n, ref in c["grads"].items():
         if not ref.numel() or n.endswith(ZERO_GRAD):
             continue
         step = g["sd"][n] - start[n].float()
         diff = (step - (c["sd"][n] - start[n].float())).abs()
-        big = ref.abs() >= 2e-1 * ref.abs().max()
         upd_max = max(upd_max, diff.max().item())
-        if noise_aware_updates:
-            true = c32["grads"][n]
-            big32 = true.abs() >= 2e-1 * true.abs().max()
-            step32 = c32["sd"][n] - start[n].float()
-            flipped = int(((step - step32).abs()[big32] > lr).sum())
-            if flipped:
-                own = int(((c["sd"][n] - c32["sd"][n]).abs()[big32] > lr).sum())
-                (flips_within_cpu_noise if own else flips)[n] = [flipped, own]
-            big = big & (diff <= lr)  # sizes where the card's step has the CPU's sign
-        if not big.any():
-            continue
-        err = diff[big].max().item()
-        if noise_aware_updates and err > TINY_UPDATE_TOL * lr:
-            own = (c["sd"][n] - c32["sd"][n]).abs()[big].max().item()
-            if err <= TINY_GRAD_RATIO * own:
-                within_cpu_noise.append([n, err / lr, own / lr])
-                continue
-        if err > upd_err:
-            upd_err, upd_worst = err, n
+        big = ref.abs() >= 2e-1 * ref.abs().max()
+        if pooled is None and big.any() and diff[big].max().item() > upd_err:
+            upd_err, upd_worst = diff[big].max().item(), n
+    flips, over = {}, {}
+    if pooled is not None:
+        u = update_noise(g, c32, start, lr)
+        upd_err, upd_worst, flips = u["size"], u["size_worst"], u["flips"]
+        over = {n: [k, pooled["flips"].get(n, 0)] for n, k in flips.items()
+                if k > pooled["flips"].get(n, 0)}
     res = dict(grad_ratio_limit=grad_ratio,
                loss_rel=abs(g["loss"] - c["loss"]) / abs(c["loss"]),
                loss_rel_cpu_bf16_vs_f32=abs(c["loss"] - c32["loss"]) / abs(c32["loss"]),
@@ -3855,41 +4109,50 @@ def compare_tiny_steps(c: dict, c32: dict, g: dict, start: dict, lr: float,
                grad_l2_rel_max=max(r[1] for r in ratio.values()),
                zero_grads_over_top=zero, id_agreement=agree,
                cluster_size_abs=cs_err, codebook_abs=cb_err, update_err_over_lr=upd_err / lr,
-               update_worst=upd_worst, update_max_over_lr=upd_max / lr,
-               updates_within_cpu_bf16_noise=within_cpu_noise)
-    if noise_aware_updates:  # tensor -> [the card's flips, the CPU bf16 step's]
-        res.update(update_sign_flips=flips, update_sign_flips_within_cpu_bf16_noise=(
-            flips_within_cpu_noise))
+               update_worst=upd_worst, update_max_over_lr=upd_max / lr)
+    size_limit = TINY_UPDATE_TOL * lr
+    if pooled is not None:  # tensor -> the card's flips; the limits pooled over seeds
+        size_limit = max(size_limit, pooled["size"])
+        res.update(noise_pooled_over_seeds=pooled["seeds"], update_sign_flips=flips,
+                   update_sign_flips_total=sum(flips.values()),
+                   update_sign_flips_limit=pooled["flips"], update_sign_flips_over=over,
+                   update_size_limit_over_lr=size_limit / lr)
     failures = [name for name, bad in (
         ("loss", res["loss_rel"] > TINY_LOSS_TOL),
         ("gradients", res["grad_ratio"] > grad_ratio),
         ("zero gradients", zero > TINY_ZERO_TOL), ("VQ ids", agree < 1.0),
         ("cluster sizes", cs_err > 1e-6), ("codebook", cb_err > 1e-2),
-        ("updates", upd_err > TINY_UPDATE_TOL * lr), ("update signs", bool(flips)),
+        ("updates", upd_err > size_limit),
+        ("update signs", bool(over)),
         ("update bound", upd_max > 2 * lr * (1 + 1e-6))) if bad]
     return res, failures
 
 
 def _log_tiny(label: str, res: dict, failures) -> None:
     top = [(n, f"{r:.3f}", f"{d:.2e}", f"{e:.2e}") for n, r, d, e in res["grad_top"]]
+    pooled = "update_sign_flips" in res
     log(f"reference: tiny step card vs CPU, {label}: loss rel {res['loss_rel']:.2e} "
         f"(tol {TINY_LOSS_TOL}; CPU bf16 vs f32 {res['loss_rel_cpu_bf16_vs_f32']:.2e}); "
-        f"gradients, card-CPU L2 distance over the CPU's bf16-f32 L2 distance, largest "
-        f"first (tensor, ratio, card-CPU, CPU bf16-f32): {top}, median "
-        f"{res['grad_ratio_median']:.3f} (tol {res['grad_ratio_limit']}); zero-gradient params "
-        f"{res['zero_grads_over_top']:.2e} of the largest gradient (tol {TINY_ZERO_TOL}); "
+        + (f"gradients, card-f32 L2 distance over the CPU's largest bf16-f32 one over "
+           f"{res['noise_pooled_over_seeds']} init seeds, each over its f32 norm" if pooled else
+           "gradients, card-CPU L2 distance over the CPU's bf16-f32 L2 distance")
+        + f", largest first (tensor, ratio, card's, CPU's, over the reference's norm): {top}, "
+        f"median {res['grad_ratio_median']:.3f} (tol {res['grad_ratio_limit']}); zero-gradient "
+        f"params {res['zero_grads_over_top']:.2e} of the largest gradient (tol {TINY_ZERO_TOL}); "
         f"VQ ids equal {res['id_agreement']:.4f} (all); cluster sizes abs "
         f"{res['cluster_size_abs']:.2e} (tol 1e-6); codebook abs {res['codebook_abs']:.2e} "
-        f"(tol 1e-2); update err {res['update_err_over_lr']:.2e} lr ({res['update_worst']}; "
-        f"tol {TINY_UPDATE_TOL} lr; tensors whose update error is within "
-        f"{TINY_GRAD_RATIO}x the CPU's own bf16-f32 one, (tensor, err / lr, CPU's / lr): "
-        f"{[(n, round(e, 3), round(o, 3)) for n, e, o in res['updates_within_cpu_bf16_noise']]}"
-        f"), every update within {res['update_max_over_lr']:.2e} lr (tol 2 lr); "
-        + (f"update signs against the f32 step's on its large entries, (card's flips, the "
-           f"CPU bf16 step's): {res['update_sign_flips'] or 'none'}, within the CPU's bf16 "
-           f"noise {res['update_sign_flips_within_cpu_bf16_noise']}; "
-           if "update_sign_flips" in res else "")
-        + f"outside: {failures or 'none'}")
+        f"(tol 1e-2); "
+        + (f"update signs flipped against the f32 step on its large entries "
+           f"{res['update_sign_flips_total']} (by tensor {res['update_sign_flips'] or 'none'}; "
+           f"above the CPU bf16 step's most on that tensor over the seeds "
+           f"{res['update_sign_flips_over'] or 'none'}), "
+           f"update sizes where the signs agree {res['update_err_over_lr']:.2e} lr "
+           f"({res['update_worst'] or '-'}; tol {res['update_size_limit_over_lr']:.2e} lr)"
+           if pooled else
+           f"update err {res['update_err_over_lr']:.2e} lr ({res['update_worst']}; tol "
+           f"{TINY_UPDATE_TOL} lr)")
+        + f", every update within {res['update_max_over_lr']:.2e} lr (tol 2 lr); "
+        f"outside: {failures or 'none'}")
 
 
 def planted_faults():
@@ -3951,7 +4214,35 @@ def planted_faults():
                 (K, "peg_fwd", peg_rotated_frame_pads)}
 
 
-def tiny_step_check(dev, cfg, faults, label: str, noise_aware_updates: bool = False):
+def tiny_sides(cfg, tcfg, seed: int = 8):
+    """(side(device, dtype), start state) of the tiny CT-CLIP step of `cfg`
+    from the weights of init seed `seed` (tiny_step_check's is 8), the
+    codebook at the CPU's own tokens."""
+    import torch
+
+    from ct_clip_tpu_torch.models import CTCLIP
+
+    inputs = tiny_ctclip_inputs()
+    cpu = CTCLIP(cfg, dtype=torch.bfloat16).init_weights(torch.Generator().manual_seed(seed))
+    seed_codebook_at_tokens(cpu.visual_transformer, inputs[2])
+    start = {k: v.clone() for k, v in cpu.state_dict().items()}
+    return (lambda device, dtype: tiny_ctclip_side(cfg, tcfg, start, inputs, device,
+                                                   dtype)), start
+
+
+def cpu_noise_sides(cfg, tcfg, seeds):
+    """The tiny step's (c, c32, start) on the CPU in bf16 and in f32 at each
+    init seed of `seeds`, one seed at a time: the CPU's own noise to pool
+    (`pooled_cpu_noise`)."""
+    import torch
+
+    cpu = torch.device("cpu")
+    for seed in seeds:
+        side, start = tiny_sides(cfg, tcfg, seed)
+        yield side(cpu, torch.bfloat16), side(cpu, torch.float32), start
+
+
+def tiny_step_check(dev, cfg, faults, label: str, noise_seeds=None):
     """One training step of the tiny CT-CLIP `cfg` (both dropouts 0, batch 4)
     from the same weights on the card (kernels) and on the CPU (plain
     versions), both bf16 compute with f32 parameters, lr 1e-3, and on the
@@ -3969,24 +4260,19 @@ def tiny_step_check(dev, cfg, faults, label: str, noise_aware_updates: bool = Fa
     each entry whose gradient is above 2e-1 of its tensor's largest within
     TINY_UPDATE_TOL lr (Adam's first step is lr g / (|g| + eps), so a
     gradient's relative difference reaches the step only through eps),
-    every entry within 2 lr (`noise_aware_updates`: see compare_tiny_steps).
-    Then the same card step with each planted fault (`faults`: name ->
-    (module, attribute, replacement)) must fall outside these limits.
-    Returns (readings, the card side, the start state, the train config)."""
-    import torch
-
+    every entry within 2 lr.  With `noise_seeds` (more init seeds), the card
+    is held to the f32 step with the CPU's own noise pooled over those seeds
+    and this one (see compare_tiny_steps).  Then the same card step with each
+    planted fault (`faults`: name -> (module, attribute, replacement[, the
+    check it must fail])) must fall outside these limits.  Returns (readings, the card side, the start
+    state, the train config)."""
     from ct_clip_tpu_torch.config import TrainConfig
-    from ct_clip_tpu_torch.models import CTCLIP
 
     lr = 1e-3
     tcfg = TrainConfig(lr=lr)
-    inputs = tiny_ctclip_inputs()
-    cpu = CTCLIP(cfg, dtype=torch.bfloat16).init_weights(torch.Generator().manual_seed(8))
-    seed_codebook_at_tokens(cpu.visual_transformer, inputs[2])
-    start = {k: v.clone() for k, v in cpu.state_dict().items()}
-    res, gp = card_vs_cpu(dev, lambda device, dtype: tiny_ctclip_side(
-        cfg, tcfg, start, inputs, device, dtype), start, lr, faults, label,
-        noise_aware_updates)
+    side, start = tiny_sides(cfg, tcfg)
+    more = None if noise_seeds is None else (lambda: cpu_noise_sides(cfg, tcfg, noise_seeds))
+    res, gp = card_vs_cpu(dev, side, start, lr, faults, label, more)
     return res, gp, start, tcfg
 
 
@@ -4002,34 +4288,39 @@ def seed_codebook_at_tokens(vt, video) -> None:
 
 
 def card_vs_cpu(dev, side, start: dict, lr: float, faults, label: str,
-                noise_aware_updates: bool = False,
+                noise_sides=None,
                 vq_prefix: str = "visual_transformer.vq._codebook.",
                 grad_ratio: float = TINY_GRAD_RATIO):
     """`side(device, dtype)` on the CPU in bf16 and f32 and on the card in
     bf16, held by `compare_tiny_steps`; then the card side again with each
-    planted fault, which must fail.  Returns (readings, the card side)."""
+    planted fault, which must fail (where its tuple names a check, that
+    one).  `noise_sides`: a callable giving the
+    (c, c32, start) CPU sides at more init seeds, over which the CPU's own
+    noise is pooled with this seed's (`pooled_cpu_noise`), or None.
+    Returns (readings, the card side)."""
     import torch
 
     bf, cpu_dev = torch.bfloat16, torch.device("cpu")
     c, c32, gp = side(cpu_dev, bf), side(cpu_dev, torch.float32), side(dev, bf)
-    held = dict(noise_aware_updates=noise_aware_updates, vq_prefix=vq_prefix,
-                grad_ratio=grad_ratio)
+    pooled = None if noise_sides is None else pooled_cpu_noise(
+        itertools.chain([(c, c32, start)], noise_sides()), lr)
+    held = dict(pooled=pooled, vq_prefix=vq_prefix, grad_ratio=grad_ratio)
     res, failures = compare_tiny_steps(c, c32, gp, start, lr, **held)
     _log_tiny(f"{label}, kernels as built", res, failures)
     if failures:
         raise AssertionError(f"tiny {label} training step: card and CPU disagree on "
                              f"{failures}: {res}")
     res.update(metrics_gpu=gp["metrics"], metrics_cpu=c["metrics"], faults={})
-    for name, (module, attr, broken) in faults.items():
+    for name, (module, attr, broken, *must) in faults.items():
         with replaced(module, attr, broken):
             fres, ffail = compare_tiny_steps(c, c32, side(dev, bf), start, lr, **held)
         _log_tiny(f"{label}, planted fault: {name}", fres, ffail)
-        if not ffail:
+        if not ffail or not set(must) <= set(ffail):
             raise AssertionError(f"tiny {label} training step: planted fault '{name}' "
-                                 f"passes the limits: {fres}")
+                                 f"passes the limits{' of ' + must[0] if must else ''}: {fres}")
         res["faults"][name] = dict(outside=ffail, **{k: fres[k] for k in (
             "grad_ratio", "grad_worst", "grad_top", "cluster_size_abs", "codebook_abs",
-            "update_err_over_lr")})
+            "update_err_over_lr", "update_sign_flips_over") if k in fres})
     return res, gp
 
 
@@ -4214,10 +4505,9 @@ def tiny_aux_config():
     that their gradients carry weight in every tensor they reach.  With the
     SSL heads' gradient in them, ten tensors' bf16 gradients lie ~20% (L2)
     from the f32 ones on the CPU itself and flip the sign of some of Adam's
-    first steps there (a CPU reading), so this check holds each update's
-    sign against the f32 step and its size against the CPU's bf16 step,
-    each beside the CPU's own bf16-f32 error (`noise_aware_updates`).  Its
-    BERT keeps four heads of 16 (K12a on attention_train.cu): with one head
+    first steps there (a CPU reading), so this check holds the card to the
+    f32 step with the CPU's own noise pooled over AUX_NOISE_SEEDS
+    (`compare_tiny_steps`).  Its BERT keeps four heads of 16 (K12a on attention_train.cu): with one head
     of 64 the CPU's bf16 gradient of to_visual_latent.weight reads -0.23 of
     its max at an entry where the f32 one reads -0.003, so the card's Adam
     step there flips against the CPU's, with the CUDA-core K12a as with the
@@ -4230,19 +4520,55 @@ def tiny_aux_config():
 
 
 def aux_planted_faults():
-    """K16a with its LN scale gradient dropped (zeros)."""
+    """K16a with its LN scale gradient dropped (zeros); and two faults of
+    the optimizer step alone, which leave every gradient as it is, so only
+    the update checks can catch them (the fourth element: the check each
+    must fail): Adam's first step without its first moment's bias
+    correction (0.1 lr g / (|g| + eps), every size 0.9 lr off), and
+    to_text_latent.weight stepped up its gradient (every sign flipped)."""
     import importlib
 
     import torch
 
     pe = importlib.import_module("ct_clip_tpu_torch.ops.patch_embed")
-    k16a = pe._patch_embed_bwd_cuda
+    train = importlib.import_module("ct_clip_tpu_torch.train")
+    k16a, create = pe._patch_embed_bwd_cuda, train.create_train_state
 
     def k16a_no_ds1(*a, **kw):
         g = list(k16a(*a, **kw))
         g[1] = torch.zeros_like(g[1])
         return tuple(g)
-    return {"K16a without ds1": (pe, "_patch_embed_bwd_cuda", k16a_no_ds1)}
+
+    def with_step(move):
+        """create_train_state whose optimizer step ends with
+        `move(model, before)`, `before` the parameters ahead of it."""
+        def broken(model, cfg):
+            state = create(model, cfg)
+            step = state.optimizer.step
+
+            def stepped():
+                before = {n: p.detach().clone() for n, p in model.named_parameters()}
+                norm = step()
+                with torch.no_grad():
+                    move(model, before)
+                return norm
+            state.optimizer.step = stepped
+            return state
+        return broken
+
+    def no_first_moment_correction(model, before):
+        beta1 = 0.9  # train/optimizer.py's betas
+        for n, p in model.named_parameters():
+            p.copy_(before[n] + (1 - beta1) * (p - before[n]))
+
+    def text_latent_ascent(model, before):
+        p = model.to_text_latent.weight
+        p.copy_(2 * before["to_text_latent.weight"] - p)
+    return {"K16a without ds1": (pe, "_patch_embed_bwd_cuda", k16a_no_ds1),
+            "Adam without the first moment's bias correction":
+                (train, "create_train_state", with_step(no_first_moment_correction), "updates"),
+            "to_text_latent.weight stepping up its gradient":
+                (train, "create_train_state", with_step(text_latent_ascent), "update signs")}
 
 
 # ---------------------------------------------------------------- phase 8
@@ -4393,6 +4719,7 @@ def ctvit_ae_phase(dev, work: Path, card: str, dtype: str = "bf16") -> dict:
     from ct_clip_tpu_torch.data import read_volume
     from ct_clip_tpu_torch.data.generatect import VideoDataset
     from ct_clip_tpu_torch.models import CTViT
+    from ct_clip_tpu_torch.ops import vq as vq_mod
     from ct_clip_tpu_torch.train import CTViTTrainer
 
     f32 = dtype == "f32"
@@ -4413,8 +4740,14 @@ def ctvit_ae_phase(dev, work: Path, card: str, dtype: str = "bf16") -> dict:
                            save_results_every=10 ** 9)
     counts = {}
     train_path, discr_path = f"ctvit_ae{tag}_train", f"ctvit_ae{tag}_discr"
-    logs, counts[train_path], secs = drive(
-        train_path, lambda: [trainer.train_step(video) for _ in range(3)])
+    vq_rows, stats = [], vq_mod.cluster_stats
+
+    def recorded(x, ids, codes):  # the third step's statistics: K15's "ae" ids (k15_ae_cases)
+        vq_rows[:] = [(x.detach().clone(), ids.to(torch.int32).clone())]
+        return stats(x, ids, codes)
+    with replaced(vq_mod, "cluster_stats", recorded):
+        logs, counts[train_path], secs = drive(
+            train_path, lambda: [trainer.train_step(video) for _ in range(3)])
     losses = [x["loss"] for x in logs]
     per_step = {k: counts[train_path][k] / 3 for k in PATHS[train_path]}
     log(f"ctvit ae {dtype}: {AE_B} volumes of {AE_FRAMES}x128x128 ingested in {ingest_s:.2f} s "
@@ -4463,7 +4796,8 @@ def ctvit_ae_phase(dev, work: Path, card: str, dtype: str = "bf16") -> dict:
                              "dump failed")
     del trainer, dtrainer, other, model, video
     torch.cuda.empty_cache()
-    return dict(counts=counts, losses=losses, discr_round=dlogs, ingest_s=ingest_s,
+    return dict(counts=counts, vq_rows=vq_rows[0], losses=losses, discr_round=dlogs,
+                ingest_s=ingest_s,
                 launches_per_step=per_step,
                 step_ms=gen, step_ms_all=gen_ms, round_with_discr_ms=round_ms,
                 volumes_per_s=AE_B / gen * 1e3, peak_gb=peak_gb, step_breakdown=breakdown,
@@ -5769,7 +6103,7 @@ F32_TRAIN_GROUPS = (
      "head dims other than 32, lengths off the other routes)",
      ("qk_attention_bwd_f32_kernel",)),
     ("K5 exact on f32 rows (gemm_argmax3_rows_kernel)", ("gemm_argmax3_rows",)),
-    ("K15 f32 row sums (sum_f32_kernel)", ("sum_f32_kernel",)),
+    ("K15 f32 row sums (vq_segstats.cu: seg_sum<float>)", ("seg_sum<float",)),
     ("K6/K17 rearrange (rearrange_kernel, unrearrange_runs_kernel)",
      ("rearrange_kernel", "unrearrange_runs_kernel")),
 ) + CTCLIP_GROUPS
@@ -6000,8 +6334,11 @@ def f32_train_kernel_cases(dev):
     K9's attention core alone on both planes (`qk_core_f32_case`); K5 exact on the batch's
     110,592 f32 rows against 8,192 codes (ids equal to the plain version of
     its own math up to ties within 1e-5; the share equal to the full-f32
-    argmax reported); K15 on the same rows (bins exact, sums within 1e-6 of
-    max, which the full-f32 sums must miss; their distance reported); K17 f32 as K6's backward on one f32 training volume
+    argmax reported); K15 on the same rows and the first 10,240, uniform and
+    with half the rows in one code (`k15_case`: bins exact, sums within 1e-6
+    of max of the plain version in the kernel's order, which the full-f32
+    sums of the uniform rows must miss); K17 f32 as K6's backward on
+    one f32 training volume
     (bit-exact).  Bounds: the bf16 rows' products at the f32 CUDA-core peak,
     K5 exact's three bf16 products at the bf16 peak, K15's bytes."""
     import torch
@@ -6013,9 +6350,7 @@ def f32_train_kernel_cases(dev):
         _qknorm_attention_bwd_tc32, fused_grid_qknorm_attention, fused_small_qknorm_attention,
         fused_spatial_qknorm_attention, grid_qknorm_attention_bwd_plain,
         qknorm_attention_bwd_plain)
-    from ct_clip_tpu_torch.ops.vq import (_lane_inv_norm, _split_rows, cluster_stats,
-                                          cluster_stats_plain, cluster_stats_rows_plain,
-                                          split_hi_lo, vq_assign,
+    from ct_clip_tpu_torch.ops.vq import (_lane_inv_norm, _split_rows, split_hi_lo, vq_assign,
                                           vq_assign_exact_rows_lane_plain, vq_assign_plain,
                                           vq_exact_rows_lane_sim)
 
@@ -6128,39 +6463,14 @@ def f32_train_kernel_cases(dev):
                                                        device=dev),),
             flops=2 * 3 * x5.shape[0] * dim * 8192, peak=PEAK_BF16_FLOPS, ids=True)
     del hi, lo
-    ids = torch.randint(0, 8192, (R,), generator=g, device=dev, dtype=torch.int32)
-
-    def stats_check(got, ref):
-        """bins exact, sums within 1e-6 of max; the full-f32 sums (JAX's
-        XLA form) must miss that limit, or it could not tell hi + lo from
-        them."""
-        (bins, esum), (rbins, resum) = got, ref
-        diff = (esum - resum).abs()
-        top = resum.abs().max().item()
-        full = cluster_stats_plain(xv, ids, 8192)[1]
-        res = dict(max_abs_err=diff.max().item(), max_rel_err=diff.max().item() / top,
-                   entries_differing=int((diff > 0).sum()),
-                   full_f32_max_rel=(resum - full).abs().max().item() / top,
-                   bins_equal=torch.equal(bins, rbins),
-                   tolerance="bins exact; sums 1e-6 of max; full f32 must miss")
-        log(f"kernel vq_cluster_stats_f32: bins equal {res['bins_equal']}; sums "
-            f"{res['max_rel_err']:.2e} of max ({res['entries_differing']:,} of "
-            f"{diff.numel():,} entries differ at all); the full-f32 plain version "
-            f"{res['full_f32_max_rel']:.2e} of max from the plain version of its math "
-            f"(must miss 1e-6)")
-        ok = res["max_rel_err"] <= 1e-6 and res["full_f32_max_rel"] > 1e-6
-        return res["bins_equal"] and ok, res
-
-    def lib_stats():
-        esum = torch.zeros(8192, dim, device=dev).index_add_(0, ids.long(), l2norm(xv))
-        return torch.bincount(ids, minlength=8192), esum
-    yield "vq_cluster_stats_f32", dict(
-        f32_case, kern=lambda: cluster_stats(xv, ids, 8192),
-        plain=lambda: cluster_stats_rows_plain(xv, ids, 8192), library=lib_stats,
-        check=stats_check, inputs=(xv, ids),
-        outputs=(torch.empty(8192, device=dev), torch.empty(8192, dim, device=dev)),
-        flops=3 * R * dim)
-    del xv, ids, embed_n
+    # K15 on f32 rows as on bf16 rows in phase 6 (`k15_case`; the
+    # autoencoder's ids in phase 8)
+    for label, x15 in (("vq_cluster_stats_f32", xv), ("vq_cluster_stats_f32_10240", xv[:10240])):
+        for dist in K15_IDS[:2]:
+            yield label + K15_SUFFIX[dist], k15_case(
+                x15, k15_ids(dist, x15.shape[0], g, dev),
+                full_must_miss=label == "vq_cluster_stats_f32" and dist == "uniform")
+    del xv, embed_n
 
     # K17 f32 as the backward of K6 on one f32 training volume
     video = rn(1, 240, 480, 480).requires_grad_()
@@ -6387,6 +6697,7 @@ def main() -> int:
     k2_phase(dev, torch.bfloat16, results)
     results.update(train_attention_phase(dev))
     results.update(train_kernel_phase(dev))
+    nest_k15(results, "vq_cluster_stats")
     results.update(peg_phase(dev))
     results["vq_assign_exact"]["at_10240"] = results.pop("vq_assign_exact_10240")
     results["vq_assign_exact"]["planted_ties"] = k5_exact_planted_ties(dev, "bf16")
@@ -6409,6 +6720,7 @@ def main() -> int:
         ctclip_ref = ctclip_train_reference_phase(dev, work)
         results.update(train_kernel_phase(dev, embed_bwd_cases(dev), AUX_B))
         results["patch_embed_bwd"]["with_dvideo"] = results.pop("patch_embed_bwd_dvideo")
+        results["row_embed_bwd"]["without_drows"] = results.pop("row_embed_bwd_weights")
         embed_grad = embed_grad_phase(dev)
         counts["embed_grad"] = embed_grad.pop("counts")
         aux = aux_train_phase(dev, work, card, corpus, counts["ctclip_train"])
@@ -6416,7 +6728,7 @@ def main() -> int:
             counts[name] = run.pop("counts")
         aux_ref, _, _, _ = tiny_step_check(dev, tiny_aux_config(), aux_planted_faults(),
                                            "CT-CLIP with MLM, visual SSL and FILIP",
-                                           noise_aware_updates=True)
+                                           noise_seeds=AUX_NOISE_SEEDS)
         seq = train_kernel_phase(dev, seq_kernel_cases(dev), CLIP160_B)
         for key in ("seq_attention", "seq_attention_bwd"):
             results[key] = dict(seq[key], at_generatect=seq[key.replace(
@@ -6429,6 +6741,8 @@ def main() -> int:
                 seq[f"grid_attention_bwd_short_{at}"]
         ae = ctvit_ae_phase(dev, work, card)
         counts.update(ae.pop("counts"))
+        results.update(train_kernel_phase(dev, k15_ae_cases(dev, *ae.pop("vq_rows")), AE_B))
+        nest_k15(results, "vq_cluster_stats")
         recon = reconstruct_phase(dev, work, card)
         counts["reconstruct"] = recon.pop("counts")
         clip160 = ctclip_160_phase(dev, work, card, corpus)
@@ -6451,11 +6765,13 @@ def main() -> int:
         train32 = f32_train_kernel_phase(dev)
         k17 = train32.pop("unrearrange_patches_f32_bwd")
         results.update(train32)
+        nest_k15(results, "vq_cluster_stats_f32")
         results["unrearrange_patches_f32"]["as_k6_backward"] = k17
         clip32 = ctclip_train_phase(dev, work, card, corpus, "f32")
         counts["ctclip_f32_train"] = clip32.pop("counts")
         ae32 = ctvit_ae_phase(dev, work, card, "f32")
         counts.update(ae32.pop("counts"))
+        del ae32["vq_rows"]
         train32_ref = tiny_f32_train_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)

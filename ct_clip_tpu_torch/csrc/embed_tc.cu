@@ -33,7 +33,9 @@
 //     f32 into (M, 2) stats; 16-byte loads of contiguous rows, or 8-byte
 //     runs through the patch gather (p % 4 == 0 and W % 4 == 0: 4 columns
 //     from a multiple of 4 lie side by side in one p-wide row of the patch),
-//     the run offsets in a shared table.
+//     the run offsets in a shared table.  Its XN form writes the normalised
+//     rows too: the recompute of the row embed's backward (K16b), whose
+//     products run on ffn_tc.cu.
 //   * embed_tc_kernel: one CTA a 64-row x 512-column tile, whole rows of
 //     the output, for LN(dim) in the epilogue: a producer warpgroup and two
 //     consumer warpgroups of 256 columns each (m64n256k16), the producer's
@@ -137,11 +139,20 @@ __device__ __forceinline__ uint32_t norm2(uint32_t v, float mean, float rstd, fl
 // ----------------------------------------------------------- the row stats
 // (mean, rstd) of each row in f32, two passes over registers: rows x[row *
 // ldx + k] (GATHER false) or the patch rows of the volume x (GATHER true).
-// One warp a row, the rows strided over the grid.
-template <bool GATHER>
+// One warp a row, the rows strided over the grid.  XN (rows only): K16b's
+// recompute (patchify.py::_pallas_row_embed_bwd, K16b, :637, body
+// _rows_bwd_kernel :487-549) also writes xn = bf16(((x - mean) rstd) s1 +
+// b1), rounded as the product's normalise (norm2) rounds it, so xn is the
+// forward's bit for bit; s1 and b1 (K,) f32, 16-byte aligned, xn row
+// stride ldn; stats may be null (the row backward that follows with
+// d(rows) takes its own).
+template <bool GATHER, bool XN>
 __global__ void __launch_bounds__(256) embed_stats(const bf16* __restrict__ x, int ldx,
                                                    PatchGeom g, int M, int K, float eps,
-                                                   float* __restrict__ stats) {
+                                                   float* __restrict__ stats,
+                                                   const float* __restrict__ s1,
+                                                   const float* __restrict__ b1,
+                                                   bf16* __restrict__ xn, int ldn) {
   constexpr int RUNS = GATHER ? MAX_K / 4 / 32 : MAX_K / 8 / 32;  // a lane's loads
   __shared__ int offs[GATHER ? MAX_K / 4 : 1];  // run j of a patch row at offs[j]
   if (GATHER) {
@@ -192,7 +203,24 @@ __global__ void __launch_bounds__(256) embed_stats(const bf16* __restrict__ x, i
       }
     }
     const float rstd = rsqrtf(warp_sum(q) / K + eps);
-    if (lane == 0) *reinterpret_cast<float2*>(stats + 2 * row) = make_float2(mean, rstd);
+    if (lane == 0 && (!XN || stats))
+      *reinterpret_cast<float2*>(stats + 2 * row) = make_float2(mean, rstd);
+    if constexpr (XN && !GATHER) {
+#pragma unroll
+      for (int i = 0; i < RUNS; ++i) {
+        const int j = lane + 32 * i;
+        if (j >= n) continue;
+        const float4* sp = reinterpret_cast<const float4*>(s1 + 8 * j);
+        const float4* bp = reinterpret_cast<const float4*>(b1 + 8 * j);
+        const float4 sl = sp[0], sh = sp[1], bl = bp[0], bh = bp[1];
+        uint4 o;
+        o.x = norm2(v[i][0], mean, rstd, sl.x, sl.y, bl.x, bl.y);
+        o.y = norm2(v[i][1], mean, rstd, sl.z, sl.w, bl.z, bl.w);
+        o.z = norm2(v[i][2], mean, rstd, sh.x, sh.y, bh.x, bh.y);
+        o.w = norm2(v[i][3], mean, rstd, sh.z, sh.w, bh.z, bh.w);
+        *reinterpret_cast<uint4*>(xn + row * (size_t)ldn + 8 * j) = o;
+      }
+    }
   }
 }
 
@@ -485,11 +513,28 @@ CT_EXPORT int ct_embed_stats(const void* x, int ldx, const void* video, int Bv, 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(stats);
   if (x)
-    embed_stats<false><<<row_blocks(M), 256, 0, st>>>(static_cast<const bf16*>(x), ldx, g, M, K,
-                                                      eps, out);
+    embed_stats<false, false><<<row_blocks(M), 256, 0, st>>>(
+        static_cast<const bf16*>(x), ldx, g, M, K, eps, out, nullptr, nullptr, nullptr, 0);
   else
-    embed_stats<true><<<row_blocks(M), 256, 0, st>>>(static_cast<const bf16*>(video), 0, g, M,
-                                                     K, eps, out);
+    embed_stats<true, false><<<row_blocks(M), 256, 0, st>>>(
+        static_cast<const bf16*>(video), 0, g, M, K, eps, out, nullptr, nullptr, nullptr, 0);
+  return (int)cudaGetLastError();
+}
+
+// K16b's recompute (embed_stats' XN form): xn (M, K) bf16 (row stride ldn)
+// and stats (M, 2) f32 (mean, rstd; 8-byte aligned, or null: not written) of the rows x (M, K)
+// bf16 (row stride ldx), s1 and b1 (K,) f32; K a multiple of 8 up to MAX_K,
+// x, xn, s1 and b1 16-byte aligned.
+CT_EXPORT int ct_embed_ln_rows(const void* x, int ldx, int M, int K, const void* s1,
+                               const void* b1, float eps, void* xn, int ldn, void* stats,
+                               void* stream) {
+  PatchGeom g;
+  if (!rows_fit(x, ldx, nullptr, 0, 0, 0, 0, 0, 0, M, K, &g) || !aligned16(s1) || !aligned16(b1)
+      || !aligned16(xn) || ldn % 8 || ldn < K || (reinterpret_cast<uintptr_t>(stats) & 7))
+    return (int)cudaErrorInvalidValue;
+  embed_stats<false, true><<<row_blocks(M), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), ldx, g, M, K, eps, static_cast<float*>(stats),
+      static_cast<const float*>(s1), static_cast<const float*>(b1), static_cast<bf16*>(xn), ldn);
   return (int)cudaGetLastError();
 }
 

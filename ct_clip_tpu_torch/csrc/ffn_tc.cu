@@ -33,6 +33,12 @@
 // are 1.36 TFLOP there (1.37 ms at 989 TFLOP/s) against ~2 GB of volume,
 // xn and yb moved (0.6 ms): the tensor cores bound it.
 //
+// The same three products run the bf16 row-embed backward, patchify.py::
+// _pallas_row_embed_bwd (K16b, :637, pallas_call :663, body _rows_bwd_kernel
+// :487-549), on contiguous patch rows: without d(rows) the NN product's
+// epilogue form GEMM_LN_SUMS_ROWS rebuilds xhat from the rows themselves
+// (16-byte copies of the CTA's row tile in place of the patch gather).
+//
 // And the bf16 GEGLU feed-forward forward after its LN, ct_clip_tpu/ops/
 // pallas/ffn.py::_pallas_ff (K3, :105, pallas_call :114, body _kernel
 // :89-103), which gemm.cu's EPI_GEGLU and EPI_RESIDUAL ran on WMMA with
@@ -280,10 +286,13 @@ __global__ void __launch_bounds__(NT, 1) ff_tc_tile(const __grid_constant__ Tile
 //                  stats;
 //                  the tile's column sums of dxn xhat and of dxn go to row
 //                  blockIdx.y of the (tiles, 2 N) partials (ds1 | db1,
-//                  patchify.py:307-308), which the caller adds in order.
+//                  patchify.py:307-308), which the caller adds in order;
+//   GEMM_LN_SUMS_ROWS  the same with x the contiguous (M, N) patch rows
+//                  (K16b, patchify.py:541-542), each CTA's tile copied from
+//                  them 16 bytes at a time.
 enum GemmForm {
   GEMM_STORE = 0, GEMM_BIAS = 1, GEMM_LN_SUMS = 2, GEMM_GEGLU = 3, GEMM_RESIDUAL = 4,
-  GEMM_NT_STORE = 5, GEMM_NT_F32 = 6, GEMM_STORE_BF16 = 7
+  GEMM_NT_STORE = 5, GEMM_NT_F32 = 6, GEMM_STORE_BF16 = 7, GEMM_LN_SUMS_ROWS = 8
 };
 
 struct GemmMaps {
@@ -294,7 +303,8 @@ struct GemmArgs {
   int M, N, K, ldc, kchunk;
   long long split_stride;
   // GEMM_BIAS: the bias (N,); GEMM_LN_SUMS: the volume, its patch
-  // geometry and the recompute's stats
+  // geometry and the recompute's stats; GEMM_LN_SUMS_ROWS: the rows in
+  // `video`, row stride ldr, and their stats
   const bf16* bias;
   const bf16* video;
   const float* stats;
@@ -324,8 +334,11 @@ __device__ __forceinline__ void cp8(uint32_t dst, const void* src, int src_bytes
 // every row (one 8-byte copy each: p % 4 == 0 and W % 4 == 0, so 4 columns
 // from a multiple of 4 lie side by side in one p-wide row of the patch),
 // columns n0 .. n0 + 3 every 31st row from row L - 1; zero outside (M, N).
-// Each of the 31 arrives on `xfull` once its copies have landed.
-template <int STAGES>
+// Each of the 31 arrives on `xfull` once its copies have landed.  ROWS
+// (GEMM_LN_SUMS_ROWS): lanes 1-31 copy the tile from the rows at a.video,
+// row stride a.ldr, 16 bytes (8 columns) at a time, piece i of 16 a row to
+// lane 1 + i % 31; N a multiple of 8.
+template <int STAGES, bool ROWS>
 __device__ __forceinline__ void ln_producer(const GemmMaps& maps, const GemmArgs& a,
                                             uint8_t* ring, uint8_t* xs, uint64_t* full,
                                             uint64_t* empty, uint64_t* xfull, int m0, int n0,
@@ -343,6 +356,18 @@ __device__ __forceinline__ void ln_producer(const GemmMaps& maps, const GemmArgs
         tma_load(dst + (CWG + w) * ATOM, &maps.B, n0 + 64 * w, k0, &full[st]);
       }
     }
+    return;
+  }
+  if (ROWS) {
+    const uint32_t xs0 = saddr(xs);
+    for (int i = lane - 1; i < BM * 16; i += 31) {
+      const int r = i >> 4, c = n0 + 8 * (i & 15);
+      const bool ok = m0 + r < a.M && c < a.N;
+      cp16(xs0 + r * XS_LD + 16 * (i & 15), a.video + (ok ? (size_t)(m0 + r) * a.ldr + c : 0),
+           ok ? 16 : 0);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    bar_arrive(xfull);
     return;
   }
   const PatchGeom& g = a.g;
@@ -457,23 +482,25 @@ __global__ void __launch_bounds__(NT, 2) ff_tc_gemm(const __grid_constant__ Gemm
   // B K-major in the NT forms
   constexpr int TB = FORM == GEMM_BIAS || FORM == GEMM_GEGLU || FORM == GEMM_RESIDUAL
                      || FORM == GEMM_NT_STORE || FORM == GEMM_NT_F32 ? 0 : 1;
-  constexpr int STAGES = FORM == GEMM_LN_SUMS ? LN_STAGES : GEMM_STAGES;
+  constexpr bool LN = FORM == GEMM_LN_SUMS || FORM == GEMM_LN_SUMS_ROWS;
+  constexpr int STAGES = LN ? LN_STAGES : GEMM_STAGES;
   constexpr int BN = FORM == GEMM_GEGLU ? 64 : 128;  // C columns of a CTA
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[GEMM_STAGES], empty[GEMM_STAGES];
   uint8_t* ring = align1024(smem_raw);
-  // GEMM_LN_SUMS: the volume tile and its barrier, past the ring
+  // GEMM_LN_SUMS(_ROWS): the x tile and its barrier, past the ring
   uint8_t* xs = ring + LN_STAGES * GEMM_STAGE;
   uint64_t* xfull = reinterpret_cast<uint64_t*>(xs + BM * XS_LD);
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int kbeg = blockIdx.z * a.kchunk, kend = min(a.K, kbeg + a.kchunk);
   const int kblocks = (kend - kbeg + TC_TILE - 1) / TC_TILE;
-  if (FORM == GEMM_LN_SUMS && threadIdx.x == 0) bar_init(xfull, 31);
+  if (LN && threadIdx.x == 0) bar_init(xfull, 31);
   init_ring<GEMM_STAGES, 128 * CWG>(full, empty);
 
   if (threadIdx.x >= 128 * CWG) {  // the producer: one thread
-    if (FORM == GEMM_LN_SUMS) {
-      ln_producer<STAGES>(maps, a, ring, xs, full, empty, xfull, m0, n0, kblocks);
+    if (LN) {
+      ln_producer<STAGES, FORM == GEMM_LN_SUMS_ROWS>(maps, a, ring, xs, full, empty, xfull, m0,
+                                                     n0, kblocks);
       return;
     }
     if (threadIdx.x != 128 * CWG) return;
@@ -534,7 +561,7 @@ __global__ void __launch_bounds__(NT, 2) ff_tc_gemm(const __grid_constant__ Gemm
   hold(c0);
   hold(c1);
 
-  if (FORM == GEMM_LN_SUMS) {
+  if (LN) {
     ln_sums(a, c0, c1, m0, n0, wg, warp, lane, ring, xs, xfull);
     return;
   }
@@ -719,6 +746,26 @@ CT_EXPORT int ct_ff_tc_ln_sums(const void* A, int lda, const void* B, int ldb, i
   a.g = {F, H, W, pt, p, F / pt, H / p, W / p};
   return (int)launch(ff_tc_gemm<0, GEMM_LN_SUMS>, dim3((N + 127) / 128, (M + BM - 1) / BM, 1),
                      ln_sums_smem(), static_cast<cudaStream_t>(stream), maps, a);
+}
+
+// K16b's LN(N) sums ("NN", dxn never stored), as ct_ff_tc_ln_sums with x
+// the contiguous patch rows (M, N) bf16, row stride ldx, in place of the
+// volume: N, K and the strides multiples of 8, x 16-byte aligned.
+CT_EXPORT int ct_ff_tc_ln_sums_rows(const void* A, int lda, const void* B, int ldb, int M, int N,
+                                    int K, const void* x, int ldx, const void* stats, void* part,
+                                    void* stream) {
+  GemmMaps maps;
+  if (!aligned16(x) || ldx % 8 || ldx < N || !aligned16(stats) || !aligned16(part)
+      || !gemm_maps(&maps, A, lda, B, ldb, M, N, K, false))
+    return (int)cudaErrorInvalidValue;
+  GemmArgs a = {static_cast<float*>(part), M, N, K, 2 * N, (K + TC_TILE - 1) / TC_TILE * TC_TILE,
+                0};
+  a.video = static_cast<const bf16*>(x);
+  a.ldr = ldx;
+  a.stats = static_cast<const float*>(stats);
+  return (int)launch(ff_tc_gemm<0, GEMM_LN_SUMS_ROWS>,
+                     dim3((N + 127) / 128, (M + BM - 1) / BM, 1), ln_sums_smem(),
+                     static_cast<cudaStream_t>(stream), maps, a);
 }
 
 // K3's GEGLU product ("NT"): act (M, N) bf16 = bf16(a gelu(g)), a = A wa^T

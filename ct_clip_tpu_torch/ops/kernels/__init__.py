@@ -155,7 +155,7 @@ KERNELS = (
     "grid_attention_bwd_f32",  # K10 grid f32
     "seq_attention_bwd_f32",  # K10 seq f32
     "vq_assign_exact_f32",  # K5 exact on f32 rows (gemm.cu gemm_argmax3_rows_kernel)
-    "vq_cluster_stats_f32",  # K15 on f32 rows (vq_stats.cu sum_f32_kernel)
+    "vq_cluster_stats_f32",  # K15 on f32 rows (vq_segstats.cu's f32 form)
     "peg_fwd_f32",         # the PEG forward in f32 (peg_stencil.cu)
     "peg_bwd_f32",         # K14 in f32 (peg_stencil.cu)
     # the plain routes where the JAX package runs XLA in f32 (`ROUTES`)
@@ -387,6 +387,11 @@ def _signatures():
         "ct_peg_bwd_f32": [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p],
         "ct_vq_cluster_stats": [p, p, i, i, i, p, p, p, p, p, p, p],
         "ct_vq_cluster_stats_f32": [p, p, i, i, i, p, p, p, p, p, p, p],
+        "ct_vq_seg_stats": [p, p, i, i, i, p, p],
+        "ct_vq_seg_stats_f32": [p, p, i, i, i, p, p],
+        "ct_vq_seg_stats_words": [i, i, i],
+        "ct_embed_ln_rows": [p, i, i, i, p, p, f, p, i, p, p],
+        "ct_ff_tc_ln_sums_rows": [p, i, p, i, i, i, i, p, i, p, p, p],
         "ct_embed_stats": [p, i, p, i, i, i, i, i, i, i, i, f, p, p],
         "ct_embed_tc": [p, i, p, i, i, i, i, i, i, p, i, p, p, p, p, p, f, i, i, i, p, p, p],
     }
@@ -394,11 +399,12 @@ def _signatures():
 
 def _declare(lib) -> None:
     """Types of every entry point `lib` exports (a copy built from one source
-    exports that source's alone)."""
+    exports that source's alone); each returns an int, a size a long long."""
     for name, args in _signatures().items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
-            fn.argtypes, fn.restype = args, ctypes.c_int
+            fn.argtypes = args
+            fn.restype = ctypes.c_longlong if name.endswith("_words") else ctypes.c_int
     if hasattr(lib, "ct_error_string"):
         lib.ct_error_string.argtypes = [ctypes.c_int]
         lib.ct_error_string.restype = ctypes.c_char_p
@@ -921,6 +927,27 @@ def embed_tc(x: torch.Tensor, s1, b1, w: torch.Tensor, pbias, s2, b2, eps: float
     return out
 
 
+def embed_ln_rows(x: torch.Tensor, s1, b1, eps: float, want_stats: bool = True):
+    """K16b's recompute on embed_tc.cu (`embed_stats`' XN form): (xn (M, K)
+    bf16, stats (M, 2) f32 or None) of the bf16 rows x (M, K) with
+    contiguous rows, xn = bf16(((x - mean) rstd) s1 + b1) rounded as K4's
+    forward rounds it (bit for bit the normalised tiles of `embed_tc`) and,
+    with `want_stats`, each row's (mean, rstd) beside it; one warp a row,
+    16-byte accesses.  K a multiple of 8 up to EMBED_MAX_K."""
+    require(x, "x", BF16, 2, contiguous=False)
+    M, K = x.shape
+    if x.stride(1) != 1 or K % 8 or K > EMBED_MAX_K:
+        raise ValueError(f"embed_ln_rows: rows {tuple(x.shape)} (contiguous rows of a multiple "
+                         f"of 8 up to {EMBED_MAX_K})")
+    s1, b1 = _f32_vector(s1, K, "s1"), _f32_vector(b1, K, "b1")
+    xn = torch.empty((M, K), dtype=BF16, device=x.device)
+    stats = torch.empty((M, 2), dtype=torch.float32, device=x.device) if want_stats else None
+    _check(library().ct_embed_ln_rows(_ptr(x), x.stride(0), M, K, _ptr(s1), _ptr(b1),
+                                      float(eps), _ptr(xn), K, _ptr(stats), _stream()),
+           "ct_embed_ln_rows")
+    return xn, stats
+
+
 # K5's inference assignment on the tensor cores (vq_tc.cu)
 VQ_TC_MAX_DIM = 512  # the widest row vq_tc.cu's resident row tile holds
 
@@ -1037,17 +1064,57 @@ def ln_sums_tc(dy: torch.Tensor, w: torch.Tensor, video: torch.Tensor, pt: int, 
                          f"{tuple(video.shape)} vs {pt}x{p}x{p} (p and W multiples of 4), "
                          f"stats "
                          f"{tuple(stats.shape)}")
-    tiles, padded = ln_sums_plan(M)
-    part = torch.empty((padded, 2 * N), dtype=F32, device=dy.device)
-    part[tiles:].zero_()
+    part = _ln_sums_part(M, N, dy.device)
     err = (lib or library()).ct_ff_tc_ln_sums(
         _ptr(dy), dy.stride(0), _ptr(w), w.stride(0), M, N, K, _ptr(video), B, F, H, W, pt, p,
         _ptr(stats), _ptr(part), _stream())
     _check(err, "ct_ff_tc_ln_sums")
+    return _ln_sums_total(part, N)
+
+
+def _ln_sums_part(M: int, N: int, device) -> torch.Tensor:
+    """The (padded tiles, 2 N) f32 partials of an LN-sums product
+    (`ln_sums_plan`), the padding rows zero."""
+    tiles, padded = ln_sums_plan(M)
+    part = torch.empty((padded, 2 * N), dtype=F32, device=device)
+    part[tiles:].zero_()
+    return part
+
+
+def _ln_sums_total(part: torch.Tensor, N: int):
+    """(ds, db) from an LN-sums product's partials, added in two levels in
+    order; counts the launch (`ff_tc_gemm`, `ff_tc_ln_sums`)."""
     count_launch("ff_tc_gemm")
     count_launch("ff_tc_ln_sums")
     sums = sum_splits(sum_splits(part.view(LN_SUMS_GROUPS, -1)).view(-1, 2 * N))
     return sums[:N], sums[N:]
+
+
+def ln_sums_rows_tc(dy: torch.Tensor, w: torch.Tensor, x: torch.Tensor, stats: torch.Tensor,
+                    lib=None):
+    """K16b's LN(N) scale and bias gradients, (ds, db) f32, as `ln_sums_tc`
+    with xhat rebuilt from the bf16 rows x (M, N) with contiguous rows in
+    place of a volume (ffn_tc.cu's GEMM_LN_SUMS_ROWS form, each CTA's row
+    tile copied 16 bytes at a time), mean and rstd from `embed_ln_rows`'
+    stats (M, 2) f32; the tiles' column sums added in order (`ln_sums_plan`)
+    (counted `ff_tc_gemm` and `ff_tc_ln_sums`).  `lib`: a one-change copy of
+    ffn_tc.cu (`copy_library`) to launch instead, for the card checks."""
+    _ff_tc_operands("ln_sums_rows_tc", dy=dy, w=w)
+    require(x, "x", BF16, 2, contiguous=False)
+    require(stats, "stats", F32, 2)
+    M, K = dy.shape
+    N = w.shape[1]
+    if (w.shape[0] != K or tuple(x.shape) != (M, N) or x.stride(1) != 1 or x.stride(0) % 8
+            or x.data_ptr() % 16 or stats.shape != (M, 2)):
+        raise ValueError(f"ln_sums_rows_tc: dy {tuple(dy.shape)}, w {tuple(w.shape)}, x "
+                         f"{tuple(x.shape)} (rows of a multiple of 16 bytes), stats "
+                         f"{tuple(stats.shape)}")
+    part = _ln_sums_part(M, N, dy.device)
+    err = (lib or library()).ct_ff_tc_ln_sums_rows(
+        _ptr(dy), dy.stride(0), _ptr(w), w.stride(0), M, N, K, _ptr(x), x.stride(0),
+        _ptr(stats), _ptr(part), _stream())
+    _check(err, "ct_ff_tc_ln_sums_rows")
+    return _ln_sums_total(part, N)
 
 
 # the f32 K3 in 3xTF32 on the tensor cores (ffn_tc32.cu)
@@ -1997,27 +2064,32 @@ def peg_bwd(x: torch.Tensor, dout: torch.Tensor, weight: torch.Tensor, pads, rot
     return dx, dwb
 
 
-def vq_cluster_stats(x: torch.Tensor, ids: torch.Tensor, codes: int):
-    """bins (codes,) and embed_sum (codes, D) f32 of the l2-normalised rows
-    of x (rows, D) grouped by ids (rows,) int32 (vq_stats.cu): bf16 rows, or
-    f32 rows (the f32 form: each normalised row added as its bf16 hi + lo
-    parts)."""
+def _stats_operands(name: str, x: torch.Tensor, ids: torch.Tensor):
     require(x, "x", FORMS, 2)
     require(ids, "ids", torch.int32, 1)
     rows, D = x.shape
     if ids.shape[0] != rows or D % _chunk(x) or D > 1024 or x.data_ptr() % 16:
-        raise ValueError(f"vq_cluster_stats: x {tuple(x.shape)}, ids {tuple(ids.shape)}")
-    i32 = dict(dtype=torch.int32, device=x.device)
-    rank, perm = torch.empty((rows,), **i32), torch.empty((rows,), **i32)
-    counts = torch.empty((-(-rows // 1024), codes), **i32)
-    start = torch.empty((codes,), **i32)
-    bins = torch.empty((codes,), dtype=torch.float32, device=x.device)
-    embed_sum = torch.empty((codes, D), dtype=torch.float32, device=x.device)
-    err = _form("ct_vq_cluster_stats", x)(_ptr(x), _ptr(ids), rows, D, codes, _ptr(rank),
-                                          _ptr(counts), _ptr(start), _ptr(perm), _ptr(bins),
-                                          _ptr(embed_sum), _stream())
-    _check(err, "ct_vq_cluster_stats")
-    return bins, embed_sum
+        raise ValueError(f"{name}: x {tuple(x.shape)}, ids {tuple(ids.shape)}")
+    return rows, D
+
+
+def vq_cluster_stats(x: torch.Tensor, ids: torch.Tensor, codes: int, lib=None):
+    """bins (codes,) and embed_sum (codes, D) f32 of the l2-normalised rows
+    of x (rows, D) grouped by ids (rows,) int32 in [0, codes) (vq_segstats.cu:
+    each code's rows cut into segments, summed in row order by a warp each
+    and added in a fixed order): bf16 rows, or f32 rows (the f32 form: each
+    normalised row added as its bf16 hi + lo parts).  Both outputs are views
+    of the call's one workspace.  `lib`: a one-change copy of
+    vq_segstats.cu (`copy_library`) to launch instead, for the card
+    checks."""
+    rows, D = _stats_operands("vq_cluster_stats", x, ids)
+    lib = lib or library()
+    ws = torch.empty((lib.ct_vq_seg_stats_words(rows, D, codes),), dtype=torch.int32,
+                     device=x.device)
+    entry = "ct_vq_seg_stats_f32" if x.dtype == F32 else "ct_vq_seg_stats"
+    _check(getattr(lib, entry)(_ptr(x), _ptr(ids), rows, D, codes, _ptr(ws), _stream()), entry)
+    e0 = -(-codes // 4) * 4  # embed_sum's first word
+    return ws[:codes].view(F32), ws[e0:e0 + codes * D].view(F32).view(codes, D)
 
 
 # ------------------------------------------- training attention (f32, bf16)

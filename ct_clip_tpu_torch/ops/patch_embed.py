@@ -26,13 +26,16 @@ rows, LayerNorm(4000), Linear(4000, 512), LayerNorm(512).
     whose backward is K6).
   * `fused_row_embed` (K4) embeds patch rows: the same kernel with the
     rows' k blocks copied by TMA.  Its backward is K16b
-    (`_pallas_row_embed_bwd`), with d(rows) when the rows require grad.
+    (`_pallas_row_embed_bwd`), with d(rows) when the rows require grad, on
+    K16a's forms: the normalised rows and their stats in one pass
+    (embed_tc.cu, xn bit for bit the forward's), the three products on
+    ffn_tc.cu, and without d(rows) the LN(patch_dim) sums in the dxn
+    product's epilogue with xhat rebuilt from the rows
+    (`_row_embed_bwd_cuda`).
 
 A width embed_tc.cu does not take (`kernels.embed_fits`; every config of
-the repo fits) raises.  K16b's backward recomputes the normalised rows on
-csrc/layernorm.cu and the product on csrc/gemm.cu (`_embed_tail_bwd`).  Each
-backward's plain version is autograd of the plain forward, the JAX package's
-XLA VJP; a CPU tensor takes it.
+the repo fits) raises.  Each backward's plain version is autograd of the
+plain forward, the JAX package's XLA VJP; a CPU tensor takes it.
 
 Dtypes on CUDA (`kernels.ROUTES`): K6 and K17 move bf16 or f32 (their f32
 forms, as the TPU kernels move f32 blocks).  The JAX package runs K8, K4,
@@ -194,25 +197,37 @@ def row_embed_bwd_plain(rows, s1, b1, w, pbias, s2, b2, dout, eps: float = 1e-5)
     return vjp(lambda *a: row_embed_plain(*a, eps), (rows, s1, b1, w, pbias, s2, b2), dout)
 
 
-def _embed_tail_bwd(xn, w, pbias, s2, dout, eps):
-    """The backward of the embed's product, bias and LN(dim) from the
-    normalised rows xn (R, pd), as _embed_bwd_kernel (patchify.py:285-306) computes it: the product and
-    its rounded bias add again, the LN(dim) backward (dyb, ds2, db2 and dpb,
-    the column sum of the f32 dyb), dW = dyb^T xn (split TN product) and
-    dxn = dyb W (NN product), f32."""
-    bf = torch.bfloat16
-    R, pd = xn.shape
-    dim = w.shape[0]
-    wb = w.to(bf).contiguous()
-    yb = torch.empty((R, dim), dtype=bf, device=xn.device)
-    K.gemm(K.EPI_BIAS_ROUNDED, xn, wb, yb, bias=pbias.to(bf).contiguous())
-    dyn = dout.reshape(R, dim).float().contiguous()
-    dyb, ds2, db2, dpb = K.layernorm_bwd(yb, s2, dyn, eps, want_dbias=True, want_dxsum=True)
-    del yb
-    dw = K.gemm_tn(dyb, xn)
-    dxn = torch.empty((R, pd), dtype=torch.float32, device=xn.device)
-    K.gemm_nn(dyb, wb, dxn)
-    return dxn, dw, dpb, ds2, db2
+def row_embed_bwd_points_plain(rows, s1, b1, w, pbias, s2, b2, dout, eps: float = 1e-5):
+    """Plain version of K16b at `_rows_bwd_kernel`'s own rounding points
+    (patchify.py:487-549), in the rows' dtype: xn = bf16(xhat s1 + b1), yb
+    = bf16(xn W^T) + bf16(pbias) in bf16, the LN(dim) backward in f32 (dyb,
+    ds2, db2, and dpb its column sum), dyb rounded for both products, dW =
+    dyb^T xn and dxn = dyb W in f32, ds1 and db1 from dxn, drows in the
+    rows' dtype.  (drows, ds1, db1, dw (dim, patch_dim), dpbias, ds2, db2),
+    the sums f32."""
+    dtype, shape = rows.dtype, rows.shape
+    x = rows.reshape(-1, shape[-1]).float()
+
+    def norm(t):
+        c = t - t.mean(dim=-1, keepdim=True)
+        rstd = torch.rsqrt((c * c).mean(dim=-1, keepdim=True) + eps)
+        return c * rstd, rstd
+    xhat1, rstd1 = norm(x)
+    xn = (xhat1 * s1.float() + b1.float()).to(dtype)
+    wd = w.to(dtype)
+    yb = (xn.float() @ wd.float().t()).to(dtype) + pbias.to(dtype)
+    xhat2, rstd2 = norm(yb.float())
+    do = dout.reshape(-1, w.shape[0]).float()
+    dxhat2 = do * s2.float()
+    dyb = rstd2 * (dxhat2 - dxhat2.mean(dim=-1, keepdim=True)
+                   - xhat2 * (dxhat2 * xhat2).mean(dim=-1, keepdim=True))
+    dyb_b = dyb.to(dtype).float()
+    dxn = dyb_b @ wd.float()
+    dxhat1 = dxn * s1.float()
+    drows = rstd1 * (dxhat1 - dxhat1.mean(dim=-1, keepdim=True)
+                     - xhat1 * (dxhat1 * xhat1).mean(dim=-1, keepdim=True))
+    return (drows.to(dtype).view(shape), (dxn * xhat1).sum(0), dxn.sum(0),
+            dyb_b.t() @ xn.float(), dyb.sum(0), (do * xhat2).sum(0), do.sum(0))
 
 
 def _patch_embed_cuda(video, s1, b1, w, pbias, s2, b2, pt, p, eps):
@@ -223,31 +238,38 @@ def _patch_embed_cuda(video, s1, b1, w, pbias, s2, b2, pt, p, eps):
     return out
 
 
+def _embed_tail_bwd_tc(xn, wb, pbias, s2, dout, eps):
+    """The backward of the embed's product, bias and LN(dim) from the
+    normalised rows xn (R, patch_dim) and W (dim, patch_dim), both bf16, on
+    csrc/ffn_tc.cu's `wgmma`: yb = xn W^T + b rounded as the TPU kernel
+    rounds it (NT), the LN(dim) backward (dyb, ds2, db2 and dpb, the column
+    sum of the f32 dyb), dW = dyb^T xn (TN).  (dyb, dw, dpb, ds2, db2)."""
+    yb = K.gemm_bias_tc(xn, wb, pbias.to(torch.bfloat16).contiguous())
+    dyn = dout.reshape(xn.shape[0], wb.shape[0]).float().contiguous()
+    dyb, ds2, db2, dpb = K.layernorm_bwd(yb, s2, dyn, eps, want_dbias=True, want_dxsum=True)
+    del yb, dyn
+    return dyb, K.gemm_tn_tc(dyb, xn), dpb, ds2, db2
+
+
 def _patch_embed_bwd_cuda(video, s1, b1, w, pbias, s2, b2, dout, pt, p, eps,
                           want_dvideo: bool):
     """K16a: (dvideo or None, ds1, db1, dw, dpbias, ds2, db2), as
     _embed_bwd_kernel (patchify.py:269-327) computes them, its products on
     csrc/ffn_tc.cu's `wgmma`: the patch LN again (with each row's mean and
-    rstd), yb = xn W^T + b rounded as the TPU kernel rounds it (NT), the
-    LN(dim) backward (dyb, ds2, db2 and dpb, the column sum of the f32 dyb),
-    dW = dyb^T xn (TN).  Without d(volume), dxn = dyb W goes no further than
+    rstd), then `_embed_tail_bwd_tc`.  Without d(volume), dxn = dyb W goes no further than
     the NN product's epilogue, which takes ds1 and db1 from it and xhat
     rebuilt from the volume (`kernels.ln_sums_tc`); with it, dxn is stored
     in f32 and the LN(patch_dim) backward through the patch gather and K17
     follow."""
     b, F, H, W = video.shape
     n, pd = (F // pt) * (H // p) * (W // p), pt * p * p
-    R, dim, bf = b * n, w.shape[0], torch.bfloat16
+    R, bf = b * n, torch.bfloat16
     wb = w.to(bf).contiguous()
     xn = torch.empty((R, pd), dtype=bf, device=video.device)
     stats = None if want_dvideo else torch.empty((R, 2), dtype=torch.float32,
                                                  device=video.device)
     K.patch_layernorm(video, pt, p, s1, b1, eps, xn, stats=stats)
-    yb = K.gemm_bias_tc(xn, wb, pbias.to(bf).contiguous())
-    dyn = dout.reshape(R, dim).float().contiguous()
-    dyb, ds2, db2, dpb = K.layernorm_bwd(yb, s2, dyn, eps, want_dbias=True, want_dxsum=True)
-    del yb, dyn
-    dw = K.gemm_tn_tc(dyb, xn)
+    dyb, dw, dpb, ds2, db2 = _embed_tail_bwd_tc(xn, wb, pbias, s2, dout, eps)
     del xn
     dvideo = None
     if want_dvideo:
@@ -270,16 +292,30 @@ def _row_embed_cuda(rows, s1, b1, w, pbias, s2, b2, eps):
 
 
 def _row_embed_bwd_cuda(rows, s1, b1, w, pbias, s2, b2, dout, eps, want_drows: bool):
-    """K16b: (drows or None, ds1, db1, dw, dpbias, ds2, db2)."""
+    """K16b: (drows or None, ds1, db1, dw, dpbias, ds2, db2), as
+    _rows_bwd_kernel (patchify.py:487-549) computes them, on K16a's forms:
+    xn (and without d(rows) each row's mean and rstd) in one pass
+    (embed_tc.cu, bit for bit the forward's), then `_embed_tail_bwd_tc`.  Without d(rows), dxn = dyb W goes no further
+    than the NN product's epilogue, which takes ds1 and db1 from it and xhat
+    rebuilt from the rows (`kernels.ln_sums_rows_tc`); with it, dxn is
+    stored in f32 and the LN(patch_dim) row backward follows."""
     b, n, pd = rows.shape
-    x = rows.view(b * n, pd)
-    xn = torch.empty_like(x)
-    K.layernorm(x, s1, b1, eps, xn)
-    dxn, dw, dpb, ds2, db2 = _embed_tail_bwd(xn, w, pbias, s2, dout, eps)
+    R = b * n
+    x = rows.view(R, pd)
+    wb = w.to(torch.bfloat16).contiguous()
+    xn, stats = K.embed_ln_rows(x, s1, b1, eps, want_stats=not want_drows)
+    dyb, dw, dpb, ds2, db2 = _embed_tail_bwd_tc(xn, wb, pbias, s2, dout, eps)
     del xn
-    drows, ds1, db1 = K.layernorm_bwd(x, s1, dxn, eps, want_dbias=True, want_dx=want_drows)
+    drows = None
+    if want_drows:
+        dxn = torch.empty((R, pd), dtype=torch.float32, device=rows.device)
+        K.gemm_nn_tc(dyb, wb, dxn)
+        drows, ds1, db1 = K.layernorm_bwd(x, s1, dxn, eps, want_dbias=True)
+        drows = drows.view(b, n, pd)
+    else:
+        ds1, db1 = K.ln_sums_rows_tc(dyb, wb, x, stats)
     K.count_launch("row_embed_bwd")
-    return (None if drows is None else drows.view(b, n, pd)), ds1, db1, dw, dpb, ds2, db2
+    return drows, ds1, db1, dw, dpb, ds2, db2
 
 
 def _param_grads(grads, params):

@@ -43,9 +43,11 @@ three bf16 products (xh.c_hi + xh.c_lo) + xl.c_hi summed in f32
 (`vq_assign_exact_rows_plain`; `vq_assign_exact_rows_lane_plain`, the
 plain version of vq_tc.cu's form, takes the pre-pass's rows).  The EMA
 statistics (bins and the sums of the normalised rows per code) are K15's
-port, csrc/vq_stats.cu, which groups the rows by code and adds each code's
-rows in row order; on f32 rows each normalised row as its bf16 hi + lo
-parts (`cluster_stats_rows_plain`, vq.py:149-157).  On f32 rows the JAX
+port, csrc/vq_segstats.cu, which groups the rows by code, cuts each code's
+rows into segments of SEG_ROWS that a warp each adds in row order, and adds
+the segments' partials in a fixed order (`cluster_stats_segments_plain`);
+on f32 rows each normalised row as its bf16 hi + lo parts
+(`cluster_stats_rows_plain`, vq.py:149-157).  On f32 rows the JAX
 package takes its kernels only where its `_plan` does and its f32 XLA
 forms elsewhere (`_chunked_argmax_sim`, `_chunked_cluster_stats`,
 ops/vq.py:118-141); so does the port (`vq_route`), whose full-f32 plain
@@ -114,8 +116,8 @@ def vq_assign_rows_lane_plain(x: torch.Tensor, embed_n: torch.Tensor) -> torch.T
 
 def _lane_inv_norm(x: torch.Tensor) -> torch.Tensor:
     """(rows, 1) inverse norms 1 / sqrt(max(sum x^2, 1e-24)) of f32 rows as
-    csrc/vq_stats.cu's sum_f32_kernel and csrc/vq_tc.cu's pre-pass round
-    them: lane l of a warp adds,
+    csrc/vq_segstats.cu's f32 form and csrc/vq_tc.cu's pre-pass round them:
+    lane l of a warp adds,
     one rounded square at a time, the elements of its 16-byte pieces l,
     l + 32, ...; the 32 lanes' sums meet in a xor butterfly (16, 8, 4, 2,
     1); then a rounded sqrt and a rounded division."""
@@ -258,6 +260,62 @@ def cluster_stats_rows_plain(x: torch.Tensor, ids: torch.Tensor, codes: int,
         xh, xl = _split_rows(x[r:r + chunk], _lane_inv_norm)
         esum += onehot.t() @ (xh + xl)
     return bins, esum
+
+
+SEG_ROWS, SEG_GROUP = 32, 32  # csrc/vq_segstats.cu's SEG and GROUP
+
+
+def cluster_stats_segments_plain(x: torch.Tensor, ids: torch.Tensor, codes: int,
+                                 seg: int = SEG_ROWS, group: int = SEG_GROUP):
+    """Plain version of K15 in csrc/vq_segstats.cu's order of additions:
+    each code's rows, in row order, cut into segments of `seg` rows; each
+    segment's normalised rows added to a zero f32 sum in order (bf16 rows:
+    x rsqrt(max(sum x^2, 1e-24)), each element multiplied and added with one
+    rounding, as fmaf; f32 rows: each row's bf16 hi + lo parts, the norms in
+    `_lane_inv_norm`'s order, bit for bit the kernel's); a code of one
+    segment (an empty code's is zero) takes its sum, a longer one adds its
+    segments' partials in order in groups of `group`, then the groups' sums
+    in order.  bins (codes,) and embed_sum (codes, dim) f32."""
+    rows, dim = x.shape
+    dev = x.device
+    if x.dtype == torch.float32:
+        xh, xl = _split_rows(x, _lane_inv_norm)
+        xn, inv = xh + xl, None
+    else:
+        xn = x.float()
+        inv = torch.rsqrt(torch.clamp_min((xn * xn).sum(dim=-1, keepdim=True), 1e-24))
+    ids = ids.long()
+    bins = torch.bincount(ids, minlength=codes)
+    start = torch.cumsum(bins, 0) - bins
+    nseg = torch.clamp_min(-(-bins // seg), 1)
+    seg0 = torch.cumsum(nseg, 0) - nseg
+    order = torch.sort(ids, stable=True).indices  # each code's rows in row order
+    pos = torch.arange(rows, device=dev) - start[ids[order]]
+    which = seg0[ids[order]] + pos // seg
+    part = torch.zeros((int(nseg.sum()), dim), dtype=torch.float32, device=dev)
+    for t in range(seg):  # the t-th row of every segment that has one
+        sel = pos % seg == t
+        s, r = which[sel], order[sel]
+        if inv is None:
+            part[s] = part[s] + xn[r]
+        else:  # fmaf: the exact product and sum, rounded once
+            part[s] = (part[s].double() + xn[r].double() * inv[r].double()).float()
+    esum = part[seg0]  # codes of one segment
+    for k in torch.nonzero(nseg > 1).flatten().tolist():
+        own = part[int(seg0[k]):int(seg0[k] + nseg[k])]
+        sums = []
+        for g0 in range(0, own.shape[0], group):
+            acc = torch.zeros(dim, dtype=torch.float32, device=dev)
+            for p in own[g0:g0 + group]:
+                acc = acc + p
+            sums.append(acc)
+        acc = sums[0]
+        if len(sums) > 1:
+            acc = torch.zeros(dim, dtype=torch.float32, device=dev)
+            for p in sums:
+                acc = acc + p
+        esum[k] = acc
+    return bins.float(), esum
 
 
 def cluster_stats(x: torch.Tensor, ids: torch.Tensor, codes: int):

@@ -8,6 +8,7 @@ inputs.
     python tools/port_attention_tc_probe.py --kernel k17 | k9 | k9_f32 | k11 | k16a | k3_f32
                                             | k1 | k1_f32 | k3 | k5 | k2 | k2_f32 | k11_f32
                                             | k10_f32 | k10 | k5_exact | k14 | k4 | k8
+                                            | k15 | k16b
                                             [--tree DIR] [--copies]
     python tools/port_attention_tc_probe.py --kernel k9_copies | k9_f32_copies
 
@@ -193,6 +194,26 @@ yardstick F.layer_norm -> F.linear -> F.layer_norm (cuBLAS; a note, not one
 call).  With `--copies`, where the tree has `kernels.embed_tc`, also
 embed_tc.cu as built and one-change copies of it (`EMBED_COPIES`), each
 built alone.
+
+`--kernel k15`: K15 (`ops/vq.py::cluster_stats`, the VQ's EMA statistics
+over 8,192 codes) on bf16 and f32 rows of 512 at the contrastive step's
+110,592 rows and the autoencoder's 10,240, under three id distributions:
+uniform over the codes; the autoencoder's own (the ids its VQ assigns in
+the third `CTViTTrainer` step of `chip_smoke.ae_config()` at init seed 0
+on `chip_smoke.write_volumes`' batch, repeated to fill 110,592 rows, kept
+in build/ for the later trees of a comparison); and half
+the rows (at random positions) in one code, the rest uniform.  Events, host
+time, each kernel's device time and the launches per call; where the tree
+has `chip_smoke.vq_stats_twin`, vq_stats.cu's path (the one the segmented
+kernel replaced) beside it; and the library call, `index_add_` of
+the normalised rows with `bincount`.
+
+`--kernel k16b`: K16b (autograd of `fused_row_embed` on the aux steps'
+(8, 13,824, 4,000) bf16 patch rows -> 512) into the six weights, and again
+into the rows too: events, host time, each kernel's device time (ffn_tc.cu's
+forms apart) and the launches per call; where the tree has `chip_smoke.k16b_replaced`, the path
+it replaced (layernorm.cu's LN(4,000), gemm.cu's WMMA recompute, TN and NN
+products with dxn stored in f32, LN(512) and LN(4,000) backwards) beside it.
 
 `--kernel k9_copies`: K9's core at (192, 576) on copies of
 qknorm_attention_tc.cu with one change each, in turns, there and back, with
@@ -1165,6 +1186,138 @@ def embed(dev, g, volume: bool) -> dict:
     return row
 
 
+K15_CODES, K15_DIM = 8192, 512
+
+
+AE_ROWS = ROOT / "build" / "k15_ae_rows.pt"  # kept for the later runs of a comparison
+
+
+def ae_vq_rows(dev):
+    """(rows, ids) the autoencoder's VQ takes its statistics of in its third
+    generator step: `chip_smoke.ae_config()` at init seed 0, bf16, on
+    `chip_smoke.write_volumes`' batch of AE_B volumes (the last call of
+    `ops/vq.py::cluster_stats` in three steps, recorded), saved to AE_ROWS
+    by the first run and read from there by the later ones, so that every
+    tree of a comparison takes the same ids."""
+    import tempfile
+
+    if AE_ROWS.exists():
+        x, ids = torch.load(AE_ROWS)
+        return x.to(dev), ids.to(dev)
+
+    import chip_smoke as cs
+    import numpy as np
+    from ct_clip_tpu_torch.data.generatect import VideoDataset
+    from ct_clip_tpu_torch.models import CTViT
+    from ct_clip_tpu_torch.ops import vq as vq_mod
+    from ct_clip_tpu_torch.train import CTViTTrainer
+
+    cfg, seen = cs.ae_config(), []
+    stats = vq_mod.cluster_stats
+
+    def recorded(x, ids, codes):
+        seen[:] = [(x.clone(), ids.to(torch.int32).clone())]
+        return stats(x, ids, codes)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        ds = VideoDataset(str(cs.write_volumes(Path(work) / "v", cs.AE_B, (128, 128, 201), 6)),
+                          num_frames=cs.AE_FRAMES, image_size=cfg.image_size)
+        video = torch.from_numpy(np.stack([ds[i] for i in range(len(ds))]))[..., None].to(dev)
+        model = CTViT(cfg, dtype=torch.bfloat16, device=dev).init_weights(
+            torch.Generator(device=dev).manual_seed(0))
+        trainer = CTViTTrainer(model, results_folder=str(Path(work) / "r"),
+                               save_model_every=10 ** 9, save_results_every=10 ** 9)
+        vq_mod.cluster_stats = recorded
+        try:
+            for _ in range(3):
+                trainer.train_step(video)
+        finally:
+            vq_mod.cluster_stats = stats
+    del trainer, model, video
+    torch.cuda.empty_cache()
+    torch.save([t.cpu() for t in seen[0]], AE_ROWS)
+    return seen[0]
+
+
+def k15_ids(dist: str, rows: int, g, dev, ae_ids=None):
+    """(rows,) int32 ids over K15_CODES codes: "uniform"; "ae", the
+    autoencoder's ids repeated to `rows`; "half", half the rows (at random
+    positions) in code 0 and the rest uniform."""
+    ids = torch.randint(0, K15_CODES, (rows,), generator=g, device=dev, dtype=torch.int32)
+    if dist == "ae":
+        ids = ae_ids.repeat(-(-rows // ae_ids.numel()))[:rows].contiguous()
+    elif dist == "half":
+        ids[torch.randperm(rows, generator=g, device=dev)[: rows // 2]] = 0
+    return ids
+
+
+def k15(dev, g) -> dict:
+    """K15 at two row counts, two row dtypes and three id distributions, and
+    the path it replaced (module doc)."""
+    import chip_smoke as cs
+    from ct_clip_tpu_torch.ops.norms import l2norm
+    from ct_clip_tpu_torch.ops.vq import cluster_stats
+
+    ae_x, ae_ids = ae_vq_rows(dev)
+    out = {"ae_ids": dict(rows=ae_ids.numel(), codes_used=int(ae_ids.unique().numel()),
+                          fullest=int(torch.bincount(ae_ids, minlength=K15_CODES).max()))}
+    print(f"K15 autoencoder ids: {json.dumps(out['ae_ids'])}", flush=True)
+    for rows in (110592, 10240):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((rows, K15_DIM), generator=g, device=dev).to(dtype)
+            if rows == ae_x.shape[0]:
+                x = ae_x.to(dtype)  # the autoencoder's own rows at its own size
+            for dist in ("uniform", "ae", "half"):
+                ids = k15_ids(dist, rows, g, dev, ae_ids)
+
+                def library():
+                    e = torch.zeros((K15_CODES, K15_DIM), device=dev)
+                    e.index_add_(0, ids.long(), l2norm(x.float()))
+                    return torch.bincount(ids, minlength=K15_CODES), e
+                call = lambda: cluster_stats(x, ids, K15_CODES)  # noqa: E731
+                row = dict(fullest=int(torch.bincount(ids, minlength=K15_CODES).max()),
+                           k15=_timed(call), library=_timed(library))
+                row["k15"]["launches_per_call"] = launches_per_call(call)
+                if hasattr(cs, "vq_stats_twin"):
+                    row["replaced"] = _timed(lambda: cs.vq_stats_twin(x, ids, K15_CODES))
+                label = f"{str(dtype).split('.')[-1]}_{rows}_{dist}"
+                print(f"K15 {label}: {json.dumps(row)}", flush=True)
+                out[label] = row
+            del x
+            torch.cuda.empty_cache()
+    return out
+
+
+def k16b(dev, g) -> dict:
+    """K16b at the aux steps' batch, without and with d(rows), and the path
+    it replaced (module doc)."""
+    import chip_smoke as cs
+    from ct_clip_tpu_torch.ops.patch_embed import fused_row_embed
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    dim, pd, b, bf = 512, 4000, 8, torch.bfloat16
+    rows = (torch.rand((b, 13824, pd), generator=g, device=dev) * 2 - 1).to(bf)
+    pe = [1 + rn(pd, scale=0.1), rn(pd, scale=0.1), rn(dim, pd, scale=pd ** -0.5),
+          rn(dim, scale=0.1), 1 + rn(dim, scale=0.1), rn(dim, scale=0.1)]
+    do = rn(b, 13824, dim).to(bf)
+    res = {}
+    for label, with_rows in (("k16b", False), ("k16b_drows", True)):
+        leaves = [t.clone().requires_grad_() for t in ([rows] if with_rows else []) + pe]
+        with torch.enable_grad():
+            out = fused_row_embed(*(leaves if with_rows else [rows, *leaves]))
+        call = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
+        res[label] = _timed(call, "ff_tc_gemm")
+        res[label]["launches_per_call"] = launches_per_call(call)
+        print(f"{label}: {json.dumps(res[label])}", flush=True)
+        if hasattr(cs, "k16b_replaced"):
+            key = f"{label}_replaced"
+            res[key] = _timed(lambda: cs.k16b_replaced(rows, pe, do, with_rows))
+            print(f"{key}: {json.dumps(res[key])}", flush=True)
+        del out, leaves
+        torch.cuda.empty_cache()
+    return res
+
+
 # one-change copies of embed_tc.cu that compute garbage and only measure: no
 # normalise (the raw rows multiplied), no products (every wgmma left out),
 # neither (the copies, barriers and handshakes alone); and s1, b1 read from
@@ -1245,11 +1398,11 @@ def main() -> int:
                     choices=("attention", "k17", "k9", "k9_f32", "k11", "k16a", "k3_f32",
                              "k9_copies", "k9_f32_copies", "k1", "k1_f32", "k3", "k5", "k2",
                              "k2_f32", "k11_f32", "k10_f32", "k10", "k5_exact", "k14", "k4",
-                             "k8"))
+                             "k8", "k15", "k16b"))
     ap.add_argument("--tree", default=str(ROOT),
                     help="the checkout whose package is timed (k17, k9, k9_f32, k11, k16a, "
                          "k3_f32, k1, k1_f32, k3, k5, k2, k2_f32, k11_f32, k10_f32, k10, "
-                         "k5_exact, k14, k4, k8)")
+                         "k5_exact, k14, k4, k8, k15, k16b)")
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     ap.add_argument("--copies", action="store_true",
                     help="k4, k8: also one-change copies of embed_tc.cu (EMBED_COPIES)")
@@ -1276,6 +1429,7 @@ def main() -> int:
             k3=k3, k5=k5, k2=k2, k2_f32=lambda dev, g: k2(dev, g, torch.float32),
             k11_f32=k11_f32, k10_f32=k10_f32, k10=k10, k5_exact=k5_exact, k14=k14,
             k4=lambda dev, g: embed(dev, g, False), k8=lambda dev, g: embed(dev, g, True),
+            k15=k15, k16b=k16b,
             k9_copies=k9_copies,
             k9_f32_copies=lambda dev, g: k9_copies(dev, g, QK32, QK32_COPIES, torch.float32),
             )[args.kernel](dev, g)
